@@ -3,13 +3,14 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--rows 2000000] [--profile]
+    python3 chip_smoke.py [--rows 2000000] [--sparse-rows 1000000] [--profile]
 
 It builds the port's CUDA kernels from lightgbm_tpu_torch/csrc, holds each
-against its plain torch version at the flagship shapes, times it, trains
-the flagship binary recipe through ``lightgbm_tpu_torch.train`` and checks
-what comes out.  Any failed check ends the run with a non-zero exit code
-and no result line.  Without a CUDA device it exits non-zero at once.
+against its plain torch version at the main paths' shapes, times it,
+trains the flagship binary recipe and the Bosch-shaped sparse recipe
+through ``lightgbm_tpu_torch.train`` and checks what comes out.  Any
+failed check ends the run with a non-zero exit code and no result line.
+Without a CUDA device it exits non-zero at once.
 
 Phases, in order:
  1. The card's name and power limit (nvidia-smi); the kernels' build.
@@ -29,7 +30,18 @@ Phases, in order:
     set to 0 just before and read just after; the valid AUC must exceed
     0.8, the device-side scores must agree with the host-side trees, and a
     small run on the card must grow the trees the CPU grows.
- 5. One JSON line of kernels, the card line, and the result line.
+ 5. Sparse: tools/tpu_ab2.py's Bosch-shaped data (968 columns, 1% dense,
+    built directly as CSR), binned sparsely, in the entry-chunk store.
+    Kernel B6 against its plain version in float64 at K = 32 on a
+    grower-like leaf state (phase 2's tolerance, fill and inactive slots
+    exactly 0, repeats bit-identical) and its timing as in phase 3; then
+    training with tpu_sparse and tpu_sparse_kernel, every counter set to
+    0 just before and read just after: B6 once a wave and once a tree
+    (the root), B1 and B3 never, B2 once an iteration, valid AUC above
+    0.8, device valid scores equal to the host trees, a model text round
+    trip, and a small sparse run on the card that grows the CPU's trees
+    and the dense path's trees.
+ 6. One JSON line of kernels, the card line, and the result line.
 """
 import argparse
 import json
@@ -45,6 +57,8 @@ F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 REPS = 20
 VALID_ROWS = 200_000
 ITERS = 5
+SPARSE_COLS = 968             # Bosch's width (BASELINE.md)
+SPARSE_DENSITY = 0.01
 
 
 def flagship_params():
@@ -52,6 +66,37 @@ def flagship_params():
     return {"objective": "binary", "num_leaves": 255, "max_bin": 63,
             "learning_rate": 0.1, "min_data_in_leaf": 1, "verbose": -1,
             "metric": "auc", "tpu_growth": "wave", "tpu_wave_width": 32}
+
+
+def sparse_params():
+    """The flagship recipe on the entry-chunk sparse store."""
+    return dict(flagship_params(), tpu_sparse=True, tpu_sparse_kernel=True)
+
+
+def make_sparse_data(n_rows, seed):
+    """tools/tpu_ab2.py's Bosch-shaped recipe as CSR, never dense: nnz
+    normal float32 values at uniform (row, column) draws, in the script's
+    draw order (its assignment evaluates the values before the indices);
+    a coordinate drawn twice keeps its last value, as the script's dense
+    assignment does; y = x0 + x1 > 0.02 in float32."""
+    import scipy.sparse as sps
+    rng = np.random.default_rng(seed)
+    nnz = int(n_rows * SPARSE_COLS * SPARSE_DENSITY)
+    vals = rng.normal(size=nnz).astype(np.float32)
+    rows = rng.integers(0, n_rows, nnz)
+    cols = rng.integers(0, SPARSE_COLS, nnz)
+    key = rows * SPARSE_COLS + cols
+    uniq, last = np.unique(key[::-1], return_index=True)   # last write wins
+    vals = vals[::-1][last]
+    r, c = uniq // SPARSE_COLS, uniq % SPARSE_COLS
+    indptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(np.bincount(r, minlength=n_rows), out=indptr[1:])
+    X = sps.csr_matrix((vals.astype(np.float64), c, indptr),
+                       shape=(n_rows, SPARSE_COLS))
+    x01 = [np.zeros(n_rows, np.float32) for _ in range(2)]
+    for j in range(2):
+        x01[j][r[c == j]] = vals[c == j]
+    return X, (x01[0] + x01[1] > 0.02).astype(np.float64)
 
 
 def make_data(n_rows, n_features=28):
@@ -251,6 +296,238 @@ def kernel_phase(X_t, meta_default_bin, wk, tp, clipped_leaf_values):
     return records
 
 
+def sparse_kernel_phase(store, n_rows, num_bins, sm):
+    """Phases 2 and 3 for B6 on the Bosch store: K = 32 child slots on a
+    grower-like leaf state (64 leaves, each wave's 32 smaller children).
+    Returns B6's record."""
+    import torch
+    dev = store.ent_row.device
+    F, B, K = store.num_cols, num_bins, 32
+    g = torch.Generator(device="cpu").manual_seed(1)
+    lid = torch.randint(0, 2 * K, (n_rows,), generator=g,
+                        dtype=torch.int32).to(dev)
+    w3 = torch.randn((n_rows, 3), generator=g).to(dev)
+    cid = (torch.randperm(2 * K, generator=g)[:K].to(torch.int32)
+           .to(dev))
+    hist = sm.sparse_wave_histogram(store, lid, w3, cid, B, F)
+    again = sm.sparse_wave_histogram(store, lid, w3, cid, B, F)
+    need(torch.equal(hist, again), "B6 repeat launch not bit-identical")
+    want = sm.chunked_child_hists_plain(store, lid, w3.double(), cid, B, F)
+    scale = sm.chunked_child_hists_plain(store, lid, w3.double().abs(), cid,
+                                         B, F)
+    diff = (hist.double() - want).abs()
+    tol = 1e-5 * scale + 1e-5 * float(w3.abs().max())
+    err = float(diff.max())
+    need(bool((diff <= tol).all()),
+         "B6 histogram outside tolerance (max abs err %g)" % err)
+    fill = store.fill.long()
+    need(bool((hist[:, torch.arange(F, device=dev), fill] == 0).all()),
+         "B6 fill-bin slots not exactly 0")
+    inactive = cid.clone()
+    inactive[::2] = -1
+    h_in = sm.sparse_wave_histogram(store, lid, w3, inactive, B, F)
+    need(bool((h_in[::2] == 0).all()) and torch.equal(h_in[1::2], hist[1::2]),
+         "B6 inactive slots not exactly 0")
+
+    # library yardstick: one torch.bincount a channel over a flattened
+    # (slot, column, bin) index of the entries, built beforehand
+    e = store.ent_bin.shape[1]
+    rows = store.ent_row.reshape(-1).long()
+    bins = store.ent_bin.reshape(-1).long()
+    cols = store.chunk_col[:, 0].long().repeat_interleave(e)
+    real = rows < n_rows
+    rc = rows.clamp(max=n_rows - 1)
+    slot_of_leaf = torch.full((2 * K,), -1, dtype=torch.long, device=dev)
+    slot_of_leaf[cid.long()] = torch.arange(K, device=dev)
+    slot = slot_of_leaf[lid.long()[rc]]
+    spare = K * F * B
+    cell = torch.where(real & (slot >= 0), (slot * F + cols) * B + bins,
+                       torch.full_like(rows, spare))
+    ws = [w3[rc, c].contiguous() for c in range(3)]
+    n_ent = int(real.sum())
+    n_act = int((real & (slot >= 0)).sum())
+    rec = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: sm.sparse_wave_histogram(store, lid, w3, cid, B,
+                                                    F)),
+        plain_ms=time_ms(lambda: sm.chunked_child_hists_plain(
+            store, lid, w3, cid, B, F)),
+        library_ms=time_ms(lambda: [torch.bincount(cell, weights=w,
+                                                   minlength=spare + 1)
+                                    for w in ws]),
+        shape="N=%d F=%d B=%d K=%d E=%d, %d entries, %d in a child slot"
+              % (n_rows, F, B, K, e, n_ent, n_act),
+        nbytes=n_ent * 8 + n_rows * 16 + K * F * B * 12,
+        flops=3 * n_act)
+    rec["bound_ms"], rec["bound_by"] = bound(rec.pop("nbytes"),
+                                             rec.pop("flops"))
+    say("kernel %-20s %s: %.4f ms, plain %.4f ms, library %.4f ms, "
+        "bound %.4f ms (%s), max abs err %.3g"
+        % ("sparse_wave_histogram", rec["shape"], rec["ms"], rec["plain_ms"],
+           rec["library_ms"], rec["bound_ms"], rec["bound_by"],
+           rec["max_abs_err"]))
+    return rec
+
+
+def structure(booster, with_thresholds=False):
+    keys = ("split_feature", "left_child", "right_child", "leaf_count")
+    if with_thresholds:
+        keys += ("threshold=",)
+    return [ln for ln in booster.model_to_string().splitlines()
+            if ln.startswith(keys)]
+
+
+def small_sparse_run_matches(lgb):
+    """A small sparse run on the card (kernel B6) grows the trees the CPU
+    grows (compared as small_run_matches_cpu compares them) and the trees
+    the port's dense path grows on the card from the same data: the same
+    partitions, leaf values to 5e-4 of the largest (the dense path sums
+    the default bin directly, the sparse path rebuilds it as the leaf sum
+    minus the other bins; tests/test_torch_sparse_train.py says more)."""
+    import scipy.sparse as sps
+    rng = np.random.default_rng(0)
+    n = 2500
+    X = np.where(rng.random((n, 12)) < 0.2, rng.normal(size=(n, 12)), 0.0)
+    X[:, 0] = rng.normal(size=n)
+    y = (X[:, 0] + 0.7 * X[:, 1] + 0.5 * X[:, 2] * X[:, 3] + 0.4 * X[:, 9]
+         + 0.3 * rng.normal(size=n) > 0).astype(float)
+    C = sps.csr_matrix(X)
+    p = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 20,
+         "max_bin": 63, "verbose": -1, "tpu_growth": "wave",
+         "tpu_wave_width": 4, "tpu_sparse": True, "tpu_sparse_kernel": True}
+    dense_p = {k: v for k, v in p.items() if not k.startswith("tpu_sparse")}
+    card = lgb.train(p, lgb.Dataset(C, label=y), 3, device="cuda")
+    cpu = lgb.train(p, lgb.Dataset(C, label=y), 3, device="cpu")
+    dense = lgb.train(dense_p, lgb.Dataset(X, label=y), 3, device="cuda")
+    need(structure(card) == structure(cpu),
+         "small sparse run: trees differ from the CPU's")
+    need(np.allclose(card.predict(C), cpu.predict(C), rtol=1e-5, atol=0),
+         "small sparse run: predictions differ from the CPU's")
+    need(structure(card) == structure(dense),
+         "small sparse run: trees differ from the dense path's")
+    lv = [np.array(ln.split("=")[1].split(), float)
+          for b in (card, dense) for ln in b.model_to_string().splitlines()
+          if ln.startswith("leaf_value")]
+    half = len(lv) // 2
+    a, b = np.concatenate(lv[:half]), np.concatenate(lv[half:])
+    need(np.abs(a - b).max() <= 5e-4 * np.abs(b).max(),
+         "small sparse run: leaf values differ from the dense path's")
+
+
+def sparse_phase(args, lgb, tp, wk, sm, card):
+    """Phase 5: B6 at the Bosch store, then sparse training on it.
+    Returns (B6's record, the run's launch counts)."""
+    import torch
+    t0 = time.perf_counter()
+    Xs, ys = make_sparse_data(args.sparse_rows, 7)
+    Xsv, ysv = make_sparse_data(VALID_ROWS, 8)
+    t_csr = time.perf_counter() - t0
+    params = sparse_params()
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(Xs, label=ys, params=params).construct()
+    dv = lgb.Dataset(Xsv, label=ysv, reference=ds).construct()
+    t_bin = time.perf_counter() - t0
+    td = ds._handle
+    from lightgbm_tpu_torch.ops.sparse_store import column_fill_bins
+    ncols = (td.bundle.num_groups if td.bundle is not None
+             else td.num_features)
+    nbins = (int(td.bundle.num_group_bins.max()) if td.bundle is not None
+             else int(td.num_bin_arr.max()))
+    t0 = time.perf_counter()
+    store, cap, nbytes = sm.build_chunked_store(
+        td.binned, column_fill_bins(td.num_bin_arr, td.default_bin_arr,
+                                    td.bundle), nbins, auto_uniform=True,
+        device="cuda")
+    torch.cuda.synchronize()
+    t_store = time.perf_counter() - t0
+    say("sparse data: %d train rows, %d valid rows, %d columns, %d nonzeros "
+        "(%.4f%%), %d used features, %d device columns, %d bins max, "
+        "bundles %s; set-up: CSR %.2f s, binning %.2f s, store %.2f s "
+        "(%d chunks of %d entries, cap %d, %.1f MB on the device)"
+        % (Xs.shape[0], Xsv.shape[0], Xs.shape[1], Xs.nnz,
+           100.0 * Xs.nnz / (Xs.shape[0] * Xs.shape[1]), td.num_features,
+           ncols, nbins, td.bundle is not None, t_csr, t_bin, t_store,
+           store.ent_bin.shape[0], store.ent_bin.shape[1], cap, nbytes / 1e6))
+    need(Xs.shape[1] == SPARSE_COLS and td.num_features > 900,
+         "unexpected sparse binning")
+    record = sparse_kernel_phase(store, Xs.shape[0], nbins, sm)
+    del store
+    torch.cuda.empty_cache()
+
+    # ---- the sparse main path: lightgbm_tpu_torch.train on the store
+    stamps = []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    evals = {}
+    wk.wave_partition_hist.launches = 0
+    wk.wave_histogram.launches = 0
+    tp.score_update.launches = 0
+    sm.sparse_wave_histogram.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    booster = lgb.train(params, ds, ITERS, valid_sets=[dv],
+                        evals_result=evals, callbacks=[stamp])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = {"wave_partition_hist": wk.wave_partition_hist.launches,
+                "wave_histogram": wk.wave_histogram.launches,
+                "score_update": tp.score_update.launches,
+                "sparse_wave_histogram": sm.sparse_wave_histogram.launches}
+    learner = booster._gbdt.learner
+    stats = booster.grow_stats()
+    trees = len(stats)
+    waves = sum(s.waves for s in stats)
+    reads = sum(s.host_reads for s in stats)
+    want_b6 = waves + trees + (0 if learner.cache_hists else waves)
+    say("sparse train launches: %s; %d trees, %d waves, histogram cache %s"
+        % (launches, trees, waves, learner.cache_hists))
+    need(learner.hist_mode == "sparse_mxu", "sparse run did not take the "
+         "sparse store (%s)" % learner.hist_mode)
+    need(trees == ITERS, "sparse: grew %d trees, wanted %d" % (trees, ITERS))
+    need(launches["sparse_wave_histogram"] == want_b6 and waves > 0,
+         "B6 launches %d != waves + trees (%d)"
+         % (launches["sparse_wave_histogram"], want_b6))
+    need(launches["wave_partition_hist"] == 0
+         and launches["wave_histogram"] == 0,
+         "B1/B3 ran on the sparse path")
+    need(launches["score_update"] == ITERS,
+         "sparse: B2 launches %d != iterations %d"
+         % (launches["score_update"], ITERS))
+    auc = evals["valid_0"]["auc"][-1]
+    need(auc > 0.8, "sparse valid AUC %.4f <= 0.8" % auc)
+    steady = ((len(stamps) - 1) / (stamps[-1] - stamps[0])
+              if len(stamps) > 1 else float("nan"))
+    say("sparse train on %s: %d iterations in %.3f s including set-up "
+        "(%.4f it/s); steady %.4f it/s over iterations 2-%d; %.2f "
+        "waves/tree, %.2f host reads/tree, leaves/tree %s, depth %s; "
+        "valid AUC %.6f; peak device memory %.2f GB"
+        % (card, ITERS, t_train, ITERS / t_train, steady, ITERS,
+           waves / trees, reads / trees, [s.num_leaves for s in stats],
+           [s.depth for s in stats], auc,
+           torch.cuda.max_memory_allocated() / 1e9))
+    raw_dev = booster._gbdt.valid_score_host(0)[0]
+    raw_host = booster.predict(Xsv, raw_score=True)
+    need(raw_host.shape == (Xsv.shape[0],) and np.isfinite(raw_host).all(),
+         "sparse valid predictions not finite or of the wrong shape")
+    need(np.allclose(raw_dev, raw_host, rtol=1e-5, atol=1e-5),
+         "sparse: device valid scores differ from host trees (max %g)"
+         % np.abs(raw_dev - raw_host).max())
+    again = lgb.Booster(model_str=booster.model_to_string())
+    need(np.array_equal(again.predict(Xsv[:1000]),
+                        booster.predict(Xsv[:1000])),
+         "sparse: model text round trip changed predictions")
+    small_sparse_run_matches(lgb)
+    say("sparse checks: device scores match host trees; model text round "
+        "trip; small sparse run on the card matches the CPU and the dense "
+        "path")
+    if args.profile:
+        profile_iteration(booster, card)
+    return record, launches
+
+
 def profile_iteration(booster, card):
     """One more iteration under torch.profiler: its wall time, the device's
     busy share and the device time by kernel, largest first."""
@@ -314,10 +591,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="training rows (bench.py's flagship has 10,500,000)")
+    ap.add_argument("--sparse-rows", type=int, default=1_000_000,
+                    help="sparse training rows (Bosch has 1,000,000)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the checks, profile one more iteration")
+                    help="after each training run's checks, profile one "
+                         "more iteration")
     args = ap.parse_args()
     need(1000 <= args.rows <= 10_500_000, "--rows must be in [1000, 10.5M]")
+    need(1000 <= args.sparse_rows <= 2_000_000,
+         "--sparse-rows must be in [1000, 2M]")
 
     import torch
     if not torch.cuda.is_available():
@@ -328,6 +610,7 @@ def main():
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch import _build
     from lightgbm_tpu_torch.ops import predict as tp
+    from lightgbm_tpu_torch.ops import sparse_mxu as sm
     from lightgbm_tpu_torch.ops import wave_kernels as wk
     from lightgbm_tpu_torch.ops.partition import clipped_leaf_values
 
@@ -441,14 +724,25 @@ def main():
         "small run on the card matches the CPU")
     if args.profile:
         profile_iteration(booster, card)
+    del booster
+    torch.cuda.empty_cache()
 
-    # ---- 5. result lines
+    # ---- 5. the sparse path: B6 at the Bosch store, then training
+    records["sparse_wave_histogram"], sparse_launches = sparse_phase(
+        args, lgb, tp, wk, sm, card)
+    launches["sparse_wave_histogram"] = sparse_launches[
+        "sparse_wave_histogram"]
+
+    # ---- 6. result lines
     sources = {"wave_partition_hist": ("lightgbm_tpu_torch/csrc/wave_hist.cu",
                                        "lightgbm_tpu/ops/pallas_wave.py:508"),
                "wave_histogram": ("lightgbm_tpu_torch/csrc/wave_hist.cu",
                                   "lightgbm_tpu/ops/pallas_wave.py:367"),
                "score_update": ("lightgbm_tpu_torch/csrc/score_update.cu",
-                                "lightgbm_tpu/ops/predict.py:151")}
+                                "lightgbm_tpu/ops/predict.py:151"),
+               "sparse_wave_histogram": (
+                   "lightgbm_tpu_torch/csrc/sparse_hist.cu",
+                   "lightgbm_tpu/ops/sparse_mxu.py:196")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = records[name]

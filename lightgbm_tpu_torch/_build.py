@@ -117,6 +117,8 @@ def library() -> ctypes.CDLL:
         lib.lgbt_wave_hist.restype = ci
         lib.lgbt_score_update.argtypes = [vp, vp, vp, vp, cll, ci, vp]
         lib.lgbt_score_update.restype = ci
+        lib.lgbt_sparse_hist.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+        lib.lgbt_sparse_hist.restype = ci
         _lib = lib
         return lib
 

@@ -1,5 +1,5 @@
 """Python-facing Dataset and Booster: the JAX package's ``basic.py``
-surface for dense in-memory matrices.
+surface for in-memory matrices, dense or scipy sparse.
 
 Semantics kept: lazy Dataset construction, validation sets binned with the
 training set's mappers, the parameter dict with its aliases, training,
@@ -14,6 +14,8 @@ import numpy as np
 
 from .device import resolve_device
 from .io.dataset import TrainingData
+from .io.sparse import (SparseColumns, from_scipy, is_scipy_sparse,
+                        iter_dense_row_chunks)
 from .metrics import create_metric
 from .models.gbdt import GBDT
 from .objectives import create_objective
@@ -23,13 +25,16 @@ from .utils.log import LightGBMError
 __all__ = ["Dataset", "Booster", "LightGBMError"]
 
 
-def _dense_matrix(data) -> np.ndarray:
+def _matrix(data):
+    """A dense float64 array, or SparseColumns for scipy sparse input,
+    which stays sparse (binned column by column, never densified)."""
     if isinstance(data, str):
         raise LightGBMError("lightgbm_tpu_torch reads in-memory matrices "
                             "only; load the file into a numpy array first")
-    if hasattr(data, "tocsc") or hasattr(data, "nnz"):
-        raise LightGBMError("sparse input is not in lightgbm_tpu_torch yet; "
-                            "pass a dense numpy array")
+    if isinstance(data, SparseColumns):
+        return data
+    if is_scipy_sparse(data):
+        return from_scipy(data)
     return np.asarray(data, dtype=np.float64)
 
 
@@ -39,7 +44,7 @@ class Dataset:
     def __init__(self, data, label=None, max_bin=None, reference=None,
                  weight=None, init_score=None, feature_name="auto",
                  categorical_feature="auto", params=None):
-        self.data = _dense_matrix(data)
+        self.data = _matrix(data)
         self.label = None if label is None else np.asarray(label)
         self.reference = reference
         self.weight = weight
@@ -71,7 +76,10 @@ class Dataset:
                                             % c)
                     c = names.index(c)
                 cats.append(int(c))
-        self._handle = TrainingData.from_matrix(
+        build = (TrainingData.from_csc
+                 if isinstance(self.data, SparseColumns)
+                 else TrainingData.from_matrix)
+        self._handle = build(
             self.data, label=self.label, config=cfg, weights=self.weight,
             init_score=self.init_score, categorical_feature=cats,
             feature_names=names, reference=ref_td)
@@ -96,9 +104,13 @@ class Dataset:
         return self
 
     def num_data(self) -> int:
+        if isinstance(self.data, SparseColumns):
+            return self.data.num_row
         return int(self.data.shape[0])
 
     def num_feature(self) -> int:
+        if isinstance(self.data, SparseColumns):
+            return self.data.num_col
         return int(self.data.shape[1])
 
     def get_label(self):
@@ -210,12 +222,19 @@ class Booster:
     # -------------------------------------------------------------- predict
     def predict(self, data, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:
-        """Predict rows of a dense matrix (float64 trees on the host)."""
+        """Predict rows of a dense or scipy sparse matrix (float64 trees on
+        the host); sparse input is densified a bounded row chunk at a
+        time."""
         if isinstance(data, Dataset):
             raise TypeError("Cannot use Dataset instance for prediction, "
                             "please use raw data instead")
-        return self._gbdt.predict(_dense_matrix(data), num_iteration,
-                                  raw_score)
+        mat = _matrix(data)
+        if isinstance(mat, SparseColumns):
+            outs = [self._gbdt.predict(block, num_iteration, raw_score)
+                    for _, block in iter_dense_row_chunks(mat)]
+            return (np.concatenate(outs) if outs
+                    else np.zeros(0, dtype=np.float64))
+        return self._gbdt.predict(mat, num_iteration, raw_score)
 
     # ------------------------------------------------------------- model io
     def model_to_string(self, num_iteration: int = -1) -> str:

@@ -1,7 +1,8 @@
 """Training dataset: binned column store + metadata (host side, numpy).
 
 Parity target: src/io/dataset.cpp + src/io/dataset_loader.cpp, the
-in-memory ``from_matrix`` path of the JAX package's ``io/dataset.py``.
+in-memory ``from_matrix`` and sparse ``from_csc`` paths of the JAX
+package's ``io/dataset.py``.
 The binned matrix is a dense row-major ``(num_data, num_used_columns)``
 uint8/uint16 array; with EFB its columns are feature groups
 (io/bundle.py).  Binned bytes, mapper dicts and the bundle layout are
@@ -73,6 +74,46 @@ class TrainingData:
         else:
             self._construct_mappers(data, config, cats)
             self._bin_data(data)
+        self._set_metadata(label, weights, init_score)
+        return self
+
+    @classmethod
+    def from_csc(cls, sp, label=None, config: Optional[Config] = None,
+                 weights=None, init_score=None,
+                 categorical_feature: Sequence[int] = (),
+                 feature_names: Optional[List[str]] = None,
+                 reference: Optional["TrainingData"] = None
+                 ) -> "TrainingData":
+        """Sparse ingestion without densification (SparseBin analog,
+        sparse_bin.hpp:68 + dataset_loader.cpp:840-930).
+
+        sp: io.sparse.SparseColumns.  Bin mappers come from each column's
+        sampled NONZERO values (zeros are implicit in find_bin's total
+        count, as the dense path drops them), EFB runs on the sample
+        rebuilt sparsely, and binned columns are a default-bin fill plus a
+        nonzero scatter: the N x F float64 matrix never exists."""
+        config = config or Config()
+        self = cls()
+        n = sp.num_row
+        self.num_data = n
+        self.num_total_features = sp.num_col
+        self.max_bin = config.max_bin
+        self.feature_names = list(feature_names) if feature_names else [
+            "Column_%d" % i for i in range(sp.num_col)]
+        cats = set(int(c) for c in categorical_feature)
+        if reference is not None:
+            if sp.num_col != reference.num_total_features:
+                Log.fatal("Validation data has %d features, train data "
+                          "has %d", sp.num_col,
+                          reference.num_total_features)
+            self._copy_binning_from(reference)
+        else:
+            self._construct_mappers_sparse(sp, config, cats)
+        self._bin_sparse(sp)
+        self._set_metadata(label, weights, init_score)
+        return self
+
+    def _set_metadata(self, label, weights, init_score) -> None:
         if label is not None:
             self.metadata.set_label(label)
         else:
@@ -81,20 +122,23 @@ class TrainingData:
             self.metadata.set_weights(weights)
         if init_score is not None:
             self.metadata.set_init_score(init_score)
-        return self
+
+    def _sample_rows(self, config: Config) -> np.ndarray:
+        """Row ids of the binning sample (dataset_loader.cpp:159-216)."""
+        n = self.num_data
+        rng = Random(config.data_random_seed)
+        sample_idx = rng.sample(n, min(config.bin_construct_sample_cnt, n))
+        if len(sample_idx) == 0:
+            sample_idx = np.arange(n, dtype=np.int32)
+        return sample_idx
 
     def _construct_mappers(self, data: np.ndarray, config: Config,
                            categorical: set) -> None:
-        n = self.num_data
-        sample_cnt = min(config.bin_construct_sample_cnt, n)
-        rng = Random(config.data_random_seed)
-        sample_idx = rng.sample(n, sample_cnt)
-        if len(sample_idx) == 0:
-            sample_idx = np.arange(n, dtype=np.int32)
-        sample = data[sample_idx]
+        sample = data[self._sample_rows(config)]
         total_sample = len(sample)
         # filter_cnt formula from dataset_loader.cpp:491-492
-        filter_cnt = int(config.min_data_in_leaf * total_sample / max(n, 1))
+        filter_cnt = int(config.min_data_in_leaf * total_sample
+                         / max(self.num_data, 1))
 
         self.bin_mappers = []
         for f in range(self.num_total_features):
@@ -106,7 +150,59 @@ class TrainingData:
             m.find_bin(nonzero, total_sample, config.max_bin,
                        config.min_data_in_bin, filter_cnt, bin_type)
             self.bin_mappers.append(m)
+        self._finish_mappers(config, lambda: np.stack(
+            [self.bin_mappers[r].value_to_bin(sample[:, r])
+             .astype(np.uint16) for r in self.used_feature_idx], axis=1))
 
+    def _construct_mappers_sparse(self, sp, config: Config,
+                                  categorical: set) -> None:
+        n = sp.num_row
+        sample_idx = self._sample_rows(config)
+        total_sample = len(sample_idx)
+        # row -> sample position (or -1): each column's sampled nonzeros
+        # come from one O(column nnz) lookup
+        sample_pos = np.full(n, -1, dtype=np.int64)
+        sample_pos[np.asarray(sample_idx, dtype=np.int64)] = \
+            np.arange(total_sample)
+        filter_cnt = int(config.min_data_in_leaf * total_sample / max(n, 1))
+
+        self.bin_mappers = []
+        col_sample = []
+        for f in range(sp.num_col):
+            rows, vals = sp.column(f)
+            pos = sample_pos[rows]
+            sel = pos >= 0
+            sv, spos = vals[sel], pos[sel]
+            # NaN entries stay in the sample: the dense EFB sample bins
+            # them with value_to_bin, and only find_bin drops them
+            col_sample.append((spos, sv))
+            fb = sv[~np.isnan(sv)]
+            m = BinMapper()
+            bin_type = CATEGORICAL if f in categorical else NUMERICAL
+            m.find_bin(fb[fb != 0.0], total_sample, config.max_bin,
+                       config.min_data_in_bin, filter_cnt, bin_type)
+            self.bin_mappers.append(m)
+        del sample_pos
+
+        def binned_sample():
+            # the sample's bins rebuilt sparsely: default fill + scatter
+            out = np.empty((total_sample, len(self.used_feature_idx)),
+                           np.uint16)
+            for i, r in enumerate(self.used_feature_idx):
+                col = np.full(total_sample, self.default_bin_arr[i],
+                              np.uint16)
+                spos, sv = col_sample[r]
+                if len(spos):
+                    col[spos] = self.bin_mappers[r].value_to_bin(sv)
+                out[:, i] = col
+            return out
+        self._finish_mappers(config, binned_sample)
+
+    def _finish_mappers(self, config: Config, binned_sample) -> None:
+        """The shared tail of mapper construction: used features, the
+        per-feature arrays, the single-bucket warning, and EFB on the
+        binning sample (Dataset::Construct, dataset.cpp:229-235), whose
+        (S, F_used) uint16 bins binned_sample() builds."""
         self.used_feature_idx = [i for i, m in enumerate(self.bin_mappers)
                                  if m is not None and not m.is_trivial]
         if not self.used_feature_idx:
@@ -123,21 +219,42 @@ class TrainingData:
                 "%d feature(s) binned into a single bucket (constant, "
                 "never splittable): %s%s", len(single), head,
                 ",..." if len(single) > 20 else "")
-
-        # EFB on the binning sample (Dataset::Construct, dataset.cpp:229-235)
         if (config.enable_bundle and len(self.used_feature_idx) > 1
                 and config.tree_learner not in ("feature",
                                                 "feature_parallel")):
-            binned_sample = np.stack(
-                [self.bin_mappers[r].value_to_bin(sample[:, r])
-                 .astype(np.uint16) for r in self.used_feature_idx], axis=1)
             self.bundle = find_feature_groups(
-                binned_sample, self.num_bin_arr, self.default_bin_arr,
+                binned_sample(), self.num_bin_arr, self.default_bin_arr,
                 config.max_conflict_rate, config.min_data_in_leaf,
                 self.num_data)
             if self.bundle is not None:
                 Log.info("EFB bundled %d features into %d groups",
                          len(self.used_feature_idx), self.bundle.num_groups)
+
+    def _bin_sparse(self, sp) -> None:
+        """Binned matrix from CSC columns: a default-bin fill plus the
+        nonzero scatter of each column (no float64 intermediate)."""
+        n = sp.num_row
+        f_used = len(self.used_feature_idx)
+
+        def dense_binned_col(i):
+            r = self.used_feature_idx[i]
+            mapper = self.bin_mappers[r]
+            rows, vals = sp.column(r)
+            col = np.full(n, mapper.value_to_bin(0.0), dtype=np.int64)
+            if len(rows):
+                col[rows] = mapper.value_to_bin(vals)
+            return col
+
+        if self.bundle is not None:
+            self.binned = bin_rows_grouped(dense_binned_col, self.bundle,
+                                           self.default_bin_arr)
+            return
+        max_num_bin = int(self.num_bin_arr.max()) if f_used else 2
+        dtype = np.uint8 if max_num_bin <= 256 else np.uint16
+        out = np.empty((n, f_used), dtype=dtype)
+        for i in range(f_used):
+            out[:, i] = dense_binned_col(i).astype(dtype)
+        self.binned = out
 
     def _align_with(self, reference: "TrainingData",
                     data: np.ndarray) -> None:
@@ -146,6 +263,12 @@ class TrainingData:
         if data.shape[1] != reference.num_total_features:
             Log.fatal("Validation data has %d features, train data has %d",
                       data.shape[1], reference.num_total_features)
+        self._copy_binning_from(reference)
+        self._bin_data(data)
+
+    def _copy_binning_from(self, reference: "TrainingData") -> None:
+        """Share the train set's binning state: mappers, used features,
+        per-feature arrays and EFB layout (dataset_loader.cpp:220-261)."""
         self.bin_mappers = reference.bin_mappers
         self.used_feature_idx = list(reference.used_feature_idx)
         self.real_to_inner = dict(reference.real_to_inner)
@@ -154,7 +277,6 @@ class TrainingData:
         self.is_categorical_arr = reference.is_categorical_arr
         self.max_bin = reference.max_bin
         self.bundle = reference.bundle
-        self._bin_data(data)
 
     def _build_feature_arrays(self) -> None:
         used = self.used_feature_idx

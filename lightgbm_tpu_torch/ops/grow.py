@@ -53,14 +53,22 @@ class TreeArrays:
                 for f in fields(self)}
 
 
-def feature_hist_view(ghist, sums, meta, bundle):
+def feature_hist_view(ghist, sums, meta, bundle, fix_default: bool = False):
     """Group histograms -> per-feature (K, F, B, 3) views with the default
     bin rebuilt by subtraction (FixHistogram, dataset.cpp:764-783).
 
     ghist: (K, G, Bg, 3); sums: (K, 3).  Without a bundle the group
-    columns ARE the features and the view is the identity."""
+    columns ARE the features and the view is the identity, unless
+    fix_default: the sparse store never holds fill-bin entries, so their
+    slots arrive zero and take the remainder sums - (sum of the others)."""
     if bundle is None:
-        return ghist
+        if not fix_default:
+            return ghist
+        fidx = torch.arange(ghist.shape[1], device=ghist.device)
+        v = ghist.clone()
+        v[:, fidx, meta.default_bin.long()] = (sums[:, None, :]
+                                               - ghist.sum(dim=2))
+        return v
     K = ghist.shape[0]
     flat = ghist.reshape(K, -1, 3)
     v = flat[:, bundle.gather_idx] * bundle.valid_mask[None, ..., None].to(

@@ -1,7 +1,9 @@
 """Tree learner: host facade over the wave grower (ops/wave.py).
 
 Ported from the JAX package's ``ops/learner.py`` (``SerialTreeLearner`` on
-the wave path).  The learner uploads the transposed bin matrix once, samples
+the wave path).  The learner uploads the transposed bin matrix once (or,
+with ``tpu_sparse`` and ``tpu_sparse_kernel``, only the non-fill entries
+in the entry-chunk sparse store, ops/sparse_mxu.py), samples
 feature_fraction masks, feeds gradients to the grower and materializes
 finished trees (real-valued thresholds resolved in float64 from the
 BinMappers).  Engine knobs that select something this port does not have
@@ -19,6 +21,8 @@ from ..utils.config import Config, _FALSE_SET, _TRUE_SET
 from ..utils.log import Log
 from ..utils.random import Random
 from .grow import BundleArrays
+from .sparse_mxu import build_chunked_store
+from .sparse_store import column_fill_bins
 from .split_finder import FeatureMeta, SplitParams
 from .wave import grow_tree
 
@@ -100,16 +104,47 @@ def build_split_params(config: Config) -> SplitParams:
 
 def _unsupported(knob: str, value) -> None:
     Log.fatal("%s=%s selects an engine lightgbm_tpu_torch does not have "
-              "yet (this port runs dense serial wave growth with the f32 "
-              "wave kernels)", knob, value)
+              "yet (this port runs serial wave growth with the f32 "
+              "kernels, on the dense matrix or the entry-chunk sparse "
+              "store)", knob, value)
 
 
-def check_engine_params(config: Config) -> None:
+def resolve_sparse(config: Config) -> bool:
+    """True when the entry-chunk sparse store and kernel B6 run
+    (tpu_sparse=true with tpu_sparse_kernel=true), as the JAX package
+    resolves them (its ops/learner.py, serial learner)."""
+    sparse = bool(config.tpu_sparse)
+    kernel = bool(config.tpu_sparse_kernel)
+    if kernel and not sparse:
+        Log.warning("tpu_sparse_kernel=true has no effect without "
+                    "tpu_sparse=true")
+        return False
+    if not sparse:
+        return False
+    mode = str(config.tpu_histogram_mode).strip().lower()
+    if mode.startswith("pallas"):
+        Log.fatal("tpu_sparse=true is incompatible with "
+                  "tpu_histogram_mode=%s (the pallas kernels are "
+                  "dense-only)", config.tpu_histogram_mode)
+    if not kernel:
+        Log.fatal("tpu_sparse=true without tpu_sparse_kernel=true selects "
+                  "the coordinate-store engine (SparseDeviceStore), which "
+                  "lightgbm_tpu_torch does not have yet; set "
+                  "tpu_sparse_kernel=true for the entry-chunk store")
+    if str(config.tpu_growth).strip().lower() == "exact":
+        Log.fatal("tpu_sparse_kernel=true requires wave growth "
+                  "(tpu_growth=exact scans per leaf)")
+    return True
+
+
+def check_engine_params(config: Config) -> bool:
     """Raise on knob values whose engine this port lacks; accept the
-    values that resolve to the engine it has."""
+    values that resolve to the engines it has.  Returns whether the
+    sparse store runs (resolve_sparse)."""
     def val(name):
         return str(getattr(config, name)).strip().lower()
 
+    sparse = resolve_sparse(config)
     checks = [
         ("tree_learner", ("serial",)),
         ("boosting_type", ("gbdt",)),
@@ -125,8 +160,7 @@ def check_engine_params(config: Config) -> None:
     for name, ok in checks:
         if val(name) not in ok:
             _unsupported(name, getattr(config, name))
-    for name in ("tpu_sparse", "tpu_sparse_kernel", "tpu_wave_compact",
-                 "tpu_use_dp"):
+    for name in ("tpu_wave_compact", "tpu_use_dp"):
         if bool(getattr(config, name)):
             _unsupported(name, "true")
     pack = val("tpu_bin_pack")
@@ -141,6 +175,7 @@ def check_engine_params(config: Config) -> None:
     w = int(config.tpu_wave_width)
     if w <= 0 and w != -1:
         Log.fatal("tpu_wave_width must be positive or -1 (auto), got %d", w)
+    return sparse
 
 
 def resolve_wave_width(config: Config, num_leaves: int) -> int:
@@ -157,7 +192,7 @@ def resolve_wave_width(config: Config, num_leaves: int) -> int:
 
 class SerialTreeLearner:
     def __init__(self, config: Config, train_data: TrainingData, device):
-        check_engine_params(config)
+        self.sparse = check_engine_params(config)
         self.config = config
         self.train_data = train_data
         self.device = device
@@ -192,7 +227,9 @@ class SerialTreeLearner:
             Log.fatal("lightgbm_tpu_torch bins are uint8: %d bins per "
                       "column is too many (use max_bin <= 255)", nbins)
         mode = str(config.tpu_histogram_mode).strip().lower()
-        if mode == "auto":
+        if self.sparse:
+            mode = "sparse_mxu"
+        elif mode == "auto":
             # the JAX package's prior: the fused kernel while the
             # accumulator block is narrow, the histogram-only kernel with
             # a separate partition above that bound
@@ -205,12 +242,25 @@ class SerialTreeLearner:
         binned = train_data.binned
         if binned.shape[1] == 0:
             binned = np.zeros((train_data.num_data, 1), np.uint8)
-        # the transposed (G, N) bin matrix, uploaded once per booster
-        self.Xt = torch.as_tensor(np.ascontiguousarray(binned.T),
-                                  device=device)
-        if self.Xt.dtype != torch.uint8:
-            Log.fatal("lightgbm_tpu_torch needs uint8 bins, got %s",
-                      self.Xt.dtype)
+        self.sparse_col_cap = 0
+        self.sparse_device_bytes = 0
+        if self.sparse:
+            # only the non-fill entries go to the device; a low-skew
+            # store takes one wide chunk a column (auto_uniform)
+            fill = (column_fill_bins(train_data.num_bin_arr,
+                                     train_data.default_bin_arr,
+                                     train_data.bundle)
+                    if train_data.num_features else np.zeros(1, np.int64))
+            self.X, self.sparse_col_cap, self.sparse_device_bytes = \
+                build_chunked_store(binned, fill, nbins, auto_uniform=True,
+                                    device=device)
+        else:
+            # the transposed (G, N) bin matrix, uploaded once per booster
+            self.X = torch.as_tensor(np.ascontiguousarray(binned.T),
+                                     device=device)
+            if self.X.dtype != torch.uint8:
+                Log.fatal("lightgbm_tpu_torch needs uint8 bins, got %s",
+                          self.X.dtype)
         self._ones = torch.ones(train_data.num_data, dtype=torch.float32,
                                 device=device)
         self._full_mask = torch.ones(max(train_data.num_features, 1),
@@ -235,13 +285,14 @@ class SerialTreeLearner:
         if row_mult is None:
             row_mult = self._ones
         tree, leaf_id, stats = grow_tree(
-            self.Xt, grad.to(torch.float32), hess.to(torch.float32),
+            self.X, grad.to(torch.float32), hess.to(torch.float32),
             row_mult.to(torch.float32), self.sample_feature_mask(),
             self.meta, self.bundle_arrays, num_leaves=self.num_leaves,
             num_bins=self.num_bins, params=self.params,
             max_depth=self.config.max_depth, wave_width=self.wave_width,
             group_bins=self.group_bins, cache_hists=self.cache_hists,
-            fused=self.hist_mode == "pallas_ct")
+            fused=self.hist_mode == "pallas_ct",
+            sparse_col_cap=self.sparse_col_cap)
         self.last_stats = stats
         return tree, leaf_id, stats
 

@@ -12,6 +12,14 @@ through the histogram-only kernel (B3, ``wave_histogram``).  The JAX
 package's ``lax.while_loop`` is a Python loop here with ONE host read per
 wave: the number of valid splits (the k == 0 stop test) together with
 the chosen parent ids, from which the host tracks leaf depths.
+
+On the entry-chunk sparse store (``ops/sparse_mxu.py``, the JAX
+package's ``sparse_mxu`` engine) every histogram -- the root with W slots
+of which only slot 0 is active, each wave's smaller children and the
+no-cache larger children -- comes from kernel B6
+(``sparse_wave_histogram``); the partition reads only the entries of the W
+split columns (``sparse_route_rows``, plain torch), and the histogram view
+rebuilds the fill-bin slots the store never holds (``fix_default``).
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
                            RIGHT_SUM_H, SECOND_FEATURE, SECOND_GAIN,
                            SPLIT_VEC_SIZE, THRESHOLD, FeatureMeta,
                            SplitParams, best_splits_batched)
+from .sparse_mxu import (ChunkedSparseStore, sparse_route_rows,
+                         sparse_wave_histogram)
 from .wave_kernels import (route_rows_plain, wave_histogram,
                            wave_partition_hist)
 
@@ -54,38 +64,49 @@ def _stable_topk(gains, W):
     return vals[:W], idx[:W]
 
 
-def grow_tree(Xt, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
+def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
               bundle, *, num_leaves: int, num_bins: int,
               params: SplitParams, max_depth: int, wave_width: int,
               group_bins: int = 0, cache_hists: bool = True,
-              fused: bool = True):
-    """Grow one tree.  Xt: (G, N) uint8 transposed bins; grad/hess/
-    row_mult: (N,) f32.  Returns (TreeArrays, leaf_id (N,) int32,
-    GrowStats).
+              fused: bool = True, sparse_col_cap: int = 0):
+    """Grow one tree.  X: (G, N) uint8 transposed bins, or a
+    ChunkedSparseStore whose columns hold at most sparse_col_cap chunks;
+    grad/hess/row_mult: (N,) f32.  Returns (TreeArrays, leaf_id (N,)
+    int32, GrowStats).
 
     fused=False is the JAX package's pallas_t dataflow: the partition
-    runs as plain tensor ops and the histograms through kernel B3."""
+    runs as plain tensor ops and the histograms through kernel B3.  It
+    has no meaning on the sparse store."""
     L = num_leaves
     W = max(1, min(wave_width, L - 1))
     hist_bins = group_bins if bundle is not None else num_bins
     dev = grad.device
     f32, i32 = torch.float32, torch.int32
     n = grad.shape[0]
+    sparse = isinstance(X, ChunkedSparseStore)
     w3 = torch.stack([grad * row_mult, hess * row_mult, row_mult],
                      dim=-1).to(f32).contiguous()          # (N, 3)
     leaf_id = torch.zeros(n, dtype=i32, device=dev)
+
+    def child_hists(lid, ids):
+        if sparse:
+            return sparse_wave_histogram(X, lid, w3, ids, hist_bins,
+                                         X.num_cols)
+        return wave_histogram(X, lid, w3, ids, hist_bins)
 
     def best_of_many(hists_k, sums_k, depths_k):
         return best_splits_batched(
             hists_k, sums_k, depths_k, meta, feature_mask, params,
             max_depth,
-            hist_view=lambda h, s: feature_hist_view(h, s, meta, bundle))
+            hist_view=lambda h, s: feature_hist_view(h, s, meta, bundle,
+                                                     fix_default=sparse))
 
-    # ---- root: histogram-only kernel with one child slot (leaf 0)
+    # ---- root: one active child slot (leaf 0); the sparse store uses
+    # the waves' W-slot call shape, the dense matrix a single slot
     root_sums = w3.sum(dim=0)
-    hist0 = wave_histogram(Xt, leaf_id, w3,
-                           torch.zeros(1, dtype=i32, device=dev),
-                           hist_bins)[0]
+    root_ids = torch.full((W if sparse else 1,), -1, dtype=i32, device=dev)
+    root_ids[0] = 0
+    hist0 = child_hists(leaf_id, root_ids)[0]
     Fh, B = hist0.shape[0], hist0.shape[1]
     if cache_hists:
         hists = torch.zeros((L, Fh, B, 3), dtype=f32, device=dev)
@@ -180,21 +201,25 @@ def grow_tree(Xt, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
         large_id = torch.where(left_small, newleaf, parent)
         cid = torch.where(valid, small_id, torch.full_like(small_id, -1)).to(
             i32)
-        if fused:
+        if sparse:
+            leaf_id = sparse_route_rows(X, leaf_id, cols, psrc,
+                                        sparse_col_cap, L,
+                                        bundle is not None)
+            hist_small = child_hists(leaf_id, cid)
+        elif fused:
             leaf_id, hist_small = wave_partition_hist(
-                Xt, leaf_id, w3, cid, cols, psrc, hist_bins,
+                X, leaf_id, w3, cid, cols, psrc, hist_bins,
                 bundled=bundle is not None)
         else:
-            leaf_id = route_rows_plain(Xt, leaf_id, cols, psrc,
+            leaf_id = route_rows_plain(X, leaf_id, cols, psrc,
                                        bundle is not None)
-            hist_small = wave_histogram(Xt, leaf_id, w3, cid, hist_bins)
+            hist_small = child_hists(leaf_id, cid)
         if cache_hists:
             hist_large = hists[parent] - hist_small
         else:
             lid_large = torch.where(valid, large_id,
                                     torch.full_like(large_id, -1)).to(i32)
-            hist_large = wave_histogram(Xt, leaf_id, w3, lid_large,
-                                        hist_bins)
+            hist_large = child_hists(leaf_id, lid_large)
 
         left_sums = torch.stack([info[:, LEFT_SUM_G], info[:, LEFT_SUM_H],
                                  info[:, LEFT_COUNT]], dim=-1)

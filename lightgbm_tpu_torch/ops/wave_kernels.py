@@ -41,11 +41,20 @@ def route_rows_plain(X_t, leaf_id, cols, psrc, bundled: bool = False):
     has = match.any(dim=0)
     slot = torch.argmax(match.to(torch.int32), dim=0)
     r = cols[slot] * has[:, None].to(cols.dtype)               # (N, 10)
-    active = r[:, 0] > 0.5
     cj = r[:, 1].long()
     in_range = (cj >= 0) & (cj < F)
     colv = X_t[cj.clamp(0, F - 1), torch.arange(N, device=dev)].to(
         torch.int32) * in_range.to(torch.int32)
+    return route_rows(r, colv, leaf_id, bundled)
+
+
+def route_rows(r, colv, leaf_id, bundled: bool = False):
+    """Split routing shared by the dense and sparse partitions (the JAX
+    package's ops/wave.py route_rows): r (N, 10) is each row's split-table
+    row (zeros for rows not being split), colv (N,) int32 its bin in the
+    split column.  Bundle remap, threshold compare, default-bin redirect,
+    right-child move (dense_bin.hpp:190-222)."""
+    active = r[:, 0] > 0.5
     dflt = r[:, 4].to(torch.int32)
     if bundled:
         goff = r[:, 7].to(torch.int32)

@@ -16,10 +16,12 @@ import pytest
 import torch
 
 from lightgbm_tpu_torch.ops import predict as tp
+from lightgbm_tpu_torch.ops import sparse_mxu as sm
 from lightgbm_tpu_torch.ops import wave_kernels as wk
 from lightgbm_tpu_torch.ops.partition import clipped_leaf_values
 from torch_cases import (SCORE_CASES, assert_hist_close, bundled_case,
-                         score_case, t, unbundled_case, wave_data)
+                         score_case, sparse_bundled_case, sparse_case, t,
+                         unbundled_case, wave_data)
 
 pytestmark = pytest.mark.cuda
 
@@ -81,6 +83,106 @@ def test_score_update_bit_equal(dev, n, L):
     got = tp.score_update(t(score).to(dev), t(lid).to(dev), vals.to(dev))
     assert tp.score_update.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+def _sparse_kernel_case(kind):
+    """(X, fill, leaf_id, w3, child_id, num_bins) for B6: plain columns,
+    EFB group columns, K = 32 at 63 bins (a full block of 8 warps), and
+    K * B too large for one block (child slots split over the grid)."""
+    if kind == "bundled":
+        X, fill, lid, w3, b = sparse_bundled_case()
+        return X, fill, lid, w3, np.array([1, 4, -1, 8], np.int32), b
+    if kind == "plain":
+        X, fill, lid, w3 = sparse_case(L=12)
+        return X, fill, lid, w3, np.array([0, 2, 4, -1, 7], np.int32), 14
+    b = 63 if kind == "k32" else 600
+    X, fill, lid, w3 = sparse_case(n=6000, f=9, b=b, L=64, seed=5)
+    cid = np.arange(32, dtype=np.int32) * 2
+    cid[[3, 17]] = -1
+    return X, fill, lid, w3, cid, b
+
+
+def _on(store, dev):
+    return sm.ChunkedSparseStore(*[getattr(store, f).to(dev) for f in (
+        "ent_row", "ent_bin", "chunk_col", "col_cptr", "fill")])
+
+
+@pytest.mark.parametrize("kind", ["plain", "bundled", "k32", "k_split"])
+@pytest.mark.parametrize("auto_uniform", [False, True])
+def test_sparse_kernel_matches_plain(dev, kind, auto_uniform):
+    X, fill, lid, w3, cid, b = _sparse_kernel_case(kind)
+    store, _, _ = sm.build_chunked_store(X, fill, b, entry_chunk=128,
+                                         auto_uniform=auto_uniform)
+    f = X.shape[1]
+    args = [t(a).to(dev) for a in (lid, w3, cid)]
+    on_card = _on(store, dev)
+    n0 = sm.sparse_wave_histogram.launches
+    got = sm.sparse_wave_histogram(on_card, *args, b, f)
+    again = sm.sparse_wave_histogram(on_card, *args, b, f)
+    torch.cuda.synchronize()
+    assert sm.sparse_wave_histogram.launches == n0 + 2
+    want = sm.sparse_wave_histogram(store, t(lid), t(w3), t(cid), b, f)
+    got = got.cpu().numpy()
+    assert_hist_close(got, want.numpy(), w3)
+    assert torch.equal(torch.from_numpy(got), again.cpu())
+    assert np.all(got[cid < 0] == 0.0)
+    assert np.all(got[:, np.arange(f), fill] == 0.0)
+    assert np.abs(got).sum() > 0
+
+
+def test_sparse_kernel_duplicate_child_ids(dev):
+    X, fill, lid, w3 = sparse_case(L=12)
+    store, _, _ = sm.build_chunked_store(X, fill, 14, entry_chunk=128)
+    cid = np.array([2, 5, 2], np.int32)
+    got = sm.sparse_wave_histogram(
+        _on(store, dev), *[t(a).to(dev) for a in (lid, w3, cid)], 14,
+        X.shape[1])
+    want = sm.sparse_wave_histogram(store, t(lid), t(w3), t(cid), 14,
+                                    X.shape[1])
+    assert torch.equal(got[0], got[2])
+    assert_hist_close(got.cpu().numpy(), want.numpy(), w3)
+
+
+@pytest.mark.parametrize("bundled", [False, True])
+def test_sparse_training_on_the_card_matches_the_cpu(dev, bundled):
+    """Sparse CSR input through the entry-chunk store: the card (kernel
+    B6 for every histogram) grows the CPU's trees; B1 and B3 never run."""
+    import scipy.sparse as sps
+
+    import lightgbm_tpu_torch as lgb
+
+    rng = np.random.default_rng(0)
+    n = 3000
+    X = np.where(rng.random((n, 12)) < 0.2, rng.normal(size=(n, 12)), 0.0)
+    X[:, 0] = rng.normal(size=n)
+    if bundled:
+        owner = rng.integers(0, 8, size=n)
+        for j in range(4):
+            X[:, 8 + j] = np.where(owner == j, rng.normal(size=n) + 2.0, 0.0)
+    y = (X[:, 0] + 0.7 * X[:, 1] + 0.3 * rng.normal(size=n) > 0) * 1.0
+    p = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 20,
+         "max_bin": 63, "verbose": -1, "tpu_growth": "wave",
+         "tpu_wave_width": 4, "tpu_sparse": True, "tpu_sparse_kernel": True}
+    C = sps.csr_matrix(X)
+    n0 = (sm.sparse_wave_histogram.launches, wk.wave_partition_hist.launches,
+          wk.wave_histogram.launches)
+    on_card = lgb.train(p, lgb.Dataset(C, label=y), 3, device="cuda")
+    stats = on_card.grow_stats()
+    assert (on_card._gbdt.train_data.bundle is not None) == bundled
+    assert (sm.sparse_wave_histogram.launches - n0[0]
+            == sum(s.waves for s in stats) + len(stats))
+    assert wk.wave_partition_hist.launches == n0[1]
+    assert wk.wave_histogram.launches == n0[2]
+    on_cpu = lgb.train(p, lgb.Dataset(C, label=y), 3, device="cpu")
+    keys = ("split_feature", "left_child", "right_child", "leaf_count")
+
+    def structure(s):
+        return [ln for ln in s.splitlines() if ln.startswith(keys)]
+
+    assert structure(on_card.model_to_string()) == structure(
+        on_cpu.model_to_string())
+    np.testing.assert_allclose(on_card.predict(C), on_cpu.predict(C),
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("variant", [{}, {"tpu_histogram_mode": "pallas_t"},

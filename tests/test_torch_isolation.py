@@ -98,3 +98,17 @@ def test_kernel_wrappers_refuse_other_devices():
         wave_histogram(xt, torch.zeros(4, dtype=torch.int32, device="meta"),
                        torch.zeros((4, 3), device="meta"),
                        torch.zeros(1, dtype=torch.int32, device="meta"), 4)
+
+    from lightgbm_tpu_torch.ops.sparse_mxu import (ChunkedSparseStore,
+                                                   sparse_wave_histogram)
+
+    def i32(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device="meta")
+
+    store = ChunkedSparseStore(ent_row=i32(8, 4), ent_bin=i32(8, 4),
+                               chunk_col=i32(8, 1), col_cptr=i32(3),
+                               fill=i32(2))
+    with pytest.raises(Exception, match="unsupported device"):
+        sparse_wave_histogram(store, i32(4), torch.zeros((4, 3),
+                                                          device="meta"),
+                              i32(2), 4, 2)

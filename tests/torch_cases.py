@@ -68,6 +68,41 @@ def assert_hist_close(got, want, w3):
                                atol=1e-5 * float(np.abs(w3).max()))
 
 
+def sparse_case(n=5000, f=13, b=14, L=12, seed=0, dense_col=3,
+                empty_col=7):
+    """(X (N, F) uint8 bins, fill (F,), leaf_id, w3) for the sparse store:
+    each column sits at its fill bin except ~15% of rows, one column is
+    dense (per-column skew) and one is all fill."""
+    rng = np.random.default_rng(seed)
+    dtype = np.uint8 if b <= 256 else np.uint16
+    fill = rng.integers(0, b, size=f)
+    X = np.tile(fill, (n, 1)).astype(dtype)
+    nz = rng.random((n, f)) < 0.15
+    X[nz] = rng.integers(0, b, size=int(nz.sum())).astype(dtype)
+    if dense_col is not None:
+        X[:, dense_col] = rng.integers(0, b, size=n).astype(dtype)
+    if empty_col is not None:
+        X[:, empty_col] = fill[empty_col]
+    leaf_id = rng.integers(0, L, size=n).astype(np.int32)
+    w3 = rng.normal(size=(n, 3)).astype(np.float32)
+    return X, fill, leaf_id, w3
+
+
+def sparse_bundled_case(n=4000, seed=4):
+    """Group columns laid out as EFB lays them out: three multi-feature
+    groups (fill bin 0, 40 bins) and three single-feature groups (fill =
+    the feature's default bin), ~10% of rows off the fill."""
+    rng = np.random.default_rng(seed)
+    b = 40
+    fill = np.array([0, 0, 0, 5, 0, 17])
+    X = np.tile(fill, (n, 1)).astype(np.uint8)
+    nz = rng.random((n, len(fill))) < 0.1
+    X[nz] = rng.integers(1, b, size=int(nz.sum())).astype(np.uint8)
+    leaf_id = rng.integers(0, 9, size=n).astype(np.int32)
+    w3 = rng.normal(size=(n, 3)).astype(np.float32)
+    return X, fill, leaf_id, w3, b
+
+
 SCORE_CASES = [(5000, 255), (8192, 31), (777, 7), (300, 1)]
 
 
