@@ -297,9 +297,13 @@ def kernel_phase(X_t, meta_default_bin, wk, tp, clipped_leaf_values):
 
 
 def sparse_kernel_phase(store, n_rows, num_bins, sm):
-    """Phases 2 and 3 for B6 on the Bosch store: K = 32 child slots on a
-    grower-like leaf state (64 leaves, each wave's 32 smaller children).
-    Returns B6's record."""
+    """Phases 2 and 3 for B6 on the Bosch store, in the two forms the
+    grower calls it: K = 32 child slots on a grower-like leaf state (64
+    leaves, each wave's 32 smaller children), and the root call (W = 32
+    slots, only slot 0 active, every row in leaf 0).  Each form is held
+    against the plain version in float64, its repeat must be bit-identical
+    and its fill and inactive slots exactly 0.  Returns the K = 32 form's
+    record; the root form's numbers are printed beside it."""
     import torch
     dev = store.ent_row.device
     F, B, K = store.num_cols, num_bins, 32
@@ -309,63 +313,88 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm):
     w3 = torch.randn((n_rows, 3), generator=g).to(dev)
     cid = (torch.randperm(2 * K, generator=g)[:K].to(torch.int32)
            .to(dev))
-    hist = sm.sparse_wave_histogram(store, lid, w3, cid, B, F)
-    again = sm.sparse_wave_histogram(store, lid, w3, cid, B, F)
-    need(torch.equal(hist, again), "B6 repeat launch not bit-identical")
-    want = sm.chunked_child_hists_plain(store, lid, w3.double(), cid, B, F)
-    scale = sm.chunked_child_hists_plain(store, lid, w3.double().abs(), cid,
-                                         B, F)
-    diff = (hist.double() - want).abs()
-    tol = 1e-5 * scale + 1e-5 * float(w3.abs().max())
-    err = float(diff.max())
-    need(bool((diff <= tol).all()),
-         "B6 histogram outside tolerance (max abs err %g)" % err)
-    fill = store.fill.long()
-    need(bool((hist[:, torch.arange(F, device=dev), fill] == 0).all()),
-         "B6 fill-bin slots not exactly 0")
-    inactive = cid.clone()
-    inactive[::2] = -1
-    h_in = sm.sparse_wave_histogram(store, lid, w3, inactive, B, F)
-    need(bool((h_in[::2] == 0).all()) and torch.equal(h_in[1::2], hist[1::2]),
-         "B6 inactive slots not exactly 0")
+    root_lid = torch.zeros(n_rows, dtype=torch.int32, device=dev)
+    root_cid = torch.full((K,), -1, dtype=torch.int32, device=dev)
+    root_cid[0] = 0
 
-    # library yardstick: one torch.bincount a channel over a flattened
-    # (slot, column, bin) index of the entries, built beforehand
     e = store.ent_bin.shape[1]
     rows = store.ent_row.reshape(-1).long()
     bins = store.ent_bin.reshape(-1).long()
     cols = store.chunk_col[:, 0].long().repeat_interleave(e)
     real = rows < n_rows
     rc = rows.clamp(max=n_rows - 1)
-    slot_of_leaf = torch.full((2 * K,), -1, dtype=torch.long, device=dev)
-    slot_of_leaf[cid.long()] = torch.arange(K, device=dev)
-    slot = slot_of_leaf[lid.long()[rc]]
-    spare = K * F * B
-    cell = torch.where(real & (slot >= 0), (slot * F + cols) * B + bins,
-                       torch.full_like(rows, spare))
-    ws = [w3[rc, c].contiguous() for c in range(3)]
     n_ent = int(real.sum())
-    n_act = int((real & (slot >= 0)).sum())
-    rec = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: sm.sparse_wave_histogram(store, lid, w3, cid, B,
-                                                    F)),
-        plain_ms=time_ms(lambda: sm.chunked_child_hists_plain(
-            store, lid, w3, cid, B, F)),
-        library_ms=time_ms(lambda: [torch.bincount(cell, weights=w,
-                                                   minlength=spare + 1)
-                                    for w in ws]),
-        shape="N=%d F=%d B=%d K=%d E=%d, %d entries, %d in a child slot"
-              % (n_rows, F, B, K, e, n_ent, n_act),
-        nbytes=n_ent * 8 + n_rows * 16 + K * F * B * 12,
-        flops=3 * n_act)
-    rec["bound_ms"], rec["bound_by"] = bound(rec.pop("nbytes"),
-                                             rec.pop("flops"))
-    say("kernel %-20s %s: %.4f ms, plain %.4f ms, library %.4f ms, "
-        "bound %.4f ms (%s), max abs err %.3g"
-        % ("sparse_wave_histogram", rec["shape"], rec["ms"], rec["plain_ms"],
-           rec["library_ms"], rec["bound_ms"], rec["bound_by"],
-           rec["max_abs_err"]))
+    present = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+    present[rows[real]] = True                  # rows with an entry
+    ws = [w3[rc, c].contiguous() for c in range(3)]
+    fill = store.fill.long()
+
+    def form(name, lid, cid):
+        hist = sm.sparse_wave_histogram(store, lid, w3, cid, B, F)
+        again = sm.sparse_wave_histogram(store, lid, w3, cid, B, F)
+        need(torch.equal(hist, again),
+             "%s repeat launch not bit-identical" % name)
+        want = sm.chunked_child_hists_plain(store, lid, w3.double(), cid, B,
+                                            F)
+        scale = sm.chunked_child_hists_plain(store, lid, w3.double().abs(),
+                                             cid, B, F)
+        diff = (hist.double() - want).abs()
+        tol = 1e-5 * scale + 1e-5 * float(w3.abs().max())
+        err = float(diff.max())
+        del want, scale
+        need(bool((diff <= tol).all()),
+             "%s histogram outside tolerance (max abs err %g)" % (name, err))
+        need(bool((hist[:, torch.arange(F, device=dev), fill] == 0).all()),
+             "%s fill-bin slots not exactly 0" % name)
+        need(bool((hist[cid < 0] == 0).all()),
+             "%s inactive slots not exactly 0" % name)
+        # the library yardstick: one torch.bincount a channel over a
+        # flattened (slot, column, bin) index of the entries, built
+        # beforehand; rows in no slot go to a spare cell
+        act = cid >= 0
+        slot_of_leaf = torch.full((2 * K,), -1, dtype=torch.long, device=dev)
+        slot_of_leaf[cid.long()[act]] = torch.arange(K, device=dev)[act]
+        row_slot = slot_of_leaf[lid.long()]
+        slot = row_slot[rc]
+        spare = K * F * B
+        cell = torch.where(real & (slot >= 0), (slot * F + cols) * B + bins,
+                           torch.full_like(rows, spare))
+        n_act = int((real & (slot >= 0)).sum())
+        # the bytes the function must move: each entry's row and bin,
+        # leaf_id of the rows with an entry, w3 of those rows whose leaf
+        # is in an active slot, and the (K, F, B, 3) output
+        n_rows_act = int((present & (row_slot >= 0)).sum())
+        rec = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: sm.sparse_wave_histogram(store, lid, w3, cid,
+                                                        B, F)),
+            plain_ms=time_ms(lambda: sm.chunked_child_hists_plain(
+                store, lid, w3, cid, B, F)),
+            library_ms=time_ms(lambda: [torch.bincount(cell, weights=w,
+                                                       minlength=spare + 1)
+                                        for w in ws]),
+            shape="N=%d F=%d B=%d K=%d (%d active) E=%d, %d entries, %d in "
+                  "a child slot, %d rows read w3"
+                  % (n_rows, F, B, K, int(act.sum()), e, n_ent, n_act,
+                     n_rows_act))
+        rec["bound_ms"], rec["bound_by"] = bound(
+            n_ent * 8 + int(present.sum()) * 4 + n_rows_act * 12
+            + K * F * B * 12, 3 * n_act)
+        say("kernel %-20s %s: %.4f ms, plain %.4f ms, library %.4f ms, "
+            "bound %.4f ms (%s), max abs err %.3g"
+            % (name, rec["shape"], rec["ms"], rec["plain_ms"],
+               rec["library_ms"], rec["bound_ms"], rec["bound_by"],
+               rec["max_abs_err"]))
+        return hist, rec
+
+    hist, rec = form("sparse_wave_histogram", lid, cid)
+    inactive = cid.clone()
+    inactive[::2] = -1
+    h_in = sm.sparse_wave_histogram(store, lid, w3, inactive, B, F)
+    need(bool((h_in[::2] == 0).all()) and torch.equal(h_in[1::2], hist[1::2]),
+         "B6 inactive slots not exactly 0")
+    del hist, h_in
+    form("sparse_wave_histogram_root", root_lid, root_cid)
     return rec
 
 
@@ -434,7 +463,7 @@ def sparse_phase(args, lgb, tp, wk, sm, card):
     nbins = (int(td.bundle.num_group_bins.max()) if td.bundle is not None
              else int(td.num_bin_arr.max()))
     t0 = time.perf_counter()
-    store, cap, nbytes = sm.build_chunked_store(
+    store, nbytes = sm.build_chunked_store(
         td.binned, column_fill_bins(td.num_bin_arr, td.default_bin_arr,
                                     td.bundle), nbins, auto_uniform=True,
         device="cuda")
@@ -447,7 +476,8 @@ def sparse_phase(args, lgb, tp, wk, sm, card):
         % (Xs.shape[0], Xsv.shape[0], Xs.shape[1], Xs.nnz,
            100.0 * Xs.nnz / (Xs.shape[0] * Xs.shape[1]), td.num_features,
            ncols, nbins, td.bundle is not None, t_csr, t_bin, t_store,
-           store.ent_bin.shape[0], store.ent_bin.shape[1], cap, nbytes / 1e6))
+           store.ent_bin.shape[0], store.ent_bin.shape[1], store.cap_chunks,
+           nbytes / 1e6))
     need(Xs.shape[1] == SPARSE_COLS and td.num_features > 900,
          "unexpected sparse binning")
     record = sparse_kernel_phase(store, Xs.shape[0], nbins, sm)
@@ -529,8 +559,9 @@ def sparse_phase(args, lgb, tp, wk, sm, card):
 
 
 def profile_iteration(booster, card):
-    """One more iteration under torch.profiler: its wall time, the device's
-    busy share and the device time by kernel, largest first."""
+    """One more iteration under torch.profiler: its wall time and waves,
+    the device's busy share and the device time by kernel, largest
+    first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -551,10 +582,12 @@ def profile_iteration(booster, card):
         launches += e.count
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    say("profile of one iteration on %s: wall %.4f s, device busy %.4f s "
-        "(%.1f%%, idle %.1f%%), %d device operations"
-        % (card, wall, busy, 100 * busy / wall, 100 - 100 * busy / wall,
-           launches))
+    waves = booster.grow_stats()[-1].waves
+    say("profile of one iteration on %s: wall %.4f s, %d waves, device "
+        "busy %.4f s (%.1f%%, idle %.1f%%), %d device operations (%.0f a "
+        "wave)"
+        % (card, wall, waves, busy, 100 * busy / wall,
+           100 - 100 * busy / wall, launches, launches / max(waves, 1)))
     for us, count, key in rows[:12]:
         say("  %9.3f ms %6d  %s" % (us / 1e3, count, key[:100]))
 

@@ -242,7 +242,6 @@ class SerialTreeLearner:
         binned = train_data.binned
         if binned.shape[1] == 0:
             binned = np.zeros((train_data.num_data, 1), np.uint8)
-        self.sparse_col_cap = 0
         self.sparse_device_bytes = 0
         if self.sparse:
             # only the non-fill entries go to the device; a low-skew
@@ -251,9 +250,8 @@ class SerialTreeLearner:
                                      train_data.default_bin_arr,
                                      train_data.bundle)
                     if train_data.num_features else np.zeros(1, np.int64))
-            self.X, self.sparse_col_cap, self.sparse_device_bytes = \
-                build_chunked_store(binned, fill, nbins, auto_uniform=True,
-                                    device=device)
+            self.X, self.sparse_device_bytes = build_chunked_store(
+                binned, fill, nbins, auto_uniform=True, device=device)
         else:
             # the transposed (G, N) bin matrix, uploaded once per booster
             self.X = torch.as_tensor(np.ascontiguousarray(binned.T),
@@ -291,8 +289,7 @@ class SerialTreeLearner:
             num_bins=self.num_bins, params=self.params,
             max_depth=self.config.max_depth, wave_width=self.wave_width,
             group_bins=self.group_bins, cache_hists=self.cache_hists,
-            fused=self.hist_mode == "pallas_ct",
-            sparse_col_cap=self.sparse_col_cap)
+            fused=self.hist_mode == "pallas_ct")
         self.last_stats = stats
         return tree, leaf_id, stats
 

@@ -42,6 +42,7 @@ class ChunkedSparseStore:
     chunk_col: torch.Tensor  # (NC, 1) i32 owning device column of a chunk
     col_cptr: torch.Tensor   # (F+1,) i32 chunk range of each column
     fill: torch.Tensor       # (F,) i32 fill bin of each column
+    cap_chunks: int          # the most chunks any one column holds
 
     @property
     def num_cols(self) -> int:
@@ -54,8 +55,7 @@ def build_chunked_store(binned: np.ndarray, fill: np.ndarray,
                         auto_uniform: bool = False, device="cpu"):
     """Host-side build from the (N, F) binned matrix; the arrays land on
     ``device``.  ``fill`` is each column's fill bin
-    (sparse_store.column_fill_bins).  Returns (store, cap_chunks,
-    device_bytes): cap_chunks bounds any one column's chunk count.
+    (sparse_store.column_fill_bins).  Returns (store, device_bytes).
 
     auto_uniform: when per-column skew is low, widen the entry chunk so
     every column is exactly one chunk (E = the largest column's entry
@@ -108,9 +108,9 @@ def build_chunked_store(binned: np.ndarray, fill: np.ndarray,
     store = ChunkedSparseStore(
         ent_row=put(ent_row), ent_bin=put(ent_bin),
         chunk_col=put(chunk_col[:, None]), col_cptr=put(col_cptr),
-        fill=put(np.asarray(fill, np.int64)))
+        fill=put(np.asarray(fill, np.int64)), cap_chunks=cap_chunks)
     device_bytes = 4 * (2 * nc_pad * e + nc_pad + 2 * f + 1)
-    return store, cap_chunks, device_bytes
+    return store, device_bytes
 
 
 # ------------------------------------------------------------ plain torch
@@ -139,13 +139,13 @@ def chunked_child_hists_plain(store: ChunkedSparseStore, leaf_id, w3,
     return out.reshape(K, num_cols, B, 3)
 
 
-def _window_entries(store: ChunkedSparseStore, col_ids, n: int,
-                    cap_chunks: int):
+def _window_entries(store: ChunkedSparseStore, col_ids, n: int):
     """(rows, bins), each (W, cap_chunks * E): the entries of the columns
-    col_ids, read through a window of cap_chunks chunks; window entries of
-    other columns carry row n (dropped by the caller's scatter)."""
+    col_ids, read through a window of store.cap_chunks chunks; window
+    entries of other columns carry row n (dropped by the caller's
+    scatter)."""
     nc, e = store.ent_row.shape
-    cap = min(cap_chunks, nc)
+    cap = min(store.cap_chunks, nc)
     start = store.col_cptr[col_ids].long()
     end = store.col_cptr[col_ids + 1].long()
     cs = torch.clamp(start, max=nc - cap)      # window start, edge-clamped
@@ -156,20 +156,18 @@ def _window_entries(store: ChunkedSparseStore, col_ids, n: int,
     return rows.reshape(len(col_ids), -1), bins.reshape(len(col_ids), -1)
 
 
-def chunked_split_column(store: ChunkedSparseStore, j, n: int,
-                         cap_chunks: int):
+def chunked_split_column(store: ChunkedSparseStore, j, n: int):
     """Full-N int32 bin column j: its fill bin plus its entries."""
     j = torch.as_tensor(j, device=store.fill.device).reshape(1).long()
     col = store.fill[j].expand(n + 1).clone()
-    if cap_chunks:
-        rows, bins = _window_entries(store, j, n, cap_chunks)
+    if store.cap_chunks:
+        rows, bins = _window_entries(store, j, n)
         col[rows[0].long()] = bins[0]
     return col[:n]
 
 
 def sparse_route_rows(store: ChunkedSparseStore, leaf_id, cols, psrc,
-                      cap_chunks: int, num_leaves: int,
-                      bundled: bool = False):
+                      num_leaves: int, bundled: bool = False):
     """New leaf ids after one wave's splits on the sparse store: each row
     whose leaf is psrc[w] takes the split in cols[w] (the route_rows
     contract), its bin read from column cols[w, 1]: the column's fill bin
@@ -193,9 +191,9 @@ def sparse_route_rows(store: ChunkedSparseStore, leaf_id, cols, psrc,
     cj = r[:, 1].long()
     in_range = (cj >= 0) & (cj < F)
     colv = store.fill[cj.clamp(0, F - 1)] * in_range.to(torch.int32)
-    if cap_chunks:
+    if store.cap_chunks:
         wcol = cols[:, 1].long().clamp(0, F - 1)
-        rows, bins = _window_entries(store, wcol, n, cap_chunks)
+        rows, bins = _window_entries(store, wcol, n)
         rows = rows.long()
         # a row takes an entry only from its own slot's column
         mine = (rows < n) & (slot[rows.clamp(max=n - 1)] == slots[:, None])

@@ -68,11 +68,10 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
               bundle, *, num_leaves: int, num_bins: int,
               params: SplitParams, max_depth: int, wave_width: int,
               group_bins: int = 0, cache_hists: bool = True,
-              fused: bool = True, sparse_col_cap: int = 0):
+              fused: bool = True):
     """Grow one tree.  X: (G, N) uint8 transposed bins, or a
-    ChunkedSparseStore whose columns hold at most sparse_col_cap chunks;
-    grad/hess/row_mult: (N,) f32.  Returns (TreeArrays, leaf_id (N,)
-    int32, GrowStats).
+    ChunkedSparseStore; grad/hess/row_mult: (N,) f32.  Returns
+    (TreeArrays, leaf_id (N,) int32, GrowStats).
 
     fused=False is the JAX package's pallas_t dataflow: the partition
     runs as plain tensor ops and the histograms through kernel B3.  It
@@ -202,8 +201,7 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
         cid = torch.where(valid, small_id, torch.full_like(small_id, -1)).to(
             i32)
         if sparse:
-            leaf_id = sparse_route_rows(X, leaf_id, cols, psrc,
-                                        sparse_col_cap, L,
+            leaf_id = sparse_route_rows(X, leaf_id, cols, psrc, L,
                                         bundle is not None)
             hist_small = child_hists(leaf_id, cid)
         elif fused:

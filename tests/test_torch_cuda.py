@@ -104,15 +104,16 @@ def _sparse_kernel_case(kind):
 
 def _on(store, dev):
     return sm.ChunkedSparseStore(*[getattr(store, f).to(dev) for f in (
-        "ent_row", "ent_bin", "chunk_col", "col_cptr", "fill")])
+        "ent_row", "ent_bin", "chunk_col", "col_cptr", "fill")],
+        cap_chunks=store.cap_chunks)
 
 
 @pytest.mark.parametrize("kind", ["plain", "bundled", "k32", "k_split"])
 @pytest.mark.parametrize("auto_uniform", [False, True])
 def test_sparse_kernel_matches_plain(dev, kind, auto_uniform):
     X, fill, lid, w3, cid, b = _sparse_kernel_case(kind)
-    store, _, _ = sm.build_chunked_store(X, fill, b, entry_chunk=128,
-                                         auto_uniform=auto_uniform)
+    store, _ = sm.build_chunked_store(X, fill, b, entry_chunk=128,
+                                      auto_uniform=auto_uniform)
     f = X.shape[1]
     args = [t(a).to(dev) for a in (lid, w3, cid)]
     on_card = _on(store, dev)
@@ -132,7 +133,7 @@ def test_sparse_kernel_matches_plain(dev, kind, auto_uniform):
 
 def test_sparse_kernel_duplicate_child_ids(dev):
     X, fill, lid, w3 = sparse_case(L=12)
-    store, _, _ = sm.build_chunked_store(X, fill, 14, entry_chunk=128)
+    store, _ = sm.build_chunked_store(X, fill, 14, entry_chunk=128)
     cid = np.array([2, 5, 2], np.int32)
     got = sm.sparse_wave_histogram(
         _on(store, dev), *[t(a).to(dev) for a in (lid, w3, cid)], 14,

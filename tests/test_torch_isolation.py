@@ -107,7 +107,7 @@ def test_kernel_wrappers_refuse_other_devices():
 
     store = ChunkedSparseStore(ent_row=i32(8, 4), ent_bin=i32(8, 4),
                                chunk_col=i32(8, 1), col_cptr=i32(3),
-                               fill=i32(2))
+                               fill=i32(2), cap_chunks=1)
     with pytest.raises(Exception, match="unsupported device"):
         sparse_wave_histogram(store, i32(4), torch.zeros((4, 3),
                                                           device="meta"),

@@ -32,8 +32,8 @@ STORE_FIELDS = ("ent_row", "ent_bin", "chunk_col", "col_cptr", "fill")
 
 def _stores(X, fill, b, **kw):
     js, jcap, jbytes = jsm.build_chunked_store(X, fill, b, **kw)
-    ts, tcap, tbytes = tsm.build_chunked_store(X, fill, b, **kw)
-    return (js, jcap, jbytes), (ts, tcap, tbytes)
+    ts, tbytes = tsm.build_chunked_store(X, fill, b, **kw)
+    return (js, jcap, jbytes), (ts, ts.cap_chunks, tbytes)
 
 
 @pytest.mark.parametrize("entry_chunk", [128, 512])
@@ -59,9 +59,9 @@ def test_split_column_is_the_column():
     X, fill, _, _ = sparse_case()
     for kw in ({"entry_chunk": 128}, {"entry_chunk": 128,
                                       "auto_uniform": True}):
-        ts, cap, _ = tsm.build_chunked_store(X, fill, 14, **kw)
+        ts, _ = tsm.build_chunked_store(X, fill, 14, **kw)
         for j in range(X.shape[1]):
-            col = tsm.chunked_split_column(ts, j, X.shape[0], cap)
+            col = tsm.chunked_split_column(ts, j, X.shape[0])
             assert col.dtype == torch.int32
             np.testing.assert_array_equal(col.numpy(), X[:, j])
 
@@ -148,7 +148,7 @@ def test_b6_plain_bundled_columns():
 
 def test_b6_duplicate_child_ids_each_get_the_histogram():
     X, fill, leaf_id, w3 = sparse_case(L=12)
-    ts, _, _ = tsm.build_chunked_store(X, fill, 14, entry_chunk=128)
+    ts, _ = tsm.build_chunked_store(X, fill, 14, entry_chunk=128)
     got = _plain_b6(ts, leaf_id, w3, np.array([2, 5, 2], np.int32), 14,
                     X.shape[1])
     np.testing.assert_array_equal(got[0], got[2])
@@ -166,10 +166,9 @@ def test_sparse_partition_routes_like_the_dense_one(bundled, auto_uniform):
                                    else unbundled_case())
     fill = np.array([np.bincount(X[:, j]).argmax()
                      for j in range(X.shape[1])])
-    ts, cap, _ = tsm.build_chunked_store(X, fill, 14, entry_chunk=128,
-                                         auto_uniform=auto_uniform)
-    got = tsm.sparse_route_rows(ts, t(lid), t(cols), t(psrc), cap, 16,
-                                bundled)
+    ts, _ = tsm.build_chunked_store(X, fill, 14, entry_chunk=128,
+                                    auto_uniform=auto_uniform)
+    got = tsm.sparse_route_rows(ts, t(lid), t(cols), t(psrc), 16, bundled)
     want = wk.route_rows_plain(t(X.T), t(lid), t(cols), t(psrc), bundled)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want.numpy())

@@ -89,7 +89,7 @@ def test_sparse_store_grows_the_jax_trees(objective, width, bundled, seed,
                     evals_result=et, device="cpu")
     learner = bt._gbdt.learner
     assert learner.hist_mode == bj._gbdt.learner.hist_mode == "sparse_mxu"
-    assert learner.sparse_col_cap == bj._gbdt.learner.sparse_col_cap >= 1
+    assert learner.X.cap_chunks == bj._gbdt.learner.sparse_col_cap >= 1
     assert learner.cache_hists == ("histogram_pool_size" not in more)
     sj, st = bj.model_to_string(), bt.model_to_string()
     assert bt.num_trees() == bj.num_trees() >= 3
