@@ -7,21 +7,25 @@ Run from the repository root on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from lightgbm_tpu_torch/csrc, holds each
 against its plain torch version at the main paths' shapes, times it,
-trains the flagship binary recipe and the Bosch-shaped sparse recipe
-through ``lightgbm_tpu_torch.train`` and checks what comes out.  Any
-failed check ends the run with a non-zero exit code and no result line.
-Without a CUDA device it exits non-zero at once.
+trains the flagship binary recipe (under wave growth, under exact growth
+and under wave growth on the row-major bins) and the Bosch-shaped sparse
+recipe through ``lightgbm_tpu_torch.train`` and checks what comes out.
+Any failed check ends the run with a non-zero exit code and no result
+line.  Without a CUDA device it exits non-zero at once.
 
 Phases, in order:
  1. The card's name and power limit (nvidia-smi); the kernels' build.
  2. Kernel against plain at N rows, F = 28, B = 63, K = W = 32, on the
     flagship data's own bins: B1 (fused wave step), B3 (histogram only,
-    K = 32 and the root's K = 1) and B2 (score update).  Leaf ids and the
-    score update must be exactly equal; two launches of a histogram kernel
-    must be bit-identical.  Histograms are held against the plain version
-    computed in float64: an f32 sum over many rows errs in proportion to
-    the sum of its terms' magnitudes, so a cell may differ by at most
-    1e-5 x (sum of |w| over the cell) + 1e-5 x max|w|.
+    K = 32 and the root's K = 1), B4 (histogram only on the row-major
+    bins, K = 32 and K = 1), B5 (leaf histogram: one leaf of a 64-leaf
+    state with row multipliers, and leaf 0 holding every row) and B2
+    (score update).  Leaf ids and the score update must be exactly
+    equal; two launches of a histogram kernel must be bit-identical.
+    Histograms are held against the plain version computed in float64:
+    an f32 sum over many rows errs in proportion to the sum of its terms'
+    magnitudes, so a cell may differ by at most 1e-5 x (sum of |w| over
+    the cell) + 1e-5 x max|w|.
  3. Timing: each kernel's median over 20 launches (CUDA events), beside
     the plain version, one PyTorch library call for the same function and
     the bound (bytes over 3.35 TB/s, f32 adds over 67 TFLOP/s, whichever
@@ -29,7 +33,12 @@ Phases, in order:
  4. Training: bench.py's flagship recipe and data, every launch counter
     set to 0 just before and read just after; the valid AUC must exceed
     0.8, the device-side scores must agree with the host-side trees, and a
-    small run on the card must grow the trees the CPU grows.
+    small run on the card must grow the trees the CPU grows.  Then the
+    same with tpu_growth=exact, tpu_histogram_mode=pallas (B5 once for
+    the root and once a split, no other histogram kernel) and with
+    tpu_growth=wave, tpu_histogram_mode=pallas (B4 once a wave and once
+    a tree); each run prints its steady rate, its waves or splits a tree
+    and its host reads a tree.
  5. Sparse: tools/tpu_ab2.py's Bosch-shaped data (968 columns, 1% dense,
     built directly as CSR), binned sparsely, in the entry-chunk store.
     Kernel B6 against its plain version in float64 at K = 32 on a
@@ -158,15 +167,22 @@ def bound(nbytes, flops):
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
-def hist_err(got, X_t, lid, w3, cid, B, wk):
-    """(max_abs_err, ok) of a kernel histogram against the plain version
-    in float64, with the tolerance of phase 2."""
-    w64 = w3.double()
-    want = wk.wave_histogram_plain(X_t, lid, w64, cid, B)
-    scale = wk.wave_histogram_plain(X_t, lid, w64.abs(), cid, B)
+def hist_err(got, plain, wmax):
+    """(max_abs_err, ok) of a kernel histogram against its plain version in
+    float64, with the tolerance of phase 2; plain(absolute) computes it
+    from the weights, or from their absolute values."""
+    want = plain(False)
     diff = (got.double() - want).abs()
-    tol = 1e-5 * scale + 1e-5 * float(w3.abs().max())
+    del want
+    tol = 1e-5 * plain(True) + 1e-5 * wmax
     return float(diff.max()), bool((diff <= tol).all())
+
+
+def wave_plain64(fn, X, lid, w3, cid, B):
+    """plain(absolute) for a wave histogram kernel's plain version fn."""
+    w64 = w3.double()
+    return lambda absolute: fn(X, lid, w64.abs() if absolute else w64, cid,
+                               B)
 
 
 def bincount_ms(X_t, slot, w3, B):
@@ -190,7 +206,16 @@ def bincount_ms(X_t, slot, w3, B):
                             for w in ws])
 
 
-def kernel_phase(X_t, meta_default_bin, wk, tp, clipped_leaf_values):
+def slots_of(ids, cid):
+    """Each row's child slot (-1 for none) and the count of rows in one."""
+    import torch
+    s = torch.full(ids.shape, -1, dtype=torch.long, device=ids.device)
+    for k in range(cid.shape[0]):
+        s = torch.where(ids == cid[k], k, s)
+    return s, int((s >= 0).sum())
+
+
+def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
     """Phases 2 and 3 on the flagship bins: returns the kernel records."""
     import torch
     dev = X_t.device
@@ -215,6 +240,7 @@ def kernel_phase(X_t, meta_default_bin, wk, tp, clipped_leaf_values):
                                                     cid))
     root_cid = torch.zeros(1, dtype=torch.int32, device=dev)
     zeros = torch.zeros(N, dtype=torch.int32, device=dev)
+    wmax = float(w3.abs().max())
     records = {}
 
     # ---- B1: fused partition + child histograms
@@ -225,14 +251,13 @@ def kernel_phase(X_t, meta_default_bin, wk, tp, clipped_leaf_values):
     need(torch.equal(new_lid, plain_lid), "B1 leaf ids differ from plain")
     need(torch.equal(new_lid, new_lid2) and torch.equal(hist, hist2),
          "B1 repeat launch not bit-identical")
-    err, ok = hist_err(hist, X_t, plain_lid, w3, cid, B, wk)
+    err, ok = hist_err(hist, wave_plain64(wk.wave_histogram_plain, X_t,
+                                          plain_lid, w3, cid, B), wmax)
     need(ok, "B1 histogram outside tolerance (max abs err %g)" % err)
+    del hist, hist2, new_lid2
     moved = int((new_lid != lid).sum())
     need(moved > 0, "B1 moved no rows")
-    slot = torch.full((N,), -1, dtype=torch.long, device=dev)
-    for k in range(K):
-        slot = torch.where(plain_lid == cid[k], k, slot)
-    n_act = int((slot >= 0).sum())
+    slot, n_act = slots_of(plain_lid, cid)
     records["wave_partition_hist"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: wk.wave_partition_hist(X_t, lid, w3, cid, cols,
@@ -246,29 +271,86 @@ def kernel_phase(X_t, meta_default_bin, wk, tp, clipped_leaf_values):
                 + K * F * B * 12),
         flops=3 * n_act * F)
 
-    # ---- B3: histogram only, K = 32 on the routed ids, and the root K = 1
-    for name, ids, c in (("wave_histogram_k32", new_lid, cid),
-                         ("wave_histogram", zeros, root_cid)):
-        h = wk.wave_histogram(X_t, ids, w3, c, B)
-        h2 = wk.wave_histogram(X_t, ids, w3, c, B)
+    # ---- B3 on X_t and B4 on the row-major X: histogram only, K = 32 on
+    # the routed ids, and the root K = 1
+    X = X_t.t().contiguous()                                 # (N, F)
+    hist_only = (wk.wave_histogram, wk.wave_histogram_plain, X_t)
+    rowmajor = (wk.wave_histogram_rowmajor,
+                wk.wave_histogram_rowmajor_plain, X)
+    for rec_name, (fn, plain, Xk), ids, c in (
+            ("wave_histogram_k32", hist_only, new_lid, cid),
+            ("wave_histogram", hist_only, zeros, root_cid),
+            ("wave_histogram_rowmajor", rowmajor, new_lid, cid),
+            ("wave_histogram_rowmajor_root", rowmajor, zeros, root_cid)):
+        h = fn(Xk, ids, w3, c, B)
+        h2 = fn(Xk, ids, w3, c, B)
+        need(torch.equal(h, h2),
+             "%s repeat launch not bit-identical" % rec_name)
+        err, ok = hist_err(h, wave_plain64(plain, Xk, ids, w3, c, B),
+                           wmax)
+        need(ok, "%s histogram outside tolerance (max abs err %g)"
+             % (rec_name, err))
+        del h, h2
+        s, n_act = slots_of(ids, c)
+        records[rec_name] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: fn(Xk, ids, w3, c, B)),
+            plain_ms=time_ms(lambda: plain(Xk, ids, w3, c, B)),
+            library_ms=bincount_ms(X_t, s, w3, B),
+            shape="N=%d F=%d B=%d K=%d%s, %d rows in a child slot"
+                  % (N, F, B, c.shape[0],
+                     " row-major" if Xk is X else "", n_act),
+            nbytes=(N * 4 + n_act * (F + 12)
+                    + c.shape[0] * (4 + F * B * 12)),
+            flops=3 * n_act * F)
+
+    # ---- B5: the leaf histogram of exact growth, one leaf of a 64-leaf
+    # state with bagging-like row multipliers, and the root (leaf 0, every
+    # row, the grower's all-ones multipliers)
+    L5 = 64
+    lid5 = torch.randint(0, L5, (N,), generator=g,
+                         dtype=torch.int32).to(dev)
+    grad = torch.randn(N, generator=g).to(dev)
+    hess = (torch.rand(N, generator=g) + 0.05).to(dev)
+    bag = (torch.rand(N, generator=g) > 0.2).float().to(dev)
+    ones = torch.ones(N, device=dev)
+    for name, lids, leaf, rm in (("leaf_histogram", lid5, 5, bag),
+                                 ("leaf_histogram_root", zeros, 0, ones)):
+        leaf_t = torch.full((1,), leaf, dtype=torch.int32, device=dev)
+        h = lh.leaf_histogram(X, grad, hess, lids, leaf_t, rm, B)
+        h2 = lh.leaf_histogram(X, grad, hess, lids, leaf_t, rm, B)
         need(torch.equal(h, h2), "%s repeat launch not bit-identical" % name)
-        err, ok = hist_err(h, X_t, ids, w3, c, B, wk)
+        g64, h64, rm64 = grad.double(), hess.double(), rm.double()
+
+        def plain64(absolute):
+            return lh.leaf_histogram_plain(
+                X, g64.abs() if absolute else g64, h64, lids, leaf_t, rm64,
+                B)
+
+        err, ok = hist_err(h, plain64, max(float(grad.abs().max()),
+                                           float(hess.max()), 1.0))
         need(ok, "%s histogram outside tolerance (max abs err %g)"
              % (name, err))
-        s = torch.full((N,), -1, dtype=torch.long, device=dev)
-        for k in range(c.shape[0]):
-            s = torch.where(ids == c[k], k, s)
-        n_act = int((s >= 0).sum())
+        del h, h2
+        in_leaf = lids == leaf
+        n_leaf = int(in_leaf.sum())
+        wl = torch.stack([grad * rm, hess * rm, rm], dim=-1) * in_leaf[
+            :, None].float()
         records[name] = dict(
             max_abs_err=err,
-            ms=time_ms(lambda: wk.wave_histogram(X_t, ids, w3, c, B)),
-            plain_ms=time_ms(lambda: wk.wave_histogram_plain(X_t, ids, w3, c,
-                                                             B)),
-            library_ms=bincount_ms(X_t, s, w3, B),
-            shape="N=%d F=%d B=%d K=%d, %d rows in a child slot"
-                  % (N, F, B, c.shape[0], n_act),
-            nbytes=N * 4 + n_act * (F + 12) + c.shape[0] * (4 + F * B * 12),
-            flops=3 * n_act * F)
+            ms=time_ms(lambda: lh.leaf_histogram(X, grad, hess, lids,
+                                                 leaf_t, rm, B)),
+            plain_ms=time_ms(lambda: lh.leaf_histogram_plain(
+                X, grad, hess, lids, leaf_t, rm, B)),
+            library_ms=bincount_ms(X_t, torch.where(in_leaf, 0, -1), wl, B),
+            shape="N=%d F=%d B=%d row-major, leaf %d of %d, %d rows in it"
+                  % (N, F, B, leaf, L5 if leaf else 1, n_leaf),
+            # leaf ids of every row; the bins, g, h and row multiplier of
+            # the leaf's rows only; the (F, B, 3) output
+            nbytes=N * 4 + n_leaf * (F + 12) + 4 + F * B * 12,
+            flops=3 * n_leaf * F)
+        del wl
+    del X
 
     # ---- B2: score update (255 leaves, ids clamped, values clipped)
     L = 255
@@ -289,7 +371,7 @@ def kernel_phase(X_t, meta_default_bin, wk, tp, clipped_leaf_values):
         shape="N=%d L=%d" % (N, L), nbytes=N * 12 + L * 4, flops=N)
     for name, r in records.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("flops"))
-        say("kernel %-20s %s: %.4f ms, plain %.4f ms, library %.4f ms, "
+        say("kernel %-28s %s: %.4f ms, plain %.4f ms, library %.4f ms, "
             "bound %.4f ms (%s), max abs err %.3g"
             % (name, r["shape"], r["ms"], r["plain_ms"], r["library_ms"],
                r["bound_ms"], r["bound_by"], r["max_abs_err"]))
@@ -443,7 +525,7 @@ def small_sparse_run_matches(lgb):
          "small sparse run: leaf values differ from the dense path's")
 
 
-def sparse_phase(args, lgb, tp, wk, sm, card):
+def sparse_phase(args, lgb, sm, kernels, card):
     """Phase 5: B6 at the Bosch store, then sparse training on it.
     Returns (B6's record, the run's launch counts)."""
     import torch
@@ -492,20 +574,13 @@ def sparse_phase(args, lgb, tp, wk, sm, card):
         stamps.append(time.perf_counter())
 
     evals = {}
-    wk.wave_partition_hist.launches = 0
-    wk.wave_histogram.launches = 0
-    tp.score_update.launches = 0
-    sm.sparse_wave_histogram.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    booster = lgb.train(params, ds, ITERS, valid_sets=[dv],
-                        evals_result=evals, callbacks=[stamp])
+    booster, launches = counted(kernels, lambda: lgb.train(
+        params, ds, ITERS, valid_sets=[dv], evals_result=evals,
+        callbacks=[stamp]))
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
-    launches = {"wave_partition_hist": wk.wave_partition_hist.launches,
-                "wave_histogram": wk.wave_histogram.launches,
-                "score_update": tp.score_update.launches,
-                "sparse_wave_histogram": sm.sparse_wave_histogram.launches}
     learner = booster._gbdt.learner
     stats = booster.grow_stats()
     trees = len(stats)
@@ -520,9 +595,9 @@ def sparse_phase(args, lgb, tp, wk, sm, card):
     need(launches["sparse_wave_histogram"] == want_b6 and waves > 0,
          "B6 launches %d != waves + trees (%d)"
          % (launches["sparse_wave_histogram"], want_b6))
-    need(launches["wave_partition_hist"] == 0
-         and launches["wave_histogram"] == 0,
-         "B1/B3 ran on the sparse path")
+    need(all(launches[k] == 0 for k in (
+        "wave_partition_hist", "wave_histogram", "wave_histogram_rowmajor",
+        "leaf_histogram")), "B1/B3/B4/B5 ran on the sparse path")
     need(launches["score_update"] == ITERS,
          "sparse: B2 launches %d != iterations %d"
          % (launches["score_update"], ITERS))
@@ -559,9 +634,9 @@ def sparse_phase(args, lgb, tp, wk, sm, card):
 
 
 def profile_iteration(booster, card):
-    """One more iteration under torch.profiler: its wall time and waves,
-    the device's busy share and the device time by kernel, largest
-    first."""
+    """One more iteration under torch.profiler: its wall time, waves (or
+    splits under exact growth) and host reads, the device's busy share
+    and the device time by kernel, largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -582,42 +657,125 @@ def profile_iteration(booster, card):
         launches += e.count
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    waves = booster.grow_stats()[-1].waves
-    say("profile of one iteration on %s: wall %.4f s, %d waves, device "
-        "busy %.4f s (%.1f%%, idle %.1f%%), %d device operations (%.0f a "
-        "wave)"
-        % (card, wall, waves, busy, 100 * busy / wall,
-           100 - 100 * busy / wall, launches, launches / max(waves, 1)))
+    last = booster.grow_stats()[-1]
+    unit = ("split" if booster._gbdt.learner.growth == "exact"
+            else "wave")
+    say("profile of one iteration on %s: wall %.4f s, %d %ss, %d host "
+        "reads, device busy %.4f s (%.1f%%, idle %.1f%%), %d device "
+        "operations (%.0f a %s)"
+        % (card, wall, last.waves, unit, last.host_reads, busy,
+           100 * busy / wall, 100 - 100 * busy / wall, launches,
+           launches / max(last.waves, 1), unit))
     for us, count, key in rows[:12]:
         say("  %9.3f ms %6d  %s" % (us / 1e3, count, key[:100]))
 
 
-def small_run_matches_cpu(lgb):
+def small_run_matches_cpu(lgb, variants):
     """A small binary run through the kernels grows the trees the plain
     versions grow on the CPU: the same split features, child pointers and
     leaf counts, and the same predictions on the training rows to rtol
     1e-5.  Threshold values are not compared: where the best split borders
     an empty bin (the zero bin of a feature without zeros), two scan passes
     reach the same partition with gains equal up to rounding, and the
-    histograms' summation order picks one of the two equivalent bins."""
+    histograms' summation order picks one of the two equivalent bins.
+    Each variant's params are laid over the wave-grown recipe."""
     rng = np.random.default_rng(10)
     X = rng.normal(size=(2000, 10))
     y = (X[:, 0] + 0.7 * X[:, 1] * X[:, 2] + 0.5 * X[:, 9]
          + 0.1 * rng.normal(size=2000) > 0).astype(float)
     keys = ("split_feature", "left_child", "right_child", "leaf_count")
-    for W in (4, 14):
-        p = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 20,
-             "max_bin": 63, "verbose": -1, "tpu_growth": "wave",
-             "tpu_wave_width": W}
+    for v in variants:
+        p = dict({"objective": "binary", "num_leaves": 15,
+                  "min_data_in_leaf": 20, "max_bin": 63, "verbose": -1,
+                  "tpu_growth": "wave"}, **v)
         a = lgb.train(p, lgb.Dataset(X, label=y), 3, device="cuda")
         b = lgb.train(p, lgb.Dataset(X, label=y), 3, device="cpu")
         sa = [ln for ln in a.model_to_string().splitlines()
               if ln.startswith(keys)]
         sb = [ln for ln in b.model_to_string().splitlines()
               if ln.startswith(keys)]
-        need(sa == sb, "small run W=%d: trees differ from the CPU's" % W)
+        need(sa == sb, "small run %s: trees differ from the CPU's" % v)
         need(np.allclose(a.predict(X), b.predict(X), rtol=1e-5, atol=0),
-             "small run W=%d: predictions differ from the CPU's" % W)
+             "small run %s: predictions differ from the CPU's" % v)
+
+
+def counted(kernels, fn):
+    """fn() with every kernel's launch count set to 0 just before; returns
+    (fn's result, {kernel: its launches during fn})."""
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def dense_train_phase(label, params, data, lgb, kernels, card, args):
+    """One training run on the flagship data through
+    lightgbm_tpu_torch.train, every launch counter set to 0 just before
+    and read just after, with phase 4's checks of what comes out (and,
+    with --profile, one more iteration profiled after them).  Returns
+    (booster, launches, the run's GrowStats)."""
+    import torch
+    ds, dv, Xt_raw, Xv, yv = data
+    stamps = []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    evals = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    booster, launches = counted(kernels, lambda: lgb.train(
+        params, ds, ITERS, valid_sets=[dv], evals_result=evals,
+        callbacks=[stamp]))
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    learner = booster._gbdt.learner
+    stats = list(booster.grow_stats())
+    trees = len(stats)
+    passes = sum(s.waves for s in stats)
+    reads = sum(s.host_reads for s in stats)
+    unit = "splits" if learner.growth == "exact" else "waves"
+    say("%s train launches: %s; %d trees, %d %s; growth %s, histogram mode "
+        "%s, histogram cache %s" % (label, launches, trees, passes, unit,
+                                    learner.growth, learner.hist_mode,
+                                    learner.cache_hists))
+    need(trees == ITERS, "%s: grew %d trees, wanted %d"
+         % (label, trees, ITERS))
+    need(launches["score_update"] == ITERS,
+         "%s: B2 launches %d != iterations %d"
+         % (label, launches["score_update"], ITERS))
+    auc = evals["valid_0"]["auc"][-1]
+    need(auc > 0.8, "%s: valid AUC %.4f <= 0.8" % (label, auc))
+    steady = ((len(stamps) - 1) / (stamps[-1] - stamps[0])
+              if len(stamps) > 1 else float("nan"))
+    say("%s train on %s: %d iterations in %.3f s including set-up (%.4f "
+        "it/s); steady %.4f it/s over iterations 2-%d; %.2f %s/tree, %.2f "
+        "host reads/tree, leaves/tree %s, depth %s; valid AUC %.6f; peak "
+        "device memory %.2f GB"
+        % (label, card, ITERS, t_train, ITERS / t_train, steady, ITERS,
+           passes / trees, unit, reads / trees,
+           [s.num_leaves for s in stats], [s.depth for s in stats], auc,
+           torch.cuda.max_memory_allocated() / 1e9))
+
+    raw_dev = booster._gbdt.valid_score_host(0)[0]
+    raw_host = booster.predict(Xv, raw_score=True)
+    need(raw_host.shape == (len(yv),) and np.isfinite(raw_host).all(),
+         "%s: valid predictions not finite or of the wrong shape" % label)
+    need(np.allclose(raw_dev, raw_host, rtol=1e-5, atol=1e-5),
+         "%s: device valid scores differ from host trees (max %g)"
+         % (label, np.abs(raw_dev - raw_host).max()))
+    m = min(len(Xt_raw), 200_000)
+    train_dev = booster._gbdt.train_score[0][:m]
+    need(np.allclose(train_dev, booster.predict(Xt_raw[:m], raw_score=True),
+                     rtol=1e-5, atol=1e-5),
+         "%s: device train scores (B2) differ from host trees" % label)
+    again = lgb.Booster(model_str=booster.model_to_string())
+    need(np.array_equal(again.predict(Xv[:1000]), booster.predict(Xv[:1000])),
+         "%s: model text round trip changed predictions" % label)
+    if args.profile:
+        profile_iteration(booster, card)
+    return booster, launches, stats
 
 
 def main():
@@ -642,10 +800,17 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch import _build
+    from lightgbm_tpu_torch.ops import leaf_hist as lh
     from lightgbm_tpu_torch.ops import predict as tp
     from lightgbm_tpu_torch.ops import sparse_mxu as sm
     from lightgbm_tpu_torch.ops import wave_kernels as wk
     from lightgbm_tpu_torch.ops.partition import clipped_leaf_values
+    kernels = {"wave_partition_hist": wk.wave_partition_hist,
+               "wave_histogram": wk.wave_histogram,
+               "wave_histogram_rowmajor": wk.wave_histogram_rowmajor,
+               "leaf_histogram": lh.leaf_histogram,
+               "score_update": tp.score_update,
+               "sparse_wave_histogram": sm.sparse_wave_histogram}
 
     # ---- 1. card and build
     t_start = time.perf_counter()
@@ -662,7 +827,8 @@ def main():
             say("  " + ln.strip())
     dev = torch.device("cuda")
 
-    # flagship data; binning is set-up (the datasets are constructed once)
+    # flagship data; binning is set-up (the datasets are constructed once
+    # and serve all three dense runs)
     t0 = time.perf_counter()
     X, y = make_data(args.rows + VALID_ROWS)
     Xt_raw, yt = X[:args.rows], y[:args.rows]
@@ -678,121 +844,124 @@ def main():
                                  time.perf_counter() - t0))
     need(td.bundle is None and td.num_features == 28
          and int(td.num_bin_arr.max()) <= 63, "unexpected flagship binning")
+    data = (ds, dv, Xt_raw, Xv, yv)
 
     # ---- 2 + 3. kernels against plain, and their times
     t0 = time.perf_counter()
     X_t = torch.as_tensor(np.ascontiguousarray(td.binned.T), device=dev)
-    records = kernel_phase(X_t, torch.as_tensor(td.default_bin_arr), wk, tp,
-                           clipped_leaf_values)
+    records = kernel_phase(X_t, torch.as_tensor(td.default_bin_arr), wk, lh,
+                           tp, clipped_leaf_values)
     del X_t
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     say("kernel checks and timing: %.1f s" % (time.perf_counter() - t0))
 
-    # ---- 4. the main path: lightgbm_tpu_torch.train on the flagship recipe
-    stamps = []
-
-    def stamp(env):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-
-    evals = {}
-    wk.wave_partition_hist.launches = 0
-    wk.wave_histogram.launches = 0
-    tp.score_update.launches = 0
-    t0 = time.perf_counter()
-    booster = lgb.train(params, ds, ITERS, valid_sets=[dv],
-                        evals_result=evals, callbacks=[stamp])
-    torch.cuda.synchronize()
-    t_train = time.perf_counter() - t0
-    launches = {"wave_partition_hist": wk.wave_partition_hist.launches,
-                "wave_histogram": wk.wave_histogram.launches,
-                "score_update": tp.score_update.launches}
-    stats = booster.grow_stats()
-    trees = len(stats)
-    waves = sum(s.waves for s in stats)
-    reads = sum(s.host_reads for s in stats)
-    say("train launches: %s; %d trees, %d waves" % (launches, trees, waves))
-    need(trees == ITERS, "grew %d trees, wanted %d" % (trees, ITERS))
+    # ---- 4. the main path: lightgbm_tpu_torch.train on the flagship
+    # recipe, wave growth through B1 (and B3 for the root)
+    booster, launches, stats = dense_train_phase("wave", params, data, lgb,
+                                                 kernels, card, args)
+    trees, waves = len(stats), sum(s.waves for s in stats)
     need(launches["wave_partition_hist"] == waves > 0,
          "B1 launches %d != waves %d" % (launches["wave_partition_hist"],
                                          waves))
     need(launches["wave_histogram"] == trees,
          "B3 launches %d != trees %d (one root histogram a tree)"
          % (launches["wave_histogram"], trees))
-    need(launches["score_update"] == ITERS,
-         "B2 launches %d != iterations %d" % (launches["score_update"],
-                                              ITERS))
-    auc = evals["valid_0"]["auc"][-1]
-    need(auc > 0.8, "valid AUC %.4f <= 0.8" % auc)
-    steady = ((len(stamps) - 1) / (stamps[-1] - stamps[0])
-              if len(stamps) > 1 else float("nan"))
-    say("train on %s: %d iterations in %.3f s including set-up (%.4f it/s); "
-        "steady %.4f it/s over iterations 2-%d; %.2f waves/tree, %.2f host "
-        "reads/tree, leaves/tree %s, depth %s; valid AUC %.6f"
-        % (card, ITERS, t_train, ITERS / t_train, steady,
-           ITERS, waves / trees, reads / trees,
-           [s.num_leaves for s in stats], [s.depth for s in stats], auc))
-    say("peak device memory: %.2f GB" % (torch.cuda.max_memory_allocated()
-                                         / 1e9))
-
-    # ---- checks of what came out
-    raw_dev = booster._gbdt.valid_score_host(0)[0]
-    raw_host = booster.predict(Xv, raw_score=True)
-    need(raw_host.shape == (len(yv),) and np.isfinite(raw_host).all(),
-         "valid predictions not finite or of the wrong shape")
-    need(np.allclose(raw_dev, raw_host, rtol=1e-5, atol=1e-5),
-         "device valid scores differ from host trees (max %g)"
-         % np.abs(raw_dev - raw_host).max())
-    m = min(args.rows, 200_000)
-    train_dev = booster._gbdt.train_score[0][:m]
-    need(np.allclose(train_dev, booster.predict(Xt_raw[:m], raw_score=True),
-                     rtol=1e-5, atol=1e-5),
-         "device train scores (B2) differ from host trees")
-    again = lgb.Booster(model_str=booster.model_to_string())
-    need(np.array_equal(again.predict(Xv[:1000]), booster.predict(Xv[:1000])),
-         "model text round trip changed predictions")
-    small_run_matches_cpu(lgb)
+    need(all(launches[k] == 0 for k in ("wave_histogram_rowmajor",
+                                        "leaf_histogram",
+                                        "sparse_wave_histogram")),
+         "B4/B5/B6 ran on the wave path")
+    small_run_matches_cpu(lgb, [{"tpu_wave_width": 4},
+                                {"tpu_wave_width": 14}])
     say("checks: device scores match host trees; model text round trip; "
         "small run on the card matches the CPU")
-    if args.profile:
-        profile_iteration(booster, card)
     del booster
+    torch.cuda.empty_cache()
+
+    # ---- 4b. exact (leaf-wise) growth: B5 for the root and the smaller
+    # child of each split (both children without the histogram cache)
+    booster, exact_launches, stats = dense_train_phase(
+        "exact", dict(params, tpu_growth="exact",
+                      tpu_histogram_mode="pallas"),
+        data, lgb, kernels, card, args)
+    splits = sum(s.waves for s in stats)
+    need(all(s.waves == s.num_leaves - 1 for s in stats),
+         "exact: a histogram pass that committed no split")
+    per_split = 1 if booster._gbdt.learner.cache_hists else 2
+    need(exact_launches["leaf_histogram"] == len(stats) + per_split * splits,
+         "B5 launches %d != roots + splits (%d + %d x %d)"
+         % (exact_launches["leaf_histogram"], len(stats), per_split, splits))
+    need(all(exact_launches[k] == 0 for k in (
+        "wave_partition_hist", "wave_histogram", "wave_histogram_rowmajor",
+        "sparse_wave_histogram")), "B1/B3/B4/B6 ran under exact growth")
+    small_run_matches_cpu(lgb, [{"tpu_growth": "exact",
+                                 "tpu_histogram_mode": "pallas"}])
+    say("exact checks: device scores match host trees; model text round "
+        "trip; small exact run on the card matches the CPU")
+    del booster
+    torch.cuda.empty_cache()
+
+    # ---- 4c. wave growth on the row-major bins: B4 for the root and
+    # each wave (twice a wave without the histogram cache)
+    booster, rowmajor_launches, stats = dense_train_phase(
+        "wave-pallas", dict(params, tpu_histogram_mode="pallas"), data, lgb,
+        kernels, card, args)
+    waves = sum(s.waves for s in stats)
+    per_wave = 1 if booster._gbdt.learner.cache_hists else 2
+    need(rowmajor_launches["wave_histogram_rowmajor"]
+         == len(stats) + per_wave * waves and waves > 0,
+         "B4 launches %d != trees + waves (%d + %d x %d)"
+         % (rowmajor_launches["wave_histogram_rowmajor"], len(stats),
+            per_wave, waves))
+    need(all(rowmajor_launches[k] == 0 for k in (
+        "wave_partition_hist", "wave_histogram", "leaf_histogram",
+        "sparse_wave_histogram")), "B1/B3/B5/B6 ran on the row-major path")
+    small_run_matches_cpu(lgb, [{"tpu_histogram_mode": "pallas",
+                                 "tpu_wave_width": 4}])
+    say("wave-pallas checks: device scores match host trees; model text "
+        "round trip; small row-major run on the card matches the CPU")
+    del booster, data, ds, dv
     torch.cuda.empty_cache()
 
     # ---- 5. the sparse path: B6 at the Bosch store, then training
     records["sparse_wave_histogram"], sparse_launches = sparse_phase(
-        args, lgb, tp, wk, sm, card)
+        args, lgb, sm, kernels, card)
+
+    # ---- 6. result lines: each kernel's launches from its own path's run
+    launches["wave_histogram_rowmajor"] = rowmajor_launches[
+        "wave_histogram_rowmajor"]
+    launches["leaf_histogram"] = exact_launches["leaf_histogram"]
     launches["sparse_wave_histogram"] = sparse_launches[
         "sparse_wave_histogram"]
-
-    # ---- 6. result lines
     sources = {"wave_partition_hist": ("lightgbm_tpu_torch/csrc/wave_hist.cu",
                                        "lightgbm_tpu/ops/pallas_wave.py:508"),
-               "wave_histogram": ("lightgbm_tpu_torch/csrc/wave_hist.cu",
-                                  "lightgbm_tpu/ops/pallas_wave.py:367"),
                "score_update": ("lightgbm_tpu_torch/csrc/score_update.cu",
                                 "lightgbm_tpu/ops/predict.py:151"),
+               "wave_histogram": ("lightgbm_tpu_torch/csrc/wave_hist.cu",
+                                  "lightgbm_tpu/ops/pallas_wave.py:367"),
+               "wave_histogram_rowmajor": (
+                   "lightgbm_tpu_torch/csrc/wave_hist.cu",
+                   "lightgbm_tpu/ops/pallas_wave.py:263"),
+               "leaf_histogram": ("lightgbm_tpu_torch/csrc/leaf_hist.cu",
+                                  "lightgbm_tpu/ops/pallas_hist.py:163"),
                "sparse_wave_histogram": (
                    "lightgbm_tpu_torch/csrc/sparse_hist.cu",
                    "lightgbm_tpu/ops/sparse_mxu.py:196")}
-    kernels = []
+    out = []
     for name, (src, repl) in sources.items():
         r = records[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"],
-                        "checked": True})
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": repl, "launches": launches[name],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                    "shape": r["shape"], "checked": True})
     say("total: %.1f s" % (time.perf_counter() - t_start))
     say(card)
-    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"kernels": out}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

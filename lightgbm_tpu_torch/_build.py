@@ -113,12 +113,16 @@ def library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.lgbt_wave_hist.argtypes = [vp] * 9 + [ci] * 11 + [vp]
+        lib.lgbt_wave_hist.argtypes = [vp] * 9 + [ci] * 12 + [vp]
         lib.lgbt_wave_hist.restype = ci
         lib.lgbt_score_update.argtypes = [vp, vp, vp, vp, cll, ci, vp]
         lib.lgbt_score_update.restype = ci
         lib.lgbt_sparse_hist.argtypes = [vp] * 7 + [ci] * 7 + [vp]
         lib.lgbt_sparse_hist.restype = ci
+        lib.lgbt_leaf_hist.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+        lib.lgbt_leaf_hist.restype = ci
+        lib.lgbt_leaf_hist_smem.argtypes = [ci, ci]
+        lib.lgbt_leaf_hist_smem.restype = cll
         _lib = lib
         return lib
 

@@ -1,11 +1,14 @@
 // Wave histogram kernels for Hopper (sm_90a): the fused partition +
-// child-histogram pass of one wave, and the histogram-only pass.
+// child-histogram pass of one wave, and the histogram-only pass on the
+// transposed or the row-major bin matrix.
 //
 // Replaces (JAX package, TPU Pallas):
 //   lightgbm_tpu/ops/pallas_wave.py::wave_partition_hist_pallas_ct
 //     (kernel _wave_fused_kernel_ct)   -> FUSED = true
 //   lightgbm_tpu/ops/pallas_wave.py::wave_histogram_pallas_t
 //     (kernel _wave_hist_kernel_t)     -> FUSED = false
+//   lightgbm_tpu/ops/pallas_wave.py::wave_histogram_pallas
+//     (kernel _wave_hist_kernel)       -> FUSED = false, ROWMAJOR = true
 //
 // Contract.  X_t (F, N) uint8 bins, leaf_id (N,) int32, w3 (N, 3) f32
 // [g*m, h*m, m], child_id (K,) int32 (-1 = inactive).  The fused variant
@@ -41,6 +44,14 @@
 // writes its private histograms to a scratch buffer of partials
 // (R, K, F, B, 3); a second kernel adds the R partials in row-block order.
 // The wrapper picks R so the partials stay a fraction of the bytes of X_t.
+//
+// Row-major variant (ROWMAJOR, X (N, F)).  A warp reading one feature
+// across 32 consecutive rows would read bytes F apart.  Instead the block
+// stages, for each tile, the tile's rows' bytes of its feature group (up
+// to 8 contiguous bytes a row, neighbouring threads on neighbouring
+// bytes) in shared memory while it stages the rows' slots and weights,
+// and each warp takes its feature's bins from there.  Everything else is
+// the histogram-only pass above.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -71,7 +82,7 @@ __device__ __forceinline__ void warp_accumulate(int key, int lane,
   __syncwarp();
 }
 
-template <bool FUSED, bool BUNDLED>
+template <bool FUSED, bool BUNDLED, bool ROWMAJOR>
 __global__ void wave_hist_kernel(const uint8_t* __restrict__ xt,
                                  const int* __restrict__ lid,
                                  const float* __restrict__ w3,
@@ -82,6 +93,7 @@ __global__ void wave_hist_kernel(const uint8_t* __restrict__ xt,
                                  float* __restrict__ partial,
                                  int F, int N, int B, int K, int W,
                                  int rows_per_block, int KS) {
+  static_assert(!(FUSED && ROWMAJOR), "the fused pass reads X_t");
   extern __shared__ float smem[];
   const int nwarps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -101,11 +113,14 @@ __global__ void wave_hist_kernel(const uint8_t* __restrict__ xt,
   int* psrc_s = cid_s + K;                           // W
   float* cols_s = reinterpret_cast<float*>(psrc_s + W);    // W * 10
   int* flag = reinterpret_cast<int*>(cols_s + W * 10);     // 1
+  uint8_t* xs = reinterpret_cast<uint8_t*>(flag + 1);      // kTile * nwarps
+  const int fbase = blockIdx.x * nwarps;             // ROWMAJOR: group
+  const int nf = min(nwarps, F - fbase);
 
   for (int i = threadIdx.x; i < nwarps * hist_len; i += blockDim.x)
     hist[i] = 0.f;
   for (int i = threadIdx.x; i < K; i += blockDim.x) cid_s[i] = cid[i];
-  if (FUSED) {
+  if constexpr (FUSED) {
     for (int i = threadIdx.x; i < W; i += blockDim.x) psrc_s[i] = psrc[i];
     for (int i = threadIdx.x; i < W * 10; i += blockDim.x)
       cols_s[i] = cols[i];
@@ -116,7 +131,8 @@ __global__ void wave_hist_kernel(const uint8_t* __restrict__ xt,
   const bool write_lid = FUSED && blockIdx.x == 0 && blockIdx.z == 0;
   float* my_hist = hist + warp * hist_len;
   float* my_vals = vals + warp * 96;
-  const uint8_t* xrow = xt + static_cast<size_t>(f < F ? f : 0) * N;
+  const uint8_t* xrow =
+      ROWMAJOR ? xt : xt + static_cast<size_t>(f < F ? f : 0) * N;
 
   for (int t0 = row_begin; t0 < row_end; t0 += kTile) {
     __syncthreads();                 // previous tile fully consumed
@@ -124,20 +140,31 @@ __global__ void wave_hist_kernel(const uint8_t* __restrict__ xt,
     const int tile_n = min(kTile, row_end - t0);
     // this warp's bins for the tile, loaded ahead of the staging below
     int bins[kSteps];
+    if constexpr (!ROWMAJOR) {
 #pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      const int i = j * 32 + lane;
-      int b = (f < F && i < tile_n) ? static_cast<int>(xrow[t0 + i]) : -1;
-      bins[j] = b < B ? b : -1;
+      for (int j = 0; j < kSteps; ++j) {
+        const int i = j * 32 + lane;
+        int b = (f < F && i < tile_n) ? static_cast<int>(xrow[t0 + i]) : -1;
+        bins[j] = b < B ? b : -1;
+      }
     }
     __syncthreads();
+    if constexpr (ROWMAJOR) {
+      // the group's bytes of the tile's rows, row by row
+      for (int idx = threadIdx.x; idx < tile_n * nf; idx += blockDim.x) {
+        const int i = idx / nf;
+        const int j = idx - i * nf;
+        xs[i * nwarps + j] =
+            xrow[static_cast<size_t>(t0 + i) * F + fbase + j];
+      }
+    }
     for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
       const int row = t0 + i;
       int s1 = -1, nl = -1;
       float a = 0.f, b = 0.f, c = 0.f;
       if (i < tile_n) {
         nl = lid[row];
-        if (FUSED) {
+        if constexpr (FUSED) {
           int ps = -1;
           for (int w = 0; w < W; ++w) {
             if (psrc_s[w] == nl) { ps = w; break; }
@@ -186,6 +213,15 @@ __global__ void wave_hist_kernel(const uint8_t* __restrict__ xt,
     }
     __syncthreads();
     const bool multi = *flag != 0;
+    if constexpr (ROWMAJOR) {
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        const int i = j * 32 + lane;
+        const int b = (f < F && i < tile_n)
+            ? static_cast<int>(xs[i * nwarps + warp]) : -1;
+        bins[j] = b < B ? b : -1;
+      }
+    }
     if (f < F) {
 #pragma unroll
       for (int j = 0; j < kSteps; ++j) {
@@ -239,13 +275,13 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   out[i] = acc;
 }
 
-template <bool FUSED, bool BUNDLED>
+template <bool FUSED, bool BUNDLED, bool ROWMAJOR>
 cudaError_t launch(const void* xt, const void* lid, const void* w3,
                    const void* cid, const void* cols, const void* psrc,
                    void* new_lid, void* partial, int F, int N, int B,
                    int K, int W, int R, int rows_per_block, int KS,
                    int warps, size_t smem, cudaStream_t s) {
-  auto kern = wave_hist_kernel<FUSED, BUNDLED>;
+  auto kern = wave_hist_kernel<FUSED, BUNDLED, ROWMAJOR>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -262,39 +298,47 @@ cudaError_t launch(const void* xt, const void* lid, const void* w3,
 
 // Dynamic shared memory bytes of one block, as laid out at the top of
 // wave_hist_kernel (the wrapper's _smem_bytes mirrors it to plan KS and
-// warps).
-size_t smem_bytes(int B, int K, int W, int KS, int warps) {
+// warps); the row-major variant adds its tile of bin bytes.
+size_t smem_bytes(int B, int K, int W, int KS, int warps, bool rowmajor) {
   return 4 * (static_cast<size_t>(warps) * KS * B * 3 + warps * 96 +
-              kTile * 5 + K + W + W * 10 + 1);
+              kTile * 5 + K + W + W * 10 + 1) +
+         (rowmajor ? 4 * ((kTile * warps + 3) / 4) : 0);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Fused (fused=1) or histogram-only (fused=0) wave pass.  partial holds
+// Fused (fused=1) or histogram-only (fused=0) wave pass, on X_t (F, N)
+// or, histogram-only, on row-major X (N, F) (rowmajor=1).  partial holds
 // R * K * F * B * 3 floats, hist K * F * B * 3; new_lid, cols and psrc are
 // read only when fused.  Returns cudaGetLastError() after both launches.
 int lgbt_wave_hist(const void* xt, const void* lid, const void* w3,
                    const void* cid, const void* cols, const void* psrc,
                    void* new_lid, void* partial, void* hist, int F, int N,
                    int B, int K, int W, int R, int rows_per_block, int KS,
-                   int warps, int fused, int bundled, void* stream) {
+                   int warps, int fused, int bundled, int rowmajor,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(B, K, W, KS, warps);
+  if (rowmajor && fused) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(B, K, W, KS, warps, rowmajor != 0);
   cudaError_t e;
   if (fused && bundled)
-    e = launch<true, true>(xt, lid, w3, cid, cols, psrc, new_lid, partial,
-                           F, N, B, K, W, R, rows_per_block, KS, warps,
-                           smem, s);
+    e = launch<true, true, false>(xt, lid, w3, cid, cols, psrc, new_lid,
+                                  partial, F, N, B, K, W, R, rows_per_block,
+                                  KS, warps, smem, s);
   else if (fused)
-    e = launch<true, false>(xt, lid, w3, cid, cols, psrc, new_lid, partial,
-                            F, N, B, K, W, R, rows_per_block, KS, warps,
-                            smem, s);
+    e = launch<true, false, false>(xt, lid, w3, cid, cols, psrc, new_lid,
+                                   partial, F, N, B, K, W, R,
+                                   rows_per_block, KS, warps, smem, s);
+  else if (rowmajor)
+    e = launch<false, false, true>(xt, lid, w3, cid, cols, psrc, new_lid,
+                                   partial, F, N, B, K, W, R,
+                                   rows_per_block, KS, warps, smem, s);
   else
-    e = launch<false, false>(xt, lid, w3, cid, cols, psrc, new_lid,
-                             partial, F, N, B, K, W, R, rows_per_block, KS,
-                             warps, smem, s);
+    e = launch<false, false, false>(xt, lid, w3, cid, cols, psrc, new_lid,
+                                    partial, F, N, B, K, W, R,
+                                    rows_per_block, KS, warps, smem, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long S = static_cast<long long>(K) * F * B * 3;
   const int threads = 256;

@@ -1,13 +1,15 @@
-"""Tree learner: host facade over the wave grower (ops/wave.py).
+"""Tree learner: host facade over the wave grower (ops/wave.py) and the
+exact grower (ops/grow.py).
 
-Ported from the JAX package's ``ops/learner.py`` (``SerialTreeLearner`` on
-the wave path).  The learner uploads the transposed bin matrix once (or,
-with ``tpu_sparse`` and ``tpu_sparse_kernel``, only the non-fill entries
-in the entry-chunk sparse store, ops/sparse_mxu.py), samples
-feature_fraction masks, feeds gradients to the grower and materializes
-finished trees (real-valued thresholds resolved in float64 from the
-BinMappers).  Engine knobs that select something this port does not have
-raise instead of being ignored.
+Ported from the JAX package's ``ops/learner.py`` (``SerialTreeLearner``).
+The learner uploads the bin matrix once: transposed for the wave kernels
+B1/B3, row-major for ``tpu_histogram_mode=pallas`` (B4 under wave growth,
+B5 under exact growth), or, with ``tpu_sparse`` and ``tpu_sparse_kernel``,
+only the non-fill entries in the entry-chunk sparse store
+(ops/sparse_mxu.py).  It samples feature_fraction masks, feeds gradients
+to the grower and materializes finished trees (real-valued thresholds
+resolved in float64 from the BinMappers).  Engine knobs that select
+something this port does not have raise instead of being ignored.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from ..utils.common import avoid_inf
 from ..utils.config import Config, _FALSE_SET, _TRUE_SET
 from ..utils.log import Log
 from ..utils.random import Random
-from .grow import BundleArrays
+from .grow import BundleArrays, grow_tree_exact
 from .sparse_mxu import build_chunked_store
 from .sparse_store import column_fill_bins
 from .split_finder import FeatureMeta, SplitParams
@@ -104,8 +106,8 @@ def build_split_params(config: Config) -> SplitParams:
 
 def _unsupported(knob: str, value) -> None:
     Log.fatal("%s=%s selects an engine lightgbm_tpu_torch does not have "
-              "yet (this port runs serial wave growth with the f32 "
-              "kernels, on the dense matrix or the entry-chunk sparse "
+              "yet (this port runs serial wave or exact growth with the "
+              "f32 kernels, on the dense matrix or the entry-chunk sparse "
               "store)", knob, value)
 
 
@@ -137,19 +139,39 @@ def resolve_sparse(config: Config) -> bool:
     return True
 
 
-def check_engine_params(config: Config) -> bool:
+def _val(config: Config, name: str) -> str:
+    return str(getattr(config, name)).strip().lower()
+
+
+def resolve_growth(config: Config, sparse: bool) -> str:
+    """'wave' or 'exact', as the JAX package resolves tpu_growth
+    (its ops/learner.py): auto is exact with tpu_histogram_mode=pallas,
+    whose kernel is the exact grower's per-leaf histogram, and wave
+    otherwise; the wave-only kernels refuse exact growth."""
+    growth = _val(config, "tpu_growth")
+    mode = _val(config, "tpu_histogram_mode")
+    if growth == "auto":
+        growth = "exact" if mode == "pallas" and not sparse else "wave"
+    if growth == "exact" and mode in ("pallas_ct", "pallas_t"):
+        Log.fatal("tpu_histogram_mode=%s requires tpu_growth=wave (this "
+                  "kernel is wave-only)", config.tpu_histogram_mode)
+    return growth
+
+
+def check_engine_params(config: Config):
     """Raise on knob values whose engine this port lacks; accept the
-    values that resolve to the engines it has.  Returns whether the
-    sparse store runs (resolve_sparse)."""
+    values that resolve to the engines it has.  Returns (sparse, growth):
+    whether the sparse store runs (resolve_sparse) and the growth
+    schedule (resolve_growth)."""
     def val(name):
-        return str(getattr(config, name)).strip().lower()
+        return _val(config, name)
 
     sparse = resolve_sparse(config)
     checks = [
         ("tree_learner", ("serial",)),
         ("boosting_type", ("gbdt",)),
-        ("tpu_growth", ("auto", "wave")),
-        ("tpu_histogram_mode", ("auto", "pallas_ct", "pallas_t")),
+        ("tpu_growth", ("auto", "wave", "exact")),
+        ("tpu_histogram_mode", ("auto", "pallas", "pallas_ct", "pallas_t")),
         ("tpu_hist_precision", ("auto", "hilo")),
         ("tpu_wave_order", ("auto", "batched")),
         ("tpu_score_update", ("auto", "pallas")),
@@ -172,10 +194,14 @@ def check_engine_params(config: Config) -> bool:
     if int(config.tpu_wave_chunk) <= 0:
         Log.fatal("tpu_wave_chunk must be positive, got %s",
                   config.tpu_wave_chunk)
+    growth = resolve_growth(config, sparse)
+    # the wave width is read, and so checked, only under wave growth: an
+    # exact-growth config with a leftover bad width keeps training, as in
+    # the JAX package
     w = int(config.tpu_wave_width)
-    if w <= 0 and w != -1:
+    if growth == "wave" and w <= 0 and w != -1:
         Log.fatal("tpu_wave_width must be positive or -1 (auto), got %d", w)
-    return sparse
+    return sparse, growth
 
 
 def resolve_wave_width(config: Config, num_leaves: int) -> int:
@@ -192,7 +218,7 @@ def resolve_wave_width(config: Config, num_leaves: int) -> int:
 
 class SerialTreeLearner:
     def __init__(self, config: Config, train_data: TrainingData, device):
-        self.sparse = check_engine_params(config)
+        self.sparse, self.growth = check_engine_params(config)
         self.config = config
         self.train_data = train_data
         self.device = device
@@ -226,9 +252,14 @@ class SerialTreeLearner:
         if nbins > 256:
             Log.fatal("lightgbm_tpu_torch bins are uint8: %d bins per "
                       "column is too many (use max_bin <= 255)", nbins)
-        mode = str(config.tpu_histogram_mode).strip().lower()
+        mode = _val(config, "tpu_histogram_mode")
         if self.sparse:
             mode = "sparse_mxu"
+        elif self.growth == "exact":
+            # exact growth takes B5 ('pallas').  With 'auto' the JAX
+            # package's TPU prior picks its XLA onehot engine here
+            # (ops/autotune.py), which the port does not have
+            mode = "pallas"
         elif mode == "auto":
             # the JAX package's prior: the fused kernel while the
             # accumulator block is narrow, the histogram-only kernel with
@@ -238,7 +269,8 @@ class SerialTreeLearner:
         self.hist_mode = mode
         self.cache_hists = hist_cache_enabled(config, self.num_leaves,
                                               ncols, nbins, 4)
-        self.wave_width = resolve_wave_width(config, self.num_leaves)
+        self.wave_width = (resolve_wave_width(config, self.num_leaves)
+                           if self.growth == "wave" else 1)
         binned = train_data.binned
         if binned.shape[1] == 0:
             binned = np.zeros((train_data.num_data, 1), np.uint8)
@@ -253,9 +285,10 @@ class SerialTreeLearner:
             self.X, self.sparse_device_bytes = build_chunked_store(
                 binned, fill, nbins, auto_uniform=True, device=device)
         else:
-            # the transposed (G, N) bin matrix, uploaded once per booster
-            self.X = torch.as_tensor(np.ascontiguousarray(binned.T),
-                                     device=device)
+            # the bin matrix, uploaded once per booster: row-major (N, G)
+            # for the 'pallas' kernels, else transposed (G, N)
+            self.X = torch.as_tensor(np.ascontiguousarray(
+                binned if mode == "pallas" else binned.T), device=device)
             if self.X.dtype != torch.uint8:
                 Log.fatal("lightgbm_tpu_torch needs uint8 bins, got %s",
                           self.X.dtype)
@@ -282,14 +315,18 @@ class SerialTreeLearner:
         """Grow one tree on the device: (TreeArrays, leaf_id, GrowStats)."""
         if row_mult is None:
             row_mult = self._ones
-        tree, leaf_id, stats = grow_tree(
-            self.X, grad.to(torch.float32), hess.to(torch.float32),
-            row_mult.to(torch.float32), self.sample_feature_mask(),
-            self.meta, self.bundle_arrays, num_leaves=self.num_leaves,
-            num_bins=self.num_bins, params=self.params,
-            max_depth=self.config.max_depth, wave_width=self.wave_width,
-            group_bins=self.group_bins, cache_hists=self.cache_hists,
-            fused=self.hist_mode == "pallas_ct")
+        args = (self.X, grad.to(torch.float32), hess.to(torch.float32),
+                row_mult.to(torch.float32), self.sample_feature_mask(),
+                self.meta, self.bundle_arrays)
+        kw = dict(num_leaves=self.num_leaves, num_bins=self.num_bins,
+                  params=self.params, max_depth=self.config.max_depth,
+                  group_bins=self.group_bins, cache_hists=self.cache_hists)
+        if self.growth == "exact":
+            tree, leaf_id, stats = grow_tree_exact(*args, **kw)
+        else:
+            tree, leaf_id, stats = grow_tree(
+                *args, wave_width=self.wave_width, hist_mode=self.hist_mode,
+                **kw)
         self.last_stats = stats
         return tree, leaf_id, stats
 

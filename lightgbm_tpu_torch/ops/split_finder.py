@@ -13,7 +13,11 @@ order:
 * across features, the smaller feature index wins ties (``argmax`` picks
   the first max).
 
-The batch dimension K replaces the JAX package's ``vmap``.
+The batch dimension K replaces the JAX package's ``vmap``.  Constants
+enter as Python scalars (``masked_fill``, scalar arithmetic): a constant
+built with ``torch.tensor(..., device=cuda)`` is a host-to-device copy,
+which waits for the device's queue to drain, and the exact grower runs
+this search once a split.
 """
 from __future__ import annotations
 
@@ -131,7 +135,7 @@ def _numerical_pass(g, h, c, meta: FeatureMeta, params: SplitParams,
     hk = torch.where(keep, h, zero)
     ck = torch.where(keep, c, zero)
 
-    eps = torch.tensor(kEpsilon, dtype=g.dtype, device=dev)
+    eps = kEpsilon
     if mode != "zero_right":
         # dir = -1: split point t puts bins >= t on the right,
         # threshold = t - 1
@@ -166,8 +170,7 @@ def _numerical_pass(g, h, c, meta: FeatureMeta, params: SplitParams,
             + _leaf_split_gain(right_g, right_h, params.lambda_l1,
                                params.lambda_l2))
     ok = ok & (gain > min_gain_shift)
-    gain = torch.where(ok, gain, torch.tensor(-float("inf"), dtype=g.dtype,
-                                              device=dev))
+    gain = gain.masked_fill(~ok, -float("inf"))
 
     pick = (_argmax_prefer_last(gain) if prefer_last
             else torch.argmax(gain, dim=-1))                   # (K, F)
@@ -197,7 +200,7 @@ def _categorical_pass(g, h, c, meta: FeatureMeta, params: SplitParams,
     dev = g.device
     bins = torch.arange(B, device=dev)
     valid = bins[None, :] < meta.num_bin.long()[:, None]
-    eps = torch.tensor(kEpsilon, dtype=g.dtype, device=dev)
+    eps = kEpsilon
 
     other_c = total_cnt - c
     other_h = total_h_eps - h - eps
@@ -212,8 +215,7 @@ def _categorical_pass(g, h, c, meta: FeatureMeta, params: SplitParams,
             + _leaf_split_gain(g, h + eps, params.lambda_l1,
                                params.lambda_l2))
     ok = ok & (gain > min_gain_shift)
-    gain = torch.where(ok, gain, torch.tensor(-float("inf"), dtype=g.dtype,
-                                              device=dev))
+    gain = gain.masked_fill(~ok, -float("inf"))
     pick = _argmax_prefer_last(gain)
     return _Cand(
         gain=_take(gain, pick),
@@ -239,8 +241,8 @@ def find_best_splits(hist, sums, meta: FeatureMeta, feature_mask,
     totals; feature_mask: (F,) bool.  Returns (K, SPLIT_VEC_SIZE) packed
     vectors; gain=-inf marks an unsplittable leaf."""
     g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]
-    dtype, dev = g.dtype, g.device
-    eps = torch.tensor(kEpsilon, dtype=dtype, device=dev)
+    dtype = g.dtype
+    eps = kEpsilon
     total_g = sums[:, 0].to(dtype)
     total_h_eps = sums[:, 1].to(dtype) + 2 * eps
     total_cnt = sums[:, 2].to(dtype)
@@ -261,8 +263,8 @@ def find_best_splits(hist, sums, meta: FeatureMeta, feature_mask,
     is_cat = meta.is_categorical[None, :]
     best = _Cand(*[torch.where(is_cat, cn, bn) for cn, bn in zip(cat, best)])
 
-    ninf = torch.tensor(-float("inf"), dtype=dtype, device=dev)
-    masked = torch.where(feature_mask[None, :], best.gain, ninf)   # (K, F)
+    ninf = -float("inf")
+    masked = best.gain.masked_fill(~feature_mask[None, :], ninf)  # (K, F)
     f = torch.argmax(masked, dim=-1)                              # (K,)
     fi = f[:, None]
     bgain = torch.gather(masked, 1, fi)[:, 0]
@@ -279,7 +281,7 @@ def find_best_splits(hist, sums, meta: FeatureMeta, feature_mask,
     rc = total_cnt - lc
     g2_ok = torch.isfinite(g2)
     out = torch.stack([
-        torch.where(torch.isfinite(bgain), bgain - min_gain_shift, ninf),
+        (bgain - min_gain_shift).masked_fill(~torch.isfinite(bgain), ninf),
         f.to(dtype),
         at_f(best.threshold).to(dtype),
         at_f(best.dbz).to(dtype),

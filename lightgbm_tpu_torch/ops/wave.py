@@ -8,7 +8,11 @@ the packed split search over all 2W children at once.
 Each wave is one fused pass (kernel B1, ``wave_partition_hist``) that
 routes the rows of the W chosen leaves and builds the W smaller-child
 histograms; the root histogram and the no-cache larger-child pass go
-through the histogram-only kernel (B3, ``wave_histogram``).  The JAX
+through the histogram-only kernel (B3, ``wave_histogram``).  With
+``tpu_histogram_mode=pallas`` the bins stay row-major (N, G): the
+partition runs as plain tensor ops on the split columns
+(``route_rows_rowmajor``) and every histogram, the root's included, comes
+from the row-major kernel (B4, ``wave_histogram_rowmajor``).  The JAX
 package's ``lax.while_loop`` is a Python loop here with ONE host read per
 wave: the number of valid splits (the k == 0 stop test) together with
 the chosen parent ids, from which the host tracks leaf depths.
@@ -23,11 +27,9 @@ rebuilds the fill-bin slots the store never holds (``fix_default``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
-from .grow import TreeArrays, feature_hist_view
+from .grow import GrowStats, TreeArrays, feature_hist_view
 from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
                            LEFT_COUNT, LEFT_OUTPUT, LEFT_SUM_G, LEFT_SUM_H,
                            RIGHT_COUNT, RIGHT_OUTPUT, RIGHT_SUM_G,
@@ -36,17 +38,9 @@ from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
                            SplitParams, best_splits_batched)
 from .sparse_mxu import (ChunkedSparseStore, sparse_route_rows,
                          sparse_wave_histogram)
-from .wave_kernels import (route_rows_plain, wave_histogram,
+from .wave_kernels import (route_rows_plain, route_rows_rowmajor,
+                           wave_histogram, wave_histogram_rowmajor,
                            wave_partition_hist)
-
-
-@dataclass
-class GrowStats:
-    """Host-side facts about one grown tree."""
-    num_leaves: int
-    depth: int          # deepest leaf's depth
-    waves: int          # fused passes run
-    host_reads: int     # device->host reads made while growing
 
 
 def _put_where(dst, idx, mask, val):
@@ -68,14 +62,17 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
               bundle, *, num_leaves: int, num_bins: int,
               params: SplitParams, max_depth: int, wave_width: int,
               group_bins: int = 0, cache_hists: bool = True,
-              fused: bool = True):
-    """Grow one tree.  X: (G, N) uint8 transposed bins, or a
-    ChunkedSparseStore; grad/hess/row_mult: (N,) f32.  Returns
-    (TreeArrays, leaf_id (N,) int32, GrowStats).
+              hist_mode: str = "pallas_ct"):
+    """Grow one tree.  X: (G, N) uint8 transposed bins, (N, G) row-major
+    bins for hist_mode 'pallas', or a ChunkedSparseStore; grad/hess/
+    row_mult: (N,) f32.  Returns (TreeArrays, leaf_id (N,) int32,
+    GrowStats).
 
-    fused=False is the JAX package's pallas_t dataflow: the partition
-    runs as plain tensor ops and the histograms through kernel B3.  It
-    has no meaning on the sparse store."""
+    hist_mode 'pallas_ct' fuses the partition and the smaller children's
+    histograms (B1); 'pallas_t' is the JAX package's dataflow of that
+    name, the partition as plain tensor ops and the histograms through
+    B3; 'pallas' is the same on the row-major bins, through B4.  The
+    mode has no meaning on the sparse store."""
     L = num_leaves
     W = max(1, min(wave_width, L - 1))
     hist_bins = group_bins if bundle is not None else num_bins
@@ -91,6 +88,8 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
         if sparse:
             return sparse_wave_histogram(X, lid, w3, ids, hist_bins,
                                          X.num_cols)
+        if hist_mode == "pallas":
+            return wave_histogram_rowmajor(X, lid, w3, ids, hist_bins)
         return wave_histogram(X, lid, w3, ids, hist_bins)
 
     def best_of_many(hists_k, sums_k, depths_k):
@@ -115,29 +114,7 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     bests[0] = best_of_many(hist0[None], root_sums[None],
                             torch.zeros(1, dtype=i32, device=dev))[0]
 
-    def zeros(m, dtype):
-        return torch.zeros(m, dtype=dtype, device=dev)
-
-    tree = TreeArrays(
-        num_leaves=torch.ones((), dtype=i32, device=dev),
-        split_feature=zeros(L - 1, i32),
-        threshold_bin=zeros(L - 1, i32),
-        default_bin_for_zero=zeros(L - 1, i32),
-        default_bin=zeros(L - 1, i32),
-        is_cat=zeros(L - 1, i32),
-        left_child=zeros(L - 1, i32),
-        right_child=zeros(L - 1, i32),
-        split_gain=zeros(L - 1, f32),
-        internal_value=zeros(L - 1, f32),
-        internal_count=zeros(L - 1, i32),
-        leaf_parent=torch.full((L,), -1, dtype=i32, device=dev),
-        leaf_value=zeros(L, f32),
-        leaf_count=zeros(L, i32),
-        leaf_depth=zeros(L, i32),
-        second_feature=torch.full((L - 1,), -1, dtype=i32, device=dev),
-        second_gain=zeros(L - 1, f32),
-    )
-    tree.leaf_count[0] = root_sums[2].to(i32)
+    tree = TreeArrays.new(L, root_sums[2], f32, dev)
 
     rank = torch.arange(W, dtype=torch.long, device=dev)
     host_depth = [0] * L
@@ -204,13 +181,14 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
             leaf_id = sparse_route_rows(X, leaf_id, cols, psrc, L,
                                         bundle is not None)
             hist_small = child_hists(leaf_id, cid)
-        elif fused:
+        elif hist_mode == "pallas_ct":
             leaf_id, hist_small = wave_partition_hist(
                 X, leaf_id, w3, cid, cols, psrc, hist_bins,
                 bundled=bundle is not None)
         else:
-            leaf_id = route_rows_plain(X, leaf_id, cols, psrc,
-                                       bundle is not None)
+            route = (route_rows_rowmajor if hist_mode == "pallas"
+                     else route_rows_plain)
+            leaf_id = route(X, leaf_id, cols, psrc, bundle is not None)
             hist_small = child_hists(leaf_id, cid)
         if cache_hists:
             hist_large = hists[parent] - hist_small

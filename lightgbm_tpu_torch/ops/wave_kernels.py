@@ -1,12 +1,16 @@
-"""Wave kernels: the fused partition + child histograms of one wave (B1)
-and the histogram-only pass (B3), each beside its plain torch version.
+"""Wave kernels: the fused partition + child histograms of one wave (B1),
+the histogram-only pass on the transposed bins (B3) and on the row-major
+bins (B4), each beside its plain torch version.
 
 Ported from the JAX package's ``ops/pallas_wave.py``
-(``wave_partition_hist_pallas_ct`` and ``wave_histogram_pallas_t``); the
-CUDA source is ``csrc/wave_hist.cu``.  The contract and layouts are the
-JAX package's: X_t (F, N) uint8, leaf_id (N,) int32, w3 (N, 3) f32,
-child_id (K,) int32 (-1 = inactive), cols (W, 10) f32, psrc (W,) int32
-(-3 = inactive); histograms come back as (K, F, B, 3) f32.
+(``wave_partition_hist_pallas_ct``, ``wave_histogram_pallas_t`` and
+``wave_histogram_pallas``); the CUDA source is ``csrc/wave_hist.cu``.
+The contract and layouts are the JAX package's: X_t (F, N) or X (N, F)
+uint8, leaf_id (N,) int32, w3 (N, 3) f32, child_id (K,) int32 (-1 =
+inactive), cols (W, 10) f32, psrc (W,) int32 (-3 = inactive); histograms
+come back as (K, F, B, 3) f32.  The JAX package's B4 splits the weights
+into bf16 hi/lo halves for the TPU's matrix unit; the port multiplies and
+adds in f32, as for B1 and B3.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (building it on first use) or raises.  Each wrapper
@@ -32,18 +36,33 @@ _num_sms = {}
 
 
 # ------------------------------------------------------------ plain torch
-def route_rows_plain(X_t, leaf_id, cols, psrc, bundled: bool = False):
-    """New leaf ids after one wave's splits (ops/wave.py route_rows): each
-    row whose leaf is psrc[w] takes the split in cols[w]."""
-    F, N = X_t.shape
-    dev = X_t.device
+def _split_rows(leaf_id, cols, psrc, F):
+    """(r (N, 10), cj (N,), in_range (N,)): each row's split-table row
+    (zeros for rows whose leaf is not split) and its split column."""
     match = leaf_id[None, :] == psrc[:, None]                  # (W, N)
     has = match.any(dim=0)
     slot = torch.argmax(match.to(torch.int32), dim=0)
     r = cols[slot] * has[:, None].to(cols.dtype)               # (N, 10)
     cj = r[:, 1].long()
-    in_range = (cj >= 0) & (cj < F)
-    colv = X_t[cj.clamp(0, F - 1), torch.arange(N, device=dev)].to(
+    return r, cj.clamp(0, F - 1), (cj >= 0) & (cj < F)
+
+
+def route_rows_plain(X_t, leaf_id, cols, psrc, bundled: bool = False):
+    """New leaf ids after one wave's splits (ops/wave.py route_rows): each
+    row whose leaf is psrc[w] takes the split in cols[w]."""
+    F, N = X_t.shape
+    r, cj, in_range = _split_rows(leaf_id, cols, psrc, F)
+    colv = X_t[cj, torch.arange(N, device=X_t.device)].to(
+        torch.int32) * in_range.to(torch.int32)
+    return route_rows(r, colv, leaf_id, bundled)
+
+
+def route_rows_rowmajor(X, leaf_id, cols, psrc, bundled: bool = False):
+    """route_rows_plain on the row-major bins X (N, F): each row's bin is
+    read from its split column X[row, j]."""
+    N, F = X.shape
+    r, cj, in_range = _split_rows(leaf_id, cols, psrc, F)
+    colv = X[torch.arange(N, device=X.device), cj].to(
         torch.int32) * in_range.to(torch.int32)
     return route_rows(r, colv, leaf_id, bundled)
 
@@ -67,23 +86,33 @@ def route_rows(r, colv, leaf_id, bundled: bool = False):
     return torch.where(active & ~go_left, r[:, 6].to(torch.int32), leaf_id)
 
 
+def histogram_plain(X_t, w, num_bins: int):
+    """(F, B, 3): hist[f, b] sums the weights w (N, 3) over the rows with
+    X_t[f, row] == b, in w's dtype; bins >= num_bins are dropped.  Each
+    cell adds its rows in row order."""
+    F, N = X_t.shape
+    B = int(num_bins)
+    x = X_t.long()
+    in_bins = (x < B).to(w.dtype)                              # (F, N)
+    idx = (torch.arange(F, device=X_t.device)[:, None] * B
+           + x.clamp(max=B - 1)).reshape(-1)
+    out = torch.zeros(F * B, 3, dtype=w.dtype, device=X_t.device)
+    out.index_add_(0, idx, (w[None, :, :] * in_bins[:, :, None])
+                   .reshape(-1, 3))
+    return out.reshape(F, B, 3)
+
+
 def wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins: int):
     """(K, F, B, 3): hist[k, f, b] sums w3 over the rows with
     leaf_id == child_id[k] and X_t[f, row] == b, in w3's dtype."""
-    F, N = X_t.shape
-    K = child_id.shape[0]
-    B = int(num_bins)
-    dev = X_t.device
-    x = X_t.long()
-    in_bins = (x < B).to(w3.dtype)                             # (F, N)
-    idx = (torch.arange(F, device=dev)[:, None] * B
-           + x.clamp(max=B - 1)).reshape(-1)
-    out = torch.zeros(K, F * B, 3, dtype=w3.dtype, device=dev)
-    for k in range(K):
-        m = (leaf_id == child_id[k]).to(w3.dtype)              # (N,)
-        w = (w3 * m[:, None])[None, :, :] * in_bins[:, :, None]
-        out[k].index_add_(0, idx, w.reshape(-1, 3))
-    return out.reshape(K, F, B, 3)
+    return torch.stack([
+        histogram_plain(X_t, w3 * (leaf_id == child_id[k]).to(w3.dtype)[
+            :, None], num_bins) for k in range(child_id.shape[0])])
+
+
+def wave_histogram_rowmajor_plain(X, leaf_id, w3, child_id, num_bins: int):
+    """wave_histogram_plain on the row-major bins X (N, F)."""
+    return wave_histogram_plain(X.t(), leaf_id, w3, child_id, num_bins)
 
 
 def wave_partition_hist_plain(X_t, leaf_id, w3, child_id, cols, psrc,
@@ -95,10 +124,14 @@ def wave_partition_hist_plain(X_t, leaf_id, w3, child_id, cols, psrc,
 
 
 # ----------------------------------------------------------------- kernel
-def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None):
+def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None,
+           rowmajor: bool = False):
     dev = X_t.device
     F, N = (X_t.shape if X_t.dim() == 2 else (None, None))
-    want = [(X_t, torch.uint8, (F, N), "X_t"),
+    if rowmajor and F is not None:
+        N, F = F, N
+    want = [(X_t, torch.uint8, (N, F) if rowmajor else (F, N),
+             "X" if rowmajor else "X_t"),
             (leaf_id, torch.int32, (N,), "leaf_id"),
             (w3, torch.float32, (N, 3), "w3"),
             (child_id, torch.int32, (child_id.shape[0],), "child_id")]
@@ -134,26 +167,33 @@ def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None):
                                 "index (F*N=%d)" % (F * N))
 
 
-def _smem_bytes(B: int, K: int, W: int, ks: int, warps: int) -> int:
-    """smem_bytes in csrc/wave_hist.cu: one block's dynamic shared memory."""
-    return 4 * (warps * ks * B * 3 + warps * 96 + _TILE * 5 + K + W
-                + W * 10 + 1)
+def _smem_bytes(B: int, K: int, W: int, ks: int, warps: int,
+                rowmajor: bool = False) -> int:
+    """smem_bytes in csrc/wave_hist.cu: one block's dynamic shared memory
+    (the row-major variant adds its tile of bin bytes)."""
+    return (4 * (warps * ks * B * 3 + warps * 96 + _TILE * 5 + K + W
+                 + W * 10 + 1)
+            + (4 * ((_TILE * warps + 3) // 4) if rowmajor else 0))
 
 
-def launch_plan(F: int, N: int, B: int, K: int, W: int, num_sms: int):
+def launch_plan(F: int, N: int, B: int, K: int, W: int, num_sms: int,
+                rowmajor: bool = False):
     """(R, rows_per_block, KS, warps): row blocks, rows each, child slots
     per block and warps (= features) per block.  Each warp keeps a
     private (KS, B, 3) histogram in shared memory; R row blocks write
     R partial (K, F, B, 3) blocks, capped at 1/_PARTIAL_FRACTION of the
     bytes of X_t.  R aims at one full round of resident blocks on every
     SM."""
+    def smem_of(ks, warps):
+        return _smem_bytes(B, K, W, ks, warps, rowmajor)
+
     ks = K
     warps = min(8, max(F, 1))
-    while warps > 1 and _smem_bytes(B, K, W, ks, warps) > _SMEM_BUDGET:
+    while warps > 1 and smem_of(ks, warps) > _SMEM_BUDGET:
         warps -= 1
-    while ks > 1 and _smem_bytes(B, K, W, ks, warps) > _SMEM_BUDGET:
+    while ks > 1 and smem_of(ks, warps) > _SMEM_BUDGET:
         ks = (ks + 1) // 2
-    smem = _smem_bytes(B, K, W, ks, warps)
+    smem = smem_of(ks, warps)
     if smem > _SMEM_BUDGET:
         raise LightGBMError("wave histogram block does not fit shared "
                             "memory (B=%d, K=%d, W=%d)" % (B, K, W))
@@ -179,13 +219,14 @@ def _sms(dev) -> int:
 
 
 def _launch(X_t, leaf_id, w3, child_id, cols, psrc, num_bins, fused,
-            bundled):
+            bundled, rowmajor=False):
     lib = _build.library()
-    F, N = X_t.shape
+    F, N = X_t.shape[::-1] if rowmajor else X_t.shape
     K = child_id.shape[0]
     W = cols.shape[0] if fused else 0
     B = int(num_bins)
-    R, rpb, ks, warps = launch_plan(F, N, B, K, W, _sms(X_t.device))
+    R, rpb, ks, warps = launch_plan(F, N, B, K, W, _sms(X_t.device),
+                                    rowmajor)
     tensors = (X_t, leaf_id, w3, child_id)
     if fused:
         new_lid = torch.empty(N, dtype=torch.int32, device=X_t.device)
@@ -200,7 +241,8 @@ def _launch(X_t, leaf_id, w3, child_id, cols, psrc, num_bins, fused,
         psrc.data_ptr() if fused else None,
         new_lid.data_ptr() if fused else None,
         partial.data_ptr(), hist.data_ptr(),
-        F, N, B, K, W, R, rpb, ks, warps, int(fused), int(bundled), stream)
+        F, N, B, K, W, R, rpb, ks, warps, int(fused), int(bundled),
+        int(rowmajor), stream)
     _build.check(err, "wave_hist")
     return (new_lid, hist) if fused else hist
 
@@ -232,5 +274,19 @@ def wave_histogram(X_t, leaf_id, w3, child_id, num_bins: int):
     return out
 
 
+def wave_histogram_rowmajor(X, leaf_id, w3, child_id, num_bins: int):
+    """Histogram-only wave pass on the row-major bins X (N, F) (kernel
+    B4): the contract of wave_histogram."""
+    _check(X, leaf_id, w3, child_id, num_bins, rowmajor=True)
+    if X.device.type == "cpu":
+        return wave_histogram_rowmajor_plain(X, leaf_id, w3, child_id,
+                                             num_bins)
+    out = _launch(X, leaf_id, w3, child_id, None, None, num_bins, False,
+                  False, rowmajor=True)
+    wave_histogram_rowmajor.launches += 1
+    return out
+
+
 wave_partition_hist.launches = 0
 wave_histogram.launches = 0
+wave_histogram_rowmajor.launches = 0

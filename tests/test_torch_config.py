@@ -28,10 +28,10 @@ def test_keys_aliases_and_values_match_the_jax_package():
 
 
 @pytest.mark.parametrize("knob,value,name", [
-    ("tpu_growth", "exact", "tpu_growth"),
+    ("tpu_wave_order", "exact", "tpu_wave_order"),
     ("tpu_histogram_mode", "onehot", "tpu_histogram_mode"),
     ("tpu_histogram_mode", "scatter", "tpu_histogram_mode"),
-    ("tpu_histogram_mode", "pallas", "tpu_histogram_mode"),
+    ("tpu_hist_precision", "bf16", "tpu_hist_precision"),
     ("tpu_sparse", True, "tpu_sparse"),
     ("tpu_bin_pack", "true", "tpu_bin_pack"),
     ("tree_learner", "data", "tree_learner"),
@@ -45,3 +45,46 @@ def test_engines_the_port_lacks_raise(knob, value, name):
     params = {"objective": "binary", "verbose": -1, knob: value}
     with pytest.raises(lgb.LightGBMError, match=name):
         lgb.train(params, lgb.Dataset(X, label=y), 1, device="cpu")
+
+
+def _train(params, rows=200):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(rows, 4))
+    y = (X[:, 0] > 0).astype(float)
+    return lgb.train(dict({"objective": "binary", "verbose": -1}, **params),
+                     lgb.Dataset(X, label=y), 1, device="cpu")
+
+
+@pytest.mark.parametrize("params,match", [
+    ({"tpu_growth": "exact", "tpu_histogram_mode": "pallas_ct"},
+     "requires tpu_growth=wave"),
+    ({"tpu_growth": "exact", "tpu_histogram_mode": "pallas_t"},
+     "requires tpu_growth=wave"),
+    ({"tpu_growth": "exact", "tpu_sparse": True, "tpu_sparse_kernel": True},
+     "requires wave growth"),
+    ({"tpu_growth": "wave", "tpu_wave_width": 0}, "tpu_wave_width"),
+])
+def test_fatal_engine_combinations(params, match):
+    with pytest.raises(lgb.LightGBMError, match=match):
+        _train(params)
+
+
+@pytest.mark.parametrize("params,growth,mode", [
+    ({"tpu_growth": "exact"}, "exact", "pallas"),
+    ({"tpu_histogram_mode": "pallas"}, "exact", "pallas"),
+    ({"tpu_growth": "exact", "tpu_histogram_mode": "pallas"}, "exact",
+     "pallas"),
+    ({"tpu_growth": "wave", "tpu_histogram_mode": "pallas"}, "wave",
+     "pallas"),
+    ({}, "wave", "pallas_ct"),
+    # a leftover bad wave width does not stop exact growth (the JAX
+    # package checks it only under wave growth)
+    ({"tpu_growth": "exact", "tpu_wave_width": 0}, "exact", "pallas"),
+])
+def test_growth_and_histogram_mode_resolution(params, growth, mode):
+    """The JAX package's resolution: auto growth is exact with 'pallas';
+    exact growth with 'auto' takes the port's per-leaf kernel B5 (the
+    JAX package's TPU prior would pick its XLA onehot engine)."""
+    learner = _train(params)._gbdt.learner
+    assert (learner.growth, learner.hist_mode) == (growth, mode)
+    assert learner.X.shape[0] == (200 if mode == "pallas" else 4)

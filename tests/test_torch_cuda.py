@@ -9,19 +9,25 @@ dependencies are installed:
 
 Tolerances: leaf ids and the score update are exact; histograms agree to
 rtol 1e-5 with atol 1e-5 x max|w| (f32 sums taken in another order), and
-two launches on the same input are bit-identical.
+two launches on the same input are bit-identical.  B4 and B5 are held
+against their plain versions computed in float64 with chip_smoke.py's
+tolerance: a cell may differ by 1e-5 x (sum of |w| over the cell) + 1e-5
+x max|w|.
 """
 import numpy as np
 import pytest
 import torch
 
+from lightgbm_tpu_torch import _build
+from lightgbm_tpu_torch.ops import leaf_hist as lh
 from lightgbm_tpu_torch.ops import predict as tp
 from lightgbm_tpu_torch.ops import sparse_mxu as sm
 from lightgbm_tpu_torch.ops import wave_kernels as wk
 from lightgbm_tpu_torch.ops.partition import clipped_leaf_values
-from torch_cases import (SCORE_CASES, assert_hist_close, bundled_case,
-                         score_case, sparse_bundled_case, sparse_case, t,
-                         unbundled_case, wave_data)
+from torch_cases import (LEAF_CASES, NO_CACHE, SCORE_CASES,
+                         assert_hist_close, bundled_case, leaf_case,
+                         parity_data, score_case, sparse_bundled_case,
+                         sparse_case, t, unbundled_case, wave_data)
 
 pytestmark = pytest.mark.cuda
 
@@ -225,5 +231,112 @@ def test_training_on_the_card_matches_the_cpu(dev, variant):
 
     assert structure(on_card.model_to_string()) == structure(
         on_cpu.model_to_string())
+    np.testing.assert_allclose(on_card.predict(X), on_cpu.predict(X),
+                               rtol=1e-5)
+
+
+def _within_f64(got, want, scale, wmax):
+    """chip_smoke.py's phase-2 tolerance against a float64 plain result."""
+    diff = (got.double().cpu() - want).abs()
+    return bool((diff <= 1e-5 * scale + 1e-5 * wmax).all())
+
+
+@pytest.mark.parametrize("k", [1, 4, 32])
+def test_rowmajor_hist_kernel_matches_plain(dev, k):
+    """B4 on X (N, F): K = 1 (the root), 4 and 32 slots over 2K leaves,
+    with an inactive slot and a duplicate child id once K > 1."""
+    X, _, w3, _, b = wave_data(n=20000, f=28, b=63, seed=k)
+    rng = np.random.default_rng(k)
+    lid = rng.integers(0, 2 * k, size=len(X)).astype(np.int32)
+    cid = rng.permutation(2 * k)[:k].astype(np.int32)
+    if k > 1:
+        cid[1] = -1
+        cid[-1] = cid[0]
+    n0 = wk.wave_histogram_rowmajor.launches
+    args = [t(a).to(dev) for a in (X, lid, w3, cid)]
+    got = wk.wave_histogram_rowmajor(*args, b)
+    again = wk.wave_histogram_rowmajor(*args, b)
+    torch.cuda.synchronize()
+    assert wk.wave_histogram_rowmajor.launches == n0 + 2
+    assert torch.equal(got, again)
+    w64 = t(w3).double()
+    want = wk.wave_histogram_rowmajor_plain(t(X), t(lid), w64, t(cid), b)
+    scale = wk.wave_histogram_rowmajor_plain(t(X), t(lid), w64.abs(),
+                                             t(cid), b)
+    assert _within_f64(got, want, scale, float(np.abs(w3).max()))
+    if k > 1:
+        assert torch.equal(got[0], got[-1]) and bool((got[1] == 0).all())
+
+
+@pytest.mark.parametrize("n,f,b,kind,leaf", LEAF_CASES
+                         + [(20000, 968, 255, "fractional", 1)])
+def test_leaf_hist_kernel_matches_plain(dev, n, f, b, kind, leaf):
+    """B5 on the CPU cases, and a wide shape (968 features at 255 bins)
+    that takes the kernel's feature-group grid axis."""
+    X, g, h, lid, rm = leaf_case(n, f, b, kind)
+    R, rpb, fg = lh.launch_plan(f, n, b, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert _build.library().lgbt_leaf_hist_smem(b, fg) == lh._smem_bytes(
+        b, fg)
+    if f == 968:
+        assert fg < f                      # more than one feature group
+    dargs = [t(a).to(dev) for a in (X, g, h, lid)]
+    drm = None if rm is None else t(rm).to(dev)
+    n0 = lh.leaf_histogram.launches
+    got = lh.leaf_histogram(*dargs, leaf, drm, b)
+    again = lh.leaf_histogram(*dargs, torch.tensor([leaf], device=dev), drm,
+                              b)
+    torch.cuda.synchronize()
+    assert lh.leaf_histogram.launches == n0 + 2
+    assert torch.equal(got, again)
+    rm64 = None if rm is None else t(rm).double()
+    want = lh.leaf_histogram_plain(t(X), t(g).double(), t(h).double(),
+                                   t(lid), leaf, rm64, b)
+    scale = lh.leaf_histogram_plain(t(X), t(g).double().abs(),
+                                    t(h).double().abs(), t(lid), leaf,
+                                    None if rm is None else rm64.abs(), b)
+    wmax = float(max(np.abs(g).max(), np.abs(h).max(), 1.0)
+                 * (1.0 if rm is None else np.abs(rm).max()))
+    assert _within_f64(got, want, scale, wmax)
+    if leaf == 9:
+        assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("growth", ["exact", "wave"])
+@pytest.mark.parametrize("variant", [{}, NO_CACHE])
+def test_pallas_training_on_the_card_matches_the_cpu(dev, growth, variant):
+    """tpu_histogram_mode=pallas on the card: exact growth through B5 (the
+    root and the smaller child of each split, both children without the
+    cache), wave growth through B4 (the root and each wave, twice a wave
+    without the cache); no other histogram kernel runs, and the card
+    grows the CPU's trees (compared as
+    test_training_on_the_card_matches_the_cpu compares them)."""
+    import lightgbm_tpu_torch as lgb
+
+    X, s = parity_data(10, 2000, False)
+    y = (s > 0).astype(float)
+    p = dict({"objective": "binary", "num_leaves": 15,
+              "min_data_in_leaf": 20, "max_bin": 63, "verbose": -1,
+              "tpu_growth": growth, "tpu_histogram_mode": "pallas",
+              "tpu_wave_width": 4}, **variant)
+    counters = (lh.leaf_histogram, wk.wave_histogram_rowmajor,
+                wk.wave_partition_hist, wk.wave_histogram,
+                sm.sparse_wave_histogram)
+    n0 = [c.launches for c in counters]
+    on_card = lgb.train(p, lgb.Dataset(X, label=y), 3, device="cuda")
+    counts = [c.launches - a for c, a in zip(counters, n0)]
+    stats = on_card.grow_stats()
+    passes = (len(stats) + sum(st.waves for st in stats)
+              * (1 if on_card._gbdt.learner.cache_hists else 2))
+    assert counts == ([passes, 0, 0, 0, 0] if growth == "exact"
+                      else [0, passes, 0, 0, 0])
+    if growth == "exact":
+        assert all(st.waves == st.num_leaves - 1 for st in stats)
+    on_cpu = lgb.train(p, lgb.Dataset(X, label=y), 3, device="cpu")
+    keys = ("split_feature", "left_child", "right_child", "leaf_count")
+    assert ([ln for ln in on_card.model_to_string().splitlines()
+             if ln.startswith(keys)]
+            == [ln for ln in on_cpu.model_to_string().splitlines()
+                if ln.startswith(keys)])
     np.testing.assert_allclose(on_card.predict(X), on_cpu.predict(X),
                                rtol=1e-5)

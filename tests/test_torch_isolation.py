@@ -20,6 +20,8 @@ def test_import_leaves_no_jax_modules():
             "import lightgbm_tpu_torch, lightgbm_tpu_torch.convert\n"
             "import lightgbm_tpu_torch.ops.wave_kernels\n"
             "import lightgbm_tpu_torch.ops.predict\n"
+            "import lightgbm_tpu_torch.ops.histogram\n"
+            "import lightgbm_tpu_torch.ops.leaf_hist\n"
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m == 'jax' or m.startswith(('jax.', 'jaxlib')) or "
             "m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.'))))\n")
@@ -112,3 +114,14 @@ def test_kernel_wrappers_refuse_other_devices():
         sparse_wave_histogram(store, i32(4), torch.zeros((4, 3),
                                                           device="meta"),
                               i32(2), 4, 2)
+
+    from lightgbm_tpu_torch.ops.leaf_hist import leaf_histogram
+    from lightgbm_tpu_torch.ops.wave_kernels import wave_histogram_rowmajor
+
+    x = torch.zeros((4, 2), dtype=torch.uint8, device="meta")
+    f32 = torch.zeros(4, device="meta")
+    with pytest.raises(Exception, match="unsupported device"):
+        leaf_histogram(x, f32, f32, i32(4), 0, None, 4)
+    with pytest.raises(Exception, match="unsupported device"):
+        wave_histogram_rowmajor(x, i32(4), torch.zeros((4, 3), device="meta"),
+                                i32(1), 4)

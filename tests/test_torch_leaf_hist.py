@@ -1,0 +1,117 @@
+"""The port's leaf histogram (kernel B5, exact growth) against the JAX
+package's Pallas kernel run in interpret mode and against its XLA scatter
+histogram, on the same numpy inputs.
+
+Tolerance: rtol 1e-5 with atol 1e-6 x max|w| (w = [g*m, h*m, m]), for
+sums taken in another order than the port's f32 adds.  The Pallas kernel
+multiplies 0/1 one-hot entries by f32 weights, so its products are exact
+and only the order of its adds differs.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from lightgbm_tpu.ops.histogram import leaf_histogram_scatter
+from lightgbm_tpu.ops.histogram import leaf_sums as jax_leaf_sums
+from lightgbm_tpu.ops.pallas_hist import leaf_histogram_pallas
+from lightgbm_tpu_torch.ops import leaf_hist as lh
+from lightgbm_tpu_torch.ops.histogram import leaf_sums
+from torch_cases import LEAF_CASES, leaf_case, t
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _port(X, g, h, lid, leaf, rm, b):
+    return lh.leaf_histogram(t(X), t(g), t(h), t(lid), leaf,
+                             None if rm is None else t(rm), b).numpy()
+
+
+def _close(got, want, g, h, rm):
+    m = np.ones_like(g) if rm is None else rm
+    wmax = float(np.abs(np.stack([g * m, h * m, m])).max())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * wmax)
+
+
+@pytest.mark.parametrize("n,f,b,kind,leaf", LEAF_CASES)
+def test_plain_matches_pallas_and_scatter(n, f, b, kind, leaf):
+    X, g, h, lid, rm = leaf_case(n, f, b, kind)
+    got = _port(X, g, h, lid, leaf, rm, b)
+    assert got.shape == (f, b, 3)
+    args = (jnp.asarray(X), jnp.asarray(g), jnp.asarray(h),
+            jnp.asarray(lid), leaf, _j(rm))
+    want = np.asarray(leaf_histogram_pallas(*args, num_bins=b,
+                                            interpret=True))
+    _close(got, want, g, h, rm)
+    _close(got, np.asarray(leaf_histogram_scatter(*args, num_bins=b)), g, h,
+           rm)
+    if leaf == 9:
+        assert np.all(got == 0.0)          # a leaf with no rows
+    else:
+        assert np.abs(got).sum() > 0
+
+
+@pytest.mark.parametrize("kind", ["none", "fractional"])
+def test_leaf_sums_match_the_jax_package(kind):
+    X, g, h, lid, rm = leaf_case(2000, 3, 7, kind)
+    got = leaf_sums(t(g), t(h), t(lid), 2, None if rm is None else t(rm))
+    want = jax_leaf_sums(jnp.asarray(g), jnp.asarray(h), jnp.asarray(lid),
+                         2, _j(rm))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def test_leaf_as_a_device_tensor():
+    """The grower passes the leaf as a one-element tensor (never read back
+    to the host); int32 and int64 give the int's histogram."""
+    X, g, h, lid, rm = leaf_case(1200, 4, 14, "fractional")
+    want = _port(X, g, h, lid, 3, rm, 14)
+    for dtype in (torch.int32, torch.int64):
+        got = lh.leaf_histogram(t(X), t(g), t(h), t(lid),
+                                torch.tensor([3], dtype=dtype), t(rm), 14)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cpu_wrapper_does_not_count_launches():
+    X, g, h, lid, rm = leaf_case(500, 3, 7, "none")
+    before = lh.leaf_histogram.launches
+    _port(X, g, h, lid, 1, rm, 7)
+    assert lh.leaf_histogram.launches == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device", "bins",
+                                 "leaf"])
+def test_wrapper_validates_inputs(bad):
+    X, g, h, lid, rm = leaf_case(64, 3, 7, "fractional")
+    args = [t(X), t(g), t(h), t(lid), 1, t(rm), 7]
+    if bad == "dtype":
+        args[1] = args[1].double()
+    elif bad == "shape":
+        args[5] = args[5][:10]
+    elif bad == "device":
+        args[2] = args[2].to("meta")
+    elif bad == "bins":
+        args[6] = 300
+    else:
+        args[4] = torch.tensor([1, 2])
+    with pytest.raises(lh.LightGBMError):
+        lh.leaf_histogram(*args)
+
+
+@pytest.mark.parametrize("n,f,b", [(2_000_000, 28, 63), (2_000_000, 28, 255),
+                                   (1_000_000, 968, 63), (1_000_000, 968, 255),
+                                   (3000, 5, 14)])
+def test_launch_plan_bounds(n, f, b):
+    """Shared memory fits a block, the feature groups cover every feature,
+    the row blocks cover every row, and the partials stay at most half
+    the bytes of X (or one block)."""
+    R, rpb, fg = lh.launch_plan(f, n, b, num_sms=132)
+    groups = -(-f // fg)
+    assert (groups - 1) * fg < f <= groups * fg
+    assert lh._smem_bytes(b, fg) <= lh._SMEM_BUDGET
+    assert R * rpb >= n and (R - 1) * rpb < n
+    assert R == 1 or R * f * b * 12 <= f * n // 2
+    if f * b * 12 + lh._smem_bytes(b, 0) + 256 * f <= lh._SMEM_BUDGET:
+        assert groups == 1                 # all features fit one block

@@ -1,6 +1,7 @@
 """The port's wave kernels (B1 fused partition + histograms, B3 histogram
-only) against the JAX package's Pallas kernels run in interpret mode and
-against its XLA oracle, on the same numpy inputs.
+only, B4 histogram only on the row-major bins) against the JAX package's
+Pallas kernels run in interpret mode and against its XLA oracle, on the
+same numpy inputs.
 
 Tolerance for histograms: rtol 1e-5 with atol 1e-5 x max|w|, for sums
 taken in another order than the port's f32 adds.  The Pallas kernels also
@@ -9,7 +10,11 @@ significant bits (up to 2^-16 relative per product); the inputs of the
 comparisons with them are cut to 16 significant bits, which the split
 represents exactly, so that what is compared is the contract and not the
 TPU's precision trick.  The comparisons with the XLA oracle use full f32
-weights.  Leaf ids are integers and must match exactly.
+weights.  Leaf ids are integers and must match exactly.  B4 is also held
+against its Pallas kernel on full f32 weights: the hi/lo split keeps 16
+significant bits of each weight (a product errs by at most 2^-16 of it),
+so there a cell may differ by 1e-4 x (sum of |w| over the cell) + 1e-6 x
+max|w|.
 """
 import numpy as np
 import pytest
@@ -18,7 +23,8 @@ import torch
 import jax.numpy as jnp
 
 from lightgbm_tpu.ops.histogram import leaf_histogram_onehot
-from lightgbm_tpu.ops.pallas_wave import (wave_histogram_pallas_t,
+from lightgbm_tpu.ops.pallas_wave import (wave_histogram_pallas,
+                                          wave_histogram_pallas_t,
                                           wave_histogram_reference,
                                           wave_partition_hist_pallas_ct)
 from lightgbm_tpu_torch.ops import wave_kernels as wk
@@ -158,6 +164,65 @@ def test_wrapper_validates_inputs(bad):
         wk.wave_histogram(_t(X.T), _t(lid), w, _t(cid), b)
 
 
+def _rowmajor_case(k, seed):
+    """K child slots over 2K leaves, with an inactive (-1) slot and a
+    duplicate child id once K > 1."""
+    X, lid, w3, _, b = _data(n=3000, f=7, b=14, seed=seed)
+    rng = np.random.default_rng(seed)
+    lid = rng.integers(0, 2 * k, size=len(X)).astype(np.int32)
+    cid = rng.permutation(2 * k)[:k].astype(np.int32)
+    if k > 1:
+        cid[1] = -1
+        cid[-1] = cid[0]
+    return X, lid, w3, cid, b
+
+
+@pytest.mark.parametrize("k", [1, 4, 32])
+def test_rowmajor_plain_matches_pallas(k):
+    X, lid, w3, cid, b = _rowmajor_case(k, seed=k)
+    got = wk.wave_histogram_rowmajor(_t(X), _t(lid), _t(w3), _t(cid),
+                                     b).numpy()
+    assert got.shape == (k, X.shape[1], b, 3)
+    want = np.asarray(wave_histogram_pallas(
+        jnp.asarray(X), jnp.asarray(lid), jnp.asarray(w3), jnp.asarray(cid),
+        b, interpret=True, hilo=True))
+    scale = wk.wave_histogram_rowmajor(_t(X), _t(lid), _t(np.abs(w3)),
+                                       _t(cid), b).numpy()
+    assert np.all(np.abs(got - want)
+                  <= 1e-4 * scale + 1e-6 * np.abs(w3).max())
+    ref = np.asarray(wave_histogram_reference(
+        jnp.asarray(X), jnp.asarray(lid), jnp.asarray(w3), jnp.asarray(cid),
+        b))
+    _assert_hist_close(got, ref, w3)
+    # the same pass on the transposed bins (B3's plain version)
+    same = wk.wave_histogram(_t(X.T), _t(lid), _t(w3), _t(cid), b).numpy()
+    np.testing.assert_array_equal(got, same)
+    if k > 1:
+        assert np.all(got[1] == 0.0)
+        np.testing.assert_array_equal(got[0], got[-1])
+
+
+@pytest.mark.parametrize("bundled", [False, True])
+def test_rowmajor_routing_matches_the_transposed(bundled):
+    X, lid, w3, cid, b, cols, psrc = (_bundled_case() if bundled
+                                      else _unbundled_case())
+    got = wk.route_rows_rowmajor(_t(X), _t(lid), _t(cols), _t(psrc),
+                                 bundled).numpy()
+    want = wk.route_rows_plain(_t(X.T), _t(lid), _t(cols), _t(psrc),
+                               bundled).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got != lid).any()
+
+
+def test_rowmajor_wrapper_validates_inputs():
+    X, lid, w3, cid, b = _data(n=64, seed=1)
+    with pytest.raises(wk.LightGBMError):       # X_t where X belongs
+        wk.wave_histogram_rowmajor(_t(X.T), _t(lid), _t(w3), _t(cid), b)
+    before = wk.wave_histogram_rowmajor.launches
+    wk.wave_histogram_rowmajor(_t(X), _t(lid), _t(w3), _t(cid), b)
+    assert wk.wave_histogram_rowmajor.launches == before
+
+
 @pytest.mark.parametrize("n,k", [(2_000_000, 32), (2_000_000, 1),
                                  (10_500_000, 32), (3000, 5)])
 def test_launch_plan_bounds(n, k):
@@ -168,5 +233,20 @@ def test_launch_plan_bounds(n, k):
     R, rpb, ks, warps = wk.launch_plan(f, n, b, k, w, num_sms=132)
     assert R * rpb >= n and (R - 1) * rpb < n
     assert wk._smem_bytes(b, k, w, ks, warps) <= wk._SMEM_BUDGET
+    assert R == 1 or R * k * f * b * 12 <= f * n // 2
+    assert 1 <= warps <= 8 and 1 <= ks <= k
+
+
+@pytest.mark.parametrize("n,k,b", [(2_000_000, 32, 63), (2_000_000, 1, 63),
+                                   (2_000_000, 32, 255), (3000, 5, 14)])
+def test_rowmajor_launch_plan_bounds(n, k, b):
+    """B4's plan: its tile of bin bytes still fits a block's shared
+    memory, and the row blocks cover every row."""
+    f, w = 28, 0
+    R, rpb, ks, warps = wk.launch_plan(f, n, b, k, w, num_sms=132,
+                                       rowmajor=True)
+    assert R * rpb >= n and (R - 1) * rpb < n
+    assert (wk._smem_bytes(b, k, w, ks, warps, rowmajor=True)
+            <= wk._SMEM_BUDGET)
     assert R == 1 or R * k * f * b * 12 <= f * n // 2
     assert 1 <= warps <= 8 and 1 <= ks <= k

@@ -114,3 +114,67 @@ def score_case(n, L, seed=11):
     lid = rng.integers(-1, L + 1, size=n).astype(np.int32)
     lv = (rng.normal(size=L) * 60).astype(np.float32)
     return score, lid, lv, np.float32(1.7)
+
+
+# (n, f, b, row_mult kind, leaf): row_mult None, with zeros, fractional;
+# a leaf with no rows (9); n not a multiple of the JAX kernel's row chunk
+LEAF_CASES = [(3000, 7, 14, "none", 1), (2500, 5, 63, "zeros", 2),
+              (4097, 9, 31, "fractional", 0), (1500, 4, 255, "fractional", 3),
+              (777, 3, 8, "none", 9)]
+
+
+def leaf_case(n, f, b, kind, seed=0):
+    """(X (N, F) uint8, grad, hess, leaf_id, row_mult or None) for B5:
+    rows spread over leaves 0-3, bins over [0, b]; the bin b itself lies
+    past num_bins and must be dropped."""
+    rng = np.random.default_rng(seed + n + f + b)
+    X = rng.integers(0, b + 1, size=(n, f)).astype(np.uint8)
+    g = rng.normal(size=n).astype(np.float32)
+    h = rng.random(n).astype(np.float32) + 0.1
+    lid = rng.integers(0, 4, size=n).astype(np.int32)
+    rm = {"none": None,
+          "zeros": (rng.random(n) > 0.3).astype(np.float32),
+          "fractional": rng.uniform(0, 2, size=n).astype(np.float32)}[kind]
+    return X, g, h, lid, rm
+
+
+STRUCTURE = ("split_feature", "threshold=", "left_child", "right_child",
+             "leaf_count", "decision_type")
+SAMPLED = {"bagging_fraction": 0.8, "bagging_freq": 1,
+           "feature_fraction": 0.8}
+NO_CACHE = {"histogram_pool_size": 0.01}
+
+
+def parity_data(seed, n, bundled):
+    """Training data of the growth parity tests: normal features; with
+    ``bundled`` the last four columns are mostly zero and mutually
+    exclusive, so EFB packs them into one group column."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 10))
+    if bundled:
+        owner = rng.integers(0, 8, size=n)
+        for j in range(4):
+            X[:, 6 + j] = np.where(owner == j, rng.normal(size=n) + 2.0, 0.0)
+    s = (X[:, 0] + 0.7 * X[:, 1] * X[:, 2] + 0.5 * X[:, 9]
+         + 0.1 * rng.normal(size=n))
+    return X, s
+
+
+def labels(objective, s):
+    return (s > 0).astype(float) if objective == "binary" else s
+
+
+def parity_params(objective, more):
+    return {"objective": objective, "num_leaves": 15, "min_data_in_leaf": 20,
+            "max_bin": 63, "verbose": -1, **more}
+
+
+def structure(model):
+    """The lines of a model text that fix the trees' partitions."""
+    return [ln for ln in model.splitlines() if ln.startswith(STRUCTURE)]
+
+
+def leaf_values(model):
+    return np.concatenate([np.array(ln.split("=")[1].split(), float)
+                           for ln in model.splitlines()
+                           if ln.startswith("leaf_value")])
