@@ -16,17 +16,22 @@ line.  Without a CUDA device it exits non-zero at once.
 Phases, in order:
  1. The card's name and power limit (nvidia-smi); the kernels' build.
  2. Kernel against plain at N rows, F = 28, B = 63, K = W = 32, on the
-    flagship data's own bins: B1 (fused wave step), B3 (histogram only,
-    K = 32 and the root's K = 1), B4 (histogram only on the row-major
-    bins, K = 32 and K = 1), B5 (leaf histogram: one leaf of a 64-leaf
-    state with row multipliers, and leaf 0 holding every row) and B2
-    (score update).  Leaf ids and the score update must be exactly
-    equal; two launches of a histogram kernel must be bit-identical.
+    flagship data's own bins: B1 (fused wave step; its routing pass must
+    list every row in a child slot once, and 32 warps a SM must stay
+    resident), B3 (histogram only, K = 32 and the root's K = 1), B4
+    (histogram only on the row-major bins, K = 32 and K = 1), B5 (leaf
+    histogram: one leaf of a 64-leaf state with row multipliers, and leaf
+    0 holding every row) and B2 (score update in place, clip folded in,
+    plain from a copy taken before).  Leaf ids and the score update must
+    be exactly equal; two launches of a histogram kernel must be
+    bit-identical.
     Histograms are held against the plain version computed in float64:
     an f32 sum over many rows errs in proportion to the sum of its terms'
     magnitudes, so a cell may differ by at most 1e-5 x (sum of |w| over
     the cell) + 1e-5 x max|w|.
- 3. Timing: each kernel's median over 20 launches (CUDA events), beside
+ 3. Timing: each kernel's time a launch, the median of 5 runs of 20
+    back-to-back launches (3 for calls above 20 ms), each run between one
+    pair of CUDA events, beside
     the plain version, one PyTorch library call for the same function and
     the bound (bytes over 3.35 TB/s, f32 adds over 67 TFLOP/s, whichever
     is larger).
@@ -64,6 +69,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 REPS = 20
+GROUPS = 5
+SLOW_MS = 20.0
 VALID_ROWS = 200_000
 ITERS = 5
 SPARSE_COLS = 968             # Bosch's width (BASELINE.md)
@@ -142,22 +149,32 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=REPS, warmup=3):
-    """Median milliseconds of fn() over reps runs, timed with CUDA events."""
+def time_ms(fn, reps=REPS, groups=GROUPS, warmup=3):
+    """Milliseconds a call of fn(): the median over `groups` runs of
+    `reps` back-to-back calls, each run between one pair of CUDA events
+    and divided by its calls, after `warmup` calls.  Where fn()'s host
+    work takes longer than its device work, this is the host's rate.  A
+    call slower than SLOW_MS is timed over 3 calls a run."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    marks = []
-    for _ in range(reps):
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if (time.perf_counter() - t0) * 1e3 > SLOW_MS:
+        reps = 3
+    runs = []
+    for _ in range(groups):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
-        marks.append((a, b))
-    torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in marks]))
+        torch.cuda.synchronize()
+        runs.append(a.elapsed_time(b) / reps)
+    return float(np.median(runs))
 
 
 def bound(nbytes, flops):
@@ -218,6 +235,9 @@ def slots_of(ids, cid):
 def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
     """Phases 2 and 3 on the flagship bins: returns the kernel records."""
     import torch
+
+    from lightgbm_tpu_torch import _build
+    from lightgbm_tpu_torch.utils.common import kMaxTreeOutput
     dev = X_t.device
     F, N = X_t.shape
     B, K = 63, 32
@@ -243,10 +263,13 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
     wmax = float(w3.abs().max())
     records = {}
 
-    # ---- B1: fused partition + child histograms
-    new_lid, hist = wk.wave_partition_hist(X_t, lid, w3, cid, cols, psrc, B)
+    # ---- B1: fused partition + child histograms; its fixed-point
+    # exponents are computed once, as the grower does once a tree
+    exps = wk.fixed_point_exponents(w3)
+    new_lid, hist = wk.wave_partition_hist(X_t, lid, w3, cid, cols, psrc, B,
+                                           exps=exps)
     new_lid2, hist2 = wk.wave_partition_hist(X_t, lid, w3, cid, cols, psrc,
-                                             B)
+                                             B, exps=exps)
     plain_lid = wk.route_rows_plain(X_t, lid, cols, psrc)
     need(torch.equal(new_lid, plain_lid), "B1 leaf ids differ from plain")
     need(torch.equal(new_lid, new_lid2) and torch.equal(hist, hist2),
@@ -257,16 +280,31 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
     del hist, hist2, new_lid2
     moved = int((new_lid != lid).sum())
     need(moved > 0, "B1 moved no rows")
+    # rows are routed once a wave: the routing pass lists every row in a
+    # child slot once; and 32 warps stay resident on every SM
+    listed = wk.route_list(X_t, lid, cid, cols, psrc)
+    need(all(torch.equal(a, b) for a, b in zip(
+        listed, wk.route_list_plain(X_t, lid, cid, cols, psrc))),
+        "B1 routing list differs from plain")
+    plan = wk.fused_plan(F, N, B, K, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    per_sm = _build.library().lgbt_wave_fused_blocks_per_sm(B, plan[3],
+                                                            plan[4])
+    warps = per_sm * wk._FUSED_THREADS // 32
+    need(warps >= 32, "B1 keeps %d warps a SM resident" % warps)
+    del listed
     slot, n_act = slots_of(plain_lid, cid)
     records["wave_partition_hist"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: wk.wave_partition_hist(X_t, lid, w3, cid, cols,
-                                                  psrc, B)),
+                                                  psrc, B, exps=exps)),
         plain_ms=time_ms(lambda: wk.wave_partition_hist_plain(
             X_t, lid, w3, cid, cols, psrc, B)),
         library_ms=bincount_ms(X_t, slot, w3, B),
-        shape="N=%d F=%d B=%d K=W=%d, %d rows in a child slot, %d moved"
-              % (N, F, B, K, n_act, moved),
+        shape="N=%d F=%d B=%d K=W=%d, %d rows in a child slot, %d moved; "
+              "%d feature groups of %d, %d list shares, %d warps a SM"
+              % (N, F, B, K, n_act, moved, plan[1], plan[4], plan[2],
+                 warps),
         nbytes=(N * (4 + 4 + 1) + n_act * (F + 12) + K * (10 * 4 + 8)
                 + K * F * B * 12),
         flops=3 * n_act * F)
@@ -352,20 +390,24 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
         del wl
     del X
 
-    # ---- B2: score update (255 leaves, ids clamped, values clipped)
-    L = 255
+    # ---- B2: score update (255 leaves, ids clamped, values clipped), in
+    # place as the training loop runs it; plain from a copy taken before
+    L, shrink = 255, 1.7
     score = torch.randn(N, generator=g).to(dev)
     lv = (torch.randn(L, generator=g) * 60).to(dev)
     sid = torch.randint(-1, L + 1, (N,), generator=g,
                         dtype=torch.int32).to(dev)
-    vals = clipped_leaf_values(lv, torch.tensor(0.1, device=dev))
-    out = tp.score_update(score, sid, vals)
-    want = tp.score_update_plain(score, sid, vals)
-    need(torch.equal(out, want), "B2 not bit-equal to plain")
+    vals = clipped_leaf_values(lv, shrink)
+    need(bool((vals.abs() == kMaxTreeOutput).any()), "B2 case hits no clip")
+    before = score.clone()
+    tp.score_update(score, sid, lv, shrink, out=score)
+    want = tp.score_update_plain(before, sid, vals)
+    need(torch.equal(score, want), "B2 not bit-equal to plain")
     cl = sid.long().clamp(0, L - 1)
     records["score_update"] = dict(
-        max_abs_err=float((out - want).abs().max()),
-        ms=time_ms(lambda: tp.score_update(score, sid, vals)),
+        max_abs_err=float((score - want).abs().max()),
+        ms=time_ms(lambda: tp.score_update(score, sid, lv, shrink,
+                                           out=score)),
         plain_ms=time_ms(lambda: tp.score_update_plain(score, sid, vals)),
         library_ms=time_ms(lambda: torch.add(score, vals.take(cl))),
         shape="N=%d L=%d" % (N, L), nbytes=N * 12 + L * 4, flops=N)
@@ -668,6 +710,10 @@ def profile_iteration(booster, card):
            launches / max(last.waves, 1), unit))
     for us, count, key in rows[:12]:
         say("  %9.3f ms %6d  %s" % (us / 1e3, count, key[:100]))
+    # the port's own kernels, wherever they rank
+    for us, count, key in rows[12:]:
+        if "anonymous namespace)::" in key and "at::" not in key:
+            say("  %9.3f ms %6d  %s" % (us / 1e3, count, key[:100]))
 
 
 def small_run_matches_cpu(lgb, variants):
@@ -933,7 +979,7 @@ def main():
     launches["leaf_histogram"] = exact_launches["leaf_histogram"]
     launches["sparse_wave_histogram"] = sparse_launches[
         "sparse_wave_histogram"]
-    sources = {"wave_partition_hist": ("lightgbm_tpu_torch/csrc/wave_hist.cu",
+    sources = {"wave_partition_hist": ("lightgbm_tpu_torch/csrc/wave_fused.cu",
                                        "lightgbm_tpu/ops/pallas_wave.py:508"),
                "score_update": ("lightgbm_tpu_torch/csrc/score_update.cu",
                                 "lightgbm_tpu/ops/predict.py:151"),

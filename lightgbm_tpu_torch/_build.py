@@ -108,14 +108,26 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(str(build()))
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.lgbt_wave_hist.argtypes = [vp] * 9 + [ci] * 12 + [vp]
+        cf = ctypes.c_float
+        lib.lgbt_wave_hist.argtypes = [vp] * 6 + [ci] * 9 + [vp]
         lib.lgbt_wave_hist.restype = ci
-        lib.lgbt_score_update.argtypes = [vp, vp, vp, vp, cll, ci, vp]
+        lib.lgbt_wave_fused.argtypes = [vp] * 11 + [ci] * 11 + [vp]
+        lib.lgbt_wave_fused.restype = ci
+        lib.lgbt_wave_route.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+        lib.lgbt_wave_route.restype = ci
+        lib.lgbt_wave_fused_smem.argtypes = [ci] * 3
+        lib.lgbt_wave_fused_smem.restype = cll
+        lib.lgbt_wave_fused_blocks_per_sm.argtypes = [ci] * 3
+        lib.lgbt_wave_fused_blocks_per_sm.restype = ci
+        lib.lgbt_score_update.argtypes = [vp, vp, vp, vp, cll, ci, cf, cf,
+                                          vp]
         lib.lgbt_score_update.restype = ci
         lib.lgbt_sparse_hist.argtypes = [vp] * 7 + [ci] * 7 + [vp]
         lib.lgbt_sparse_hist.restype = ci
@@ -125,6 +137,15 @@ def library() -> ctypes.CDLL:
         lib.lgbt_leaf_hist_smem.restype = cll
         _lib = lib
         return lib
+
+
+def stream(dev) -> int:
+    """The raw handle of torch's current CUDA stream on dev (what
+    torch.cuda.current_stream(dev).cuda_stream returns, without building
+    a Stream object: a few microseconds less host work a launch)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if dev.index is None else dev.index)
 
 
 def check(err: int, what: str) -> None:

@@ -1,0 +1,376 @@
+// The fused wave step for Hopper (sm_90a): route the rows of one wave's
+// parents, then build the child histograms of the routed rows.
+//
+// Replaces (JAX package, TPU Pallas):
+//   lightgbm_tpu/ops/pallas_wave.py::wave_partition_hist_pallas_ct
+//     (kernel _wave_fused_kernel_ct)
+//
+// Contract.  X_t (F, N) uint8 bins, leaf_id (N,) int32, w3 (N, 3) f32
+// [g*m, h*m, m], child_id (K,) int32 (-1 = inactive), the compact split
+// table cols (W, 10) f32 and the wave's parent ids psrc (W,) int32 (-3 =
+// inactive).  A row whose leaf is psrc[w] (the first such w) is routed
+// with the split in cols[w]: <= threshold numerical, == categorical,
+// default-bin redirect, EFB offset remap when BUNDLED.  Its new leaf id
+// is written to new_lid.  hist[k, f, b, :] sums w3 over the rows whose
+// new leaf id equals child_id[k] and whose bin in feature f is b; bins
+// >= B are dropped; a child id that repeats fills every slot that holds
+// it.
+//
+// What bounds it on this card.  The bytes that must move: leaf ids in
+// and out (8 B a row), and for each row in a child slot its weights
+// (12 B) and its F bin bytes; at the flagship shape (N = 2M, F = 28,
+// B = 63, K = W = 32, about half the rows in a slot) that is ~18 us at
+// 3.35 TB/s.  The adds (3 a row and feature) are ~2 us at the FP32 rate.
+// So the bound is memory, and the design has to keep the accumulation
+// from costing more than the loads.  The earlier design (one private f32
+// histogram a warp, lane-ordered adds after __match_any_sync, partials
+// summed in row-block order) was deterministic but capped a block of 8
+// warps to one an SM (203 KB of shared memory), routed every row once a
+// feature group, and spent a serial match-and-add step on every 32 rows
+// of every feature, including rows in no child slot.
+//
+// Design.
+//  1. route_kernel, one thread a row: the parent's wave slot and the new
+//     leaf's child slot come from leaf -> slot tables in shared memory
+//     built from psrc and child_id (a W- or K-long search only for ids
+//     outside the table).  It writes new_lid, and appends each row that
+//     falls in a child slot to a compact list of (row, slot) pairs: a
+//     block-wide prefix over its 1024 rows and one global atomic a tile.
+//     Every row is routed once a wave.
+//  2. hist_kernel walks only the list.  A block of 32 warps owns a group
+//     of FS features (and a slice of KS slots when one feature's K slots
+//     do not fit) and a share of the list; its histogram lives in shared
+//     memory as 64-bit fixed point, and each (row, feature) adds its
+//     three channels, each as two native 32-bit shared atomics (the low
+//     word's old value carries into the high word; a 64-bit shared
+//     atomicAdd would compile to a compare-and-swap loop on sm_90).
+//     Integer addition is exact and order-free, so the sums do not depend
+//     on scheduling and two launches are bit-identical.  The block then
+//     adds its cells into one int64 (K, F, B, 3) buffer with global
+//     atomics (again order-free).
+//  3. finish_kernel converts the int64 sums to f32 once and copies the
+//     histogram of a repeated child id into each of its slots.
+// Fixed point: channel c is scaled by 2^e[c] with e[c] = 62 -
+// frexp_exponent(N * max|w_c|), so no sum of N values can overflow; each
+// value is rounded to the nearest multiple of 2^-e[c], which errs by at
+// most N_cell * N * max|w_c| / 2^62 in a cell (1e-6 x max|w| at N = 2M),
+// well inside the f32 tolerance.  The wrapper computes e once a tree on
+// the device (ops/wave_kernels.py fixed_point_exponents).
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTable = 4096;         // leaf ids < kTable use the tables
+constexpr int kRouteThreads = 256;
+constexpr int kRouteRows = 4;        // rows a thread per tile
+constexpr int kTileRows = kRouteThreads * kRouteRows;
+constexpr int kHistThreads = 1024;   // 32 warps: one block fills an SM
+constexpr int kMaxGroup = 8;         // features a histogram block holds
+
+// First index i of ids[0..n) with ids[i] == v, or -1.
+__device__ __forceinline__ int find_first(const int* ids, int n, int v) {
+  for (int i = 0; i < n; ++i)
+    if (ids[i] == v) return i;
+  return -1;
+}
+
+template <bool BUNDLED>
+__global__ void __launch_bounds__(kRouteThreads)
+route_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
+             const int* __restrict__ cid, const float* __restrict__ cols,
+             const int* __restrict__ psrc, int* __restrict__ new_lid,
+             int2* __restrict__ list, unsigned long long* __restrict__ count,
+             int F, int N, int K, int W) {
+  __shared__ short wave_of[kTable];      // leaf -> first w, or -1
+  __shared__ short slot_of[kTable];      // leaf -> first k, or -1
+  __shared__ int warp_n[kRouteRows][kRouteThreads / 32];
+  __shared__ int tmax_s;
+  __shared__ unsigned long long base_s;
+  extern __shared__ int dyn[];
+  int* psrc_s = dyn;                     // W
+  int* cid_s = psrc_s + W;               // K
+  float* cols_s = reinterpret_cast<float*>(cid_s + K);   // W * 10
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  for (int i = tid; i < W; i += blockDim.x) psrc_s[i] = psrc[i];
+  for (int i = tid; i < K; i += blockDim.x) cid_s[i] = cid[i];
+  for (int i = tid; i < W * 10; i += blockDim.x) cols_s[i] = cols[i];
+  __syncthreads();
+  if (tid == 0) {                        // table length: largest id + 1
+    int m = -1;
+    for (int i = 0; i < W; ++i) m = max(m, psrc_s[i]);
+    for (int i = 0; i < K; ++i) m = max(m, cid_s[i]);
+    tmax_s = min(kTable, m + 1);
+  }
+  __syncthreads();
+  const int tmax = tmax_s;
+  for (int i = tid; i < tmax; i += blockDim.x) {
+    wave_of[i] = -1;
+    slot_of[i] = -1;
+  }
+  __syncthreads();
+  if (tid == 0) {                        // descending: the first one wins
+    for (int i = W - 1; i >= 0; --i)
+      if (psrc_s[i] >= 0 && psrc_s[i] < tmax) wave_of[psrc_s[i]] = i;
+    for (int i = K - 1; i >= 0; --i)
+      if (cid_s[i] >= 0 && cid_s[i] < tmax) slot_of[cid_s[i]] = i;
+  }
+  __syncthreads();
+
+  const unsigned lt_mask = (1u << lane) - 1u;
+  for (long long t0 = static_cast<long long>(blockIdx.x) * kTileRows;
+       t0 < N; t0 += static_cast<long long>(gridDim.x) * kTileRows) {
+    int row[kRouteRows], slot[kRouteRows], before[kRouteRows];
+#pragma unroll
+    for (int j = 0; j < kRouteRows; ++j) {
+      const long long r = t0 + j * kRouteThreads + tid;
+      row[j] = static_cast<int>(r);
+      slot[j] = -1;
+      if (r < N) {
+        int nl = lid[r];
+        const int w = (nl >= 0 && nl < kTable)
+            ? (nl < tmax ? wave_of[nl] : -1)
+            : find_first(psrc_s, W, nl);
+        if (w >= 0) {
+          const float* c = cols_s + w * 10;
+          if (c[0] > 0.5f) {
+            const int cj = static_cast<int>(c[1]);
+            int colv = (cj >= 0 && cj < F)
+                ? static_cast<int>(xt[static_cast<size_t>(cj) * N + r])
+                : 0;
+            const int dflt = static_cast<int>(c[4]);
+            if (BUNDLED) {
+              const int goff = static_cast<int>(c[7]);
+              const int span = static_cast<int>(c[9]);
+              colv = (colv >= goff && colv < goff + span)
+                  ? colv - goff + static_cast<int>(c[8]) : dflt;
+            }
+            const int thr = static_cast<int>(c[2]);
+            bool go_left = (c[3] > 0.5f) ? (colv == thr) : (colv <= thr);
+            if (colv == dflt) go_left = c[5] > 0.5f;
+            if (!go_left) nl = static_cast<int>(c[6]);
+          }
+        }
+        new_lid[r] = nl;
+        slot[j] = (nl >= 0 && nl < kTable)
+            ? (nl < tmax ? slot_of[nl] : -1)
+            : find_first(cid_s, K, nl);
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, slot[j] >= 0);
+      before[j] = __popc(m & lt_mask);
+      if (lane == 0) warp_n[j][warp] = __popc(m);
+    }
+    __syncthreads();
+    if (tid == 0) {                      // exclusive prefix in row order
+      int total = 0;
+      for (int j = 0; j < kRouteRows; ++j)
+        for (int v = 0; v < kRouteThreads / 32; ++v) {
+          const int c = warp_n[j][v];
+          warp_n[j][v] = total;
+          total += c;
+        }
+      base_s = total ? atomicAdd(count, static_cast<unsigned long long>(
+                                            total))
+                     : 0ull;
+    }
+    __syncthreads();
+    const unsigned long long base = base_s;
+#pragma unroll
+    for (int j = 0; j < kRouteRows; ++j)
+      if (slot[j] >= 0)
+        list[base + warp_n[j][warp] + before[j]] = make_int2(row[j], slot[j]);
+    __syncthreads();                     // warp_n and base_s reused
+  }
+}
+
+// q added to the 64-bit cell whose low and high words are *lo and *hi,
+// with native 32-bit shared atomics: the low word's old value gives the
+// carry into the high word, so the pair sums exactly and in any order.
+// (sm_90 has no 64-bit shared atomic add: atomicAdd on an unsigned long
+// long in shared memory compiles to a compare-and-swap loop.)
+__device__ __forceinline__ void add64(unsigned* lo, unsigned* hi,
+                                      unsigned long long q) {
+  const unsigned ql = static_cast<unsigned>(q);
+  const unsigned old = atomicAdd(lo, ql);
+  const unsigned h = static_cast<unsigned>(q >> 32) +
+                     (static_cast<unsigned>(old + ql) < old ? 1u : 0u);
+  if (h != 0u) atomicAdd(hi, h);
+}
+
+__global__ void __launch_bounds__(kHistThreads, 1)
+hist_kernel(const uint8_t* __restrict__ xt, const float* __restrict__ w3,
+            const int2* __restrict__ list,
+            const unsigned long long* __restrict__ count,
+            const int* __restrict__ exps, unsigned long long* __restrict__ acc,
+            int F, int N, int B, int K, int KS, int FS) {
+  // (KS, FS, B, 3) cells of 64 bits as two planes of 32-bit words
+  extern __shared__ unsigned planes[];
+  const int f0 = blockIdx.x * FS;
+  const int nf = min(FS, F - f0);
+  const int k0 = blockIdx.z * KS;
+  const int kn = min(KS, K - k0);
+  const int slot_len = FS * B * 3;
+  const int cells = kn * slot_len;
+  unsigned* lo = planes;
+  unsigned* hi = planes + KS * slot_len;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    lo[i] = 0u;
+    hi[i] = 0u;
+  }
+  const double s0 = ldexp(1.0, exps[0]);
+  const double s1 = ldexp(1.0, exps[1]);
+  const double s2 = ldexp(1.0, exps[2]);
+  const long long n = static_cast<long long>(*count);
+  const long long per = (n + gridDim.y - 1) / gridDim.y;
+  const long long j0 = blockIdx.y * per;
+  const long long j1 = min(n, j0 + per);
+  const uint8_t* xg = xt + static_cast<size_t>(f0) * N;
+  __syncthreads();
+
+  for (long long j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
+    const int2 rec = list[j];
+    const int s = rec.y - k0;
+    if (s < 0 || s >= kn) continue;
+    const int row = rec.x;
+    int bins[kMaxGroup];
+#pragma unroll
+    for (int f = 0; f < kMaxGroup; ++f)
+      bins[f] = f < nf ? static_cast<int>(xg[static_cast<size_t>(f) * N + row])
+                       : B;
+    const float* wr = w3 + 3 * static_cast<size_t>(row);
+    const unsigned long long q0 = static_cast<unsigned long long>(
+        __double2ll_rn(static_cast<double>(wr[0]) * s0));
+    const unsigned long long q1 = static_cast<unsigned long long>(
+        __double2ll_rn(static_cast<double>(wr[1]) * s1));
+    const unsigned long long q2 = static_cast<unsigned long long>(
+        __double2ll_rn(static_cast<double>(wr[2]) * s2));
+    const int base = s * slot_len;
+#pragma unroll
+    for (int f = 0; f < kMaxGroup; ++f) {
+      if (bins[f] < B) {
+        const int c = base + (f * B + bins[f]) * 3;
+        add64(lo + c, hi + c, q0);
+        add64(lo + c + 1, hi + c + 1, q1);
+        add64(lo + c + 2, hi + c + 2, q2);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const unsigned long long v =
+        (static_cast<unsigned long long>(hi[i]) << 32) | lo[i];
+    if (v == 0ull) continue;
+    const int kk = i / slot_len;
+    const int rem = i - kk * slot_len;       // (f, b, c) within the group
+    const int ff = rem / (B * 3);
+    if (ff >= nf) continue;
+    const size_t o =
+        (static_cast<size_t>(k0 + kk) * F + f0) * B * 3 + rem;
+    atomicAdd(acc + o, v);
+  }
+}
+
+// hist[k] = acc[first slot holding child_id[k]] / 2^e, in f32.
+__global__ void finish_kernel(const unsigned long long* __restrict__ acc,
+                              const int* __restrict__ cid,
+                              const int* __restrict__ exps,
+                              float* __restrict__ hist, int K,
+                              long long per_slot) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= per_slot * K) return;
+  const int k = static_cast<int>(i / per_slot);
+  const long long rem = i - k * per_slot;
+  const int kr = find_first(cid, k + 1, cid[k]);
+  const int c = static_cast<int>(rem % 3);
+  const long long v = static_cast<long long>(acc[kr * per_slot + rem]);
+  hist[i] = static_cast<float>(ldexp(static_cast<double>(v), -exps[c]));
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory of one histogram block: KS slots x FS features x B bins
+// x 3 channels of 64 bits (the wrapper's launch plan mirrors it).
+long long lgbt_wave_fused_smem(int B, int KS, int FS) {
+  return 8ll * KS * FS * B * 3;
+}
+
+// Histogram blocks of the plan resident on one SM, or -1 on an error.
+int lgbt_wave_fused_blocks_per_sm(int B, int KS, int FS) {
+  const size_t smem = static_cast<size_t>(lgbt_wave_fused_smem(B, KS, FS));
+  if (cudaFuncSetAttribute(hist_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, hist_kernel, kHistThreads, smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// The routing pass alone: new_lid (N,), the compact list (N, 2) int32 of
+// (row, slot) pairs and its length in *count (which must be 0 on entry).
+int lgbt_wave_route(const void* xt, const void* lid, const void* cid,
+                    const void* cols, const void* psrc, void* new_lid,
+                    void* list, void* count, int F, int N, int K, int W,
+                    int route_blocks, int bundled, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = 4 * (static_cast<size_t>(W) * 11 + K);
+  void (*kern)(const uint8_t*, const int*, const int*, const float*,
+               const int*, int*, int2*, unsigned long long*, int, int, int,
+               int) = bundled ? &route_kernel<true> : &route_kernel<false>;
+  kern<<<route_blocks, kRouteThreads, smem, s>>>(
+      static_cast<const uint8_t*>(xt), static_cast<const int*>(lid),
+      static_cast<const int*>(cid), static_cast<const float*>(cols),
+      static_cast<const int*>(psrc), static_cast<int*>(new_lid),
+      static_cast<int2*>(list), static_cast<unsigned long long*>(count), F,
+      N, K, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused wave step: routing, histograms of the listed rows, f32
+// conversion.  acc holds K * F * B * 3 + 1 zeroed 64-bit words (the last
+// one is the list's length); list N int2; hist K * F * B * 3 floats.
+int lgbt_wave_fused(const void* xt, const void* lid, const void* w3,
+                    const void* cid, const void* cols, const void* psrc,
+                    const void* exps, void* new_lid, void* list, void* acc,
+                    void* hist, int F, int N, int B, int K, int W,
+                    int route_blocks, int groups, int R, int KS, int FS,
+                    int bundled, void* stream) {
+  if (FS < 1 || FS > kMaxGroup || KS < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long per_slot = static_cast<long long>(F) * B * 3;
+  unsigned long long* acc64 = static_cast<unsigned long long*>(acc);
+  unsigned long long* count = acc64 + per_slot * K;
+  int e = lgbt_wave_route(xt, lid, cid, cols, psrc, new_lid, list, count,
+                          F, N, K, W, route_blocks, bundled, stream);
+  if (e != 0) return e;
+  const size_t smem = static_cast<size_t>(lgbt_wave_fused_smem(B, KS, FS));
+  cudaError_t ce = cudaFuncSetAttribute(
+      hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  const dim3 grid(groups, R, (K + KS - 1) / KS);
+  hist_kernel<<<grid, kHistThreads, smem, s>>>(
+      static_cast<const uint8_t*>(xt), static_cast<const float*>(w3),
+      static_cast<const int2*>(list), count, static_cast<const int*>(exps),
+      acc64, F, N, B, K, KS, FS);
+  ce = cudaGetLastError();
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  const int threads = 256;
+  const long long total = per_slot * K;
+  finish_kernel<<<static_cast<unsigned>((total + threads - 1) / threads),
+                  threads, 0, s>>>(acc64, static_cast<const int*>(cid),
+                                   static_cast<const int*>(exps),
+                                   static_cast<float*>(hist), K, per_slot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,24 +1,17 @@
-// Wave histogram kernels for Hopper (sm_90a): the fused partition +
-// child-histogram pass of one wave, and the histogram-only pass on the
-// transposed or the row-major bin matrix.
+// Wave histogram kernels for Hopper (sm_90a): the histogram-only pass
+// on the transposed or the row-major bin matrix.  (The fused partition +
+// histogram pass of a wave is csrc/wave_fused.cu.)
 //
 // Replaces (JAX package, TPU Pallas):
-//   lightgbm_tpu/ops/pallas_wave.py::wave_partition_hist_pallas_ct
-//     (kernel _wave_fused_kernel_ct)   -> FUSED = true
 //   lightgbm_tpu/ops/pallas_wave.py::wave_histogram_pallas_t
-//     (kernel _wave_hist_kernel_t)     -> FUSED = false
+//     (kernel _wave_hist_kernel_t)     -> ROWMAJOR = false
 //   lightgbm_tpu/ops/pallas_wave.py::wave_histogram_pallas
-//     (kernel _wave_hist_kernel)       -> FUSED = false, ROWMAJOR = true
+//     (kernel _wave_hist_kernel)       -> ROWMAJOR = true
 //
 // Contract.  X_t (F, N) uint8 bins, leaf_id (N,) int32, w3 (N, 3) f32
-// [g*m, h*m, m], child_id (K,) int32 (-1 = inactive).  The fused variant
-// also takes the compact (W, 10) split table `cols` and the wave's parent
-// ids `psrc` (W,) (-3 = inactive): a row whose leaf is psrc[w] is routed
-// with the split in cols[w] (<= threshold numerical, == categorical,
-// default-bin redirect, EFB offset remap when BUNDLED) and its new leaf
-// id is written.  hist[k, f, b, :] sums w3 over the rows whose (new) leaf
-// id equals child_id[k] and whose bin in feature f is b; bins >= B are
-// dropped.
+// [g*m, h*m, m], child_id (K,) int32 (-1 = inactive).  hist[k, f, b, :]
+// sums w3 over the rows whose leaf id equals child_id[k] and whose bin in
+// feature f is b; bins >= B are dropped.
 //
 // What bounds it on this card.  Per (row, feature) the work is one byte of
 // X_t in and three f32 adds into a (K, F, B, 3) block: at the flagship
@@ -33,10 +26,9 @@
 // Design.  A block owns a range of rows, a group of features (one feature
 // per warp) and, when K * B is large, a slice of the child slots.  Each
 // warp keeps a private (KS, B, 3) histogram of its feature in shared
-// memory.  Rows are staged a tile at a time: one thread per row does the
-// routing (fused variant), finds the row's child slot and stages its
-// weights, while each warp's loads of its feature's bins for the tile are
-// already in flight.  A warp then walks the tile 32 rows at a time; lanes
+// memory.  Rows are staged a tile at a time: one thread per row finds
+// the row's child slot and stages its weights, while each warp's loads of
+// its feature's bins for the tile are already in flight.  A warp then walks the tile 32 rows at a time; lanes
 // whose rows fall into the same (slot, bin) cell are grouped with
 // __match_any_sync and the group's lowest lane adds the group's values in
 // lane order.  No two warps share a histogram and every sum runs in a
@@ -82,18 +74,14 @@ __device__ __forceinline__ void warp_accumulate(int key, int lane,
   __syncwarp();
 }
 
-template <bool FUSED, bool BUNDLED, bool ROWMAJOR>
+template <bool ROWMAJOR>
 __global__ void wave_hist_kernel(const uint8_t* __restrict__ xt,
                                  const int* __restrict__ lid,
                                  const float* __restrict__ w3,
                                  const int* __restrict__ cid,
-                                 const float* __restrict__ cols,
-                                 const int* __restrict__ psrc,
-                                 int* __restrict__ new_lid,
                                  float* __restrict__ partial,
-                                 int F, int N, int B, int K, int W,
+                                 int F, int N, int B, int K,
                                  int rows_per_block, int KS) {
-  static_assert(!(FUSED && ROWMAJOR), "the fused pass reads X_t");
   extern __shared__ float smem[];
   const int nwarps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -110,9 +98,7 @@ __global__ void wave_hist_kernel(const uint8_t* __restrict__ xt,
   int* slot_s = reinterpret_cast<int*>(w_s + kTile * 3);   // kTile
   int* nl_s = slot_s + kTile;                        // kTile
   int* cid_s = nl_s + kTile;                         // K
-  int* psrc_s = cid_s + K;                           // W
-  float* cols_s = reinterpret_cast<float*>(psrc_s + W);    // W * 10
-  int* flag = reinterpret_cast<int*>(cols_s + W * 10);     // 1
+  int* flag = cid_s + K;                             // 1
   uint8_t* xs = reinterpret_cast<uint8_t*>(flag + 1);      // kTile * nwarps
   const int fbase = blockIdx.x * nwarps;             // ROWMAJOR: group
   const int nf = min(nwarps, F - fbase);
@@ -120,15 +106,9 @@ __global__ void wave_hist_kernel(const uint8_t* __restrict__ xt,
   for (int i = threadIdx.x; i < nwarps * hist_len; i += blockDim.x)
     hist[i] = 0.f;
   for (int i = threadIdx.x; i < K; i += blockDim.x) cid_s[i] = cid[i];
-  if constexpr (FUSED) {
-    for (int i = threadIdx.x; i < W; i += blockDim.x) psrc_s[i] = psrc[i];
-    for (int i = threadIdx.x; i < W * 10; i += blockDim.x)
-      cols_s[i] = cols[i];
-  }
 
   const int row_begin = blockIdx.y * rows_per_block;
   const int row_end = min(N, row_begin + rows_per_block);
-  const bool write_lid = FUSED && blockIdx.x == 0 && blockIdx.z == 0;
   float* my_hist = hist + warp * hist_len;
   float* my_vals = vals + warp * 96;
   const uint8_t* xrow =
@@ -164,33 +144,6 @@ __global__ void wave_hist_kernel(const uint8_t* __restrict__ xt,
       float a = 0.f, b = 0.f, c = 0.f;
       if (i < tile_n) {
         nl = lid[row];
-        if constexpr (FUSED) {
-          int ps = -1;
-          for (int w = 0; w < W; ++w) {
-            if (psrc_s[w] == nl) { ps = w; break; }
-          }
-          if (ps >= 0) {
-            const float* r = cols_s + ps * 10;
-            if (r[0] > 0.5f) {
-              const int cj = static_cast<int>(r[1]);
-              int colv = (cj >= 0 && cj < F)
-                  ? static_cast<int>(xt[static_cast<size_t>(cj) * N + row])
-                  : 0;
-              const int dflt = static_cast<int>(r[4]);
-              if (BUNDLED) {
-                const int goff = static_cast<int>(r[7]);
-                const int span = static_cast<int>(r[9]);
-                colv = (colv >= goff && colv < goff + span)
-                    ? colv - goff + static_cast<int>(r[8]) : dflt;
-              }
-              const int thr = static_cast<int>(r[2]);
-              bool go_left = (r[3] > 0.5f) ? (colv == thr) : (colv <= thr);
-              if (colv == dflt) go_left = r[5] > 0.5f;
-              if (!go_left) nl = static_cast<int>(r[6]);
-            }
-          }
-          if (write_lid) new_lid[row] = nl;
-        }
         int cnt = 0;
         for (int k = k0; k < k1; ++k) {
           if (cid_s[k] == nl) {
@@ -275,13 +228,12 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   out[i] = acc;
 }
 
-template <bool FUSED, bool BUNDLED, bool ROWMAJOR>
+template <bool ROWMAJOR>
 cudaError_t launch(const void* xt, const void* lid, const void* w3,
-                   const void* cid, const void* cols, const void* psrc,
-                   void* new_lid, void* partial, int F, int N, int B,
-                   int K, int W, int R, int rows_per_block, int KS,
-                   int warps, size_t smem, cudaStream_t s) {
-  auto kern = wave_hist_kernel<FUSED, BUNDLED, ROWMAJOR>;
+                   const void* cid, void* partial, int F, int N, int B,
+                   int K, int R, int rows_per_block, int KS, int warps,
+                   size_t smem, cudaStream_t s) {
+  auto kern = wave_hist_kernel<ROWMAJOR>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -290,18 +242,16 @@ cudaError_t launch(const void* xt, const void* lid, const void* w3,
   kern<<<grid, warps * 32, smem, s>>>(
       static_cast<const uint8_t*>(xt), static_cast<const int*>(lid),
       static_cast<const float*>(w3), static_cast<const int*>(cid),
-      static_cast<const float*>(cols), static_cast<const int*>(psrc),
-      static_cast<int*>(new_lid), static_cast<float*>(partial), F, N, B,
-      K, W, rows_per_block, KS);
+      static_cast<float*>(partial), F, N, B, K, rows_per_block, KS);
   return cudaGetLastError();
 }
 
 // Dynamic shared memory bytes of one block, as laid out at the top of
 // wave_hist_kernel (the wrapper's _smem_bytes mirrors it to plan KS and
 // warps); the row-major variant adds its tile of bin bytes.
-size_t smem_bytes(int B, int K, int W, int KS, int warps, bool rowmajor) {
+size_t smem_bytes(int B, int K, int KS, int warps, bool rowmajor) {
   return 4 * (static_cast<size_t>(warps) * KS * B * 3 + warps * 96 +
-              kTile * 5 + K + W + W * 10 + 1) +
+              kTile * 5 + K + 1) +
          (rowmajor ? 4 * ((kTile * warps + 3) / 4) : 0);
 }
 
@@ -309,36 +259,20 @@ size_t smem_bytes(int B, int K, int W, int KS, int warps, bool rowmajor) {
 
 extern "C" {
 
-// Fused (fused=1) or histogram-only (fused=0) wave pass, on X_t (F, N)
-// or, histogram-only, on row-major X (N, F) (rowmajor=1).  partial holds
-// R * K * F * B * 3 floats, hist K * F * B * 3; new_lid, cols and psrc are
-// read only when fused.  Returns cudaGetLastError() after both launches.
+// Histogram-only wave pass on X_t (F, N) or on row-major X (N, F)
+// (rowmajor=1).  partial holds R * K * F * B * 3 floats, hist
+// K * F * B * 3.  Returns cudaGetLastError() after both launches.
 int lgbt_wave_hist(const void* xt, const void* lid, const void* w3,
-                   const void* cid, const void* cols, const void* psrc,
-                   void* new_lid, void* partial, void* hist, int F, int N,
-                   int B, int K, int W, int R, int rows_per_block, int KS,
-                   int warps, int fused, int bundled, int rowmajor,
-                   void* stream) {
+                   const void* cid, void* partial, void* hist, int F, int N,
+                   int B, int K, int R, int rows_per_block, int KS,
+                   int warps, int rowmajor, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rowmajor && fused) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(B, K, W, KS, warps, rowmajor != 0);
-  cudaError_t e;
-  if (fused && bundled)
-    e = launch<true, true, false>(xt, lid, w3, cid, cols, psrc, new_lid,
-                                  partial, F, N, B, K, W, R, rows_per_block,
-                                  KS, warps, smem, s);
-  else if (fused)
-    e = launch<true, false, false>(xt, lid, w3, cid, cols, psrc, new_lid,
-                                   partial, F, N, B, K, W, R,
-                                   rows_per_block, KS, warps, smem, s);
-  else if (rowmajor)
-    e = launch<false, false, true>(xt, lid, w3, cid, cols, psrc, new_lid,
-                                   partial, F, N, B, K, W, R,
-                                   rows_per_block, KS, warps, smem, s);
-  else
-    e = launch<false, false, false>(xt, lid, w3, cid, cols, psrc, new_lid,
-                                    partial, F, N, B, K, W, R,
-                                    rows_per_block, KS, warps, smem, s);
+  const size_t smem = smem_bytes(B, K, KS, warps, rowmajor != 0);
+  cudaError_t e =
+      rowmajor ? launch<true>(xt, lid, w3, cid, partial, F, N, B, K, R,
+                              rows_per_block, KS, warps, smem, s)
+               : launch<false>(xt, lid, w3, cid, partial, F, N, B, K, R,
+                               rows_per_block, KS, warps, smem, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long S = static_cast<long long>(K) * F * B * 3;
   const int threads = 256;

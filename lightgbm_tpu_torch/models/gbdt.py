@@ -218,11 +218,13 @@ class GBDT:
         dev_tree, leaf_id, stats = self.learner.train_device(
             grad, hess, self.row_mult)
         self.grow_stats.append(stats)
-        scale = torch.tensor(self.shrinkage_rate, dtype=torch.float32,
-                             device=self.device)
-        self._score_dev = dev_predict.update_score_from_partition(
-            self._score_dev[0], leaf_id, dev_tree.leaf_value,
-            scale)[None, :]
+        # the shrinkage travels as a host float (rounded to f32 by both
+        # updates), never as a device tensor copied over each iteration;
+        # the train score is updated in place
+        scale = self.shrinkage_rate
+        dev_predict.update_score_from_partition(
+            self._score_dev[0], leaf_id, dev_tree.leaf_value, scale,
+            out=self._score_dev[0])
         ta = dev_predict.traversal_from_grow(dev_tree, stats.num_leaves,
                                              stats.depth)
         for vi in range(len(self.valid_data)):

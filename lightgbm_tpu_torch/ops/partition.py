@@ -6,6 +6,7 @@ tree's (shrunk, clamped) leaf outputs (score_updater.hpp:91-99).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils.common import kMaxTreeOutput
@@ -13,9 +14,14 @@ from ..utils.common import kMaxTreeOutput
 
 def clipped_leaf_values(leaf_value, scale):
     """clip(scale * leaf_value, +-kMaxTreeOutput) in the leaf values' dtype
-    — the Shrinkage clamp (tree.h:110-118): one multiply, then the clip."""
-    scale = torch.as_tensor(scale, dtype=leaf_value.dtype,
-                            device=leaf_value.device)
+    — the Shrinkage clamp (tree.h:110-118): one multiply, then the clip.
+    A Python scale is rounded to the leaf values' dtype first and
+    multiplies as a scalar, with no host-to-device copy."""
+    if isinstance(scale, torch.Tensor):
+        scale = torch.as_tensor(scale, dtype=leaf_value.dtype,
+                                device=leaf_value.device)
+    elif leaf_value.dtype == torch.float32:
+        scale = float(np.float32(scale))
     return torch.clamp(leaf_value * scale, -kMaxTreeOutput, kMaxTreeOutput)
 
 

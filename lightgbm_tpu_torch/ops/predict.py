@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import _build
+from ..utils.common import kMaxTreeOutput
 from ..utils.log import LightGBMError
 from .partition import clipped_leaf_values
 
@@ -102,35 +103,64 @@ def score_update_plain(score, leaf_id, vals):
     return score + vals[idx]
 
 
-def score_update(score, leaf_id, vals):
+def _score_update_fault(score, leaf_id, leaf_value, out):
+    """What score_update refuses, or None.  The common case costs one
+    boolean expression: at the main path's sizes the wrapper's host work,
+    not the kernel, sets the rate of back-to-back launches."""
+    n, d = score.numel(), score.get_device()
+    if (score.dtype is torch.float32 and score.dim() == 1
+            and leaf_id.dtype is torch.int32 and leaf_id.dim() == 1
+            and leaf_id.numel() == n and leaf_value.dtype is torch.float32
+            and leaf_value.dim() == 1 and leaf_value.numel() >= 1
+            and leaf_id.get_device() == d and leaf_value.get_device() == d
+            and (out is None or (out.dtype is torch.float32
+                                 and out.dim() == 1 and out.numel() == n
+                                 and out.get_device() == d))):
+        return None
+    dev = score.device
+    for t, dtype, name in ((score, torch.float32, "score"),
+                           (leaf_id, torch.int32, "leaf_id"),
+                           (leaf_value, torch.float32, "leaf_value"),
+                           (out, torch.float32, "out")):
+        if t is None:
+            continue
+        if t.dtype != dtype or t.dim() != 1:
+            return "%s: expected %s of 1 dimension, got %s %s" % (
+                name, dtype, t.dtype, tuple(t.shape))
+        if t.device != dev:
+            return "%s is on %s, score on %s" % (name, t.device, dev)
+    if leaf_value.shape[0] < 1:
+        return "score_update needs at least one leaf value"
+    return "leaf_id and out must have score's shape %s" % (
+        tuple(score.shape),)
+
+
+def score_update(score, leaf_id, leaf_value, scale=1.0, out=None):
     """Partition-side score update (kernel B2): score (N,) f32 plus
-    vals (L,) f32 gathered at the clamped leaf ids (N,) int32.  Bit-equal
-    to the gather form."""
-    n = score.shape[0]
-    for t, dtype, shape, name in ((score, torch.float32, (n,), "score"),
-                                  (leaf_id, torch.int32, (n,), "leaf_id"),
-                                  (vals, torch.float32, (vals.shape[0],),
-                                   "vals")):
-        if t.dtype != dtype or tuple(t.shape) != shape or t.dim() != 1:
-            raise LightGBMError("%s: expected %s %s, got %s %s"
-                                % (name, dtype, shape, t.dtype,
-                                   tuple(t.shape)))
-        if t.device != score.device:
-            raise LightGBMError("%s is on %s, score on %s"
-                                % (name, t.device, score.device))
-    if vals.shape[0] < 1:
-        raise LightGBMError("score_update needs at least one leaf value")
-    if score.device.type == "cpu":
-        return score_update_plain(score, leaf_id, vals)
-    if score.device.type != "cuda":
-        raise LightGBMError("unsupported device %s" % score.device)
-    lib = _build.library()
-    score, leaf_id, vals = (t.contiguous() for t in (score, leaf_id, vals))
-    out = torch.empty_like(score)
-    err = lib.lgbt_score_update(
-        score.data_ptr(), leaf_id.data_ptr(), vals.data_ptr(),
-        out.data_ptr(), n, vals.shape[0],
-        torch.cuda.current_stream(score.device).cuda_stream)
+    clip(scale * leaf_value, +-kMaxTreeOutput) (L,) f32 gathered at the
+    clamped leaf ids (N,) int32, written to out (a new tensor when None;
+    out may be score itself, updated in place).  The scale is rounded to
+    f32 (by ctypes' float argument on the card).  Bit-equal to
+    score_update_plain on clipped_leaf_values."""
+    fault = _score_update_fault(score, leaf_id, leaf_value, out)
+    if fault is not None:
+        raise LightGBMError(fault)
+    scale = float(scale)        # rounded to f32 by both paths
+    if not score.is_cuda:
+        if score.device.type != "cpu":
+            raise LightGBMError("unsupported device %s" % score.device)
+        new = score_update_plain(score, leaf_id,
+                                 clipped_leaf_values(leaf_value, scale))
+        return new if out is None else out.copy_(new)
+    if out is None:
+        out = torch.empty_like(score)
+    if not (score.is_contiguous() and leaf_id.is_contiguous()
+            and leaf_value.is_contiguous() and out.is_contiguous()):
+        raise LightGBMError("score_update takes contiguous tensors")
+    err = _build.library().lgbt_score_update(
+        score.data_ptr(), leaf_id.data_ptr(), leaf_value.data_ptr(),
+        out.data_ptr(), score.shape[0], leaf_value.shape[0], scale,
+        kMaxTreeOutput, _build.stream(score.device))
     _build.check(err, "score_update")
     score_update.launches += 1
     return out
@@ -139,8 +169,8 @@ def score_update(score, leaf_id, vals):
 score_update.launches = 0
 
 
-def update_score_from_partition(score, leaf_id, leaf_value, scale):
+def update_score_from_partition(score, leaf_id, leaf_value, scale,
+                                out=None):
     """Train-side update via the final partition (score_updater.hpp:91-99):
     score += clip(scale * leaf_value)[leaf_id], through kernel B2."""
-    return score_update(score, leaf_id,
-                        clipped_leaf_values(leaf_value, scale))
+    return score_update(score, leaf_id, leaf_value, scale, out)

@@ -38,9 +38,9 @@ from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
                            SplitParams, best_splits_batched)
 from .sparse_mxu import (ChunkedSparseStore, sparse_route_rows,
                          sparse_wave_histogram)
-from .wave_kernels import (route_rows_plain, route_rows_rowmajor,
-                           wave_histogram, wave_histogram_rowmajor,
-                           wave_partition_hist)
+from .wave_kernels import (fixed_point_exponents, route_rows_plain,
+                           route_rows_rowmajor, wave_histogram,
+                           wave_histogram_rowmajor, wave_partition_hist)
 
 
 def _put_where(dst, idx, mask, val):
@@ -83,6 +83,9 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     w3 = torch.stack([grad * row_mult, hess * row_mult, row_mult],
                      dim=-1).to(f32).contiguous()          # (N, 3)
     leaf_id = torch.zeros(n, dtype=i32, device=dev)
+    # B1's fixed-point exponents: w3 is fixed within the tree
+    exps = (fixed_point_exponents(w3)
+            if hist_mode == "pallas_ct" and not sparse else None)
 
     def child_hists(lid, ids):
         if sparse:
@@ -184,7 +187,7 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
         elif hist_mode == "pallas_ct":
             leaf_id, hist_small = wave_partition_hist(
                 X, leaf_id, w3, cid, cols, psrc, hist_bins,
-                bundled=bundle is not None)
+                bundled=bundle is not None, exps=exps)
         else:
             route = (route_rows_rowmajor if hist_mode == "pallas"
                      else route_rows_plain)

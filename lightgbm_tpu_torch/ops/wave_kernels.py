@@ -4,13 +4,15 @@ bins (B4), each beside its plain torch version.
 
 Ported from the JAX package's ``ops/pallas_wave.py``
 (``wave_partition_hist_pallas_ct``, ``wave_histogram_pallas_t`` and
-``wave_histogram_pallas``); the CUDA source is ``csrc/wave_hist.cu``.
+``wave_histogram_pallas``); the CUDA sources are ``csrc/wave_fused.cu``
+(B1) and ``csrc/wave_hist.cu`` (B3, B4).
 The contract and layouts are the JAX package's: X_t (F, N) or X (N, F)
 uint8, leaf_id (N,) int32, w3 (N, 3) f32, child_id (K,) int32 (-1 =
 inactive), cols (W, 10) f32, psrc (W,) int32 (-3 = inactive); histograms
 come back as (K, F, B, 3) f32.  The JAX package's B4 splits the weights
 into bf16 hi/lo halves for the TPU's matrix unit; the port multiplies and
-adds in f32, as for B1 and B3.
+adds in f32 for B3 and B4, and B1 sums in 64-bit fixed point
+(``fixed_point_exponents``) and converts to f32 once.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (building it on first use) or raises.  Each wrapper
@@ -25,6 +27,12 @@ from ..utils.log import LightGBMError
 
 # rows staged per tile in the kernel (kTile in csrc/wave_hist.cu)
 _TILE = 256
+# B1 (csrc/wave_fused.cu): rows a routing block takes a tile, routing
+# blocks a SM, threads of a histogram block and features it may hold
+_ROUTE_TILE = 1024
+_ROUTE_BLOCKS_PER_SM = 8
+_FUSED_THREADS = 1024
+_FUSED_GROUP_MAX = 8
 # dynamic shared memory a block may claim (of the 232,448 bytes an H100
 # block can use) and what one SM holds for all its resident blocks
 _SMEM_BUDGET = 220 * 1024
@@ -133,8 +141,9 @@ def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None,
     want = [(X_t, torch.uint8, (N, F) if rowmajor else (F, N),
              "X" if rowmajor else "X_t"),
             (leaf_id, torch.int32, (N,), "leaf_id"),
-            (w3, torch.float32, (N, 3), "w3"),
             (child_id, torch.int32, (child_id.shape[0],), "child_id")]
+    if w3 is not None:
+        want.append((w3, torch.float32, (N, 3), "w3"))
     if cols is not None:
         W = cols.shape[0]
         want += [(cols, torch.float32, (W, 10), "cols"),
@@ -155,8 +164,9 @@ def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None,
     if dev.type not in ("cpu", "cuda"):
         raise LightGBMError("unsupported device %s" % dev)
     if dev.type == "cuda":
-        named = [(X_t, "X_t"), (leaf_id, "leaf_id"), (w3, "w3"),
-                 (child_id, "child_id")]
+        named = [(X_t, "X_t"), (leaf_id, "leaf_id"), (child_id, "child_id")]
+        if w3 is not None:
+            named.append((w3, "w3"))
         if cols is not None:
             named += [(cols, "cols"), (psrc, "psrc")]
         for t, name in named:
@@ -167,25 +177,24 @@ def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None,
                                 "index (F*N=%d)" % (F * N))
 
 
-def _smem_bytes(B: int, K: int, W: int, ks: int, warps: int,
+def _smem_bytes(B: int, K: int, ks: int, warps: int,
                 rowmajor: bool = False) -> int:
     """smem_bytes in csrc/wave_hist.cu: one block's dynamic shared memory
     (the row-major variant adds its tile of bin bytes)."""
-    return (4 * (warps * ks * B * 3 + warps * 96 + _TILE * 5 + K + W
-                 + W * 10 + 1)
+    return (4 * (warps * ks * B * 3 + warps * 96 + _TILE * 5 + K + 1)
             + (4 * ((_TILE * warps + 3) // 4) if rowmajor else 0))
 
 
-def launch_plan(F: int, N: int, B: int, K: int, W: int, num_sms: int,
+def launch_plan(F: int, N: int, B: int, K: int, num_sms: int,
                 rowmajor: bool = False):
-    """(R, rows_per_block, KS, warps): row blocks, rows each, child slots
-    per block and warps (= features) per block.  Each warp keeps a
-    private (KS, B, 3) histogram in shared memory; R row blocks write
-    R partial (K, F, B, 3) blocks, capped at 1/_PARTIAL_FRACTION of the
-    bytes of X_t.  R aims at one full round of resident blocks on every
-    SM."""
+    """B3's and B4's plan (R, rows_per_block, KS, warps): row blocks, rows
+    each, child slots per block and warps (= features) per block.  Each
+    warp keeps a private (KS, B, 3) histogram in shared memory; R row
+    blocks write R partial (K, F, B, 3) blocks, capped at
+    1/_PARTIAL_FRACTION of the bytes of X_t.  R aims at one full round of
+    resident blocks on every SM."""
     def smem_of(ks, warps):
-        return _smem_bytes(B, K, W, ks, warps, rowmajor)
+        return _smem_bytes(B, K, ks, warps, rowmajor)
 
     ks = K
     warps = min(8, max(F, 1))
@@ -196,7 +205,7 @@ def launch_plan(F: int, N: int, B: int, K: int, W: int, num_sms: int,
     smem = smem_of(ks, warps)
     if smem > _SMEM_BUDGET:
         raise LightGBMError("wave histogram block does not fit shared "
-                            "memory (B=%d, K=%d, W=%d)" % (B, K, W))
+                            "memory (B=%d, K=%d)" % (B, K))
     fgroups = -(-F // warps)
     kslices = -(-K // ks)
     per_sm = max(1, min(_SMEM_PER_SM // (smem + 1024), 2048 // (32 * warps)))
@@ -218,46 +227,140 @@ def _sms(dev) -> int:
     return _num_sms[key]
 
 
-def _launch(X_t, leaf_id, w3, child_id, cols, psrc, num_bins, fused,
-            bundled, rowmajor=False):
+def _launch(X_t, leaf_id, w3, child_id, num_bins, rowmajor=False):
+    """B3 (X_t) or B4 (row-major X): the histogram-only pass."""
     lib = _build.library()
     F, N = X_t.shape[::-1] if rowmajor else X_t.shape
     K = child_id.shape[0]
-    W = cols.shape[0] if fused else 0
     B = int(num_bins)
-    R, rpb, ks, warps = launch_plan(F, N, B, K, W, _sms(X_t.device),
-                                    rowmajor)
-    tensors = (X_t, leaf_id, w3, child_id)
-    if fused:
-        new_lid = torch.empty(N, dtype=torch.int32, device=X_t.device)
+    R, rpb, ks, warps = launch_plan(F, N, B, K, _sms(X_t.device), rowmajor)
     partial = torch.empty(R * K * F * B * 3, dtype=torch.float32,
                           device=X_t.device)
     hist = torch.empty((K, F, B, 3), dtype=torch.float32,
                        device=X_t.device)
     stream = torch.cuda.current_stream(X_t.device).cuda_stream
     err = lib.lgbt_wave_hist(
-        *[t.data_ptr() for t in tensors],
-        cols.data_ptr() if fused else None,
-        psrc.data_ptr() if fused else None,
-        new_lid.data_ptr() if fused else None,
-        partial.data_ptr(), hist.data_ptr(),
-        F, N, B, K, W, R, rpb, ks, warps, int(fused), int(bundled),
+        *[t.data_ptr() for t in (X_t, leaf_id, w3, child_id)],
+        partial.data_ptr(), hist.data_ptr(), F, N, B, K, R, rpb, ks, warps,
         int(rowmajor), stream)
     _build.check(err, "wave_hist")
-    return (new_lid, hist) if fused else hist
+    return hist
+
+
+# ------------------------------------------------------------ B1 (fused)
+def fixed_point_exponents(w3):
+    """(3,) int32 exponents e_c of B1's 64-bit fixed point, computed on
+    w3's device with no host read: e_c = 62 - frexp_exponent(N * max|w_c|),
+    so |sum| < 2^62 for any N values of channel c, and rounding each
+    value to a multiple of 2^-e_c errs by at most N_cell * N * max|w_c| /
+    2^62 in a cell of N_cell rows.  w3 is fixed within a tree, so the
+    grower computes this once a tree."""
+    n = w3.shape[0]
+    m = w3.abs().amax(dim=0).to(torch.float64) * n
+    return (62 - torch.frexp(m).exponent).to(torch.int32)
+
+
+def fused_plan(F: int, N: int, B: int, K: int, num_sms: int):
+    """B1's launch plan (route_blocks, groups, R, KS, FS, smem): routing
+    blocks of _ROUTE_TILE rows a tile; histogram blocks of
+    _FUSED_THREADS threads, each over FS features (groups of them) and KS
+    child slots in an int64 (KS, FS, B, 3) shared histogram of smem
+    bytes, and R shares of the compact row list, so that one round of
+    resident blocks fills every SM."""
+    cell = B * 3 * 8                       # one (slot, feature) row
+    ks = max(1, min(K, _SMEM_BUDGET // cell))
+    fs = max(1, min(F, _FUSED_GROUP_MAX, _SMEM_BUDGET // (ks * cell)))
+    groups = -(-F // fs)
+    fs = -(-F // groups)                   # even the groups out
+    kslices = -(-K // ks)
+    smem = ks * fs * cell
+    per_sm = max(1, min(2048 // _FUSED_THREADS,
+                        _SMEM_PER_SM // (smem + 1024)))
+    R = max(1, min(65535, (num_sms * per_sm) // (groups * kslices)))
+    route_blocks = max(1, min(-(-N // _ROUTE_TILE),
+                              num_sms * _ROUTE_BLOCKS_PER_SM))
+    return route_blocks, groups, R, ks, fs, smem
+
+
+def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
+                  bundled, exps):
+    lib = _build.library()
+    F, N = X_t.shape
+    K, W, B = child_id.shape[0], cols.shape[0], int(num_bins)
+    if max(K, W) >= 2 ** 15:
+        raise LightGBMError("B1 takes fewer than 32768 child slots and "
+                            "parents (K=%d, W=%d)" % (K, W))
+    if exps is None:
+        exps = fixed_point_exponents(w3)
+    elif (exps.dtype != torch.int32 or tuple(exps.shape) != (3,)
+          or exps.device != X_t.device):
+        raise LightGBMError("exps: expected int32 (3,) on %s" % X_t.device)
+    route_blocks, groups, R, ks, fs, _ = fused_plan(F, N, B, K,
+                                                    _sms(X_t.device))
+    dev = X_t.device
+    new_lid = torch.empty(N, dtype=torch.int32, device=dev)
+    rows = torch.empty((N, 2), dtype=torch.int32, device=dev)
+    acc = torch.zeros(K * F * B * 3 + 1, dtype=torch.int64, device=dev)
+    hist = torch.empty((K, F, B, 3), dtype=torch.float32, device=dev)
+    err = lib.lgbt_wave_fused(
+        *[t.data_ptr() for t in (X_t, leaf_id, w3, child_id, cols, psrc,
+                                 exps, new_lid, rows, acc, hist)],
+        F, N, B, K, W, route_blocks, groups, R, ks, fs, int(bundled),
+        _build.stream(dev))
+    _build.check(err, "wave_fused")
+    return new_lid, hist
+
+
+def route_list_plain(X_t, leaf_id, child_id, cols, psrc,
+                     bundled: bool = False):
+    """(new_leaf_id, rows, slots): the routed ids, and in row order the
+    rows whose new id is a child id with the first slot holding it."""
+    new_lid = route_rows_plain(X_t, leaf_id, cols, psrc, bundled)
+    match = new_lid[None, :] == child_id[:, None]              # (K, N)
+    slot = torch.where(match.any(dim=0),
+                       torch.argmax(match.to(torch.int32), dim=0),
+                       torch.full_like(new_lid, -1, dtype=torch.long))
+    rows = torch.nonzero(slot >= 0).reshape(-1)
+    return new_lid, rows.to(torch.int32), slot[rows].to(torch.int32)
+
+
+def route_list(X_t, leaf_id, child_id, cols, psrc, bundled: bool = False):
+    """B1's routing pass alone, for checking it: route_list_plain's
+    contract, with the kernel's list sorted by row.  Reads the list's
+    length back to the host."""
+    _check(X_t, leaf_id, None, child_id, 1, cols, psrc)
+    if X_t.device.type == "cpu":
+        return route_list_plain(X_t, leaf_id, child_id, cols, psrc, bundled)
+    F, N = X_t.shape
+    dev = X_t.device
+    new_lid = torch.empty(N, dtype=torch.int32, device=dev)
+    rows = torch.empty((N, 2), dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    route_blocks = fused_plan(F, N, 1, child_id.shape[0], _sms(dev))[0]
+    err = _build.library().lgbt_wave_route(
+        *[t.data_ptr() for t in (X_t, leaf_id, child_id, cols, psrc,
+                                 new_lid, rows, count)],
+        F, N, child_id.shape[0], cols.shape[0], route_blocks, int(bundled),
+        _build.stream(dev))
+    _build.check(err, "wave_route")
+    rows = rows[:int(count)]
+    order = torch.argsort(rows[:, 0])
+    return new_lid, rows[order, 0], rows[order, 1]
 
 
 def wave_partition_hist(X_t, leaf_id, w3, child_id, cols, psrc,
-                        num_bins: int, bundled: bool = False):
+                        num_bins: int, bundled: bool = False, exps=None):
     """Fused wave step (kernel B1): route the rows of the wave's parents
     and build the (K, F, B, 3) histograms of the children child_id from
-    the new ids.  Returns (new_leaf_id, hist)."""
+    the new ids.  Returns (new_leaf_id, hist).  exps: the kernel's
+    fixed-point exponents (fixed_point_exponents(w3)), computed here when
+    None; the plain version does not use them."""
     _check(X_t, leaf_id, w3, child_id, num_bins, cols, psrc)
     if X_t.device.type == "cpu":
         return wave_partition_hist_plain(X_t, leaf_id, w3, child_id, cols,
                                          psrc, num_bins, bundled)
-    out = _launch(X_t, leaf_id, w3, child_id, cols, psrc, num_bins, True,
-                  bundled)
+    out = _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
+                        bundled, exps)
     wave_partition_hist.launches += 1
     return out
 
@@ -268,8 +371,7 @@ def wave_histogram(X_t, leaf_id, w3, child_id, num_bins: int):
     _check(X_t, leaf_id, w3, child_id, num_bins)
     if X_t.device.type == "cpu":
         return wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins)
-    out = _launch(X_t, leaf_id, w3, child_id, None, None, num_bins, False,
-                  False)
+    out = _launch(X_t, leaf_id, w3, child_id, num_bins)
     wave_histogram.launches += 1
     return out
 
@@ -281,8 +383,7 @@ def wave_histogram_rowmajor(X, leaf_id, w3, child_id, num_bins: int):
     if X.device.type == "cpu":
         return wave_histogram_rowmajor_plain(X, leaf_id, w3, child_id,
                                              num_bins)
-    out = _launch(X, leaf_id, w3, child_id, None, None, num_bins, False,
-                  False, rowmajor=True)
+    out = _launch(X, leaf_id, w3, child_id, num_bins, rowmajor=True)
     wave_histogram_rowmajor.launches += 1
     return out
 

@@ -24,6 +24,7 @@ from lightgbm_tpu_torch.ops import predict as tp
 from lightgbm_tpu_torch.ops import sparse_mxu as sm
 from lightgbm_tpu_torch.ops import wave_kernels as wk
 from lightgbm_tpu_torch.ops.partition import clipped_leaf_values
+from lightgbm_tpu_torch.utils.common import kMaxTreeOutput
 from torch_cases import (LEAF_CASES, NO_CACHE, SCORE_CASES,
                          assert_hist_close, bundled_case, leaf_case,
                          parity_data, score_case, sparse_bundled_case,
@@ -57,6 +58,112 @@ def test_fused_kernel_matches_plain(dev, bundled):
     assert torch.equal(got_hist, again) and torch.equal(got_lid, again_lid)
 
 
+def _b1_case(n, f, b, k, seed, bundled=False, dup=False):
+    """A wave at B1's real shapes: k leaves, each split once (numerical
+    and categorical splits, default bins, default-left and -right), the
+    smaller child of each split in child_id (a repeated child id when
+    dup, an inactive slot), over X (N, F) bins below b; bundled adds EFB
+    offsets, spans and bin adjusts."""
+    rng = np.random.default_rng(seed)
+    X = rng.integers(0, b, size=(n, f), dtype=np.uint8)
+    lid = rng.integers(0, k, size=n).astype(np.int32)
+    w3 = rng.normal(size=(n, 3)).astype(np.float32)
+    w3[:, 2] = rng.random(n) > 0.2
+    cols = np.zeros((k, 10), np.float32)
+    cols[:, 0] = 1
+    cols[:, 1] = rng.integers(0, f, size=k)
+    cols[:, 2] = rng.integers(0, b - 1, size=k)
+    cols[:, 3] = rng.random(k) < 0.25                # categorical
+    cols[:, 4] = rng.integers(0, b, size=k)          # default bin
+    cols[:, 5] = rng.integers(0, 2, size=k)          # default left
+    cols[:, 6] = np.arange(k, 2 * k)                 # right child
+    cols[:, 9] = b
+    if bundled:
+        cols[:, 7] = rng.integers(0, b // 2, size=k)
+        cols[:, 9] = rng.integers(1, b // 2, size=k)
+        cols[:, 8] = rng.integers(0, 3, size=k)
+    psrc = np.arange(k, dtype=np.int32)
+    psrc[k // 3] = -3                                # an idle parent
+    cid = np.where(rng.random(k) < 0.5, psrc, psrc + k).astype(np.int32)
+    cid[k // 3] = -1
+    if dup:
+        cid[-1] = cid[0]
+    return X, lid, w3, cid, b, cols, psrc
+
+
+def _check_b1(dev, case, bundled):
+    X, lid, w3, cid, b, cols, psrc = case
+    args = [t(a).to(dev) for a in (X.T, lid, w3, cid, cols, psrc)]
+    n0 = wk.wave_partition_hist.launches
+    got_lid, got = wk.wave_partition_hist(*args, b, bundled=bundled)
+    again_lid, again = wk.wave_partition_hist(*args, b, bundled=bundled)
+    torch.cuda.synchronize()
+    assert wk.wave_partition_hist.launches == n0 + 2
+    assert torch.equal(got, again) and torch.equal(got_lid, again_lid)
+    want_lid = wk.route_rows_plain(*args[:2], *args[4:], bundled)
+    assert torch.equal(got_lid, want_lid)
+    assert bool((want_lid != args[1]).any())
+    w64 = args[2].double()
+    want = wk.wave_histogram_plain(args[0], want_lid, w64, args[3], b)
+    scale = wk.wave_histogram_plain(args[0], want_lid, w64.abs(), args[3], b)
+    assert _within_f64(got, want.cpu(), scale.cpu(),
+                       float(np.abs(w3).max()))
+    inactive = cid < 0
+    assert bool((got[torch.from_numpy(inactive).to(dev)] == 0).all())
+    for k in range(1, len(cid)):
+        first = int(np.argmax(cid == cid[k]))
+        if first < k:                    # a repeated child id
+            assert torch.equal(got[k], got[first])
+    return got_lid
+
+
+@pytest.mark.parametrize("bundled", [False, True])
+def test_fused_kernel_at_the_flagship_shape(dev, bundled):
+    """B1 at phase 2's shape (N = 2M, F = 28, B = 63, K = W = 32) with
+    categorical splits, an idle parent, an inactive and a repeated child
+    slot: leaf ids exactly equal to the plain routing, the histogram
+    within phase 2's tolerance of the float64 plain version, repeats
+    bit-identical; and its routing pass lists each row in a child slot
+    exactly once (rows are routed once a wave)."""
+    case = _b1_case(2_000_000, 28, 63, 32, seed=7, bundled=bundled,
+                    dup=True)
+    _check_b1(dev, case, bundled)
+    X, lid, _, cid, _, cols, psrc = case
+    args = [t(a).to(dev) for a in (X.T, lid, cid, cols, psrc)]
+    got = wk.route_list(*args, bundled)
+    want = wk.route_list_plain(*args, bundled)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,f,b,k", [(3000, 968, 255, 32), (2500, 7, 14, 5),
+                                     (4000, 3, 256, 70), (2000, 5, 20, 2)])
+def test_fused_kernel_wide_and_small_shapes(dev, n, f, b, k):
+    """B1 where one feature's K slots at B bins fill a block (F = 968,
+    B = 255: one feature a block), at a small shape, with the slots split
+    over the grid (K = 70 at 256 bins), and with every child slot
+    inactive (K = 2: rows move, the list stays empty)."""
+    plan = wk.fused_plan(f, n, b, k, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    if f == 968:
+        assert plan[4] == 1 and plan[1] == f
+    if k == 70:
+        assert plan[3] < k
+    _check_b1(dev, _b1_case(n, f, b, k, seed=f + b, dup=True), False)
+
+
+def test_fused_kernel_occupancy(dev):
+    """B1's histogram blocks keep 32 warps resident on every SM at the
+    flagship shape (the per-warp f32 design held 8), and the kernel's shared
+    memory is the plan's."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, _, _, ks, fs, smem = wk.fused_plan(28, 2_000_000, 63, 32, sms)
+    lib = _build.library()
+    assert lib.lgbt_wave_fused_smem(63, ks, fs) == smem
+    blocks = lib.lgbt_wave_fused_blocks_per_sm(63, ks, fs)
+    assert blocks * wk._FUSED_THREADS // 32 >= 32
+
+
 @pytest.mark.parametrize("k", [1, 5])
 def test_hist_kernel_matches_plain(dev, k):
     X, lid, w3, cid, b = wave_data(n=5000, seed=2)
@@ -80,15 +187,29 @@ def test_hist_kernel_duplicate_child_ids(dev):
     assert_hist_close(got.cpu().numpy(), want.numpy(), w3)
 
 
-@pytest.mark.parametrize("n,L", SCORE_CASES)
+@pytest.mark.parametrize("n,L", SCORE_CASES + [(2_000_001, 255),
+                                               (4099, 20000)])
 def test_score_update_bit_equal(dev, n, L):
+    """B2 folds the clip in: leaf values beyond +-kMaxTreeOutput after the
+    scale, ids out of range, a ragged tail (n not a multiple of 4), a
+    table too large to stage in shared memory (L = 20000); out of place,
+    in place, and on a view whose data is not 16-byte aligned."""
     score, lid, lv, scale = score_case(n, L)
-    vals = clipped_leaf_values(t(lv), torch.tensor(scale))
-    want = tp.score_update(t(score), t(lid), vals)
+    assert L == 1 or np.abs(lv * scale).max() > kMaxTreeOutput
+    want = tp.score_update_plain(t(score), t(lid),
+                                 clipped_leaf_values(t(lv), float(scale)))
+    d_score, d_lid, d_lv = t(score).to(dev), t(lid).to(dev), t(lv).to(dev)
     before = tp.score_update.launches
-    got = tp.score_update(t(score).to(dev), t(lid).to(dev), vals.to(dev))
+    got = tp.score_update(d_score, d_lid, d_lv, scale)
     assert tp.score_update.launches == before + 1
     assert torch.equal(got.cpu(), want)
+    assert torch.equal(d_score.cpu(), t(score))   # input left as it was
+    kept = d_score.clone()
+    same = tp.score_update(d_score, d_lid, d_lv, scale, out=d_score)
+    assert same is d_score and torch.equal(d_score.cpu(), want)
+    if n > 1:
+        off = tp.score_update(kept[1:], d_lid[1:], d_lv, scale)
+        assert torch.equal(off.cpu(), want[1:])
 
 
 def _sparse_kernel_case(kind):

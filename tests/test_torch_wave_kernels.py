@@ -229,10 +229,10 @@ def test_launch_plan_bounds(n, k):
     """The scratch of per-block partials stays at most half the bytes of
     X_t (or one block), shared memory fits a block, and the row blocks
     cover every row."""
-    f, b, w = 28, 63, 32
-    R, rpb, ks, warps = wk.launch_plan(f, n, b, k, w, num_sms=132)
+    f, b = 28, 63
+    R, rpb, ks, warps = wk.launch_plan(f, n, b, k, num_sms=132)
     assert R * rpb >= n and (R - 1) * rpb < n
-    assert wk._smem_bytes(b, k, w, ks, warps) <= wk._SMEM_BUDGET
+    assert wk._smem_bytes(b, k, ks, warps) <= wk._SMEM_BUDGET
     assert R == 1 or R * k * f * b * 12 <= f * n // 2
     assert 1 <= warps <= 8 and 1 <= ks <= k
 
@@ -242,11 +242,91 @@ def test_launch_plan_bounds(n, k):
 def test_rowmajor_launch_plan_bounds(n, k, b):
     """B4's plan: its tile of bin bytes still fits a block's shared
     memory, and the row blocks cover every row."""
-    f, w = 28, 0
-    R, rpb, ks, warps = wk.launch_plan(f, n, b, k, w, num_sms=132,
+    f = 28
+    R, rpb, ks, warps = wk.launch_plan(f, n, b, k, num_sms=132,
                                        rowmajor=True)
     assert R * rpb >= n and (R - 1) * rpb < n
-    assert (wk._smem_bytes(b, k, w, ks, warps, rowmajor=True)
-            <= wk._SMEM_BUDGET)
+    assert wk._smem_bytes(b, k, ks, warps, rowmajor=True) <= wk._SMEM_BUDGET
     assert R == 1 or R * k * f * b * 12 <= f * n // 2
     assert 1 <= warps <= 8 and 1 <= ks <= k
+
+
+@pytest.mark.parametrize("n,f,b,k", [(2_000_000, 28, 63, 32),
+                                     (10_500_000, 28, 63, 32),
+                                     (3000, 968, 255, 32), (3000, 7, 14, 5),
+                                     (2_000_000, 28, 256, 64),
+                                     (50_000, 3, 63, 1), (1000, 9, 255, 200)])
+def test_fused_launch_plan_bounds(n, f, b, k):
+    """B1's plan: the int64 (KS, FS, B, 3) block histogram fits shared
+    memory, the feature groups and slot slices cover every feature and
+    slot, one round of blocks fits the card at 32 warps a SM, the grid
+    stays within CUDA's limits, and the routing blocks cover every row."""
+    sms = 132
+    route_blocks, groups, R, ks, fs, smem = wk.fused_plan(f, n, b, k, sms)
+    assert smem == ks * fs * b * 3 * 8 <= wk._SMEM_BUDGET
+    assert 1 <= fs <= wk._FUSED_GROUP_MAX and groups * fs >= f
+    assert (groups - 1) * fs < f
+    assert 1 <= ks <= k
+    kslices = -(-k // ks)
+    assert 1 <= R <= 65535
+    assert R == 1 or groups * kslices * R <= sms * (2048 // wk._FUSED_THREADS)
+    assert wk._FUSED_THREADS // 32 >= 32       # resident warps a block
+    assert 1 <= route_blocks <= sms * wk._ROUTE_BLOCKS_PER_SM
+    assert route_blocks * wk._ROUTE_TILE >= min(
+        n, sms * wk._ROUTE_BLOCKS_PER_SM * wk._ROUTE_TILE)
+    if (n, f, b, k) == (2_000_000, 28, 63, 32):
+        assert (groups, fs, ks, R) == (7, 4, 32, 18)
+
+
+@pytest.mark.parametrize("seed,spread", [(0, 1.0), (1, 1e-30), (2, 1e30),
+                                         (3, 0.0)])
+def test_fixed_point_exponents_error_bound(seed, spread):
+    """B1 sums round(w * 2^e_c) in int64: no sum of N values can reach
+    2^62, and a cell errs by at most N_cell * N * max|w_c| / 2^62 against
+    the float64 sum (the kernel's arithmetic, emulated in numpy)."""
+    rng = np.random.default_rng(seed)
+    n = 20000
+    w3 = (rng.standard_cauchy(size=(n, 3)) * spread).astype(np.float32)
+    w3[:, 2] = (rng.random(n) > 0.3) * spread   # a 0/1-like multiplier
+    e = wk.fixed_point_exponents(_t(w3)).numpy()
+    assert e.dtype == np.int32 and e.shape == (3,)
+    wmax = np.abs(w3).astype(np.float64).max(axis=0)
+    cells = rng.integers(0, 50, size=n)
+    for c in range(3):
+        scale = np.ldexp(1.0, int(e[c]))
+        if wmax[c] > 0:
+            assert n * wmax[c] * scale < 2.0 ** 62
+            assert n * wmax[c] * scale >= 2.0 ** 61
+        q = np.rint(w3[:, c].astype(np.float64) * scale).astype(np.int64)
+        assert np.abs(q).sum() < 2 ** 62
+        got = np.zeros(50, np.int64)
+        np.add.at(got, cells, q)
+        got = np.ldexp(got.astype(np.float64), -int(e[c]))
+        want = np.zeros(50)
+        np.add.at(want, cells, w3[:, c].astype(np.float64))
+        n_cell = np.bincount(cells, minlength=50)
+        bound = n_cell * n * wmax[c] / 2.0 ** 62
+        assert np.all(np.abs(got - want) <= bound * (1 + 1e-9) + 1e-300)
+
+
+@pytest.mark.parametrize("bundled", [False, True])
+def test_route_list_plain_lists_the_rows_in_a_child_slot(bundled):
+    """B1's routing pass lists each row whose new id is a child id once,
+    in row order, with the first slot that holds the id (a repeated child
+    id lists its rows under its first slot)."""
+    X, lid, w3, cid, b, cols, psrc = (_bundled_case() if bundled
+                                      else _unbundled_case())
+    cid = cid.copy()
+    cid[-1] = cid[0]
+    new_lid, rows, slots = wk.route_list(_t(X.T), _t(lid), _t(cid),
+                                         _t(cols), _t(psrc), bundled)
+    want = wk.route_rows_plain(_t(X.T), _t(lid), _t(cols), _t(psrc),
+                               bundled).numpy()
+    np.testing.assert_array_equal(new_lid.numpy(), want)
+    first = {}
+    for k, c in enumerate(cid):
+        first.setdefault(int(c), k)
+    expect = [(i, first[int(v)]) for i, v in enumerate(want)
+              if int(v) in first]
+    assert [(int(r), int(s)) for r, s in zip(rows, slots)] == expect
+    assert 0 < len(expect) < len(want)
