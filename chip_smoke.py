@@ -7,9 +7,10 @@ Run from the repository root on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from lightgbm_tpu_torch/csrc, holds each
 against its plain torch version at the main paths' shapes, times it,
-trains the flagship binary recipe (under wave growth, under exact growth
-and under wave growth on the row-major bins) and the Bosch-shaped sparse
-recipe through ``lightgbm_tpu_torch.train`` and checks what comes out.
+trains the flagship binary recipe (under wave growth, under wave growth
+through the plain partition and B3, under exact growth and under wave
+growth on the row-major bins) and the Bosch-shaped sparse recipe through
+``lightgbm_tpu_torch.train`` and checks what comes out.
 Any failed check ends the run with a non-zero exit code and no result
 line.  Without a CUDA device it exits non-zero at once.
 
@@ -18,13 +19,15 @@ Phases, in order:
  2. Kernel against plain at N rows, F = 28, B = 63, K = W = 32, on the
     flagship data's own bins: B1 (fused wave step; its routing pass must
     list every row in a child slot once, and 32 warps a SM must stay
-    resident), B3 (histogram only, K = 32 and the root's K = 1), B4
+    resident), B3 (histogram only, K = 32 on B1's routed ids and the
+    root's K = 1; its select pass must list the rows as plain does), B4
     (histogram only on the row-major bins, K = 32 and K = 1), B5 (leaf
     histogram: one leaf of a 64-leaf state with row multipliers, and leaf
     0 holding every row) and B2 (score update in place, clip folded in,
     plain from a copy taken before).  Leaf ids and the score update must
     be exactly equal; two launches of a histogram kernel must be
-    bit-identical.
+    bit-identical; with B1's fixed-point exponents B3 on B1's routed ids
+    must give B1's histogram to the bit, and B4 B3's in both forms.
     Histograms are held against the plain version computed in float64:
     an f32 sum over many rows errs in proportion to the sum of its terms'
     magnitudes, so a cell may differ by at most 1e-5 x (sum of |w| over
@@ -39,11 +42,14 @@ Phases, in order:
     set to 0 just before and read just after; the valid AUC must exceed
     0.8, the device-side scores must agree with the host-side trees, and a
     small run on the card must grow the trees the CPU grows.  Then the
-    same with tpu_growth=exact, tpu_histogram_mode=pallas (B5 once for
+    same with tpu_histogram_mode=pallas_t (B3 once a wave and once a tree,
+    no other histogram kernel, and the main path's model text to the
+    byte), with tpu_growth=exact, tpu_histogram_mode=pallas (B5 once for
     the root and once a split, no other histogram kernel) and with
     tpu_growth=wave, tpu_histogram_mode=pallas (B4 once a wave and once
-    a tree); each run prints its steady rate, its waves or splits a tree
-    and its host reads a tree.
+    a tree, and the main path's model text to the byte); each run prints
+    its steady rate, its waves or splits a tree and its host reads a
+    tree.
  5. Sparse: tools/tpu_ab2.py's Bosch-shaped data (968 columns, 1% dense,
     built directly as CSR), binned sparsely, in the entry-chunk store.
     Kernel B6 against its plain version in float64 at K = 32 on a
@@ -277,7 +283,7 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
     err, ok = hist_err(hist, wave_plain64(wk.wave_histogram_plain, X_t,
                                           plain_lid, w3, cid, B), wmax)
     need(ok, "B1 histogram outside tolerance (max abs err %g)" % err)
-    del hist, hist2, new_lid2
+    del hist2, new_lid2
     moved = int((new_lid != lid).sum())
     need(moved > 0, "B1 moved no rows")
     # rows are routed once a wave: the routing pass lists every row in a
@@ -286,11 +292,11 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
     need(all(torch.equal(a, b) for a, b in zip(
         listed, wk.route_list_plain(X_t, lid, cid, cols, psrc))),
         "B1 routing list differs from plain")
-    plan = wk.fused_plan(F, N, B, K, torch.cuda.get_device_properties(
+    plan = wk.hist_plan(F, N, B, K, torch.cuda.get_device_properties(
         dev).multi_processor_count)
-    per_sm = _build.library().lgbt_wave_fused_blocks_per_sm(B, plan[3],
-                                                            plan[4])
-    warps = per_sm * wk._FUSED_THREADS // 32
+    per_sm = _build.library().lgbt_wave_hist_blocks_per_sm(
+        B, plan[3], plan[4], plan[5], 0)
+    warps = per_sm * wk._HIST_THREADS // 32
     need(warps >= 32, "B1 keeps %d warps a SM resident" % warps)
     del listed
     slot, n_act = slots_of(plain_lid, cid)
@@ -310,37 +316,63 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
         flops=3 * n_act * F)
 
     # ---- B3 on X_t and B4 on the row-major X: histogram only, K = 32 on
-    # the routed ids, and the root K = 1
+    # the routed ids, and the root K = 1; all with B1's exponents, so B3
+    # on the routed ids must give B1's histogram to the bit, and B4 B3's
     X = X_t.t().contiguous()                                 # (N, F)
+    listed = wk.select_list(new_lid, cid)
+    need(all(torch.equal(a, b) for a, b in zip(
+        listed, wk.select_list_plain(new_lid, cid))),
+        "B3/B4 select list differs from plain")
+    del listed
     hist_only = (wk.wave_histogram, wk.wave_histogram_plain, X_t)
     rowmajor = (wk.wave_histogram_rowmajor,
                 wk.wave_histogram_rowmajor_plain, X)
-    for rec_name, (fn, plain, Xk), ids, c in (
-            ("wave_histogram_k32", hist_only, new_lid, cid),
-            ("wave_histogram", hist_only, zeros, root_cid),
-            ("wave_histogram_rowmajor", rowmajor, new_lid, cid),
-            ("wave_histogram_rowmajor_root", rowmajor, zeros, root_cid)):
-        h = fn(Xk, ids, w3, c, B)
-        h2 = fn(Xk, ids, w3, c, B)
+    same_as = {"wave_histogram_k32": hist}
+    for rec_name, (fn, plain, Xk), ids, c, twin in (
+            ("wave_histogram_k32", hist_only, new_lid, cid, None),
+            ("wave_histogram", hist_only, zeros, root_cid, None),
+            ("wave_histogram_rowmajor", rowmajor, new_lid, cid,
+             "wave_histogram_k32"),
+            ("wave_histogram_rowmajor_root", rowmajor, zeros, root_cid,
+             "wave_histogram")):
+        h = fn(Xk, ids, w3, c, B, exps=exps)
+        h2 = fn(Xk, ids, w3, c, B, exps=exps)
         need(torch.equal(h, h2),
              "%s repeat launch not bit-identical" % rec_name)
         err, ok = hist_err(h, wave_plain64(plain, Xk, ids, w3, c, B),
                            wmax)
         need(ok, "%s histogram outside tolerance (max abs err %g)"
              % (rec_name, err))
-        del h, h2
+        if rec_name in same_as:
+            need(torch.equal(h, same_as.pop(rec_name)),
+                 "B3 on B1's routed ids is not B1's histogram")
+        if twin is not None:
+            need(torch.equal(h, same_as.pop(twin)),
+                 "%s is not bit-equal to B3 (%s)" % (rec_name, twin))
+        else:
+            same_as[rec_name] = h
+        del h2
         s, n_act = slots_of(ids, c)
         records[rec_name] = dict(
             max_abs_err=err,
-            ms=time_ms(lambda: fn(Xk, ids, w3, c, B)),
+            ms=time_ms(lambda: fn(Xk, ids, w3, c, B, exps=exps)),
             plain_ms=time_ms(lambda: plain(Xk, ids, w3, c, B)),
             library_ms=bincount_ms(X_t, s, w3, B),
-            shape="N=%d F=%d B=%d K=%d%s, %d rows in a child slot"
+            shape="N=%d F=%d B=%d K=%d%s, %d rows in a child slot; "
+                  "plan %s"
                   % (N, F, B, c.shape[0],
-                     " row-major" if Xk is X else "", n_act),
+                     " row-major" if Xk is X else "", n_act,
+                     wk.hist_plan(F, N, B, c.shape[0],
+                                  torch.cuda.get_device_properties(
+                                      dev).multi_processor_count)[:6]),
             nbytes=(N * 4 + n_act * (F + 12)
                     + c.shape[0] * (4 + F * B * 12)),
             flops=3 * n_act * F)
+    need(not same_as, "B3/B4 bit-equality checks left undone")
+    del hist
+    say("B3 on B1's routed ids equals B1's histogram to the bit; B4 equals "
+        "B3 to the bit at K = 32 and at the root; the select list equals "
+        "plain")
 
     # ---- B5: the leaf histogram of exact growth, one leaf of a 64-leaf
     # state with bagging-like row multipliers, and the root (leaf 0, every
@@ -921,6 +953,31 @@ def main():
                                 {"tpu_wave_width": 14}])
     say("checks: device scores match host trees; model text round trip; "
         "small run on the card matches the CPU")
+    main_text = booster.model_to_string()
+    del booster
+    torch.cuda.empty_cache()
+
+    # ---- 4a. the pallas_t dataflow (what the learner resolves to above
+    # the ct bound): plain routing, then B3 for the root and each wave
+    # (twice a wave without the histogram cache); the same fixed point as
+    # the main path, so the same model text to the byte
+    booster, pallas_t_launches, stats = dense_train_phase(
+        "wave-pallas_t", dict(params, tpu_histogram_mode="pallas_t"), data,
+        lgb, kernels, card, args)
+    waves = sum(s.waves for s in stats)
+    per_wave = 1 if booster._gbdt.learner.cache_hists else 2
+    need(pallas_t_launches["wave_histogram"]
+         == len(stats) + per_wave * waves and waves > 0,
+         "pallas_t: B3 launches %d != trees + waves (%d + %d x %d)"
+         % (pallas_t_launches["wave_histogram"], len(stats), per_wave,
+            waves))
+    need(all(pallas_t_launches[k] == 0 for k in (
+        "wave_partition_hist", "wave_histogram_rowmajor", "leaf_histogram",
+        "sparse_wave_histogram")), "B1/B4/B5/B6 ran on the pallas_t path")
+    need(booster.model_to_string() == main_text,
+         "pallas_t: model text differs from the main path's (pallas_ct)")
+    say("wave-pallas_t checks: device scores match host trees; model text "
+        "round trip; model text equal to the main path's to the byte")
     del booster
     torch.cuda.empty_cache()
 
@@ -962,10 +1019,13 @@ def main():
     need(all(rowmajor_launches[k] == 0 for k in (
         "wave_partition_hist", "wave_histogram", "leaf_histogram",
         "sparse_wave_histogram")), "B1/B3/B5/B6 ran on the row-major path")
+    need(booster.model_to_string() == main_text,
+         "wave-pallas: model text differs from the main path's (pallas_ct)")
     small_run_matches_cpu(lgb, [{"tpu_histogram_mode": "pallas",
                                  "tpu_wave_width": 4}])
     say("wave-pallas checks: device scores match host trees; model text "
-        "round trip; small row-major run on the card matches the CPU")
+        "round trip; model text equal to the main path's to the byte; small "
+        "row-major run on the card matches the CPU")
     del booster, data, ds, dv
     torch.cuda.empty_cache()
 
@@ -974,6 +1034,9 @@ def main():
         args, lgb, sm, kernels, card)
 
     # ---- 6. result lines: each kernel's launches from its own path's run
+    # (B3's from the main path; on the pallas_t run it launched as said)
+    say("B3 launches: %d on the main path, %d on the pallas_t run"
+        % (launches["wave_histogram"], pallas_t_launches["wave_histogram"]))
     launches["wave_histogram_rowmajor"] = rowmajor_launches[
         "wave_histogram_rowmajor"]
     launches["leaf_histogram"] = exact_launches["leaf_histogram"]
@@ -983,10 +1046,10 @@ def main():
                                        "lightgbm_tpu/ops/pallas_wave.py:508"),
                "score_update": ("lightgbm_tpu_torch/csrc/score_update.cu",
                                 "lightgbm_tpu/ops/predict.py:151"),
-               "wave_histogram": ("lightgbm_tpu_torch/csrc/wave_hist.cu",
+               "wave_histogram": ("lightgbm_tpu_torch/csrc/wave_fused.cu",
                                   "lightgbm_tpu/ops/pallas_wave.py:367"),
                "wave_histogram_rowmajor": (
-                   "lightgbm_tpu_torch/csrc/wave_hist.cu",
+                   "lightgbm_tpu_torch/csrc/wave_fused.cu",
                    "lightgbm_tpu/ops/pallas_wave.py:263"),
                "leaf_histogram": ("lightgbm_tpu_torch/csrc/leaf_hist.cu",
                                   "lightgbm_tpu/ops/pallas_hist.py:163"),

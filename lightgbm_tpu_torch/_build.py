@@ -3,10 +3,11 @@
 The sources in ``csrc/`` have a plain C interface.  On first use each
 ``.cu`` file is compiled for ``sm_90a`` by its own ``nvcc`` process (all
 started together), the objects are linked into one shared library under
-``_build/`` (named by a digest of the sources, so an edited source
-rebuilds), and the library is loaded with ``ctypes``.  Nothing here runs
-at import time: a machine without ``nvcc`` or a GPU imports the package
-and runs the plain torch versions of the kernels on CPU tensors.
+``_build/`` (named by a digest of the sources and of the ``.cuh``
+headers beside them, so an edited source or header rebuilds), and the
+library is loaded with ``ctypes``.  Nothing here runs at import time: a
+machine without ``nvcc`` or a GPU imports the package and runs the plain
+torch versions of the kernels on CPU tensors.
 """
 from __future__ import annotations
 
@@ -37,7 +38,15 @@ build_log = ""
 
 
 def _sources():
+    """The sources nvcc compiles, one object each."""
     return sorted(SOURCE_DIR.glob("*.cu"))
+
+
+def _inputs():
+    """Every file a build reads: the sources and the headers they may
+    include, so that an edited header also rebuilds."""
+    return sorted(list(SOURCE_DIR.glob("*.cu"))
+                  + list(SOURCE_DIR.glob("*.cuh")))
 
 
 def _nvcc() -> str:
@@ -66,7 +75,7 @@ def build() -> Path:
     sources = _sources()
     if not sources:
         raise LightGBMError("no CUDA sources under %s" % SOURCE_DIR)
-    so = BUILD_DIR / ("liblgbt_kernels_%s.so" % _digest(sources))
+    so = BUILD_DIR / ("liblgbt_kernels_%s.so" % _digest(_inputs()))
     if so.exists():
         build_seconds = 0.0
         return so
@@ -116,16 +125,16 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         cf = ctypes.c_float
-        lib.lgbt_wave_hist.argtypes = [vp] * 6 + [ci] * 9 + [vp]
+        lib.lgbt_wave_hist.argtypes = [vp] * 8 + [ci] * 11 + [vp]
         lib.lgbt_wave_hist.restype = ci
-        lib.lgbt_wave_fused.argtypes = [vp] * 11 + [ci] * 11 + [vp]
+        lib.lgbt_wave_fused.argtypes = [vp] * 11 + [ci] * 12 + [vp]
         lib.lgbt_wave_fused.restype = ci
-        lib.lgbt_wave_route.argtypes = [vp] * 8 + [ci] * 6 + [vp]
-        lib.lgbt_wave_route.restype = ci
-        lib.lgbt_wave_fused_smem.argtypes = [ci] * 3
-        lib.lgbt_wave_fused_smem.restype = cll
-        lib.lgbt_wave_fused_blocks_per_sm.argtypes = [ci] * 3
-        lib.lgbt_wave_fused_blocks_per_sm.restype = ci
+        lib.lgbt_wave_list.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+        lib.lgbt_wave_list.restype = ci
+        lib.lgbt_wave_hist_smem.argtypes = [ci] * 4
+        lib.lgbt_wave_hist_smem.restype = cll
+        lib.lgbt_wave_hist_blocks_per_sm.argtypes = [ci] * 5
+        lib.lgbt_wave_hist_blocks_per_sm.restype = ci
         lib.lgbt_score_update.argtypes = [vp, vp, vp, vp, cll, ci, cf, cf,
                                           vp]
         lib.lgbt_score_update.restype = ci

@@ -1,42 +1,49 @@
-// The fused wave step for Hopper (sm_90a): route the rows of one wave's
-// parents, then build the child histograms of the routed rows.
+// The wave kernels for Hopper (sm_90a): the fused wave step (B1) and the
+// histogram-only pass on the transposed (B3) or the row-major (B4) bins.
+// All three build their histograms with one pass over a list of rows.
 //
 // Replaces (JAX package, TPU Pallas):
 //   lightgbm_tpu/ops/pallas_wave.py::wave_partition_hist_pallas_ct
-//     (kernel _wave_fused_kernel_ct)
+//     (kernel _wave_fused_kernel_ct)    -> B1, lgbt_wave_fused
+//   lightgbm_tpu/ops/pallas_wave.py::wave_histogram_pallas_t
+//     (kernel _wave_hist_kernel_t)      -> B3, lgbt_wave_hist rowmajor=0
+//   lightgbm_tpu/ops/pallas_wave.py::wave_histogram_pallas
+//     (kernel _wave_hist_kernel)        -> B4, lgbt_wave_hist rowmajor=1
 //
-// Contract.  X_t (F, N) uint8 bins, leaf_id (N,) int32, w3 (N, 3) f32
-// [g*m, h*m, m], child_id (K,) int32 (-1 = inactive), the compact split
-// table cols (W, 10) f32 and the wave's parent ids psrc (W,) int32 (-3 =
-// inactive).  A row whose leaf is psrc[w] (the first such w) is routed
-// with the split in cols[w]: <= threshold numerical, == categorical,
-// default-bin redirect, EFB offset remap when BUNDLED.  Its new leaf id
-// is written to new_lid.  hist[k, f, b, :] sums w3 over the rows whose
-// new leaf id equals child_id[k] and whose bin in feature f is b; bins
-// >= B are dropped; a child id that repeats fills every slot that holds
-// it.
+// Contract.  X_t (F, N) uint8 bins (B1, B3) or X (N, F) (B4), leaf_id (N,)
+// int32, w3 (N, 3) f32 [g*m, h*m, m], child_id (K,) int32 (-1 = inactive).
+// B1 also takes the compact split table cols (W, 10) f32 and the wave's
+// parent ids psrc (W,) int32 (-3 = inactive): a row whose leaf is psrc[w]
+// (the first such w) is routed with the split in cols[w]: <= threshold
+// numerical, == categorical, default-bin redirect, EFB offset remap when
+// BUNDLED; its new leaf id is written to new_lid.  hist[k, f, b, :] sums
+// w3 over the rows whose (new, for B1) leaf id equals child_id[k] and
+// whose bin in feature f is b; bins >= B are dropped; a child id that
+// repeats fills every slot that holds it.
 //
-// What bounds it on this card.  The bytes that must move: leaf ids in
-// and out (8 B a row), and for each row in a child slot its weights
-// (12 B) and its F bin bytes; at the flagship shape (N = 2M, F = 28,
-// B = 63, K = W = 32, about half the rows in a slot) that is ~18 us at
-// 3.35 TB/s.  The adds (3 a row and feature) are ~2 us at the FP32 rate.
-// So the bound is memory, and the design has to keep the accumulation
-// from costing more than the loads.  The earlier design (one private f32
-// histogram a warp, lane-ordered adds after __match_any_sync, partials
-// summed in row-block order) was deterministic but capped a block of 8
-// warps to one an SM (203 KB of shared memory), routed every row once a
-// feature group, and spent a serial match-and-add step on every 32 rows
-// of every feature, including rows in no child slot.
+// What bounds them on this card.  The bytes that must move: leaf ids in
+// (and out for B1, 8 B a row), and for each row in a child slot its
+// weights (12 B) and its F bin bytes; at the flagship shape (N = 2M,
+// F = 28, B = 63, K = W = 32, about half the rows in a slot) that is
+// ~18 us at 3.35 TB/s, and the root histogram (K = 1, every row) ~26 us.
+// The adds (3 a row and feature) are ~2-3 us at the FP32 rate.  So the
+// bound is memory, and the design has to keep the accumulation from
+// costing more than the loads.  The earlier design of B3 and B4 (one
+// private f32 histogram a warp, lane-ordered adds after
+// __match_any_sync, partials summed in row-block order by a second
+// kernel) was deterministic but capped a block of 8 warps to one an SM,
+// spent a serial match-and-add step on every 32 rows of every feature,
+// including rows in no child slot, and wrote an (R, K, F, B, 3) scratch.
 //
 // Design.
-//  1. route_kernel, one thread a row: the parent's wave slot and the new
-//     leaf's child slot come from leaf -> slot tables in shared memory
-//     built from psrc and child_id (a W- or K-long search only for ids
-//     outside the table).  It writes new_lid, and appends each row that
-//     falls in a child slot to a compact list of (row, slot) pairs: a
-//     block-wide prefix over its 1024 rows and one global atomic a tile.
-//     Every row is routed once a wave.
+//  1. list_kernel, one thread a row, maps each row's leaf to its child
+//     slot through leaf -> slot tables in shared memory built from
+//     child_id (a K-long search only for ids outside the table) and
+//     appends each row that falls in a child slot to a compact list of
+//     (row, slot) pairs: a block-wide prefix over its 1024 rows and one
+//     global atomic a tile.  Under ROUTE (B1) it first routes the row with
+//     its parent's split (a second table, from psrc) and writes new_lid;
+//     otherwise (B3, B4) it selects the rows as their ids stand.
 //  2. hist_kernel walks only the list.  A block of 32 warps owns a group
 //     of FS features (and a slice of KS slots when one feature's K slots
 //     do not fit) and a share of the list; its histogram lives in shared
@@ -47,7 +54,17 @@
 //     Integer addition is exact and order-free, so the sums do not depend
 //     on scheduling and two launches are bit-identical.  The block then
 //     adds its cells into one int64 (K, F, B, 3) buffer with global
-//     atomics (again order-free).
+//     atomics (again order-free).  The row-major variant reads a row's
+//     group as its contiguous bytes X[row, f0 .. f0 + FS), one or two
+//     4-byte words where the row and the group are 4-byte aligned.
+//     Copies: where the histogram leaves shared memory unused (few slots,
+//     as in the root's K = 1), the block keeps C = 2, 4, .. 32 copies,
+//     interleaved so that cell c of copy j is word c * C + j, and lane l
+//     adds into copy l mod C.  A warp's lanes then hit C different banks
+//     for any bins, where one copy replays the atomic for every bank
+//     that two lanes share (32 rows over one feature's 63 bins share
+//     banks several times over).  The copies are added together before
+//     the global atomics; integer sums, so the bits do not depend on C.
 //  3. finish_kernel converts the int64 sums to f32 once and copies the
 //     histogram of a repeated child id into each of its slots.
 // Fixed point: channel c is scaled by 2^e[c] with e[c] = 62 -
@@ -55,18 +72,20 @@
 // value is rounded to the nearest multiple of 2^-e[c], which errs by at
 // most N_cell * N * max|w_c| / 2^62 in a cell (1e-6 x max|w| at N = 2M),
 // well inside the f32 tolerance.  The wrapper computes e once a tree on
-// the device (ops/wave_kernels.py fixed_point_exponents).
+// the device (ops/wave_kernels.py fixed_point_exponents), so B1, B3 and
+// B4 give bit-identical histograms of the same rows.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kTable = 4096;         // leaf ids < kTable use the tables
-constexpr int kRouteThreads = 256;
-constexpr int kRouteRows = 4;        // rows a thread per tile
-constexpr int kTileRows = kRouteThreads * kRouteRows;
+constexpr int kListThreads = 256;
+constexpr int kListRows = 4;         // rows a thread per tile
+constexpr int kTileRows = kListThreads * kListRows;
 constexpr int kHistThreads = 1024;   // 32 warps: one block fills an SM
 constexpr int kMaxGroup = 8;         // features a histogram block holds
+constexpr int kMaxCopies = 32;
 
 // First index i of ids[0..n) with ids[i] == v, or -1.
 __device__ __forceinline__ int find_first(const int* ids, int n, int v) {
@@ -75,16 +94,16 @@ __device__ __forceinline__ int find_first(const int* ids, int n, int v) {
   return -1;
 }
 
-template <bool BUNDLED>
-__global__ void __launch_bounds__(kRouteThreads)
-route_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
-             const int* __restrict__ cid, const float* __restrict__ cols,
-             const int* __restrict__ psrc, int* __restrict__ new_lid,
-             int2* __restrict__ list, unsigned long long* __restrict__ count,
-             int F, int N, int K, int W) {
+template <bool ROUTE, bool BUNDLED>
+__global__ void __launch_bounds__(kListThreads)
+list_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
+            const int* __restrict__ cid, const float* __restrict__ cols,
+            const int* __restrict__ psrc, int* __restrict__ new_lid,
+            int2* __restrict__ list, unsigned long long* __restrict__ count,
+            int F, int N, int K, int W) {
   __shared__ short wave_of[kTable];      // leaf -> first w, or -1
   __shared__ short slot_of[kTable];      // leaf -> first k, or -1
-  __shared__ int warp_n[kRouteRows][kRouteThreads / 32];
+  __shared__ int warp_n[kListRows][kListThreads / 32];
   __shared__ int tmax_s;
   __shared__ unsigned long long base_s;
   extern __shared__ int dyn[];
@@ -123,38 +142,40 @@ route_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
   const unsigned lt_mask = (1u << lane) - 1u;
   for (long long t0 = static_cast<long long>(blockIdx.x) * kTileRows;
        t0 < N; t0 += static_cast<long long>(gridDim.x) * kTileRows) {
-    int row[kRouteRows], slot[kRouteRows], before[kRouteRows];
+    int row[kListRows], slot[kListRows], before[kListRows];
 #pragma unroll
-    for (int j = 0; j < kRouteRows; ++j) {
-      const long long r = t0 + j * kRouteThreads + tid;
+    for (int j = 0; j < kListRows; ++j) {
+      const long long r = t0 + j * kListThreads + tid;
       row[j] = static_cast<int>(r);
       slot[j] = -1;
       if (r < N) {
         int nl = lid[r];
-        const int w = (nl >= 0 && nl < kTable)
-            ? (nl < tmax ? wave_of[nl] : -1)
-            : find_first(psrc_s, W, nl);
-        if (w >= 0) {
-          const float* c = cols_s + w * 10;
-          if (c[0] > 0.5f) {
-            const int cj = static_cast<int>(c[1]);
-            int colv = (cj >= 0 && cj < F)
-                ? static_cast<int>(xt[static_cast<size_t>(cj) * N + r])
-                : 0;
-            const int dflt = static_cast<int>(c[4]);
-            if (BUNDLED) {
-              const int goff = static_cast<int>(c[7]);
-              const int span = static_cast<int>(c[9]);
-              colv = (colv >= goff && colv < goff + span)
-                  ? colv - goff + static_cast<int>(c[8]) : dflt;
+        if constexpr (ROUTE) {
+          const int w = (nl >= 0 && nl < kTable)
+              ? (nl < tmax ? wave_of[nl] : -1)
+              : find_first(psrc_s, W, nl);
+          if (w >= 0) {
+            const float* c = cols_s + w * 10;
+            if (c[0] > 0.5f) {
+              const int cj = static_cast<int>(c[1]);
+              int colv = (cj >= 0 && cj < F)
+                  ? static_cast<int>(xt[static_cast<size_t>(cj) * N + r])
+                  : 0;
+              const int dflt = static_cast<int>(c[4]);
+              if (BUNDLED) {
+                const int goff = static_cast<int>(c[7]);
+                const int span = static_cast<int>(c[9]);
+                colv = (colv >= goff && colv < goff + span)
+                    ? colv - goff + static_cast<int>(c[8]) : dflt;
+              }
+              const int thr = static_cast<int>(c[2]);
+              bool go_left = (c[3] > 0.5f) ? (colv == thr) : (colv <= thr);
+              if (colv == dflt) go_left = c[5] > 0.5f;
+              if (!go_left) nl = static_cast<int>(c[6]);
             }
-            const int thr = static_cast<int>(c[2]);
-            bool go_left = (c[3] > 0.5f) ? (colv == thr) : (colv <= thr);
-            if (colv == dflt) go_left = c[5] > 0.5f;
-            if (!go_left) nl = static_cast<int>(c[6]);
           }
+          new_lid[r] = nl;
         }
-        new_lid[r] = nl;
         slot[j] = (nl >= 0 && nl < kTable)
             ? (nl < tmax ? slot_of[nl] : -1)
             : find_first(cid_s, K, nl);
@@ -166,8 +187,8 @@ route_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
     __syncthreads();
     if (tid == 0) {                      // exclusive prefix in row order
       int total = 0;
-      for (int j = 0; j < kRouteRows; ++j)
-        for (int v = 0; v < kRouteThreads / 32; ++v) {
+      for (int j = 0; j < kListRows; ++j)
+        for (int v = 0; v < kListThreads / 32; ++v) {
           const int c = warp_n[j][v];
           warp_n[j][v] = total;
           total += c;
@@ -179,7 +200,7 @@ route_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
     __syncthreads();
     const unsigned long long base = base_s;
 #pragma unroll
-    for (int j = 0; j < kRouteRows; ++j)
+    for (int j = 0; j < kListRows; ++j)
       if (slot[j] >= 0)
         list[base + warp_n[j][warp] + before[j]] = make_int2(row[j], slot[j]);
     __syncthreads();                     // warp_n and base_s reused
@@ -200,23 +221,29 @@ __device__ __forceinline__ void add64(unsigned* lo, unsigned* hi,
   if (h != 0u) atomicAdd(hi, h);
 }
 
+// COPIES = false is the one-copy form (B1's wave, K = 32): its strides
+// are compile-time constants that fold into the atomics' addresses.
+template <bool ROWMAJOR, bool COPIES>
 __global__ void __launch_bounds__(kHistThreads, 1)
-hist_kernel(const uint8_t* __restrict__ xt, const float* __restrict__ w3,
+hist_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w3,
             const int2* __restrict__ list,
             const unsigned long long* __restrict__ count,
             const int* __restrict__ exps, unsigned long long* __restrict__ acc,
-            int F, int N, int B, int K, int KS, int FS) {
-  // (KS, FS, B, 3) cells of 64 bits as two planes of 32-bit words
+            int F, int N, int B, int K, int KS, int FS, int copies) {
+  // C interleaved copies of (KS, FS, B, 3) cells of 64 bits, as two
+  // planes of 32-bit words: cell c of copy j is word c * C + j
   extern __shared__ unsigned planes[];
+  const int C = COPIES ? copies : 1;
   const int f0 = blockIdx.x * FS;
   const int nf = min(FS, F - f0);
   const int k0 = blockIdx.z * KS;
   const int kn = min(KS, K - k0);
   const int slot_len = FS * B * 3;
   const int cells = kn * slot_len;
+  const int words = KS * slot_len * C;
   unsigned* lo = planes;
-  unsigned* hi = planes + KS * slot_len;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+  unsigned* hi = planes + words;
+  for (int i = threadIdx.x; i < cells * C; i += blockDim.x) {
     lo[i] = 0u;
     hi[i] = 0u;
   }
@@ -227,7 +254,11 @@ hist_kernel(const uint8_t* __restrict__ xt, const float* __restrict__ w3,
   const long long per = (n + gridDim.y - 1) / gridDim.y;
   const long long j0 = blockIdx.y * per;
   const long long j1 = min(n, j0 + per);
-  const uint8_t* xg = xt + static_cast<size_t>(f0) * N;
+  const int copy = threadIdx.x & (C - 1);
+  // row-major: the group's bytes of a row as 4-byte words when aligned
+  const bool words4 = ROWMAJOR && (F & 3) == 0 && (f0 & 3) == 0 &&
+                      (reinterpret_cast<uintptr_t>(x) & 3) == 0;
+  const uint8_t* xg = ROWMAJOR ? x + f0 : x + static_cast<size_t>(f0) * N;
   __syncthreads();
 
   for (long long j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
@@ -236,10 +267,28 @@ hist_kernel(const uint8_t* __restrict__ xt, const float* __restrict__ w3,
     if (s < 0 || s >= kn) continue;
     const int row = rec.x;
     int bins[kMaxGroup];
+    if constexpr (ROWMAJOR) {
+      const uint8_t* xr = xg + static_cast<size_t>(row) * F;
+      if (words4) {
+        const unsigned* xw = reinterpret_cast<const unsigned*>(xr);
+        const unsigned a = xw[0];
+        const unsigned b = nf > 4 ? xw[1] : 0u;
 #pragma unroll
-    for (int f = 0; f < kMaxGroup; ++f)
-      bins[f] = f < nf ? static_cast<int>(xg[static_cast<size_t>(f) * N + row])
-                       : B;
+        for (int f = 0; f < kMaxGroup; ++f)
+          bins[f] = f < nf
+              ? static_cast<int>(((f < 4 ? a : b) >> (8 * (f & 3))) & 255u)
+              : B;
+      } else {
+#pragma unroll
+        for (int f = 0; f < kMaxGroup; ++f)
+          bins[f] = f < nf ? static_cast<int>(xr[f]) : B;
+      }
+    } else {
+#pragma unroll
+      for (int f = 0; f < kMaxGroup; ++f)
+        bins[f] = f < nf
+            ? static_cast<int>(xg[static_cast<size_t>(f) * N + row]) : B;
+    }
     const float* wr = w3 + 3 * static_cast<size_t>(row);
     const unsigned long long q0 = static_cast<unsigned long long>(
         __double2ll_rn(static_cast<double>(wr[0]) * s0));
@@ -251,17 +300,20 @@ hist_kernel(const uint8_t* __restrict__ xt, const float* __restrict__ w3,
 #pragma unroll
     for (int f = 0; f < kMaxGroup; ++f) {
       if (bins[f] < B) {
-        const int c = base + (f * B + bins[f]) * 3;
+        const int c = (base + (f * B + bins[f]) * 3) * C + copy;
         add64(lo + c, hi + c, q0);
-        add64(lo + c + 1, hi + c + 1, q1);
-        add64(lo + c + 2, hi + c + 2, q2);
+        add64(lo + c + C, hi + c + C, q1);
+        add64(lo + c + 2 * C, hi + c + 2 * C, q2);
       }
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const unsigned long long v =
-        (static_cast<unsigned long long>(hi[i]) << 32) | lo[i];
+    unsigned long long v = 0ull;
+    for (int j = 0; j < C; ++j) {        // rotated: lanes on other banks
+      const int w = i * C + ((i + j) & (C - 1));
+      v += (static_cast<unsigned long long>(hi[w]) << 32) | lo[w];
+    }
     if (v == 0ull) continue;
     const int kk = i / slot_len;
     const int rem = i - kk * slot_len;       // (f, b, c) within the group
@@ -290,42 +342,99 @@ __global__ void finish_kernel(const unsigned long long* __restrict__ acc,
   hist[i] = static_cast<float>(ldexp(static_cast<double>(v), -exps[c]));
 }
 
+size_t hist_smem(int B, int KS, int FS, int C) {
+  return 8ull * C * KS * FS * B * 3;
+}
+
+using HistKernel = void (*)(const uint8_t*, const float*, const int2*,
+                           const unsigned long long*, const int*,
+                           unsigned long long*, int, int, int, int, int, int,
+                           int);
+
+HistKernel hist_kernel_for(bool rowmajor, int C) {
+  if (rowmajor)
+    return C > 1 ? &hist_kernel<true, true> : &hist_kernel<true, false>;
+  return C > 1 ? &hist_kernel<false, true> : &hist_kernel<false, false>;
+}
+
+// The histogram pass over the list and the f32 conversion.  acc holds
+// K * F * B * 3 zeroed 64-bit words followed by the list's length.
+cudaError_t hist_and_finish(const void* x, const void* w3, const void* list,
+                            const void* cid, const void* exps, void* acc,
+                            void* hist, int F, int N, int B, int K,
+                            int groups, int R, int KS, int FS, int C,
+                            bool rowmajor, cudaStream_t s) {
+  if (FS < 1 || FS > kMaxGroup || KS < 1 || C < 1 || C > kMaxCopies ||
+      (C & (C - 1)) != 0)
+    return cudaErrorInvalidValue;
+  const long long per_slot = static_cast<long long>(F) * B * 3;
+  unsigned long long* acc64 = static_cast<unsigned long long*>(acc);
+  const size_t smem = hist_smem(B, KS, FS, C);
+  const HistKernel kern = hist_kernel_for(rowmajor, C);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(groups, R, (K + KS - 1) / KS);
+  kern<<<grid, kHistThreads, smem, s>>>(
+      static_cast<const uint8_t*>(x), static_cast<const float*>(w3),
+      static_cast<const int2*>(list), acc64 + per_slot * K,
+      static_cast<const int*>(exps), acc64, F, N, B, K, KS, FS, C);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int threads = 256;
+  const long long total = per_slot * K;
+  finish_kernel<<<static_cast<unsigned>((total + threads - 1) / threads),
+                  threads, 0, s>>>(acc64, static_cast<const int*>(cid),
+                                   static_cast<const int*>(exps),
+                                   static_cast<float*>(hist), K, per_slot);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one histogram block: KS slots x FS features x B bins
-// x 3 channels of 64 bits (the wrapper's launch plan mirrors it).
-long long lgbt_wave_fused_smem(int B, int KS, int FS) {
-  return 8ll * KS * FS * B * 3;
+// Shared memory of one histogram block: C copies of KS slots x FS
+// features x B bins x 3 channels of 64 bits (the wrapper's launch plan
+// mirrors it).
+long long lgbt_wave_hist_smem(int B, int KS, int FS, int C) {
+  return static_cast<long long>(hist_smem(B, KS, FS, C));
 }
 
 // Histogram blocks of the plan resident on one SM, or -1 on an error.
-int lgbt_wave_fused_blocks_per_sm(int B, int KS, int FS) {
-  const size_t smem = static_cast<size_t>(lgbt_wave_fused_smem(B, KS, FS));
-  if (cudaFuncSetAttribute(hist_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+int lgbt_wave_hist_blocks_per_sm(int B, int KS, int FS, int C,
+                                 int rowmajor) {
+  const size_t smem = hist_smem(B, KS, FS, C);
+  const HistKernel kern = hist_kernel_for(rowmajor != 0, C);
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess)
     return -1;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, hist_kernel, kHistThreads, smem) != cudaSuccess)
+          &blocks, kern, kHistThreads, smem) != cudaSuccess)
     return -1;
   return blocks;
 }
 
-// The routing pass alone: new_lid (N,), the compact list (N, 2) int32 of
-// (row, slot) pairs and its length in *count (which must be 0 on entry).
-int lgbt_wave_route(const void* xt, const void* lid, const void* cid,
-                    const void* cols, const void* psrc, void* new_lid,
-                    void* list, void* count, int F, int N, int K, int W,
-                    int route_blocks, int bundled, void* stream) {
+// The list pass alone: the compact list (N, 2) int32 of (row, slot)
+// pairs and its length in *count (which must be 0 on entry).  mode 0
+// selects the rows by their ids (B3, B4; xt, cols, psrc and new_lid are
+// not read and may be null, W = 0); mode 1 routes them first and writes
+// new_lid (B1), mode 2 does so on EFB group columns.
+int lgbt_wave_list(const void* xt, const void* lid, const void* cid,
+                   const void* cols, const void* psrc, void* new_lid,
+                   void* list, void* count, int F, int N, int K, int W,
+                   int blocks, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 0) W = 0;
   const size_t smem = 4 * (static_cast<size_t>(W) * 11 + K);
   void (*kern)(const uint8_t*, const int*, const int*, const float*,
                const int*, int*, int2*, unsigned long long*, int, int, int,
-               int) = bundled ? &route_kernel<true> : &route_kernel<false>;
-  kern<<<route_blocks, kRouteThreads, smem, s>>>(
+               int) = mode == 0 ? &list_kernel<false, false>
+                    : mode == 1 ? &list_kernel<true, false>
+                                : &list_kernel<true, true>;
+  kern<<<blocks, kListThreads, smem, s>>>(
       static_cast<const uint8_t*>(xt), static_cast<const int*>(lid),
       static_cast<const int*>(cid), static_cast<const float*>(cols),
       static_cast<const int*>(psrc), static_cast<int*>(new_lid),
@@ -334,43 +443,41 @@ int lgbt_wave_route(const void* xt, const void* lid, const void* cid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fused wave step: routing, histograms of the listed rows, f32
+// B1, the fused wave step: routing, histograms of the listed rows, f32
 // conversion.  acc holds K * F * B * 3 + 1 zeroed 64-bit words (the last
 // one is the list's length); list N int2; hist K * F * B * 3 floats.
 int lgbt_wave_fused(const void* xt, const void* lid, const void* w3,
                     const void* cid, const void* cols, const void* psrc,
                     const void* exps, void* new_lid, void* list, void* acc,
                     void* hist, int F, int N, int B, int K, int W,
-                    int route_blocks, int groups, int R, int KS, int FS,
-                    int bundled, void* stream) {
-  if (FS < 1 || FS > kMaxGroup || KS < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long per_slot = static_cast<long long>(F) * B * 3;
-  unsigned long long* acc64 = static_cast<unsigned long long*>(acc);
-  unsigned long long* count = acc64 + per_slot * K;
-  int e = lgbt_wave_route(xt, lid, cid, cols, psrc, new_lid, list, count,
-                          F, N, K, W, route_blocks, bundled, stream);
+                    int list_blocks, int groups, int R, int KS, int FS,
+                    int C, int bundled, void* stream) {
+  unsigned long long* count = static_cast<unsigned long long*>(acc) +
+                              static_cast<long long>(F) * B * 3 * K;
+  int e = lgbt_wave_list(xt, lid, cid, cols, psrc, new_lid, list, count, F,
+                         N, K, W, list_blocks, bundled ? 2 : 1, stream);
   if (e != 0) return e;
-  const size_t smem = static_cast<size_t>(lgbt_wave_fused_smem(B, KS, FS));
-  cudaError_t ce = cudaFuncSetAttribute(
-      hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (ce != cudaSuccess) return static_cast<int>(ce);
-  const dim3 grid(groups, R, (K + KS - 1) / KS);
-  hist_kernel<<<grid, kHistThreads, smem, s>>>(
-      static_cast<const uint8_t*>(xt), static_cast<const float*>(w3),
-      static_cast<const int2*>(list), count, static_cast<const int*>(exps),
-      acc64, F, N, B, K, KS, FS);
-  ce = cudaGetLastError();
-  if (ce != cudaSuccess) return static_cast<int>(ce);
-  const int threads = 256;
-  const long long total = per_slot * K;
-  finish_kernel<<<static_cast<unsigned>((total + threads - 1) / threads),
-                  threads, 0, s>>>(acc64, static_cast<const int*>(cid),
-                                   static_cast<const int*>(exps),
-                                   static_cast<float*>(hist), K, per_slot);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(hist_and_finish(
+      xt, w3, list, cid, exps, acc, hist, F, N, B, K, groups, R, KS, FS, C,
+      false, static_cast<cudaStream_t>(stream)));
+}
+
+// B3 (X_t (F, N)) and B4 (rowmajor: X (N, F)), the histogram-only pass:
+// the select pass, histograms of the listed rows, f32 conversion; acc,
+// list and hist as for lgbt_wave_fused.
+int lgbt_wave_hist(const void* x, const void* lid, const void* w3,
+                   const void* cid, const void* exps, void* list, void* acc,
+                   void* hist, int F, int N, int B, int K, int list_blocks,
+                   int groups, int R, int KS, int FS, int C, int rowmajor,
+                   void* stream) {
+  unsigned long long* count = static_cast<unsigned long long*>(acc) +
+                              static_cast<long long>(F) * B * 3 * K;
+  int e = lgbt_wave_list(nullptr, lid, cid, nullptr, nullptr, nullptr, list,
+                         count, F, N, K, 0, list_blocks, 0, stream);
+  if (e != 0) return e;
+  return static_cast<int>(hist_and_finish(
+      x, w3, list, cid, exps, acc, hist, F, N, B, K, groups, R, KS, FS, C,
+      rowmajor != 0, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

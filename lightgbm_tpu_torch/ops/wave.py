@@ -12,7 +12,10 @@ through the histogram-only kernel (B3, ``wave_histogram``).  With
 ``tpu_histogram_mode=pallas`` the bins stay row-major (N, G): the
 partition runs as plain tensor ops on the split columns
 (``route_rows_rowmajor``) and every histogram, the root's included, comes
-from the row-major kernel (B4, ``wave_histogram_rowmajor``).  The JAX
+from the row-major kernel (B4, ``wave_histogram_rowmajor``).  B1, B3 and
+B4 share one histogram pass and take the tree's fixed-point exponents,
+so on the card every dense histogram is the f32 rounding of an exact sum
+and the three dataflows grow the same trees to the byte.  The JAX
 package's ``lax.while_loop`` is a Python loop here with ONE host read per
 wave: the number of valid splits (the k == 0 stop test) together with
 the chosen parent ids, from which the host tracks leaf depths.
@@ -83,17 +86,18 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     w3 = torch.stack([grad * row_mult, hess * row_mult, row_mult],
                      dim=-1).to(f32).contiguous()          # (N, 3)
     leaf_id = torch.zeros(n, dtype=i32, device=dev)
-    # B1's fixed-point exponents: w3 is fixed within the tree
-    exps = (fixed_point_exponents(w3)
-            if hist_mode == "pallas_ct" and not sparse else None)
+    # the dense kernels' fixed-point exponents (B1, B3, B4): w3 is fixed
+    # within the tree, so the root and every child carry the same scale
+    exps = None if sparse else fixed_point_exponents(w3)
 
     def child_hists(lid, ids):
         if sparse:
             return sparse_wave_histogram(X, lid, w3, ids, hist_bins,
                                          X.num_cols)
         if hist_mode == "pallas":
-            return wave_histogram_rowmajor(X, lid, w3, ids, hist_bins)
-        return wave_histogram(X, lid, w3, ids, hist_bins)
+            return wave_histogram_rowmajor(X, lid, w3, ids, hist_bins,
+                                           exps=exps)
+        return wave_histogram(X, lid, w3, ids, hist_bins, exps=exps)
 
     def best_of_many(hists_k, sums_k, depths_k):
         return best_splits_batched(

@@ -4,15 +4,17 @@ bins (B4), each beside its plain torch version.
 
 Ported from the JAX package's ``ops/pallas_wave.py``
 (``wave_partition_hist_pallas_ct``, ``wave_histogram_pallas_t`` and
-``wave_histogram_pallas``); the CUDA sources are ``csrc/wave_fused.cu``
-(B1) and ``csrc/wave_hist.cu`` (B3, B4).
+``wave_histogram_pallas``); the CUDA source of all three is
+``csrc/wave_fused.cu``.
 The contract and layouts are the JAX package's: X_t (F, N) or X (N, F)
 uint8, leaf_id (N,) int32, w3 (N, 3) f32, child_id (K,) int32 (-1 =
 inactive), cols (W, 10) f32, psrc (W,) int32 (-3 = inactive); histograms
 come back as (K, F, B, 3) f32.  The JAX package's B4 splits the weights
-into bf16 hi/lo halves for the TPU's matrix unit; the port multiplies and
-adds in f32 for B3 and B4, and B1 sums in 64-bit fixed point
-(``fixed_point_exponents``) and converts to f32 once.
+into bf16 hi/lo halves for the TPU's matrix unit; the port's kernels list
+the rows in a child slot (B1 while it routes them, B3 and B4 by their
+ids), sum them in 64-bit fixed point (``fixed_point_exponents``) and
+convert to f32 once, so the three give the same bits for the same rows.
+The plain versions add in the weights' dtype.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (building it on first use) or raises.  Each wrapper
@@ -25,20 +27,18 @@ import torch
 from .. import _build
 from ..utils.log import LightGBMError
 
-# rows staged per tile in the kernel (kTile in csrc/wave_hist.cu)
-_TILE = 256
-# B1 (csrc/wave_fused.cu): rows a routing block takes a tile, routing
-# blocks a SM, threads of a histogram block and features it may hold
-_ROUTE_TILE = 1024
-_ROUTE_BLOCKS_PER_SM = 8
-_FUSED_THREADS = 1024
-_FUSED_GROUP_MAX = 8
+# csrc/wave_fused.cu: rows a list-pass block takes a tile, list-pass
+# blocks a SM, threads of a histogram block, features it may hold and
+# copies of its histogram it may keep
+_LIST_TILE = 1024
+_LIST_BLOCKS_PER_SM = 8
+_HIST_THREADS = 1024
+_GROUP_MAX = 8
+_MAX_COPIES = 32
 # dynamic shared memory a block may claim (of the 232,448 bytes an H100
 # block can use) and what one SM holds for all its resident blocks
 _SMEM_BUDGET = 220 * 1024
 _SMEM_PER_SM = 228 * 1024
-# the partials scratch is capped at 1/_PARTIAL_FRACTION of the bytes of X_t
-_PARTIAL_FRACTION = 2
 
 _num_sms = {}
 
@@ -177,48 +177,6 @@ def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None,
                                 "index (F*N=%d)" % (F * N))
 
 
-def _smem_bytes(B: int, K: int, ks: int, warps: int,
-                rowmajor: bool = False) -> int:
-    """smem_bytes in csrc/wave_hist.cu: one block's dynamic shared memory
-    (the row-major variant adds its tile of bin bytes)."""
-    return (4 * (warps * ks * B * 3 + warps * 96 + _TILE * 5 + K + 1)
-            + (4 * ((_TILE * warps + 3) // 4) if rowmajor else 0))
-
-
-def launch_plan(F: int, N: int, B: int, K: int, num_sms: int,
-                rowmajor: bool = False):
-    """B3's and B4's plan (R, rows_per_block, KS, warps): row blocks, rows
-    each, child slots per block and warps (= features) per block.  Each
-    warp keeps a private (KS, B, 3) histogram in shared memory; R row
-    blocks write R partial (K, F, B, 3) blocks, capped at
-    1/_PARTIAL_FRACTION of the bytes of X_t.  R aims at one full round of
-    resident blocks on every SM."""
-    def smem_of(ks, warps):
-        return _smem_bytes(B, K, ks, warps, rowmajor)
-
-    ks = K
-    warps = min(8, max(F, 1))
-    while warps > 1 and smem_of(ks, warps) > _SMEM_BUDGET:
-        warps -= 1
-    while ks > 1 and smem_of(ks, warps) > _SMEM_BUDGET:
-        ks = (ks + 1) // 2
-    smem = smem_of(ks, warps)
-    if smem > _SMEM_BUDGET:
-        raise LightGBMError("wave histogram block does not fit shared "
-                            "memory (B=%d, K=%d)" % (B, K))
-    fgroups = -(-F // warps)
-    kslices = -(-K // ks)
-    per_sm = max(1, min(_SMEM_PER_SM // (smem + 1024), 2048 // (32 * warps)))
-    partial_bytes = K * F * B * 12
-    r_cap = max(1, (F * N) // (_PARTIAL_FRACTION * partial_bytes))
-    r_fill = max(1, (num_sms * per_sm) // (fgroups * kslices))
-    r_rows = max(1, -(-N // _TILE))
-    R = max(1, min(r_cap, r_fill, r_rows, 65535))
-    rows_per_block = -(-N // R)
-    R = -(-N // rows_per_block)
-    return R, rows_per_block, ks, warps
-
-
 def _sms(dev) -> int:
     key = dev.index if dev.index is not None else torch.cuda.current_device()
     if key not in _num_sms:
@@ -227,59 +185,77 @@ def _sms(dev) -> int:
     return _num_sms[key]
 
 
-def _launch(X_t, leaf_id, w3, child_id, num_bins, rowmajor=False):
-    """B3 (X_t) or B4 (row-major X): the histogram-only pass."""
-    lib = _build.library()
-    F, N = X_t.shape[::-1] if rowmajor else X_t.shape
-    K = child_id.shape[0]
-    B = int(num_bins)
-    R, rpb, ks, warps = launch_plan(F, N, B, K, _sms(X_t.device), rowmajor)
-    partial = torch.empty(R * K * F * B * 3, dtype=torch.float32,
-                          device=X_t.device)
-    hist = torch.empty((K, F, B, 3), dtype=torch.float32,
-                       device=X_t.device)
-    stream = torch.cuda.current_stream(X_t.device).cuda_stream
-    err = lib.lgbt_wave_hist(
-        *[t.data_ptr() for t in (X_t, leaf_id, w3, child_id)],
-        partial.data_ptr(), hist.data_ptr(), F, N, B, K, R, rpb, ks, warps,
-        int(rowmajor), stream)
-    _build.check(err, "wave_hist")
-    return hist
-
-
-# ------------------------------------------------------------ B1 (fused)
 def fixed_point_exponents(w3):
-    """(3,) int32 exponents e_c of B1's 64-bit fixed point, computed on
-    w3's device with no host read: e_c = 62 - frexp_exponent(N * max|w_c|),
-    so |sum| < 2^62 for any N values of channel c, and rounding each
-    value to a multiple of 2^-e_c errs by at most N_cell * N * max|w_c| /
-    2^62 in a cell of N_cell rows.  w3 is fixed within a tree, so the
-    grower computes this once a tree."""
+    """(3,) int32 exponents e_c of the kernels' 64-bit fixed point,
+    computed on w3's device with no host read: e_c = 62 -
+    frexp_exponent(N * max|w_c|), so |sum| < 2^62 for any N values of
+    channel c, and rounding each value to a multiple of 2^-e_c errs by at
+    most N_cell * N * max|w_c| / 2^62 in a cell of N_cell rows.  w3 is
+    fixed within a tree, so the grower computes this once a tree and B1,
+    B3 and B4 sum the same rows to the same bits."""
     n = w3.shape[0]
     m = w3.abs().amax(dim=0).to(torch.float64) * n
     return (62 - torch.frexp(m).exponent).to(torch.int32)
 
 
-def fused_plan(F: int, N: int, B: int, K: int, num_sms: int):
-    """B1's launch plan (route_blocks, groups, R, KS, FS, smem): routing
-    blocks of _ROUTE_TILE rows a tile; histogram blocks of
-    _FUSED_THREADS threads, each over FS features (groups of them) and KS
-    child slots in an int64 (KS, FS, B, 3) shared histogram of smem
-    bytes, and R shares of the compact row list, so that one round of
-    resident blocks fills every SM."""
+def hist_plan(F: int, N: int, B: int, K: int, num_sms: int):
+    """The launch plan of B1, B3 and B4 (list_blocks, groups, R, KS, FS,
+    copies, smem): list-pass blocks of _LIST_TILE rows a tile; histogram
+    blocks of _HIST_THREADS threads, each over FS features (groups of
+    them) and KS child slots in `copies` interleaved int64 (KS, FS, B, 3)
+    shared histograms of smem bytes in all, and R shares of the compact
+    row list, so that one round of resident blocks fills every SM (and
+    no share is empty: each holds at least a block's threads of rows
+    when every row is listed).  The copies (a power of two up to 32,
+    lane l adding into copy l mod copies) take the shared memory that one
+    histogram leaves unused."""
     cell = B * 3 * 8                       # one (slot, feature) row
     ks = max(1, min(K, _SMEM_BUDGET // cell))
-    fs = max(1, min(F, _FUSED_GROUP_MAX, _SMEM_BUDGET // (ks * cell)))
+    fs = max(1, min(F, _GROUP_MAX, _SMEM_BUDGET // (ks * cell)))
     groups = -(-F // fs)
     fs = -(-F // groups)                   # even the groups out
     kslices = -(-K // ks)
-    smem = ks * fs * cell
-    per_sm = max(1, min(2048 // _FUSED_THREADS,
+    copies = 1
+    while (copies < _MAX_COPIES
+           and 2 * copies * ks * fs * cell <= _SMEM_BUDGET):
+        copies *= 2
+    smem = copies * ks * fs * cell
+    per_sm = max(1, min(2048 // _HIST_THREADS,
                         _SMEM_PER_SM // (smem + 1024)))
-    R = max(1, min(65535, (num_sms * per_sm) // (groups * kslices)))
-    route_blocks = max(1, min(-(-N // _ROUTE_TILE),
-                              num_sms * _ROUTE_BLOCKS_PER_SM))
-    return route_blocks, groups, R, ks, fs, smem
+    R = max(1, min(65535, -(-N // _HIST_THREADS),
+                   (num_sms * per_sm) // (groups * kslices)))
+    return _list_blocks(N, num_sms), groups, R, ks, fs, copies, smem
+
+
+def _list_blocks(N: int, num_sms: int) -> int:
+    """List-pass blocks: one a tile of rows, at most a few a SM."""
+    return max(1, min(-(-N // _LIST_TILE), num_sms * _LIST_BLOCKS_PER_SM))
+
+
+def _exps(w3, exps):
+    """exps checked, or computed from w3 when None."""
+    if exps is None:
+        return fixed_point_exponents(w3)
+    if (exps.dtype != torch.int32 or tuple(exps.shape) != (3,)
+            or exps.device != w3.device):
+        raise LightGBMError("exps: expected int32 (3,) on %s" % w3.device)
+    return exps
+
+
+def _check_slots(K):
+    """The list pass's leaf -> slot table holds 16-bit slots."""
+    if K >= 2 ** 15:
+        raise LightGBMError("the wave kernels take fewer than 32768 child "
+                            "slots (K=%d)" % K)
+
+
+def _list_buffers(N, K, F, B, dev):
+    """(rows (N, 2) int32, acc: K * F * B * 3 zeroed int64 sums and the
+    list's length, hist (K, F, B, 3) f32)."""
+    _check_slots(K)
+    return (torch.empty((N, 2), dtype=torch.int32, device=dev),
+            torch.zeros(K * F * B * 3 + 1, dtype=torch.int64, device=dev),
+            torch.empty((K, F, B, 3), dtype=torch.float32, device=dev))
 
 
 def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
@@ -287,28 +263,48 @@ def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
     lib = _build.library()
     F, N = X_t.shape
     K, W, B = child_id.shape[0], cols.shape[0], int(num_bins)
-    if max(K, W) >= 2 ** 15:
-        raise LightGBMError("B1 takes fewer than 32768 child slots and "
-                            "parents (K=%d, W=%d)" % (K, W))
-    if exps is None:
-        exps = fixed_point_exponents(w3)
-    elif (exps.dtype != torch.int32 or tuple(exps.shape) != (3,)
-          or exps.device != X_t.device):
-        raise LightGBMError("exps: expected int32 (3,) on %s" % X_t.device)
-    route_blocks, groups, R, ks, fs, _ = fused_plan(F, N, B, K,
-                                                    _sms(X_t.device))
+    if W >= 2 ** 15:
+        raise LightGBMError("B1 takes fewer than 32768 parents (W=%d)" % W)
+    exps = _exps(w3, exps)
     dev = X_t.device
+    plan = hist_plan(F, N, B, K, _sms(dev))[:6]
+    rows, acc, hist = _list_buffers(N, K, F, B, dev)
     new_lid = torch.empty(N, dtype=torch.int32, device=dev)
-    rows = torch.empty((N, 2), dtype=torch.int32, device=dev)
-    acc = torch.zeros(K * F * B * 3 + 1, dtype=torch.int64, device=dev)
-    hist = torch.empty((K, F, B, 3), dtype=torch.float32, device=dev)
     err = lib.lgbt_wave_fused(
         *[t.data_ptr() for t in (X_t, leaf_id, w3, child_id, cols, psrc,
                                  exps, new_lid, rows, acc, hist)],
-        F, N, B, K, W, route_blocks, groups, R, ks, fs, int(bundled),
-        _build.stream(dev))
+        F, N, B, K, W, *plan, int(bundled), _build.stream(dev))
     _build.check(err, "wave_fused")
     return new_lid, hist
+
+
+def _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, rowmajor):
+    """B3 (X_t) or B4 (row-major X): the select pass, the histogram pass
+    over its list, the f32 conversion."""
+    lib = _build.library()
+    F, N = X.shape[::-1] if rowmajor else X.shape
+    K, B = child_id.shape[0], int(num_bins)
+    exps = _exps(w3, exps)
+    dev = X.device
+    plan = hist_plan(F, N, B, K, _sms(dev))[:6]
+    rows, acc, hist = _list_buffers(N, K, F, B, dev)
+    err = lib.lgbt_wave_hist(
+        *[t.data_ptr() for t in (X, leaf_id, w3, child_id, exps, rows, acc,
+                                 hist)],
+        F, N, B, K, *plan, int(rowmajor), _build.stream(dev))
+    _build.check(err, "wave_hist")
+    return hist
+
+
+def _slots_plain(ids, child_id):
+    """(rows, slots): in row order the rows whose id is a child id, with
+    the first slot that holds it."""
+    match = ids[None, :] == child_id[:, None]                   # (K, N)
+    slot = torch.where(match.any(dim=0),
+                       torch.argmax(match.to(torch.int32), dim=0),
+                       torch.full_like(ids, -1, dtype=torch.long))
+    rows = torch.nonzero(slot >= 0).reshape(-1)
+    return rows.to(torch.int32), slot[rows].to(torch.int32)
 
 
 def route_list_plain(X_t, leaf_id, child_id, cols, psrc,
@@ -316,12 +312,33 @@ def route_list_plain(X_t, leaf_id, child_id, cols, psrc,
     """(new_leaf_id, rows, slots): the routed ids, and in row order the
     rows whose new id is a child id with the first slot holding it."""
     new_lid = route_rows_plain(X_t, leaf_id, cols, psrc, bundled)
-    match = new_lid[None, :] == child_id[:, None]              # (K, N)
-    slot = torch.where(match.any(dim=0),
-                       torch.argmax(match.to(torch.int32), dim=0),
-                       torch.full_like(new_lid, -1, dtype=torch.long))
-    rows = torch.nonzero(slot >= 0).reshape(-1)
-    return new_lid, rows.to(torch.int32), slot[rows].to(torch.int32)
+    return (new_lid, *_slots_plain(new_lid, child_id))
+
+
+def select_list_plain(leaf_id, child_id):
+    """(rows, slots): in row order the rows whose leaf id is a child id,
+    with the first slot holding it (the select pass of B3 and B4)."""
+    return _slots_plain(leaf_id, child_id)
+
+
+def _list(lid, child_id, N, mode, xt=None, cols=None, psrc=None,
+          new_lid=None):
+    """The list pass alone, its list sorted by row."""
+    _check_slots(child_id.shape[0])
+    dev = lid.device
+    rows = torch.empty((N, 2), dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    F = 0 if xt is None else xt.shape[0]
+    W = 0 if cols is None else cols.shape[0]
+    ptrs = [0 if t is None else t.data_ptr()
+            for t in (xt, lid, child_id, cols, psrc, new_lid, rows, count)]
+    err = _build.library().lgbt_wave_list(
+        *ptrs, F, N, child_id.shape[0], W, _list_blocks(N, _sms(dev)), mode,
+        _build.stream(dev))
+    _build.check(err, "wave_list")
+    rows = rows[:int(count)]
+    order = torch.argsort(rows[:, 0])
+    return rows[order, 0], rows[order, 1]
 
 
 def route_list(X_t, leaf_id, child_id, cols, psrc, bundled: bool = False):
@@ -331,21 +348,28 @@ def route_list(X_t, leaf_id, child_id, cols, psrc, bundled: bool = False):
     _check(X_t, leaf_id, None, child_id, 1, cols, psrc)
     if X_t.device.type == "cpu":
         return route_list_plain(X_t, leaf_id, child_id, cols, psrc, bundled)
-    F, N = X_t.shape
-    dev = X_t.device
-    new_lid = torch.empty(N, dtype=torch.int32, device=dev)
-    rows = torch.empty((N, 2), dtype=torch.int32, device=dev)
-    count = torch.zeros(1, dtype=torch.int64, device=dev)
-    route_blocks = fused_plan(F, N, 1, child_id.shape[0], _sms(dev))[0]
-    err = _build.library().lgbt_wave_route(
-        *[t.data_ptr() for t in (X_t, leaf_id, child_id, cols, psrc,
-                                 new_lid, rows, count)],
-        F, N, child_id.shape[0], cols.shape[0], route_blocks, int(bundled),
-        _build.stream(dev))
-    _build.check(err, "wave_route")
-    rows = rows[:int(count)]
-    order = torch.argsort(rows[:, 0])
-    return new_lid, rows[order, 0], rows[order, 1]
+    new_lid = torch.empty_like(leaf_id)
+    rows, slots = _list(leaf_id, child_id, X_t.shape[1], 1 + int(bundled),
+                        X_t, cols, psrc, new_lid)
+    return new_lid, rows, slots
+
+
+def select_list(leaf_id, child_id):
+    """The select pass of B3 and B4 alone, for checking it:
+    select_list_plain's contract, with the kernel's list sorted by row.
+    Reads the list's length back to the host."""
+    if (leaf_id.dtype != torch.int32 or child_id.dtype != torch.int32
+            or leaf_id.dim() != 1 or child_id.dim() != 1
+            or leaf_id.device != child_id.device or not len(leaf_id)
+            or not len(child_id)):
+        raise LightGBMError("select_list: expected non-empty 1-D int32 "
+                            "leaf_id and child_id on one device")
+    if leaf_id.device.type == "cpu":
+        return select_list_plain(leaf_id, child_id)
+    if not (leaf_id.is_contiguous() and child_id.is_contiguous()):
+        raise LightGBMError("select_list: leaf_id and child_id must be "
+                            "contiguous")
+    return _list(leaf_id, child_id, leaf_id.shape[0], 0)
 
 
 def wave_partition_hist(X_t, leaf_id, w3, child_id, cols, psrc,
@@ -365,25 +389,27 @@ def wave_partition_hist(X_t, leaf_id, w3, child_id, cols, psrc,
     return out
 
 
-def wave_histogram(X_t, leaf_id, w3, child_id, num_bins: int):
+def wave_histogram(X_t, leaf_id, w3, child_id, num_bins: int, exps=None):
     """Histogram-only wave pass (kernel B3): (K, F, B, 3) histograms of
-    the rows whose leaf is child_id[k]."""
+    the rows whose leaf is child_id[k].  exps as for
+    wave_partition_hist."""
     _check(X_t, leaf_id, w3, child_id, num_bins)
     if X_t.device.type == "cpu":
         return wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins)
-    out = _launch(X_t, leaf_id, w3, child_id, num_bins)
+    out = _launch_hist(X_t, leaf_id, w3, child_id, num_bins, exps, False)
     wave_histogram.launches += 1
     return out
 
 
-def wave_histogram_rowmajor(X, leaf_id, w3, child_id, num_bins: int):
+def wave_histogram_rowmajor(X, leaf_id, w3, child_id, num_bins: int,
+                            exps=None):
     """Histogram-only wave pass on the row-major bins X (N, F) (kernel
     B4): the contract of wave_histogram."""
     _check(X, leaf_id, w3, child_id, num_bins, rowmajor=True)
     if X.device.type == "cpu":
         return wave_histogram_rowmajor_plain(X, leaf_id, w3, child_id,
                                              num_bins)
-    out = _launch(X, leaf_id, w3, child_id, num_bins, rowmajor=True)
+    out = _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, True)
     wave_histogram_rowmajor.launches += 1
     return out
 

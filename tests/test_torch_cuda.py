@@ -9,10 +9,12 @@ dependencies are installed:
 
 Tolerances: leaf ids and the score update are exact; histograms agree to
 rtol 1e-5 with atol 1e-5 x max|w| (f32 sums taken in another order), and
-two launches on the same input are bit-identical.  B4 and B5 are held
-against their plain versions computed in float64 with chip_smoke.py's
-tolerance: a cell may differ by 1e-5 x (sum of |w| over the cell) + 1e-5
-x max|w|.
+two launches on the same input are bit-identical.  B1, B3, B4 and B5 are
+also held against their plain versions computed in float64 with
+chip_smoke.py's tolerance: a cell may differ by 1e-5 x (sum of |w| over
+the cell) + 1e-5 x max|w|.  B1, B3 and B4 sum in one fixed point, so on
+the same rows their histograms are equal to the bit, and the three dense
+wave dataflows train byte-identical model text.
 """
 import numpy as np
 import pytest
@@ -143,7 +145,7 @@ def test_fused_kernel_wide_and_small_shapes(dev, n, f, b, k):
     B = 255: one feature a block), at a small shape, with the slots split
     over the grid (K = 70 at 256 bins), and with every child slot
     inactive (K = 2: rows move, the list stays empty)."""
-    plan = wk.fused_plan(f, n, b, k, torch.cuda.get_device_properties(
+    plan = wk.hist_plan(f, n, b, k, torch.cuda.get_device_properties(
         0).multi_processor_count)
     if f == 968:
         assert plan[4] == 1 and plan[1] == f
@@ -155,36 +157,124 @@ def test_fused_kernel_wide_and_small_shapes(dev, n, f, b, k):
 def test_fused_kernel_occupancy(dev):
     """B1's histogram blocks keep 32 warps resident on every SM at the
     flagship shape (the per-warp f32 design held 8), and the kernel's shared
-    memory is the plan's."""
+    memory is the plan's, for B1's wave and for the root's copies."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    _, _, _, ks, fs, smem = wk.fused_plan(28, 2_000_000, 63, 32, sms)
     lib = _build.library()
-    assert lib.lgbt_wave_fused_smem(63, ks, fs) == smem
-    blocks = lib.lgbt_wave_fused_blocks_per_sm(63, ks, fs)
-    assert blocks * wk._FUSED_THREADS // 32 >= 32
+    for k in (32, 1):
+        _, _, _, ks, fs, copies, smem = wk.hist_plan(28, 2_000_000, 63, k,
+                                                     sms)
+        assert lib.lgbt_wave_hist_smem(63, ks, fs, copies) == smem
+        for rowmajor in (0, 1):
+            blocks = lib.lgbt_wave_hist_blocks_per_sm(63, ks, fs, copies,
+                                                      rowmajor)
+            assert blocks * wk._HIST_THREADS // 32 >= 32
 
 
-@pytest.mark.parametrize("k", [1, 5])
-def test_hist_kernel_matches_plain(dev, k):
-    X, lid, w3, cid, b = wave_data(n=5000, seed=2)
-    cid = cid[:k] if k > 1 else np.zeros(1, np.int32)
-    n0 = wk.wave_histogram.launches
-    args = [t(a).to(dev) for a in (X.T, lid, w3, cid)]
-    got = wk.wave_histogram(*args, b)
-    again = wk.wave_histogram(*args, b)
-    assert wk.wave_histogram.launches == n0 + 2
-    want = wk.wave_histogram(t(X.T), t(lid), t(w3), t(cid), b)
-    assert_hist_close(got.cpu().numpy(), want.numpy(), w3)
-    assert torch.equal(got, again)
+def _check_hist(dev, X, lid, w3, cid, b, exps=None, f32_plain=True):
+    """B3 on X_t and B4 on X against their plain versions in float64
+    (phase 2's tolerance) and, with f32_plain, in f32
+    (assert_hist_close), repeats bit-identical, B4 bit-equal to B3,
+    inactive slots exactly 0 and a repeated child id's slots equal.
+    Returns B3's histogram."""
+    Xt, Xr = t(X.T).to(dev), t(X).to(dev)
+    ids, w, c = t(lid).to(dev), t(w3).to(dev), t(cid).to(dev)
+    n0 = (wk.wave_histogram.launches, wk.wave_histogram_rowmajor.launches)
+    got = wk.wave_histogram(Xt, ids, w, c, b, exps=exps)
+    again = wk.wave_histogram(Xt, ids, w, c, b, exps=exps)
+    rowmajor = wk.wave_histogram_rowmajor(Xr, ids, w, c, b, exps=exps)
+    torch.cuda.synchronize()
+    assert (wk.wave_histogram.launches - n0[0],
+            wk.wave_histogram_rowmajor.launches - n0[1]) == (2, 1)
+    assert torch.equal(got, again) and torch.equal(got, rowmajor)
+    if f32_plain:
+        assert_hist_close(
+            got.cpu().numpy(),
+            wk.wave_histogram_plain(Xt, ids, w, c, b).cpu().numpy(), w3)
+    w64 = w.double()
+    want = wk.wave_histogram_plain(Xt, ids, w64, c, b).cpu()
+    scale = wk.wave_histogram_plain(Xt, ids, w64.abs(), c, b).cpu()
+    assert _within_f64(got, want, scale, float(np.abs(w3).max()))
+    inactive = torch.from_numpy(cid < 0).to(dev)
+    assert bool((got[inactive] == 0).all())
+    for k in range(1, len(cid)):
+        first = int(np.argmax(cid == cid[k]))
+        if first < k and cid[k] >= 0:
+            assert torch.equal(got[k], got[first])
+    return got
 
 
-def test_hist_kernel_duplicate_child_ids(dev):
+@pytest.mark.parametrize("n,f,b,k", [(5000, 7, 14, 1), (5000, 7, 14, 5),
+                                     (20000, 28, 63, 32),
+                                     (3000, 968, 255, 32)])
+def test_hist_kernel_matches_plain(dev, n, f, b, k):
+    """B3 and B4 at K = 1 (the root: every row in one slot, the plan's
+    interleaved copies), 5 and 32 slots over 2K leaves with an inactive
+    and a repeated slot, and at 968 features of 255 bins (one feature a
+    block)."""
+    X, _, w3, _, _ = wave_data(n=n, f=f, b=b, seed=n + f)
+    rng = np.random.default_rng(k)
+    if k == 1:
+        lid, cid = np.zeros(n, np.int32), np.zeros(1, np.int32)
+    else:
+        lid = rng.integers(0, 2 * k, size=n).astype(np.int32)
+        cid = rng.permutation(2 * k)[:k].astype(np.int32)
+        cid[1] = -1
+        cid[-1] = cid[0]
+    got = _check_hist(dev, X, lid, w3, cid, b)
+    assert bool((got[0] != 0).any())
+
+
+@pytest.mark.parametrize("kind", ["duplicate", "inactive"])
+def test_hist_kernel_duplicate_child_ids(dev, kind):
+    """A child id in two slots fills both; with every slot inactive (the
+    no-cache path's idle slots) the list is empty and every slot 0."""
     X, lid, w3, _, b = wave_data(n=900, seed=3)
-    cid = np.array([2, 5, 2], np.int32)
-    got = wk.wave_histogram(*[t(a).to(dev) for a in (X.T, lid, w3, cid)], b)
-    want = wk.wave_histogram(t(X.T), t(lid), t(w3), t(cid), b)
-    assert torch.equal(got[0], got[2])
-    assert_hist_close(got.cpu().numpy(), want.numpy(), w3)
+    cid = (np.array([2, 5, 2], np.int32) if kind == "duplicate"
+           else np.full(4, -1, np.int32))
+    got = _check_hist(dev, X, lid, w3, cid, b)
+    if kind == "duplicate":
+        assert torch.equal(got[0], got[2]) and bool((got[0] != 0).any())
+    else:
+        assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("bundled", [False, True])
+def test_hist_kernels_bit_equal_to_b1(dev, bundled):
+    """At the flagship shape, with the same exponents: B3's histogram of
+    the ids B1 routed is B1's histogram to the bit, and B4's on the
+    row-major bins is B3's."""
+    X, lid, w3, cid, b, cols, psrc = _b1_case(2_000_000, 28, 63, 32,
+                                              seed=11, bundled=bundled,
+                                              dup=True)
+    args = [t(a).to(dev) for a in (X.T, lid, w3, cid, cols, psrc)]
+    exps = wk.fixed_point_exponents(args[2])
+    new_lid, fused = wk.wave_partition_hist(*args, b, bundled=bundled,
+                                            exps=exps)
+    # at 2M rows the f32 plain version's own rounding (~1,000 rows a cell,
+    # added one after another) exceeds assert_hist_close's tolerance on
+    # cancelling cells; the float64 plain version is the reference here
+    got = _check_hist(dev, X, new_lid.cpu().numpy(), w3, cid, b, exps,
+                      f32_plain=False)
+    assert torch.equal(got, fused)
+
+
+@pytest.mark.parametrize("kind", ["unbundled", "repeated", "inactive",
+                                  "large"])
+def test_select_kernel_matches_plain(dev, kind):
+    """The select pass's list, sorted by row, is select_list_plain's: each
+    row in a child slot once, with the first slot holding its id."""
+    n = 2_000_000 if kind == "large" else 2500
+    X, lid, w3, cid, b = wave_data(n=n, seed=12)
+    cid = cid.copy()
+    if kind == "repeated":
+        cid[-1] = cid[0]
+    elif kind == "inactive":
+        cid[:] = -1
+    got = wk.select_list(t(lid).to(dev), t(cid).to(dev))
+    want = wk.select_list_plain(t(lid), t(cid))
+    for a, c in zip(got, want):
+        assert torch.equal(a.cpu(), c)
+    assert (len(want[0]) == 0) == (kind == "inactive")
 
 
 @pytest.mark.parametrize("n,L", SCORE_CASES + [(2_000_001, 255),
@@ -365,7 +455,8 @@ def _within_f64(got, want, scale, wmax):
 @pytest.mark.parametrize("k", [1, 4, 32])
 def test_rowmajor_hist_kernel_matches_plain(dev, k):
     """B4 on X (N, F): K = 1 (the root), 4 and 32 slots over 2K leaves,
-    with an inactive slot and a duplicate child id once K > 1."""
+    with an inactive slot and a duplicate child id once K > 1; bit-equal
+    to B3 on X_t."""
     X, _, w3, _, b = wave_data(n=20000, f=28, b=63, seed=k)
     rng = np.random.default_rng(k)
     lid = rng.integers(0, 2 * k, size=len(X)).astype(np.int32)
@@ -373,20 +464,7 @@ def test_rowmajor_hist_kernel_matches_plain(dev, k):
     if k > 1:
         cid[1] = -1
         cid[-1] = cid[0]
-    n0 = wk.wave_histogram_rowmajor.launches
-    args = [t(a).to(dev) for a in (X, lid, w3, cid)]
-    got = wk.wave_histogram_rowmajor(*args, b)
-    again = wk.wave_histogram_rowmajor(*args, b)
-    torch.cuda.synchronize()
-    assert wk.wave_histogram_rowmajor.launches == n0 + 2
-    assert torch.equal(got, again)
-    w64 = t(w3).double()
-    want = wk.wave_histogram_rowmajor_plain(t(X), t(lid), w64, t(cid), b)
-    scale = wk.wave_histogram_rowmajor_plain(t(X), t(lid), w64.abs(),
-                                             t(cid), b)
-    assert _within_f64(got, want, scale, float(np.abs(w3).max()))
-    if k > 1:
-        assert torch.equal(got[0], got[-1]) and bool((got[1] == 0).all())
+    _check_hist(dev, X, lid, w3, cid, b)
 
 
 @pytest.mark.parametrize("n,f,b,kind,leaf", LEAF_CASES
@@ -461,3 +539,48 @@ def test_pallas_training_on_the_card_matches_the_cpu(dev, growth, variant):
                 if ln.startswith(keys)])
     np.testing.assert_allclose(on_card.predict(X), on_cpu.predict(X),
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("fixture", ["small_run", "bundled"])
+@pytest.mark.parametrize("cache", [True, False])
+def test_dense_dataflows_train_the_same_model_text(dev, fixture, cache):
+    """On the card the three dense dataflows -- pallas_ct (B1 a wave, B3
+    for the root), pallas_t (B3 for every histogram) and pallas (B4 on
+    the row-major bins) -- sum every histogram in the tree's fixed point,
+    so they train byte-identical model text; with and without the
+    histogram cache, and on EFB group columns.  chip_smoke.py's small-run
+    fixture, and tests/torch_cases.py parity_data with four bundled
+    columns."""
+    import lightgbm_tpu_torch as lgb
+
+    if fixture == "small_run":
+        rng = np.random.default_rng(10)
+        X = rng.normal(size=(2000, 10))
+        y = (X[:, 0] + 0.7 * X[:, 1] * X[:, 2] + 0.5 * X[:, 9]
+             + 0.1 * rng.normal(size=2000) > 0).astype(float)
+    else:
+        X, s = parity_data(3, 2000, True)
+        y = (s > 0).astype(float)
+    counters = (wk.wave_partition_hist, wk.wave_histogram,
+                wk.wave_histogram_rowmajor)
+    texts = []
+    for mode in ("pallas_ct", "pallas_t", "pallas"):
+        p = dict({"objective": "binary", "num_leaves": 15,
+                  "min_data_in_leaf": 20, "max_bin": 63, "verbose": -1,
+                  "tpu_growth": "wave", "tpu_wave_width": 4,
+                  "tpu_histogram_mode": mode}, **({} if cache else NO_CACHE))
+        n0 = [c.launches for c in counters]
+        booster = lgb.train(p, lgb.Dataset(X, label=y), 3, device="cuda")
+        counts = [c.launches - a for c, a in zip(counters, n0)]
+        learner = booster._gbdt.learner
+        assert (learner.hist_mode, learner.cache_hists) == (mode, cache)
+        assert ((booster._gbdt.train_data.bundle is not None)
+                == (fixture == "bundled"))
+        stats = booster.grow_stats()
+        trees, waves = len(stats), sum(st.waves for st in stats)
+        extra = 0 if cache else waves       # the larger children
+        assert counts == {"pallas_ct": [waves, trees + extra, 0],
+                          "pallas_t": [0, trees + waves + extra, 0],
+                          "pallas": [0, 0, trees + waves + extra]}[mode]
+        texts.append(booster.model_to_string())
+    assert texts[0] == texts[1] == texts[2]

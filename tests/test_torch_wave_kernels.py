@@ -223,32 +223,49 @@ def test_rowmajor_wrapper_validates_inputs():
     assert wk.wave_histogram_rowmajor.launches == before
 
 
+def _assert_plan_bounds(f, n, b, k, sms=132):
+    """The shared plan of B1, B3 and B4: the int64 (KS, FS, B, 3) block
+    histogram times its copies fits a block's shared memory (and takes
+    the room one histogram leaves), the feature groups and slot slices
+    cover every feature and slot, the R list shares cover a list of every
+    row, and the list-pass blocks cover the rows (or fill the card)."""
+    plan = wk.hist_plan(f, n, b, k, sms)
+    list_blocks, groups, R, ks, fs, copies, smem = plan
+    assert smem == copies * ks * fs * b * 3 * 8 <= wk._SMEM_BUDGET
+    assert copies in (1, 2, 4, 8, 16, 32)
+    assert copies == 32 or 2 * smem > wk._SMEM_BUDGET
+    assert 1 <= fs <= wk._GROUP_MAX and groups * fs >= f
+    assert (groups - 1) * fs < f
+    assert 1 <= ks <= k and -(-k // ks) * ks >= k
+    assert 1 <= R <= 65535
+    per = -(-n // R)                        # shares of an n-row list:
+    assert R * per >= n and (R - 1) * per < n   # all of it, none empty
+    assert 1 <= list_blocks <= sms * wk._LIST_BLOCKS_PER_SM
+    assert list_blocks * wk._LIST_TILE >= min(
+        n, sms * wk._LIST_BLOCKS_PER_SM * wk._LIST_TILE)
+    return plan
+
+
 @pytest.mark.parametrize("n,k", [(2_000_000, 32), (2_000_000, 1),
                                  (10_500_000, 32), (3000, 5)])
 def test_launch_plan_bounds(n, k):
-    """The scratch of per-block partials stays at most half the bytes of
-    X_t (or one block), shared memory fits a block, and the row blocks
-    cover every row."""
-    f, b = 28, 63
-    R, rpb, ks, warps = wk.launch_plan(f, n, b, k, num_sms=132)
-    assert R * rpb >= n and (R - 1) * rpb < n
-    assert wk._smem_bytes(b, k, ks, warps) <= wk._SMEM_BUDGET
-    assert R == 1 or R * k * f * b * 12 <= f * n // 2
-    assert 1 <= warps <= 8 and 1 <= ks <= k
+    """B3's plan at the flagship's 28 features and 63 bins: the root's
+    one slot takes 4 groups of 7 features with 16 interleaved copies of
+    its histogram, the wave's 32 slots 7 groups of 4 and one copy."""
+    plan = _assert_plan_bounds(28, n, 63, k)
+    if k == 1:
+        assert (plan[1], plan[4], plan[5]) == (4, 7, 16)
+    if k == 32:
+        assert (plan[1], plan[4], plan[5]) == (7, 4, 1)
 
 
 @pytest.mark.parametrize("n,k,b", [(2_000_000, 32, 63), (2_000_000, 1, 63),
                                    (2_000_000, 32, 255), (3000, 5, 14)])
 def test_rowmajor_launch_plan_bounds(n, k, b):
-    """B4's plan: its tile of bin bytes still fits a block's shared
-    memory, and the row blocks cover every row."""
-    f = 28
-    R, rpb, ks, warps = wk.launch_plan(f, n, b, k, num_sms=132,
-                                       rowmajor=True)
-    assert R * rpb >= n and (R - 1) * rpb < n
-    assert wk._smem_bytes(b, k, ks, warps, rowmajor=True) <= wk._SMEM_BUDGET
-    assert R == 1 or R * k * f * b * 12 <= f * n // 2
-    assert 1 <= warps <= 8 and 1 <= ks <= k
+    """B4 launches on B3's plan: the layout changes how a row's bytes
+    are read, not the plan."""
+    plan = _assert_plan_bounds(28, n, b, k)
+    assert plan == wk.hist_plan(28, n, b, k, 132)
 
 
 @pytest.mark.parametrize("n,f,b,k", [(2_000_000, 28, 63, 32),
@@ -257,25 +274,16 @@ def test_rowmajor_launch_plan_bounds(n, k, b):
                                      (2_000_000, 28, 256, 64),
                                      (50_000, 3, 63, 1), (1000, 9, 255, 200)])
 def test_fused_launch_plan_bounds(n, f, b, k):
-    """B1's plan: the int64 (KS, FS, B, 3) block histogram fits shared
-    memory, the feature groups and slot slices cover every feature and
-    slot, one round of blocks fits the card at 32 warps a SM, the grid
-    stays within CUDA's limits, and the routing blocks cover every row."""
+    """B1's plan (the shared one): its bounds, one round of blocks fits
+    the card at 32 warps a SM, and the flagship wave keeps one histogram
+    copy in 7 groups of 4 features over 18 list shares."""
     sms = 132
-    route_blocks, groups, R, ks, fs, smem = wk.fused_plan(f, n, b, k, sms)
-    assert smem == ks * fs * b * 3 * 8 <= wk._SMEM_BUDGET
-    assert 1 <= fs <= wk._FUSED_GROUP_MAX and groups * fs >= f
-    assert (groups - 1) * fs < f
-    assert 1 <= ks <= k
+    _, groups, R, ks, fs, copies, _ = _assert_plan_bounds(f, n, b, k, sms)
     kslices = -(-k // ks)
-    assert 1 <= R <= 65535
-    assert R == 1 or groups * kslices * R <= sms * (2048 // wk._FUSED_THREADS)
-    assert wk._FUSED_THREADS // 32 >= 32       # resident warps a block
-    assert 1 <= route_blocks <= sms * wk._ROUTE_BLOCKS_PER_SM
-    assert route_blocks * wk._ROUTE_TILE >= min(
-        n, sms * wk._ROUTE_BLOCKS_PER_SM * wk._ROUTE_TILE)
+    assert R == 1 or groups * kslices * R <= sms * (2048 // wk._HIST_THREADS)
+    assert wk._HIST_THREADS // 32 >= 32        # resident warps a block
     if (n, f, b, k) == (2_000_000, 28, 63, 32):
-        assert (groups, fs, ks, R) == (7, 4, 32, 18)
+        assert (groups, fs, ks, R, copies) == (7, 4, 32, 18, 1)
 
 
 @pytest.mark.parametrize("seed,spread", [(0, 1.0), (1, 1e-30), (2, 1e30),
@@ -330,3 +338,29 @@ def test_route_list_plain_lists_the_rows_in_a_child_slot(bundled):
               if int(v) in first]
     assert [(int(r), int(s)) for r, s in zip(rows, slots)] == expect
     assert 0 < len(expect) < len(want)
+
+
+@pytest.mark.parametrize("kind", ["unbundled", "repeated", "inactive"])
+def test_select_list_plain_lists_the_rows_in_a_child_slot(kind):
+    """The select pass of B3 and B4 lists each row whose leaf id is a
+    child id once, in row order, with the first slot that holds the id;
+    a repeated child id lists its rows under its first slot, and with
+    every slot inactive the list is empty."""
+    X, lid, w3, cid, b = _data(n=2500, seed=12)
+    cid = cid.copy()
+    if kind == "repeated":
+        cid[-1] = cid[0]
+    elif kind == "inactive":
+        cid[:] = -1
+    rows, slots = wk.select_list(_t(lid), _t(cid))
+    assert rows.dtype == slots.dtype == torch.int32
+    first = {}
+    for k, c in enumerate(cid):
+        if c >= 0:
+            first.setdefault(int(c), k)
+    expect = [(i, first[int(v)]) for i, v in enumerate(lid)
+              if int(v) in first]
+    assert [(int(r), int(s)) for r, s in zip(rows, slots)] == expect
+    assert (len(expect) == 0) == (kind == "inactive")
+    plain = wk.select_list_plain(_t(lid), _t(cid))
+    assert all(torch.equal(a, c) for a, c in zip(plain, (rows, slots)))
