@@ -4,6 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py [--rows 2000000] [--sparse-rows 1000000] [--profile]
+                          [--sweep]
 
 It builds the port's CUDA kernels from lightgbm_tpu_torch/csrc, holds each
 against its plain torch version at the main paths' shapes, times it,
@@ -22,22 +23,24 @@ Phases, in order:
     resident), B3 (histogram only, K = 32 on B1's routed ids and the
     root's K = 1; its select pass must list the rows as plain does), B4
     (histogram only on the row-major bins, K = 32 and K = 1), B5 (leaf
-    histogram: one leaf of a 64-leaf state with row multipliers, and leaf
-    0 holding every row) and B2 (score update in place, clip folded in,
-    plain from a copy taken before).  Leaf ids and the score update must
-    be exactly equal; two launches of a histogram kernel must be
-    bit-identical; with B1's fixed-point exponents B3 on B1's routed ids
-    must give B1's histogram to the bit, and B4 B3's in both forms.
+    histogram as the exact grower calls it: one leaf of a 64-leaf state
+    with row multipliers, and leaf 0 holding every row; each also at one
+    copy of its block histogram) and B2 (score update in place, clip
+    folded in, plain from a copy taken before).
+    Leaf ids and the score update must be exactly equal; two launches of
+    a histogram kernel must be bit-identical; with B1's fixed-point
+    exponents B3 on B1's routed ids must give B1's histogram to the bit,
+    B4 B3's in both forms, and B5 B4's at K = 1 in both forms.
     Histograms are held against the plain version computed in float64:
     an f32 sum over many rows errs in proportion to the sum of its terms'
     magnitudes, so a cell may differ by at most 1e-5 x (sum of |w| over
     the cell) + 1e-5 x max|w|.
  3. Timing: each kernel's time a launch, the median of 5 runs of 20
     back-to-back launches (3 for calls above 20 ms), each run between one
-    pair of CUDA events, beside
-    the plain version, one PyTorch library call for the same function and
-    the bound (bytes over 3.35 TB/s, f32 adds over 67 TFLOP/s, whichever
-    is larger).
+    pair of CUDA events, beside the plain version, one PyTorch library
+    call for the same function and the bound (bytes over 3.35 TB/s, f32
+    adds over 67 TFLOP/s, whichever is larger).  --sweep also times B5 at
+    1, 4 and its plan's copies and B6 at 256, 512 and 1024 threads.
  4. Training: bench.py's flagship recipe and data, every launch counter
     set to 0 just before and read just after; the valid AUC must exceed
     0.8, the device-side scores must agree with the host-side trees, and a
@@ -53,8 +56,12 @@ Phases, in order:
  5. Sparse: tools/tpu_ab2.py's Bosch-shaped data (968 columns, 1% dense,
     built directly as CSR), binned sparsely, in the entry-chunk store.
     Kernel B6 against its plain version in float64 at K = 32 on a
-    grower-like leaf state (phase 2's tolerance, fill and inactive slots
-    exactly 0, repeats bit-identical) and its timing as in phase 3; then
+    grower-like leaf state and at the root's one slot (phase 2's
+    tolerance, fill and inactive slots exactly 0, repeats and another
+    thread count bit-identical, every non-fill cell bit-equal to B3's on
+    the dense bins rebuilt from the store on the card, the one-slot root
+    bit-equal to the 32-slot call with slot 0 active) and its timing as
+    in phase 3; then
     training with tpu_sparse and tpu_sparse_kernel, every counter set to
     0 just before and read just after: B6 once a wave and once a tree
     (the root), B1 and B3 never, B2 once an iteration, valid AUC above
@@ -238,7 +245,8 @@ def slots_of(ids, cid):
     return s, int((s >= 0).sum())
 
 
-def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
+def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values,
+                 sweep):
     """Phases 2 and 3 on the flagship bins: returns the kernel records."""
     import torch
 
@@ -374,9 +382,15 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
         "B3 to the bit at K = 32 and at the root; the select list equals "
         "plain")
 
-    # ---- B5: the leaf histogram of exact growth, one leaf of a 64-leaf
-    # state with bagging-like row multipliers, and the root (leaf 0, every
-    # row, the grower's all-ones multipliers)
+    # ---- B5: the leaf histogram of exact growth, called as the grower
+    # calls it (the tree's weight rows and exponents): one leaf of a
+    # 64-leaf state with bagging-like row multipliers, and the root (leaf
+    # 0, every row, the grower's all-ones multipliers).  Each must equal
+    # B4 at K = 1 on the same ids, w3 and exponents to the bit, and so must
+    # its launch with one copy of the block histogram; with sweep the
+    # copies 1, 4 and the plan's are timed.
+    from lightgbm_tpu_torch.ops.histogram import weight_rows
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     L5 = 64
     lid5 = torch.randint(0, L5, (N,), generator=g,
                          dtype=torch.int32).to(dev)
@@ -384,12 +398,23 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
     hess = (torch.rand(N, generator=g) + 0.05).to(dev)
     bag = (torch.rand(N, generator=g) > 0.2).float().to(dev)
     ones = torch.ones(N, device=dev)
+    plan = wk.hist_plan(F, N, B, 1, sms)[:6]
     for name, lids, leaf, rm in (("leaf_histogram", lid5, 5, bag),
                                  ("leaf_histogram_root", zeros, 0, ones)):
         leaf_t = torch.full((1,), leaf, dtype=torch.int32, device=dev)
-        h = lh.leaf_histogram(X, grad, hess, lids, leaf_t, rm, B)
-        h2 = lh.leaf_histogram(X, grad, hess, lids, leaf_t, rm, B)
+        w35 = weight_rows(grad, hess, rm)
+        e5 = wk.fixed_point_exponents(w35)
+
+        def call():
+            return lh.leaf_histogram(X, grad, hess, lids, leaf_t, rm, B,
+                                     w3=w35, exps=e5)
+
+        h = call()
+        h2 = call()
         need(torch.equal(h, h2), "%s repeat launch not bit-identical" % name)
+        need(torch.equal(h, wk.wave_histogram_rowmajor(X, lids, w35, leaf_t,
+                                                       B, exps=e5)[0]),
+             "%s is not bit-equal to B4 at K = 1" % name)
         g64, h64, rm64 = grad.double(), hess.double(), rm.double()
 
         def plain64(absolute):
@@ -401,25 +426,33 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
                                            float(hess.max()), 1.0))
         need(ok, "%s histogram outside tolerance (max abs err %g)"
              % (name, err))
+        need(torch.equal(lh._launch(X, w35, lids, leaf_t, B, e5,
+                                    plan[:5] + (1,)), h),
+             "%s at one copy not bit-equal" % name)
+        swept = []
+        for c in sorted({1, 4, plan[5]}) if sweep else ():
+            pc = plan[:5] + (c,)
+            swept.append("%d copies %.4f ms" % (c, time_ms(
+                lambda: lh._launch(X, w35, lids, leaf_t, B, e5, pc))))
         del h, h2
         in_leaf = lids == leaf
         n_leaf = int(in_leaf.sum())
-        wl = torch.stack([grad * rm, hess * rm, rm], dim=-1) * in_leaf[
-            :, None].float()
+        wl = w35 * in_leaf[:, None].float()
         records[name] = dict(
-            max_abs_err=err,
-            ms=time_ms(lambda: lh.leaf_histogram(X, grad, hess, lids,
-                                                 leaf_t, rm, B)),
+            max_abs_err=err, ms=time_ms(call),
             plain_ms=time_ms(lambda: lh.leaf_histogram_plain(
                 X, grad, hess, lids, leaf_t, rm, B)),
             library_ms=bincount_ms(X_t, torch.where(in_leaf, 0, -1), wl, B),
-            shape="N=%d F=%d B=%d row-major, leaf %d of %d, %d rows in it"
-                  % (N, F, B, leaf, L5 if leaf else 1, n_leaf),
+            shape="N=%d F=%d B=%d row-major, leaf %d of %d, %d rows in it; "
+                  "plan %s%s"
+                  % (N, F, B, leaf, L5 if leaf else 1, n_leaf, plan,
+                     "; sweep: " + ", ".join(swept) if swept else ""),
             # leaf ids of every row; the bins, g, h and row multiplier of
             # the leaf's rows only; the (F, B, 3) output
             nbytes=N * 4 + n_leaf * (F + 12) + 4 + F * B * 12,
             flops=3 * n_leaf * F)
         del wl
+    say("B5 equals B4 at K = 1 to the bit, on its plan and at one copy")
     del X
 
     # ---- B2: score update (255 leaves, ids clamped, values clipped), in
@@ -452,26 +485,35 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values):
     return records
 
 
-def sparse_kernel_phase(store, n_rows, num_bins, sm):
+def sparse_kernel_phase(store, n_rows, num_bins, sm, sweep):
     """Phases 2 and 3 for B6 on the Bosch store, in the two forms the
-    grower calls it: K = 32 child slots on a grower-like leaf state (64
-    leaves, each wave's 32 smaller children), and the root call (W = 32
-    slots, only slot 0 active, every row in leaf 0).  Each form is held
-    against the plain version in float64, its repeat must be bit-identical
-    and its fill and inactive slots exactly 0.  Returns the K = 32 form's
+    grower calls it, with one set of fixed-point exponents as the grower
+    makes once a tree: K = 32 child slots on a grower-like leaf state (64
+    leaves, each wave's 32 smaller children), and the root call (one
+    slot, every row in leaf 0).  Each form is held against the plain
+    version in float64, its repeat must be bit-identical, its fill and
+    inactive slots exactly 0, and its non-fill cells equal to B3's on the
+    dense bins rebuilt from the store on the card (all 968 columns) with
+    the same rows and exponents, bit for bit, and so must its launch at
+    another count of threads a block; with sweep the threads 256, 512 and
+    1024 are timed.  The root's one slot must give the bits of the waves'
+    32-slot call shape with only slot 0 active.  Returns the K = 32 form's
     record; the root form's numbers are printed beside it."""
     import torch
+
+    from lightgbm_tpu_torch.ops import wave_kernels as wk
     dev = store.ent_row.device
     F, B, K = store.num_cols, num_bins, 32
+    need(B <= 256, "B6 check: %d bins do not fit B3's uint8 bins" % B)
     g = torch.Generator(device="cpu").manual_seed(1)
     lid = torch.randint(0, 2 * K, (n_rows,), generator=g,
                         dtype=torch.int32).to(dev)
     w3 = torch.randn((n_rows, 3), generator=g).to(dev)
+    exps = wk.fixed_point_exponents(w3)
     cid = (torch.randperm(2 * K, generator=g)[:K].to(torch.int32)
            .to(dev))
     root_lid = torch.zeros(n_rows, dtype=torch.int32, device=dev)
-    root_cid = torch.full((K,), -1, dtype=torch.int32, device=dev)
-    root_cid[0] = 0
+    root_cid = torch.zeros(1, dtype=torch.int32, device=dev)
 
     e = store.ent_bin.shape[1]
     rows = store.ent_row.reshape(-1).long()
@@ -484,12 +526,33 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm):
     present[rows[real]] = True                  # rows with an entry
     ws = [w3[rc, c].contiguous() for c in range(3)]
     fill = store.fill.long()
+    # the dense bins the store was built from: each column's fill bin,
+    # then its entries
+    t0 = time.perf_counter()
+    X_t = store.fill.to(torch.uint8)[:, None].expand(F, n_rows).contiguous()
+    X_t[cols[real], rows[real]] = bins[real].to(torch.uint8)
+    torch.cuda.synchronize()
+    say("B6 check: dense X_t (%d x %d, %.2f GB) rebuilt from the store on "
+        "the card in %.2f s" % (F, n_rows, F * n_rows / 1e9,
+                               time.perf_counter() - t0))
+    fill_cell = torch.zeros((F, B), dtype=torch.bool, device=dev)
+    fill_cell[torch.arange(F, device=dev), fill] = True
 
     def form(name, lid, cid):
-        hist = sm.sparse_wave_histogram(store, lid, w3, cid, B, F)
-        again = sm.sparse_wave_histogram(store, lid, w3, cid, B, F)
+        K = cid.shape[0]
+
+        def call():
+            return sm.sparse_wave_histogram(store, lid, w3, cid, B, F,
+                                            exps=exps)
+
+        hist = call()
+        again = call()
         need(torch.equal(hist, again),
              "%s repeat launch not bit-identical" % name)
+        dense = wk.wave_histogram(X_t, lid, w3, cid, B, exps=exps)
+        need(torch.equal(hist[:, ~fill_cell], dense[:, ~fill_cell]),
+             "%s non-fill cells not bit-equal to B3's" % name)
+        del dense, again
         want = sm.chunked_child_hists_plain(store, lid, w3.double(), cid, B,
                                             F)
         scale = sm.chunked_child_hists_plain(store, lid, w3.double().abs(),
@@ -504,11 +567,24 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm):
              "%s fill-bin slots not exactly 0" % name)
         need(bool((hist[cid < 0] == 0).all()),
              "%s inactive slots not exactly 0" % name)
+        plan = sm.launch_plan(B, K)
+        per_sm = min(sm._SMEM_PER_SM // (plan[2] + 1024), 2048 // plan[1])
+        blocks = F * -(-K // plan[0])
+        other = 256 if plan[1] != 256 else 512
+        need(torch.equal(sm._launch(store, lid, w3, cid, B, F, exps,
+                                    (plan[0], other)), hist),
+             "%s at %d threads not bit-equal" % (name, other))
+        swept = []
+        for threads in (256, 512, 1024) if sweep else ():
+            pc = (plan[0], threads)
+            swept.append("%d threads %.4f ms" % (threads, time_ms(
+                lambda: sm._launch(store, lid, w3, cid, B, F, exps, pc))))
         # the library yardstick: one torch.bincount a channel over a
         # flattened (slot, column, bin) index of the entries, built
         # beforehand; rows in no slot go to a spare cell
         act = cid >= 0
-        slot_of_leaf = torch.full((2 * K,), -1, dtype=torch.long, device=dev)
+        slot_of_leaf = torch.full((2 * 32,), -1, dtype=torch.long,
+                                  device=dev)
         slot_of_leaf[cid.long()[act]] = torch.arange(K, device=dev)[act]
         row_slot = slot_of_leaf[lid.long()]
         slot = row_slot[rc]
@@ -521,18 +597,21 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm):
         # is in an active slot, and the (K, F, B, 3) output
         n_rows_act = int((present & (row_slot >= 0)).sum())
         rec = dict(
-            max_abs_err=err,
-            ms=time_ms(lambda: sm.sparse_wave_histogram(store, lid, w3, cid,
-                                                        B, F)),
+            max_abs_err=err, ms=time_ms(call),
             plain_ms=time_ms(lambda: sm.chunked_child_hists_plain(
                 store, lid, w3, cid, B, F)),
             library_ms=time_ms(lambda: [torch.bincount(cell, weights=w,
                                                        minlength=spare + 1)
                                         for w in ws]),
             shape="N=%d F=%d B=%d K=%d (%d active) E=%d, %d entries, %d in "
-                  "a child slot, %d rows read w3"
+                  "a child slot, %d rows read w3; plan KS=%d threads=%d "
+                  "smem=%d, %d blocks at %d a SM (by shared memory and "
+                  "threads): %.2f rounds%s"
                   % (n_rows, F, B, K, int(act.sum()), e, n_ent, n_act,
-                     n_rows_act))
+                     n_rows_act, plan[0], plan[1], plan[2], blocks, per_sm,
+                     blocks / (per_sm * torch.cuda.get_device_properties(
+                         dev).multi_processor_count),
+                     "; sweep: " + ", ".join(swept) if swept else ""))
         rec["bound_ms"], rec["bound_by"] = bound(
             n_ent * 8 + int(present.sum()) * 4 + n_rows_act * 12
             + K * F * B * 12, 3 * n_act)
@@ -546,11 +625,22 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm):
     hist, rec = form("sparse_wave_histogram", lid, cid)
     inactive = cid.clone()
     inactive[::2] = -1
-    h_in = sm.sparse_wave_histogram(store, lid, w3, inactive, B, F)
+    h_in = sm.sparse_wave_histogram(store, lid, w3, inactive, B, F,
+                                    exps=exps)
     need(bool((h_in[::2] == 0).all()) and torch.equal(h_in[1::2], hist[1::2]),
          "B6 inactive slots not exactly 0")
     del hist, h_in
-    form("sparse_wave_histogram_root", root_lid, root_cid)
+    hist, _ = form("sparse_wave_histogram_root", root_lid, root_cid)
+    wide = torch.full((K,), -1, dtype=torch.int32, device=dev)
+    wide[0] = 0
+    h_wide = sm.sparse_wave_histogram(store, root_lid, w3, wide, B, F,
+                                      exps=exps)
+    need(torch.equal(h_wide[0], hist[0]) and bool((h_wide[1:] == 0).all()),
+         "B6's one-slot root differs from the 32-slot call with slot 0 "
+         "active")
+    del hist, h_wide
+    say("B6 equals B3 on every non-fill cell to the bit, at K = 32 and at "
+        "the root; the root's one slot gives the 32-slot call's bits")
     return rec
 
 
@@ -636,7 +726,7 @@ def sparse_phase(args, lgb, sm, kernels, card):
            nbytes / 1e6))
     need(Xs.shape[1] == SPARSE_COLS and td.num_features > 900,
          "unexpected sparse binning")
-    record = sparse_kernel_phase(store, Xs.shape[0], nbins, sm)
+    record = sparse_kernel_phase(store, Xs.shape[0], nbins, sm, args.sweep)
     del store
     torch.cuda.empty_cache()
 
@@ -865,6 +955,10 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="after each training run's checks, profile one "
                          "more iteration")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time B5 at 1, 4 and its plan's copies of the "
+                         "block histogram and B6 at 256, 512 and 1024 "
+                         "threads a block")
     args = ap.parse_args()
     need(1000 <= args.rows <= 10_500_000, "--rows must be in [1000, 10.5M]")
     need(1000 <= args.sparse_rows <= 2_000_000,
@@ -928,7 +1022,7 @@ def main():
     t0 = time.perf_counter()
     X_t = torch.as_tensor(np.ascontiguousarray(td.binned.T), device=dev)
     records = kernel_phase(X_t, torch.as_tensor(td.default_bin_arr), wk, lh,
-                           tp, clipped_leaf_values)
+                           tp, clipped_leaf_values, args.sweep)
     del X_t
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1051,7 +1145,7 @@ def main():
                "wave_histogram_rowmajor": (
                    "lightgbm_tpu_torch/csrc/wave_fused.cu",
                    "lightgbm_tpu/ops/pallas_wave.py:263"),
-               "leaf_histogram": ("lightgbm_tpu_torch/csrc/leaf_hist.cu",
+               "leaf_histogram": ("lightgbm_tpu_torch/csrc/wave_fused.cu",
                                   "lightgbm_tpu/ops/pallas_hist.py:163"),
                "sparse_wave_histogram": (
                    "lightgbm_tpu_torch/csrc/sparse_hist.cu",

@@ -138,12 +138,10 @@ def library() -> ctypes.CDLL:
         lib.lgbt_score_update.argtypes = [vp, vp, vp, vp, cll, ci, cf, cf,
                                           vp]
         lib.lgbt_score_update.restype = ci
-        lib.lgbt_sparse_hist.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+        lib.lgbt_sparse_hist.argtypes = [vp] * 8 + [ci] * 7 + [vp]
         lib.lgbt_sparse_hist.restype = ci
-        lib.lgbt_leaf_hist.argtypes = [vp] * 8 + [ci] * 6 + [vp]
-        lib.lgbt_leaf_hist.restype = ci
-        lib.lgbt_leaf_hist_smem.argtypes = [ci, ci]
-        lib.lgbt_leaf_hist_smem.restype = cll
+        lib.lgbt_sparse_hist_smem.argtypes = [ci] * 2
+        lib.lgbt_sparse_hist_smem.restype = cll
         _lib = lib
         return lib
 

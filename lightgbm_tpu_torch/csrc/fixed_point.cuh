@@ -1,0 +1,87 @@
+// The 64-bit fixed point that every histogram kernel of the port sums in
+// (csrc/wave_fused.cu: B1, B3, B4, B5; csrc/sparse_hist.cu: B6), and the
+// leaf -> slot lookup they share.
+//
+// Channel c of a weight row w3[row] is scaled by 2^e[c], with e[c] = 62 -
+// frexp_exponent(N * max|w_c|) computed once a tree on the device
+// (ops/wave_kernels.py fixed_point_exponents), and rounded to the nearest
+// integer.  A histogram cell sums those integers exactly, in any order,
+// and is rounded to f32 once: so every kernel that sums the same rows with
+// the same exponents gives the same bits, whatever its layout, its launch
+// plan or the order its threads run in.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace lgbt {
+
+// leaf ids below kTable map to a child slot through a 16-bit table in
+// shared memory; larger ids take a search of the child ids
+constexpr int kTable = 4096;
+
+// First index i of ids[0..n) with ids[i] == v, or -1.
+__device__ __forceinline__ int find_first(const int* ids, int n, int v) {
+  for (int i = 0; i < n; ++i)
+    if (ids[i] == v) return i;
+  return -1;
+}
+
+// The slot of leaf id v: table[v] for ids below tmax, a search of the n
+// child ids for ids at or above kTable, else -1.
+__device__ __forceinline__ int lookup_slot(const short* table, int tmax,
+                                       const int* ids, int n, int v) {
+  if (v >= 0 && v < kTable) return v < tmax ? table[v] : -1;
+  return find_first(ids, n, v);
+}
+
+// w rounded to the nearest multiple of 1 / scale, as an integer in two's
+// complement (scale = 2^e[c]).
+__device__ __forceinline__ unsigned long long quantize(float w,
+                                                       double scale) {
+  return static_cast<unsigned long long>(
+      __double2ll_rn(static_cast<double>(w) * scale));
+}
+
+// The f32 value of a cell's sum v (two's complement) at exponent e.
+__device__ __forceinline__ float to_f32(unsigned long long v, int e) {
+  return static_cast<float>(
+      ldexp(static_cast<double>(static_cast<long long>(v)), -e));
+}
+
+// q added to the 64-bit cell whose low and high words are *lo and *hi,
+// with native 32-bit shared atomics: the low word's old value gives the
+// carry into the high word, so the pair sums exactly and in any order.
+// (sm_90 has no 64-bit shared atomic add: atomicAdd on an unsigned long
+// long in shared memory compiles to a compare-and-swap loop.)
+__device__ __forceinline__ void add64(unsigned* lo, unsigned* hi,
+                                      unsigned long long q) {
+  const unsigned ql = static_cast<unsigned>(q);
+  const unsigned old = atomicAdd(lo, ql);
+  const unsigned h = static_cast<unsigned>(q >> 32) +
+                     (static_cast<unsigned>(old + ql) < old ? 1u : 0u);
+  if (h != 0u) atomicAdd(hi, h);
+}
+
+// Raise kern's dynamic shared memory limit to at least smem bytes on the
+// current device.  The limit only grows, and is set once for each size a
+// kernel has not yet been granted, so a launch does not pay for
+// cudaFuncSetAttribute every time.  `granted` is the kernel's own record
+// (one entry a device).
+constexpr int kMaxDevices = 64;
+
+inline cudaError_t allow_smem(const void* kern, size_t smem,
+                              int (&granted)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && granted[dev] >= static_cast<int>(smem))
+    return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess && dev < kMaxDevices)
+    granted[dev] = static_cast<int>(smem);
+  return e;
+}
+
+}  // namespace lgbt

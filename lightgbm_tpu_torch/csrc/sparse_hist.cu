@@ -9,114 +9,129 @@
 // column-major in chunks of E entries: ent_row, ent_bin (NC, E) int32 (pad
 // entries: row N, bin -1), and col_cptr (F+1,) int32, the chunk range of
 // each column.  leaf_id (N,) int32, w3 (N, 3) f32 [g*m, h*m, m],
-// child_id (K,) int32 (-1 = inactive).  hist[k, f, b, :] sums w3 over the
-// entries of column f with bin b in [0, B) whose row's leaf is
-// child_id[k] >= 0.  Every cell of the (K, F, B, 3) output is written: the
-// fill-bin slots (never stored) and inactive slots are exactly 0.
+// child_id (K,) int32 (-1 = inactive), exps (3,) int32 the tree's
+// fixed-point exponents.  hist[k, f, b, :] sums w3 over the entries of
+// column f with bin b in [0, B) whose row's leaf is child_id[k] >= 0; a
+// child id that repeats fills every slot that holds it.  Every cell of
+// the (K, F, B, 3) output is written: the fill-bin slots (never stored)
+// and inactive slots are exactly 0.
 //
 // What bounds it on this card.  Per entry: 8 bytes of (row, bin) read in
-// order, two gathers (leaf_id[row], w3[row]) and three f32 adds.  At the
-// Bosch shape (N = 1M, F = 968, 1% dense: ~9.7M entries, B = 63, K = 32)
-// the bytes that must move -- entries, leaf ids, w3 and the 23 MB output --
-// take ~35 us at 3.35 TB/s; the adds are negligible.  The gathered
-// vectors (16 MB at N = 1M) stay in the 50 MB L2.  What limits a simple
-// design is determinism: float atomics sum in an order that changes from
-// run to run, and the reference's runs are bit-identical.
+// order, the dependent gathers leaf_id[row] and, for an entry whose row is
+// in a child slot, w3[row], and three adds.  At the Bosch shape (N = 1M,
+// F = 968, 1% dense: ~9.7M entries, B = 63, K = 32) the bytes that must
+// move -- entries, leaf ids, w3 and the 23 MB output -- take ~33 us at
+// 3.35 TB/s; the adds are negligible.  The gathered vectors (16 MB at
+// N = 1M) stay in the 50 MB L2.  The earlier design (one private f32
+// (K, B, 3) histogram a warp, 197 KB a block at K = 32, so one block of 8
+// warps an SM; a K-long search for each entry's slot; a serial
+// __match_any_sync add in lane order; a slow path for repeated child ids)
+// reached 3% of that bound.
 //
-// Design.  One block per device column (and per slice of KS child slots
-// when K * B is large) walks that column's chunks; no other block touches
-// the column, so no partials and no second pass are needed.  Each warp
-// keeps a private (KS, B, 3) histogram in shared memory and takes the
-// column's 32-entry steps w, w + nwarps, ... in order, kUnroll steps in
-// flight at a time so the dependent gathers overlap.  Lanes whose entries
-// fall into the same (slot, bin) cell are grouped with __match_any_sync and
-// the group's lowest lane adds the group's values in lane order.  At the
-// end the block adds the warps' histograms in warp order and writes the
-// column's slice of the output.  Every sum runs in a fixed order, so
-// repeats are bit-identical.  A column with many chunks (the narrow,
-// skewed layout) makes its block slow, never wrong.
+// Design.  One block owns one device column (and a slice of KS child
+// slots where (K, B, 3) does not fit) and walks that column's chunks: no
+// other block touches its cells, so it writes its slice of the f32 output
+// itself, with no global buffer, memset or second kernel.  A long column
+// (the narrow, skewed layout) makes its block slow, never wrong.
+//  - One shared histogram a block, of (KS, B, 3) 64-bit fixed-point cells
+//    (fixed_point.cuh: each channel quantised with the tree's exponents
+//    exactly as csrc/wave_fused.cu's hist_kernel does, and added as two
+//    native 32-bit shared atomics).  48 KB at K = 32, B = 63, so four
+//    blocks share an SM.  (Lane-interleaved copies of the histogram, as
+//    hist_kernel keeps at its root, bought nothing in a sweep on an
+//    H100: the gathers, not the adds, set the pace.)
+//  - A leaf -> slot table in shared memory, built from the slice's child
+//    ids (the first holder of an id in the slice wins), as list_kernel
+//    builds one: an entry's slot is one lookup (a search of the slice's
+//    ids only for ids >= kTable).  A repeated id adds once, into its first
+//    holder; the write-out copies the first holder's cells into the
+//    others.  Two slices holding one id sum the same integers apart, so
+//    they write the same bits.
+//  - Each thread keeps kUnroll entries in flight: the coalesced (row, bin)
+//    loads, then the leaf gathers, then the w3 gathers of the entries in
+//    a slot, then the adds, so the dependent gathers overlap.
+// The same rows with the same exponents give the same integer sums as
+// B3's histogram of the dense bins, so B6's non-fill cells equal B3's bit
+// for bit, and repeats are bit-identical.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fixed_point.cuh"
+
 namespace {
 
-constexpr int kUnroll = 4;   // 32-entry steps a warp keeps in flight
+using lgbt::add64;
+using lgbt::kTable;
 
-__device__ __forceinline__ void warp_accumulate(int key, int lane, float a,
-                                                float b, float c,
-                                                float* vals, float* hist) {
-  vals[lane * 3 + 0] = a;
-  vals[lane * 3 + 1] = b;
-  vals[lane * 3 + 2] = c;
-  __syncwarp();
-  const unsigned peers = __match_any_sync(0xffffffffu, key);
-  if (key >= 0 && lane == __ffs(peers) - 1) {
-    float sa = 0.f, sb = 0.f, sc = 0.f;
-    unsigned p = peers;
-    while (p) {                        // ascending lane order: fixed
-      const int src = __ffs(p) - 1;
-      sa += vals[src * 3 + 0];
-      sb += vals[src * 3 + 1];
-      sc += vals[src * 3 + 2];
-      p &= p - 1;
-    }
-    float* cell = hist + key * 3;
-    cell[0] += sa;
-    cell[1] += sb;
-    cell[2] += sc;
-  }
-  __syncwarp();
-}
+constexpr int kMaxThreads = 1024;
+constexpr int kUnroll = 4;       // entries a thread keeps in flight
 
-__global__ void sparse_hist_kernel(const int* __restrict__ ent_row,
-                                   const int* __restrict__ ent_bin,
-                                   const int* __restrict__ col_cptr,
-                                   const int* __restrict__ lid,
-                                   const float* __restrict__ w3,
-                                   const int* __restrict__ cid,
-                                   float* __restrict__ hist, int F, int N,
-                                   int B, int K, int E, int KS) {
-  extern __shared__ float smem[];
-  const int nwarps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int f = blockIdx.x;                           // this block's column
+// Dynamic shared memory of one block: (KS, B, 3) 64-bit cells as two
+// planes of 32-bit words, then the slice's KS child ids and each slot's
+// first holder.
+size_t smem_bytes(int B, int KS) { return 8ull * KS * B * 3 + 8ull * KS; }
+
+// Static shared memory: the leaf -> slot table and its length.
+constexpr size_t kStaticSmem = sizeof(short) * kTable + sizeof(int);
+
+__global__ void __launch_bounds__(kMaxThreads)
+sparse_hist_kernel(const int* __restrict__ ent_row,
+                   const int* __restrict__ ent_bin,
+                   const int* __restrict__ col_cptr,
+                   const int* __restrict__ lid, const float* __restrict__ w3,
+                   const int* __restrict__ cid, const int* __restrict__ exps,
+                   float* __restrict__ hist, int F, int N, int B, int K,
+                   int E, int KS) {
+  extern __shared__ unsigned planes[];
+  __shared__ short table[kTable];        // leaf -> first local slot, or -1
+  __shared__ int tmax_s;
+  const int tid = threadIdx.x;
+  const int f = blockIdx.x;              // this block's column
   const int k0 = blockIdx.y * KS;
-  const int kn = min(K, k0 + KS) - k0;
-  const int hist_len = KS * B * 3;
+  const int kn = min(KS, K - k0);
+  const int slot_len = B * 3;
+  const int cells = kn * slot_len;
+  const int words = KS * slot_len;
+  unsigned* lo = planes;
+  unsigned* hi = planes + words;
+  int* cid_s = reinterpret_cast<int*>(hi + words);     // KS
+  int* first_s = cid_s + KS;                           // KS
 
-  float* whist = smem;                                // nwarps * hist_len
-  float* vals = whist + nwarps * hist_len;            // nwarps * 32 * 3
-  int* cid_s = reinterpret_cast<int*>(vals + nwarps * 96);   // KS
-  __shared__ int dup;
-
-  for (int i = threadIdx.x; i < nwarps * hist_len; i += blockDim.x)
-    whist[i] = 0.f;
-  for (int i = threadIdx.x; i < kn; i += blockDim.x) cid_s[i] = cid[k0 + i];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    // two active slots with one leaf: each gets the leaf's histogram
-    int d = 0;
-    for (int i = 0; i < kn && !d; ++i)
-      for (int j = i + 1; j < kn; ++j)
-        if (cid_s[i] >= 0 && cid_s[i] == cid_s[j]) { d = 1; break; }
-    dup = d;
+  for (int i = tid; i < cells; i += blockDim.x) {
+    lo[i] = 0u;
+    hi[i] = 0u;
   }
+  for (int i = tid; i < kn; i += blockDim.x) cid_s[i] = cid[k0 + i];
+  __syncthreads();
+  if (tid == 0) {                        // table length: largest id + 1
+    int m = -1;
+    for (int i = 0; i < kn; ++i) m = max(m, cid_s[i]);
+    tmax_s = min(kTable, m + 1);
+  }
+  for (int i = tid; i < kn; i += blockDim.x)
+    first_s[i] = cid_s[i] < 0 ? -1 : lgbt::find_first(cid_s, i + 1,
+                                                      cid_s[i]);
+  __syncthreads();
+  const int tmax = tmax_s;
+  for (int i = tid; i < tmax; i += blockDim.x) table[i] = -1;
+  __syncthreads();
+  // every holder of an id writes the same value: its first holder
+  for (int i = tid; i < kn; i += blockDim.x)
+    if (cid_s[i] >= 0 && cid_s[i] < tmax)
+      table[cid_s[i]] = static_cast<short>(first_s[i]);
   __syncthreads();
 
+  const double s0 = ldexp(1.0, exps[0]);
+  const double s1 = ldexp(1.0, exps[1]);
+  const double s2 = ldexp(1.0, exps[2]);
   const long long e0 = static_cast<long long>(col_cptr[f]) * E;
   const long long e1 = static_cast<long long>(col_cptr[f + 1]) * E;
-  const long long step = static_cast<long long>(nwarps) * 32;
-  float* my_hist = whist + warp * hist_len;
-  float* my_vals = vals + warp * 96;
-
-  for (long long base = e0 + warp * 32LL; base < e1;
-       base += step * kUnroll) {       // warp-uniform trip count
-    int row[kUnroll], bin[kUnroll], leaf[kUnroll];
-    bool ok[kUnroll];
+  const long long step = blockDim.x;
+  for (long long base = e0 + tid; base < e1; base += step * kUnroll) {
+    int row[kUnroll], bin[kUnroll], slot[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const long long e = base + u * step + lane;
+      const long long e = base + u * step;
       row[u] = N;
       bin[u] = -1;
       if (e < e1) {
@@ -124,92 +139,92 @@ __global__ void sparse_hist_kernel(const int* __restrict__ ent_row,
         bin[u] = ent_bin[e];
       }
     }
+    // pads (row N, bin -1) and bins past B are dropped before the
+    // gather: leaf_id[N] is out of bounds
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      slot[u] = (row[u] >= 0 && row[u] < N && bin[u] >= 0 && bin[u] < B)
+          ? lid[row[u]] : -1;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      slot[u] = slot[u] < 0
+          ? -1 : lgbt::lookup_slot(table, tmax, cid_s, kn, slot[u]);
+    float w[kUnroll][3] = {};
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      // pads (row N, bin -1) are dropped before the gather: leaf_id[N]
-      // is out of bounds
-      ok[u] = row[u] >= 0 && row[u] < N && bin[u] >= 0 && bin[u] < B;
-      leaf[u] = ok[u] ? lid[row[u]] : 0;
-    }
-    int slot[kUnroll];
-    float a[kUnroll], b[kUnroll], c[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      int s = -1;
-      if (ok[u]) {
-        for (int k = 0; k < kn; ++k) {
-          if (cid_s[k] >= 0 && cid_s[k] == leaf[u]) { s = k; break; }
-        }
-      }
-      slot[u] = s;
-      a[u] = b[u] = c[u] = 0.f;
-      if (s >= 0) {
-        const size_t o = 3 * static_cast<size_t>(row[u]);
-        a[u] = w3[o + 0];
-        b[u] = w3[o + 1];
-        c[u] = w3[o + 2];
+      if (slot[u] >= 0) {
+        const float* wr = w3 + 3 * static_cast<size_t>(row[u]);
+        w[u][0] = wr[0];
+        w[u][1] = wr[1];
+        w[u][2] = wr[2];
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (!dup) {
-        const int key = slot[u] >= 0 ? slot[u] * B + bin[u] : -1;
-        warp_accumulate(key, lane, a[u], b[u], c[u], my_vals, my_hist);
-      } else {
-        // the row's weights were loaded for its first slot; every slot
-        // with the same leaf adds them
-        for (int k = 0; k < kn; ++k) {
-          const bool m = slot[u] >= 0 && cid_s[k] == leaf[u];
-          if (!__any_sync(0xffffffffu, m)) continue;
-          warp_accumulate(m ? k * B + bin[u] : -1, lane, a[u], b[u], c[u],
-                          my_vals, my_hist);
-        }
+      if (slot[u] >= 0) {
+        const int c = slot[u] * slot_len + bin[u] * 3;
+        add64(lo + c, hi + c, lgbt::quantize(w[u][0], s0));
+        add64(lo + c + 1, hi + c + 1, lgbt::quantize(w[u][1], s1));
+        add64(lo + c + 2, hi + c + 2, lgbt::quantize(w[u][2], s2));
       }
     }
   }
   __syncthreads();
-  // warps merge in warp order; the block writes its column's slice
-  const int cells = kn * B * 3;
-  for (int idx = threadIdx.x; idx < cells; idx += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < nwarps; ++w) s += whist[w * hist_len + idx];
-    const int kk = idx / (B * 3);
-    const int rem = idx - kk * (B * 3);
-    hist[(static_cast<size_t>(k0 + kk) * F + f) * static_cast<size_t>(B) *
-             3 + rem] = s;
+
+  // the block's slice of the output: slot k0 + kk, column f, all B x 3
+  // cells, from its first holder's cells (0 for an inactive slot)
+  const int x0 = exps[0], x1 = exps[1], x2 = exps[2];
+  for (int i = tid; i < cells; i += blockDim.x) {
+    const int kk = i / slot_len;
+    const int rem = i - kk * slot_len;
+    const int src = first_s[kk];
+    float v = 0.f;
+    if (src >= 0) {
+      const int c = src * slot_len + rem;
+      const int ch = rem % 3;
+      v = lgbt::to_f32((static_cast<unsigned long long>(hi[c]) << 32) | lo[c],
+                       ch == 0 ? x0 : ch == 1 ? x1 : x2);
+    }
+    hist[(static_cast<size_t>(k0 + kk) * F + f) * slot_len + rem] = v;
   }
 }
 
-// Dynamic shared memory bytes of one block, as laid out at the top of
-// sparse_hist_kernel (the wrapper's _smem_bytes mirrors it to plan KS and
-// warps).
-size_t smem_bytes(int B, int KS, int warps) {
-  return 4 * (static_cast<size_t>(warps) * KS * B * 3 + warps * 96 + KS);
-}
+int sparse_granted[lgbt::kMaxDevices];
 
 }  // namespace
 
 extern "C" {
 
+// Shared memory of one block, dynamic and static (the wrapper's plan,
+// ops/sparse_mxu.py _smem_bytes, mirrors it).
+long long lgbt_sparse_hist_smem(int B, int KS) {
+  return static_cast<long long>(smem_bytes(B, KS) + kStaticSmem);
+}
+
 // B6 on the stream `stream`: hist holds K * F * B * 3 floats, every one
-// written.  KS child slots and `warps` warps a block.  Returns
-// cudaGetLastError() after the launch.
+// written.  A block of `threads` threads (a multiple of 32, at most 1024)
+// covers one column and KS child slots.  Returns cudaGetLastError() after
+// the launch.
 int lgbt_sparse_hist(const void* ent_row, const void* ent_bin,
                      const void* col_cptr, const void* lid, const void* w3,
-                     const void* cid, void* hist, int F, int N, int B, int K,
-                     int E, int KS, int warps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(B, KS, warps);
-  cudaError_t e = cudaFuncSetAttribute(
-      sparse_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                     const void* cid, const void* exps, void* hist, int F,
+                     int N, int B, int K, int E, int KS, int threads,
+                     void* stream) {
+  if (KS < 1 || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(B, KS);
+  cudaError_t e = lgbt::allow_smem(
+      reinterpret_cast<const void*>(&sparse_hist_kernel), smem,
+      sparse_granted);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(F, (K + KS - 1) / KS);
-  sparse_hist_kernel<<<grid, warps * 32, smem, s>>>(
+  sparse_hist_kernel<<<grid, threads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ent_row), static_cast<const int*>(ent_bin),
       static_cast<const int*>(col_cptr), static_cast<const int*>(lid),
       static_cast<const float*>(w3), static_cast<const int*>(cid),
-      static_cast<float*>(hist), F, N, B, K, E, KS);
+      static_cast<const int*>(exps), static_cast<float*>(hist), F, N, B, K,
+      E, KS);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,8 @@
-// The wave kernels for Hopper (sm_90a): the fused wave step (B1) and the
-// histogram-only pass on the transposed (B3) or the row-major (B4) bins.
-// All three build their histograms with one pass over a list of rows.
+// The wave kernels for Hopper (sm_90a): the fused wave step (B1), the
+// histogram-only pass on the transposed (B3) or the row-major (B4) bins,
+// and the exact grower's leaf histogram (B5, the row-major pass with one
+// slot).  All four build their histograms with one pass over a list of
+// rows.
 //
 // Replaces (JAX package, TPU Pallas):
 //   lightgbm_tpu/ops/pallas_wave.py::wave_partition_hist_pallas_ct
@@ -9,9 +11,14 @@
 //     (kernel _wave_hist_kernel_t)      -> B3, lgbt_wave_hist rowmajor=0
 //   lightgbm_tpu/ops/pallas_wave.py::wave_histogram_pallas
 //     (kernel _wave_hist_kernel)        -> B4, lgbt_wave_hist rowmajor=1
+//   lightgbm_tpu/ops/pallas_hist.py::leaf_histogram_pallas
+//     (kernel _hist_kernel)             -> B5, lgbt_wave_hist rowmajor=1,
+//                                          K = 1, child_id = the leaf
 //
-// Contract.  X_t (F, N) uint8 bins (B1, B3) or X (N, F) (B4), leaf_id (N,)
-// int32, w3 (N, 3) f32 [g*m, h*m, m], child_id (K,) int32 (-1 = inactive).
+// Contract.  X_t (F, N) uint8 bins (B1, B3) or X (N, F) (B4, B5), leaf_id
+// (N,) int32, w3 (N, 3) f32 [g*m, h*m, m], child_id (K,) int32 (-1 =
+// inactive; for B5 the one-element leaf tensor, which stays on the
+// device).
 // B1 also takes the compact split table cols (W, 10) f32 and the wave's
 // parent ids psrc (W,) int32 (-3 = inactive): a row whose leaf is psrc[w]
 // (the first such w) is routed with the split in cols[w]: <= threshold
@@ -19,7 +26,9 @@
 // BUNDLED; its new leaf id is written to new_lid.  hist[k, f, b, :] sums
 // w3 over the rows whose (new, for B1) leaf id equals child_id[k] and
 // whose bin in feature f is b; bins >= B are dropped; a child id that
-// repeats fills every slot that holds it.
+// repeats fills every slot that holds it.  Rows are held in an int and
+// bins addressed with size_t offsets, so N < 2^31 is the only limit on
+// the shape (F x N may exceed it).
 //
 // What bounds them on this card.  The bytes that must move: leaf ids in
 // (and out for B1, 8 B a row), and for each row in a child slot its
@@ -28,8 +37,13 @@
 // ~18 us at 3.35 TB/s, and the root histogram (K = 1, every row) ~26 us.
 // The adds (3 a row and feature) are ~2-3 us at the FP32 rate.  So the
 // bound is memory, and the design has to keep the accumulation from
-// costing more than the loads.  The earlier design of B3 and B4 (one
-// private f32 histogram a warp, lane-ordered adds after
+// costing more than the loads.  B5's call (one leaf of the exact grower,
+// up to 255 a tree, most of them small) is bound by reading all N leaf
+// ids (2.4 us at N = 2M); there the fixed costs of a call (four launches:
+// the accumulator's memset, the list, the histogram, the conversion) and
+// of each histogram block (zeroing and folding its shared histogram) are
+// what the design has to keep small.  The earlier design of B3, B4 and
+// B5 (one private f32 histogram a warp, lane-ordered adds after
 // __match_any_sync, partials summed in row-block order by a second
 // kernel) was deterministic but capped a block of 8 warps to one an SM,
 // spent a serial match-and-add step on every 32 rows of every feature,
@@ -43,20 +57,22 @@
 //     (row, slot) pairs: a block-wide prefix over its 1024 rows and one
 //     global atomic a tile.  Under ROUTE (B1) it first routes the row with
 //     its parent's split (a second table, from psrc) and writes new_lid;
-//     otherwise (B3, B4) it selects the rows as their ids stand.
+//     otherwise (B3, B4, B5) it selects the rows as their ids stand.
 //  2. hist_kernel walks only the list.  A block of 32 warps owns a group
 //     of FS features (and a slice of KS slots when one feature's K slots
 //     do not fit) and a share of the list; its histogram lives in shared
-//     memory as 64-bit fixed point, and each (row, feature) adds its
-//     three channels, each as two native 32-bit shared atomics (the low
-//     word's old value carries into the high word; a 64-bit shared
-//     atomicAdd would compile to a compare-and-swap loop on sm_90).
-//     Integer addition is exact and order-free, so the sums do not depend
-//     on scheduling and two launches are bit-identical.  The block then
-//     adds its cells into one int64 (K, F, B, 3) buffer with global
-//     atomics (again order-free).  The row-major variant reads a row's
-//     group as its contiguous bytes X[row, f0 .. f0 + FS), one or two
-//     4-byte words where the row and the group are 4-byte aligned.
+//     memory as 64-bit fixed point (fixed_point.cuh), each (row, feature)
+//     adding its three channels as two native 32-bit shared atomics
+//     each.  Integer addition is exact and order-free, so the sums do not
+//     depend on scheduling and two launches are bit-identical.  The block
+//     then adds its cells into one int64 (K, F, B, 3) buffer with global
+//     atomics (again order-free).  The grid holds R shares of the list,
+//     planned from N; a short list (a small leaf, a late wave) takes only
+//     as many shares as give each at least kMinShareRows rows, read from
+//     the list's length on the device, and the other blocks return once
+//     they have zeroed their shared memory.  The row-major variant reads
+//     a row's group as its contiguous bytes X[row, f0 .. f0 + FS), one or
+//     two 4-byte words where the row and the group are 4-byte aligned.
 //     Copies: where the histogram leaves shared memory unused (few slots,
 //     as in the root's K = 1), the block keeps C = 2, 4, .. 32 copies,
 //     interleaved so that cell c of copy j is word c * C + j, and lane l
@@ -65,6 +81,8 @@
 //     that two lanes share (32 rows over one feature's 63 bins share
 //     banks several times over).  The copies are added together before
 //     the global atomics; integer sums, so the bits do not depend on C.
+//     The plan (ops/wave_kernels.py hist_plan) is made from N: B5 takes
+//     B4's at K = 1 for every leaf, the root's copies included.
 //  3. finish_kernel converts the int64 sums to f32 once and copies the
 //     histogram of a repeated child id into each of its slots.
 // Fixed point: channel c is scaled by 2^e[c] with e[c] = 62 -
@@ -72,27 +90,27 @@
 // value is rounded to the nearest multiple of 2^-e[c], which errs by at
 // most N_cell * N * max|w_c| / 2^62 in a cell (1e-6 x max|w| at N = 2M),
 // well inside the f32 tolerance.  The wrapper computes e once a tree on
-// the device (ops/wave_kernels.py fixed_point_exponents), so B1, B3 and
-// B4 give bit-identical histograms of the same rows.
+// the device (ops/wave_kernels.py fixed_point_exponents), so B1, B3, B4,
+// B5 and B6 (csrc/sparse_hist.cu) give bit-identical histograms of the
+// same rows.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fixed_point.cuh"
+
 namespace {
 
-constexpr int kTable = 4096;         // leaf ids < kTable use the tables
+using lgbt::add64;
+using lgbt::find_first;
+using lgbt::kTable;
+
 constexpr int kListThreads = 256;
 constexpr int kListRows = 4;         // rows a thread per tile
 constexpr int kTileRows = kListThreads * kListRows;
 constexpr int kHistThreads = 1024;   // 32 warps: one block fills an SM
 constexpr int kMaxGroup = 8;         // features a histogram block holds
 constexpr int kMaxCopies = 32;
-
-// First index i of ids[0..n) with ids[i] == v, or -1.
-__device__ __forceinline__ int find_first(const int* ids, int n, int v) {
-  for (int i = 0; i < n; ++i)
-    if (ids[i] == v) return i;
-  return -1;
-}
+constexpr int kMinShareRows = 2048;  // the fewest listed rows a share takes
 
 template <bool ROUTE, bool BUNDLED>
 __global__ void __launch_bounds__(kListThreads)
@@ -176,9 +194,7 @@ list_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
           }
           new_lid[r] = nl;
         }
-        slot[j] = (nl >= 0 && nl < kTable)
-            ? (nl < tmax ? slot_of[nl] : -1)
-            : find_first(cid_s, K, nl);
+        slot[j] = lgbt::lookup_slot(slot_of, tmax, cid_s, K, nl);
       }
       const unsigned m = __ballot_sync(0xffffffffu, slot[j] >= 0);
       before[j] = __popc(m & lt_mask);
@@ -205,20 +221,6 @@ list_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
         list[base + warp_n[j][warp] + before[j]] = make_int2(row[j], slot[j]);
     __syncthreads();                     // warp_n and base_s reused
   }
-}
-
-// q added to the 64-bit cell whose low and high words are *lo and *hi,
-// with native 32-bit shared atomics: the low word's old value gives the
-// carry into the high word, so the pair sums exactly and in any order.
-// (sm_90 has no 64-bit shared atomic add: atomicAdd on an unsigned long
-// long in shared memory compiles to a compare-and-swap loop.)
-__device__ __forceinline__ void add64(unsigned* lo, unsigned* hi,
-                                      unsigned long long q) {
-  const unsigned ql = static_cast<unsigned>(q);
-  const unsigned old = atomicAdd(lo, ql);
-  const unsigned h = static_cast<unsigned>(q >> 32) +
-                     (static_cast<unsigned>(old + ql) < old ? 1u : 0u);
-  if (h != 0u) atomicAdd(hi, h);
 }
 
 // COPIES = false is the one-copy form (B1's wave, K = 32): its strides
@@ -250,8 +252,17 @@ hist_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w3,
   const double s0 = ldexp(1.0, exps[0]);
   const double s1 = ldexp(1.0, exps[1]);
   const double s2 = ldexp(1.0, exps[2]);
+  // a short list takes fewer shares: at least kMinShareRows rows each.
+  // The other blocks return once zeroed (the grid is one round of
+  // resident blocks, so their zeroing costs no time).  The length is read
+  // here, after the zeroing: read before it, B3's root ran 5-8% slower
+  // on an H100 (before the zeroing and branched on there) and B1's wave
+  // 5-9% (branched on after it).
   const long long n = static_cast<long long>(*count);
-  const long long per = (n + gridDim.y - 1) / gridDim.y;
+  const long long shares = max(1ll, min(static_cast<long long>(gridDim.y),
+                                        n / kMinShareRows));
+  if (blockIdx.y >= shares) return;      // block-uniform
+  const long long per = (n + shares - 1) / shares;
   const long long j0 = blockIdx.y * per;
   const long long j1 = min(n, j0 + per);
   const int copy = threadIdx.x & (C - 1);
@@ -290,12 +301,9 @@ hist_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w3,
             ? static_cast<int>(xg[static_cast<size_t>(f) * N + row]) : B;
     }
     const float* wr = w3 + 3 * static_cast<size_t>(row);
-    const unsigned long long q0 = static_cast<unsigned long long>(
-        __double2ll_rn(static_cast<double>(wr[0]) * s0));
-    const unsigned long long q1 = static_cast<unsigned long long>(
-        __double2ll_rn(static_cast<double>(wr[1]) * s1));
-    const unsigned long long q2 = static_cast<unsigned long long>(
-        __double2ll_rn(static_cast<double>(wr[2]) * s2));
+    const unsigned long long q0 = lgbt::quantize(wr[0], s0);
+    const unsigned long long q1 = lgbt::quantize(wr[1], s1);
+    const unsigned long long q2 = lgbt::quantize(wr[2], s2);
     const int base = s * slot_len;
 #pragma unroll
     for (int f = 0; f < kMaxGroup; ++f) {
@@ -338,8 +346,7 @@ __global__ void finish_kernel(const unsigned long long* __restrict__ acc,
   const long long rem = i - k * per_slot;
   const int kr = find_first(cid, k + 1, cid[k]);
   const int c = static_cast<int>(rem % 3);
-  const long long v = static_cast<long long>(acc[kr * per_slot + rem]);
-  hist[i] = static_cast<float>(ldexp(static_cast<double>(v), -exps[c]));
+  hist[i] = lgbt::to_f32(acc[kr * per_slot + rem], exps[c]);
 }
 
 size_t hist_smem(int B, int KS, int FS, int C) {
@@ -357,6 +364,18 @@ HistKernel hist_kernel_for(bool rowmajor, int C) {
   return C > 1 ? &hist_kernel<false, true> : &hist_kernel<false, false>;
 }
 
+// The dynamic shared memory each of the four histogram kernels has been
+// granted on each device.
+int hist_granted[4][lgbt::kMaxDevices];
+
+// hist_kernel_for(rowmajor, C), allowed smem bytes of shared memory.
+cudaError_t hist_kernel_with(bool rowmajor, int C, size_t smem,
+                             HistKernel* kern) {
+  *kern = hist_kernel_for(rowmajor, C);
+  return lgbt::allow_smem(reinterpret_cast<const void*>(*kern), smem,
+                          hist_granted[2 * rowmajor + (C > 1)]);
+}
+
 // The histogram pass over the list and the f32 conversion.  acc holds
 // K * F * B * 3 zeroed 64-bit words followed by the list's length.
 cudaError_t hist_and_finish(const void* x, const void* w3, const void* list,
@@ -370,10 +389,8 @@ cudaError_t hist_and_finish(const void* x, const void* w3, const void* list,
   const long long per_slot = static_cast<long long>(F) * B * 3;
   unsigned long long* acc64 = static_cast<unsigned long long*>(acc);
   const size_t smem = hist_smem(B, KS, FS, C);
-  const HistKernel kern = hist_kernel_for(rowmajor, C);
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  HistKernel kern;
+  cudaError_t e = hist_kernel_with(rowmajor, C, smem, &kern);
   if (e != cudaSuccess) return e;
   const dim3 grid(groups, R, (K + KS - 1) / KS);
   kern<<<grid, kHistThreads, smem, s>>>(
@@ -391,6 +408,16 @@ cudaError_t hist_and_finish(const void* x, const void* w3, const void* list,
   return cudaGetLastError();
 }
 
+// acc's K * F * B * 3 sums and the list's length after them, zeroed on
+// the stream; *count points at the length.
+int zero_acc(void* acc, int F, int B, int K, void* stream,
+             unsigned long long** count) {
+  const long long cells = static_cast<long long>(F) * B * 3 * K;
+  *count = static_cast<unsigned long long*>(acc) + cells;
+  return static_cast<int>(cudaMemsetAsync(
+      acc, 0, 8 * (cells + 1), static_cast<cudaStream_t>(stream)));
+}
+
 }  // namespace
 
 extern "C" {
@@ -406,9 +433,8 @@ long long lgbt_wave_hist_smem(int B, int KS, int FS, int C) {
 int lgbt_wave_hist_blocks_per_sm(int B, int KS, int FS, int C,
                                  int rowmajor) {
   const size_t smem = hist_smem(B, KS, FS, C);
-  const HistKernel kern = hist_kernel_for(rowmajor != 0, C);
-  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)) != cudaSuccess)
+  HistKernel kern;
+  if (hist_kernel_with(rowmajor != 0, C, smem, &kern) != cudaSuccess)
     return -1;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -419,7 +445,7 @@ int lgbt_wave_hist_blocks_per_sm(int B, int KS, int FS, int C,
 
 // The list pass alone: the compact list (N, 2) int32 of (row, slot)
 // pairs and its length in *count (which must be 0 on entry).  mode 0
-// selects the rows by their ids (B3, B4; xt, cols, psrc and new_lid are
+// selects the rows by their ids (B3, B4, B5; xt, cols, psrc and new_lid are
 // not read and may be null, W = 0); mode 1 routes them first and writes
 // new_lid (B1), mode 2 does so on EFB group columns.
 int lgbt_wave_list(const void* xt, const void* lid, const void* cid,
@@ -444,17 +470,18 @@ int lgbt_wave_list(const void* xt, const void* lid, const void* cid,
 }
 
 // B1, the fused wave step: routing, histograms of the listed rows, f32
-// conversion.  acc holds K * F * B * 3 + 1 zeroed 64-bit words (the last
-// one is the list's length); list N int2; hist K * F * B * 3 floats.
+// conversion.  acc holds K * F * B * 3 + 1 64-bit words, zeroed here (the
+// last one is the list's length); list N int2; hist K * F * B * 3 floats.
 int lgbt_wave_fused(const void* xt, const void* lid, const void* w3,
                     const void* cid, const void* cols, const void* psrc,
                     const void* exps, void* new_lid, void* list, void* acc,
                     void* hist, int F, int N, int B, int K, int W,
                     int list_blocks, int groups, int R, int KS, int FS,
                     int C, int bundled, void* stream) {
-  unsigned long long* count = static_cast<unsigned long long*>(acc) +
-                              static_cast<long long>(F) * B * 3 * K;
-  int e = lgbt_wave_list(xt, lid, cid, cols, psrc, new_lid, list, count, F,
+  unsigned long long* count;
+  int e = zero_acc(acc, F, B, K, stream, &count);
+  if (e != 0) return e;
+  e = lgbt_wave_list(xt, lid, cid, cols, psrc, new_lid, list, count, F,
                          N, K, W, list_blocks, bundled ? 2 : 1, stream);
   if (e != 0) return e;
   return static_cast<int>(hist_and_finish(
@@ -464,15 +491,17 @@ int lgbt_wave_fused(const void* xt, const void* lid, const void* w3,
 
 // B3 (X_t (F, N)) and B4 (rowmajor: X (N, F)), the histogram-only pass:
 // the select pass, histograms of the listed rows, f32 conversion; acc,
-// list and hist as for lgbt_wave_fused.
+// list and hist as for lgbt_wave_fused.  B5 is this pass with rowmajor
+// = 1, K = 1 and cid the leaf, on a plan of its own.
 int lgbt_wave_hist(const void* x, const void* lid, const void* w3,
                    const void* cid, const void* exps, void* list, void* acc,
                    void* hist, int F, int N, int B, int K, int list_blocks,
                    int groups, int R, int KS, int FS, int C, int rowmajor,
                    void* stream) {
-  unsigned long long* count = static_cast<unsigned long long*>(acc) +
-                              static_cast<long long>(F) * B * 3 * K;
-  int e = lgbt_wave_list(nullptr, lid, cid, nullptr, nullptr, nullptr, list,
+  unsigned long long* count;
+  int e = zero_acc(acc, F, B, K, stream, &count);
+  if (e != 0) return e;
+  e = lgbt_wave_list(nullptr, lid, cid, nullptr, nullptr, nullptr, list,
                          count, F, N, K, 0, list_blocks, 0, stream);
   if (e != 0) return e;
   return static_cast<int>(hist_and_finish(

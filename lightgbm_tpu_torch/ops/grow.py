@@ -19,13 +19,14 @@ from dataclasses import dataclass, fields
 
 import torch
 
-from .histogram import leaf_sums
+from .histogram import leaf_sums, weight_rows
 from .leaf_hist import leaf_histogram
 from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
                            LEFT_COUNT, LEFT_OUTPUT, LEFT_SUM_G, RIGHT_COUNT,
                            RIGHT_OUTPUT, RIGHT_SUM_G, SECOND_FEATURE,
                            SECOND_GAIN, SPLIT_VEC_SIZE, THRESHOLD,
                            FeatureMeta, SplitParams, best_splits_batched)
+from .wave_kernels import fixed_point_exponents
 
 
 @dataclass
@@ -161,9 +162,15 @@ def grow_tree_exact(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     n = grad.shape[0]
     leaf_id = torch.zeros(n, dtype=i32, device=dev)
     leaf_ids = torch.arange(L, dtype=torch.long, device=dev)
+    # B5's weight rows and fixed-point exponents, once a tree as the wave
+    # grower makes them: every leaf histogram of the tree, and wave
+    # growth's at width 1, then sums the same rows to the same bits
+    w3 = weight_rows(grad, hess, row_mult)
+    exps = fixed_point_exponents(w3)
 
     def hist_of(lid, leaf):
-        return leaf_histogram(X, grad, hess, lid, leaf, row_mult, hist_bins)
+        return leaf_histogram(X, grad, hess, lid, leaf, row_mult, hist_bins,
+                              w3=w3, exps=exps)
 
     def best_of(hists_k, sums_k, depths_k):
         return best_splits_batched(

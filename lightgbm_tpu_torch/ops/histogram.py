@@ -20,6 +20,17 @@ def _weights(grad, hess, leaf_id, leaf, row_mult):
     return torch.stack([grad * mask, hess * mask, mask], dim=-1)
 
 
+def weight_rows(grad, hess, row_mult):
+    """(N, 3) [g * m, h * m, m], m = row_mult (ones when None): the weight
+    rows the histogram kernels sum, made once a tree by the growers (one
+    product order for every grower, so their kernels see the same
+    bits)."""
+    if row_mult is None:
+        row_mult = torch.ones_like(grad)
+    return torch.stack([grad * row_mult, hess * row_mult, row_mult],
+                       dim=-1).contiguous()
+
+
 def leaf_sums(grad, hess, leaf_id, leaf, row_mult):
     """Leaf total (sum_g, sum_h, count) — LeafSplits::Init
     (leaf_splits.hpp)."""

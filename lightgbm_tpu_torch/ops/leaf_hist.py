@@ -2,14 +2,21 @@
 version.
 
 Ported from the JAX package's ``ops/pallas_hist.py``
-(``leaf_histogram_pallas``); the CUDA source is ``csrc/leaf_hist.cu``.
-The contract is the JAX package's: X (N, F) uint8 row-major bins, grad
-and hess (N,) f32, leaf_id (N,) int32, the target leaf, row_mult (N,) f32
-or None; the (F, B, 3) f32 histogram sums [g * m, h * m, m] with
-m = (leaf_id == leaf) * row_mult.  The JAX package falls back to its XLA
-one-hot path where the TPU's VMEM cannot hold a bin width
-(``supports_bins``); the port's bins are uint8 (B <= 256) and wide shapes
-take more feature groups, so there is no fallback.
+(``leaf_histogram_pallas``).  The contract is the JAX package's: X (N, F)
+uint8 row-major bins, grad and hess (N,) f32, leaf_id (N,) int32, the
+target leaf, row_mult (N,) f32 or None; the (F, B, 3) f32 histogram sums
+[g * m, h * m, m] with m = (leaf_id == leaf) * row_mult.  The JAX package
+falls back to its XLA one-hot path where the TPU's VMEM cannot hold a bin
+width (``supports_bins``); the port's bins are uint8 (B <= 256) and wide
+shapes take more feature groups, so there is no fallback.
+
+The kernel is B4's row-major pass with one child slot
+(``csrc/wave_fused.cu``, ``lgbt_wave_hist``): a select pass lists the
+leaf's rows, a histogram pass sums their weight rows w3 in the tree's
+64-bit fixed point (``fixed_point_exponents``), a conversion rounds to
+f32 once.  So B5 sums the same rows to the same bits as B4 at K = 1, and
+exact growth trains the model text of wave growth at width 1.  The leaf
+stays a device tensor: no call reads anything back to the host.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (building it on first use) or raises.  The wrapper
@@ -21,19 +28,9 @@ import torch
 
 from .. import _build
 from ..utils.log import LightGBMError
-from .histogram import _weights
-from .wave_kernels import _sms, histogram_plain
-
-# rows a tile (= threads a block, kTile in csrc/leaf_hist.cu) and warps
-_TILE = 256
-_WARPS = _TILE // 32
-# dynamic shared memory a block may claim, and what one SM holds
-_SMEM_BUDGET = 220 * 1024
-_SMEM_PER_SM = 228 * 1024
-# the partials scratch is capped at 1/_PARTIAL_FRACTION of the bytes of X
-_PARTIAL_FRACTION = 2
-# resident blocks a SM the row blocks aim at
-_BLOCKS_PER_SM = 2
+from .histogram import _weights, weight_rows
+from .wave_kernels import (_exps, _list_buffers, _sms, check_rows,
+                           hist_plan, histogram_plain)
 
 
 def leaf_histogram_plain(X, grad, hess, leaf_id, leaf, row_mult,
@@ -58,15 +55,23 @@ def _leaf_tensor(leaf, dev):
     return torch.full((1,), int(leaf), dtype=torch.int32, device=dev)
 
 
-def _check(X, grad, hess, leaf_id, row_mult, num_bins):
+def _check(X, grad, hess, leaf_id, row_mult, num_bins, w3, exps):
+    """Raise on inputs the path does not take; on the card, given w3, the
+    kernel reads neither grad, hess nor row_mult, and they go unchecked
+    (the grower's exact loop makes 255 calls a tree)."""
     dev = X.device
     N, F = X.shape if X.dim() == 2 else (None, None)
     want = [(X, torch.uint8, (N, F), "X"),
-            (grad, torch.float32, (N,), "grad"),
-            (hess, torch.float32, (N,), "hess"),
             (leaf_id, torch.int32, (N,), "leaf_id")]
-    if row_mult is not None:
-        want.append((row_mult, torch.float32, (N,), "row_mult"))
+    if w3 is None or dev.type != "cuda":
+        want += [(grad, torch.float32, (N,), "grad"),
+                 (hess, torch.float32, (N,), "hess")]
+        if row_mult is not None:
+            want.append((row_mult, torch.float32, (N,), "row_mult"))
+    if w3 is not None:
+        want.append((w3, torch.float32, (N, 3), "w3"))
+    if exps is not None:
+        want.append((exps, torch.int32, (3,), "exps"))
     for t, dtype, shape, name in want:
         if N is None or t.dtype != dtype or tuple(t.shape) != shape:
             raise LightGBMError("%s: expected %s %s, got %s %s"
@@ -86,69 +91,47 @@ def _check(X, grad, hess, leaf_id, row_mult, num_bins):
         for t, _, _, name in want:
             if not t.is_contiguous():
                 raise LightGBMError("%s must be contiguous" % name)
-        if F * N >= 2 ** 31:
-            raise LightGBMError("X too large for the kernel's int32 row "
-                                "index (F*N=%d)" % (F * N))
+        check_rows(N)
 
 
-def _smem_bytes(B: int, Fg: int) -> int:
-    """lgbt_leaf_hist_smem in csrc/leaf_hist.cu."""
-    return 4 * (Fg * B * 3 + _TILE * 3 + _WARPS + _TILE) + _TILE * Fg
-
-
-def launch_plan(F: int, N: int, B: int, num_sms: int):
-    """(R, rows_per_block, Fg): row blocks, rows each, and features a
-    block.  A block holds its group's (Fg, B, 3) histogram and a tile's
-    Fg bin bytes in shared memory; the groups are as even as the budget
-    allows.  R aims at _BLOCKS_PER_SM blocks on every SM, with the
-    partials capped at 1/_PARTIAL_FRACTION of the bytes of X."""
-    fixed = _smem_bytes(B, 0)
-    fg_max = (_SMEM_BUDGET - fixed) // (12 * B + _TILE)
-    if fg_max < 1:
-        raise LightGBMError("leaf histogram block does not fit shared "
-                            "memory (B=%d)" % B)
-    groups = -(-F // fg_max)
-    fg = -(-F // groups)
-    per_sm = max(1, min(_BLOCKS_PER_SM,
-                        _SMEM_PER_SM // (_smem_bytes(B, fg) + 1024)))
-    r_fill = max(1, (num_sms * per_sm) // groups)
-    r_cap = max(1, (F * N) // (_PARTIAL_FRACTION * F * B * 12))
-    r_rows = max(1, -(-N // _TILE))
-    R = max(1, min(r_fill, r_cap, r_rows, 2 ** 31 - 1))
-    rows_per_block = -(-N // R)
-    R = -(-N // rows_per_block)
-    return R, rows_per_block, fg
-
-
-def _launch(X, grad, hess, leaf_id, leaf_t, row_mult, num_bins):
-    lib = _build.library()
+def _launch(X, w3, leaf_id, leaf_t, num_bins, exps, plan):
+    """The select pass, the histogram pass and the conversion on plan
+    (hist_plan's first six fields); returns the (F, B, 3) histogram."""
     N, F = X.shape
     B = int(num_bins)
-    R, rpb, fg = launch_plan(F, N, B, _sms(X.device))
-    dev = X.device
-    partial = torch.empty(R * F * B * 3 if R > 1 else 1,
-                          dtype=torch.float32, device=dev)
-    hist = torch.empty((F, B, 3), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.lgbt_leaf_hist(
-        X.data_ptr(), grad.data_ptr(), hess.data_ptr(),
-        row_mult.data_ptr() if row_mult is not None else None,
-        leaf_id.data_ptr(), leaf_t.data_ptr(), partial.data_ptr(),
-        hist.data_ptr(), F, N, B, R, rpb, fg, stream)
+    rows, acc, work, hist = _list_buffers(N, 1, F, B, X.device, (F, B, 3))
+    err = _build.library().lgbt_wave_hist(
+        *[t.data_ptr() for t in (X, leaf_id, w3, leaf_t, exps)], rows, acc,
+        hist.data_ptr(), F, N, B, 1, *plan, 1, _build.stream(X.device))
     _build.check(err, "leaf_hist")
     return hist
 
 
-def leaf_histogram(X, grad, hess, leaf_id, leaf, row_mult, num_bins: int):
+def leaf_histogram(X, grad, hess, leaf_id, leaf, row_mult, num_bins: int,
+                   *, w3=None, exps=None):
     """Leaf histogram (kernel B5): the (F, B, 3) histogram of the rows
     whose leaf id is ``leaf`` (an int or a one-element integer tensor on
-    X's device), weighted by row_mult (None for all ones)."""
-    _check(X, grad, hess, leaf_id, row_mult, num_bins)
+    X's device), weighted by row_mult (None for all ones).
+
+    w3: the kernel's weight rows, ``weight_rows(grad, hess, row_mult)``;
+    exps: their fixed-point exponents, ``fixed_point_exponents(w3)``.
+    Each is computed here when None; the grower computes both once a
+    tree.  The plain version uses neither.
+
+    The kernel runs on B4's plan at K = 1, planned from N: a small leaf's
+    short list takes fewer of the plan's shares on the device
+    (csrc/wave_fused.cu kMinShareRows), so no call reads the leaf's row
+    count back to the host."""
+    _check(X, grad, hess, leaf_id, row_mult, num_bins, w3, exps)
     leaf_t = _leaf_tensor(leaf, X.device)
     if X.device.type == "cpu":
         return leaf_histogram_plain(X, grad, hess, leaf_id, leaf_t,
                                     row_mult, num_bins)
-    out = _launch(X, grad, hess, leaf_id, leaf_t, row_mult, num_bins)
+    if w3 is None:
+        w3 = weight_rows(grad, hess, row_mult)
+    N, F = X.shape
+    plan = hist_plan(F, N, int(num_bins), 1, _sms(X.device))[:6]
+    out = _launch(X, w3, leaf_id, leaf_t, num_bins, _exps(w3, exps), plan)
     leaf_histogram.launches += 1
     return out
 

@@ -12,21 +12,25 @@ histogram stay exactly 0; ``feature_hist_view(fix_default=True)`` rebuilds
 them from the leaf sums.
 
 ``sparse_wave_histogram`` is kernel B6 (CUDA source ``csrc/sparse_hist.cu``)
-beside its plain torch version ``chunked_child_hists_plain``.  Given CPU
-tensors it runs the plain version; given CUDA tensors it launches the
-kernel or raises.  Its launches are counted in
-``sparse_wave_histogram.launches``.
+beside its plain torch version ``chunked_child_hists_plain``.  The kernel
+sums in the 64-bit fixed point of the dense kernels with the tree's
+exponents (``fixed_point_exponents``), so its non-fill cells equal B3's
+on the same rows bit for bit.  Given CPU tensors it runs the plain
+version; given CUDA tensors it launches the kernel or raises.  Its
+launches are counted in ``sparse_wave_histogram.launches``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 from .. import _build
 from ..utils.log import LightGBMError
-from .wave_kernels import _SMEM_BUDGET, route_rows
+from .wave_kernels import (_SMEM_BUDGET, _SMEM_PER_SM, _exps, check_rows,
+                           route_rows)
 
 ENTRY_CHUNK = 512     # entries per chunk
 CHUNK_BLOCK = 8       # the chunk count is padded to a multiple of this
@@ -204,28 +208,39 @@ def sparse_route_rows(store: ChunkedSparseStore, leaf_id, cols, psrc,
 
 
 # ----------------------------------------------------------------- kernel
-_WARPS = 8
+# csrc/sparse_hist.cu: the leaf -> slot table's static shared memory
+_STATIC_SMEM = 2 * 4096 + 4
+# threads a block, and where shared memory holds at most two blocks an SM
+_THREADS = 512
+_THREADS_WIDE = 1024
 
 
-def _smem_bytes(B: int, ks: int, warps: int) -> int:
-    """smem_bytes in csrc/sparse_hist.cu: one block's dynamic shared
-    memory (per-warp (KS, B, 3) histograms, lane values, child ids)."""
-    return 4 * (warps * ks * B * 3 + warps * 96 + ks)
+def _smem_bytes(B: int, ks: int) -> int:
+    """lgbt_sparse_hist_smem in csrc/sparse_hist.cu: one block's shared
+    memory (the int64 (KS, B, 3) histogram, the slice's child ids and
+    first holders, the leaf -> slot table)."""
+    return 8 * ks * B * 3 + 8 * ks + _STATIC_SMEM
 
 
+@lru_cache(maxsize=64)
 def launch_plan(B: int, K: int):
-    """(KS, warps): child slots a block owns and warps a block.  A block
-    covers one device column and KS slots; each warp keeps a private
-    (KS, B, 3) histogram in shared memory."""
-    ks, warps = K, _WARPS
-    while warps > 1 and _smem_bytes(B, ks, warps) > _SMEM_BUDGET:
-        warps -= 1
-    while ks > 1 and _smem_bytes(B, ks, warps) > _SMEM_BUDGET:
-        ks = (ks + 1) // 2
-    if _smem_bytes(B, ks, warps) > _SMEM_BUDGET:
+    """(KS, threads, smem): child slots a block owns, threads a block and
+    shared memory a block.  A block covers one device column and KS slots
+    (the K slots split evenly over as few slices as fit the budget) with
+    _THREADS threads, or _THREADS_WIDE where shared memory holds at most
+    two blocks an SM (255 bins at K = 32), so an SM keeps up to 2048
+    threads of gathers in flight."""
+    cell = B * 3 * 8 + 8
+    ks_max = (_SMEM_BUDGET - _STATIC_SMEM) // cell
+    if ks_max < 1:
         raise LightGBMError("sparse histogram block does not fit shared "
                             "memory (B=%d)" % B)
-    return ks, warps
+    slices = -(-K // ks_max)
+    ks = -(-K // slices)
+    smem = _smem_bytes(B, ks)
+    threads = (_THREADS_WIDE if _SMEM_PER_SM // (smem + 1024) <= 2
+               else _THREADS)
+    return ks, threads, smem
 
 
 def _check(store, leaf_id, w3, child_id, num_bins, num_cols):
@@ -258,30 +273,39 @@ def _check(store, leaf_id, w3, child_id, num_bins, num_cols):
         for t, _, _, name in want:
             if not t.is_contiguous():
                 raise LightGBMError("%s must be contiguous" % name)
+        check_rows(n)
+
+
+def _launch(store, leaf_id, w3, child_id, num_bins, num_cols, exps, plan):
+    """B6 on plan (launch_plan's KS and threads): the (K, F, B, 3)
+    histograms."""
+    dev = leaf_id.device
+    K, B = child_id.shape[0], int(num_bins)
+    hist = torch.empty((K, num_cols, B, 3), dtype=torch.float32, device=dev)
+    err = _build.library().lgbt_sparse_hist(
+        *[t.data_ptr() for t in (store.ent_row, store.ent_bin,
+                                 store.col_cptr, leaf_id, w3, child_id, exps,
+                                 hist)],
+        num_cols, leaf_id.shape[0], B, K, store.ent_bin.shape[1], *plan,
+        _build.stream(dev))
+    _build.check(err, "sparse_hist")
+    return hist
 
 
 def sparse_wave_histogram(store: ChunkedSparseStore, leaf_id, w3, child_id,
-                          num_bins: int, num_cols: int):
+                          num_bins: int, num_cols: int, exps=None):
     """Kernel B6: the (K, F, B, 3) f32 histograms of the rows whose leaf
     is child_id[k] (-1 = inactive, all zero), from the store's non-fill
-    entries only; fill slots stay exactly 0."""
+    entries only; fill slots stay exactly 0.  exps: the kernel's
+    fixed-point exponents (fixed_point_exponents(w3)), computed here when
+    None; the plain version does not use them."""
     _check(store, leaf_id, w3, child_id, num_bins, num_cols)
     if leaf_id.device.type == "cpu":
         return chunked_child_hists_plain(store, leaf_id, w3, child_id,
                                          num_bins, num_cols)
-    lib = _build.library()
-    n = leaf_id.shape[0]
-    K, B = child_id.shape[0], int(num_bins)
-    e = store.ent_bin.shape[1]
-    ks, warps = launch_plan(B, K)
-    hist = torch.empty((K, num_cols, B, 3), dtype=torch.float32,
-                       device=leaf_id.device)
-    err = lib.lgbt_sparse_hist(
-        store.ent_row.data_ptr(), store.ent_bin.data_ptr(),
-        store.col_cptr.data_ptr(), leaf_id.data_ptr(), w3.data_ptr(),
-        child_id.data_ptr(), hist.data_ptr(), num_cols, n, B, K, e, ks,
-        warps, torch.cuda.current_stream(leaf_id.device).cuda_stream)
-    _build.check(err, "sparse_hist")
+    plan = launch_plan(int(num_bins), child_id.shape[0])[:2]
+    hist = _launch(store, leaf_id, w3, child_id, num_bins, num_cols,
+                   _exps(w3, exps), plan)
     sparse_wave_histogram.launches += 1
     return hist
 

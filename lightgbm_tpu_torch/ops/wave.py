@@ -21,9 +21,9 @@ wave: the number of valid splits (the k == 0 stop test) together with
 the chosen parent ids, from which the host tracks leaf depths.
 
 On the entry-chunk sparse store (``ops/sparse_mxu.py``, the JAX
-package's ``sparse_mxu`` engine) every histogram -- the root with W slots
-of which only slot 0 is active, each wave's smaller children and the
-no-cache larger children -- comes from kernel B6
+package's ``sparse_mxu`` engine) every histogram -- the root's one slot,
+each wave's smaller children and the no-cache larger children -- comes
+from kernel B6, in the same fixed point with the same exponents
 (``sparse_wave_histogram``); the partition reads only the entries of the W
 split columns (``sparse_route_rows``, plain torch), and the histogram view
 rebuilds the fill-bin slots the store never holds (``fix_default``).
@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from .grow import GrowStats, TreeArrays, feature_hist_view
+from .histogram import weight_rows
 from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
                            LEFT_COUNT, LEFT_OUTPUT, LEFT_SUM_G, LEFT_SUM_H,
                            RIGHT_COUNT, RIGHT_OUTPUT, RIGHT_SUM_G,
@@ -83,17 +84,16 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     f32, i32 = torch.float32, torch.int32
     n = grad.shape[0]
     sparse = isinstance(X, ChunkedSparseStore)
-    w3 = torch.stack([grad * row_mult, hess * row_mult, row_mult],
-                     dim=-1).to(f32).contiguous()          # (N, 3)
+    w3 = weight_rows(grad, hess, row_mult)                 # (N, 3)
     leaf_id = torch.zeros(n, dtype=i32, device=dev)
-    # the dense kernels' fixed-point exponents (B1, B3, B4): w3 is fixed
+    # the kernels' fixed-point exponents (B1, B3, B4, B6): w3 is fixed
     # within the tree, so the root and every child carry the same scale
-    exps = None if sparse else fixed_point_exponents(w3)
+    exps = fixed_point_exponents(w3)
 
     def child_hists(lid, ids):
         if sparse:
             return sparse_wave_histogram(X, lid, w3, ids, hist_bins,
-                                         X.num_cols)
+                                         X.num_cols, exps=exps)
         if hist_mode == "pallas":
             return wave_histogram_rowmajor(X, lid, w3, ids, hist_bins,
                                            exps=exps)
@@ -106,11 +106,9 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
             hist_view=lambda h, s: feature_hist_view(h, s, meta, bundle,
                                                      fix_default=sparse))
 
-    # ---- root: one active child slot (leaf 0); the sparse store uses
-    # the waves' W-slot call shape, the dense matrix a single slot
+    # ---- root: one child slot, leaf 0
     root_sums = w3.sum(dim=0)
-    root_ids = torch.full((W if sparse else 1,), -1, dtype=i32, device=dev)
-    root_ids[0] = 0
+    root_ids = torch.zeros(1, dtype=i32, device=dev)
     hist0 = child_hists(leaf_id, root_ids)[0]
     Fh, B = hist0.shape[0], hist0.shape[1]
     if cache_hists:

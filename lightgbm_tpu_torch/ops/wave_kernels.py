@@ -13,7 +13,8 @@ come back as (K, F, B, 3) f32.  The JAX package's B4 splits the weights
 into bf16 hi/lo halves for the TPU's matrix unit; the port's kernels list
 the rows in a child slot (B1 while it routes them, B3 and B4 by their
 ids), sum them in 64-bit fixed point (``fixed_point_exponents``) and
-convert to f32 once, so the three give the same bits for the same rows.
+convert to f32 once, so the three give the same bits for the same rows
+(and so do B5, ``ops/leaf_hist.py``, and B6, ``ops/sparse_mxu.py``).
 The plain versions add in the weights' dtype.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -21,6 +22,8 @@ launches the kernel (building it on first use) or raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
@@ -172,9 +175,21 @@ def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None,
         for t, name in named:
             if not t.is_contiguous():
                 raise LightGBMError("%s must be contiguous" % name)
-        if F * N >= 2 ** 31:
-            raise LightGBMError("X_t too large for the kernel's int32 row "
-                                "index (F*N=%d)" % (F * N))
+        check_rows(N)
+
+
+# the kernels hold a row in an int and address the bins with 64-bit
+# offsets: the row count is their only limit on the shape
+MAX_ROWS = 2 ** 31 - 1
+
+
+def check_rows(n_rows: int) -> None:
+    """Refuse a row count the kernels cannot index (N >= 2^31).  F x N
+    may exceed 2^31: no kernel forms a 32-bit offset of row * F or
+    f * N."""
+    if n_rows > MAX_ROWS:
+        raise LightGBMError("the kernels take fewer than 2^31 rows "
+                            "(N=%d)" % n_rows)
 
 
 def _sms(dev) -> int:
@@ -192,12 +207,13 @@ def fixed_point_exponents(w3):
     channel c, and rounding each value to a multiple of 2^-e_c errs by at
     most N_cell * N * max|w_c| / 2^62 in a cell of N_cell rows.  w3 is
     fixed within a tree, so the grower computes this once a tree and B1,
-    B3 and B4 sum the same rows to the same bits."""
+    B3, B4, B5 and B6 sum the same rows to the same bits."""
     n = w3.shape[0]
     m = w3.abs().amax(dim=0).to(torch.float64) * n
     return (62 - torch.frexp(m).exponent).to(torch.int32)
 
 
+@lru_cache(maxsize=256)
 def hist_plan(F: int, N: int, B: int, K: int, num_sms: int):
     """The launch plan of B1, B3 and B4 (list_blocks, groups, R, KS, FS,
     copies, smem): list-pass blocks of _LIST_TILE rows a tile; histogram
@@ -249,13 +265,17 @@ def _check_slots(K):
                             "slots (K=%d)" % K)
 
 
-def _list_buffers(N, K, F, B, dev):
-    """(rows (N, 2) int32, acc: K * F * B * 3 zeroed int64 sums and the
-    list's length, hist (K, F, B, 3) f32)."""
+def _list_buffers(N, K, F, B, dev, hist_shape=None):
+    """(list, acc, work, hist): the pointers of the compact list (N int2)
+    and of the K * F * B * 3 int64 sums with the list's length after
+    them, which the kernel entry zeroes; the workspace tensor holding
+    both, which the caller keeps until it has launched; the (K, F, B, 3)
+    f32 histogram (or hist_shape)."""
     _check_slots(K)
-    return (torch.empty((N, 2), dtype=torch.int32, device=dev),
-            torch.zeros(K * F * B * 3 + 1, dtype=torch.int64, device=dev),
-            torch.empty((K, F, B, 3), dtype=torch.float32, device=dev))
+    work = torch.empty(N + K * F * B * 3 + 1, dtype=torch.int64, device=dev)
+    hist = torch.empty(hist_shape or (K, F, B, 3), dtype=torch.float32,
+                       device=dev)
+    return work.data_ptr(), work.data_ptr() + 8 * N, work, hist
 
 
 def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
@@ -268,11 +288,11 @@ def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
     exps = _exps(w3, exps)
     dev = X_t.device
     plan = hist_plan(F, N, B, K, _sms(dev))[:6]
-    rows, acc, hist = _list_buffers(N, K, F, B, dev)
+    rows, acc, work, hist = _list_buffers(N, K, F, B, dev)
     new_lid = torch.empty(N, dtype=torch.int32, device=dev)
     err = lib.lgbt_wave_fused(
         *[t.data_ptr() for t in (X_t, leaf_id, w3, child_id, cols, psrc,
-                                 exps, new_lid, rows, acc, hist)],
+                                 exps, new_lid)], rows, acc, hist.data_ptr(),
         F, N, B, K, W, *plan, int(bundled), _build.stream(dev))
     _build.check(err, "wave_fused")
     return new_lid, hist
@@ -287,11 +307,10 @@ def _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, rowmajor):
     exps = _exps(w3, exps)
     dev = X.device
     plan = hist_plan(F, N, B, K, _sms(dev))[:6]
-    rows, acc, hist = _list_buffers(N, K, F, B, dev)
+    rows, acc, work, hist = _list_buffers(N, K, F, B, dev)
     err = lib.lgbt_wave_hist(
-        *[t.data_ptr() for t in (X, leaf_id, w3, child_id, exps, rows, acc,
-                                 hist)],
-        F, N, B, K, *plan, int(rowmajor), _build.stream(dev))
+        *[t.data_ptr() for t in (X, leaf_id, w3, child_id, exps)], rows, acc,
+        hist.data_ptr(), F, N, B, K, *plan, int(rowmajor), _build.stream(dev))
     _build.check(err, "wave_hist")
     return hist
 

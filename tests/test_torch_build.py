@@ -22,8 +22,9 @@ def test_digest_covers_sources_and_headers(tmp_path, monkeypatch):
 
 
 def test_package_sources_are_the_kernels():
-    """The sources the build compiles: one file for the wave kernels (B1,
-    B3, B4) beside those of B2, B5 and B6."""
+    """The sources the build compiles: one file for the dense histogram
+    kernels (B1, B3, B4 and B5) beside those of B2 and B6, and the
+    fixed-point header the two histogram sources share."""
     assert [p.name for p in _build._sources()] == [
-        "leaf_hist.cu", "score_update.cu", "sparse_hist.cu",
-        "wave_fused.cu"]
+        "score_update.cu", "sparse_hist.cu", "wave_fused.cu"]
+    assert "fixed_point.cuh" in [p.name for p in _build._inputs()]

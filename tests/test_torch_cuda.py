@@ -9,12 +9,15 @@ dependencies are installed:
 
 Tolerances: leaf ids and the score update are exact; histograms agree to
 rtol 1e-5 with atol 1e-5 x max|w| (f32 sums taken in another order), and
-two launches on the same input are bit-identical.  B1, B3, B4 and B5 are
-also held against their plain versions computed in float64 with
+two launches on the same input are bit-identical.  B1, B3, B4, B5 and B6
+are also held against their plain versions computed in float64 with
 chip_smoke.py's tolerance: a cell may differ by 1e-5 x (sum of |w| over
-the cell) + 1e-5 x max|w|.  B1, B3 and B4 sum in one fixed point, so on
-the same rows their histograms are equal to the bit, and the three dense
-wave dataflows train byte-identical model text.
+the cell) + 1e-5 x max|w|.  All five sum in one fixed point with the
+tree's exponents, so on the same rows their histograms are equal to the
+bit (B6's in every cell but the fill bins it never holds): the three
+dense wave dataflows train byte-identical model text, and so do exact
+growth and wave growth at width 1.  The kernels take F x N past 2^31
+(test_kernels_large_f_times_n_past_2_31, 4.4 GB of bins on the card).
 """
 import numpy as np
 import pytest
@@ -27,10 +30,12 @@ from lightgbm_tpu_torch.ops import sparse_mxu as sm
 from lightgbm_tpu_torch.ops import wave_kernels as wk
 from lightgbm_tpu_torch.ops.partition import clipped_leaf_values
 from lightgbm_tpu_torch.utils.common import kMaxTreeOutput
-from torch_cases import (LEAF_CASES, NO_CACHE, SCORE_CASES,
-                         assert_hist_close, bundled_case, leaf_case,
-                         parity_data, score_case, sparse_bundled_case,
-                         sparse_case, t, unbundled_case, wave_data)
+from lightgbm_tpu_torch.ops.histogram import weight_rows
+from torch_cases import (LEAF_CASES, NO_CACHE, SAMPLED, SCORE_CASES,
+                         assert_hist_close, bundled_case, labels, leaf_case,
+                         parity_data, parity_params, score_case,
+                         sparse_bundled_case, sparse_case, t, unbundled_case,
+                         wave_data)
 
 pytestmark = pytest.mark.cuda
 
@@ -361,6 +366,69 @@ def test_sparse_kernel_duplicate_child_ids(dev):
     assert_hist_close(got.cpu().numpy(), want.numpy(), w3)
 
 
+def _check_b6_against_b3(dev, X, fill, lid, w3, cid, b, entry_chunk=128,
+                         auto_uniform=False):
+    """B6 on a store built from X against B3 on X_t with the same leaf
+    ids, w3, child ids and exponents: every non-fill cell equal to the
+    bit, fill cells exactly 0, within the float64 tolerance of the plain
+    version, repeats equal.  Returns B6's histogram."""
+    store, _ = sm.build_chunked_store(X, fill, b, entry_chunk=entry_chunk,
+                                      auto_uniform=auto_uniform)
+    f = X.shape[1]
+    ids, w, c = t(lid).to(dev), t(w3).to(dev), t(cid).to(dev)
+    exps = wk.fixed_point_exponents(w)
+    on_card = _on(store, dev)
+    got = sm.sparse_wave_histogram(on_card, ids, w, c, b, f, exps=exps)
+    again = sm.sparse_wave_histogram(on_card, ids, w, c, b, f)
+    dense = wk.wave_histogram(t(X.T).to(dev), ids, w, c, b, exps=exps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    fill_cell = torch.zeros((f, b), dtype=torch.bool, device=dev)
+    fill_cell[torch.arange(f, device=dev), t(fill).long().to(dev)] = True
+    assert bool((got[:, fill_cell] == 0).all())
+    assert torch.equal(got[:, ~fill_cell], dense[:, ~fill_cell])
+    assert bool((got[:, ~fill_cell] != 0).any())
+    w64 = t(w3).double()
+    want = sm.chunked_child_hists_plain(store, t(lid), w64, t(cid), b, f)
+    scale = sm.chunked_child_hists_plain(store, t(lid), w64.abs(), t(cid),
+                                         b, f)
+    assert _within_f64(got, want, scale, float(np.abs(w3).max()))
+    return got
+
+
+@pytest.mark.parametrize("kind", ["plain", "bundled", "k32"])
+@pytest.mark.parametrize("auto_uniform", [False, True])
+def test_sparse_kernel_bit_equal_to_b3(dev, kind, auto_uniform):
+    """B6's non-fill cells are B3's to the bit on the same rows and
+    exponents: plain columns, EFB group columns, and K = 32 at 63 bins
+    with an inactive and a repeated child id, in the narrow and the
+    uniform chunk layout."""
+    X, fill, lid, w3, cid, b = _sparse_kernel_case(kind)
+    if kind == "k32":
+        cid[-1] = cid[0]
+    _check_b6_against_b3(dev, X.astype(np.uint8), fill, lid, w3, cid, b,
+                         auto_uniform=auto_uniform)
+
+
+def test_sparse_kernel_255_bins_split_slots(dev):
+    """At 255 bins one (K, B, 3) int64 histogram of K = 32 takes 196 KB,
+    a block an SM with 1024 threads; K = 64 splits the slots over two
+    slices, with a child id held in both slices (each slice sums it
+    apart, to the same bits) and an inactive slot.  The kernel's shared
+    memory is the plan's."""
+    b, k = 255, 64
+    X, fill, lid, w3 = sparse_case(n=6000, f=9, b=b, L=2 * k, seed=8)
+    ks, threads, smem = sm.launch_plan(b, k)
+    assert ks < k and (ks, threads) == (32, 1024)
+    assert _build.library().lgbt_sparse_hist_smem(b, ks) == smem
+    assert sm.launch_plan(b, 32)[:2] == (32, 1024)
+    cid = np.random.default_rng(8).permutation(2 * k)[:k].astype(np.int32)
+    cid[40] = cid[3]                     # one id in both slices
+    cid[5] = -1
+    got = _check_b6_against_b3(dev, X, fill, lid, w3, cid, b)
+    assert torch.equal(got[40], got[3]) and bool((got[5] == 0).all())
+
+
 @pytest.mark.parametrize("bundled", [False, True])
 def test_sparse_training_on_the_card_matches_the_cpu(dev, bundled):
     """Sparse CSR input through the entry-chunk store: the card (kernel
@@ -469,25 +537,33 @@ def test_rowmajor_hist_kernel_matches_plain(dev, k):
 
 @pytest.mark.parametrize("n,f,b,kind,leaf", LEAF_CASES
                          + [(20000, 968, 255, "fractional", 1)])
-def test_leaf_hist_kernel_matches_plain(dev, n, f, b, kind, leaf):
-    """B5 on the CPU cases, and a wide shape (968 features at 255 bins)
-    that takes the kernel's feature-group grid axis."""
+@pytest.mark.parametrize("copies", [0, 1])
+def test_leaf_hist_kernel_matches_plain(dev, n, f, b, kind, leaf, copies):
+    """B5 on the CPU cases, and a wide shape (968 features at 255 bins,
+    many feature groups), through the wrapper (B4's plan at K = 1) and
+    launched on that plan with its copies (0) or one copy, each with the
+    weight rows and exponents built inside and handed in: within the
+    float64 tolerance, bit-identical across plans, repeats and the two
+    ways of calling."""
     X, g, h, lid, rm = leaf_case(n, f, b, kind)
-    R, rpb, fg = lh.launch_plan(f, n, b, torch.cuda.get_device_properties(
-        0).multi_processor_count)
-    assert _build.library().lgbt_leaf_hist_smem(b, fg) == lh._smem_bytes(
-        b, fg)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = wk.hist_plan(f, n, b, 1, sms)[:6]
     if f == 968:
-        assert fg < f                      # more than one feature group
+        assert plan[1] > 1                 # more than one feature group
     dargs = [t(a).to(dev) for a in (X, g, h, lid)]
     drm = None if rm is None else t(rm).to(dev)
+    w3 = weight_rows(dargs[1], dargs[2], drm)
+    exps = wk.fixed_point_exponents(w3)
     n0 = lh.leaf_histogram.launches
     got = lh.leaf_histogram(*dargs, leaf, drm, b)
     again = lh.leaf_histogram(*dargs, torch.tensor([leaf], device=dev), drm,
-                              b)
+                              b, w3=w3, exps=exps)
+    leaf_t = torch.full((1,), leaf, dtype=torch.int32, device=dev)
+    other = lh._launch(dargs[0], w3, dargs[3], leaf_t, b, exps,
+                       plan[:5] + (copies or plan[5],))
     torch.cuda.synchronize()
     assert lh.leaf_histogram.launches == n0 + 2
-    assert torch.equal(got, again)
+    assert torch.equal(got, again) and torch.equal(got, other)
     rm64 = None if rm is None else t(rm).double()
     want = lh.leaf_histogram_plain(t(X), t(g).double(), t(h).double(),
                                    t(lid), leaf, rm64, b)
@@ -499,6 +575,110 @@ def test_leaf_hist_kernel_matches_plain(dev, n, f, b, kind, leaf):
     assert _within_f64(got, want, scale, wmax)
     if leaf == 9:
         assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("leaf", [0, 5])
+def test_leaf_hist_kernel_bit_equal_to_b4(dev, leaf):
+    """At the flagship shape (N = 2M, F = 28, B = 63, a 64-leaf state
+    with bagging multipliers): B5 on leaf 5 and on the root (every row in
+    leaf 0) equals B4 at K = 1 on the same X, leaf ids, w3 and exponents,
+    bit for bit."""
+    n, f, b = 2_000_000, 28, 63
+    g = torch.Generator(device="cpu").manual_seed(leaf)
+    X = torch.randint(0, b, (n, f), generator=g, dtype=torch.uint8).to(dev)
+    lid = (torch.randint(0, 64, (n,), generator=g, dtype=torch.int32)
+           if leaf else torch.zeros(n, dtype=torch.int32)).to(dev)
+    grad = torch.randn(n, generator=g).to(dev)
+    hess = (torch.rand(n, generator=g) + 0.05).to(dev)
+    rm = (torch.rand(n, generator=g) > 0.2).float().to(dev)
+    w3 = weight_rows(grad, hess, rm)
+    exps = wk.fixed_point_exponents(w3)
+    leaf_t = torch.full((1,), leaf, dtype=torch.int32, device=dev)
+    got = lh.leaf_histogram(X, grad, hess, lid, leaf_t, rm, b, w3=w3,
+                            exps=exps)
+    b4 = wk.wave_histogram_rowmajor(X, lid, w3, leaf_t, b, exps=exps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, b4[0]) and bool((got != 0).any())
+
+
+@pytest.mark.parametrize("objective,bundled,more", [
+    ("binary", False, dict(SAMPLED, max_depth=4)),
+    ("regression", True, {}),
+])
+@pytest.mark.parametrize("cache", [True, False])
+def test_exact_growth_equals_wave_width_1_on_the_card(dev, objective,
+                                                      bundled, more, cache):
+    """Exact growth (B5) and wave growth at width 1 on the row-major bins
+    (B4) and through the fused step (B1, B3) train byte-identical model
+    text on the card, with and without the histogram cache: every
+    histogram of the three is the f32 rounding of the same fixed-point
+    sum (tests/test_torch_exact_train.py's fixtures)."""
+    import lightgbm_tpu_torch as lgb
+
+    X, s = parity_data(7, 2500, bundled)
+    y = labels(objective, s)
+    params = parity_params(objective, dict(more, **({} if cache
+                                                   else NO_CACHE)))
+    n0 = (lh.leaf_histogram.launches, wk.wave_histogram_rowmajor.launches)
+    exact = lgb.train(dict(params, tpu_growth="exact",
+                           tpu_histogram_mode="pallas"),
+                      lgb.Dataset(X, label=y), 5, device="cuda")
+    assert exact._gbdt.learner.cache_hists == cache
+    assert ((exact._gbdt.train_data.bundle is not None) == bundled)
+    assert lh.leaf_histogram.launches > n0[0]
+    texts = [exact.model_to_string()]
+    for mode in ("pallas", "pallas_ct"):
+        wave = lgb.train(dict(params, tpu_growth="wave", tpu_wave_width=1,
+                              tpu_histogram_mode=mode),
+                         lgb.Dataset(X, label=y), 5, device="cuda")
+        texts.append(wave.model_to_string())
+    assert wk.wave_histogram_rowmajor.launches > n0[1]
+    assert texts[0] == texts[1] == texts[2]
+
+
+def test_kernels_large_f_times_n_past_2_31(dev):
+    """F x N past 2^31 (8.5M rows x 256 features of random bins made on
+    the card, 2.2 GB a layout): B3 on X_t, B4 on X and B5 on X take it.
+    The features whose bytes lie past 2^31 in X_t (f * N >= 2^31: the
+    last three) are held against a float64 torch.bincount of those
+    features alone; B4 equals B3 and B5 equals B4's slot, bit for bit."""
+    n, f, b = 8_500_000, 256, 256
+    assert f * n >= 2 ** 31 and (f - 3) * n >= 2 ** 31
+    g = torch.Generator(device=dev).manual_seed(3)
+    X = torch.randint(0, b, (n, f), generator=g, dtype=torch.uint8,
+                      device=dev)
+    lid = torch.randint(0, 4, (n,), generator=g, dtype=torch.int32,
+                        device=dev)
+    grad = torch.randn(n, generator=g, device=dev)
+    hess = torch.rand(n, generator=g, device=dev) + 0.05
+    rm = (torch.rand(n, generator=g, device=dev) > 0.2).float()
+    w3 = weight_rows(grad, hess, rm)
+    exps = wk.fixed_point_exponents(w3)
+    cid = torch.tensor([1, 3], dtype=torch.int32, device=dev)
+    rowmajor = wk.wave_histogram_rowmajor(X, lid, w3, cid, b, exps=exps)
+    leaf = lh.leaf_histogram(X, grad, hess, lid, cid[1:], rm, b, w3=w3,
+                             exps=exps)
+    tail = X[:, f - 3:].long()                     # (N, 3)
+    X_t = X.t().contiguous()
+    del X
+    torch.cuda.empty_cache()
+    got = wk.wave_histogram(X_t, lid, w3, cid, b, exps=exps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rowmajor) and torch.equal(leaf, rowmajor[1])
+    idx = (torch.arange(3, device=dev)[None, :] * b + tail)    # (N, 3)
+    w64 = w3.double()
+    wmax = float(w3.abs().max())
+    for k in range(2):
+        rows = lid == cid[k]
+        cell = idx[rows].reshape(-1)
+        for c in range(3):
+            wc = w64[rows, c].repeat_interleave(3)
+            want = torch.bincount(cell, weights=wc, minlength=3 * b)
+            scale = torch.bincount(cell, weights=wc.abs(), minlength=3 * b)
+            have = got[k, f - 3:, :, c].double().reshape(-1)
+            assert bool(((have - want).abs()
+                         <= 1e-5 * scale + 1e-5 * wmax).all())
+            assert bool((have != 0).all())
 
 
 @pytest.mark.parametrize("growth", ["exact", "wave"])

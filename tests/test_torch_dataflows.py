@@ -1,19 +1,26 @@
 """The three dense wave dataflows of the port on the CPU: the fused wave
 step (``pallas_ct``, B1), the plain partition before the histogram-only
-pass (``pallas_t``, B3) and the same on row-major bins (``pallas``, B4).
+pass (``pallas_t``, B3) and the same on row-major bins (``pallas``, B4);
+and the exponents handed to the exact grower's B5 and the sparse store's
+B6.
 
-Every dense mode computes the tree's fixed-point exponents once and hands
-the same tensor to each histogram call (the kernels sum in that fixed
-point; the plain versions ignore it), and the trees stay the ones these
-params trained before the exponents reached B3 and B4: the model texts'
-digests are pinned.  On the CPU the three modes add in the same f32
-order, so their model texts are equal to the byte as well.
+Every grower computes the tree's weight rows and fixed-point exponents
+once and hands the same tensors to each histogram call (the kernels sum
+in that fixed point; the plain versions ignore it), and the trees stay
+the ones these params trained before the exponents reached B3 and B4:
+the model texts' digests are pinned.  On the CPU the three modes add in
+the same f32 order, so their model texts are equal to the byte as well.
 """
 import hashlib
 
 import pytest
+import torch
+
+import numpy as np
+import scipy.sparse as sps
 
 import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch.ops import grow as grow_mod
 from lightgbm_tpu_torch.ops import wave as wave_mod
 from torch_cases import NO_CACHE, parity_data
 
@@ -81,3 +88,81 @@ def test_dense_dataflows_train_the_same_model_text(bundled, cache):
     assert texts[0] == texts[1] == texts[2]
     assert hashlib.sha256(texts[0].encode()).hexdigest()[:16] == PINNED[
         (bundled, cache)]
+
+
+def _spy(monkeypatch, mod, wrapper):
+    """(made, calls): every fixed_point_exponents result of the grower
+    module mod, and for each call of its histogram wrapper the (w3, exps)
+    it was given beside the latest exponents made."""
+    made, calls = [], []
+    real_exps = mod.fixed_point_exponents
+    real_hist = getattr(mod, wrapper)
+
+    def exps_spy(w3):
+        made.append((w3, real_exps(w3)))
+        return made[-1][1]
+
+    def hist_spy(*args, **kw):
+        calls.append((args, kw, made[-1] if made else None))
+        return real_hist(*args, **kw)
+
+    monkeypatch.setattr(mod, "fixed_point_exponents", exps_spy)
+    monkeypatch.setattr(mod, wrapper, hist_spy)
+    return made, calls
+
+
+@pytest.mark.parametrize("bundled", [False, True])
+@pytest.mark.parametrize("cache", [True, False])
+def test_grow_tree_exact_passes_the_tree_weights_and_exponents(
+        monkeypatch, bundled, cache):
+    """grow_tree_exact makes w3 and fixed_point_exponents(w3) once a tree
+    and passes both tensors to every B5 call, the root's (the one call
+    whose leaf is the host integer 0) included; w3 is the wave grower's
+    [g*m, h*m, m]."""
+    made, calls = _spy(monkeypatch, grow_mod, "leaf_histogram")
+    X, s = parity_data(3, 2000, bundled)
+    p = dict({"objective": "binary", "num_leaves": 15,
+              "min_data_in_leaf": 20, "max_bin": 63, "verbose": -1,
+              "tpu_growth": "exact", "tpu_histogram_mode": "pallas"},
+             **({} if cache else NO_CACHE))
+    booster = lgb.train(p, lgb.Dataset(X, label=(s > 0).astype(float)),
+                        ITERS, device="cpu")
+    assert booster._gbdt.learner.cache_hists == cache
+    stats = booster.grow_stats()
+    splits = sum(st.waves for st in stats)
+    assert len(made) == len(stats) == ITERS
+    assert len(calls) == len(stats) + splits * (1 if cache else 2)
+    roots = 0
+    for args, kw, (w3, exps) in calls:
+        assert kw["w3"] is w3 and kw["exps"] is exps
+        grad, hess, row_mult = args[1], args[2], args[5]
+        assert torch.equal(w3, torch.stack(
+            [grad * row_mult, hess * row_mult, row_mult], dim=-1))
+        roots += not isinstance(args[4], torch.Tensor) and args[4] == 0
+    assert roots == len(stats)
+
+
+@pytest.mark.parametrize("cache", [True, False])
+def test_sparse_grower_passes_the_tree_exponents(monkeypatch, cache):
+    """On the entry-chunk store grow_tree passes the tree's exponents to
+    every B6 call, the root's (one child slot) included."""
+    made, calls = _spy(monkeypatch, wave_mod, "sparse_wave_histogram")
+    rng = np.random.default_rng(0)
+    X = np.where(rng.random((2000, 8)) < 0.2, rng.normal(size=(2000, 8)),
+                 0.0)
+    X[:, 0] = rng.normal(size=2000)
+    y = (X[:, 0] + 0.7 * X[:, 1] > 0).astype(float)
+    p = dict({"objective": "binary", "num_leaves": 15,
+              "min_data_in_leaf": 20, "max_bin": 63, "verbose": -1,
+              "tpu_growth": "wave", "tpu_wave_width": 4, "tpu_sparse": True,
+              "tpu_sparse_kernel": True}, **({} if cache else NO_CACHE))
+    booster = lgb.train(p, lgb.Dataset(sps.csr_matrix(X), label=y), ITERS,
+                        device="cpu")
+    assert booster._gbdt.learner.hist_mode == "sparse_mxu"
+    stats = booster.grow_stats()
+    waves = sum(st.waves for st in stats)
+    assert len(made) == len(stats) == ITERS
+    assert len(calls) == len(stats) + waves * (1 if cache else 2)
+    for args, kw, (w3, exps) in calls:
+        assert kw["exps"] is exps and args[2] is w3
+    assert sum(args[3].shape[0] == 1 for args, _, _ in calls) == len(stats)

@@ -1,6 +1,6 @@
-"""The port stands alone: lightgbm_tpu_torch and chip_smoke.py import
-neither jax nor the JAX package, and its CUDA entry points never fall
-back to the CPU."""
+"""The port stands alone: lightgbm_tpu_torch and its scripts
+(chip_smoke.py, sparse_model_diff.py) import neither jax nor the JAX
+package, and its CUDA entry points never fall back to the CPU."""
 import ast
 import json
 import os
@@ -44,7 +44,8 @@ def _imported_modules(path: Path):
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "sparse_model_diff.py"]
     assert len(files) > 10
     return files
 

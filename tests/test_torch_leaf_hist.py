@@ -17,7 +17,9 @@ from lightgbm_tpu.ops.histogram import leaf_histogram_scatter
 from lightgbm_tpu.ops.histogram import leaf_sums as jax_leaf_sums
 from lightgbm_tpu.ops.pallas_hist import leaf_histogram_pallas
 from lightgbm_tpu_torch.ops import leaf_hist as lh
-from lightgbm_tpu_torch.ops.histogram import leaf_sums
+from lightgbm_tpu_torch.ops import wave_kernels as wk
+from lightgbm_tpu_torch.ops.histogram import leaf_sums, weight_rows
+from lightgbm_tpu_torch.ops.wave_kernels import fixed_point_exponents
 from torch_cases import LEAF_CASES, leaf_case, t
 
 
@@ -82,10 +84,11 @@ def test_cpu_wrapper_does_not_count_launches():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "device", "bins",
-                                 "leaf"])
+                                 "leaf", "w3", "exps"])
 def test_wrapper_validates_inputs(bad):
     X, g, h, lid, rm = leaf_case(64, 3, 7, "fractional")
     args = [t(X), t(g), t(h), t(lid), 1, t(rm), 7]
+    kw = {}
     if bad == "dtype":
         args[1] = args[1].double()
     elif bad == "shape":
@@ -94,24 +97,42 @@ def test_wrapper_validates_inputs(bad):
         args[2] = args[2].to("meta")
     elif bad == "bins":
         args[6] = 300
-    else:
+    elif bad == "leaf":
         args[4] = torch.tensor([1, 2])
+    elif bad == "w3":
+        kw["w3"] = weight_rows(*args[1:3], args[5])[:, :2]
+    else:
+        kw["exps"] = torch.zeros(3, dtype=torch.int64)
     with pytest.raises(lh.LightGBMError):
-        lh.leaf_histogram(*args)
+        lh.leaf_histogram(*args, **kw)
 
 
-@pytest.mark.parametrize("n,f,b", [(2_000_000, 28, 63), (2_000_000, 28, 255),
-                                   (1_000_000, 968, 63), (1_000_000, 968, 255),
-                                   (3000, 5, 14)])
-def test_launch_plan_bounds(n, f, b):
-    """Shared memory fits a block, the feature groups cover every feature,
-    the row blocks cover every row, and the partials stay at most half
-    the bytes of X (or one block)."""
-    R, rpb, fg = lh.launch_plan(f, n, b, num_sms=132)
-    groups = -(-f // fg)
-    assert (groups - 1) * fg < f <= groups * fg
-    assert lh._smem_bytes(b, fg) <= lh._SMEM_BUDGET
-    assert R * rpb >= n and (R - 1) * rpb < n
-    assert R == 1 or R * f * b * 12 <= f * n // 2
-    if f * b * 12 + lh._smem_bytes(b, 0) + 256 * f <= lh._SMEM_BUDGET:
-        assert groups == 1                 # all features fit one block
+@pytest.mark.parametrize("n,f,b,kind,leaf", LEAF_CASES)
+def test_kernel_arguments_keep_the_plain_result(n, f, b, kind, leaf):
+    """On the CPU the wrapper given the grower's w3= and exps= returns the plain histogram to the bit: the plain version uses
+    grad, hess and row_mult, and the kernel's arguments only steer the
+    kernel."""
+    X, g, h, lid, rm = leaf_case(n, f, b, kind)
+    args = [t(X), t(g), t(h), t(lid), leaf, None if rm is None else t(rm),
+            b]
+    w3 = weight_rows(*args[1:3], args[5])
+    got = lh.leaf_histogram(*args, w3=w3, exps=fixed_point_exponents(w3))
+    want = lh.leaf_histogram_plain(*args[:4], torch.tensor([leaf]),
+                                   *args[5:])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("f,b", [(28, 63), (968, 255), (5, 14)])
+def test_leaf_plan_is_b4s_at_one_slot(f, b):
+    """B5 launches on B4's plan at K = 1 for every leaf (a short list
+    takes fewer of its shares on the device): one slot, feature groups
+    covering F, a power-of-two count of copies whose shared histograms
+    fit one block's budget, and shares of at least a block's threads of
+    rows when every row is listed."""
+    n, sms = 2_000_000, 132
+    list_blocks, groups, R, ks, fs, copies, smem = wk.hist_plan(f, n, b, 1,
+                                                                sms)
+    assert ks == 1 and groups * fs >= f > (groups - 1) * fs
+    assert copies & (copies - 1) == 0 and 1 <= copies <= wk._MAX_COPIES
+    assert smem == copies * fs * b * 3 * 8 <= wk._SMEM_BUDGET
+    assert 1 <= R and R * wk._HIST_THREADS <= n and list_blocks >= 1

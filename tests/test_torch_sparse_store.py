@@ -173,3 +173,25 @@ def test_sparse_partition_routes_like_the_dense_one(bundled, auto_uniform):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert (got.numpy() != lid).any()
+
+
+@pytest.mark.parametrize("b,k", [(63, 1), (63, 32), (255, 1), (255, 32),
+                                 (600, 32), (2, 3)])
+def test_b6_launch_plan_bounds(b, k):
+    """B6's plan: a block's shared memory fits the budget, the K slots
+    split evenly over as few slices as fit, and a block takes 512
+    threads, or 1024 where shared memory holds at most two blocks an SM.
+    At Bosch's K = 32 and 63 bins: all 32 slots in one 56 KB block (four
+    an SM); at 255 bins 32 slots in one 196 KB block of 1024 threads."""
+    ks, threads, smem = tsm.launch_plan(b, k)
+    slices = -(-k // ks)
+    assert 1 <= ks <= k and (slices - 1) * ks < k
+    assert slices == 1 or tsm._smem_bytes(
+        b, -(-k // (slices - 1))) > tsm._SMEM_BUDGET   # fewest slices
+    assert smem == tsm._smem_bytes(b, ks) <= tsm._SMEM_BUDGET
+    per_sm = tsm._SMEM_PER_SM // (smem + 1024)
+    assert threads == (1024 if per_sm <= 2 else 512)
+    if (b, k) == (63, 32):
+        assert (ks, threads, per_sm) == (32, 512, 4)
+    if b == 255 and k == 32:
+        assert (ks, threads, per_sm) == (32, 1024, 1)

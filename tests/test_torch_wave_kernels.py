@@ -364,3 +364,18 @@ def test_select_list_plain_lists_the_rows_in_a_child_slot(kind):
     assert (len(expect) == 0) == (kind == "inactive")
     plain = wk.select_list_plain(_t(lid), _t(cid))
     assert all(torch.equal(a, c) for a, c in zip(plain, (rows, slots)))
+
+
+@pytest.mark.parametrize("f,n", [(256, 8_500_000), (968, 10_500_000)])
+def test_row_guard_allows_f_times_n_past_2_31(f, n):
+    """The kernels' only shape limit is the int row: F x N past 2^31
+    (8.5M x 256 bins, the 10.5M-row recipe at Bosch's width) is taken."""
+    assert f * n >= 2 ** 31
+    wk.check_rows(n)
+    wk.check_rows(wk.MAX_ROWS)
+
+
+@pytest.mark.parametrize("n", [2 ** 31, 2 ** 33])
+def test_row_guard_refuses_2_31_rows(n):
+    with pytest.raises(wk.LightGBMError, match="2\\^31 rows"):
+        wk.check_rows(n)
