@@ -42,17 +42,25 @@ Phases, in order:
     adds over 67 TFLOP/s, whichever is larger).  --sweep also times B5 at
     1, 4 and its plan's copies and B6 at 256, 512 and 1024 threads.
  4. Training: bench.py's flagship recipe and data, every launch counter
-    set to 0 just before and read just after; the valid AUC must exceed
-    0.8, the device-side scores must agree with the host-side trees, and a
-    small run on the card must grow the trees the CPU grows.  Then the
-    same with tpu_histogram_mode=pallas_t (B3 once a wave and once a tree,
-    no other histogram kernel, and the main path's model text to the
-    byte), with tpu_growth=exact, tpu_histogram_mode=pallas (B5 once for
-    the root and once a split, no other histogram kernel) and with
-    tpu_growth=wave, tpu_histogram_mode=pallas (B4 once a wave and once
-    a tree, and the main path's model text to the byte); each run prints
-    its steady rate, its waves or splits a tree and its host reads a
-    tree.
+    set to 0 just before and read just after, on the fused iteration
+    (tpu_fused_iter=auto on the card: a tree graph of the gradients, the
+    root and M masked waves, one host read, tail-wave graphs only if the
+    tree is not done, a B2 graph) and then staged (tpu_fused_iter=off) in
+    the same call, whose model text must equal the fused run's to the
+    byte; each run prints its chain, its graph capture seconds (set-up),
+    replays, host reads and the trees that needed tail waves.  Launches:
+    B1 once a wave pass (fused: M + tail waves a tree; staged: the waves
+    that split), B3 once a tree, B2 once an iteration.  The valid AUC
+    must exceed 0.8, the device-side scores must agree with the host-side
+    trees, and a small run on the card must grow the trees the CPU grows.
+    Then the same pair with tpu_histogram_mode=pallas_t (B3 once a wave
+    pass and once a tree, no other histogram kernel, and the main path's
+    model text to the byte), with tpu_growth=exact,
+    tpu_histogram_mode=pallas (staged; B5 once for the root and once a
+    split, no other histogram kernel) and the pair with tpu_growth=wave,
+    tpu_histogram_mode=pallas (B4 once a wave pass and once a tree, and
+    the main path's model text to the byte); each run prints its steady
+    rate, its waves or splits a tree and its host reads a tree.
  5. Sparse: tools/tpu_ab2.py's Bosch-shaped data (968 columns, 1% dense,
     built directly as CSR), binned sparsely, in the entry-chunk store.
     Kernel B6 against its plain version in float64 at K = 32 on a
@@ -62,12 +70,15 @@ Phases, in order:
     the dense bins rebuilt from the store on the card, the one-slot root
     bit-equal to the 32-slot call with slot 0 active) and its timing as
     in phase 3; then
-    training with tpu_sparse and tpu_sparse_kernel, every counter set to
-    0 just before and read just after: B6 once a wave and once a tree
-    (the root), B1 and B3 never, B2 once an iteration, valid AUC above
-    0.8, device valid scores equal to the host trees, a model text round
-    trip, and a small sparse run on the card that grows the CPU's trees
-    and the dense path's trees.
+    training with tpu_sparse and tpu_sparse_kernel, fused and then
+    staged, every counter set to 0 just before each and read just after:
+    B6 once a wave pass and once a tree (the root), B1 and B3 never, B2
+    once an iteration, valid AUC above 0.8, the two model texts equal to
+    the byte, device valid scores equal to the host trees, a model text
+    round trip, and a small sparse run on the card that grows the CPU's
+    trees and the dense path's trees.
+ With --profile, every training run profiles one more iteration: its
+ wall time, device busy share, device operations and graph replays.
  6. One JSON line of kernels, the card line, and the result line.
 """
 import argparse
@@ -730,53 +741,63 @@ def sparse_phase(args, lgb, sm, kernels, card):
     del store
     torch.cuda.empty_cache()
 
-    # ---- the sparse main path: lightgbm_tpu_torch.train on the store
-    stamps = []
+    # ---- the sparse main path: lightgbm_tpu_torch.train on the store,
+    # fused (auto on the card), then staged in the same call
+    runs = {}
+    for label, chain_params in (
+            ("sparse", params),
+            ("sparse-staged", dict(params, tpu_fused_iter="off"))):
+        stamps = []
 
-    def stamp(env):
+        def stamp(env):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        evals = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        booster, launches = counted(kernels, lambda: lgb.train(
+            chain_params, ds, ITERS, valid_sets=[dv], evals_result=evals,
+            callbacks=[stamp]))
         torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-
-    evals = {}
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    booster, launches = counted(kernels, lambda: lgb.train(
-        params, ds, ITERS, valid_sets=[dv], evals_result=evals,
-        callbacks=[stamp]))
-    torch.cuda.synchronize()
-    t_train = time.perf_counter() - t0
-    learner = booster._gbdt.learner
-    stats = booster.grow_stats()
-    trees = len(stats)
-    waves = sum(s.waves for s in stats)
-    reads = sum(s.host_reads for s in stats)
-    want_b6 = waves + trees + (0 if learner.cache_hists else waves)
-    say("sparse train launches: %s; %d trees, %d waves, histogram cache %s"
-        % (launches, trees, waves, learner.cache_hists))
-    need(learner.hist_mode == "sparse_mxu", "sparse run did not take the "
-         "sparse store (%s)" % learner.hist_mode)
-    need(trees == ITERS, "sparse: grew %d trees, wanted %d" % (trees, ITERS))
-    need(launches["sparse_wave_histogram"] == want_b6 and waves > 0,
-         "B6 launches %d != waves + trees (%d)"
-         % (launches["sparse_wave_histogram"], want_b6))
-    need(all(launches[k] == 0 for k in (
-        "wave_partition_hist", "wave_histogram", "wave_histogram_rowmajor",
-        "leaf_histogram")), "B1/B3/B4/B5 ran on the sparse path")
-    need(launches["score_update"] == ITERS,
-         "sparse: B2 launches %d != iterations %d"
-         % (launches["score_update"], ITERS))
-    auc = evals["valid_0"]["auc"][-1]
-    need(auc > 0.8, "sparse valid AUC %.4f <= 0.8" % auc)
-    steady = ((len(stamps) - 1) / (stamps[-1] - stamps[0])
-              if len(stamps) > 1 else float("nan"))
-    say("sparse train on %s: %d iterations in %.3f s including set-up "
-        "(%.4f it/s); steady %.4f it/s over iterations 2-%d; %.2f "
-        "waves/tree, %.2f host reads/tree, leaves/tree %s, depth %s; "
-        "valid AUC %.6f; peak device memory %.2f GB"
-        % (card, ITERS, t_train, ITERS / t_train, steady, ITERS,
-           waves / trees, reads / trees, [s.num_leaves for s in stats],
-           [s.depth for s in stats], auc,
-           torch.cuda.max_memory_allocated() / 1e9))
+        t_train = time.perf_counter() - t0
+        learner = booster._gbdt.learner
+        stats = booster.grow_stats()
+        trees = len(stats)
+        waves = sum(s.waves for s in stats)
+        reads = sum(s.host_reads for s in stats)
+        say("%s train launches: %s; %d trees, %d waves, histogram cache %s"
+            % (label, launches, trees, waves, learner.cache_hists))
+        need(learner.hist_mode == "sparse_mxu", "sparse run did not take "
+             "the sparse store (%s)" % learner.hist_mode)
+        need(trees == ITERS, "%s: grew %d trees, wanted %d"
+             % (label, trees, ITERS))
+        need((fused_of(booster) is None) == label.endswith("staged"),
+             "%s: took the other chain" % label)
+        check_wave_launches(label, booster, launches, stats,
+                            "sparse_wave_histogram")
+        auc = evals["valid_0"]["auc"][-1]
+        need(auc > 0.8, "%s valid AUC %.4f <= 0.8" % (label, auc))
+        steady = ((len(stamps) - 1) / (stamps[-1] - stamps[0])
+                  if len(stamps) > 1 else float("nan"))
+        say("%s train on %s: %d iterations in %.3f s including set-up "
+            "(%.4f it/s); steady %.4f it/s over iterations 2-%d; %.2f "
+            "waves/tree, %.2f host reads/tree, leaves/tree %s, depth %s; "
+            "valid AUC %.6f; peak device memory %.2f GB"
+            % (label, card, ITERS, t_train, ITERS / t_train, steady, ITERS,
+               waves / trees, reads / trees, [s.num_leaves for s in stats],
+               [s.depth for s in stats], auc,
+               torch.cuda.max_memory_allocated() / 1e9))
+        chain_line(label, booster, stats)
+        runs[label] = (booster, launches)
+        if args.profile:
+            profile_iteration(booster, card)
+    need(runs["sparse"][0].model_to_string()
+         == runs["sparse-staged"][0].model_to_string(),
+         "sparse: fused and staged model texts differ")
+    say("sparse: fused and staged model text equal to the byte")
+    booster, launches = runs.pop("sparse")
+    del runs
     raw_dev = booster._gbdt.valid_score_host(0)[0]
     raw_host = booster.predict(Xsv, raw_score=True)
     need(raw_host.shape == (Xsv.shape[0],) and np.isfinite(raw_host).all(),
@@ -792,8 +813,6 @@ def sparse_phase(args, lgb, sm, kernels, card):
     say("sparse checks: device scores match host trees; model text round "
         "trip; small sparse run on the card matches the CPU and the dense "
         "path")
-    if args.profile:
-        profile_iteration(booster, card)
     return record, launches
 
 
@@ -803,6 +822,8 @@ def profile_iteration(booster, card):
     and the device time by kernel, largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    fused = fused_of(booster)
+    replays = fused.replays if fused is not None else 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -810,6 +831,8 @@ def profile_iteration(booster, card):
         booster.update()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if fused is not None:
+        replays = fused.replays - replays
     rows, launches = [], 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -824,12 +847,13 @@ def profile_iteration(booster, card):
     last = booster.grow_stats()[-1]
     unit = ("split" if booster._gbdt.learner.growth == "exact"
             else "wave")
-    say("profile of one iteration on %s: wall %.4f s, %d %ss, %d host "
+    say("profile of one %s iteration on %s: wall %.4f s, %d %ss, %d host "
         "reads, device busy %.4f s (%.1f%%, idle %.1f%%), %d device "
-        "operations (%.0f a %s)"
-        % (card, wall, last.waves, unit, last.host_reads, busy,
-           100 * busy / wall, 100 - 100 * busy / wall, launches,
-           launches / max(last.waves, 1), unit))
+        "operations (%.0f a %s), %d graph replays"
+        % ("fused" if fused is not None else "staged", card, wall,
+           last.waves, unit, last.host_reads, busy, 100 * busy / wall,
+           100 - 100 * busy / wall, launches, launches / max(last.waves, 1),
+           unit, replays))
     for us, count, key in rows[:12]:
         say("  %9.3f ms %6d  %s" % (us / 1e3, count, key[:100]))
     # the port's own kernels, wherever they rank
@@ -865,6 +889,79 @@ def small_run_matches_cpu(lgb, variants):
         need(sa == sb, "small run %s: trees differ from the CPU's" % v)
         need(np.allclose(a.predict(X), b.predict(X), rtol=1e-5, atol=0),
              "small run %s: predictions differ from the CPU's" % v)
+
+
+def fused_of(booster):
+    """The booster's FusedIteration, or None on the staged chain."""
+    state = booster._gbdt._fused_state
+    return None if state is None else state[0]
+
+
+def wave_passes(booster, stats):
+    """The wave passes a run launched: a fused tree runs its M masked
+    waves and its tail waves, a staged tree the waves that split."""
+    fused = fused_of(booster)
+    if fused is None:
+        return sum(s.waves for s in stats)
+    return sum(fused.waves + s.tail_waves for s in stats)
+
+
+def chain_line(label, booster, stats):
+    """Print which chain a run took and, when fused, its graph set-up,
+    replays and the trees that needed tail waves."""
+    fused = fused_of(booster)
+    if fused is None:
+        say("%s chain: staged, %d host reads over %d trees"
+            % (label, sum(s.host_reads for s in stats), len(stats)))
+        return
+    tails = [s.tail_waves for s in stats]
+    say("%s chain: fused, M = %d masked waves a tree; graph capture %.3f s "
+        "(set-up); %d graph replays; %d of %d trees finished before M "
+        "waves, %d needed tail waves (%d tail waves); %d host reads over %d "
+        "trees"
+        % (label, fused.waves, fused.capture_seconds, fused.replays,
+           sum(s.waves < fused.waves for s in stats), len(stats),
+           sum(t > 0 for t in tails), sum(tails),
+           sum(s.host_reads for s in stats), len(stats)))
+    need(all(s.host_reads == 1 + s.tail_waves for s in stats),
+         "%s: a fused tree made more than one host read plus one a tail "
+         "wave" % label)
+
+
+def check_wave_launches(label, booster, launches, stats, kernel):
+    """The launch counts of a wave-growth run: with kernel
+    'wave_partition_hist' (the main path), B1 once a wave pass and B3
+    once a tree (and once a wave pass for the larger children without
+    the histogram cache); with a histogram-only kernel (B3, B4 or B6),
+    that kernel once a tree and once a wave pass (twice without the
+    cache); no other histogram kernel; B2 once an iteration."""
+    trees, passes = len(stats), wave_passes(booster, stats)
+    extra = 0 if booster._gbdt.learner.cache_hists else passes
+    want = dict.fromkeys(("wave_partition_hist", "wave_histogram",
+                          "wave_histogram_rowmajor", "leaf_histogram",
+                          "sparse_wave_histogram"), 0)
+    if kernel == "wave_partition_hist":
+        want.update(wave_partition_hist=passes,
+                    wave_histogram=trees + extra)
+    else:
+        want[kernel] = trees + passes + extra
+    want["score_update"] = ITERS
+    need(passes > 0 and {k: launches[k] for k in want} == want,
+         "%s: launches %s, wanted %s (%d trees, %d wave passes)"
+         % (label, launches, want, trees, passes))
+
+
+def staged_twin(label, params, text, data, lgb, kernels, card, args):
+    """The run of params on the staged chain (tpu_fused_iter=off), in the
+    same call: its model text must equal the fused run's to the byte."""
+    booster, launches, stats = dense_train_phase(
+        label + "-staged", dict(params, tpu_fused_iter="off"), data, lgb,
+        kernels, card, args)
+    need(fused_of(booster) is None, "%s-staged: ran fused" % label)
+    need(booster.model_to_string() == text,
+         "%s: fused and staged model texts differ" % label)
+    say("%s: fused and staged model text equal to the byte" % label)
+    return booster, launches, stats
 
 
 def counted(kernels, fn):
@@ -925,6 +1022,8 @@ def dense_train_phase(label, params, data, lgb, kernels, card, args):
            passes / trees, unit, reads / trees,
            [s.num_leaves for s in stats], [s.depth for s in stats], auc,
            torch.cuda.max_memory_allocated() / 1e9))
+
+    chain_line(label, booster, stats)
 
     raw_dev = booster._gbdt.valid_score_host(0)[0]
     raw_host = booster.predict(Xv, raw_score=True)
@@ -1032,46 +1131,45 @@ def main():
     # recipe, wave growth through B1 (and B3 for the root)
     booster, launches, stats = dense_train_phase("wave", params, data, lgb,
                                                  kernels, card, args)
-    trees, waves = len(stats), sum(s.waves for s in stats)
-    need(launches["wave_partition_hist"] == waves > 0,
-         "B1 launches %d != waves %d" % (launches["wave_partition_hist"],
-                                         waves))
-    need(launches["wave_histogram"] == trees,
-         "B3 launches %d != trees %d (one root histogram a tree)"
-         % (launches["wave_histogram"], trees))
-    need(all(launches[k] == 0 for k in ("wave_histogram_rowmajor",
-                                        "leaf_histogram",
-                                        "sparse_wave_histogram")),
-         "B4/B5/B6 ran on the wave path")
-    small_run_matches_cpu(lgb, [{"tpu_wave_width": 4},
-                                {"tpu_wave_width": 14}])
-    say("checks: device scores match host trees; model text round trip; "
-        "small run on the card matches the CPU")
+    need(fused_of(booster) is not None,
+         "the main path did not run fused (tpu_fused_iter=auto on CUDA)")
+    check_wave_launches("wave", booster, launches, stats,
+                        "wave_partition_hist")
     main_text = booster.model_to_string()
     del booster
     torch.cuda.empty_cache()
+    booster, staged_launches, stats = staged_twin(
+        "wave", params, main_text, data, lgb, kernels, card, args)
+    check_wave_launches("wave-staged", booster, staged_launches, stats,
+                        "wave_partition_hist")
+    del booster
+    torch.cuda.empty_cache()
+    small_run_matches_cpu(lgb, [{"tpu_wave_width": 4},
+                                {"tpu_wave_width": 14}])
+    say("checks: device scores match host trees; model text round trip; "
+        "small run on the card (fused) matches the CPU (staged)")
 
     # ---- 4a. the pallas_t dataflow (what the learner resolves to above
     # the ct bound): plain routing, then B3 for the root and each wave
     # (twice a wave without the histogram cache); the same fixed point as
     # the main path, so the same model text to the byte
+    pallas_t = dict(params, tpu_histogram_mode="pallas_t")
     booster, pallas_t_launches, stats = dense_train_phase(
-        "wave-pallas_t", dict(params, tpu_histogram_mode="pallas_t"), data,
-        lgb, kernels, card, args)
-    waves = sum(s.waves for s in stats)
-    per_wave = 1 if booster._gbdt.learner.cache_hists else 2
-    need(pallas_t_launches["wave_histogram"]
-         == len(stats) + per_wave * waves and waves > 0,
-         "pallas_t: B3 launches %d != trees + waves (%d + %d x %d)"
-         % (pallas_t_launches["wave_histogram"], len(stats), per_wave,
-            waves))
-    need(all(pallas_t_launches[k] == 0 for k in (
-        "wave_partition_hist", "wave_histogram_rowmajor", "leaf_histogram",
-        "sparse_wave_histogram")), "B1/B4/B5/B6 ran on the pallas_t path")
+        "wave-pallas_t", pallas_t, data, lgb, kernels, card, args)
+    need(fused_of(booster) is not None, "pallas_t: did not run fused")
+    check_wave_launches("wave-pallas_t", booster, pallas_t_launches, stats,
+                        "wave_histogram")
     need(booster.model_to_string() == main_text,
          "pallas_t: model text differs from the main path's (pallas_ct)")
+    del booster
+    torch.cuda.empty_cache()
+    booster, launches_t, stats = staged_twin(
+        "wave-pallas_t", pallas_t, main_text, data, lgb, kernels, card, args)
+    check_wave_launches("wave-pallas_t-staged", booster, launches_t, stats,
+                        "wave_histogram")
     say("wave-pallas_t checks: device scores match host trees; model text "
-        "round trip; model text equal to the main path's to the byte")
+        "round trip; fused and staged model text equal to the main path's "
+        "to the byte")
     del booster
     torch.cuda.empty_cache()
 
@@ -1100,26 +1198,25 @@ def main():
 
     # ---- 4c. wave growth on the row-major bins: B4 for the root and
     # each wave (twice a wave without the histogram cache)
+    rowmajor = dict(params, tpu_histogram_mode="pallas")
     booster, rowmajor_launches, stats = dense_train_phase(
-        "wave-pallas", dict(params, tpu_histogram_mode="pallas"), data, lgb,
-        kernels, card, args)
-    waves = sum(s.waves for s in stats)
-    per_wave = 1 if booster._gbdt.learner.cache_hists else 2
-    need(rowmajor_launches["wave_histogram_rowmajor"]
-         == len(stats) + per_wave * waves and waves > 0,
-         "B4 launches %d != trees + waves (%d + %d x %d)"
-         % (rowmajor_launches["wave_histogram_rowmajor"], len(stats),
-            per_wave, waves))
-    need(all(rowmajor_launches[k] == 0 for k in (
-        "wave_partition_hist", "wave_histogram", "leaf_histogram",
-        "sparse_wave_histogram")), "B1/B3/B5/B6 ran on the row-major path")
+        "wave-pallas", rowmajor, data, lgb, kernels, card, args)
+    need(fused_of(booster) is not None, "wave-pallas: did not run fused")
+    check_wave_launches("wave-pallas", booster, rowmajor_launches, stats,
+                        "wave_histogram_rowmajor")
     need(booster.model_to_string() == main_text,
          "wave-pallas: model text differs from the main path's (pallas_ct)")
+    del booster
+    torch.cuda.empty_cache()
+    booster, launches_r, stats = staged_twin(
+        "wave-pallas", rowmajor, main_text, data, lgb, kernels, card, args)
+    check_wave_launches("wave-pallas-staged", booster, launches_r, stats,
+                        "wave_histogram_rowmajor")
     small_run_matches_cpu(lgb, [{"tpu_histogram_mode": "pallas",
                                  "tpu_wave_width": 4}])
     say("wave-pallas checks: device scores match host trees; model text "
-        "round trip; model text equal to the main path's to the byte; small "
-        "row-major run on the card matches the CPU")
+        "round trip; fused and staged model text equal to the main path's "
+        "to the byte; small row-major run on the card matches the CPU")
     del booster, data, ds, dv
     torch.cuda.empty_cache()
 

@@ -7,10 +7,14 @@ tree on the first iteration (gbdt.cpp:339-362), the degenerate-class skip
 the stop on a tree without splits (gbdt.cpp:440-448) and the model text
 format (gbdt.cpp:817-971).
 
-One iteration is staged: gradients, then tree growth (ops/wave.py), then
-the partition-side score update (kernel B2) and the validation-set
-traversal, each its own step on the device.  Scores are (1, N) f32 device
-tensors; trees stay on the device until a host view is needed.
+One iteration is staged -- gradients, then tree growth (ops/wave.py),
+then the partition-side score update (kernel B2), each its own step on
+the device -- or fused (``tpu_fused_iter``, ops/fused_iter.py): the
+three as a few CUDA graph replays with one host read a tree.  Both train
+the same model text to the byte.  The validation-set traversal follows
+either, as in the JAX package.  Scores are (1, N) f32 device tensors,
+updated in place (the fused iteration's graphs hold their address);
+trees stay on the device until a host view is needed.
 """
 from __future__ import annotations
 
@@ -68,6 +72,9 @@ class GBDT:
         # per-tree growth facts of the latest iterations (waves, host
         # reads, depth) — what chip runs report
         self.grow_stats: list = []
+        # (FusedIteration or None,) once resolved for the learner and
+        # objective (_resolve_fused_iter); None until then
+        self._fused_state = None
         if train_data is not None:
             self.reset_training_data(config, train_data, objective,
                                      training_metrics)
@@ -89,6 +96,7 @@ class GBDT:
         self.train_data = train_data
         self.num_data = train_data.num_data
         self.learner = SerialTreeLearner(config, train_data, self.device)
+        self._fused_state = None
         self.training_metrics = list(training_metrics)
         self.max_feature_idx = train_data.num_total_features - 1
         self.feature_names = list(train_data.feature_names)
@@ -161,10 +169,11 @@ class GBDT:
         self._models_shrink.append(1.0)
 
     def _add_constant(self, value: float) -> None:
+        """Add value to every score, in place."""
         c = torch.tensor(value, dtype=torch.float32, device=self.device)
-        self._score_dev = self._score_dev + c
+        self._score_dev.add_(c)
         for vi in range(len(self.valid_data)):
-            self._valid_score_dev[vi] = self._valid_score_dev[vi] + c
+            self._valid_score_dev[vi].add_(c)
 
     # --------------------------------------------------------------- bagging
     def _bagging(self, it: int) -> None:
@@ -181,6 +190,34 @@ class GBDT:
             self.row_mult = torch.as_tensor(mult, device=self.device)
 
     # ------------------------------------------------------------- iteration
+    def _resolve_fused_iter(self):
+        """``tpu_fused_iter`` (auto/on/off) resolved to a FusedIteration,
+        or None for the staged chain; resolved once for the learner and
+        objective, which reset_training_data rebuilds.
+
+        auto fuses when eligible and the learner runs on CUDA (the
+        hand-written kernels are live, and the host's launches are what
+        the graphs remove); on the CPU it stays staged.  on fuses
+        wherever eligible; an explicit request is never dropped
+        silently, so ineligibility warns.  off never fuses.  (The learner
+        refuses any other value when it is built.)"""
+        if self._fused_state is not None:
+            return self._fused_state[0]
+        mode = str(self.config.tpu_fused_iter).strip().lower()
+        fused = None
+        if mode != "off":
+            from ..ops import fused_iter
+            ok, why = fused_iter.fused_supported(self)
+            if not ok and mode == "on":
+                Log.warning("tpu_fused_iter=on but the fused iteration is "
+                            "unavailable (%s); using the staged chain", why)
+            if ok and (mode == "on" or self.device.type == "cuda"):
+                fused = fused_iter.FusedIteration.build(
+                    self.learner, self.objective.get_gradients,
+                    self.num_data)
+        self._fused_state = (fused,)
+        return fused
+
     def train_one_iter(self, is_eval: bool = True) -> bool:
         """GBDT::TrainOneIter (gbdt.cpp:339-458), staged; True = stop."""
         cfg = self.config
@@ -213,18 +250,31 @@ class GBDT:
 
         if self.objective is None:
             Log.fatal("No object function provided")
-        grad, hess = self.objective.get_gradients(self._score_dev[0])
-        self._bagging(self.iter)
-        dev_tree, leaf_id, stats = self.learner.train_device(
-            grad, hess, self.row_mult)
-        self.grow_stats.append(stats)
         # the shrinkage travels as a host float (rounded to f32 by both
         # updates), never as a device tensor copied over each iteration;
         # the train score is updated in place
         scale = self.shrinkage_rate
-        dev_predict.update_score_from_partition(
-            self._score_dev[0], leaf_id, dev_tree.leaf_value, scale,
-            out=self._score_dev[0])
+        fused = self._resolve_fused_iter()
+        if fused is not None:
+            # gradients, growth and the score update in one schedule; the
+            # tree is the fused iteration's buffer, so the model keeps a
+            # copy
+            self._bagging(self.iter)
+            dev_tree, leaf_id, stats = fused.run(
+                self._score_dev[0], self.row_mult,
+                self.learner.sample_feature_mask(), scale)
+            self.learner.last_stats = stats
+            stored = dev_tree.clone()
+        else:
+            grad, hess = self.objective.get_gradients(self._score_dev[0])
+            self._bagging(self.iter)
+            dev_tree, leaf_id, stats = self.learner.train_device(
+                grad, hess, self.row_mult)
+            dev_predict.update_score_from_partition(
+                self._score_dev[0], leaf_id, dev_tree.leaf_value, scale,
+                out=self._score_dev[0])
+            stored = dev_tree
+        self.grow_stats.append(stats)
         ta = dev_predict.traversal_from_grow(dev_tree, stats.num_leaves,
                                              stats.depth)
         for vi in range(len(self.valid_data)):
@@ -232,7 +282,7 @@ class GBDT:
                 self._valid_score_dev[vi][0], self._valid_X_dev[vi], ta,
                 scale, self.learner.bundle_arrays)[None, :]
         self.models.append(None)
-        self._models_dev.append(dev_tree)
+        self._models_dev.append(stored)
         self._models_shrink.append(self.shrinkage_rate)
         if stats.num_leaves <= 1:
             # no leaf met the split requirements (gbdt.cpp:440-448)

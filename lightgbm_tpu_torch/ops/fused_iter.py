@@ -1,0 +1,232 @@
+"""Fused boosting iteration: one boosting step as a few CUDA graph replays.
+
+Ported from the JAX package's ``ops/fused_iter.py``, which traces the
+objective's gradients, the grow ``lax.while_loop`` and the score update
+into one jitted entry a tree.  The port's staged chain
+(``models/gbdt.py``) instead launches every torch operation of every
+wave from Python and reads the device once a wave.  Here one iteration
+on the card is:
+
+1. the tree graph: gradients, weight rows and fixed-point exponents,
+   the root and M masked waves (``wave_count``: the waves a tree takes
+   when every leaf splits), ending in the state's status vector;
+2. one host read of that status (done, splits, deepest leaf, waves);
+3. only if the tree is not finished, replays of a one-wave graph, each
+   followed by a read;
+4. the score-update graph (kernel B2, in place).
+
+Every graph reads and writes tensors allocated once, outside any
+capture (``WaveState``, the weight rows, the row multipliers and the
+feature mask), so a replay sees this iteration's inputs at the captured
+addresses; the shrinkage is fixed for a booster and baked into the
+score graph, which is captured again if it changes.  The first
+iteration runs the same functions eagerly on a side stream: it is a real
+iteration, and it sets what the kernels set once (their shared-memory
+attributes, the cached launch plans) before the graphs are captured.
+Kernel wrappers count their launches when Python calls them, which a
+replay skips: each graph records the launches its capture made and adds
+them on every replay.
+
+On CPU tensors ``run`` executes the same schedule eagerly (M waves
+unread, one read, then single waves), so the CPU tests cover it.  Fused
+and staged runs train byte-identical model text: both run
+``WaveGrower``'s body and the same kernels, and a masked wave with no
+valid slot is an exact no-op (tests/test_torch_fused_iter.py).
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..utils.log import LightGBMError
+from .grow import GrowStats
+from .histogram import weight_rows
+from .leaf_hist import leaf_histogram
+from .predict import score_update
+from .sparse_mxu import sparse_wave_histogram
+from .wave_kernels import (fixed_point_exponents, wave_histogram,
+                           wave_histogram_rowmajor, wave_partition_hist)
+
+# every kernel wrapper that counts its launches
+KERNELS = (wave_partition_hist, wave_histogram, wave_histogram_rowmajor,
+           leaf_histogram, sparse_wave_histogram, score_update)
+
+
+def wave_count(num_leaves: int, wave_width: int) -> int:
+    """M, the waves a tree of num_leaves leaves takes at width
+    wave_width when every leaf splits: a wave splits at most every leaf
+    there is, so the leaves double until the width, then grow by it."""
+    leaves, waves = 1, 0
+    while leaves < num_leaves:
+        leaves += min(leaves, wave_width, num_leaves - leaves)
+        waves += 1
+    return waves
+
+
+def fused_supported(booster) -> tuple:
+    """(ok, reason): can this booster's iteration be fused?  The JAX
+    package's rules: GBDT's own iteration and bagging, one tree an
+    iteration, a built-in objective, the serial learner; and here wave
+    growth, whose body is the one fused."""
+    from ..models.gbdt import GBDT
+    from .learner import SerialTreeLearner
+    if type(booster).train_one_iter is not GBDT.train_one_iter:
+        return False, "boosting mode overrides train_one_iter"
+    if type(booster)._bagging is not GBDT._bagging:
+        return False, "bagging overridden (gradient-rescaling bagging)"
+    if booster.num_tree_per_iteration != 1:
+        return False, "num_tree_per_iteration > 1 (multiclass)"
+    if booster.objective is None:
+        return False, "no built-in objective (custom fobj)"
+    if type(booster.learner) is not SerialTreeLearner:
+        return False, "not the serial learner"
+    if booster.learner.growth != "wave":
+        return False, "exact growth (only wave growth is fused)"
+    return True, ""
+
+
+class _Graph:
+    """A captured CUDA graph and the kernel launches its capture made."""
+
+    def __init__(self, fn):
+        before = [k.launches for k in KERNELS]
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                fn()
+            self.launches = [k.launches - b for k, b in zip(KERNELS, before)]
+        finally:
+            # capturing launches nothing: the replays count
+            for k, b in zip(KERNELS, before):
+                k.launches = b
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, n in zip(KERNELS, self.launches):
+            k.launches += n
+
+
+class FusedIteration:
+    """One boosting step of a learner under wave growth: gradients,
+    growth and the score update, replayed as CUDA graphs on the card and
+    run eagerly on the CPU.  Built once per booster (the learner and the
+    objective are fixed for a training run)."""
+
+    def __init__(self, learner, grad_fn, num_data: int):
+        self.grower = learner.wave_grower()
+        self.grad_fn = grad_fn
+        self.device = dev = learner.device
+        self.waves = wave_count(self.grower.L, self.grower.W)
+        self.state = self.grower.new_state(num_data, dev)
+        self.w3 = torch.empty((num_data, 3), dtype=torch.float32, device=dev)
+        self.exps = torch.empty(3, dtype=torch.int32, device=dev)
+        self.row_mult = torch.empty(num_data, dtype=torch.float32,
+                                    device=dev)
+        self.feature_mask = torch.empty_like(learner._full_mask)
+        self._tree = self._wave = self._score = None
+        self._score_key = None
+        self.capture_seconds = 0.0     # set-up: capturing the graphs
+        self.replays = 0               # graph replays so far
+
+    @classmethod
+    def build(cls, learner, grad_fn, num_data: int) -> "FusedIteration":
+        """The fused iteration of learner, whose gradients grad_fn(score)
+        returns; the learner must grow its trees in waves."""
+        if learner.growth != "wave":
+            raise LightGBMError("the fused iteration needs wave growth "
+                                "(the learner runs %s growth)"
+                                % learner.growth)
+        return cls(learner, grad_fn, num_data)
+
+    # ---------------------------------------------- the captured programs
+    def tree_pass(self, score) -> None:
+        """Gradients at score, the tree's weight rows and exponents, the
+        root and M masked waves, then the status; no host read."""
+        g, h = self.grad_fn(score)
+        self.w3.copy_(weight_rows(g.to(torch.float32), h.to(torch.float32),
+                                  self.row_mult))
+        self.exps.copy_(fixed_point_exponents(self.w3))
+        gr, st = self.grower, self.state
+        gr.root(st, self.w3, self.exps, self.feature_mask)
+        for _ in range(self.waves):
+            gr.wave(st, self.w3, self.exps, self.feature_mask)
+        gr.write_status(st)
+
+    def tail_wave(self) -> None:
+        """One more masked wave, then the status."""
+        gr, st = self.grower, self.state
+        gr.wave(st, self.w3, self.exps, self.feature_mask)
+        gr.write_status(st)
+
+    def score_pass(self, score, scale: float) -> None:
+        """score += clip(scale * leaf_value)[leaf_id], in place (B2)."""
+        tree = self.grower.tree_of(self.state)
+        score_update(score, self.state.leaf_id, tree.leaf_value, scale,
+                     out=score)
+
+    # ---------------------------------------------------------- schedule
+    def _schedule(self, tree_step, wave_step, score_step):
+        """The tree step, one read, single waves until the tree is done,
+        the score step: (TreeArrays, leaf_id, GrowStats)."""
+        st = self.state
+        tree_step()
+        done, nn, depth, waves = st.status.tolist()
+        reads = 1
+        while not done:
+            wave_step()
+            done, nn, depth, waves = st.status.tolist()
+            reads += 1
+        score_step()
+        stats = GrowStats(num_leaves=nn + 1, depth=depth, waves=waves,
+                          host_reads=reads, tail_waves=reads - 1)
+        return self.grower.tree_of(st), st.leaf_id, stats
+
+    def _eager(self, score, scale):
+        return self._schedule(lambda: self.tree_pass(score), self.tail_wave,
+                              lambda: self.score_pass(score, scale))
+
+    def _capture(self, score, scale) -> None:
+        t0 = time.perf_counter()
+        if self._tree is None:
+            self._tree = _Graph(lambda: self.tree_pass(score))
+            self._wave = _Graph(self.tail_wave)
+        self._score = _Graph(lambda: self.score_pass(score, scale))
+        self._score_key = (score.data_ptr(), float(scale))
+        self.capture_seconds += time.perf_counter() - t0
+
+    def _replay(self, graph) -> None:
+        graph.replay()
+        self.replays += 1
+
+    def run(self, score, row_mult, feature_mask, scale: float):
+        """One iteration: grow a tree on the gradients at score (N,) f32,
+        with row multipliers row_mult (None: all ones) and the feature
+        mask, and add clip(scale * leaf_value)[leaf_id] to score in place.
+        Returns (TreeArrays, leaf_id, GrowStats); the tree and leaf ids
+        are this object's buffers, overwritten by the next call."""
+        if row_mult is None:
+            self.row_mult.fill_(1.0)
+        else:
+            self.row_mult.copy_(row_mult)
+        self.feature_mask.copy_(feature_mask)
+        if self.device.type != "cuda":
+            return self._eager(score, scale)
+        if self._tree is None:
+            # the warm-up: a real iteration, eager, on a side stream
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                out = self._eager(score, scale)
+            cur.wait_stream(side)
+            self._capture(score, scale)
+            return out
+        if self._score_key != (score.data_ptr(), float(scale)):
+            if self._score_key[0] != score.data_ptr():
+                raise LightGBMError("the fused iteration's score tensor "
+                                    "moved since its graphs were captured")
+            self._capture(score, scale)
+        return self._schedule(lambda: self._replay(self._tree),
+                              lambda: self._replay(self._wave),
+                              lambda: self._replay(self._score))

@@ -37,6 +37,8 @@ class GrowStats:
     waves: int          # histogram passes after the root: a wave's fused
     #                     pass, or one split under exact growth
     host_reads: int     # device->host reads made while growing
+    tail_waves: int = 0  # fused iteration: waves replayed one at a time
+    #                      after the tree's M masked waves and its read
 
 
 @dataclass
@@ -80,36 +82,54 @@ class TreeArrays:
         return {f.name: getattr(self, f.name).cpu().numpy()
                 for f in fields(self)}
 
+    _LEAF_FIELDS = ("leaf_parent", "leaf_value", "leaf_count", "leaf_depth")
+    _FLOAT_FIELDS = ("split_gain", "internal_value", "leaf_value",
+                     "second_gain")
+
     @classmethod
     def new(cls, num_leaves: int, root_count, dtype, dev) -> "TreeArrays":
         """A one-leaf tree of room for num_leaves leaves; root_count is a
         0-dim tensor (the root's row count, kept on the device)."""
-        L, i32 = num_leaves, torch.int32
+        L = num_leaves
+        arrays = {f.name: torch.empty(
+            () if f.name == "num_leaves" else
+            L if f.name in cls._LEAF_FIELDS else L - 1,
+            dtype=dtype if f.name in cls._FLOAT_FIELDS else torch.int32,
+            device=dev) for f in fields(cls)}
+        return cls(**arrays).reset_(root_count)
 
-        def zeros(m, t):
-            return torch.zeros(m, dtype=t, device=dev)
+    def reset_(self, root_count) -> "TreeArrays":
+        """Re-initialise in place to a one-leaf tree whose root holds
+        root_count rows (a 0-dim tensor): device fills and one
+        device-to-device copy, no host transfer."""
+        for f in fields(self):
+            getattr(self, f.name).zero_()
+        self.num_leaves.fill_(1)
+        self.leaf_parent.fill_(-1)
+        self.second_feature.fill_(-1)
+        self.leaf_count[0] = root_count.to(torch.int32)
+        return self
 
-        tree = cls(
-            num_leaves=torch.ones((), dtype=i32, device=dev),
-            split_feature=zeros(L - 1, i32),
-            threshold_bin=zeros(L - 1, i32),
-            default_bin_for_zero=zeros(L - 1, i32),
-            default_bin=zeros(L - 1, i32),
-            is_cat=zeros(L - 1, i32),
-            left_child=zeros(L - 1, i32),
-            right_child=zeros(L - 1, i32),
-            split_gain=zeros(L - 1, dtype),
-            internal_value=zeros(L - 1, dtype),
-            internal_count=zeros(L - 1, i32),
-            leaf_parent=torch.full((L,), -1, dtype=i32, device=dev),
-            leaf_value=zeros(L, dtype),
-            leaf_count=zeros(L, i32),
-            leaf_depth=zeros(L, i32),
-            second_feature=torch.full((L - 1,), -1, dtype=i32, device=dev),
-            second_gain=zeros(L - 1, dtype),
-        )
-        tree.leaf_count[0] = root_count.to(i32)
-        return tree
+    def head(self, num_leaves: int) -> "TreeArrays":
+        """Views of the first num_leaves leaves and num_leaves - 1 nodes:
+        the tree of a grower whose arrays keep spare trailing slots."""
+        return TreeArrays(**{
+            f.name: (getattr(self, f.name) if f.name == "num_leaves" else
+                     getattr(self, f.name)[:num_leaves if f.name in
+                                           self._LEAF_FIELDS
+                                           else num_leaves - 1])
+            for f in fields(self)})
+
+    def copy_(self, other: "TreeArrays") -> "TreeArrays":
+        """Copy other's arrays into this tree's, in place."""
+        for f in fields(self):
+            getattr(self, f.name).copy_(getattr(other, f.name))
+        return self
+
+    def clone(self) -> "TreeArrays":
+        """A tree with its own copy of every array."""
+        return TreeArrays(**{f.name: getattr(self, f.name).clone()
+                             for f in fields(self)})
 
 
 def feature_hist_view(ghist, sums, meta, bundle, fix_default: bool = False):

@@ -26,7 +26,7 @@ from .grow import BundleArrays, grow_tree_exact
 from .sparse_mxu import build_chunked_store
 from .sparse_store import column_fill_bins
 from .split_finder import FeatureMeta, SplitParams
-from .wave import grow_tree
+from .wave import WaveGrower, grow_tree
 
 # auto histogram-cache budget when histogram_pool_size is unset (-1)
 _AUTO_HIST_CACHE_MB = 2048.0
@@ -175,7 +175,7 @@ def check_engine_params(config: Config):
         ("tpu_hist_precision", ("auto", "hilo")),
         ("tpu_wave_order", ("auto", "batched")),
         ("tpu_score_update", ("auto", "pallas")),
-        ("tpu_fused_iter", ("auto", "off")),
+        ("tpu_fused_iter", ("auto", "on", "off")),
         ("tpu_autotune", ("off", "prior")),
         ("tpu_wave_lookup", ("auto", "onehot", "compact", "gather")),
     ]
@@ -195,6 +195,11 @@ def check_engine_params(config: Config):
         Log.fatal("tpu_wave_chunk must be positive, got %s",
                   config.tpu_wave_chunk)
     growth = resolve_growth(config, sparse)
+    if growth == "exact" and val("tpu_fused_iter") == "on":
+        Log.fatal("tpu_fused_iter=on fuses wave growth only: the exact "
+                  "grower's per-split loop is not fused in "
+                  "lightgbm_tpu_torch yet (set tpu_growth=wave, or "
+                  "tpu_fused_iter=auto or off)")
     # the wave width is read, and so checked, only under wave growth: an
     # exact-growth config with a leftover bad width keeps training, as in
     # the JAX package
@@ -311,6 +316,18 @@ class SerialTreeLearner:
         mask[idx] = True
         return torch.as_tensor(mask, device=self.device)
 
+    def _grow_kw(self) -> dict:
+        return dict(num_leaves=self.num_leaves, num_bins=self.num_bins,
+                    params=self.params, max_depth=self.config.max_depth,
+                    group_bins=self.group_bins, cache_hists=self.cache_hists)
+
+    def wave_grower(self) -> WaveGrower:
+        """The wave grower of this learner's bins and config (what the
+        fused iteration, ops/fused_iter.py, replays)."""
+        return WaveGrower(self.X, self.meta, self.bundle_arrays,
+                          wave_width=self.wave_width,
+                          hist_mode=self.hist_mode, **self._grow_kw())
+
     def train_device(self, grad, hess, row_mult=None):
         """Grow one tree on the device: (TreeArrays, leaf_id, GrowStats)."""
         if row_mult is None:
@@ -318,15 +335,12 @@ class SerialTreeLearner:
         args = (self.X, grad.to(torch.float32), hess.to(torch.float32),
                 row_mult.to(torch.float32), self.sample_feature_mask(),
                 self.meta, self.bundle_arrays)
-        kw = dict(num_leaves=self.num_leaves, num_bins=self.num_bins,
-                  params=self.params, max_depth=self.config.max_depth,
-                  group_bins=self.group_bins, cache_hists=self.cache_hists)
         if self.growth == "exact":
-            tree, leaf_id, stats = grow_tree_exact(*args, **kw)
+            tree, leaf_id, stats = grow_tree_exact(*args, **self._grow_kw())
         else:
             tree, leaf_id, stats = grow_tree(
                 *args, wave_width=self.wave_width, hist_mode=self.hist_mode,
-                **kw)
+                **self._grow_kw())
         self.last_stats = stats
         return tree, leaf_id, stats
 

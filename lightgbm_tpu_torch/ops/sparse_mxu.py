@@ -177,18 +177,21 @@ def sparse_route_rows(store: ChunkedSparseStore, leaf_id, cols, psrc,
     contract), its bin read from column cols[w, 1]: the column's fill bin
     unless the column holds an entry for the row.  Only the entries of
     the W split columns are read; the routing is plain torch ops with no
-    host read."""
+    host read and no host-to-device copy, so a CUDA graph can capture
+    it."""
     n = leaf_id.shape[0]
     W = psrc.shape[0]
     F = store.num_cols
     dev = leaf_id.device
     slots = torch.arange(W, dtype=torch.long, device=dev)
     # leaf -> slot table (-1: not split in this wave); inactive slots
-    # write into a spare entry past the last leaf, cleared after
+    # write into a spare entry past the last leaf, cleared after (by a
+    # device fill: a Python value assigned to an element is a copy from
+    # the host, which a CUDA graph cannot capture)
     tbl = torch.full((num_leaves + 1,), -1, dtype=torch.long, device=dev)
     tbl[torch.where(psrc >= 0, psrc.long(),
                     torch.full_like(slots, num_leaves))] = slots
-    tbl[num_leaves] = -1
+    tbl[num_leaves:].fill_(-1)
     slot = tbl[leaf_id.long().clamp(0, num_leaves)]
     has = slot >= 0
     r = cols[slot.clamp(min=0)] * has[:, None].to(cols.dtype)  # (N, 10)

@@ -582,15 +582,14 @@ class Config:
         # always excluded from the timing window)
         "tpu_autotune_waves": ("int", 3),
         # 'auto' | 'on' | 'off' — the fused boosting iteration
-        # (ops/fused_iter.py, docs/FusedIteration.md): gradients, the
-        # grow program and the score update submitted as ONE jitted
-        # device entry per tree instead of the staged three-dispatch
-        # chain.  auto = fuse when the booster/objective shape is
-        # eligible and either the TPU wave path is live or the
-        # autotuner measured the fused cell as the winner (rev-2
-        # cells).  on = force when eligible (warns and stays staged
-        # when not).  off = always the staged chain.  Fused and staged
-        # produce bit-identical models (tests/test_fused_iter.py).
+        # (ops/fused_iter.py): gradients, wave growth and the score
+        # update as a few CUDA graph replays a tree, with one host read,
+        # instead of the staged chain's launches from Python and read a
+        # wave.  auto = fuse when eligible and training runs on CUDA.
+        # on = fuse when eligible, on the CPU too (warns and stays staged
+        # when not; an error with exact growth, which is not fused).
+        # off = always the staged chain.  Fused and staged produce
+        # byte-identical models (tests/test_torch_fused_iter.py).
         "tpu_fused_iter": ("str", "auto"),
         # run the Pallas wave kernels through the interpreter on CPU
         # (tests/CI only): exercises the real kernel bodies — tiling,

@@ -47,6 +47,17 @@ def dev():
     return torch.device("cuda")
 
 
+def _wave_passes(booster):
+    """Wave passes a run launched: on the card wave growth runs fused
+    (tpu_fused_iter=auto), M masked waves and the tail waves a tree; on
+    the staged chain, the waves that split."""
+    stats = booster.grow_stats()
+    fused = booster._gbdt._fused_state[0]
+    if fused is None:
+        return sum(s.waves for s in stats)
+    return sum(fused.waves + s.tail_waves for s in stats)
+
+
 @pytest.mark.parametrize("bundled", [False, True])
 def test_fused_kernel_matches_plain(dev, bundled):
     X, lid, w3, cid, b, cols, psrc = (bundled_case() if bundled
@@ -456,7 +467,7 @@ def test_sparse_training_on_the_card_matches_the_cpu(dev, bundled):
     stats = on_card.grow_stats()
     assert (on_card._gbdt.train_data.bundle is not None) == bundled
     assert (sm.sparse_wave_histogram.launches - n0[0]
-            == sum(s.waves for s in stats) + len(stats))
+            == _wave_passes(on_card) + len(stats))
     assert wk.wave_partition_hist.launches == n0[1]
     assert wk.wave_histogram.launches == n0[2]
     on_cpu = lgb.train(p, lgb.Dataset(C, label=y), 3, device="cpu")
@@ -495,7 +506,7 @@ def test_training_on_the_card_matches_the_cpu(dev, variant):
     fused = wk.wave_partition_hist.launches - n0[0]
     hist_only = wk.wave_histogram.launches - n0[1]
     trees = len(on_card.grow_stats())
-    waves = sum(s.waves for s in on_card.grow_stats())
+    waves = _wave_passes(on_card)
     if not variant:
         assert (fused, hist_only) == (waves, trees)
     elif "tpu_histogram_mode" in variant:
@@ -705,7 +716,7 @@ def test_pallas_training_on_the_card_matches_the_cpu(dev, growth, variant):
     on_card = lgb.train(p, lgb.Dataset(X, label=y), 3, device="cuda")
     counts = [c.launches - a for c, a in zip(counters, n0)]
     stats = on_card.grow_stats()
-    passes = (len(stats) + sum(st.waves for st in stats)
+    passes = (len(stats) + _wave_passes(on_card)
               * (1 if on_card._gbdt.learner.cache_hists else 2))
     assert counts == ([passes, 0, 0, 0, 0] if growth == "exact"
                       else [0, passes, 0, 0, 0])
@@ -757,10 +768,148 @@ def test_dense_dataflows_train_the_same_model_text(dev, fixture, cache):
         assert ((booster._gbdt.train_data.bundle is not None)
                 == (fixture == "bundled"))
         stats = booster.grow_stats()
-        trees, waves = len(stats), sum(st.waves for st in stats)
+        trees, waves = len(stats), _wave_passes(booster)
         extra = 0 if cache else waves       # the larger children
         assert counts == {"pallas_ct": [waves, trees + extra, 0],
                           "pallas_t": [0, trees + waves + extra, 0],
                           "pallas": [0, 0, trees + waves + extra]}[mode]
         texts.append(booster.model_to_string())
     assert texts[0] == texts[1] == texts[2]
+
+
+# ------------------------------------------- the fused iteration (graphs)
+FUSED_FLOWS = ["pallas_ct", "pallas_t", "pallas", "sparse"]
+
+
+def _fused_case(flow, more=None):
+    """(params, X, y) of a small binary run on flow: a dense histogram
+    mode under wave growth, or the entry-chunk sparse store."""
+    import scipy.sparse as sps
+
+    X, s = parity_data(3, 2000, False)
+    p = dict({"objective": "binary", "num_leaves": 15,
+              "min_data_in_leaf": 20, "max_bin": 63, "verbose": -1,
+              "tpu_growth": "wave", "tpu_wave_width": 4}, **(more or {}))
+    if flow == "sparse":
+        X = np.where(np.abs(X) < 0.8, 0.0, X)
+        p.update(tpu_sparse=True, tpu_sparse_kernel=True)
+        X = sps.csr_matrix(X)
+    else:
+        p["tpu_histogram_mode"] = flow
+    return p, X, (s > 0).astype(float)
+
+
+def _fused_pair(flow, rounds=5, more=None):
+    """The same data trained on the card fused (auto) and staged (off)."""
+    import lightgbm_tpu_torch as lgb
+
+    p, X, y = _fused_case(flow, more)
+    fused = lgb.train(p, lgb.Dataset(X, label=y), rounds, device="cuda")
+    staged = lgb.train(dict(p, tpu_fused_iter="off"),
+                       lgb.Dataset(X, label=y), rounds, device="cuda")
+    assert fused._gbdt._fused_state[0] is not None
+    assert staged._gbdt._fused_state == (None,)
+    return fused, staged, X
+
+
+@pytest.mark.parametrize("flow", FUSED_FLOWS)
+def test_fused_trains_the_staged_model_text_on_the_card(dev, flow):
+    """tpu_fused_iter=auto fuses on the card: the tree graph (gradients,
+    root, M masked waves), one host read, tail-wave graphs and the B2
+    graph train the staged chain's model text to the byte, for the three
+    dense dataflows and the sparse store."""
+    fused, staged, X = _fused_pair(flow)
+    assert fused.model_to_string() == staged.model_to_string()
+    np.testing.assert_array_equal(fused.predict(X), staged.predict(X))
+    for f, s in zip(fused.grow_stats(), staged.grow_stats()):
+        assert (f.num_leaves, f.waves) == (s.num_leaves, s.waves)
+        assert f.host_reads == 1 + f.tail_waves
+    assert fused._gbdt._fused_state[0].replays > 0
+
+
+def test_fused_stored_trees_are_not_aliased(dev):
+    """The graphs write the same tree buffers every iteration; the model
+    keeps a copy of each tree, so the 5 trees of the model text are the
+    staged chain's 5 trees, not 5 copies of the last one."""
+    fused, staged, _ = _fused_pair("pallas_ct", rounds=5)
+    text = fused.model_to_string()
+    trees = [blk.split("\n\n")[0] for blk in text.split("Tree=")[1:]]
+    assert len(trees) == 5 and len(set(trees)) == 5
+    assert text == staged.model_to_string()
+
+
+@pytest.mark.parametrize("flow", ["pallas_ct", "sparse"])
+def test_fused_launch_counters_count_replays(dev, flow):
+    """A replay adds the launches its capture recorded: B2 once an
+    iteration, and each wave's histogram kernel once for each of the M
+    masked waves and tail waves of a tree; the root's once a tree."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops import fused_iter as fi
+
+    p, X, y = _fused_case(flow)
+    counters = (wk.wave_partition_hist, wk.wave_histogram,
+                sm.sparse_wave_histogram, tp.score_update)
+    n0 = [c.launches for c in counters]
+    booster = lgb.train(p, lgb.Dataset(X, label=y), 5, device="cuda")
+    counts = [c.launches - a for c, a in zip(counters, n0)]
+    stats = booster.grow_stats()
+    passes = len(stats) * fi.wave_count(15, 4) + sum(
+        s.tail_waves for s in stats)
+    trees = len(stats)
+    assert booster._gbdt._fused_state[0].replays >= 2 * 4
+    if flow == "sparse":
+        assert counts == [0, 0, trees + passes, 5]
+    else:
+        assert counts == [passes, trees, 0, 5]
+
+
+@pytest.mark.parametrize("flow", ["pallas_ct", "pallas_t", "pallas",
+                                  "sparse"])
+def test_fused_tree_makes_no_host_sync(dev, flow):
+    """The tree pass (gradients, weight rows, exponents, the root, M
+    masked waves), a tail wave and the score update run eagerly under
+    torch.cuda.set_sync_debug_mode('error') without raising: nothing
+    before the one per-tree read waits for the device."""
+    import lightgbm_tpu_torch as lgb
+
+    p, X, y = _fused_case(flow, {"bagging_fraction": 0.8,
+                                 "bagging_freq": 1,
+                                 "feature_fraction": 0.8})
+    booster = lgb.Booster(p, lgb.Dataset(X, label=y), device="cuda")
+    gbdt = booster._gbdt
+    fused = gbdt._resolve_fused_iter()
+    gbdt._bagging(0)
+    fused.row_mult.copy_(gbdt.row_mult)
+    fused.feature_mask.copy_(gbdt.learner.sample_feature_mask())
+    score = gbdt._score_dev[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused.tree_pass(score)
+        fused.tail_wave()
+        fused.score_pass(score, 0.1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fused.state.status.tolist()[0] == 1
+
+
+def test_fused_capture_failure_raises(dev):
+    """An objective that reads the device cannot be captured: the
+    capture after the first (eager) iteration raises, and training does
+    not fall back to the staged chain."""
+    import lightgbm_tpu_torch as lgb
+
+    p, X, y = _fused_case("pallas_ct")
+    booster = lgb.Booster(p, lgb.Dataset(X, label=y), device="cuda")
+    obj = booster._gbdt.objective
+    real = obj.get_gradients
+
+    def reads_the_device(score):
+        float(score.sum())
+        return real(score)
+
+    obj.get_gradients = reads_the_device
+    with pytest.raises(RuntimeError):
+        booster.update()
+    torch.cuda.synchronize()
+    assert booster._gbdt._fused_state[0] is not None
