@@ -99,6 +99,8 @@ VALID_ROWS = 200_000
 ITERS = 5
 SPARSE_COLS = 968             # Bosch's width (BASELINE.md)
 SPARSE_DENSITY = 0.01
+# (whole-call, steady) it/s of each dense training run, by its label
+RATES = {}
 
 
 def flagship_params():
@@ -440,6 +442,10 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values,
         need(torch.equal(lh._launch(X, w35, lids, leaf_t, B, e5,
                                     plan[:5] + (1,)), h),
              "%s at one copy not bit-equal" % name)
+        # a gated split that does not commit passes a leaf no row holds
+        need(not bool(lh.leaf_histogram(
+            X, None, None, lids, torch.full_like(leaf_t, -1), None, B,
+            w3=w35, exps=e5).any()), "%s of no row is not zero" % name)
         swept = []
         for c in sorted({1, 4, plan[5]}) if sweep else ():
             pc = plan[:5] + (c,)
@@ -463,7 +469,8 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values,
             nbytes=N * 4 + n_leaf * (F + 12) + 4 + F * B * 12,
             flops=3 * n_leaf * F)
         del wl
-    say("B5 equals B4 at K = 1 to the bit, on its plan and at one copy")
+    say("B5 equals B4 at K = 1 to the bit, on its plan and at one copy; "
+        "B5 of a leaf no row holds is exactly zero")
     del X
 
     # ---- B2: score update (255 leaves, ids clamped, values clipped), in
@@ -907,25 +914,32 @@ def wave_passes(booster, stats):
 
 
 def chain_line(label, booster, stats):
-    """Print which chain a run took and, when fused, its graph set-up,
-    replays and the trees that needed tail waves."""
+    """Print which chain a run took and, when fused, its graph set-up
+    (capture seconds, the memory the graphs' pools hold), replays and
+    the trees that needed tail graphs."""
     fused = fused_of(booster)
     if fused is None:
         say("%s chain: staged, %d host reads over %d trees"
             % (label, sum(s.host_reads for s in stats), len(stats)))
         return
     tails = [s.tail_waves for s in stats]
-    say("%s chain: fused, M = %d masked waves a tree; graph capture %.3f s "
-        "(set-up); %d graph replays; %d of %d trees finished before M "
-        "waves, %d needed tail waves (%d tail waves); %d host reads over %d "
-        "trees"
-        % (label, fused.waves, fused.capture_seconds, fused.replays,
-           sum(s.waves < fused.waves for s in stats), len(stats),
-           sum(t > 0 for t in tails), sum(tails),
-           sum(s.host_reads for s in stats), len(stats)))
-    need(all(s.host_reads == 1 + s.tail_waves for s in stats),
+    unit = ("gated splits" if booster._gbdt.learner.growth == "exact"
+            else "masked waves")
+    say("%s chain: fused, %d %s in the tree graph and %d in a tail graph; "
+        "graph capture %.3f s (set-up), graph memory %.3f GB; %d graph "
+        "replays; %d of %d trees finished within the tree graph, %d needed "
+        "tail graphs (%d tail passes, %.2f a tree); %d host reads over %d "
+        "trees (%.2f a tree)"
+        % (label, fused.waves, unit, fused.tail_len, fused.capture_seconds,
+           fused.graph_bytes / 1e9, fused.replays,
+           sum(t == 0 for t in tails), len(stats), sum(t > 0 for t in tails),
+           sum(tails), sum(tails) / len(stats),
+           sum(s.host_reads for s in stats), len(stats),
+           sum(s.host_reads for s in stats) / len(stats)))
+    need(all(s.host_reads == 1 + s.tail_waves // fused.tail_len
+             for s in stats),
          "%s: a fused tree made more than one host read plus one a tail "
-         "wave" % label)
+         "graph" % label)
 
 
 def check_wave_launches(label, booster, launches, stats, kernel):
@@ -949,6 +963,58 @@ def check_wave_launches(label, booster, launches, stats, kernel):
     need(passes > 0 and {k: launches[k] for k in want} == want,
          "%s: launches %s, wanted %s (%d trees, %d wave passes)"
          % (label, launches, want, trees, passes))
+
+
+def check_exact_launches(label, booster, launches, stats):
+    """The launch counts of an exact-growth run: B5 once a tree for the
+    root and once a split pass (twice without the histogram cache): the
+    splits that committed when staged, every gated split of the tree
+    graph and the tail graphs when fused; no other histogram kernel; B2
+    once an iteration."""
+    passes = wave_passes(booster, stats)
+    per_split = 1 if booster._gbdt.learner.cache_hists else 2
+    want = dict.fromkeys(("wave_partition_hist", "wave_histogram",
+                          "wave_histogram_rowmajor", "sparse_wave_histogram"),
+                         0)
+    want["leaf_histogram"] = len(stats) + per_split * passes
+    want["score_update"] = ITERS
+    need(all(s.waves == s.num_leaves - 1 for s in stats),
+         "%s: a tree's split count is not its leaves less one" % label)
+    need(passes > 0 and {k: launches[k] for k in want} == want,
+         "%s: launches %s, wanted %s (%d trees, %d split passes)"
+         % (label, launches, want, len(stats), passes))
+
+
+def small_exact_order_runs(lgb):
+    """Exact-order waves at W = 32 on the pallas_t and row-major dataflows
+    (the flagship recipe on 20,000 rows, 63 leaves) and on the sparse
+    store (the Bosch-shaped recipe on 20,000 rows), fused and staged,
+    train their own W = 1 model text to the byte."""
+    X, y = make_data(20_000)
+    Xs, ys = make_sparse_data(20_000, 7)
+    for flow, (Xf, yf), more in (
+            ("pallas_t", (X, y), {"tpu_histogram_mode": "pallas_t"}),
+            ("pallas", (X, y), {"tpu_histogram_mode": "pallas"}),
+            ("sparse", (Xs, ys), {"tpu_sparse": True,
+                                  "tpu_sparse_kernel": True})):
+        p = dict(flagship_params(), num_leaves=63, **more)
+        ds = lgb.Dataset(Xf, label=yf, params=p).construct()
+        texts, waves = [], []
+        for extra in ({"tpu_wave_order": "exact"},
+                      {"tpu_wave_order": "exact", "tpu_fused_iter": "off"},
+                      {"tpu_wave_width": 1}):
+            b = lgb.train(dict(p, **extra), ds, 3)
+            need(fused_of(b) is None
+                 or extra.get("tpu_fused_iter") != "off",
+                 "small exact-order %s: took the other chain" % flow)
+            texts.append(b.model_to_string())
+            waves.append(sum(s.waves for s in b.grow_stats()) / 3)
+        need(texts[0] == texts[1] == texts[2],
+             "small exact-order %s run: model text differs from W = 1's"
+             % flow)
+        say("small exact-order %s run: fused and staged at W = 32 equal "
+            "W = 1 to the byte; %.2f waves a tree (W = 1: %.2f)"
+            % (flow, waves[0], waves[2]))
 
 
 def staged_twin(label, params, text, data, lgb, kernels, card, args):
@@ -1014,6 +1080,7 @@ def dense_train_phase(label, params, data, lgb, kernels, card, args):
     need(auc > 0.8, "%s: valid AUC %.4f <= 0.8" % (label, auc))
     steady = ((len(stamps) - 1) / (stamps[-1] - stamps[0])
               if len(stamps) > 1 else float("nan"))
+    RATES[label] = (ITERS / t_train, steady)
     say("%s train on %s: %d iterations in %.3f s including set-up (%.4f "
         "it/s); steady %.4f it/s over iterations 2-%d; %.2f %s/tree, %.2f "
         "host reads/tree, leaves/tree %s, depth %s; valid AUC %.6f; peak "
@@ -1174,25 +1241,45 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 4b. exact (leaf-wise) growth: B5 for the root and the smaller
-    # child of each split (both children without the histogram cache)
+    # child of each gated split (both children without the histogram
+    # cache).  Fused (auto on the card: a tree graph of S gated splits,
+    # a read, tail graphs of S splits), again with S = L - 1 (one graph
+    # a tree), then staged; the three model texts equal to the byte
+    from lightgbm_tpu_torch.ops import fused_iter as fi
+    exact_params = dict(params, tpu_growth="exact",
+                        tpu_histogram_mode="pallas")
     booster, exact_launches, stats = dense_train_phase(
-        "exact", dict(params, tpu_growth="exact",
-                      tpu_histogram_mode="pallas"),
-        data, lgb, kernels, card, args)
-    splits = sum(s.waves for s in stats)
-    need(all(s.waves == s.num_leaves - 1 for s in stats),
-         "exact: a histogram pass that committed no split")
-    per_split = 1 if booster._gbdt.learner.cache_hists else 2
-    need(exact_launches["leaf_histogram"] == len(stats) + per_split * splits,
-         "B5 launches %d != roots + splits (%d + %d x %d)"
-         % (exact_launches["leaf_histogram"], len(stats), per_split, splits))
-    need(all(exact_launches[k] == 0 for k in (
-        "wave_partition_hist", "wave_histogram", "wave_histogram_rowmajor",
-        "sparse_wave_histogram")), "B1/B3/B4/B6 ran under exact growth")
+        "exact", exact_params, data, lgb, kernels, card, args)
+    need(fused_of(booster) is not None,
+         "exact growth did not run fused (tpu_fused_iter=auto on CUDA)")
+    check_exact_launches("exact", booster, exact_launches, stats)
+    exact_text = booster.model_to_string()
+    del booster
+    torch.cuda.empty_cache()
+    block = fi.SPLIT_BLOCK
+    fi.SPLIT_BLOCK = params["num_leaves"] - 1
+    try:
+        booster, launches_s, stats = dense_train_phase(
+            "exact-S%d" % fi.SPLIT_BLOCK, exact_params, data, lgb, kernels,
+            card, args)
+    finally:
+        fi.SPLIT_BLOCK = block
+    check_exact_launches("exact-S%d" % (params["num_leaves"] - 1), booster,
+                         launches_s, stats)
+    need(booster.model_to_string() == exact_text,
+         "exact: model text differs between S = %d and S = %d"
+         % (block, params["num_leaves"] - 1))
+    del booster
+    torch.cuda.empty_cache()
+    booster, launches_e, stats = staged_twin(
+        "exact", exact_params, exact_text, data, lgb, kernels, card, args)
+    check_exact_launches("exact-staged", booster, launches_e, stats)
     small_run_matches_cpu(lgb, [{"tpu_growth": "exact",
                                  "tpu_histogram_mode": "pallas"}])
     say("exact checks: device scores match host trees; model text round "
-        "trip; small exact run on the card matches the CPU")
+        "trip; fused (S = %d and S = %d) and staged model text equal to the "
+        "byte; small exact run on the card matches the CPU"
+        % (block, params["num_leaves"] - 1))
     del booster
     torch.cuda.empty_cache()
 
@@ -1217,8 +1304,43 @@ def main():
     say("wave-pallas checks: device scores match host trees; model text "
         "round trip; fused and staged model text equal to the main path's "
         "to the byte; small row-major run on the card matches the CPU")
+    del booster
+    torch.cuda.empty_cache()
+
+    # ---- 4d. exact-order waves on the main path (tpu_wave_order=exact,
+    # pallas_ct, W = 32): B1 once a wave pass, B3 for the root; a wave
+    # commits the leaf-wise prefix of its candidates, so the model text
+    # must be exact growth's (4b) to the byte, fused and staged
+    order_params = dict(params, tpu_wave_order="exact")
+    booster, order_launches, stats = dense_train_phase(
+        "wave-exact-order", order_params, data, lgb, kernels, card, args)
+    need(fused_of(booster) is not None, "exact order: did not run fused")
+    check_wave_launches("wave-exact-order", booster, order_launches, stats,
+                        "wave_partition_hist")
+    need(booster.model_to_string() == exact_text,
+         "exact-order waves: model text differs from exact growth's")
+    say("wave-exact-order: %.2f waves a tree (M = %d), %.2f tail waves a "
+        "tree; model text equal to exact growth's to the byte"
+        % (sum(s.waves for s in stats) / len(stats), fused_of(booster).waves,
+           sum(s.tail_waves for s in stats) / len(stats)))
+    del booster
+    torch.cuda.empty_cache()
+    booster, launches_o, stats = staged_twin(
+        "wave-exact-order", order_params, exact_text, data, lgb, kernels,
+        card, args)
+    check_wave_launches("wave-exact-order-staged", booster, launches_o,
+                        stats, "wave_partition_hist")
     del booster, data, ds, dv
     torch.cuda.empty_cache()
+    small_exact_order_runs(lgb)
+    say("rates on %s, whole-call / steady it/s: main path fused %.4f / "
+        "%.4f, staged %.4f / %.4f; exact growth fused %.4f / %.4f (S = %d), "
+        "%.4f / %.4f (S = %d), staged %.4f / %.4f; exact-order waves fused "
+        "%.4f / %.4f, staged %.4f / %.4f"
+        % ((card,) + RATES["wave"] + RATES["wave-staged"] + RATES["exact"]
+           + (block,) + RATES["exact-S%d" % (params["num_leaves"] - 1)]
+           + (params["num_leaves"] - 1,) + RATES["exact-staged"]
+           + RATES["wave-exact-order"] + RATES["wave-exact-order-staged"]))
 
     # ---- 5. the sparse path: B6 at the Bosch store, then training
     records["sparse_wave_histogram"], sparse_launches = sparse_phase(

@@ -7,10 +7,11 @@ tree on the first iteration (gbdt.cpp:339-362), the degenerate-class skip
 the stop on a tree without splits (gbdt.cpp:440-448) and the model text
 format (gbdt.cpp:817-971).
 
-One iteration is staged -- gradients, then tree growth (ops/wave.py),
-then the partition-side score update (kernel B2), each its own step on
-the device -- or fused (``tpu_fused_iter``, ops/fused_iter.py): the
-three as a few CUDA graph replays with one host read a tree.  Both train
+One iteration is staged -- gradients, then tree growth (ops/wave.py or
+ops/grow.py), then the partition-side score update (kernel B2), each its
+own step on the device -- or fused (``tpu_fused_iter``,
+ops/fused_iter.py): the three as a few CUDA graph replays with a few
+host reads a tree.  Both train
 the same model text to the byte.  The validation-set traversal follows
 either, as in the JAX package.  Scores are (1, N) f32 device tensors,
 updated in place (the fused iteration's graphs hold their address);
@@ -196,8 +197,9 @@ class GBDT:
         objective, which reset_training_data rebuilds.
 
         auto fuses when eligible and the learner runs on CUDA (the
-        hand-written kernels are live, and the host's launches are what
-        the graphs remove); on the CPU it stays staged.  on fuses
+        hand-written kernels are live under wave and exact growth alike,
+        and the host's launches are what the graphs remove); on the CPU
+        it stays staged.  on fuses
         wherever eligible; an explicit request is never dropped
         silently, so ineligibility warns.  off never fuses.  (The learner
         refuses any other value when it is built.)"""
@@ -212,7 +214,7 @@ class GBDT:
                 Log.warning("tpu_fused_iter=on but the fused iteration is "
                             "unavailable (%s); using the staged chain", why)
             if ok and (mode == "on" or self.device.type == "cuda"):
-                fused = fused_iter.FusedIteration.build(
+                fused = fused_iter.FusedIteration(
                     self.learner, self.objective.get_gradients,
                     self.num_data)
         self._fused_state = (fused,)

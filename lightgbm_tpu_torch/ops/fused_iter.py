@@ -4,34 +4,41 @@ Ported from the JAX package's ``ops/fused_iter.py``, which traces the
 objective's gradients, the grow ``lax.while_loop`` and the score update
 into one jitted entry a tree.  The port's staged chain
 (``models/gbdt.py``) instead launches every torch operation of every
-wave from Python and reads the device once a wave.  Here one iteration
-on the card is:
+wave or split from Python and reads the device between them.  Here one
+iteration on the card is:
 
 1. the tree graph: gradients, weight rows and fixed-point exponents,
-   the root and M masked waves (``wave_count``: the waves a tree takes
-   when every leaf splits), ending in the state's status vector;
+   the root and a fixed number of masked passes, ending in the state's
+   status vector.  Under wave growth the passes are M masked waves
+   (``wave_count``: the waves a tree takes when every leaf splits);
+   under exact growth, S gated splits (``SPLIT_BLOCK``);
 2. one host read of that status (done, splits, deepest leaf, waves);
-3. only if the tree is not finished, replays of a one-wave graph, each
-   followed by a read;
+3. only if the tree is not finished, replays of a tail graph, each
+   followed by a read: one wave under wave growth (exact-order trees
+   take more waves than M, and a wave costs far more than a read), S
+   splits under exact growth;
 4. the score-update graph (kernel B2, in place).
 
+A masked pass with nothing to split is an exact no-op on the state, so
+the passes past a tree's end change nothing, and the block sizes move
+only the count of reads and replays, never the trees.
+
 Every graph reads and writes tensors allocated once, outside any
-capture (``WaveState``, the weight rows, the row multipliers and the
-feature mask), so a replay sees this iteration's inputs at the captured
-addresses; the shrinkage is fixed for a booster and baked into the
-score graph, which is captured again if it changes.  The first
+capture (the grower's state, the weight rows, the row multipliers and
+the feature mask), so a replay sees this iteration's inputs at the
+captured addresses; the shrinkage is fixed for a booster and baked into
+the score graph, which is captured again if it changes.  The first
 iteration runs the same functions eagerly on a side stream: it is a real
 iteration, and it sets what the kernels set once (their shared-memory
-attributes, the cached launch plans) before the graphs are captured.
-Kernel wrappers count their launches when Python calls them, which a
-replay skips: each graph records the launches its capture made and adds
-them on every replay.
+attributes, the cached launch plans and workspaces) before the graphs
+are captured.  Kernel wrappers count their launches when Python calls
+them, which a replay skips: each graph records the launches its capture
+made and adds them on every replay.
 
-On CPU tensors ``run`` executes the same schedule eagerly (M waves
-unread, one read, then single waves), so the CPU tests cover it.  Fused
-and staged runs train byte-identical model text: both run
-``WaveGrower``'s body and the same kernels, and a masked wave with no
-valid slot is an exact no-op (tests/test_torch_fused_iter.py).
+On CPU tensors ``run`` executes the same schedule eagerly, so the CPU
+tests cover it.  Fused and staged runs train byte-identical model text:
+both run the grower's body and the same kernels
+(tests/test_torch_fused_iter.py).
 """
 from __future__ import annotations
 
@@ -51,6 +58,9 @@ from .wave_kernels import (fixed_point_exponents, wave_histogram,
 # every kernel wrapper that counts its launches
 KERNELS = (wave_partition_hist, wave_histogram, wave_histogram_rowmajor,
            leaf_histogram, sparse_wave_histogram, score_update)
+# gated splits a graph holds under exact growth (S): a read each S
+# splits, against a graph of about 420 nodes a split (PERF.md, PR 8)
+SPLIT_BLOCK = 32
 
 
 def wave_count(num_leaves: int, wave_width: int) -> int:
@@ -67,8 +77,8 @@ def wave_count(num_leaves: int, wave_width: int) -> int:
 def fused_supported(booster) -> tuple:
     """(ok, reason): can this booster's iteration be fused?  The JAX
     package's rules: GBDT's own iteration and bagging, one tree an
-    iteration, a built-in objective, the serial learner; and here wave
-    growth, whose body is the one fused."""
+    iteration, a built-in objective, the serial learner (under wave or
+    exact growth)."""
     from ..models.gbdt import GBDT
     from .learner import SerialTreeLearner
     if type(booster).train_one_iter is not GBDT.train_one_iter:
@@ -81,8 +91,6 @@ def fused_supported(booster) -> tuple:
         return False, "no built-in objective (custom fobj)"
     if type(booster.learner) is not SerialTreeLearner:
         return False, "not the serial learner"
-    if booster.learner.growth != "wave":
-        return False, "exact growth (only wave growth is fused)"
     return True, ""
 
 
@@ -108,17 +116,29 @@ class _Graph:
 
 
 class FusedIteration:
-    """One boosting step of a learner under wave growth: gradients,
-    growth and the score update, replayed as CUDA graphs on the card and
-    run eagerly on the CPU.  Built once per booster (the learner and the
-    objective are fixed for a training run)."""
+    """One boosting step of a learner: gradients, growth and the score
+    update, replayed as CUDA graphs on the card and run eagerly on the
+    CPU.  Built once per booster (the learner and the objective are
+    fixed for a training run).
+
+    ``waves`` is the count of masked passes in the tree graph (waves, or
+    splits under exact growth) and ``tail_len`` the count in a tail
+    graph; a tree's ``GrowStats.tail_waves`` counts the passes its tail
+    graphs ran, so it makes 1 + tail_waves / tail_len host reads."""
 
     def __init__(self, learner, grad_fn, num_data: int):
-        self.grower = learner.wave_grower()
+        if learner.growth == "exact":
+            self.grower = gr = learner.exact_grower()
+            self._pass = gr.split
+            self.waves = self.tail_len = max(1, min(SPLIT_BLOCK, gr.L - 1))
+        else:
+            self.grower = gr = learner.wave_grower()
+            self._pass = gr.wave
+            self.waves = wave_count(gr.L, gr.W)
+            self.tail_len = 1
         self.grad_fn = grad_fn
         self.device = dev = learner.device
-        self.waves = wave_count(self.grower.L, self.grower.W)
-        self.state = self.grower.new_state(num_data, dev)
+        self.state = gr.new_state(num_data, dev)
         self.w3 = torch.empty((num_data, 3), dtype=torch.float32, device=dev)
         self.exps = torch.empty(3, dtype=torch.int32, device=dev)
         self.row_mult = torch.empty(num_data, dtype=torch.float32,
@@ -127,37 +147,29 @@ class FusedIteration:
         self._tree = self._wave = self._score = None
         self._score_key = None
         self.capture_seconds = 0.0     # set-up: capturing the graphs
+        self.graph_bytes = 0           # device memory the capture took
         self.replays = 0               # graph replays so far
-
-    @classmethod
-    def build(cls, learner, grad_fn, num_data: int) -> "FusedIteration":
-        """The fused iteration of learner, whose gradients grad_fn(score)
-        returns; the learner must grow its trees in waves."""
-        if learner.growth != "wave":
-            raise LightGBMError("the fused iteration needs wave growth "
-                                "(the learner runs %s growth)"
-                                % learner.growth)
-        return cls(learner, grad_fn, num_data)
 
     # ---------------------------------------------- the captured programs
     def tree_pass(self, score) -> None:
         """Gradients at score, the tree's weight rows and exponents, the
-        root and M masked waves, then the status; no host read."""
+        root and the tree graph's masked passes, then the status; no
+        host read."""
         g, h = self.grad_fn(score)
         self.w3.copy_(weight_rows(g.to(torch.float32), h.to(torch.float32),
                                   self.row_mult))
         self.exps.copy_(fixed_point_exponents(self.w3))
-        gr, st = self.grower, self.state
-        gr.root(st, self.w3, self.exps, self.feature_mask)
-        for _ in range(self.waves):
-            gr.wave(st, self.w3, self.exps, self.feature_mask)
-        gr.write_status(st)
+        self.grower.root(self.state, self.w3, self.exps, self.feature_mask)
+        self._passes(self.waves)
 
     def tail_wave(self) -> None:
-        """One more masked wave, then the status."""
-        gr, st = self.grower, self.state
-        gr.wave(st, self.w3, self.exps, self.feature_mask)
-        gr.write_status(st)
+        """A tail graph's masked passes, then the status."""
+        self._passes(self.tail_len)
+
+    def _passes(self, n: int) -> None:
+        for _ in range(n):
+            self._pass(self.state, self.w3, self.exps, self.feature_mask)
+        self.grower.write_status(self.state)
 
     def score_pass(self, score, scale: float) -> None:
         """score += clip(scale * leaf_value)[leaf_id], in place (B2)."""
@@ -167,7 +179,7 @@ class FusedIteration:
 
     # ---------------------------------------------------------- schedule
     def _schedule(self, tree_step, wave_step, score_step):
-        """The tree step, one read, single waves until the tree is done,
+        """The tree step, one read, tail steps until the tree is done,
         the score step: (TreeArrays, leaf_id, GrowStats)."""
         st = self.state
         tree_step()
@@ -179,7 +191,8 @@ class FusedIteration:
             reads += 1
         score_step()
         stats = GrowStats(num_leaves=nn + 1, depth=depth, waves=waves,
-                          host_reads=reads, tail_waves=reads - 1)
+                          host_reads=reads,
+                          tail_waves=(reads - 1) * self.tail_len)
         return self.grower.tree_of(st), st.leaf_id, stats
 
     def _eager(self, score, scale):
@@ -188,11 +201,15 @@ class FusedIteration:
 
     def _capture(self, score, scale) -> None:
         t0 = time.perf_counter()
+        torch.cuda.empty_cache()       # as each capture starts by doing
+        held = torch.cuda.memory_reserved(self.device)
         if self._tree is None:
             self._tree = _Graph(lambda: self.tree_pass(score))
             self._wave = _Graph(self.tail_wave)
         self._score = _Graph(lambda: self.score_pass(score, scale))
         self._score_key = (score.data_ptr(), float(scale))
+        torch.cuda.empty_cache()       # what stays is the graphs' pools
+        self.graph_bytes += torch.cuda.memory_reserved(self.device) - held
         self.capture_seconds += time.perf_counter() - t0
 
     def _replay(self, graph) -> None:

@@ -4,14 +4,19 @@ per-feature histogram view.
 
 Ported from the JAX package's ``ops/grow.py``; the NamedTuple pytrees
 become dataclasses of tensors with the same fields and layouts.
-``grow_tree_exact`` is the serial masked arm of its ``make_grow_core``
-with ``hist_mode='pallas'``: one split at a time, the argmax over all
-leaves (serial_tree_learner.cpp:203), a masked full-N partition on the
-split column, the smaller child's histogram from kernel B5
-(``ops/leaf_hist.py``), the larger by parent subtraction.  The JAX
-package's ordered-partition capacity ladder, the onehot/scatter engines,
-the coordinate sparse store, the feature-parallel and voting arms and
-4-bit packing are other arms of that function and are not ported.
+``ExactGrower`` is the serial masked arm of its ``make_grow_core`` with
+``hist_mode='pallas'``: one split at a time, the argmax over all leaves
+(serial_tree_learner.cpp:203), a masked full-N partition on the split
+column, the smaller child's histogram from kernel B5
+(``ops/leaf_hist.py``), the larger by parent subtraction.  Its split is
+a function over explicit state (``ExactState``) gated on ``ok`` (gain >
+0, within the leaf budget) as the JAX package gates its loop body, so
+the fused iteration (``ops/fused_iter.py``) replays a fixed number of
+splits unread; ``grow_tree_exact`` is the staged driver, one host read a
+batch of splits certain to commit.  The JAX package's ordered-partition
+capacity ladder, the onehot/scatter engines, the coordinate sparse
+store, the feature-parallel and voting arms and 4-bit packing are other
+arms of that function and are not ported.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from dataclasses import dataclass, fields
 
 import torch
 
-from .histogram import leaf_sums, weight_rows
+from .histogram import weight_rows
 from .leaf_hist import leaf_histogram
 from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
                            LEFT_COUNT, LEFT_OUTPUT, LEFT_SUM_G, RIGHT_COUNT,
@@ -158,150 +163,250 @@ def feature_hist_view(ghist, sums, meta, bundle, fix_default: bool = False):
     return v
 
 
+
+
+def _put(dst, idx, mask, val):
+    """dst[idx] = val where mask; the other writes land in dst's last
+    slot, a spare past the end of the array's real entries (the JAX
+    package's mode='drop' scatter).  idx and mask are tensors of one
+    shape (never 0-dim: a 0-dim index would be read back as an int)."""
+    dst[torch.where(mask, idx, dst.shape[0] - 1)] = val
+
+
+@dataclass
+class ExactState:
+    """Everything a split reads and writes, allocated once: the leaf ids,
+    the per-leaf histogram cache and best splits (a spare row past the
+    L leaves), the tree (``TreeArrays`` of room for L + 1 leaves: one
+    spare slot past its nodes and one past its leaves), device scalars
+    for the splits made (nn) and the stop flag, and ``status`` (done,
+    nn, deepest leaf, splits): the one int32 (4,) vector a driver
+    reads."""
+    leaf_id: torch.Tensor     # (N,) i32
+    hists: torch.Tensor       # (L + 1, G, B, 3) f32, or (0,) without cache
+    bests: torch.Tensor       # (L + 1, SPLIT_VEC_SIZE) f32
+    tree: TreeArrays          # room for L + 1 leaves
+    nn: torch.Tensor          # () i32 splits made
+    done: torch.Tensor        # () bool a split found no positive gain
+    status: torch.Tensor      # (4,) i32
+
+
+class ExactGrower:
+    """The exact (leaf-wise) grower of one learner: its row-major bins X
+    (N, G) uint8, feature metadata and static sizes.
+
+    ``split`` is the body of the JAX package's ``lax.while_loop``: the
+    leaf of largest gain (the first, as ``jnp.argmax``), its rows
+    routed, the tree recorded, the smaller child's histogram from B5 and
+    the larger's by parent subtraction, and the children's best splits --
+    every write gated on ``ok`` (a positive gain within the leaf budget)
+    through the spare slots, so a split that is not ok is an exact no-op
+    on the state, and nothing reads the device: a fixed number of splits
+    can run unread (``ops/fused_iter.py`` replays them as CUDA graphs)."""
+
+    def __init__(self, X, meta: FeatureMeta, bundle, *, num_leaves: int,
+                 num_bins: int, params: SplitParams, max_depth: int,
+                 group_bins: int = 0, cache_hists: bool = True):
+        self.X, self.meta, self.bundle = X, meta, bundle
+        self.L = num_leaves
+        self.hist_bins = group_bins if bundle is not None else num_bins
+        self.params, self.max_depth = params, max_depth
+        self.cache_hists = cache_hists
+
+    def new_state(self, n: int, dev) -> ExactState:
+        """Buffers for growing trees over n rows on dev (set by
+        ``root``)."""
+        L, f32, i32 = self.L, torch.float32, torch.int32
+        hists = (torch.zeros((L + 1, self.X.shape[1], self.hist_bins, 3),
+                             dtype=f32, device=dev)
+                 if self.cache_hists else torch.empty(0, device=dev))
+        return ExactState(
+            leaf_id=torch.empty(n, dtype=i32, device=dev), hists=hists,
+            bests=torch.empty((L + 1, SPLIT_VEC_SIZE), dtype=f32,
+                              device=dev),
+            tree=TreeArrays.new(L + 1, torch.zeros((), device=dev), f32,
+                                dev),
+            nn=torch.empty((), dtype=i32, device=dev),
+            done=torch.empty((), dtype=torch.bool, device=dev),
+            status=torch.empty(4, dtype=i32, device=dev))
+
+    def tree_of(self, st: ExactState) -> TreeArrays:
+        """The state's tree without its spare slots (views)."""
+        return st.tree.head(self.L)
+
+    def _hist(self, st, leaf, w3, exps):
+        """B5: the (G, B, 3) histogram of the rows in leaf, a (1,) device
+        tensor (-1: no row, a zero histogram)."""
+        return leaf_histogram(self.X, None, None, st.leaf_id, leaf, None,
+                              self.hist_bins, w3=w3, exps=exps)
+
+    def _best_of(self, hists_k, sums_k, depths_k, feature_mask):
+        meta, bundle = self.meta, self.bundle
+        return best_splits_batched(
+            hists_k, sums_k, depths_k, meta, feature_mask, self.params,
+            self.max_depth,
+            hist_view=lambda h, s: feature_hist_view(h, s, meta, bundle))
+
+    def root(self, st: ExactState, w3, exps, feature_mask) -> None:
+        """Reset the state to the one-leaf tree of the weight rows w3 (N,
+        3) and their fixed-point exponents exps: every row in leaf 0, its
+        histogram and best split."""
+        dev, i32 = w3.device, torch.int32
+        st.leaf_id.zero_()
+        root_sums = w3.sum(dim=0)
+        hist0 = self._hist(st, torch.zeros(1, dtype=i32, device=dev), w3,
+                           exps)
+        if self.cache_hists:
+            st.hists[0] = hist0
+        st.bests.fill_(-float("inf"))
+        st.bests[0] = self._best_of(hist0[None], root_sums[None],
+                                    torch.zeros(1, dtype=i32, device=dev),
+                                    feature_mask)[0]
+        st.tree.reset_(root_sums[2])
+        st.nn.zero_()
+        st.done.fill_(self.L <= 1)
+
+    def split(self, st: ExactState, w3, exps, feature_mask) -> None:
+        """One gated split (SerialTreeLearner::Train, :203-207): split the
+        leaf of largest gain if its gain is positive and the tree has
+        room, with no host read."""
+        L, meta, bundle, X = self.L, self.meta, self.bundle, self.X
+        f32, i32 = torch.float32, torch.int32
+        tree = st.tree
+        bl = torch.argmax(st.bests[:L, GAIN]).reshape(1)   # (1,) long
+        info = st.bests.index_select(0, bl)[0]             # (V,)
+        ok = ((info[GAIN] > 0.0) & (st.nn < L - 1)).reshape(1)
+        node = st.nn.long().reshape(1)
+        new_leaf = node + 1
+        node32, bl32, new32 = node.to(i32), bl.to(i32), new_leaf.to(i32)
+        f = info[FEATURE].long().reshape(1)
+        thr = info[THRESHOLD].to(i32)
+        dbz = info[DEFAULT_BIN_FOR_ZERO].to(i32)
+        cat = info[IS_CAT] > 0.5
+        fdef = meta.default_bin.index_select(0, f)[0]
+        dleft = torch.where(cat, dbz == thr, dbz <= thr)
+
+        # ---- partition (dense_bin.hpp:190-222): the split column,
+        # remapped out of its EFB group, routes the leaf's rows
+        j = (f if bundle is None
+             else bundle.group_of.index_select(0, f).long())
+        col = X.index_select(1, j)[:, 0].to(i32)
+        if bundle is not None:
+            goff, span, adj = (a.index_select(0, f)[0] for a in (
+                bundle.bin_off, bundle.bin_span, bundle.bin_adj))
+            col = torch.where((col >= goff) & (col < goff + span),
+                              col - goff + adj, fdef)
+        go_left = torch.where(cat, col == thr, col <= thr)
+        go_left = torch.where(col == fdef, dleft, go_left)
+        st.leaf_id.copy_(torch.where(ok & (st.leaf_id == bl32) & ~go_left,
+                                     new32, st.leaf_id))
+
+        # ---- tree bookkeeping (tree.cpp:55-110)
+        parent = tree.leaf_parent.index_select(0, bl)      # (1,)
+        gp = parent.clamp(min=0).long()
+        lc, rc = tree.left_child, tree.right_child
+        was_left = lc.index_select(0, gp) == ~bl32
+        fix = ok & (parent >= 0)
+        _put(lc, gp, fix & was_left, node32)
+        _put(rc, gp, fix & ~was_left, node32)
+        _put(lc, node, ok, ~bl32)
+        _put(rc, node, ok, ~new32)
+        depth1 = tree.leaf_depth.index_select(0, bl) + 1  # (1,)
+        tree.num_leaves.add_(ok[0].to(i32))
+        sg = info[SECOND_GAIN]
+        for name, val in (
+                ("split_feature", f.to(i32)), ("threshold_bin", thr),
+                ("default_bin_for_zero", dbz), ("default_bin", fdef.to(i32)),
+                ("is_cat", cat.to(i32)), ("split_gain", info[GAIN]),
+                ("internal_value", tree.leaf_value.index_select(0, bl)),
+                ("internal_count", (info[LEFT_COUNT]
+                                    + info[RIGHT_COUNT]).to(i32)),
+                ("second_feature", info[SECOND_FEATURE].to(i32)),
+                ("second_gain", torch.where(torch.isfinite(sg), sg,
+                                            torch.zeros_like(sg)))):
+            _put(getattr(tree, name), node, ok, val)
+        pair = torch.cat([bl, new_leaf])                   # (left, right)
+        ok2 = ok.expand(2)
+        _put(tree.leaf_parent, pair, ok2, node32)
+        _put(tree.leaf_value, pair, ok2, info[LEFT_OUTPUT:RIGHT_OUTPUT + 1])
+        _put(tree.leaf_count, pair, ok2, torch.stack(
+            [info[LEFT_COUNT], info[RIGHT_COUNT]]).to(i32))
+        _put(tree.leaf_depth, pair, ok2, depth1)
+
+        # ---- children: the smaller scanned (B5), the larger by parent
+        # subtraction, or scanned when the cache is off; a split that is
+        # not ok scans no row
+        left_small = info[LEFT_COUNT] < info[RIGHT_COUNT]
+        sl = torch.where(left_small, pair, pair.flip(0))   # small, large
+        scan = torch.where(ok2, sl, -1).to(i32)
+        hist_small = self._hist(st, scan[:1], w3, exps)
+        if self.cache_hists:
+            hist_large = st.hists.index_select(0, bl)[0] - hist_small
+        else:
+            hist_large = self._hist(st, scan[1:], w3, exps)
+        hists2 = torch.stack([hist_small, hist_large])
+        lr_sums = torch.stack([info[LEFT_SUM_G:LEFT_COUNT + 1],
+                               info[RIGHT_SUM_G:RIGHT_COUNT + 1]])
+        sums2 = torch.where(left_small, lr_sums, lr_sums.flip(0))
+        if self.cache_hists:
+            _put(st.hists, sl, ok2, hists2)
+        _put(st.bests, sl, ok2, self._best_of(hists2, sums2,
+                                              depth1.expand(2),
+                                              feature_mask))
+        st.nn.add_(ok[0].to(i32))
+        st.done.logical_or_(~ok[0])
+
+    def write_status(self, st: ExactState) -> None:
+        """st.status = (done, nn, deepest leaf, splits), for one read: done
+        once a split found no positive gain, the tree is full or no leaf
+        has a positive gain (the next split could not commit)."""
+        L = self.L
+        done = (st.done | (st.nn == L - 1)
+                | ~(st.bests[:L, GAIN] > 0.0).any())
+        st.status.copy_(torch.stack([
+            done.to(torch.int32), st.nn,
+            st.tree.leaf_depth[:L].amax(), st.nn]))
+
+
 def grow_tree_exact(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
                     bundle, *, num_leaves: int, num_bins: int,
                     params: SplitParams, max_depth: int, group_bins: int = 0,
                     cache_hists: bool = True):
-    """Grow one tree leaf-wise.  X: (N, G) uint8 row-major bins;
-    grad/hess/row_mult: (N,) f32.  Returns (TreeArrays, leaf_id (N,)
-    int32, GrowStats).
+    """Grow one tree leaf-wise, staged: an ExactGrower's gated split with
+    one host read a batch of splits certain to commit.  X: (N, G) uint8
+    row-major bins; grad/hess/row_mult: (N,) f32.  Returns (TreeArrays,
+    leaf_id (N,) int32, GrowStats).
 
-    The JAX package runs the loop on the device and gates every update on
-    ``ok`` (gain > 0).  Here the loop is in Python and needs no gate: a
-    split consumes the one leaf it splits and puts its two children in
+    A split consumes the one leaf it splits and puts its two children in
     its place, so the count of leaves with a positive gain drops by at
     most one a split.  One host read of that count P therefore lets the
-    next min(P, budget) splits run unread, each certain to commit; a
-    further read when they are done, and the loop stops when P is 0 or
-    the tree is full.  Every split indexes with device tensors, so
-    nothing else waits on the device."""
+    next min(P, budget) splits run unread, each certain to commit (its
+    gate always true); a further read when they are done, and the loop
+    stops when P is 0 or the tree is full."""
     L = num_leaves
-    hist_bins = group_bins if bundle is not None else num_bins
-    dev = grad.device
-    f32, i32 = torch.float32, torch.int32
-    n = grad.shape[0]
-    leaf_id = torch.zeros(n, dtype=i32, device=dev)
-    leaf_ids = torch.arange(L, dtype=torch.long, device=dev)
+    g = ExactGrower(X, meta, bundle, num_leaves=L, num_bins=num_bins,
+                    params=params, max_depth=max_depth,
+                    group_bins=group_bins, cache_hists=cache_hists)
+    st = g.new_state(grad.shape[0], grad.device)
     # B5's weight rows and fixed-point exponents, once a tree as the wave
     # grower makes them: every leaf histogram of the tree, and wave
     # growth's at width 1, then sums the same rows to the same bits
     w3 = weight_rows(grad, hess, row_mult)
     exps = fixed_point_exponents(w3)
-
-    def hist_of(lid, leaf):
-        return leaf_histogram(X, grad, hess, lid, leaf, row_mult, hist_bins,
-                              w3=w3, exps=exps)
-
-    def best_of(hists_k, sums_k, depths_k):
-        return best_splits_batched(
-            hists_k, sums_k, depths_k, meta, feature_mask, params, max_depth,
-            hist_view=lambda h, s: feature_hist_view(h, s, meta, bundle))
-
-    # ---- root
-    root_sums = leaf_sums(grad, hess, leaf_id, 0, row_mult)
-    hist0 = hist_of(leaf_id, 0)
-    if cache_hists:
-        hists = torch.zeros((L,) + tuple(hist0.shape), dtype=f32, device=dev)
-        hists[0] = hist0
-    bests = torch.full((L, SPLIT_VEC_SIZE), -float("inf"), dtype=f32,
-                       device=dev)
-    bests[0] = best_of(hist0[None], root_sums[None],
-                       torch.zeros(1, dtype=i32, device=dev))[0]
-    tree = TreeArrays.new(L, root_sums[2], f32, dev)
-    default_bin = meta.default_bin
-
+    g.root(st, w3, exps, feature_mask)
     nn = host_reads = 0
     while True:
         # the one host read of a batch: leaves with a positive gain, and
         # the deepest leaf so far
-        host = torch.stack([(bests[:, GAIN] > 0.0).sum().to(i32),
-                            tree.leaf_depth.max()]).tolist()
+        host = torch.stack([(st.bests[:L, GAIN] > 0.0).sum().to(torch.int32),
+                            st.tree.leaf_depth[:L].max()]).tolist()
         host_reads += 1
         pending, depth = int(host[0]), int(host[1])
         if pending == 0 or nn == L - 1:
             break
         for _ in range(min(pending, L - 1 - nn)):
-            node, new_leaf = nn, nn + 1
-            bl = torch.argmax(bests[:, GAIN]).reshape(1)    # (1,) long
-            info = bests.index_select(0, bl)[0]             # (V,)
-            f = info[FEATURE].long().reshape(1)
-            thr = info[THRESHOLD].to(i32)
-            dbz = info[DEFAULT_BIN_FOR_ZERO].to(i32)
-            cat = info[IS_CAT] > 0.5
-            fdef = default_bin.index_select(0, f)[0]
-            dleft = torch.where(cat, dbz == thr, dbz <= thr)
-
-            # ---- partition (dense_bin.hpp:190-222): the split column,
-            # remapped out of its EFB group, routes the leaf's rows
-            j = (f if bundle is None
-                 else bundle.group_of.index_select(0, f).long())
-            col = X.index_select(1, j)[:, 0].to(i32)
-            if bundle is not None:
-                goff, span, adj = (a.index_select(0, f)[0] for a in (
-                    bundle.bin_off, bundle.bin_span, bundle.bin_adj))
-                col = torch.where((col >= goff) & (col < goff + span),
-                                  col - goff + adj, fdef)
-            go_left = torch.where(cat, col == thr, col <= thr)
-            go_left = torch.where(col == fdef, dleft, go_left)
-            leaf_id = torch.where((leaf_id == bl.to(i32)) & ~go_left,
-                                  new_leaf, leaf_id)
-
-            # ---- tree bookkeeping (tree.cpp:55-110)
-            bl32 = bl.to(i32)
-            parent = tree.leaf_parent.index_select(0, bl)
-            gp = parent.clamp(min=0).long()
-            lc, rc = tree.left_child, tree.right_child
-            was_left = lc.index_select(0, gp) == ~bl32
-            has_p = parent >= 0
-            lc.index_copy_(0, gp, torch.where(has_p & was_left, node,
-                                              lc.index_select(0, gp)))
-            rc.index_copy_(0, gp, torch.where(has_p & ~was_left, node,
-                                              rc.index_select(0, gp)))
-            lc[node] = ~bl32[0]
-            rc[node] = ~new_leaf
-            depth1 = tree.leaf_depth.index_select(0, bl) + 1    # (1,)
-            tree.num_leaves = tree.num_leaves + 1
-            tree.split_feature[node] = f[0].to(i32)
-            tree.threshold_bin[node] = thr
-            tree.default_bin_for_zero[node] = dbz
-            tree.default_bin[node] = fdef
-            tree.is_cat[node] = cat.to(i32)
-            tree.split_gain[node] = info[GAIN]
-            tree.internal_value[node] = tree.leaf_value.index_select(0,
-                                                                     bl)[0]
-            tree.internal_count[node] = (info[LEFT_COUNT]
-                                         + info[RIGHT_COUNT]).to(i32)
-            tree.second_feature[node] = info[SECOND_FEATURE].to(i32)
-            sg = info[SECOND_GAIN]
-            tree.second_gain[node] = torch.where(torch.isfinite(sg), sg,
-                                                 torch.zeros_like(sg))
-            pair = torch.cat([bl, leaf_ids[new_leaf:new_leaf + 1]])
-            tree.leaf_parent.index_fill_(0, pair, node)
-            tree.leaf_value.index_copy_(0, pair,
-                                        info[LEFT_OUTPUT:RIGHT_OUTPUT + 1])
-            tree.leaf_count.index_copy_(
-                0, pair, torch.stack([info[LEFT_COUNT],
-                                      info[RIGHT_COUNT]]).to(i32))
-            tree.leaf_depth.index_copy_(0, pair, depth1.expand(2))
-
-            # ---- children: the smaller scanned (B5), the larger by
-            # parent subtraction, or scanned when the cache is off
-            left_small = info[LEFT_COUNT] < info[RIGHT_COUNT]
-            sl = torch.where(left_small, pair, pair.flip(0))  # small, large
-            hist_small = hist_of(leaf_id, sl[:1])
-            if cache_hists:
-                hist_large = hists.index_select(0, bl)[0] - hist_small
-            else:
-                hist_large = hist_of(leaf_id, sl[1:])
-            hists2 = torch.stack([hist_small, hist_large])
-            lr_sums = torch.stack([info[LEFT_SUM_G:LEFT_COUNT + 1],
-                                   info[RIGHT_SUM_G:RIGHT_COUNT + 1]])
-            sums2 = torch.where(left_small, lr_sums, lr_sums.flip(0))
-            if cache_hists:
-                hists.index_copy_(0, sl, hists2)
-            bests.index_copy_(0, sl, best_of(hists2, sums2,
-                                             depth1.expand(2)))
+            g.split(st, w3, exps, feature_mask)
             nn += 1
     stats = GrowStats(num_leaves=nn + 1, depth=depth, waves=nn,
                       host_reads=host_reads)
-    return tree, leaf_id, stats
+    return g.tree_of(st), st.leaf_id, stats

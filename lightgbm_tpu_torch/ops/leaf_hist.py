@@ -16,7 +16,9 @@ leaf's rows, a histogram pass sums their weight rows w3 in the tree's
 64-bit fixed point (``fixed_point_exponents``), a conversion rounds to
 f32 once.  So B5 sums the same rows to the same bits as B4 at K = 1, and
 exact growth trains the model text of wave growth at width 1.  The leaf
-stays a device tensor: no call reads anything back to the host.
+stays a device tensor: a call reads only shapes and makes no host read
+and no host-to-device copy, so the fused iteration captures it; a leaf
+id no row holds (-1) gives a zero histogram.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (building it on first use) or raises.  The wrapper
@@ -30,7 +32,8 @@ from .. import _build
 from ..utils.log import LightGBMError
 from .histogram import _weights, weight_rows
 from .wave_kernels import (_exps, _list_buffers, _sms, check_rows,
-                           hist_plan, histogram_plain)
+                           hist_plan, histogram_plain,
+                           wave_histogram_rowmajor_plain)
 
 
 def leaf_histogram_plain(X, grad, hess, leaf_id, leaf, row_mult,
@@ -56,19 +59,20 @@ def _leaf_tensor(leaf, dev):
 
 
 def _check(X, grad, hess, leaf_id, row_mult, num_bins, w3, exps):
-    """Raise on inputs the path does not take; on the card, given w3, the
-    kernel reads neither grad, hess nor row_mult, and they go unchecked
-    (the grower's exact loop makes 255 calls a tree)."""
+    """Raise on inputs the path does not take, reading shapes only.
+    Given w3, neither the kernel nor the plain version reads grad, hess
+    or row_mult, and they go unchecked (None is fine): the grower's
+    splits pass w3 alone."""
     dev = X.device
     N, F = X.shape if X.dim() == 2 else (None, None)
     want = [(X, torch.uint8, (N, F), "X"),
             (leaf_id, torch.int32, (N,), "leaf_id")]
-    if w3 is None or dev.type != "cuda":
+    if w3 is None:
         want += [(grad, torch.float32, (N,), "grad"),
                  (hess, torch.float32, (N,), "hess")]
         if row_mult is not None:
             want.append((row_mult, torch.float32, (N,), "row_mult"))
-    if w3 is not None:
+    else:
         want.append((w3, torch.float32, (N, 3), "w3"))
     if exps is not None:
         want.append((exps, torch.int32, (3,), "exps"))
@@ -116,7 +120,9 @@ def leaf_histogram(X, grad, hess, leaf_id, leaf, row_mult, num_bins: int,
     w3: the kernel's weight rows, ``weight_rows(grad, hess, row_mult)``;
     exps: their fixed-point exponents, ``fixed_point_exponents(w3)``.
     Each is computed here when None; the grower computes both once a
-    tree.  The plain version uses neither.
+    tree and passes grad, hess and row_mult as None.  Given w3, the
+    plain version sums w3 masked to the leaf, which equals its sum of
+    grad, hess and row_mult to the bit.
 
     The kernel runs on B4's plan at K = 1, planned from N: a small leaf's
     short list takes fewer of the plan's shares on the device
@@ -125,6 +131,11 @@ def leaf_histogram(X, grad, hess, leaf_id, leaf, row_mult, num_bins: int,
     _check(X, grad, hess, leaf_id, row_mult, num_bins, w3, exps)
     leaf_t = _leaf_tensor(leaf, X.device)
     if X.device.type == "cpu":
+        if w3 is not None:
+            # B4's plain version at K = 1: w3 masked to the leaf, the same
+            # weights as _weights' to the bit (m in {0, 1} multiplies last)
+            return wave_histogram_rowmajor_plain(X, leaf_id, w3, leaf_t,
+                                                 num_bins)[0]
         return leaf_histogram_plain(X, grad, hess, leaf_id, leaf_t,
                                     row_mult, num_bins)
     if w3 is None:

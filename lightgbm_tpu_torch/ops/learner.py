@@ -22,7 +22,7 @@ from ..utils.common import avoid_inf
 from ..utils.config import Config, _FALSE_SET, _TRUE_SET
 from ..utils.log import Log
 from ..utils.random import Random
-from .grow import BundleArrays, grow_tree_exact
+from .grow import BundleArrays, ExactGrower, grow_tree_exact
 from .sparse_mxu import build_chunked_store
 from .sparse_store import column_fill_bins
 from .split_finder import FeatureMeta, SplitParams
@@ -173,7 +173,6 @@ def check_engine_params(config: Config):
         ("tpu_growth", ("auto", "wave", "exact")),
         ("tpu_histogram_mode", ("auto", "pallas", "pallas_ct", "pallas_t")),
         ("tpu_hist_precision", ("auto", "hilo")),
-        ("tpu_wave_order", ("auto", "batched")),
         ("tpu_score_update", ("auto", "pallas")),
         ("tpu_fused_iter", ("auto", "on", "off")),
         ("tpu_autotune", ("off", "prior")),
@@ -195,11 +194,6 @@ def check_engine_params(config: Config):
         Log.fatal("tpu_wave_chunk must be positive, got %s",
                   config.tpu_wave_chunk)
     growth = resolve_growth(config, sparse)
-    if growth == "exact" and val("tpu_fused_iter") == "on":
-        Log.fatal("tpu_fused_iter=on fuses wave growth only: the exact "
-                  "grower's per-split loop is not fused in "
-                  "lightgbm_tpu_torch yet (set tpu_growth=wave, or "
-                  "tpu_fused_iter=auto or off)")
     # the wave width is read, and so checked, only under wave growth: an
     # exact-growth config with a leftover bad width keeps training, as in
     # the JAX package
@@ -209,11 +203,39 @@ def check_engine_params(config: Config):
     return sparse, growth
 
 
-def resolve_wave_width(config: Config, num_leaves: int) -> int:
-    """tpu_wave_width=-1 -> the JAX package's auto ladder (batched order)."""
+def _order_sensitive(config: Config) -> bool:
+    """Configs whose quality depends on the leaf-wise split order (the
+    JAX package's rule, its ops/autotune.py: lambdarank, and the dart,
+    goss and infinite boosting modes)."""
+    return (str(config.objective) in ("lambdarank", "rank")
+            or str(config.boosting_type) in ("dart", "goss", "infinite",
+                                             "infiniteboost"))
+
+
+def resolve_wave_order(config: Config) -> str:
+    """tpu_wave_order: auto -> 'exact' for the order-sensitive configs,
+    'batched' otherwise, as the JAX package resolves it."""
+    v = _val(config, "tpu_wave_order")
+    if v not in ("auto", "batched", "exact"):
+        Log.fatal("Unknown tpu_wave_order %s (expected auto/batched/"
+                  "exact)", v)
+    if v != "auto":
+        return v
+    return "exact" if _order_sensitive(config) else "batched"
+
+
+def resolve_wave_width(config: Config, num_leaves: int,
+                       wave_order: str = "batched") -> int:
+    """tpu_wave_width=-1 -> the JAX package's auto ladder: 8, 16 or 32 by
+    the leaf count, and width 1 for an order-sensitive config under
+    batched order (its waves would change the split order)."""
     w = int(config.tpu_wave_width)
     if w > 0:
         return w
+    if w != -1:
+        Log.fatal("tpu_wave_width must be positive or -1 (auto), got %d", w)
+    if _order_sensitive(config) and wave_order != "exact":
+        return 1
     if num_leaves <= 31:
         return 8
     if num_leaves <= 127:
@@ -274,7 +296,12 @@ class SerialTreeLearner:
         self.hist_mode = mode
         self.cache_hists = hist_cache_enabled(config, self.num_leaves,
                                               ncols, nbins, 4)
-        self.wave_width = (resolve_wave_width(config, self.num_leaves)
+        # the order and width are read only under wave growth, as in the
+        # JAX package
+        self.wave_order = (resolve_wave_order(config)
+                           if self.growth == "wave" else "batched")
+        self.wave_width = (resolve_wave_width(config, self.num_leaves,
+                                              self.wave_order)
                            if self.growth == "wave" else 1)
         binned = train_data.binned
         if binned.shape[1] == 0:
@@ -326,7 +353,14 @@ class SerialTreeLearner:
         fused iteration, ops/fused_iter.py, replays)."""
         return WaveGrower(self.X, self.meta, self.bundle_arrays,
                           wave_width=self.wave_width,
-                          hist_mode=self.hist_mode, **self._grow_kw())
+                          hist_mode=self.hist_mode,
+                          wave_order=self.wave_order, **self._grow_kw())
+
+    def exact_grower(self) -> ExactGrower:
+        """The exact grower of this learner's row-major bins and config
+        (what the fused iteration replays under exact growth)."""
+        return ExactGrower(self.X, self.meta, self.bundle_arrays,
+                           **self._grow_kw())
 
     def train_device(self, grad, hess, row_mult=None):
         """Grow one tree on the device: (TreeArrays, leaf_id, GrowStats)."""
@@ -340,7 +374,7 @@ class SerialTreeLearner:
         else:
             tree, leaf_id, stats = grow_tree(
                 *args, wave_width=self.wave_width, hist_mode=self.hist_mode,
-                **self._grow_kw())
+                wave_order=self.wave_order, **self._grow_kw())
         self.last_stats = stats
         return tree, leaf_id, stats
 

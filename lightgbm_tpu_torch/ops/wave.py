@@ -30,6 +30,13 @@ unread (``ops/fused_iter.py`` replays them as CUDA graphs).
 wave (the count of valid splits, the k == 0 stop test, and the depth the
 wave leaves) between its selection and its commit.
 
+Under ``tpu_wave_order=exact`` (the JAX package's exact-order waves) a
+wave commits only the prefix of its candidates that the leaf-wise order
+would split before any child made earlier in the same wave, and sends
+the rows routed to the other candidates' right children back to their
+parents; the fixed-point histograms do not depend on the slot, so the
+trees equal exact growth's (``ops/grow.py``) at any width.
+
 On the entry-chunk sparse store (``ops/sparse_mxu.py``, the JAX
 package's ``sparse_mxu`` engine) every histogram -- the root's one slot,
 each wave's smaller children and the no-cache larger children -- comes
@@ -45,7 +52,7 @@ from typing import NamedTuple
 
 import torch
 
-from .grow import GrowStats, TreeArrays, feature_hist_view
+from .grow import GrowStats, TreeArrays, _put, feature_hist_view
 from .histogram import weight_rows
 from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
                            LEFT_COUNT, LEFT_OUTPUT, LEFT_SUM_G, LEFT_SUM_H,
@@ -64,13 +71,6 @@ def _stable_topk(gains, W):
     """Top-W of gains, ties broken by lower index (lax.top_k's order)."""
     vals, idx = torch.sort(gains, descending=True, stable=True)
     return vals[:W], idx[:W]
-
-
-def _put(dst, idx, mask, val):
-    """dst[idx] = val where mask; the other writes land in dst's last
-    slot, a spare past the end of the array's real entries (the JAX
-    package's mode='drop' scatter)."""
-    dst[torch.where(mask, idx, dst.shape[0] - 1)] = val
 
 
 @dataclass
@@ -93,9 +93,10 @@ class WaveState:
 
 
 class Pick(NamedTuple):
-    """A wave's selection: the top-W leaves, which of them split, their
-    count and the deepest leaf once they have."""
+    """A wave's selection: the top-W leaves and their gains, which of
+    them split, their count and the deepest leaf once they have."""
     parent: torch.Tensor      # (W,) long leaf ids, gains descending
+    gain: torch.Tensor        # (W,) f32 their gains
     valid: torch.Tensor       # (W,) bool, a prefix
     k: torch.Tensor           # () i32
     depth: torch.Tensor       # () i32
@@ -110,13 +111,21 @@ class WaveGrower:
     histograms (B1); 'pallas_t' is the JAX package's dataflow of that
     name, the partition as plain tensor ops and the histograms through
     B3; 'pallas' is the same on the row-major bins, through B4.  The
-    mode has no meaning on the sparse store."""
+    mode has no meaning on the sparse store.
+
+    wave_order 'batched' commits every valid slot of a wave; 'exact'
+    commits the prefix of slots that the leaf-wise order would split
+    before any child made earlier in the wave (``_exact_prefix``), and
+    rolls the rest back, so the trees equal exact growth's at any
+    width."""
 
     def __init__(self, X, meta: FeatureMeta, bundle, *, num_leaves: int,
                  num_bins: int, params: SplitParams, max_depth: int,
                  wave_width: int, group_bins: int = 0,
-                 cache_hists: bool = True, hist_mode: str = "pallas_ct"):
+                 cache_hists: bool = True, hist_mode: str = "pallas_ct",
+                 wave_order: str = "batched"):
         self.X, self.meta, self.bundle = X, meta, bundle
+        self.exact_order = wave_order == "exact"
         self.L = num_leaves
         self.W = max(1, min(wave_width, num_leaves - 1))
         self.num_bins = num_bins
@@ -198,21 +207,47 @@ class WaveGrower:
     # --------------------------------------------------------------- wave
     def pick(self, st: WaveState) -> Pick:
         """The top-W leaves by gain and which of them split (a positive
-        gain, within the leaf budget)."""
+        gain, within the leaf budget); depth counts every valid slot,
+        which under exact order may not all commit."""
         L, W = self.L, self.W
         gw, parent = _stable_topk(st.bests[:L, GAIN], W)
         rank = torch.arange(W, dtype=torch.long, device=gw.device)
         valid = (gw > 0.0) & (rank < (L - 1) - st.nn)
         depth = st.tree.leaf_depth[:L]
         grown = torch.where(valid, depth[parent] + 1, 0).amax()
-        return Pick(parent, valid, valid.sum().to(torch.int32),
+        return Pick(parent, gw, valid, valid.sum().to(torch.int32),
                     torch.maximum(depth.amax(), grown))
 
+    def _exact_prefix(self, p: Pick, bests_k, small_id, large_id):
+        """(commit (W,) bool, kc () i32): the leaf-wise order splits the
+        candidates in rank order until a child made earlier in the wave
+        outranks the next one -- a larger gain, or an equal gain and a
+        smaller leaf id (the first maximum, as the argmax of exact
+        growth) -- so commit the valid slots before that one."""
+        W, dev = self.W, bests_k.device
+        sg, lg = bests_k[:W, GAIN], bests_k[W:, GAIN]
+        ninf = torch.full_like(sg, -float("inf"))
+        cg = torch.where(p.valid, torch.maximum(sg, lg), ninf)
+        # the leaf id of each candidate's better child (ties: smaller id)
+        cid = torch.where((sg > lg) | ((sg == lg) & (small_id <= large_id)),
+                          small_id, large_id)
+        # the best child over the candidates before each one: a (W, W)
+        # table, row t over the columns j < t
+        rank = torch.arange(W, device=dev)
+        before = rank[None, :] < rank[:, None]
+        mx = torch.where(before, cg[None, :], ninf[None, :]).amax(dim=1)
+        mid = torch.where(before & (cg[None, :] == mx[:, None]),
+                          cid[None, :], self.L + 1).amin(dim=1)
+        stop = (mx > p.gain) | ((mx == p.gain) & (mid < p.parent))
+        kc = torch.minimum((~stop).to(torch.int32).cumprod(0).sum(), p.k)
+        return rank < kc, kc.to(torch.int32)
+
     def commit(self, st: WaveState, p: Pick, w3, exps, feature_mask):
-        """Split the valid leaves of pick p: route their rows, build the
+        """Split the valid leaves of pick p (under exact order, the
+        committed prefix of them): route their rows, build the
         children's histograms and best splits, and record the splits in
-        the tree -- every write masked by p.valid, so a pick with no
-        valid slot changes nothing."""
+        the tree -- every write masked, so a pick with no valid slot
+        changes nothing."""
         L, W, meta, bundle = self.L, self.W, self.meta, self.bundle
         dev = w3.device
         f32, i32 = torch.float32, torch.int32
@@ -297,24 +332,36 @@ class WaveGrower:
                                      torch.cat([depth, depth]),
                                      feature_mask)          # (2W, V)
 
-        # ---- masked commit: invalid slots write the spare slots
+        if self.exact_order:
+            # the leaf-wise prefix; the rows routed to the right child of
+            # a valid slot that does not commit go back to its parent:
+            # one gather over the leaf ids through an (L + 1) remap, no
+            # pass over the bins (its histograms are dropped below)
+            commit, k = self._exact_prefix(p, bests_k, small_id, large_id)
+            remap = torch.arange(L + 1, dtype=i32, device=dev)
+            _put(remap, newleaf, valid & ~commit, parent.to(i32))
+            st.leaf_id.copy_(remap.index_select(0, st.leaf_id))
+        else:
+            commit = valid
+
+        # ---- masked commit: other slots write the spare slots
         if self.cache_hists:
-            _put(st.hists, small_id, valid, hist_small)
-            _put(st.hists, large_id, valid, hist_large)
-        _put(st.bests, small_id, valid, bests_k[:W])
-        _put(st.bests, large_id, valid, bests_k[W:])
+            _put(st.hists, small_id, commit, hist_small)
+            _put(st.hists, large_id, commit, hist_large)
+        _put(st.bests, small_id, commit, bests_k[:W])
+        _put(st.bests, large_id, commit, bests_k[W:])
 
         # ---- tree bookkeeping for the committed splits
         node32 = node.to(i32)
         tparent = tree.leaf_parent[parent].long()
         gp = tparent.clamp(min=0)
         was_left = tree.left_child[gp] == (~parent).to(i32)
-        fix = valid & (tparent >= 0)
+        fix = commit & (tparent >= 0)
         lc, rc = tree.left_child, tree.right_child
         _put(lc, gp, fix & was_left, node32)
         _put(rc, gp, fix & ~was_left, node32)
-        _put(lc, node, valid, (~parent).to(i32))
-        _put(rc, node, valid, (~newleaf).to(i32))
+        _put(lc, node, commit, (~parent).to(i32))
+        _put(rc, node, commit, (~newleaf).to(i32))
         internal_value = tree.leaf_value[parent]
         tree.num_leaves.add_(k)
         for name, val in (
@@ -326,16 +373,16 @@ class WaveGrower:
                 ("internal_count", (info[:, LEFT_COUNT]
                                     + info[:, RIGHT_COUNT]).to(i32)),
                 ("second_feature", info[:, SECOND_FEATURE].to(i32))):
-            _put(getattr(tree, name), node, valid, val)
+            _put(getattr(tree, name), node, commit, val)
         sg = info[:, SECOND_GAIN]
-        _put(tree.second_gain, node, valid,
+        _put(tree.second_gain, node, commit,
              torch.where(torch.isfinite(sg), sg, torch.zeros_like(sg)))
         for leaf, value, count in ((parent, LEFT_OUTPUT, LEFT_COUNT),
                                    (newleaf, RIGHT_OUTPUT, RIGHT_COUNT)):
-            _put(tree.leaf_parent, leaf, valid, node32)
-            _put(tree.leaf_value, leaf, valid, info[:, value])
-            _put(tree.leaf_count, leaf, valid, info[:, count].to(i32))
-            _put(tree.leaf_depth, leaf, valid, depth)
+            _put(tree.leaf_parent, leaf, commit, node32)
+            _put(tree.leaf_value, leaf, commit, info[:, value])
+            _put(tree.leaf_count, leaf, commit, info[:, count].to(i32))
+            _put(tree.leaf_depth, leaf, commit, depth)
         st.nn.add_(k)
         st.done.copy_((k == 0) | (st.nn == L - 1))
         st.waves.add_((k > 0).to(i32))
@@ -356,15 +403,21 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
               bundle, *, num_leaves: int, num_bins: int,
               params: SplitParams, max_depth: int, wave_width: int,
               group_bins: int = 0, cache_hists: bool = True,
-              hist_mode: str = "pallas_ct"):
+              hist_mode: str = "pallas_ct", wave_order: str = "batched"):
     """Grow one tree, staged: a WaveGrower's body with one host read a
     wave.  X: (G, N) uint8 transposed bins, (N, G) row-major bins for
     hist_mode 'pallas', or a ChunkedSparseStore; grad/hess/row_mult: (N,)
-    f32.  Returns (TreeArrays, leaf_id (N,) int32, GrowStats)."""
+    f32.  Returns (TreeArrays, leaf_id (N,) int32, GrowStats).
+
+    The read comes between a wave's selection and its commit: the count
+    of valid slots (k == 0 ends the tree) and, under batched order, the
+    depth once they have split; under exact order, where not every valid
+    slot commits, the splits and depth the state holds (its status)."""
     g = WaveGrower(X, meta, bundle, num_leaves=num_leaves,
                    num_bins=num_bins, params=params, max_depth=max_depth,
                    wave_width=wave_width, group_bins=group_bins,
-                   cache_hists=cache_hists, hist_mode=hist_mode)
+                   cache_hists=cache_hists, hist_mode=hist_mode,
+                   wave_order=wave_order)
     st = g.new_state(grad.shape[0], grad.device)
     w3 = weight_rows(grad, hess, row_mult)                 # (N, 3)
     # the kernels' fixed-point exponents (B1, B3, B4, B6): w3 is fixed
@@ -374,14 +427,19 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     nn = depth = waves = host_reads = 0
     while nn < num_leaves - 1:
         p = g.pick(st)
-        # the one host read per wave: valid count + the depth after it
-        k, depth = torch.stack([p.k, p.depth]).tolist()
+        if g.exact_order:
+            g.write_status(st)
+            k, nn, depth = torch.cat([p.k[None], st.status[1:3]]).tolist()
+        else:
+            # the one host read per wave: valid count + the depth after it
+            k, depth = torch.stack([p.k, p.depth]).tolist()
         host_reads += 1
         if k == 0:
             break
         g.commit(st, p, w3, exps, feature_mask)
         waves += 1
-        nn += k
+        if not g.exact_order:
+            nn += k
     stats = GrowStats(num_leaves=nn + 1, depth=depth, waves=waves,
                       host_reads=host_reads)
     return g.tree_of(st), st.leaf_id, stats

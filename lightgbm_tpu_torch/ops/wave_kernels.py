@@ -44,6 +44,10 @@ _SMEM_BUDGET = 220 * 1024
 _SMEM_PER_SM = 228 * 1024
 
 _num_sms = {}
+# the list passes' workspaces, one per (device, stream, size), kept for
+# the process: launches on one stream run in order, so they share one,
+# and a call inside a CUDA graph capture allocates nothing
+_workspaces = {}
 
 
 # ------------------------------------------------------------ plain torch
@@ -269,10 +273,15 @@ def _list_buffers(N, K, F, B, dev, hist_shape=None):
     """(list, acc, work, hist): the pointers of the compact list (N int2)
     and of the K * F * B * 3 int64 sums with the list's length after
     them, which the kernel entry zeroes; the workspace tensor holding
-    both, which the caller keeps until it has launched; the (K, F, B, 3)
-    f32 histogram (or hist_shape)."""
+    both (the current stream's, reused from call to call); the (K, F, B,
+    3) f32 histogram (or hist_shape), new each call."""
     _check_slots(K)
-    work = torch.empty(N + K * F * B * 3 + 1, dtype=torch.int64, device=dev)
+    size = N + K * F * B * 3 + 1
+    key = (dev.index, _build.stream(dev), size)
+    work = _workspaces.get(key)
+    if work is None:
+        work = _workspaces[key] = torch.empty(size, dtype=torch.int64,
+                                              device=dev)
     hist = torch.empty(hist_shape or (K, F, B, 3), dtype=torch.float32,
                        device=dev)
     return work.data_ptr(), work.data_ptr() + 8 * N, work, hist

@@ -489,15 +489,16 @@ class Config:
         # on v5e: W=16 fastest at 63 leaves, W=32 at 255); set 1 to
         # reproduce the reference's exact split sequence.
         "tpu_wave_width": ("int", -1),
-        # 'auto' | 'batched' | 'exact' — wave COMMIT ORDER.  'batched'
-        # commits all W top-gain splits per sweep (fastest; the greedy
-        # frontier approximates the leaf-wise ORDER).  'exact' computes
-        # the same W candidate histograms per sweep but commits only the
-        # prefix the reference's leaf-wise order would have produced
-        # (rolling the rest back with a leaf-id remap) — trees match
-        # tpu_wave_width=1 bit-for-bit at wave-level HBM economics.
-        # auto -> exact for order-sensitive configs (lambdarank, DART,
-        # GOSS, InfiniteBoost), batched otherwise.
+        # 'auto' | 'batched' | 'exact' — wave COMMIT ORDER
+        # (ops/wave.py).  'batched' commits all W top-gain splits per
+        # wave (the greedy frontier approximates the leaf-wise ORDER).
+        # 'exact' builds the same W candidate histograms per wave but
+        # commits only the prefix the reference's leaf-wise order would
+        # have produced (rolling the rest back with a leaf-id remap) —
+        # trees match tpu_wave_width=1 and tpu_growth=exact to the byte,
+        # on every dataflow (pallas_ct, pallas_t, pallas, sparse), fused
+        # or staged.  auto -> exact for order-sensitive configs
+        # (lambdarank, DART, GOSS, InfiniteBoost), batched otherwise.
         "tpu_wave_order": ("str", "auto"),
         # 'auto' | 'onehot' | 'compact' | 'gather' — how the wave
         # partition scan looks up each row's pending split: 'onehot'
@@ -582,14 +583,15 @@ class Config:
         # always excluded from the timing window)
         "tpu_autotune_waves": ("int", 3),
         # 'auto' | 'on' | 'off' — the fused boosting iteration
-        # (ops/fused_iter.py): gradients, wave growth and the score
-        # update as a few CUDA graph replays a tree, with one host read,
-        # instead of the staged chain's launches from Python and read a
-        # wave.  auto = fuse when eligible and training runs on CUDA.
-        # on = fuse when eligible, on the CPU too (warns and stays staged
-        # when not; an error with exact growth, which is not fused).
-        # off = always the staged chain.  Fused and staged produce
-        # byte-identical models (tests/test_torch_fused_iter.py).
+        # (ops/fused_iter.py): gradients, growth (wave or exact) and the
+        # score update as a few CUDA graph replays a tree, with one host
+        # read a tree under batched waves (and one a block of waves or
+        # splits past the tree graph's), instead of the staged chain's
+        # launches from Python and read a wave or a batch of splits.
+        # auto = fuse when eligible and training runs on CUDA.  on = fuse
+        # when eligible, on the CPU too (warns and stays staged when
+        # not).  off = always the staged chain.  Fused and staged
+        # produce byte-identical models (tests/test_torch_fused_iter.py).
         "tpu_fused_iter": ("str", "auto"),
         # run the Pallas wave kernels through the interpreter on CPU
         # (tests/CI only): exercises the real kernel bodies — tiling,

@@ -28,7 +28,7 @@ def test_keys_aliases_and_values_match_the_jax_package():
 
 
 @pytest.mark.parametrize("knob,value,name", [
-    ("tpu_wave_order", "exact", "tpu_wave_order"),
+    ("tpu_wave_compact", True, "tpu_wave_compact"),
     ("tpu_histogram_mode", "onehot", "tpu_histogram_mode"),
     ("tpu_histogram_mode", "scatter", "tpu_histogram_mode"),
     ("tpu_hist_precision", "bf16", "tpu_hist_precision"),
@@ -44,6 +44,19 @@ def test_engines_the_port_lacks_raise(knob, value, name):
     y = (X[:, 0] > 0).astype(float)
     params = {"objective": "binary", "verbose": -1, knob: value}
     with pytest.raises(lgb.LightGBMError, match=name):
+        lgb.train(params, lgb.Dataset(X, label=y), 1, device="cpu")
+
+
+def test_unknown_wave_order_is_fatal():
+    """tpu_wave_order takes auto, batched and exact (exact-order waves);
+    any other value is fatal with the JAX package's message."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(200, 4))
+    y = (X[:, 0] > 0).astype(float)
+    params = {"objective": "binary", "verbose": -1, "tpu_growth": "wave",
+              "tpu_wave_order": "leafwise"}
+    with pytest.raises(lgb.LightGBMError,
+                       match="Unknown tpu_wave_order leafwise"):
         lgb.train(params, lgb.Dataset(X, label=y), 1, device="cpu")
 
 

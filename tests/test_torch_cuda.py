@@ -913,3 +913,137 @@ def test_fused_capture_failure_raises(dev):
         booster.update()
     torch.cuda.synchronize()
     assert booster._gbdt._fused_state[0] is not None
+
+
+# --------------------------- exact growth fused, and exact-order waves
+def _exact_case(more=None):
+    """(params, X, y) of a small binary run under exact growth."""
+    X, s = parity_data(3, 2000, False)
+    p = dict({"objective": "binary", "num_leaves": 15,
+              "min_data_in_leaf": 20, "max_bin": 63, "verbose": -1,
+              "tpu_growth": "exact", "tpu_histogram_mode": "pallas"},
+             **(more or {}))
+    return p, X, (s > 0).astype(float)
+
+
+@pytest.mark.parametrize("variant", [{}, NO_CACHE, SAMPLED])
+def test_fused_exact_trains_the_staged_model_text_on_the_card(dev, variant):
+    """tpu_fused_iter=auto fuses exact growth on the card: the tree graph
+    (gradients, root, S gated splits), its read, tail graphs of S splits
+    and the B2 graph train the staged exact chain's model text to the
+    byte, one host read a block of S splits."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops import fused_iter as fi
+
+    p, X, y = _exact_case(variant)
+    fused = lgb.train(p, lgb.Dataset(X, label=y), 5, device="cuda")
+    staged = lgb.train(dict(p, tpu_fused_iter="off"),
+                       lgb.Dataset(X, label=y), 5, device="cuda")
+    it = fused._gbdt._fused_state[0]
+    assert it is not None and staged._gbdt._fused_state == (None,)
+    assert it.waves == it.tail_len == min(fi.SPLIT_BLOCK, 14)
+    assert fused.model_to_string() == staged.model_to_string()
+    for f, s in zip(fused.grow_stats(), staged.grow_stats()):
+        assert (f.num_leaves, f.waves) == (s.num_leaves, s.waves)
+        assert f.host_reads == max(1, -(-f.waves // it.tail_len))
+    assert it.replays > 0
+
+
+@pytest.mark.parametrize("flow", FUSED_FLOWS)
+def test_exact_order_trains_the_leaf_wise_model_text_on_the_card(dev, flow):
+    """Exact-order waves at W = 32 (31 leaves) train exact growth's model
+    text to the byte on the three dense dataflows, fused and staged, and
+    the sparse store its own W = 1 text: every histogram is the same
+    fixed-point sum at any width, and the split search gives each child
+    the same bits in a batch of 64 children as in a batch of 2."""
+    import lightgbm_tpu_torch as lgb
+
+    p, X, y = _fused_case(flow, {"num_leaves": 31, "tpu_wave_width": 32,
+                                 "tpu_wave_order": "exact"})
+    texts = []
+    for chain in ("auto", "off"):
+        b = lgb.train(dict(p, tpu_fused_iter=chain), lgb.Dataset(X, label=y),
+                      5, device="cuda")
+        assert (b._gbdt._fused_state[0] is None) == (chain == "off")
+        texts.append(b.model_to_string())
+    if flow == "sparse":
+        ref = dict(p, tpu_wave_width=1, tpu_wave_order="batched")
+    else:
+        ref = dict(p, tpu_growth="exact", tpu_histogram_mode="pallas")
+    want = lgb.train(ref, lgb.Dataset(X, label=y), 5, device="cuda")
+    assert texts[0] == texts[1] == want.model_to_string()
+
+
+def test_fused_exact_launch_counters_count_replays(dev):
+    """Under fused exact growth B5 counts once a tree for the root and
+    once for each of the S gated splits of the tree graph and of every
+    tail graph (no-op splits past a tree's end included); B2 once an
+    iteration; no other histogram kernel."""
+    import lightgbm_tpu_torch as lgb
+
+    p, X, y = _exact_case()
+    counters = (wk.wave_partition_hist, wk.wave_histogram,
+                wk.wave_histogram_rowmajor, lh.leaf_histogram,
+                tp.score_update)
+    n0 = [c.launches for c in counters]
+    booster = lgb.train(p, lgb.Dataset(X, label=y), 5, device="cuda")
+    counts = [c.launches - a for c, a in zip(counters, n0)]
+    it = booster._gbdt._fused_state[0]
+    stats = booster.grow_stats()
+    passes = sum(it.waves + s.tail_waves for s in stats)
+    assert it.replays >= 2 * 4
+    assert counts == [0, 0, 0, len(stats) + passes, 5]
+
+
+def test_fused_exact_tree_makes_no_host_sync(dev):
+    """The exact tree pass (gradients, weight rows, exponents, the root,
+    S gated splits), a tail block and the score update run eagerly under
+    torch.cuda.set_sync_debug_mode('error') without raising, with
+    bagging and feature_fraction, with and without the histogram cache:
+    nothing before a block's read waits for the device."""
+    import lightgbm_tpu_torch as lgb
+
+    for more in ({}, NO_CACHE):
+        p, X, y = _exact_case(dict(SAMPLED, **more))
+        booster = lgb.Booster(p, lgb.Dataset(X, label=y), device="cuda")
+        gbdt = booster._gbdt
+        fused = gbdt._resolve_fused_iter()
+        gbdt._bagging(0)
+        fused.row_mult.copy_(gbdt.row_mult)
+        fused.feature_mask.copy_(gbdt.learner.sample_feature_mask())
+        score = gbdt._score_dev[0]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fused.tree_pass(score)
+            fused.tail_wave()
+            fused.score_pass(score, 0.1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert fused.state.status.tolist()[0] == 1
+
+
+@pytest.mark.parametrize("leaf", [-1, 64, 5000])
+def test_leaf_hist_kernel_leaf_no_row_holds_is_zero(dev, leaf):
+    """B5 given a device-tensor leaf that no row holds (the inactive id
+    -1 a gated split passes, an id past every row's, one past the slot
+    table) returns exact zeros, with no host sync."""
+    n, f, b = 5000, 7, 63
+    g = torch.Generator().manual_seed(3)
+    X = torch.randint(0, b, (n, f), generator=g, dtype=torch.uint8).to(dev)
+    lid = torch.randint(0, 64, (n,), generator=g,
+                        dtype=torch.int32).to(dev)
+    w3 = torch.randn(n, 3, generator=g).to(dev)
+    exps = wk.fixed_point_exponents(w3)
+    leaf_t = torch.full((1,), leaf, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = lh.leaf_histogram(X, None, None, lid, leaf_t, None, b, w3=w3,
+                                exps=exps)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got.shape == (f, b, 3) and not bool(got.any())
+    held = lh.leaf_histogram(X, None, None, lid, leaf_t.clamp(0, 63), None,
+                             b, w3=w3, exps=exps)
+    assert bool(held.any())

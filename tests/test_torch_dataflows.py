@@ -116,10 +116,22 @@ def _spy(monkeypatch, mod, wrapper):
 def test_grow_tree_exact_passes_the_tree_weights_and_exponents(
         monkeypatch, bundled, cache):
     """grow_tree_exact makes w3 and fixed_point_exponents(w3) once a tree
-    and passes both tensors to every B5 call, the root's (the one call
-    whose leaf is the host integer 0) included; w3 is the wave grower's
-    [g*m, h*m, m]."""
+    and passes both tensors to every B5 call, the root's (the first call
+    of a tree, leaf 0) included; w3 is the wave grower's [g*m, h*m, m]
+    (weight_rows of the tree's gradients and row multipliers), and the
+    calls pass it alone: grad, hess and row_mult are None, the leaf a
+    (1,) device tensor."""
     made, calls = _spy(monkeypatch, grow_mod, "leaf_histogram")
+    rows = []
+    real_rows = grow_mod.weight_rows
+
+    def rows_spy(grad, hess, row_mult):
+        rows.append(real_rows(grad, hess, row_mult))
+        assert torch.equal(rows[-1], torch.stack(
+            [grad * row_mult, hess * row_mult, row_mult], dim=-1))
+        return rows[-1]
+
+    monkeypatch.setattr(grow_mod, "weight_rows", rows_spy)
     X, s = parity_data(3, 2000, bundled)
     p = dict({"objective": "binary", "num_leaves": 15,
               "min_data_in_leaf": 20, "max_bin": 63, "verbose": -1,
@@ -130,15 +142,19 @@ def test_grow_tree_exact_passes_the_tree_weights_and_exponents(
     assert booster._gbdt.learner.cache_hists == cache
     stats = booster.grow_stats()
     splits = sum(st.waves for st in stats)
-    assert len(made) == len(stats) == ITERS
+    assert len(made) == len(rows) == len(stats) == ITERS
+    assert all(w3 is r for (w3, _), r in zip(made, rows))
     assert len(calls) == len(stats) + splits * (1 if cache else 2)
-    roots = 0
+    roots, tree = 0, None
     for args, kw, (w3, exps) in calls:
         assert kw["w3"] is w3 and kw["exps"] is exps
-        grad, hess, row_mult = args[1], args[2], args[5]
-        assert torch.equal(w3, torch.stack(
-            [grad * row_mult, hess * row_mult, row_mult], dim=-1))
-        roots += not isinstance(args[4], torch.Tensor) and args[4] == 0
+        assert args[1] is args[2] is args[5] is None
+        leaf = args[4]
+        assert isinstance(leaf, torch.Tensor) and leaf.shape == (1,)
+        if w3 is not tree:               # a tree's first call: its root
+            tree = w3
+            roots += 1
+            assert int(leaf) == 0
     assert roots == len(stats)
 
 

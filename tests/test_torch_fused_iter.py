@@ -20,9 +20,16 @@ on the CPU, mirroring tests/test_fused_iter.py.
 * The schedule: ``wave_count``, a wave with no valid split is an exact
   no-op on the state, a tree that finishes within M waves makes one host
   read, a tree that needs more waves finishes through tail waves.
+* Exact growth: the fused exact iteration (the tree graph's S gated
+  splits, then tail blocks of S) trains the staged exact model text to
+  the byte, grows the JAX package's fused exact trees (``tpu_growth=exact,
+  tpu_histogram_mode=pallas``: its Pallas leaf kernel in interpret mode
+  on the CPU) with tests/test_torch_exact_train.py's tolerances, a split
+  with no positive gain is an exact no-op, and a tree makes one read a
+  block of S splits; exact-order waves train the staged exact-order text.
 * Modes: unknown is fatal, ineligible configs warn under ``on`` and stay
-  staged, ``on`` with exact growth is an error, ``auto`` stays staged on
-  the CPU.
+  staged, ``on`` with exact growth fuses, ``auto`` stays staged on the
+  CPU.
 """
 import numpy as np
 import pytest
@@ -41,7 +48,7 @@ from lightgbm_tpu_torch.ops.split_finder import GAIN
 from lightgbm_tpu_torch.ops.wave_kernels import fixed_point_exponents
 from lightgbm_tpu_torch.utils.log import LightGBMError
 from torch_cases import (NO_CACHE, SAMPLED, labels, leaf_values,
-                         parity_data, structure)
+                         parity_data, parity_params, structure)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -183,8 +190,9 @@ def _snapshot(grower, st):
     L = grower.L
     out = {f: getattr(tree, f).clone() for f in tree.__dataclass_fields__}
     out.update(leaf_id=st.leaf_id.clone(), bests=st.bests[:L].clone(),
-               hists=st.hists[:L].clone(), nn=st.nn.clone(),
-               waves=st.waves.clone())
+               hists=st.hists[:L].clone(), nn=st.nn.clone())
+    if hasattr(st, "waves"):
+        out["waves"] = st.waves.clone()
     return out
 
 
@@ -271,13 +279,167 @@ def test_unknown_mode_is_fatal():
 
 
 def test_on_with_exact_growth_is_an_error():
+    """No longer an error: tpu_fused_iter=on with exact growth (set, or
+    auto growth resolving to it with 'pallas') fuses the exact grower and
+    trains the staged chain's model text."""
     X, s = parity_data(3, 500, False)
+    y = (s > 0).astype(float)
     for growth in ("exact", "auto"):
-        p = _params("binary", "pallas", {"tpu_growth": growth,
-                                         "tpu_fused_iter": "on"})
-        with pytest.raises(LightGBMError, match="fuses wave growth only"):
-            lgb.train(p, lgb.Dataset(X, label=(s > 0).astype(float)), 1,
-                      device="cpu")
+        p = _params("binary", "pallas", {"tpu_growth": growth})
+        fused, staged = _pair(p, X, y, rounds=2)
+        assert fused._gbdt.learner.growth == "exact"
+        assert fused.model_to_string() == staged.model_to_string()
+
+
+# ------------------------------------------------------- exact growth
+# (objective, EFB bundles, more params)
+EXACT_MATRIX = [
+    ("binary", False, {}),
+    ("regression", False, {}),
+    ("binary", True, {}),
+    ("binary", False, NO_CACHE),
+    ("binary", False, SAMPLED),
+    ("regression", True, dict(NO_CACHE, **SAMPLED)),
+]
+
+
+@pytest.mark.parametrize("objective,bundled,more", EXACT_MATRIX)
+def test_fused_exact_trains_the_staged_model_text(objective, bundled, more):
+    X, s = parity_data(3, 2000, bundled)
+    params = _params(objective, "pallas", dict(more, tpu_growth="exact"))
+    fused, staged = _pair(params, X, labels(objective, s))
+    learner = fused._gbdt.learner
+    assert (learner.growth, learner.hist_mode) == ("exact", "pallas")
+    assert learner.cache_hists == ("histogram_pool_size" not in more)
+    assert (fused._gbdt.train_data.bundle is not None) == bundled
+    assert fused.model_to_string() == staged.model_to_string()
+    np.testing.assert_array_equal(fused.predict(X), staged.predict(X))
+    for f, s_ in zip(fused.grow_stats(), staged.grow_stats()):
+        assert (f.num_leaves, f.depth, f.waves) == (s_.num_leaves, s_.depth,
+                                                   s_.waves)
+        assert (f.host_reads, f.tail_waves) == (1, 0)
+
+
+# tests/test_torch_exact_train.py CASES: (objective, pinned seed)
+@pytest.mark.parametrize("objective,seed", [("binary", 2),
+                                            ("regression", 0)])
+def test_fused_exact_grows_the_jax_fused_exact_trees(objective, seed):
+    X, s = parity_data(seed, 2500, False)
+    y = labels(objective, s)
+    params = parity_params(objective, {"tpu_growth": "exact",
+                                       "tpu_histogram_mode": "pallas",
+                                       "tpu_fused_iter": "on"})
+    bj = lgbj.train(params, lgbj.Dataset(X, label=y), 5)
+    assert bj._gbdt._fused_state[0] is not None
+    bt = lgb.train(params, lgb.Dataset(X, label=y), 5, device="cpu")
+    assert bt._gbdt._fused_state[0] is not None
+    sj, st = bj.model_to_string(), bt.model_to_string()
+    assert bt.num_trees() == bj.num_trees() >= 5
+    assert structure(st) == structure(sj)
+    lt, lj = leaf_values(st), leaf_values(sj)
+    np.testing.assert_allclose(lt, lj, rtol=1e-5,
+                               atol=1e-5 * np.abs(lj).max())
+    pt, pj = bt.predict(X), bj.predict(X)
+    np.testing.assert_allclose(pt, pj, rtol=1e-5,
+                               atol=1e-6 * np.abs(pj).max())
+
+
+def _exact_state():
+    """A trained exact booster's grower and a state at its root, with the
+    weight rows, exponents and feature mask of a tree."""
+    X, s = parity_data(3, 2000, False)
+    booster = lgb.train(_params("binary", "pallas", {"tpu_growth": "exact"}),
+                        lgb.Dataset(X, label=(s > 0).astype(float)), 1,
+                        device="cpu")
+    gbdt = booster._gbdt
+    grower = gbdt.learner.exact_grower()
+    st = grower.new_state(gbdt.num_data, torch.device("cpu"))
+    g, h = gbdt.objective.get_gradients(gbdt._score_dev[0])
+    w3 = weight_rows(g, h, None)
+    exps = fixed_point_exponents(w3)
+    mask = gbdt.learner._full_mask
+    grower.root(st, w3, exps, mask)
+    return grower, st, (w3, exps, mask)
+
+
+@pytest.mark.parametrize("how", ["gains_at_most_0", "tree_done"])
+def test_split_without_positive_gain_is_a_no_op(how):
+    """A gated split whose best leaf has gain <= 0 (every gain set to 0
+    or -1 at the root), or one past a full tree, leaves every state
+    tensor bit-unchanged: leaf ids, the histogram cache, the best
+    splits, every tree array and the split count; and it reports done."""
+    grower, st, args = _exact_state()
+    if how == "gains_at_most_0":
+        st.bests[:, GAIN] = torch.where(st.bests[:, GAIN] > 0, 0.0, -1.0)
+    else:
+        for _ in range(grower.L - 1):
+            grower.split(st, *args)
+        assert int(st.nn) == grower.L - 1
+    before = _snapshot(grower, st)
+    grower.split(st, *args)
+    _assert_same(before, _snapshot(grower, st))
+    assert bool(st.done)
+    grower.write_status(st)
+    nn = int(st.nn)
+    assert st.status.tolist() == [1, nn, int(
+        st.tree.leaf_depth[:grower.L].max()), nn]
+
+
+@pytest.mark.parametrize("stops_early", [False, True])
+def test_fused_exact_reads_once_a_block_of_splits(monkeypatch, stops_early):
+    """With S = 4 splits a graph, a tree of n splits makes max(1,
+    ceil(n / S)) host reads (the tree graph's, then one a tail block)
+    and runs S splits a tail block, full trees and trees that run out
+    of positive gains alike (tests/test_torch_exact_train.py's early
+    stop fixture); the staged chain reads once a batch of certain
+    splits, and both grow the same trees."""
+    monkeypatch.setattr(fi, "SPLIT_BLOCK", 4)
+    if stops_early:
+        X, y = parity_data(1, 600, False)
+        params = _params("regression", "pallas", {
+            "tpu_growth": "exact", "num_leaves": 63,
+            "min_data_in_leaf": 40})
+    else:
+        X, s = parity_data(3, 2000, False)
+        y = (s > 0).astype(float)
+        params = _params("binary", "pallas", {"tpu_growth": "exact"})
+    fused, staged = _pair(params, X, y, rounds=3)
+    assert fused._gbdt._fused_state[0].tail_len == 4
+    stats = fused.grow_stats()
+    L = params["num_leaves"]
+    assert all((st.num_leaves < L) == stops_early for st in stats)
+    for f, s_ in zip(stats, staged.grow_stats()):
+        assert (f.num_leaves, f.depth, f.waves) == (s_.num_leaves, s_.depth,
+                                                   s_.waves)
+        assert f.waves == f.num_leaves - 1
+        assert f.host_reads == max(1, -(-f.waves // 4))
+        assert f.tail_waves == 4 * (f.host_reads - 1)
+    assert fused.model_to_string() == staged.model_to_string()
+
+
+@pytest.mark.parametrize("mode", ["pallas_ct", "pallas_t", "pallas",
+                                  "sparse"])
+def test_fused_exact_order_trains_the_staged_model_text(mode):
+    """Exact-order waves (tpu_wave_order=exact) fused: M masked waves,
+    then one-wave tail graphs with a read each, train the staged
+    exact-order chain's model text, with bagging and feature_fraction,
+    on every dataflow."""
+    params = _params("binary", mode, dict(SAMPLED, tpu_wave_order="exact"))
+    if mode == "sparse":
+        X, s = _sparse_data(5)
+        del params["tpu_histogram_mode"]
+        params.update(tpu_sparse=True, tpu_sparse_kernel=True)
+    else:
+        X, s = parity_data(3, 2000, False)
+    fused, staged = _pair(params, X, labels("binary", s))
+    it = fused._gbdt._fused_state[0]
+    assert it.grower.exact_order and it.tail_len == 1
+    assert fused.model_to_string() == staged.model_to_string()
+    for f, s_ in zip(fused.grow_stats(), staged.grow_stats()):
+        assert (f.num_leaves, f.depth, f.waves) == (s_.num_leaves, s_.depth,
+                                                   s_.waves)
+        assert f.host_reads == 1 + f.tail_waves
+        assert s_.host_reads == s_.waves + 1
 
 
 class _RescalingBagging(GBDT):
