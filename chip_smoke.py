@@ -771,7 +771,7 @@ def sparse_phase(args, lgb, sm, kernels, card):
         learner = booster._gbdt.learner
         stats = booster.grow_stats()
         trees = len(stats)
-        waves = sum(s.waves for s in stats)
+        waves = sum(s.passes for s in stats)
         reads = sum(s.host_reads for s in stats)
         say("%s train launches: %s; %d trees, %d waves, histogram cache %s"
             % (label, launches, trees, waves, learner.cache_hists))
@@ -858,8 +858,8 @@ def profile_iteration(booster, card):
         "reads, device busy %.4f s (%.1f%%, idle %.1f%%), %d device "
         "operations (%.0f a %s), %d graph replays"
         % ("fused" if fused is not None else "staged", card, wall,
-           last.waves, unit, last.host_reads, busy, 100 * busy / wall,
-           100 - 100 * busy / wall, launches, launches / max(last.waves, 1),
+           last.passes, unit, last.host_reads, busy, 100 * busy / wall,
+           100 - 100 * busy / wall, launches, launches / max(last.passes, 1),
            unit, replays))
     for us, count, key in rows[:12]:
         say("  %9.3f ms %6d  %s" % (us / 1e3, count, key[:100]))
@@ -904,42 +904,80 @@ def fused_of(booster):
     return None if state is None else state[0]
 
 
-def wave_passes(booster, stats):
-    """The wave passes a run launched: a fused tree runs its M masked
-    waves and its tail waves, a staged tree the waves that split."""
+def launched_passes(booster, stats):
+    """The masked passes a run launched: a fused tree runs its tree
+    graph's passes (M waves, or S gated splits) and its tail passes, a
+    staged tree the passes that split."""
     fused = fused_of(booster)
     if fused is None:
-        return sum(s.waves for s in stats)
-    return sum(fused.waves + s.tail_waves for s in stats)
+        return sum(s.passes for s in stats)
+    return sum(fused.passes + s.tail_passes for s in stats)
 
 
 def chain_line(label, booster, stats):
     """Print which chain a run took and, when fused, its graph set-up
-    (capture seconds, the memory the graphs' pools hold), replays and
-    the trees that needed tail graphs."""
+    (capture seconds), replays and the trees that needed tail graphs
+    (graph_memory prints the graphs' memory)."""
     fused = fused_of(booster)
     if fused is None:
         say("%s chain: staged, %d host reads over %d trees"
             % (label, sum(s.host_reads for s in stats), len(stats)))
         return
-    tails = [s.tail_waves for s in stats]
+    tails = [s.tail_passes for s in stats]
     unit = ("gated splits" if booster._gbdt.learner.growth == "exact"
             else "masked waves")
     say("%s chain: fused, %d %s in the tree graph and %d in a tail graph; "
-        "graph capture %.3f s (set-up), graph memory %.3f GB; %d graph "
+        "graph capture %.3f s (set-up); %d graph "
         "replays; %d of %d trees finished within the tree graph, %d needed "
         "tail graphs (%d tail passes, %.2f a tree); %d host reads over %d "
         "trees (%.2f a tree)"
-        % (label, fused.waves, unit, fused.tail_len, fused.capture_seconds,
-           fused.graph_bytes / 1e9, fused.replays,
+        % (label, fused.passes, unit, fused.tail_len, fused.capture_seconds,
+           fused.replays,
            sum(t == 0 for t in tails), len(stats), sum(t > 0 for t in tails),
            sum(tails), sum(tails) / len(stats),
            sum(s.host_reads for s in stats), len(stats),
            sum(s.host_reads for s in stats) / len(stats)))
-    need(all(s.host_reads == 1 + s.tail_waves // fused.tail_len
+    need(all(s.host_reads == 1 + s.tail_passes // fused.tail_len
              for s in stats),
          "%s: a fused tree made more than one host read plus one a tail "
          "graph" % label)
+
+
+def graph_memory(label, booster):
+    """Print the device memory of a fused run's CUDA graphs and of the
+    state they replay on, then drop the graphs (the booster still
+    predicts; a further iteration would capture anew).  The graphs'
+    memory is their private pools: the reserved memory that deleting
+    them gives back, the allocator's cache emptied before and after.
+    The state is every tensor the iteration allocated before capturing,
+    the list passes' workspace among them."""
+    import dataclasses
+    import gc
+    import torch
+    fused = fused_of(booster)
+    if fused is None:
+        return
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    fused._tree = fused._tail = fused._score = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    pools = held - torch.cuda.memory_reserved()
+    st = fused.state
+    tensors = [getattr(st.tree, f.name) for f in dataclasses.fields(st.tree)]
+    tensors += [getattr(st, f.name) for f in dataclasses.fields(st)
+                if f.name != "tree"]
+    tensors += [fused.w3, fused.exps, fused.row_mult, fused.feature_mask]
+    state = sum(t.numel() * t.element_size() for t in tensors
+                if t is not None)
+    work = 0 if st.work is None else st.work.numel() * 8
+    say("%s graph memory: %.4f GB in the graphs' pools (%d passes in the "
+        "tree graph, %d in a tail graph); the state they replay on %.4f GB, "
+        "of it the list passes' workspace %.4f GB"
+        % (label, pools / 1e9, fused.passes, fused.tail_len, state / 1e9,
+           work / 1e9))
 
 
 def check_wave_launches(label, booster, launches, stats, kernel):
@@ -949,7 +987,7 @@ def check_wave_launches(label, booster, launches, stats, kernel):
     the histogram cache); with a histogram-only kernel (B3, B4 or B6),
     that kernel once a tree and once a wave pass (twice without the
     cache); no other histogram kernel; B2 once an iteration."""
-    trees, passes = len(stats), wave_passes(booster, stats)
+    trees, passes = len(stats), launched_passes(booster, stats)
     extra = 0 if booster._gbdt.learner.cache_hists else passes
     want = dict.fromkeys(("wave_partition_hist", "wave_histogram",
                           "wave_histogram_rowmajor", "leaf_histogram",
@@ -971,14 +1009,14 @@ def check_exact_launches(label, booster, launches, stats):
     splits that committed when staged, every gated split of the tree
     graph and the tail graphs when fused; no other histogram kernel; B2
     once an iteration."""
-    passes = wave_passes(booster, stats)
+    passes = launched_passes(booster, stats)
     per_split = 1 if booster._gbdt.learner.cache_hists else 2
     want = dict.fromkeys(("wave_partition_hist", "wave_histogram",
                           "wave_histogram_rowmajor", "sparse_wave_histogram"),
                          0)
     want["leaf_histogram"] = len(stats) + per_split * passes
     want["score_update"] = ITERS
-    need(all(s.waves == s.num_leaves - 1 for s in stats),
+    need(all(s.passes == s.num_leaves - 1 for s in stats),
          "%s: a tree's split count is not its leaves less one" % label)
     need(passes > 0 and {k: launches[k] for k in want} == want,
          "%s: launches %s, wanted %s (%d trees, %d split passes)"
@@ -1008,7 +1046,7 @@ def small_exact_order_runs(lgb):
                  or extra.get("tpu_fused_iter") != "off",
                  "small exact-order %s: took the other chain" % flow)
             texts.append(b.model_to_string())
-            waves.append(sum(s.waves for s in b.grow_stats()) / 3)
+            waves.append(sum(s.passes for s in b.grow_stats()) / 3)
         need(texts[0] == texts[1] == texts[2],
              "small exact-order %s run: model text differs from W = 1's"
              % flow)
@@ -1064,7 +1102,7 @@ def dense_train_phase(label, params, data, lgb, kernels, card, args):
     learner = booster._gbdt.learner
     stats = list(booster.grow_stats())
     trees = len(stats)
-    passes = sum(s.waves for s in stats)
+    passes = sum(s.passes for s in stats)
     reads = sum(s.host_reads for s in stats)
     unit = "splits" if learner.growth == "exact" else "waves"
     say("%s train launches: %s; %d trees, %d %s; growth %s, histogram mode "
@@ -1109,6 +1147,7 @@ def dense_train_phase(label, params, data, lgb, kernels, card, args):
          "%s: model text round trip changed predictions" % label)
     if args.profile:
         profile_iteration(booster, card)
+    graph_memory(label, booster)
     return booster, launches, stats
 
 
@@ -1321,8 +1360,8 @@ def main():
          "exact-order waves: model text differs from exact growth's")
     say("wave-exact-order: %.2f waves a tree (M = %d), %.2f tail waves a "
         "tree; model text equal to exact growth's to the byte"
-        % (sum(s.waves for s in stats) / len(stats), fused_of(booster).waves,
-           sum(s.tail_waves for s in stats) / len(stats)))
+        % (sum(s.passes for s in stats) / len(stats), fused_of(booster).passes,
+           sum(s.tail_passes for s in stats) / len(stats)))
     del booster
     torch.cuda.empty_cache()
     booster, launches_o, stats = staged_twin(

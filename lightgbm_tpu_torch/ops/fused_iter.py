@@ -12,7 +12,8 @@ iteration on the card is:
    status vector.  Under wave growth the passes are M masked waves
    (``wave_count``: the waves a tree takes when every leaf splits);
    under exact growth, S gated splits (``SPLIT_BLOCK``);
-2. one host read of that status (done, splits, deepest leaf, waves);
+2. one host read of that status (done, splits, deepest leaf, passes
+   that split);
 3. only if the tree is not finished, replays of a tail graph, each
    followed by a read: one wave under wave growth (exact-order trees
    take more waves than M, and a wave costs far more than a read), S
@@ -30,10 +31,10 @@ captured addresses; the shrinkage is fixed for a booster and baked into
 the score graph, which is captured again if it changes.  The first
 iteration runs the same functions eagerly on a side stream: it is a real
 iteration, and it sets what the kernels set once (their shared-memory
-attributes, the cached launch plans and workspaces) before the graphs
-are captured.  Kernel wrappers count their launches when Python calls
-them, which a replay skips: each graph records the launches its capture
-made and adds them on every replay.
+attributes, the cached launch plans) before the graphs are captured.
+Kernel wrappers count their launches when Python calls them, which a
+replay skips: each graph records the launches its capture made and adds
+them on every replay.
 
 On CPU tensors ``run`` executes the same schedule eagerly, so the CPU
 tests cover it.  Fused and staged runs train byte-identical model text:
@@ -121,20 +122,21 @@ class FusedIteration:
     CPU.  Built once per booster (the learner and the objective are
     fixed for a training run).
 
-    ``waves`` is the count of masked passes in the tree graph (waves, or
-    splits under exact growth) and ``tail_len`` the count in a tail
-    graph; a tree's ``GrowStats.tail_waves`` counts the passes its tail
-    graphs ran, so it makes 1 + tail_waves / tail_len host reads."""
+    ``passes`` is the count of masked passes in the tree graph (waves,
+    or gated splits under exact growth) and ``tail_len`` the count in a
+    tail graph; a tree's ``GrowStats.tail_passes`` counts the passes its
+    tail graphs ran, so it makes 1 + tail_passes / tail_len host
+    reads."""
 
     def __init__(self, learner, grad_fn, num_data: int):
         if learner.growth == "exact":
             self.grower = gr = learner.exact_grower()
             self._pass = gr.split
-            self.waves = self.tail_len = max(1, min(SPLIT_BLOCK, gr.L - 1))
+            self.passes = self.tail_len = max(1, min(SPLIT_BLOCK, gr.L - 1))
         else:
             self.grower = gr = learner.wave_grower()
             self._pass = gr.wave
-            self.waves = wave_count(gr.L, gr.W)
+            self.passes = wave_count(gr.L, gr.W)
             self.tail_len = 1
         self.grad_fn = grad_fn
         self.device = dev = learner.device
@@ -144,10 +146,9 @@ class FusedIteration:
         self.row_mult = torch.empty(num_data, dtype=torch.float32,
                                     device=dev)
         self.feature_mask = torch.empty_like(learner._full_mask)
-        self._tree = self._wave = self._score = None
+        self._tree = self._tail = self._score = None
         self._score_key = None
         self.capture_seconds = 0.0     # set-up: capturing the graphs
-        self.graph_bytes = 0           # device memory the capture took
         self.replays = 0               # graph replays so far
 
     # ---------------------------------------------- the captured programs
@@ -160,13 +161,13 @@ class FusedIteration:
                                   self.row_mult))
         self.exps.copy_(fixed_point_exponents(self.w3))
         self.grower.root(self.state, self.w3, self.exps, self.feature_mask)
-        self._passes(self.waves)
+        self._run(self.passes)
 
-    def tail_wave(self) -> None:
+    def tail_pass(self) -> None:
         """A tail graph's masked passes, then the status."""
-        self._passes(self.tail_len)
+        self._run(self.tail_len)
 
-    def _passes(self, n: int) -> None:
+    def _run(self, n: int) -> None:
         for _ in range(n):
             self._pass(self.state, self.w3, self.exps, self.feature_mask)
         self.grower.write_status(self.state)
@@ -178,38 +179,34 @@ class FusedIteration:
                      out=score)
 
     # ---------------------------------------------------------- schedule
-    def _schedule(self, tree_step, wave_step, score_step):
+    def _schedule(self, tree_step, tail_step, score_step):
         """The tree step, one read, tail steps until the tree is done,
         the score step: (TreeArrays, leaf_id, GrowStats)."""
         st = self.state
         tree_step()
-        done, nn, depth, waves = st.status.tolist()
+        done, nn, depth, passes = st.status.tolist()
         reads = 1
         while not done:
-            wave_step()
-            done, nn, depth, waves = st.status.tolist()
+            tail_step()
+            done, nn, depth, passes = st.status.tolist()
             reads += 1
         score_step()
-        stats = GrowStats(num_leaves=nn + 1, depth=depth, waves=waves,
+        stats = GrowStats(num_leaves=nn + 1, depth=depth, passes=passes,
                           host_reads=reads,
-                          tail_waves=(reads - 1) * self.tail_len)
+                          tail_passes=(reads - 1) * self.tail_len)
         return self.grower.tree_of(st), st.leaf_id, stats
 
     def _eager(self, score, scale):
-        return self._schedule(lambda: self.tree_pass(score), self.tail_wave,
+        return self._schedule(lambda: self.tree_pass(score), self.tail_pass,
                               lambda: self.score_pass(score, scale))
 
     def _capture(self, score, scale) -> None:
         t0 = time.perf_counter()
-        torch.cuda.empty_cache()       # as each capture starts by doing
-        held = torch.cuda.memory_reserved(self.device)
         if self._tree is None:
             self._tree = _Graph(lambda: self.tree_pass(score))
-            self._wave = _Graph(self.tail_wave)
+            self._tail = _Graph(self.tail_pass)
         self._score = _Graph(lambda: self.score_pass(score, scale))
         self._score_key = (score.data_ptr(), float(scale))
-        torch.cuda.empty_cache()       # what stays is the graphs' pools
-        self.graph_bytes += torch.cuda.memory_reserved(self.device) - held
         self.capture_seconds += time.perf_counter() - t0
 
     def _replay(self, graph) -> None:
@@ -245,5 +242,5 @@ class FusedIteration:
                                     "moved since its graphs were captured")
             self._capture(score, scale)
         return self._schedule(lambda: self._replay(self._tree),
-                              lambda: self._replay(self._wave),
+                              lambda: self._replay(self._tail),
                               lambda: self._replay(self._score))

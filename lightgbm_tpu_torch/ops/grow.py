@@ -9,8 +9,10 @@ become dataclasses of tensors with the same fields and layouts.
 (serial_tree_learner.cpp:203), a masked full-N partition on the split
 column, the smaller child's histogram from kernel B5
 (``ops/leaf_hist.py``), the larger by parent subtraction.  Its split is
-a function over explicit state (``ExactState``) gated on ``ok`` (gain >
-0, within the leaf budget) as the JAX package gates its loop body, so
+a function over explicit state (``GrowState``, which the wave grower
+shares with it, as it shares ``Grower``'s root and status and
+``record_splits``' tree bookkeeping) gated on ``ok`` (gain > 0, within
+the leaf budget) as the JAX package gates its loop body, so
 the fused iteration (``ops/fused_iter.py``) replays a fixed number of
 splits unread; ``grow_tree_exact`` is the staged driver, one host read a
 batch of splits certain to commit.  The JAX package's ordered-partition
@@ -21,6 +23,7 @@ arms of that function and are not ported.
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -31,7 +34,7 @@ from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
                            RIGHT_OUTPUT, RIGHT_SUM_G, SECOND_FEATURE,
                            SECOND_GAIN, SPLIT_VEC_SIZE, THRESHOLD,
                            FeatureMeta, SplitParams, best_splits_batched)
-from .wave_kernels import fixed_point_exponents
+from .wave_kernels import fixed_point_exponents, list_workspace
 
 
 @dataclass
@@ -39,11 +42,12 @@ class GrowStats:
     """Host-side facts about one grown tree."""
     num_leaves: int
     depth: int          # deepest leaf's depth
-    waves: int          # histogram passes after the root: a wave's fused
-    #                     pass, or one split under exact growth
+    passes: int         # passes after the root that split: waves under
+    #                     wave growth, splits under exact growth
     host_reads: int     # device->host reads made while growing
-    tail_waves: int = 0  # fused iteration: waves replayed one at a time
-    #                      after the tree's M masked waves and its read
+    tail_passes: int = 0  # fused iteration: the masked passes its tail
+    #                       graphs ran (waves or gated splits, no-op
+    #                       ones past the tree's end included)
 
 
 @dataclass
@@ -173,25 +177,188 @@ def _put(dst, idx, mask, val):
     dst[torch.where(mask, idx, dst.shape[0] - 1)] = val
 
 
+class SplitFields(NamedTuple):
+    """The split of each of k leaves, unpacked from their packed best
+    split vectors info (k, V): all (k,) tensors."""
+    feature: torch.Tensor     # long inner feature index
+    threshold: torch.Tensor   # i32 threshold bin
+    dbz: torch.Tensor         # i32 default bin for zero
+    is_cat: torch.Tensor      # bool
+    fdef: torch.Tensor        # i32 the feature's default (zero) bin
+    dleft: torch.Tensor       # bool the default bin goes left
+
+    @classmethod
+    def of(cls, info, meta: FeatureMeta) -> "SplitFields":
+        i32 = torch.int32
+        f = info[:, FEATURE].long()
+        thr = info[:, THRESHOLD].to(i32)
+        dbz = info[:, DEFAULT_BIN_FOR_ZERO].to(i32)
+        cat = info[:, IS_CAT] > 0.5
+        return cls(f, thr, dbz, cat, meta.default_bin[f],
+                   torch.where(cat, dbz == thr, dbz <= thr))
+
+
+def record_splits(tree: TreeArrays, parent, newleaf, node, mask, info,
+                  split: SplitFields, depth) -> None:
+    """Record in tree the splits of leaves parent (k,) long into nodes
+    node (k,) long, each left child keeping its parent's id and each
+    right child taking newleaf's (tree.cpp:55-110): the grandparents'
+    child links, the nodes' fields from info (k, V) and split, and both
+    children's parent, output, count and depth (k,).  Only where mask
+    (k,) bool; the other writes land in the spare slots."""
+    i32 = torch.int32
+    node32 = node.to(i32)
+    tparent = tree.leaf_parent[parent].long()
+    gp = tparent.clamp(min=0)
+    lc, rc = tree.left_child, tree.right_child
+    was_left = lc[gp] == (~parent).to(i32)
+    fix = mask & (tparent >= 0)
+    _put(lc, gp, fix & was_left, node32)
+    _put(rc, gp, fix & ~was_left, node32)
+    _put(lc, node, mask, (~parent).to(i32))
+    _put(rc, node, mask, (~newleaf).to(i32))
+    internal_value = tree.leaf_value[parent]
+    tree.num_leaves.add_(mask.sum(dtype=i32))
+    sg = info[:, SECOND_GAIN]
+    for name, val in (
+            ("split_feature", split.feature.to(i32)),
+            ("threshold_bin", split.threshold),
+            ("default_bin_for_zero", split.dbz),
+            ("default_bin", split.fdef.to(i32)),
+            ("is_cat", split.is_cat.to(i32)),
+            ("split_gain", info[:, GAIN]),
+            ("internal_value", internal_value),
+            ("internal_count", (info[:, LEFT_COUNT]
+                                + info[:, RIGHT_COUNT]).to(i32)),
+            ("second_feature", info[:, SECOND_FEATURE].to(i32)),
+            ("second_gain", torch.where(torch.isfinite(sg), sg,
+                                        torch.zeros_like(sg)))):
+        _put(getattr(tree, name), node, mask, val)
+    for leaf, value, count in ((parent, LEFT_OUTPUT, LEFT_COUNT),
+                               (newleaf, RIGHT_OUTPUT, RIGHT_COUNT)):
+        _put(tree.leaf_parent, leaf, mask, node32)
+        _put(tree.leaf_value, leaf, mask, info[:, value])
+        _put(tree.leaf_count, leaf, mask, info[:, count].to(i32))
+        _put(tree.leaf_depth, leaf, mask, depth)
+
+
 @dataclass
-class ExactState:
-    """Everything a split reads and writes, allocated once: the leaf ids,
-    the per-leaf histogram cache and best splits (a spare row past the
-    L leaves), the tree (``TreeArrays`` of room for L + 1 leaves: one
-    spare slot past its nodes and one past its leaves), device scalars
-    for the splits made (nn) and the stop flag, and ``status`` (done,
-    nn, deepest leaf, splits): the one int32 (4,) vector a driver
-    reads."""
+class GrowState:
+    """Everything a grower's masked pass reads and writes, allocated
+    once: the leaf ids, the per-leaf histogram cache and best splits (a
+    spare row past the L leaves), the tree (``TreeArrays`` of room for
+    L + 1 leaves: one spare slot past its nodes and one past its
+    leaves), device scalars for the splits made (nn), the stop flag and,
+    under wave growth, the waves that split; ``status`` (done, nn,
+    deepest leaf, passes that split): the one int32 (4,) vector a grow
+    loop reads; and the list passes' workspace of the dense kernels on the
+    card (``list_workspace``), which every histogram call of the state
+    shares."""
     leaf_id: torch.Tensor     # (N,) i32
     hists: torch.Tensor       # (L + 1, G, B, 3) f32, or (0,) without cache
     bests: torch.Tensor       # (L + 1, SPLIT_VEC_SIZE) f32
     tree: TreeArrays          # room for L + 1 leaves
     nn: torch.Tensor          # () i32 splits made
-    done: torch.Tensor        # () bool a split found no positive gain
+    done: torch.Tensor        # () bool a pass found nothing to split
     status: torch.Tensor      # (4,) i32
+    work: Optional[torch.Tensor]    # int64, or None (CPU, sparse store)
+    waves: Optional[torch.Tensor]   # () i32 waves that split; None under
+    #                                 exact growth, where a pass that
+    #                                 splits is a split (nn)
 
 
-class ExactGrower:
+class Grower:
+    """What the exact and the wave grower share: the bins X, feature
+    metadata and static sizes, the state, the root and the status.  A
+    subclass sets ``hist_cols`` (the histograms' columns) and
+    ``slots`` (the most child slots a histogram call takes) and
+    provides ``_child_hists``."""
+
+    sparse = False
+    slots = 1
+    counts_waves = False
+
+    def __init__(self, X, meta: FeatureMeta, bundle, *, num_leaves: int,
+                 num_bins: int, params: SplitParams, max_depth: int,
+                 group_bins: int = 0, cache_hists: bool = True):
+        self.X, self.meta, self.bundle = X, meta, bundle
+        self.L = num_leaves
+        self.num_bins = num_bins
+        self.hist_bins = group_bins if bundle is not None else num_bins
+        self.params, self.max_depth = params, max_depth
+        self.cache_hists = cache_hists
+
+    def new_state(self, n: int, dev) -> GrowState:
+        """Buffers for growing trees over n rows on dev (set by ``root``;
+        the histogram cache starts zero, and a row a tree has not
+        written is read only by masked-off slots)."""
+        L, f32, i32 = self.L, torch.float32, torch.int32
+        hists = (torch.zeros((L + 1, self.hist_cols, self.hist_bins, 3),
+                             dtype=f32, device=dev)
+                 if self.cache_hists else torch.empty(0, device=dev))
+        work = (list_workspace(n, self.slots, self.hist_cols,
+                               self.hist_bins, dev)
+                if dev.type == "cuda" and not self.sparse else None)
+        return GrowState(
+            leaf_id=torch.empty(n, dtype=i32, device=dev), hists=hists,
+            bests=torch.empty((L + 1, SPLIT_VEC_SIZE), dtype=f32,
+                              device=dev),
+            tree=TreeArrays.new(L + 1, torch.zeros((), device=dev), f32,
+                                dev),
+            nn=torch.empty((), dtype=i32, device=dev),
+            done=torch.empty((), dtype=torch.bool, device=dev),
+            status=torch.empty(4, dtype=i32, device=dev), work=work,
+            waves=(torch.empty((), dtype=i32, device=dev)
+                   if self.counts_waves else None))
+
+    def tree_of(self, st: GrowState) -> TreeArrays:
+        """The state's tree without its spare slots (views)."""
+        return st.tree.head(self.L)
+
+    def _best_of(self, hists_k, sums_k, depths_k, feature_mask):
+        meta, bundle, sparse = self.meta, self.bundle, self.sparse
+        return best_splits_batched(
+            hists_k, sums_k, depths_k, meta, feature_mask, self.params,
+            self.max_depth,
+            hist_view=lambda h, s: feature_hist_view(h, s, meta, bundle,
+                                                     fix_default=sparse))
+
+    def root(self, st: GrowState, w3, exps, feature_mask) -> None:
+        """Reset the state to the one-leaf tree of the weight rows w3 (N,
+        3) and their fixed-point exponents exps: every row in leaf 0, its
+        histogram (one child slot) and best split."""
+        dev, i32 = w3.device, torch.int32
+        st.leaf_id.zero_()
+        root_sums = w3.sum(dim=0)
+        hist0 = self._child_hists(st, st.leaf_id,
+                                  torch.zeros(1, dtype=i32, device=dev), w3,
+                                  exps)[0]
+        if self.cache_hists:
+            st.hists[0] = hist0
+        st.bests.fill_(-float("inf"))
+        st.bests[0] = self._best_of(hist0[None], root_sums[None],
+                                    torch.zeros(1, dtype=i32, device=dev),
+                                    feature_mask)[0]
+        st.tree.reset_(root_sums[2])
+        st.nn.zero_()
+        st.done.fill_(self.L <= 1)
+        if st.waves is not None:
+            st.waves.zero_()
+
+    def _done(self, st: GrowState):
+        """() bool: the next pass can split nothing."""
+        return st.done | (st.nn == self.L - 1)
+
+    def write_status(self, st: GrowState) -> None:
+        """st.status = (done, nn, deepest leaf, passes that split), for
+        one read."""
+        st.status.copy_(torch.stack([
+            self._done(st).to(torch.int32), st.nn,
+            st.tree.leaf_depth[:self.L].amax(),
+            st.nn if st.waves is None else st.waves]))
+
+
+class ExactGrower(Grower):
     """The exact (leaf-wise) grower of one learner: its row-major bins X
     (N, G) uint8, feature metadata and static sizes.
 
@@ -204,149 +371,69 @@ class ExactGrower:
     on the state, and nothing reads the device: a fixed number of splits
     can run unread (``ops/fused_iter.py`` replays them as CUDA graphs)."""
 
-    def __init__(self, X, meta: FeatureMeta, bundle, *, num_leaves: int,
-                 num_bins: int, params: SplitParams, max_depth: int,
-                 group_bins: int = 0, cache_hists: bool = True):
-        self.X, self.meta, self.bundle = X, meta, bundle
-        self.L = num_leaves
-        self.hist_bins = group_bins if bundle is not None else num_bins
-        self.params, self.max_depth = params, max_depth
-        self.cache_hists = cache_hists
+    def __init__(self, X, meta: FeatureMeta, bundle, **kw):
+        super().__init__(X, meta, bundle, **kw)
+        self.hist_cols = X.shape[1]
 
-    def new_state(self, n: int, dev) -> ExactState:
-        """Buffers for growing trees over n rows on dev (set by
-        ``root``)."""
-        L, f32, i32 = self.L, torch.float32, torch.int32
-        hists = (torch.zeros((L + 1, self.X.shape[1], self.hist_bins, 3),
-                             dtype=f32, device=dev)
-                 if self.cache_hists else torch.empty(0, device=dev))
-        return ExactState(
-            leaf_id=torch.empty(n, dtype=i32, device=dev), hists=hists,
-            bests=torch.empty((L + 1, SPLIT_VEC_SIZE), dtype=f32,
-                              device=dev),
-            tree=TreeArrays.new(L + 1, torch.zeros((), device=dev), f32,
-                                dev),
-            nn=torch.empty((), dtype=i32, device=dev),
-            done=torch.empty((), dtype=torch.bool, device=dev),
-            status=torch.empty(4, dtype=i32, device=dev))
+    def _child_hists(self, st, lid, ids, w3, exps):
+        """B5: the (1, G, B, 3) histogram of the rows in leaf ids, a (1,)
+        device tensor (-1: no row, a zero histogram)."""
+        return leaf_histogram(self.X, None, None, lid, ids, None,
+                              self.hist_bins, w3=w3, exps=exps,
+                              work=st.work)[None]
 
-    def tree_of(self, st: ExactState) -> TreeArrays:
-        """The state's tree without its spare slots (views)."""
-        return st.tree.head(self.L)
-
-    def _hist(self, st, leaf, w3, exps):
-        """B5: the (G, B, 3) histogram of the rows in leaf, a (1,) device
-        tensor (-1: no row, a zero histogram)."""
-        return leaf_histogram(self.X, None, None, st.leaf_id, leaf, None,
-                              self.hist_bins, w3=w3, exps=exps)
-
-    def _best_of(self, hists_k, sums_k, depths_k, feature_mask):
-        meta, bundle = self.meta, self.bundle
-        return best_splits_batched(
-            hists_k, sums_k, depths_k, meta, feature_mask, self.params,
-            self.max_depth,
-            hist_view=lambda h, s: feature_hist_view(h, s, meta, bundle))
-
-    def root(self, st: ExactState, w3, exps, feature_mask) -> None:
-        """Reset the state to the one-leaf tree of the weight rows w3 (N,
-        3) and their fixed-point exponents exps: every row in leaf 0, its
-        histogram and best split."""
-        dev, i32 = w3.device, torch.int32
-        st.leaf_id.zero_()
-        root_sums = w3.sum(dim=0)
-        hist0 = self._hist(st, torch.zeros(1, dtype=i32, device=dev), w3,
-                           exps)
-        if self.cache_hists:
-            st.hists[0] = hist0
-        st.bests.fill_(-float("inf"))
-        st.bests[0] = self._best_of(hist0[None], root_sums[None],
-                                    torch.zeros(1, dtype=i32, device=dev),
-                                    feature_mask)[0]
-        st.tree.reset_(root_sums[2])
-        st.nn.zero_()
-        st.done.fill_(self.L <= 1)
-
-    def split(self, st: ExactState, w3, exps, feature_mask) -> None:
+    def split(self, st: GrowState, w3, exps, feature_mask) -> None:
         """One gated split (SerialTreeLearner::Train, :203-207): split the
         leaf of largest gain if its gain is positive and the tree has
         room, with no host read."""
-        L, meta, bundle, X = self.L, self.meta, self.bundle, self.X
-        f32, i32 = torch.float32, torch.int32
-        tree = st.tree
+        L, bundle, X = self.L, self.bundle, self.X
+        i32 = torch.int32
         bl = torch.argmax(st.bests[:L, GAIN]).reshape(1)   # (1,) long
-        info = st.bests.index_select(0, bl)[0]             # (V,)
-        ok = ((info[GAIN] > 0.0) & (st.nn < L - 1)).reshape(1)
+        info = st.bests.index_select(0, bl)                # (1, V)
+        ok = (info[:, GAIN] > 0.0) & (st.nn < L - 1)       # (1,)
         node = st.nn.long().reshape(1)
         new_leaf = node + 1
-        node32, bl32, new32 = node.to(i32), bl.to(i32), new_leaf.to(i32)
-        f = info[FEATURE].long().reshape(1)
-        thr = info[THRESHOLD].to(i32)
-        dbz = info[DEFAULT_BIN_FOR_ZERO].to(i32)
-        cat = info[IS_CAT] > 0.5
-        fdef = meta.default_bin.index_select(0, f)[0]
-        dleft = torch.where(cat, dbz == thr, dbz <= thr)
+        sp = SplitFields.of(info, self.meta)
 
         # ---- partition (dense_bin.hpp:190-222): the split column,
         # remapped out of its EFB group, routes the leaf's rows
-        j = (f if bundle is None
-             else bundle.group_of.index_select(0, f).long())
+        f = sp.feature
+        j = f if bundle is None else bundle.group_of[f].long()
         col = X.index_select(1, j)[:, 0].to(i32)
         if bundle is not None:
-            goff, span, adj = (a.index_select(0, f)[0] for a in (
+            goff, span, adj = (a[f] for a in (
                 bundle.bin_off, bundle.bin_span, bundle.bin_adj))
             col = torch.where((col >= goff) & (col < goff + span),
-                              col - goff + adj, fdef)
-        go_left = torch.where(cat, col == thr, col <= thr)
-        go_left = torch.where(col == fdef, dleft, go_left)
-        st.leaf_id.copy_(torch.where(ok & (st.leaf_id == bl32) & ~go_left,
-                                     new32, st.leaf_id))
+                              col - goff + adj, sp.fdef)
+        go_left = torch.where(sp.is_cat, col == sp.threshold,
+                              col <= sp.threshold)
+        go_left = torch.where(col == sp.fdef, sp.dleft, go_left)
+        st.leaf_id.copy_(torch.where(ok & (st.leaf_id == bl.to(i32))
+                                     & ~go_left, new_leaf.to(i32),
+                                     st.leaf_id))
 
-        # ---- tree bookkeeping (tree.cpp:55-110)
-        parent = tree.leaf_parent.index_select(0, bl)      # (1,)
-        gp = parent.clamp(min=0).long()
-        lc, rc = tree.left_child, tree.right_child
-        was_left = lc.index_select(0, gp) == ~bl32
-        fix = ok & (parent >= 0)
-        _put(lc, gp, fix & was_left, node32)
-        _put(rc, gp, fix & ~was_left, node32)
-        _put(lc, node, ok, ~bl32)
-        _put(rc, node, ok, ~new32)
-        depth1 = tree.leaf_depth.index_select(0, bl) + 1  # (1,)
-        tree.num_leaves.add_(ok[0].to(i32))
-        sg = info[SECOND_GAIN]
-        for name, val in (
-                ("split_feature", f.to(i32)), ("threshold_bin", thr),
-                ("default_bin_for_zero", dbz), ("default_bin", fdef.to(i32)),
-                ("is_cat", cat.to(i32)), ("split_gain", info[GAIN]),
-                ("internal_value", tree.leaf_value.index_select(0, bl)),
-                ("internal_count", (info[LEFT_COUNT]
-                                    + info[RIGHT_COUNT]).to(i32)),
-                ("second_feature", info[SECOND_FEATURE].to(i32)),
-                ("second_gain", torch.where(torch.isfinite(sg), sg,
-                                            torch.zeros_like(sg)))):
-            _put(getattr(tree, name), node, ok, val)
-        pair = torch.cat([bl, new_leaf])                   # (left, right)
-        ok2 = ok.expand(2)
-        _put(tree.leaf_parent, pair, ok2, node32)
-        _put(tree.leaf_value, pair, ok2, info[LEFT_OUTPUT:RIGHT_OUTPUT + 1])
-        _put(tree.leaf_count, pair, ok2, torch.stack(
-            [info[LEFT_COUNT], info[RIGHT_COUNT]]).to(i32))
-        _put(tree.leaf_depth, pair, ok2, depth1)
+        # ---- tree bookkeeping
+        depth1 = st.tree.leaf_depth[bl] + 1               # (1,)
+        record_splits(st.tree, bl, new_leaf, node, ok, info, sp, depth1)
 
         # ---- children: the smaller scanned (B5), the larger by parent
         # subtraction, or scanned when the cache is off; a split that is
         # not ok scans no row
-        left_small = info[LEFT_COUNT] < info[RIGHT_COUNT]
+        left_small = info[:, LEFT_COUNT] < info[:, RIGHT_COUNT]   # (1,)
+        pair = torch.cat([bl, new_leaf])                   # (left, right)
+        ok2 = ok.expand(2)
         sl = torch.where(left_small, pair, pair.flip(0))   # small, large
         scan = torch.where(ok2, sl, -1).to(i32)
-        hist_small = self._hist(st, scan[:1], w3, exps)
+        hist_small = self._child_hists(st, st.leaf_id, scan[:1], w3,
+                                       exps)[0]
         if self.cache_hists:
             hist_large = st.hists.index_select(0, bl)[0] - hist_small
         else:
-            hist_large = self._hist(st, scan[1:], w3, exps)
+            hist_large = self._child_hists(st, st.leaf_id, scan[1:], w3,
+                                           exps)[0]
         hists2 = torch.stack([hist_small, hist_large])
-        lr_sums = torch.stack([info[LEFT_SUM_G:LEFT_COUNT + 1],
-                               info[RIGHT_SUM_G:RIGHT_COUNT + 1]])
+        lr_sums = torch.stack([info[0, LEFT_SUM_G:LEFT_COUNT + 1],
+                               info[0, RIGHT_SUM_G:RIGHT_COUNT + 1]])
         sums2 = torch.where(left_small, lr_sums, lr_sums.flip(0))
         if self.cache_hists:
             _put(st.hists, sl, ok2, hists2)
@@ -356,16 +443,11 @@ class ExactGrower:
         st.nn.add_(ok[0].to(i32))
         st.done.logical_or_(~ok[0])
 
-    def write_status(self, st: ExactState) -> None:
-        """st.status = (done, nn, deepest leaf, splits), for one read: done
-        once a split found no positive gain, the tree is full or no leaf
-        has a positive gain (the next split could not commit)."""
-        L = self.L
-        done = (st.done | (st.nn == L - 1)
-                | ~(st.bests[:L, GAIN] > 0.0).any())
-        st.status.copy_(torch.stack([
-            done.to(torch.int32), st.nn,
-            st.tree.leaf_depth[:L].amax(), st.nn]))
+    def _done(self, st: GrowState):
+        """() bool: done once a split found no positive gain, the tree is
+        full or no leaf has a positive gain (the next split could not
+        commit)."""
+        return super()._done(st) | ~(st.bests[:self.L, GAIN] > 0.0).any()
 
 
 def grow_tree_exact(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
@@ -407,6 +489,6 @@ def grow_tree_exact(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
         for _ in range(min(pending, L - 1 - nn)):
             g.split(st, w3, exps, feature_mask)
             nn += 1
-    stats = GrowStats(num_leaves=nn + 1, depth=depth, waves=nn,
+    stats = GrowStats(num_leaves=nn + 1, depth=depth, passes=nn,
                       host_reads=host_reads)
     return g.tree_of(st), st.leaf_id, stats

@@ -98,12 +98,13 @@ def _check(X, grad, hess, leaf_id, row_mult, num_bins, w3, exps):
         check_rows(N)
 
 
-def _launch(X, w3, leaf_id, leaf_t, num_bins, exps, plan):
+def _launch(X, w3, leaf_id, leaf_t, num_bins, exps, plan, work=None):
     """The select pass, the histogram pass and the conversion on plan
     (hist_plan's first six fields); returns the (F, B, 3) histogram."""
     N, F = X.shape
     B = int(num_bins)
-    rows, acc, work, hist = _list_buffers(N, 1, F, B, X.device, (F, B, 3))
+    rows, acc, work, hist = _list_buffers(N, 1, F, B, X.device, (F, B, 3),
+                                          work)
     err = _build.library().lgbt_wave_hist(
         *[t.data_ptr() for t in (X, leaf_id, w3, leaf_t, exps)], rows, acc,
         hist.data_ptr(), F, N, B, 1, *plan, 1, _build.stream(X.device))
@@ -112,7 +113,7 @@ def _launch(X, w3, leaf_id, leaf_t, num_bins, exps, plan):
 
 
 def leaf_histogram(X, grad, hess, leaf_id, leaf, row_mult, num_bins: int,
-                   *, w3=None, exps=None):
+                   *, w3=None, exps=None, work=None):
     """Leaf histogram (kernel B5): the (F, B, 3) histogram of the rows
     whose leaf id is ``leaf`` (an int or a one-element integer tensor on
     X's device), weighted by row_mult (None for all ones).
@@ -122,7 +123,9 @@ def leaf_histogram(X, grad, hess, leaf_id, leaf, row_mult, num_bins: int,
     Each is computed here when None; the grower computes both once a
     tree and passes grad, hess and row_mult as None.  Given w3, the
     plain version sums w3 masked to the leaf, which equals its sum of
-    grad, hess and row_mult to the bit.
+    grad, hess and row_mult to the bit.  work: the list passes'
+    workspace (``ops/wave_kernels.py list_workspace`` at K = 1), a new one
+    each call when None; the plain version does not use it.
 
     The kernel runs on B4's plan at K = 1, planned from N: a small leaf's
     short list takes fewer of the plan's shares on the device
@@ -142,7 +145,8 @@ def leaf_histogram(X, grad, hess, leaf_id, leaf, row_mult, num_bins: int,
         w3 = weight_rows(grad, hess, row_mult)
     N, F = X.shape
     plan = hist_plan(F, N, int(num_bins), 1, _sms(X.device))[:6]
-    out = _launch(X, w3, leaf_id, leaf_t, num_bins, _exps(w3, exps), plan)
+    out = _launch(X, w3, leaf_id, leaf_t, num_bins, _exps(w3, exps), plan,
+                  work)
     leaf_histogram.launches += 1
     return out
 

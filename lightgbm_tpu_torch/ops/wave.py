@@ -18,11 +18,12 @@ so on the card every dense histogram is the f32 rounding of an exact sum
 and the three dataflows grow the same trees to the byte.
 
 The body of the JAX package's ``lax.while_loop`` is ``WaveGrower.wave``:
-a function over explicit state (``WaveState``: leaf ids, the histogram
-cache, the per-leaf best splits, the tree, and device scalars for the
-split count, the stop flag and the waves done) that writes in place and
-commits every split through a mask, the JAX package's drop-index
-scatters becoming writes to a spare slot past the end of each array.  A
+a function over explicit state (``ops/grow.py GrowState``: leaf ids, the
+histogram cache, the per-leaf best splits, the tree, and device scalars
+for the split count, the stop flag and the waves done) that writes in
+place and commits every split through a mask, the JAX package's
+drop-index scatters becoming writes to a spare slot past the end of each
+array; the tree bookkeeping is exact growth's (``record_splits``).  A
 wave whose slots are all invalid is an exact no-op on the state, and no
 call of the body reads the device, so a fixed number of waves can run
 unread (``ops/fused_iter.py`` replays them as CUDA graphs).
@@ -47,19 +48,16 @@ rebuilds the fill-bin slots the store never holds (``fix_default``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
-from .grow import GrowStats, TreeArrays, _put, feature_hist_view
+from .grow import (GrowState, GrowStats, Grower, SplitFields, _put,
+                   record_splits)
 from .histogram import weight_rows
-from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
-                           LEFT_COUNT, LEFT_OUTPUT, LEFT_SUM_G, LEFT_SUM_H,
-                           RIGHT_COUNT, RIGHT_OUTPUT, RIGHT_SUM_G,
-                           RIGHT_SUM_H, SECOND_FEATURE, SECOND_GAIN,
-                           SPLIT_VEC_SIZE, THRESHOLD, FeatureMeta,
-                           SplitParams, best_splits_batched)
+from .split_finder import (GAIN, LEFT_COUNT, LEFT_SUM_G, LEFT_SUM_H,
+                           RIGHT_COUNT, RIGHT_SUM_G, RIGHT_SUM_H,
+                           FeatureMeta, SplitParams)
 from .sparse_mxu import (ChunkedSparseStore, sparse_route_rows,
                          sparse_wave_histogram)
 from .wave_kernels import (fixed_point_exponents, route_rows_plain,
@@ -73,25 +71,6 @@ def _stable_topk(gains, W):
     return vals[:W], idx[:W]
 
 
-@dataclass
-class WaveState:
-    """Everything a wave reads and writes, allocated once: the leaf ids,
-    the per-leaf histogram cache and best splits (a spare row past the
-    L leaves), the tree (``TreeArrays`` of room for L + 1 leaves: one
-    spare slot past its nodes and one past its leaves), device scalars
-    for the splits made (nn), the stop flag and the waves that split,
-    and ``status`` (done, nn, deepest leaf, waves): the one int32 (4,)
-    vector a driver reads."""
-    leaf_id: torch.Tensor     # (N,) i32
-    hists: torch.Tensor       # (L + 1, Fh, B, 3) f32, or (0,) without cache
-    bests: torch.Tensor       # (L + 1, SPLIT_VEC_SIZE) f32
-    tree: TreeArrays          # room for L + 1 leaves
-    nn: torch.Tensor          # () i32 splits made
-    done: torch.Tensor        # () bool a wave found no valid split
-    waves: torch.Tensor       # () i32 waves that committed a split
-    status: torch.Tensor      # (4,) i32
-
-
 class Pick(NamedTuple):
     """A wave's selection: the top-W leaves and their gains, which of
     them split, their count and the deepest leaf once they have."""
@@ -102,7 +81,7 @@ class Pick(NamedTuple):
     depth: torch.Tensor       # () i32
 
 
-class WaveGrower:
+class WaveGrower(Grower):
     """The wave grower of one learner: its bins (X: (G, N) uint8
     transposed, (N, G) row-major for hist_mode 'pallas', or a
     ChunkedSparseStore), feature metadata and static sizes.
@@ -119,93 +98,36 @@ class WaveGrower:
     rolls the rest back, so the trees equal exact growth's at any
     width."""
 
-    def __init__(self, X, meta: FeatureMeta, bundle, *, num_leaves: int,
-                 num_bins: int, params: SplitParams, max_depth: int,
-                 wave_width: int, group_bins: int = 0,
-                 cache_hists: bool = True, hist_mode: str = "pallas_ct",
-                 wave_order: str = "batched"):
-        self.X, self.meta, self.bundle = X, meta, bundle
+    counts_waves = True
+
+    def __init__(self, X, meta: FeatureMeta, bundle, *, wave_width: int,
+                 hist_mode: str = "pallas_ct", wave_order: str = "batched",
+                 **kw):
+        super().__init__(X, meta, bundle, **kw)
         self.exact_order = wave_order == "exact"
-        self.L = num_leaves
-        self.W = max(1, min(wave_width, num_leaves - 1))
-        self.num_bins = num_bins
-        self.hist_bins = group_bins if bundle is not None else num_bins
-        self.params, self.max_depth = params, max_depth
-        self.cache_hists, self.hist_mode = cache_hists, hist_mode
+        self.W = max(1, min(wave_width, self.L - 1))
+        self.slots = self.W
+        self.hist_mode = hist_mode
         self.sparse = isinstance(X, ChunkedSparseStore)
         if self.sparse:
             self.hist_cols = X.num_cols
         else:
             self.hist_cols = X.shape[1 if hist_mode == "pallas" else 0]
 
-    def new_state(self, n: int, dev) -> WaveState:
-        """Buffers for growing trees over n rows on dev (set by
-        ``root``; the histogram cache starts zero, and a row a tree has
-        not written is read only by masked-off slots)."""
-        L, f32, i32 = self.L, torch.float32, torch.int32
-        hists = (torch.zeros((L + 1, self.hist_cols, self.hist_bins, 3),
-                             dtype=f32, device=dev)
-                 if self.cache_hists else torch.empty(0, device=dev))
-        return WaveState(
-            leaf_id=torch.empty(n, dtype=i32, device=dev), hists=hists,
-            bests=torch.empty((L + 1, SPLIT_VEC_SIZE), dtype=f32,
-                              device=dev),
-            tree=TreeArrays.new(L + 1, torch.zeros((), device=dev), f32,
-                                dev),
-            nn=torch.empty((), dtype=i32, device=dev),
-            done=torch.empty((), dtype=torch.bool, device=dev),
-            waves=torch.empty((), dtype=i32, device=dev),
-            status=torch.empty(4, dtype=i32, device=dev))
-
-    # ------------------------------------------------------------- pieces
-    def _child_hists(self, lid, ids, w3, exps):
+    def _child_hists(self, st, lid, ids, w3, exps):
         if self.sparse:
             return sparse_wave_histogram(self.X, lid, w3, ids,
                                          self.hist_bins, self.X.num_cols,
                                          exps=exps)
         if self.hist_mode == "pallas":
             return wave_histogram_rowmajor(self.X, lid, w3, ids,
-                                           self.hist_bins, exps=exps)
+                                           self.hist_bins, exps=exps,
+                                           work=st.work)
         return wave_histogram(self.X, lid, w3, ids, self.hist_bins,
-                              exps=exps)
-
-    def _best_of_many(self, hists_k, sums_k, depths_k, feature_mask):
-        meta, bundle, sparse = self.meta, self.bundle, self.sparse
-        return best_splits_batched(
-            hists_k, sums_k, depths_k, meta, feature_mask, self.params,
-            self.max_depth,
-            hist_view=lambda h, s: feature_hist_view(h, s, meta, bundle,
-                                                     fix_default=sparse))
-
-    def tree_of(self, st: WaveState) -> TreeArrays:
-        """The state's tree without its spare slots (views)."""
-        return st.tree.head(self.L)
-
-    # --------------------------------------------------------------- root
-    def root(self, st: WaveState, w3, exps, feature_mask) -> None:
-        """Reset the state to the one-leaf tree of the weight rows w3 (N,
-        3) and their fixed-point exponents exps: every row in leaf 0, its
-        histogram (one child slot) and best split."""
-        L, dev, i32 = self.L, w3.device, torch.int32
-        st.leaf_id.zero_()
-        root_sums = w3.sum(dim=0)
-        hist0 = self._child_hists(st.leaf_id,
-                                  torch.zeros(1, dtype=i32, device=dev), w3,
-                                  exps)[0]
-        if self.cache_hists:
-            st.hists[0] = hist0
-        st.bests.fill_(-float("inf"))
-        st.bests[0] = self._best_of_many(
-            hist0[None], root_sums[None], torch.zeros(1, dtype=i32,
-                                                      device=dev),
-            feature_mask)[0]
-        st.tree.reset_(root_sums[2])
-        st.nn.zero_()
-        st.done.fill_(L <= 1)
-        st.waves.zero_()
+                              exps=exps, work=st.work)
 
     # --------------------------------------------------------------- wave
-    def pick(self, st: WaveState) -> Pick:
+    def pick(self, st: GrowState) -> Pick:
         """The top-W leaves by gain and which of them split (a positive
         gain, within the leaf budget); depth counts every valid slot,
         which under exact order may not all commit."""
@@ -242,7 +164,7 @@ class WaveGrower:
         kc = torch.minimum((~stop).to(torch.int32).cumprod(0).sum(), p.k)
         return rank < kc, kc.to(torch.int32)
 
-    def commit(self, st: WaveState, p: Pick, w3, exps, feature_mask):
+    def commit(self, st: GrowState, p: Pick, w3, exps, feature_mask):
         """Split the valid leaves of pick p (under exact order, the
         committed prefix of them): route their rows, build the
         children's histograms and best splits, and record the splits in
@@ -260,12 +182,8 @@ class WaveGrower:
         node = st.nn.long() + rank
         newleaf = node + 1
 
-        f_w = info[:, FEATURE].long()
-        thr_w = info[:, THRESHOLD].to(i32)
-        dbz_w = info[:, DEFAULT_BIN_FOR_ZERO].to(i32)
-        cat_w = info[:, IS_CAT] > 0.5
-        fdef_w = meta.default_bin[f_w]
-        dleft_w = torch.where(cat_w, dbz_w == thr_w, dbz_w <= thr_w)
+        sp = SplitFields.of(info, meta)
+        f_w = sp.feature
         if bundle is not None:
             col_w = bundle.group_of[f_w]
             goff_w = bundle.bin_off[f_w]
@@ -279,10 +197,10 @@ class WaveGrower:
         cols = torch.stack([
             torch.ones(W, dtype=f32, device=dev),      # 0: active
             col_w.to(f32),                             # 1: device column
-            thr_w.to(f32),                             # 2: threshold bin
-            cat_w.to(f32),                             # 3: categorical
-            fdef_w.to(f32),                            # 4: default bin
-            dleft_w.to(f32),                           # 5: default left
+            sp.threshold.to(f32),                      # 2: threshold bin
+            sp.is_cat.to(f32),                         # 3: categorical
+            sp.fdef.to(f32),                           # 4: default bin
+            sp.dleft.to(f32),                          # 5: default left
             newleaf.to(f32),                           # 6: right leaf id
             goff_w.to(f32),                            # 7: group offset
             adj_w.to(f32),                             # 8: bin adjust
@@ -298,22 +216,22 @@ class WaveGrower:
         X, bundled = self.X, bundle is not None
         if self.sparse:
             lid = sparse_route_rows(X, st.leaf_id, cols, psrc, L, bundled)
-            hist_small = self._child_hists(lid, cid, w3, exps)
+            hist_small = self._child_hists(st, lid, cid, w3, exps)
         elif self.hist_mode == "pallas_ct":
             lid, hist_small = wave_partition_hist(
                 X, st.leaf_id, w3, cid, cols, psrc, self.hist_bins,
-                bundled=bundled, exps=exps)
+                bundled=bundled, exps=exps, work=st.work)
         else:
             route = (route_rows_rowmajor if self.hist_mode == "pallas"
                      else route_rows_plain)
             lid = route(X, st.leaf_id, cols, psrc, bundled)
-            hist_small = self._child_hists(lid, cid, w3, exps)
+            hist_small = self._child_hists(st, lid, cid, w3, exps)
         st.leaf_id.copy_(lid)
         if self.cache_hists:
             hist_large = st.hists[parent] - hist_small
         else:
             hist_large = self._child_hists(
-                st.leaf_id, torch.where(valid, large_id, -1).to(i32), w3,
+                st, st.leaf_id, torch.where(valid, large_id, -1).to(i32), w3,
                 exps)
 
         left_sums = torch.stack([info[:, LEFT_SUM_G], info[:, LEFT_SUM_H],
@@ -327,10 +245,10 @@ class WaveGrower:
         # ---- split search for all 2W children
         tree = st.tree
         depth = tree.leaf_depth[parent] + 1                 # (W,)
-        bests_k = self._best_of_many(torch.cat([hist_small, hist_large]),
-                                     torch.cat([small_sums, large_sums]),
-                                     torch.cat([depth, depth]),
-                                     feature_mask)          # (2W, V)
+        bests_k = self._best_of(torch.cat([hist_small, hist_large]),
+                                torch.cat([small_sums, large_sums]),
+                                torch.cat([depth, depth]),
+                                feature_mask)               # (2W, V)
 
         if self.exact_order:
             # the leaf-wise prefix; the rows routed to the right child of
@@ -352,51 +270,14 @@ class WaveGrower:
         _put(st.bests, large_id, commit, bests_k[W:])
 
         # ---- tree bookkeeping for the committed splits
-        node32 = node.to(i32)
-        tparent = tree.leaf_parent[parent].long()
-        gp = tparent.clamp(min=0)
-        was_left = tree.left_child[gp] == (~parent).to(i32)
-        fix = commit & (tparent >= 0)
-        lc, rc = tree.left_child, tree.right_child
-        _put(lc, gp, fix & was_left, node32)
-        _put(rc, gp, fix & ~was_left, node32)
-        _put(lc, node, commit, (~parent).to(i32))
-        _put(rc, node, commit, (~newleaf).to(i32))
-        internal_value = tree.leaf_value[parent]
-        tree.num_leaves.add_(k)
-        for name, val in (
-                ("split_feature", f_w.to(i32)), ("threshold_bin", thr_w),
-                ("default_bin_for_zero", dbz_w),
-                ("default_bin", fdef_w.to(i32)), ("is_cat", cat_w.to(i32)),
-                ("split_gain", info[:, GAIN]),
-                ("internal_value", internal_value),
-                ("internal_count", (info[:, LEFT_COUNT]
-                                    + info[:, RIGHT_COUNT]).to(i32)),
-                ("second_feature", info[:, SECOND_FEATURE].to(i32))):
-            _put(getattr(tree, name), node, commit, val)
-        sg = info[:, SECOND_GAIN]
-        _put(tree.second_gain, node, commit,
-             torch.where(torch.isfinite(sg), sg, torch.zeros_like(sg)))
-        for leaf, value, count in ((parent, LEFT_OUTPUT, LEFT_COUNT),
-                                   (newleaf, RIGHT_OUTPUT, RIGHT_COUNT)):
-            _put(tree.leaf_parent, leaf, commit, node32)
-            _put(tree.leaf_value, leaf, commit, info[:, value])
-            _put(tree.leaf_count, leaf, commit, info[:, count].to(i32))
-            _put(tree.leaf_depth, leaf, commit, depth)
+        record_splits(tree, parent, newleaf, node, commit, info, sp, depth)
         st.nn.add_(k)
         st.done.copy_((k == 0) | (st.nn == L - 1))
         st.waves.add_((k > 0).to(i32))
 
-    def wave(self, st: WaveState, w3, exps, feature_mask) -> None:
+    def wave(self, st: GrowState, w3, exps, feature_mask) -> None:
         """One masked wave: pick, then commit, with no host read."""
         self.commit(st, self.pick(st), w3, exps, feature_mask)
-
-    def write_status(self, st: WaveState) -> None:
-        """st.status = (done, nn, deepest leaf, waves), for one read."""
-        done = st.done | (st.nn == self.L - 1)
-        st.status.copy_(torch.stack([
-            done.to(torch.int32), st.nn,
-            st.tree.leaf_depth[:self.L].amax(), st.waves]))
 
 
 def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
@@ -440,6 +321,6 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
         waves += 1
         if not g.exact_order:
             nn += k
-    stats = GrowStats(num_leaves=nn + 1, depth=depth, waves=waves,
+    stats = GrowStats(num_leaves=nn + 1, depth=depth, passes=waves,
                       host_reads=host_reads)
     return g.tree_of(st), st.leaf_id, stats

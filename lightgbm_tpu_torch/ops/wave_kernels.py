@@ -44,10 +44,6 @@ _SMEM_BUDGET = 220 * 1024
 _SMEM_PER_SM = 228 * 1024
 
 _num_sms = {}
-# the list passes' workspaces, one per (device, stream, size), kept for
-# the process: launches on one stream run in order, so they share one,
-# and a call inside a CUDA graph capture allocates nothing
-_workspaces = {}
 
 
 # ------------------------------------------------------------ plain torch
@@ -269,26 +265,40 @@ def _check_slots(K):
                             "slots (K=%d)" % K)
 
 
-def _list_buffers(N, K, F, B, dev, hist_shape=None):
-    """(list, acc, work, hist): the pointers of the compact list (N int2)
-    and of the K * F * B * 3 int64 sums with the list's length after
-    them, which the kernel entry zeroes; the workspace tensor holding
-    both (the current stream's, reused from call to call); the (K, F, B,
-    3) f32 histogram (or hist_shape), new each call."""
+def list_workspace(N, K, F, B, dev):
+    """The list passes' int64 workspace for N rows and up to K child
+    slots of (F, B) histograms: the compact list (N int2), then the K *
+    F * B * 3 fixed-point sums and the list's length.  A grower keeps
+    one in its state and hands it to every call, so a call inside a CUDA
+    graph capture allocates none; launches on one stream run in order,
+    so they may share it, and it is freed with the state."""
+    return torch.empty(N + K * F * B * 3 + 1, dtype=torch.int64, device=dev)
+
+
+def _list_buffers(N, K, F, B, dev, hist_shape=None, work=None):
+    """(list, acc, work, hist): the pointers of the compact list and of
+    the fixed-point sums with the list's length after them, which the
+    kernel entry zeroes; the workspace holding both (``work``, the
+    caller's, or a new one the caller keeps until it has launched); the
+    (K, F, B, 3) f32 histogram (or hist_shape), new each call."""
     _check_slots(K)
     size = N + K * F * B * 3 + 1
-    key = (dev.index, _build.stream(dev), size)
-    work = _workspaces.get(key)
     if work is None:
-        work = _workspaces[key] = torch.empty(size, dtype=torch.int64,
-                                              device=dev)
+        work = list_workspace(N, K, F, B, dev)
+    elif (work.dtype != torch.int64 or work.device != dev
+          or work.dim() != 1 or work.numel() < size
+          or not work.is_contiguous()):
+        raise LightGBMError("work: expected a contiguous int64 vector of at "
+                            "least %d on %s, got %s %s on %s"
+                            % (size, dev, work.dtype, tuple(work.shape),
+                               work.device))
     hist = torch.empty(hist_shape or (K, F, B, 3), dtype=torch.float32,
                        device=dev)
     return work.data_ptr(), work.data_ptr() + 8 * N, work, hist
 
 
 def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
-                  bundled, exps):
+                  bundled, exps, work):
     lib = _build.library()
     F, N = X_t.shape
     K, W, B = child_id.shape[0], cols.shape[0], int(num_bins)
@@ -297,7 +307,7 @@ def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
     exps = _exps(w3, exps)
     dev = X_t.device
     plan = hist_plan(F, N, B, K, _sms(dev))[:6]
-    rows, acc, work, hist = _list_buffers(N, K, F, B, dev)
+    rows, acc, work, hist = _list_buffers(N, K, F, B, dev, work=work)
     new_lid = torch.empty(N, dtype=torch.int32, device=dev)
     err = lib.lgbt_wave_fused(
         *[t.data_ptr() for t in (X_t, leaf_id, w3, child_id, cols, psrc,
@@ -307,7 +317,7 @@ def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
     return new_lid, hist
 
 
-def _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, rowmajor):
+def _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, rowmajor, work):
     """B3 (X_t) or B4 (row-major X): the select pass, the histogram pass
     over its list, the f32 conversion."""
     lib = _build.library()
@@ -316,7 +326,7 @@ def _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, rowmajor):
     exps = _exps(w3, exps)
     dev = X.device
     plan = hist_plan(F, N, B, K, _sms(dev))[:6]
-    rows, acc, work, hist = _list_buffers(N, K, F, B, dev)
+    rows, acc, work, hist = _list_buffers(N, K, F, B, dev, work=work)
     err = lib.lgbt_wave_hist(
         *[t.data_ptr() for t in (X, leaf_id, w3, child_id, exps)], rows, acc,
         hist.data_ptr(), F, N, B, K, *plan, int(rowmajor), _build.stream(dev))
@@ -401,43 +411,47 @@ def select_list(leaf_id, child_id):
 
 
 def wave_partition_hist(X_t, leaf_id, w3, child_id, cols, psrc,
-                        num_bins: int, bundled: bool = False, exps=None):
+                        num_bins: int, bundled: bool = False, exps=None,
+                        work=None):
     """Fused wave step (kernel B1): route the rows of the wave's parents
     and build the (K, F, B, 3) histograms of the children child_id from
     the new ids.  Returns (new_leaf_id, hist).  exps: the kernel's
     fixed-point exponents (fixed_point_exponents(w3)), computed here when
-    None; the plain version does not use them."""
+    None; work: the list passes' workspace (``list_workspace``), a new
+    one each call when None.  The plain version uses neither."""
     _check(X_t, leaf_id, w3, child_id, num_bins, cols, psrc)
     if X_t.device.type == "cpu":
         return wave_partition_hist_plain(X_t, leaf_id, w3, child_id, cols,
                                          psrc, num_bins, bundled)
     out = _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
-                        bundled, exps)
+                        bundled, exps, work)
     wave_partition_hist.launches += 1
     return out
 
 
-def wave_histogram(X_t, leaf_id, w3, child_id, num_bins: int, exps=None):
+def wave_histogram(X_t, leaf_id, w3, child_id, num_bins: int, exps=None,
+                   work=None):
     """Histogram-only wave pass (kernel B3): (K, F, B, 3) histograms of
-    the rows whose leaf is child_id[k].  exps as for
+    the rows whose leaf is child_id[k].  exps and work as for
     wave_partition_hist."""
     _check(X_t, leaf_id, w3, child_id, num_bins)
     if X_t.device.type == "cpu":
         return wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins)
-    out = _launch_hist(X_t, leaf_id, w3, child_id, num_bins, exps, False)
+    out = _launch_hist(X_t, leaf_id, w3, child_id, num_bins, exps, False,
+                       work)
     wave_histogram.launches += 1
     return out
 
 
 def wave_histogram_rowmajor(X, leaf_id, w3, child_id, num_bins: int,
-                            exps=None):
+                            exps=None, work=None):
     """Histogram-only wave pass on the row-major bins X (N, F) (kernel
     B4): the contract of wave_histogram."""
     _check(X, leaf_id, w3, child_id, num_bins, rowmajor=True)
     if X.device.type == "cpu":
         return wave_histogram_rowmajor_plain(X, leaf_id, w3, child_id,
                                              num_bins)
-    out = _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, True)
+    out = _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, True, work)
     wave_histogram_rowmajor.launches += 1
     return out
 

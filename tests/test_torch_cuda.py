@@ -47,15 +47,15 @@ def dev():
     return torch.device("cuda")
 
 
-def _wave_passes(booster):
+def _launched_passes(booster):
     """Wave passes a run launched: on the card wave growth runs fused
     (tpu_fused_iter=auto), M masked waves and the tail waves a tree; on
     the staged chain, the waves that split."""
     stats = booster.grow_stats()
     fused = booster._gbdt._fused_state[0]
     if fused is None:
-        return sum(s.waves for s in stats)
-    return sum(fused.waves + s.tail_waves for s in stats)
+        return sum(s.passes for s in stats)
+    return sum(fused.passes + s.tail_passes for s in stats)
 
 
 @pytest.mark.parametrize("bundled", [False, True])
@@ -467,7 +467,7 @@ def test_sparse_training_on_the_card_matches_the_cpu(dev, bundled):
     stats = on_card.grow_stats()
     assert (on_card._gbdt.train_data.bundle is not None) == bundled
     assert (sm.sparse_wave_histogram.launches - n0[0]
-            == _wave_passes(on_card) + len(stats))
+            == _launched_passes(on_card) + len(stats))
     assert wk.wave_partition_hist.launches == n0[1]
     assert wk.wave_histogram.launches == n0[2]
     on_cpu = lgb.train(p, lgb.Dataset(C, label=y), 3, device="cpu")
@@ -506,7 +506,7 @@ def test_training_on_the_card_matches_the_cpu(dev, variant):
     fused = wk.wave_partition_hist.launches - n0[0]
     hist_only = wk.wave_histogram.launches - n0[1]
     trees = len(on_card.grow_stats())
-    waves = _wave_passes(on_card)
+    waves = _launched_passes(on_card)
     if not variant:
         assert (fused, hist_only) == (waves, trees)
     elif "tpu_histogram_mode" in variant:
@@ -716,12 +716,12 @@ def test_pallas_training_on_the_card_matches_the_cpu(dev, growth, variant):
     on_card = lgb.train(p, lgb.Dataset(X, label=y), 3, device="cuda")
     counts = [c.launches - a for c, a in zip(counters, n0)]
     stats = on_card.grow_stats()
-    passes = (len(stats) + _wave_passes(on_card)
+    passes = (len(stats) + _launched_passes(on_card)
               * (1 if on_card._gbdt.learner.cache_hists else 2))
     assert counts == ([passes, 0, 0, 0, 0] if growth == "exact"
                       else [0, passes, 0, 0, 0])
     if growth == "exact":
-        assert all(st.waves == st.num_leaves - 1 for st in stats)
+        assert all(st.passes == st.num_leaves - 1 for st in stats)
     on_cpu = lgb.train(p, lgb.Dataset(X, label=y), 3, device="cpu")
     keys = ("split_feature", "left_child", "right_child", "leaf_count")
     assert ([ln for ln in on_card.model_to_string().splitlines()
@@ -768,7 +768,7 @@ def test_dense_dataflows_train_the_same_model_text(dev, fixture, cache):
         assert ((booster._gbdt.train_data.bundle is not None)
                 == (fixture == "bundled"))
         stats = booster.grow_stats()
-        trees, waves = len(stats), _wave_passes(booster)
+        trees, waves = len(stats), _launched_passes(booster)
         extra = 0 if cache else waves       # the larger children
         assert counts == {"pallas_ct": [waves, trees + extra, 0],
                           "pallas_t": [0, trees + waves + extra, 0],
@@ -822,8 +822,8 @@ def test_fused_trains_the_staged_model_text_on_the_card(dev, flow):
     assert fused.model_to_string() == staged.model_to_string()
     np.testing.assert_array_equal(fused.predict(X), staged.predict(X))
     for f, s in zip(fused.grow_stats(), staged.grow_stats()):
-        assert (f.num_leaves, f.waves) == (s.num_leaves, s.waves)
-        assert f.host_reads == 1 + f.tail_waves
+        assert (f.num_leaves, f.passes) == (s.num_leaves, s.passes)
+        assert f.host_reads == 1 + f.tail_passes
     assert fused._gbdt._fused_state[0].replays > 0
 
 
@@ -854,7 +854,7 @@ def test_fused_launch_counters_count_replays(dev, flow):
     counts = [c.launches - a for c, a in zip(counters, n0)]
     stats = booster.grow_stats()
     passes = len(stats) * fi.wave_count(15, 4) + sum(
-        s.tail_waves for s in stats)
+        s.tail_passes for s in stats)
     trees = len(stats)
     assert booster._gbdt._fused_state[0].replays >= 2 * 4
     if flow == "sparse":
@@ -886,7 +886,7 @@ def test_fused_tree_makes_no_host_sync(dev, flow):
     torch.cuda.set_sync_debug_mode("error")
     try:
         fused.tree_pass(score)
-        fused.tail_wave()
+        fused.tail_pass()
         fused.score_pass(score, 0.1)
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -941,11 +941,11 @@ def test_fused_exact_trains_the_staged_model_text_on_the_card(dev, variant):
                        lgb.Dataset(X, label=y), 5, device="cuda")
     it = fused._gbdt._fused_state[0]
     assert it is not None and staged._gbdt._fused_state == (None,)
-    assert it.waves == it.tail_len == min(fi.SPLIT_BLOCK, 14)
+    assert it.passes == it.tail_len == min(fi.SPLIT_BLOCK, 14)
     assert fused.model_to_string() == staged.model_to_string()
     for f, s in zip(fused.grow_stats(), staged.grow_stats()):
-        assert (f.num_leaves, f.waves) == (s.num_leaves, s.waves)
-        assert f.host_reads == max(1, -(-f.waves // it.tail_len))
+        assert (f.num_leaves, f.passes) == (s.num_leaves, s.passes)
+        assert f.host_reads == max(1, -(-f.passes // it.tail_len))
     assert it.replays > 0
 
 
@@ -990,7 +990,7 @@ def test_fused_exact_launch_counters_count_replays(dev):
     counts = [c.launches - a for c, a in zip(counters, n0)]
     it = booster._gbdt._fused_state[0]
     stats = booster.grow_stats()
-    passes = sum(it.waves + s.tail_waves for s in stats)
+    passes = sum(it.passes + s.tail_passes for s in stats)
     assert it.replays >= 2 * 4
     assert counts == [0, 0, 0, len(stats) + passes, 5]
 
@@ -1016,7 +1016,7 @@ def test_fused_exact_tree_makes_no_host_sync(dev):
         torch.cuda.set_sync_debug_mode("error")
         try:
             fused.tree_pass(score)
-            fused.tail_wave()
+            fused.tail_pass()
             fused.score_pass(score, 0.1)
         finally:
             torch.cuda.set_sync_debug_mode(0)
@@ -1047,3 +1047,37 @@ def test_leaf_hist_kernel_leaf_no_row_holds_is_zero(dev, leaf):
     held = lh.leaf_histogram(X, None, None, lid, leaf_t.clamp(0, 63), None,
                              b, w3=w3, exps=exps)
     assert bool(held.any())
+
+
+def test_boosters_give_their_device_memory_back(dev):
+    """Boosters of two row counts, fused and staged, under wave and exact
+    growth, trained one after another: once each is deleted the device
+    memory in use is back at its baseline.  The list passes' workspace
+    lives in the grower's state and goes with its booster; nothing is
+    kept for the process per stream, row count or size."""
+    import gc
+
+    import lightgbm_tpu_torch as lgb
+
+    def train(n, more):
+        X, s = parity_data(3, n, False)
+        p = dict({"objective": "binary", "num_leaves": 15,
+                  "min_data_in_leaf": 20, "max_bin": 63, "verbose": -1,
+                  "tpu_wave_width": 4}, **more)
+        booster = lgb.train(p, lgb.Dataset(X, label=(s > 0).astype(float)),
+                            3, device="cuda")
+        assert (booster._gbdt._fused_state[0] is None) == (
+            more.get("tpu_fused_iter") == "off")
+        del booster
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(dev)
+
+    flows = ({"tpu_histogram_mode": "pallas_ct"},
+             {"tpu_histogram_mode": "pallas_ct", "tpu_fused_iter": "off"},
+             {"tpu_growth": "exact", "tpu_histogram_mode": "pallas"},
+             {"tpu_growth": "exact", "tpu_histogram_mode": "pallas",
+              "tpu_fused_iter": "off"})
+    base = train(2000, flows[0])
+    after = [train(n, more) for n in (2000, 3000, 2000) for more in flows]
+    assert after == [base] * len(after)

@@ -70,7 +70,7 @@ def test_grow_tree_passes_the_tree_exponents(monkeypatch, mode, wrapper,
     monkeypatch.setattr(wave_mod, wrapper, hist_spy)
     booster = _train(mode, bundled, cache)
     stats = booster.grow_stats()
-    waves = sum(s.waves for s in stats)
+    waves = sum(s.passes for s in stats)
     assert len(made) == len(stats) == ITERS
     assert len(calls) == len(stats) + waves * (1 if cache else 2)
     assert all(got is latest for got, latest in calls)
@@ -141,7 +141,7 @@ def test_grow_tree_exact_passes_the_tree_weights_and_exponents(
                         ITERS, device="cpu")
     assert booster._gbdt.learner.cache_hists == cache
     stats = booster.grow_stats()
-    splits = sum(st.waves for st in stats)
+    splits = sum(st.passes for st in stats)
     assert len(made) == len(rows) == len(stats) == ITERS
     assert all(w3 is r for (w3, _), r in zip(made, rows))
     assert len(calls) == len(stats) + splits * (1 if cache else 2)
@@ -176,7 +176,7 @@ def test_sparse_grower_passes_the_tree_exponents(monkeypatch, cache):
                         device="cpu")
     assert booster._gbdt.learner.hist_mode == "sparse_mxu"
     stats = booster.grow_stats()
-    waves = sum(st.waves for st in stats)
+    waves = sum(st.passes for st in stats)
     assert len(made) == len(stats) == ITERS
     assert len(calls) == len(stats) + waves * (1 if cache else 2)
     for args, kw, (w3, exps) in calls:

@@ -119,8 +119,8 @@ def test_exact_order_trains_the_leaf_wise_model_text(objective, mode,
     # the waves a tree took: more than batched order's, fewer than its
     # splits once a wave commits more than one
     stats = booster.grow_stats()
-    assert all(1 <= st.waves <= st.num_leaves - 1 for st in stats)
-    assert sum(st.waves for st in stats) < sum(st.num_leaves - 1
+    assert all(1 <= st.passes <= st.num_leaves - 1 for st in stats)
+    assert sum(st.passes for st in stats) < sum(st.num_leaves - 1
                                                for st in stats)
 
 

@@ -78,7 +78,7 @@ def test_exact_growth_trains_the_jax_package_trees(objective, bundled, seed,
     np.testing.assert_allclose(pt, pj, rtol=1e-5,
                                atol=1e-6 * np.abs(pj).max())
     for stats in bt.grow_stats():
-        assert stats.waves == stats.num_leaves - 1       # one pass a split
+        assert stats.passes == stats.num_leaves - 1       # one pass a split
         assert stats.host_reads <= stats.num_leaves // 2
 
 
@@ -115,7 +115,7 @@ def test_exact_growth_stops_early_without_extra_passes():
     stats = bt.grow_stats()
     assert all(st.num_leaves < 63 for st in stats)
     for st in stats:
-        assert st.waves == st.num_leaves - 1
+        assert st.passes == st.num_leaves - 1
         assert 2 <= st.host_reads <= st.num_leaves
     bj = lgbj.train(dict(params, tpu_histogram_mode="pallas"),
                     lgbj.Dataset(X, label=s), 3)

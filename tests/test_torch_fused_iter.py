@@ -119,9 +119,9 @@ def test_fused_trains_the_staged_model_text(objective, mode, bundled, more):
     assert fused.model_to_string() == staged.model_to_string()
     np.testing.assert_array_equal(fused.predict(X), staged.predict(X))
     for f, s_ in zip(fused.grow_stats(), staged.grow_stats()):
-        assert (f.num_leaves, f.depth, f.waves) == (s_.num_leaves, s_.depth,
-                                                   s_.waves)
-        assert f.host_reads == 1 + f.tail_waves
+        assert (f.num_leaves, f.depth, f.passes) == (s_.num_leaves, s_.depth,
+                                                   s_.passes)
+        assert f.host_reads == 1 + f.tail_passes
 
 
 # tests/test_torch_train_parity.py CASES: (objective, width, bundled,
@@ -191,7 +191,7 @@ def _snapshot(grower, st):
     out = {f: getattr(tree, f).clone() for f in tree.__dataclass_fields__}
     out.update(leaf_id=st.leaf_id.clone(), bests=st.bests[:L].clone(),
                hists=st.hists[:L].clone(), nn=st.nn.clone())
-    if hasattr(st, "waves"):
+    if st.waves is not None:
         out["waves"] = st.waves.clone()
     return out
 
@@ -236,9 +236,9 @@ def test_tree_within_m_waves_makes_one_host_read():
     fused, staged = _pair(_params("binary", "pallas_ct"), X,
                           (s > 0).astype(float))
     for f, st in zip(fused.grow_stats(), staged.grow_stats()):
-        assert f.waves <= fi.wave_count(15, 4)
-        assert (f.host_reads, f.tail_waves) == (1, 0)
-        assert st.host_reads >= f.waves
+        assert f.passes <= fi.wave_count(15, 4)
+        assert (f.host_reads, f.tail_passes) == (1, 0)
+        assert st.host_reads >= f.passes
 
 
 def _chain_data(n=3000):
@@ -262,11 +262,11 @@ def test_tree_that_needs_tail_waves_equals_the_staged_tree(mode):
         X = sps.csr_matrix(X)
     fused, staged = _pair(params, X, y, rounds=3)
     stats = fused.grow_stats()
-    assert any(st.tail_waves > 0 for st in stats)
+    assert any(st.tail_passes > 0 for st in stats)
     for f, st in zip(stats, staged.grow_stats()):
         assert f.num_leaves == st.num_leaves == 15
-        assert f.host_reads == 1 + f.tail_waves
-        assert f.waves == st.waves <= fi.wave_count(15, 4) + f.tail_waves
+        assert f.host_reads == 1 + f.tail_passes
+        assert f.passes == st.passes <= fi.wave_count(15, 4) + f.tail_passes
     assert fused.model_to_string() == staged.model_to_string()
 
 
@@ -315,9 +315,9 @@ def test_fused_exact_trains_the_staged_model_text(objective, bundled, more):
     assert fused.model_to_string() == staged.model_to_string()
     np.testing.assert_array_equal(fused.predict(X), staged.predict(X))
     for f, s_ in zip(fused.grow_stats(), staged.grow_stats()):
-        assert (f.num_leaves, f.depth, f.waves) == (s_.num_leaves, s_.depth,
-                                                   s_.waves)
-        assert (f.host_reads, f.tail_waves) == (1, 0)
+        assert (f.num_leaves, f.depth, f.passes) == (s_.num_leaves, s_.depth,
+                                                   s_.passes)
+        assert (f.host_reads, f.tail_passes) == (1, 0)
 
 
 # tests/test_torch_exact_train.py CASES: (objective, pinned seed)
@@ -409,11 +409,11 @@ def test_fused_exact_reads_once_a_block_of_splits(monkeypatch, stops_early):
     L = params["num_leaves"]
     assert all((st.num_leaves < L) == stops_early for st in stats)
     for f, s_ in zip(stats, staged.grow_stats()):
-        assert (f.num_leaves, f.depth, f.waves) == (s_.num_leaves, s_.depth,
-                                                   s_.waves)
-        assert f.waves == f.num_leaves - 1
-        assert f.host_reads == max(1, -(-f.waves // 4))
-        assert f.tail_waves == 4 * (f.host_reads - 1)
+        assert (f.num_leaves, f.depth, f.passes) == (s_.num_leaves, s_.depth,
+                                                   s_.passes)
+        assert f.passes == f.num_leaves - 1
+        assert f.host_reads == max(1, -(-f.passes // 4))
+        assert f.tail_passes == 4 * (f.host_reads - 1)
     assert fused.model_to_string() == staged.model_to_string()
 
 
@@ -436,10 +436,10 @@ def test_fused_exact_order_trains_the_staged_model_text(mode):
     assert it.grower.exact_order and it.tail_len == 1
     assert fused.model_to_string() == staged.model_to_string()
     for f, s_ in zip(fused.grow_stats(), staged.grow_stats()):
-        assert (f.num_leaves, f.depth, f.waves) == (s_.num_leaves, s_.depth,
-                                                   s_.waves)
-        assert f.host_reads == 1 + f.tail_waves
-        assert s_.host_reads == s_.waves + 1
+        assert (f.num_leaves, f.depth, f.passes) == (s_.num_leaves, s_.depth,
+                                                   s_.passes)
+        assert f.host_reads == 1 + f.tail_passes
+        assert s_.host_reads == s_.passes + 1
 
 
 class _RescalingBagging(GBDT):
@@ -478,7 +478,7 @@ def test_auto_stays_staged_on_the_cpu():
                         device="cpu")
     assert fi.fused_supported(booster._gbdt) == (True, "")
     assert booster._gbdt._fused_state == (None,)
-    assert all(st.host_reads >= st.waves for st in booster.grow_stats())
+    assert all(st.host_reads >= st.passes for st in booster.grow_stats())
 
 
 def test_tree_arrays_reset_copy_clone():
