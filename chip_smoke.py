@@ -10,8 +10,10 @@ It builds the port's CUDA kernels from lightgbm_tpu_torch/csrc, holds each
 against its plain torch version at the main paths' shapes, times it,
 trains the flagship binary recipe (under wave growth, under wave growth
 through the plain partition and B3, under exact growth and under wave
-growth on the row-major bins) and the Bosch-shaped sparse recipe through
-``lightgbm_tpu_torch.train`` and checks what comes out.
+growth on the row-major bins; with DART, GOSS and InfiniteBoost),
+softmax over 7 classes on the flagship features, early stopping, and
+the Bosch-shaped sparse recipe through ``lightgbm_tpu_torch.train``
+and checks what comes out.
 Any failed check ends the run with a non-zero exit code and no result
 line.  Without a CUDA device it exits non-zero at once.
 
@@ -61,6 +63,27 @@ Phases, in order:
     tpu_histogram_mode=pallas (B4 once a wave pass and once a tree, and
     the main path's model text to the byte); each run prints its steady
     rate, its waves or splits a tree and its host reads a tree.
+ 4e. Boosting modes and multiclass, staged (the JAX package's fused
+    iteration takes neither), each with its launches a tree checked as
+    in phase 4 (B2 once a tree), its valid metric at each iteration,
+    steady and whole-call rate, trees/s, waves and host reads a tree:
+    DART (10 iterations, drop_rate 0.1, drop_seed 4; its drops printed),
+    GOSS (15 iterations, top_rate 0.2, other_rate 0.1, no sampling in
+    the first 10; its kept rows printed) and InfiniteBoost (5
+    iterations, capacity 50) on the flagship data with exact-order
+    waves, valid AUC above 0.8, DART's and GOSS's device scores equal to
+    their host trees; softmax over 7 classes (Covertype's count) on the
+    flagship features, labels the argmax of a noisy linear score,
+    binned with the flagship's mappers, 5 iterations = 35 trees (35 B2
+    launches), multi_logloss falling every iteration, device scores
+    equal to the host trees and the model text reloading to the same
+    (N, 7) probabilities to 1e-6.  Then early stopping on 20,000 rows
+    (stops before 200 rounds; predict at best_iteration equals a fresh
+    run of that many rounds), small card-against-CPU runs of softmax,
+    OVA, L1, Huber, Fair, Poisson, DART and InfiniteBoost, and GOSS
+    through its first sample (goss_matches_cpu says why no further).
+    Early stopping is held on the valid binary_logloss; where it stops
+    on the flagship's AUC is printed.
  5. Sparse: tools/tpu_ab2.py's Bosch-shaped data (968 columns, 1% dense,
     built directly as CSR), binned sparsely, in the entry-chunk store.
     Kernel B6 against its plain version in float64 at K = 32 on a
@@ -77,8 +100,9 @@ Phases, in order:
     the byte, device valid scores equal to the host trees, a model text
     round trip, and a small sparse run on the card that grows the CPU's
     trees and the dense path's trees.
- With --profile, every training run profiles one more iteration: its
- wall time, device busy share, device operations and graph replays.
+ With --profile, every training run of phases 4 and 5 and the
+ multiclass run profile one more iteration: its wall time, device busy
+ share, device operations and graph replays.
  6. One JSON line of kernels, the card line, and the result line.
 """
 import argparse
@@ -97,6 +121,7 @@ GROUPS = 5
 SLOW_MS = 20.0
 VALID_ROWS = 200_000
 ITERS = 5
+CLASSES = 7                   # UCI Covertype's class count
 SPARSE_COLS = 968             # Bosch's width (BASELINE.md)
 SPARSE_DENSITY = 0.01
 # (whole-call, steady) it/s of each dense training run, by its label
@@ -851,15 +876,18 @@ def profile_iteration(booster, card):
         launches += e.count
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    last = booster.grow_stats()[-1]
+    k = booster.num_model_per_iteration()
+    last = booster.grow_stats()[-k:]
+    passes = sum(s.passes for s in last)
     unit = ("split" if booster._gbdt.learner.growth == "exact"
             else "wave")
-    say("profile of one %s iteration on %s: wall %.4f s, %d %ss, %d host "
-        "reads, device busy %.4f s (%.1f%%, idle %.1f%%), %d device "
-        "operations (%.0f a %s), %d graph replays"
-        % ("fused" if fused is not None else "staged", card, wall,
-           last.passes, unit, last.host_reads, busy, 100 * busy / wall,
-           100 - 100 * busy / wall, launches, launches / max(last.passes, 1),
+    say("profile of one %s iteration (%d tree%s) on %s: wall %.4f s, %d "
+        "%ss, %d host reads, device busy %.4f s (%.1f%%, idle %.1f%%), %d "
+        "device operations (%.0f a %s), %d graph replays"
+        % ("fused" if fused is not None else "staged", k,
+           "s" if k > 1 else "", card, wall, passes, unit,
+           sum(s.host_reads for s in last), busy, 100 * busy / wall,
+           100 - 100 * busy / wall, launches, launches / max(passes, 1),
            unit, replays))
     for us, count, key in rows[:12]:
         say("  %9.3f ms %6d  %s" % (us / 1e3, count, key[:100]))
@@ -869,33 +897,106 @@ def profile_iteration(booster, card):
             say("  %9.3f ms %6d  %s" % (us / 1e3, count, key[:100]))
 
 
-def small_run_matches_cpu(lgb, variants):
-    """A small binary run through the kernels grows the trees the plain
-    versions grow on the CPU: the same split features, child pointers and
-    leaf counts, and the same predictions on the training rows to rtol
-    1e-5.  Threshold values are not compared: where the best split borders
-    an empty bin (the zero bin of a feature without zeros), two scan passes
-    reach the same partition with gains equal up to rounding, and the
-    histograms' summation order picks one of the two equivalent bins.
-    Each variant's params are laid over the wave-grown recipe."""
+def small_run_matches_cpu(lgb, variants, rounds=3):
+    """A small run through the kernels grows the trees the plain versions
+    grow on the CPU: the same split features, child pointers and leaf
+    counts, and the same predictions on the training rows to rtol 1e-5
+    ((N, K) for multiclass).  Threshold values are not compared: where
+    the best split borders an empty bin (the zero bin of a feature
+    without zeros), two scan passes reach the same partition with gains
+    equal up to rounding, and the histograms' summation order picks one
+    of the two equivalent bins.  Each variant's params are laid over the
+    wave-grown binary recipe; its objective picks the labels (classes
+    for multiclass, the score itself for the regression losses, its
+    absolute value for Poisson).  The binary variants' predictions are
+    held to rtol 1e-5 alone; the others' also to 1e-5 of the largest
+    output."""
     rng = np.random.default_rng(10)
     X = rng.normal(size=(2000, 10))
-    y = (X[:, 0] + 0.7 * X[:, 1] * X[:, 2] + 0.5 * X[:, 9]
-         + 0.1 * rng.normal(size=2000) > 0).astype(float)
+    s = (X[:, 0] + 0.7 * X[:, 1] * X[:, 2] + 0.5 * X[:, 9]
+         + 0.1 * rng.normal(size=2000))
     keys = ("split_feature", "left_child", "right_child", "leaf_count")
     for v in variants:
         p = dict({"objective": "binary", "num_leaves": 15,
                   "min_data_in_leaf": 20, "max_bin": 63, "verbose": -1,
                   "tpu_growth": "wave"}, **v)
-        a = lgb.train(p, lgb.Dataset(X, label=y), 3, device="cuda")
-        b = lgb.train(p, lgb.Dataset(X, label=y), 3, device="cpu")
+        obj = p["objective"]
+        y = (np.digitize(s, [-0.6, 0.6]).astype(float)
+             if obj.startswith("multiclass")
+             else (s > 0).astype(float) if obj == "binary"
+             else np.abs(s) if obj == "poisson" else s)
+        a = lgb.train(p, lgb.Dataset(X, label=y), rounds, device="cuda")
+        b = lgb.train(p, lgb.Dataset(X, label=y), rounds, device="cpu")
         sa = [ln for ln in a.model_to_string().splitlines()
               if ln.startswith(keys)]
         sb = [ln for ln in b.model_to_string().splitlines()
               if ln.startswith(keys)]
-        need(sa == sb, "small run %s: trees differ from the CPU's" % v)
-        need(np.allclose(a.predict(X), b.predict(X), rtol=1e-5, atol=0),
+        need(len(sa) > 0 and sa == sb,
+             "small run %s: trees differ from the CPU's" % v)
+        pa, pb = a.predict(X), b.predict(X)
+        # raw regression outputs pass through 0, where a relative bound
+        # alone fails: there 1e-5 of the largest output
+        atol = 0.0 if obj == "binary" else 1e-5 * np.abs(pb).max()
+        need(np.allclose(pa, pb, rtol=1e-5, atol=atol),
              "small run %s: predictions differ from the CPU's" % v)
+
+
+def goss_matches_cpu(lgb, rounds=6):
+    """GOSS (learning_rate 0.5: no sampling before iteration 2) on
+    small_run_matches_cpu's data, on the card and on the CPU: the trees
+    before sampling and the tree of the first sampled iteration are the
+    CPU's (the same partitions of the rows they weigh), that iteration
+    keeps the same rows with the same multipliers, and those rows
+    predict the same after it (rtol 1e-5).  Left-out rows weigh 0, so a
+    bin holding only them is empty to the split search and either
+    threshold of such a gap may win on rounding: a left-out row may then
+    fall in another leaf on the card than on the CPU, and from the next
+    sample on the runs may part.  The later iterations' agreement is
+    printed, not required."""
+    rng = np.random.default_rng(10)
+    X = rng.normal(size=(2000, 10))
+    y = (X[:, 0] + 0.7 * X[:, 1] * X[:, 2] + 0.5 * X[:, 9]
+         + 0.1 * rng.normal(size=2000) > 0).astype(float)
+    p = {"objective": "binary", "boosting": "goss", "learning_rate": 0.5,
+         "num_leaves": 15, "min_data_in_leaf": 20, "max_bin": 63,
+         "verbose": -1, "tpu_growth": "wave"}
+    keys = ("split_feature", "left_child", "right_child", "leaf_count")
+    runs = []
+    for device in ("cuda", "cpu"):
+        mults = []
+
+        def keep(env):
+            m = env.model._gbdt.row_mult
+            mults.append(None if m is None else m.cpu().numpy())
+        b = lgb.train(p, lgb.Dataset(X, label=y), rounds, device=device,
+                      callbacks=[keep])
+        text = b.model_to_string()
+        trees = [[ln for ln in blk.splitlines() if ln.startswith(keys)]
+                 for blk in text.split("Tree=")[1:]]
+        runs.append((b, mults, trees))
+    (card, mc, tc), (cpu, mp, tcpu) = runs
+    first = int(1.0 / p["learning_rate"])
+    need(all(m is None for m in mc[:first] + mp[:first]),
+         "small GOSS run: sampled before iteration %d" % first)
+    need(mc[first] is not None and np.array_equal(mc[first], mp[first]),
+         "small GOSS run: the first sample's rows differ from the CPU's")
+    need(tc[:first + 1] == tcpu[:first + 1],
+         "small GOSS run: trees through the first sample differ from the "
+         "CPU's")
+    kept = mc[first] > 0
+    need(np.allclose(card.predict(X[kept], num_iteration=first + 1),
+                     cpu.predict(X[kept], num_iteration=first + 1),
+                     rtol=1e-5, atol=0),
+         "small GOSS run: the kept rows predict differently from the CPU")
+    same = next((i for i, (a, b) in enumerate(zip(tc, tcpu)) if a != b),
+                len(tc))
+    samples = sum(a is not None and b is not None and np.array_equal(a, b)
+                  for a, b in zip(mc, mp))
+    say("small GOSS run (%d iterations, %d rows kept at iteration %d): the "
+        "trees through the first sample and its rows are the CPU's; %d of "
+        "%d trees and %d of %d samples agree over the whole run"
+        % (rounds, int(kept.sum()), first + 1, same, len(tc), samples,
+           rounds - first))
 
 
 def fused_of(booster):
@@ -980,13 +1081,15 @@ def graph_memory(label, booster):
            work / 1e9))
 
 
-def check_wave_launches(label, booster, launches, stats, kernel):
+def check_wave_launches(label, booster, launches, stats, kernel,
+                        updates=ITERS):
     """The launch counts of a wave-growth run: with kernel
     'wave_partition_hist' (the main path), B1 once a wave pass and B3
     once a tree (and once a wave pass for the larger children without
     the histogram cache); with a histogram-only kernel (B3, B4 or B6),
     that kernel once a tree and once a wave pass (twice without the
-    cache); no other histogram kernel; B2 once an iteration."""
+    cache); no other histogram kernel; B2 `updates` times: once an
+    iteration, or once a tree where an iteration grows K."""
     trees, passes = len(stats), launched_passes(booster, stats)
     extra = 0 if booster._gbdt.learner.cache_hists else passes
     want = dict.fromkeys(("wave_partition_hist", "wave_histogram",
@@ -997,7 +1100,7 @@ def check_wave_launches(label, booster, launches, stats, kernel):
                     wave_histogram=trees + extra)
     else:
         want[kernel] = trees + passes + extra
-    want["score_update"] = ITERS
+    want["score_update"] = updates
     need(passes > 0 and {k: launches[k] for k in want} == want,
          "%s: launches %s, wanted %s (%d trees, %d wave passes)"
          % (label, launches, want, trees, passes))
@@ -1084,7 +1187,7 @@ def dense_train_phase(label, params, data, lgb, kernels, card, args):
     with --profile, one more iteration profiled after them).  Returns
     (booster, launches, the run's GrowStats)."""
     import torch
-    ds, dv, Xt_raw, Xv, yv = data
+    ds, dv, Xt_raw, Xv, _ = data
     stamps = []
 
     def stamp(env):
@@ -1130,18 +1233,7 @@ def dense_train_phase(label, params, data, lgb, kernels, card, args):
 
     chain_line(label, booster, stats)
 
-    raw_dev = booster._gbdt.valid_score_host(0)[0]
-    raw_host = booster.predict(Xv, raw_score=True)
-    need(raw_host.shape == (len(yv),) and np.isfinite(raw_host).all(),
-         "%s: valid predictions not finite or of the wrong shape" % label)
-    need(np.allclose(raw_dev, raw_host, rtol=1e-5, atol=1e-5),
-         "%s: device valid scores differ from host trees (max %g)"
-         % (label, np.abs(raw_dev - raw_host).max()))
-    m = min(len(Xt_raw), 200_000)
-    train_dev = booster._gbdt.train_score[0][:m]
-    need(np.allclose(train_dev, booster.predict(Xt_raw[:m], raw_score=True),
-                     rtol=1e-5, atol=1e-5),
-         "%s: device train scores (B2) differ from host trees" % label)
+    check_scores_follow_trees(label, booster, Xt_raw, Xv)
     again = lgb.Booster(model_str=booster.model_to_string())
     need(np.array_equal(again.predict(Xv[:1000]), booster.predict(Xv[:1000])),
          "%s: model text round trip changed predictions" % label)
@@ -1149,6 +1241,240 @@ def dense_train_phase(label, params, data, lgb, kernels, card, args):
         profile_iteration(booster, card)
     graph_memory(label, booster)
     return booster, launches, stats
+
+
+def multiclass_labels(*parts, classes=CLASSES):
+    """Covertype's class count on the flagship features: for the rows of
+    each part in turn, the argmax over `classes` of X @ W * 0.5 + 0.5 *
+    noise, W (28 x classes) drawn as bench.py draws its w (normal, 30%
+    zeroed), the noise normal, both from default_rng(43)."""
+    rng = np.random.default_rng(43)
+    f = parts[0].shape[1]
+    W = rng.normal(size=(f, classes)) * (rng.random((f, classes)) > 0.3)
+    out = []
+    for X in parts:
+        y = np.empty(len(X), np.float64)
+        for lo in range(0, len(X), 500_000):
+            part = X[lo:lo + 500_000]
+            y[lo:lo + len(part)] = np.argmax(
+                part @ W * 0.5
+                + 0.5 * rng.normal(size=(len(part), classes)), axis=1)
+        out.append(y)
+    return out
+
+
+def mode_phase(label, params, iters, data, lgb, kernels, card, metric,
+               k=1, watch=None):
+    """One staged run of a boosting mode or of multiclass on full-width
+    data through lightgbm_tpu_torch.train, every launch counter set to 0
+    just before and read just after: its valid metric at each
+    iteration, steady (iterations 2+) and whole-call rate, trees/s, B1,
+    B3 and B2 launches a tree (checked as check_wave_launches checks
+    them, B2 once a tree), and waves and host reads a tree.  watch(env)
+    returns a line to print after each iteration.  Returns (booster,
+    launches, stats, the metric's values)."""
+    import torch
+    ds, dv = data[0], data[1]
+    stamps, notes = [], []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if watch is not None:
+            notes.append(watch(env))
+
+    evals = {}
+    t0 = time.perf_counter()
+    booster, launches = counted(kernels, lambda: lgb.train(
+        params, ds, iters, valid_sets=[dv], evals_result=evals,
+        callbacks=[stamp], verbose_eval=False))
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    stats = list(booster.grow_stats())
+    trees = len(stats)
+    need(fused_of(booster) is None,
+         "%s: fused (multiclass and the boosting modes stay staged)" % label)
+    need(trees == iters * k, "%s: grew %d trees, wanted %d"
+         % (label, trees, iters * k))
+    check_wave_launches(label, booster, launches, stats,
+                        "wave_partition_hist", updates=trees)
+    values = evals["valid_0"][metric]
+    need(len(values) == iters and np.isfinite(values).all(),
+         "%s: valid %s not finite at every iteration" % (label, metric))
+    steady = ((len(stamps) - 1) / (stamps[-1] - stamps[0])
+              if len(stamps) > 1 else float("nan"))
+    RATES[label] = (iters / t_train, steady)
+    learner = booster._gbdt.learner
+    say("%s train on %s: %d iterations, %d trees in %.3f s including "
+        "set-up (%.4f it/s, %.4f trees/s); steady %.4f it/s (%.4f trees/s) "
+        "over iterations 2-%d; wave order %s, W = %d; %.2f waves/tree, "
+        "%.2f host reads/tree; launches a tree: B1 %.2f, B3 %.2f, B2 %.2f; "
+        "peak device memory %.2f GB"
+        % (label, card, iters, trees, t_train, iters / t_train,
+           trees / t_train, steady, steady * k, iters, learner.wave_order,
+           learner.wave_width, sum(s.passes for s in stats) / trees,
+           sum(s.host_reads for s in stats) / trees,
+           launches["wave_partition_hist"] / trees,
+           launches["wave_histogram"] / trees,
+           launches["score_update"] / trees,
+           torch.cuda.max_memory_allocated() / 1e9))
+    say("%s valid %s by iteration: %s" % (
+        label, metric, " ".join("%.6f" % v for v in values)))
+    for i, note in enumerate(notes):
+        if note:
+            say("%s iteration %d: %s" % (label, i + 1, note))
+    return booster, launches, stats, values
+
+
+def check_scores_follow_trees(label, booster, Xt_raw, Xv, k=1):
+    """The device valid scores and the train scores (B2's) equal the
+    host trees' raw predictions, (N,) or (N, k), finite (rtol and atol
+    1e-5; the first 200,000 train rows)."""
+    raw_dev = booster._gbdt.valid_score_host(0)
+    raw_host = booster.predict(Xv, raw_score=True)
+    need(raw_host.shape == ((len(Xv), k) if k > 1 else (len(Xv),))
+         and np.isfinite(raw_host).all(),
+         "%s: valid predictions not finite or of the wrong shape" % label)
+    raw_host = raw_host.reshape(len(Xv), k)
+    need(np.allclose(raw_dev.T, raw_host, rtol=1e-5, atol=1e-5),
+         "%s: device valid scores differ from host trees (max %g)"
+         % (label, np.abs(raw_dev.T - raw_host).max()))
+    m = min(len(Xt_raw), 200_000)
+    train_dev = booster._gbdt.train_score[:, :m].T
+    need(np.allclose(train_dev, booster.predict(
+        Xt_raw[:m], raw_score=True).reshape(m, k), rtol=1e-5, atol=1e-5),
+         "%s: device train scores differ from host trees" % label)
+
+
+def multiclass_phase(args, lgb, kernels, card, ds, Xt_raw, Xv):
+    """Softmax with 7 classes on the flagship features at --rows, staged:
+    35 trees through B3, B1 and B2 (B2 into row tid of the (7, N)
+    score); multi_logloss falls every iteration; the model text reloads
+    through convert.booster_from_model_string and predicts the same
+    (N, 7) probabilities to 1e-6.  The Datasets are binned with the
+    flagship's mappers (the features are the same)."""
+    import torch
+    from lightgbm_tpu_torch.convert import booster_from_model_string
+    t0 = time.perf_counter()
+    y, yv = multiclass_labels(Xt_raw, Xv)
+    dm = lgb.Dataset(Xt_raw, label=y, reference=ds)
+    dmv = dm.create_valid(Xv, label=yv)
+    dm.construct()
+    dmv.construct()
+    counts = np.bincount(dm.get_label().astype(int), minlength=CLASSES)
+    say("multiclass data: %d train rows, %d valid rows, classes %s "
+        "(%.1f s)" % (len(Xt_raw), len(Xv), counts.tolist(),
+                      time.perf_counter() - t0))
+    params = dict(flagship_params(), objective="multiclass",
+                  num_class=CLASSES, metric="multi_logloss,multi_error")
+    booster, launches, stats, values = mode_phase(
+        "multiclass", params, ITERS, (dm, dmv), lgb, kernels, card,
+        "multi_logloss", k=CLASSES)
+    need(launches["score_update"] == CLASSES * ITERS,
+         "multiclass: B2 launches %d != %d"
+         % (launches["score_update"], CLASSES * ITERS))
+    need(all(a > b for a, b in zip(values, values[1:])),
+         "multiclass: valid multi_logloss did not fall every iteration")
+    check_scores_follow_trees("multiclass", booster, Xt_raw, Xv,
+                              k=CLASSES)
+    prob = booster.predict(Xv)
+    again = booster_from_model_string(booster.model_to_string())
+    need(prob.shape == (len(Xv), CLASSES)
+         and np.allclose(again.predict(Xv), prob, rtol=0, atol=1e-6),
+         "multiclass: model text round trip changed the probabilities")
+    say("multiclass checks: B2 launches %d (%d trees); multi_logloss falls "
+        "every iteration; device scores match host trees; model text "
+        "reloads to the same (N, %d) probabilities"
+        % (launches["score_update"], len(stats), CLASSES))
+    if args.profile:
+        profile_iteration(booster, card)
+    del booster, dm, dmv
+    torch.cuda.empty_cache()
+    return launches
+
+
+def boosting_modes_phase(lgb, kernels, card, data):
+    """DART, GOSS and InfiniteBoost on the flagship recipe at --rows,
+    staged, with exact-order waves (tpu_wave_order=auto resolves them so
+    for these modes): the launches a tree as the main path's, valid AUC
+    above 0.8, and, for DART and GOSS, device scores equal to the host
+    trees (InfiniteBoost's scores are the capped contributions it trains
+    on, not its final tree weights).  DART prints the trees it drops
+    each iteration, GOSS the rows it keeps."""
+    import torch
+    _, _, Xt_raw, Xv, _ = data
+    base = flagship_params()
+
+    def drops(env):
+        return "dropped %s" % env.model._gbdt.drop_index
+
+    def kept(env):
+        m = env.model._gbdt.row_mult
+        return ("kept every row (no sampling before iteration %d)"
+                % int(1.0 / base["learning_rate"]) if m is None
+                else "kept %d rows" % int(m.sum()))
+
+    out = {}
+    for label, more, iters, watch in (
+            ("dart", {"boosting": "dart", "drop_rate": 0.1,
+                      "drop_seed": 4}, 10, drops),
+            ("goss", {"boosting": "goss", "top_rate": 0.2,
+                      "other_rate": 0.1}, 15, kept),
+            ("infiniteboost", {"boosting": "infinite", "capacity": 50},
+             5, None)):
+        booster, launches, stats, auc = mode_phase(
+            label, dict(base, **more), iters, data, lgb, kernels, card,
+            "auc", watch=watch)
+        need(booster._gbdt.learner.wave_order == "exact",
+             "%s: did not resolve to exact-order waves" % label)
+        need(auc[-1] > 0.8, "%s: valid AUC %.4f <= 0.8" % (label, auc[-1]))
+        if label != "infiniteboost":
+            check_scores_follow_trees(label, booster, Xt_raw, Xv)
+        out[label] = launches
+        del booster
+        torch.cuda.empty_cache()
+    say("boosting mode checks: staged, exact-order waves, launches a tree "
+        "as the main path's, valid AUC above 0.8; DART and GOSS device "
+        "scores match host trees")
+    return out
+
+
+def early_stopping_phase(lgb, card):
+    """The flagship recipe on 20,000 rows with a valid set of 20,000,
+    early_stopping_rounds=5, up to 200 rounds.  On the flagship's own
+    metric, AUC, it is printed where it stopped, if it did; on the valid
+    binary_logloss it must stop before 200 with best_iteration set, keep
+    every tree, and predict(num_iteration=best_iteration) must equal a
+    fresh run of best_iteration rounds to 1e-6."""
+    X, y = make_data(40_000)
+    Xv = X[20_000:]
+    ds = lgb.Dataset(X[:20_000], label=y[:20_000], params=flagship_params())
+    dv = ds.create_valid(Xv, label=y[20_000:])
+    for metric in ("auc", "binary_logloss"):
+        params = dict(flagship_params(), metric=metric)
+        t0 = time.perf_counter()
+        booster = lgb.train(params, ds, 200, valid_sets=[dv],
+                            early_stopping_rounds=5, verbose_eval=False)
+        took = time.perf_counter() - t0
+        best = booster.best_iteration
+        ran = booster.current_iteration()
+        say("early stopping on %s, valid %s: %s after %d of 200 iterations "
+            "in %.3f s (%s), best_iteration %d, best %s %.6f"
+            % (card, metric, "stopped" if best > 0 else "did not stop",
+               ran, took, "fused" if fused_of(booster) is not None
+               else "staged", best, metric,
+               booster.best_score["valid_0"][metric]))
+    need(1 <= best and ran == best + 5 < 200,
+         "early stopping: ran %d iterations, best_iteration %d"
+         % (ran, best))
+    fresh = lgb.train(params, ds, best, verbose_eval=False)
+    need(np.allclose(booster.predict(Xv, num_iteration=best),
+                     fresh.predict(Xv), rtol=0, atol=1e-6),
+         "early stopping: predict(num_iteration=best_iteration) differs "
+         "from a fresh run of best_iteration rounds")
+    say("early stopping checks: stopped before 200 on binary_logloss with "
+        "every tree kept; predict at best_iteration equals a fresh "
+        "%d-round run" % best)
 
 
 def main():
@@ -1369,8 +1695,34 @@ def main():
         card, args)
     check_wave_launches("wave-exact-order-staged", booster, launches_o,
                         stats, "wave_partition_hist")
-    del booster, data, ds, dv
+    del booster
     torch.cuda.empty_cache()
+
+    # ---- 4e. DART, GOSS and InfiniteBoost on the flagship data: staged,
+    # exact-order waves (auto), B3 for the root, B1 every wave, B2 once a
+    # tree; then softmax over 7 classes on the flagship features, 35
+    # trees, B2 into row tid of the (7, N) score
+    mode_launches = boosting_modes_phase(lgb, kernels, card, data)
+    mode_launches["multiclass"] = multiclass_phase(args, lgb, kernels, card,
+                                                   ds, Xt_raw, Xv)
+    say("rates on %s, whole-call / steady it/s: dart %.4f / %.4f, goss "
+        "%.4f / %.4f, infiniteboost %.4f / %.4f, multiclass (7 trees an "
+        "iteration) %.4f / %.4f"
+        % ((card,) + RATES["dart"] + RATES["goss"] + RATES["infiniteboost"]
+           + RATES["multiclass"]))
+    del data, ds, dv
+    torch.cuda.empty_cache()
+    early_stopping_phase(lgb, card)
+    small_run_matches_cpu(lgb, [
+        {"objective": "multiclass", "num_class": 3},
+        {"objective": "multiclassova", "num_class": 3},
+        {"objective": "regression_l1"}, {"objective": "huber"},
+        {"objective": "fair"}, {"objective": "poisson"},
+        {"boosting": "dart", "drop_rate": 0.5, "skip_drop": 0.0},
+        {"boosting": "infinite"}])
+    say("small runs on the card (softmax, OVA, L1, Huber, Fair, Poisson, "
+        "DART, InfiniteBoost) match the CPU")
+    goss_matches_cpu(lgb)
     small_exact_order_runs(lgb)
     say("rates on %s, whole-call / steady it/s: main path fused %.4f / "
         "%.4f, staged %.4f / %.4f; exact growth fused %.4f / %.4f (S = %d), "
@@ -1389,6 +1741,10 @@ def main():
     # (B3's from the main path; on the pallas_t run it launched as said)
     say("B3 launches: %d on the main path, %d on the pallas_t run"
         % (launches["wave_histogram"], pallas_t_launches["wave_histogram"]))
+    for label, got in mode_launches.items():
+        say("%s launches: B1 %d, B3 %d, B2 %d" % (
+            label, got["wave_partition_hist"], got["wave_histogram"],
+            got["score_update"]))
     launches["wave_histogram_rowmajor"] = rowmajor_launches[
         "wave_histogram_rowmajor"]
     launches["leaf_histogram"] = exact_launches["leaf_histogram"]

@@ -9,10 +9,15 @@ Python surface mirrors the JAX package's: ``Dataset``, ``Booster``,
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; asking for CUDA on a machine without it raises.
 """
+from . import callback
 from .basic import Booster, Dataset
+from .callback import (EarlyStopException, early_stopping, print_evaluation,
+                       record_evaluation, reset_parameter)
 from .engine import train
 from .utils.log import LightGBMError
 
 __version__ = "0.1.0"
 
-__all__ = ["Dataset", "Booster", "train", "LightGBMError"]
+__all__ = ["Dataset", "Booster", "train", "LightGBMError",
+           "EarlyStopException", "early_stopping", "print_evaluation",
+           "record_evaluation", "reset_parameter"]

@@ -17,6 +17,7 @@ from .io.dataset import TrainingData
 from .io.sparse import (SparseColumns, from_scipy, is_scipy_sparse,
                         iter_dense_row_chunks)
 from .metrics import create_metric
+from .models.factory import create_boosting
 from .models.gbdt import GBDT
 from .objectives import create_objective
 from .utils.config import Config
@@ -142,7 +143,9 @@ class Booster:
                 objective.init(handle.metadata, handle.num_data, self.device)
             metrics = self._make_metrics(cfg, handle)
             self._cfg = cfg
-            self._gbdt = GBDT(cfg, self.device, handle, objective, metrics)
+            self._gbdt = create_boosting(cfg.boosting_type, cfg,
+                                         self.device, handle, objective,
+                                         metrics)
         elif model_file is not None or model_str is not None:
             if model_file is not None:
                 with open(model_file) as f:
@@ -182,11 +185,44 @@ class Booster:
         return self
 
     def update(self) -> bool:
-        """One boosting iteration; True when training should stop."""
-        return self._gbdt.train_one_iter()
+        """One boosting iteration; True when it grew no split (its trees
+        are then dropped).  As in the JAX package, the booster's own
+        early_stopping_round is not evaluated here (train() runs the
+        early_stopping callback instead)."""
+        return self._gbdt.train_one_iter(False)
+
+    def rollback_one_iter(self) -> "Booster":
+        """Undo the most recent boosting iteration."""
+        self._gbdt.rollback_one_iter()
+        return self
+
+    def reset_parameter(self, params: dict) -> "Booster":
+        """New parameters for the iterations to come, as the JAX
+        package's: learning_rate alone sets the shrinkage of the next
+        trees; any other key rebuilds the config and the learner, with
+        the scores and the trees kept."""
+        params = dict(params or {})
+        self.params.update(params)
+        if "learning_rate" in params:
+            self._gbdt.shrinkage_rate = float(params["learning_rate"])
+        rest = [k for k in params if k != "learning_rate"]
+        if rest:
+            if "objective" in rest:
+                raise LightGBMError("Cannot change objective during "
+                                    "training; create a new Booster "
+                                    "instead")
+            cfg = Config(dict(self.params))
+            if self._gbdt.train_data is not None:
+                self._gbdt.reset_config(cfg)
+            else:
+                self._gbdt.config = cfg
+        return self
 
     def current_iteration(self) -> int:
         return self._gbdt.total_iterations()
+
+    def num_model_per_iteration(self) -> int:
+        return self._gbdt.num_model_per_iteration()
 
     def num_trees(self) -> int:
         self._gbdt._materialize()
@@ -223,8 +259,10 @@ class Booster:
     def predict(self, data, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:
         """Predict rows of a dense or scipy sparse matrix (float64 trees on
-        the host); sparse input is densified a bounded row chunk at a
-        time."""
+        the host): (N,) for one tree an iteration, (N, K) for K.  Sparse
+        input is densified a bounded row chunk at a time.
+        num_iteration <= 0 uses every tree (not best_iteration, as in the
+        JAX package)."""
         if isinstance(data, Dataset):
             raise TypeError("Cannot use Dataset instance for prediction, "
                             "please use raw data instead")

@@ -1,37 +1,61 @@
-"""``train``: the JAX package's ``engine.train`` for this port (no cv, no
-callbacks, no checkpointing, no continued training)."""
+"""``train``: the JAX package's ``engine.train`` (python-package
+engine.py:17-203) for this port: the callback-driven loop, early stopping
+by exception, ``learning_rates`` and ``evals_result`` through callbacks.
+Custom objectives and evaluation (``fobj``, ``feval``), continued
+training (``init_model``), checkpoints and ``cv`` are not in the port
+yet; asking for them raises."""
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+import collections
+from typing import Any, Dict
 
+from . import callback as callback_mod
 from .basic import Booster, Dataset
+from .callback import CallbackEnv
 from .utils.config import key_alias_transform
+from .utils.log import LightGBMError
+
+__all__ = ["train", "CallbackEnv"]
 
 
-class CallbackEnv(NamedTuple):
-    """What a callback sees after each iteration (python-package
-    callback.py)."""
-    model: Booster
-    params: Dict[str, Any]
-    iteration: int
-    begin_iteration: int
-    end_iteration: int
-    evaluation_result_list: list
+def _not_yet(what: str) -> None:
+    raise LightGBMError("%s is not in lightgbm_tpu_torch yet" % what)
 
 
 def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100, valid_sets=None, valid_names=None,
-          evals_result=None, verbose_eval=False, callbacks=None,
+          fobj=None, feval=None, init_model=None, feature_name="auto",
+          categorical_feature="auto", early_stopping_rounds=None,
+          evals_result=None, verbose_eval=True, learning_rates=None,
+          keep_training_booster=False, callbacks=None,
           device="cuda") -> Booster:
-    """Train a booster (python-package engine.py:17-203) on ``device``.
+    """Train a booster on ``device`` (python-package engine.py:17-203).
 
-    evals_result: a dict filled as ``{valid_name: {metric: [values]}}``,
-    one value per iteration.  verbose_eval: print the evaluation every
-    iteration (True) or every ``verbose_eval`` iterations.  callbacks:
-    callables each given a CallbackEnv after every iteration."""
+    evals_result: a dict filled as ``{valid_name: {metric: [values]}}``.
+    verbose_eval: log the evaluation every iteration (True) or every
+    ``verbose_eval`` iterations.  early_stopping_rounds (or the
+    ``early_stopping_round`` param): stop when no valid metric has
+    improved for that many rounds; ``best_iteration`` is then the best
+    round + 1 and every tree is kept.  learning_rates: a list or
+    f(round) schedule of the learning rate.  callbacks: callables given a
+    CallbackEnv after each iteration (before it, where their
+    ``before_iteration`` is set), in the order of their ``order``."""
+    for what, value in (("fobj", fobj), ("feval", feval),
+                        ("init_model", init_model)):
+        if value is not None:
+            _not_yet(what)
+    for what, value in (("feature_name", feature_name),
+                        ("categorical_feature", categorical_feature)):
+        if value != "auto":
+            _not_yet("train(%s=...)" % what)
     params = key_alias_transform(dict(params or {}))
+    for key in ("checkpoint_dir", "checkpoint_every"):
+        if params.get(key):
+            _not_yet(key)
     if "num_iterations" in params:
         num_boost_round = int(params.pop("num_iterations"))
+    if params.get("early_stopping_round") is not None:
+        early_stopping_rounds = int(params.pop("early_stopping_round"))
     if not isinstance(train_set, Dataset):
         raise TypeError("Training only accepts Dataset object")
     booster = Booster(params=params, train_set=train_set, device=device)
@@ -47,27 +71,63 @@ def train(params: Dict[str, Any], train_set: Dataset,
         if vd is train_set:
             include_train, train_name = True, name
             continue
+        if not isinstance(vd, Dataset):
+            raise TypeError("Validation data should be Dataset instance, "
+                            "met %s" % type(vd).__name__)
         vd.set_reference(train_set)
         booster.add_valid(vd, name)
+
+    cbs = set(callbacks or [])
+    if learning_rates is not None:
+        cbs.add(callback_mod.reset_parameter(learning_rate=learning_rates))
     if evals_result is not None:
-        evals_result.clear()
-    every = (1 if verbose_eval is True else
-             int(verbose_eval) if verbose_eval else 0)
-    for it in range(num_boost_round):
-        stop = booster.update()
-        if stop:
-            break
+        cbs.add(callback_mod.record_evaluation(evals_result))
+    cbs_before, cbs_after = _assemble_callbacks(cbs, verbose_eval,
+                                                early_stopping_rounds)
+
+    booster.best_iteration = -1
+    results = []
+    for i in range(num_boost_round):
+        for cb in cbs_before:
+            cb(CallbackEnv(booster, params, i, 0, num_boost_round, None))
+        # as in the JAX package, a stop the update reports (an iteration
+        # without splits) ends nothing: its trees were popped
+        booster.update()
         results = []
-        if evals_result is not None or every:
-            results = ((booster._eval(0, train_name) if include_train
-                        else []) + booster.eval_valid())
-        for cb in callbacks or ():
-            cb(CallbackEnv(booster, params, it, 0, num_boost_round, results))
-        if evals_result is not None:
-            for name, metric, value, _ in results:
-                evals_result.setdefault(name, {}).setdefault(
-                    metric, []).append(value)
-        if every and (it + 1) % every == 0:
-            print("[%d]\t%s" % (it + 1, "\t".join(
-                "%s's %s: %g" % (n, m, v) for n, m, v, _ in results)))
+        if valid_sets is not None:
+            if include_train:
+                results.extend(booster._eval(0, train_name))
+            results.extend(booster.eval_valid())
+        try:
+            for cb in cbs_after:
+                cb(CallbackEnv(booster, params, i, 0, num_boost_round,
+                               results))
+        except callback_mod.EarlyStopException as stop:
+            booster.best_iteration = stop.best_iteration + 1
+            results = stop.best_score
+            break
+    booster.best_score = collections.defaultdict(dict)
+    for data_name, eval_name, score, _ in results or []:
+        booster.best_score[data_name][eval_name] = score
     return booster
+
+
+def _assemble_callbacks(cbs, verbose_eval, early_stopping_rounds):
+    """The implicit print and early-stop callbacks from the keyword
+    arguments, then the callbacks before and after an iteration, each
+    sorted by ``order`` (the JAX package's engine.py:300-320)."""
+    cbs = set(cbs)
+    if verbose_eval is True:
+        cbs.add(callback_mod.print_evaluation())
+    elif (isinstance(verbose_eval, int) and not isinstance(verbose_eval, bool)
+          and verbose_eval):
+        cbs.add(callback_mod.print_evaluation(verbose_eval))
+    if early_stopping_rounds is not None and early_stopping_rounds > 0:
+        cbs.add(callback_mod.early_stopping(early_stopping_rounds,
+                                            verbose=bool(verbose_eval)))
+    before = {cb for cb in cbs if getattr(cb, "before_iteration", False)}
+    after = cbs - before
+
+    def key(cb):
+        return getattr(cb, "order", 0)
+    return sorted(before, key=key), sorted(after, key=key)

@@ -1,8 +1,9 @@
-"""Evaluation metrics for this slice: L2/RMSE, binary logloss, binary
-error and AUC — host-side numpy, copied from the JAX package's
-``metrics.py`` (parity targets src/metric/regression_metric.hpp and
-binary_metric.hpp).  Each metric declares ``factor_to_bigger_better`` as
-the reference does.
+"""Evaluation metrics: the regression losses (L2, RMSE, L1, Huber, Fair,
+Poisson), binary logloss, binary error, AUC and the multiclass logloss
+and error — host-side numpy, copied from the JAX package's ``metrics.py``
+(parity targets src/metric/regression_metric.hpp, binary_metric.hpp and
+multiclass_metric.hpp).  Each metric declares ``factor_to_bigger_better``
+as the reference does.  NDCG and MAP are a later slice.
 """
 from __future__ import annotations
 
@@ -78,6 +79,45 @@ class RMSEMetric(_PointwiseRegressionMetric):
         return np.sqrt(sum_loss / sum_weights)
 
 
+class L1Metric(_PointwiseRegressionMetric):
+    name = "l1"
+
+    def loss_on_point(self, label, score):
+        return np.abs(score - label)
+
+
+class HuberLossMetric(_PointwiseRegressionMetric):
+    name = "huber"
+
+    def __init__(self, config: Config):
+        self.delta = float(config.huber_delta)
+
+    def loss_on_point(self, label, score):
+        diff = score - label
+        return np.where(np.abs(diff) <= self.delta,
+                        0.5 * diff * diff,
+                        self.delta * (np.abs(diff) - 0.5 * self.delta))
+
+
+class FairLossMetric(_PointwiseRegressionMetric):
+    name = "fair"
+
+    def __init__(self, config: Config):
+        self.c = float(config.fair_c)
+
+    def loss_on_point(self, label, score):
+        x = np.abs(score - label)
+        return self.c * x - self.c * self.c * np.log(1.0 + x / self.c)
+
+
+class PoissonMetric(_PointwiseRegressionMetric):
+    name = "poisson"
+
+    def loss_on_point(self, label, score):
+        score = np.maximum(score, 1e-10)
+        return score - label * np.log(score)
+
+
 class _PointwiseBinaryMetric(Metric):
     """binary_metric.hpp:20-108: score converted to probability via the
     objective's sigmoid when available."""
@@ -147,20 +187,64 @@ class AUCMetric(Metric):
         return [float(1.0 - accum / (total_pos * total_neg))]
 
 
+class _MulticlassMetric(Metric):
+    """multiclass_metric.hpp: the (num_class, num_data) score converted
+    row by row through the objective."""
+
+    def __init__(self, config: Config):
+        self.num_class = int(config.num_class)
+
+    def loss_on_point(self, label, probs):
+        raise NotImplementedError
+
+    def eval(self, score, objective) -> List[float]:
+        score = np.asarray(score, dtype=np.float64).reshape(
+            self.num_class, self.num_data).T
+        if objective is not None:
+            probs = np.asarray(objective.convert_output(score))
+        else:
+            probs = score
+        loss = self.loss_on_point(self.label.astype(np.int32), probs)
+        if self.weights is not None:
+            loss = loss * self.weights
+        return [float(loss.sum() / self.sum_weights)]
+
+
+class MultiSoftmaxLoglossMetric(_MulticlassMetric):
+    name = "multi_logloss"
+
+    def loss_on_point(self, label, probs):
+        p = probs[np.arange(len(label)), label]
+        return -np.log(np.maximum(p, kEpsilon))
+
+
+class MultiErrorMetric(_MulticlassMetric):
+    name = "multi_error"
+
+    def loss_on_point(self, label, probs):
+        return (np.argmax(probs, axis=1) != label).astype(np.float64)
+
+
 _METRIC_FACTORY = {
     "l2": L2Metric, "mean_squared_error": L2Metric, "mse": L2Metric,
     "l2_root": RMSEMetric, "root_mean_squared_error": RMSEMetric,
     "rmse": RMSEMetric,
+    "l1": L1Metric, "mean_absolute_error": L1Metric, "mae": L1Metric,
+    "huber": HuberLossMetric,
+    "fair": FairLossMetric,
+    "poisson": PoissonMetric,
     "binary_logloss": BinaryLoglossMetric,
     "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
+    "multi_logloss": MultiSoftmaxLoglossMetric,
+    "multi_error": MultiErrorMetric,
 }
+# the metrics that take the config
+_CONFIGURED = (HuberLossMetric, FairLossMetric, _MulticlassMetric)
 
 
 # metrics of the JAX package that this port does not have yet
-_NOT_PORTED = {"l1", "mean_absolute_error", "mae", "huber", "fair", "poisson",
-               "ndcg", "map", "mean_average_precision", "multi_logloss",
-               "multi_error"}
+_NOT_PORTED = {"ndcg", "map", "mean_average_precision"}
 
 
 def create_metric(name: str, config: Config) -> Optional[Metric]:
@@ -171,4 +255,6 @@ def create_metric(name: str, config: Config) -> Optional[Metric]:
         Log.fatal("metric=%s is not in lightgbm_tpu_torch yet (it has %s)",
                   name, ", ".join(sorted(_METRIC_FACTORY)))
     cls = _METRIC_FACTORY.get(name)
-    return cls() if cls is not None else None
+    if cls is None:
+        return None
+    return cls(config) if issubclass(cls, _CONFIGURED) else cls()

@@ -1,21 +1,27 @@
-"""GBDT booster: the staged training loop, scores, eval, model I/O.
+"""GBDT booster: the staged training loop, scores, eval, early stopping,
+rollback, model I/O.
 
 Ported from the JAX package's ``models/gbdt.py`` (parity target
 src/boosting/gbdt.cpp).  Mirrored behaviors: the boost_from_average stub
-tree on the first iteration (gbdt.cpp:339-362), the degenerate-class skip
-(gbdt.cpp:166-205), bagging as a per-row 0/1 multiplier (gbdt.cpp:242-324),
-the stop on a tree without splits (gbdt.cpp:440-448) and the model text
-format (gbdt.cpp:817-971).
+tree on the first iteration (gbdt.cpp:339-362), K = num_tree_per_iteration
+trees an iteration (multiclass), the degenerate-class skip with its
+constant stub (gbdt.cpp:166-205), bagging as a per-row 0/1 multiplier
+(gbdt.cpp:242-324), the stop on an iteration without splits
+(gbdt.cpp:440-448), early stopping on the valid metrics with the pop of
+the trees past the best iteration (gbdt.cpp:479-585), rollback
+(gbdt.cpp:460-477) and the model text format (gbdt.cpp:817-971).
 
-One iteration is staged -- gradients, then tree growth (ops/wave.py or
+One tree is staged -- gradients, then tree growth (ops/wave.py or
 ops/grow.py), then the partition-side score update (kernel B2), each its
 own step on the device -- or fused (``tpu_fused_iter``,
 ops/fused_iter.py): the three as a few CUDA graph replays with a few
-host reads a tree.  Both train
-the same model text to the byte.  The validation-set traversal follows
-either, as in the JAX package.  Scores are (1, N) f32 device tensors,
-updated in place (the fused iteration's graphs hold their address);
-trees stay on the device until a host view is needed.
+host reads a tree.  Both train the same model text to the byte.  Only
+GBDT's own one-tree iteration fuses, as in the JAX package: multiclass
+and the boosting modes (models/dart.py, goss.py, infiniteboost.py) stay
+staged.  The validation-set traversal follows either.  Scores are
+(K, N) f32 device tensors, updated in place, a row a class (the fused
+iteration's graphs hold the address of row 0); trees stay on the device
+until a host view is needed.
 """
 from __future__ import annotations
 
@@ -35,6 +41,15 @@ from ..utils.log import Log
 from .tree import Tree
 
 kEpsilon = 1e-15
+
+
+def _stub_tree(value: float, num_data: int) -> Tree:
+    """A two-leaf tree whose leaves both output value: the
+    boost_from_average and empty-class stubs."""
+    tree = Tree(2)
+    tree.split(0, 0, False, 0, 0, 0.0, value, value, 0, num_data, -1.0, 0,
+               0, 0.0)
+    return tree
 
 
 class GBDT:
@@ -61,6 +76,7 @@ class GBDT:
         self.feature_infos: List[str] = []
         self.objective = objective
         self.shrinkage_rate = config.learning_rate
+        self.early_stopping_round = config.early_stopping_round
         self.train_data: Optional[TrainingData] = None
         self.learner: Optional[SerialTreeLearner] = None
         self.training_metrics: List[Metric] = list(training_metrics)
@@ -68,8 +84,14 @@ class GBDT:
         self.valid_metrics: List[List[Metric]] = []
         self._valid_X_dev: List[torch.Tensor] = []
         self._valid_score_dev: List[torch.Tensor] = []
+        # early stopping bookkeeping a (valid set, metric)
+        self.best_score: List[List[float]] = []
+        self.best_iter: List[List[int]] = []
+        self.best_msg: List[List[str]] = []
         self._score_dev: Optional[torch.Tensor] = None
-        self.num_tree_per_iteration = 1
+        self.num_tree_per_iteration = (
+            objective.num_tree_per_iteration() if objective is not None
+            else max(1, self.num_class))
         # per-tree growth facts of the latest iterations (waves, host
         # reads, depth) — what chip runs report
         self.grow_stats: list = []
@@ -85,15 +107,12 @@ class GBDT:
                             objective: Optional[ObjectiveFunction],
                             training_metrics: Sequence[Metric]) -> None:
         """GBDT::ResetTrainingData (gbdt.cpp:76-208) for a fresh booster."""
-        if config.num_class != 1:
-            Log.fatal("lightgbm_tpu_torch trains one tree per iteration "
-                      "(num_class=1)")
-        if config.early_stopping_round > 0:
-            Log.fatal("early_stopping_round is not in lightgbm_tpu_torch "
-                      "yet")
         self.config = config
         self.objective = objective
+        self.early_stopping_round = config.early_stopping_round
         self.shrinkage_rate = config.learning_rate
+        if objective is not None:
+            self.num_tree_per_iteration = objective.num_tree_per_iteration()
         self.train_data = train_data
         self.num_data = train_data.num_data
         self.learner = SerialTreeLearner(config, train_data, self.device)
@@ -102,55 +121,117 @@ class GBDT:
         self.max_feature_idx = train_data.num_total_features - 1
         self.feature_names = list(train_data.feature_names)
         self.feature_infos = train_data.feature_infos()
+        k = self.num_tree_per_iteration
         init = train_data.metadata.init_score
         self.has_init_score = init is not None
-        score0 = np.zeros((1, self.num_data), dtype=np.float32)
+        score0 = np.zeros((k, self.num_data), dtype=np.float32)
         if self.has_init_score:
-            if len(init) != self.num_data:
+            if (len(init) % self.num_data != 0
+                    or len(init) // self.num_data != k):
                 Log.fatal("number of class for initial score error")
-            score0[0] = np.asarray(init, dtype=np.float64)
+            score0[:] = np.asarray(init, dtype=np.float64).reshape(
+                k, self.num_data)
         self._score_dev = torch.as_tensor(score0, device=self.device)
         # degenerate class handling (gbdt.cpp:166-205)
-        self.class_need_train = True
-        self.class_default_output = 0.0
+        self.class_need_train = [True] * k
+        self.class_default_output = [0.0] * k
         if objective is not None and objective.skip_empty_class():
-            cnt_pos = int((np.asarray(train_data.metadata.label) > 0).sum())
-            if cnt_pos == 0:
-                self.class_need_train = False
-                self.class_default_output = -np.log(1.0 / kEpsilon - 1.0)
-            elif cnt_pos == self.num_data:
-                self.class_need_train = False
-                self.class_default_output = -np.log(kEpsilon)
+            label = np.asarray(train_data.metadata.label)
+            if k > 1:
+                counts = [int((label.astype(np.int32) == i).sum())
+                          for i in range(k)]
+            else:
+                counts = [int((label > 0).sum())]
+            for i, cnt in enumerate(counts):
+                if cnt == self.num_data:
+                    self.class_need_train[i] = False
+                    self.class_default_output[i] = -np.log(kEpsilon)
+                elif cnt == 0:
+                    self.class_need_train[i] = False
+                    self.class_default_output[i] = -np.log(
+                        1.0 / kEpsilon - 1.0)
         # bagging state (gbdt.cpp ResetBaggingConfig, :134-160)
         self.bag_data_cnt = self.num_data
         self.row_mult: Optional[torch.Tensor] = None
         if config.bagging_fraction < 1.0 and config.bagging_freq > 0:
             self.bag_data_cnt = int(config.bagging_fraction * self.num_data)
 
+    def reset_config(self, config: Config) -> None:
+        """GBDT::ResetConfig (gbdt.cpp:64-74): new training parameters
+        for the trees to come; the scores and the trees stay.  The learner
+        is built anew (its upload of the bins too)."""
+        self._materialize()
+        self.config = config
+        self.early_stopping_round = config.early_stopping_round
+        self.shrinkage_rate = config.learning_rate
+        self.learner = SerialTreeLearner(config, self.train_data,
+                                         self.device)
+        self._fused_state = None
+        self.bag_data_cnt = self.num_data
+        self.row_mult = None
+        if config.bagging_fraction < 1.0 and config.bagging_freq > 0:
+            self.bag_data_cnt = int(config.bagging_fraction * self.num_data)
+
     def add_valid_dataset(self, valid_data: TrainingData,
                           valid_metrics: Sequence[Metric]) -> None:
-        """GBDT::AddValidDataset (gbdt.cpp:210-240) before training."""
+        """GBDT::AddValidDataset (gbdt.cpp:210-240) before training: its
+        (K, N) scores start at its init score."""
         if self.models:
             Log.fatal("add validation data before the first iteration")
-        score = np.zeros((1, valid_data.num_data), dtype=np.float32)
+        k = self.num_tree_per_iteration
+        score = np.zeros((k, valid_data.num_data), dtype=np.float32)
         init = valid_data.metadata.init_score
         if init is not None:
-            score[0] = np.asarray(init, dtype=np.float64)
+            score[:] = np.asarray(init, dtype=np.float64).reshape(
+                k, valid_data.num_data)
         self.valid_data.append(valid_data)
         self._valid_X_dev.append(torch.as_tensor(valid_data.binned,
                                                  device=self.device))
         self._valid_score_dev.append(torch.as_tensor(score,
                                                      device=self.device))
         self.valid_metrics.append(list(valid_metrics))
+        self.best_score.append([-np.inf] * len(valid_metrics))
+        self.best_iter.append([0] * len(valid_metrics))
+        self.best_msg.append([""] * len(valid_metrics))
 
     # ------------------------------------------------------ score management
     @property
     def train_score(self) -> np.ndarray:
-        """Host copy of the training scores, (1, N) float64."""
+        """Host copy of the training scores, (K, N) float64."""
         return self._score_dev.cpu().numpy().astype(np.float64)
 
     def valid_score_host(self, i: int) -> np.ndarray:
         return self._valid_score_dev[i].cpu().numpy().astype(np.float64)
+
+    def _apply_tree_to_train(self, tree: Tree, tid: int) -> None:
+        """Add a grown tree's output (its host leaf values) to row tid of
+        the train score, in place, by a traversal of the learner's bins."""
+        if tree.num_leaves <= 1:
+            return
+        X = self.learner.row_major_bins()
+        if X is None:
+            Log.fatal("tpu_sparse=true keeps no dense device matrix to "
+                      "traverse; DART/rollback/continued training need the "
+                      "raw data (keep_raw) under the sparse store")
+        row = self._score_dev[tid]
+        dev_predict.add_tree_to_score(
+            row, X, dev_predict.traversal_from_host_tree(tree, self.device),
+            1.0, self.learner.bundle_arrays, out=row)
+
+    def _apply_tree_to_valid(self, tree: Tree, vi: int, tid: int) -> None:
+        """As _apply_tree_to_train, for row tid of valid set vi."""
+        if tree.num_leaves <= 1:
+            return
+        row = self._valid_score_dev[vi][tid]
+        dev_predict.add_tree_to_score(
+            row, self._valid_X_dev[vi],
+            dev_predict.traversal_from_host_tree(tree, self.device), 1.0,
+            self.learner.bundle_arrays, out=row)
+
+    def _stub_offset(self) -> int:
+        """1 when models[0] is the boost_from_average stub: DART and
+        InfiniteBoost index their iterations' trees past it."""
+        return 1 if self.boost_from_average_used else 0
 
     # ---------------------------------------------------- model realization
     def _materialize(self) -> None:
@@ -169,12 +250,17 @@ class GBDT:
         self._models_dev.append(None)
         self._models_shrink.append(1.0)
 
-    def _add_constant(self, value: float) -> None:
-        """Add value to every score, in place."""
+    def _pop_models(self, count: int) -> None:
+        for _ in range(count):
+            self.models.pop()
+            self._models_dev.pop()
+            self._models_shrink.pop()
+
+    def _add_constant(self, value: float, tid=None) -> None:
+        """Add value to every score (tid None) or to row tid, in place."""
         c = torch.tensor(value, dtype=torch.float32, device=self.device)
-        self._score_dev.add_(c)
-        for vi in range(len(self.valid_data)):
-            self._valid_score_dev[vi].add_(c)
+        for s in [self._score_dev] + self._valid_score_dev:
+            (s if tid is None else s[tid]).add_(c)
 
     # --------------------------------------------------------------- bagging
     def _bagging(self, it: int) -> None:
@@ -189,6 +275,19 @@ class GBDT:
             mult = np.zeros(self.num_data, dtype=np.float32)
             mult[idx] = 1.0
             self.row_mult = torch.as_tensor(mult, device=self.device)
+
+    def _bagging_with_grad(self, it: int, grad, hess):
+        """Hook: bagging ignores the gradients; GOSS overrides it."""
+        self._bagging(it)
+        return grad, hess
+
+    def _score_for_objective(self):
+        """The score the objective's gradients are taken at: row 0 for one
+        tree an iteration, the flat (K N,) view otherwise.  DART overrides
+        it to drop trees first."""
+        if self.num_tree_per_iteration == 1:
+            return self._score_dev[0]
+        return self._score_dev.reshape(-1)
 
     # ------------------------------------------------------------- iteration
     def _resolve_fused_iter(self):
@@ -221,83 +320,173 @@ class GBDT:
         return fused
 
     def train_one_iter(self, is_eval: bool = True) -> bool:
-        """GBDT::TrainOneIter (gbdt.cpp:339-458), staged; True = stop."""
+        """GBDT::TrainOneIter (gbdt.cpp:339-458), K trees; True = stop.
+
+        As in the JAX package, an iteration without splits is looked for
+        when is_eval is set or every 16th iteration; Booster.update passes
+        is_eval=False."""
         cfg = self.config
+        k = self.num_tree_per_iteration
         if (not self.models and cfg.boost_from_average
-                and not self.has_init_score
+                and not self.has_init_score and self.num_class <= 1
                 and self.objective is not None
                 and self.objective.boost_from_average()):
             label = np.asarray(self.train_data.metadata.label,
                                dtype=np.float64)
             init_score = float(label.sum() / self.num_data)
-            stub = Tree(2)
-            stub.split(0, 0, False, 0, 0, 0.0, init_score, init_score,
-                       0, self.num_data, -1.0, 0, 0, 0.0)
             self._add_constant(init_score)
-            self._append_host_tree(stub)
+            self._append_host_tree(_stub_tree(init_score, self.num_data))
             self.boost_from_average_used = True
 
-        if not self.class_need_train:
-            if not self.models:
-                out = self.class_default_output
-                tree = Tree(2)
-                tree.split(0, 0, False, 0, 0, 0.0, out, out,
-                           0, self.num_data, -1.0, 0, 0, 0.0)
-                self._add_constant(out)
-                self._append_host_tree(tree)
-            else:
-                self._append_host_tree(Tree(2))
-            self.iter += 1
-            return False
-
-        if self.objective is None:
-            Log.fatal("No object function provided")
-        # the shrinkage travels as a host float (rounded to f32 by both
-        # updates), never as a device tensor copied over each iteration;
-        # the train score is updated in place
-        scale = self.shrinkage_rate
         fused = self._resolve_fused_iter()
         if fused is not None:
-            # gradients, growth and the score update in one schedule; the
-            # tree is the fused iteration's buffer, so the model keeps a
-            # copy
+            # gradients, growth and the score update in one schedule
             self._bagging(self.iter)
-            dev_tree, leaf_id, stats = fused.run(
-                self._score_dev[0], self.row_mult,
-                self.learner.sample_feature_mask(), scale)
-            self.learner.last_stats = stats
-            stored = dev_tree.clone()
         else:
-            grad, hess = self.objective.get_gradients(self._score_dev[0])
-            self._bagging(self.iter)
-            dev_tree, leaf_id, stats = self.learner.train_device(
-                grad, hess, self.row_mult)
-            dev_predict.update_score_from_partition(
-                self._score_dev[0], leaf_id, dev_tree.leaf_value, scale,
-                out=self._score_dev[0])
-            stored = dev_tree
-        self.grow_stats.append(stats)
-        ta = dev_predict.traversal_from_grow(dev_tree, stats.num_leaves,
-                                             stats.depth)
-        for vi in range(len(self.valid_data)):
-            self._valid_score_dev[vi] = dev_predict.add_tree_to_score(
-                self._valid_score_dev[vi][0], self._valid_X_dev[vi], ta,
-                scale, self.learner.bundle_arrays)[None, :]
-        self.models.append(None)
-        self._models_dev.append(stored)
-        self._models_shrink.append(self.shrinkage_rate)
-        if stats.num_leaves <= 1:
-            # no leaf met the split requirements (gbdt.cpp:440-448)
-            Log.warning("Stopped training because there are no more leaves "
-                        "that meet the split requirements.")
-            self.models.pop()
-            self._models_dev.pop()
-            self._models_shrink.pop()
+            if self.objective is None:
+                Log.fatal("No object function provided")
+            grad, hess = self.objective.get_gradients(
+                self._score_for_objective())
+            grad, hess = self._bagging_with_grad(
+                self.iter, grad.reshape(k, self.num_data),
+                hess.reshape(k, self.num_data))
+        # the shrinkage travels as a host float (rounded to f32 by both
+        # updates), read after the gradients (DART sets it as it drops
+        # trees); every score is updated in place
+        scale = self.shrinkage_rate
+        grown = []
+        for tid in range(k):
+            if not self.class_need_train[tid]:
+                tree = Tree(2)
+                if len(self.models) < k:
+                    out = self.class_default_output[tid]
+                    tree = _stub_tree(out, self.num_data)
+                    self._add_constant(out, tid)
+                self._append_host_tree(tree)
+                continue
+            row = self._score_dev[tid]
+            if fused is not None:
+                # the tree is the fused iteration's buffer, so the model
+                # keeps a copy
+                dev_tree, leaf_id, stats = fused.run(
+                    row, self.row_mult, self.learner.sample_feature_mask(),
+                    scale)
+                self.learner.last_stats = stats
+                stored = dev_tree.clone()
+            else:
+                dev_tree, leaf_id, stats = self.learner.train_device(
+                    grad[tid], hess[tid], self.row_mult)
+                dev_predict.update_score_from_partition(
+                    row, leaf_id, dev_tree.leaf_value, scale, out=row)
+                stored = dev_tree
+            self.grow_stats.append(stats)
+            ta = dev_predict.traversal_from_grow(dev_tree, stats.num_leaves,
+                                                 stats.depth)
+            for vi in range(len(self.valid_data)):
+                vrow = self._valid_score_dev[vi][tid]
+                dev_predict.add_tree_to_score(
+                    vrow, self._valid_X_dev[vi], ta, scale,
+                    self.learner.bundle_arrays, out=vrow)
+            self.models.append(None)
+            self._models_dev.append(stored)
+            self._models_shrink.append(self.shrinkage_rate)
+            grown.append(stats.num_leaves)
+
+        should_continue = bool(grown)
+        if grown and (is_eval or self.iter % 16 == 0):
+            should_continue = any(nl > 1 for nl in grown)
+        if not should_continue:
+            self._pop_degenerate_iterations()
             return True
         self.iter += 1
+        if is_eval:
+            return self.eval_and_check_early_stopping()
         return False
 
+    def _pop_degenerate_iterations(self) -> None:
+        """No leaf met the split requirements: drop this iteration's K
+        trees (gbdt.cpp:440-448)."""
+        Log.warning("Stopped training because there are no more leaves "
+                    "that meet the split requirements.")
+        self._pop_models(self.num_tree_per_iteration)
+
+    def rollback_one_iter(self) -> None:
+        """GBDT::RollbackOneIter (gbdt.cpp:460-477): subtract the trees
+        at cur_iter * K + tid from the scores and pop the last K.  The
+        index counts from the first model, the boost_from_average stub
+        included, as the JAX package's does."""
+        if self.iter <= 0:
+            return
+        self._materialize()
+        k = self.num_tree_per_iteration
+        cur_iter = self.iter + self.num_init_iteration - 1
+        for tid in range(k):
+            tree = self.models[cur_iter * k + tid]
+            tree.shrink(-1.0)
+            self._apply_tree_to_train(tree, tid)
+            for vi in range(len(self.valid_data)):
+                self._apply_tree_to_valid(tree, vi, tid)
+        self._pop_models(k)
+        self.iter -= 1
+
     # ------------------------------------------------------------------ eval
+    def eval_and_check_early_stopping(self) -> bool:
+        """GBDT::EvalAndCheckEarlyStopping (gbdt.cpp:479-500): on a met
+        criterion the trees of the last early_stopping_round iterations
+        are popped."""
+        best_msg = self.output_metric(self.iter)
+        if not best_msg:
+            return False
+        Log.info("Early stopping at iteration %d, the best iteration round "
+                 "is %d", self.iter, self.iter - self.early_stopping_round)
+        Log.info("Output of best iteration round:\n%s", best_msg)
+        self._pop_models(self.early_stopping_round
+                         * self.num_tree_per_iteration)
+        return True
+
+    def output_metric(self, it: int) -> str:
+        """GBDT::OutputMetric (gbdt.cpp:527-585): log the metrics every
+        output_freq iterations and track each valid metric's best; the
+        best message of a metric that has not improved for
+        early_stopping_round iterations, else ''."""
+        esr = self.early_stopping_round
+        need_output = (it % self.config.output_freq) == 0
+        ret = ""
+        msg_lines: List[str] = []
+        meet_pairs: List[Tuple[int, int]] = []
+        if need_output:
+            for m in self.training_metrics:
+                scores = m.eval(self.train_score, self.objective)
+                for name, s in zip(m.get_names(), scores):
+                    line = "Iteration:%d, training %s : %g" % (it, name, s)
+                    Log.info(line)
+                    if esr > 0:
+                        msg_lines.append(line)
+        if need_output or esr > 0:
+            for i in range(len(self.valid_metrics)):
+                for j, m in enumerate(self.valid_metrics[i]):
+                    test_scores = m.eval(self.valid_score_host(i),
+                                         self.objective)
+                    for name, s in zip(m.get_names(), test_scores):
+                        line = "Iteration:%d, valid_%d %s : %g" % (
+                            it, i + 1, name, s)
+                        if need_output:
+                            Log.info(line)
+                        if esr > 0:
+                            msg_lines.append(line)
+                    if not ret and esr > 0:
+                        cur = m.factor_to_bigger_better * test_scores[-1]
+                        if cur > self.best_score[i][j]:
+                            self.best_score[i][j] = cur
+                            self.best_iter[i][j] = it
+                            meet_pairs.append((i, j))
+                        elif it - self.best_iter[i][j] >= esr:
+                            ret = self.best_msg[i][j]
+        msg = "\n".join(msg_lines)
+        for i, j in meet_pairs:
+            self.best_msg[i][j] = msg
+        return ret
+
     def get_eval_at(self, data_idx: int) -> List[float]:
         """GBDT::GetEvalAt (gbdt.cpp:588-609)."""
         out: List[float] = []
@@ -316,6 +505,9 @@ class GBDT:
         return [n for m in ms for n in m.get_names()]
 
     # --------------------------------------------------------------- predict
+    def num_model_per_iteration(self) -> int:
+        return self.num_tree_per_iteration
+
     def total_iterations(self) -> int:
         return len(self.models) // self.num_tree_per_iteration
 
@@ -328,19 +520,25 @@ class GBDT:
 
     def predict_raw(self, features: np.ndarray,
                     num_iteration: int = -1) -> np.ndarray:
-        """Raw scores (N,) on real-valued features, summed over trees in
-        float64 on the host (gbdt_prediction.cpp PredictRaw)."""
+        """Raw scores (N, K) on real-valued features, tree t adding to
+        class t % K, summed in float64 on the host (gbdt_prediction.cpp
+        PredictRaw)."""
         self._materialize()
         features = np.ascontiguousarray(np.asarray(features,
                                                    dtype=np.float64))
-        out = np.zeros(features.shape[0], dtype=np.float64)
+        k = self.num_tree_per_iteration
+        out = np.zeros((features.shape[0], k), dtype=np.float64)
         for t in range(self._used_trees(num_iteration)):
-            out += self.models[t].predict(features)
+            out[:, t % k] += self.models[t].predict(features)
         return out
 
     def predict(self, features: np.ndarray, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:
+        """(N,) for one tree an iteration, else (N, K); converted by the
+        objective unless raw_score."""
         raw = self.predict_raw(features, num_iteration)
+        if raw.shape[1] == 1:
+            raw = raw[:, 0]
         if raw_score or self.objective is None:
             return raw
         return np.asarray(self.objective.convert_output(raw))
@@ -388,8 +586,6 @@ class GBDT:
         self.num_class = int(kv["num_class"])
         self.num_tree_per_iteration = int(kv.get("num_tree_per_iteration",
                                                  self.num_class))
-        if self.num_tree_per_iteration != 1:
-            Log.fatal("lightgbm_tpu_torch loads single-output models only")
         self.label_idx = int(kv["label_index"])
         self.max_feature_idx = int(kv["max_feature_idx"])
         self.boost_from_average_used = any(
@@ -411,7 +607,8 @@ class GBDT:
             block = "\n".join(body).strip()
             if block:
                 self._append_host_tree(Tree.from_string(block))
-        self.num_init_iteration = len(self.models)
+        self.num_init_iteration = (len(self.models)
+                                   // max(self.num_tree_per_iteration, 1))
         self.iter = 0
         return True
 

@@ -77,15 +77,17 @@ def wave_count(num_leaves: int, wave_width: int) -> int:
 
 def fused_supported(booster) -> tuple:
     """(ok, reason): can this booster's iteration be fused?  The JAX
-    package's rules: GBDT's own iteration and bagging, one tree an
-    iteration, a built-in objective, the serial learner (under wave or
-    exact growth)."""
+    package's rules, by the same hooks and with its reasons: GBDT's own
+    iteration (DART and InfiniteBoost override it) and its own bagging
+    (GOSS overrides ``_bagging_with_grad`` to rescale the gradients), one
+    tree an iteration, a built-in objective, the serial learner (under
+    wave or exact growth)."""
     from ..models.gbdt import GBDT
     from .learner import SerialTreeLearner
     if type(booster).train_one_iter is not GBDT.train_one_iter:
-        return False, "boosting mode overrides train_one_iter"
-    if type(booster)._bagging is not GBDT._bagging:
-        return False, "bagging overridden (gradient-rescaling bagging)"
+        return False, "boosting mode overrides train_one_iter (dart)"
+    if type(booster)._bagging_with_grad is not GBDT._bagging_with_grad:
+        return False, "gradient-rescaling bagging (goss)"
     if booster.num_tree_per_iteration != 1:
         return False, "num_tree_per_iteration > 1 (multiclass)"
     if booster.objective is None:

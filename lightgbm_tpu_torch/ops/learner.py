@@ -169,7 +169,6 @@ def check_engine_params(config: Config):
     sparse = resolve_sparse(config)
     checks = [
         ("tree_learner", ("serial",)),
-        ("boosting_type", ("gbdt",)),
         ("tpu_growth", ("auto", "wave", "exact")),
         ("tpu_histogram_mode", ("auto", "pallas", "pallas_ct", "pallas_t")),
         ("tpu_hist_precision", ("auto", "hilo")),
@@ -342,6 +341,14 @@ class SerialTreeLearner:
         mask = np.zeros(f, dtype=bool)
         mask[idx] = True
         return torch.as_tensor(mask, device=self.device)
+
+    def row_major_bins(self):
+        """The training bins as (N, G) rows for a traversal: the upload or
+        a transposed view of it; None on the sparse store, which keeps no
+        dense matrix."""
+        if self.sparse:
+            return None
+        return self.X if self.hist_mode == "pallas" else self.X.t()
 
     def _grow_kw(self) -> dict:
         return dict(num_leaves=self.num_leaves, num_bins=self.num_bins,

@@ -51,6 +51,30 @@ def traversal_from_grow(tree_arrays, num_leaves: int,
     )
 
 
+def traversal_from_host_tree(tree, device) -> TraversalArrays:
+    """Upload a models.Tree (with bin thresholds) for traversal on
+    ``device``; its leaf values rounded to f32."""
+    ni = max(tree.num_leaves - 1, 1)
+    nl = max(tree.num_leaves, 2)
+
+    def i32(a):
+        return torch.as_tensor(a[:ni].astype("int32"), device=device)
+
+    return TraversalArrays(
+        num_leaves=int(tree.num_leaves),
+        depth=int(tree.leaf_depth[:tree.num_leaves].max()),
+        split_feature=i32(tree.split_feature_inner),
+        threshold_bin=i32(tree.threshold_in_bin),
+        default_bin_for_zero=i32(tree.default_bin_for_zero),
+        default_bin=i32(tree.zero_bin),
+        is_cat=i32(tree.decision_type),
+        left_child=i32(tree.left_child),
+        right_child=i32(tree.right_child),
+        leaf_value=torch.as_tensor(tree.leaf_value[:nl], dtype=torch.float32,
+                                   device=device),
+    )
+
+
 def leaf_index_binned(tree: TraversalArrays, X, layout=None):
     """Per-row leaf index by iterative descent (Tree::GetLeaf on bins);
     zeros for single-leaf trees.  X: (N, G) binned rows; layout: the
@@ -86,14 +110,18 @@ def leaf_index_binned(tree: TraversalArrays, X, layout=None):
     return (~node).to(torch.int32)
 
 
-def add_tree_to_score(score, X, tree: TraversalArrays, scale, layout=None):
-    """score += clip(scale * leaf_value)[leaf(X)] —
-    Tree::AddPredictionToScore with the Shrinkage clamp."""
+def add_tree_to_score(score, X, tree: TraversalArrays, scale, layout=None,
+                      out=None):
+    """score + clip(scale * leaf_value)[leaf(X)] —
+    Tree::AddPredictionToScore with the Shrinkage clamp — written to out
+    (a new tensor when None; out may be score itself, updated in
+    place)."""
     if tree.num_leaves <= 1:
-        return score
+        return score if out is None else out.copy_(score)
     leaf = leaf_index_binned(tree, X, layout)
-    vals = clipped_leaf_values(tree.leaf_value, scale)
-    return score + vals[leaf.long()].to(score.dtype)
+    add = clipped_leaf_values(tree.leaf_value, scale)[leaf.long()].to(
+        score.dtype)
+    return torch.add(score, add, out=out) if out is not None else score + add
 
 
 # ----------------------------------------------------- score update (B2)

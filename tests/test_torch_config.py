@@ -35,7 +35,7 @@ def test_keys_aliases_and_values_match_the_jax_package():
     ("tpu_sparse", True, "tpu_sparse"),
     ("tpu_bin_pack", "true", "tpu_bin_pack"),
     ("tree_learner", "data", "tree_learner"),
-    ("boosting", "dart", "boosting_type"),
+    ("objective", "lambdarank", "objective=lambdarank"),
     ("metric", "ndcg", "metric=ndcg"),
 ])
 def test_engines_the_port_lacks_raise(knob, value, name):

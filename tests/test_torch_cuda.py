@@ -1081,3 +1081,123 @@ def test_boosters_give_their_device_memory_back(dev):
     base = train(2000, flows[0])
     after = [train(n, more) for n in (2000, 3000, 2000) for more in flows]
     assert after == [base] * len(after)
+
+
+def test_score_update_into_a_row_of_a_class_score(dev):
+    """B2 into row tid of a (K, N) score, in place, as a multiclass
+    iteration runs it: the row bit-equal to the plain version, the
+    other rows untouched."""
+    score, lid, lv, scale = score_case(50_001, 15)
+    rng = np.random.default_rng(2)
+    k_score = rng.normal(size=(3, len(score))).astype(np.float32)
+    k_score[1] = score
+    d = t(k_score).to(dev)
+    before = tp.score_update.launches
+    row = d[1]
+    out = tp.update_score_from_partition(row, t(lid).to(dev),
+                                         t(lv).to(dev), scale, out=row)
+    assert out.data_ptr() == d.data_ptr() + d.stride(0) * 4
+    assert tp.score_update.launches == before + 1
+    want = tp.score_update_plain(t(score), t(lid),
+                                 clipped_leaf_values(t(lv), float(scale)))
+    got = d.cpu()
+    assert torch.equal(got[1], want)
+    assert torch.equal(got[0], t(k_score[0]))
+    assert torch.equal(got[2], t(k_score[2]))
+
+
+MODES = [({"objective": "multiclass", "num_class": 3}, 3),
+         ({"objective": "multiclassova", "num_class": 3}, 3),
+         ({"objective": "binary", "boosting": "dart", "drop_rate": 0.5,
+           "skip_drop": 0.0}, 1),
+         ({"objective": "regression", "boosting": "infinite"}, 1)]
+
+
+@pytest.mark.parametrize("more,k", MODES)
+def test_boosting_modes_on_the_card_match_the_cpu(dev, more, k):
+    """Multiclass (K trees an iteration), DART and InfiniteBoost
+    train on the card through the kernels, staged (B3 once a tree, B1
+    once a wave, B2 once a tree into its class's row), and grow the CPU
+    plain versions' trees: the same partitions, predictions on the
+    training rows to rtol 1e-5."""
+    import lightgbm_tpu_torch as lgb
+
+    X, s = parity_data(3, 2000, False)
+    y = (np.digitize(s, [-0.6, 0.6]).astype(float) if k > 1
+         else labels(more["objective"], s))
+    p = dict({"num_leaves": 15, "min_data_in_leaf": 20, "max_bin": 63,
+              "verbose": -1, "tpu_growth": "wave", "tpu_wave_width": 4},
+             **more)
+    counters = (wk.wave_partition_hist, wk.wave_histogram, tp.score_update)
+    n0 = [c.launches for c in counters]
+    card = lgb.train(p, lgb.Dataset(X, label=y), 5, device="cuda")
+    b1, b3, b2 = (c.launches - a for c, a in zip(counters, n0))
+    assert card._gbdt._fused_state == (None,)
+    stats = card.grow_stats()
+    stub = 1 if card._gbdt.boost_from_average_used else 0
+    assert len(stats) == 5 * k == card.num_trees() - stub
+    assert (b1, b3, b2) == (sum(s.passes for s in stats), 5 * k, 5 * k)
+    cpu = lgb.train(p, lgb.Dataset(X, label=y), 5, device="cpu")
+
+    def partitions(s):
+        keys = ("split_feature", "left_child", "right_child", "leaf_count")
+        return [ln for ln in s.splitlines() if ln.startswith(keys)]
+
+    assert partitions(card.model_to_string()) == partitions(
+        cpu.model_to_string())
+    np.testing.assert_allclose(card.predict(X), cpu.predict(X), rtol=1e-5,
+                               atol=1e-7)
+
+
+def test_binary_fused_after_class_scores(dev):
+    """Scores are (K, N) now: the binary run still fuses under auto, its
+    graphs hold row 0 of the (1, N) score (the tensor's own storage),
+    replays happen, and the fused model text is the staged one."""
+    fused, staged, X = _fused_pair("pallas_ct", rounds=4)
+    it = fused._gbdt._fused_state[0]
+    score = fused._gbdt._score_dev
+    assert score.shape == (1, len(X))
+    assert it._score_key[0] == score[0].data_ptr() == score.data_ptr()
+    assert it.replays > 0
+    assert fused.model_to_string() == staged.model_to_string()
+
+
+def test_goss_on_the_card_matches_the_cpu_through_the_first_sample(dev):
+    """GOSS (learning_rate 0.5: sampling from iteration 2) on the card,
+    staged: the trees before sampling and the first sampled tree are the
+    CPU's (the partitions of the rows they weigh), the first sample keeps
+    the same rows with the same multipliers, and the kept rows predict
+    the same after it.  Later iterations may part: a bin that holds only
+    left-out rows (weight 0) is empty to the split search, either
+    threshold of the gap may win on rounding, and a left-out row may land
+    in another leaf (chip_smoke.py goss_matches_cpu, ROADMAP C)."""
+    import lightgbm_tpu_torch as lgb
+
+    X, s = parity_data(3, 2000, False)
+    y = labels("binary", s)
+    p = {"objective": "binary", "boosting": "goss", "learning_rate": 0.5,
+         "num_leaves": 15, "min_data_in_leaf": 20, "max_bin": 63,
+         "verbose": -1, "tpu_growth": "wave", "tpu_wave_width": 4}
+    keys = ("split_feature", "left_child", "right_child", "leaf_count")
+    runs = []
+    for device in ("cuda", "cpu"):
+        mults = []
+
+        def keep(env):
+            m = env.model._gbdt.row_mult
+            mults.append(None if m is None else m.cpu().numpy())
+        b = lgb.train(p, lgb.Dataset(X, label=y), 4, device=device,
+                      callbacks=[keep])
+        trees = [[ln for ln in blk.splitlines() if ln.startswith(keys)]
+                 for blk in b.model_to_string().split("Tree=")[1:]]
+        runs.append((b, mults, trees))
+    (card, mc, tc), (cpu, mp, tp_) = runs
+    assert card._gbdt._fused_state == (None,)
+    assert mc[0] is mc[1] is mp[0] is mp[1] is None
+    np.testing.assert_array_equal(mc[2], mp[2])
+    assert 0 < mc[2].sum() < len(X)
+    assert tc[:3] == tp_[:3]
+    kept = mc[2] > 0
+    np.testing.assert_allclose(card.predict(X[kept], num_iteration=3),
+                               cpu.predict(X[kept], num_iteration=3),
+                               rtol=1e-5)

@@ -443,11 +443,11 @@ def test_fused_exact_order_trains_the_staged_model_text(mode):
 
 
 class _RescalingBagging(GBDT):
-    """A boosting mode with its own bagging, which the fused iteration
-    does not run."""
+    """A boosting mode with its own gradient bagging (GOSS's hook), which
+    the fused iteration does not run."""
 
-    def _bagging(self, it):
-        GBDT._bagging(self, it)
+    def _bagging_with_grad(self, it, grad, hess):
+        return GBDT._bagging_with_grad(self, it, grad, hess)
 
 
 def test_ineligible_config_warns_under_on_and_stays_staged(capsys):
@@ -459,7 +459,7 @@ def test_ineligible_config_warns_under_on_and_stays_staged(capsys):
                           lgb.Dataset(X, label=y), device="cpu")
     booster._gbdt.__class__ = _RescalingBagging
     assert fi.fused_supported(booster._gbdt) == (
-        False, "bagging overridden (gradient-rescaling bagging)")
+        False, "gradient-rescaling bagging (goss)")
     capsys.readouterr()
     for _ in range(3):
         booster.update()
