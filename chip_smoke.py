@@ -12,7 +12,8 @@ trains the flagship binary recipe (under wave growth, under wave growth
 through the plain partition and B3, under exact growth and under wave
 growth on the row-major bins; with DART, GOSS and InfiniteBoost),
 softmax over 7 classes on the flagship features, early stopping, and
-the Bosch-shaped sparse recipe through ``lightgbm_tpu_torch.train``
+the Bosch-shaped sparse recipe through ``lightgbm_tpu_torch.train``,
+then predicts in bulk and serves requests through ``Booster.serve``,
 and checks what comes out.
 Any failed check ends the run with a non-zero exit code and no result
 line.  Without a CUDA device it exits non-zero at once.
@@ -100,9 +101,26 @@ Phases, in order:
     the byte, device valid scores equal to the host trees, a model text
     round trip, and a small sparse run on the card that grows the CPU's
     trees and the dense path's trees.
+ 7. Prediction and serving at bench_serve.py's full shape (200,000 rows
+    x 28 features, binary, 255 leaves, max_bin 63, 100 rounds, trained
+    fused): bulk prediction of 2,000,000 fresh rows under
+    tpu_predict=auto through the ranked traversal on the card, a
+    200,000-row slice held against the host trees (raw within rtol and
+    atol 2e-6, leaf indices equal); the model text loaded with
+    device="cuda" giving the same raw scores to the bit; then
+    booster.serve(max_batch=4096, max_delay_ms=2.0) with the bucket
+    ladder 64..4096 captured as CUDA graphs (raw and converted) and
+    bench_serve.py's closed loop (8 threads, 5,000 requests): no capture
+    after warm-up, no shed, every request on the device route, every
+    response equal to its rows served alone and within 2e-6 of the host
+    trees, and the es and contrib routes equal to Booster.predict.  It
+    prints rows a second of both bulk paths with the encode and device
+    split, p50/p99 latency, requests and rows a second, batches, pad
+    rows and the graphs' memory.
  With --profile, every training run of phases 4 and 5 and the
  multiclass run profile one more iteration: its wall time, device busy
- share, device operations and graph replays.
+ share, device operations and graph replays; phase 7 profiles one
+ replay of the 4096-row serving graph.
  6. One JSON line of kernels, the card line, and the result line.
 """
 import argparse
@@ -126,6 +144,15 @@ SPARSE_COLS = 968             # Bosch's width (BASELINE.md)
 SPARSE_DENSITY = 0.01
 # (whole-call, steady) it/s of each dense training run, by its label
 RATES = {}
+# phase 7: bench_serve.py's full shape (:41-51, :168-170, :224-228)
+SERVE_ROWS = 200_000
+SERVE_ROUNDS = 100
+SERVE_LEAVES = 255
+BULK_ROWS = 2_000_000
+SERVE_REQUESTS = 5000
+SERVE_THREADS = 8
+SERVE_SIZES = (1, 8, 32, 100, 256, 512, 1024)
+SERVE_MAX_BATCH = 4096
 
 
 def flagship_params():
@@ -831,7 +858,7 @@ def sparse_phase(args, lgb, sm, kernels, card):
     booster, launches = runs.pop("sparse")
     del runs
     raw_dev = booster._gbdt.valid_score_host(0)[0]
-    raw_host = booster.predict(Xsv, raw_score=True)
+    raw_host = host_raw(booster, Xsv)
     need(raw_host.shape == (Xsv.shape[0],) and np.isfinite(raw_host).all(),
          "sparse valid predictions not finite or of the wrong shape")
     need(np.allclose(raw_dev, raw_host, rtol=1e-5, atol=1e-5),
@@ -1326,12 +1353,23 @@ def mode_phase(label, params, iters, data, lgb, kernels, card, metric,
     return booster, launches, stats, values
 
 
+def host_raw(booster, X):
+    """Raw predictions of the host trees in float64 (tpu_predict=false):
+    (N,) for one tree an iteration, else (N, K)."""
+    cfg = booster._gbdt.config
+    mode, cfg.tpu_predict = cfg.tpu_predict, "false"
+    try:
+        return booster.predict(X, raw_score=True)
+    finally:
+        cfg.tpu_predict = mode
+
+
 def check_scores_follow_trees(label, booster, Xt_raw, Xv, k=1):
     """The device valid scores and the train scores (B2's) equal the
     host trees' raw predictions, (N,) or (N, k), finite (rtol and atol
     1e-5; the first 200,000 train rows)."""
     raw_dev = booster._gbdt.valid_score_host(0)
-    raw_host = booster.predict(Xv, raw_score=True)
+    raw_host = host_raw(booster, Xv)
     need(raw_host.shape == ((len(Xv), k) if k > 1 else (len(Xv),))
          and np.isfinite(raw_host).all(),
          "%s: valid predictions not finite or of the wrong shape" % label)
@@ -1341,8 +1379,8 @@ def check_scores_follow_trees(label, booster, Xt_raw, Xv, k=1):
          % (label, np.abs(raw_dev.T - raw_host).max()))
     m = min(len(Xt_raw), 200_000)
     train_dev = booster._gbdt.train_score[:, :m].T
-    need(np.allclose(train_dev, booster.predict(
-        Xt_raw[:m], raw_score=True).reshape(m, k), rtol=1e-5, atol=1e-5),
+    need(np.allclose(train_dev, host_raw(booster, Xt_raw[:m]).reshape(m, k),
+                     rtol=1e-5, atol=1e-5),
          "%s: device train scores differ from host trees" % label)
 
 
@@ -1475,6 +1513,302 @@ def early_stopping_phase(lgb, card):
     say("early stopping checks: stopped before 200 on binary_logloss with "
         "every tree kept; predict at best_iteration equals a fresh "
         "%d-round run" % best)
+
+
+def make_serve_data(rows, fresh):
+    """bench_serve.py build_model's recipe (:41-51): default_rng(11), 28
+    normal features drawn as float32, w normal, y = (X @ w > 0); then
+    ``fresh`` more rows of the same recipe from the same generator."""
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(rows, 28)).astype(np.float32)
+    w = rng.normal(size=28)
+    y = (X @ w > 0).astype(np.float64)
+    Xf = rng.normal(size=(fresh, 28)).astype(np.float32)
+    return np.asarray(X, np.float64), y, np.asarray(Xf, np.float64)
+
+
+def run_load(sp, X, requests, threads, sizes, seed=5):
+    """bench_serve.py run_load's closed loop: each thread submits
+    ``requests // threads`` blocks of a size drawn from ``sizes`` at a
+    random offset and waits for each.  Returns (latencies, wall_s, rows,
+    [(lo, n, response)])."""
+    import threading
+    lat = [[] for _ in range(threads)]
+    got = [[] for _ in range(threads)]
+    per = max(requests // threads, 1)
+
+    def worker(i):
+        rng = np.random.default_rng(seed + i)
+        for _ in range(per):
+            n = int(rng.choice(sizes))
+            lo = int(rng.integers(0, max(X.shape[0] - n, 1)))
+            t0 = time.perf_counter()
+            out = sp.submit(X[lo:lo + n]).result()
+            lat[i].append(time.perf_counter() - t0)
+            got[i].append((lo, n, out))
+
+    ts = [threading.Thread(target=worker, args=(i,)) for i in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    wall = time.perf_counter() - t0
+    done = [r for g in got for r in g]
+    return (np.concatenate([np.asarray(x) for x in lat]), wall,
+            sum(n for _, n, _ in done), done)
+
+
+def profile_replay(sp, X, card):
+    """One replay of the top bucket's converted graph under
+    torch.profiler: wall time, busy share and device operations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cache = sp.cache
+    bucket = cache.max_batch
+    V, D = cache.encode(cache.normalize(X[:bucket]))
+    spans = {}
+    cache.run_encoded(V, D, bucket, True, spans)          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cache.run_encoded(V, D, bucket, True, spans)
+        wall = time.perf_counter() - t0
+    busy, ops, rows = 0.0, 0, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        busy += us / 1e6
+        ops += e.count
+        rows.append((us, e.count, e.key))
+    rows.sort(reverse=True)
+    say("profile of one %d-row serving replay (copy in, graph, copy out) "
+        "on %s: wall %.6f s, device busy %.6f s (%.1f%%, idle %.1f%%), %d "
+        "device operations" % (bucket, card, wall, busy, 100 * busy / wall,
+                               100 - 100 * busy / wall, ops))
+    for us, count, key in rows[:8]:
+        say("  %9.3f ms %6d  %s" % (us / 1e3, count, key[:100]))
+
+
+def serve_phase(args, lgb, card, dev):
+    """Phase 7: prediction and serving at bench_serve.py's full shape:
+    200,000 rows x 28 features, binary, 255 leaves, max_bin 63, 100
+    rounds, trained fused on the card.  7a bulk prediction of 2,000,000
+    fresh rows under tpu_predict=auto (the device path), a 200,000-row
+    slice held against the host trees (raw within rtol 2e-6 and atol
+    2e-6; leaf indices of the ranked traversal equal to
+    Tree.predict_leaf_index); 7b the model text loaded with
+    device="cuda" predicts the same raw scores to the bit; 7c
+    booster.serve(max_batch=4096, max_delay_ms=2.0), the bucket ladder
+    64..4096 captured raw and converted, then bench_serve.py's closed
+    loop (8 threads, 5,000 requests of {1, 8, 32, 100, 256, 512, 1024}
+    rows, seed 5) over the 200,000 rows of 7a: no steady-state capture,
+    no shed, every request on the device route, every response equal to
+    the same rows served alone and within 2e-6 of the host trees; one
+    request each on the es and contrib routes equal to Booster.predict.
+    The model's 200,000 training rows are binned as bench_serve.py bins
+    them (the port's host binning: most of the phase's set-up)."""
+    import gc
+    import torch
+    from lightgbm_tpu_torch.ops import predict as tp
+    t_phase = time.perf_counter()
+    X, y, Xb = make_serve_data(SERVE_ROWS, BULK_ROWS)
+    params = {"objective": "binary", "num_leaves": SERVE_LEAVES,
+              "max_bin": 63, "verbose": -1}
+    stamps = []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    booster = lgb.train(params, lgb.Dataset(X, label=y), SERVE_ROUNDS,
+                        device=dev, callbacks=[stamp])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    need(fused_of(booster) is not None, "serve model: did not train fused")
+    gbdt = booster._gbdt
+    gbdt._materialize()
+    depths = [t.depth() for t in gbdt.models]
+    say("serve model on %s: %d trees trained fused in %.3f s including "
+        "binning and set-up, steady %.4f it/s over iterations 2-%d (%d "
+        "rows, %d leaves max, depth %d max, %.2f mean)"
+        % (card, len(gbdt.models), t_train,
+           (len(stamps) - 1) / (stamps[-1] - stamps[0]), SERVE_ROUNDS,
+           SERVE_ROWS, max(t.num_leaves for t in gbdt.models), max(depths),
+           float(np.mean(depths))))
+
+    # ---- 7a. bulk prediction on the device (tpu_predict=auto)
+    walks = [0]
+    real_walk = tp.ranked_predict
+
+    def counted(*a, **k):
+        walks[0] += 1
+        return real_walk(*a, **k)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    tp.ranked_predict = counted
+    try:
+        t0 = time.perf_counter()
+        raw_dev = booster.predict(Xb, raw_score=True)
+        dev_s = time.perf_counter() - t0
+    finally:
+        tp.ranked_predict = real_walk
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    k_rows = gbdt._predict_chunk_rows(Xb.shape[1], min(len(gbdt.models),
+                                                        gbdt._TREE_BLOCK))
+    chunks = -(-BULK_ROWS // k_rows)
+    need(walks[0] == chunks and raw_dev.shape == (BULK_ROWS,)
+         and np.isfinite(raw_dev).all(),
+         "7a: the device path did not run (%d traversals) or its output "
+         "is not finite" % walks[0])
+    # the split: the host encoding of the first chunk, and the traversal
+    # alone on that chunk's encoded rows already on the card (CUDA events)
+    rp = tp.build_ranked_predictor(gbdt.models, 1, Xb.shape[1], dev)
+    t0 = time.perf_counter()
+    V, D = tp.rank_encode(rp, Xb[:k_rows])
+    enc_s = time.perf_counter() - t0
+    Vd, Dd = torch.as_tensor(V, device=dev), torch.as_tensor(D, device=dev)
+    walk_ms = time_ms(lambda: tp.ranked_predict(rp.dev, Vd, Dd,
+                                                gbdt._TREE_BLOCK),
+                      reps=2, groups=3, warmup=1)
+    del Vd, Dd
+    # the host trees: Booster.predict under tpu_predict=false times the
+    # host path on 20,000 rows; on the 200,000-row slice its f64 sum is
+    # taken, in the same tree order, from the host leaf indices that the
+    # device's are held against
+    t0 = time.perf_counter()
+    host_raw(booster, Xb[:20_000])
+    host_s = time.perf_counter() - t0
+    sl = slice(0, SERVE_ROWS)
+    host_leaves = booster.predict(Xb[sl], pred_leaf=True)
+    raw_host = np.zeros(SERVE_ROWS)
+    for t, tree in enumerate(gbdt.models):
+        if tree.num_leaves > 1:
+            raw_host += tree.leaf_value[host_leaves[:, t]]
+    need(np.array_equal(raw_host[:20_000], host_raw(booster, Xb[:20_000])),
+         "7a: the f64 sum of the host leaves is not tpu_predict=false's")
+    err = np.abs(raw_dev[sl] - raw_host)
+    need(np.all(err <= 2e-6 + 2e-6 * np.abs(raw_host)),
+         "7a: device raw scores differ from the host trees (max %g)"
+         % err.max())
+    V, D = tp.rank_encode(rp, Xb[sl])
+    leaves = tp.ranked_leaf_indices(rp.dev, torch.as_tensor(V, device=dev),
+                                    torch.as_tensor(D, device=dev)).cpu()
+    need(np.array_equal(leaves.numpy(), host_leaves),
+         "7a: device leaf indices differ from Tree.predict_leaf_index")
+    say("7a bulk predict on %s: %d rows on the device path in %.3f s (%.0f "
+        "rows/s; %d chunks of %d rows, peak device memory %.4f GB above "
+        "the model); a chunk's host encode %.3f s and its traversal on "
+        "the card %.3f ms (so %.3f s of encode and %.3f s of device time "
+        "for all rows); host trees (tpu_predict=false) %.0f rows/s on "
+        "20,000 rows; against them on %d rows: raw max abs err %.3g, leaf "
+        "indices of %d x %d equal"
+        % (card, BULK_ROWS, dev_s, BULK_ROWS / dev_s, chunks, k_rows,
+           peak / 1e9, enc_s, walk_ms, enc_s * BULK_ROWS / k_rows,
+           walk_ms / 1e3 * BULK_ROWS / k_rows, 20_000 / host_s, SERVE_ROWS,
+           err.max(), SERVE_ROWS, len(gbdt.models)))
+
+    # ---- 7b. the model text, loaded on the card
+    loaded = lgb.Booster(model_str=booster.model_to_string(), device=dev)
+    need(loaded.device.type == dev.type, "7b: loaded booster not on the card")
+    t0 = time.perf_counter()
+    raw_loaded = loaded.predict(Xb, raw_score=True)
+    load_s = time.perf_counter() - t0
+    need(np.array_equal(raw_loaded, raw_dev),
+         "7b: the loaded model's device scores differ from the trained "
+         "booster's")
+    say("7b loaded from model text on %s: %d rows in %.3f s, raw scores "
+        "equal to the trained booster's device path to the bit"
+        % (loaded.device, BULK_ROWS, load_s))
+    del loaded, raw_loaded, raw_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 7c. serving, on the 200,000 fresh rows 7a held against the host
+    # trees (bench_serve.py serves its training rows; these are rows of
+    # the same recipe whose host scores are already known)
+    X = Xb[sl]
+    conv_host = gbdt.objective.convert_output(raw_host)
+    sp = booster.serve(max_batch=SERVE_MAX_BATCH, max_delay_ms=2.0)
+    try:
+        ladder = [1 << b for b in range(6, 13)]           # 64 .. 4096
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        sp.cache.warmup(ladder, convert=False)
+        need(sp.warmup(ladder) == ladder, "7c: warm-up ladder")
+        torch.cuda.synchronize()
+        cap_s = time.perf_counter() - t0
+        graphs = torch.cuda.memory_reserved() - held
+        static = sum(2 * b * (28 * 5 + 4) for b in ladder)
+        st = sp.stats()["executables"]
+        need(st["graphs"] == st["compiles"] == 2 * len(ladder),
+             "7c: expected %d captured graphs, got %s"
+             % (2 * len(ladder), st))
+        say("7c serve warm-up on %s: %d graphs (buckets %s, raw and "
+            "converted) captured in %.3f s; device memory %.4f GB reserved "
+            "by them (their inputs and outputs %.4f GB, the rest their "
+            "shared pool)" % (card, st["graphs"], ladder, cap_s,
+                              graphs / 1e9, static / 1e9))
+        lat, wall, rows, done = run_load(sp, X, SERVE_REQUESTS,
+                                         SERVE_THREADS, SERVE_SIZES)
+        st = sp.stats()
+        p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+        say("7c serving on %s: %d requests (%d rows) from %d threads in "
+            "%.3f s: p50 %.6f s, p99 %.6f s, %.1f requests/s, %.0f rows/s; "
+            "%d batches, %d pad rows, %d shed, steady-state captures %d"
+            % (card, len(lat), rows, SERVE_THREADS, wall, p50, p99,
+               len(lat) / wall, rows / wall, st["batches"], st["pad_rows"],
+               st["shed_total"], st["executables"]["steady_state_compiles"]))
+        need(st["executables"]["steady_state_compiles"] == 0,
+             "7c: a graph was captured after warm-up")
+        need(st["shed_total"] == 0, "7c: requests were shed")
+        need(st["routes"] == {"dev": SERVE_REQUESTS}
+             and len(done) == SERVE_REQUESTS,
+             "7c: routes %s, %d responses" % (st["routes"], len(done)))
+        worst = 0.0
+        t0 = time.perf_counter()
+        for lo, n, out in done:
+            need(out.shape == (n,) and np.array_equal(
+                sp.predict(X[lo:lo + n]), out),
+                "7c: a response differs from the same rows served alone")
+            worst = max(worst, float(np.abs(out - conv_host[lo:lo + n]).max()))
+        solo_s = time.perf_counter() - t0
+        need(worst <= 2e-6, "7c: responses differ from the host trees by "
+             "%g" % worst)
+        es_kw = {"pred_early_stop": True, "pred_early_stop_freq": 5,
+                 "pred_early_stop_margin": 4.0}
+        need(np.array_equal(sp.predict(X[:300], **es_kw),
+                            booster.predict(X[:300], **es_kw)),
+             "7c: the es route differs from Booster.predict")
+        need(np.array_equal(sp.predict(X[:300], pred_contrib=True),
+                            booster.predict(X[:300], pred_contrib=True)),
+             "7c: the contrib route differs from Booster.predict")
+        st = sp.stats()
+        need(st["routes"] == {"dev": 2 * SERVE_REQUESTS, "es": 1,
+                              "contrib": 1}
+             and st["executables"]["steady_state_compiles"] == 0,
+             "7c: routes after the solo checks %s" % st["routes"])
+        say("7c checks: every response equal to its rows served alone "
+            "(%d solo requests in %.3f s), max %.3g from the host trees; es "
+            "and contrib routes equal to Booster.predict; no capture after "
+            "warm-up" % (len(done), solo_s, worst))
+        if args.profile:
+            profile_replay(sp, X, card)
+    finally:
+        sp.close()
+    say("phase 7 (prediction and serving): %.1f s"
+        % (time.perf_counter() - t_phase))
 
 
 def main():
@@ -1736,6 +2070,9 @@ def main():
     # ---- 5. the sparse path: B6 at the Bosch store, then training
     records["sparse_wave_histogram"], sparse_launches = sparse_phase(
         args, lgb, sm, kernels, card)
+
+    # ---- 7. prediction and serving at bench_serve.py's full shape
+    serve_phase(args, lgb, card, dev)
 
     # ---- 6. result lines: each kernel's launches from its own path's run
     # (B3's from the main path; on the pallas_t run it launched as said)

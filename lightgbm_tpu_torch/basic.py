@@ -3,11 +3,15 @@ surface for in-memory matrices, dense or scipy sparse.
 
 Semantics kept: lazy Dataset construction, validation sets binned with the
 training set's mappers, the parameter dict with its aliases, training,
-evaluation, prediction (raw or converted) and the text model round trip.
-A Booster trains on ``device`` ("cuda" unless the caller asks for "cpu").
+evaluation, prediction (raw, converted, leaf indices, contributions,
+prediction early stopping), serving (``Booster.serve``) and the text model
+round trip.  A Booster, trained or loaded from model text, lives on
+``device`` ("cuda" unless the caller asks for "cpu"); bulk prediction and
+serving run the ranked traversal there.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -20,6 +24,7 @@ from .metrics import create_metric
 from .models.factory import create_boosting
 from .models.gbdt import GBDT
 from .objectives import create_objective
+from .obs.metrics import observe_predict
 from .utils.config import Config
 from .utils.log import LightGBMError
 
@@ -119,7 +124,11 @@ class Dataset:
 
 
 class Booster:
-    """Training-capable model wrapper (python-package basic.py:1171)."""
+    """Training-capable model wrapper (python-package basic.py:1171).
+
+    Built from ``train_set`` (training on ``device``) or from model text
+    (``model_file`` or ``model_str``), which then predicts and serves on
+    ``device``: "cuda" by default, raising without a card, or "cpu"."""
 
     def __init__(self, params: Optional[dict] = None,
                  train_set: Optional[Dataset] = None,
@@ -150,10 +159,9 @@ class Booster:
             if model_file is not None:
                 with open(model_file) as f:
                     model_str = f.read()
-            # a loaded model predicts on the host (float64 trees)
-            self.device = None
+            self.device = resolve_device(device)
             self._cfg = Config(self.params)
-            self._gbdt = GBDT(self._cfg, None)
+            self._gbdt = GBDT(self._cfg, self.device)
             self._gbdt.load_model_from_string(model_str)
         else:
             raise TypeError("Need at least one training dataset or model "
@@ -256,23 +264,109 @@ class Booster:
                 zip(g.eval_names(data_idx), g.get_eval_at(data_idx), higher)]
 
     # -------------------------------------------------------------- predict
-    def predict(self, data, num_iteration: int = -1,
-                raw_score: bool = False) -> np.ndarray:
-        """Predict rows of a dense or scipy sparse matrix (float64 trees on
-        the host): (N,) for one tree an iteration, (N, K) for K.  Sparse
-        input is densified a bounded row chunk at a time.
-        num_iteration <= 0 uses every tree (not best_iteration, as in the
-        JAX package)."""
+    def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                data_has_header: bool = False, is_reshape: bool = True,
+                pred_early_stop: bool = False,
+                pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0):
+        """Predict rows of a dense or scipy sparse matrix: (N,) for one
+        tree an iteration, (N, K) for K.  Sparse input is densified a
+        bounded row chunk at a time.  num_iteration <= 0 uses every tree
+        (not best_iteration, as in the JAX package).
+
+        Raw and converted scores go through the ranked traversal on the
+        booster's device where ``tpu_predict`` says so (true; auto: on
+        the card from 100,000 rows), else through the float64 host
+        trees.  ``pred_leaf``: (N, trees) leaf indices;
+        ``pred_contrib``: (N, num_features + 1) gain-weighted
+        contributions, the last column the bias, rows summing to the raw
+        score (GBDT.pred_contrib); ``pred_early_stop``: the margin-based
+        early stop of predictor.py.  Each call's rows and seconds land
+        in the metrics registry (obs/metrics.py observe_predict)."""
         if isinstance(data, Dataset):
             raise TypeError("Cannot use Dataset instance for prediction, "
                             "please use raw data instead")
+        t0 = time.perf_counter()
+        out, rows = self._predict_data(data, num_iteration, raw_score,
+                                       pred_leaf, pred_contrib,
+                                       pred_early_stop, pred_early_stop_freq,
+                                       pred_early_stop_margin)
+        observe_predict(rows, time.perf_counter() - t0)
+        return out
+
+    def _predict_data(self, data, num_iteration, raw_score, pred_leaf,
+                      pred_contrib, pred_early_stop=False,
+                      pred_early_stop_freq=10, pred_early_stop_margin=10.0):
+        """-> (predictions, input row count)."""
+        early_predictor = None
+        if pred_early_stop and not (pred_leaf or pred_contrib):
+            from .predictor import Predictor
+            early_predictor = Predictor(
+                self._gbdt, num_iteration=num_iteration,
+                raw_score=raw_score, early_stop=True,
+                early_stop_freq=pred_early_stop_freq,
+                early_stop_margin=pred_early_stop_margin)
+
+        def run(block):
+            if early_predictor is not None:
+                return early_predictor._predict_impl(block)
+            if pred_contrib:
+                return self._gbdt.pred_contrib(block,
+                                               num_iteration=num_iteration)
+            return self._gbdt.predict(block, num_iteration=num_iteration,
+                                      raw_score=raw_score,
+                                      pred_leaf=pred_leaf)
+
         mat = _matrix(data)
         if isinstance(mat, SparseColumns):
-            outs = [self._gbdt.predict(block, num_iteration, raw_score)
-                    for _, block in iter_dense_row_chunks(mat)]
-            return (np.concatenate(outs) if outs
-                    else np.zeros(0, dtype=np.float64))
-        return self._gbdt.predict(mat, num_iteration, raw_score)
+            outs = [run(block) for _, block in iter_dense_row_chunks(mat)]
+            return ((np.concatenate(outs) if outs
+                     else np.zeros(0, dtype=np.float64)), mat.num_row)
+        if mat.ndim == 1:
+            mat = mat.reshape(1, -1)
+        return run(mat), mat.shape[0]
+
+    def serve(self, num_iteration: int = -1, **overrides):
+        """A ``ServingPredictor`` for this model (serve/scheduler.py):
+        concurrent callers ``submit()`` feature rows and get futures;
+        requests coalesce into padded power-of-two buckets, each a CUDA
+        graph on the card, with ``pred_early_stop`` and ``pred_contrib``
+        served from the same queue.  Configured from the ``serve_*``
+        parameters; keyword ``overrides`` take precedence (``max_batch``,
+        ``max_delay_ms``, ``bucket_min``, ``donate``,
+        ``batch_event_every``, ``queue_limit``, ``request_deadline_ms``,
+        ``request_event_every``, ``slo_p99_ms``, ``slo_qps``,
+        ``slo_window_s``, ``slo_every_s``, ``slo_mode``,
+        ``num_features``, ``devices``).  Close it, or use it as a context
+        manager, to flush the queue and stop the worker thread.  Drift
+        monitoring (``obs_drift_every``) and the live telemetry plane
+        (``obs_http_port``) are not in the port yet and raise."""
+        from .serve import ServingPredictor
+        cfg = self._cfg
+        if int(cfg.obs_http_port) >= 0:
+            raise LightGBMError("obs_http_port: the live telemetry plane "
+                                "is not in lightgbm_tpu_torch yet")
+        kw = {"max_batch": cfg.serve_max_batch,
+              "max_delay_ms": cfg.serve_max_delay_ms,
+              "bucket_min": cfg.serve_bucket_min,
+              "donate": cfg.serve_donate,
+              "batch_event_every": cfg.serve_batch_event_every,
+              "queue_limit": cfg.serve_queue_limit,
+              "request_deadline_ms": cfg.serve_request_deadline_ms,
+              "request_event_every": cfg.serve_request_event_every,
+              "slo_p99_ms": cfg.serve_slo_p99_ms,
+              "slo_qps": cfg.serve_slo_qps,
+              "slo_window_s": cfg.serve_slo_window_s,
+              "slo_every_s": cfg.serve_slo_every_s,
+              # burn-rate alerts follow the health channel's consequence
+              # mode; obs_health=off still warns
+              "slo_mode": (cfg.obs_health if cfg.obs_health != "off"
+                           else "warn"),
+              "drift_every": cfg.obs_drift_every}
+        kw.update(overrides)
+        return ServingPredictor(self._gbdt, num_iteration=num_iteration,
+                                **kw)
 
     # ------------------------------------------------------------- model io
     def model_to_string(self, num_iteration: int = -1) -> str:

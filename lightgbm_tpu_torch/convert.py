@@ -38,7 +38,7 @@ def tree_arrays_from_numpy(d, device="cuda") -> TreeArrays:
     return TreeArrays(**out)
 
 
-def booster_from_model_string(s: str) -> Booster:
-    """A Booster from model text written by either package (it predicts
-    on the host in float64, as the JAX package's host path does)."""
-    return Booster(model_str=s)
+def booster_from_model_string(s: str, device="cuda") -> Booster:
+    """A Booster on ``device`` from model text written by either
+    package."""
+    return Booster(model_str=s, device=device)

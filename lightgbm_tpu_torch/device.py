@@ -7,9 +7,19 @@ the tests want and what a user asking for the GPU does not.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from .utils.log import LightGBMError
+
+# One CUDA graph capture at a time in the process.  A capture fails
+# when any thread synchronizes the whole device while it runs (CUDA's
+# rule), and torch.cuda.graph synchronizes the device before it
+# captures, so the port's captures (ops/fused_iter.py, serve/executable.py)
+# take this lock; between captures each thread synchronizes only its own
+# streams and events.
+CAPTURE_LOCK = threading.Lock()
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -518,30 +518,178 @@ class GBDT:
             num_used = min(ni * self.num_tree_per_iteration, len(self.models))
         return num_used
 
-    def predict_raw(self, features: np.ndarray,
-                    num_iteration: int = -1) -> np.ndarray:
+    def predict_raw(self, features: np.ndarray, num_iteration: int = -1,
+                    allow_device: bool = True) -> np.ndarray:
         """Raw scores (N, K) on real-valued features, tree t adding to
-        class t % K, summed in float64 on the host (gbdt_prediction.cpp
-        PredictRaw)."""
+        class t % K (gbdt_prediction.cpp PredictRaw): through the ranked
+        traversal on the booster's device where ``tpu_predict`` says so
+        (_device_bulk_predict), else summed in float64 on the host.
+        allow_device=False pins the exact f64 host path."""
         self._materialize()
         features = np.ascontiguousarray(np.asarray(features,
                                                    dtype=np.float64))
         k = self.num_tree_per_iteration
+        num_used = self._used_trees(num_iteration)
+        if allow_device:
+            dev = self._device_bulk_predict(features, num_used, k)
+            if dev is not None:
+                return dev
         out = np.zeros((features.shape[0], k), dtype=np.float64)
-        for t in range(self._used_trees(num_iteration)):
+        for t in range(num_used):
             out[:, t % k] += self.models[t].predict(features)
         return out
 
+    # ------------------------------------------------- device bulk predict
+    _DEVICE_PREDICT_MIN_ROWS = 100_000
+    # trees a traversal block descends together: the (rows, trees) state
+    # is counted into the chunk budget (_predict_chunk_rows)
+    _TREE_BLOCK = 32
+
+    @staticmethod
+    def _predict_chunk_rows(n_features: int, tree_block: int) -> int:
+        """Rows per device-predict chunk: V (i32) and D (bool) cost 5
+        bytes a feature a row, the traversal's state
+        STATE_BYTES_PER_TREE a tree of the block a row.  The one-deep
+        pipeline keeps two chunks' inputs resident, so a chunk gets
+        1.5 GB."""
+        bytes_per_row = (max(n_features, 1) * 5
+                         + dev_predict.STATE_BYTES_PER_TREE
+                         * max(tree_block, 1))
+        return min(4_000_000, max(65_536, 1_500_000_000 // bytes_per_row))
+
+    def _device_bulk_predict(self, features, num_used, k):
+        """Rank-encoded bulk prediction on the booster's device
+        (ops/predict.py): f64-exact routing as int compares, Kahan f32
+        accumulation.  None when the host path runs instead:
+        tpu_predict=false; under auto, a booster off the card or fewer
+        than _DEVICE_PREDICT_MIN_ROWS rows; a model whose features mix
+        categorical and numerical decisions (with a warning); or fewer
+        columns than the model uses."""
+        from ..utils.config import _FALSE_SET, _TRUE_SET
+        cfg = str(getattr(self.config, "tpu_predict", "auto")).strip().lower()
+        if cfg in _FALSE_SET:
+            return None
+        device = self.device
+        if cfg not in _TRUE_SET:       # auto
+            if (device.type != "cuda"
+                    or features.shape[0] < self._DEVICE_PREDICT_MIN_ROWS):
+                return None
+        key = (num_used, k, len(self.models), self.iter,
+               features.shape[1])
+        if getattr(self, "_ranked_pred_key", None) != key:
+            try:
+                self._ranked_pred = dev_predict.build_ranked_predictor(
+                    self.models[:num_used], k, features.shape[1], device)
+            except ValueError as e:    # mixed cat/num feature use
+                Log.warning("device bulk predict unavailable (%s); "
+                            "using the host predictor", e)
+                self._ranked_pred = None
+            self._ranked_pred_key = key
+        rp = self._ranked_pred
+        if rp is None:
+            return None
+        if features.shape[1] < rp.max_feature + 1:
+            return None                # fewer columns than the model uses
+        block = min(max(rp.dev.num_trees, 1), self._TREE_BLOCK)
+        chunk = self._predict_chunk_rows(features.shape[1], block)
+        out = np.empty((features.shape[0], k), np.float64)
+        cuda = device.type == "cuda"
+
+        def dispatch(part):
+            """Encode into pinned memory, copy and traverse, with no
+            wait: the scores land in pinned memory behind an event."""
+            shape = part.shape
+            V = torch.empty(shape, dtype=torch.int32, pin_memory=cuda)
+            D = torch.empty(shape, dtype=torch.bool, pin_memory=cuda)
+            dev_predict.rank_encode(rp, part, out=(V.numpy(), D.numpy()))
+            score = dev_predict.ranked_predict(
+                rp.dev, V.to(device, non_blocking=True),
+                D.to(device, non_blocking=True), block)
+            if not cuda:
+                return score, None
+            host = torch.empty(score.shape, dtype=score.dtype,
+                               pin_memory=True)
+            host.copy_(score, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return host, done
+
+        def drain(lo, host, done):
+            if done is not None:
+                done.synchronize()
+            out[lo:lo + host.shape[0]] = host.numpy()
+
+        # one-deep pipeline: encode chunk i+1 on the host while the
+        # device computes chunk i; drain is the only wait
+        pending = None
+        for lo in range(0, features.shape[0], chunk):
+            host, done = dispatch(features[lo:lo + chunk])
+            if pending is not None:
+                drain(*pending)
+            pending = (lo, host, done)
+        if pending is not None:
+            drain(*pending)
+        return out
+
     def predict(self, features: np.ndarray, num_iteration: int = -1,
-                raw_score: bool = False) -> np.ndarray:
+                raw_score: bool = False,
+                pred_leaf: bool = False) -> np.ndarray:
         """(N,) for one tree an iteration, else (N, K); converted by the
-        objective unless raw_score."""
+        objective unless raw_score.  pred_leaf: (N, trees) leaf indices."""
+        if pred_leaf:
+            return self.predict_leaf_index(features, num_iteration)
         raw = self.predict_raw(features, num_iteration)
         if raw.shape[1] == 1:
             raw = raw[:, 0]
         if raw_score or self.objective is None:
             return raw
         return np.asarray(self.objective.convert_output(raw))
+
+    def predict_leaf_index(self, features: np.ndarray,
+                           num_iteration: int = -1) -> np.ndarray:
+        """(N, trees) leaf index of each row in each tree (host f64)."""
+        self._materialize()
+        features = np.ascontiguousarray(np.asarray(features,
+                                                   dtype=np.float64))
+        num_used = self._used_trees(num_iteration)
+        cols = [self.models[t].predict_leaf_index(features)
+                for t in range(num_used)]
+        return (np.stack(cols, axis=1) if cols
+                else np.zeros((features.shape[0], 0), np.int32))
+
+    def pred_contrib(self, features: np.ndarray, num_iteration: int = -1,
+                     per: str = "feature") -> np.ndarray:
+        """Prediction attribution (host-only, f64 exact).
+
+        per='tree': (N, num_used) matrix of each tree's contribution —
+        column t sums into raw-score class t % num_tree_per_iteration, so
+        summing the columns of a class reproduces predict_raw exactly.
+
+        per='feature': gain-weighted path attribution per tree
+        (Tree.predict_contrib), summed over trees.  Returns
+        (N, num_features + 1) for single-output models — the last column
+        is the bias (stub trees and zero-gain paths) — and
+        (N, k, num_features + 1) for multi-class.  Rows sum to the raw
+        score by construction.
+        """
+        if per not in ("feature", "tree"):
+            raise KeyError("pred_contrib per must be 'feature' or 'tree'")
+        self._materialize()
+        features = np.ascontiguousarray(np.asarray(features,
+                                                   dtype=np.float64))
+        n = features.shape[0]
+        k = self.num_tree_per_iteration
+        num_used = self._used_trees(num_iteration)
+        if per == "tree":
+            out = np.zeros((n, num_used), dtype=np.float64)
+            for t in range(num_used):
+                out[:, t] = self.models[t].predict(features)
+            return out
+        nf = self.max_feature_idx + 1
+        out = np.zeros((n, k, nf + 1), dtype=np.float64)
+        for t in range(num_used):
+            out[:, t % k, :] += self.models[t].predict_contrib(features, nf)
+        return out[:, 0, :] if k == 1 else out
 
     # ------------------------------------------------------------- model I/O
     def save_model_to_string(self, num_iteration: int = -1) -> str:

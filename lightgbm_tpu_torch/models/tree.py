@@ -13,11 +13,25 @@ Decision semantics (tree.h:229-276):
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 
 from ..utils.common import (array_to_string, avoid_inf, kMaxTreeOutput,
                             kMissingValueRange, parse_kv_lines, string_to_array)
 from ..utils.log import Log
+
+
+class NodeArrays(NamedTuple):
+    """Per-internal-node SoA views of one tree, trimmed to the realized
+    node count (Tree.node_arrays) — the unit the stacked device predictor
+    packs without per-node Python loops."""
+    split_feature: np.ndarray   # (ni,) i32 real (outer) feature index
+    threshold: np.ndarray       # (ni,) f64
+    decision_type: np.ndarray   # (ni,) i8 (1 = categorical)
+    default_value: np.ndarray   # (ni,) f64 zero-range replacement value
+    left_child: np.ndarray      # (ni,) i32 (~leaf for leaves)
+    right_child: np.ndarray     # (ni,) i32
 
 
 class Tree:
@@ -97,6 +111,40 @@ class Tree:
         self.leaf_value[:self.num_leaves] = np.clip(lv, -kMaxTreeOutput, kMaxTreeOutput)
         self.shrinkage *= rate
 
+    def node_arrays(self) -> "NodeArrays":
+        """Trimmed per-internal-node views (num_leaves - 1 entries) for
+        bulk packing into stacked device tree arrays (ops/predict.py
+        build_ranked_predictor).  Views, not copies — callers must not
+        mutate."""
+        ni = max(self.num_leaves - 1, 0)
+        return NodeArrays(
+            split_feature=self.split_feature[:ni],
+            threshold=self.threshold[:ni],
+            decision_type=self.decision_type[:ni],
+            default_value=self.default_value[:ni],
+            left_child=self.left_child[:ni],
+            right_child=self.right_child[:ni])
+
+    def depth(self) -> int:
+        """Steps of the deepest descent from the root to a leaf (0 for a
+        one-leaf tree), from the child arrays alone: a tree loaded from
+        model text carries no leaf depths.  A child node always has a
+        larger index than its parent, so the parent links are a forest
+        walked upward one level a step."""
+        ni = self.num_leaves - 1
+        if ni <= 0:
+            return 0
+        parent = np.full(ni, -1, np.int64)
+        for child in (self.left_child[:ni], self.right_child[:ni]):
+            inner = child >= 0
+            parent[child[inner]] = np.nonzero(inner)[0]
+        depth = np.zeros(ni, np.int64)
+        up = parent
+        while (up >= 0).any():
+            depth += up >= 0
+            up = np.where(up >= 0, parent[np.maximum(up, 0)], -1)
+        return int(depth.max()) + 1
+
     # -------------------------------------------------------------- predict
     def predict(self, features: np.ndarray) -> np.ndarray:
         """Batch predict on raw feature values, vectorized over rows.
@@ -134,6 +182,60 @@ class Tree:
             node[idx] = np.where(go_left, self.left_child[nd], self.right_child[nd])
             active = node >= 0
         return (~node).astype(np.int32)
+
+    def predict_contrib(self, features: np.ndarray,
+                        num_features: int) -> np.ndarray:
+        """Gain-weighted per-feature attribution of this tree's output.
+
+        One descent (same semantics as predict_leaf_index) recording the
+        visited nodes per depth level; each row's leaf value is then
+        distributed over its path's split features proportionally to
+        split gain.  Returns (N, num_features + 1): the last column is
+        the bias — rows whose path carries no positive gain (stub trees,
+        loaded models without gains) put the whole leaf value there.
+        Rows sum to predict(features) up to one rounding per path node.
+        """
+        n = features.shape[0]
+        out = np.zeros((n, num_features + 1), dtype=np.float64)
+        if self.num_leaves <= 1:
+            return out
+        values = self.leaf_value[self.predict_leaf_index(features)]
+        steps = []          # (rows, nodes) per depth level of the descent
+        node = np.zeros(n, dtype=np.int32)
+        active = node >= 0
+        while active.any():
+            idx = np.nonzero(active)[0]
+            nd = node[idx]
+            steps.append((idx, nd))
+            feat = self.split_feature[nd]
+            fval = features[idx, feat]
+            dv = self.default_value[nd]
+            use_default = (fval > -kMissingValueRange) & \
+                (fval <= kMissingValueRange)
+            fval = np.where(use_default, dv, fval)
+            is_cat = self.decision_type[nd] == 1
+            th = self.threshold[nd]
+            with np.errstate(invalid="ignore"):
+                go_left = np.where(
+                    is_cat,
+                    fval.astype(np.int64, copy=False) == th.astype(np.int64),
+                    fval <= th)
+            node[idx] = np.where(go_left, self.left_child[nd],
+                                 self.right_child[nd])
+            active = node >= 0
+        total = np.zeros(n, dtype=np.float64)
+        for idx, nd in steps:
+            g = self.split_gain[nd]
+            total[idx] += np.where(g > 0, g, 0.0)
+        no_gain = total <= 0
+        out[no_gain, num_features] = values[no_gain]
+        scale = np.where(no_gain, 0.0,
+                         values / np.where(no_gain, 1.0, total))
+        for idx, nd in steps:
+            g = self.split_gain[nd]
+            np.add.at(out, (idx, self.split_feature[nd]),
+                      np.where(g > 0, g, 0.0) * scale[idx])
+        return out
 
     # ------------------------------------------------------------ serialize
     def to_string(self) -> str:

@@ -47,6 +47,7 @@ import time
 
 import torch
 
+from ..device import CAPTURE_LOCK
 from ..utils.log import LightGBMError
 from .grow import GrowStats
 from .histogram import weight_rows
@@ -98,13 +99,23 @@ def fused_supported(booster) -> tuple:
 
 
 class _Graph:
-    """A captured CUDA graph and the kernel launches its capture made."""
+    """A captured CUDA graph and the kernel launches its capture made.
+    The capture is thread-local and holds the process's capture lock:
+    another thread's CUDA work (a serving graph's capture or replay, a
+    bulk predict) neither breaks it nor is broken by it.  A capture that
+    fails raises with the caller's current stream restored
+    (torch.cuda.graph leaves its capture stream current when the capture
+    cannot end, and later work of the thread would land on a stream
+    another capture may use)."""
 
     def __init__(self, fn):
         before = [k.launches for k in KERNELS]
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph):
+            with CAPTURE_LOCK, \
+                    torch.cuda.stream(torch.cuda.current_stream()), \
+                    torch.cuda.graph(self.graph,
+                                     capture_error_mode="thread_local"):
                 fn()
             self.launches = [k.launches - b for k, b in zip(KERNELS, before)]
         finally:

@@ -1,19 +1,22 @@
-"""Device-side tree application: traversal on binned data and the
-partition-side score update (kernel B2, ``csrc/score_update.cu``).
+"""Device-side tree application: traversal on binned data, the
+partition-side score update (kernel B2, ``csrc/score_update.cu``) and
+bulk prediction on raw values through the ranked traversal.
 
 Ported from the JAX package's ``ops/predict.py``.  Decision semantics
 match dense_bin.hpp:190-222 (default-bin redirect, numerical <=,
-categorical ==).  The validation-set traversal is plain torch: in the JAX
-package it is an XLA program, not a kernel.
+categorical ==).  The validation-set traversal and the ranked traversal
+are plain torch: in the JAX package they are XLA programs, not kernels.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import _build
-from ..utils.common import kMaxTreeOutput
+from ..device import resolve_device
+from ..utils.common import kMaxTreeOutput, kMissingValueRange
 from ..utils.log import LightGBMError
 from .partition import clipped_leaf_values
 
@@ -202,3 +205,245 @@ def update_score_from_partition(score, leaf_id, leaf_value, scale,
     """Train-side update via the final partition (score_updater.hpp:91-99):
     score += clip(scale * leaf_value)[leaf_id], through kernel B2."""
     return score_update(score, leaf_id, leaf_value, scale, out)
+
+
+# --------------------------------------------------------------------------
+# Bulk prediction on RAW feature values (the Predictor analog for large
+# batches), ported from the JAX package's ranked traversal.  The
+# reference predicts row by row on the host with f64 threshold compares
+# (predictor.hpp:33-96, tree.h:250-276); the device keeps those f64
+# decisions exact without f64 compute by RANK ENCODING: per feature,
+# every numerical threshold any tree uses, sorted and made unique on the
+# host in f64, and each value replaced by its insertion rank (the count
+# of thresholds below it).  Then `value <= threshold` is
+# `rank(value) <= index(threshold)`, an int32 compare equal to the host's
+# decision.  NaN ranks past every threshold (numpy sorts it last) and
+# goes right, as C++ `operator<=` sends it.  Categorical nodes compare
+# the int-cast value; the zero-range default redirect becomes a per-node
+# "default goes left" bit, computed once on the host.  Routing is
+# therefore bit-equal to the host predictor.  Leaf values accumulate in
+# f32 with Kahan compensation in tree order, four elementwise operations
+# a tree, so every row's arithmetic is its own: a row scores the same
+# bits in any batch, on the CPU and on the card.
+#
+# The JAX package descends with `while any(node >= 0)`; here every tree
+# of a block descends a fixed number of steps, the block's deepest leaf
+# (a host int from Tree.depth), so a traversal reads nothing back and
+# can be captured in a CUDA graph.  A row at a leaf (node < 0) keeps it.
+# --------------------------------------------------------------------------
+
+_CAT_SENTINEL = -(2 ** 31) + 1
+# bytes of traversal state a (row, tree) at the widest step: the
+# (rows, trees) node ids, their int64 gather index, the gathered
+# (rows, trees, 6) node records, the feature index, the values and the
+# masks (ranked_leaves)
+STATE_BYTES_PER_TREE = 64
+
+
+@dataclass
+class RankedTrees:
+    """The stacked trees of the ranked traversal, on one device.
+    ``nodes[t, i]`` packs internal node i of tree t as (feature,
+    threshold rank or category, is_cat, default_left, left, right), so
+    one gather a level reads a node's record."""
+    nodes: torch.Tensor        # (T, M, 6) i32
+    leaf_value: torch.Tensor   # (T, L) f32, shrinkage baked in; 0 for stumps
+    hits: torch.Tensor         # (T, 1, K) f32: 1 in the tree's class column
+    init: torch.Tensor         # (T,) i32: 0, or -1 (at leaf 0) for stumps
+    node_base: torch.Tensor    # (T,) i64: t * M
+    leaf_base: torch.Tensor    # (T,) i64: t * L
+    depth: np.ndarray          # (T,) host: steps to the tree's deepest leaf
+
+    @property
+    def num_trees(self) -> int:
+        return int(self.depth.shape[0])
+
+
+class RankedPredictor:
+    """Host-prepared state for bulk prediction: the device tree stack
+    plus the host-only rank tables (f64) and categorical feature set."""
+
+    def __init__(self, dev: RankedTrees, thresholds: tuple,
+                 cat_features: frozenset, max_feature: int):
+        self.dev = dev
+        self.thresholds = thresholds
+        self.cat_features = cat_features
+        self.max_feature = max_feature     # host int: no read per predict
+
+
+def build_ranked_predictor(models, num_class: int, num_features: int,
+                           device="cuda") -> RankedPredictor:
+    """Pack host Trees into stacked arrays on ``device`` plus per-feature
+    rank tables.  Raises ValueError when a feature is used both
+    numerically and categorically, or a categorical threshold leaves
+    int32 (callers fall back to the host path).  All per-node work is
+    vectorized over Tree.node_arrays views: O(nodes) numpy."""
+    dev = resolve_device(device)
+    T = len(models)
+    M = max([max(t.num_leaves - 1, 1) for t in models] + [1])
+    L = max([max(t.num_leaves, 2) for t in models] + [2])
+    feat = np.zeros((T, M), np.int32)
+    thr_raw = np.zeros((T, M), np.float64)
+    is_cat = np.zeros((T, M), np.int32)
+    dleft = np.zeros((T, M), np.int32)
+    left = np.full((T, M), -1, np.int32)
+    right = np.full((T, M), -1, np.int32)
+    leaf_value = np.zeros((T, L), np.float64)
+    num_leaves = np.zeros(T, np.int32)
+    depth = np.zeros(T, np.int64)
+    valid = np.zeros((T, M), bool)           # realized internal nodes
+    for t, tree in enumerate(models):
+        nl = tree.num_leaves
+        ni = max(nl - 1, 0)
+        num_leaves[t] = nl
+        if ni == 0:
+            continue                         # a stump adds 0 (tree.predict)
+        leaf_value[t, :nl] = tree.leaf_value[:nl]
+        depth[t] = tree.depth()
+        na = tree.node_arrays()
+        valid[t, :ni] = True
+        feat[t, :ni] = na.split_feature
+        thr_raw[t, :ni] = na.threshold
+        cat = na.decision_type == 1
+        is_cat[t, :ni] = cat
+        left[t, :ni] = na.left_child
+        right[t, :ni] = na.right_child
+        # the zero-range default decision per node, host-computable once:
+        # numerical `dv <= th`; categorical `int64(dv) == int64(th)` —
+        # cast only the cat nodes (a numeric default can be 1e300, whose
+        # int cast is undefined)
+        with np.errstate(invalid="ignore"):
+            dl = na.default_value <= na.threshold
+        if cat.any():
+            th_i = na.threshold[cat].astype(np.int64)
+            if np.abs(th_i).max() > 2 ** 31 - 2:
+                # the device compares int32; an out-of-domain cat
+                # threshold cannot be encoded without breaking the
+                # bit-equal routing contract -> host path
+                raise ValueError(
+                    "categorical threshold %r exceeds int32"
+                    % float(na.threshold[cat][
+                        int(np.abs(th_i).argmax())]))
+            dl = dl.copy()
+            dl[cat] = na.default_value[cat].astype(np.int64) == th_i
+        dleft[t, :ni] = dl
+    cat_features = frozenset(np.unique(feat[valid & (is_cat > 0)]).tolist())
+    num_mask = valid & (is_cat == 0)
+    num_features_used = frozenset(np.unique(feat[num_mask]).tolist())
+    mixed = cat_features & num_features_used
+    if mixed:
+        raise ValueError("features used both ways: %s" % sorted(mixed))
+
+    # per-feature sorted-unique numerical thresholds, then every numeric
+    # node's rank in its feature's table
+    thresholds = [np.empty(0, np.float64)] * max(num_features, 0)
+    thr_rank = np.zeros((T, M), np.int32)
+    for f in sorted(num_features_used):
+        nodes_f = num_mask & (feat == f)
+        arr = np.unique(thr_raw[nodes_f])
+        if 0 <= f < num_features:
+            thresholds[f] = arr
+        thr_rank[nodes_f] = np.searchsorted(
+            arr, thr_raw[nodes_f], side="left").astype(np.int32)
+    cat_mask = valid & (is_cat > 0)
+    if cat_mask.any():
+        thr_rank[cat_mask] = thr_raw[cat_mask].astype(np.int64).astype(
+            np.int32)
+
+    k = max(num_class, 1)
+    hits = np.zeros((T, 1, k), np.float32)
+    hits[np.arange(T), 0, np.arange(T) % k] = 1.0
+    nodes = np.stack([feat, thr_rank, is_cat, dleft, left, right], axis=2)
+    trees = RankedTrees(
+        nodes=torch.as_tensor(nodes, device=dev),
+        leaf_value=torch.as_tensor(leaf_value, dtype=torch.float32,
+                                   device=dev),
+        hits=torch.as_tensor(hits, device=dev),
+        init=torch.as_tensor(np.where(num_leaves > 1, 0, -1).astype(
+            np.int32), device=dev),
+        node_base=torch.arange(T, dtype=torch.long, device=dev) * M,
+        leaf_base=torch.arange(T, dtype=torch.long, device=dev) * L,
+        depth=depth)
+    max_feature = int(feat.max()) if T else 0
+    return RankedPredictor(trees, tuple(thresholds), frozenset(cat_features),
+                           max_feature)
+
+
+def rank_encode(rp: RankedPredictor, features, out=None) -> tuple:
+    """Host: (N, F) raw f64 values -> (V, D): the int32 rank/category
+    matrix and the bool zero-range mask.  All f64 decisions happen here
+    (numpy), once a value.  ``out``: (V, D) arrays of that shape and
+    dtype to write into (pinned host memory, for the bulk pipeline)."""
+    X = np.asarray(features, np.float64)
+    n, F = X.shape
+    if out is None:
+        out = (np.empty((n, F), np.int32), np.empty((n, F), bool))
+    V, D = out
+    for f in range(F):
+        col = X[:, f]
+        if f in rp.cat_features:
+            # kept domain |v| <= 2^31-2; anything outside maps to the
+            # sentinel, which can never equal an (in-domain, enforced at
+            # build) threshold — so out-of-range values route right
+            # exactly as the host int64 compare does
+            with np.errstate(invalid="ignore"):
+                iv = np.where(np.isfinite(col), col, 0.0).astype(np.int64)
+            V[:, f] = np.where(
+                np.isfinite(col) & (np.abs(iv) <= 2 ** 31 - 2),
+                iv, _CAT_SENTINEL)
+        else:
+            V[:, f] = np.searchsorted(rp.thresholds[f], col, side="left")
+    np.logical_and(X > -kMissingValueRange, X <= kMissingValueRange, out=D)
+    return V, D
+
+
+def ranked_leaves(trees: RankedTrees, V, D, t0: int, t1: int):
+    """(N, t1 - t0) int32 leaf of each row in trees t0..t1-1 (0 for
+    stumps): every tree descends the block's deepest-leaf count of
+    steps at once, over a (rows, trees) node state."""
+    n = V.shape[0]
+    nodes = trees.nodes.view(-1, 6)
+    base = trees.node_base[t0:t1]
+    node = trees.init[t0:t1].expand(n, t1 - t0)
+    for _ in range(int(trees.depth[t0:t1].max(initial=0))):
+        g = nodes[node.clamp(min=0) + base]         # (N, tb, 6)
+        f = g[..., 0].long()
+        v = V.gather(1, f)
+        thr = g[..., 1]
+        go_left = torch.where(g[..., 2] > 0, v == thr, v <= thr)
+        go_left = torch.where(D.gather(1, f), g[..., 3] > 0, go_left)
+        nxt = torch.where(go_left, g[..., 4], g[..., 5])
+        node = torch.where(node >= 0, nxt, node)
+    return ~node
+
+
+def ranked_predict(trees: RankedTrees, V, D, tree_block=None):
+    """(N, K) f32 raw scores on V's device.  Leaf routing is bit-equal to
+    the host f64 predictor; values accumulate with Kahan compensation in
+    tree order, each step one elementwise operation (no fused
+    multiply-add can form), the other classes' columns adding a
+    compensated zero, as the JAX package's ``ranked_predict_device``.
+    Trees descend ``tree_block`` at a time (all at once when None),
+    which bounds the (rows, trees) state and changes no bit."""
+    n = V.shape[0]
+    T = trees.num_trees
+    k = trees.hits.shape[2]
+    score = torch.zeros((n, k), dtype=torch.float32, device=V.device)
+    comp = torch.zeros_like(score)
+    block = T if tree_block is None else max(int(tree_block), 1)
+    lv = trees.leaf_value.view(-1)
+    for t0 in range(0, T, block):
+        t1 = min(t0 + block, T)
+        leaf = ranked_leaves(trees, V, D, t0, t1)
+        add = lv[leaf + trees.leaf_base[t0:t1]]     # (N, tb)
+        for j in range(t1 - t0):
+            y = add[:, j:j + 1] * trees.hits[t0 + j] - comp
+            t = score + y
+            comp = (t - score) - y
+            score = t
+    return score
+
+
+def ranked_leaf_indices(trees: RankedTrees, V, D):
+    """(N, T) int32 leaf index a tree: the routing-exactness probe."""
+    return ranked_leaves(trees, V, D, 0, trees.num_trees)

@@ -86,7 +86,7 @@ def test_model_text_loads_across_packages(objective, boosting):
     st, sj = bt.model_to_string(), bj.model_to_string()
     k = 3 if objective.startswith("multiclass") else 1
     for text, writer in ((st, bt), (sj, bj)):
-        port = booster_from_model_string(text)
+        port = booster_from_model_string(text, device="cpu")
         jax_side = lgbj.Booster(model_str=text)
         assert port.num_model_per_iteration() == k
         assert port.current_iteration() == writer.current_iteration()

@@ -909,8 +909,11 @@ def test_fused_capture_failure_raises(dev):
         return real(score)
 
     obj.get_gradients = reads_the_device
+    stream = torch.cuda.current_stream()
     with pytest.raises(RuntimeError):
         booster.update()
+    # the caller's stream is current again, not the failed capture's
+    assert torch.cuda.current_stream() == stream
     torch.cuda.synchronize()
     assert booster._gbdt._fused_state[0] is not None
 
@@ -1200,4 +1203,244 @@ def test_goss_on_the_card_matches_the_cpu_through_the_first_sample(dev):
     kept = mc[2] > 0
     np.testing.assert_allclose(card.predict(X[kept], num_iteration=3),
                                cpu.predict(X[kept], num_iteration=3),
+                               rtol=1e-5)
+
+
+# ------------------------------------------------- prediction and serving
+def _predict_case(objective="binary", rows=3000, seed=21):
+    """(params, X, y) of a small model for the predict and serve tests."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(rows, 8))
+    X[rng.random(X.shape) < 0.1] = 0.0
+    s = X[:, 0] + 0.6 * X[:, 1] - 0.4 * X[:, 3] + 0.2 * rng.normal(size=rows)
+    p = {"objective": objective, "num_leaves": 31, "min_data_in_leaf": 10,
+         "max_bin": 63, "verbose": -1}
+    if objective == "multiclass":
+        p["num_class"] = 3
+        y = np.digitize(s, [-0.5, 0.5]).astype(float)
+    else:
+        y = (s > 0).astype(float)
+    return p, X, y
+
+
+def _query(X, seed=22):
+    rng = np.random.default_rng(seed)
+    Xq = X + 0.1 * rng.normal(size=X.shape)
+    Xq[rng.random(Xq.shape) < 0.03] = np.nan
+    Xq[rng.random(Xq.shape) < 0.03] = 0.0
+    return Xq
+
+
+@pytest.mark.parametrize("objective", ["binary", "multiclass"])
+def test_ranked_scores_on_the_card_equal_the_cpu_to_the_bit(dev, objective):
+    """Raw scores of the ranked traversal and of the serving graphs on the
+    card equal the port's CPU scores bit for bit (elementwise operations
+    only, each its own, so no fused multiply-add can form); converted
+    scores agree within 1e-6."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.serve import PredictExecutableCache
+
+    p, X, y = _predict_case(objective)
+    text = lgb.train(p, lgb.Dataset(X, label=y), 8,
+                     device="cpu").model_to_string()
+    Xq = _query(X)
+    card = lgb.Booster(model_str=text, device="cuda")
+    cpu = lgb.Booster(model_str=text, device="cpu")
+    for b in (card, cpu):
+        b._gbdt.config.tpu_predict = "true"
+    raw_card = card.predict(Xq, raw_score=True)
+    np.testing.assert_array_equal(raw_card, cpu.predict(Xq, raw_score=True))
+    np.testing.assert_allclose(card.predict(Xq), cpu.predict(Xq), rtol=0,
+                               atol=1e-6)
+    caches = [PredictExecutableCache(b._gbdt, bucket_min=16, max_batch=512)
+              for b in (card, cpu)]
+    for convert in (False, True):
+        got, want = (c.predict_batch(Xq[:700], convert=convert)
+                     for c in caches)
+        if convert:
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(got[:, 0] if got.shape[1] == 1
+                                          else got, raw_card[:700])
+    st = caches[0].stats()
+    assert st["graphs"] == st["compiles"] == 2 * len(st["buckets"])
+
+
+def test_bulk_predict_chunks_on_the_card_change_no_bit(dev, monkeypatch):
+    """The one-deep pipeline's chunks (pinned encode, copies behind
+    events) assemble the same bits as one chunk."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.models import gbdt as gbdt_mod
+
+    p, X, y = _predict_case()
+    b = lgb.train(dict(p, tpu_predict="true"), lgb.Dataset(X, label=y), 6,
+                  device="cuda")
+    Xq = _query(X)
+    whole = b.predict(Xq, raw_score=True)
+    monkeypatch.setattr(gbdt_mod.GBDT, "_predict_chunk_rows",
+                        staticmethod(lambda nf, tb: 700))
+    b._gbdt._ranked_pred_key = None
+    np.testing.assert_array_equal(b.predict(Xq, raw_score=True), whole)
+
+
+def test_graph_replays_from_the_worker_beside_bulk_predict(dev):
+    """The scheduler's worker replays graphs while the main thread runs
+    Booster.predict on the device path: every response equals the same
+    rows served alone."""
+    import threading
+
+    import lightgbm_tpu_torch as lgb
+
+    p, X, y = _predict_case()
+    b = lgb.train(dict(p, tpu_predict="true"), lgb.Dataset(X, label=y), 8,
+                  device="cuda")
+    bulk = b.predict(X, raw_score=True)
+    blocks = [(lo, 1 + (lo * 7) % 300) for lo in range(0, 2400, 40)]
+    with b.serve(max_batch=512, max_delay_ms=1.0, bucket_min=16) as sp:
+        sp.warmup([16, 32, 64, 128, 256, 512])
+        solo = [sp.predict(X[lo:lo + n]) for lo, n in blocks]
+        got, errors = {}, []
+
+        def client(i):
+            try:
+                for j in range(i, len(blocks), 4):
+                    lo, n = blocks[j]
+                    got[j] = sp.submit(X[lo:lo + n]).result(timeout=60)
+            except Exception as e:          # surfaced below
+                errors.append(e)
+
+        ts = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for t in ts:
+            t.start()
+        for _ in range(5):
+            np.testing.assert_array_equal(b.predict(X, raw_score=True), bulk)
+        for t in ts:
+            t.join(timeout=120)
+        assert not errors and not any(t.is_alive() for t in ts)
+        assert sp.cache.steady_state_compiles == 0
+    for j, want in enumerate(solo):
+        np.testing.assert_array_equal(got[j], want)
+
+
+def test_serving_capture_while_another_stream_trains(dev):
+    """Bucket graphs captured (thread-local) while another thread trains
+    fused on its own stream, capturing its own graphs: neither capture
+    fails, the model trains the text it trains alone, and the serving
+    graphs score as graphs captured on an idle card."""
+    import threading
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.serve import PredictExecutableCache
+
+    p, X, y = _predict_case()
+    served = lgb.train(p, lgb.Dataset(X, label=y), 6, device="cuda")
+    want = PredictExecutableCache(served._gbdt, bucket_min=16,
+                                  max_batch=256).predict_batch(X[:500])
+    pt, Xt, yt = _predict_case(rows=20000, seed=23)
+    alone = lgb.train(pt, lgb.Dataset(Xt, label=yt), 6,
+                      device="cuda").model_to_string()
+    result, errors = {}, []
+
+    def trainer():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                b = lgb.train(pt, lgb.Dataset(Xt, label=yt), 6,
+                              device="cuda")
+                result["text"] = b.model_to_string()
+                result["fused"] = b._gbdt._fused_state[0] is not None
+        except Exception as e:              # surfaced below
+            errors.append(e)
+
+    th = threading.Thread(target=trainer)
+    th.start()
+    captures = 0
+    while th.is_alive() and captures < 400:
+        cache = PredictExecutableCache(served._gbdt, bucket_min=16,
+                                       max_batch=256)
+        cache.warmup([16, 32, 64, 128, 256])
+        captures += cache.compiles
+        np.testing.assert_array_equal(cache.predict_batch(X[:500]), want)
+    th.join(timeout=300)
+    assert not th.is_alive() and not errors, errors
+    assert captures > 0 and result["fused"]
+    assert result["text"] == alone
+
+
+def test_loaded_booster_serves_on_the_card(dev):
+    """Booster(model_str=..., device="cuda") predicts and serves on the
+    card: the device route, graphs captured, the CPU-loaded booster's
+    raw scores to the bit."""
+    import lightgbm_tpu_torch as lgb
+
+    p, X, y = _predict_case("multiclass")
+    text = lgb.train(p, lgb.Dataset(X, label=y), 5,
+                     device="cpu").model_to_string()
+    card = lgb.Booster(model_str=text, device="cuda")
+    cpu = lgb.Booster(model_str=text, device="cpu")
+    assert card.device.type == "cuda"
+    with card.serve(max_batch=256, max_delay_ms=1.0, bucket_min=16) as sp, \
+            cpu.serve(max_batch=256, max_delay_ms=1.0, bucket_min=16) as sc:
+        got = sp.predict(X[:300], raw_score=True)
+        np.testing.assert_array_equal(got, sc.predict(X[:300],
+                                                      raw_score=True))
+        conv = sp.predict(X[:300])
+        assert conv.shape == (300, 3)
+        np.testing.assert_allclose(conv, cpu.predict(X[:300]), rtol=0,
+                                   atol=1e-6)
+        st = sp.stats()
+        assert st["routes"] == {"dev": 2}
+        assert st["executables"]["graphs"] >= 2
+        assert st["executables"]["device"].startswith("cuda")
+
+
+def _categorical_data(seed, n):
+    """tests/test_torch_train_parity.py's categorical fixture: two
+    categorical columns (12 and 5 categories) beside four normal ones."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 6))
+    X[:, 0] = rng.integers(0, 12, size=n)
+    X[:, 1] = rng.integers(0, 5, size=n)
+    effect = rng.normal(size=12)
+    s = (effect[X[:, 0].astype(int)] + 0.8 * (X[:, 1] == 2) + X[:, 2]
+         + 0.1 * rng.normal(size=n))
+    return X, (s > 0).astype(float)
+
+
+def test_categorical_training_on_the_card_matches_the_cpu(dev):
+    """The pinned categorical fixture trains on the card the CPU's trees
+    (as partitions of the training rows, with the same split features
+    and decision types), and the ranked traversal's categorical branch
+    routes on the card as the host trees route."""
+    import lightgbm_tpu_torch as lgb
+
+    X, y = _categorical_data(1, 2500)
+    Xv, _ = _categorical_data(1001, 600)
+    Xv[:40, 0] = 99.0
+    p = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 20,
+         "max_bin": 63, "verbose": -1, "tpu_growth": "wave",
+         "tpu_wave_width": 4}
+    runs = [lgb.train(p, lgb.Dataset(X, label=y, categorical_feature=[0, 1]),
+                      3, device=d) for d in ("cuda", "cpu")]
+    shape = ("split_feature", "decision_type", "left_child", "right_child")
+    trees = [[ln for ln in b.model_to_string().splitlines()
+              if ln.startswith(shape)] for b in runs]
+    assert trees[0] == trees[1]
+    assert any("decision_type=" in ln and " 1" in ln for ln in trees[0])
+    for b in runs:
+        b._gbdt._materialize()
+    parts = [np.stack([t.predict_leaf_index(X) for t in b._gbdt.models],
+                      axis=1) for b in runs]
+    np.testing.assert_array_equal(parts[0], parts[1])
+    card = runs[0]
+    rp = tp.build_ranked_predictor(card._gbdt.models, 1, 6, "cuda")
+    assert rp.cat_features == frozenset({0, 1})
+    V, D = tp.rank_encode(rp, Xv)
+    leaves = tp.ranked_leaf_indices(rp.dev, torch.as_tensor(V, device=dev),
+                                    torch.as_tensor(D, device=dev)).cpu()
+    np.testing.assert_array_equal(
+        leaves.numpy(),
+        np.stack([t.predict_leaf_index(Xv) for t in card._gbdt.models],
+                 axis=1))
+    np.testing.assert_allclose(card.predict(Xv), runs[1].predict(Xv),
                                rtol=1e-5)

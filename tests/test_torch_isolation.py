@@ -22,6 +22,8 @@ def test_import_leaves_no_jax_modules():
             "import lightgbm_tpu_torch.ops.predict\n"
             "import lightgbm_tpu_torch.ops.histogram\n"
             "import lightgbm_tpu_torch.ops.leaf_hist\n"
+            "import lightgbm_tpu_torch.serve, lightgbm_tpu_torch.predictor\n"
+            "import lightgbm_tpu_torch.obs.serve\n"
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m == 'jax' or m.startswith(('jax.', 'jaxlib')) or "
             "m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.'))))\n")
@@ -48,6 +50,17 @@ def _sources():
                                           REPO / "sparse_model_diff.py"]
     assert len(files) > 10
     return files
+
+
+def test_sources_cover_every_subpackage():
+    """The parametrised scan below reaches every subpackage of the port,
+    the serving tier and its observability among them."""
+    dirs = {p.parent.relative_to(PORT).as_posix() for p in _sources()
+            if PORT in p.parents}
+    assert {".", "io", "models", "obs", "ops", "serve", "utils"} <= dirs
+    subpackages = {p.parent.relative_to(PORT).as_posix()
+                   for p in PORT.rglob("__init__.py")}
+    assert subpackages <= dirs
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -81,6 +94,11 @@ def test_cuda_entry_point_raises_without_cuda():
                     lgb.Dataset(X, label=y))
     with pytest.raises(lgb.LightGBMError, match="needs CUDA"):
         resolve_device("cuda:0")
+    text = lgb.train({"objective": "binary", "verbose": -1},
+                     lgb.Dataset(X, label=y), 1,
+                     device="cpu").model_to_string()
+    with pytest.raises(lgb.LightGBMError, match="needs CUDA"):
+        lgb.Booster(model_str=text)
     assert resolve_device("cpu").type == "cpu"
 
 

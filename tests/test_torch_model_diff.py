@@ -33,7 +33,7 @@ def text():
 
 
 def _trees(text):
-    return lgb.Booster(model_str=text)._gbdt.models
+    return lgb.Booster(model_str=text, device="cpu")._gbdt.models
 
 
 @pytest.mark.parametrize("tree,node", [(0, 0), (1, 2), (2, 5)])

@@ -119,11 +119,11 @@ def test_multiclass_trains_the_jax_package_trees(objective, seed):
     np.testing.assert_allclose(raw_dev.T, bt.predict(Xv, raw_score=True),
                                rtol=1e-5, atol=1e-5)
     # model text loads in either package and predicts the same
-    from_jax = booster_from_model_string(sf)
+    from_jax = booster_from_model_string(sf, device="cpu")
     np.testing.assert_array_equal(from_jax.predict(Xv), bf.predict(Xv))
     from_port = lgbj.Booster(model_str=st)
     np.testing.assert_array_equal(from_port.predict(Xv), pt)
-    again = booster_from_model_string(st)
+    again = booster_from_model_string(st, device="cpu")
     assert again.model_to_string() == st
 
 

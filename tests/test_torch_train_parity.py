@@ -116,7 +116,7 @@ def test_port_trains_the_oracle_trees(objective, width, bundled, seed, more):
     np.testing.assert_allclose(pt, bj.predict(Xv), rtol=1e-4)
 
     # the text model is the interchange: each package loads the other's
-    from_jax = booster_from_model_string(sj)
+    from_jax = booster_from_model_string(sj, device="cpu")
     np.testing.assert_array_equal(from_jax.predict(Xv), bj.predict(Xv))
     from_port = lgbj.Booster(model_str=st)
     np.testing.assert_array_equal(from_port.predict(Xv), pt)
@@ -144,3 +144,77 @@ def test_histogram_only_and_no_cache_paths_grow_the_same_trees(variant):
     assert _structure(got.model_to_string()) == _structure(
         ref.model_to_string())
     np.testing.assert_allclose(got.predict(X), ref.predict(X), rtol=1e-5)
+
+
+def _categorical_data(seed, n):
+    """Two categorical columns (12 and 5 categories, integer codes) with
+    their own effects, beside four normal features."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 6))
+    X[:, 0] = rng.integers(0, 12, size=n)
+    X[:, 1] = rng.integers(0, 5, size=n)
+    effect = rng.normal(size=12)
+    s = (effect[X[:, 0].astype(int)] + 0.8 * (X[:, 1] == 2) + X[:, 2]
+         + 0.1 * rng.normal(size=n))
+    return X, (s > 0).astype(float)
+
+
+def test_port_trains_the_oracle_trees_on_categorical_columns():
+    """A pinned fixture with two categorical columns: the port grows the
+    oracle's trees as partitions of the training rows, with the same
+    split features and decision types, and its leaves to the tolerances
+    above; the model routes through the ranked predictor's categorical
+    branch (V == threshold) as the host trees route.  Leaf values agree
+    with the f32 onehot run to 1e-4 relative: on this data the numeric
+    columns alone already differ by up to 6.3e-5 relative in the later
+    trees' leaves (ROADMAP C, leaves with balanced gradients; another
+    summation order), and the categorical ones by 3.6e-5."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import predict as tpredict
+
+    X, y = _categorical_data(1, 2500)
+    Xv, yv = _categorical_data(1001, 600)
+    Xv[:40, 0] = 99.0                        # a category never seen
+    base = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 20,
+            "max_bin": 63, "verbose": -1, "tpu_growth": "wave",
+            "tpu_wave_width": 4}
+    oracle = dict(base, tpu_histogram_mode="pallas_ct",
+                  tpu_pallas_interpret=True, tpu_hist_precision="hilo")
+    cats = [0, 1]
+    bj = lgbj.train(oracle, lgbj.Dataset(X, label=y, categorical_feature=cats),
+                    3, verbose_eval=False)
+    bf = lgbj.train(dict(base, tpu_histogram_mode="onehot"),
+                    lgbj.Dataset(X, label=y, categorical_feature=cats), 3,
+                    verbose_eval=False)
+    bt = lgbt.train(oracle, lgbt.Dataset(X, label=y, categorical_feature=cats),
+                    3, device="cpu")
+    bt._gbdt._materialize()
+    models = bt._gbdt.models
+    assert sum(int((t.decision_type[:t.num_leaves - 1] == 1).sum())
+               for t in models) >= 10
+    shape = ("split_feature", "decision_type", "left_child", "right_child")
+
+    def trees(b):
+        return [ln for ln in b.model_to_string().splitlines()
+                if ln.startswith(shape)]
+
+    def partitions(b):
+        return np.stack([t.predict_leaf_index(X) for t in b._gbdt.models],
+                        axis=1)
+
+    assert trees(bt) == trees(bj) == trees(bf)
+    np.testing.assert_array_equal(partitions(bt), partitions(bj))
+    np.testing.assert_array_equal(partitions(bt), partitions(bf))
+    lt, lf, lj = (_leaf_values(b.model_to_string()) for b in (bt, bf, bj))
+    np.testing.assert_allclose(lt, lf, rtol=1e-4)
+    np.testing.assert_allclose(lt, lj, rtol=0, atol=1e-3 * np.abs(lj).max())
+    np.testing.assert_allclose(bt.predict(Xv), bf.predict(Xv), rtol=1e-4)
+
+    rp = tpredict.build_ranked_predictor(models, 1, Xv.shape[1], "cpu")
+    assert rp.cat_features == frozenset(cats)
+    V, D = tpredict.rank_encode(rp, Xv)
+    leaves = tpredict.ranked_leaf_indices(rp.dev, torch.from_numpy(V),
+                                          torch.from_numpy(D)).numpy()
+    np.testing.assert_array_equal(
+        leaves, np.stack([t.predict_leaf_index(Xv) for t in models], axis=1))
