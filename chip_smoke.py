@@ -14,7 +14,8 @@ growth on the row-major bins; with DART, GOSS and InfiniteBoost),
 softmax over 7 classes on the flagship features, early stopping, and
 the Bosch-shaped sparse recipe through ``lightgbm_tpu_torch.train``,
 then predicts in bulk and serves requests through ``Booster.serve``,
-and checks what comes out.
+then drives the file path (``python -m lightgbm_tpu_torch`` on TSV
+files, the host library), and checks what comes out.
 Any failed check ends the run with a non-zero exit code and no result
 line.  Without a CUDA device it exits non-zero at once.
 
@@ -117,6 +118,19 @@ Phases, in order:
     prints rows a second of both bulk paths with the encode and device
     split, p50/p99 latency, requests and rows a second, batches, pad
     rows and the graphs' memory.
+ 8. The file path on phase 7's data (200,000 x 28 training rows, 200,000
+    fresh rows with their labels) at the flagship's params: both written
+    as TSV (%.17g), ``python -m lightgbm_tpu_torch task=train`` in a
+    subprocess on the card (5 iterations, model text equal to an
+    in-process ``train`` on the same arrays, to the byte),
+    ``Dataset.construct()`` through the host library and its Python
+    fallback (equal bins and bounds, both timed), ``task=predict`` on the
+    fresh rows through the device path (the file equal to
+    ``Booster.predict`` printed with %.9g), ``input_model=`` plus 5
+    rounds (10 trees, scores from the base model's f64 host trees, valid
+    AUC no lower than the base's less 1e-3), checkpoint resume (3 rounds,
+    then 5: 2 more trained, the first 3 trees kept), and the host trees
+    of phase 7's model in rows a second, native against Python.
  With --profile, every training run of phases 4 and 5 and the
  multiclass run profile one more iteration: its wall time, device busy
  share, device operations and graph replays; phase 7 profiles one
@@ -1518,13 +1532,15 @@ def early_stopping_phase(lgb, card):
 def make_serve_data(rows, fresh):
     """bench_serve.py build_model's recipe (:41-51): default_rng(11), 28
     normal features drawn as float32, w normal, y = (X @ w > 0); then
-    ``fresh`` more rows of the same recipe from the same generator."""
+    ``fresh`` more rows of the same recipe from the same generator, and
+    their labels."""
     rng = np.random.default_rng(11)
     X = rng.normal(size=(rows, 28)).astype(np.float32)
     w = rng.normal(size=28)
     y = (X @ w > 0).astype(np.float64)
     Xf = rng.normal(size=(fresh, 28)).astype(np.float32)
-    return np.asarray(X, np.float64), y, np.asarray(Xf, np.float64)
+    yf = (Xf @ w > 0).astype(np.float64)
+    return np.asarray(X, np.float64), y, np.asarray(Xf, np.float64), yf
 
 
 def run_load(sp, X, requests, threads, sizes, seed=5):
@@ -1611,12 +1627,13 @@ def serve_phase(args, lgb, card, dev):
     the same rows served alone and within 2e-6 of the host trees; one
     request each on the es and contrib routes equal to Booster.predict.
     The model's 200,000 training rows are binned as bench_serve.py bins
-    them (the port's host binning: most of the phase's set-up)."""
+    them (through the port's host library).  Returns (X, y, the 200,000
+    fresh rows of 7a and their labels, the model text) for phase 8."""
     import gc
     import torch
     from lightgbm_tpu_torch.ops import predict as tp
     t_phase = time.perf_counter()
-    X, y, Xb = make_serve_data(SERVE_ROWS, BULK_ROWS)
+    X, y, Xb, yb = make_serve_data(SERVE_ROWS, BULK_ROWS)
     params = {"objective": "binary", "num_leaves": SERVE_LEAVES,
               "max_bin": 63, "verbose": -1}
     stamps = []
@@ -1735,7 +1752,7 @@ def serve_phase(args, lgb, card, dev):
     # ---- 7c. serving, on the 200,000 fresh rows 7a held against the host
     # trees (bench_serve.py serves its training rows; these are rows of
     # the same recipe whose host scores are already known)
-    X = Xb[sl]
+    X_train, X = X, Xb[sl]
     conv_host = gbdt.objective.convert_output(raw_host)
     sp = booster.serve(max_batch=SERVE_MAX_BATCH, max_delay_ms=2.0)
     try:
@@ -1809,6 +1826,264 @@ def serve_phase(args, lgb, card, dev):
         sp.close()
     say("phase 7 (prediction and serving): %.1f s"
         % (time.perf_counter() - t_phase))
+    return (X_train, y, Xb[:SERVE_ROWS].copy(), yb[:SERVE_ROWS].copy(),
+            booster.model_to_string())
+
+
+def auc(y, score):
+    """Area under the ROC curve (ties counted half), from the ranks."""
+    order = np.argsort(score, kind="mergesort")
+    s = score[order]
+    ranks = np.empty(len(s))
+    i = 0
+    while i < len(s):
+        j = i
+        while j + 1 < len(s) and s[j + 1] == s[i]:
+            j += 1
+        ranks[i:j + 1] = (i + j) / 2.0 + 1
+        i = j + 1
+    r = np.empty(len(s))
+    r[order] = ranks
+    pos = y > 0
+    n1, n0 = pos.sum(), (~pos).sum()
+    return float((r[pos].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
+
+
+def write_tsv(path, X, y):
+    """Label first, then the features, each printed with %.17g (glibc's
+    strtod and Python's float read the same float64 back)."""
+    np.savetxt(path, np.column_stack([y, X]), fmt="%.17g", delimiter="\t")
+
+
+def cli_args(params, **more):
+    kv = dict(params, **more)
+    return ["%s=%s" % (k, v) for k, v in kv.items()]
+
+
+def file_phase(lgb, kernels, card, data):
+    """Phase 8: the file path on the card, on phase 7's data (200,000 x 28
+    training rows of bench_serve.py's recipe and 200,000 fresh rows with
+    their labels) at the flagship's params (binary, 255 leaves, max_bin
+    63, wave growth, W = 32, fused under auto).
+
+    8a the rows written as TSV (label first, %.17g); 8b ``python -m
+    lightgbm_tpu_torch task=train`` (5 iterations, the fresh rows as valid
+    data) in a subprocess on the card, whose model text must equal an
+    in-process lightgbm_tpu_torch.train on the same arrays, to the byte;
+    8c Dataset.construct() of the 200,000 rows through the host library
+    and through the Python fallback: equal bins and bin bounds; 8d
+    task=predict on the fresh rows (the device path under auto), its
+    file equal, text for text, to Booster.predict printed with %.9g; 8e
+    input_model= plus 5 rounds through the CLI: 10 trees, scores starting
+    from the base model's predict_raw(allow_device=False), valid AUC at
+    least the base model's less 1e-3; 8f checkpoint_dir with
+    checkpoint_every=2, 3 rounds then 5: the second run trains 2 rounds,
+    ends with 5 trees, its first 3 the first run's; 8g the host trees
+    (predict_raw(allow_device=False)) of phase 7's 100-tree model on the
+    fresh rows through the host library and the Python loop: equal sums,
+    and their rows/s.  Every launch counter is set to 0 before each
+    in-process run and read after; returns the phase's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+    from lightgbm_tpu_torch import cli, native
+    from lightgbm_tpu_torch.io import parser
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+    from lightgbm_tpu_torch.ops import predict as tp
+    t_phase = time.perf_counter()
+    X, y, Xf, yf, serve_model = data
+    params = flagship_params()
+    total = {name: 0 for name in kernels}
+
+    def add(got):
+        for name, n in got.items():
+            total[name] += n
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        tr, va = os.path.join(work, "train.tsv"), os.path.join(work,
+                                                              "valid.tsv")
+        t0 = time.perf_counter()
+        write_tsv(tr, X, y)
+        write_tsv(va, Xf, yf)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parsed = parser.parse_file(tr)
+        parse_s = time.perf_counter() - t0
+        need(np.array_equal(parsed.features, X)
+             and np.array_equal(parsed.label, y),
+             "8a: the parsed TSV is not the float64 rows written")
+        del parsed
+
+        # ---- 8b. the CLI trains in a subprocess on the card
+        model = os.path.join(work, "cli.txt")
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "lightgbm_tpu_torch", "task=train",
+             "data=" + tr, "valid_data=" + va, "num_iterations=5",
+             "output_model=" + model] + cli_args(params), env=env,
+            cwd=work, capture_output=True, text=True, timeout=900)
+        cli_s = time.perf_counter() - t0
+        need(run.returncode == 0, "8b: python -m lightgbm_tpu_torch "
+             "task=train failed:\n%s" % run.stderr[-4000:])
+        text = open(model).read()
+        t0 = time.perf_counter()
+        booster, got = counted(kernels, lambda: lgb.train(
+            params, lgb.Dataset(X, label=y), 5,
+            valid_sets=[lgb.Dataset(Xf, label=yf)], verbose_eval=False))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        add(got)
+        need(fused_of(booster) is not None, "8b: train did not run fused")
+        need(booster.model_to_string() == text,
+             "8b: the CLI's model text differs from lightgbm_tpu_torch.train"
+             "'s on the same arrays")
+        say("8b on %s: python -m lightgbm_tpu_torch task=train (5 "
+            "iterations, 200,000 rows from TSV) took %.3f s in its "
+            "subprocess; its model text equals lightgbm_tpu_torch.train's "
+            "(%.3f s in-process, fused) to the byte; launches %s"
+            % (card, cli_s, train_s, got))
+
+        # ---- 8c. binning through the host library and the fallback
+        t0 = time.perf_counter()
+        nat = lgb.Dataset(X, label=y, params=params).construct()._handle
+        nat_s = time.perf_counter() - t0
+        with native.disabled():
+            t0 = time.perf_counter()
+            py = lgb.Dataset(X, label=y, params=params).construct()._handle
+            py_s = time.perf_counter() - t0
+        need(nat.binned.tobytes() == py.binned.tobytes(),
+             "8c: native and fallback bins differ")
+        need(all(np.array_equal(a.bin_upper_bound, b.bin_upper_bound)
+                 for a, b in zip(nat.bin_mappers, py.bin_mappers)),
+             "8c: native and fallback bin bounds differ")
+        del nat, py
+
+        # ---- 8d. task=predict on the fresh rows (the device path)
+        out = os.path.join(work, "pred.txt")
+        walks = [0]
+        real_walk = tp.ranked_predict
+
+        def walk(*a, **k):
+            walks[0] += 1
+            return real_walk(*a, **k)
+
+        tp.ranked_predict = walk
+        try:
+            t0 = time.perf_counter()
+            cli.main(["task=predict", "input_model=" + model, "data=" + va,
+                      "output_result=" + out, "verbose=-1"])
+            pred_s = time.perf_counter() - t0
+        finally:
+            tp.ranked_predict = real_walk
+        need(walks[0] > 0, "8d: task=predict did not take the device path")
+        want = "".join("%.9g\n" % v for v in booster.predict(Xf))
+        need(open(out).read() == want,
+             "8d: the predict file differs from Booster.predict (%%.9g)")
+        base_auc = auc(yf, booster.predict(Xf, raw_score=True))
+
+        # ---- 8e. continued training through the CLI
+        seen = {}
+        real_reset = GBDT.reset_training_data
+
+        def spy(self, *a, **k):
+            real_reset(self, *a, **k)
+            if self.models:
+                seen["score"] = self.train_score[0].copy()
+
+        more = os.path.join(work, "more.txt")
+        GBDT.reset_training_data = spy
+        try:
+            _, got = counted(kernels, lambda: cli.main(
+                ["task=train", "data=" + tr, "valid_data=" + va,
+                 "num_iterations=5", "input_model=" + model,
+                 "output_model=" + more] + cli_args(params)))
+        finally:
+            GBDT.reset_training_data = real_reset
+        add(got)
+        base = lgb.Booster(model_file=model)
+        init = base._gbdt.predict_raw(X, allow_device=False)[:, 0]
+        need(np.array_equal(seen.get("score"), init.astype(np.float32)
+                            .astype(np.float64)),
+             "8e: the continued run's scores do not start from the base "
+             "model's predict_raw(allow_device=False)")
+        cont = lgb.Booster(model_file=more)
+        need(cont.num_trees() == 10, "8e: %d trees after 5 + 5"
+             % cont.num_trees())
+        cont_auc = auc(yf, cont.predict(Xf, raw_score=True))
+        need(cont_auc >= base_auc - 1e-3, "8e: valid AUC %.6f after "
+             "continuing, %.6f before" % (cont_auc, base_auc))
+        say("8e continued training through the CLI: 10 trees, the scores "
+            "from the base model's f64 host trees, valid AUC %.6f -> %.6f; "
+            "launches %s" % (base_auc, cont_auc, got))
+
+        # ---- 8f. checkpoint resume through the CLI
+        ck = ["task=train", "data=" + tr, "checkpoint_dir="
+              + os.path.join(work, "ck"), "checkpoint_every=2"]
+        _, got = counted(kernels, lambda: cli.main(
+            ck + ["num_iterations=3", "output_model="
+                  + os.path.join(work, "a.txt")] + cli_args(params)))
+        add(got)
+        iters = [0]
+        real_iter = GBDT.train_one_iter
+
+        def count_iter(self, *a, **k):
+            iters[0] += 1
+            return real_iter(self, *a, **k)
+
+        GBDT.train_one_iter = count_iter
+        try:
+            _, got = counted(kernels, lambda: cli.main(
+                ck + ["num_iterations=5", "output_model="
+                      + os.path.join(work, "b.txt")] + cli_args(params)))
+        finally:
+            GBDT.train_one_iter = real_iter
+        add(got)
+        a = open(os.path.join(work, "a.txt")).read()
+        b = open(os.path.join(work, "b.txt")).read()
+
+        def trees(text):
+            body = text.split("\nfeature importances")[0]
+            return [t.strip() for t in body.split("Tree=")[1:]]
+
+        need(iters[0] == 2, "8f: the resumed run trained %d rounds, not 2"
+             % iters[0])
+        need(len(trees(b)) == 5 and trees(b)[:3] == trees(a),
+             "8f: the resumed model is not the first run's 3 trees and 2 "
+             "more")
+
+        # ---- 8g. the host trees of phase 7's model, native and Python
+        big = lgb.Booster(model_str=serve_model)._gbdt
+        t0 = time.perf_counter()
+        raw_n = big.predict_raw(Xf, allow_device=False)
+        nat_rows = len(Xf) / (time.perf_counter() - t0)
+        with native.disabled():
+            t0 = time.perf_counter()
+            raw_p = big.predict_raw(Xf, allow_device=False)
+            py_rows = len(Xf) / (time.perf_counter() - t0)
+        need(np.array_equal(raw_n, raw_p),
+             "8g: native and Python host trees differ")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    need(total["wave_partition_hist"] > 0 and total["wave_histogram"] > 0
+         and total["score_update"] > 0,
+         "phase 8: a kernel of the path did not launch: %s" % total)
+    say("phase 8 seconds on %s: TSV write %.3f (2 x 200,000 rows), parse "
+        "%.3f (200,000 x 29, Python), binning %.3f native and %.3f Python "
+        "fallback (Dataset.construct, 200,000 x 28), training %.3f "
+        "(in-process, 5 iterations); CLI train subprocess %.3f; CLI predict "
+        "%.3f; host trees (predict_raw(allow_device=False), phase 7's %d "
+        "trees, 200,000 rows) %.0f rows/s native, %.0f rows/s Python"
+        % (card, write_s, parse_s, nat_s, py_s, train_s, cli_s, pred_s,
+           len(big.models), nat_rows, py_rows))
+    say("phase 8 launches: %s" % total)
+    say("phase 8 (files and the CLI): %.1f s" % (time.perf_counter()
+                                                  - t_phase))
+    return total
 
 
 def main():
@@ -2072,7 +2347,11 @@ def main():
         args, lgb, sm, kernels, card)
 
     # ---- 7. prediction and serving at bench_serve.py's full shape
-    serve_phase(args, lgb, card, dev)
+    serve_data = serve_phase(args, lgb, card, dev)
+
+    # ---- 8. the file path: the CLI and the host library on phase 7's data
+    file_launches = file_phase(lgb, kernels, card, serve_data)
+    del serve_data
 
     # ---- 6. result lines: each kernel's launches from its own path's run
     # (B3's from the main path; on the pallas_t run it launched as said)
@@ -2087,6 +2366,9 @@ def main():
     launches["leaf_histogram"] = exact_launches["leaf_histogram"]
     launches["sparse_wave_histogram"] = sparse_launches[
         "sparse_wave_histogram"]
+    # and the file path's runs (phase 8: B1, B3 and B2)
+    for name, n in file_launches.items():
+        launches[name] += n
     sources = {"wave_partition_hist": ("lightgbm_tpu_torch/csrc/wave_fused.cu",
                                        "lightgbm_tpu/ops/pallas_wave.py:508"),
                "score_update": ("lightgbm_tpu_torch/csrc/score_update.cu",

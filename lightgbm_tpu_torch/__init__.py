@@ -4,7 +4,9 @@ The same gradient boosting system as the JAX package beside it, with the
 device code in PyTorch and the TPU's Pallas kernels rewritten by hand in
 CUDA C++ for Hopper (``csrc/``, built with ``nvcc`` on first use).  The
 Python surface mirrors the JAX package's: ``Dataset``, ``Booster``,
-``train`` and the text model format, which both packages read and write.
+``train`` and the text model format, which both packages read and write,
+and the reference's command line (``python -m lightgbm_tpu_torch
+config=train.conf``, cli.py) on text files.
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; asking for CUDA on a machine without it raises.
@@ -13,11 +15,14 @@ from . import callback
 from .basic import Booster, Dataset
 from .callback import (EarlyStopException, early_stopping, print_evaluation,
                        record_evaluation, reset_parameter)
+from .convert_model import model_to_cpp
 from .engine import train
+from .pmml import model_to_pmml
 from .utils.log import LightGBMError
 
 __version__ = "0.1.0"
 
 __all__ = ["Dataset", "Booster", "train", "LightGBMError",
            "EarlyStopException", "early_stopping", "print_evaluation",
-           "record_evaluation", "reset_parameter"]
+           "record_evaluation", "reset_parameter", "model_to_cpp",
+           "model_to_pmml"]

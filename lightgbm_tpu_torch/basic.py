@@ -1,11 +1,13 @@
 """Python-facing Dataset and Booster: the JAX package's ``basic.py``
-surface for in-memory matrices, dense or scipy sparse.
+surface for in-memory matrices, dense or scipy sparse, and text files.
 
 Semantics kept: lazy Dataset construction, validation sets binned with the
 training set's mappers, the parameter dict with its aliases, training,
 evaluation, prediction (raw, converted, leaf indices, contributions,
 prediction early stopping), serving (``Booster.serve``) and the text model
-round trip.  A Booster, trained or loaded from model text, lives on
+round trip, and continued training from a model (``_InnerPredictor``:
+the init scores through the f64 host trees).  A Booster, trained or
+loaded from model text, lives on
 ``device`` ("cuda" unless the caller asks for "cpu"); bulk prediction and
 serving run the ranked traversal there.
 """
@@ -34,9 +36,6 @@ __all__ = ["Dataset", "Booster", "LightGBMError"]
 def _matrix(data):
     """A dense float64 array, or SparseColumns for scipy sparse input,
     which stays sparse (binned column by column, never densified)."""
-    if isinstance(data, str):
-        raise LightGBMError("lightgbm_tpu_torch reads in-memory matrices "
-                            "only; load the file into a numpy array first")
     if isinstance(data, SparseColumns):
         return data
     if is_scipy_sparse(data):
@@ -50,7 +49,11 @@ class Dataset:
     def __init__(self, data, label=None, max_bin=None, reference=None,
                  weight=None, init_score=None, feature_name="auto",
                  categorical_feature="auto", params=None):
-        self.data = _matrix(data)
+        """data: a dense matrix, a scipy sparse matrix, or the path of a
+        CSV/TSV/LibSVM text file (io/dataset.py TrainingData.from_file:
+        the label column, header, ignored and categorical columns from
+        ``params``, and the .weight/.query/.init side files)."""
+        self.data = data if isinstance(data, str) else _matrix(data)
         self.label = None if label is None else np.asarray(label)
         self.reference = reference
         self.weight = weight
@@ -61,15 +64,29 @@ class Dataset:
         if max_bin is not None:
             self.params.setdefault("max_bin", max_bin)
         self._handle: Optional[TrainingData] = None
+        self._predictor: Optional["_InnerPredictor"] = None
 
     def construct(self) -> "Dataset":
-        """Bin the raw data (no-op when already constructed)."""
+        """Bin the raw data (no-op when already constructed).  Dense rows
+        are kept (``raw_data``) for continued training."""
         if self._handle is not None:
             return self
         cfg = Config(dict(self.params))
         ref_td = None
         if self.reference is not None:
             ref_td = self.reference.construct()._handle
+        if isinstance(self.data, str):
+            self._handle = TrainingData.from_file(self.data, cfg,
+                                                  reference=ref_td,
+                                                  keep_raw=True)
+            if self.label is not None:
+                self._handle.metadata.set_label(self.label)
+            for name, value in (("weight", self.weight),
+                                ("init_score", self.init_score)):
+                if value is not None:
+                    self._handle.metadata.set_field(name, value)
+            self._fill_init_score()
+            return self
         names = (None if self.feature_name in (None, "auto")
                  else list(self.feature_name))
         cats = []
@@ -85,11 +102,40 @@ class Dataset:
         build = (TrainingData.from_csc
                  if isinstance(self.data, SparseColumns)
                  else TrainingData.from_matrix)
+        kw = {} if isinstance(self.data, SparseColumns) else {
+            "keep_raw": True}
         self._handle = build(
             self.data, label=self.label, config=cfg, weights=self.weight,
             init_score=self.init_score, categorical_feature=cats,
-            feature_names=names, reference=ref_td)
+            feature_names=names, reference=ref_td, **kw)
+        self._fill_init_score()
         return self
+
+    def _set_predictor(self, predictor: "_InnerPredictor") -> "Dataset":
+        """Continued training: the init scores become the predictor's raw
+        scores on this data (at construction, or now if constructed)."""
+        self._predictor = predictor
+        if self._handle is not None:
+            self._fill_init_score()
+        return self
+
+    def _fill_init_score(self) -> None:
+        """(K, N) class-major init scores from the predictor's f64 host
+        trees (JAX basic.py:252-264), on the kept rows or, for sparse
+        data, on bounded dense row chunks."""
+        if self._predictor is None:
+            return
+        handle = self._handle
+        if handle.raw_data is not None:
+            raw = self._predictor.predict_raw_for_init(handle.raw_data)
+        elif isinstance(self.data, SparseColumns):
+            raw = np.concatenate(
+                [self._predictor.predict_raw_for_init(block)
+                 for _, block in iter_dense_row_chunks(self.data)])
+        else:
+            raise LightGBMError("continued training needs the raw rows of "
+                                "the training data")
+        handle.metadata.set_init_score(raw.T.reshape(-1))
 
     def create_valid(self, data, label=None, weight=None, init_score=None,
                      params=None) -> "Dataset":
@@ -110,17 +156,49 @@ class Dataset:
         return self
 
     def num_data(self) -> int:
+        if self._handle is not None or isinstance(self.data, str):
+            return self.construct()._handle.num_data
         if isinstance(self.data, SparseColumns):
             return self.data.num_row
         return int(self.data.shape[0])
 
     def num_feature(self) -> int:
+        if self._handle is not None or isinstance(self.data, str):
+            return self.construct()._handle.num_total_features
         if isinstance(self.data, SparseColumns):
             return self.data.num_col
         return int(self.data.shape[1])
 
     def get_label(self):
+        if self._handle is not None and self._handle.metadata.label is not None:
+            return np.asarray(self._handle.metadata.label)
         return self.label
+
+
+class _InnerPredictor:
+    """Continued-training score provider (JAX basic.py:446-473): a model
+    from a Booster, a model file or model text, whose raw scores seed a
+    new training run."""
+
+    def __init__(self, booster: Optional["Booster"] = None,
+                 model_file: Optional[str] = None,
+                 model_str: Optional[str] = None):
+        if booster is not None:
+            self.gbdt = booster._gbdt
+            return
+        if model_file is not None:
+            with open(model_file) as f:
+                model_str = f.read()
+        if model_str is None:
+            raise LightGBMError("Need booster, model_file or model_str")
+        # only its host trees run: it lives on the CPU
+        self.gbdt = GBDT(Config(), resolve_device("cpu"))
+        self.gbdt.load_model_from_string(model_str)
+
+    def predict_raw_for_init(self, features: np.ndarray) -> np.ndarray:
+        """(N, K) raw scores on the exact f64 host path: the init scores
+        of continued training must not take the f32 device traversal."""
+        return self.gbdt.predict_raw(features, allow_device=False)
 
 
 class Booster:
@@ -155,6 +233,10 @@ class Booster:
             self._gbdt = create_boosting(cfg.boosting_type, cfg,
                                          self.device, handle, objective,
                                          metrics)
+            if train_set._predictor is not None:
+                # continued training: the scores start from the init
+                # model's raw scores; its trees go in front
+                self._gbdt.merge_init_models(train_set._predictor.gbdt)
         elif model_file is not None or model_str is not None:
             if model_file is not None:
                 with open(model_file) as f:
@@ -270,9 +352,11 @@ class Booster:
                 pred_early_stop: bool = False,
                 pred_early_stop_freq: int = 10,
                 pred_early_stop_margin: float = 10.0):
-        """Predict rows of a dense or scipy sparse matrix: (N,) for one
-        tree an iteration, (N, K) for K.  Sparse input is densified a
-        bounded row chunk at a time.  num_iteration <= 0 uses every tree
+        """Predict rows of a dense or scipy sparse matrix, or of a text
+        file (its path; ``data_has_header`` skips its first line, and its
+        label column, the first, is dropped as the CLI drops it): (N,)
+        for one tree an iteration, (N, K) for K.  Sparse input is
+        densified a bounded row chunk at a time.  num_iteration <= 0 uses every tree
         (not best_iteration, as in the JAX package).
 
         Raw and converted scores go through the ranked traversal on the
@@ -288,6 +372,10 @@ class Booster:
             raise TypeError("Cannot use Dataset instance for prediction, "
                             "please use raw data instead")
         t0 = time.perf_counter()
+        if isinstance(data, str):
+            from .io import parser as _parser
+            data = _parser.parse_file(data,
+                                      has_header=data_has_header).features
         out, rows = self._predict_data(data, num_iteration, raw_score,
                                        pred_leaf, pred_contrib,
                                        pred_early_stop, pred_early_stop_freq,
@@ -339,7 +427,10 @@ class Booster:
         ``request_event_every``, ``slo_p99_ms``, ``slo_qps``,
         ``slo_window_s``, ``slo_every_s``, ``slo_mode``,
         ``num_features``, ``devices``).  Close it, or use it as a context
-        manager, to flush the queue and stop the worker thread.  Drift
+        manager, to flush the queue and stop the worker thread.  The
+        predictor takes this booster's trees once, when it is built: a
+        later update, rollback or reload of the booster does not reach
+        it (build another).  Drift
         monitoring (``obs_drift_every``) and the live telemetry plane
         (``obs_http_port``) are not in the port yet and raise."""
         from .serve import ServingPredictor

@@ -11,7 +11,10 @@ Parity target: src/io/bin.cpp:66-294.  Semantics kept exactly:
   unseen categories map to the last bin (bin.h:433-440).
 * Trivial-feature filtering via ``need_filter`` (bin.cpp:47-66).
 
-The binned representation feeds the learner as a dense uint8/int32 matrix.
+Numerical features bin through the host library (``native.py``,
+``csrc/host/native.cpp``) when it is built; the Python code here is its
+fallback and gives the same bounds.  The binned representation feeds the
+learner as a dense uint8/int32 matrix.
 """
 from __future__ import annotations
 
@@ -139,6 +142,18 @@ class BinMapper:
         # its parser never produces NaN; map them to zero for robustness.
         values = values[~np.isnan(values)]
 
+        if bin_type == NUMERICAL:
+            from .. import native
+            res = native.find_bin_numerical(values, total_sample_cnt,
+                                            max_bin, min_data_in_bin,
+                                            min_split_data)
+            if res is not None:
+                (self.bin_upper_bound, self.is_trivial, self.min_val,
+                 self.max_val, self.default_bin, self.sparse_rate) = res
+                self.num_bin = len(self.bin_upper_bound)
+                return
+        # the pure-Python path: categorical features, and numerical ones
+        # without the host library
         num_sample_values = len(values)
         zero_cnt = int(total_sample_cnt - num_sample_values)
         values = np.sort(values, kind="stable")

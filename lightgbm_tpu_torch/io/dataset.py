@@ -1,8 +1,8 @@
 """Training dataset: binned column store + metadata (host side, numpy).
 
 Parity target: src/io/dataset.cpp + src/io/dataset_loader.cpp, the
-in-memory ``from_matrix`` and sparse ``from_csc`` paths of the JAX
-package's ``io/dataset.py``.
+in-memory ``from_matrix``, sparse ``from_csc`` and text-file
+``from_file`` paths of the JAX package's ``io/dataset.py``.
 The binned matrix is a dense row-major ``(num_data, num_used_columns)``
 uint8/uint16 array; with EFB its columns are feature groups
 (io/bundle.py).  Binned bytes, mapper dicts and the bundle layout are
@@ -14,6 +14,7 @@ EFB on the binning sample -> bin all rows -> metadata check.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -24,6 +25,7 @@ from ..utils.random import Random
 from .binning import CATEGORICAL, NUMERICAL, BinMapper
 from .bundle import BundleLayout, bin_rows_grouped, find_feature_groups
 from .metadata import Metadata
+from . import parser as _parser
 
 
 class TrainingData:
@@ -49,6 +51,9 @@ class TrainingData:
         self.is_categorical_arr: Optional[np.ndarray] = None
         # EFB layout (io/bundle.py); None = binned holds per-feature bins
         self.bundle: Optional[BundleLayout] = None
+        # the float64 rows, kept (keep_raw) where a loaded model must be
+        # scored on them (continued training)
+        self.raw_data: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------- construct
     @classmethod
@@ -57,8 +62,8 @@ class TrainingData:
                     init_score=None,
                     categorical_feature: Sequence[int] = (),
                     feature_names: Optional[List[str]] = None,
-                    reference: Optional["TrainingData"] = None
-                    ) -> "TrainingData":
+                    reference: Optional["TrainingData"] = None,
+                    keep_raw: bool = False) -> "TrainingData":
         config = config or Config()
         data = np.ascontiguousarray(np.asarray(data, dtype=np.float64))
         if data.ndim != 2:
@@ -74,7 +79,68 @@ class TrainingData:
         else:
             self._construct_mappers(data, config, cats)
             self._bin_data(data)
+        if keep_raw:
+            self.raw_data = data
         self._set_metadata(label, weights, init_score)
+        return self
+
+    @classmethod
+    def from_file(cls, filename: str, config: Optional[Config] = None,
+                  reference: Optional["TrainingData"] = None,
+                  keep_raw: bool = False) -> "TrainingData":
+        """CSV/TSV/space/LibSVM text file (dataset_loader.cpp:159-216):
+        parse, label column, header names as feature names, ignored and
+        categorical columns, then the ``.weight``/``.query``/``.init``
+        side files.
+
+        The file is parsed in memory, whatever its size.  The JAX package
+        streams dense files over 256 MB, and files under
+        ``use_two_round_loading`` or ``ooc_binned_dir``, in two rounds
+        (out-of-core loading, not in the port yet: those options and
+        pre-binned directories raise)."""
+        config = config or Config()
+        if os.path.isdir(filename):
+            Log.fatal("%s is a directory: pre-binned datasets are "
+                      "out-of-core loading, not in lightgbm_tpu_torch yet",
+                      filename)
+        if config.use_two_round_loading or config.ooc_binned_dir:
+            Log.fatal("use_two_round_loading and ooc_binned_dir are "
+                      "out-of-core loading, not in lightgbm_tpu_torch yet")
+        label_idx = 0
+        header_names: Optional[List[str]] = None
+        if config.has_header:
+            header_names = _parser.read_header(filename)
+        if config.label_column:
+            lc = config.label_column
+            if lc.startswith("name:"):
+                name = lc[5:]
+                if not header_names or name not in header_names:
+                    Log.fatal("Could not find label column %s in data file",
+                              name)
+                label_idx = header_names.index(name)
+            else:
+                label_idx = int(lc)
+        feature_names = None
+        if header_names:
+            feature_names = [n for i, n in enumerate(header_names)
+                             if i != label_idx]
+        categorical = _resolve_columns(config.categorical_column,
+                                       feature_names)
+        ignore = _resolve_columns(config.ignore_column, feature_names)
+        parsed = _parser.parse_file(filename, has_header=config.has_header,
+                                    label_idx=label_idx)
+        data = parsed.features
+        if ignore:
+            keep = [i for i in range(data.shape[1]) if i not in ignore]
+            data = data[:, keep]
+            if feature_names:
+                feature_names = [feature_names[i] for i in keep]
+            categorical = {keep.index(c) for c in categorical if c in keep}
+        self = cls.from_matrix(data, label=parsed.label, config=config,
+                               categorical_feature=sorted(categorical),
+                               feature_names=feature_names,
+                               reference=reference, keep_raw=keep_raw)
+        self.metadata.init_from_file(filename)
         return self
 
     @classmethod
@@ -328,3 +394,25 @@ class TrainingData:
             else:
                 out.append(self.bin_mappers[i].bin_info())
         return out
+
+
+def _resolve_columns(spec: str, feature_names: Optional[List[str]]) -> set:
+    """Parse 'name:a,b,c' or '0,1,2' column specs (dataset_loader.cpp:22-120
+    SetHeader column-role resolution)."""
+    out: set = set()
+    if not spec:
+        return out
+    if spec.startswith("name:"):
+        names = spec[5:].split(",")
+        if feature_names:
+            for nm in names:
+                if nm in feature_names:
+                    out.add(feature_names.index(nm))
+                else:
+                    Log.warning("Could not find column %s in data file", nm)
+    else:
+        for tok in spec.split(","):
+            tok = tok.strip()
+            if tok:
+                out.add(int(tok))
+    return out

@@ -86,6 +86,8 @@ class DART(GBDT):
                 tree = self._tree_at(i, tid)
                 tree.shrink(-1.0)
                 self._apply_tree_to_train(tree, tid)
+        if self.drop_index:
+            self._models_changed()
         k = float(len(self.drop_index))
         if not cfg.xgboost_dart_mode:
             self.shrinkage_rate = cfg.learning_rate / (1.0 + k)
@@ -122,3 +124,5 @@ class DART(GBDT):
                     self.sum_weight -= self.tree_weight[i] * (
                         1.0 / (k + cfg.learning_rate))
                     self.tree_weight[i] *= k / (k + cfg.learning_rate)
+        if self.drop_index:
+            self._models_changed()

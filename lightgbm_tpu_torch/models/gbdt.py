@@ -66,6 +66,9 @@ class GBDT:
         self.models: List[Optional[Tree]] = []
         self._models_dev: List[Optional[object]] = []
         self._models_shrink: List[float] = []
+        # bumped by every change to the trees (append, pop, load, merge,
+        # in-place reweighting): the device predictor's cache key
+        self.model_generation = 0
         self.iter = 0
         self.num_init_iteration = 0
         self.boost_from_average_used = False
@@ -124,14 +127,19 @@ class GBDT:
         k = self.num_tree_per_iteration
         init = train_data.metadata.init_score
         self.has_init_score = init is not None
-        score0 = np.zeros((k, self.num_data), dtype=np.float32)
+        score0 = np.zeros((k, self.num_data), dtype=np.float64)
         if self.has_init_score:
             if (len(init) % self.num_data != 0
                     or len(init) // self.num_data != k):
                 Log.fatal("number of class for initial score error")
             score0[:] = np.asarray(init, dtype=np.float64).reshape(
                 k, self.num_data)
-        self._score_dev = torch.as_tensor(score0, device=self.device)
+        # continued training (a loaded model, then new training data):
+        # the trees' f64 host sums on the raw rows join the init score,
+        # rounded to f32 once
+        score0 += self._existing_raw_scores(train_data, "training")
+        self._score_dev = torch.as_tensor(score0.astype(np.float32),
+                                          device=self.device)
         # degenerate class handling (gbdt.cpp:166-205)
         self.class_need_train = [True] * k
         self.class_default_output = [0.0] * k
@@ -172,18 +180,35 @@ class GBDT:
         if config.bagging_fraction < 1.0 and config.bagging_freq > 0:
             self.bag_data_cnt = int(config.bagging_fraction * self.num_data)
 
+    def _existing_raw_scores(self, data: TrainingData,
+                             what: str) -> np.ndarray:
+        """(K, N) float64 raw scores of the trees the booster already
+        holds (a loaded or merged model) on data's raw rows, through the
+        f64 host path; zeros when it holds none."""
+        k = self.num_tree_per_iteration
+        if not self.models:
+            return np.zeros((k, data.num_data), dtype=np.float64)
+        if data.raw_data is None:
+            Log.fatal("continued training needs the raw rows of the %s "
+                      "data (keep_raw) to score the loaded trees", what)
+        return self.predict_raw(data.raw_data, allow_device=False).T
+
     def add_valid_dataset(self, valid_data: TrainingData,
                           valid_metrics: Sequence[Metric]) -> None:
-        """GBDT::AddValidDataset (gbdt.cpp:210-240) before training: its
-        (K, N) scores start at its init score."""
-        if self.models:
+        """GBDT::AddValidDataset (gbdt.cpp:210-240): its (K, N) scores
+        start at its init score plus, when the booster already holds
+        trees (continued training), their f64 host sums on its raw
+        rows."""
+        if self.iter > 0:
             Log.fatal("add validation data before the first iteration")
         k = self.num_tree_per_iteration
-        score = np.zeros((k, valid_data.num_data), dtype=np.float32)
+        score = np.zeros((k, valid_data.num_data), dtype=np.float64)
         init = valid_data.metadata.init_score
         if init is not None:
             score[:] = np.asarray(init, dtype=np.float64).reshape(
                 k, valid_data.num_data)
+        score += self._existing_raw_scores(valid_data, "validation")
+        score = score.astype(np.float32)
         self.valid_data.append(valid_data)
         self._valid_X_dev.append(torch.as_tensor(valid_data.binned,
                                                  device=self.device))
@@ -245,16 +270,40 @@ class GBDT:
             self.models[i] = tree
             self._models_dev[i] = None
 
+    def _models_changed(self) -> None:
+        """Record a change to the trees: a new model generation."""
+        self.model_generation += 1
+
     def _append_host_tree(self, tree: Tree) -> None:
         self.models.append(tree)
         self._models_dev.append(None)
         self._models_shrink.append(1.0)
+        self._models_changed()
 
     def _pop_models(self, count: int) -> None:
         for _ in range(count):
             self.models.pop()
             self._models_dev.pop()
             self._models_shrink.pop()
+        self._models_changed()
+
+    def merge_init_models(self, base: "GBDT") -> None:
+        """Put a base model's trees in front of this booster's (the
+        JAX package's continued training through ``train(init_model=)``):
+        the scores already start from the base model's raw scores (the
+        init score), so only the trees join.  Copies, so a later in-place
+        change (rollback's shrink) of one booster leaves the other as it
+        was."""
+        import copy
+        base._materialize()
+        trees = [copy.deepcopy(t) for t in base.models]
+        self.models = trees + self.models
+        self._models_dev = [None] * len(trees) + self._models_dev
+        self._models_shrink = [1.0] * len(trees) + self._models_shrink
+        self.num_init_iteration = (len(trees)
+                                   // max(base.num_tree_per_iteration, 1))
+        self.boost_from_average_used = base.boost_from_average_used
+        self._models_changed()
 
     def _add_constant(self, value: float, tid=None) -> None:
         """Add value to every score (tid None) or to row tid, in place."""
@@ -390,6 +439,7 @@ class GBDT:
             self.models.append(None)
             self._models_dev.append(stored)
             self._models_shrink.append(self.shrinkage_rate)
+            self._models_changed()
             grown.append(stats.num_leaves)
 
         should_continue = bool(grown)
@@ -523,8 +573,10 @@ class GBDT:
         """Raw scores (N, K) on real-valued features, tree t adding to
         class t % K (gbdt_prediction.cpp PredictRaw): through the ranked
         traversal on the booster's device where ``tpu_predict`` says so
-        (_device_bulk_predict), else summed in float64 on the host.
-        allow_device=False pins the exact f64 host path."""
+        (_device_bulk_predict), else summed in float64 on the host, in
+        tree order, by the host library (native.py) or the Python trees
+        (the same bits).  allow_device=False pins the exact f64 host
+        path."""
         self._materialize()
         features = np.ascontiguousarray(np.asarray(features,
                                                    dtype=np.float64))
@@ -534,6 +586,11 @@ class GBDT:
             dev = self._device_bulk_predict(features, num_used, k)
             if dev is not None:
                 return dev
+        from .. import native
+        nat = native.predict_raw(
+            [(self.models[t], t % k) for t in range(num_used)], k, features)
+        if nat is not None:
+            return nat
         out = np.zeros((features.shape[0], k), dtype=np.float64)
         for t in range(num_used):
             out[:, t % k] += self.models[t].predict(features)
@@ -574,8 +631,9 @@ class GBDT:
             if (device.type != "cuda"
                     or features.shape[0] < self._DEVICE_PREDICT_MIN_ROWS):
                 return None
-        key = (num_used, k, len(self.models), self.iter,
-               features.shape[1])
+        # keyed on the model generation: a rollback followed by a new
+        # iteration restores the tree count with another last tree
+        key = (num_used, k, self.model_generation, features.shape[1])
         if getattr(self, "_ranked_pred_key", None) != key:
             try:
                 self._ranked_pred = dev_predict.build_ranked_predictor(
@@ -758,6 +816,7 @@ class GBDT:
         self.num_init_iteration = (len(self.models)
                                    // max(self.num_tree_per_iteration, 1))
         self.iter = 0
+        self._models_changed()
         return True
 
     # ------------------------------------------------------------ importance

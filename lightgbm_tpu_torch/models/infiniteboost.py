@@ -78,3 +78,4 @@ class InfiniteBoost(GBDT):
                 self.capacity * m / self.normalization,
                 MAXIMAL_CONTRIBUTION * self.current_normalization
                 / self.normalization))
+        self._models_changed()

@@ -1444,3 +1444,99 @@ def test_categorical_training_on_the_card_matches_the_cpu(dev):
                  axis=1))
     np.testing.assert_allclose(card.predict(Xv), runs[1].predict(Xv),
                                rtol=1e-5)
+
+
+def test_host_library_builds_on_the_card_host():
+    """The host library (native.py, csrc/host/native.cpp) builds with the
+    host compiler into lightgbm_tpu_torch/_build and bins as its Python
+    fallback does."""
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.io.binning import NUMERICAL, BinMapper
+
+    assert native.available()
+    assert native.lib_path.parent == native.BUILD_DIR
+    assert native.BUILD_DIR.name == "_build"
+    rng = np.random.default_rng(0)
+    vals = rng.normal(size=5000)
+    got, want = BinMapper(), BinMapper()
+    got.find_bin(vals, 6000, 63, 3, 5, NUMERICAL)
+    with native.disabled():
+        want.find_bin(vals, 6000, 63, 3, 5, NUMERICAL)
+    np.testing.assert_array_equal(got.bin_upper_bound, want.bin_upper_bound)
+
+
+def _cli_data(n, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 8))
+    return X, (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] > 0).astype(float)
+
+
+def _write_tsv(path, X, y):
+    with open(path, "w") as f:
+        for yy, row in zip(y, X):
+            f.write("\t".join("%.17g" % v for v in (yy, *row)) + "\n")
+
+
+CLI_PARAMS = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "verbose": -1}
+
+
+def _cli_args(extra):
+    return ["%s=%s" % kv for kv in CLI_PARAMS.items()] + extra
+
+
+def test_cli_train_on_the_card_equals_train(dev, tmp_path, monkeypatch):
+    """task=train through the CLI on the card (the default device) gives
+    the model text of lightgbm_tpu_torch.train on the same arrays, to the
+    byte; continued training then appends to the loaded trees."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import cli
+
+    monkeypatch.chdir(tmp_path)
+    X, y = _cli_data(20_000, 21)
+    _write_tsv("t.tsv", X, y)
+    cli.main(_cli_args(["task=train", "data=t.tsv", "num_iterations=4",
+                        "output_model=m.txt"]))
+    want = lgb.train(CLI_PARAMS, lgb.Dataset(X, label=y), 4).model_to_string()
+    assert open("m.txt").read() == want
+    cli.main(_cli_args(["task=train", "data=t.tsv", "num_iterations=3",
+                        "input_model=m.txt", "output_model=more.txt"]))
+    more = lgb.Booster(model_file="more.txt")
+    assert more.num_trees() == 7
+    base = lgb.Booster(model_file="m.txt")
+    ll = [float(np.mean(np.log1p(np.exp(-(2 * y - 1) * b.predict(
+        X, raw_score=True))))) for b in (base, more)]
+    assert ll[1] <= ll[0]
+
+
+def test_cli_predict_on_the_card_takes_the_device_path(dev, tmp_path,
+                                                       monkeypatch):
+    """task=predict on 100,000 rows on the card runs the ranked traversal
+    (tpu_predict=auto) and writes the host trees' predictions within
+    2e-6."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import cli
+
+    monkeypatch.chdir(tmp_path)
+    X, y = _cli_data(20_000, 22)
+    lgb.train(CLI_PARAMS, lgb.Dataset(X, label=y), 5).save_model("m.txt")
+    Xp, _ = _cli_data(100_000, 23)
+    _write_tsv("p.tsv", Xp, np.zeros(len(Xp)))
+    walks = []
+    real = tp.ranked_predict
+
+    def counted(*a, **k):
+        walks.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(tp, "ranked_predict", counted)
+    cli.main(["task=predict", "input_model=m.txt", "data=p.tsv",
+              "output_result=dev.txt", "verbose=-1"])
+    assert walks
+    n = len(walks)
+    cli.main(["task=predict", "input_model=m.txt", "data=p.tsv",
+              "output_result=host.txt", "tpu_predict=false", "verbose=-1"])
+    assert len(walks) == n
+    got, want = np.loadtxt("dev.txt"), np.loadtxt("host.txt")
+    assert got.shape == (100_000,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)

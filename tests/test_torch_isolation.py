@@ -1,6 +1,7 @@
 """The port stands alone: lightgbm_tpu_torch and its scripts
 (chip_smoke.py, sparse_model_diff.py) import neither jax nor the JAX
-package, and its CUDA entry points never fall back to the CPU."""
+package, load no library of the JAX package's (lightgbm_tpu/lib,
+cpp/build), and its CUDA entry points never fall back to the CPU."""
 import ast
 import json
 import os
@@ -24,6 +25,10 @@ def test_import_leaves_no_jax_modules():
             "import lightgbm_tpu_torch.ops.leaf_hist\n"
             "import lightgbm_tpu_torch.serve, lightgbm_tpu_torch.predictor\n"
             "import lightgbm_tpu_torch.obs.serve\n"
+            "import lightgbm_tpu_torch.cli, lightgbm_tpu_torch.native\n"
+            "import lightgbm_tpu_torch.pmml, lightgbm_tpu_torch.convert_model\n"
+            "import lightgbm_tpu_torch.models.checkpoint\n"
+            "import lightgbm_tpu_torch.io.parser\n"
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m == 'jax' or m.startswith(('jax.', 'jaxlib')) or "
             "m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.'))))\n")
@@ -74,6 +79,46 @@ def test_source_imports_no_jax(path):
     text = path.read_text()
     assert "import_module(\"jax" not in text
     assert "__import__(\"jax" not in text
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_source_names_no_jax_package_library(path):
+    text = path.read_text()
+    for name in ("lightgbm_tpu/lib", "cpp/build", "cpp/src",
+                 "liblgbm_tpu_native", "liblgbm_tpu_capi"):
+        assert name not in text, (path, name)
+
+
+def test_port_loads_only_its_own_libraries():
+    """Binning, host prediction and parsing through the port's host
+    library: every shared library of the repository the process maps is
+    the port's own build under lightgbm_tpu_torch/_build."""
+    code = ("import json, numpy as np\n"
+            "import lightgbm_tpu_torch as lgb\n"
+            "from lightgbm_tpu_torch import native\n"
+            "X = np.random.default_rng(0).normal(size=(300, 4))\n"
+            "y = (X[:, 0] > 0).astype(float)\n"
+            "b = lgb.train({'objective': 'binary', 'verbose': -1, "
+            "'num_leaves': 4}, lgb.Dataset(X, label=y), 2, device='cpu')\n"
+            "b._gbdt.predict_raw(X, allow_device=False)\n"
+            "assert native.available()\n"
+            "maps = open('/proc/self/maps').read().split('\\n')\n"
+            "libs = sorted({ln.split()[-1] for ln in maps "
+            "if ln.strip().endswith('.so') or '.so.' in ln})\n"
+            "print(json.dumps([str(native.lib_path), libs]))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    lib, libs = json.loads(out.stdout.strip().splitlines()[-1])
+    build = str(PORT / "_build")
+    assert lib.startswith(build + os.sep) and lib in libs
+    ours = [p for p in libs if p.startswith(str(REPO) + os.sep)]
+    assert ours and all(p.startswith(build + os.sep) for p in ours), ours
+    assert not any("lightgbm_tpu/lib" in p or "cpp/build" in p
+                   for p in libs)
 
 
 def test_cuda_entry_point_raises_without_cuda():
