@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py [--rows 2000000] [--sparse-rows 1000000] [--profile]
-                          [--sweep]
+                          [--sweep] [--seed 0]
 
 It builds the port's CUDA kernels from lightgbm_tpu_torch/csrc, holds each
 against its plain torch version at the main paths' shapes, times it,
@@ -15,7 +15,9 @@ softmax over 7 classes on the flagship features, early stopping, and
 the Bosch-shaped sparse recipe through ``lightgbm_tpu_torch.train``,
 then predicts in bulk and serves requests through ``Booster.serve``,
 then drives the file path (``python -m lightgbm_tpu_torch`` on TSV
-files, the host library), and checks what comes out.
+files, the host library) and the Python API (the python-guide examples,
+lambdarank at MSLR-WEB10K's shape, custom objectives, pickling, cv and
+the scikit-learn estimators), and checks what comes out.
 Any failed check ends the run with a non-zero exit code and no result
 line.  Without a CUDA device it exits non-zero at once.
 
@@ -131,6 +133,30 @@ Phases, in order:
     AUC no lower than the base's less 1e-3), checkpoint resume (3 rounds,
     then 5: 2 more trained, the first 3 trees kept), and the host trees
     of phase 7's model in rows a second, native against Python.
+ 9. The Python API on the card.  9a: examples/python-guide's four
+    examples, each with its one line ``import lightgbm_tpu as lgb``
+    replaced by ``import lightgbm_tpu_torch as lgb`` (the line must be
+    there once; examples/ is not edited), run at once in four processes
+    on the default device: each must exit 0 with output; their seconds.
+    9b: lambdarank at MSLR-WEB10K's published shape, synthetic from
+    --seed: 10,000 queries of lognormal length (mean 120, clipped to
+    1-1,000), 136 features, labels 0-4 at about MSLR's skew cut from a
+    hidden linear score plus noise (shares printed), 2,000 more queries
+    as the valid set; examples/lambdarank/train.conf's params (31 leaves,
+    learning rate 0.1, NDCG at 1, 3, 5, max_bin 255); 5 iterations fused
+    then staged, equal model text, B3 on every wave (136 x 256 bins are
+    past the ct bound), NDCG@5 rising; one get_gradients call timed on
+    the card against get_gradients_host on the host, their largest gap
+    within rtol 2e-4 / atol 2e-5; binning seconds, the graphs' pools.
+    9c (run after phase 4, on its rows): a fobj returning the port's
+    BinaryLogloss gradients (boost_from_average=false) trains phase 4's
+    trees, every Tree= section to the byte, on the staged chain; a numpy
+    logistic fobj with a feval for 5 rounds, valid AUC above 0.8, its
+    it/s.  9d: pickle and deepcopy of phase 7's model predict the same
+    bits; cv(nfold=5, stratified=True) on 200,000 rows of phase 7's data
+    (auc-mean); LGBMClassifier at the flagship's params and LGBMRanker on
+    9b's data train train's model text.  Every in-process run is counted
+    into the kernel line.
  With --profile, every training run of phases 4 and 5 and the
  multiclass run profile one more iteration: its wall time, device busy
  share, device operations and graph replays; phase 7 profiles one
@@ -167,6 +193,23 @@ SERVE_REQUESTS = 5000
 SERVE_THREADS = 8
 SERVE_SIZES = (1, 8, 32, 100, 256, 512, 1024)
 SERVE_MAX_BATCH = 4096
+# phase 9: the python-guide examples, and ranking at MSLR-WEB10K's
+# published shape (10,000 queries, 136 features) with
+# examples/lambdarank/train.conf's params
+GUIDE_EXAMPLES = ("simple_example", "advanced_example", "plot_example",
+                  "sklearn_example")
+GUIDE_IMPORT = "import lightgbm_tpu as lgb"
+GUIDE_TMP = "/tmp/"
+# the examples that write files under GUIDE_TMP (and read them back)
+GUIDE_WRITES_TMP = ("simple_example", "advanced_example", "plot_example")
+RANK_QUERIES = 10_000
+RANK_VALID_QUERIES = 2_000
+RANK_FEATURES = 136
+RANK_MEAN_DOCS = 120
+RANK_MAX_DOCS = 1000
+# label shares 0..4, about MSLR-WEB10K's skew
+RANK_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)
+CV_ROWS = 200_000
 
 
 def flagship_params():
@@ -1939,7 +1982,9 @@ def file_phase(lgb, kernels, card, data):
         train_s = time.perf_counter() - t0
         add(got)
         need(fused_of(booster) is not None, "8b: train did not run fused")
-        need(booster.model_to_string() == text,
+        # the CLI writes GBDT's model text, as the JAX package's CLI does;
+        # model_to_string adds the Python API's pandas_categorical line
+        need(booster._gbdt.save_model_to_string() == text,
              "8b: the CLI's model text differs from lightgbm_tpu_torch.train"
              "'s on the same arrays")
         say("8b on %s: python -m lightgbm_tpu_torch task=train (5 "
@@ -2086,6 +2131,377 @@ def file_phase(lgb, kernels, card, data):
     return total
 
 
+# ---------------------------------------------------------------- phase 9
+def guide_source(name, replacement, work):
+    """examples/python-guide/<name>.py with its one line ``import
+    lightgbm_tpu as lgb`` replaced and its GUIDE_TMP prefix made the
+    directory ``work`` (so no other run of the examples shares its
+    files); fails unless the line is there exactly once, or if an
+    example of GUIDE_WRITES_TMP holds no GUIDE_TMP path."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "python-guide", name + ".py")
+    with open(path) as f:
+        lines = f.read().split("\n")
+    at = [i for i, ln in enumerate(lines) if ln == GUIDE_IMPORT]
+    need(len(at) == 1, "9a: %s holds %r %d times" % (name, GUIDE_IMPORT,
+                                                      len(at)))
+    lines[at[0]] = replacement
+    src = "\n".join(lines)
+    need(name not in GUIDE_WRITES_TMP or GUIDE_TMP in src,
+         "9a: %s holds no %r path" % (name, GUIDE_TMP))
+    return src.replace(GUIDE_TMP, os.path.join(work, ""))
+
+
+def guide_phase(card):
+    """9a: the four python-guide examples on the port, on the card (the
+    default device): each written to a temporary directory with
+    ``import lightgbm_tpu_torch as lgb`` and run in its own process, the
+    four at once; each must exit 0 with output.  One exception, printed:
+    plot_example is not run where matplotlib is not installed (it exits
+    1 by its own check without it), as on the card's machine so far;
+    ROADMAP A6 keeps its card run queued.  Returns the examples run."""
+    import importlib.util
+    import shutil
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="guide_")
+    env = dict(os.environ, PYTHONPATH=root, MPLBACKEND="Agg")
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name in GUIDE_EXAMPLES:
+            if (name == "plot_example"
+                    and importlib.util.find_spec("matplotlib") is None):
+                say("9a plot_example: NOT RUN on %s: matplotlib is not "
+                    "installed on this machine and the example exits 1 "
+                    "without it; its card run stays queued (ROADMAP A6), "
+                    "tier-1 runs it on the CPU" % card)
+                continue
+            path = os.path.join(work, "port_%s.py" % name)
+            with open(path, "w") as f:
+                f.write(guide_source(name, "import lightgbm_tpu_torch as lgb",
+                                     work))
+            procs[name] = subprocess.Popen(
+                [sys.executable, path], cwd=work, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            secs = time.perf_counter() - t0
+            need(proc.returncode == 0 and out.strip(),
+                 "9a: %s exited %s on the card:\n%s"
+                 % (name, proc.returncode, err[-3000:]))
+            last = out.strip().splitlines()[-1]
+            say("9a %s on %s: exit 0 after %.1f s (the four started "
+                "together); last line: %s" % (name, card, secs, last))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return sorted(procs)
+
+
+def make_ranking(n_queries, seed, w=None, cuts=None):
+    """Ranking data at MSLR-WEB10K's published shape: query lengths
+    lognormal with mean RANK_MEAN_DOCS (sigma 1), clipped to
+    [1, RANK_MAX_DOCS]; 136 normal float32 features; labels 0-4 cut from
+    a hidden linear score plus noise at RANK_SHARES (the cuts and w of a
+    training set are reused for its valid set).  Returns (X, y, query
+    lengths, w, cuts)."""
+    rng = np.random.default_rng(seed)
+    sigma = 1.0
+    lengths = np.clip(np.rint(rng.lognormal(
+        np.log(RANK_MEAN_DOCS) - sigma * sigma / 2, sigma, n_queries)),
+        1, RANK_MAX_DOCS).astype(np.int64)
+    n = int(lengths.sum())
+    X = rng.standard_normal((n, RANK_FEATURES), dtype=np.float32)
+    if w is None:
+        w = (rng.normal(size=RANK_FEATURES)
+             * (rng.random(RANK_FEATURES) > 0.5)).astype(np.float32)
+        w /= np.sqrt(max(1, int((w != 0).sum())))
+    score = X @ w + np.float32(0.6) * rng.standard_normal(n, np.float32)
+    if cuts is None:
+        cuts = np.quantile(score, np.cumsum(RANK_SHARES)[:-1])
+    y = np.searchsorted(cuts, score, side="right").astype(np.float64)
+    return X, y, lengths, w, cuts
+
+
+def ranking_params():
+    """examples/lambdarank/train.conf's params (max_bin at its default
+    255)."""
+    return {"objective": "lambdarank", "num_leaves": 31,
+            "learning_rate": 0.1, "metric": "ndcg", "ndcg_eval_at": [1, 3, 5],
+            "verbose": -1}
+
+
+def ranking_phase(lgb, kernels, card, seed):
+    """9b: lambdarank at MSLR-WEB10K's shape (synthetic, from --seed),
+    5 iterations fused then staged, equal model text; B3 builds every
+    wave's histograms (136 x 256 bins is past the ct bound); the
+    gradients on the card against the host oracle at full size; NDCG@5
+    rising; then (9d) LGBMRanker on the same data trains the same model
+    text.  Returns the phase's launches."""
+    import gc
+    import torch
+    total = {name: 0 for name in kernels}
+
+    def add(got):
+        for name, n in got.items():
+            total[name] += n
+
+    t0 = time.perf_counter()
+    X, y, q, w, cuts = make_ranking(RANK_QUERIES, seed)
+    Xv, yv, qv, _, _ = make_ranking(RANK_VALID_QUERIES, seed + 1, w, cuts)
+    gen_s = time.perf_counter() - t0
+    shares = np.bincount(y.astype(int), minlength=5) / len(y)
+    say("9b ranking data (seed %d): %d queries, %d documents (query length "
+        "mean %.1f, max %d), %d features; valid %d queries, %d documents; "
+        "label shares 0-4 %s; made in %.1f s"
+        % (seed, len(q), len(y), len(y) / len(q), q.max(), X.shape[1],
+           len(qv), len(yv), " ".join("%.4f" % v for v in shares), gen_s))
+    params = ranking_params()
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, group=q, params=params).construct()
+    bin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dv = lgb.Dataset(Xv, label=yv, group=qv, reference=ds).construct()
+    vbin_s = time.perf_counter() - t0
+    td = ds._handle
+    say("9b binning: %.1f s (%d x %d, %d bins max), valid %.1f s"
+        % (bin_s, td.num_data, td.num_features, int(td.num_bin_arr.max()),
+           vbin_s))
+    texts = {}
+    for label, mode in (("ranking", "auto"), ("ranking-staged", "off")):
+        stamps = []
+
+        def stamp(env):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        evals = {}
+        t0 = time.perf_counter()
+        booster, got = counted(kernels, lambda: lgb.train(
+            dict(params, tpu_fused_iter=mode), ds, ITERS, valid_sets=[dv],
+            evals_result=evals, callbacks=[stamp], verbose_eval=False))
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        add(got)
+        learner = booster._gbdt.learner
+        stats = booster.grow_stats()
+        steady = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        ndcg = {k: evals["valid_0"]["ndcg@%d" % k] for k in (1, 3, 5)}
+        say("%s on %s: launches %s; growth %s, wave order %s, histogram "
+            "mode %s; %d iterations in %.3f s including set-up, steady "
+            "%.4f it/s over iterations 2-%d; leaves/tree %s"
+            % (label, card, got, learner.growth, learner.wave_order,
+               learner.hist_mode, ITERS, t_train, steady, ITERS,
+               [s.num_leaves for s in stats]))
+        for k in (1, 3, 5):
+            say("%s valid NDCG@%d by iteration: %s" % (
+                label, k, " ".join("%.6f" % v for v in ndcg[k])))
+        need(learner.hist_mode == "pallas_t" and got["wave_histogram"] > 0
+             and got["score_update"] == ITERS,
+             "%s: B3 did not build the waves' histograms (%s, %s)"
+             % (label, learner.hist_mode, got))
+        need(ndcg[5][-1] > ndcg[5][0],
+             "%s: NDCG@5 did not rise (%s)" % (label, ndcg[5]))
+        chain_line(label, booster, stats)
+        texts[label] = booster.model_to_string()
+        if mode == "auto":
+            need(fused_of(booster) is not None, "ranking: did not run fused")
+            obj = booster._gbdt.objective
+            score = booster._gbdt._score_dev[0]
+            say("ranking objective: %d buckets (widths %s), pairwise block "
+                "tensors of %.1f MB at the largest bucket"
+                % (len(obj._buckets),
+                   [int(b["discounts"].numel()) for b in obj._buckets],
+                   obj.pair_block_bytes() / 1e6))
+            dev_ms = time_ms(lambda: obj.get_gradients(score), reps=3,
+                             groups=3, warmup=1)
+            g, h = (a.cpu().numpy() for a in obj.get_gradients(score))
+            t0 = time.perf_counter()
+            gh, hh = obj.get_gradients_host(score.cpu().numpy())
+            host_ms = (time.perf_counter() - t0) * 1e3
+            gap = max(float(np.max(np.abs(a - b) / (2e-5 + 2e-4 * np.abs(b))))
+                      for a, b in ((g, gh), (h, hh)))
+            rel = max(float(np.max(np.abs(a - b))
+                            / max(float(np.abs(b).max()), 1e-30))
+                      for a, b in ((g, gh), (h, hh)))
+            say("ranking gradients on %s: get_gradients %.3f ms on the card, "
+                "get_gradients_host %.1f ms on the host; %d rows; largest "
+                "gap %.3g of the largest value, %.3g of the rtol 2e-4 / "
+                "atol 2e-5 bound" % (card, dev_ms, host_ms, len(g), rel, gap))
+            need(gap <= 1.0, "ranking: device gradients differ from the "
+                 "host oracle past rtol 2e-4 / atol 2e-5 (%.3g)" % gap)
+            graph_memory(label, booster)
+        del booster
+        gc.collect()
+        torch.cuda.empty_cache()
+    need(texts["ranking"] == texts["ranking-staged"],
+         "ranking: fused and staged model text differ")
+    say("9b checks: fused and staged model text equal to the byte; B3 on "
+        "every wave; NDCG@5 rose; gradients within the JAX package's "
+        "tolerance of the host oracle")
+    del ds, dv
+    gc.collect()
+
+    # ---- 9d. LGBMRanker on the same data: train's model text
+    t0 = time.perf_counter()
+    rk, got = counted(kernels, lambda: lgb.LGBMRanker(
+        n_estimators=ITERS, num_leaves=31, learning_rate=0.1).fit(
+            X, y, group=q))
+    add(got)
+    need(rk.booster_.model_to_string() == texts["ranking"],
+         "9d: LGBMRanker's model text differs from train's")
+    say("9d LGBMRanker on %s: %d iterations (binning included) in %.1f s, "
+        "launches %s; model text equal to train's"
+        % (card, ITERS, time.perf_counter() - t0, got))
+    return total
+
+
+def fobj_phase(lgb, kernels, card, data, main_text):
+    """9c: custom objectives on the flagship's data (phase 4's rows).  A
+    fobj returning the port's BinaryLogloss gradients (on the card,
+    copied to the host as numpy) with boost_from_average=false trains the
+    built-in objective's trees (phase 4's, whose fused and staged text
+    are equal): every Tree= section equal to the byte, on the staged
+    chain.  Then a plain numpy logistic fobj with a feval (the error
+    rate) for ITERS rounds: valid AUC above 0.8.  Returns the launches."""
+    import torch
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.utils.config import Config
+    ds, dv, _, _, _ = data
+    params = flagship_params()
+    dev = torch.device("cuda")
+    obj = create_objective("binary", Config(params))
+    obj.init(ds._handle.metadata, ds._handle.num_data, dev)
+    total = {name: 0 for name in kernels}
+
+    def builtin(preds, train_data):
+        g, h = obj.get_gradients(torch.as_tensor(preds, dtype=torch.float32,
+                                                 device=dev))
+        return g.cpu().numpy(), h.cpu().numpy()
+
+    y = ds.get_label()
+
+    def logistic(preds, train_data):
+        p = 1.0 / (1.0 + np.exp(-preds))
+        return p - y, p * (1.0 - p)
+
+    def error(preds, eval_data):
+        return ("error", float(((preds > 0) != (eval_data.get_label() > 0))
+                               .mean()), False)
+
+    def trees(text):
+        return text.split("Tree=")[1:]
+
+    for label, fobj, feval in (("fobj-builtin", builtin, None),
+                               ("fobj-logistic", logistic, error)):
+        stamps = []
+
+        def stamp(env):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        evals = {}
+        t0 = time.perf_counter()
+        booster, got = counted(kernels, lambda: lgb.train(
+            dict(params, boost_from_average=False), ds, ITERS,
+            valid_sets=[dv], fobj=fobj, feval=feval, evals_result=evals,
+            callbacks=[stamp], verbose_eval=False))
+        t_train = time.perf_counter() - t0
+        for name, n in got.items():
+            total[name] += n
+        need(fused_of(booster) is None, "%s: a custom objective ran fused"
+             % label)
+        need(got["score_update"] == ITERS, "%s: B2 launches %s"
+             % (label, got))
+        auc_v = evals["valid_0"]["auc"][-1]
+        steady = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        say("%s on %s: %d iterations in %.3f s, steady %.4f it/s; launches "
+            "%s; valid AUC %.6f%s"
+            % (label, card, ITERS, t_train, steady, got, auc_v,
+               "; error %s" % evals["valid_0"]["error"] if feval else ""))
+        need(auc_v > 0.8, "%s: valid AUC %.4f <= 0.8" % (label, auc_v))
+        if label == "fobj-builtin":
+            need(trees(booster.model_to_string()) == trees(main_text),
+                 "fobj-builtin: the trees differ from the built-in "
+                 "objective's")
+            say("fobj-builtin: every Tree= section equal to the built-in "
+                "objective's (phase 4) to the byte")
+        del booster
+    return total
+
+
+def api_phase(lgb, kernels, card, data):
+    """9d: pickle and deepcopy round trips of phase 7's model (loaded from
+    its text on the card) predict the same bits on 200,000 fresh rows;
+    cv(nfold=5, stratified=True) on phase 7's 200,000 training rows at
+    the flagship's params for ITERS rounds; LGBMClassifier at the
+    flagship's params trains train's model text.  Returns the
+    launches."""
+    import copy
+    import pickle
+    X, y, Xf, _, model_text = data
+    total = {name: 0 for name in kernels}
+    bst = lgb.Booster(model_str=model_text)
+    want = bst.predict(Xf, raw_score=True)
+    t0 = time.perf_counter()
+    blob = pickle.dumps(bst)
+    back = pickle.loads(blob)
+    pickle_s = time.perf_counter() - t0
+    for label, other in (("pickle", back), ("deepcopy", copy.deepcopy(bst))):
+        need(other.device.type == "cuda", "9d: %s left the card" % label)
+        need(np.array_equal(other.predict(Xf, raw_score=True), want),
+             "9d: the %s round trip changed the predictions" % label)
+    say("9d pickle and deepcopy of phase 7's model on %s: %d bytes, round "
+        "trip %.3f s; the same raw scores to the bit on %d rows"
+        % (card, len(blob), pickle_s, len(Xf)))
+    params = flagship_params()
+    t0 = time.perf_counter()
+    # the Dataset takes the params: cv bins the full data before any
+    # fold, with the Dataset's own params (as the JAX package's cv)
+    hist, got = counted(kernels, lambda: lgb.cv(
+        params, lgb.Dataset(X[:CV_ROWS], label=y[:CV_ROWS], params=params),
+        num_boost_round=ITERS, nfold=5, stratified=True, seed=0))
+    for name, n in got.items():
+        total[name] += n
+    need(len(hist["auc-mean"]) == ITERS and hist["auc-mean"][-1] > 0.8,
+         "9d: cv auc-mean %s" % hist["auc-mean"])
+    say("9d cv on %s: nfold 5, stratified, %d rows, %d rounds in %.1f s "
+        "(binning included); auc-mean %s, auc-stdv %s; launches %s"
+        % (card, CV_ROWS, ITERS, time.perf_counter() - t0,
+           " ".join("%.6f" % v for v in hist["auc-mean"]),
+           " ".join("%.6f" % v for v in hist["auc-stdv"]), got))
+    t0 = time.perf_counter()
+    clf, got = counted(kernels, lambda: lgb.LGBMClassifier(
+        n_estimators=ITERS, num_leaves=params["num_leaves"],
+        max_bin=params["max_bin"], learning_rate=params["learning_rate"],
+        min_child_samples=params["min_data_in_leaf"],
+        tpu_growth=params["tpu_growth"],
+        tpu_wave_width=params["tpu_wave_width"]).fit(X, y))
+    for name, n in got.items():
+        total[name] += n
+    ref, got = counted(kernels, lambda: lgb.train(
+        params, lgb.Dataset(X, label=y), ITERS, verbose_eval=False))
+    for name, n in got.items():
+        total[name] += n
+    need(clf.booster_.model_to_string() == ref.model_to_string(),
+         "9d: LGBMClassifier's model text differs from train's")
+    proba = clf.predict_proba(Xf[:1000])
+    need(proba.shape == (1000, 2) and np.allclose(proba.sum(axis=1), 1.0),
+         "9d: predict_proba rows")
+    say("9d LGBMClassifier on %s: %d rows, %d iterations; model text equal "
+        "to train's; %.1f s with train's run" % (card, len(y), ITERS,
+                                                 time.perf_counter() - t0))
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -2095,6 +2511,8 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="after each training run's checks, profile one "
                          "more iteration")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 9's ranking data")
     ap.add_argument("--sweep", action="store_true",
                     help="also time B5 at 1, 4 and its plan's copies of the "
                          "block histogram and B6 at 256, 512 and 1024 "
@@ -2319,6 +2737,11 @@ def main():
         "iteration) %.4f / %.4f"
         % ((card,) + RATES["dart"] + RATES["goss"] + RATES["infiniteboost"]
            + RATES["multiclass"]))
+    # ---- 9c. custom objectives on the flagship data (phase 9's part that
+    # needs phase 4's rows and model text)
+    t9 = time.perf_counter()
+    fobj_launches = fobj_phase(lgb, kernels, card, data, main_text)
+    t9 = time.perf_counter() - t9
     del data, ds, dv
     torch.cuda.empty_cache()
     early_stopping_phase(lgb, card)
@@ -2351,24 +2774,40 @@ def main():
 
     # ---- 8. the file path: the CLI and the host library on phase 7's data
     file_launches = file_phase(lgb, kernels, card, serve_data)
+
+    # ---- 9. the Python API on the card: the python-guide examples,
+    # ranking at MSLR-WEB10K's shape, pickling, cv and the estimators
+    t0 = time.perf_counter()
+    guide_phase(card)
+    rank_launches = ranking_phase(lgb, kernels, card, args.seed)
+    api_launches = api_phase(lgb, kernels, card, serve_data)
     del serve_data
+    say("phase 9 launches: ranking %s; fobj %s; pickling, cv and the "
+        "classifier %s" % (rank_launches, fobj_launches, api_launches))
+    say("phase 9 (the Python API): %.1f s, and 9c %.1f s after phase 4"
+        % (time.perf_counter() - t0, t9))
 
     # ---- 6. result lines: each kernel's launches from its own path's run
-    # (B3's from the main path; on the pallas_t run it launched as said)
+    # ("launches": B1, B2 and B3 the main path's, B4 the row-major run's,
+    # B5 exact growth's, B6 the sparse run's), and every counted run that
+    # launched it, by path ("launches_by_path")
     say("B3 launches: %d on the main path, %d on the pallas_t run"
         % (launches["wave_histogram"], pallas_t_launches["wave_histogram"]))
     for label, got in mode_launches.items():
         say("%s launches: B1 %d, B3 %d, B2 %d" % (
             label, got["wave_partition_hist"], got["wave_histogram"],
             got["score_update"]))
-    launches["wave_histogram_rowmajor"] = rowmajor_launches[
-        "wave_histogram_rowmajor"]
-    launches["leaf_histogram"] = exact_launches["leaf_histogram"]
-    launches["sparse_wave_histogram"] = sparse_launches[
-        "sparse_wave_histogram"]
-    # and the file path's runs (phase 8: B1, B3 and B2)
-    for name, n in file_launches.items():
-        launches[name] += n
+    own = {"wave_partition_hist": launches, "score_update": launches,
+           "wave_histogram": launches,
+           "wave_histogram_rowmajor": rowmajor_launches,
+           "leaf_histogram": exact_launches,
+           "sparse_wave_histogram": sparse_launches}
+    paths = ([("main", launches), ("pallas_t", pallas_t_launches),
+              ("exact", exact_launches), ("rowmajor", rowmajor_launches)]
+             + list(mode_launches.items())
+             + [("sparse", sparse_launches), ("files", file_launches),
+                ("fobj", fobj_launches), ("ranking", rank_launches),
+                ("api", api_launches)])
     sources = {"wave_partition_hist": ("lightgbm_tpu_torch/csrc/wave_fused.cu",
                                        "lightgbm_tpu/ops/pallas_wave.py:508"),
                "score_update": ("lightgbm_tpu_torch/csrc/score_update.cu",
@@ -2387,7 +2826,10 @@ def main():
     for name, (src, repl) in sources.items():
         r = records[name]
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": repl, "launches": launches[name],
+                    "replaces": repl, "launches": own[name][name],
+                    "launches_by_path": {path: got[name]
+                                         for path, got in paths
+                                         if got.get(name)},
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

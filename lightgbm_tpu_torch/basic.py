@@ -1,18 +1,25 @@
 """Python-facing Dataset and Booster: the JAX package's ``basic.py``
-surface for in-memory matrices, dense or scipy sparse, and text files.
+surface for in-memory matrices (dense, scipy sparse or pandas), text
+files and binary dataset files.
 
 Semantics kept: lazy Dataset construction, validation sets binned with the
-training set's mappers, the parameter dict with its aliases, training,
-evaluation, prediction (raw, converted, leaf indices, contributions,
-prediction early stopping), serving (``Booster.serve``) and the text model
-round trip, and continued training from a model (``_InnerPredictor``:
-the init scores through the f64 host trees).  A Booster, trained or
-loaded from model text, lives on
+training set's mappers, the metadata setters and getters (label, weight,
+group, init_score), row subsets, pandas category columns coded against
+the training frame's categories (the ``pandas_categorical`` line of the
+model text), the parameter dict with its aliases, training (with a
+custom objective ``fobj(preds, train_data) -> (grad, hess)`` through
+``Booster.update``), evaluation (with ``feval``), prediction (raw,
+converted, leaf indices, contributions, prediction early stopping),
+serving (``Booster.serve``), the text model round trip and its JSON dump,
+pickling through the model text, and continued training from a model
+(``_InnerPredictor``: the init scores through the f64 host trees).  A
+Booster, trained, loaded from model text or unpickled, lives on
 ``device`` ("cuda" unless the caller asks for "cpu"); bulk prediction and
 serving run the ranked traversal there.
 """
 from __future__ import annotations
 
+import json
 import time
 from typing import Dict, List, Optional
 
@@ -28,7 +35,7 @@ from .models.gbdt import GBDT
 from .objectives import create_objective
 from .obs.metrics import observe_predict
 from .utils.config import Config
-from .utils.log import LightGBMError
+from .utils.log import LightGBMError, Log
 
 __all__ = ["Dataset", "Booster", "LightGBMError"]
 
@@ -43,26 +50,152 @@ def _matrix(data):
     return np.asarray(data, dtype=np.float64)
 
 
+def _is_pandas_frame(data) -> bool:
+    try:
+        import pandas as pd
+    except ImportError:
+        return False
+    return isinstance(data, pd.DataFrame)
+
+
+def _values(a):
+    """A pandas Series or DataFrame's values; anything else as it is."""
+    try:
+        import pandas as pd
+    except ImportError:
+        return a
+    if isinstance(a, (pd.Series, pd.DataFrame)):
+        return a.values
+    return a
+
+
+# bool / int / uint / float columns train as they are
+_PANDAS_OK_KINDS = "biuf"
+
+
+def _data_from_pandas(data, feature_name, categorical_feature,
+                      pandas_categorical):
+    """Code the category-dtype columns and resolve auto names, as the
+    reference's pandas path does (python-package basic.py:224-291).
+
+    ``pandas_categorical=None`` (a training frame): the category lists of
+    its columns are recorded and returned.  Otherwise (a validation or
+    prediction frame) each category column is coded against the training
+    lists, so the integer codes agree whatever order the frames saw the
+    categories in.  A NaN or unseen category codes to -1, as in the JAX
+    package.  Returns ``(matrix, feature_name, categorical_feature,
+    pandas_categorical)``."""
+    cat_cols = [c for c in data.columns if str(data[c].dtype) == "category"]
+    if pandas_categorical is None:
+        pandas_categorical = [list(data[c].cat.categories) for c in cat_cols]
+    elif len(cat_cols) != len(pandas_categorical):
+        raise LightGBMError(
+            "train and valid dataset categorical_feature do not match.")
+    if cat_cols:
+        data = data.copy()      # the caller's frame stays as it was
+        for c, train_cats in zip(cat_cols, pandas_categorical):
+            if list(data[c].cat.categories) != list(train_cats):
+                data[c] = data[c].cat.set_categories(train_cats)
+            data[c] = data[c].cat.codes
+    if categorical_feature is not None:
+        if categorical_feature == "auto":
+            categorical_feature = [str(c) for c in cat_cols]
+        else:
+            categorical_feature = (list(categorical_feature)
+                                   + [str(c) for c in cat_cols])
+    if feature_name == "auto":
+        feature_name = [str(c) for c in data.columns]
+    bad = [str(c) for c, dt in zip(data.columns, data.dtypes)
+           if getattr(dt, "kind", "O") not in _PANDAS_OK_KINDS]
+    if bad:
+        raise LightGBMError(
+            "DataFrame.dtypes for data must be int, float or bool; found "
+            "unsupported dtypes in fields: " + ", ".join(bad))
+    return (data.values.astype(np.float64), feature_name,
+            categorical_feature, pandas_categorical)
+
+
+def _json_default_numpy(obj):
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    raise TypeError("Cannot serialize %s in pandas_categorical"
+                    % type(obj).__name__)
+
+
+def _dump_pandas_categorical(pandas_categorical) -> str:
+    return json.dumps(pandas_categorical, default=_json_default_numpy)
+
+
+def _parse_pandas_categorical(model_str: str):
+    """The list a model text's trailing ``pandas_categorical:`` line holds
+    (python-package basic.py:283-291), or None."""
+    idx = model_str.rfind("pandas_categorical:")
+    if idx < 0:
+        return None
+    line = model_str[idx + len("pandas_categorical:"):].splitlines()[0]
+    try:
+        return json.loads(line)
+    except ValueError:
+        return None
+
+
+def _categorical_indices(spec, names) -> List[int]:
+    """Column indices of a categorical_feature spec: ints, or names
+    resolved against the feature names (with auto names, Column_<i>)."""
+    if spec in (None, "auto"):
+        return []
+    out = []
+    for c in ([spec] if isinstance(spec, (int, str)) else spec):
+        if not isinstance(c, str):
+            out.append(int(c))
+        elif names and c in names:
+            out.append(names.index(c))
+        elif (not names and c.startswith("Column_")
+              and c[len("Column_"):].isdigit()):
+            out.append(int(c[len("Column_"):]))
+        else:
+            raise LightGBMError("Unknown categorical column %r (known "
+                                "feature names: %s)"
+                                % (c, names or "auto Column_<i>"))
+    return out
+
+
 class Dataset:
     """Lazily constructed training dataset (python-package basic.py:546)."""
 
     def __init__(self, data, label=None, max_bin=None, reference=None,
-                 weight=None, init_score=None, feature_name="auto",
-                 categorical_feature="auto", params=None):
-        """data: a dense matrix, a scipy sparse matrix, or the path of a
-        CSV/TSV/LibSVM text file (io/dataset.py TrainingData.from_file:
-        the label column, header, ignored and categorical columns from
-        ``params``, and the .weight/.query/.init side files)."""
-        self.data = data if isinstance(data, str) else _matrix(data)
-        self.label = None if label is None else np.asarray(label)
+                 weight=None, group=None, init_score=None, silent=False,
+                 feature_name="auto", categorical_feature="auto",
+                 params=None, free_raw_data=True):
+        """data: a dense matrix, a pandas DataFrame (kept until
+        construct(): its category columns are coded against the
+        reference's categories), a scipy sparse matrix, or the path of a
+        binary dataset file (save_binary) or of a CSV/TSV/LibSVM text
+        file (io/dataset.py TrainingData.from_file: the label column,
+        header, ignored and categorical columns from ``params``, and the
+        .weight/.query/.init side files).  group: query sizes."""
+        if isinstance(data, str) or _is_pandas_frame(data):
+            self.data = data
+        else:
+            self.data = _matrix(data)
+        self.label = None if label is None else np.asarray(_values(label))
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
+        self.silent = silent
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params or {})
         if max_bin is not None:
             self.params.setdefault("max_bin", max_bin)
+        self.free_raw_data = free_raw_data
+        self.pandas_categorical = None
+        self.used_indices: Optional[np.ndarray] = None
         self._handle: Optional[TrainingData] = None
         self._predictor: Optional["_InnerPredictor"] = None
 
@@ -76,38 +209,39 @@ class Dataset:
         if self.reference is not None:
             ref_td = self.reference.construct()._handle
         if isinstance(self.data, str):
-            self._handle = TrainingData.from_file(self.data, cfg,
-                                                  reference=ref_td,
-                                                  keep_raw=True)
+            if TrainingData.can_load_binary(self.data):
+                self._handle = TrainingData.load_binary(self.data)
+            else:
+                self._handle = TrainingData.from_file(
+                    self.data, cfg, reference=ref_td, keep_raw=True)
+            md = self._handle.metadata
             if self.label is not None:
-                self._handle.metadata.set_label(self.label)
+                md.set_label(self.label)
             for name, value in (("weight", self.weight),
+                                ("group", self.group),
                                 ("init_score", self.init_score)):
                 if value is not None:
-                    self._handle.metadata.set_field(name, value)
+                    md.set_field(name, value)
             self._fill_init_score()
             return self
+        if _is_pandas_frame(self.data):
+            ref_pc = (self.reference.pandas_categorical
+                      if self.reference is not None else None)
+            (self.data, self.feature_name, self.categorical_feature,
+             self.pandas_categorical) = _data_from_pandas(
+                self.data, self.feature_name, self.categorical_feature,
+                ref_pc)
         names = (None if self.feature_name in (None, "auto")
                  else list(self.feature_name))
-        cats = []
-        if self.categorical_feature not in (None, "auto"):
-            spec = self.categorical_feature
-            for c in ([spec] if isinstance(spec, (int, str)) else spec):
-                if isinstance(c, str):
-                    if not names or c not in names:
-                        raise LightGBMError("Unknown categorical column %r"
-                                            % c)
-                    c = names.index(c)
-                cats.append(int(c))
-        build = (TrainingData.from_csc
-                 if isinstance(self.data, SparseColumns)
-                 else TrainingData.from_matrix)
-        kw = {} if isinstance(self.data, SparseColumns) else {
-            "keep_raw": True}
+        cats = _categorical_indices(self.categorical_feature, names)
+        if isinstance(self.data, SparseColumns):
+            build, kw = TrainingData.from_csc, {}
+        else:
+            build, kw = TrainingData.from_matrix, {"keep_raw": True}
         self._handle = build(
             self.data, label=self.label, config=cfg, weights=self.weight,
             init_score=self.init_score, categorical_feature=cats,
-            feature_names=names, reference=ref_td, **kw)
+            feature_names=names, reference=ref_td, group=self.group, **kw)
         self._fill_init_score()
         return self
 
@@ -137,11 +271,14 @@ class Dataset:
                                 "the training data")
         handle.metadata.set_init_score(raw.T.reshape(-1))
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, silent=False,
                      params=None) -> "Dataset":
         """Validation Dataset binned with this one's mappers."""
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params or self.params)
+                       group=group, init_score=init_score, silent=silent,
+                       params=params or self.params,
+                       free_raw_data=self.free_raw_data)
 
     def set_reference(self, reference: "Dataset") -> "Dataset":
         if self._handle is not None and reference is not self.reference:
@@ -150,11 +287,128 @@ class Dataset:
         self.reference = reference
         return self
 
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """A Dataset of the rows ``used_indices``, binned with this one's
+        mappers: the rows of the binned matrix (TrainingData.subset) for
+        dense data, the rows of the sparse columns
+        (SparseColumns.take_rows) binned anew for sparse data."""
+        self.construct()
+        used_indices = np.asarray(used_indices)
+        label = None if self.label is None else self.label[used_indices]
+        weight = (None if self.weight is None
+                  else np.asarray(self.weight)[used_indices])
+        params = params or self.params
+        if isinstance(self.data, SparseColumns):
+            sub = Dataset(self.data.take_rows(used_indices), label=label,
+                          reference=self, weight=weight, params=params,
+                          free_raw_data=self.free_raw_data)
+        else:
+            handle = self._handle.subset(used_indices)
+            # the rows, where kept; a binary file's Dataset keeps none,
+            # and its subset only ever uses the handle
+            sub = Dataset(handle.raw_data if handle.raw_data is not None
+                          else self.data, label=label, reference=self,
+                          weight=weight, params=params,
+                          free_raw_data=self.free_raw_data)
+            sub._handle = handle
+        sub.used_indices = used_indices
+        return sub
+
+    # ------------------------------------------------------------- metadata
+    def set_label(self, label) -> "Dataset":
+        """Set the target vector."""
+        self.label = None if label is None else np.asarray(_values(label))
+        if self._handle is not None:
+            self._handle.metadata.set_label(self.label)
+        return self
+
+    def get_label(self):
+        """The target vector, or None before it is set."""
+        if (self._handle is not None
+                and self._handle.metadata.label is not None):
+            return np.asarray(self._handle.metadata.label)
+        return self.label
+
+    def set_weight(self, weight) -> "Dataset":
+        """Set the row weights."""
+        self.weight = weight
+        if self._handle is not None:
+            self._handle.metadata.set_weights(weight)
+        return self
+
+    def get_weight(self):
+        """The row weights, or None."""
+        if (self._handle is not None
+                and self._handle.metadata.weights is not None):
+            return np.asarray(self._handle.metadata.weights)
+        return self.weight
+
+    def set_group(self, group) -> "Dataset":
+        """Set the query sizes (ranking)."""
+        self.group = group
+        if self._handle is not None:
+            self._handle.metadata.set_query_counts(group)
+        return self
+
+    def get_group(self):
+        """The query sizes, or None."""
+        if (self._handle is not None
+                and self._handle.metadata.query_boundaries is not None):
+            return np.diff(self._handle.metadata.query_boundaries)
+        return self.group
+
+    def set_init_score(self, init_score) -> "Dataset":
+        """Set the initial scores every prediction starts from."""
+        self.init_score = init_score
+        if self._handle is not None:
+            self._handle.metadata.set_init_score(init_score)
+        return self
+
+    def get_init_score(self):
+        """The initial scores, or None."""
+        if self._handle is not None:
+            return self._handle.metadata.init_score
+        return self.init_score
+
+    def set_field(self, field_name: str, data) -> None:
+        """Set a metadata field by name (label, weight, group or query,
+        init_score)."""
+        self.construct()
+        self._handle.metadata.set_field(field_name, data)
+
+    def get_field(self, field_name: str):
+        """A metadata field by name (group: the query boundaries)."""
+        self.construct()
+        return self._handle.metadata.get_field(field_name)
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """Set the categorical columns (indices or names); a constructed
+        Dataset keeps its binning, with a warning."""
+        if (self._handle is not None
+                and categorical_feature != self.categorical_feature):
+            Log.warning("categorical_feature in Dataset is overridden; new "
+                        "categorical_feature is %s", str(categorical_feature))
+        self.categorical_feature = categorical_feature
+        return self
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        """Set the feature names (a list of str)."""
+        self.feature_name = feature_name
+        if feature_name not in (None, "auto") and self._handle is not None:
+            self._handle.feature_names = list(feature_name)
+        return self
+
+    def get_feature_name(self) -> List[str]:
+        """The feature names (auto names resolved at construction)."""
+        self.construct()
+        return list(self._handle.feature_names)
+
     def _update_params(self, params: Optional[dict]) -> "Dataset":
         if params:
             self.params.update(params)
         return self
 
+    # ------------------------------------------------------------------ info
     def num_data(self) -> int:
         if self._handle is not None or isinstance(self.data, str):
             return self.construct()._handle.num_data
@@ -169,10 +423,11 @@ class Dataset:
             return self.data.num_col
         return int(self.data.shape[1])
 
-    def get_label(self):
-        if self._handle is not None and self._handle.metadata.label is not None:
-            return np.asarray(self._handle.metadata.label)
-        return self.label
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the binned dataset as a binary file, which
+        ``Dataset(filename)`` (of either package) loads without binning."""
+        self.construct()._handle.save_binary(filename)
+        return self
 
 
 class _InnerPredictor:
@@ -211,12 +466,16 @@ class Booster:
     def __init__(self, params: Optional[dict] = None,
                  train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
-                 model_str: Optional[str] = None, device="cuda"):
+                 model_str: Optional[str] = None, silent: bool = False,
+                 device="cuda"):
         self.params = dict(params or {})
-        self._valid_sets: List[Dataset] = []
+        self._valid_sets: List[Optional[Dataset]] = []
         self.name_valid_sets: List[str] = []
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
+        self.pandas_categorical = None
+        self._attr: Dict[str, str] = {}
+        self._train_data_name = "training"
         self._train_set = train_set
         if train_set is not None:
             if not isinstance(train_set, Dataset):
@@ -225,6 +484,7 @@ class Booster:
             self.device = resolve_device(device)
             cfg = Config(self.params)
             handle = train_set._update_params(self.params).construct()._handle
+            self.pandas_categorical = train_set.pandas_categorical
             objective = create_objective(cfg.objective, cfg)
             if objective is not None:
                 objective.init(handle.metadata, handle.num_data, self.device)
@@ -241,13 +501,17 @@ class Booster:
             if model_file is not None:
                 with open(model_file) as f:
                     model_str = f.read()
-            self.device = resolve_device(device)
-            self._cfg = Config(self.params)
-            self._gbdt = GBDT(self._cfg, self.device)
-            self._gbdt.load_model_from_string(model_str)
+            self._load_from_string(model_str, device)
         else:
             raise TypeError("Need at least one training dataset or model "
                             "file to create booster instance")
+
+    def _load_from_string(self, model_str: str, device) -> None:
+        self.device = resolve_device(device)
+        self._cfg = Config(self.params)
+        self._gbdt = GBDT(self._cfg, self.device)
+        self._gbdt.load_model_from_string(model_str)
+        self.pandas_categorical = _parse_pandas_categorical(model_str)
 
     @staticmethod
     def _make_metrics(cfg: Config, handle: TrainingData) -> list:
@@ -274,12 +538,42 @@ class Booster:
         self.name_valid_sets.append(name)
         return self
 
-    def update(self) -> bool:
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
         """One boosting iteration; True when it grew no split (its trees
-        are then dropped).  As in the JAX package, the booster's own
+        are then dropped).  With ``fobj(preds, train_data) -> (grad,
+        hess)`` the gradients are the caller's, at the raw training
+        scores (python-package basic.py:1331-1412): one copy of the
+        scores to the host and one of the gradients to the device, on the
+        staged chain.  As in the JAX package, the booster's own
         early_stopping_round is not evaluated here (train() runs the
         early_stopping callback instead)."""
-        return self._gbdt.train_one_iter(False)
+        if train_set is not None and train_set is not self._train_set:
+            raise LightGBMError("Resetting train set inside update is not "
+                                "supported yet")
+        if fobj is None:
+            return self._gbdt.train_one_iter(None, None, False)
+        if self._train_set is None:
+            raise LightGBMError("Custom objective needs the train Dataset, "
+                                "but it was released by free_dataset()")
+        grad, hess = fobj(self._inner_predict(0), self._train_set)
+        return self._boost(grad, hess)
+
+    def _boost(self, grad, hess) -> bool:
+        grad = np.asarray(grad, dtype=np.float32)
+        hess = np.asarray(hess, dtype=np.float32)
+        if len(grad) != len(hess):
+            raise ValueError("Lengths of gradient(%d) and hessian(%d) "
+                             "don't match" % (len(grad), len(hess)))
+        return self._gbdt.train_one_iter(grad, hess, False)
+
+    def _inner_predict(self, data_idx: int) -> np.ndarray:
+        """The raw scores of the training (0) or a validation set, as
+        fobj and feval get them: (N,), or K * N class-major."""
+        g = self._gbdt
+        raw = g.train_score if data_idx == 0 else g.valid_score_host(
+            data_idx - 1)
+        return raw[0] if raw.shape[0] == 1 else raw.reshape(-1)
 
     def rollback_one_iter(self) -> "Booster":
         """Undo the most recent boosting iteration."""
@@ -318,32 +612,80 @@ class Booster:
         self._gbdt._materialize()
         return len(self._gbdt.models)
 
-    # ----------------------------------------------------------------- eval
-    def eval_train(self) -> List[tuple]:
-        return self._eval(0, "training")
+    # ------------------------------------------------------- attributes
+    def attr(self, key: str):
+        """A user attribute (basic.py:1769), or None when unset."""
+        return self._attr.get(key)
 
-    def eval_valid(self) -> List[tuple]:
+    def set_attr(self, **kwargs) -> "Booster":
+        """Set string attributes; a None value deletes the key
+        (basic.py:1785-1800; other values raise)."""
+        for key, value in kwargs.items():
+            if value is None:
+                self._attr.pop(key, None)
+            elif not isinstance(value, str):
+                raise ValueError("Set attr only accepts strings")
+            else:
+                self._attr[key] = value
+        return self
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        """The training set's name in the evaluation output."""
+        self._train_data_name = name
+        return self
+
+    def free_dataset(self) -> "Booster":
+        """Let go of the Python Dataset objects (basic.py:1281-1283).  The
+        binned data stays with the booster, so training, prediction and
+        the built-in metrics go on; fobj and feval, which take the
+        Dataset, then raise.  The validation slots stay (as None), so a
+        later add_valid keeps the evaluation indices."""
+        self._train_set = None
+        self._valid_sets = [None] * len(self._valid_sets)
+        return self
+
+    # ----------------------------------------------------------------- eval
+    def eval_train(self, feval=None) -> List[tuple]:
+        """(data name, metric, value, higher is better) on the training
+        data, the built-in metrics then feval's."""
+        return self._eval(0, self._train_data_name, feval)
+
+    def eval_valid(self, feval=None) -> List[tuple]:
+        """As eval_train, on every validation set."""
         out = []
         for i, name in enumerate(self.name_valid_sets):
-            out.extend(self._eval(i + 1, name))
+            out.extend(self._eval(i + 1, name, feval))
         return out
 
-    def eval(self, data: Dataset, name: str) -> List[tuple]:
+    def eval(self, data: Dataset, name: str, feval=None) -> List[tuple]:
+        """As eval_train, on the training set or a validation set."""
         if data is self._train_set:
-            return self._eval(0, name)
+            return self._eval(0, name, feval)
         for i, vs in enumerate(self._valid_sets):
             if data is vs:
-                return self._eval(i + 1, name)
+                return self._eval(i + 1, name, feval)
         raise LightGBMError("Data should be train set or a validation set")
 
-    def _eval(self, data_idx: int, name: str) -> List[tuple]:
+    def _eval(self, data_idx: int, name: str, feval=None) -> List[tuple]:
+        """feval(preds, data) -> (name, value, higher is better) or a list
+        of them, given the raw scores (JAX basic.py:713-750)."""
         g = self._gbdt
         metrics = (g.training_metrics if data_idx == 0
                    else g.valid_metrics[data_idx - 1])
         higher = [m.factor_to_bigger_better > 0
                   for m in metrics for _ in m.get_names()]
-        return [(name, mname, s, hb) for mname, s, hb in
-                zip(g.eval_names(data_idx), g.get_eval_at(data_idx), higher)]
+        out = [(name, mname, s, hb) for mname, s, hb in
+               zip(g.eval_names(data_idx), g.get_eval_at(data_idx), higher)]
+        if feval is not None:
+            ds = (self._train_set if data_idx == 0
+                  else self._valid_sets[data_idx - 1])
+            if ds is None:
+                raise LightGBMError("Custom eval needs the Dataset, but it "
+                                    "was released by free_dataset()")
+            ret = feval(self._inner_predict(data_idx), ds)
+            for fname, val, hb in (ret if isinstance(ret, list) else [ret]):
+                out.append((name, fname, val, hb))
+        return out
 
     # -------------------------------------------------------------- predict
     def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
@@ -376,6 +718,9 @@ class Booster:
             from .io import parser as _parser
             data = _parser.parse_file(data,
                                       has_header=data_has_header).features
+        elif _is_pandas_frame(data):
+            data = _data_from_pandas(data, None, None,
+                                     self.pandas_categorical)[0]
         out, rows = self._predict_data(data, num_iteration, raw_score,
                                        pred_leaf, pred_contrib,
                                        pred_early_stop, pred_early_stop_freq,
@@ -461,7 +806,12 @@ class Booster:
 
     # ------------------------------------------------------------- model io
     def model_to_string(self, num_iteration: int = -1) -> str:
-        return self._gbdt.save_model_to_string(num_iteration)
+        """The model text, then the ``pandas_categorical:`` line (the
+        training frame's category lists, or null), as the JAX package
+        writes it."""
+        return (self._gbdt.save_model_to_string(num_iteration)
+                + "\npandas_categorical:%s\n"
+                % _dump_pandas_categorical(self.pandas_categorical))
 
     def save_model(self, filename: str,
                    num_iteration: int = -1) -> "Booster":
@@ -469,8 +819,18 @@ class Booster:
             f.write(self.model_to_string(num_iteration))
         return self
 
+    def dump_model(self, num_iteration: int = -1) -> dict:
+        """The model as a JSON-compatible dict (GBDT::DumpModel)."""
+        return json.loads(self._gbdt.dump_model(num_iteration))
+
     def feature_importance(self, importance_type: str = "split"):
         return self._gbdt.feature_importance(importance_type)
+
+    def importance_history(self, importance_type: str = "split") -> list:
+        """The importance trajectory of the run's telemetry: always empty
+        here, as in the JAX package with importance tracking off, the
+        only state the port has (its obs_* keys are refused)."""
+        return []
 
     def feature_name(self) -> List[str]:
         return list(self._gbdt.feature_names)
@@ -483,3 +843,39 @@ class Booster:
         """Per-tree growth facts of this booster's training (waves, host
         reads while growing, depth, leaves), oldest first."""
         return list(self._gbdt.grow_stats)
+
+    # ------------------------------------------------------------- pickling
+    def __getstate__(self):
+        """The model text (JAX basic.py:985-1004) and the device type: an
+        unpickled booster predicts on the same kind of device, and a
+        CUDA pickle raises where there is no card."""
+        return {"params": self.params,
+                "model_str": self.model_to_string(),
+                "best_iteration": self.best_iteration,
+                "best_score": self.best_score,
+                "attr": dict(self._attr),
+                "train_data_name": self._train_data_name,
+                "device": self.device.type}
+
+    def __setstate__(self, state):
+        self.params = state["params"]
+        self.best_iteration = state.get("best_iteration", -1)
+        self.best_score = state.get("best_score", {})
+        self._attr = dict(state.get("attr", {}))
+        self._train_data_name = state.get("train_data_name", "training")
+        self._train_set = None
+        self._valid_sets = []
+        self.name_valid_sets = []
+        self._load_from_string(state["model_str"],
+                               state.get("device", "cuda"))
+
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, memo):
+        out = Booster(params=dict(self.params),
+                      model_str=self.model_to_string(),
+                      device=self.device)
+        out.best_iteration = self.best_iteration
+        out._attr = dict(self._attr)
+        return out

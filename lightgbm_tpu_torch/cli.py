@@ -144,7 +144,7 @@ def run_train(cfg: Config, device) -> None:
     saved = rounds_done
     for it in range(rounds_done, cfg.num_iterations):
         t0 = time.time()
-        stop = booster.train_one_iter(True)
+        stop = booster.train_one_iter(None, None, True)
         Log.info("%f seconds elapsed, finished iteration %d",
                  time.time() - t0, it + 1)
         rounds_done = it + 1

@@ -340,3 +340,25 @@ class BinMapper:
             d["bin_2_categorical"] = None if self.bin_2_categorical is None \
                 else [int(c) for c in self.bin_2_categorical]
         return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BinMapper":
+        """The mapper ``to_dict`` wrote (binary dataset files)."""
+        m = cls()
+        m.num_bin = int(d["num_bin"])
+        m.is_trivial = bool(d["is_trivial"])
+        m.sparse_rate = float(d["sparse_rate"])
+        m.bin_type = int(d["bin_type"])
+        m.min_val = float(d["min_val"])
+        m.max_val = float(d["max_val"])
+        m.default_bin = int(d["default_bin"])
+        if m.bin_type == NUMERICAL:
+            if d.get("bin_upper_bound") is not None:
+                m.bin_upper_bound = np.asarray(d["bin_upper_bound"],
+                                               dtype=np.float64)
+        elif d.get("bin_2_categorical") is not None:
+            m.bin_2_categorical = np.asarray(d["bin_2_categorical"],
+                                             dtype=np.int64)
+            m.categorical_2_bin = {int(c): i for i, c in
+                                   enumerate(m.bin_2_categorical)}
+        return m

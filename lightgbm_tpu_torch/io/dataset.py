@@ -2,7 +2,9 @@
 
 Parity target: src/io/dataset.cpp + src/io/dataset_loader.cpp, the
 in-memory ``from_matrix``, sparse ``from_csc`` and text-file
-``from_file`` paths of the JAX package's ``io/dataset.py``.
+``from_file`` paths of the JAX package's ``io/dataset.py``, its row
+``subset`` and its binary dataset files (``save_binary``/``load_binary``,
+the same format: a file either package writes loads in the other).
 The binned matrix is a dense row-major ``(num_data, num_used_columns)``
 uint8/uint16 array; with EFB its columns are feature groups
 (io/bundle.py).  Binned bytes, mapper dicts and the bundle layout are
@@ -14,7 +16,9 @@ EFB on the binning sample -> bin all rows -> metadata check.
 """
 from __future__ import annotations
 
+import json
 import os
+import zipfile
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -23,7 +27,8 @@ from ..utils.config import Config
 from ..utils.log import Log
 from ..utils.random import Random
 from .binning import CATEGORICAL, NUMERICAL, BinMapper
-from .bundle import BundleLayout, bin_rows_grouped, find_feature_groups
+from .bundle import (BundleLayout, bin_rows_grouped, build_layout,
+                     find_feature_groups)
 from .metadata import Metadata
 from . import parser as _parser
 
@@ -63,7 +68,7 @@ class TrainingData:
                     categorical_feature: Sequence[int] = (),
                     feature_names: Optional[List[str]] = None,
                     reference: Optional["TrainingData"] = None,
-                    keep_raw: bool = False) -> "TrainingData":
+                    keep_raw: bool = False, group=None) -> "TrainingData":
         config = config or Config()
         data = np.ascontiguousarray(np.asarray(data, dtype=np.float64))
         if data.ndim != 2:
@@ -81,7 +86,7 @@ class TrainingData:
             self._bin_data(data)
         if keep_raw:
             self.raw_data = data
-        self._set_metadata(label, weights, init_score)
+        self._set_metadata(label, weights, init_score, group)
         return self
 
     @classmethod
@@ -148,8 +153,8 @@ class TrainingData:
                  weights=None, init_score=None,
                  categorical_feature: Sequence[int] = (),
                  feature_names: Optional[List[str]] = None,
-                 reference: Optional["TrainingData"] = None
-                 ) -> "TrainingData":
+                 reference: Optional["TrainingData"] = None,
+                 group=None) -> "TrainingData":
         """Sparse ingestion without densification (SparseBin analog,
         sparse_bin.hpp:68 + dataset_loader.cpp:840-930).
 
@@ -176,10 +181,11 @@ class TrainingData:
         else:
             self._construct_mappers_sparse(sp, config, cats)
         self._bin_sparse(sp)
-        self._set_metadata(label, weights, init_score)
+        self._set_metadata(label, weights, init_score, group)
         return self
 
-    def _set_metadata(self, label, weights, init_score) -> None:
+    def _set_metadata(self, label, weights, init_score, group=None) -> None:
+        """The metadata fields; ``group`` holds the query sizes."""
         if label is not None:
             self.metadata.set_label(label)
         else:
@@ -188,6 +194,8 @@ class TrainingData:
             self.metadata.set_weights(weights)
         if init_score is not None:
             self.metadata.set_init_score(init_score)
+        if group is not None:
+            self.metadata.set_query_counts(group)
 
     def _sample_rows(self, config: Config) -> np.ndarray:
         """Row ids of the binning sample (dataset_loader.cpp:159-216)."""
@@ -394,6 +402,101 @@ class TrainingData:
             else:
                 out.append(self.bin_mappers[i].bin_info())
         return out
+
+    def subset(self, indices: np.ndarray) -> "TrainingData":
+        """The rows ``indices`` of the binned matrix and the metadata,
+        sharing this dataset's mappers and EFB layout (dataset.cpp:399
+        CopySubset; query fields do not carry over, as in the JAX
+        package)."""
+        out = TrainingData()
+        out.num_data = len(indices)
+        out.num_total_features = self.num_total_features
+        out._copy_binning_from(self)
+        out.feature_names = self.feature_names
+        out.binned = self.binned[indices]
+        out.metadata = self.metadata.subset(indices)
+        if self.raw_data is not None:
+            out.raw_data = self.raw_data[indices]
+        return out
+
+    # ------------------------------------------------------- binary file I/O
+    _BINARY_MAGIC = "lightgbm_tpu.dataset.v1"
+
+    def save_binary(self, filename: str) -> None:
+        """Binary dataset file (dataset.cpp:489 SaveBinaryFile analog): the
+        JAX package's npz layout, a JSON ``meta`` entry (magic, sizes,
+        used features, names, max_bin, mapper dicts, EFB groups) beside
+        the binned matrix and the metadata arrays."""
+        meta = {
+            "magic": self._BINARY_MAGIC,
+            "num_data": self.num_data,
+            "num_total_features": self.num_total_features,
+            "used_feature_idx": self.used_feature_idx,
+            "feature_names": self.feature_names,
+            "max_bin": self.max_bin,
+            "bin_mappers": [None if m is None else m.to_dict()
+                            for m in self.bin_mappers],
+            "bundle_groups": (None if self.bundle is None
+                              else [list(map(int, g))
+                                    for g in self.bundle.groups]),
+        }
+        arrays = {"binned": self.binned}
+        md = self.metadata
+        for key, value in (("label", md.label), ("weights", md.weights),
+                           ("query_boundaries", md.query_boundaries),
+                           ("init_score", md.init_score)):
+            if value is not None:
+                arrays[key] = value
+        # through a handle: np.savez_compressed(<str>) would append .npz
+        # to a name such as train.bin
+        with open(filename, "wb") as f:
+            np.savez_compressed(f, meta=json.dumps(meta), **arrays)
+
+    @classmethod
+    def can_load_binary(cls, filename: str) -> bool:
+        """Whether ``filename`` is a binary dataset file of this format."""
+        try:
+            with np.load(filename, allow_pickle=False) as z:
+                meta = json.loads(str(z["meta"]))
+            return meta.get("magic") == cls._BINARY_MAGIC
+        except (OSError, ValueError, KeyError, EOFError,
+                zipfile.BadZipFile):
+            return False
+
+    @classmethod
+    def load_binary(cls, filename: str) -> "TrainingData":
+        """A dataset save_binary (of either package) wrote."""
+        with np.load(filename, allow_pickle=False) as z:
+            meta = json.loads(str(z["meta"]))
+            if meta.get("magic") != cls._BINARY_MAGIC:
+                Log.fatal("Not a lightgbm_tpu binary dataset file: %s",
+                          filename)
+            self = cls()
+            self.num_data = meta["num_data"]
+            self.num_total_features = meta["num_total_features"]
+            self.used_feature_idx = list(meta["used_feature_idx"])
+            self.real_to_inner = {r: i for i, r in
+                                  enumerate(self.used_feature_idx)}
+            self.feature_names = meta["feature_names"]
+            self.max_bin = meta["max_bin"]
+            self.bin_mappers = [None if d is None else BinMapper.from_dict(d)
+                                for d in meta["bin_mappers"]]
+            self._build_feature_arrays()
+            groups = meta.get("bundle_groups")
+            if groups is not None:
+                self.bundle = build_layout(groups, self.num_bin_arr,
+                                           self.default_bin_arr)
+            self.binned = z["binned"]
+            self.metadata = Metadata(self.num_data)
+            if "label" in z:
+                self.metadata.label = z["label"]
+            if "weights" in z:
+                self.metadata.weights = z["weights"]
+            if "query_boundaries" in z:
+                self.metadata.query_boundaries = z["query_boundaries"]
+            if "init_score" in z:
+                self.metadata.init_score = z["init_score"]
+        return self
 
 
 def _resolve_columns(spec: str, feature_names: Optional[List[str]]) -> set:

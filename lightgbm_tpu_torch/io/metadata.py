@@ -5,8 +5,8 @@ as the JAX package's ``io/metadata.py``.  Side files ``<data>.weight``,
 ``<data>.query``, ``<data>.init`` are read when present, exactly like
 ``Metadata::Init(data_filename, ...)``; query id lists are converted to
 boundary arrays; query weights are auto-derived from data weights (sum
-per query) as in metadata.cpp.  Query boundaries load, but no objective
-of the port reads them yet (lambdarank is refused).
+per query) as in metadata.cpp.  Lambdarank and the NDCG and MAP metrics
+read the query boundaries and weights.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Evaluation metrics: the regression losses (L2, RMSE, L1, Huber, Fair,
-Poisson), binary logloss, binary error, AUC and the multiclass logloss
-and error — host-side numpy, copied from the JAX package's ``metrics.py``
-(parity targets src/metric/regression_metric.hpp, binary_metric.hpp and
-multiclass_metric.hpp).  Each metric declares ``factor_to_bigger_better``
-as the reference does.  NDCG and MAP are a later slice.
+Poisson), binary logloss, binary error, AUC, the multiclass logloss and
+error, and the ranking metrics NDCG and MAP with query weights —
+host-side numpy, copied from the JAX package's ``metrics.py`` (parity
+targets src/metric/regression_metric.hpp, binary_metric.hpp,
+multiclass_metric.hpp, rank_metric.hpp and map_metric.hpp).  Each metric
+declares ``factor_to_bigger_better`` as the reference does.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import List, Optional
 import numpy as np
 
 from .io.metadata import Metadata
-from .objectives import ObjectiveFunction
+from .objectives import (ObjectiveFunction, _max_dcg_at_k,
+                         default_label_gain, get_discounts)
 from .utils.config import Config
 from .utils.log import Log
 
@@ -225,6 +227,107 @@ class MultiErrorMetric(_MulticlassMetric):
         return (np.argmax(probs, axis=1) != label).astype(np.float64)
 
 
+class NDCGMetric(Metric):
+    """rank_metric.hpp + dcg_calculator.cpp; a query without a positive
+    label counts as NDCG 1."""
+    name = "ndcg"
+    factor_to_bigger_better = 1.0
+
+    def __init__(self, config: Config):
+        self.eval_at = list(config.ndcg_eval_at or [1, 2, 3, 4, 5])
+        self.label_gain = np.asarray(config.label_gain
+                                     or default_label_gain())
+
+    def init(self, metadata: Metadata, num_data: int) -> None:
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            Log.fatal("For NDCG metric (metric=ndcg), there should be query "
+                      "information")
+        self.qb = np.asarray(metadata.query_boundaries)
+        self.query_weights = metadata.query_weights
+        nq = len(self.qb) - 1
+        self.sum_query_weights = (
+            float(nq) if self.query_weights is None
+            else float(np.asarray(self.query_weights).sum()))
+        self.inv_max_dcgs = np.zeros((nq, len(self.eval_at)))
+        for q in range(nq):
+            lab = self.label[self.qb[q]:self.qb[q + 1]]
+            for j, k in enumerate(self.eval_at):
+                m = _max_dcg_at_k(k, lab, self.label_gain)
+                self.inv_max_dcgs[q, j] = 1.0 / m if m > 0.0 else -1.0
+
+    def get_names(self) -> List[str]:
+        return ["ndcg@%d" % k for k in self.eval_at]
+
+    def eval(self, score, objective) -> List[float]:
+        score = np.asarray(score, dtype=np.float64).reshape(-1)
+        nq = len(self.qb) - 1
+        result = np.zeros(len(self.eval_at))
+        for q in range(nq):
+            s, e = self.qb[q], self.qb[q + 1]
+            qw = (1.0 if self.query_weights is None
+                  else float(self.query_weights[q]))
+            if self.inv_max_dcgs[q, 0] <= 0.0:
+                result += qw
+                continue
+            lab = self.label[s:e].astype(np.int32)
+            order = np.argsort(-score[s:e], kind="stable")
+            dcg_all = self.label_gain[lab[order]] * get_discounts(len(lab))
+            for j, k in enumerate(self.eval_at):
+                kk = min(k, len(lab))
+                result[j] += dcg_all[:kk].sum() * self.inv_max_dcgs[q, j] * qw
+        return [float(r / self.sum_query_weights) for r in result]
+
+
+class MapMetric(Metric):
+    """map_metric.hpp:16-140.  The precision denominator is the eval_at
+    slot's index (i + 1), as the reference's (map_metric.hpp:88-90) and
+    the JAX package's are, not the textbook position."""
+    name = "map"
+    factor_to_bigger_better = 1.0
+
+    def __init__(self, config: Config):
+        self.eval_at = list(config.ndcg_eval_at or [1, 2, 3, 4, 5])
+
+    def init(self, metadata: Metadata, num_data: int) -> None:
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            Log.fatal("For MAP metric (metric=map), there should be query "
+                      "information")
+        self.qb = np.asarray(metadata.query_boundaries)
+        self.query_weights = metadata.query_weights
+        nq = len(self.qb) - 1
+        self.sum_query_weights = (
+            float(nq) if self.query_weights is None
+            else float(np.asarray(self.query_weights).sum()))
+
+    def get_names(self) -> List[str]:
+        return ["map@%d" % k for k in self.eval_at]
+
+    def eval(self, score, objective) -> List[float]:
+        score = np.asarray(score, dtype=np.float64).reshape(-1)
+        nq = len(self.qb) - 1
+        result = np.zeros(len(self.eval_at))
+        for q in range(nq):
+            s, e = self.qb[q], self.qb[q + 1]
+            qw = (1.0 if self.query_weights is None
+                  else float(self.query_weights[q]))
+            lab = self.label[s:e]
+            hits = lab[np.argsort(-score[s:e], kind="stable")] > 0.5
+            num_hit = 0
+            sum_ap = 0.0
+            cur_left = 0
+            for i, k in enumerate(self.eval_at):
+                cur_k = min(k, len(lab))
+                for j in range(cur_left, cur_k):
+                    if hits[j]:
+                        num_hit += 1
+                        sum_ap += num_hit / (i + 1.0)
+                result[i] += (sum_ap / cur_k) * qw if cur_k > 0 else 0.0
+                cur_left = cur_k
+        return [float(r / self.sum_query_weights) for r in result]
+
+
 _METRIC_FACTORY = {
     "l2": L2Metric, "mean_squared_error": L2Metric, "mse": L2Metric,
     "l2_root": RMSEMetric, "root_mean_squared_error": RMSEMetric,
@@ -236,24 +339,19 @@ _METRIC_FACTORY = {
     "binary_logloss": BinaryLoglossMetric,
     "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
+    "ndcg": NDCGMetric,
+    "map": MapMetric, "mean_average_precision": MapMetric,
     "multi_logloss": MultiSoftmaxLoglossMetric,
     "multi_error": MultiErrorMetric,
 }
 # the metrics that take the config
-_CONFIGURED = (HuberLossMetric, FairLossMetric, _MulticlassMetric)
-
-
-# metrics of the JAX package that this port does not have yet
-_NOT_PORTED = {"ndcg", "map", "mean_average_precision"}
+_CONFIGURED = (HuberLossMetric, FairLossMetric, _MulticlassMetric,
+               NDCGMetric, MapMetric)
 
 
 def create_metric(name: str, config: Config) -> Optional[Metric]:
     """Metric::CreateMetric (metric.cpp:10-40); None for names neither
-    package knows (the reference ignores them too), an error for the JAX
-    package's metrics this port lacks."""
-    if name in _NOT_PORTED:
-        Log.fatal("metric=%s is not in lightgbm_tpu_torch yet (it has %s)",
-                  name, ", ".join(sorted(_METRIC_FACTORY)))
+    package knows (the reference ignores them too)."""
     cls = _METRIC_FACTORY.get(name)
     if cls is None:
         return None

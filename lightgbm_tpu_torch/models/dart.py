@@ -35,9 +35,10 @@ class DART(GBDT):
         return self.models[self._stub_offset()
                            + iteration * self.num_tree_per_iteration + tid]
 
-    def train_one_iter(self, is_eval: bool = True) -> bool:
+    def train_one_iter(self, gradients=None, hessians=None,
+                       is_eval: bool = True) -> bool:
         self._score_dropped_this_iter = False
-        stop = super().train_one_iter(False)
+        stop = super().train_one_iter(gradients, hessians, False)
         if stop:
             return stop
         self._normalize()

@@ -9,7 +9,9 @@ constant stub (gbdt.cpp:166-205), bagging as a per-row 0/1 multiplier
 (gbdt.cpp:242-324), the stop on an iteration without splits
 (gbdt.cpp:440-448), early stopping on the valid metrics with the pop of
 the trees past the best iteration (gbdt.cpp:479-585), rollback
-(gbdt.cpp:460-477) and the model text format (gbdt.cpp:817-971).
+(gbdt.cpp:460-477), the model text format (gbdt.cpp:817-971) and its JSON
+dump (gbdt.cpp:665-699), and custom gradients (a Python ``fobj``), which
+always take the staged chain.
 
 One tree is staged -- gradients, then tree growth (ops/wave.py or
 ops/grow.py), then the partition-side score update (kernel B2), each its
@@ -368,12 +370,16 @@ class GBDT:
         self._fused_state = (fused,)
         return fused
 
-    def train_one_iter(self, is_eval: bool = True) -> bool:
+    def train_one_iter(self, gradients=None, hessians=None,
+                       is_eval: bool = True) -> bool:
         """GBDT::TrainOneIter (gbdt.cpp:339-458), K trees; True = stop.
 
-        As in the JAX package, an iteration without splits is looked for
-        when is_eval is set or every 16th iteration; Booster.update passes
-        is_eval=False."""
+        gradients and hessians: custom host arrays of K * N values in the
+        reference's class-major layout (a Python fobj's); they go to the
+        device once, as one (2, K, N) f32 copy, and force the staged
+        chain, as in the JAX package.  As there, an iteration without
+        splits is looked for when is_eval is set or every 16th iteration;
+        Booster.update passes is_eval=False."""
         cfg = self.config
         k = self.num_tree_per_iteration
         if (not self.models and cfg.boost_from_average
@@ -387,15 +393,22 @@ class GBDT:
             self._append_host_tree(_stub_tree(init_score, self.num_data))
             self.boost_from_average_used = True
 
-        fused = self._resolve_fused_iter()
+        custom = gradients is not None and hessians is not None
+        fused = None if custom else self._resolve_fused_iter()
         if fused is not None:
             # gradients, growth and the score update in one schedule
             self._bagging(self.iter)
         else:
-            if self.objective is None:
-                Log.fatal("No object function provided")
-            grad, hess = self.objective.get_gradients(
-                self._score_for_objective())
+            if custom:
+                gh = np.empty((2, k * self.num_data), dtype=np.float32)
+                gh[0] = np.asarray(gradients, dtype=np.float32).reshape(-1)
+                gh[1] = np.asarray(hessians, dtype=np.float32).reshape(-1)
+                grad, hess = torch.as_tensor(gh, device=self.device)
+            else:
+                if self.objective is None:
+                    Log.fatal("No object function provided")
+                grad, hess = self.objective.get_gradients(
+                    self._score_for_objective())
             grad, hess = self._bagging_with_grad(
                 self.iter, grad.reshape(k, self.num_data),
                 hess.reshape(k, self.num_data))
@@ -818,6 +831,29 @@ class GBDT:
         self.iter = 0
         self._models_changed()
         return True
+
+    def sub_model_name(self) -> str:
+        return "tree"
+
+    def dump_model(self, num_iteration: int = -1) -> str:
+        """GBDT::DumpModel JSON (gbdt.cpp:665-699), the JAX package's
+        characters for the same model text."""
+        self._materialize()
+        out = ['{"name":"%s",' % self.sub_model_name(),
+               '"num_class":%d,' % self.num_class,
+               '"num_tree_per_iteration":%d,' % self.num_tree_per_iteration,
+               '"label_index":%d,' % self.label_idx,
+               '"max_feature_idx":%d,' % self.max_feature_idx]
+        if self.objective is not None:
+            out.append('"objective":"%s",' % self.objective.to_string())
+        out.append('"feature_names":[%s],' % ",".join(
+            '"%s"' % n for n in self.feature_names))
+        out.append('"tree_info":[')
+        out.append(",".join('{"tree_index":%d,%s}'
+                            % (i, self.models[i].to_json())
+                            for i in range(self._used_trees(num_iteration))))
+        out.append("]}")
+        return "\n".join(out)
 
     # ------------------------------------------------------------ importance
     def feature_importance_pairs(self) -> List[Tuple[int, str]]:

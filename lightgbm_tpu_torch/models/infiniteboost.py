@@ -37,8 +37,9 @@ class InfiniteBoost(GBDT):
         self.normalization = n * (n + 1) / 2.0
         self.current_normalization = 0.0
 
-    def train_one_iter(self, is_eval: bool = True) -> bool:
-        stop = super().train_one_iter(False)
+    def train_one_iter(self, gradients=None, hessians=None,
+                       is_eval: bool = True) -> bool:
+        stop = super().train_one_iter(gradients, hessians, False)
         if stop:
             return stop
         self._update_tree_weight()

@@ -301,3 +301,47 @@ class Tree:
         if "has_categorical" in kv:
             self.has_categorical = int(kv["has_categorical"]) != 0
         return self
+
+    def to_json(self) -> str:
+        """Tree::ToJSON (tree.cpp:345-358), character for character the
+        JAX package's: floats through repr."""
+        out = ['"num_leaves":%d,' % self.num_leaves,
+               '"shrinkage":%s,' % repr(float(self.shrinkage)),
+               '"has_categorical":%d,' % (1 if self.has_categorical else 0)]
+        root = -1 if self.num_leaves == 1 else 0
+        out.append('"tree_structure":' + self._node_to_json(root))
+        return "\n".join(out) + "\n"
+
+    def _node_to_json(self, index: int) -> str:
+        """A node (index >= 0) or leaf (~index) and its subtree."""
+        if index >= 0:
+            return ("{\n"
+                    '"split_index":%d,\n'
+                    '"split_feature":%d,\n'
+                    '"split_gain":%s,\n'
+                    '"threshold":%s,\n'
+                    '"decision_type":"%s",\n'
+                    '"default_value":%s,\n'
+                    '"internal_value":%s,\n'
+                    '"internal_count":%d,\n'
+                    '"left_child":%s,\n'
+                    '"right_child":%s\n'
+                    "}") % (
+                index, self.split_feature[index],
+                repr(float(self.split_gain[index])),
+                repr(float(self.threshold[index])),
+                "no_greater" if self.decision_type[index] == 0 else "is",
+                repr(float(self.default_value[index])),
+                repr(float(self.internal_value[index])),
+                self.internal_count[index],
+                self._node_to_json(self.left_child[index]),
+                self._node_to_json(self.right_child[index]))
+        leaf = ~index
+        return ("{\n"
+                '"leaf_index":%d,\n'
+                '"leaf_parent":%d,\n'
+                '"leaf_value":%s,\n'
+                '"leaf_count":%d\n'
+                "}") % (leaf, self.leaf_parent[leaf],
+                        repr(float(self.leaf_value[leaf])),
+                        self.leaf_count[leaf])

@@ -115,10 +115,14 @@ def histogram_plain(X_t, w, num_bins: int):
 
 def wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins: int):
     """(K, F, B, 3): hist[k, f, b] sums w3 over the rows with
-    leaf_id == child_id[k] and X_t[f, row] == b, in w3's dtype."""
-    return torch.stack([
-        histogram_plain(X_t, w3 * (leaf_id == child_id[k]).to(w3.dtype)[
-            :, None], num_bins) for k in range(child_id.shape[0])])
+    leaf_id == child_id[k] and X_t[f, row] == b, in w3's dtype.  Each
+    slot sums only its own rows, in row order: the rows of other leaves
+    would add zeros, which change no sum."""
+    out = []
+    for k in range(child_id.shape[0]):
+        rows = torch.nonzero(leaf_id == child_id[k]).squeeze(1)
+        out.append(histogram_plain(X_t[:, rows], w3[rows], num_bins))
+    return torch.stack(out)
 
 
 def wave_histogram_rowmajor_plain(X, leaf_id, w3, child_id, num_bins: int):

@@ -295,15 +295,17 @@ def test_side_files_load_as_jax(work):
         assert got.metadata.get_field(name) is not None
         np.testing.assert_array_equal(got.metadata.get_field(name),
                                       want.metadata.get_field(name))
-    # a .query file loads (the lambdarank objective is still refused)
+    # a .query file loads, and lambdarank trains on its queries
+    # (tests/test_torch_lambdarank.py holds those trees to the JAX CLI's)
     q = TTrainingData.from_file("lambdarank.train", TConfig({}))
     qj = JTrainingData.from_file("lambdarank.train", JConfig({}))
     np.testing.assert_array_equal(q.metadata.query_boundaries,
                                   qj.metadata.query_boundaries)
     assert q.metadata.num_queries() == qj.metadata.num_queries() > 1
-    with pytest.raises(LightGBMError):
-        tcli.main(["task=train", "data=lambdarank.train",
-                   "objective=lambdarank"] + COMMON)
+    tcli.main(["task=train", "data=lambdarank.train", "objective=lambdarank",
+               "output_model=rank.txt"] + COMMON)
+    text = open("rank.txt").read()
+    assert "objective=lambdarank" in text and text.count("Tree=") == 5
 
 
 def test_side_files_train_as_jax(work):

@@ -1497,8 +1497,12 @@ def test_cli_train_on_the_card_equals_train(dev, tmp_path, monkeypatch):
     _write_tsv("t.tsv", X, y)
     cli.main(_cli_args(["task=train", "data=t.tsv", "num_iterations=4",
                         "output_model=m.txt"]))
-    want = lgb.train(CLI_PARAMS, lgb.Dataset(X, label=y), 4).model_to_string()
-    assert open("m.txt").read() == want
+    # the CLI writes GBDT's model text, as the JAX package's CLI does;
+    # model_to_string adds the Python API's pandas_categorical line
+    want = lgb.train(CLI_PARAMS, lgb.Dataset(X, label=y), 4)
+    assert open("m.txt").read() == want._gbdt.save_model_to_string()
+    assert want.model_to_string() == (open("m.txt").read()
+                                      + "\npandas_categorical:null\n")
     cli.main(_cli_args(["task=train", "data=t.tsv", "num_iterations=3",
                         "input_model=m.txt", "output_model=more.txt"]))
     more = lgb.Booster(model_file="more.txt")
@@ -1540,3 +1544,93 @@ def test_cli_predict_on_the_card_takes_the_device_path(dev, tmp_path,
     got, want = np.loadtxt("dev.txt"), np.loadtxt("host.txt")
     assert got.shape == (100_000,)
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+def _ranking_case(nq=300, seed=3, max_docs=200):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, max_docs, size=nq)
+    n = int(counts.sum())
+    y = rng.integers(0, 5, size=n).astype(np.float64)
+    X = rng.normal(size=(n, 8))
+    X[:, 0] += y
+    return X, y, counts
+
+
+def test_lambdarank_gradients_on_the_card_match_the_host_oracle(dev):
+    """The device lambdas (padded query buckets, plain torch) against the
+    reference-shaped host oracle, rtol 2e-4 / atol 2e-5 (the JAX
+    package's tolerance), with and without weights; and fused training
+    (the gradients captured in the tree graph) equals staged."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.io.metadata import Metadata
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.utils.config import Config
+
+    X, y, counts = _ranking_case()
+    rng = np.random.default_rng(5)
+    for w in (None, rng.random(len(y)) + 0.5):
+        md = Metadata(len(y))
+        md.set_label(y)
+        md.set_query_counts(counts)
+        md.set_weights(w)
+        obj = create_objective("lambdarank", Config({}))
+        obj.init(md, len(y), dev)
+        score = rng.normal(size=len(y)).astype(np.float32)
+        g, h = obj.get_gradients(torch.from_numpy(score).to(dev))
+        gh, hh = obj.get_gradients_host(score)
+        np.testing.assert_allclose(g.cpu().numpy(), gh, rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(h.cpu().numpy(), hh, rtol=2e-4, atol=2e-5)
+    params = {"objective": "lambdarank", "num_leaves": 15, "verbose": -1,
+              "metric": "ndcg", "ndcg_eval_at": [5]}
+    texts = []
+    for mode in ("auto", "off"):
+        b = lgb.train(dict(params, tpu_fused_iter=mode),
+                      lgb.Dataset(X, label=y, group=counts), 4)
+        assert (b._gbdt._fused_state[0] is not None) == (mode == "auto")
+        texts.append(b.model_to_string())
+    assert texts[0] == texts[1]
+
+
+def test_fobj_of_builtin_gradients_trains_the_builtin_trees_on_the_card(dev):
+    """A fobj returning the built-in logloss gradients (computed on the
+    card, handed over as numpy) trains the built-in objective's staged
+    trees, every Tree= section to the byte."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.utils.config import Config
+
+    X, s = parity_data(3, 20_000, False)
+    y = (s > 0).astype(float)
+    params = parity_params("binary", {"boost_from_average": False})
+    want = lgb.train(dict(params, tpu_fused_iter="off"),
+                     lgb.Dataset(X, label=y), 4)
+    ds = lgb.Dataset(X, label=y, params=params).construct()
+    obj = create_objective("binary", Config(params))
+    obj.init(ds._handle.metadata, len(y), dev)
+
+    def fobj(preds, data):
+        g, h = obj.get_gradients(torch.as_tensor(preds, dtype=torch.float32,
+                                                 device=dev))
+        return g.cpu().numpy(), h.cpu().numpy()
+
+    got = lgb.train(params, ds, 4, fobj=fobj)
+    assert got._gbdt._fused_state is None or got._gbdt._fused_state[0] is None
+    assert (got.model_to_string().split("Tree=")[1:]
+            == want.model_to_string().split("Tree=")[1:])
+
+
+def test_pickle_round_trip_on_the_card(dev):
+    """A booster on the card pickles and deep-copies onto the card and
+    predicts the same bits."""
+    import copy
+    import pickle
+
+    import lightgbm_tpu_torch as lgb
+
+    X, s = parity_data(4, 5000, False)
+    b = lgb.train(parity_params("binary", {}),
+                  lgb.Dataset(X, label=(s > 0).astype(float)), 3)
+    want = b.predict(X, raw_score=True)
+    for other in (pickle.loads(pickle.dumps(b)), copy.deepcopy(b)):
+        assert other.device.type == "cuda"
+        np.testing.assert_array_equal(other.predict(X, raw_score=True), want)

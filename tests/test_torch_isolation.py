@@ -1,6 +1,6 @@
-"""The port stands alone: lightgbm_tpu_torch and its scripts
-(chip_smoke.py, sparse_model_diff.py) import neither jax nor the JAX
-package, load no library of the JAX package's (lightgbm_tpu/lib,
+"""The port stands alone: lightgbm_tpu_torch, its scripts
+(chip_smoke.py, sparse_model_diff.py) and the examples' CPU shim
+(tests/torch_cpu_lgb.py) import neither jax nor the JAX package, load no library of the JAX package's (lightgbm_tpu/lib,
 cpp/build), and its CUDA entry points never fall back to the CPU."""
 import ast
 import json
@@ -29,10 +29,17 @@ def test_import_leaves_no_jax_modules():
             "import lightgbm_tpu_torch.pmml, lightgbm_tpu_torch.convert_model\n"
             "import lightgbm_tpu_torch.models.checkpoint\n"
             "import lightgbm_tpu_torch.io.parser\n"
+            "import lightgbm_tpu_torch.sklearn, lightgbm_tpu_torch.plotting\n"
+            "import lightgbm_tpu_torch.compat\n"
+            "from lightgbm_tpu_torch.engine import cv, CVBooster\n"
+            "from lightgbm_tpu_torch.objectives import LambdarankNDCG\n"
+            "from lightgbm_tpu_torch.metrics import NDCGMetric, MapMetric\n"
+            "import torch_cpu_lgb\n"
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m == 'jax' or m.startswith(('jax.', 'jaxlib')) or "
             "m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.'))))\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO), str(REPO / "tests")]))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                          env=env, capture_output=True, text=True,
                          timeout=120)
@@ -52,7 +59,8 @@ def _imported_modules(path: Path):
 
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "sparse_model_diff.py"]
+                                          REPO / "sparse_model_diff.py",
+                                          REPO / "tests" / "torch_cpu_lgb.py"]
     assert len(files) > 10
     return files
 

@@ -10,7 +10,8 @@
 * the new metrics (L1, Huber, Fair, Poisson, multi_logloss,
   multi_error) give the JAX package's values to rtol 1e-9 (host
   float64 on both sides), with and without weights;
-* lambdarank, NDCG and MAP keep a clear refusal.
+* lambdarank, NDCG and MAP without query information raise, naming the
+  objective or metric (tests/test_torch_lambdarank.py holds them with it).
 """
 import numpy as np
 import pytest
