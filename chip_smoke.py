@@ -157,6 +157,23 @@ Phases, in order:
     (auc-mean); LGBMClassifier at the flagship's params and LGBMRanker on
     9b's data train train's model text.  Every in-process run is counted
     into the kernel line.
+10. (run after phase 4d) The kernels' packed and bf16 forms
+    (forms_phase): their checks and times (packed B1, B3, B4 at F = 28,
+    B = 16 on the flagship rows binned at max_bin 15, each bit-equal to
+    the byte bins' kernel; bf16 B1, B3, B4 at B = 63 with tie weights,
+    each the unrounded form on the rounded weights to the bit);
+    the max_bin 15 flagship on byte bins, then packed on pallas_ct,
+    pallas_t and pallas, fused and staged, each text the byte bins' to
+    the byte with X at half the bytes; bf16 on the main path, fused and
+    staged (equal text, valid AUC within 1e-3 of phase 4's), and on
+    pallas_t and pallas (pallas_ct's bf16 text); tpu_wave_compact=true
+    on pallas_ct (taken; the full pass runs under it: the main path's
+    text).  Every launch of a form is counted in the form's own counter.
+    Phase 5 adds B6's bf16 form to its checks, a reading of the rebuilt
+    fill bins' bf16 offset at the root, and a bf16 booster on its
+    Dataset, fused then staged (equal text, every B6 launch bf16; its AUC
+    printed beside the unrounded run's; a small bf16 sparse run on the
+    card grows the CPU's trees).
  With --profile, every training run of phases 4 and 5 and the
  multiclass run profile one more iteration: its wall time, device busy
  share, device operations and graph replays; phase 7 profiles one
@@ -184,6 +201,8 @@ SPARSE_COLS = 968             # Bosch's width (BASELINE.md)
 SPARSE_DENSITY = 0.01
 # (whole-call, steady) it/s of each dense training run, by its label
 RATES = {}
+# the last iteration's valid AUC of each dense training run, by its label
+AUCS = {}
 # phase 7: bench_serve.py's full shape (:41-51, :168-170, :224-228)
 SERVE_ROWS = 200_000
 SERVE_ROUNDS = 100
@@ -425,7 +444,7 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values,
     plan = wk.hist_plan(F, N, B, K, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     per_sm = _build.library().lgbt_wave_hist_blocks_per_sm(
-        B, plan[3], plan[4], plan[5], 0)
+        B, plan[3], plan[4], plan[5], 0, 0)
     warps = per_sm * wk._HIST_THREADS // 32
     need(warps >= 32, "B1 keeps %d warps a SM resident" % warps)
     del listed
@@ -651,7 +670,6 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm, sweep):
     n_ent = int(real.sum())
     present = torch.zeros(n_rows, dtype=torch.bool, device=dev)
     present[rows[real]] = True                  # rows with an entry
-    ws = [w3[rc, c].contiguous() for c in range(3)]
     fill = store.fill.long()
     # the dense bins the store was built from: each column's fill bin,
     # then its entries
@@ -665,24 +683,30 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm, sweep):
     fill_cell = torch.zeros((F, B), dtype=torch.bool, device=dev)
     fill_cell[torch.arange(F, device=dev), fill] = True
 
-    def form(name, lid, cid):
+    def form(name, lid, cid, w3=w3, exps=exps, hilo=True):
         K = cid.shape[0]
 
         def call():
             return sm.sparse_wave_histogram(store, lid, w3, cid, B, F,
-                                            exps=exps)
+                                            exps=exps, hilo=hilo)
 
         hist = call()
         again = call()
         need(torch.equal(hist, again),
              "%s repeat launch not bit-identical" % name)
-        dense = wk.wave_histogram(X_t, lid, w3, cid, B, exps=exps)
+        dense = wk.wave_histogram(X_t, lid, w3, cid, B, exps=exps, hilo=hilo)
         need(torch.equal(hist[:, ~fill_cell], dense[:, ~fill_cell]),
              "%s non-fill cells not bit-equal to B3's" % name)
         del dense, again
-        want = sm.chunked_child_hists_plain(store, lid, w3.double(), cid, B,
-                                            F)
-        scale = sm.chunked_child_hists_plain(store, lid, w3.double().abs(),
+        # the weights the sums take: rounded to bf16 in the bf16 form
+        wsum = w3 if hilo else wk.round_bf16(w3)
+        if not hilo:
+            need(torch.equal(hist, sm.sparse_wave_histogram(
+                store, lid, wsum, cid, B, F, exps=exps)),
+                 "%s is not B6 on the rounded weights" % name)
+        want = sm.chunked_child_hists_plain(store, lid, wsum.double(), cid,
+                                            B, F)
+        scale = sm.chunked_child_hists_plain(store, lid, wsum.double().abs(),
                                              cid, B, F)
         diff = (hist.double() - want).abs()
         tol = 1e-5 * scale + 1e-5 * float(w3.abs().max())
@@ -699,7 +723,7 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm, sweep):
         blocks = F * -(-K // plan[0])
         other = 256 if plan[1] != 256 else 512
         need(torch.equal(sm._launch(store, lid, w3, cid, B, F, exps,
-                                    (plan[0], other)), hist),
+                                    (plan[0], other), hilo), hist),
              "%s at %d threads not bit-equal" % (name, other))
         swept = []
         for threads in (256, 512, 1024) if sweep else ():
@@ -719,6 +743,7 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm, sweep):
         cell = torch.where(real & (slot >= 0), (slot * F + cols) * B + bins,
                            torch.full_like(rows, spare))
         n_act = int((real & (slot >= 0)).sum())
+        ws = [wsum[rc, c].contiguous() for c in range(3)]
         # the bytes the function must move: each entry's row and bin,
         # leaf_id of the rows with an entry, w3 of those rows whose leaf
         # is in an active slot, and the (K, F, B, 3) output
@@ -726,7 +751,7 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm, sweep):
         rec = dict(
             max_abs_err=err, ms=time_ms(call),
             plain_ms=time_ms(lambda: sm.chunked_child_hists_plain(
-                store, lid, w3, cid, B, F)),
+                store, lid, w3, cid, B, F, hilo)),
             library_ms=time_ms(lambda: [torch.bincount(cell, weights=w,
                                                        minlength=spare + 1)
                                         for w in ws]),
@@ -747,9 +772,17 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm, sweep):
             % (name, rec["shape"], rec["ms"], rec["plain_ms"],
                rec["library_ms"], rec["bound_ms"], rec["bound_by"],
                rec["max_abs_err"]))
+        del ws
         return hist, rec
 
     hist, rec = form("sparse_wave_histogram", lid, cid)
+    # the bf16 form (tpu_hist_precision=bf16) on weights with ties: B6 on
+    # the rounded weights to the bit, and B3's bf16 form on the non-fill
+    # cells
+    w3t = with_ties(w3.cpu(), g).to(dev)
+    _, rec_bf16 = form("sparse_wave_histogram_bf16", lid, cid, w3t,
+                       wk.fixed_point_exponents(w3t), hilo=False)
+    del w3t
     inactive = cid.clone()
     inactive[::2] = -1
     h_in = sm.sparse_wave_histogram(store, lid, w3, inactive, B, F,
@@ -767,8 +800,55 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm, sweep):
          "active")
     del hist, h_wide
     say("B6 equals B3 on every non-fill cell to the bit, at K = 32 and at "
-        "the root; the root's one slot gives the 32-slot call's bits")
-    return rec
+        "the root (and in the bf16 form at K = 32); the root's one slot "
+        "gives the 32-slot call's bits")
+    return rec, rec_bf16
+
+
+def fill_bias_reading(store, labels, num_bins, sm):
+    """The bf16 offset of the rebuilt fill bins, read at the root on the
+    sparse booster's first-iteration weights (binary logloss from the
+    label mean p: g = p - y, h = p (1 - p)).  The sparse path rebuilds a
+    column's fill bin as the leaf's unrounded sum minus its other bins,
+    which B6 sums from rounded weights; so beside the fill bin that the
+    rounded weights would give, each column's rebuilt fill bin holds
+    offset = (unrounded leaf sum) - (rounded leaf sum), the whole leaf's
+    rounding, whatever the column.  Returns the reading (B6 launches:
+    the root at K = 1, unrounded and bf16)."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import wave_kernels as wk
+    dev = store.ent_row.device
+    F, B = store.num_cols, num_bins
+    y = torch.as_tensor(labels, dtype=torch.float32, device=dev)
+    p = float(y.double().mean())
+    w3 = torch.stack([p - y, torch.full_like(y, p * (1 - p)),
+                      torch.ones_like(y)], dim=1).contiguous()
+    exps = wk.fixed_point_exponents(w3)
+    lid = torch.zeros(y.shape[0], dtype=torch.int32, device=dev)
+    cid = torch.zeros(1, dtype=torch.int32, device=dev)
+    h_un = sm.sparse_wave_histogram(store, lid, w3, cid, B, F, exps=exps)
+    h_bf = sm.sparse_wave_histogram(store, lid, w3, cid, B, F, exps=exps,
+                                    hilo=False)
+    nf_un = h_un[0].double().sum(dim=1)          # (F, 3) non-fill sums
+    nf_bf = h_bf[0].double().sum(dim=1)
+    leaf = w3.double().sum(dim=0)
+    leaf_r = wk.round_bf16(w3).double().sum(dim=0)
+    offset = leaf - leaf_r
+    # each rebuilt fill bin's error against its true (unrounded) sum
+    fill_err = (nf_un - nf_bf)[:, :2].abs().max(dim=0).values
+    # the column's own signal: its non-fill gradient sum
+    signal = nf_un[:, 0].abs()
+    r = dict(p=p, leaf_g=float(leaf[0]), leaf_h=float(leaf[1]),
+             offset_g=float(offset[0]), offset_h=float(offset[1]),
+             abs_g=float(w3[:, 0].double().abs().sum()),
+             fill_err_g=float(fill_err[0]), fill_err_h=float(fill_err[1]),
+             median_signal_g=float(signal.median()),
+             cols_offset_over_signal=int((signal < abs(float(offset[0])))
+                                         .sum()), cols=F)
+    need(all(np.isfinite(v) for v in r.values()),
+         "fill-bin reading not finite: %s" % r)
+    return r
 
 
 def structure(booster, with_thresholds=False):
@@ -779,13 +859,15 @@ def structure(booster, with_thresholds=False):
             if ln.startswith(keys)]
 
 
-def small_sparse_run_matches(lgb):
+def small_sparse_run_matches(lgb, bf16=False):
     """A small sparse run on the card (kernel B6) grows the trees the CPU
     grows (compared as small_run_matches_cpu compares them) and the trees
     the port's dense path grows on the card from the same data: the same
     partitions, leaf values to 5e-4 of the largest (the dense path sums
     the default bin directly, the sparse path rebuilds it as the leaf sum
-    minus the other bins; tests/test_torch_sparse_train.py says more)."""
+    minus the other bins; tests/test_torch_sparse_train.py says more).
+    bf16: under tpu_hist_precision=bf16, against the CPU only (the dense
+    root is unrounded, the sparse root B6's, rounded)."""
     import scipy.sparse as sps
     rng = np.random.default_rng(0)
     n = 2500
@@ -796,15 +878,18 @@ def small_sparse_run_matches(lgb):
     C = sps.csr_matrix(X)
     p = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 20,
          "max_bin": 63, "verbose": -1, "tpu_growth": "wave",
-         "tpu_wave_width": 4, "tpu_sparse": True, "tpu_sparse_kernel": True}
+         "tpu_wave_width": 4, "tpu_sparse": True, "tpu_sparse_kernel": True,
+         "tpu_hist_precision": "bf16" if bf16 else "auto"}
     dense_p = {k: v for k, v in p.items() if not k.startswith("tpu_sparse")}
     card = lgb.train(p, lgb.Dataset(C, label=y), 3, device="cuda")
     cpu = lgb.train(p, lgb.Dataset(C, label=y), 3, device="cpu")
-    dense = lgb.train(dense_p, lgb.Dataset(X, label=y), 3, device="cuda")
     need(structure(card) == structure(cpu),
          "small sparse run: trees differ from the CPU's")
     need(np.allclose(card.predict(C), cpu.predict(C), rtol=1e-5, atol=0),
          "small sparse run: predictions differ from the CPU's")
+    if bf16:
+        return
+    dense = lgb.train(dense_p, lgb.Dataset(X, label=y), 3, device="cuda")
     need(structure(card) == structure(dense),
          "small sparse run: trees differ from the dense path's")
     lv = [np.array(ln.split("=")[1].split(), float)
@@ -853,7 +938,19 @@ def sparse_phase(args, lgb, sm, kernels, card):
            nbytes / 1e6))
     need(Xs.shape[1] == SPARSE_COLS and td.num_features > 900,
          "unexpected sparse binning")
-    record = sparse_kernel_phase(store, Xs.shape[0], nbins, sm, args.sweep)
+    record, record_bf16 = sparse_kernel_phase(store, Xs.shape[0], nbins, sm,
+                                              args.sweep)
+    fill = fill_bias_reading(store, ys, nbins, sm)
+    say("sparse bf16 fill-bin reading at the root (first-iteration "
+        "weights, p = %.6f): leaf sums g %.6f, h %.6f; unrounded minus "
+        "rounded leaf sum (each rebuilt fill bin's offset) g %.6f, h %.6f "
+        "(sum |g| %.3f); largest error of a rebuilt fill bin against its "
+        "true sum g %.6f, h %.6f; median |non-fill g sum| of a column "
+        "%.6f; %d of %d columns have |non-fill g sum| below |offset g|"
+        % (fill["p"], fill["leaf_g"], fill["leaf_h"], fill["offset_g"],
+           fill["offset_h"], fill["abs_g"], fill["fill_err_g"],
+           fill["fill_err_h"], fill["median_signal_g"],
+           fill["cols_offset_over_signal"], fill["cols"]))
     del store
     torch.cuda.empty_cache()
 
@@ -894,6 +991,7 @@ def sparse_phase(args, lgb, sm, kernels, card):
                             "sparse_wave_histogram")
         auc = evals["valid_0"]["auc"][-1]
         need(auc > 0.8, "%s valid AUC %.4f <= 0.8" % (label, auc))
+        AUCS[label] = auc
         steady = ((len(stamps) - 1) / (stamps[-1] - stamps[0])
                   if len(stamps) > 1 else float("nan"))
         say("%s train on %s: %d iterations in %.3f s including set-up "
@@ -929,7 +1027,49 @@ def sparse_phase(args, lgb, sm, kernels, card):
     say("sparse checks: device scores match host trees; model text round "
         "trip; small sparse run on the card matches the CPU and the dense "
         "path")
-    return record, launches
+    # ---- phase 10e: bf16 boosters on the same Dataset (no second
+    # binning), fused then staged (the same text to the byte): every B6
+    # launch, the root's included, a bf16 one; the valid AUC is printed
+    # beside the unrounded run's (on this skewed data bf16 costs AUC, in
+    # the JAX package's semantics too: tests/test_torch_bf16.py; the
+    # fill-bin reading above), and a small bf16 run on the card grows
+    # the CPU's trees
+    evals = {}
+    (bf, bf_launches), forms = counted_forms(kernels, lambda: counted(
+        kernels, lambda: lgb.train(dict(params, tpu_hist_precision="bf16"),
+                                   ds, ITERS, valid_sets=[dv],
+                                   evals_result=evals)))
+    stats = bf.grow_stats()
+    check_wave_launches("sparse-bf16", bf, bf_launches, stats,
+                        "sparse_wave_histogram")
+    need(forms["sparse_wave_histogram_bf16"]
+         == bf_launches["sparse_wave_histogram"],
+         "sparse-bf16: B6 launches not all bf16: %s" % forms)
+    auc = evals["valid_0"]["auc"][-1]
+    auc_hilo = AUCS["sparse"]
+    need(auc > 0.8, "sparse-bf16 valid AUC %.4f <= 0.8" % auc)
+    need(bf.model_to_string() != booster.model_to_string(),
+         "sparse-bf16: the unrounded run's text (no rounding?)")
+    need(fused_of(bf) is not None, "sparse-bf16: did not run fused")
+    staged, st_launches = counted(kernels, lambda: lgb.train(
+        dict(params, tpu_hist_precision="bf16", tpu_fused_iter="off"), ds,
+        ITERS))
+    check_wave_launches("sparse-bf16-staged", staged, st_launches,
+                        staged.grow_stats(), "sparse_wave_histogram")
+    need(fused_of(staged) is None, "sparse-bf16-staged: ran fused")
+    need(staged.model_to_string() == bf.model_to_string(),
+         "sparse-bf16: fused and staged model texts differ")
+    del staged
+    small_sparse_run_matches(lgb, bf16=True)
+    say("sparse-bf16 launches: %s, forms %s; staged launches %s; fused "
+        "and staged model text equal to the byte; valid AUC %.6f, the "
+        "unrounded run's %.6f (difference %.2e; the acceptance bound "
+        "is 1e-3, unmet on this data); %d and %d waves in all; a small bf16 "
+        "sparse run on the card grows the CPU's trees"
+        % (bf_launches, forms, st_launches, auc, auc_hilo, auc - auc_hilo,
+           sum(s.passes for s in stats),
+           sum(s.passes for s in booster.grow_stats())))
+    return record, launches, record_bf16, forms
 
 
 def profile_iteration(booster, card):
@@ -1303,6 +1443,7 @@ def dense_train_phase(label, params, data, lgb, kernels, card, args):
          % (label, launches["score_update"], ITERS))
     auc = evals["valid_0"]["auc"][-1]
     need(auc > 0.8, "%s: valid AUC %.4f <= 0.8" % (label, auc))
+    AUCS[label] = auc
     steady = ((len(stamps) - 1) / (stamps[-1] - stamps[0])
               if len(stamps) > 1 else float("nan"))
     RATES[label] = (ITERS / t_train, steady)
@@ -2502,6 +2643,394 @@ def api_phase(lgb, kernels, card, data):
     return total
 
 
+# ------------------------------------------------------------- phase 10
+def counted_forms(kernels, fn):
+    """fn() with every kernel's packed and bf16 form counts set
+    to 0 just before; returns (fn's result, {"<kernel>_<form>": its
+    launches during fn})."""
+    for k in kernels.values():
+        for form in getattr(k, "form_launches", {}):
+            k.form_launches[form] = 0
+    out = fn()
+    return out, {"%s_%s" % (name, form): n
+                 for name, k in kernels.items()
+                 for form, n in getattr(k, "form_launches", {}).items()}
+
+
+def wave_state(N, F, B, K, default_bin, g, leaves=None):
+    """A wave state as the grower makes it, on the CPU: leaf ids over
+    `leaves` leaves (K: each a parent of the wave), random weight rows,
+    and a split table of K parents (the first K leaf ids) with their
+    smaller children.  Returns (lid, w3, cols, psrc, cid)."""
+    import torch
+    lid = torch.randint(0, leaves or K, (N,), generator=g, dtype=torch.int32)
+    w3 = torch.randn((N, 3), generator=g, dtype=torch.float32)
+    f_w = torch.randint(0, F, (K,), generator=g)
+    cols = torch.stack([
+        torch.ones(K), f_w.float(),
+        torch.randint(0, B - 1, (K,), generator=g).float(),
+        torch.zeros(K), default_bin[f_w].float(),
+        torch.randint(0, 2, (K,), generator=g).float(),
+        torch.arange(K, 2 * K).float() + (leaves or K) - K, torch.zeros(K),
+        torch.zeros(K), torch.full((K,), float(B))], dim=-1).contiguous()
+    psrc = torch.arange(K, dtype=torch.int32)
+    pick_new = torch.randint(0, 2, (K,), generator=g, dtype=torch.int32)
+    cid = torch.where(pick_new > 0, cols[:, 6].to(torch.int32), psrc)
+    return lid, w3, cols, psrc, cid
+
+
+def with_ties(w3, g):
+    """w3 with +-(1 + 2^-8), a tie of the bf16 rounding, in a tenth of
+    its entries (half away from zero and half to even part there)."""
+    import torch
+    tie = torch.rand(w3.shape, generator=g) < 0.1
+    v = torch.where(w3 < 0, -1.0, 1.0) * (1 + 2.0 ** -8)
+    return torch.where(tie, v, w3)
+
+
+def forms_kernel_phase(X_t, X15_t, default_bin, default_bin15, wk):
+    """Phases 2 and 3 for the kernels' packed and bf16 forms.
+
+    Packed, at F = 28, B = 16 on the max_bin = 15 flagship bins X15_t and
+    their 4-bit packed copy (14 stored columns): B1 (K = W = 32), B3 (the
+    root, K = 1, and K = 32) and B4 (K = 32) each against its plain
+    version in float64 (phase 2's tolerance) and against the same kernel
+    on the byte bins to the bit (leaf ids too), B1's routing list against
+    plain, 32 warps a SM on the packed plan.  bf16, at F = 28, B = 63 on
+    the flagship bins with tie weights: B1, B3 and B4 (K = 32) each equal
+    to its unrounded form on the weights rounded by round_bf16 to the bit
+    (the same exponents) and within tolerance of the plain bf16 version
+    in float64.  Returns the records."""
+    import torch
+
+    from lightgbm_tpu_torch import _build
+    from lightgbm_tpu_torch.ops.pack import pack4_host
+    dev = X_t.device
+    F, N = X_t.shape
+    K = 32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device="cpu").manual_seed(3)
+    records, notes = {}, []
+
+    def record(name, err, call, plain, library, shape, nbytes, flops):
+        records[name] = dict(max_abs_err=err, ms=time_ms(call),
+                             plain_ms=time_ms(plain), library_ms=library,
+                             shape=shape, nbytes=nbytes, flops=flops)
+
+    # ---- packed
+    B = 16
+    lid, w3, cols, psrc, cid = (t.to(dev) for t in wave_state(
+        N, F, B, K, default_bin15, g))
+    Xp_t = torch.as_tensor(pack4_host(X15_t.t().cpu().numpy()).T.copy(),
+                           device=dev)                      # (14, N)
+    Xp = Xp_t.t().contiguous()                              # (N, 14)
+    X15 = X15_t.t().contiguous()
+    need(tuple(Xp_t.shape) == ((F + 1) // 2, N), "packed X_t shape")
+    wmax = float(w3.abs().max())
+    exps = wk.fixed_point_exponents(w3)
+    lid_b, h_b = wk.wave_partition_hist(X15_t, lid, w3, cid, cols, psrc, B,
+                                        exps=exps)
+    lid_p, h_p = wk.wave_partition_hist(Xp_t, lid, w3, cid, cols, psrc, B,
+                                        exps=exps, logical_cols=F)
+    need(torch.equal(lid_p, lid_b) and torch.equal(h_p, h_b),
+         "packed B1 not bit-equal to B1 on the byte bins")
+    plain_lid = wk.route_rows_plain(Xp_t, lid, cols, psrc, logical_cols=F)
+    need(torch.equal(lid_p, plain_lid), "packed B1 leaf ids differ from "
+         "plain")
+    need(all(torch.equal(a, b) for a, b in zip(
+        wk.route_list(Xp_t, lid, cid, cols, psrc, logical_cols=F),
+        wk.route_list_plain(Xp_t, lid, cid, cols, psrc, logical_cols=F))),
+         "packed B1 routing list differs from plain")
+    err, ok = hist_err(h_p, lambda a: wk.wave_histogram_plain(
+        Xp_t, plain_lid, w3.double().abs() if a else w3.double(), cid, B,
+        F), wmax)
+    need(ok, "packed B1 histogram outside tolerance (max abs err %g)" % err)
+    plan = wk.hist_plan(F, N, B, K, sms, True)
+    per_sm = _build.library().lgbt_wave_hist_blocks_per_sm(
+        B, plan[3], plan[4], plan[5], 0, 1)
+    need(per_sm * wk._HIST_THREADS // 32 >= 32,
+         "packed B1 keeps %d warps a SM resident"
+         % (per_sm * wk._HIST_THREADS // 32))
+    slot, n_act = slots_of(plain_lid, cid)
+    byte_ms = time_ms(lambda: wk.wave_partition_hist(
+        X15_t, lid, w3, cid, cols, psrc, B, exps=exps))
+    Fh = (F + 1) // 2
+    record("wave_partition_hist_packed", err,
+           lambda: wk.wave_partition_hist(Xp_t, lid, w3, cid, cols, psrc, B,
+                                          exps=exps, logical_cols=F),
+           lambda: wk.wave_partition_hist_plain(Xp_t, lid, w3, cid, cols,
+                                                psrc, B, logical_cols=F),
+           bincount_ms(X15_t, slot, w3, B),
+           "N=%d F=%d (%d packed columns) B=%d K=W=%d, %d rows in a child "
+           "slot; plan %s; the byte bins' B1 at this shape %.4f ms"
+           % (N, F, Fh, B, K, n_act, plan[:6], byte_ms),
+           N * (4 + 4 + 1) + n_act * (Fh + 12) + K * (10 * 4 + 8)
+           + K * F * B * 12, 3 * n_act * F)
+    zeros = torch.zeros(N, dtype=torch.int32, device=dev)
+    root = torch.zeros(1, dtype=torch.int32, device=dev)
+    for name, fn, xb, xp, ids, c in (
+            ("wave_histogram_packed", wk.wave_histogram, X15_t, Xp_t, zeros,
+             root),
+            ("wave_histogram_packed_k32", wk.wave_histogram, X15_t, Xp_t,
+             lid_b, cid),
+            ("wave_histogram_rowmajor_packed", wk.wave_histogram_rowmajor,
+             X15, Xp, lid_b, cid)):
+        h = fn(xp, ids, w3, c, B, exps=exps, logical_cols=F)
+        need(torch.equal(h, fn(xb, ids, w3, c, B, exps=exps)),
+             "%s not bit-equal to the byte bins' kernel" % name)
+        need(torch.equal(h, fn(xp, ids, w3, c, B, exps=exps,
+                               logical_cols=F)),
+             "%s repeat launch not bit-identical" % name)
+        if c is cid:
+            need(torch.equal(h, h_p), "%s is not packed B1's histogram"
+                 % name)
+        plain = (wk.wave_histogram_plain if fn is wk.wave_histogram
+                 else wk.wave_histogram_rowmajor_plain)
+        err, ok = hist_err(h, lambda a: plain(
+            xp, ids, w3.double().abs() if a else w3.double(), c, B, F), wmax)
+        need(ok, "%s outside tolerance (max abs err %g)" % (name, err))
+        s_, n_act = slots_of(ids, c)
+        byte_ms = time_ms(lambda: fn(xb, ids, w3, c, B, exps=exps))
+        record(name, err,
+               lambda: fn(xp, ids, w3, c, B, exps=exps, logical_cols=F),
+               lambda: plain(xp, ids, w3, c, B, F),
+               bincount_ms(X15_t, s_, w3, B),
+               "N=%d F=%d (%d packed columns%s) B=%d K=%d, %d rows in a "
+               "child slot; plan %s; the byte bins' kernel %.4f ms"
+               % (N, F, Fh, ", row-major" if xp is Xp else "", B,
+                  c.shape[0], n_act,
+                  wk.hist_plan(F, N, B, c.shape[0], sms, True)[:6], byte_ms),
+               N * 4 + n_act * (Fh + 12) + c.shape[0] * (4 + F * B * 12),
+               3 * n_act * F)
+    del Xp, X15, h, h_b, h_p
+    notes.append("packed B1, B3 and B4 equal the byte bins' kernels to the "
+                 "bit (leaf ids too) and their plain versions within "
+                 "tolerance; B1's routing list equals plain")
+
+    # ---- bf16, on the flagship's 63 bins, weights with ties
+    B = 63
+    lid, w3, cols, psrc, cid = (t.to(dev) for t in wave_state(
+        N, F, B, K, default_bin, g))
+    w3 = with_ties(w3.cpu(), g).to(dev)
+    wr = wk.round_bf16(w3)
+    need(bool((wr != w3).any()), "bf16 case: nothing rounds")
+    exps = wk.fixed_point_exponents(w3)
+    wmax = float(w3.abs().max())
+    X = X_t.t().contiguous()
+    new_lid, h1 = wk.wave_partition_hist(X_t, lid, w3, cid, cols, psrc, B,
+                                         exps=exps, hilo=False)
+    lid_r, h_r = wk.wave_partition_hist(X_t, lid, wr, cid, cols, psrc, B,
+                                        exps=exps)
+    need(torch.equal(new_lid, lid_r) and torch.equal(h1, h_r),
+         "bf16 B1 is not B1 on the rounded weights")
+    for name, fn, x in (
+            ("wave_partition_hist_bf16", None, X_t),
+            ("wave_histogram_bf16", wk.wave_histogram, X_t),
+            ("wave_histogram_rowmajor_bf16", wk.wave_histogram_rowmajor, X)):
+        if fn is None:
+            h = h1
+            call = (lambda: wk.wave_partition_hist(
+                X_t, lid, w3, cid, cols, psrc, B, exps=exps, hilo=False))
+            plain = (lambda: wk.wave_partition_hist_plain(
+                X_t, lid, w3, cid, cols, psrc, B, hilo=False))
+        else:
+            h = fn(x, new_lid, w3, cid, B, exps=exps, hilo=False)
+            need(torch.equal(h, h1), "%s is not bf16 B1's histogram" % name)
+            need(torch.equal(h, fn(x, new_lid, wr, cid, B, exps=exps)),
+                 "%s is not its unrounded form on the rounded weights"
+                 % name)
+            call = (lambda fn=fn, x=x: fn(x, new_lid, w3, cid, B, exps=exps,
+                                          hilo=False))
+            plainfn = (wk.wave_histogram_plain if fn is wk.wave_histogram
+                       else wk.wave_histogram_rowmajor_plain)
+            plain = (lambda plainfn=plainfn, x=x: plainfn(
+                x, new_lid, w3, cid, B, hilo=False))
+        err, ok = hist_err(h, lambda a: wk.wave_histogram_plain(
+            X_t, new_lid, wr.double().abs() if a else wr.double(), cid, B),
+            wmax)
+        need(ok, "%s outside tolerance (max abs err %g)" % (name, err))
+        s_, n_act = slots_of(new_lid, cid)
+        record(name, err, call, plain, bincount_ms(X_t, s_, wr, B),
+               "N=%d F=%d B=%d K=%d%s, %d rows in a child slot, a tenth of "
+               "the weights ties" % (N, F, B, K, ", row-major"
+                                    if x is X else "", n_act),
+               (N * (4 + 4 + 1) + K * (10 * 4 + 8) if fn is None
+                else N * 4) + n_act * (F + 12) + K * (4 + F * B * 12),
+               3 * n_act * F)
+    del X, h1, h_r
+    notes.append("bf16 B1, B3 and B4 equal their unrounded forms on the "
+                 "weights round_bf16 rounds (ties away from zero) to the "
+                 "bit, and the plain bf16 versions within tolerance")
+
+    for name, r in records.items():
+        r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("flops"))
+        say("kernel %-30s %s: %.4f ms, plain %.4f ms, library %.4f ms, "
+            "bound %.4f ms (%s), max abs err %.3g"
+            % (name, r["shape"], r["ms"], r["plain_ms"], r["library_ms"],
+               r["bound_ms"], r["bound_by"], r["max_abs_err"]))
+    for n in notes:
+        say(n)
+    return records
+
+
+def forms_phase(args, lgb, kernels, card, data, main_text):
+    """Phase 10: the kernels' packed and bf16 forms on the flagship.
+
+    10a. The kernel checks and times (forms_kernel_phase), the packed
+    forms on the flagship's rows binned at max_bin = 15.
+    10b. The flagship recipe at max_bin = 15, where tpu_bin_pack=auto
+    packs the 28 columns into 14 (B1, B3 and B4 read 4-bit bins): first
+    with tpu_bin_pack=false, then packed on pallas_ct, pallas_t and
+    pallas, each fused then staged; every packed text must equal the
+    byte bins' to the byte, and every launch of B1, B3 and B4 in a packed
+    run must be a packed one.  The device bytes of X are printed.
+    10c. tpu_hist_precision=bf16 on the main path (max_bin = 63),
+    fused then staged (equal text), every B1 launch a bf16 one (the root,
+    B3, unrounded as in the JAX package), the valid AUC within 1e-3 of
+    the main path's (phase 4, unrounded) at the same iterations; then on
+    pallas_t (bf16 B3 each wave) and pallas (bf16 B4), fused, whose texts
+    must equal bf16 pallas_ct's.
+    10d. tpu_wave_compact=true on pallas_ct, fused: the knob is taken
+    and the ordinary full pass runs under it (ops/learner.py
+    resolve_wave_compact), the main path's (phase 4) text to the byte.
+    Returns (records, {path: launches}, {path: form launches})."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import wave_kernels as wk
+    ds, dv, Xt_raw, Xv, yv = data
+    t_phase = time.perf_counter()
+    params = flagship_params()
+    p15 = dict(params, max_bin=15)
+    t0 = time.perf_counter()
+    ds15 = lgb.Dataset(Xt_raw, label=ds.get_label(), params=p15).construct()
+    dv15 = lgb.Dataset(Xv, label=yv, reference=ds15).construct()
+    td = ds15._handle
+    need(td.bundle is None and td.num_features == 28
+         and int(td.num_bin_arr.max()) <= 16, "unexpected max_bin=15 binning")
+    say("10 data: the flagship rows binned at max_bin = 15, %d bins max "
+        "(%.1f s)" % (int(td.num_bin_arr.max()), time.perf_counter() - t0))
+    X_t = torch.as_tensor(np.ascontiguousarray(ds._handle.binned.T),
+                          device="cuda")
+    X15_t = torch.as_tensor(np.ascontiguousarray(td.binned.T),
+                            device="cuda")
+    records = forms_kernel_phase(X_t, X15_t, torch.as_tensor(
+        ds._handle.default_bin_arr), torch.as_tensor(td.default_bin_arr),
+        wk)
+    del X_t, X15_t
+    torch.cuda.empty_cache()
+    data15 = (ds15, dv15, Xt_raw, Xv, yv)
+    paths, forms = {}, {}
+
+    def run(label, p, d, kernel, staged_text=None):
+        (booster, launches, stats), got = counted_forms(
+            kernels, lambda: dense_train_phase(label, p, d, lgb, kernels,
+                                               card, args))
+        need((fused_of(booster) is None) == (p.get("tpu_fused_iter")
+                                             == "off"),
+             "%s: took the other chain" % label)
+        check_wave_launches(label, booster, launches, stats, kernel)
+        paths[label], forms[label] = launches, got
+        say("%s form launches: %s" % (label, got))
+        return booster, launches, got
+
+    # ---- 10b. packed
+    booster, _, _ = run("max_bin15-bytes", dict(p15, tpu_bin_pack="false"),
+                        data15, "wave_partition_hist")
+    text15 = booster.model_to_string()
+    learner = booster._gbdt.learner
+    need(learner.packed_cols == 0, "tpu_bin_pack=false packed")
+    byte_bytes = learner.X.numel() * learner.X.element_size()
+    del booster, learner
+    torch.cuda.empty_cache()
+    for mode, kernel in (("pallas_ct", "wave_partition_hist"),
+                         ("pallas_t", "wave_histogram"),
+                         ("pallas", "wave_histogram_rowmajor")):
+        for fused in ("auto", "off"):
+            label = "packed-%s%s" % (mode, "-staged" if fused == "off"
+                                     else "")
+            booster, launches, got = run(
+                label, dict(p15, tpu_histogram_mode=mode,
+                            tpu_fused_iter=fused), data15, kernel)
+            learner = booster._gbdt.learner
+            need(learner.packed_cols == 28 and learner.hist_mode == mode,
+                 "%s: packed_cols %d, mode %s" % (label, learner.packed_cols,
+                                                  learner.hist_mode))
+            for k in ("wave_partition_hist", "wave_histogram",
+                      "wave_histogram_rowmajor"):
+                need(got[k + "_packed"] == launches[k],
+                     "%s: %d of %d %s launches packed" % (
+                         label, got[k + "_packed"], launches[k], k))
+            need(booster.model_to_string() == text15,
+                 "%s: model text differs from the byte bins' run" % label)
+            nbytes = learner.X.numel() * learner.X.element_size()
+            say("%s: model text equal to the byte bins' to the byte; X on "
+                "the device %d bytes %s, the byte bins' %d (%.3f)"
+                % (label, nbytes, tuple(learner.X.shape), byte_bytes,
+                   nbytes / byte_bytes))
+            need(2 * nbytes == byte_bytes, "%s: X is not half the byte "
+                 "bins' bytes" % label)
+            del booster, learner
+            torch.cuda.empty_cache()
+    del ds15, dv15, data15
+    # ---- 10c. bf16
+    bf = dict(params, tpu_hist_precision="bf16")
+    booster, launches, got = run("bf16", bf, data, "wave_partition_hist")
+    need(booster._gbdt.learner.hist_hilo is False, "bf16: hist_hilo")
+    need(got["wave_partition_hist_bf16"] == launches["wave_partition_hist"]
+         and got["wave_histogram_bf16"] == 0,
+         "bf16: B1 launches not all bf16, or a bf16 root %s" % got)
+    bf_text = booster.model_to_string()
+    need(bf_text != main_text, "bf16: the main path's text (no rounding?)")
+    need(abs(AUCS["bf16"] - AUCS["wave"]) <= 1e-3,
+         "bf16: valid AUC %.6f vs the main path's %.6f"
+         % (AUCS["bf16"], AUCS["wave"]))
+    say("bf16: valid AUC %.6f, the main path's (unrounded) %.6f, "
+        "difference %.2e" % (AUCS["bf16"], AUCS["wave"],
+                             AUCS["bf16"] - AUCS["wave"]))
+    del booster
+    torch.cuda.empty_cache()
+    booster, _, got = run("bf16-staged", dict(bf, tpu_fused_iter="off"),
+                          data, "wave_partition_hist")
+    need(booster.model_to_string() == bf_text,
+         "bf16: fused and staged model texts differ")
+    del booster
+    for mode, kernel in (("pallas_t", "wave_histogram"),
+                         ("pallas", "wave_histogram_rowmajor")):
+        label = "bf16-" + mode
+        booster, launches, got = run(label, dict(bf, tpu_histogram_mode=mode),
+                                     data, kernel)
+        need(got[kernel + "_bf16"] == launches[kernel] - ITERS,
+             "%s: %d of %d launches bf16 (all but the roots)"
+             % (label, got[kernel + "_bf16"], launches[kernel]))
+        need(booster.model_to_string() == bf_text,
+             "%s: model text differs from bf16 pallas_ct's" % label)
+        del booster
+        torch.cuda.empty_cache()
+    say("bf16: fused and staged text equal; pallas_t and pallas give "
+        "pallas_ct's text to the byte")
+    # ---- 10d. compaction: taken, and the full pass under it
+    booster, _, _ = run("compact", dict(params, tpu_wave_compact=True), data,
+                        "wave_partition_hist")
+    need(booster._gbdt.learner.wave_compact is True,
+         "compact: tpu_wave_compact not taken")
+    need(booster.model_to_string() == main_text,
+         "compact: model text differs from the main path's")
+    del booster
+    torch.cuda.empty_cache()
+    say("compact: the knob taken, the main path's text to the byte")
+    say("rates on %s, whole-call / steady it/s: max_bin 15 bytes %.4f / "
+        "%.4f, packed pallas_ct %.4f / %.4f (staged %.4f / %.4f), packed "
+        "pallas_t %.4f / %.4f, packed pallas %.4f / %.4f; bf16 %.4f / %.4f "
+        "(staged %.4f / %.4f)"
+        % ((card,) + RATES["max_bin15-bytes"] + RATES["packed-pallas_ct"]
+           + RATES["packed-pallas_ct-staged"] + RATES["packed-pallas_t"]
+           + RATES["packed-pallas"] + RATES["bf16"] + RATES["bf16-staged"]))
+    say("phase 10 (packed and bf16 forms): %.1f s"
+        % (time.perf_counter() - t_phase))
+    return records, paths, forms
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -2725,6 +3254,13 @@ def main():
     del booster
     torch.cuda.empty_cache()
 
+    # ---- 10. the kernels' packed and bf16 forms: their checks and
+    # times, the max_bin = 15 flagship packed on the three dense
+    # dataflows, bf16 on the main path, compaction's knob (forms_phase)
+    form_records, form_paths, form_launches = forms_phase(
+        args, lgb, kernels, card, data, main_text)
+    records.update(form_records)
+
     # ---- 4e. DART, GOSS and InfiniteBoost on the flagship data: staged,
     # exact-order waves (auto), B3 for the root, B1 every wave, B2 once a
     # tree; then softmax over 7 classes on the flagship features, 35
@@ -2766,8 +3302,10 @@ def main():
            + RATES["wave-exact-order"] + RATES["wave-exact-order-staged"]))
 
     # ---- 5. the sparse path: B6 at the Bosch store, then training
-    records["sparse_wave_histogram"], sparse_launches = sparse_phase(
-        args, lgb, sm, kernels, card)
+    (records["sparse_wave_histogram"], sparse_launches,
+     records["sparse_wave_histogram_bf16"],
+     form_launches["sparse-bf16"]) = sparse_phase(args, lgb, sm, kernels,
+                                                  card)
 
     # ---- 7. prediction and serving at bench_serve.py's full shape
     serve_data = serve_phase(args, lgb, card, dev)
@@ -2822,14 +3360,35 @@ def main():
                "sparse_wave_histogram": (
                    "lightgbm_tpu_torch/csrc/sparse_hist.cu",
                    "lightgbm_tpu/ops/sparse_mxu.py:196")}
+    paths += list(form_paths.items())
+    # the packed and bf16 forms: each from its own path's run,
+    # its launches that form's count
+    form_own = {"wave_partition_hist_packed": "packed-pallas_ct",
+                "wave_histogram_packed": "packed-pallas_t",
+                "wave_histogram_rowmajor_packed": "packed-pallas",
+                "wave_partition_hist_bf16": "bf16",
+                "wave_histogram_bf16": "bf16-pallas_t",
+                "wave_histogram_rowmajor_bf16": "bf16-pallas",
+                "sparse_wave_histogram_bf16": "sparse-bf16"}
     out = []
-    for name, (src, repl) in sources.items():
+    for name in list(sources) + list(form_own):
+        base = next(k for k in sorted(sources, key=len, reverse=True)
+                    if name.startswith(k))
+        src, repl = sources[base]
         r = records[name]
+        if name in form_own:
+            launches_of = form_launches[form_own[name]][name]
+            by_path = {path: got[name]
+                       for path, got in form_launches.items()
+                       if got.get(name)}
+        else:
+            launches_of = own[name][name]
+            by_path = {path: got[name] for path, got in paths
+                       if got.get(name)}
+        need(launches_of > 0, "%s did not launch on its path" % name)
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": repl, "launches": own[name][name],
-                    "launches_by_path": {path: got[name]
-                                         for path, got in paths
-                                         if got.get(name)},
+                    "replaces": repl, "launches": launches_of,
+                    "launches_by_path": by_path,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

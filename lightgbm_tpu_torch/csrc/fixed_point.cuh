@@ -43,6 +43,15 @@ __device__ __forceinline__ unsigned long long quantize(float w,
       __double2ll_rn(static_cast<double>(w) * scale));
 }
 
+// w rounded to bf16 precision, as the JAX package's _round_bf16 does
+// (lightgbm_tpu/ops/pallas_wave.py): 0x8000 added to the bits, the low 16
+// bits cleared -- round to nearest, ties away from zero on the magnitude
+// (not to even).  The single-bf16-product histograms
+// (tpu_hist_precision=bf16) sum these values.
+__device__ __forceinline__ float round_bf16(float w) {
+  return __uint_as_float((__float_as_uint(w) + 0x8000u) & 0xFFFF0000u);
+}
+
 // The f32 value of a cell's sum v (two's complement) at exponent e.
 __device__ __forceinline__ float to_f32(unsigned long long v, int e) {
   return static_cast<float>(

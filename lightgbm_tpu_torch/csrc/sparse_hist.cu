@@ -14,7 +14,9 @@
 // column f with bin b in [0, B) whose row's leaf is child_id[k] >= 0; a
 // child id that repeats fills every slot that holds it.  Every cell of
 // the (K, F, B, 3) output is written: the fill-bin slots (never stored)
-// and inactive slots are exactly 0.
+// and inactive slots are exactly 0.  With bf16 (tpu_hist_precision=bf16)
+// each entry's weights are rounded to bf16 (fixed_point.cuh round_bf16,
+// the JAX package's _round_bf16) before they are quantized.
 //
 // What bounds it on this card.  Per entry: 8 bytes of (row, bin) read in
 // order, the dependent gathers leaf_id[row] and, for an entry whose row is
@@ -81,7 +83,7 @@ sparse_hist_kernel(const int* __restrict__ ent_row,
                    const int* __restrict__ lid, const float* __restrict__ w3,
                    const int* __restrict__ cid, const int* __restrict__ exps,
                    float* __restrict__ hist, int F, int N, int B, int K,
-                   int E, int KS) {
+                   int E, int KS, int bf16) {
   extern __shared__ unsigned planes[];
   __shared__ short table[kTable];        // leaf -> first local slot, or -1
   __shared__ int tmax_s;
@@ -157,6 +159,11 @@ sparse_hist_kernel(const int* __restrict__ ent_row,
         w[u][0] = wr[0];
         w[u][1] = wr[1];
         w[u][2] = wr[2];
+        if (bf16) {                      // block-uniform
+          w[u][0] = lgbt::round_bf16(w[u][0]);
+          w[u][1] = lgbt::round_bf16(w[u][1]);
+          w[u][2] = lgbt::round_bf16(w[u][2]);
+        }
       }
     }
 #pragma unroll
@@ -203,13 +210,13 @@ long long lgbt_sparse_hist_smem(int B, int KS) {
 
 // B6 on the stream `stream`: hist holds K * F * B * 3 floats, every one
 // written.  A block of `threads` threads (a multiple of 32, at most 1024)
-// covers one column and KS child slots.  Returns cudaGetLastError() after
-// the launch.
+// covers one column and KS child slots; bf16 rounds the weights to bf16
+// first.  Returns cudaGetLastError() after the launch.
 int lgbt_sparse_hist(const void* ent_row, const void* ent_bin,
                      const void* col_cptr, const void* lid, const void* w3,
                      const void* cid, const void* exps, void* hist, int F,
                      int N, int B, int K, int E, int KS, int threads,
-                     void* stream) {
+                     int bf16, void* stream) {
   if (KS < 1 || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(B, KS);
@@ -224,7 +231,7 @@ int lgbt_sparse_hist(const void* ent_row, const void* ent_bin,
       static_cast<const int*>(col_cptr), static_cast<const int*>(lid),
       static_cast<const float*>(w3), static_cast<const int*>(cid),
       static_cast<const int*>(exps), static_cast<float*>(hist), F, N, B, K,
-      E, KS);
+      E, KS, bf16);
   return static_cast<int>(cudaGetLastError());
 }
 

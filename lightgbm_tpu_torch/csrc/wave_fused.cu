@@ -29,6 +29,20 @@
 // repeats fills every slot that holds it.  Rows are held in an int and
 // bins addressed with size_t offsets, so N < 2^31 is the only limit on
 // the shape (F x N may exceed it).
+// Packed bins (tpu_bin_pack, ops/pack.py): with `packed`, the matrix holds
+// Fd = ceil(F / 2) stored columns of two 4-bit bins each, split-half:
+// stored column p holds feature p in its low nibble and feature p + Fd in
+// its high one (with odd F the last high nibble is padding, never a
+// feature).  B1's route reads the split column's nibble; a histogram
+// block reads each stored byte of a listed row once and adds both of its
+// features, so the bin bytes read a row halve.  The histograms are those
+// of the unpacked bins, bit for bit.
+// Single bf16 product (tpu_hist_precision=bf16): with `bf16`, each weight
+// is rounded to bf16 as the JAX package's _round_bf16 does
+// (fixed_point.cuh round_bf16) before it is quantized; the exponents stay
+// those of the unrounded weights, which still bound every sum: rounding
+// raises a magnitude by at most 2^-8 of it, so |sum| < 2^62 (1 + 2^-8)
+// < 2^63.
 //
 // What bounds them on this card.  The bytes that must move: leaf ids in
 // (and out for B1, 8 B a row), and for each row in a child slot its
@@ -112,13 +126,15 @@ constexpr int kMaxGroup = 8;         // features a histogram block holds
 constexpr int kMaxCopies = 32;
 constexpr int kMinShareRows = 2048;  // the fewest listed rows a share takes
 
-template <bool ROUTE, bool BUNDLED>
+// PACKED: xt holds Fd = ceil(F / 2) packed columns; the route reads the
+// split column's nibble.
+template <bool ROUTE, bool BUNDLED, bool PACKED>
 __global__ void __launch_bounds__(kListThreads)
 list_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
             const int* __restrict__ cid, const float* __restrict__ cols,
             const int* __restrict__ psrc, int* __restrict__ new_lid,
             int2* __restrict__ list, unsigned long long* __restrict__ count,
-            int F, int N, int K, int W) {
+            int F, int Fd, int N, int K, int W) {
   __shared__ short wave_of[kTable];      // leaf -> first w, or -1
   __shared__ short slot_of[kTable];      // leaf -> first k, or -1
   __shared__ int warp_n[kListRows][kListThreads / 32];
@@ -176,9 +192,18 @@ list_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
             const float* c = cols_s + w * 10;
             if (c[0] > 0.5f) {
               const int cj = static_cast<int>(c[1]);
-              int colv = (cj >= 0 && cj < F)
-                  ? static_cast<int>(xt[static_cast<size_t>(cj) * N + r])
-                  : 0;
+              int colv = 0;
+              if (cj >= 0 && cj < F) {
+                if constexpr (PACKED) {
+                  const bool high = cj >= Fd;
+                  const int v = static_cast<int>(
+                      xt[static_cast<size_t>(high ? cj - Fd : cj) * N + r]);
+                  colv = high ? v >> 4 : v & 15;
+                } else {
+                  colv = static_cast<int>(
+                      xt[static_cast<size_t>(cj) * N + r]);
+                }
+              }
               const int dflt = static_cast<int>(c[4]);
               if (BUNDLED) {
                 const int goff = static_cast<int>(c[7]);
@@ -225,19 +250,27 @@ list_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
 
 // COPIES = false is the one-copy form (B1's wave, K = 32): its strides
 // are compile-time constants that fold into the atomics' addresses.
-template <bool ROWMAJOR, bool COPIES>
+// PACKED: x holds Fd = ceil(F / 2) packed columns and a block owns FS / 2
+// of them; its histogram feature 2i is the low nibble of its stored
+// column i, 2i + 1 the high one.  bf16: round each weight to bf16 first.
+template <bool ROWMAJOR, bool COPIES, bool PACKED>
 __global__ void __launch_bounds__(kHistThreads, 1)
 hist_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w3,
             const int2* __restrict__ list,
             const unsigned long long* __restrict__ count,
             const int* __restrict__ exps, unsigned long long* __restrict__ acc,
-            int F, int N, int B, int K, int KS, int FS, int copies) {
+            int F, int Fd, int N, int B, int K, int KS, int FS, int copies,
+            int bf16) {
   // C interleaved copies of (KS, FS, B, 3) cells of 64 bits, as two
   // planes of 32-bit words: cell c of copy j is word c * C + j
   extern __shared__ unsigned planes[];
   const int C = COPIES ? copies : 1;
-  const int f0 = blockIdx.x * FS;
-  const int nf = min(FS, F - f0);
+  const int PS = PACKED ? FS / 2 : FS;   // stored columns a block reads
+  const int c0 = blockIdx.x * PS;
+  const int nc = min(PS, Fd - c0);
+  // packed: stored column c0 + i holds feature Fd + c0 + i in its high
+  // nibble while that is below F
+  const int nhi = PACKED ? max(0, min(nc, F - Fd - c0)) : 0;
   const int k0 = blockIdx.z * KS;
   const int kn = min(KS, K - k0);
   const int slot_len = FS * B * 3;
@@ -266,10 +299,11 @@ hist_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w3,
   const long long j0 = blockIdx.y * per;
   const long long j1 = min(n, j0 + per);
   const int copy = threadIdx.x & (C - 1);
-  // row-major: the group's bytes of a row as 4-byte words when aligned
-  const bool words4 = ROWMAJOR && (F & 3) == 0 && (f0 & 3) == 0 &&
+  // row-major: the group's bytes of a row (Fd stored columns a row) as
+  // 4-byte words when aligned
+  const bool words4 = ROWMAJOR && (Fd & 3) == 0 && (c0 & 3) == 0 &&
                       (reinterpret_cast<uintptr_t>(x) & 3) == 0;
-  const uint8_t* xg = ROWMAJOR ? x + f0 : x + static_cast<size_t>(f0) * N;
+  const uint8_t* xg = ROWMAJOR ? x + c0 : x + static_cast<size_t>(c0) * N;
   __syncthreads();
 
   for (long long j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
@@ -277,33 +311,51 @@ hist_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w3,
     const int s = rec.y - k0;
     if (s < 0 || s >= kn) continue;
     const int row = rec.x;
-    int bins[kMaxGroup];
+    // the row's nc stored bytes of the group, each read once
+    int bytes[kMaxGroup];
     if constexpr (ROWMAJOR) {
-      const uint8_t* xr = xg + static_cast<size_t>(row) * F;
+      const uint8_t* xr = xg + static_cast<size_t>(row) * Fd;
       if (words4) {
         const unsigned* xw = reinterpret_cast<const unsigned*>(xr);
         const unsigned a = xw[0];
-        const unsigned b = nf > 4 ? xw[1] : 0u;
+        const unsigned b = nc > 4 ? xw[1] : 0u;
 #pragma unroll
         for (int f = 0; f < kMaxGroup; ++f)
-          bins[f] = f < nf
+          bytes[f] = f < nc
               ? static_cast<int>(((f < 4 ? a : b) >> (8 * (f & 3))) & 255u)
-              : B;
+              : 0;
       } else {
 #pragma unroll
         for (int f = 0; f < kMaxGroup; ++f)
-          bins[f] = f < nf ? static_cast<int>(xr[f]) : B;
+          bytes[f] = f < nc ? static_cast<int>(xr[f]) : 0;
       }
     } else {
 #pragma unroll
       for (int f = 0; f < kMaxGroup; ++f)
-        bins[f] = f < nf
-            ? static_cast<int>(xg[static_cast<size_t>(f) * N + row]) : B;
+        bytes[f] = f < nc
+            ? static_cast<int>(xg[static_cast<size_t>(f) * N + row]) : 0;
+    }
+    int bins[kMaxGroup];
+    if constexpr (PACKED) {
+#pragma unroll
+      for (int i = 0; i < kMaxGroup / 2; ++i) {
+        bins[2 * i] = i < nc ? bytes[i] & 15 : B;
+        bins[2 * i + 1] = i < nhi ? bytes[i] >> 4 : B;
+      }
+    } else {
+#pragma unroll
+      for (int f = 0; f < kMaxGroup; ++f) bins[f] = f < nc ? bytes[f] : B;
     }
     const float* wr = w3 + 3 * static_cast<size_t>(row);
-    const unsigned long long q0 = lgbt::quantize(wr[0], s0);
-    const unsigned long long q1 = lgbt::quantize(wr[1], s1);
-    const unsigned long long q2 = lgbt::quantize(wr[2], s2);
+    float w0 = wr[0], w1 = wr[1], w2 = wr[2];
+    if (bf16) {                          // block-uniform
+      w0 = lgbt::round_bf16(w0);
+      w1 = lgbt::round_bf16(w1);
+      w2 = lgbt::round_bf16(w2);
+    }
+    const unsigned long long q0 = lgbt::quantize(w0, s0);
+    const unsigned long long q1 = lgbt::quantize(w1, s1);
+    const unsigned long long q2 = lgbt::quantize(w2, s2);
     const int base = s * slot_len;
 #pragma unroll
     for (int f = 0; f < kMaxGroup; ++f) {
@@ -326,9 +378,17 @@ hist_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w3,
     const int kk = i / slot_len;
     const int rem = i - kk * slot_len;       // (f, b, c) within the group
     const int ff = rem / (B * 3);
-    if (ff >= nf) continue;
-    const size_t o =
-        (static_cast<size_t>(k0 + kk) * F + f0) * B * 3 + rem;
+    int gf;                                  // the cell's feature
+    if constexpr (PACKED) {
+      const int ci = ff >> 1;
+      if ((ff & 1) ? ci >= nhi : ci >= nc) continue;
+      gf = (ff & 1) ? Fd + c0 + ci : c0 + ci;
+    } else {
+      if (ff >= nc) continue;
+      gf = c0 + ff;
+    }
+    const size_t o = (static_cast<size_t>(k0 + kk) * F + gf) * B * 3 +
+                     (rem - ff * B * 3);
     atomicAdd(acc + o, v);
   }
 }
@@ -356,47 +416,63 @@ size_t hist_smem(int B, int KS, int FS, int C) {
 using HistKernel = void (*)(const uint8_t*, const float*, const int2*,
                            const unsigned long long*, const int*,
                            unsigned long long*, int, int, int, int, int, int,
-                           int);
+                           int, int, int);
 
-HistKernel hist_kernel_for(bool rowmajor, int C) {
+template <bool ROWMAJOR, bool PACKED>
+HistKernel hist_kernel_of(int C) {
+  return C > 1 ? &hist_kernel<ROWMAJOR, true, PACKED>
+               : &hist_kernel<ROWMAJOR, false, PACKED>;
+}
+
+HistKernel hist_kernel_for(bool rowmajor, bool packed, int C) {
   if (rowmajor)
-    return C > 1 ? &hist_kernel<true, true> : &hist_kernel<true, false>;
-  return C > 1 ? &hist_kernel<false, true> : &hist_kernel<false, false>;
+    return packed ? hist_kernel_of<true, true>(C)
+                  : hist_kernel_of<true, false>(C);
+  return packed ? hist_kernel_of<false, true>(C)
+                : hist_kernel_of<false, false>(C);
 }
 
-// The dynamic shared memory each of the four histogram kernels has been
+// The dynamic shared memory each of the eight histogram kernels has been
 // granted on each device.
-int hist_granted[4][lgbt::kMaxDevices];
+int hist_granted[8][lgbt::kMaxDevices];
 
-// hist_kernel_for(rowmajor, C), allowed smem bytes of shared memory.
-cudaError_t hist_kernel_with(bool rowmajor, int C, size_t smem,
+// hist_kernel_for(rowmajor, packed, C), allowed smem bytes of shared
+// memory.
+cudaError_t hist_kernel_with(bool rowmajor, bool packed, int C, size_t smem,
                              HistKernel* kern) {
-  *kern = hist_kernel_for(rowmajor, C);
+  *kern = hist_kernel_for(rowmajor, packed, C);
   return lgbt::allow_smem(reinterpret_cast<const void*>(*kern), smem,
-                          hist_granted[2 * rowmajor + (C > 1)]);
+                          hist_granted[4 * rowmajor + 2 * packed + (C > 1)]);
 }
+
+// Stored columns of F features: ceil(F / 2) packed, else F.
+int stored_cols(int F, bool packed) { return packed ? (F + 1) / 2 : F; }
 
 // The histogram pass over the list and the f32 conversion.  acc holds
 // K * F * B * 3 zeroed 64-bit words followed by the list's length.
+// packed: x holds ceil(F / 2) packed columns, FS is even and a group
+// covers FS / 2 of them; bf16: the weights are rounded to bf16 first.
 cudaError_t hist_and_finish(const void* x, const void* w3, const void* list,
                             const void* cid, const void* exps, void* acc,
                             void* hist, int F, int N, int B, int K,
                             int groups, int R, int KS, int FS, int C,
-                            bool rowmajor, cudaStream_t s) {
+                            bool rowmajor, bool packed, bool bf16,
+                            cudaStream_t s) {
   if (FS < 1 || FS > kMaxGroup || KS < 1 || C < 1 || C > kMaxCopies ||
-      (C & (C - 1)) != 0)
+      (C & (C - 1)) != 0 || (packed && (FS & 1) != 0))
     return cudaErrorInvalidValue;
   const long long per_slot = static_cast<long long>(F) * B * 3;
   unsigned long long* acc64 = static_cast<unsigned long long*>(acc);
   const size_t smem = hist_smem(B, KS, FS, C);
   HistKernel kern;
-  cudaError_t e = hist_kernel_with(rowmajor, C, smem, &kern);
+  cudaError_t e = hist_kernel_with(rowmajor, packed, C, smem, &kern);
   if (e != cudaSuccess) return e;
   const dim3 grid(groups, R, (K + KS - 1) / KS);
   kern<<<grid, kHistThreads, smem, s>>>(
       static_cast<const uint8_t*>(x), static_cast<const float*>(w3),
       static_cast<const int2*>(list), acc64 + per_slot * K,
-      static_cast<const int*>(exps), acc64, F, N, B, K, KS, FS, C);
+      static_cast<const int*>(exps), acc64, F, stored_cols(F, packed), N, B,
+      K, KS, FS, C, bf16 ? 1 : 0);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int threads = 256;
@@ -431,10 +507,11 @@ long long lgbt_wave_hist_smem(int B, int KS, int FS, int C) {
 
 // Histogram blocks of the plan resident on one SM, or -1 on an error.
 int lgbt_wave_hist_blocks_per_sm(int B, int KS, int FS, int C,
-                                 int rowmajor) {
+                                 int rowmajor, int packed) {
   const size_t smem = hist_smem(B, KS, FS, C);
   HistKernel kern;
-  if (hist_kernel_with(rowmajor != 0, C, smem, &kern) != cudaSuccess)
+  if (hist_kernel_with(rowmajor != 0, packed != 0, C, smem, &kern) !=
+      cudaSuccess)
     return -1;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -447,66 +524,74 @@ int lgbt_wave_hist_blocks_per_sm(int B, int KS, int FS, int C,
 // pairs and its length in *count (which must be 0 on entry).  mode 0
 // selects the rows by their ids (B3, B4, B5; xt, cols, psrc and new_lid are
 // not read and may be null, W = 0); mode 1 routes them first and writes
-// new_lid (B1), mode 2 does so on EFB group columns.
+// new_lid (B1), mode 2 does so on EFB group columns; packed: xt holds
+// ceil(F / 2) packed columns (the route reads the split column's nibble).
 int lgbt_wave_list(const void* xt, const void* lid, const void* cid,
                    const void* cols, const void* psrc, void* new_lid,
                    void* list, void* count, int F, int N, int K, int W,
-                   int blocks, int mode, void* stream) {
+                   int blocks, int mode, int packed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 0) W = 0;
   const size_t smem = 4 * (static_cast<size_t>(W) * 11 + K);
-  void (*kern)(const uint8_t*, const int*, const int*, const float*,
-               const int*, int*, int2*, unsigned long long*, int, int, int,
-               int) = mode == 0 ? &list_kernel<false, false>
-                    : mode == 1 ? &list_kernel<true, false>
-                                : &list_kernel<true, true>;
+  using ListKernel = void (*)(const uint8_t*, const int*, const int*,
+                              const float*, const int*, int*, int2*,
+                              unsigned long long*, int, int, int, int, int);
+  // the four routing forms: [bundled][packed]
+  static const ListKernel route[2][2] = {
+      {&list_kernel<true, false, false>, &list_kernel<true, false, true>},
+      {&list_kernel<true, true, false>, &list_kernel<true, true, true>}};
+  const ListKernel kern = mode == 0 ? &list_kernel<false, false, false>
+                                    : route[mode == 2][packed != 0];
   kern<<<blocks, kListThreads, smem, s>>>(
       static_cast<const uint8_t*>(xt), static_cast<const int*>(lid),
       static_cast<const int*>(cid), static_cast<const float*>(cols),
       static_cast<const int*>(psrc), static_cast<int*>(new_lid),
       static_cast<int2*>(list), static_cast<unsigned long long*>(count), F,
-      N, K, W);
+      stored_cols(F, packed != 0), N, K, W);
   return static_cast<int>(cudaGetLastError());
 }
 
 // B1, the fused wave step: routing, histograms of the listed rows, f32
 // conversion.  acc holds K * F * B * 3 + 1 64-bit words, zeroed here (the
 // last one is the list's length); list N int2; hist K * F * B * 3 floats.
+// F counts features (logical columns): with packed, xt holds ceil(F / 2)
+// packed columns; bf16 rounds the weights to bf16 before the sums.
 int lgbt_wave_fused(const void* xt, const void* lid, const void* w3,
                     const void* cid, const void* cols, const void* psrc,
                     const void* exps, void* new_lid, void* list, void* acc,
                     void* hist, int F, int N, int B, int K, int W,
                     int list_blocks, int groups, int R, int KS, int FS,
-                    int C, int bundled, void* stream) {
+                    int C, int bundled, int packed, int bf16, void* stream) {
   unsigned long long* count;
   int e = zero_acc(acc, F, B, K, stream, &count);
   if (e != 0) return e;
-  e = lgbt_wave_list(xt, lid, cid, cols, psrc, new_lid, list, count, F,
-                         N, K, W, list_blocks, bundled ? 2 : 1, stream);
+  e = lgbt_wave_list(xt, lid, cid, cols, psrc, new_lid, list, count, F, N,
+                     K, W, list_blocks, bundled ? 2 : 1, packed, stream);
   if (e != 0) return e;
   return static_cast<int>(hist_and_finish(
       xt, w3, list, cid, exps, acc, hist, F, N, B, K, groups, R, KS, FS, C,
-      false, static_cast<cudaStream_t>(stream)));
+      false, packed != 0, bf16 != 0, static_cast<cudaStream_t>(stream)));
 }
 
 // B3 (X_t (F, N)) and B4 (rowmajor: X (N, F)), the histogram-only pass:
 // the select pass, histograms of the listed rows, f32 conversion; acc,
-// list and hist as for lgbt_wave_fused.  B5 is this pass with rowmajor
-// = 1, K = 1 and cid the leaf, on a plan of its own.
+// list and hist, packed and bf16 as for lgbt_wave_fused.  B5 is this pass
+// with rowmajor = 1, K = 1 and cid the leaf, on a plan of its own.
 int lgbt_wave_hist(const void* x, const void* lid, const void* w3,
                    const void* cid, const void* exps, void* list, void* acc,
                    void* hist, int F, int N, int B, int K, int list_blocks,
                    int groups, int R, int KS, int FS, int C, int rowmajor,
-                   void* stream) {
+                   int packed, int bf16, void* stream) {
   unsigned long long* count;
   int e = zero_acc(acc, F, B, K, stream, &count);
   if (e != 0) return e;
   e = lgbt_wave_list(nullptr, lid, cid, nullptr, nullptr, nullptr, list,
-                         count, F, N, K, 0, list_blocks, 0, stream);
+                     count, F, N, K, 0, list_blocks, 0, 0, stream);
   if (e != 0) return e;
   return static_cast<int>(hist_and_finish(
       x, w3, list, cid, exps, acc, hist, F, N, B, K, groups, R, KS, FS, C,
-      rowmajor != 0, static_cast<cudaStream_t>(stream)));
+      rowmajor != 0, packed != 0, bf16 != 0,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -235,15 +235,17 @@ class GBDT:
         the train score, in place, by a traversal of the learner's bins."""
         if tree.num_leaves <= 1:
             return
-        X = self.learner.row_major_bins()
+        X, packed = self.learner.row_major_bins()
         if X is None:
             Log.fatal("tpu_sparse=true keeps no dense device matrix to "
                       "traverse; DART/rollback/continued training need the "
                       "raw data (keep_raw) under the sparse store")
         row = self._score_dev[tid]
+        # the training bins may be 4-bit packed; the valid sets never are
         dev_predict.add_tree_to_score(
             row, X, dev_predict.traversal_from_host_tree(tree, self.device),
-            1.0, self.learner.bundle_arrays, out=row)
+            1.0, self.learner.bundle_arrays, out=row,
+            packed_cols=self.learner.packed_cols if packed else 0)
 
     def _apply_tree_to_valid(self, tree: Tree, vi: int, tid: int) -> None:
         """As _apply_tree_to_train, for row tid of valid set vi."""

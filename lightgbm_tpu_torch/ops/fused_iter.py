@@ -60,6 +60,24 @@ from .wave_kernels import (fixed_point_exponents, wave_histogram,
 # every kernel wrapper that counts its launches
 KERNELS = (wave_partition_hist, wave_histogram, wave_histogram_rowmajor,
            leaf_histogram, sparse_wave_histogram, score_update)
+# each wrapper's count, and the counts of its packed and bf16 forms
+COUNTERS = ([(k, None) for k in KERNELS]
+            + [(k, form) for k in KERNELS
+               for form in sorted(getattr(k, "form_launches", {}))])
+
+
+def _counts() -> list:
+    return [k.launches if form is None else k.form_launches[form]
+            for k, form in COUNTERS]
+
+
+def _set_counts(base, deltas) -> None:
+    """Set each counter to its base plus its delta."""
+    for (k, form), b, d in zip(COUNTERS, base, deltas):
+        if form is None:
+            k.launches = b + d
+        else:
+            k.form_launches[form] = b + d
 # gated splits a graph holds under exact growth (S): a read each S
 # splits, against a graph of about 420 nodes a split (PERF.md, PR 8)
 SPLIT_BLOCK = 32
@@ -109,7 +127,7 @@ class _Graph:
     another capture may use)."""
 
     def __init__(self, fn):
-        before = [k.launches for k in KERNELS]
+        before = _counts()
         self.graph = torch.cuda.CUDAGraph()
         try:
             with CAPTURE_LOCK, \
@@ -117,16 +135,14 @@ class _Graph:
                     torch.cuda.graph(self.graph,
                                      capture_error_mode="thread_local"):
                 fn()
-            self.launches = [k.launches - b for k, b in zip(KERNELS, before)]
+            self.launches = [a - b for a, b in zip(_counts(), before)]
         finally:
             # capturing launches nothing: the replays count
-            for k, b in zip(KERNELS, before):
-                k.launches = b
+            _set_counts(before, [0] * len(before))
 
     def replay(self) -> None:
         self.graph.replay()
-        for k, n in zip(KERNELS, self.launches):
-            k.launches += n
+        _set_counts(_counts(), self.launches)
 
 
 class FusedIteration:

@@ -17,8 +17,9 @@ the fused iteration (``ops/fused_iter.py``) replays a fixed number of
 splits unread; ``grow_tree_exact`` is the staged driver, one host read a
 batch of splits certain to commit.  The JAX package's ordered-partition
 capacity ladder, the onehot/scatter engines, the coordinate sparse
-store, the feature-parallel and voting arms and 4-bit packing are other
-arms of that function and are not ported.
+store and the feature-parallel and voting arms are other arms of that
+function and are not ported; so exact growth never packs its bins (the
+JAX package packs them only on its onehot/scatter engines).
 """
 from __future__ import annotations
 
@@ -311,6 +312,10 @@ class Grower:
             waves=(torch.empty((), dtype=i32, device=dev)
                    if self.counts_waves else None))
 
+    def _root_hists(self, st, lid, ids, w3, exps):
+        """The root's histogram (one child slot): _child_hists'."""
+        return self._child_hists(st, lid, ids, w3, exps)
+
     def tree_of(self, st: GrowState) -> TreeArrays:
         """The state's tree without its spare slots (views)."""
         return st.tree.head(self.L)
@@ -330,9 +335,9 @@ class Grower:
         dev, i32 = w3.device, torch.int32
         st.leaf_id.zero_()
         root_sums = w3.sum(dim=0)
-        hist0 = self._child_hists(st, st.leaf_id,
-                                  torch.zeros(1, dtype=i32, device=dev), w3,
-                                  exps)[0]
+        hist0 = self._root_hists(st, st.leaf_id,
+                                 torch.zeros(1, dtype=i32, device=dev), w3,
+                                 exps)[0]
         if self.cache_hists:
             st.hists[0] = hist0
         st.bests.fill_(-float("inf"))

@@ -107,7 +107,8 @@ def _launch(X, w3, leaf_id, leaf_t, num_bins, exps, plan, work=None):
                                           work)
     err = _build.library().lgbt_wave_hist(
         *[t.data_ptr() for t in (X, leaf_id, w3, leaf_t, exps)], rows, acc,
-        hist.data_ptr(), F, N, B, 1, *plan, 1, _build.stream(X.device))
+        hist.data_ptr(), F, N, B, 1, *plan, 1, 0, 0,
+        _build.stream(X.device))
     _build.check(err, "leaf_hist")
     return hist
 

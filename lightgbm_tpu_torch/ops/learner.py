@@ -6,9 +6,13 @@ The learner uploads the bin matrix once: transposed for the wave kernels
 B1/B3, row-major for ``tpu_histogram_mode=pallas`` (B4 under wave growth,
 B5 under exact growth), or, with ``tpu_sparse`` and ``tpu_sparse_kernel``,
 only the non-fill entries in the entry-chunk sparse store
-(ops/sparse_mxu.py).  It samples feature_fraction masks, feeds gradients
-to the grower and materializes finished trees (real-valued thresholds
-resolved in float64 from the BinMappers).  Engine knobs that select
+(ops/sparse_mxu.py).  Under wave growth on the dense matrix, where every
+column has at most 16 bins (``max_bin <= 15``), ``tpu_bin_pack=auto`` (or
+``true``) stores it 4-bit packed, two columns a byte (ops/pack.py), as
+the JAX package does; ``tpu_hist_precision=bf16`` selects the single
+bf16 product of the wave kernels.  It samples feature_fraction masks,
+feeds gradients to the grower and materializes finished trees
+(real-valued thresholds resolved in float64 from the BinMappers).  Engine knobs that select
 something this port does not have raise instead of being ignored.
 """
 from __future__ import annotations
@@ -23,6 +27,7 @@ from ..utils.config import Config, _FALSE_SET, _TRUE_SET
 from ..utils.log import Log
 from ..utils.random import Random
 from .grow import BundleArrays, ExactGrower, grow_tree_exact
+from .pack import can_pack4, pack4_host
 from .sparse_mxu import build_chunked_store
 from .sparse_store import column_fill_bins
 from .split_finder import FeatureMeta, SplitParams
@@ -171,7 +176,6 @@ def check_engine_params(config: Config):
         ("tree_learner", ("serial",)),
         ("tpu_growth", ("auto", "wave", "exact")),
         ("tpu_histogram_mode", ("auto", "pallas", "pallas_ct", "pallas_t")),
-        ("tpu_hist_precision", ("auto", "hilo")),
         ("tpu_score_update", ("auto", "pallas")),
         ("tpu_fused_iter", ("auto", "on", "off")),
         ("tpu_autotune", ("off", "prior")),
@@ -180,13 +184,12 @@ def check_engine_params(config: Config):
     for name, ok in checks:
         if val(name) not in ok:
             _unsupported(name, getattr(config, name))
-    for name in ("tpu_wave_compact", "tpu_use_dp"):
-        if bool(getattr(config, name)):
-            _unsupported(name, "true")
-    pack = val("tpu_bin_pack")
-    if pack in _TRUE_SET:
-        _unsupported("tpu_bin_pack", config.tpu_bin_pack)
-    if pack not in _TRUE_SET | _FALSE_SET | {"auto"}:
+    if bool(config.tpu_use_dp):
+        _unsupported("tpu_use_dp", "true")
+    if val("tpu_hist_precision") not in ("auto", "hilo", "bf16"):
+        Log.fatal("Unknown tpu_hist_precision %s (expected auto/hilo/bf16)",
+                  config.tpu_hist_precision)
+    if val("tpu_bin_pack") not in _TRUE_SET | _FALSE_SET | {"auto"}:
         Log.fatal("tpu_bin_pack: value %s cannot be parsed as auto/bool",
                   config.tpu_bin_pack)
     if int(config.tpu_wave_chunk) <= 0:
@@ -242,6 +245,70 @@ def resolve_wave_width(config: Config, num_leaves: int,
     return 32
 
 
+def resolve_hist_hilo(config: Config) -> bool:
+    """tpu_hist_precision: False (the single bf16 product) for bf16, else
+    True.  The JAX package's auto takes bf16 under wave growth on the TPU
+    (its ops/autotune.py prior_hist_hilo), where the bf16 matrix unit
+    halves the histogram's work; the port's kernels sum in 64-bit fixed
+    point, on which rounding the weights saves nothing, so its auto
+    stays on the unrounded weights on every device (ROADMAP.md,
+    "Precision").  Exact growth records the choice and ignores it, as
+    in the JAX package (its exact grower never runs the bf16 kernels)."""
+    return _val(config, "tpu_hist_precision") != "bf16"
+
+
+def resolve_bin_pack(config: Config, growth: str, sparse: bool,
+                     bins_per_col) -> bool:
+    """Pack the bins 4-bit where the JAX package packs them (its
+    ops/learner.py): tpu_bin_pack auto or true, wave growth, the dense
+    matrix, the serial learner (the only one the port has) and at most
+    16 bins in every device column.  The JAX package also packs exact
+    growth on its onehot/scatter engines, which the port does not have.
+    A forced true that cannot be honoured warns, as there, with its
+    reasons."""
+    cfg = _val(config, "tpu_bin_pack")
+    forced = cfg in _TRUE_SET
+    fits = can_pack4(bins_per_col)
+    if (forced or cfg == "auto") and growth == "wave" and not sparse \
+            and fits:
+        return True
+    if forced:
+        reasons = []
+        if sparse:
+            reasons.append("the dense device store (tpu_sparse keeps "
+                           "coordinates, there are no bin bytes to pack)")
+        elif growth != "wave":
+            reasons.append("wave growth or exact growth with the "
+                           "onehot/scatter histogram kernels")
+        if not fits:
+            reasons.append("at most 16 bins per column (max_bin<=15 plus "
+                           "the reserved zero/missing bin)")
+        Log.warning("tpu_bin_pack=true ignored: packing requires %s",
+                    " and ".join(reasons))
+    return False
+
+
+def resolve_wave_compact(config: Config, growth: str, hist_mode: str) -> bool:
+    """tpu_wave_compact: accepted under wave growth with a transposed wave
+    kernel (pallas_ct, pallas_t), elsewhere the JAX package's warning.
+    The port records the choice and runs the ordinary full B1/B3 pass
+    under it.  The JAX package's compaction gathers the rows of the
+    wave's parents into capacity tiers (an XLA gather) because its TPU
+    kernels touch every row; the port's list passes already send only
+    the children's rows to the histogram pass, so a gather would save at
+    most a leaf id read per spectator row at the price of another pass
+    over every row (PERF.md, Findings).  The trees are the same either
+    way."""
+    if not bool(config.tpu_wave_compact):
+        return False
+    if growth == "wave" and hist_mode in ("pallas_ct", "pallas_t"):
+        return True
+    Log.warning("tpu_wave_compact=true ignored: requires wave growth with "
+                "a transposed wave kernel (pallas_ct/pallas_t) (resolved "
+                "growth=%s, histogram mode=%s)", growth, hist_mode)
+    return False
+
+
 class SerialTreeLearner:
     def __init__(self, config: Config, train_data: TrainingData, device):
         self.sparse, self.growth = check_engine_params(config)
@@ -293,6 +360,14 @@ class SerialTreeLearner:
             mode = ("pallas_ct" if ncols * _bin_pad(nbins)
                     <= CT_PROMOTION_BOUND else "pallas_t")
         self.hist_mode = mode
+        self.hist_hilo = resolve_hist_hilo(config)
+        self.wave_compact = resolve_wave_compact(config, self.growth, mode)
+        bins_per_col = (train_data.bundle.num_group_bins
+                        if train_data.bundle is not None
+                        else train_data.num_bin_arr)
+        # the logical columns of the 4-bit packed bins, 0 for byte bins
+        self.packed_cols = (ncols if resolve_bin_pack(
+            config, self.growth, self.sparse, bins_per_col) else 0)
         self.cache_hists = hist_cache_enabled(config, self.num_leaves,
                                               ncols, nbins, 4)
         # the order and width are read only under wave growth, as in the
@@ -316,13 +391,15 @@ class SerialTreeLearner:
             self.X, self.sparse_device_bytes = build_chunked_store(
                 binned, fill, nbins, auto_uniform=True, device=device)
         else:
+            if binned.dtype != np.uint8:
+                Log.fatal("lightgbm_tpu_torch needs uint8 bins, got %s",
+                          binned.dtype)
+            if self.packed_cols:
+                binned = pack4_host(binned)       # (N, ceil(G / 2))
             # the bin matrix, uploaded once per booster: row-major (N, G)
             # for the 'pallas' kernels, else transposed (G, N)
             self.X = torch.as_tensor(np.ascontiguousarray(
                 binned if mode == "pallas" else binned.T), device=device)
-            if self.X.dtype != torch.uint8:
-                Log.fatal("lightgbm_tpu_torch needs uint8 bins, got %s",
-                          self.X.dtype)
         self._ones = torch.ones(train_data.num_data, dtype=torch.float32,
                                 device=device)
         self._full_mask = torch.ones(max(train_data.num_features, 1),
@@ -343,25 +420,31 @@ class SerialTreeLearner:
         return torch.as_tensor(mask, device=self.device)
 
     def row_major_bins(self):
-        """The training bins as (N, G) rows for a traversal: the upload or
-        a transposed view of it; None on the sparse store, which keeps no
-        dense matrix."""
+        """(X, packed): the training bins as (N, G) rows for a traversal,
+        the upload or a transposed view of it, and whether they are 4-bit
+        packed ((N, ceil(G / 2)), ops/pack.py); (None, False) on the
+        sparse store, which keeps no dense matrix."""
         if self.sparse:
-            return None
-        return self.X if self.hist_mode == "pallas" else self.X.t()
+            return None, False
+        X = self.X if self.hist_mode == "pallas" else self.X.t()
+        return X, bool(self.packed_cols)
 
     def _grow_kw(self) -> dict:
         return dict(num_leaves=self.num_leaves, num_bins=self.num_bins,
                     params=self.params, max_depth=self.config.max_depth,
                     group_bins=self.group_bins, cache_hists=self.cache_hists)
 
+    def _wave_kw(self) -> dict:
+        return dict(wave_width=self.wave_width, hist_mode=self.hist_mode,
+                    wave_order=self.wave_order,
+                    packed_cols=self.packed_cols, hilo=self.hist_hilo,
+                    **self._grow_kw())
+
     def wave_grower(self) -> WaveGrower:
         """The wave grower of this learner's bins and config (what the
         fused iteration, ops/fused_iter.py, replays)."""
         return WaveGrower(self.X, self.meta, self.bundle_arrays,
-                          wave_width=self.wave_width,
-                          hist_mode=self.hist_mode,
-                          wave_order=self.wave_order, **self._grow_kw())
+                          **self._wave_kw())
 
     def exact_grower(self) -> ExactGrower:
         """The exact grower of this learner's row-major bins and config
@@ -379,9 +462,7 @@ class SerialTreeLearner:
         if self.growth == "exact":
             tree, leaf_id, stats = grow_tree_exact(*args, **self._grow_kw())
         else:
-            tree, leaf_id, stats = grow_tree(
-                *args, wave_width=self.wave_width, hist_mode=self.hist_mode,
-                wave_order=self.wave_order, **self._grow_kw())
+            tree, leaf_id, stats = grow_tree(*args, **self._wave_kw())
         self.last_stats = stats
         return tree, leaf_id, stats
 

@@ -18,6 +18,7 @@ from .. import _build
 from ..device import resolve_device
 from ..utils.common import kMaxTreeOutput, kMissingValueRange
 from ..utils.log import LightGBMError
+from .pack import nibble, packed_column
 from .partition import clipped_leaf_values
 
 
@@ -78,10 +79,15 @@ def traversal_from_host_tree(tree, device) -> TraversalArrays:
     )
 
 
-def leaf_index_binned(tree: TraversalArrays, X, layout=None):
+def leaf_index_binned(tree: TraversalArrays, X, layout=None,
+                      packed_cols: int = 0):
     """Per-row leaf index by iterative descent (Tree::GetLeaf on bins);
     zeros for single-leaf trees.  X: (N, G) binned rows; layout: the
-    ops.grow.BundleArrays when X holds EFB group columns."""
+    ops.grow.BundleArrays when X holds EFB group columns; packed_cols > 0:
+    X holds the 4-bit packed bins of that many columns (ops/pack.py),
+    column j < ceil(G/2) in the low nibble of stored column j and j >=
+    ceil(G/2) in the high nibble of stored column j - ceil(G/2) (the JAX
+    package's ``packed=True``)."""
     n = X.shape[0]
     dev = X.device
     if tree.num_leaves <= 1:
@@ -89,13 +95,21 @@ def leaf_index_binned(tree: TraversalArrays, X, layout=None):
     rows = torch.arange(n, device=dev)
     node = torch.zeros(n, dtype=torch.long, device=dev)
     sf = tree.split_feature.long()
+
+    def col_bins(f):
+        """Each row's bin in its (device) column f."""
+        if not packed_cols:
+            return X[rows, f].to(torch.int32)
+        p, high = packed_column(f, packed_cols)
+        return nibble(X[rows, p].to(torch.int32), high)
+
     for _ in range(tree.depth):
         nd = node.clamp(min=0)
         f = sf[nd]
         if layout is None:
-            b = X[rows, f].to(torch.int32)
+            b = col_bins(f)
         else:
-            v = X[rows, layout.group_of.long()[f]].to(torch.int32)
+            v = col_bins(layout.group_of.long()[f])
             off = layout.bin_off[f]
             inb = (v >= off) & (v < off + layout.bin_span[f])
             b = torch.where(inb, v - off + layout.bin_adj[f],
@@ -114,14 +128,14 @@ def leaf_index_binned(tree: TraversalArrays, X, layout=None):
 
 
 def add_tree_to_score(score, X, tree: TraversalArrays, scale, layout=None,
-                      out=None):
+                      out=None, packed_cols: int = 0):
     """score + clip(scale * leaf_value)[leaf(X)] —
     Tree::AddPredictionToScore with the Shrinkage clamp — written to out
     (a new tensor when None; out may be score itself, updated in
-    place)."""
+    place).  packed_cols as for leaf_index_binned."""
     if tree.num_leaves <= 1:
         return score if out is None else out.copy_(score)
-    leaf = leaf_index_binned(tree, X, layout)
+    leaf = leaf_index_binned(tree, X, layout, packed_cols)
     add = clipped_leaf_values(tree.leaf_value, scale)[leaf.long()].to(
         score.dtype)
     return torch.add(score, add, out=out) if out is not None else score + add

@@ -30,7 +30,7 @@ import torch
 from .. import _build
 from ..utils.log import LightGBMError
 from .wave_kernels import (_SMEM_BUDGET, _SMEM_PER_SM, _exps, check_rows,
-                           route_rows)
+                           round_bf16, route_rows)
 
 ENTRY_CHUNK = 512     # entries per chunk
 CHUNK_BLOCK = 8       # the chunk count is padded to a multiple of this
@@ -119,11 +119,15 @@ def build_chunked_store(binned: np.ndarray, fill: np.ndarray,
 
 # ------------------------------------------------------------ plain torch
 def chunked_child_hists_plain(store: ChunkedSparseStore, leaf_id, w3,
-                              child_id, num_bins: int, num_cols: int):
+                              child_id, num_bins: int, num_cols: int,
+                              hilo: bool = True):
     """(K, F, B, 3) in w3's dtype: hist[k, f, b] sums w3 over the store's
     entries of column f with bin b whose row's leaf is child_id[k] >= 0.
     Pads, bins outside [0, B) and inactive slots add nothing; fill slots
-    stay 0 (the store holds no fill entries)."""
+    stay 0 (the store holds no fill entries).  hilo=False: the single
+    bf16 product, w3 rounded to bf16 (round_bf16) first."""
+    if not hilo:
+        w3 = round_bf16(w3)
     nc, e = store.ent_bin.shape
     n = leaf_id.shape[0]
     K, B = child_id.shape[0], int(num_bins)
@@ -279,9 +283,10 @@ def _check(store, leaf_id, w3, child_id, num_bins, num_cols):
         check_rows(n)
 
 
-def _launch(store, leaf_id, w3, child_id, num_bins, num_cols, exps, plan):
+def _launch(store, leaf_id, w3, child_id, num_bins, num_cols, exps, plan,
+            hilo=True):
     """B6 on plan (launch_plan's KS and threads): the (K, F, B, 3)
-    histograms."""
+    histograms; hilo=False rounds the weights to bf16 first."""
     dev = leaf_id.device
     K, B = child_id.shape[0], int(num_bins)
     hist = torch.empty((K, num_cols, B, 3), dtype=torch.float32, device=dev)
@@ -290,27 +295,36 @@ def _launch(store, leaf_id, w3, child_id, num_bins, num_cols, exps, plan):
                                  store.col_cptr, leaf_id, w3, child_id, exps,
                                  hist)],
         num_cols, leaf_id.shape[0], B, K, store.ent_bin.shape[1], *plan,
-        _build.stream(dev))
+        int(not hilo), _build.stream(dev))
     _build.check(err, "sparse_hist")
     return hist
 
 
 def sparse_wave_histogram(store: ChunkedSparseStore, leaf_id, w3, child_id,
-                          num_bins: int, num_cols: int, exps=None):
+                          num_bins: int, num_cols: int, exps=None,
+                          hilo: bool = True):
     """Kernel B6: the (K, F, B, 3) f32 histograms of the rows whose leaf
     is child_id[k] (-1 = inactive, all zero), from the store's non-fill
     entries only; fill slots stay exactly 0.  exps: the kernel's
     fixed-point exponents (fixed_point_exponents(w3)), computed here when
-    None; the plain version does not use them."""
+    None; the plain version does not use them.  hilo=False: the single
+    bf16 product (tpu_hist_precision=bf16), each entry's weights rounded
+    as the JAX package's _round_bf16 rounds them, in the kernel; the
+    exponents stay those of the unrounded weights (csrc/wave_fused.cu
+    says why they still bound every sum)."""
     _check(store, leaf_id, w3, child_id, num_bins, num_cols)
     if leaf_id.device.type == "cpu":
         return chunked_child_hists_plain(store, leaf_id, w3, child_id,
-                                         num_bins, num_cols)
+                                         num_bins, num_cols, hilo)
     plan = launch_plan(int(num_bins), child_id.shape[0])[:2]
     hist = _launch(store, leaf_id, w3, child_id, num_bins, num_cols,
-                   _exps(w3, exps), plan)
+                   _exps(w3, exps), plan, hilo)
     sparse_wave_histogram.launches += 1
+    if not hilo:
+        sparse_wave_histogram.form_launches["bf16"] += 1
     return hist
 
 
 sparse_wave_histogram.launches = 0
+# of them the bf16 form's (the sparse store never packs)
+sparse_wave_histogram.form_launches = {"bf16": 0}

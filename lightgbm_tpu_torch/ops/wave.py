@@ -96,35 +96,51 @@ class WaveGrower(Grower):
     commits the prefix of slots that the leaf-wise order would split
     before any child made earlier in the wave (``_exact_prefix``), and
     rolls the rest back, so the trees equal exact growth's at any
-    width."""
+    width.
+
+    packed_cols > 0: X holds the 4-bit packed bins of that many columns
+    (ops/pack.py), which every kernel and the plain routing unpack;
+    hilo=False: the single bf16 product in every wave histogram (the
+    dense root stays unrounded, as the JAX package's one-hot root)."""
 
     counts_waves = True
 
     def __init__(self, X, meta: FeatureMeta, bundle, *, wave_width: int,
                  hist_mode: str = "pallas_ct", wave_order: str = "batched",
-                 **kw):
+                 packed_cols: int = 0, hilo: bool = True, **kw):
         super().__init__(X, meta, bundle, **kw)
         self.exact_order = wave_order == "exact"
         self.W = max(1, min(wave_width, self.L - 1))
         self.slots = self.W
         self.hist_mode = hist_mode
         self.sparse = isinstance(X, ChunkedSparseStore)
+        self.packed_cols = 0 if self.sparse else int(packed_cols)
+        self.hilo = bool(hilo)
         if self.sparse:
             self.hist_cols = X.num_cols
         else:
-            self.hist_cols = X.shape[1 if hist_mode == "pallas" else 0]
+            self.hist_cols = (self.packed_cols
+                              or X.shape[1 if hist_mode == "pallas" else 0])
 
-    def _child_hists(self, st, lid, ids, w3, exps):
+    def _child_hists(self, st, lid, ids, w3, exps, hilo=None):
+        """The (K, G, B, 3) histograms of the leaves ids (B3, B4 or B6),
+        in the grower's precision unless hilo says otherwise."""
+        hilo = self.hilo if hilo is None else hilo
         if self.sparse:
             return sparse_wave_histogram(self.X, lid, w3, ids,
                                          self.hist_bins, self.X.num_cols,
-                                         exps=exps)
-        if self.hist_mode == "pallas":
-            return wave_histogram_rowmajor(self.X, lid, w3, ids,
-                                           self.hist_bins, exps=exps,
-                                           work=st.work)
-        return wave_histogram(self.X, lid, w3, ids, self.hist_bins,
-                              exps=exps, work=st.work)
+                                         exps=exps, hilo=hilo)
+        kernel = (wave_histogram_rowmajor if self.hist_mode == "pallas"
+                  else wave_histogram)
+        return kernel(self.X, lid, w3, ids, self.hist_bins, exps=exps,
+                      work=st.work, logical_cols=self.packed_cols, hilo=hilo)
+
+    def _root_hists(self, st, lid, ids, w3, exps):
+        """The root's histogram: the JAX package takes the dense root
+        from its f32 one-hot engine, whatever the precision of the wave
+        kernels, and the sparse root from the sparse kernel in it."""
+        return self._child_hists(st, lid, ids, w3, exps,
+                                 hilo=self.hilo if self.sparse else True)
 
     # --------------------------------------------------------------- wave
     def pick(self, st: GrowState) -> Pick:
@@ -220,11 +236,13 @@ class WaveGrower(Grower):
         elif self.hist_mode == "pallas_ct":
             lid, hist_small = wave_partition_hist(
                 X, st.leaf_id, w3, cid, cols, psrc, self.hist_bins,
-                bundled=bundled, exps=exps, work=st.work)
+                bundled=bundled, exps=exps, work=st.work,
+                logical_cols=self.packed_cols, hilo=self.hilo)
         else:
             route = (route_rows_rowmajor if self.hist_mode == "pallas"
                      else route_rows_plain)
-            lid = route(X, st.leaf_id, cols, psrc, bundled)
+            lid = route(X, st.leaf_id, cols, psrc, bundled,
+                        logical_cols=self.packed_cols)
             hist_small = self._child_hists(st, lid, cid, w3, exps)
         st.leaf_id.copy_(lid)
         if self.cache_hists:
@@ -284,11 +302,14 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
               bundle, *, num_leaves: int, num_bins: int,
               params: SplitParams, max_depth: int, wave_width: int,
               group_bins: int = 0, cache_hists: bool = True,
-              hist_mode: str = "pallas_ct", wave_order: str = "batched"):
+              hist_mode: str = "pallas_ct", wave_order: str = "batched",
+              packed_cols: int = 0, hilo: bool = True):
     """Grow one tree, staged: a WaveGrower's body with one host read a
     wave.  X: (G, N) uint8 transposed bins, (N, G) row-major bins for
-    hist_mode 'pallas', or a ChunkedSparseStore; grad/hess/row_mult: (N,)
-    f32.  Returns (TreeArrays, leaf_id (N,) int32, GrowStats).
+    hist_mode 'pallas' (with packed_cols > 0, 4-bit packed: ceil(G / 2)
+    stored columns), or a ChunkedSparseStore; grad/hess/row_mult: (N,)
+    f32; hilo=False: the single bf16 product.  Returns (TreeArrays,
+    leaf_id (N,) int32, GrowStats).
 
     The read comes between a wave's selection and its commit: the count
     of valid slots (k == 0 ends the tree) and, under batched order, the
@@ -298,7 +319,7 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
                    num_bins=num_bins, params=params, max_depth=max_depth,
                    wave_width=wave_width, group_bins=group_bins,
                    cache_hists=cache_hists, hist_mode=hist_mode,
-                   wave_order=wave_order)
+                   wave_order=wave_order, packed_cols=packed_cols, hilo=hilo)
     st = g.new_state(grad.shape[0], grad.device)
     w3 = weight_rows(grad, hess, row_mult)                 # (N, 3)
     # the kernels' fixed-point exponents (B1, B3, B4, B6): w3 is fixed

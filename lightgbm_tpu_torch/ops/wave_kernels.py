@@ -17,6 +17,16 @@ convert to f32 once, so the three give the same bits for the same rows
 (and so do B5, ``ops/leaf_hist.py``, and B6, ``ops/sparse_mxu.py``).
 The plain versions add in the weights' dtype.
 
+Two variants of the JAX package's kernels ride every wrapper, as its
+keyword arguments: ``logical_cols=F > 0`` says the bins are 4-bit packed
+(``ops/pack.py``: X_t (ceil(F/2), N), X (N, ceil(F/2))), and the
+histograms are still (K, F, B, 3); ``hilo=False`` is the single bf16
+product (``tpu_hist_precision=bf16``): each weight is rounded to bf16 as
+the JAX package's ``_round_bf16`` rounds it (``round_bf16``) before the
+sums.  (The port's default ``hilo=True`` sums the unrounded weights: its
+fixed point needs no hi/lo split.)  The plain versions unpack
+(``ops/pack.py``) and round with ``round_bf16``, then run as before.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (building it on first use) or raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
@@ -29,6 +39,7 @@ import torch
 
 from .. import _build
 from ..utils.log import LightGBMError
+from .pack import nibble, packed_column, packed_width, unpack4_t
 
 # csrc/wave_fused.cu: rows a list-pass block takes a tile, list-pass
 # blocks a SM, threads of a histogram block, features it may hold and
@@ -58,23 +69,49 @@ def _split_rows(leaf_id, cols, psrc, F):
     return r, cj.clamp(0, F - 1), (cj >= 0) & (cj < F)
 
 
-def route_rows_plain(X_t, leaf_id, cols, psrc, bundled: bool = False):
+def round_bf16(w):
+    """w rounded to bf16 precision, in w's dtype, as the JAX package's
+    _round_bf16 rounds it (lightgbm_tpu/ops/pallas_wave.py): 0x8000 added
+    to the f32 bits and the low 16 bits cleared, so a tie rounds away
+    from zero on the magnitude (``tensor.to(torch.bfloat16)`` rounds it
+    to even).  The kernels round the same way (fixed_point.cuh)."""
+    bits = w.to(torch.float32).contiguous().view(torch.int32)
+    out = ((bits + 0x8000) & -0x10000).view(torch.float32)
+    return out.to(w.dtype)
+
+
+def _split_column(X, r_cj, in_range, logical_cols, rowmajor):
+    """Each row's bin in its split column cj (0 out of range), read from
+    the bins X (X_t (F, N), or row-major (N, F)) or from their packed
+    nibbles."""
+    N = X.shape[0 if rowmajor else 1]
+    rows = torch.arange(N, device=X.device)
+    col, high = (packed_column(r_cj, logical_cols) if logical_cols
+                 else (r_cj, None))
+    raw = (X[rows, col] if rowmajor else X[col, rows]).to(torch.int32)
+    if logical_cols:
+        raw = nibble(raw, high)
+    return raw * in_range.to(torch.int32)
+
+
+def route_rows_plain(X_t, leaf_id, cols, psrc, bundled: bool = False,
+                     logical_cols: int = 0):
     """New leaf ids after one wave's splits (ops/wave.py route_rows): each
-    row whose leaf is psrc[w] takes the split in cols[w]."""
-    F, N = X_t.shape
+    row whose leaf is psrc[w] takes the split in cols[w].  logical_cols
+    > 0: X_t holds the packed bins of that many columns."""
+    F = logical_cols or X_t.shape[0]
     r, cj, in_range = _split_rows(leaf_id, cols, psrc, F)
-    colv = X_t[cj, torch.arange(N, device=X_t.device)].to(
-        torch.int32) * in_range.to(torch.int32)
+    colv = _split_column(X_t, cj, in_range, logical_cols, False)
     return route_rows(r, colv, leaf_id, bundled)
 
 
-def route_rows_rowmajor(X, leaf_id, cols, psrc, bundled: bool = False):
+def route_rows_rowmajor(X, leaf_id, cols, psrc, bundled: bool = False,
+                        logical_cols: int = 0):
     """route_rows_plain on the row-major bins X (N, F): each row's bin is
-    read from its split column X[row, j]."""
-    N, F = X.shape
+    read from its split column X[row, j] (its nibble when packed)."""
+    F = logical_cols or X.shape[1]
     r, cj, in_range = _split_rows(leaf_id, cols, psrc, F)
-    colv = X[torch.arange(N, device=X.device), cj].to(
-        torch.int32) * in_range.to(torch.int32)
+    colv = _split_column(X, cj, in_range, logical_cols, True)
     return route_rows(r, colv, leaf_id, bundled)
 
 
@@ -113,11 +150,17 @@ def histogram_plain(X_t, w, num_bins: int):
     return out.reshape(F, B, 3)
 
 
-def wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins: int):
+def wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins: int,
+                         logical_cols: int = 0, hilo: bool = True):
     """(K, F, B, 3): hist[k, f, b] sums w3 over the rows with
     leaf_id == child_id[k] and X_t[f, row] == b, in w3's dtype.  Each
     slot sums only its own rows, in row order: the rows of other leaves
-    would add zeros, which change no sum."""
+    would add zeros, which change no sum.  logical_cols > 0: X_t is
+    packed (unpacked here); hilo=False: w3 rounded to bf16 first."""
+    if logical_cols:
+        X_t = unpack4_t(X_t, logical_cols)
+    if not hilo:
+        w3 = round_bf16(w3)
     out = []
     for k in range(child_id.shape[0]):
         rows = torch.nonzero(leaf_id == child_id[k]).squeeze(1)
@@ -125,27 +168,39 @@ def wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins: int):
     return torch.stack(out)
 
 
-def wave_histogram_rowmajor_plain(X, leaf_id, w3, child_id, num_bins: int):
+def wave_histogram_rowmajor_plain(X, leaf_id, w3, child_id, num_bins: int,
+                                  logical_cols: int = 0, hilo: bool = True):
     """wave_histogram_plain on the row-major bins X (N, F)."""
-    return wave_histogram_plain(X.t(), leaf_id, w3, child_id, num_bins)
+    return wave_histogram_plain(X.t(), leaf_id, w3, child_id, num_bins,
+                                logical_cols, hilo)
 
 
 def wave_partition_hist_plain(X_t, leaf_id, w3, child_id, cols, psrc,
-                              num_bins: int, bundled: bool = False):
+                              num_bins: int, bundled: bool = False,
+                              logical_cols: int = 0, hilo: bool = True):
     """Plain version of the fused wave step: (new_leaf_id, hist)."""
-    new_lid = route_rows_plain(X_t, leaf_id, cols, psrc, bundled)
+    new_lid = route_rows_plain(X_t, leaf_id, cols, psrc, bundled,
+                               logical_cols)
     return new_lid, wave_histogram_plain(X_t, new_lid, w3, child_id,
-                                         num_bins)
+                                         num_bins, logical_cols, hilo)
 
 
 # ----------------------------------------------------------------- kernel
 def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None,
-           rowmajor: bool = False):
+           rowmajor: bool = False, logical_cols: int = 0):
+    """Raise on inputs the kernels do not take; returns F, the features
+    (logical columns) of the histograms."""
     dev = X_t.device
     F, N = (X_t.shape if X_t.dim() == 2 else (None, None))
     if rowmajor and F is not None:
         N, F = F, N
-    want = [(X_t, torch.uint8, (N, F) if rowmajor else (F, N),
+    Fd = F
+    if logical_cols:
+        if int(logical_cols) < 0:
+            raise LightGBMError("logical_cols must be >= 0, got %s"
+                                % logical_cols)
+        F, Fd = int(logical_cols), packed_width(logical_cols)
+    want = [(X_t, torch.uint8, (N, Fd) if rowmajor else (Fd, N),
              "X" if rowmajor else "X_t"),
             (leaf_id, torch.int32, (N,), "leaf_id"),
             (child_id, torch.int32, (child_id.shape[0],), "child_id")]
@@ -180,6 +235,7 @@ def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None,
             if not t.is_contiguous():
                 raise LightGBMError("%s must be contiguous" % name)
         check_rows(N)
+    return F
 
 
 # the kernels hold a row in an int and address the bins with 64-bit
@@ -218,7 +274,8 @@ def fixed_point_exponents(w3):
 
 
 @lru_cache(maxsize=256)
-def hist_plan(F: int, N: int, B: int, K: int, num_sms: int):
+def hist_plan(F: int, N: int, B: int, K: int, num_sms: int,
+              packed: bool = False):
     """The launch plan of B1, B3 and B4 (list_blocks, groups, R, KS, FS,
     copies, smem): list-pass blocks of _LIST_TILE rows a tile; histogram
     blocks of _HIST_THREADS threads, each over FS features (groups of
@@ -228,12 +285,17 @@ def hist_plan(F: int, N: int, B: int, K: int, num_sms: int):
     no share is empty: each holds at least a block's threads of rows
     when every row is listed).  The copies (a power of two up to 32,
     lane l adding into copy l mod copies) take the shared memory that one
-    histogram leaves unused."""
+    histogram leaves unused.  packed: the F features lie in ceil(F / 2)
+    packed columns, and a block owns FS / 2 of them with both nibbles'
+    features (FS even), so the groups split the packed columns."""
     cell = B * 3 * 8                       # one (slot, feature) row
-    ks = max(1, min(K, _SMEM_BUDGET // cell))
-    fs = max(1, min(F, _GROUP_MAX, _SMEM_BUDGET // (ks * cell)))
-    groups = -(-F // fs)
-    fs = -(-F // groups)                   # even the groups out
+    per = 2 if packed else 1               # features a stored column
+    cols = packed_width(F) if packed else F
+    ks = max(1, min(K, _SMEM_BUDGET // (per * cell)))
+    cs = max(1, min(cols, _GROUP_MAX // per,
+                    _SMEM_BUDGET // (ks * per * cell)))
+    groups = -(-cols // cs)
+    fs = per * -(-cols // groups)          # even the groups out
     kslices = -(-K // ks)
     copies = 1
     while (copies < _MAX_COPIES
@@ -302,40 +364,53 @@ def _list_buffers(N, K, F, B, dev, hist_shape=None, work=None):
 
 
 def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
-                  bundled, exps, work):
+                  bundled, exps, work, F, logical_cols, hilo):
     lib = _build.library()
-    F, N = X_t.shape
+    N = X_t.shape[1]
     K, W, B = child_id.shape[0], cols.shape[0], int(num_bins)
     if W >= 2 ** 15:
         raise LightGBMError("B1 takes fewer than 32768 parents (W=%d)" % W)
     exps = _exps(w3, exps)
     dev = X_t.device
-    plan = hist_plan(F, N, B, K, _sms(dev))[:6]
+    packed = bool(logical_cols)
+    plan = hist_plan(F, N, B, K, _sms(dev), packed)[:6]
     rows, acc, work, hist = _list_buffers(N, K, F, B, dev, work=work)
     new_lid = torch.empty(N, dtype=torch.int32, device=dev)
     err = lib.lgbt_wave_fused(
         *[t.data_ptr() for t in (X_t, leaf_id, w3, child_id, cols, psrc,
                                  exps, new_lid)], rows, acc, hist.data_ptr(),
-        F, N, B, K, W, *plan, int(bundled), _build.stream(dev))
+        F, N, B, K, W, *plan, int(bundled), int(packed), int(not hilo),
+        _build.stream(dev))
     _build.check(err, "wave_fused")
     return new_lid, hist
 
 
-def _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, rowmajor, work):
+def _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, rowmajor, work,
+                 F, logical_cols=0, hilo=True):
     """B3 (X_t) or B4 (row-major X): the select pass, the histogram pass
-    over its list, the f32 conversion."""
+    over its list, the f32 conversion.  F: the histograms' features."""
     lib = _build.library()
-    F, N = X.shape[::-1] if rowmajor else X.shape
+    N = X.shape[0 if rowmajor else 1]
     K, B = child_id.shape[0], int(num_bins)
     exps = _exps(w3, exps)
     dev = X.device
-    plan = hist_plan(F, N, B, K, _sms(dev))[:6]
+    packed = bool(logical_cols)
+    plan = hist_plan(F, N, B, K, _sms(dev), packed)[:6]
     rows, acc, work, hist = _list_buffers(N, K, F, B, dev, work=work)
     err = lib.lgbt_wave_hist(
         *[t.data_ptr() for t in (X, leaf_id, w3, child_id, exps)], rows, acc,
-        hist.data_ptr(), F, N, B, K, *plan, int(rowmajor), _build.stream(dev))
+        hist.data_ptr(), F, N, B, K, *plan, int(rowmajor), int(packed),
+        int(not hilo), _build.stream(dev))
     _build.check(err, "wave_hist")
     return hist
+
+
+def _count(wrapper, logical_cols, hilo):
+    """One launch of wrapper's kernel, and of its packed or bf16 form."""
+    wrapper.launches += 1
+    for form, on in (("packed", logical_cols), ("bf16", not hilo)):
+        if on:
+            wrapper.form_launches[form] += 1
 
 
 def _slots_plain(ids, child_id):
@@ -350,10 +425,11 @@ def _slots_plain(ids, child_id):
 
 
 def route_list_plain(X_t, leaf_id, child_id, cols, psrc,
-                     bundled: bool = False):
+                     bundled: bool = False, logical_cols: int = 0):
     """(new_leaf_id, rows, slots): the routed ids, and in row order the
     rows whose new id is a child id with the first slot holding it."""
-    new_lid = route_rows_plain(X_t, leaf_id, cols, psrc, bundled)
+    new_lid = route_rows_plain(X_t, leaf_id, cols, psrc, bundled,
+                               logical_cols)
     return (new_lid, *_slots_plain(new_lid, child_id))
 
 
@@ -364,18 +440,18 @@ def select_list_plain(leaf_id, child_id):
 
 
 def _list(lid, child_id, N, mode, xt=None, cols=None, psrc=None,
-          new_lid=None):
+          new_lid=None, F=0, logical_cols=0):
     """The list pass alone, its list sorted by row."""
     _check_slots(child_id.shape[0])
     dev = lid.device
     rows = torch.empty((N, 2), dtype=torch.int32, device=dev)
     count = torch.zeros(1, dtype=torch.int64, device=dev)
-    F = 0 if xt is None else xt.shape[0]
     W = 0 if cols is None else cols.shape[0]
     ptrs = [0 if t is None else t.data_ptr()
             for t in (xt, lid, child_id, cols, psrc, new_lid, rows, count)]
     err = _build.library().lgbt_wave_list(
-        *ptrs, F, N, child_id.shape[0], W, _list_blocks(N, _sms(dev)), mode,
+        *ptrs, F, N, child_id.shape[0], W,
+        _list_blocks(N, _sms(dev)), mode, int(bool(logical_cols)),
         _build.stream(dev))
     _build.check(err, "wave_list")
     rows = rows[:int(count)]
@@ -383,16 +459,19 @@ def _list(lid, child_id, N, mode, xt=None, cols=None, psrc=None,
     return rows[order, 0], rows[order, 1]
 
 
-def route_list(X_t, leaf_id, child_id, cols, psrc, bundled: bool = False):
+def route_list(X_t, leaf_id, child_id, cols, psrc, bundled: bool = False,
+               logical_cols: int = 0):
     """B1's routing pass alone, for checking it: route_list_plain's
     contract, with the kernel's list sorted by row.  Reads the list's
     length back to the host."""
-    _check(X_t, leaf_id, None, child_id, 1, cols, psrc)
+    F = _check(X_t, leaf_id, None, child_id, 1, cols, psrc,
+               logical_cols=logical_cols)
     if X_t.device.type == "cpu":
-        return route_list_plain(X_t, leaf_id, child_id, cols, psrc, bundled)
+        return route_list_plain(X_t, leaf_id, child_id, cols, psrc, bundled,
+                                logical_cols)
     new_lid = torch.empty_like(leaf_id)
     rows, slots = _list(leaf_id, child_id, X_t.shape[1], 1 + int(bundled),
-                        X_t, cols, psrc, new_lid)
+                        X_t, cols, psrc, new_lid, F, logical_cols)
     return new_lid, rows, slots
 
 
@@ -416,50 +495,62 @@ def select_list(leaf_id, child_id):
 
 def wave_partition_hist(X_t, leaf_id, w3, child_id, cols, psrc,
                         num_bins: int, bundled: bool = False, exps=None,
-                        work=None):
+                        work=None, logical_cols: int = 0,
+                        hilo: bool = True):
     """Fused wave step (kernel B1): route the rows of the wave's parents
     and build the (K, F, B, 3) histograms of the children child_id from
     the new ids.  Returns (new_leaf_id, hist).  exps: the kernel's
     fixed-point exponents (fixed_point_exponents(w3)), computed here when
     None; work: the list passes' workspace (``list_workspace``), a new
-    one each call when None.  The plain version uses neither."""
-    _check(X_t, leaf_id, w3, child_id, num_bins, cols, psrc)
+    one each call when None.  The plain version uses neither.
+    logical_cols > 0: X_t holds the packed bins of that many columns;
+    hilo=False: the single bf16 product (module docstring)."""
+    F = _check(X_t, leaf_id, w3, child_id, num_bins, cols, psrc,
+               logical_cols=logical_cols)
     if X_t.device.type == "cpu":
         return wave_partition_hist_plain(X_t, leaf_id, w3, child_id, cols,
-                                         psrc, num_bins, bundled)
+                                         psrc, num_bins, bundled,
+                                         logical_cols, hilo)
     out = _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
-                        bundled, exps, work)
-    wave_partition_hist.launches += 1
+                        bundled, exps, work, F, logical_cols, hilo)
+    _count(wave_partition_hist, logical_cols, hilo)
     return out
 
 
 def wave_histogram(X_t, leaf_id, w3, child_id, num_bins: int, exps=None,
-                   work=None):
+                   work=None, logical_cols: int = 0, hilo: bool = True):
     """Histogram-only wave pass (kernel B3): (K, F, B, 3) histograms of
-    the rows whose leaf is child_id[k].  exps and work as for
-    wave_partition_hist."""
-    _check(X_t, leaf_id, w3, child_id, num_bins)
+    the rows whose leaf is child_id[k].  exps, work, logical_cols and
+    hilo as for wave_partition_hist."""
+    F = _check(X_t, leaf_id, w3, child_id, num_bins,
+               logical_cols=logical_cols)
     if X_t.device.type == "cpu":
-        return wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins)
+        return wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins,
+                                    logical_cols, hilo)
     out = _launch_hist(X_t, leaf_id, w3, child_id, num_bins, exps, False,
-                       work)
-    wave_histogram.launches += 1
+                       work, F, logical_cols, hilo)
+    _count(wave_histogram, logical_cols, hilo)
     return out
 
 
 def wave_histogram_rowmajor(X, leaf_id, w3, child_id, num_bins: int,
-                            exps=None, work=None):
-    """Histogram-only wave pass on the row-major bins X (N, F) (kernel
-    B4): the contract of wave_histogram."""
-    _check(X, leaf_id, w3, child_id, num_bins, rowmajor=True)
+                            exps=None, work=None, logical_cols: int = 0,
+                            hilo: bool = True):
+    """Histogram-only wave pass on the row-major bins X (N, F), or (N,
+    ceil(F/2)) packed (kernel B4): the contract of wave_histogram."""
+    F = _check(X, leaf_id, w3, child_id, num_bins, rowmajor=True,
+               logical_cols=logical_cols)
     if X.device.type == "cpu":
         return wave_histogram_rowmajor_plain(X, leaf_id, w3, child_id,
-                                             num_bins)
-    out = _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, True, work)
-    wave_histogram_rowmajor.launches += 1
+                                             num_bins, logical_cols, hilo)
+    out = _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, True, work,
+                       F, logical_cols, hilo)
+    _count(wave_histogram_rowmajor, logical_cols, hilo)
     return out
 
 
-wave_partition_hist.launches = 0
-wave_histogram.launches = 0
-wave_histogram_rowmajor.launches = 0
+# each wrapper's launches, and of them its packed and bf16 forms'
+for _w in (wave_partition_hist, wave_histogram, wave_histogram_rowmajor):
+    _w.launches = 0
+    _w.form_launches = {"packed": 0, "bf16": 0}
+del _w

@@ -28,12 +28,9 @@ def test_keys_aliases_and_values_match_the_jax_package():
 
 
 @pytest.mark.parametrize("knob,value,name", [
-    ("tpu_wave_compact", True, "tpu_wave_compact"),
     ("tpu_histogram_mode", "onehot", "tpu_histogram_mode"),
     ("tpu_histogram_mode", "scatter", "tpu_histogram_mode"),
-    ("tpu_hist_precision", "bf16", "tpu_hist_precision"),
     ("tpu_sparse", True, "tpu_sparse"),
-    ("tpu_bin_pack", "true", "tpu_bin_pack"),
     ("tree_learner", "data", "tree_learner"),
     # ported since, but this data has no queries: the error names them
     ("objective", "lambdarank", "objective=lambdarank"),
@@ -46,6 +43,31 @@ def test_engines_the_port_lacks_raise(knob, value, name):
     params = {"objective": "binary", "verbose": -1, knob: value}
     with pytest.raises(lgb.LightGBMError, match=name):
         lgb.train(params, lgb.Dataset(X, label=y), 1, device="cpu")
+
+
+@pytest.mark.parametrize("knob,value,attr,want", [
+    ("tpu_wave_compact", True, "wave_compact", True),
+    ("tpu_hist_precision", "bf16", "hist_hilo", False),
+    # max_bin 255: a forced true that cannot pack warns and trains on
+    # byte bins, as in the JAX package
+    ("tpu_bin_pack", "true", "packed_cols", 0),
+])
+def test_engine_knobs_the_port_now_takes(knob, value, attr, want, capsys):
+    """Knobs whose kernels the port has since gained resolve as the JAX
+    package resolves them instead of raising: compaction under wave
+    growth on a transposed kernel, the single bf16 product, and 4-bit
+    packing (with the JAX package's warning where a forced true cannot
+    be honoured)."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(200, 4))
+    y = (X[:, 0] > 0).astype(float)
+    params = {"objective": "binary", "verbose": 1, "tpu_growth": "wave",
+              knob: value}
+    booster = lgb.train(params, lgb.Dataset(X, label=y), 1, device="cpu")
+    assert getattr(booster._gbdt.learner, attr) == want
+    if knob == "tpu_bin_pack":
+        err = capsys.readouterr()
+        assert "tpu_bin_pack=true ignored" in err.out + err.err
 
 
 def test_unknown_wave_order_is_fatal():

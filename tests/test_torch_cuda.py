@@ -31,6 +31,7 @@ from lightgbm_tpu_torch.ops import wave_kernels as wk
 from lightgbm_tpu_torch.ops.partition import clipped_leaf_values
 from lightgbm_tpu_torch.utils.common import kMaxTreeOutput
 from lightgbm_tpu_torch.ops.histogram import weight_rows
+from lightgbm_tpu_torch.ops.pack import pack4_host
 from torch_cases import (LEAF_CASES, NO_CACHE, SAMPLED, SCORE_CASES,
                          assert_hist_close, bundled_case, labels, leaf_case,
                          parity_data, parity_params, score_case,
@@ -182,7 +183,7 @@ def test_fused_kernel_occupancy(dev):
         assert lib.lgbt_wave_hist_smem(63, ks, fs, copies) == smem
         for rowmajor in (0, 1):
             blocks = lib.lgbt_wave_hist_blocks_per_sm(63, ks, fs, copies,
-                                                      rowmajor)
+                                                      rowmajor, 0)
             assert blocks * wk._HIST_THREADS // 32 >= 32
 
 
@@ -1634,3 +1635,229 @@ def test_pickle_round_trip_on_the_card(dev):
     for other in (pickle.loads(pickle.dumps(b)), copy.deepcopy(b)):
         assert other.device.type == "cuda"
         np.testing.assert_array_equal(other.predict(X, raw_score=True), want)
+
+
+# --------------------------------- packed bins and the single bf16 product
+def _packed_args(dev, case, f):
+    """The device tensors of a _b1_case, with its bins in both layouts
+    byte and 4-bit packed: (Xt, Xt_packed, X, X_packed, lid, w3, cid,
+    cols, psrc)."""
+    X, lid, w3, cid, _, cols, psrc = case
+    Xp = pack4_host(X)
+    assert Xp.shape[1] == (f + 1) // 2
+    return [t(a).to(dev) for a in (X.T, Xp.T, X, Xp, lid, w3, cid, cols,
+                                   psrc)]
+
+
+@pytest.mark.parametrize("n,f,b,k", [(20000, 28, 16, 32), (5000, 7, 14, 5),
+                                     (3000, 13, 16, 2), (4000, 1, 16, 3),
+                                     (2_000_000, 28, 16, 32)])
+@pytest.mark.parametrize("bundled", [False, True])
+def test_packed_kernels_match_plain_and_the_byte_bins(dev, n, f, b, k,
+                                                      bundled):
+    """B1, B3 and B4 on 4-bit packed bins (ceil(F/2) stored columns; with
+    odd F a padding nibble that is no feature): leaf ids equal the plain
+    routing of the packed bins, the histograms are within phase 2's
+    tolerance of the float64 plain version, and with the same exponents
+    every histogram is the byte bins' kernels' to the bit; the routing
+    pass lists the plain version's rows.  Each launch counts as a packed
+    one."""
+    case = _b1_case(n, f, b, k, seed=n + f + k, bundled=bundled, dup=k > 2)
+    xt, xtp, xr, xrp, ids, w, c, cl, ps = _packed_args(dev, case, f)
+    exps = wk.fixed_point_exponents(w)
+    counters = (wk.wave_partition_hist, wk.wave_histogram,
+                wk.wave_histogram_rowmajor)
+    n0 = [fn.form_launches["packed"] for fn in counters]
+    lid_b, h_b = wk.wave_partition_hist(xt, ids, w, c, cl, ps, b,
+                                        bundled=bundled, exps=exps)
+    lid_p, h_p = wk.wave_partition_hist(xtp, ids, w, c, cl, ps, b,
+                                        bundled=bundled, exps=exps,
+                                        logical_cols=f)
+    assert torch.equal(lid_p, lid_b) and torch.equal(h_p, h_b)
+    assert torch.equal(lid_p, wk.route_rows_plain(xtp, ids, cl, ps, bundled,
+                                                  logical_cols=f))
+    w64 = w.double()
+    want = wk.wave_histogram_plain(xtp, lid_p, w64, c, b, f).cpu()
+    scale = wk.wave_histogram_plain(xtp, lid_p, w64.abs(), c, b, f).cpu()
+    assert _within_f64(h_p, want, scale, float(w.abs().max()))
+    for fn, xb, xp in ((wk.wave_histogram, xt, xtp),
+                       (wk.wave_histogram_rowmajor, xr, xrp)):
+        hp = fn(xp, lid_b, w, c, b, exps=exps, logical_cols=f)
+        assert torch.equal(hp, fn(xb, lid_b, w, c, b, exps=exps))
+        assert torch.equal(hp, h_b)
+    got = wk.route_list(xtp, ids, c, cl, ps, bundled, logical_cols=f)
+    want = wk.route_list_plain(xtp, ids, c, cl, ps, bundled, f)
+    for a, z in zip(got, want):
+        assert torch.equal(a, z)
+    torch.cuda.synchronize()
+    assert [fn.form_launches["packed"] - a
+            for fn, a in zip(counters, n0)] == [1, 1, 1]
+
+
+def test_packed_plan_halves_the_bytes_a_block_reads(dev):
+    """The packed plan at the flagship's F = 28, B = 16: blocks own packed
+    columns and hold both nibbles' features (FS even), the kernel's shared
+    memory is the plan's and 32 warps stay resident."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = _build.library()
+    for k in (32, 1):
+        plan = wk.hist_plan(28, 2_000_000, 16, k, sms, True)
+        _, groups, _, ks, fs, copies, smem = plan
+        assert fs % 2 == 0 and groups * fs // 2 >= 14
+        assert lib.lgbt_wave_hist_smem(16, ks, fs, copies) == smem
+        for rowmajor in (0, 1):
+            blocks = lib.lgbt_wave_hist_blocks_per_sm(16, ks, fs, copies,
+                                                      rowmajor, 1)
+            assert blocks * wk._HIST_THREADS // 32 >= 32
+
+
+def _bf16_weights(w3, seed):
+    """w3 with ties of the bf16 rounding (1 + 2^-8 and its negative, whose
+    rounding differs from round-half-to-even) in a tenth of the rows."""
+    w = w3.copy()
+    rng = np.random.default_rng(seed)
+    tie = rng.random(len(w)) < 0.1
+    w[tie] = np.float32(1 + 2.0 ** -8) * np.where(w[tie] < 0, -1, 1)
+    return w
+
+
+@pytest.mark.parametrize("n,f,b,k", [(20000, 28, 63, 32), (5000, 7, 14, 5),
+                                     (3000, 9, 16, 2),
+                                     (2_000_000, 28, 63, 32)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_bf16_kernels_sum_the_rounded_weights(dev, n, f, b, k, packed):
+    """B1, B3 and B4 with hilo=False (the single bf16 product): with the
+    same exponents each equals its hilo form on the weights rounded by
+    round_bf16 (the JAX package's rounding, ties away from zero) to the
+    bit, and is within phase 2's tolerance of the float64 plain bf16
+    version; B3 and B4 equal B1 on its routed ids; packed bins too."""
+    if packed and b > 16:
+        b = 16
+    case = list(_b1_case(n, f, b, k, seed=n + k, dup=k > 2))
+    case[2] = _bf16_weights(case[2], n)
+    xt, xtp, xr, xrp, ids, w, c, cl, ps = _packed_args(dev, case, f)
+    if packed:
+        xt, xr = xtp, xrp
+    lc = f if packed else 0
+    wr = wk.round_bf16(w)
+    assert bool((wr != w).any())
+    exps = wk.fixed_point_exponents(w)
+    n0 = wk.wave_partition_hist.form_launches["bf16"]
+    lid1, h1 = wk.wave_partition_hist(xt, ids, w, c, cl, ps, b, exps=exps,
+                                      logical_cols=lc, hilo=False)
+    lid2, h2 = wk.wave_partition_hist(xt, ids, wr, c, cl, ps, b, exps=exps,
+                                      logical_cols=lc)
+    assert torch.equal(lid1, lid2) and torch.equal(h1, h2)
+    assert wk.wave_partition_hist.form_launches["bf16"] == n0 + 1
+    w64 = wr.double()
+    want = wk.wave_histogram_plain(xt, lid1, w64, c, b, lc).cpu()
+    scale = wk.wave_histogram_plain(xt, lid1, w64.abs(), c, b, lc).cpu()
+    assert _within_f64(h1, want, scale, float(w.abs().max()))
+    assert torch.equal(want.float(), wk.wave_histogram_plain(
+        xt, lid1, w.double(), c, b, lc, hilo=False).float().cpu())
+    for fn, x in ((wk.wave_histogram, xt), (wk.wave_histogram_rowmajor, xr)):
+        assert torch.equal(fn(x, lid1, w, c, b, exps=exps, logical_cols=lc,
+                              hilo=False), h1)
+
+
+@pytest.mark.parametrize("kind", ["plain", "bundled", "k32"])
+def test_sparse_bf16_kernel_sums_the_rounded_weights(dev, kind):
+    """B6 with hilo=False (the sparse store never packs): with the same
+    exponents its hilo form on the weights rounded by round_bf16 to the
+    bit, and within tolerance of the float64 plain bf16 version."""
+    X, fill, lid, w3, cid, b = _sparse_kernel_case(kind)
+    w3 = _bf16_weights(w3, 5)
+    store, _ = sm.build_chunked_store(X, fill, b, auto_uniform=True)
+    f = X.shape[1]
+    on_card = _on(store, dev)
+    ids, w, c = (t(a).to(dev) for a in (lid, w3, cid))
+    exps = wk.fixed_point_exponents(w)
+    n0 = sm.sparse_wave_histogram.form_launches["bf16"]
+    got = sm.sparse_wave_histogram(on_card, ids, w, c, b, f, exps=exps,
+                                   hilo=False)
+    assert torch.equal(got, sm.sparse_wave_histogram(
+        on_card, ids, wk.round_bf16(w), c, b, f, exps=exps))
+    assert sm.sparse_wave_histogram.form_launches["bf16"] == n0 + 1
+    w64 = wk.round_bf16(t(w3)).double()
+    want = sm.chunked_child_hists_plain(store, t(lid), w64, t(cid), b, f)
+    scale = sm.chunked_child_hists_plain(store, t(lid), w64.abs(), t(cid),
+                                         b, f)
+    assert _within_f64(got, want, scale, float(np.abs(w3).max()))
+    assert bool((got != 0).any())
+
+
+def _packed_run(mode, fused, pack, rounds=4, more=None):
+    """A small binary run at max_bin = 15 on the card."""
+    import lightgbm_tpu_torch as lgb
+
+    X, s = parity_data(3, 3000, False)
+    p = dict({"objective": "binary", "num_leaves": 15, "max_bin": 15,
+              "min_data_in_leaf": 20, "verbose": -1, "tpu_growth": "wave",
+              "tpu_wave_width": 4, "tpu_histogram_mode": mode,
+              "tpu_bin_pack": pack, "tpu_fused_iter": fused}, **(more or {}))
+    return lgb.train(p, lgb.Dataset(X, label=(s > 0).astype(float)), rounds,
+                     device="cuda")
+
+
+@pytest.mark.parametrize("mode", ["pallas_ct", "pallas_t", "pallas"])
+@pytest.mark.parametrize("more", [{}, NO_CACHE])
+def test_packed_training_equals_the_byte_bins_on_the_card(dev, mode, more):
+    """At max_bin = 15 tpu_bin_pack=auto uploads ceil(F/2) packed columns
+    and trains the byte bins' model text to the byte, fused and staged,
+    with every wave-kernel launch a packed one."""
+    base = _packed_run(mode, "auto", "false", more=more)
+    assert base._gbdt.learner.packed_cols == 0
+    text = base.model_to_string()
+    counters = (wk.wave_partition_hist, wk.wave_histogram,
+                wk.wave_histogram_rowmajor)
+    for fused in ("auto", "off"):
+        n0 = [(fn.launches, fn.form_launches["packed"]) for fn in counters]
+        booster = _packed_run(mode, fused, "auto", more=more)
+        learner = booster._gbdt.learner
+        assert learner.packed_cols == 10
+        assert learner.X.numel() == 5 * 3000
+        assert booster.model_to_string() == text
+        for fn, (a, p) in zip(counters, n0):
+            assert fn.launches - a == fn.form_launches["packed"] - p
+        assert sum(fn.launches - a for fn, (a, _) in zip(counters, n0)) > 0
+
+
+@pytest.mark.parametrize("flow", FUSED_FLOWS)
+def test_bf16_fused_trains_the_staged_model_text_on_the_card(dev, flow):
+    """tpu_hist_precision=bf16: fused and staged train the same model
+    text on every dataflow, the wave kernels' launches all bf16 ones
+    (the dense root stays unrounded, as the JAX package's one-hot root
+    does)."""
+    counters = (wk.wave_partition_hist, wk.wave_histogram,
+                wk.wave_histogram_rowmajor, sm.sparse_wave_histogram)
+    n0 = [fn.form_launches["bf16"] for fn in counters]
+    fused, staged, X = _fused_pair(flow, more={"tpu_hist_precision": "bf16"})
+    assert fused._gbdt.learner.hist_hilo is False
+    assert fused.model_to_string() == staged.model_to_string()
+    assert sum(fn.form_launches["bf16"] - a
+               for fn, a in zip(counters, n0)) > 0
+
+
+@pytest.mark.parametrize("mode", ["pallas_ct", "pallas_t"])
+@pytest.mark.parametrize("more", [{}, NO_CACHE, {"tpu_wave_order": "exact"}])
+def test_compact_training_equals_the_full_pass_on_the_card(dev, mode, more):
+    """tpu_wave_compact=true on the card, fused and staged: the knob is
+    taken and the ordinary full pass runs under it, so the run launches
+    the kernels the full pass launches, as often, and trains its model
+    text to the byte."""
+    p, X, y = _fused_case(mode, more)
+    import lightgbm_tpu_torch as lgb
+
+    counters = (wk.wave_partition_hist, wk.wave_histogram)
+    for fused in ("auto", "off"):
+        runs = []
+        for compact in (False, True):
+            n0 = [fn.launches for fn in counters]
+            b = lgb.train(dict(p, tpu_wave_compact=compact,
+                               tpu_fused_iter=fused),
+                          lgb.Dataset(X, label=y), 4, device="cuda")
+            assert b._gbdt.learner.wave_compact is compact
+            runs.append((b.model_to_string(),
+                         [fn.launches - a for fn, a in zip(counters, n0)]))
+        assert runs[1] == runs[0]
+        assert sum(runs[0][1]) > 0
