@@ -45,7 +45,9 @@ Phases, in order:
     back-to-back launches (3 for calls above 20 ms), each run between one
     pair of CUDA events, beside the plain version, one PyTorch library
     call for the same function and the bound (bytes over 3.35 TB/s, f32
-    adds over 67 TFLOP/s, whichever is larger).  --sweep also times B5 at
+    adds over 67 TFLOP/s, whichever is larger: the published H100 SXM row
+    of lightgbm_tpu_torch/obs/roofline.py, which the autotuner's probe
+    stamps divide by too).  --sweep also times B5 at
     1, 4 and its plan's copies and B6 at 256, 512 and 1024 threads.
  4. Training: bench.py's flagship recipe and data, every launch counter
     set to 0 just before and read just after, on the fused iteration
@@ -174,6 +176,22 @@ Phases, in order:
     Dataset, fused then staged (equal text, every B6 launch bf16; its AUC
     printed beside the unrounded run's; a small bf16 sparse run on the
     card grows the CPU's trees).
+11. (run after phase 4d, on its Dataset) The measured autotuner and the
+    run observer (autotune_phase): tpu_autotune=measure with a fresh
+    cache file and a timeline under obs_timing=iter; every cell that
+    ops/autotune.py enumerates for the flagship's bucket probed on the
+    card (seconds a probe tree, roofline position, the winner, its
+    margin and the probe seconds printed; the probes' launches counted
+    apart); the cache holding one entry keyed
+    <card kind>|v2|c28_b64_l255_n<row bucket>; a second run under
+    tpu_autotune=prior from the cache with no probe event; the measured
+    run's text equal to a run with the winner pinned, to the byte; every
+    event valid (strict); ``obs explain`` exit 0 naming every probe; the
+    fence audit (0 over a NULL-observer run, the probes' runs plus one an
+    iteration under iter); an obs_trace_iters=2:3 window whose
+    torch.profiler trace names the port's kernels.  In 9b, measure on the
+    ranking Dataset (ROADMAP A4.8: B1 a candidate past the ct bound), its
+    winner printed.
  With --profile, every training run of phases 4 and 5 and the
  multiclass run profile one more iteration: its wall time, device busy
  share, device operations and graph replays; phase 7 profiles one
@@ -189,8 +207,6 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 REPS = 20
 GROUPS = 5
 SLOW_MS = 20.0
@@ -333,8 +349,11 @@ def time_ms(fn, reps=REPS, groups=GROUPS, warmup=3):
 
 def bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    f32 operations over the f32 rate."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    f32 operations over the f32 rate, the H100 row of the port's roofline
+    registry (obs/roofline.py)."""
+    from lightgbm_tpu_torch.obs.roofline import h100_peaks
+    hbm_bytes_per_s, f32_flop_per_s = h100_peaks()
+    tb, tf = nbytes / hbm_bytes_per_s, flops / f32_flop_per_s
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
@@ -2488,6 +2507,8 @@ def ranking_phase(lgb, kernels, card, seed):
     say("9b checks: fused and staged model text equal to the byte; B3 on "
         "every wave; NDCG@5 rose; gradients within the JAX package's "
         "tolerance of the host oracle")
+    # ---- 11 (A4.8): the measured autotuner on the ranking bucket
+    ranking_autotune(lgb, ds, params, card)
     del ds, dv
     gc.collect()
 
@@ -3031,6 +3052,205 @@ def forms_phase(args, lgb, kernels, card, data, main_text):
 
 
 
+# ------------------------------------------------------------- phase 11
+def describe_cell(c):
+    """A cell dict as obs explain names it."""
+    return "%s W=%s %s%s%s" % (
+        c["hist_mode"], c["wave_width"],
+        "hilo" if c["hist_hilo"] else "bf16",
+        " compact" if c["compact"] else "",
+        " fused" if c["fused"] else " staged")
+
+
+def autotune_lines(label, learner, card):
+    """Print a learner's autotune decision: each probed cell's seconds a
+    probe tree and roofline position, the winner, margin, probe seconds
+    and the probes' launches; require every enumerated cell measured.
+    Returns the decision event's fields."""
+    from lightgbm_tpu_torch.obs.roofline import describe_roofline_position
+    from lightgbm_tpu_torch.ops import autotune as at
+    dec = learner.autotune
+    fields = next(f for ev, f in dec.events if ev == "autotune_decision")
+    for c in fields["cells"]:
+        r = c["roofline"]
+        say("%s probe on %s: %-30s %.6f s a probe tree (the mean of %d "
+            "timed trees); at %s (HBM %.4f, f32 %.4f of the %s row, "
+            "%s)" % (label, card, describe_cell(c["cell"]), c["s_per_wave"],
+                     int(learner.config.tpu_autotune_waves),
+                     describe_roofline_position(r), r["hbm_util"],
+                     r["flop_util"], r["device_kind"], r["roof_source"]))
+    say("%s autotune on %s: %s/%s, bucket %s on %s; winner %s (prior %s); "
+        "margin %.4f; overhead_s %.4f; probe launches %s"
+        % (label, card, dec.mode, dec.source, dec.bucket,
+           fields["device_kind"], describe_cell(fields["cell"]),
+           describe_cell(fields["prior"]), dec.margin, dec.overhead_s,
+           learner.autotune_launches))
+    want = at.enumerate_cells(at.Cell.from_dict(fields["prior"]),
+                              learner.autotune_shape, learner.autotune_pins)
+    need(dec.source == "measured"
+         and [c for c, _ in dec.probes] == want,
+         "%s: the probes %s are not every enumerated cell %s"
+         % (label, [c for c, _ in dec.probes], want))
+    return fields
+
+
+def pinned_params(params, cell):
+    """params with every tuned dimension pinned at cell."""
+    return dict(params, tpu_histogram_mode=cell["hist_mode"],
+                tpu_wave_width=cell["wave_width"],
+                tpu_hist_precision="hilo" if cell["hist_hilo"] else "bf16",
+                tpu_wave_compact=cell["compact"],
+                tpu_fused_iter="on" if cell["fused"] else "off",
+                tpu_autotune="off")
+
+
+def autotune_phase(args, lgb, kernels, card, data):
+    """Phase 11 on phase 4's Dataset.  Returns the probes' launches."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+    import torch
+    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch.obs import timers
+    from lightgbm_tpu_torch.obs.events import read_events, validate_event
+    from lightgbm_tpu_torch.obs.roofline import device_kind
+    from lightgbm_tpu_torch.ops import autotune as at
+    t_phase = time.perf_counter()
+    ds, dv = data[0], data[1]
+    work = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    cache = os.path.join(work, "autotune_cache.json")
+    base = dict(flagship_params(), tpu_autotune_cache=cache,
+                obs_timing="iter")
+
+    def train(label, params, iters=ITERS):
+        f0 = timers.fence_count()
+        t0 = time.perf_counter()
+        booster, got = counted(kernels, lambda: lgb.train(
+            params, ds, iters, valid_sets=[dv], verbose_eval=False))
+        torch.cuda.synchronize()
+        say("%s on %s: %d iterations in %.3f s including set-up; launches "
+            "%s; %d fences" % (label, card, iters,
+                               time.perf_counter() - t0, got,
+                               timers.fence_count() - f0))
+        return booster, got, timers.fence_count() - f0
+
+    # ---- 11a. measure: a fresh cache, the timeline under iter
+    ev_measure = os.path.join(work, "measure.jsonl")
+    booster, got, fences = train("11a measure", dict(
+        base, tpu_autotune="measure", obs_events_path=ev_measure))
+    lrn = booster._gbdt.learner
+    fields = autotune_lines("11a flagship", lrn, card)
+    probes = lrn.autotune.probes
+    waves = int(lrn.config.tpu_autotune_waves)
+    need(fences == len(probes) * (1 + waves) + ITERS,
+         "11a: %d fences, wanted %d probe runs + %d iterations"
+         % (fences, len(probes) * (1 + waves), ITERS))
+    probe_launches = dict(lrn.autotune_launches)
+    need(probe_launches.get("wave_histogram", 0) > 0
+         and probe_launches.get("score_update", 0) > 0,
+         "11a: the probes launched no B3/B2 (%s)" % probe_launches)
+    kind = device_kind(torch.device("cuda"))
+    key = "%s|v2|c28_b64_l255_n%d" % (kind, at.row_bucket(args.rows))
+    with open(cache) as f:
+        blob = json.load(f)
+    need(list(blob["entries"]) == [key],
+         "11a: cache keys %s, wanted [%s]" % (list(blob["entries"]), key))
+    measured_text = booster.model_to_string()
+    events = read_events(ev_measure)
+    for e in events:
+        validate_event(e, strict=True)
+    need(sum(e["ev"] == "autotune_probe" for e in events) == len(probes)
+         and sum(e["ev"] == "iter" for e in events) == ITERS,
+         "11a: the timeline lacks probe or iter events")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["obs", "explain", ev_measure])
+    text = out.getvalue()
+    need(rc == 0 and all(describe_cell(c.as_dict()) in text
+                         for c, _ in probes),
+         "11a: obs explain (rc %d) does not name every probe" % rc)
+    say("11a checks: %d cells measured, every event valid (%d), the cache "
+        "holds %s, obs explain names every probe" % (len(probes),
+                                                      len(events), key))
+    del booster, lrn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 11b. prior: the cached winner, no probe
+    ev_prior = os.path.join(work, "prior.jsonl")
+    booster, got, fences = train("11b prior", dict(
+        base, tpu_autotune="prior", obs_events_path=ev_prior))
+    lrn = booster._gbdt.learner
+    names = [e["ev"] for e in read_events(ev_prior)]
+    need(lrn.autotune_source == "cache" and lrn.autotune.cache_hit
+         and "autotune_probe" not in names and not lrn.autotune_launches,
+         "11b: prior mode did not take the cache without probing")
+    need(fences == ITERS, "11b: %d fences under obs_timing=iter, wanted "
+         "one an iteration (%d)" % (fences, ITERS))
+    need(booster.model_to_string() == measured_text,
+         "11b: the cached winner's text differs from the measured run's")
+    del booster, lrn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 11c. the winner pinned, NULL observer: the fence audit's zero
+    pinned = pinned_params(flagship_params(), fields["cell"])
+    booster, got, fences = train("11c pinned winner", pinned)
+    need(fences == 0, "11c: %d fences over a NULL-observer run" % fences)
+    need(booster.model_to_string() == measured_text,
+         "11c: the measured run's text differs from the pinned winner's")
+    del booster
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("11b/c checks: the prior run took the cache with no probe; the "
+        "measured, cached and pinned runs' texts equal to the byte; fences "
+        "0 over the NULL observer, one an iteration under iter")
+
+    # ---- 11d. a trace window over iteration 2, staged (the kernels
+    # launched one by one), Chrome trace in obs_trace_dir
+    trace_dir = os.path.join(work, "trace")
+    booster, got, fences = train("11d trace window", dict(
+        flagship_params(), tpu_fused_iter="off", obs_trace_iters="2:3",
+        obs_trace_dir=trace_dir, obs_events_path=os.path.join(
+            work, "trace.jsonl")), iters=3)
+    paths = [os.path.join(trace_dir, n) for n in os.listdir(trace_dir)]
+    need(len(paths) == 1, "11d: %d trace files" % len(paths))
+    with open(paths[0]) as f:
+        trace = json.load(f)["traceEvents"]
+    names = {str(e.get("name", "")) for e in trace}
+    found = {k: sum(k in n for n in names) for k in
+             ("list_kernel", "hist_kernel", "finish_kernel",
+              "score_update_kernel")}
+    say("11d trace on %s: %s, %d events, %.1f MB; kernel names found %s"
+        % (card, os.path.basename(paths[0]), len(trace),
+           os.path.getsize(paths[0]) / 1e6, found))
+    need(all(found.values()), "11d: the trace does not name the port's "
+         "kernels (%s)" % found)
+    del booster
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("phase 11 (the autotuner and the observer): %.1f s"
+        % (time.perf_counter() - t_phase))
+    return probe_launches
+
+
+def ranking_autotune(lgb, ds, params, card):
+    """11 (A4.8): measure on 9b's ranking Dataset (136 x 256 bins, past
+    the ct bound), a fresh cache; the winner printed."""
+    import tempfile
+    t0 = time.perf_counter()
+    cache = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_rank_"),
+                         "autotune_cache.json")
+    booster = lgb.Booster(dict(params, tpu_autotune="measure",
+                               tpu_autotune_cache=cache), ds)
+    fields = autotune_lines("11 ranking (A4.8)", booster._gbdt.learner,
+                            card)
+    say("11 ranking winner on %s: %s; probing %.1f s"
+        % (card, describe_cell(fields["cell"]), time.perf_counter() - t0))
+    del booster
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -3254,6 +3474,10 @@ def main():
     del booster
     torch.cuda.empty_cache()
 
+    # ---- 11. the measured autotuner and the run observer on the
+    # flagship's Dataset (autotune_phase)
+    probe_launches = autotune_phase(args, lgb, kernels, card, data)
+
     # ---- 10. the kernels' packed and bf16 forms: their checks and
     # times, the max_bin = 15 flagship packed on the three dense
     # dataflows, bf16 on the main path, compaction's knob (forms_phase)
@@ -3345,7 +3569,7 @@ def main():
              + list(mode_launches.items())
              + [("sparse", sparse_launches), ("files", file_launches),
                 ("fobj", fobj_launches), ("ranking", rank_launches),
-                ("api", api_launches)])
+                ("api", api_launches), ("autotune-probes", probe_launches)])
     sources = {"wave_partition_hist": ("lightgbm_tpu_torch/csrc/wave_fused.cu",
                                        "lightgbm_tpu/ops/pallas_wave.py:508"),
                "score_update": ("lightgbm_tpu_torch/csrc/score_update.cu",

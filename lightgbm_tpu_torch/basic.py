@@ -827,10 +827,23 @@ class Booster:
         return self._gbdt.feature_importance(importance_type)
 
     def importance_history(self, importance_type: str = "split") -> list:
-        """The importance trajectory of the run's telemetry: always empty
-        here, as in the JAX package with importance tracking off, the
-        only state the port has (its obs_* keys are refused)."""
-        return []
+        """The importance trajectory of the run's telemetry: the
+        ``importance`` events written every ``obs_importance_every``
+        iterations, as ``[{"it", "importance": {feature_index: value}}]``;
+        empty when importance tracking was off."""
+        from .obs.model import importance_history
+        return importance_history(self.telemetry(), importance_type)
+
+    def telemetry(self) -> list:
+        """A copy of the run observer's in-memory event timeline (obs/):
+        empty unless an ``obs_*`` param enabled telemetry."""
+        return list(self._gbdt._obs.timeline)
+
+    def finalize_telemetry(self, status: str = "ok") -> None:
+        """Emit the run_end event and close the timeline's writer; train
+        and cv call it after the boosting loop (``status="aborted"`` when
+        it raised).  Idempotent, and a no-op without telemetry."""
+        self._gbdt._obs.close(status=status)
 
     def feature_name(self) -> List[str]:
         return list(self._gbdt.feature_names)

@@ -12,9 +12,13 @@ GBDT::ModelToIfElse).
 
 Training and prediction run on the GPU unless ``device_type=cpu`` (or
 ``device=cpu``) asks for the CPU; without a card any other value raises.
-Not in the port yet, and refused naming their ROADMAP item: the ``obs`` and
-``lint`` subcommands, ``tpu_profile_dir`` (a profiler trace) and every
-observability key set away from its default.
+``obs_*`` keys act as in ``train`` (obs/): ``obs_events_path`` writes the
+run's timeline, which ``python -m lightgbm_tpu_torch obs summary|explain|
+diff|trace`` reads (obs/query.py); ``tpu_profile_dir`` records a
+torch.profiler trace of the whole training loop (obs/profile.py).  Not in
+the port yet, and refused naming their ROADMAP item: the ``lint``
+subcommand, the other ``obs`` subcommands, and the ``obs_*`` keys of the
+observability modules the port lacks (obs/__init__.py UNPORTED).
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ from .metrics import create_metric
 from .models import checkpoint as ckpt_mod
 from .models.factory import create_boosting
 from .objectives import create_objective
+from .obs import refuse_unported
+from .obs.profile import start_trace, stop_trace
 from .utils.config import Config, key_alias_transform
 from .utils.log import LightGBMError, Log
 
@@ -68,18 +74,12 @@ def _device(cfg: Config):
 
 
 def _refuse_unported(params: Dict[str, str], cfg: Config) -> None:
-    if params.get("tpu_profile_dir"):
-        raise LightGBMError("tpu_profile_dir (a profiler trace of the run) "
-                            "is not in lightgbm_tpu_torch yet (ROADMAP: "
-                            "observability)")
-    default = Config({})
-    Log.reset_level(cfg.verbose)        # building a Config sets the level
-    for key in sorted(params):
-        if (key.startswith("obs_")
-                and getattr(cfg, key, None) != getattr(default, key, None)):
-            raise LightGBMError("%s: run observability is not in "
-                                "lightgbm_tpu_torch yet (ROADMAP: "
-                                "observability)" % key)
+    refuse_unported(cfg)
+    if params.get("tpu_profile_dir") and cfg.obs_trace_iters:
+        # torch.profiler runs one profiler at a time in a process
+        raise LightGBMError("tpu_profile_dir and obs_trace_iters each open "
+                            "a torch.profiler trace, and only one can run "
+                            "at a time: set one of them")
 
 
 def _metrics(cfg: Config, td: TrainingData) -> list:
@@ -142,20 +142,41 @@ def run_train(cfg: Config, device) -> None:
         booster.add_valid_dataset(valid_td, _metrics(cfg, valid_td))
     Log.info("Started training...")
     saved = rounds_done
-    for it in range(rounds_done, cfg.num_iterations):
-        t0 = time.time()
-        stop = booster.train_one_iter(None, None, True)
-        Log.info("%f seconds elapsed, finished iteration %d",
-                 time.time() - t0, it + 1)
-        rounds_done = it + 1
-        if cfg.snapshot_freq > 0 and (it + 1) % cfg.snapshot_freq == 0:
-            _save(booster, "%s.snapshot_iter_%d" % (cfg.output_model, it + 1))
-        if ck_dir and ck_every > 0 and rounds_done % ck_every == 0:
-            ckpt_mod.save_checkpoint(ck_dir, booster, rounds_done,
-                                     dict(cfg.raw))
-            saved = rounds_done
-        if stop:
-            break
+    # the reference's TIMETAG timers become a torch.profiler trace of the
+    # training loop (Chrome trace format, Perfetto or chrome://tracing)
+    profile_dir = str(cfg.raw.get("tpu_profile_dir", "") or "")
+    if profile_dir:
+        start_trace(profile_dir)
+    finished = False
+    try:
+        for it in range(rounds_done, cfg.num_iterations):
+            t0 = time.time()
+            stop = booster.train_one_iter(None, None, True)
+            Log.info("%f seconds elapsed, finished iteration %d",
+                     time.time() - t0, it + 1)
+            rounds_done = it + 1
+            if cfg.snapshot_freq > 0 and (it + 1) % cfg.snapshot_freq == 0:
+                _save(booster, "%s.snapshot_iter_%d"
+                      % (cfg.output_model, it + 1))
+            if ck_dir and ck_every > 0 and rounds_done % ck_every == 0:
+                ckpt_mod.save_checkpoint(ck_dir, booster, rounds_done,
+                                         dict(cfg.raw))
+                saved = rounds_done
+            if stop:
+                break
+        finished = True
+    finally:
+        if profile_dir:
+            Log.info("torch.profiler trace -> %s", stop_trace())
+        # run_end and the writer's flush, so a failed run still leaves a
+        # readable timeline (status aborted)
+        booster._obs.close(status="ok" if finished else "aborted")
+    if booster._obs.enabled and booster._obs.events_path:
+        Log.info("Telemetry timeline -> %s (query with `python -m "
+                 "lightgbm_tpu_torch obs summary %s`)",
+                 booster._obs.events_path, booster._obs.events_path)
+    if cfg.obs_metrics_path:
+        Log.info("Metrics export -> %s", cfg.obs_metrics_path)
     # and at the end, so that a later run with more rounds resumes here
     if ck_dir and ck_every > 0 and rounds_done != saved:
         ckpt_mod.save_checkpoint(ck_dir, booster, rounds_done, dict(cfg.raw))
@@ -208,10 +229,15 @@ def run_convert_model(cfg: Config) -> None:
 
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
-    if argv and argv[0] in ("obs", "lint"):
+    if argv and argv[0] == "obs":
+        # timeline queries: python -m lightgbm_tpu_torch obs
+        # summary|explain|diff|trace ...
+        from .obs.query import main as obs_main
+        return obs_main(argv[1:])
+    if argv and argv[0] == "lint":
         raise LightGBMError(
-            "the %s subcommand is not in lightgbm_tpu_torch yet (ROADMAP: "
-            "observability and static analysis)" % argv[0])
+            "the lint subcommand is not in lightgbm_tpu_torch yet (ROADMAP: "
+            "observability and static analysis)")
     params = key_alias_transform(parse_cli_params(argv),
                                  raise_unknown=False)
     cfg = Config(params)

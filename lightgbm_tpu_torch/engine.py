@@ -135,34 +135,51 @@ def train(params: Dict[str, Any], train_set: Dataset,
     results = []
     begin, end = init_iteration, init_iteration + num_boost_round
     rounds_done = saved = rounds_base
-    for i in range(begin, end):
-        for cb in cbs_before:
-            cb(CallbackEnv(booster, params, i, begin, end, None))
-        # as in the JAX package, a stop the update reports (an iteration
-        # without splits) ends nothing: its trees were popped
-        booster.update(fobj=fobj)
-        rounds_done = rounds_base + (i - begin) + 1
-        if ck_dir and ck_every > 0 and rounds_done % ck_every == 0:
-            ckpt_mod.save_checkpoint(ck_dir, booster._gbdt, rounds_done,
-                                     params)
-            saved = rounds_done
-        results = []
-        if valid_sets is not None or feval is not None:
-            if include_train:
-                results.extend(booster.eval_train(feval))
-            results.extend(booster.eval_valid(feval))
-        try:
-            for cb in cbs_after:
-                cb(CallbackEnv(booster, params, i, begin, end, results))
-        except callback_mod.EarlyStopException as stop:
-            booster.best_iteration = stop.best_iteration + 1
-            results = stop.best_score
-            break
+    obs = booster._gbdt._obs
+    try:
+        for i in range(begin, end):
+            for cb in cbs_before:
+                cb(CallbackEnv(booster, params, i, begin, end, None))
+            # as in the JAX package, a stop the update reports (an
+            # iteration without splits) ends nothing: its trees were
+            # popped
+            booster.update(fobj=fobj)
+            rounds_done = rounds_base + (i - begin) + 1
+            if ck_dir and ck_every > 0 and rounds_done % ck_every == 0:
+                ckpt_mod.save_checkpoint(ck_dir, booster._gbdt, rounds_done,
+                                         params)
+                saved = rounds_done
+            results = []
+            if valid_sets is not None or feval is not None:
+                if include_train:
+                    results.extend(booster.eval_train(feval))
+                results.extend(booster.eval_valid(feval))
+                # the metric values are also the timeline's eval event
+                if results and obs.enabled:
+                    obs.event("eval", it=i, results=[
+                        {"dataset": str(n), "metric": str(m),
+                         "value": float(v)} for n, m, v, _ in results])
+            try:
+                for cb in cbs_after:
+                    cb(CallbackEnv(booster, params, i, begin, end, results))
+            except callback_mod.EarlyStopException as stop:
+                booster.best_iteration = stop.best_iteration + 1
+                results = stop.best_score
+                break
+    except BaseException:
+        # a run that raised still ends its timeline: run_end with
+        # status "aborted", and the writer flushed
+        booster.finalize_telemetry(status="aborted")
+        raise
     if ck_dir and ck_every > 0 and rounds_done != saved:
         ckpt_mod.save_checkpoint(ck_dir, booster._gbdt, rounds_done, params)
     booster.best_score = collections.defaultdict(dict)
     for data_name, eval_name, score, _ in results or []:
         booster.best_score[data_name][eval_name] = score
+    booster.finalize_telemetry()
+    if obs.enabled and obs.events_path:
+        Log.debug("obs: timeline %s (query: python -m lightgbm_tpu_torch "
+                  "obs summary %s)", obs.events_path, obs.events_path)
     return booster
 
 
@@ -346,27 +363,32 @@ def cv(params, train_set, num_boost_round: int = 10, folds=None,
                                                 verbose_eval,
                                                 early_stopping_rounds,
                                                 show_stdv)
-    for i in range(num_boost_round):
-        for cb in cbs_before:
-            cb(CallbackEnv(cvbooster, params, i, 0, num_boost_round, None))
-        cvbooster.update(fobj=fobj)
-        agg = collections.defaultdict(list)
-        for fold_evals in cvbooster.eval_valid(feval):
-            for _, name, score, hb in fold_evals:
-                agg[(name, hb)].append(score)
-        res = []
-        for (name, hb), scores in agg.items():
-            mean, stdv = float(np.mean(scores)), float(np.std(scores))
-            results[name + "-mean"].append(mean)
-            results[name + "-stdv"].append(stdv)
-            res.append(("cv_agg", name, mean, hb, stdv))
-        try:
-            for cb in cbs_after:
-                cb(CallbackEnv(cvbooster, params, i, 0, num_boost_round,
-                               res))
-        except callback_mod.EarlyStopException as e:
-            cvbooster.best_iteration = e.best_iteration + 1
-            for k in list(results.keys()):
-                results[k] = results[k][:e.best_iteration + 1]
-            break
+    try:
+        for i in range(num_boost_round):
+            for cb in cbs_before:
+                cb(CallbackEnv(cvbooster, params, i, 0, num_boost_round, None))
+            cvbooster.update(fobj=fobj)
+            agg = collections.defaultdict(list)
+            for fold_evals in cvbooster.eval_valid(feval):
+                for _, name, score, hb in fold_evals:
+                    agg[(name, hb)].append(score)
+            res = []
+            for (name, hb), scores in agg.items():
+                mean, stdv = float(np.mean(scores)), float(np.std(scores))
+                results[name + "-mean"].append(mean)
+                results[name + "-stdv"].append(stdv)
+                res.append(("cv_agg", name, mean, hb, stdv))
+            try:
+                for cb in cbs_after:
+                    cb(CallbackEnv(cvbooster, params, i, 0, num_boost_round,
+                                   res))
+            except callback_mod.EarlyStopException as e:
+                cvbooster.best_iteration = e.best_iteration + 1
+                for k in list(results.keys()):
+                    results[k] = results[k][:e.best_iteration + 1]
+                break
+    except BaseException:
+        cvbooster.finalize_telemetry(status="aborted")
+        raise
+    cvbooster.finalize_telemetry()     # every fold's timeline
     return dict(results)

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import json
 import os
+import sys
+import time
 import zipfile
 from typing import Dict, List, Optional, Sequence
 
@@ -31,6 +33,14 @@ from .bundle import (BundleLayout, bin_rows_grouped, build_layout,
                      find_feature_groups)
 from .metadata import Metadata
 from . import parser as _parser
+
+
+def _peak_rss_bytes() -> int:
+    """The process's high-water RSS (ru_maxrss: KB on Linux, bytes on
+    macOS)."""
+    import resource
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return int(peak) * (1 if sys.platform == "darwin" else 1024)
 
 
 class TrainingData:
@@ -59,6 +69,13 @@ class TrainingData:
         # the float64 rows, kept (keep_raw) where a loaded model must be
         # scored on them (continued training)
         self.raw_data: Optional[np.ndarray] = None
+        # the data-quality profile of the binning sample
+        # (obs/dataquality.py, obs_data_profile); None where the binning
+        # was copied from a reference
+        self.data_profile: Optional[dict] = None
+        # the construction's accounting for the dataset_construct event
+        # (rows, phase seconds, peak RSS)
+        self.construct_stats: Optional[dict] = None
 
     # ------------------------------------------------------------- construct
     @classmethod
@@ -82,8 +99,12 @@ class TrainingData:
         if reference is not None:
             self._align_with(reference, data)
         else:
+            rss0, t0 = _peak_rss_bytes(), time.time()
             self._construct_mappers(data, config, cats)
+            t1 = time.time()
             self._bin_data(data)
+            self._note_construct_stats("matrix", t1 - t0, time.time() - t1,
+                                       rss0)
         if keep_raw:
             self.raw_data = data
         self._set_metadata(label, weights, init_score, group)
@@ -178,11 +199,41 @@ class TrainingData:
                           "has %d", sp.num_col,
                           reference.num_total_features)
             self._copy_binning_from(reference)
+            self._bin_sparse(sp)
         else:
+            rss0, t0 = _peak_rss_bytes(), time.time()
             self._construct_mappers_sparse(sp, config, cats)
-        self._bin_sparse(sp)
+            t1 = time.time()
+            self._bin_sparse(sp)
+            self._note_construct_stats("csc", t1 - t0, time.time() - t1,
+                                       rss0)
         self._set_metadata(label, weights, init_score, group)
         return self
+
+    def _note_construct_stats(self, source: str, sketch_s: float,
+                              bin_s: float, rss_before: int) -> None:
+        """The dataset_construct event's fields (the JAX package's): one
+        in-memory pass (chunks 1, workers 1, no shard write)."""
+        peak = _peak_rss_bytes()
+        self.construct_stats = {
+            "source": source, "rows": int(self.num_data), "chunks": 1,
+            "sketch_s": round(float(sketch_s), 6),
+            "bin_s": round(float(bin_s), 6), "write_s": 0.0,
+            "construct_s": round(float(sketch_s + bin_s), 6),
+            "peak_rss_bytes": int(peak),
+            "rss_growth_bytes": max(int(peak) - int(rss_before), 0),
+            "workers": 1}
+
+    def _profile_quality(self, get_col, sample_size: int, categorical: set,
+                         config: Config) -> None:
+        """The data-quality profile of the binning sample, which the
+        booster emits as a ``data_profile`` event (``obs_data_profile``,
+        on by default)."""
+        if bool(config.obs_data_profile):
+            from ..obs import dataquality
+            self.data_profile = dataquality.profile_columns(
+                self.bin_mappers, get_col, self.num_total_features,
+                sample_size, categorical)
 
     def _set_metadata(self, label, weights, init_score, group=None) -> None:
         """The metadata fields; ``group`` holds the query sizes."""
@@ -227,6 +278,8 @@ class TrainingData:
         self._finish_mappers(config, lambda: np.stack(
             [self.bin_mappers[r].value_to_bin(sample[:, r])
              .astype(np.uint16) for r in self.used_feature_idx], axis=1))
+        self._profile_quality(lambda f: sample[:, f], total_sample,
+                              categorical, config)
 
     def _construct_mappers_sparse(self, sp, config: Config,
                                   categorical: set) -> None:
@@ -271,6 +324,16 @@ class TrainingData:
                 out[:, i] = col
             return out
         self._finish_mappers(config, binned_sample)
+
+        def sampled_column(f):
+            # the sampled column with its implicit zeros (NaN kept)
+            spos, sv = col_sample[f]
+            col = np.zeros(total_sample, dtype=np.float64)
+            if len(spos):
+                col[spos] = sv
+            return col
+        self._profile_quality(sampled_column, total_sample, categorical,
+                              config)
 
     def _finish_mappers(self, config: Config, binned_sample) -> None:
         """The shared tail of mapper construction: used features, the

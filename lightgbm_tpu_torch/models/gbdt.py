@@ -35,6 +35,8 @@ import torch
 from ..io.dataset import TrainingData
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction, load_objective_from_string
+from ..obs import NULL_OBSERVER, observer_from_config
+from ..obs.timers import NULL_ORCH, OrchestrationClock
 from ..ops import predict as dev_predict
 from ..ops.learner import SerialTreeLearner, materialize_tree
 from ..utils.common import parse_kv_lines
@@ -52,6 +54,17 @@ def _stub_tree(value: float, num_data: int) -> Tree:
     tree.split(0, 0, False, 0, 0, 0.0, value, value, 0, num_data, -1.0, 0,
                0, 0.0)
     return tree
+
+
+def _device_rows(device) -> list:
+    """The run header's devices: the training device's identity, and on
+    a card its name, memory and SM count."""
+    if device.type != "cuda":
+        return [{"id": 0, "platform": "cpu", "kind": "cpu"}]
+    props = torch.cuda.get_device_properties(device)
+    return [{"id": int(device.index or 0), "platform": "gpu",
+             "kind": str(props.name), "memory_bytes": int(props.total_memory),
+             "sm_count": int(props.multi_processor_count)}]
 
 
 class GBDT:
@@ -103,6 +116,10 @@ class GBDT:
         # (FusedIteration or None,) once resolved for the learner and
         # objective (_resolve_fused_iter); None until then
         self._fused_state = None
+        # the run observer (obs/): NULL until reset_training_data builds
+        # one from the obs_* params
+        self._obs = NULL_OBSERVER
+        self._metrics = None
         if train_data is not None:
             self.reset_training_data(config, train_data, objective,
                                      training_metrics)
@@ -121,6 +138,7 @@ class GBDT:
         self.train_data = train_data
         self.num_data = train_data.num_data
         self.learner = SerialTreeLearner(config, train_data, self.device)
+        self._reset_observer(config)
         self._fused_state = None
         self.training_metrics = list(training_metrics)
         self.max_feature_idx = train_data.num_total_features - 1
@@ -166,6 +184,50 @@ class GBDT:
         if config.bagging_fraction < 1.0 and config.bagging_freq > 0:
             self.bag_data_cnt = int(config.bagging_fraction * self.num_data)
 
+    def _reset_observer(self, config: Config) -> None:
+        """Build the run observer (obs/) for this training dataset and
+        emit the run header, the dataset's construction and quality
+        profile, and the learner's queued autotune events.  All-default
+        obs params keep the shared NULL observer: the hot path then pays
+        one attribute load and an empty call a hook."""
+        if self._obs.enabled:
+            self._obs.close()
+        self._obs = obs = observer_from_config(config)
+        self._metrics = None
+        self._obs_split_audit = bool(config.obs_split_audit)
+        self._obs_importance_every = int(config.obs_importance_every or 0)
+        self._obs_importance_topk = int(config.obs_importance_topk or 20)
+        if obs.enabled:
+            obs.run_header(
+                backend=self.device.type, devices=_device_rows(self.device),
+                params={k: str(v) for k, v in config.raw.items()},
+                context=dict(self.learner.obs_info(),
+                             torch=torch.__version__,
+                             cuda=str(torch.version.cuda or "")))
+            from ..obs import REGISTRY
+            self._metrics = {"trees": REGISTRY.counter(
+                "lgbm_trees_built_total",
+                "trees grown on device by the training loop")}
+            td = self.train_data
+            if td.num_bin_arr is not None:
+                REGISTRY.counter(
+                    "lgbm_dataset_bins_built_total",
+                    "feature-discretization bins constructed for training "
+                    "datasets").inc(int(np.sum(td.num_bin_arr)))
+            if td.construct_stats is not None:
+                obs.event("dataset_construct", **td.construct_stats)
+            if td.data_profile is not None and bool(config.obs_data_profile):
+                # may raise under obs_health=fatal, before any iteration
+                from ..obs import dataquality
+                label = dataquality.label_profile(td.metadata.label)
+                dataquality.emit_data_profile(
+                    obs, td.data_profile, label,
+                    dataquality.build_findings(td.data_profile, label,
+                                               td.feature_names),
+                    health_mode=str(config.obs_health or "off")
+                    .strip().lower())
+        self.learner.set_observer(obs)
+
     def reset_config(self, config: Config) -> None:
         """GBDT::ResetConfig (gbdt.cpp:64-74): new training parameters
         for the trees to come; the scores and the trees stay.  The learner
@@ -176,6 +238,8 @@ class GBDT:
         self.shrinkage_rate = config.learning_rate
         self.learner = SerialTreeLearner(config, self.train_data,
                                          self.device)
+        # the run's observer follows the rebuilt learner
+        self.learner.set_observer(self._obs)
         self._fused_state = None
         self.bag_data_cnt = self.num_data
         self.row_mult = None
@@ -350,8 +414,9 @@ class GBDT:
 
         auto fuses when eligible and the learner runs on CUDA (the
         hand-written kernels are live under wave and exact growth alike,
-        and the host's launches are what the graphs remove); on the CPU
-        it stays staged.  on fuses
+        and the host's launches are what the graphs remove), or where the
+        autotuner measured the fused cell the winner (tpu_autotune); on
+        the CPU it otherwise stays staged.  on fuses
         wherever eligible; an explicit request is never dropped
         silently, so ineligibility warns.  off never fuses.  (The learner
         refuses any other value when it is built.)"""
@@ -365,7 +430,10 @@ class GBDT:
             if not ok and mode == "on":
                 Log.warning("tpu_fused_iter=on but the fused iteration is "
                             "unavailable (%s); using the staged chain", why)
-            if ok and (mode == "on" or self.device.type == "cuda"):
+            # auto also fuses where the autotuner measured the fused
+            # cell the winner of this shape bucket
+            if ok and (mode == "on" or self.device.type == "cuda"
+                       or self.learner.fused_autotune):
                 fused = fused_iter.FusedIteration(
                     self.learner, self.objective.get_gradients,
                     self.num_data)
@@ -384,6 +452,13 @@ class GBDT:
         Booster.update passes is_eval=False."""
         cfg = self.config
         k = self.num_tree_per_iteration
+        obs = self._obs
+        it0 = self.iter
+        obs.iter_begin(it0)
+        # the host glue between device submissions (obs/timers.py): the
+        # iter event's host_orchestration_s
+        oc = OrchestrationClock() if obs.enabled else NULL_ORCH
+        start_models = len(self.models)
         if (not self.models and cfg.boost_from_average
                 and not self.has_init_score and self.num_class <= 1
                 and self.objective is not None
@@ -397,10 +472,13 @@ class GBDT:
 
         custom = gradients is not None and hessians is not None
         fused = None if custom else self._resolve_fused_iter()
+        grad = hess = None
         if fused is not None:
             # gradients, growth and the score update in one schedule
             self._bagging(self.iter)
+            obs.lap("boost")
         else:
+            oc.enter()
             if custom:
                 gh = np.empty((2, k * self.num_data), dtype=np.float32)
                 gh[0] = np.asarray(gradients, dtype=np.float32).reshape(-1)
@@ -411,9 +489,19 @@ class GBDT:
                     Log.fatal("No object function provided")
                 grad, hess = self.objective.get_gradients(
                     self._score_for_objective())
+            oc.exit()
             grad, hess = self._bagging_with_grad(
                 self.iter, grad.reshape(k, self.num_data),
                 hess.reshape(k, self.num_data))
+            # "boost": the objective's gradients and bagging
+            obs.lap("boost", (grad, hess))
+        # health monitors (obs/health.py): launch the finiteness and
+        # magnitude reductions now, read them once below
+        health = obs.health
+        health_leaves = None
+        if health is not None and health.due(it0):
+            health.stage_gradients(grad, hess)
+            health_leaves = []
         # the shrinkage travels as a host float (rounded to f32 by both
         # updates), read after the gradients (DART sets it as it drops
         # trees); every score is updated in place
@@ -429,21 +517,30 @@ class GBDT:
                 self._append_host_tree(tree)
                 continue
             row = self._score_dev[tid]
+            oc.enter()
             if fused is not None:
                 # the tree is the fused iteration's buffer, so the model
                 # keeps a copy
+                t0 = obs.entry_start()
                 dev_tree, leaf_id, stats = fused.run(
                     row, self.row_mult, self.learner.sample_feature_mask(),
                     scale)
+                obs.entry_end("fused_iter", t0, (dev_tree, leaf_id, row))
+                obs.lap("grow", leaf_id)
                 self.learner.last_stats = stats
                 stored = dev_tree.clone()
+                obs.lap("partition", row)
             else:
                 dev_tree, leaf_id, stats = self.learner.train_device(
                     grad[tid], hess[tid], self.row_mult)
+                obs.lap("grow", leaf_id)
                 dev_predict.update_score_from_partition(
                     row, leaf_id, dev_tree.leaf_value, scale, out=row)
                 stored = dev_tree
+                obs.lap("partition", row)
+            oc.exit()
             self.grow_stats.append(stats)
+            oc.enter()
             ta = dev_predict.traversal_from_grow(dev_tree, stats.num_leaves,
                                                  stats.depth)
             for vi in range(len(self.valid_data)):
@@ -451,22 +548,68 @@ class GBDT:
                 dev_predict.add_tree_to_score(
                     vrow, self._valid_X_dev[vi], ta, scale,
                     self.learner.bundle_arrays, out=vrow)
+            if self.valid_data:
+                obs.lap("update", self._valid_score_dev[-1])
+            oc.exit()
             self.models.append(None)
             self._models_dev.append(stored)
             self._models_shrink.append(self.shrinkage_rate)
             self._models_changed()
             grown.append(stats.num_leaves)
+            if health_leaves is not None:
+                health_leaves.append(dev_tree.leaf_value)
+            if self._metrics is not None:
+                self._metrics["trees"].inc()
+        # before the opt-in reads below (health, eval, model obs): the
+        # host glue of the tree submissions only
+        host_orch = oc.host_seconds()
+        if health_leaves is not None:
+            # one read of the staged scalars; may raise under
+            # obs_health=fatal
+            health.stage_leaf_values(health_leaves)
+            health.run_checks(obs, it0)
 
         should_continue = bool(grown)
         if grown and (is_eval or self.iter % 16 == 0):
             should_continue = any(nl > 1 for nl in grown)
         if not should_continue:
             self._pop_degenerate_iterations()
+            obs.iter_end(it0, value=self._score_dev, stopped=True,
+                         host_orchestration_s=host_orch)
             return True
         self.iter += 1
+        self._emit_model_obs(it0, start_models)
+        stop = False
         if is_eval:
-            return self.eval_and_check_early_stopping()
-        return False
+            stop = self.eval_and_check_early_stopping()
+            obs.lap("eval")
+        obs.iter_end(it0, value=self._score_dev,
+                     host_orchestration_s=host_orch)
+        return stop
+
+    def _emit_model_obs(self, it0: int, start_models: int) -> None:
+        """Split-audit and importance events of this iteration
+        (obs/model.py).  Both read the trees to the host, so both are
+        opt-in: ``obs_split_audit`` audits every iteration's new trees,
+        ``obs_importance_every=N`` snapshots the top-k importance every N
+        iterations."""
+        if not self._obs.enabled:
+            return
+        every = self._obs_importance_every
+        imp_due = every > 0 and (it0 % every) == 0
+        if not self._obs_split_audit and not imp_due:
+            return
+        from ..obs import model as obs_model
+        self._materialize()
+        if self._obs_split_audit:
+            for t in range(start_models, len(self.models)):
+                obs_model.emit_split_audit(self._obs, it0, t,
+                                           self.models[t])
+        if imp_due:
+            obs_model.emit_importance(
+                self._obs, it0, self.feature_importance("split"),
+                self.feature_importance("gain"),
+                self._obs_importance_topk)
 
     def _pop_degenerate_iterations(self) -> None:
         """No leaf met the split requirements: drop this iteration's K
@@ -519,12 +662,16 @@ class GBDT:
         ret = ""
         msg_lines: List[str] = []
         meet_pairs: List[Tuple[int, int]] = []
+        # the metric values are also the timeline's eval event
+        eval_results: List[dict] = []
         if need_output:
             for m in self.training_metrics:
                 scores = m.eval(self.train_score, self.objective)
                 for name, s in zip(m.get_names(), scores):
                     line = "Iteration:%d, training %s : %g" % (it, name, s)
                     Log.info(line)
+                    eval_results.append({"dataset": "training",
+                                         "metric": name, "value": float(s)})
                     if esr > 0:
                         msg_lines.append(line)
         if need_output or esr > 0:
@@ -537,6 +684,9 @@ class GBDT:
                             it, i + 1, name, s)
                         if need_output:
                             Log.info(line)
+                            eval_results.append(
+                                {"dataset": "valid_%d" % (i + 1),
+                                 "metric": name, "value": float(s)})
                         if esr > 0:
                             msg_lines.append(line)
                     if not ret and esr > 0:
@@ -547,6 +697,8 @@ class GBDT:
                             meet_pairs.append((i, j))
                         elif it - self.best_iter[i][j] >= esr:
                             ret = self.best_msg[i][j]
+        if eval_results and self._obs.enabled:
+            self._obs.event("eval", it=it, results=eval_results)
         msg = "\n".join(msg_lines)
         for i, j in meet_pairs:
             self.best_msg[i][j] = msg

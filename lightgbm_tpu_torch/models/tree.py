@@ -53,6 +53,12 @@ class Tree:
         self.split_gain = np.zeros(n - 1, dtype=np.float64)
         self.internal_value = np.zeros(n - 1, dtype=np.float64)
         self.internal_count = np.zeros(n - 1, dtype=np.int64)
+        # the split audit's runner-up (not in the text format): the real
+        # feature index of the second-best candidate of each split and its
+        # gain; -1 / 0 where the winner had no competitor, and in trees
+        # loaded from text
+        self.second_feature = np.full(n - 1, -1, dtype=np.int32)
+        self.second_gain = np.zeros(n - 1, dtype=np.float64)
         # per leaf (n)
         self.leaf_parent = np.zeros(n, dtype=np.int32)
         self.leaf_value = np.zeros(n, dtype=np.float64)

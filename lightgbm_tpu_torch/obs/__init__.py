@@ -1,3 +1,147 @@
-"""Observability of the port: the process metrics registry
-(``metrics.py``), the null run observer the serving tier calls
-(``events.py``) and the serving SLO engine (``serve.py``)."""
+"""Run telemetry of the port: the event timeline, the metrics registry,
+the health monitors and the serving SLO engine.
+
+The port's copy of the JAX package's ``obs`` core:
+
+* ``events``  -- the versioned JSONL timeline (run header, per-iteration
+  phase records, memory snapshots, health verdicts, metrics snapshots,
+  the autotuner's probes and decision) and the ``RunObserver`` facade the
+  training loop drives, with the shared ``NULL_OBSERVER`` by default;
+* ``timers``  -- phase clocks and per-entry timers that wait for the card
+  (``fence``, counted in ``fence_count``) where the timing mode asks;
+* ``memory``  -- per-device ``torch.cuda.memory_stats`` snapshots;
+* ``profile`` -- ``torch.profiler`` windows over chosen iterations
+  (``obs_trace_iters=a:b`` + ``obs_trace_dir``);
+* ``health``  -- non-finite guards, EMA divergence/plateau, the memory
+  watermark (``obs_health=off/warn/fatal``);
+* ``model``   -- ``split_audit`` and top-k ``importance`` events
+  (``obs_split_audit``, ``obs_importance_every``), read back by
+  ``Booster.importance_history``;
+* ``dataquality`` -- the ``data_profile`` event of a constructed Dataset;
+* ``roofline`` -- the device-peak registry and the autotuner's probe
+  stamps;
+* ``metrics`` -- process counters, gauges and histograms;
+* ``serve``   -- the serving tier's SLO engine;
+* ``query``   -- ``python -m lightgbm_tpu_torch obs summary|explain|
+  diff|trace``.
+
+Not in the port yet (ROADMAP A12): the JAX package's ``compile``,
+``straggler``, ``watchdog``, ``ledger``, ``live``, ``drift``,
+``incident``, ``prof`` and ``merge`` modules.  Their ``obs_*`` keys raise
+LightGBMError naming the item when set away from their defaults
+(``refuse_unported``); every other ``obs_*`` key acts as in the JAX
+package.
+"""
+from __future__ import annotations
+
+import os
+
+from ..utils.log import LightGBMError, Log
+from .events import (NULL_OBSERVER, SCHEMA_VERSION, EventWriter,
+                     NullObserver, RingBuffer, RunObserver,
+                     collect_provenance, read_events, validate_event)
+from .health import HealthMonitors
+from .metrics import REGISTRY, MetricsRegistry
+
+__all__ = ["NULL_OBSERVER", "NullObserver", "RunObserver", "EventWriter",
+           "RingBuffer", "SCHEMA_VERSION", "read_events", "validate_event",
+           "collect_provenance", "observer_from_config", "refuse_unported",
+           "HealthMonitors", "MetricsRegistry", "REGISTRY"]
+
+_TIMING_MODES = ("auto", "phase", "iter", "off")
+_HEALTH_MODES = ("off", "warn", "fatal")
+
+# the obs_* keys of the JAX package's modules the port does not have yet,
+# by module: a key set away from its default raises.  obs_prof_hz=0
+# (the sampling profiler off, which is all the port does) is accepted.
+UNPORTED = {
+    "obs/compile.py": ("obs_compile", "obs_utilization_every"),
+    "obs/straggler.py": ("obs_straggler_every", "obs_straggler_warn_skew"),
+    "obs/watchdog.py": ("obs_watchdog_secs",),
+    "obs/ledger.py": ("obs_ledger_dir", "obs_ledger_suite",
+                      "obs_ledger_window"),
+    "obs/live.py": ("obs_http_port", "obs_http_addr"),
+    "obs/drift.py": ("obs_drift_every", "obs_drift_window", "obs_drift_psi",
+                     "obs_drift_fingerprint", "obs_drift_topk",
+                     "obs_drift_min_labels"),
+    "obs/incident.py": ("obs_incident", "obs_incident_window_s",
+                        "obs_incident_dir", "obs_incident_trace"),
+    "obs/prof.py": ("obs_prof_hz", "obs_prof_window_s", "obs_prof_topk"),
+}
+
+
+def refuse_unported(config) -> None:
+    """Raise LightGBMError for an ``obs_*`` key of a module the port does
+    not have yet, set away from its default."""
+    from ..utils.config import Config
+    for module, keys in UNPORTED.items():
+        for key in keys:
+            value = getattr(config, key)
+            if value == Config._FIELDS[key][1]:
+                continue
+            if key == "obs_prof_hz" and int(value) == 0:
+                continue
+            raise LightGBMError(
+                "%s=%s: the JAX package's %s is not in lightgbm_tpu_torch "
+                "yet (ROADMAP A12, observability)" % (key, value, module))
+
+
+def observer_from_config(config):
+    """RunObserver from the ``obs_*`` params, or NULL_OBSERVER when
+    nothing is enabled (the disabled path costs one attribute check).
+
+    ``obs_timing``: 'phase' waits for the card at every phase boundary
+    (device-accurate phase times, at the price of the launch queue's
+    overlap); 'iter' waits once an iteration (accurate iteration totals,
+    phases are launch times); 'off' records wall times without waiting;
+    'auto' = 'phase'.
+
+    Any of ``obs_events_path`` / ``obs_trace_iters`` /
+    ``obs_memory_every`` / ``obs_health`` (not off) / ``obs_metrics_path``
+    / ``obs_metrics_every`` / ``obs_split_audit`` /
+    ``obs_importance_every`` enables the observer; health, metrics and
+    model tracking work without an events path (the in-memory timeline
+    of Booster.telemetry())."""
+    refuse_unported(config)
+    events_path = str(config.obs_events_path or "")
+    trace_iters = str(config.obs_trace_iters or "")
+    memory_every = int(config.obs_memory_every or 0)
+    health_mode = str(config.obs_health or "off").strip().lower()
+    if health_mode not in _HEALTH_MODES:
+        Log.fatal("Unknown obs_health %s (expected off/warn/fatal)",
+                  health_mode)
+    metrics_path = str(config.obs_metrics_path or "")
+    metrics_every = int(config.obs_metrics_every or 0)
+    if (not events_path and not trace_iters and memory_every <= 0
+            and health_mode == "off" and not metrics_path
+            and metrics_every <= 0 and not bool(config.obs_split_audit)
+            and int(config.obs_importance_every or 0) <= 0):
+        return NULL_OBSERVER
+    timing = str(config.obs_timing).strip().lower()
+    if timing not in _TIMING_MODES:
+        Log.fatal("Unknown obs_timing %s (expected auto/phase/iter/off)",
+                  timing)
+    if timing == "auto":
+        timing = "phase"
+    if events_path and os.path.isdir(events_path):
+        Log.fatal("obs_events_path %s is a directory (the timeline is a "
+                  "JSONL file)", events_path)
+    trace_dir = str(config.obs_trace_dir or "")
+    if trace_iters and not trace_dir:
+        Log.fatal("obs_trace_iters requires obs_trace_dir (where the "
+                  "torch.profiler trace is written)")
+    health = None
+    if health_mode != "off":
+        health = HealthMonitors(
+            mode=health_mode, every=int(config.obs_health_every or 1),
+            divergence=float(config.obs_health_divergence or 0.0),
+            plateau=int(config.obs_health_plateau or 0),
+            mem_frac=float(config.obs_health_mem_frac or 0.0))
+    return RunObserver(events_path=events_path, timing=timing,
+                       memory_every=memory_every, trace_iters=trace_iters,
+                       trace_dir=trace_dir,
+                       flush_every=int(config.obs_flush_every or 16),
+                       health=health, metrics_every=metrics_every,
+                       metrics_path=metrics_path,
+                       fsync=bool(config.obs_fsync),
+                       flight_events=int(config.obs_flight_events or 256))

@@ -100,7 +100,7 @@ def fused_supported(booster) -> tuple:
     iteration (DART and InfiniteBoost override it) and its own bagging
     (GOSS overrides ``_bagging_with_grad`` to rescale the gradients), one
     tree an iteration, a built-in objective, the serial learner (under
-    wave or exact growth)."""
+    wave or exact growth), and no health monitors (obs_health)."""
     from ..models.gbdt import GBDT
     from .learner import SerialTreeLearner
     if type(booster).train_one_iter is not GBDT.train_one_iter:
@@ -113,6 +113,10 @@ def fused_supported(booster) -> tuple:
         return False, "no built-in objective (custom fobj)"
     if type(booster.learner) is not SerialTreeLearner:
         return False, "not the serial learner"
+    if booster._obs.health is not None:
+        # the health monitors read the gradients between the stages the
+        # fused iteration's graphs hide: keep the staged chain
+        return False, "obs_health gradient staging needs staged g/h"
     return True, ""
 
 
@@ -157,13 +161,15 @@ class FusedIteration:
     tail graphs ran, so it makes 1 + tail_passes / tail_len host
     reads."""
 
-    def __init__(self, learner, grad_fn, num_data: int):
+    def __init__(self, learner, grad_fn, num_data: int, grower=None):
+        """``grower``: a wave grower other than the learner's own (the
+        autotuner's probe of a candidate cell, ops/learner.py)."""
         if learner.growth == "exact":
             self.grower = gr = learner.exact_grower()
             self._pass = gr.split
             self.passes = self.tail_len = max(1, min(SPLIT_BLOCK, gr.L - 1))
         else:
-            self.grower = gr = learner.wave_grower()
+            self.grower = gr = grower or learner.wave_grower()
             self._pass = gr.wave
             self.passes = wave_count(gr.L, gr.W)
             self.tail_len = 1
@@ -237,6 +243,13 @@ class FusedIteration:
         self._score = _Graph(lambda: self.score_pass(score, scale))
         self._score_key = (score.data_ptr(), float(scale))
         self.capture_seconds += time.perf_counter() - t0
+
+    def release(self) -> None:
+        """Drop the captured graphs, which frees their memory pools; under
+        the capture lock, so no capture of another thread is running."""
+        with CAPTURE_LOCK:
+            self._tree = self._tail = self._score = None
+            self._score_key = None
 
     def _replay(self, graph) -> None:
         graph.replay()

@@ -13,7 +13,10 @@ the JAX package does; ``tpu_hist_precision=bf16`` selects the single
 bf16 product of the wave kernels.  It samples feature_fraction masks,
 feeds gradients to the grower and materializes finished trees
 (real-valued thresholds resolved in float64 from the BinMappers).  Engine knobs that select
-something this port does not have raise instead of being ignored.
+something this port does not have raise instead of being ignored.  At
+construction the measured autotuner (ops/autotune.py) records, and under
+``tpu_autotune=measure/force`` on the card probes, the kernel cell the
+learner runs; its events wait for the run observer (``set_observer``).
 """
 from __future__ import annotations
 
@@ -22,10 +25,16 @@ import torch
 
 from ..io.dataset import TrainingData
 from ..models.tree import Tree
+from ..obs.events import NULL_OBSERVER
 from ..utils.common import avoid_inf
 from ..utils.config import Config, _FALSE_SET, _TRUE_SET
 from ..utils.log import Log
 from ..utils.random import Random
+# kernel-selection policy lives in ops/autotune.py (the measured
+# autotuner's prior); re-exported here, as the JAX package's learner does
+from .autotune import (_order_sensitive, bin_pad, prior_hist_hilo,
+                       prior_hist_mode, resolve_wave_order,
+                       resolve_wave_width)
 from .grow import BundleArrays, ExactGrower, grow_tree_exact
 from .pack import can_pack4, pack4_host
 from .sparse_mxu import build_chunked_store
@@ -35,16 +44,6 @@ from .wave import WaveGrower, grow_tree
 
 # auto histogram-cache budget when histogram_pool_size is unset (-1)
 _AUTO_HIST_CACHE_MB = 2048.0
-# the ncols * bin_pad bound under which the JAX package runs the fused
-# wave kernel (its ops/autotune.py CT_PROMOTION_BOUND)
-CT_PROMOTION_BOUND = 2560
-
-
-def _bin_pad(num_bins: int) -> int:
-    """The JAX package's padded per-feature bin width (ops/wave.py)."""
-    if num_bins <= 64:
-        return 64
-    return ((num_bins + 127) // 128) * 128
 
 
 def hist_cache_enabled(config: Config, num_leaves: int, num_cols: int,
@@ -178,7 +177,7 @@ def check_engine_params(config: Config):
         ("tpu_histogram_mode", ("auto", "pallas", "pallas_ct", "pallas_t")),
         ("tpu_score_update", ("auto", "pallas")),
         ("tpu_fused_iter", ("auto", "on", "off")),
-        ("tpu_autotune", ("off", "prior")),
+        ("tpu_autotune", ("off", "prior", "measure", "force")),
         ("tpu_wave_lookup", ("auto", "onehot", "compact", "gather")),
     ]
     for name, ok in checks:
@@ -203,58 +202,6 @@ def check_engine_params(config: Config):
     if growth == "wave" and w <= 0 and w != -1:
         Log.fatal("tpu_wave_width must be positive or -1 (auto), got %d", w)
     return sparse, growth
-
-
-def _order_sensitive(config: Config) -> bool:
-    """Configs whose quality depends on the leaf-wise split order (the
-    JAX package's rule, its ops/autotune.py: lambdarank, and the dart,
-    goss and infinite boosting modes)."""
-    return (str(config.objective) in ("lambdarank", "rank")
-            or str(config.boosting_type) in ("dart", "goss", "infinite",
-                                             "infiniteboost"))
-
-
-def resolve_wave_order(config: Config) -> str:
-    """tpu_wave_order: auto -> 'exact' for the order-sensitive configs,
-    'batched' otherwise, as the JAX package resolves it."""
-    v = _val(config, "tpu_wave_order")
-    if v not in ("auto", "batched", "exact"):
-        Log.fatal("Unknown tpu_wave_order %s (expected auto/batched/"
-                  "exact)", v)
-    if v != "auto":
-        return v
-    return "exact" if _order_sensitive(config) else "batched"
-
-
-def resolve_wave_width(config: Config, num_leaves: int,
-                       wave_order: str = "batched") -> int:
-    """tpu_wave_width=-1 -> the JAX package's auto ladder: 8, 16 or 32 by
-    the leaf count, and width 1 for an order-sensitive config under
-    batched order (its waves would change the split order)."""
-    w = int(config.tpu_wave_width)
-    if w > 0:
-        return w
-    if w != -1:
-        Log.fatal("tpu_wave_width must be positive or -1 (auto), got %d", w)
-    if _order_sensitive(config) and wave_order != "exact":
-        return 1
-    if num_leaves <= 31:
-        return 8
-    if num_leaves <= 127:
-        return 16
-    return 32
-
-
-def resolve_hist_hilo(config: Config) -> bool:
-    """tpu_hist_precision: False (the single bf16 product) for bf16, else
-    True.  The JAX package's auto takes bf16 under wave growth on the TPU
-    (its ops/autotune.py prior_hist_hilo), where the bf16 matrix unit
-    halves the histogram's work; the port's kernels sum in 64-bit fixed
-    point, on which rounding the weights saves nothing, so its auto
-    stays on the unrounded weights on every device (ROADMAP.md,
-    "Precision").  Exact growth records the choice and ignores it, as
-    in the JAX package (its exact grower never runs the bf16 kernels)."""
-    return _val(config, "tpu_hist_precision") != "bf16"
 
 
 def resolve_bin_pack(config: Config, growth: str, sparse: bool,
@@ -357,10 +304,9 @@ class SerialTreeLearner:
             # the JAX package's prior: the fused kernel while the
             # accumulator block is narrow, the histogram-only kernel with
             # a separate partition above that bound
-            mode = ("pallas_ct" if ncols * _bin_pad(nbins)
-                    <= CT_PROMOTION_BOUND else "pallas_t")
+            mode = prior_hist_mode(ncols, bin_pad(nbins))
         self.hist_mode = mode
-        self.hist_hilo = resolve_hist_hilo(config)
+        self.hist_hilo = prior_hist_hilo(config)
         self.wave_compact = resolve_wave_compact(config, self.growth, mode)
         bins_per_col = (train_data.bundle.num_group_bins
                         if train_data.bundle is not None
@@ -408,6 +354,146 @@ class SerialTreeLearner:
         # (serial_tree_learner.cpp:40-96 Init + :257-275 BeforeTrain)
         self._feature_rng = Random(config.feature_fraction_seed)
         self.last_stats = None
+        self._obs = NULL_OBSERVER
+        # construction-time events (the autotuner's probes and decision),
+        # recorded once set_observer attaches the run's observer
+        self._pending_events = []
+        self._autotune(config, ncols, nbins)
+
+    # --------------------------------------------------------- autotuning
+    def _autotune(self, config: Config, ncols: int, nbins: int) -> None:
+        """The measured kernel autotuner (ops/autotune.py).  Everything
+        resolved above (hist_mode, wave_width, hist_hilo, wave_compact) is
+        the prior; under tpu_autotune=measure/force on the card decide()
+        probes the candidate cells on the uploaded bins and the winner
+        replaces the prior (and is cached on disk).  Under off (the
+        default) it only records the prior's decision.  The probes'
+        kernel launches are counted apart (``autotune_launches``), and
+        every launch counter is as it was before them."""
+        from . import autotune as at
+        from .fused_iter import COUNTERS, _counts, _set_counts
+        bucket = at.ShapeBucket(int(ncols), int(bin_pad(nbins)),
+                                int(self.num_leaves),
+                                at.row_bucket(self.train_data.num_data))
+        prior = at.Cell(self.hist_mode, int(self.wave_width),
+                        bool(self.hist_hilo), self.wave_compact, fused=False)
+        pins = at.Pins(
+            # explicit user choices and quality gates, never tuned
+            kernel=_val(config, "tpu_histogram_mode") != "auto",
+            width=(int(config.tpu_wave_width) > 0
+                   or (_order_sensitive(config)
+                       and self.wave_order != "exact")),
+            precision=_val(config, "tpu_hist_precision") != "auto",
+            compact="tpu_wave_compact" in config.raw,
+            fused=_val(config, "tpu_fused_iter") != "auto")
+        eligible = (self.growth == "wave" and not self.sparse
+                    and self.hist_mode in at.WAVE_ONLY_MODES)
+        before = _counts()
+        dec = at.decide(config, bucket, prior, pins, eligible,
+                        probe=self._make_autotune_probe() if eligible
+                        else None, device=self.device)
+        self.autotune_launches = {
+            k.__name__ + ("" if form is None else "_" + form): a - b
+            for (k, form), a, b in zip(COUNTERS, _counts(), before)
+            if a != b}
+        _set_counts(before, [0] * len(before))
+        self.autotune, self.autotune_shape, self.autotune_pins = (dec, bucket,
+                                                                 pins)
+        self.autotune_mode, self.autotune_source = dec.mode, dec.source
+        self._pending_events.extend(dec.events)
+        # the measured staged-vs-fused verdict of this shape bucket; the
+        # booster's tpu_fused_iter=auto resolution reads it
+        # (models/gbdt.py _resolve_fused_iter)
+        self.fused_autotune = bool(dec.cell.fused)
+        if dec.cell != prior:
+            self.hist_mode = dec.cell.hist_mode
+            self.wave_width = int(dec.cell.wave_width)
+            self.hist_hilo = bool(dec.cell.hist_hilo)
+            self.wave_compact = bool(dec.cell.compact)
+
+    def _make_autotune_probe(self):
+        """Probe factory for ops/autotune.py: builds a candidate cell's
+        wave grower on the uploaded bins (the learner's statics, the
+        cell's kernel, width, precision and compaction) with the JAX
+        package's synthetic L2 gradients (score - t against a target t
+        from -1 to 1 over the rows, hessian 0.25, so splits have gain),
+        and returns a run closure that grows one tree from a zero score
+        and updates the score, waiting through obs/timers.fence.  A
+        staged cell's run is the staged chain: gradients, the grower's
+        waves with their host reads, B2, with the host glue between
+        them.  A fused cell's run is ops/fused_iter.py's graph replays;
+        its first, untimed run is the eager warm-up and the captures, and
+        its ``close`` frees the graphs' pools (under the capture lock)."""
+        from ..obs.timers import fence
+        from .fused_iter import FusedIteration
+        from .predict import update_score_from_partition
+        n = self.train_data.num_data
+        dev = self.device
+        target = torch.linspace(-1.0, 1.0, n, dtype=torch.float32,
+                                device=dev)
+        hess = torch.full((n,), 0.25, dtype=torch.float32, device=dev)
+        scale = 0.1
+
+        def grad(score):
+            return score - target, hess
+
+        def probe(cell):
+            kw = self._wave_kw(cell)
+            score = torch.zeros(n, dtype=torch.float32, device=dev)
+            if cell.fused:
+                fused = FusedIteration(
+                    self, grad, n, grower=WaveGrower(
+                        self.X, self.meta, self.bundle_arrays, **kw))
+
+                def run():
+                    score.zero_()
+                    fused.run(score, None, self._full_mask, scale)
+                    fence(score)
+                run.close = fused.release
+                return run
+
+            def run():
+                score.zero_()
+                g, h = grad(score)
+                tree, leaf_id, _ = grow_tree(
+                    self.X, g, h, self._ones, self._full_mask, self.meta,
+                    self.bundle_arrays, **kw)
+                update_score_from_partition(score, leaf_id, tree.leaf_value,
+                                            scale, out=score)
+                fence(score)
+            return run
+
+        return probe
+
+    # -------------------------------------------------------- observability
+    def set_observer(self, obs) -> None:
+        self._obs = obs
+        if self._pending_events and obs.enabled:
+            # construction-time events, now that the run header exists
+            for ev, fields in self._pending_events:
+                obs.event(ev, **fields)
+            del self._pending_events[:]
+
+    def obs_info(self) -> dict:
+        """Static run-header context: the engines and knobs this learner
+        resolved to (the 'auto' params after resolution)."""
+        return {
+            "learner": type(self).__name__,
+            "growth": self.growth,
+            "hist_mode": self.hist_mode,
+            "wave_width": int(self.wave_width),
+            "wave_order": self.wave_order,
+            "hist_hilo": bool(self.hist_hilo),
+            "wave_compact": bool(self.wave_compact),
+            "autotune_mode": self.autotune_mode,
+            "autotune_source": self.autotune_source,
+            "fused": bool(self.fused_autotune),
+            "packed_cols": int(self.packed_cols),
+            "num_leaves": int(self.num_leaves),
+            "num_bins": int(self.num_bins),
+            "dtype": "float32",
+            "cache_hists": bool(self.cache_hists),
+        }
 
     def sample_feature_mask(self):
         f = self.train_data.num_features
@@ -434,10 +520,18 @@ class SerialTreeLearner:
                     params=self.params, max_depth=self.config.max_depth,
                     group_bins=self.group_bins, cache_hists=self.cache_hists)
 
-    def _wave_kw(self) -> dict:
-        return dict(wave_width=self.wave_width, hist_mode=self.hist_mode,
+    def _wave_kw(self, cell=None) -> dict:
+        """The wave grower's arguments: this learner's, or an autotune
+        cell's kernel, width and precision on this learner's statics."""
+        if cell is None:
+            width, mode, hilo = (self.wave_width, self.hist_mode,
+                                 self.hist_hilo)
+        else:
+            width, mode, hilo = (int(cell.wave_width), cell.hist_mode,
+                                 bool(cell.hist_hilo))
+        return dict(wave_width=width, hist_mode=mode,
                     wave_order=self.wave_order,
-                    packed_cols=self.packed_cols, hilo=self.hist_hilo,
+                    packed_cols=self.packed_cols, hilo=hilo,
                     **self._grow_kw())
 
     def wave_grower(self) -> WaveGrower:
@@ -459,10 +553,12 @@ class SerialTreeLearner:
         args = (self.X, grad.to(torch.float32), hess.to(torch.float32),
                 row_mult.to(torch.float32), self.sample_feature_mask(),
                 self.meta, self.bundle_arrays)
+        t0 = self._obs.entry_start()
         if self.growth == "exact":
             tree, leaf_id, stats = grow_tree_exact(*args, **self._grow_kw())
         else:
             tree, leaf_id, stats = grow_tree(*args, **self._wave_kw())
+        self._obs.entry_end("tree_grow", t0, (tree, leaf_id))
         self.last_stats = stats
         return tree, leaf_id, stats
 
@@ -494,10 +590,14 @@ def materialize_tree(host_tree: dict, train_data: TrainingData,
     tree.leaf_value[:nl] = h["leaf_value"][:nl]
     tree.leaf_count[:nl] = h["leaf_count"][:nl]
     tree.leaf_depth[:nl] = h["leaf_depth"][:nl]
+    tree.second_gain[:ni] = h["second_gain"][:ni]
     for i in range(ni):
         inner_f = int(h["split_feature"][i])
         mapper = train_data.feature_bin_mapper(inner_f)
         tree.split_feature[i] = train_data.real_feature_index(inner_f)
+        second = int(h["second_feature"][i])
+        tree.second_feature[i] = (train_data.real_feature_index(second)
+                                  if second >= 0 else -1)
         tree.threshold[i] = avoid_inf(
             mapper.bin_to_value(int(h["threshold_bin"][i])))
         dbz = int(h["default_bin_for_zero"][i])

@@ -2,18 +2,17 @@
 (python-package plotting.py:1-428): plot_importance, plot_metric,
 create_tree_digraph, plot_tree and plot_importance_history.
 
-An importance history comes from a list (``Booster.importance_history()``
-results, or telemetry event dicts) or from a Booster, which has no
-telemetry in the port and so falls back to the snapshot plot.  Reading an
-obs timeline file needs the JAX package's ``obs/query.py``, which the
-port does not have yet (ROADMAP A12): a path raises."""
+An importance history comes from an obs timeline file (obs/query.py), a
+list (``Booster.importance_history()`` results, or telemetry event
+dicts) or a Booster trained with ``obs_importance_every``; a Booster
+without importance events falls back to the snapshot plot."""
 from __future__ import annotations
 
 import numpy as np
 
 from .basic import Booster
+from .obs.model import importance_history
 from .sklearn import LGBMModel
-from .utils.log import LightGBMError
 
 
 def _check_not_tuple_of_2_elements(obj, obj_name="obj"):
@@ -29,38 +28,15 @@ def _to_booster(booster):
     raise TypeError("booster must be Booster or LGBMModel.")
 
 
-def importance_history(events, importance_type: str = "split") -> list:
-    """``importance`` events -> ``[{"it", "importance": {feature: value}}]``
-    of the last run in the events (the JAX package's obs/model.py)."""
-    if importance_type not in ("split", "gain"):
-        raise ValueError("importance_type must be 'split' or 'gain', got %r"
-                         % (importance_type,))
-    start = 0
-    for i, ev in enumerate(events):
-        if ev.get("ev") == "run_header":
-            start = i
-    out = []
-    for ev in events[start:]:
-        if ev.get("ev") != "importance":
-            continue
-        feats = ev.get("features") or []
-        vals = ev.get(importance_type) or []
-        out.append({"it": int(ev.get("it", -1)),
-                    "importance": {int(f): float(v)
-                                   for f, v in zip(feats, vals)}})
-    return out
-
-
 def _importance_history_from(source, importance_type):
-    """The importance trajectory of a source: an importance_history()
-    result, a list of telemetry event dicts, or a Booster/LGBMModel (its
-    importance_history(); empty, so None: the snapshot plot).  None means
-    'not a history source'.  An obs timeline path raises: reading one is
-    the JAX package's obs/query.py, not in the port yet (ROADMAP A12)."""
+    """The importance trajectory of a source: an obs timeline path, an
+    importance_history() result, a list of telemetry event dicts, or a
+    Booster/LGBMModel (its importance_history(); None when empty: the
+    snapshot plot).  None means 'not a history source'."""
     if isinstance(source, str):
-        raise LightGBMError("reading an obs timeline file (%s) needs "
-                            "obs/query.py, which is not in "
-                            "lightgbm_tpu_torch yet (ROADMAP A12)" % source)
+        from .obs.query import last_run, load_timeline
+        return importance_history(last_run(load_timeline(source)),
+                                  importance_type)
     if isinstance(source, (list, tuple)):
         src = list(source)
         if src and isinstance(src[0], dict) and "importance" in src[0]:
@@ -141,10 +117,11 @@ def plot_importance_history(source, importance_type="gain", ax=None,
                             figsize=None, grid=True, **kwargs):
     """Per-feature importance trajectories over training iterations.
 
-    ``source``: a telemetry event list or an ``importance_history()``
-    result; a Booster, which has no importance events in the port,
-    raises as an empty source does.  One line per feature, top
-    ``max_num_features`` by final importance."""
+    ``source``: an obs timeline path, a telemetry event list, an
+    ``importance_history()`` result, or a Booster trained with
+    ``obs_importance_every``; a source without importance events raises.
+    One line per feature, top ``max_num_features`` by final
+    importance."""
     try:
         import matplotlib.pyplot as plt
     except ImportError:

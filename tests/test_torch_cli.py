@@ -357,11 +357,12 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu(work):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["obs", "summary", "x"], "ROADMAP: observability"),
+    (["obs", "roofline", "x"], "ROADMAP: observability"),
     (["lint"], "static analysis"),
-    (["task=train", "data=binary.train", "tpu_profile_dir=prof"],
-     "tpu_profile_dir"),
-    (["task=train", "data=binary.train", "obs_events_path=ev.jsonl"],
+    # one torch.profiler at a time: the whole-run trace and the window
+    (["task=train", "data=binary.train", "tpu_profile_dir=prof",
+      "obs_trace_iters=0:1", "obs_trace_dir=tr"], "tpu_profile_dir"),
+    (["task=train", "data=binary.train", "obs_events_path=."],
      "obs_events_path"),
     (["task=train", "data=binary.train", "use_two_round_loading=true"],
      "out-of-core"),

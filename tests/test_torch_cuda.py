@@ -1861,3 +1861,110 @@ def test_compact_training_equals_the_full_pass_on_the_card(dev, mode, more):
                          [fn.launches - a for fn, a in zip(counters, n0)]))
         assert runs[1] == runs[0]
         assert sum(runs[0][1]) > 0
+
+
+# ------------------------------------------------ the autotuner's probes
+def _autotune_case(tmp_path, **more):
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(20000, 12))
+    y = (X[:, 0] + 0.5 * X[:, 1] + 0.3 * rng.normal(size=20000) > 0)
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "verbose": -1, "tpu_growth": "wave", "tpu_autotune": "measure",
+         "tpu_autotune_cache": str(tmp_path / "cache.json"), **more}
+    return p, X, y.astype(float)
+
+
+def test_autotune_probes_every_cell_on_the_card(dev, tmp_path):
+    """measure on the card probes every enumerated cell (staged and
+    fused, both kernels, both precisions, three widths) with real
+    launches, counted apart: every launch counter is as before the
+    probes, each probe run waits once through obs/timers.fence, and the
+    fused cell's graphs are freed."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.obs import timers
+    from lightgbm_tpu_torch.ops import autotune as at
+    from lightgbm_tpu_torch.ops import fused_iter
+
+    p, X, y = _autotune_case(tmp_path)
+    ds = lgb.Dataset(X, label=y, params=p).construct()
+    counts, f0 = fused_iter._counts(), timers.fence_count()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    b = lgb.Booster(p, ds, device="cuda")
+    lrn = b._gbdt.learner
+    dec = lrn.autotune
+    want = at.enumerate_cells(at.Cell.from_dict(dec.events[-1][1]["prior"]),
+                              lrn.autotune_shape, lrn.autotune_pins)
+    assert dec.source == "measured"
+    assert [c for c, _ in dec.probes] == want and len(want) == at.MAX_CELLS
+    assert {c.fused for c in want} == {True, False}
+    assert all(s > 0 for _, s in dec.probes)
+    assert timers.fence_count() - f0 == len(want) * (
+        1 + int(lrn.config.tpu_autotune_waves))
+    assert fused_iter._counts() == counts
+    assert lrn.autotune_launches["wave_partition_hist"] > 0
+    assert lrn.autotune_launches["wave_histogram"] > 0
+    assert lrn.autotune_launches["score_update"] > 0
+    assert lrn.autotune_launches["wave_partition_hist_bf16"] > 0
+    # the probes' growers and graphs are gone: what stays is the
+    # booster's upload and its scores
+    del dec
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    x_bytes = lrn.X.numel() * lrn.X.element_size()
+    assert torch.cuda.memory_allocated() - before < 4 * x_bytes + (8 << 20)
+
+
+def test_autotune_measured_winner_trains_the_pinned_text(dev, tmp_path):
+    """The measured winner's run, a cache hit under prior, and a run with
+    the winner pinned train one model text."""
+    import lightgbm_tpu_torch as lgb
+
+    p, X, y = _autotune_case(tmp_path)
+    texts = []
+    for mode in ("measure", "prior"):
+        b = lgb.train(dict(p, tpu_autotune=mode), lgb.Dataset(X, label=y),
+                      3, device="cuda")
+        texts.append(b.model_to_string())
+        cell = b._gbdt.learner.autotune.cell
+    assert b._gbdt.learner.autotune_source == "cache"
+    pinned = dict(p, tpu_autotune="off", tpu_histogram_mode=cell.hist_mode,
+                  tpu_wave_width=cell.wave_width,
+                  tpu_hist_precision="hilo" if cell.hist_hilo else "bf16",
+                  tpu_wave_compact=cell.compact,
+                  tpu_fused_iter="on" if cell.fused else "off")
+    texts.append(lgb.train(pinned, lgb.Dataset(X, label=y), 3,
+                           device="cuda").model_to_string())
+    assert texts[0] == texts[1] == texts[2]
+
+
+def test_fence_audit_and_trace_window_on_the_card(dev, tmp_path):
+    """A NULL-observer run issues no fence; obs_timing=iter one an
+    iteration; an obs_trace_iters window writes a Chrome trace naming
+    the port's kernels."""
+    import json
+    import os
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.obs import timers
+
+    p, X, y = _autotune_case(tmp_path, tpu_autotune="off")
+    f0 = timers.fence_count()
+    lgb.train(p, lgb.Dataset(X, label=y), 3, device="cuda")
+    assert timers.fence_count() == f0
+    lgb.train(dict(p, obs_timing="iter",
+                   obs_events_path=str(tmp_path / "ev.jsonl")),
+              lgb.Dataset(X, label=y), 3, device="cuda")
+    assert timers.fence_count() - f0 == 3
+    trace_dir = tmp_path / "trace"
+    lgb.train(dict(p, tpu_fused_iter="off", obs_trace_iters="1:2",
+                   obs_trace_dir=str(trace_dir)),
+              lgb.Dataset(X, label=y), 3, device="cuda")
+    (name,) = os.listdir(trace_dir)
+    with open(trace_dir / name) as f:
+        names = " ".join(str(e.get("name", ""))
+                         for e in json.load(f)["traceEvents"])
+    for kernel in ("list_kernel", "hist_kernel", "score_update_kernel"):
+        assert kernel in names

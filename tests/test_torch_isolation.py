@@ -25,6 +25,14 @@ def test_import_leaves_no_jax_modules():
             "import lightgbm_tpu_torch.ops.leaf_hist\n"
             "import lightgbm_tpu_torch.serve, lightgbm_tpu_torch.predictor\n"
             "import lightgbm_tpu_torch.obs.serve\n"
+            "import lightgbm_tpu_torch.obs.query, lightgbm_tpu_torch.obs.model\n"
+            "import lightgbm_tpu_torch.obs.dataquality\n"
+            "import lightgbm_tpu_torch.obs.roofline\n"
+            "import lightgbm_tpu_torch.obs.health\n"
+            "import lightgbm_tpu_torch.obs.profile\n"
+            "import lightgbm_tpu_torch.obs.memory\n"
+            "import lightgbm_tpu_torch.obs.timers\n"
+            "import lightgbm_tpu_torch.ops.autotune\n"
             "import lightgbm_tpu_torch.cli, lightgbm_tpu_torch.native\n"
             "import lightgbm_tpu_torch.pmml, lightgbm_tpu_torch.convert_model\n"
             "import lightgbm_tpu_torch.models.checkpoint\n"
@@ -63,6 +71,19 @@ def _sources():
                                           REPO / "tests" / "torch_cpu_lgb.py"]
     assert len(files) > 10
     return files
+
+
+def test_sources_cover_the_autotuner_and_the_observer():
+    """The scans below reach the autotuner and every module of the run
+    observer, each of which is the port's own copy (no module of the JAX
+    package's obs/ or ops/autotune.py is imported, even those that import
+    no jax)."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"ops/autotune.py", "obs/events.py", "obs/timers.py",
+            "obs/memory.py", "obs/profile.py", "obs/health.py",
+            "obs/model.py", "obs/dataquality.py", "obs/roofline.py",
+            "obs/query.py", "obs/__init__.py"} <= names
 
 
 def test_sources_cover_every_subpackage():

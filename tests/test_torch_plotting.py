@@ -8,10 +8,11 @@ backend; graphviz's ``.source``, which needs no ``dot``).
   one), with ``show_info``;
 * ``plot_metric`` draws each dataset's curve of an evals_result dict and
   of a fitted estimator;
-* importance histories: a list works as in the JAX package; a Booster,
-  without telemetry in the port, falls back to the snapshot plot; an obs
-  timeline path raises and names ROADMAP A12.
+* importance histories: a list works as in the JAX package; a Booster
+  trained without importance tracking falls back to the snapshot plot;
+  an obs timeline path is read by the port's obs/query.py.
 """
+import json
 import os
 
 import matplotlib
@@ -99,7 +100,7 @@ def test_plot_metric(trained):
         lgbt.plot_metric([1, 2])
 
 
-def test_importance_history_sources(trained):
+def test_importance_history_sources(trained, tmp_path):
     bst, _ = trained
     hist = [{"it": 0, "importance": {0: 1.0, 2: 3.0}},
             {"it": 1, "importance": {0: 2.0, 2: 5.0, 4: 1.0}}]
@@ -114,11 +115,18 @@ def test_importance_history_sources(trained):
     assert thist(events, "gain") == jhist(events, "gain")
     ax = lgbt.plot_importance(events)
     assert [p.get_width() for p in ax.patches] == [2.0, 7.0]
-    # a Booster has no telemetry in the port: the snapshot plot
+    # a Booster trained without importance tracking: the snapshot plot
     assert bst.importance_history() == []
     ax = lgbt.plot_importance(bst)
     assert len(ax.patches) > 0
     with pytest.raises(ValueError, match="No importance events"):
         lgbt.plot_importance_history(bst)
-    with pytest.raises(lgbt.LightGBMError, match="ROADMAP A12"):
-        lgbt.plot_importance_history("timeline.jsonl")
+    # an obs timeline file, read by the port's obs/query.py
+    path = tmp_path / "timeline.jsonl"
+    path.write_text("".join(json.dumps(dict(e, t=0.0, run="r")) + "\n"
+                            for e in events[1:]))
+    ax = lgbt.plot_importance_history(str(path), importance_type="gain")
+    assert [ln.get_label() for ln in ax.get_lines()] == ["Column_4",
+                                                         "Column_1"]
+    with pytest.raises(FileNotFoundError):
+        lgbt.plot_importance_history(str(tmp_path / "missing.jsonl"))
