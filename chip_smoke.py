@@ -15,9 +15,11 @@ softmax over 7 classes on the flagship features, early stopping, and
 the Bosch-shaped sparse recipe through ``lightgbm_tpu_torch.train``,
 then predicts in bulk and serves requests through ``Booster.serve``,
 then drives the file path (``python -m lightgbm_tpu_torch`` on TSV
-files, the host library) and the Python API (the python-guide examples,
+files, the host library), the Python API (the python-guide examples,
 lambdarank at MSLR-WEB10K's shape, custom objectives, pickling, cv and
-the scikit-learn estimators), and checks what comes out.
+the scikit-learn estimators), out-of-core ingest (two-round streaming, a
+pre-binned directory paged to the card) and the LGBM_* C ABI, and checks
+what comes out.
 Any failed check ends the run with a non-zero exit code and no result
 line.  Without a CUDA device it exits non-zero at once.
 
@@ -192,6 +194,24 @@ Phases, in order:
     torch.profiler trace names the port's kernels.  In 9b, measure on the
     ranking Dataset (ROADMAP A4.8: B1 a candidate past the ct bound), its
     winner printed.
+12. Out-of-core ingest and the C API (phase 12: streamed_phase after
+    phase 4d, on its rows; 12b inside phase 8, on its files; abi_phase
+    after phase 8, on phase 7's rows).  12a: phase 4's training rows
+    saved as a float32 .npy, streamed in two rounds (from_streamed, the
+    default workers, forked after the card has trained) to a binned
+    directory whose mappers and bins must be phase 4's Dataset's; train
+    fused on the directory through the paged upload (its shards, bytes,
+    seconds and GB/s printed), whose model text must be phase 4's fused
+    text to the byte; in fresh processes, the peak-RSS growth of
+    construction and of the paged upload against bounds fixed before
+    the first card run (OOC_BUILD_RSS_BOUND; a shard, its staging and
+    OOC_UPLOAD_SLACK).  12b: phase 8's TSV through the CLI with
+    use_two_round_loading=true: phase 8's model text and predict file.
+    12c: phase 7's 200,000 x 28 rows through the port's C ABI library
+    (g++, ctypes.CDLL): DatasetCreateFromMat, BoosterCreate, 5 x
+    UpdateOneIter, SaveModelToString, PredictForMat, and a dataset of
+    DatasetPushRows: train's model text, predictions within 2e-6 of
+    Booster.predict.
  With --profile, every training run of phases 4 and 5 and the
  multiclass run profile one more iteration: its wall time, device busy
  share, device operations and graph replays; phase 7 profiles one
@@ -219,6 +239,8 @@ SPARSE_DENSITY = 0.01
 RATES = {}
 # the last iteration's valid AUC of each dense training run, by its label
 AUCS = {}
+# phase 12b's and 12c's launches (file_phase and abi_phase), by path
+PHASE12 = {}
 # phase 7: bench_serve.py's full shape (:41-51, :168-170, :224-228)
 SERVE_ROWS = 200_000
 SERVE_ROUNDS = 100
@@ -2191,6 +2213,44 @@ def file_phase(lgb, kernels, card, data):
              "8d: the predict file differs from Booster.predict (%%.9g)")
         base_auc = auc(yf, booster.predict(Xf, raw_score=True))
 
+        # ---- 12b. the same files through the CLI in two rounds
+        # (use_two_round_loading: io/streaming.py, the train file and the
+        # valid file on the train file's mappers): 8b's model text and
+        # 8d's predict file
+        from lightgbm_tpu_torch.io import streaming
+        model2 = os.path.join(work, "two_round.txt")
+        out2 = os.path.join(work, "pred2.txt")
+        streams = [0]
+        real_stream = streaming.stream_load
+
+        def stream(*a, **k):
+            streams[0] += 1
+            return real_stream(*a, **k)
+
+        streaming.stream_load = stream
+        try:
+            t0 = time.perf_counter()
+            _, got = counted(kernels, lambda: cli.main(
+                ["task=train", "data=" + tr, "valid_data=" + va,
+                 "num_iterations=5", "use_two_round_loading=true",
+                 "output_model=" + model2] + cli_args(params)))
+            two_s = time.perf_counter() - t0
+        finally:
+            streaming.stream_load = real_stream
+        PHASE12["cli-two-round"] = got
+        need(streams[0] == 2, "12b: %d files streamed, not the train and "
+             "valid files" % streams[0])
+        need(open(model2).read() == text, "12b: the two-round CLI run's "
+             "model text differs from 8b's")
+        cli.main(["task=predict", "input_model=" + model2, "data=" + va,
+                  "output_result=" + out2, "verbose=-1"])
+        need(open(out2).read() == open(out).read(),
+             "12b: the two-round model's predict file differs from 8d's")
+        say("12b on %s: the CLI with use_two_round_loading=true (train and "
+            "valid TSV streamed) took %.3f s in-process; model text equal "
+            "to 8b's and predict file equal to 8d's; launches %s"
+            % (card, two_s, got))
+
         # ---- 8e. continued training through the CLI
         seen = {}
         real_reset = GBDT.reset_training_data
@@ -3053,6 +3113,331 @@ def forms_phase(args, lgb, kernels, card, data, main_text):
 
 
 # ------------------------------------------------------------- phase 11
+# ------------------------------------------------------------- phase 12
+# the out-of-core bounds, fixed before the first card run (PERF.md PR 15)
+# and held in fresh processes: construction's peak-RSS growth while the
+# flagship's 2M x 28 float32 .npy (224 MB; its float64 rows would be 448
+# MB) streams to a binned directory, and the paged upload's, which may
+# hold a mapped shard, its staging (pinned, which the caching host
+# allocator rounds up to a power of two) and this slack
+OOC_BUILD_RSS_BOUND = 192 << 20
+OOC_UPLOAD_SLACK = 8 << 20
+
+# the resident-set watcher of the fresh processes: the growth is the
+# larger of the sampled peak of VmRSS (every millisecond) above its value
+# at the start and the growth of the process's high-water mark
+RSS_WATCH = r"""
+import resource, threading, time
+
+
+def rss_now():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * resource.getpagesize()
+
+
+def hwm():
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+class Watch:
+    def __enter__(self):
+        self.base, self.hwm0, self.stop = rss_now(), hwm(), False
+        self.peak = self.base
+        self.thread = threading.Thread(target=self.run, daemon=True)
+        self.thread.start()
+        return self
+
+    def run(self):
+        while not self.stop:
+            self.peak = max(self.peak, rss_now())
+            time.sleep(0.001)
+
+    def __exit__(self, *exc):
+        self.stop = True
+        self.thread.join()
+        self.peak = max(self.peak, rss_now())
+        self.growth = max(self.peak - self.base, hwm() - self.hwm0, 0)
+"""
+
+RSS_BUILD = RSS_WATCH + r"""
+import json, sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from lightgbm_tpu_torch.io.dataset import TrainingData
+from lightgbm_tpu_torch.utils.config import Config
+npy, labels, out = sys.argv[2], sys.argv[3], sys.argv[4]
+params = json.loads(sys.argv[5])
+y = np.load(labels)
+# lazy allocations (the pool's plumbing) on a tiny build first
+TrainingData.from_streamed(np.zeros((64, 4)), np.zeros(64),
+                           Config(dict(params)))
+with Watch() as w:
+    td = TrainingData.from_streamed(npy, y, Config(dict(params)),
+                                    out_dir=out)
+assert td._binned is None
+print(json.dumps({"growth": w.growth, "stats": td.construct_stats}))
+"""
+
+RSS_UPLOAD = RSS_WATCH + r"""
+import json, sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import torch
+from lightgbm_tpu_torch import _build
+from lightgbm_tpu_torch.io.dataset import TrainingData
+from lightgbm_tpu_torch.ops.learner import paged_device_matrix
+from lightgbm_tpu_torch.utils.config import Config
+big, small = sys.argv[2], sys.argv[3]
+dev = torch.device("cuda")
+# the CUDA context, the kernel library, the pinned allocator and the
+# copies' kernels warm on a tiny directory first
+_build.library()
+TrainingData.from_streamed(np.random.default_rng(0).normal(size=(4096, 28)),
+                           np.zeros(4096), Config({"max_bin": 63}),
+                           out_dir=small, chunk_rows=1000)
+tiny = TrainingData.from_binned(small)
+for row_major in (False, True):
+    paged_device_matrix(tiny, row_major, dev)
+torch.cuda.synchronize()
+td = TrainingData.from_binned(big)
+reader = td._binned_reader
+with Watch() as w:
+    X, stats = paged_device_matrix(td, False, dev)
+    torch.cuda.synchronize()
+shard = max(int(s["rows"]) for s in reader.shards) * reader.num_columns
+assert td._binned is None and X.shape == (reader.num_columns, td.num_data)
+print(json.dumps({"growth": w.growth, "shard": shard, "stats": stats}))
+"""
+
+
+def fresh_process(script, *argv):
+    """Runs script with argv in a fresh interpreter; its last line's
+    JSON."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run([sys.executable, "-c", script, here]
+                         + [str(a) for a in argv], capture_output=True,
+                         text=True, timeout=600)
+    need(run.returncode == 0, "phase 12 subprocess failed:\n%s"
+         % run.stderr[-4000:])
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def streamed_phase(args, lgb, kernels, card, data, main_text):
+    """12a (after phase 4, on its rows): the training rows saved as a
+    float32 .npy stream in two rounds (from_streamed, the default
+    workers: the fork pool of a process that already trains on the card)
+    to a binned directory; its mappers and bins must be phase 4's
+    Dataset's; lightgbm_tpu_torch.train fused on the directory (the paged
+    upload) must write phase 4's fused model text to the byte.  In fresh
+    processes, construction's and the paged upload's peak-RSS growth
+    against the bounds above.  Returns the run's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+    from lightgbm_tpu_torch.io.dataset import TrainingData
+    from lightgbm_tpu_torch.utils.config import Config
+    t_phase = time.perf_counter()
+    ds, _, Xt_raw, Xv, yv = data
+    td = ds._handle
+    params = flagship_params()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ooc_")
+    try:
+        npy, labels = os.path.join(work, "x.npy"), os.path.join(work,
+                                                               "y.npy")
+        out = os.path.join(work, "binned")
+        t0 = time.perf_counter()
+        np.save(npy, Xt_raw)
+        np.save(labels, td.metadata.label.astype(np.float64))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st = TrainingData.from_streamed(
+            npy, td.metadata.label, Config(dict(params)),
+            out_dir=out).construct_stats
+        stream_s = time.perf_counter() - t0
+        opened = TrainingData.from_binned(out)
+        need([m.to_dict() for m in opened.bin_mappers]
+             == [m.to_dict() for m in td.bin_mappers]
+             and opened.used_feature_idx == td.used_feature_idx
+             and opened.bundle is None,
+             "12a: the streamed mappers are not phase 4's Dataset's")
+        need(np.array_equal(opened.binned, td.binned),
+             "12a: the streamed bins are not phase 4's Dataset's")
+        del opened
+        say("12a on %s: x.npy (%d x %d float32) saved in %.3f s; "
+            "from_streamed to a binned directory in %.3f s: sketch %.3f s, "
+            "bin %.3f s, write %.3f s, %d workers, %d chunks; mappers and "
+            "bins equal phase 4's Dataset's"
+            % (card, Xt_raw.shape[0], Xt_raw.shape[1], save_s, stream_s,
+               st["sketch_s"], st["bin_s"], st["write_s"], st["workers"],
+               st["chunks"]))
+
+        # the valid rows binned anew on the directory's mappers (a
+        # constructed Dataset keeps its reference)
+        streamed = lgb.Dataset(out).construct()
+        valid = streamed.create_valid(Xv, label=yv).construct()
+        booster, launches, stats = dense_train_phase(
+            "streamed", params, (streamed, valid, Xt_raw, Xv, yv), lgb,
+            kernels, card, args)
+        need(fused_of(booster) is not None, "12a: did not run fused")
+        check_wave_launches("streamed", booster, launches, stats,
+                            "wave_partition_hist")
+        up = booster._gbdt.learner.upload_stats
+        need(up["paged"] and booster._gbdt.train_data._binned is None,
+             "12a: the directory did not take the paged upload")
+        need(booster.model_to_string() == main_text,
+             "12a: the directory's model text differs from phase 4's")
+        say("12a paged upload on %s: %d shards, %d bytes in %.4f s (%.3f "
+            "GB/s, staging %d bytes); model text equal to phase 4's fused "
+            "text to the byte; launches %s"
+            % (card, up["shards"], up["bytes"], up["seconds"],
+               up["bytes"] / up["seconds"] / 1e9, up["staging_bytes"],
+               launches))
+        del booster
+        torch.cuda.empty_cache()
+
+        build = fresh_process(RSS_BUILD, npy, labels,
+                              os.path.join(work, "again"),
+                              json.dumps(params))
+        upload = fresh_process(RSS_UPLOAD, out, os.path.join(work, "tiny"))
+        stage = upload["stats"]["staging_bytes"]
+        upload_bound = (upload["shard"] + (1 << (stage - 1).bit_length())
+                        + OOC_UPLOAD_SLACK)
+        say("12a peak-RSS growth on %s, fresh processes: construction %d "
+            "bytes (bound %d; %d workers, sketch %.3f s, bin %.3f s, write "
+            "%.3f s), paged upload %d bytes (bound %d: a shard of %d, its "
+            "staging of %d and %d slack; %.4f s, %.3f GB/s)"
+            % (card, build["growth"], OOC_BUILD_RSS_BOUND,
+               build["stats"]["workers"], build["stats"]["sketch_s"],
+               build["stats"]["bin_s"], build["stats"]["write_s"],
+               upload["growth"], upload_bound, upload["shard"], stage,
+               OOC_UPLOAD_SLACK, upload["stats"]["seconds"],
+               upload["stats"]["bytes"] / upload["stats"]["seconds"] / 1e9))
+        need(build["growth"] <= OOC_BUILD_RSS_BOUND,
+             "12a: construction's peak RSS grew %d bytes > %d"
+             % (build["growth"], OOC_BUILD_RSS_BOUND))
+        need(upload["growth"] <= upload_bound,
+             "12a: the paged upload's peak RSS grew %d bytes > %d"
+             % (upload["growth"], upload_bound))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say("phase 12a (streamed and paged): %.1f s"
+        % (time.perf_counter() - t_phase))
+    return launches
+
+
+def abi_phase(lgb, kernels, card, data):
+    """12c (on phase 7's 200,000 x 28 training rows): the port's C ABI
+    library, built by g++ from csrc/host/capi_bridge.cpp and loaded with
+    ctypes.CDLL, trains on the card: DatasetCreateFromMat, BoosterCreate,
+    5 x UpdateOneIter, SaveModelToString, PredictForMat; and a dataset
+    streamed in by DatasetCreateByReference + DatasetPushRows (two
+    chunks, the later one first) trains too.  Both model texts must equal
+    lightgbm_tpu_torch.train's, the predictions within 2e-6 of
+    Booster.predict.  The launches of the ABI's runs are counted."""
+    import ctypes
+
+    import torch
+    from lightgbm_tpu_torch import c_api, capi_lib
+    t_phase = time.perf_counter()
+    X, y = data[0], data[1]
+    X = np.ascontiguousarray(X, dtype=np.float64)
+    y32 = np.ascontiguousarray(y, dtype=np.float32)
+    n, f = X.shape
+    params = flagship_params()
+    t0 = time.perf_counter()
+    lib = capi_lib.load()
+    load_s = time.perf_counter() - t0
+    pstr = " ".join("%s=%s" % kv for kv in params.items()).encode()
+
+    def ok(rc, what):
+        need(rc == 0, "12c: %s: %s" % (what, lib.LGBM_GetLastError()
+                                        .decode()))
+
+    def train_abi(ds):
+        bst, fin = ctypes.c_void_p(), ctypes.c_int()
+        ok(lib.LGBM_DatasetSetField(ds, b"label",
+                                    y32.ctypes.data_as(ctypes.c_void_p),
+                                    ctypes.c_int64(n), 0), "SetField")
+        ok(lib.LGBM_BoosterCreate(ds, pstr, ctypes.byref(bst)),
+           "BoosterCreate")
+        need(c_api._get(bst.value).device.type == "cuda",
+             "12c: the ABI's booster is not on the card")
+        for _ in range(ITERS):
+            ok(lib.LGBM_BoosterUpdateOneIter(bst, ctypes.byref(fin)),
+               "UpdateOneIter")
+        torch.cuda.synchronize()
+        slen = ctypes.c_int64()
+        ok(lib.LGBM_BoosterSaveModelToString(
+            bst, -1, ctypes.c_int64(0), ctypes.byref(slen), None),
+            "SaveModelToString")
+        buf = ctypes.create_string_buffer(slen.value)
+        ok(lib.LGBM_BoosterSaveModelToString(
+            bst, -1, slen, ctypes.byref(slen), buf), "SaveModelToString")
+        return bst, buf.value.decode()
+
+    def from_mat():
+        ds = ctypes.c_void_p()
+        ok(lib.LGBM_DatasetCreateFromMat(
+            X.ctypes.data_as(ctypes.c_void_p), 1, n, f, 1, pstr, None,
+            ctypes.byref(ds)), "DatasetCreateFromMat")
+        return ds, train_abi(ds)
+
+    t0 = time.perf_counter()
+    (ds, (bst, text)), launches = counted(kernels, from_mat)
+    abi_s = time.perf_counter() - t0
+    want = lgb.train(params, lgb.Dataset(X, label=y), ITERS,
+                     verbose_eval=False)
+    need(text == want.model_to_string(),
+         "12c: the C ABI's model text differs from lightgbm_tpu_torch."
+         "train's")
+    out_len = ctypes.c_int64()
+    preds = np.zeros(n, np.float64)
+    t0 = time.perf_counter()
+    ok(lib.LGBM_BoosterPredictForMat(
+        bst, X.ctypes.data_as(ctypes.c_void_p), 1, n, f, 1, 0, -1, b"",
+        ctypes.byref(out_len),
+        preds.ctypes.data_as(ctypes.POINTER(ctypes.c_double))),
+        "PredictForMat")
+    pred_s = time.perf_counter() - t0
+    err = float(np.abs(preds - want.predict(X)).max())
+    need(out_len.value == n and err <= 2e-6,
+         "12c: PredictForMat differs from Booster.predict by %g" % err)
+
+    def pushed():
+        ds2 = ctypes.c_void_p()
+        ok(lib.LGBM_DatasetCreateByReference(ds, ctypes.c_int64(n),
+                                             ctypes.byref(ds2)),
+           "DatasetCreateByReference")
+        half = n // 2
+        for lo, hi in ((half, n), (0, half)):
+            part = np.ascontiguousarray(X[lo:hi])
+            ok(lib.LGBM_DatasetPushRows(
+                ds2, part.ctypes.data_as(ctypes.c_void_p), 1, hi - lo, f,
+                lo), "DatasetPushRows")
+        return ds2, train_abi(ds2)
+
+    (ds2, (bst2, text2)), launches2 = counted(kernels, pushed)
+    need(text2 == text, "12c: the pushed rows' model text differs")
+    for h in (bst, bst2):
+        ok(lib.LGBM_BoosterFree(h), "BoosterFree")
+    for h in (ds, ds2):
+        ok(lib.LGBM_DatasetFree(h), "DatasetFree")
+    total = {k: launches[k] + launches2[k] for k in launches}
+    need(total["wave_partition_hist"] > 0 and total["wave_histogram"] > 0
+         and total["score_update"] == 2 * ITERS,
+         "12c: a kernel of the path did not launch: %s" % total)
+    say("12c on %s: the C ABI library (%s, built in %.1f s, loaded in "
+        "%.1f s) trained %d x %d rows on the card: create + %d iterations "
+        "%.3f s, PredictForMat %.3f s (max |diff| %.3g against "
+        "Booster.predict); model text equal to train's, and again from "
+        "DatasetPushRows; launches %s"
+        % (card, capi_lib.lib_path().name, capi_lib.build_seconds, load_s,
+           n, f, ITERS, abi_s, pred_s, err, total))
+    say("phase 12c (the C ABI): %.1f s" % (time.perf_counter() - t_phase))
+    return total
+
+
 def describe_cell(c):
     """A cell dict as obs explain names it."""
     return "%s W=%s %s%s%s" % (
@@ -3474,6 +3859,11 @@ def main():
     del booster
     torch.cuda.empty_cache()
 
+    # ---- 12a. out-of-core: phase 4's rows streamed to a binned
+    # directory and trained fused through the paged upload
+    streamed_launches = streamed_phase(args, lgb, kernels, card, data,
+                                       main_text)
+
     # ---- 11. the measured autotuner and the run observer on the
     # flagship's Dataset (autotune_phase)
     probe_launches = autotune_phase(args, lgb, kernels, card, data)
@@ -3534,8 +3924,12 @@ def main():
     # ---- 7. prediction and serving at bench_serve.py's full shape
     serve_data = serve_phase(args, lgb, card, dev)
 
-    # ---- 8. the file path: the CLI and the host library on phase 7's data
+    # ---- 8. the file path: the CLI and the host library on phase 7's
+    # data (and 12b, its files through the CLI in two rounds)
     file_launches = file_phase(lgb, kernels, card, serve_data)
+
+    # ---- 12c. the C ABI library on phase 7's rows
+    PHASE12["c-abi"] = abi_phase(lgb, kernels, card, serve_data)
 
     # ---- 9. the Python API on the card: the python-guide examples,
     # ranking at MSLR-WEB10K's shape, pickling, cv and the estimators
@@ -3569,7 +3963,9 @@ def main():
              + list(mode_launches.items())
              + [("sparse", sparse_launches), ("files", file_launches),
                 ("fobj", fobj_launches), ("ranking", rank_launches),
-                ("api", api_launches), ("autotune-probes", probe_launches)])
+                ("api", api_launches), ("autotune-probes", probe_launches),
+                ("streamed", streamed_launches)]
+             + list(PHASE12.items()))
     sources = {"wave_partition_hist": ("lightgbm_tpu_torch/csrc/wave_fused.cu",
                                        "lightgbm_tpu/ops/pallas_wave.py:508"),
                "score_update": ("lightgbm_tpu_torch/csrc/score_update.cu",

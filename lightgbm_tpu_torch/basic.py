@@ -1,6 +1,7 @@
 """Python-facing Dataset and Booster: the JAX package's ``basic.py``
 surface for in-memory matrices (dense, scipy sparse or pandas), text
-files and binary dataset files.
+files, binary dataset files and pre-binned directories
+(``save_binned``/``from_binned``, io/binned_format.py).
 
 Semantics kept: lazy Dataset construction, validation sets binned with the
 training set's mappers, the metadata setters and getters (label, weight,
@@ -174,10 +175,13 @@ class Dataset:
         """data: a dense matrix, a pandas DataFrame (kept until
         construct(): its category columns are coded against the
         reference's categories), a scipy sparse matrix, or the path of a
-        binary dataset file (save_binary) or of a CSV/TSV/LibSVM text
-        file (io/dataset.py TrainingData.from_file: the label column,
-        header, ignored and categorical columns from ``params``, and the
-        .weight/.query/.init side files).  group: query sizes."""
+        pre-binned directory (save_binned), of a binary dataset file
+        (save_binary) or of a CSV/TSV/LibSVM text file (io/dataset.py
+        TrainingData.from_file: the label column, header, ignored and
+        categorical columns from ``params``, the .weight/.query/.init
+        side files, and two-round streaming of large files or under
+        ``use_two_round_loading``/``ooc_binned_dir``).  group: query
+        sizes."""
         if isinstance(data, str) or _is_pandas_frame(data):
             self.data = data
         else:
@@ -209,11 +213,17 @@ class Dataset:
         if self.reference is not None:
             ref_td = self.reference.construct()._handle
         if isinstance(self.data, str):
-            if TrainingData.can_load_binary(self.data):
+            if TrainingData.can_load_binned(self.data):
+                self._handle = TrainingData.from_binned(self.data)
+            elif TrainingData.can_load_binary(self.data):
                 self._handle = TrainingData.load_binary(self.data)
             else:
+                # the rows are kept for continued training; a file that
+                # streams keeps them only when a model is to continue
+                keep = (self._predictor is not None
+                        or not TrainingData.wants_stream(self.data, cfg))
                 self._handle = TrainingData.from_file(
-                    self.data, cfg, reference=ref_td, keep_raw=True)
+                    self.data, cfg, reference=ref_td, keep_raw=keep)
             md = self._handle.metadata
             if self.label is not None:
                 md.set_label(self.label)
@@ -429,6 +439,25 @@ class Dataset:
         self.construct()._handle.save_binary(filename)
         return self
 
+    def save_binned(self, path: str) -> "Dataset":
+        """Write the binned dataset as a pre-binned directory
+        (io/binned_format.py), which ``Dataset(path)``,
+        ``Dataset.from_binned`` and ``train(params, path)`` (of either
+        package) open without binning."""
+        self.construct()._handle.save_binned(path)
+        return self
+
+    @classmethod
+    def from_binned(cls, path: str, params=None,
+                    row_range=None) -> "Dataset":
+        """Open a pre-binned directory (save_binned, or the streaming
+        ``ooc_binned_dir`` ingest).  Its shards stay mmap-backed and
+        page to the card when a booster trains on it; ``row_range``
+        opens only those rows (TrainingData.from_binned)."""
+        ds = cls(path, params=params)
+        ds._handle = TrainingData.from_binned(path, row_range=row_range)
+        return ds
+
 
 class _InnerPredictor:
     """Continued-training score provider (JAX basic.py:446-473): a model
@@ -574,6 +603,22 @@ class Booster:
         raw = g.train_score if data_idx == 0 else g.valid_score_host(
             data_idx - 1)
         return raw[0] if raw.shape[0] == 1 else raw.reshape(-1)
+
+    def set_train_data(self, train_set: Dataset) -> "Booster":
+        """Swap the training dataset and keep the model
+        (LGBM_BoosterResetTrainingData, GBDT::ResetTrainingData,
+        gbdt.cpp:64-208): the scores on the new rows start from the
+        trees' f64 host sums on its raw rows."""
+        cfg = Config(dict(self.params))
+        handle = train_set._update_params(self.params).construct()._handle
+        objective = create_objective(cfg.objective, cfg)
+        if objective is not None:
+            objective.init(handle.metadata, handle.num_data, self.device)
+        self._gbdt.reset_training_data(cfg, handle, objective,
+                                       self._make_metrics(cfg, handle))
+        self._train_set = train_set
+        self._cfg = cfg
+        return self
 
     def rollback_one_iter(self) -> "Booster":
         """Undo the most recent boosting iteration."""

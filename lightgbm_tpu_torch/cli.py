@@ -8,7 +8,10 @@ train (data, valid data, training metric, ``input_model`` continued
 training, ``checkpoint_dir``/``checkpoint_every`` resume, snapshots every
 ``snapshot_freq`` iterations, ``output_model``), predict (``%.9g``,
 tab-separated for K > 1) and convert_model (C++ if-else source, like
-GBDT::ModelToIfElse).
+GBDT::ModelToIfElse).  ``data`` may be a pre-binned directory; a dense
+text file streams in two rounds under ``use_two_round_loading`` or
+``ooc_binned_dir`` (which also writes the directory), and whenever it is
+larger than ``io/dataset.py STREAM_BYTES`` (io/streaming.py).
 
 Training and prediction run on the GPU unless ``device_type=cpu`` (or
 ``device=cpu``) asks for the CPU; without a card any other value raises.
@@ -117,6 +120,9 @@ def run_train(cfg: Config, device) -> None:
     # continuing scores the loaded trees on the raw rows
     train_td = TrainingData.from_file(cfg.data, cfg,
                                       keep_raw=base is not None)
+    if train_td._binned_reader is not None:
+        Log.info("Train data is pre-binned (mmap-backed, %d shard(s), no "
+                 "binning)", train_td._binned_reader.num_shards)
     objective = create_objective(cfg.objective, cfg)
     if objective is not None:
         objective.init(train_td.metadata, train_td.num_data, device)

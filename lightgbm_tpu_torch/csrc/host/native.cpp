@@ -4,8 +4,7 @@
 // FindBin, src/io/parser.cpp format autodetect, tree.h GetLeaf),
 // structured for batch use from Python rather than the reference's
 // per-object classes.  The package's own copy of the JAX package's
-// cpp/src/native.cpp, built on first use by native.py (host compiler,
-// no nvcc).
+// native.cpp, built on first use by native.py (host compiler, no nvcc).
 
 #include "lgbm_tpu_native.h"
 

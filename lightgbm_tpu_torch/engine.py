@@ -16,6 +16,7 @@ import numpy as np
 from . import callback as callback_mod
 from .basic import Booster, Dataset, _InnerPredictor
 from .callback import CallbackEnv
+from .io.dataset import TrainingData
 from .models import checkpoint as ckpt_mod
 from .utils.config import key_alias_transform
 from .utils.log import LightGBMError, Log
@@ -31,6 +32,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
           keep_training_booster=False, callbacks=None,
           device="cuda") -> Booster:
     """Train a booster on ``device`` (python-package engine.py:17-203).
+    ``train_set``: a Dataset, or the path of a pre-binned directory
+    (``Dataset.save_binned``, ``ooc_binned_dir``).
 
     evals_result: a dict filled as ``{valid_name: {metric: [values]}}``.
     verbose_eval: log the evaluation every iteration (True) or every
@@ -66,6 +69,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
         early_stopping_rounds = int(params.pop("early_stopping_round"))
     if fobj is not None:
         params["objective"] = "none"
+    if isinstance(train_set, str) and TrainingData.can_load_binned(train_set):
+        # a pre-binned directory (io/binned_format.py) opens as it is:
+        # its binning was paid when it was written
+        train_set = Dataset.from_binned(train_set)
     if not isinstance(train_set, Dataset):
         raise TypeError("Training only accepts Dataset object")
 

@@ -4,7 +4,12 @@ Parity target: src/io/dataset.cpp + src/io/dataset_loader.cpp, the
 in-memory ``from_matrix``, sparse ``from_csc`` and text-file
 ``from_file`` paths of the JAX package's ``io/dataset.py``, its row
 ``subset`` and its binary dataset files (``save_binary``/``load_binary``,
-the same format: a file either package writes loads in the other).
+the same format: a file either package writes loads in the other), and
+its out-of-core paths: two-round streaming (``from_streamed``, and
+``from_file`` for large files or under ``use_two_round_loading`` /
+``ooc_binned_dir``; io/streaming.py) and the pre-binned directory
+format (``save_binned``/``from_binned``; io/binned_format.py), whose
+shards stay mmap-backed until something asks for the whole matrix.
 The binned matrix is a dense row-major ``(num_data, num_used_columns)``
 uint8/uint16 array; with EFB its columns are feature groups
 (io/bundle.py).  Binned bytes, mapper dicts and the bundle layout are
@@ -18,7 +23,6 @@ from __future__ import annotations
 
 import json
 import os
-import sys
 import time
 import zipfile
 from typing import Dict, List, Optional, Sequence
@@ -33,14 +37,11 @@ from .bundle import (BundleLayout, bin_rows_grouped, build_layout,
                      find_feature_groups)
 from .metadata import Metadata
 from . import parser as _parser
+from .streaming import _peak_rss_bytes
 
-
-def _peak_rss_bytes() -> int:
-    """The process's high-water RSS (ru_maxrss: KB on Linux, bytes on
-    macOS)."""
-    import resource
-    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-    return int(peak) * (1 if sys.platform == "darwin" else 1024)
+# dense text files larger than this stream in two rounds
+# (io/streaming.py) instead of being parsed whole, as in the JAX package
+STREAM_BYTES = 256 << 20
 
 
 class TrainingData:
@@ -56,7 +57,12 @@ class TrainingData:
         self.used_feature_idx: List[int] = []
         # real -> inner (-1 if unused), used_feature_map_ in the reference
         self.real_to_inner: Dict[int, int] = {}
-        self.binned: Optional[np.ndarray] = None     # (N, F_used or G)
+        # the mmap-backed shard reader (io/binned_format.py) of a dataset
+        # opened from, or streamed to, a pre-binned directory; the binned
+        # property builds the matrix from it only on demand, so the
+        # learner's paged upload never makes the whole host matrix
+        self._binned_reader = None
+        self._binned: Optional[np.ndarray] = None    # (N, F_used or G)
         self.metadata: Metadata = Metadata()
         self.feature_names: List[str] = []
         self.max_bin: int = 255
@@ -76,6 +82,23 @@ class TrainingData:
         # the construction's accounting for the dataset_construct event
         # (rows, phase seconds, peak RSS)
         self.construct_stats: Optional[dict] = None
+
+    @property
+    def binned(self) -> Optional[np.ndarray]:
+        """The (N, F_used or G) bin matrix; built from the directory's
+        shards on first access when the dataset is reader-backed."""
+        if self._binned is None and self._binned_reader is not None:
+            r = self._binned_reader
+            lo, hi = r.row_range
+            if (lo, hi) == (0, r.num_data):
+                self._binned = r.matrix()
+            else:
+                self._binned = np.ascontiguousarray(r.rows(lo, hi))
+        return self._binned
+
+    @binned.setter
+    def binned(self, value) -> None:
+        self._binned = value
 
     # ------------------------------------------------------------- construct
     @classmethod
@@ -117,21 +140,21 @@ class TrainingData:
         """CSV/TSV/space/LibSVM text file (dataset_loader.cpp:159-216):
         parse, label column, header names as feature names, ignored and
         categorical columns, then the ``.weight``/``.query``/``.init``
-        side files.
+        side files.  A pre-binned directory opens as it is
+        (``from_binned``).
 
-        The file is parsed in memory, whatever its size.  The JAX package
-        streams dense files over 256 MB, and files under
-        ``use_two_round_loading`` or ``ooc_binned_dir``, in two rounds
-        (out-of-core loading, not in the port yet: those options and
-        pre-binned directories raise)."""
+        A dense file streams in two rounds (io/streaming.py, the
+        reference's two-round loading) when ``wants_stream`` says so and
+        ``keep_raw`` does not ask for its float64 rows; under
+        ``ooc_binned_dir`` a training file (no ``reference``) is also
+        persisted there as a binned directory, which then backs the
+        dataset.  Otherwise the file is parsed in memory."""
         config = config or Config()
+        if cls.can_load_binned(filename):
+            return cls.from_binned(filename)
         if os.path.isdir(filename):
-            Log.fatal("%s is a directory: pre-binned datasets are "
-                      "out-of-core loading, not in lightgbm_tpu_torch yet",
-                      filename)
-        if config.use_two_round_loading or config.ooc_binned_dir:
-            Log.fatal("use_two_round_loading and ooc_binned_dir are "
-                      "out-of-core loading, not in lightgbm_tpu_torch yet")
+            Log.fatal("%s is a directory but not a pre-binned dataset "
+                      "directory (no header.json)", filename)
         label_idx = 0
         header_names: Optional[List[str]] = None
         if config.has_header:
@@ -153,6 +176,19 @@ class TrainingData:
         categorical = _resolve_columns(config.categorical_column,
                                        feature_names)
         ignore = _resolve_columns(config.ignore_column, feature_names)
+        from . import streaming as _streaming
+        if cls.wants_stream(filename, config) and not keep_raw:
+            if _streaming.stream_supported(filename, config.has_header):
+                return cls._stream_file(filename, config, reference,
+                                        label_idx, feature_names,
+                                        categorical, ignore)
+            if config.ooc_binned_dir and reference is None:
+                # the JAX package parses it in memory and writes no
+                # directory; asked for one, the port says why it cannot
+                Log.fatal("ooc_binned_dir: out-of-core streaming reads "
+                          "dense CSV/TSV/space files, and %s is LibSVM "
+                          "(Dataset(...).save_binned writes its bins)",
+                          filename)
         parsed = _parser.parse_file(filename, has_header=config.has_header,
                                     label_idx=label_idx)
         data = parsed.features
@@ -167,6 +203,56 @@ class TrainingData:
                                feature_names=feature_names,
                                reference=reference, keep_raw=keep_raw)
         self.metadata.init_from_file(filename)
+        return self
+
+    @staticmethod
+    def wants_stream(filename: str, config: Config) -> bool:
+        """Whether from_file streams a dense file: asked for
+        (``use_two_round_loading``, ``ooc_binned_dir``) or larger than
+        ``STREAM_BYTES`` (JAX io/dataset.py:374-421)."""
+        try:
+            size = os.path.getsize(filename)
+        except OSError:
+            size = 0
+        return bool(config.use_two_round_loading or config.ooc_binned_dir
+                    or size > STREAM_BYTES)
+
+    @classmethod
+    def _stream_file(cls, filename: str, config: Config, reference,
+                     label_idx: int, feature_names, categorical: set,
+                     ignore: set) -> "TrainingData":
+        """from_file's two-round path: the column count of ``ignore``
+        comes from the first data lines only, and the side files load
+        after the stream (and refresh a persisted directory's
+        metadata)."""
+        from . import binned_format as _bf
+        from . import streaming as _streaming
+        out_dir = (str(config.ooc_binned_dir)
+                   if config.ooc_binned_dir and reference is None else None)
+        self = cls()
+        self.feature_names = feature_names or []
+        keep = None
+        if ignore:
+            with open(filename, "r") as fh:
+                if config.has_header:
+                    fh.readline()
+                head = [fh.readline() for _ in range(2)]
+            probe = _parser.parse_text("".join(head), has_header=False,
+                                       label_idx=label_idx)
+            keep = [i for i in range(probe.features.shape[1])
+                    if i not in ignore]
+            if feature_names:
+                self.feature_names = [feature_names[i] for i in keep]
+            categorical = {keep.index(c) for c in categorical if c in keep}
+        _streaming.stream_load(self, filename, config, label_idx,
+                               categorical, keep, reference=reference,
+                               out_dir=out_dir)
+        if not self.feature_names:
+            self.feature_names = ["Column_%d" % i
+                                  for i in range(self.num_total_features)]
+        self.metadata.init_from_file(filename)
+        if out_dir:
+            _bf.update_metadata(out_dir, self.metadata)
         return self
 
     @classmethod
@@ -211,18 +297,23 @@ class TrainingData:
         return self
 
     def _note_construct_stats(self, source: str, sketch_s: float,
-                              bin_s: float, rss_before: int) -> None:
-        """The dataset_construct event's fields (the JAX package's): one
-        in-memory pass (chunks 1, workers 1, no shard write)."""
+                              bin_s: float, rss_before: int,
+                              chunks: int = 1, write_s: float = 0.0,
+                              workers: int = 1, **extra) -> None:
+        """The dataset_construct event's fields (the JAX package's); an
+        in-memory pass is one chunk, one worker and no shard write."""
         peak = _peak_rss_bytes()
         self.construct_stats = {
-            "source": source, "rows": int(self.num_data), "chunks": 1,
+            "source": source, "rows": int(self.num_data),
+            "chunks": int(chunks),
             "sketch_s": round(float(sketch_s), 6),
-            "bin_s": round(float(bin_s), 6), "write_s": 0.0,
-            "construct_s": round(float(sketch_s + bin_s), 6),
+            "bin_s": round(float(bin_s), 6),
+            "write_s": round(float(write_s), 6),
+            "construct_s": round(float(sketch_s + bin_s + write_s), 6),
             "peak_rss_bytes": int(peak),
             "rss_growth_bytes": max(int(peak) - int(rss_before), 0),
-            "workers": 1}
+            "workers": int(workers)}
+        self.construct_stats.update(extra)
 
     def _profile_quality(self, get_col, sample_size: int, categorical: set,
                          config: Config) -> None:
@@ -259,7 +350,13 @@ class TrainingData:
 
     def _construct_mappers(self, data: np.ndarray, config: Config,
                            categorical: set) -> None:
-        sample = data[self._sample_rows(config)]
+        self._fit_mappers_from_sample(data[self._sample_rows(config)],
+                                      config, categorical)
+
+    def _fit_mappers_from_sample(self, sample: np.ndarray, config: Config,
+                                 categorical: set) -> None:
+        """Mappers, EFB and the quality profile from the drawn binning
+        sample (the shared tail of one-round and two-round loading)."""
         total_sample = len(sample)
         # filter_cnt formula from dataset_loader.cpp:491-492
         filter_cnt = int(config.min_data_in_leaf * total_sample
@@ -559,6 +656,128 @@ class TrainingData:
                 self.metadata.query_boundaries = z["query_boundaries"]
             if "init_score" in z:
                 self.metadata.init_score = z["init_score"]
+        return self
+
+    # ------------------------------------------- the pre-binned directory
+    @classmethod
+    def from_streamed(cls, data, label=None, config: Optional[Config] = None,
+                      weights=None, group=None, init_score=None,
+                      categorical_feature: Sequence[int] = (),
+                      feature_names: Optional[List[str]] = None,
+                      reference: Optional["TrainingData"] = None,
+                      out_dir: Optional[str] = None,
+                      chunk_rows: Optional[int] = None) -> "TrainingData":
+        """Two-round construction (io/streaming.py) from an in-memory
+        matrix, a ``.npy`` path or SparseColumns; text files stream
+        through from_file.  ``out_dir`` persists the result as a binned
+        directory, which then backs the dataset (no host matrix)."""
+        from . import binned_format as _bf
+        from . import streaming as _streaming
+        config = config or Config()
+        chunk = int(chunk_rows or config.ooc_chunk_rows
+                    or _streaming.DEFAULT_CHUNK_ROWS)
+        if hasattr(data, "colptr"):          # SparseColumns
+            source = _streaming.SparseSource(data, label=label,
+                                             chunk_rows=chunk)
+        else:
+            source = _streaming.MatrixSource(data, label=label,
+                                             chunk_rows=chunk)
+        self = cls()
+        self.feature_names = list(feature_names) if feature_names else []
+        cats = set(int(c) for c in categorical_feature)
+        _streaming.stream_construct(self, source, config, categorical=cats,
+                                    reference=reference, out_dir=out_dir)
+        if not self.feature_names:
+            self.feature_names = ["Column_%d" % i
+                                  for i in range(self.num_total_features)]
+        self._set_metadata(None, weights, init_score, group)
+        if out_dir and (weights is not None or group is not None
+                        or init_score is not None):
+            _bf.update_metadata(out_dir, self.metadata)
+        return self
+
+    def save_binned(self, path: str) -> None:
+        """Persist as a pre-binned directory (io/binned_format.py), which
+        later runs open without binning."""
+        from . import binned_format as _bf
+        _bf.save_training_data(self, path)
+
+    @classmethod
+    def can_load_binned(cls, path) -> bool:
+        """Whether ``path`` is a pre-binned dataset directory."""
+        from . import binned_format as _bf
+        return _bf.is_binned_dir(path)
+
+    @classmethod
+    def from_binned(cls, path: str, verify=None, row_range=None,
+                    comm=None) -> "TrainingData":
+        """Open a pre-binned dataset directory, written by either
+        package.  The shards stay mmap-backed: no bin matrix exists
+        until something asks for ``binned``, and the learner pages the
+        shards to the card (ops/learner.py ``paged_device_matrix``).
+
+        ``row_range=(start, stop)`` opens only those rows (their shards
+        and metadata rows).  ``verify``: None runs a full CRC scan for a
+        whole-dataset open and lazy per-shard CRCs for a row range;
+        True, "lazy" or False force a mode.  A ``comm`` of more than one
+        rank (the JAX package's rank-sharded open) is distributed
+        training, which the port does not have yet (ROADMAP A10)."""
+        from . import binned_format as _bf
+        if comm is not None and int(getattr(comm, "size", 1)) > 1:
+            Log.fatal("from_binned(comm=) with %d ranks is distributed "
+                      "training, not in lightgbm_tpu_torch yet (ROADMAP "
+                      "A10)", int(comm.size))
+        rss0, t0 = _peak_rss_bytes(), time.time()
+        sharded = row_range is not None
+        if verify is None:
+            verify = "lazy" if sharded else True
+        reader = _bf.BinnedReader(path, verify=verify, row_range=row_range)
+        h = reader.header
+        self = cls()
+        lo, hi = reader.row_range
+        self.num_data = hi - lo
+        self.num_total_features = int(h["num_total_features"])
+        self.used_feature_idx = list(h["used_feature_idx"])
+        self.real_to_inner = {r: i for i, r in
+                              enumerate(self.used_feature_idx)}
+        self.feature_names = list(h["feature_names"])
+        self.max_bin = int(h["max_bin"])
+        self.bin_mappers = [None if d is None else BinMapper.from_dict(d)
+                            for d in h["bin_mappers"]]
+        self._build_feature_arrays()
+        groups = h.get("bundle_groups")
+        if groups is not None:
+            self.bundle = build_layout(groups, self.num_bin_arr,
+                                       self.default_bin_arr)
+        self._binned_reader = reader
+        self.metadata = Metadata(self.num_data)
+
+        def rows_of(arr):
+            """The opened rows of a per-row sidecar, copied out of its
+            memmap."""
+            if arr is None or not sharded or arr.shape[0] == hi - lo:
+                return None if arr is None else np.asarray(arr)
+            return np.array(arr[lo:hi])
+
+        self.metadata.label = rows_of(
+            reader.load_metadata_array("label", mmap=sharded))
+        self.metadata.weights = rows_of(
+            reader.load_metadata_array("weights", mmap=sharded))
+        qb = reader.load_metadata_array("query_boundaries")
+        if qb is not None and sharded:
+            Log.fatal("from_binned(row_range=) does not open ranking "
+                      "(query_boundaries) datasets: query groups straddle "
+                      "the cut")
+        self.metadata.query_boundaries = qb
+        self.metadata._update_query_weights()
+        self.metadata.init_score = rows_of(
+            reader.load_metadata_array("init_score", mmap=sharded))
+        # sketch_s and bin_s stay 0: opening the format bins nothing
+        extra = {"load_s": round(time.time() - t0, 6)}
+        if sharded:
+            extra["row_range"] = [int(lo), int(hi)]
+        self._note_construct_stats("binned", 0.0, 0.0, rss0,
+                                   chunks=reader.num_shards, **extra)
         return self
 
 

@@ -359,18 +359,26 @@ class GBDT:
         """Put a base model's trees in front of this booster's (the
         JAX package's continued training through ``train(init_model=)``):
         the scores already start from the base model's raw scores (the
-        init score), so only the trees join.  Copies, so a later in-place
+        init score), so only the trees join."""
+        self.merge_from(base)
+        self.boost_from_average_used = base.boost_from_average_used
+
+    def merge_from(self, other: "GBDT") -> None:
+        """GBDT::MergeFrom (gbdt.h:47-62): the other model's trees come
+        first, as if this booster had continued from it, and they become
+        the init iterations.  The scores are not replayed (the reference
+        merges only the model arrays).  Copies, so a later in-place
         change (rollback's shrink) of one booster leaves the other as it
         was."""
         import copy
-        base._materialize()
-        trees = [copy.deepcopy(t) for t in base.models]
+        self._materialize()
+        other._materialize()
+        trees = [copy.deepcopy(t) for t in other.models]
         self.models = trees + self.models
         self._models_dev = [None] * len(trees) + self._models_dev
         self._models_shrink = [1.0] * len(trees) + self._models_shrink
         self.num_init_iteration = (len(trees)
-                                   // max(base.num_tree_per_iteration, 1))
-        self.boost_from_average_used = base.boost_from_average_used
+                                   // max(other.num_tree_per_iteration, 1))
         self._models_changed()
 
     def _add_constant(self, value: float, tid=None) -> None:

@@ -45,8 +45,15 @@ lib_path: Optional[Path] = None
 _c_double_p = ctypes.POINTER(ctypes.c_double)
 
 
+def _cpp_sources():
+    """The library's C++ sources: every .cpp of SOURCE_DIR but the C ABI
+    bridge, which capi_lib.py builds into a library of its own."""
+    return sorted(p for p in SOURCE_DIR.glob("*.cpp")
+                  if p.name != "capi_bridge.cpp")
+
+
 def _sources():
-    return sorted(SOURCE_DIR.glob("*.cpp")) + sorted(SOURCE_DIR.glob("*.h"))
+    return _cpp_sources() + sorted(SOURCE_DIR.glob("*.h"))
 
 
 def _compiler() -> Optional[str]:
@@ -77,7 +84,7 @@ def build() -> Optional[Path]:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name("%s.%d" % (so.name, os.getpid()))
-    srcs = [str(s) for s in sorted(SOURCE_DIR.glob("*.cpp"))]
+    srcs = [str(s) for s in _cpp_sources()]
     logs = []
     for extra in ([OPENMP_FLAG], []):
         cmd = [cxx, *CXX_FLAGS, *extra, *srcs, "-o", str(tmp)]

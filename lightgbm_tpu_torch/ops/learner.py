@@ -6,7 +6,10 @@ The learner uploads the bin matrix once: transposed for the wave kernels
 B1/B3, row-major for ``tpu_histogram_mode=pallas`` (B4 under wave growth,
 B5 under exact growth), or, with ``tpu_sparse`` and ``tpu_sparse_kernel``,
 only the non-fill entries in the entry-chunk sparse store
-(ops/sparse_mxu.py).  Under wave growth on the dense matrix, where every
+(ops/sparse_mxu.py).  A dataset backed by a pre-binned directory
+(io/binned_format.py) pages its shards to the card one at a time
+(``paged_device_matrix``), so the host never holds the whole matrix.
+Under wave growth on the dense matrix, where every
 column has at most 16 bins (``max_bin <= 15``), ``tpu_bin_pack=auto`` (or
 ``true``) stores it 4-bit packed, two columns a byte (ops/pack.py), as
 the JAX package does; ``tpu_hist_precision=bf16`` selects the single
@@ -19,6 +22,8 @@ construction the measured autotuner (ops/autotune.py) records, and under
 learner runs; its events wait for the run observer (``set_observer``).
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -256,6 +261,59 @@ def resolve_wave_compact(config: Config, growth: str, hist_mode: str) -> bool:
     return False
 
 
+def paged_device_matrix(train_data: TrainingData, row_major: bool, device):
+    """The bin matrix of a reader-backed dataset, paged to ``device`` shard
+    by shard (JAX ops/learner.py ``paged_device_matrix``): X_t (G, N) for
+    the transposed dataflows, X (N, G) for ``pallas``.  Returns
+    ``(X, stats)``, or ``(None, None)`` when the dataset has no reader of
+    uint8 bins (the caller then uploads ``binned`` in one go).
+
+    X is allocated on the card once.  A shard is an F-order (rows, G)
+    memmap, so its ``.T`` is a C-contiguous (G, rows) block: each shard
+    is copied into one staging buffer (pinned on CUDA, the size of the
+    largest shard) in the layout of its destination, ``X[:, lo:hi]`` (a
+    2-D strided copy) or ``X[lo:hi]``, and the next shard waits for that
+    copy.  Host memory above the process's holds a mapped shard and the
+    staging buffer, never the matrix."""
+    reader = train_data._binned_reader
+    if (reader is None or reader.dtype != np.uint8
+            or reader.num_columns == 0):
+        return None, None
+    lo, hi = reader.row_range
+    n, g = hi - lo, reader.num_columns
+    if n == 0:
+        return None, None
+    t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    X = torch.empty((n, g) if row_major else (g, n), dtype=torch.uint8,
+                    device=device)
+    cap = max(min(int(reader.shards[i]["rows"]), n)
+              for i in reader.active_shards)
+    stage = torch.empty(cap * g, dtype=torch.uint8, pin_memory=cuda)
+    stage_np = stage.numpy()
+    copied = None          # the event of the last copy out of the stage
+    shards = 0
+    for off, view in reader.iter_rows():
+        rows = view.shape[0]
+        if copied is not None:
+            copied.synchronize()
+        shape = (rows, g) if row_major else (g, rows)
+        np.copyto(stage_np[:rows * g].reshape(shape),
+                  view if row_major else view.T)
+        dst = X[off:off + rows] if row_major else X[:, off:off + rows]
+        dst.copy_(stage[:rows * g].view(shape), non_blocking=cuda)
+        if cuda:
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(X.device))
+        shards += 1
+    if copied is not None:
+        copied.synchronize()
+    stats = {"paged": True, "shards": shards, "bytes": int(n * g),
+             "staging_bytes": int(cap * g),
+             "seconds": time.perf_counter() - t0}
+    return X, stats
+
+
 class SerialTreeLearner:
     def __init__(self, config: Config, train_data: TrainingData, device):
         self.sparse, self.growth = check_engine_params(config)
@@ -323,11 +381,18 @@ class SerialTreeLearner:
         self.wave_width = (resolve_wave_width(config, self.num_leaves,
                                               self.wave_order)
                            if self.growth == "wave" else 1)
-        binned = train_data.binned
-        if binned.shape[1] == 0:
-            binned = np.zeros((train_data.num_data, 1), np.uint8)
         self.sparse_device_bytes = 0
+        # how the bins reached the device (the paged upload's shards,
+        # bytes and seconds, or the one-shot upload's)
+        self.upload_stats = None
+        if not self.sparse and not self.packed_cols:
+            # a reader-backed dataset pages its shards to the card (the
+            # JAX package pages byte bins only; packed bins and the
+            # sparse store read train_data.binned)
+            self.X, self.upload_stats = paged_device_matrix(
+                train_data, mode == "pallas", device)
         if self.sparse:
+            binned = self._host_bins(train_data)
             # only the non-fill entries go to the device; a low-skew
             # store takes one wide chunk a column (auto_uniform)
             fill = (column_fill_bins(train_data.num_bin_arr,
@@ -336,7 +401,9 @@ class SerialTreeLearner:
                     if train_data.num_features else np.zeros(1, np.int64))
             self.X, self.sparse_device_bytes = build_chunked_store(
                 binned, fill, nbins, auto_uniform=True, device=device)
-        else:
+        elif self.upload_stats is None:
+            t0 = time.perf_counter()
+            binned = self._host_bins(train_data)
             if binned.dtype != np.uint8:
                 Log.fatal("lightgbm_tpu_torch needs uint8 bins, got %s",
                           binned.dtype)
@@ -346,6 +413,9 @@ class SerialTreeLearner:
             # for the 'pallas' kernels, else transposed (G, N)
             self.X = torch.as_tensor(np.ascontiguousarray(
                 binned if mode == "pallas" else binned.T), device=device)
+            self.upload_stats = {"paged": False, "shards": 1,
+                                 "bytes": int(binned.nbytes),
+                                 "seconds": time.perf_counter() - t0}
         self._ones = torch.ones(train_data.num_data, dtype=torch.float32,
                                 device=device)
         self._full_mask = torch.ones(max(train_data.num_features, 1),
@@ -504,6 +574,16 @@ class SerialTreeLearner:
         mask = np.zeros(f, dtype=bool)
         mask[idx] = True
         return torch.as_tensor(mask, device=self.device)
+
+    @staticmethod
+    def _host_bins(train_data: TrainingData) -> np.ndarray:
+        """The host bin matrix (built from a directory's shards if the
+        dataset is reader-backed); one zero column where no feature is
+        used."""
+        binned = train_data.binned
+        if binned.shape[1] == 0:
+            binned = np.zeros((train_data.num_data, 1), np.uint8)
+        return binned
 
     def row_major_bins(self):
         """(X, packed): the training bins as (N, G) rows for a traversal,

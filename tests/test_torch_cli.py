@@ -364,10 +364,15 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu(work):
       "obs_trace_iters=0:1", "obs_trace_dir=tr"], "tpu_profile_dir"),
     (["task=train", "data=binary.train", "obs_events_path=."],
      "obs_events_path"),
-    (["task=train", "data=binary.train", "use_two_round_loading=true"],
+    # two-round streaming reads dense text only: a directory asked for a
+    # LibSVM file cannot be written (the JAX package writes none)
+    (["task=train", "data=sparse.svm", "ooc_binned_dir=svm_binned"],
      "out-of-core"),
+    # a directory opens only as a pre-binned dataset
     (["task=train", "data=.", "device_type=cpu"], "directory")])
 def test_cli_refuses_what_the_port_lacks(work, argv, match):
+    with open("sparse.svm", "w") as f:
+        f.write("1 0:0.5 3:1.25\n0 1:2.0\n1 2:0.75 3:0.5\n")
     with pytest.raises(LightGBMError, match=match):
         tcli.main(argv + ["device_type=cpu"])
 

@@ -1968,3 +1968,105 @@ def test_fence_audit_and_trace_window_on_the_card(dev, tmp_path):
                          for e in json.load(f)["traceEvents"])
     for kernel in ("list_kernel", "hist_kernel", "score_update_kernel"):
         assert kernel in names
+
+
+def _binned_case(tmp_path, workers=1, n=20_000, f=12):
+    """A streamed binned directory of uneven shards (7,000 rows, the last
+    6,000) and its rows."""
+    from lightgbm_tpu_torch.io.dataset import TrainingData
+    from lightgbm_tpu_torch.utils.config import Config
+    rng = np.random.default_rng(21)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(np.float64)
+    out = str(tmp_path / "binned")
+    TrainingData.from_streamed(X, y, Config({"max_bin": 63, "verbose": -1,
+                                             "ooc_workers": workers}),
+                               out_dir=out, chunk_rows=7000)
+    return out, X, y
+
+
+@pytest.mark.parametrize("row_major", [False, True])
+def test_paged_upload_equals_the_one_shot_upload_on_the_card(dev, tmp_path,
+                                                             row_major):
+    """Shard by shard through the pinned stage into X_t[:, lo:hi] (a 2-D
+    strided copy) or X[lo:hi]: the one-shot upload's bytes."""
+    from lightgbm_tpu_torch.io.dataset import TrainingData
+    from lightgbm_tpu_torch.ops.learner import paged_device_matrix
+    out, _, _ = _binned_case(tmp_path)
+    td = TrainingData.from_binned(out)
+    X, stats = paged_device_matrix(td, row_major, dev)
+    assert td._binned is None and X.device.type == "cuda"
+    assert stats["shards"] == 3 and stats["staging_bytes"] == 7000 * 12
+    host = td.binned
+    want = torch.as_tensor(np.ascontiguousarray(host if row_major
+                                                else host.T), device=dev)
+    assert torch.equal(X, want)
+
+
+@pytest.mark.parametrize("mode", ["pallas_ct", "pallas_t", "pallas"])
+def test_streamed_directory_trains_on_the_card(dev, tmp_path, mode):
+    """The fork pool's two workers stream after the card is in use; the
+    directory trains fused through the paged upload, to the in-memory
+    Dataset's model text."""
+    import lightgbm_tpu_torch as lgb
+    torch.ones(4, device=dev).sum().item()       # CUDA is initialised
+    out, X, y = _binned_case(tmp_path, workers=2)
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "verbose": -1, "tpu_growth": "wave", "tpu_wave_width": 8,
+              "tpu_histogram_mode": mode}
+    want = lgb.train(params, lgb.Dataset(X, label=y), 3, device="cuda")
+    got = lgb.train(params, out, 3, device="cuda")
+    assert got._gbdt._fused_state[0] is not None
+    assert got._gbdt.learner.upload_stats["paged"]
+    assert got._gbdt.train_data._binned is None
+    assert got.model_to_string() == want.model_to_string()
+
+
+def test_c_abi_builds_and_trains_on_the_card(dev):
+    """The port's C ABI library builds on the card's host and trains on
+    the card by default: train's model text, and predictions within 2e-6
+    of Booster.predict."""
+    import ctypes
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import c_api, capi_lib
+    lib = capi_lib.load()
+    rng = np.random.default_rng(9)
+    n, f = 20_000, 10
+    X = np.ascontiguousarray(rng.normal(size=(n, f)))
+    y = (X[:, 0] - X[:, 2] > 0).astype(np.float32)
+    params = b"objective=binary num_leaves=31 max_bin=63 verbose=-1"
+
+    def ok(rc):
+        assert rc == 0, lib.LGBM_GetLastError().decode()
+
+    ds, bst, fin = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_int()
+    ok(lib.LGBM_DatasetCreateFromMat(
+        X.ctypes.data_as(ctypes.c_void_p), 1, n, f, 1, params, None,
+        ctypes.byref(ds)))
+    ok(lib.LGBM_DatasetSetField(ds, b"label",
+                                y.ctypes.data_as(ctypes.c_void_p),
+                                ctypes.c_int64(n), 0))
+    ok(lib.LGBM_BoosterCreate(ds, params, ctypes.byref(bst)))
+    assert c_api._get(bst.value).device.type == "cuda"
+    for _ in range(3):
+        ok(lib.LGBM_BoosterUpdateOneIter(bst, ctypes.byref(fin)))
+    slen = ctypes.c_int64()
+    ok(lib.LGBM_BoosterSaveModelToString(bst, -1, ctypes.c_int64(0),
+                                         ctypes.byref(slen), None))
+    buf = ctypes.create_string_buffer(slen.value)
+    ok(lib.LGBM_BoosterSaveModelToString(bst, -1, slen, ctypes.byref(slen),
+                                         buf))
+    want = lgb.train({"objective": "binary", "num_leaves": 31, "max_bin": 63,
+                      "verbose": -1}, lgb.Dataset(X, label=y), 3,
+                     device="cuda")
+    assert buf.value.decode() == want.model_to_string()
+    out_len = ctypes.c_int64()
+    preds = np.zeros(n, np.float64)
+    ok(lib.LGBM_BoosterPredictForMat(
+        bst, X.ctypes.data_as(ctypes.c_void_p), 1, n, f, 1, 0, -1, b"",
+        ctypes.byref(out_len),
+        preds.ctypes.data_as(ctypes.POINTER(ctypes.c_double))))
+    np.testing.assert_allclose(preds, want.predict(X), rtol=0, atol=2e-6)
+    ok(lib.LGBM_BoosterFree(bst))
+    ok(lib.LGBM_DatasetFree(ds))

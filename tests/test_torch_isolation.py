@@ -39,6 +39,9 @@ def test_import_leaves_no_jax_modules():
             "import lightgbm_tpu_torch.io.parser\n"
             "import lightgbm_tpu_torch.sklearn, lightgbm_tpu_torch.plotting\n"
             "import lightgbm_tpu_torch.compat\n"
+            "import lightgbm_tpu_torch.c_api, lightgbm_tpu_torch.capi_lib\n"
+            "import lightgbm_tpu_torch.io.streaming\n"
+            "import lightgbm_tpu_torch.io.binned_format\n"
             "from lightgbm_tpu_torch.engine import cv, CVBooster\n"
             "from lightgbm_tpu_torch.objectives import LambdarankNDCG\n"
             "from lightgbm_tpu_torch.metrics import NDCGMetric, MapMetric\n"
@@ -86,6 +89,27 @@ def test_sources_cover_the_autotuner_and_the_observer():
             "obs/query.py", "obs/__init__.py"} <= names
 
 
+def _host_sources():
+    """The port's host C++ sources, which it builds itself (native.py,
+    capi_lib.py)."""
+    return sorted((PORT / "csrc" / "host").glob("*.cpp"))
+
+
+def test_sources_cover_out_of_core_and_the_c_api():
+    """The scans below reach the out-of-core modules and the C API, each
+    the port's own copy, and the C ABI bridge's source (a C++ file the
+    port builds itself) imports the port's c_api, not the JAX
+    package's."""
+    import re
+    names = {p.relative_to(PORT).as_posix()
+             for p in _sources() + _host_sources() if PORT in p.parents}
+    assert {"io/streaming.py", "io/binned_format.py", "c_api.py",
+            "capi_lib.py", "csrc/host/capi_bridge.cpp"} <= names
+    bridge = (PORT / "csrc" / "host" / "capi_bridge.cpp").read_text()
+    assert re.findall(r'PyImport_ImportModule\("([^"]+)"\)', bridge) == [
+        "lightgbm_tpu_torch.c_api"]
+
+
 def test_sources_cover_every_subpackage():
     """The parametrised scan below reaches every subpackage of the port,
     the serving tier and its observability among them."""
@@ -110,7 +134,7 @@ def test_source_imports_no_jax(path):
     assert "__import__(\"jax" not in text
 
 
-@pytest.mark.parametrize("path", _sources(),
+@pytest.mark.parametrize("path", _sources() + _host_sources(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_names_no_jax_package_library(path):
     text = path.read_text()
