@@ -44,7 +44,8 @@ Phases, in order:
     magnitudes, so a cell may differ by at most 1e-5 x (sum of |w| over
     the cell) + 1e-5 x max|w|.
  3. Timing: each kernel's time a launch, the median of 5 runs of 20
-    back-to-back launches (3 for calls above 20 ms), each run between one
+    back-to-back launches (3 runs of 3 for calls above 5 ms: the plain
+    versions and the library calls), each run between one
     pair of CUDA events, beside the plain version, one PyTorch library
     call for the same function and the bound (bytes over 3.35 TB/s, f32
     adds over 67 TFLOP/s, whichever is larger: the published H100 SXM row
@@ -130,7 +131,8 @@ Phases, in order:
     subprocess on the card (5 iterations, model text equal to an
     in-process ``train`` on the same arrays, to the byte),
     ``Dataset.construct()`` through the host library and its Python
-    fallback (equal bins and bounds, both timed), ``task=predict`` on the
+    fallback on the first 50,000 rows (equal bins and bounds, both
+    timed), ``task=predict`` on the
     fresh rows through the device path (the file equal to
     ``Booster.predict`` printed with %.9g), ``input_model=`` plus 5
     rounds (10 trees, scores from the base model's f64 host trees, valid
@@ -212,6 +214,23 @@ Phases, in order:
     UpdateOneIter, SaveModelToString, PredictForMat, and a dataset of
     DatasetPushRows: train's model text, predictions within 2e-6 of
     Booster.predict.
+13. (run after phase 10) Two-byte bins, the f64 form and the XLA
+    engines (wide_phase).  13a-c: the uint16 forms of B1, B3, B4 and B5
+    at F = 28, B = 1023, K = 32 on the flagship rows binned at max_bin
+    1023, and their f64 forms at B = 63 with float64 weights, each
+    against its plain version in float64 (the f64 forms within 1e-12 x
+    the cell's sum of |w| + 1e-14 x max|w|), repeats bit-identical, B3 =
+    B1, B4 = B3 and B5 = B4's slot to the bit with B1's exponents, and
+    timed as in phase 3; the bin tiles: B3 and B4 on 4 flagship columns
+    binned at max_bin 16383, past one shared-memory row.  13d: the
+    flagship at max_bin 1023 through auto (pallas_t: B3), pallas_ct
+    (B1), pallas (B4) and exact growth (B5), fused then staged with
+    equal text, every launch the uint16 form, the wave texts one.  13e:
+    tpu_use_dp at max_bin 63 (pallas_ct fused then staged, pallas and
+    exact fused): every launch the f64 form, the gather for the scores.
+    13f: onehot and scatter under wave (fused and staged) and exact
+    growth (fused), no kernel; scatter gives phase 4's and 4b's texts to
+    the byte; tpu_score_update=gather gives the main text.
  With --profile, every training run of phases 4 and 5 and the
  multiclass run profile one more iteration: its wall time, device busy
  share, device operations and graph replays; phase 7 profiles one
@@ -229,8 +248,19 @@ import numpy as np
 
 REPS = 20
 GROUPS = 5
-SLOW_MS = 20.0
+# calls slower than this (the plain versions, the library yardsticks)
+# are timed over SLOW_GROUPS runs of 3 calls, which keeps the script
+# within its time
+SLOW_MS = 5.0
+SLOW_GROUPS = 3
 VALID_ROWS = 200_000
+# rows of phase 8's checks of the host library against its Python
+# fallback (binning, host trees), few enough to keep the script within
+# its time
+FALLBACK_ROWS = 50_000
+# rows of the valid and train sets whose device scores each run holds to
+# the host trees
+CHECK_ROWS = 100_000
 ITERS = 5
 CLASSES = 7                   # UCI Covertype's class count
 SPARSE_COLS = 968             # Bosch's width (BASELINE.md)
@@ -346,7 +376,7 @@ def time_ms(fn, reps=REPS, groups=GROUPS, warmup=3):
     `reps` back-to-back calls, each run between one pair of CUDA events
     and divided by its calls, after `warmup` calls.  Where fn()'s host
     work takes longer than its device work, this is the host's rate.  A
-    call slower than SLOW_MS is timed over 3 calls a run."""
+    call slower than SLOW_MS is timed over SLOW_GROUPS runs of 3 calls."""
     import torch
     for _ in range(warmup):
         fn()
@@ -355,7 +385,7 @@ def time_ms(fn, reps=REPS, groups=GROUPS, warmup=3):
     fn()
     torch.cuda.synchronize()
     if (time.perf_counter() - t0) * 1e3 > SLOW_MS:
-        reps = 3
+        reps, groups = 3, min(groups, SLOW_GROUPS)
     runs = []
     for _ in range(groups):
         a = torch.cuda.Event(enable_timing=True)
@@ -1371,7 +1401,7 @@ def check_wave_launches(label, booster, launches, stats, kernel,
          % (label, launches, want, trees, passes))
 
 
-def check_exact_launches(label, booster, launches, stats):
+def check_exact_launches(label, booster, launches, stats, updates=ITERS):
     """The launch counts of an exact-growth run: B5 once a tree for the
     root and once a split pass (twice without the histogram cache): the
     splits that committed when staged, every gated split of the tree
@@ -1383,7 +1413,7 @@ def check_exact_launches(label, booster, launches, stats):
                           "wave_histogram_rowmajor", "sparse_wave_histogram"),
                          0)
     want["leaf_histogram"] = len(stats) + per_split * passes
-    want["score_update"] = ITERS
+    want["score_update"] = updates
     need(all(s.passes == s.num_leaves - 1 for s in stats),
          "%s: a tree's split count is not its leaves less one" % label)
     need(passes > 0 and {k: launches[k] for k in want} == want,
@@ -1445,12 +1475,14 @@ def counted(kernels, fn):
     return out, {name: k.launches for name, k in kernels.items()}
 
 
-def dense_train_phase(label, params, data, lgb, kernels, card, args):
+def dense_train_phase(label, params, data, lgb, kernels, card, args,
+                      updates=ITERS):
     """One training run on the flagship data through
     lightgbm_tpu_torch.train, every launch counter set to 0 just before
     and read just after, with phase 4's checks of what comes out (and,
-    with --profile, one more iteration profiled after them).  Returns
-    (booster, launches, the run's GrowStats)."""
+    with --profile, one more iteration profiled after them); B2 must
+    launch `updates` times (0 where the gather engine updates the
+    scores).  Returns (booster, launches, the run's GrowStats)."""
     import torch
     ds, dv, Xt_raw, Xv, _ = data
     stamps = []
@@ -1479,9 +1511,9 @@ def dense_train_phase(label, params, data, lgb, kernels, card, args):
                                     learner.cache_hists))
     need(trees == ITERS, "%s: grew %d trees, wanted %d"
          % (label, trees, ITERS))
-    need(launches["score_update"] == ITERS,
-         "%s: B2 launches %d != iterations %d"
-         % (label, launches["score_update"], ITERS))
+    need(launches["score_update"] == updates,
+         "%s: B2 launches %d, wanted %d"
+         % (label, launches["score_update"], updates))
     auc = evals["valid_0"]["auc"][-1]
     need(auc > 0.8, "%s: valid AUC %.4f <= 0.8" % (label, auc))
     AUCS[label] = auc
@@ -1606,17 +1638,18 @@ def host_raw(booster, X):
 def check_scores_follow_trees(label, booster, Xt_raw, Xv, k=1):
     """The device valid scores and the train scores (B2's) equal the
     host trees' raw predictions, (N,) or (N, k), finite (rtol and atol
-    1e-5; the first 200,000 train rows)."""
-    raw_dev = booster._gbdt.valid_score_host(0)
-    raw_host = host_raw(booster, Xv)
-    need(raw_host.shape == ((len(Xv), k) if k > 1 else (len(Xv),))
+    1e-5; the first CHECK_ROWS valid and train rows)."""
+    mv = min(len(Xv), CHECK_ROWS)
+    raw_dev = booster._gbdt.valid_score_host(0)[:, :mv]
+    raw_host = host_raw(booster, Xv[:mv])
+    need(raw_host.shape == ((mv, k) if k > 1 else (mv,))
          and np.isfinite(raw_host).all(),
          "%s: valid predictions not finite or of the wrong shape" % label)
-    raw_host = raw_host.reshape(len(Xv), k)
+    raw_host = raw_host.reshape(mv, k)
     need(np.allclose(raw_dev.T, raw_host, rtol=1e-5, atol=1e-5),
          "%s: device valid scores differ from host trees (max %g)"
          % (label, np.abs(raw_dev.T - raw_host).max()))
-    m = min(len(Xt_raw), 200_000)
+    m = min(len(Xt_raw), CHECK_ROWS)
     train_dev = booster._gbdt.train_score[:, :m].T
     need(np.allclose(train_dev, host_raw(booster, Xt_raw[:m]).reshape(m, k),
                      rtol=1e-5, atol=1e-5),
@@ -2095,8 +2128,9 @@ def file_phase(lgb, kernels, card, data):
     lightgbm_tpu_torch task=train`` (5 iterations, the fresh rows as valid
     data) in a subprocess on the card, whose model text must equal an
     in-process lightgbm_tpu_torch.train on the same arrays, to the byte;
-    8c Dataset.construct() of the 200,000 rows through the host library
-    and through the Python fallback: equal bins and bin bounds; 8d
+    8c Dataset.construct() of the first FALLBACK_ROWS rows through the
+    host library and through the Python fallback: equal bins and bin
+    bounds; 8d
     task=predict on the fresh rows (the device path under auto), its
     file equal, text for text, to Booster.predict printed with %.9g; 8e
     input_model= plus 5 rounds through the CLI: 10 trees, scores starting
@@ -2105,8 +2139,8 @@ def file_phase(lgb, kernels, card, data):
     checkpoint_every=2, 3 rounds then 5: the second run trains 2 rounds,
     ends with 5 trees, its first 3 the first run's; 8g the host trees
     (predict_raw(allow_device=False)) of phase 7's 100-tree model on the
-    fresh rows through the host library and the Python loop: equal sums,
-    and their rows/s.  Every launch counter is set to 0 before each
+    first FALLBACK_ROWS fresh rows through the host library and the
+    Python loop: equal sums, and their rows/s.  Every launch counter is set to 0 before each
     in-process run and read after; returns the phase's launches."""
     import shutil
     import tempfile
@@ -2175,13 +2209,15 @@ def file_phase(lgb, kernels, card, data):
             "(%.3f s in-process, fused) to the byte; launches %s"
             % (card, cli_s, train_s, got))
 
-        # ---- 8c. binning through the host library and the fallback
+        # ---- 8c. binning through the host library and the fallback, on
+        # the first FALLBACK_ROWS rows
+        Xc, yc = X[:FALLBACK_ROWS], y[:FALLBACK_ROWS]
         t0 = time.perf_counter()
-        nat = lgb.Dataset(X, label=y, params=params).construct()._handle
+        nat = lgb.Dataset(Xc, label=yc, params=params).construct()._handle
         nat_s = time.perf_counter() - t0
         with native.disabled():
             t0 = time.perf_counter()
-            py = lgb.Dataset(X, label=y, params=params).construct()._handle
+            py = lgb.Dataset(Xc, label=yc, params=params).construct()._handle
             py_s = time.perf_counter() - t0
         need(nat.binned.tobytes() == py.binned.tobytes(),
              "8c: native and fallback bins differ")
@@ -2321,15 +2357,17 @@ def file_phase(lgb, kernels, card, data):
              "8f: the resumed model is not the first run's 3 trees and 2 "
              "more")
 
-        # ---- 8g. the host trees of phase 7's model, native and Python
+        # ---- 8g. the host trees of phase 7's model, native and Python,
+        # on the first FALLBACK_ROWS fresh rows
         big = lgb.Booster(model_str=serve_model)._gbdt
+        Xg = Xf[:FALLBACK_ROWS]
         t0 = time.perf_counter()
-        raw_n = big.predict_raw(Xf, allow_device=False)
-        nat_rows = len(Xf) / (time.perf_counter() - t0)
+        raw_n = big.predict_raw(Xg, allow_device=False)
+        nat_rows = len(Xg) / (time.perf_counter() - t0)
         with native.disabled():
             t0 = time.perf_counter()
-            raw_p = big.predict_raw(Xf, allow_device=False)
-            py_rows = len(Xf) / (time.perf_counter() - t0)
+            raw_p = big.predict_raw(Xg, allow_device=False)
+            py_rows = len(Xg) / (time.perf_counter() - t0)
         need(np.array_equal(raw_n, raw_p),
              "8g: native and Python host trees differ")
     finally:
@@ -2339,12 +2377,12 @@ def file_phase(lgb, kernels, card, data):
          "phase 8: a kernel of the path did not launch: %s" % total)
     say("phase 8 seconds on %s: TSV write %.3f (2 x 200,000 rows), parse "
         "%.3f (200,000 x 29, Python), binning %.3f native and %.3f Python "
-        "fallback (Dataset.construct, 200,000 x 28), training %.3f "
+        "fallback (Dataset.construct, %d x 28), training %.3f "
         "(in-process, 5 iterations); CLI train subprocess %.3f; CLI predict "
         "%.3f; host trees (predict_raw(allow_device=False), phase 7's %d "
-        "trees, 200,000 rows) %.0f rows/s native, %.0f rows/s Python"
-        % (card, write_s, parse_s, nat_s, py_s, train_s, cli_s, pred_s,
-           len(big.models), nat_rows, py_rows))
+        "trees, %d rows) %.0f rows/s native, %.0f rows/s Python"
+        % (card, write_s, parse_s, nat_s, py_s, len(Xc), train_s, cli_s,
+           pred_s, len(big.models), len(Xg), nat_rows, py_rows))
     say("phase 8 launches: %s" % total)
     say("phase 8 (files and the CLI): %.1f s" % (time.perf_counter()
                                                   - t_phase))
@@ -3636,6 +3674,460 @@ def ranking_autotune(lgb, ds, params, card):
     del booster
 
 
+# ------------------------------------------------------------- phase 13
+def bins_t_of(ds):
+    """A Dataset's bin matrix transposed (F, N) on the card, in its dtype
+    (uint16 past 256 bins)."""
+    import torch
+    return torch.as_tensor(np.ascontiguousarray(ds._handle.binned.T),
+                           device="cuda")
+
+
+def f64_err(got, plain):
+    """(max_abs_err, ok) of an f64-form histogram against its plain
+    version in float64: a cell may differ by 1e-12 x (sum of |w| over
+    the cell) + 1e-14 x max|w|, the plain version's own row-order
+    rounding being the larger part (the kernels sum in 128-bit fixed
+    point, csrc/fixed_point.cuh, and round once)."""
+    want = plain(False)
+    diff = (got - want).abs()
+    tol = 1e-12 * plain(True) + 1e-14 * float(plain.wmax)
+    return float(diff.max()), bool((diff <= tol).all())
+
+
+def wide_kernel_phase(X_t, default_bin, X63_t, default_bin63, X4_t, wk, lh):
+    """Phases 2 and 3 for the kernels' uint16 and f64 forms, and the bin
+    tiles.
+
+    uint16, at F = 28, B = 1023 on the flagship rows binned at max_bin
+    1023 (X_t (28, N) uint16), K = W = 32: B1 (ids exactly the plain
+    routing), B3 on B1's ids and at the root (K = 1), B4 (K = 32) and B5
+    (the leaf of slot 0), each within phase 2's tolerance of its plain
+    version in float64, two launches bit-identical, and with B1's
+    exponents B3 = B1, B4 = B3 and B5 = B4's slot, to the bit.  f64
+    (float64 weights, tpu_use_dp), at B = 63 on the flagship bins: the
+    same checks, within f64_err's bound of the float64 plain version.
+    Bin tiles: B3 (K = 1) and B4 (K = 4) on 4 flagship columns binned at
+    max_bin 16383 (X4_t), whose (slot, feature) row of 64-bit cells
+    exceeds the shared-memory budget, so the plan tiles the bin axis;
+    both within tolerance of plain and bit-equal to each other's slots.
+    Returns the records."""
+    import torch
+    dev = X_t.device
+    F, N = X_t.shape
+    K = 32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device="cpu").manual_seed(13)
+    records, notes = {}, []
+
+    def record(name, err, call, plain, library, shape, nbytes, flops):
+        records[name] = dict(max_abs_err=err, ms=time_ms(call),
+                             plain_ms=time_ms(plain), library_ms=library,
+                             shape=shape, nbytes=nbytes, flops=flops)
+
+    def forms(X_t, default_bin, B, wide, tag):
+        lid, w3, cols, psrc, cid = (t.to(dev) for t in wave_state(
+            N, F, B, K, default_bin, g))
+        if wide:
+            w3 = w3.double()
+        wmax = float(w3.abs().max())
+        exps = wk.fixed_point_exponents(w3)
+        X = X_t.t().contiguous()
+        bb = X_t.element_size()
+        wb = 24 if wide else 12                  # a weight row, a bin's sums
+        new_lid, h1 = wk.wave_partition_hist(X_t, lid, w3, cid, cols, psrc,
+                                             B, exps=exps)
+        lid2, h1b = wk.wave_partition_hist(X_t, lid, w3, cid, cols, psrc, B,
+                                           exps=exps)
+        need(torch.equal(new_lid, wk.route_rows_plain(X_t, lid, cols, psrc))
+             and torch.equal(new_lid, lid2),
+             "%s B1 leaf ids differ from plain" % tag)
+        need(torch.equal(h1, h1b), "%s B1 repeat not bit-identical" % tag)
+        need(h1.dtype == (torch.float64 if wide else torch.float32),
+             "%s B1 histogram dtype %s" % (tag, h1.dtype))
+        root = torch.zeros(1, dtype=torch.int32, device=dev)
+        zeros = torch.zeros(N, dtype=torch.int32, device=dev)
+        leaf = cid[:1]
+        h3 = wk.wave_histogram(X_t, new_lid, w3, cid, B, exps=exps)
+        h3r = wk.wave_histogram(X_t, zeros, w3, root, B, exps=exps)
+        h4 = wk.wave_histogram_rowmajor(X, new_lid, w3, cid, B, exps=exps)
+        h5 = lh.leaf_histogram(X, None, None, new_lid, leaf, None, B,
+                               w3=w3, exps=exps)
+        need(torch.equal(h3, h1) and torch.equal(h4, h3)
+             and torch.equal(h5, h4[0]),
+             "%s: B3, B4, B5 not B1's histogram to the bit" % tag)
+        for name, h, x, ids, c in (
+                ("wave_partition_hist", h1, X_t, new_lid, cid),
+                ("wave_histogram", h3r, X_t, zeros, root),
+                ("wave_histogram_rowmajor", h4, X_t, new_lid, cid),
+                ("leaf_histogram", h5[None], X_t, new_lid, leaf)):
+            def plain(absolute, ids=ids, c=c):
+                w = w3.double()
+                return wk.wave_histogram_plain(
+                    X_t, ids, w.abs() if absolute else w, c, B)
+            plain.wmax = wmax
+            err, ok = (f64_err(h, plain) if wide else
+                       hist_err(h, plain, wmax))
+            need(ok, "%s %s outside tolerance (max abs err %g)"
+                 % (tag, name, err))
+            s_, n_act = slots_of(ids, c)
+            kc = c.shape[0]
+            xi = wk.bins_i32(wk.indexable(X_t))
+            lib = bincount_ms(xi, s_, w3, B)
+            if name == "wave_partition_hist":
+                call = (lambda: wk.wave_partition_hist(
+                    X_t, lid, w3, cid, cols, psrc, B, exps=exps))
+                pl = (lambda: wk.wave_partition_hist_plain(
+                    X_t, lid, w3, cid, cols, psrc, B))
+                nbytes = N * (4 + 4 + bb) + K * (10 * 4 + 8)
+            elif name == "leaf_histogram":
+                call = (lambda: lh.leaf_histogram(
+                    X, None, None, new_lid, leaf, None, B, w3=w3,
+                    exps=exps))
+                pl = (lambda: wk.wave_histogram_rowmajor_plain(
+                    X, new_lid, w3, leaf, B))
+                nbytes = N * 4 + 4
+            else:
+                fn = (wk.wave_histogram if name == "wave_histogram"
+                      else wk.wave_histogram_rowmajor)
+                xx = X_t if name == "wave_histogram" else X
+                plainfn = (wk.wave_histogram_plain
+                           if name == "wave_histogram"
+                           else wk.wave_histogram_rowmajor_plain)
+                call = (lambda fn=fn, xx=xx, ids=ids, c=c: fn(
+                    xx, ids, w3, c, B, exps=exps))
+                pl = (lambda plainfn=plainfn, xx=xx, ids=ids, c=c: plainfn(
+                    xx, ids, w3, c, B))
+                nbytes = N * 4 + kc * 4
+            del xi
+            plan = wk.hist_plan(F, N, B, kc, sms, False, wide)
+            record("%s_%s" % (name, tag), err, call, pl, lib,
+                   "N=%d F=%d B=%d K=%d (%s bins, %s weights)%s, %d rows in "
+                   "a child slot; plan %s, bin tiles %d"
+                   % (N, F, B, kc, X_t.dtype, w3.dtype,
+                      ", row-major" if name in ("wave_histogram_rowmajor",
+                                                "leaf_histogram") else "",
+                      n_act, plan[:6], len(wk.bin_tiles(F, B, plan[1],
+                                                        plan[4]))),
+                   nbytes + n_act * (F * bb + wb) + kc * F * B * wb,
+                   3 * n_act * F)
+        del X
+        notes.append("%s forms: B1's ids the plain routing's; B1, B3, B4 "
+                     "and B5 within tolerance of plain, repeats "
+                     "bit-identical, and with B1's exponents B3 = B1, B4 = "
+                     "B3 and B5 = B4's slot to the bit" % tag)
+
+    forms(X_t, default_bin, 1023, False, "uint16")
+    forms(X63_t, default_bin63, 63, True, "f64")
+
+    # ---- bin tiles: B past what one (slot, feature) row of shared
+    # memory holds
+    F4, N4 = X4_t.shape
+    B4 = int(wk.bins_i32(wk.indexable(X4_t)).max()) + 1
+    lid, w3, cols, psrc, cid = (t.to(dev) for t in wave_state(
+        N4, F4, B4, 4, torch.zeros(F4, dtype=torch.long), g))
+    exps = wk.fixed_point_exponents(w3)
+    X4 = X4_t.t().contiguous()
+    root = torch.zeros(1, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(N4, dtype=torch.int32, device=dev)
+    wmax = float(w3.abs().max())
+    lines = []
+    for label, fn, x, ids, c in (
+            ("B3 root", wk.wave_histogram, X4_t, zeros, root),
+            ("B4 K=4", wk.wave_histogram_rowmajor, X4, lid, cid)):
+        plan = wk.hist_plan(F4, N4, B4, c.shape[0], sms)
+        tiles = wk.bin_tiles(F4, B4, plan[1], plan[4])
+        need(len(tiles) > 1, "bin tiles: B = %d took one tile" % B4)
+        h = fn(x, ids, w3, c, B4, exps=exps)
+        need(torch.equal(h, fn(x, ids, w3, c, B4, exps=exps)),
+             "bin tiles: %s repeat not bit-identical" % label)
+        err, ok = hist_err(h, wave_plain64(wk.wave_histogram_plain, X4_t,
+                                           ids, w3, c, B4), wmax)
+        need(ok, "bin tiles: %s outside tolerance (max abs err %g)"
+             % (label, err))
+        need(bool((h[..., tiles[-1][0]:, 2] != 0).any()),
+             "bin tiles: %s's last tile holds no row" % label)
+        ms = time_ms(lambda: fn(x, ids, w3, c, B4, exps=exps))
+        lines.append("%s %.4f ms (plan %s, %d tiles of %d bins, %d bytes "
+                     "of shared memory a block, max abs err %.3g)"
+                     % (label, ms, plan[:6], len(tiles),
+                        tiles[0][1] - tiles[0][0], plan[6], err))
+    del X4
+    notes.append("bin tiles at F = %d, B = %d, N = %d: %s; both within "
+                 "tolerance of plain, repeats bit-identical"
+                 % (F4, B4, N4, "; ".join(lines)))
+
+    for name, r in records.items():
+        r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("flops"))
+        say("kernel %-32s %s: %.4f ms, plain %.4f ms, library %.4f ms, "
+            "bound %.4f ms (%s), max abs err %.3g"
+            % (name, r["shape"], r["ms"], r["plain_ms"], r["library_ms"],
+               r["bound_ms"], r["bound_by"], r["max_abs_err"]))
+    for n in notes:
+        say(n)
+    return records
+
+
+def split_search_memory():
+    """The split search's device memory at wide bins: best_splits_batched
+    on random (K, F, B, 3) histograms at a wave's 2W = 64 children of
+    F = 28 features at B = 1024 bins (f32 and f64) and at the bin-tile
+    check's shape (2 children, F = 4, B = 16384); prints each call's peak
+    allocation above what was held before it, against the histograms'
+    own bytes."""
+    import torch
+
+    from lightgbm_tpu_torch.ops.split_finder import (FeatureMeta,
+                                                     SplitParams,
+                                                     best_splits_batched)
+    params = SplitParams(0.0, 0.0, 0.0, 1.0, 1e-3, True)
+    out = []
+    for K, F, B, dt in ((64, 28, 1024, torch.float32),
+                        (64, 28, 1024, torch.float64),
+                        (2, 4, 16384, torch.float32)):
+        g = torch.Generator(device="cuda").manual_seed(K + B)
+        h = torch.rand((K, F, B, 3), generator=g, device="cuda", dtype=dt)
+        h[..., 0] -= 0.5
+        sums = h.sum(dim=(1, 2)) / F
+        meta = FeatureMeta(
+            num_bin=torch.full((F,), B, dtype=torch.int32, device="cuda"),
+            default_bin=torch.zeros(F, dtype=torch.int32, device="cuda"),
+            is_categorical=torch.zeros(F, dtype=torch.bool, device="cuda"))
+        mask = torch.ones(F, dtype=torch.bool, device="cuda")
+        depth = torch.zeros(K, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        best_splits_batched(h, sums, depth, meta, mask, params, 0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        out.append("K=%d F=%d B=%d %s: %d bytes above the %d of the "
+                   "histograms (%.1fx)" % (K, F, B, str(dt)[6:], peak,
+                                           h.numel() * h.element_size(),
+                                           peak / (h.numel()
+                                                   * h.element_size())))
+        del h, sums
+    say("13 split search memory: %s" % "; ".join(out))
+
+
+# rows of phase 13's exact-growth runs on the XLA engines (each split is
+# a pass over every row)
+ENGINE_EXACT_ROWS = 200_000
+HIST_KERNELS = ("wave_partition_hist", "wave_histogram",
+                "wave_histogram_rowmajor", "leaf_histogram",
+                "sparse_wave_histogram")
+
+
+def wide_phase(args, lgb, kernels, card, data, main_text):
+    """Phase 13: two-byte bins, the f64 form and the XLA engines.
+
+    13a-c. The kernel checks and times (wide_kernel_phase).
+    13d. The flagship recipe at max_bin 1023 (uint16 bins; 28 x 1024 past
+    the ct bound): auto (pallas_t, B3 every wave), pallas_ct (B1),
+    pallas (B4) and exact growth (B5), each fused then staged with equal
+    text, every launch of those kernels their uint16 form, valid AUC
+    above 0.8; the three wave dataflows' texts equal to the byte.
+    13e. tpu_use_dp at max_bin 63: pallas_ct fused then staged (equal
+    text), pallas and exact fused; every histogram launch the f64 form,
+    the score update the gather (B2 never); pallas's text pallas_ct's.
+    13f. The XLA engines on the main path's Dataset: onehot and scatter
+    under wave growth (fused, then staged: equal text) and exact growth
+    (fused; on its first ENGINE_EXACT_ROWS rows, as each split is a
+    full-N masked pass), no histogram kernel launched; scatter sums the
+    fixed point of the kernels, so its wave text must be the main path's
+    (phase 4) and its exact text B5's exact growth's on the same rows to
+    the byte; then
+    tpu_score_update=gather on the main path (B2 never; the main text,
+    the gather being B2's arithmetic).
+    Returns (records, {path: launches}, {path: form launches})."""
+    import torch
+
+    from lightgbm_tpu_torch.ops import leaf_hist as lh
+    from lightgbm_tpu_torch.ops import wave_kernels as wk
+    ds, _, Xt_raw, Xv, yv = data
+    t_phase = time.perf_counter()
+    params = flagship_params()
+    p1023 = dict(params, max_bin=1023)
+    t0 = time.perf_counter()
+    ds_w = lgb.Dataset(Xt_raw, label=ds.get_label(), params=p1023).construct()
+    dv_w = lgb.Dataset(Xv, label=yv, reference=ds_w).construct()
+    td = ds_w._handle
+    need(td.bundle is None and td.binned.dtype == np.uint16
+         and int(td.num_bin_arr.max()) > 256, "unexpected max_bin=1023 "
+         "binning")
+    say("13 data: the flagship rows binned at max_bin = 1023, %d bins max, "
+        "%s (%.1f s)" % (int(td.num_bin_arr.max()), td.binned.dtype,
+                         time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    p4 = dict(params, max_bin=16383)
+    ds4 = lgb.Dataset(Xt_raw[:, :4], params=p4).construct()
+    say("13 data: 4 flagship columns binned at max_bin = 16383, %d bins max "
+        "(%.1f s)" % (int(ds4._handle.num_bin_arr.max()),
+                      time.perf_counter() - t0))
+    X_t, X63_t, X4_t = bins_t_of(ds_w), bins_t_of(ds), bins_t_of(ds4)
+    records = wide_kernel_phase(
+        X_t, torch.as_tensor(td.default_bin_arr), X63_t,
+        torch.as_tensor(ds._handle.default_bin_arr), X4_t, wk, lh)
+    del X_t, X63_t, X4_t, ds4
+    torch.cuda.empty_cache()
+    split_search_memory()
+    torch.cuda.empty_cache()
+    data_w = (ds_w, dv_w, Xt_raw, Xv, yv)
+    paths, forms = {}, {}
+
+    def run(label, p, d, kernel, updates=ITERS):
+        (booster, launches, stats), got = counted_forms(
+            kernels, lambda: dense_train_phase(label, p, d, lgb, kernels,
+                                               card, args, updates=updates))
+        need((fused_of(booster) is None) == (p.get("tpu_fused_iter")
+                                             == "off"),
+             "%s: took the other chain" % label)
+        if kernel == "leaf_histogram":
+            check_exact_launches(label, booster, launches, stats, updates)
+        elif kernel is not None:
+            check_wave_launches(label, booster, launches, stats, kernel,
+                                updates)
+        else:
+            need(all(launches[k] == 0 for k in HIST_KERNELS),
+                 "%s: a histogram kernel launched under an XLA engine: %s"
+                 % (label, launches))
+        paths[label], forms[label] = launches, got
+        say("%s form launches: %s" % (label, {k: v for k, v in got.items()
+                                              if v}))
+        return booster, launches, got
+
+    def twin(label, p, d, kernel, text, updates=ITERS):
+        booster, _, _ = run(label + "-staged", dict(p, tpu_fused_iter="off"),
+                            d, kernel, updates)
+        need(booster.model_to_string() == text,
+             "%s: fused and staged model texts differ" % label)
+        del booster
+        torch.cuda.empty_cache()
+
+    # ---- 13d. max_bin 1023: uint16 bins through B3, B1, B4 and B5
+    texts = {}
+    for mode, kernel in (("auto", "wave_histogram"),
+                         ("pallas_ct", "wave_partition_hist"),
+                         ("pallas", "wave_histogram_rowmajor"),
+                         ("exact", "leaf_histogram")):
+        p = (dict(p1023, tpu_growth="exact", tpu_histogram_mode="pallas")
+             if mode == "exact" else dict(p1023, tpu_histogram_mode=mode))
+        label = "wide-" + mode
+        booster, launches, got = run(label, p, data_w, kernel)
+        learner = booster._gbdt.learner
+        need(learner.X.dtype == torch.uint16, "%s: X is %s"
+             % (label, learner.X.dtype))
+        need(mode != "auto" or learner.hist_mode == "pallas_t",
+             "wide-auto resolved to %s, not pallas_t" % learner.hist_mode)
+        for k in HIST_KERNELS[:4]:
+            need(got[k + "_uint16"] == launches[k],
+                 "%s: %d of %d %s launches uint16" % (
+                     label, got[k + "_uint16"], launches[k], k))
+        texts[mode] = booster.model_to_string()
+        del booster, learner
+        torch.cuda.empty_cache()
+        twin(label, p, data_w, kernel, texts[mode])
+    need(texts["auto"] == texts["pallas_ct"] == texts["pallas"],
+         "max_bin 1023: the wave dataflows' texts differ")
+    say("13d max_bin 1023: fused and staged text equal on B3 (auto), B1, "
+        "B4 and B5; B3, B1 and B4 give one text to the byte; valid AUC "
+        "%.6f (wave), %.6f (exact); phase 4 at max_bin 63: %.6f"
+        % (AUCS["wide-auto"], AUCS["wide-exact"], AUCS["wave"]))
+    del ds_w, dv_w, data_w
+    torch.cuda.empty_cache()
+
+    # ---- 13e. tpu_use_dp: the f64 forms, the gather
+    dp = dict(params, tpu_use_dp=True)
+    dp_texts = {}
+    for label, p, kernel in (
+            ("dp", dp, "wave_partition_hist"),
+            ("dp-pallas", dict(dp, tpu_histogram_mode="pallas",
+                               tpu_growth="wave"), "wave_histogram_rowmajor"),
+            ("dp-exact", dict(dp, tpu_growth="exact",
+                              tpu_histogram_mode="pallas"),
+             "leaf_histogram")):
+        booster, launches, got = run(label, p, data, kernel, updates=0)
+        gb = booster._gbdt
+        need(gb.score_dtype == torch.float64 and gb._score_engine
+             == "gather", "%s: scores %s, engine %s"
+             % (label, gb.score_dtype, gb._score_engine))
+        for k in HIST_KERNELS[:4]:
+            need(got[k + "_f64"] == launches[k],
+                 "%s: %d of %d %s launches f64" % (
+                     label, got[k + "_f64"], launches[k], k))
+        dp_texts[label] = booster.model_to_string()
+        del booster, gb
+        torch.cuda.empty_cache()
+    twin("dp", dp, data, "wave_partition_hist", dp_texts["dp"], updates=0)
+    need(dp_texts["dp"] == dp_texts["dp-pallas"],
+         "tpu_use_dp: pallas_ct and pallas texts differ")
+    need(dp_texts["dp"] != main_text, "tpu_use_dp: the f32 main text")
+    say("13e tpu_use_dp: fused and staged text equal; pallas_ct and pallas "
+        "one text; valid AUC %.6f (the f32 main path %.6f), exact %.6f"
+        % (AUCS["dp"], AUCS["wave"], AUCS["dp-exact"]))
+
+    # ---- 13f. the XLA engines and the gather; exact growth on the
+    # first ENGINE_EXACT_ROWS rows (a full-N masked pass a split), beside
+    # B5's run on them
+    sub = np.arange(min(ENGINE_EXACT_ROWS, len(Xt_raw)))
+    ds_s = ds.subset(sub).construct()
+    data_s = (ds_s, lgb.Dataset(Xv, label=yv, reference=ds_s).construct(),
+              Xt_raw[sub], Xv, yv)
+    exact_p = dict(params, tpu_growth="exact", tpu_histogram_mode="pallas")
+    booster, _, _ = run("exact-subset", exact_p, data_s, "leaf_histogram")
+    exact_sub_text = booster.model_to_string()
+    del booster
+    eng_texts = {}
+    for mode in ("scatter", "onehot"):
+        for growth in ("wave", "exact"):
+            label = "%s-%s" % (mode, growth)
+            p = dict(params, tpu_histogram_mode=mode, tpu_growth=growth)
+            booster, _, _ = run(label, p,
+                                data_s if growth == "exact" else data, None)
+            need(booster._gbdt.learner.hist_mode == mode, "%s: mode %s"
+                 % (label, booster._gbdt.learner.hist_mode))
+            eng_texts[label] = booster.model_to_string()
+            del booster
+            torch.cuda.empty_cache()
+            if growth == "wave":
+                twin(label, p, data, None, eng_texts[label])
+    need(eng_texts["scatter-wave"] == main_text,
+         "scatter (wave): not the main path's text")
+    need(eng_texts["scatter-exact"] == exact_sub_text,
+         "scatter (exact): not exact growth's (B5) text on the same rows")
+    booster, _, _ = run("gather", dict(params, tpu_score_update="gather"),
+                        data, "wave_partition_hist", updates=0)
+    need(booster.model_to_string() == main_text,
+         "gather: not the main path's text")
+    del booster
+    torch.cuda.empty_cache()
+    say("13f engines: scatter gives the main path's and exact growth's "
+        "texts to the byte, onehot fused = staged; valid AUC onehot "
+        "%.6f / %.6f, scatter %.6f / %.6f (wave / exact); gather: the "
+        "main text, B2 never launched"
+        % (AUCS["onehot-wave"], AUCS["onehot-exact"], AUCS["scatter-wave"],
+           AUCS["scatter-exact"]))
+    say("rates on %s, whole-call / steady it/s: max_bin 1023 auto %.4f / "
+        "%.4f (staged %.4f / %.4f), pallas_ct %.4f / %.4f (%.4f / %.4f), "
+        "pallas %.4f / %.4f (%.4f / %.4f), exact %.4f / %.4f (%.4f / %.4f); "
+        "tpu_use_dp %.4f / %.4f (%.4f / %.4f), pallas %.4f / %.4f, exact "
+        "%.4f / %.4f; scatter wave %.4f / %.4f (%.4f / %.4f), exact %.4f / "
+        "%.4f; onehot wave %.4f / %.4f (%.4f / %.4f), exact %.4f / %.4f; "
+        "gather %.4f / %.4f (exact growth of the XLA engines on %d rows; "
+        "B5 there %.4f / %.4f)"
+        % ((card,) + sum((RATES[k] for k in (
+            "wide-auto", "wide-auto-staged", "wide-pallas_ct",
+            "wide-pallas_ct-staged", "wide-pallas", "wide-pallas-staged",
+            "wide-exact", "wide-exact-staged", "dp", "dp-staged",
+            "dp-pallas", "dp-exact", "scatter-wave", "scatter-wave-staged",
+            "scatter-exact", "onehot-wave", "onehot-wave-staged",
+            "onehot-exact", "gather")), ()) + (len(sub),)
+           + RATES["exact-subset"]))
+    say("phase 13 (uint16 bins, f64, the XLA engines): %.1f s"
+        % (time.perf_counter() - t_phase))
+    return records, paths, forms
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -3875,6 +4367,14 @@ def main():
         args, lgb, kernels, card, data, main_text)
     records.update(form_records)
 
+    # ---- 13. two-byte bins (max_bin 1023 through B3, B1, B4, B5), the
+    # f64 form (tpu_use_dp), the XLA engines and the gather (wide_phase)
+    wide_records, wide_paths, wide_forms = wide_phase(
+        args, lgb, kernels, card, data, main_text)
+    records.update(wide_records)
+    form_paths.update(wide_paths)
+    form_launches.update(wide_forms)
+
     # ---- 4e. DART, GOSS and InfiniteBoost on the flagship data: staged,
     # exact-order waves (auto), B3 for the root, B1 every wave, B2 once a
     # tree; then softmax over 7 classes on the flagship features, 35
@@ -3981,7 +4481,7 @@ def main():
                    "lightgbm_tpu_torch/csrc/sparse_hist.cu",
                    "lightgbm_tpu/ops/sparse_mxu.py:196")}
     paths += list(form_paths.items())
-    # the packed and bf16 forms: each from its own path's run,
+    # the packed, bf16, uint16 and f64 forms: each from its own path's run,
     # its launches that form's count
     form_own = {"wave_partition_hist_packed": "packed-pallas_ct",
                 "wave_histogram_packed": "packed-pallas_t",
@@ -3989,7 +4489,15 @@ def main():
                 "wave_partition_hist_bf16": "bf16",
                 "wave_histogram_bf16": "bf16-pallas_t",
                 "wave_histogram_rowmajor_bf16": "bf16-pallas",
-                "sparse_wave_histogram_bf16": "sparse-bf16"}
+                "sparse_wave_histogram_bf16": "sparse-bf16",
+                "wave_partition_hist_uint16": "wide-pallas_ct",
+                "wave_histogram_uint16": "wide-auto",
+                "wave_histogram_rowmajor_uint16": "wide-pallas",
+                "leaf_histogram_uint16": "wide-exact",
+                "wave_partition_hist_f64": "dp",
+                "wave_histogram_f64": "dp",
+                "wave_histogram_rowmajor_f64": "dp-pallas",
+                "leaf_histogram_f64": "dp-exact"}
     out = []
     for name in list(sources) + list(form_own):
         base = next(k for k in sorted(sources, key=len, reverse=True)

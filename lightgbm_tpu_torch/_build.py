@@ -125,16 +125,22 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         cf = ctypes.c_float
-        lib.lgbt_wave_hist.argtypes = [vp] * 8 + [ci] * 13 + [vp]
+        lib.lgbt_wave_hist.argtypes = [vp] * 8 + [ci] * 15 + [vp]
         lib.lgbt_wave_hist.restype = ci
-        lib.lgbt_wave_fused.argtypes = [vp] * 11 + [ci] * 14 + [vp]
+        lib.lgbt_wave_fused.argtypes = [vp] * 11 + [ci] * 16 + [vp]
         lib.lgbt_wave_fused.restype = ci
-        lib.lgbt_wave_list.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+        lib.lgbt_wave_list.argtypes = [vp] * 8 + [ci] * 8 + [vp]
         lib.lgbt_wave_list.restype = ci
         lib.lgbt_wave_hist_smem.argtypes = [ci] * 4
         lib.lgbt_wave_hist_smem.restype = cll
+        lib.lgbt_wave_hist_smem_form.argtypes = [ci] * 5
+        lib.lgbt_wave_hist_smem_form.restype = cll
+        lib.lgbt_wave_bin_tile.argtypes = [ci] * 5
+        lib.lgbt_wave_bin_tile.restype = ci
         lib.lgbt_wave_hist_blocks_per_sm.argtypes = [ci] * 6
         lib.lgbt_wave_hist_blocks_per_sm.restype = ci
+        lib.lgbt_wave_hist_blocks_per_sm_form.argtypes = [ci] * 8
+        lib.lgbt_wave_hist_blocks_per_sm_form.restype = ci
         lib.lgbt_score_update.argtypes = [vp, vp, vp, vp, cll, ci, cf, cf,
                                           vp]
         lib.lgbt_score_update.restype = ci

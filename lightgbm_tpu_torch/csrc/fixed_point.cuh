@@ -2,7 +2,7 @@
 // (csrc/wave_fused.cu: B1, B3, B4, B5; csrc/sparse_hist.cu: B6), and the
 // leaf -> slot lookup they share.
 //
-// Channel c of a weight row w3[row] is scaled by 2^e[c], with e[c] = 62 -
+// Channel c of an f32 weight row w3[row] is scaled by 2^e[c], with e[c] = 62 -
 // frexp_exponent(N * max|w_c|) computed once a tree on the device
 // (ops/wave_kernels.py fixed_point_exponents), and rounded to the nearest
 // integer.  A histogram cell sums those integers exactly, in any order,
@@ -56,6 +56,74 @@ __device__ __forceinline__ float round_bf16(float w) {
 __device__ __forceinline__ float to_f32(unsigned long long v, int e) {
   return static_cast<float>(
       ldexp(static_cast<double>(static_cast<long long>(v)), -e));
+}
+
+// The f64 form (tpu_use_dp) sums in 128-bit fixed point: channel c of a
+// float64 weight row is scaled by 2^e[c] with e[c] = 126 -
+// frexp_exponent(N * max|w_c|) and rounded to the nearest integer, held
+// as two 64-bit words (lo, hi) in two's complement; no sum of N values
+// reaches 2^126.  A value errs by at most N * max|w_c| / 2^126, 2^-105 of
+// max|w_c| at N = 2^21 (a cell of N_cell rows by N_cell times that), far
+// below a float64's own rounding of the weights near the largest.  The
+// 64-bit form's N * max|w_c| / 2^62 a value (2^-41 of max|w_c| at N =
+// 2^21) is not double-grade, hence the second word.
+struct Q128 {
+  unsigned long long lo, hi;
+};
+
+// ldexp(w, e) rounded to the nearest integer (ties to even), |w| 2^e <
+// 2^126.  The magnitude is split exactly at 2^64 (its 53 significant bits
+// lie on one side or straddle the split, and both parts are exact
+// doubles), then negated in 128-bit two's complement.
+__device__ __forceinline__ Q128 quantize128(double w, int e) {
+  const double a = rint(fabs(ldexp(w, e)));
+  const unsigned long long hi = __double2ull_rz(a * 0x1p-64);
+  const unsigned long long lo =
+      __double2ull_rz(a - static_cast<double>(hi) * 0x1p64);
+  Q128 q{lo, hi};
+  if (w < 0.0) {
+    q.lo = ~lo + 1ull;
+    q.hi = ~hi + (q.lo == 0ull ? 1ull : 0ull);
+  }
+  return q;
+}
+
+// The f64 value of a 128-bit sum (lo, hi) at exponent e: the magnitude
+// as hi * 2^64 + lo in double (deterministic, within an ulp or two of
+// the exact value), then the sign and 2^-e.
+__device__ __forceinline__ double to_f64(unsigned long long lo,
+                                         unsigned long long hi, int e) {
+  const bool neg = static_cast<long long>(hi) < 0;
+  if (neg) {
+    lo = ~lo + 1ull;
+    hi = ~hi + (lo == 0ull ? 1ull : 0ull);
+  }
+  const double m = static_cast<double>(hi) * 0x1p64 +
+                   static_cast<double>(lo);
+  return ldexp(neg ? -m : m, -e);
+}
+
+// q added to the 128-bit cell whose 32-bit words, low to high, are *p0 ..
+// *p3, with native 32-bit shared atomics: each word's old value gives the
+// carry into the next, so the cell sums exactly and in any order.  A word
+// that adds zero (no part of q, no carry) is skipped.
+__device__ __forceinline__ void add128(unsigned* p0, unsigned* p1,
+                                       unsigned* p2, unsigned* p3, Q128 q) {
+  const unsigned part[4] = {
+      static_cast<unsigned>(q.lo), static_cast<unsigned>(q.lo >> 32),
+      static_cast<unsigned>(q.hi), static_cast<unsigned>(q.hi >> 32)};
+  unsigned* word[4] = {p0, p1, p2, p3};
+  unsigned carry = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned t = part[i] + carry;
+    unsigned next = t < carry ? 1u : 0u;   // part 0xffffffff plus a carry
+    if (t != 0u) {
+      const unsigned old = atomicAdd(word[i], t);
+      next += static_cast<unsigned>(old + t) < old ? 1u : 0u;
+    }
+    carry = next;
+  }
 }
 
 // q added to the 64-bit cell whose low and high words are *lo and *hi,

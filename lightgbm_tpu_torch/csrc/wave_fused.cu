@@ -43,6 +43,22 @@
 // those of the unrounded weights, which still bound every sum: rounding
 // raises a magnitude by at most 2^-8 of it, so |sum| < 2^62 (1 + 2^-8)
 // < 2^63.
+// Two-byte bins (max_bin > 255, io/bundle.py: a feature of more than 256
+// bins makes the whole matrix uint16): with `bins16`, X holds uint16 bins,
+// read as two bytes (the route and the histogram blocks alike; the
+// row-major pass reads a group of FS features as 2 FS bytes, in 4-byte
+// words where the row and the group are 4-byte aligned).  The packed form
+// stays uint8-only (bins < 16).
+// Bin tiles: a block holds the bins [b0, b0 + BT) of its features, and a
+// row whose bin lies outside adds nothing in that block, so a (slot,
+// feature) row of BT bins fits shared memory at any B up to 65,536.  The
+// grid's x axis holds (bin tile, feature group) pairs: groups = feature
+// groups x tiles, BT = ceil(B / tiles) (ops/wave_kernels.py hist_plan).
+// The f64 form (tpu_use_dp, `wide`): w3 is (N, 3) float64, each value is
+// quantized to 128-bit fixed point (fixed_point.cuh quantize128, the
+// exponents 126 - frexp_exponent(N * max|w_c|)), a shared cell is four
+// 32-bit words and a global one two 64-bit words, and the histogram comes
+// back as float64.
 //
 // What bounds them on this card.  The bytes that must move: leaf ids in
 // (and out for B1, 8 B a row), and for each row in a child slot its
@@ -108,6 +124,7 @@
 // B5 and B6 (csrc/sparse_hist.cu) give bit-identical histograms of the
 // same rows.
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "fixed_point.cuh"
@@ -126,11 +143,14 @@ constexpr int kMaxGroup = 8;         // features a histogram block holds
 constexpr int kMaxCopies = 32;
 constexpr int kMinShareRows = 2048;  // the fewest listed rows a share takes
 
+// The bin forms: byte bins, 4-bit packed byte bins, two-byte bins.
+enum Form { kByte = 0, kPacked = 1, kWide16 = 2 };
+
 // PACKED: xt holds Fd = ceil(F / 2) packed columns; the route reads the
-// split column's nibble.
-template <bool ROUTE, bool BUNDLED, bool PACKED>
+// split column's nibble.  T: the bin type (uint8_t, or uint16_t).
+template <bool ROUTE, bool BUNDLED, bool PACKED, typename T>
 __global__ void __launch_bounds__(kListThreads)
-list_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
+list_kernel(const T* __restrict__ xt, const int* __restrict__ lid,
             const int* __restrict__ cid, const float* __restrict__ cols,
             const int* __restrict__ psrc, int* __restrict__ new_lid,
             int2* __restrict__ list, unsigned long long* __restrict__ count,
@@ -250,41 +270,61 @@ list_kernel(const uint8_t* __restrict__ xt, const int* __restrict__ lid,
 
 // COPIES = false is the one-copy form (B1's wave, K = 32): its strides
 // are compile-time constants that fold into the atomics' addresses.
-// PACKED: x holds Fd = ceil(F / 2) packed columns and a block owns FS / 2
-// of them; its histogram feature 2i is the low nibble of its stored
-// column i, 2i + 1 the high one.  bf16: round each weight to bf16 first.
-template <bool ROWMAJOR, bool COPIES, bool PACKED>
+// FORM kPacked: x holds Fd = ceil(F / 2) packed columns and a block owns
+// FS / 2 of them; its histogram feature 2i is the low nibble of its stored
+// column i, 2i + 1 the high one.  kWide16: x holds uint16 bins.  WIDE: w3
+// is float64 and the cells are 128-bit.  bf16: round each weight to bf16
+// first (f32 weights only).  The block owns the bins [b0, b0 + BT) of its
+// features, BT = ceil(B / tiles), tiles = gridDim.x / feature groups.
+template <bool ROWMAJOR, bool COPIES, int FORM, bool WIDE>
 __global__ void __launch_bounds__(kHistThreads, 1)
-hist_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w3,
+hist_kernel(const void* __restrict__ xv, const void* __restrict__ wv,
             const int2* __restrict__ list,
             const unsigned long long* __restrict__ count,
             const int* __restrict__ exps, unsigned long long* __restrict__ acc,
             int F, int Fd, int N, int B, int K, int KS, int FS, int copies,
             int bf16) {
-  // C interleaved copies of (KS, FS, B, 3) cells of 64 bits, as two
-  // planes of 32-bit words: cell c of copy j is word c * C + j
+  using T = typename std::conditional<FORM == kWide16, uint16_t,
+                                      uint8_t>::type;
+  constexpr bool PACKED = FORM == kPacked;
+  constexpr int NW = WIDE ? 4 : 2;       // 32-bit words a cell
+  // C interleaved copies of (KS, FS, BT, 3) cells, as NW planes of 32-bit
+  // words: cell c of copy j is word c * C + j of each plane
   extern __shared__ unsigned planes[];
+  const T* __restrict__ x = static_cast<const T*>(xv);
   const int C = COPIES ? copies : 1;
   const int PS = PACKED ? FS / 2 : FS;   // stored columns a block reads
-  const int c0 = blockIdx.x * PS;
+  const int fgroups = (Fd + PS - 1) / PS;
+  const int tiles = gridDim.x / fgroups;
+  const int BT = (B + tiles - 1) / tiles;
+  const int b0 = (blockIdx.x / fgroups) * BT;
+  const int bn = min(BT, B - b0);        // bins this block holds
+  const int c0 = (blockIdx.x % fgroups) * PS;
   const int nc = min(PS, Fd - c0);
   // packed: stored column c0 + i holds feature Fd + c0 + i in its high
   // nibble while that is below F
   const int nhi = PACKED ? max(0, min(nc, F - Fd - c0)) : 0;
   const int k0 = blockIdx.z * KS;
   const int kn = min(KS, K - k0);
-  const int slot_len = FS * B * 3;
+  const int slot_len = FS * BT * 3;
   const int cells = kn * slot_len;
   const int words = KS * slot_len * C;
-  unsigned* lo = planes;
-  unsigned* hi = planes + words;
+  unsigned* p0 = planes;
+  unsigned* p1 = planes + words;
+  unsigned* p2 = planes + 2 * words;     // WIDE only
+  unsigned* p3 = planes + 3 * words;
   for (int i = threadIdx.x; i < cells * C; i += blockDim.x) {
-    lo[i] = 0u;
-    hi[i] = 0u;
+    p0[i] = 0u;
+    p1[i] = 0u;
+    if constexpr (WIDE) {
+      p2[i] = 0u;
+      p3[i] = 0u;
+    }
   }
-  const double s0 = ldexp(1.0, exps[0]);
-  const double s1 = ldexp(1.0, exps[1]);
-  const double s2 = ldexp(1.0, exps[2]);
+  const int e0 = exps[0], e1 = exps[1], e2 = exps[2];
+  const double s0 = ldexp(1.0, e0);
+  const double s1 = ldexp(1.0, e1);
+  const double s2 = ldexp(1.0, e2);
   // a short list takes fewer shares: at least kMinShareRows rows each.
   // The other blocks return once zeroed (the grid is one round of
   // resident blocks, so their zeroing costs no time).  The length is read
@@ -294,16 +334,19 @@ hist_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w3,
   const long long n = static_cast<long long>(*count);
   const long long shares = max(1ll, min(static_cast<long long>(gridDim.y),
                                         n / kMinShareRows));
-  if (blockIdx.y >= shares) return;      // block-uniform
+  if (blockIdx.y >= shares || bn <= 0) return;   // block-uniform
   const long long per = (n + shares - 1) / shares;
   const long long j0 = blockIdx.y * per;
   const long long j1 = min(n, j0 + per);
   const int copy = threadIdx.x & (C - 1);
-  // row-major: the group's bytes of a row (Fd stored columns a row) as
+  // row-major: the group's bins of a row (Fd stored columns a row) as
   // 4-byte words when aligned
-  const bool words4 = ROWMAJOR && (Fd & 3) == 0 && (c0 & 3) == 0 &&
-                      (reinterpret_cast<uintptr_t>(x) & 3) == 0;
-  const uint8_t* xg = ROWMAJOR ? x + c0 : x + static_cast<size_t>(c0) * N;
+  constexpr int PER = 4 / static_cast<int>(sizeof(T));   // bins a word
+  const bool words4 =
+      ROWMAJOR && (Fd * static_cast<int>(sizeof(T))) % 4 == 0 &&
+      (c0 * static_cast<int>(sizeof(T))) % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(x) & 3) == 0;
+  const T* xg = ROWMAJOR ? x + c0 : x + static_cast<size_t>(c0) * N;
   __syncthreads();
 
   for (long long j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
@@ -311,18 +354,21 @@ hist_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w3,
     const int s = rec.y - k0;
     if (s < 0 || s >= kn) continue;
     const int row = rec.x;
-    // the row's nc stored bytes of the group, each read once
+    // the row's nc stored bins of the group, each read once
     int bytes[kMaxGroup];
     if constexpr (ROWMAJOR) {
-      const uint8_t* xr = xg + static_cast<size_t>(row) * Fd;
+      const T* xr = xg + static_cast<size_t>(row) * Fd;
       if (words4) {
         const unsigned* xw = reinterpret_cast<const unsigned*>(xr);
-        const unsigned a = xw[0];
-        const unsigned b = nc > 4 ? xw[1] : 0u;
+        unsigned wd[kMaxGroup / PER];
+#pragma unroll
+        for (int i = 0; i < kMaxGroup / PER; ++i)
+          wd[i] = i * PER < nc ? xw[i] : 0u;
 #pragma unroll
         for (int f = 0; f < kMaxGroup; ++f)
           bytes[f] = f < nc
-              ? static_cast<int>(((f < 4 ? a : b) >> (8 * (f & 3))) & 255u)
+              ? static_cast<int>((wd[f / PER] >> (8 * sizeof(T) * (f % PER)))
+                                 & ((1u << (8 * sizeof(T))) - 1u))
               : 0;
       } else {
 #pragma unroll
@@ -335,49 +381,76 @@ hist_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w3,
         bytes[f] = f < nc
             ? static_cast<int>(xg[static_cast<size_t>(f) * N + row]) : 0;
     }
+    // each feature's bin within the block's tile, or BT (none)
     int bins[kMaxGroup];
     if constexpr (PACKED) {
 #pragma unroll
       for (int i = 0; i < kMaxGroup / 2; ++i) {
-        bins[2 * i] = i < nc ? bytes[i] & 15 : B;
-        bins[2 * i + 1] = i < nhi ? bytes[i] >> 4 : B;
+        bins[2 * i] = i < nc ? (bytes[i] & 15) - b0 : BT;
+        bins[2 * i + 1] = i < nhi ? (bytes[i] >> 4) - b0 : BT;
       }
     } else {
 #pragma unroll
-      for (int f = 0; f < kMaxGroup; ++f) bins[f] = f < nc ? bytes[f] : B;
+      for (int f = 0; f < kMaxGroup; ++f) bins[f] = f < nc ? bytes[f] - b0 : BT;
     }
-    const float* wr = w3 + 3 * static_cast<size_t>(row);
-    float w0 = wr[0], w1 = wr[1], w2 = wr[2];
-    if (bf16) {                          // block-uniform
-      w0 = lgbt::round_bf16(w0);
-      w1 = lgbt::round_bf16(w1);
-      w2 = lgbt::round_bf16(w2);
-    }
-    const unsigned long long q0 = lgbt::quantize(w0, s0);
-    const unsigned long long q1 = lgbt::quantize(w1, s1);
-    const unsigned long long q2 = lgbt::quantize(w2, s2);
     const int base = s * slot_len;
+    if constexpr (WIDE) {
+      const double* wr = static_cast<const double*>(wv) +
+                         3 * static_cast<size_t>(row);
+      const lgbt::Q128 q0 = lgbt::quantize128(wr[0], e0);
+      const lgbt::Q128 q1 = lgbt::quantize128(wr[1], e1);
+      const lgbt::Q128 q2 = lgbt::quantize128(wr[2], e2);
 #pragma unroll
-    for (int f = 0; f < kMaxGroup; ++f) {
-      if (bins[f] < B) {
-        const int c = (base + (f * B + bins[f]) * 3) * C + copy;
-        add64(lo + c, hi + c, q0);
-        add64(lo + c + C, hi + c + C, q1);
-        add64(lo + c + 2 * C, hi + c + 2 * C, q2);
+      for (int f = 0; f < kMaxGroup; ++f) {
+        if (bins[f] >= 0 && bins[f] < bn) {
+          const int c = (base + (f * BT + bins[f]) * 3) * C + copy;
+          lgbt::add128(p0 + c, p1 + c, p2 + c, p3 + c, q0);
+          lgbt::add128(p0 + c + C, p1 + c + C, p2 + c + C, p3 + c + C, q1);
+          lgbt::add128(p0 + c + 2 * C, p1 + c + 2 * C, p2 + c + 2 * C,
+                       p3 + c + 2 * C, q2);
+        }
+      }
+    } else {
+      const float* wr = static_cast<const float*>(wv) +
+                        3 * static_cast<size_t>(row);
+      float w0 = wr[0], w1 = wr[1], w2 = wr[2];
+      if (bf16) {                        // block-uniform
+        w0 = lgbt::round_bf16(w0);
+        w1 = lgbt::round_bf16(w1);
+        w2 = lgbt::round_bf16(w2);
+      }
+      const unsigned long long q0 = lgbt::quantize(w0, s0);
+      const unsigned long long q1 = lgbt::quantize(w1, s1);
+      const unsigned long long q2 = lgbt::quantize(w2, s2);
+#pragma unroll
+      for (int f = 0; f < kMaxGroup; ++f) {
+        if (bins[f] >= 0 && bins[f] < bn) {
+          const int c = (base + (f * BT + bins[f]) * 3) * C + copy;
+          add64(p0 + c, p1 + c, q0);
+          add64(p0 + c + C, p1 + c + C, q1);
+          add64(p0 + c + 2 * C, p1 + c + 2 * C, q2);
+        }
       }
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    unsigned long long v = 0ull;
+    unsigned long long lo = 0ull, hi = 0ull;
     for (int j = 0; j < C; ++j) {        // rotated: lanes on other banks
       const int w = i * C + ((i + j) & (C - 1));
-      v += (static_cast<unsigned long long>(hi[w]) << 32) | lo[w];
+      const unsigned long long a =
+          (static_cast<unsigned long long>(p1[w]) << 32) | p0[w];
+      lo += a;
+      if constexpr (WIDE)
+        hi += ((static_cast<unsigned long long>(p3[w]) << 32) | p2[w]) +
+              (lo < a ? 1ull : 0ull);
     }
-    if (v == 0ull) continue;
+    if (lo == 0ull && hi == 0ull) continue;
     const int kk = i / slot_len;
     const int rem = i - kk * slot_len;       // (f, b, c) within the group
-    const int ff = rem / (B * 3);
+    const int ff = rem / (BT * 3);
+    const int bc = rem - ff * BT * 3;        // (b - b0, c)
+    if (bc >= bn * 3) continue;
     int gf;                                  // the cell's feature
     if constexpr (PACKED) {
       const int ci = ff >> 1;
@@ -388,16 +461,25 @@ hist_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w3,
       gf = c0 + ff;
     }
     const size_t o = (static_cast<size_t>(k0 + kk) * F + gf) * B * 3 +
-                     (rem - ff * B * 3);
-    atomicAdd(acc + o, v);
+                     b0 * 3 + bc;
+    if constexpr (WIDE) {
+      unsigned long long* cell = acc + 2 * o;
+      const unsigned long long old = atomicAdd(cell, lo);
+      const unsigned long long h = hi + (old + lo < old ? 1ull : 0ull);
+      if (h != 0ull) atomicAdd(cell + 1, h);
+    } else {
+      atomicAdd(acc + o, lo);
+    }
   }
 }
 
-// hist[k] = acc[first slot holding child_id[k]] / 2^e, in f32.
+// hist[k] = acc[first slot holding child_id[k]] / 2^e: in f32, or in f64
+// from the 128-bit sums (WIDE).
+template <bool WIDE>
 __global__ void finish_kernel(const unsigned long long* __restrict__ acc,
                               const int* __restrict__ cid,
                               const int* __restrict__ exps,
-                              float* __restrict__ hist, int K,
+                              void* __restrict__ hist, int K,
                               long long per_slot) {
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -406,92 +488,133 @@ __global__ void finish_kernel(const unsigned long long* __restrict__ acc,
   const long long rem = i - k * per_slot;
   const int kr = find_first(cid, k + 1, cid[k]);
   const int c = static_cast<int>(rem % 3);
-  hist[i] = lgbt::to_f32(acc[kr * per_slot + rem], exps[c]);
+  const long long o = kr * per_slot + rem;
+  if constexpr (WIDE)
+    static_cast<double*>(hist)[i] =
+        lgbt::to_f64(acc[2 * o], acc[2 * o + 1], exps[c]);
+  else
+    static_cast<float*>(hist)[i] = lgbt::to_f32(acc[o], exps[c]);
 }
 
-size_t hist_smem(int B, int KS, int FS, int C) {
-  return 8ull * C * KS * FS * B * 3;
-}
-
-using HistKernel = void (*)(const uint8_t*, const float*, const int2*,
-                           const unsigned long long*, const int*,
-                           unsigned long long*, int, int, int, int, int, int,
-                           int, int, int);
-
-template <bool ROWMAJOR, bool PACKED>
-HistKernel hist_kernel_of(int C) {
-  return C > 1 ? &hist_kernel<ROWMAJOR, true, PACKED>
-               : &hist_kernel<ROWMAJOR, false, PACKED>;
-}
-
-HistKernel hist_kernel_for(bool rowmajor, bool packed, int C) {
-  if (rowmajor)
-    return packed ? hist_kernel_of<true, true>(C)
-                  : hist_kernel_of<true, false>(C);
-  return packed ? hist_kernel_of<false, true>(C)
-                : hist_kernel_of<false, false>(C);
-}
-
-// The dynamic shared memory each of the eight histogram kernels has been
-// granted on each device.
-int hist_granted[8][lgbt::kMaxDevices];
-
-// hist_kernel_for(rowmajor, packed, C), allowed smem bytes of shared
-// memory.
-cudaError_t hist_kernel_with(bool rowmajor, bool packed, int C, size_t smem,
-                             HistKernel* kern) {
-  *kern = hist_kernel_for(rowmajor, packed, C);
-  return lgbt::allow_smem(reinterpret_cast<const void*>(*kern), smem,
-                          hist_granted[4 * rowmajor + 2 * packed + (C > 1)]);
+// Shared memory of one histogram block: C copies of KS slots x FS
+// features x BT bins x 3 channels of 64 bits (128 bits when wide).
+size_t hist_smem(int BT, int KS, int FS, int C, bool wide) {
+  return (wide ? 16ull : 8ull) * C * KS * FS * BT * 3;
 }
 
 // Stored columns of F features: ceil(F / 2) packed, else F.
 int stored_cols(int F, bool packed) { return packed ? (F + 1) / 2 : F; }
 
-// The histogram pass over the list and the f32 conversion.  acc holds
-// K * F * B * 3 zeroed 64-bit words followed by the list's length.
-// packed: x holds ceil(F / 2) packed columns, FS is even and a group
-// covers FS / 2 of them; bf16: the weights are rounded to bf16 first.
+// The bins a block holds: B over the grid's tiles, where a grid of
+// `groups` blocks on its x axis covers the stored columns in feature
+// groups of FS features (FS / 2 packed columns) and each feature group
+// in tiles of bins.
+int bin_tile(int F, int B, int groups, int FS, bool packed) {
+  const int PS = packed ? FS / 2 : FS;
+  const int fgroups = (stored_cols(F, packed) + PS - 1) / PS;
+  const int tiles = groups / fgroups;
+  return tiles < 1 ? 0 : (B + tiles - 1) / tiles;
+}
+
+using HistKernel = void (*)(const void*, const void*, const int2*,
+                           const unsigned long long*, const int*,
+                           unsigned long long*, int, int, int, int, int, int,
+                           int, int, int);
+
+template <bool ROWMAJOR, int FORM, bool WIDE>
+HistKernel hist_kernel_of(int C) {
+  return C > 1 ? &hist_kernel<ROWMAJOR, true, FORM, WIDE>
+               : &hist_kernel<ROWMAJOR, false, FORM, WIDE>;
+}
+
+template <bool ROWMAJOR, bool WIDE>
+HistKernel hist_kernel_form(int form, int C) {
+  return form == kPacked ? hist_kernel_of<ROWMAJOR, kPacked, WIDE>(C)
+       : form == kWide16 ? hist_kernel_of<ROWMAJOR, kWide16, WIDE>(C)
+                         : hist_kernel_of<ROWMAJOR, kByte, WIDE>(C);
+}
+
+HistKernel hist_kernel_for(bool rowmajor, int form, bool wide, int C) {
+  if (rowmajor)
+    return wide ? hist_kernel_form<true, true>(form, C)
+                : hist_kernel_form<true, false>(form, C);
+  return wide ? hist_kernel_form<false, true>(form, C)
+              : hist_kernel_form<false, false>(form, C);
+}
+
+// The dynamic shared memory each histogram kernel has been granted on
+// each device: [rowmajor][form][wide][copies > 1].
+int hist_granted[2][3][2][2][lgbt::kMaxDevices];
+
+// hist_kernel_for(rowmajor, form, wide, C), allowed smem bytes of shared
+// memory.
+cudaError_t hist_kernel_with(bool rowmajor, int form, bool wide, int C,
+                             size_t smem, HistKernel* kern) {
+  *kern = hist_kernel_for(rowmajor, form, wide, C);
+  return lgbt::allow_smem(reinterpret_cast<const void*>(*kern), smem,
+                          hist_granted[rowmajor][form][wide][C > 1]);
+}
+
+int form_of(bool packed, bool bins16) {
+  return packed ? kPacked : bins16 ? kWide16 : kByte;
+}
+
+// The histogram pass over the list and the conversion (f32, or f64 when
+// wide).  acc holds K * F * B * 3 zeroed sums (64-bit words, two a sum
+// when wide) followed by the list's length.  packed: x holds ceil(F / 2)
+// packed columns, FS is even and a group covers FS / 2 of them; bins16: x
+// holds uint16 bins; bf16: the weights are rounded to bf16 first.  groups
+// counts feature groups x bin tiles (bin_tile).
 cudaError_t hist_and_finish(const void* x, const void* w3, const void* list,
                             const void* cid, const void* exps, void* acc,
                             void* hist, int F, int N, int B, int K,
                             int groups, int R, int KS, int FS, int C,
                             bool rowmajor, bool packed, bool bf16,
-                            cudaStream_t s) {
+                            bool bins16, bool wide, cudaStream_t s) {
   if (FS < 1 || FS > kMaxGroup || KS < 1 || C < 1 || C > kMaxCopies ||
-      (C & (C - 1)) != 0 || (packed && (FS & 1) != 0))
+      (C & (C - 1)) != 0 || (packed && (FS & 1) != 0) ||
+      (packed && bins16) || (wide && bf16))
     return cudaErrorInvalidValue;
+  const int BT = bin_tile(F, B, groups, FS, packed);
+  if (BT < 1) return cudaErrorInvalidValue;
   const long long per_slot = static_cast<long long>(F) * B * 3;
   unsigned long long* acc64 = static_cast<unsigned long long*>(acc);
-  const size_t smem = hist_smem(B, KS, FS, C);
+  const size_t smem = hist_smem(BT, KS, FS, C, wide);
   HistKernel kern;
-  cudaError_t e = hist_kernel_with(rowmajor, packed, C, smem, &kern);
+  cudaError_t e = hist_kernel_with(rowmajor, form_of(packed, bins16), wide,
+                                   C, smem, &kern);
   if (e != cudaSuccess) return e;
   const dim3 grid(groups, R, (K + KS - 1) / KS);
   kern<<<grid, kHistThreads, smem, s>>>(
-      static_cast<const uint8_t*>(x), static_cast<const float*>(w3),
-      static_cast<const int2*>(list), acc64 + per_slot * K,
-      static_cast<const int*>(exps), acc64, F, stored_cols(F, packed), N, B,
-      K, KS, FS, C, bf16 ? 1 : 0);
+      x, w3, static_cast<const int2*>(list),
+      acc64 + per_slot * K * (wide ? 2 : 1), static_cast<const int*>(exps),
+      acc64, F, stored_cols(F, packed), N, B, K, KS, FS, C, bf16 ? 1 : 0);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int threads = 256;
   const long long total = per_slot * K;
-  finish_kernel<<<static_cast<unsigned>((total + threads - 1) / threads),
-                  threads, 0, s>>>(acc64, static_cast<const int*>(cid),
-                                   static_cast<const int*>(exps),
-                                   static_cast<float*>(hist), K, per_slot);
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) /
+                                                threads);
+  if (wide)
+    finish_kernel<true><<<blocks, threads, 0, s>>>(
+        acc64, static_cast<const int*>(cid), static_cast<const int*>(exps),
+        hist, K, per_slot);
+  else
+    finish_kernel<false><<<blocks, threads, 0, s>>>(
+        acc64, static_cast<const int*>(cid), static_cast<const int*>(exps),
+        hist, K, per_slot);
   return cudaGetLastError();
 }
 
-// acc's K * F * B * 3 sums and the list's length after them, zeroed on
-// the stream; *count points at the length.
-int zero_acc(void* acc, int F, int B, int K, void* stream,
+// acc's K * F * B * 3 sums (two words a sum when wide) and the list's
+// length after them, zeroed on the stream; *count points at the length.
+int zero_acc(void* acc, int F, int B, int K, bool wide, void* stream,
              unsigned long long** count) {
-  const long long cells = static_cast<long long>(F) * B * 3 * K;
-  *count = static_cast<unsigned long long*>(acc) + cells;
+  const long long words = static_cast<long long>(F) * B * 3 * K *
+                          (wide ? 2 : 1);
+  *count = static_cast<unsigned long long*>(acc) + words;
   return static_cast<int>(cudaMemsetAsync(
-      acc, 0, 8 * (cells + 1), static_cast<cudaStream_t>(stream)));
+      acc, 0, 8 * (words + 1), static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -499,19 +622,30 @@ int zero_acc(void* acc, int F, int B, int K, void* stream,
 extern "C" {
 
 // Shared memory of one histogram block: C copies of KS slots x FS
-// features x B bins x 3 channels of 64 bits (the wrapper's launch plan
-// mirrors it).
+// features x BT bins x 3 channels of 64 bits, or of 128 bits when wide
+// (the wrapper's launch plan mirrors it).
+long long lgbt_wave_hist_smem_form(int BT, int KS, int FS, int C,
+                                   int wide) {
+  return static_cast<long long>(hist_smem(BT, KS, FS, C, wide != 0));
+}
+
 long long lgbt_wave_hist_smem(int B, int KS, int FS, int C) {
-  return static_cast<long long>(hist_smem(B, KS, FS, C));
+  return lgbt_wave_hist_smem_form(B, KS, FS, C, 0);
+}
+
+// The bins a block of the plan holds (bin_tile).
+int lgbt_wave_bin_tile(int F, int B, int groups, int FS, int packed) {
+  return bin_tile(F, B, groups, FS, packed != 0);
 }
 
 // Histogram blocks of the plan resident on one SM, or -1 on an error.
-int lgbt_wave_hist_blocks_per_sm(int B, int KS, int FS, int C,
-                                 int rowmajor, int packed) {
-  const size_t smem = hist_smem(B, KS, FS, C);
+int lgbt_wave_hist_blocks_per_sm_form(int BT, int KS, int FS, int C,
+                                      int rowmajor, int packed, int bins16,
+                                      int wide) {
+  const size_t smem = hist_smem(BT, KS, FS, C, wide != 0);
   HistKernel kern;
-  if (hist_kernel_with(rowmajor != 0, packed != 0, C, smem, &kern) !=
-      cudaSuccess)
+  if (hist_kernel_with(rowmajor != 0, form_of(packed != 0, bins16 != 0),
+                       wide != 0, C, smem, &kern) != cudaSuccess)
     return -1;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -520,77 +654,116 @@ int lgbt_wave_hist_blocks_per_sm(int B, int KS, int FS, int C,
   return blocks;
 }
 
+int lgbt_wave_hist_blocks_per_sm(int B, int KS, int FS, int C,
+                                 int rowmajor, int packed) {
+  return lgbt_wave_hist_blocks_per_sm_form(B, KS, FS, C, rowmajor, packed,
+                                           0, 0);
+}
+
 // The list pass alone: the compact list (N, 2) int32 of (row, slot)
 // pairs and its length in *count (which must be 0 on entry).  mode 0
 // selects the rows by their ids (B3, B4, B5; xt, cols, psrc and new_lid are
 // not read and may be null, W = 0); mode 1 routes them first and writes
 // new_lid (B1), mode 2 does so on EFB group columns; packed: xt holds
-// ceil(F / 2) packed columns (the route reads the split column's nibble).
+// ceil(F / 2) packed columns (the route reads the split column's nibble);
+// bins16: xt holds uint16 bins.
 int lgbt_wave_list(const void* xt, const void* lid, const void* cid,
                    const void* cols, const void* psrc, void* new_lid,
                    void* list, void* count, int F, int N, int K, int W,
-                   int blocks, int mode, int packed, void* stream) {
+                   int blocks, int mode, int packed, int bins16,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 0) W = 0;
+  if (packed && bins16) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 4 * (static_cast<size_t>(W) * 11 + K);
-  using ListKernel = void (*)(const uint8_t*, const int*, const int*,
-                              const float*, const int*, int*, int2*,
-                              unsigned long long*, int, int, int, int, int);
-  // the four routing forms: [bundled][packed]
-  static const ListKernel route[2][2] = {
-      {&list_kernel<true, false, false>, &list_kernel<true, false, true>},
-      {&list_kernel<true, true, false>, &list_kernel<true, true, true>}};
-  const ListKernel kern = mode == 0 ? &list_kernel<false, false, false>
-                                    : route[mode == 2][packed != 0];
-  kern<<<blocks, kListThreads, smem, s>>>(
-      static_cast<const uint8_t*>(xt), static_cast<const int*>(lid),
-      static_cast<const int*>(cid), static_cast<const float*>(cols),
-      static_cast<const int*>(psrc), static_cast<int*>(new_lid),
-      static_cast<int2*>(list), static_cast<unsigned long long*>(count), F,
-      stored_cols(F, packed != 0), N, K, W);
+  const int Fd = stored_cols(F, packed != 0);
+  const int* l = static_cast<const int*>(lid);
+  const int* c = static_cast<const int*>(cid);
+  const float* cl = static_cast<const float*>(cols);
+  const int* ps = static_cast<const int*>(psrc);
+  int* nl = static_cast<int*>(new_lid);
+  int2* li = static_cast<int2*>(list);
+  unsigned long long* n = static_cast<unsigned long long*>(count);
+  const bool bundled = mode == 2;
+  // the routing forms: [bundled] x byte, packed, two-byte bins
+  if (mode == 0) {
+    list_kernel<false, false, false, uint8_t><<<blocks, kListThreads, smem,
+                                                s>>>(
+        nullptr, l, c, cl, ps, nl, li, n, F, Fd, N, K, W);
+  } else if (bins16) {
+    const uint16_t* x = static_cast<const uint16_t*>(xt);
+    if (bundled)
+      list_kernel<true, true, false, uint16_t><<<blocks, kListThreads, smem,
+                                                 s>>>(
+          x, l, c, cl, ps, nl, li, n, F, Fd, N, K, W);
+    else
+      list_kernel<true, false, false, uint16_t><<<blocks, kListThreads,
+                                                  smem, s>>>(
+          x, l, c, cl, ps, nl, li, n, F, Fd, N, K, W);
+  } else {
+    using ListKernel = void (*)(const uint8_t*, const int*, const int*,
+                                const float*, const int*, int*, int2*,
+                                unsigned long long*, int, int, int, int,
+                                int);
+    static const ListKernel route[2][2] = {
+        {&list_kernel<true, false, false, uint8_t>,
+         &list_kernel<true, false, true, uint8_t>},
+        {&list_kernel<true, true, false, uint8_t>,
+         &list_kernel<true, true, true, uint8_t>}};
+    route[bundled][packed != 0]<<<blocks, kListThreads, smem, s>>>(
+        static_cast<const uint8_t*>(xt), l, c, cl, ps, nl, li, n, F, Fd, N,
+        K, W);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// B1, the fused wave step: routing, histograms of the listed rows, f32
-// conversion.  acc holds K * F * B * 3 + 1 64-bit words, zeroed here (the
-// last one is the list's length); list N int2; hist K * F * B * 3 floats.
-// F counts features (logical columns): with packed, xt holds ceil(F / 2)
-// packed columns; bf16 rounds the weights to bf16 before the sums.
+// B1, the fused wave step: routing, histograms of the listed rows, the
+// conversion.  acc holds K * F * B * 3 + 1 64-bit words (2 K F B 3 + 1
+// when wide), zeroed here (the last one is the list's length); list N
+// int2; hist K * F * B * 3 floats (doubles when wide).  F counts features
+// (logical columns): with packed, xt holds ceil(F / 2) packed columns;
+// bins16: uint16 bins; bf16 rounds the weights to bf16 before the sums;
+// wide: w3 is float64 and the sums 128-bit.
 int lgbt_wave_fused(const void* xt, const void* lid, const void* w3,
                     const void* cid, const void* cols, const void* psrc,
                     const void* exps, void* new_lid, void* list, void* acc,
                     void* hist, int F, int N, int B, int K, int W,
                     int list_blocks, int groups, int R, int KS, int FS,
-                    int C, int bundled, int packed, int bf16, void* stream) {
+                    int C, int bundled, int packed, int bf16, int bins16,
+                    int wide, void* stream) {
   unsigned long long* count;
-  int e = zero_acc(acc, F, B, K, stream, &count);
+  int e = zero_acc(acc, F, B, K, wide != 0, stream, &count);
   if (e != 0) return e;
   e = lgbt_wave_list(xt, lid, cid, cols, psrc, new_lid, list, count, F, N,
-                     K, W, list_blocks, bundled ? 2 : 1, packed, stream);
+                     K, W, list_blocks, bundled ? 2 : 1, packed, bins16,
+                     stream);
   if (e != 0) return e;
   return static_cast<int>(hist_and_finish(
       xt, w3, list, cid, exps, acc, hist, F, N, B, K, groups, R, KS, FS, C,
-      false, packed != 0, bf16 != 0, static_cast<cudaStream_t>(stream)));
+      false, packed != 0, bf16 != 0, bins16 != 0, wide != 0,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // B3 (X_t (F, N)) and B4 (rowmajor: X (N, F)), the histogram-only pass:
-// the select pass, histograms of the listed rows, f32 conversion; acc,
-// list and hist, packed and bf16 as for lgbt_wave_fused.  B5 is this pass
-// with rowmajor = 1, K = 1 and cid the leaf, on a plan of its own.
+// the select pass, histograms of the listed rows, the conversion; acc,
+// list and hist, packed, bf16, bins16 and wide as for lgbt_wave_fused.
+// B5 is this pass with rowmajor = 1, K = 1 and cid the leaf, on a plan of
+// its own.
 int lgbt_wave_hist(const void* x, const void* lid, const void* w3,
                    const void* cid, const void* exps, void* list, void* acc,
                    void* hist, int F, int N, int B, int K, int list_blocks,
                    int groups, int R, int KS, int FS, int C, int rowmajor,
-                   int packed, int bf16, void* stream) {
+                   int packed, int bf16, int bins16, int wide,
+                   void* stream) {
   unsigned long long* count;
-  int e = zero_acc(acc, F, B, K, stream, &count);
+  int e = zero_acc(acc, F, B, K, wide != 0, stream, &count);
   if (e != 0) return e;
   e = lgbt_wave_list(nullptr, lid, cid, nullptr, nullptr, nullptr, list,
-                     count, F, N, K, 0, list_blocks, 0, 0, stream);
+                     count, F, N, K, 0, list_blocks, 0, 0, 0, stream);
   if (e != 0) return e;
   return static_cast<int>(hist_and_finish(
       x, w3, list, cid, exps, acc, hist, F, N, B, K, groups, R, KS, FS, C,
-      rowmajor != 0, packed != 0, bf16 != 0,
+      rowmajor != 0, packed != 0, bf16 != 0, bins16 != 0, wide != 0,
       static_cast<cudaStream_t>(stream)));
 }
 

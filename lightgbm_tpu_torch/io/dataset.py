@@ -184,11 +184,13 @@ class TrainingData:
                                         categorical, ignore)
             if config.ooc_binned_dir and reference is None:
                 # the JAX package parses it in memory and writes no
-                # directory; asked for one, the port says why it cannot
-                Log.fatal("ooc_binned_dir: out-of-core streaming reads "
-                          "dense CSV/TSV/space files, and %s is LibSVM "
-                          "(Dataset(...).save_binned writes its bins)",
-                          filename)
+                # directory; the port does the same and says so
+                Log.warning("ooc_binned_dir=%s ignored: out-of-core "
+                            "streaming reads dense CSV/TSV/space files, "
+                            "and %s is LibSVM; it is parsed in memory and "
+                            "no directory is written "
+                            "(Dataset(...).save_binned writes its bins)",
+                            config.ooc_binned_dir, filename)
         parsed = _parser.parse_file(filename, has_header=config.has_header,
                                     label_idx=label_idx)
         data = parsed.features

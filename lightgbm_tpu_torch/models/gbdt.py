@@ -138,6 +138,7 @@ class GBDT:
         self.train_data = train_data
         self.num_data = train_data.num_data
         self.learner = SerialTreeLearner(config, train_data, self.device)
+        self._resolve_score_engine(config)
         self._reset_observer(config)
         self._fused_state = None
         self.training_metrics = list(training_metrics)
@@ -156,9 +157,10 @@ class GBDT:
                 k, self.num_data)
         # continued training (a loaded model, then new training data):
         # the trees' f64 host sums on the raw rows join the init score,
-        # rounded to f32 once
+        # rounded to the scores' dtype once (f32, or float64 under
+        # tpu_use_dp)
         score0 += self._existing_raw_scores(train_data, "training")
-        self._score_dev = torch.as_tensor(score0.astype(np.float32),
+        self._score_dev = torch.as_tensor(score0.astype(self._score_np),
                                           device=self.device)
         # degenerate class handling (gbdt.cpp:166-205)
         self.class_need_train = [True] * k
@@ -183,6 +185,21 @@ class GBDT:
         self.row_mult: Optional[torch.Tensor] = None
         if config.bagging_fraction < 1.0 and config.bagging_freq > 0:
             self.bag_data_cnt = int(config.bagging_fraction * self.num_data)
+
+    def _resolve_score_engine(self, config: Config) -> None:
+        """The scores' dtype (the learner's: float64 under tpu_use_dp)
+        and the train-side score update's engine, as the JAX package
+        resolves them (its models/gbdt.py and ops/predict.py): auto and
+        pallas take kernel B2, gather the gather; float64 scores take
+        the gather, as there (B2 is f32-only).  The learner has already
+        refused any other value."""
+        self.score_dtype = self.learner.dtype
+        self._score_np = (np.float64 if self.score_dtype == torch.float64
+                          else np.float32)
+        se = str(config.tpu_score_update).strip().lower()
+        self._score_engine = ("gather" if se == "gather"
+                              or self.score_dtype == torch.float64
+                              else "pallas")
 
     def _reset_observer(self, config: Config) -> None:
         """Build the run observer (obs/) for this training dataset and
@@ -238,6 +255,7 @@ class GBDT:
         self.shrinkage_rate = config.learning_rate
         self.learner = SerialTreeLearner(config, self.train_data,
                                          self.device)
+        self._resolve_score_engine(config)
         # the run's observer follows the rebuilt learner
         self.learner.set_observer(self._obs)
         self._fused_state = None
@@ -274,7 +292,7 @@ class GBDT:
             score[:] = np.asarray(init, dtype=np.float64).reshape(
                 k, valid_data.num_data)
         score += self._existing_raw_scores(valid_data, "validation")
-        score = score.astype(np.float32)
+        score = score.astype(self._score_np)
         self.valid_data.append(valid_data)
         self._valid_X_dev.append(torch.as_tensor(valid_data.binned,
                                                  device=self.device))
@@ -307,7 +325,8 @@ class GBDT:
         row = self._score_dev[tid]
         # the training bins may be 4-bit packed; the valid sets never are
         dev_predict.add_tree_to_score(
-            row, X, dev_predict.traversal_from_host_tree(tree, self.device),
+            row, X, dev_predict.traversal_from_host_tree(
+                tree, self.device, self.score_dtype),
             1.0, self.learner.bundle_arrays, out=row,
             packed_cols=self.learner.packed_cols if packed else 0)
 
@@ -318,7 +337,8 @@ class GBDT:
         row = self._valid_score_dev[vi][tid]
         dev_predict.add_tree_to_score(
             row, self._valid_X_dev[vi],
-            dev_predict.traversal_from_host_tree(tree, self.device), 1.0,
+            dev_predict.traversal_from_host_tree(tree, self.device,
+                                                 self.score_dtype), 1.0,
             self.learner.bundle_arrays, out=row)
 
     def _stub_offset(self) -> int:
@@ -383,7 +403,7 @@ class GBDT:
 
     def _add_constant(self, value: float, tid=None) -> None:
         """Add value to every score (tid None) or to row tid, in place."""
-        c = torch.tensor(value, dtype=torch.float32, device=self.device)
+        c = torch.tensor(value, dtype=self.score_dtype, device=self.device)
         for s in [self._score_dev] + self._valid_score_dev:
             (s if tid is None else s[tid]).add_(c)
 
@@ -444,7 +464,7 @@ class GBDT:
                        or self.learner.fused_autotune):
                 fused = fused_iter.FusedIteration(
                     self.learner, self.objective.get_gradients,
-                    self.num_data)
+                    self.num_data, score_engine=self._score_engine)
         self._fused_state = (fused,)
         return fused
 
@@ -543,7 +563,8 @@ class GBDT:
                     grad[tid], hess[tid], self.row_mult)
                 obs.lap("grow", leaf_id)
                 dev_predict.update_score_from_partition(
-                    row, leaf_id, dev_tree.leaf_value, scale, out=row)
+                    row, leaf_id, dev_tree.leaf_value, scale, out=row,
+                    engine=self._score_engine)
                 stored = dev_tree
                 obs.lap("partition", row)
             oc.exit()

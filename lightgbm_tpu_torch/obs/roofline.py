@@ -167,20 +167,26 @@ def entry_roofline(cost, exec_mean_s, exec_n, peaks, dtype="f32",
     return out
 
 
-def _wave_kernel_traffic(n, ncols, bins, slots, n_listed, fused):
+def _wave_kernel_traffic(n, ncols, bins, slots, n_listed, fused,
+                         bin_bytes=1, wide=False):
     """(bytes, adds) of one launch of B1 (fused: the routing pass and the
     histogram pass) or B3 (histogram only) at ``slots`` child slots with
-    ``n_listed`` rows in them: chip_smoke.py's bound count."""
-    hist = slots * ncols * bins * 12
+    ``n_listed`` rows in them: chip_smoke.py's bound count.  bin_bytes:
+    1 for uint8 bins, 2 for uint16 ones (more than 256 bins); wide: the
+    f64 form (float64 weights in, float64 histograms out)."""
+    vb = 24 if wide else 12                # a weight row, a histogram bin
+    hist = slots * ncols * bins * vb
     if fused:
-        nbytes = n * (4 + 4 + 1) + n_listed * (ncols + 12) \
+        nbytes = n * (4 + 4 + bin_bytes) + n_listed * (ncols * bin_bytes
+                                                      + vb) \
             + slots * (10 * 4 + 8) + hist
     else:
-        nbytes = n * 4 + n_listed * (ncols + 12) + slots * 4 + hist
+        nbytes = n * 4 + n_listed * (ncols * bin_bytes + vb) + slots * 4 \
+            + hist
     return float(nbytes), float(3 * n_listed * ncols)
 
 
-def cell_traffic(bucket, cell):
+def cell_traffic(bucket, cell, wide=False):
     """(flops, bytes) of one probe run of ``cell`` on ``bucket``: a tree
     of ``num_leaves`` leaves grown in waves of width ``wave_width`` on
     ``n_bucket`` rows, with leaves of equal size (a wave's listed rows
@@ -188,28 +194,34 @@ def cell_traffic(bucket, cell):
     slot, every row), then per wave B1 (``pallas_ct``) or B3
     (``pallas_t``) at one slot a split, and B2 (the score update, 12
     bytes and an add a row, 4 bytes a leaf).  The bf16 form and
-    compaction move the same bytes in the port's kernels."""
+    compaction move the same bytes in the port's kernels.  A bucket of
+    more than 256 padded bins reads two-byte bins; wide (tpu_use_dp) is
+    the f64 form, whose weights, histograms and scores are float64 (its
+    score update is the gather: 20 bytes a row, 8 a leaf)."""
     n = float(getattr(bucket, "n_bucket", 0) or 0)
     ncols = float(getattr(bucket, "ncols", 0) or 0)
     bins = float(getattr(bucket, "bin_pad", 0) or 0)
     leaves_max = int(getattr(bucket, "num_leaves", 2) or 2)
     width = max(int(getattr(cell, "wave_width", 1) or 1), 1)
     fused = getattr(cell, "hist_mode", "") == "pallas_ct"
-    nbytes, flops = _wave_kernel_traffic(n, ncols, bins, 1, n, False)
+    form = dict(bin_bytes=2 if bins > 256 else 1, wide=bool(wide))
+    nbytes, flops = _wave_kernel_traffic(n, ncols, bins, 1, n, False,
+                                         **form)
     leaves = 1
     while leaves < leaves_max:
         splits = min(leaves, width, leaves_max - leaves)
         b, f = _wave_kernel_traffic(n, ncols, bins, splits,
-                                    n * splits / leaves, fused)
+                                    n * splits / leaves, fused, **form)
         nbytes += b
         flops += f
         leaves += splits
-    nbytes += n * 12 + leaves_max * 4
+    nbytes += n * 20 + leaves_max * 8 if wide else n * 12 + leaves_max * 4
     flops += n
     return flops, nbytes
 
 
-def cell_roofline(bucket, cell, s_per_wave, kind=None, overrides=None):
+def cell_roofline(bucket, cell, s_per_wave, kind=None, overrides=None,
+                  wide=False):
     """The roofline stamp of one probed autotune cell: where its
     measured seconds a probe run sit against the card's compute and
     memory roofs.  ops/autotune.py attaches it to every
@@ -218,7 +230,7 @@ def cell_roofline(bucket, cell, s_per_wave, kind=None, overrides=None):
     if kind is None:
         kind = device_kind()
     peaks = peaks_for(kind, overrides)
-    flops, nbytes = cell_traffic(bucket, cell)
+    flops, nbytes = cell_traffic(bucket, cell, wide)
     r = entry_roofline({"flops": flops, "bytes_accessed": nbytes},
                        s_per_wave, 1, peaks)
     return {"flop_util": round(r["flop_util"], 4),

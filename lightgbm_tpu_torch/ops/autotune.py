@@ -349,7 +349,8 @@ def probe_available(probe, device=None) -> bool:
 
 def measure_cells(cells: List[Cell], bucket: ShapeBucket, probe,
                   waves: int, events: List, kind: str = "cpu",
-                  overrides=None) -> List[Tuple[Cell, float]]:
+                  overrides=None,
+                  wide: bool = False) -> List[Tuple[Cell, float]]:
     """Time each candidate: ``probe(cell)`` builds the cell and returns
     a run closure that grows one tree and waits for it (through
     obs/timers.fence); one untimed run first (the warm-up, the graph
@@ -384,30 +385,32 @@ def measure_cells(cells: List[Cell], bucket: ShapeBucket, probe,
             "bucket": bucket.key(), "cell": cell.as_dict(),
             "waves": waves, "s_per_wave": s_per_wave,
             "roofline": _cell_roofline(bucket, cell, s_per_wave, kind,
-                                       overrides)}))
+                                       overrides, wide)}))
         out.append((cell, s_per_wave))
     return out
 
 
 def _cell_roofline(bucket: ShapeBucket, cell: Cell, s_per_wave: float,
-                   kind: str, overrides=None):
-    """The roofline stamp of one probed cell (obs/roofline.py);
-    best-effort: attribution never fails a probe."""
+                   kind: str, overrides=None, wide: bool = False):
+    """The roofline stamp of one probed cell (obs/roofline.py; wide: the
+    f64 form's bytes); best-effort: attribution never fails a probe."""
     try:
         from ..obs.roofline import cell_roofline
         return cell_roofline(bucket, cell, s_per_wave, kind=kind,
-                             overrides=overrides)
+                             overrides=overrides, wide=wide)
     except Exception:  # noqa: BLE001 -- the stamp is telemetry
         return None
 
 
 def decide(config: Config, bucket: ShapeBucket, prior: Cell, pins: Pins,
            eligible: bool, probe=None, ct_allowed: bool = True,
-           device=None) -> Decision:
+           device=None, wide: bool = False) -> Decision:
     """The kernel-selection decision of one learner construction; always
     carries exactly one ``autotune_decision`` event (plus the probe
     events).  ``device``: the learner's device, whose kind keys the
-    cache and whose type says whether probes can run."""
+    cache and whose type says whether probes can run; ``wide``: the
+    learner runs the kernels' f64 form (tpu_use_dp), whose roofline
+    stamps count float64 bytes."""
     from ..obs.roofline import device_kind, load_peak_overrides
     mode = resolve_mode(config)
     waves = int(config.tpu_autotune_waves)
@@ -425,7 +428,7 @@ def decide(config: Config, bucket: ShapeBucket, prior: Cell, pins: Pins,
             "prior": prior.as_dict(),
             "cells": [{"cell": c.as_dict(), "s_per_wave": s,
                        "roofline": _cell_roofline(bucket, c, s, kind,
-                                                  overrides)}
+                                                  overrides, wide)}
                       for c, s in probes],
             "margin": float(margin), "overhead_s": float(overhead),
             "cache_hit": bool(cache_hit), "cache_path": cache_path}))
@@ -455,7 +458,7 @@ def decide(config: Config, bucket: ShapeBucket, prior: Cell, pins: Pins,
         return _finish(prior, "prior", cache_path=path)
     cells = enumerate_cells(prior, bucket, pins, ct_allowed=ct_allowed)
     probes = measure_cells(cells, bucket, probe, waves, events, kind,
-                           overrides)
+                           overrides, wide)
     if not probes:
         return _finish(prior, "prior", cache_path=path)
     best = min(probes, key=lambda p: p[1])

@@ -52,7 +52,7 @@ from ..utils.log import LightGBMError
 from .grow import GrowStats
 from .histogram import weight_rows
 from .leaf_hist import leaf_histogram
-from .predict import score_update
+from .predict import score_update, update_score_from_partition
 from .sparse_mxu import sparse_wave_histogram
 from .wave_kernels import (fixed_point_exponents, wave_histogram,
                            wave_histogram_rowmajor, wave_partition_hist)
@@ -161,9 +161,14 @@ class FusedIteration:
     tail graphs ran, so it makes 1 + tail_passes / tail_len host
     reads."""
 
-    def __init__(self, learner, grad_fn, num_data: int, grower=None):
+    def __init__(self, learner, grad_fn, num_data: int, grower=None,
+                 score_engine: str = "pallas"):
         """``grower``: a wave grower other than the learner's own (the
-        autotuner's probe of a candidate cell, ops/learner.py)."""
+        autotuner's probe of a candidate cell, ops/learner.py);
+        ``score_engine``: the booster's score update, B2 ('pallas') or
+        the gather (ops/predict.py update_score_from_partition).  The
+        weights, gradients and scores are in the learner's dtype
+        (float64 under tpu_use_dp)."""
         if learner.growth == "exact":
             self.grower = gr = learner.exact_grower()
             self._pass = gr.split
@@ -174,12 +179,13 @@ class FusedIteration:
             self.passes = wave_count(gr.L, gr.W)
             self.tail_len = 1
         self.grad_fn = grad_fn
+        self.score_engine = score_engine
         self.device = dev = learner.device
+        self.dtype = dt = learner.dtype
         self.state = gr.new_state(num_data, dev)
-        self.w3 = torch.empty((num_data, 3), dtype=torch.float32, device=dev)
+        self.w3 = torch.empty((num_data, 3), dtype=dt, device=dev)
         self.exps = torch.empty(3, dtype=torch.int32, device=dev)
-        self.row_mult = torch.empty(num_data, dtype=torch.float32,
-                                    device=dev)
+        self.row_mult = torch.empty(num_data, dtype=dt, device=dev)
         self.feature_mask = torch.empty_like(learner._full_mask)
         self._tree = self._tail = self._score = None
         self._score_key = None
@@ -192,7 +198,7 @@ class FusedIteration:
         root and the tree graph's masked passes, then the status; no
         host read."""
         g, h = self.grad_fn(score)
-        self.w3.copy_(weight_rows(g.to(torch.float32), h.to(torch.float32),
+        self.w3.copy_(weight_rows(g.to(self.dtype), h.to(self.dtype),
                                   self.row_mult))
         self.exps.copy_(fixed_point_exponents(self.w3))
         self.grower.root(self.state, self.w3, self.exps, self.feature_mask)
@@ -208,10 +214,12 @@ class FusedIteration:
         self.grower.write_status(self.state)
 
     def score_pass(self, score, scale: float) -> None:
-        """score += clip(scale * leaf_value)[leaf_id], in place (B2)."""
+        """score += clip(scale * leaf_value)[leaf_id], in place (B2, or
+        the gather)."""
         tree = self.grower.tree_of(self.state)
-        score_update(score, self.state.leaf_id, tree.leaf_value, scale,
-                     out=score)
+        update_score_from_partition(score, self.state.leaf_id,
+                                    tree.leaf_value, scale, out=score,
+                                    engine=self.score_engine)
 
     # ---------------------------------------------------------- schedule
     def _schedule(self, tree_step, tail_step, score_step):

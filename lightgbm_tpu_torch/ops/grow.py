@@ -15,11 +15,15 @@ shares with it, as it shares ``Grower``'s root and status and
 the leaf budget) as the JAX package gates its loop body, so
 the fused iteration (``ops/fused_iter.py``) replays a fixed number of
 splits unread; ``grow_tree_exact`` is the staged driver, one host read a
-batch of splits certain to commit.  The JAX package's ordered-partition
-capacity ladder, the onehot/scatter engines, the coordinate sparse
-store and the feature-parallel and voting arms are other arms of that
-function and are not ported; so exact growth never packs its bins (the
-JAX package packs them only on its onehot/scatter engines).
+batch of splits certain to commit.  With ``hist_mode`` 'onehot' or
+'scatter' the leaf histograms come from the JAX package's XLA engines
+(``ops/histogram.py engine_histogram``) over the masked rows, and the
+bins may be 4-bit packed, as the JAX package packs them on those
+engines; its capacity tiers (a gather of each leaf's rows) are not
+ported, nor are the coordinate sparse store and the feature-parallel
+and voting arms.  Under ``tpu_use_dp`` (dtype float64) the weights,
+histograms, best splits and the tree's values are float64 and B5 runs
+its f64 form.
 """
 from __future__ import annotations
 
@@ -28,14 +32,16 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .histogram import weight_rows
+from .histogram import ENGINE_MODES, engine_histogram, weight_rows
 from .leaf_hist import leaf_histogram
+from .pack import nibble, packed_column
 from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
                            LEFT_COUNT, LEFT_OUTPUT, LEFT_SUM_G, RIGHT_COUNT,
                            RIGHT_OUTPUT, RIGHT_SUM_G, SECOND_FEATURE,
                            SECOND_GAIN, SPLIT_VEC_SIZE, THRESHOLD,
                            FeatureMeta, SplitParams, best_splits_batched)
-from .wave_kernels import fixed_point_exponents, list_workspace
+from .wave_kernels import (bins_i32, fixed_point_exponents, indexable,
+                           list_workspace)
 
 
 @dataclass
@@ -256,8 +262,8 @@ class GrowState:
     card (``list_workspace``), which every histogram call of the state
     shares."""
     leaf_id: torch.Tensor     # (N,) i32
-    hists: torch.Tensor       # (L + 1, G, B, 3) f32, or (0,) without cache
-    bests: torch.Tensor       # (L + 1, SPLIT_VEC_SIZE) f32
+    hists: torch.Tensor       # (L + 1, G, B, 3), or (0,) without cache
+    bests: torch.Tensor       # (L + 1, SPLIT_VEC_SIZE) (the grower's dtype)
     tree: TreeArrays          # room for L + 1 leaves
     nn: torch.Tensor          # () i32 splits made
     done: torch.Tensor        # () bool a pass found nothing to split
@@ -273,38 +279,45 @@ class Grower:
     metadata and static sizes, the state, the root and the status.  A
     subclass sets ``hist_cols`` (the histograms' columns) and
     ``slots`` (the most child slots a histogram call takes) and
-    provides ``_child_hists``."""
+    provides ``_child_hists``.  dtype: float32, or float64 under
+    tpu_use_dp (the weights, histograms, best splits and tree values)."""
 
     sparse = False
     slots = 1
     counts_waves = False
+    # the histogram engine: a kernel mode, or an XLA engine of
+    # ENGINE_MODES (which needs no list workspace)
+    hist_mode = "pallas"
 
     def __init__(self, X, meta: FeatureMeta, bundle, *, num_leaves: int,
                  num_bins: int, params: SplitParams, max_depth: int,
-                 group_bins: int = 0, cache_hists: bool = True):
+                 group_bins: int = 0, cache_hists: bool = True,
+                 dtype=torch.float32):
         self.X, self.meta, self.bundle = X, meta, bundle
         self.L = num_leaves
         self.num_bins = num_bins
         self.hist_bins = group_bins if bundle is not None else num_bins
         self.params, self.max_depth = params, max_depth
         self.cache_hists = cache_hists
+        self.dtype = dtype
 
     def new_state(self, n: int, dev) -> GrowState:
         """Buffers for growing trees over n rows on dev (set by ``root``;
         the histogram cache starts zero, and a row a tree has not
         written is read only by masked-off slots)."""
-        L, f32, i32 = self.L, torch.float32, torch.int32
+        L, ft, i32 = self.L, self.dtype, torch.int32
         hists = (torch.zeros((L + 1, self.hist_cols, self.hist_bins, 3),
-                             dtype=f32, device=dev)
+                             dtype=ft, device=dev)
                  if self.cache_hists else torch.empty(0, device=dev))
         work = (list_workspace(n, self.slots, self.hist_cols,
-                               self.hist_bins, dev)
-                if dev.type == "cuda" and not self.sparse else None)
+                               self.hist_bins, dev, ft == torch.float64)
+                if dev.type == "cuda" and not self.sparse
+                and self.hist_mode not in ENGINE_MODES else None)
         return GrowState(
             leaf_id=torch.empty(n, dtype=i32, device=dev), hists=hists,
-            bests=torch.empty((L + 1, SPLIT_VEC_SIZE), dtype=f32,
+            bests=torch.empty((L + 1, SPLIT_VEC_SIZE), dtype=ft,
                               device=dev),
-            tree=TreeArrays.new(L + 1, torch.zeros((), device=dev), f32,
+            tree=TreeArrays.new(L + 1, torch.zeros((), device=dev), ft,
                                 dev),
             nn=torch.empty((), dtype=i32, device=dev),
             done=torch.empty((), dtype=torch.bool, device=dev),
@@ -365,7 +378,9 @@ class Grower:
 
 class ExactGrower(Grower):
     """The exact (leaf-wise) grower of one learner: its row-major bins X
-    (N, G) uint8, feature metadata and static sizes.
+    (N, G) uint8 or uint16 (with packed_cols > 0, the 4-bit packed bins
+    of that many columns, under the XLA engines only), feature metadata
+    and static sizes; hist_mode 'pallas' (B5), 'onehot' or 'scatter'.
 
     ``split`` is the body of the JAX package's ``lax.while_loop``: the
     leaf of largest gain (the first, as ``jnp.argmax``), its rows
@@ -376,22 +391,39 @@ class ExactGrower(Grower):
     on the state, and nothing reads the device: a fixed number of splits
     can run unread (``ops/fused_iter.py`` replays them as CUDA graphs)."""
 
-    def __init__(self, X, meta: FeatureMeta, bundle, **kw):
+    def __init__(self, X, meta: FeatureMeta, bundle, *,
+                 hist_mode: str = "pallas", packed_cols: int = 0, **kw):
         super().__init__(X, meta, bundle, **kw)
-        self.hist_cols = X.shape[1]
+        self.hist_mode = hist_mode
+        self.packed_cols = int(packed_cols)
+        self.hist_cols = self.packed_cols or X.shape[1]
 
     def _child_hists(self, st, lid, ids, w3, exps):
-        """B5: the (1, G, B, 3) histogram of the rows in leaf ids, a (1,)
-        device tensor (-1: no row, a zero histogram)."""
+        """B5 (or the XLA engine): the (1, G, B, 3) histogram of the rows
+        in leaf ids, a (1,) device tensor (-1: no row, a zero
+        histogram)."""
+        if self.hist_mode in ENGINE_MODES:
+            return engine_histogram(self.hist_mode, self.X, lid, w3,
+                                    ids.to(torch.int32), self.hist_bins,
+                                    exps, self.packed_cols)
         return leaf_histogram(self.X, None, None, lid, ids, None,
                               self.hist_bins, w3=w3, exps=exps,
                               work=st.work)[None]
+
+    def _split_column(self, j):
+        """(N,) int32: every row's bin in device column j, a (1,) long
+        tensor (its nibble when packed)."""
+        Xi = indexable(self.X)
+        if not self.packed_cols:
+            return bins_i32(Xi.index_select(1, j)[:, 0])
+        p, high = packed_column(j, self.packed_cols)
+        return nibble(bins_i32(Xi.index_select(1, p)[:, 0]), high)
 
     def split(self, st: GrowState, w3, exps, feature_mask) -> None:
         """One gated split (SerialTreeLearner::Train, :203-207): split the
         leaf of largest gain if its gain is positive and the tree has
         room, with no host read."""
-        L, bundle, X = self.L, self.bundle, self.X
+        L, bundle = self.L, self.bundle
         i32 = torch.int32
         bl = torch.argmax(st.bests[:L, GAIN]).reshape(1)   # (1,) long
         info = st.bests.index_select(0, bl)                # (1, V)
@@ -404,7 +436,7 @@ class ExactGrower(Grower):
         # remapped out of its EFB group, routes the leaf's rows
         f = sp.feature
         j = f if bundle is None else bundle.group_of[f].long()
-        col = X.index_select(1, j)[:, 0].to(i32)
+        col = self._split_column(j)
         if bundle is not None:
             goff, span, adj = (a[f] for a in (
                 bundle.bin_off, bundle.bin_span, bundle.bin_adj))
@@ -458,11 +490,13 @@ class ExactGrower(Grower):
 def grow_tree_exact(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
                     bundle, *, num_leaves: int, num_bins: int,
                     params: SplitParams, max_depth: int, group_bins: int = 0,
-                    cache_hists: bool = True):
+                    cache_hists: bool = True, hist_mode: str = "pallas",
+                    packed_cols: int = 0, dtype=torch.float32):
     """Grow one tree leaf-wise, staged: an ExactGrower's gated split with
     one host read a batch of splits certain to commit.  X: (N, G) uint8
-    row-major bins; grad/hess/row_mult: (N,) f32.  Returns (TreeArrays,
-    leaf_id (N,) int32, GrowStats).
+    or uint16 row-major bins; grad/hess/row_mult: (N,) in dtype (float32,
+    or float64 under tpu_use_dp); hist_mode and packed_cols as for
+    ExactGrower.  Returns (TreeArrays, leaf_id (N,) int32, GrowStats).
 
     A split consumes the one leaf it splits and puts its two children in
     its place, so the count of leaves with a positive gain drops by at
@@ -473,7 +507,9 @@ def grow_tree_exact(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     L = num_leaves
     g = ExactGrower(X, meta, bundle, num_leaves=L, num_bins=num_bins,
                     params=params, max_depth=max_depth,
-                    group_bins=group_bins, cache_hists=cache_hists)
+                    group_bins=group_bins, cache_hists=cache_hists,
+                    hist_mode=hist_mode, packed_cols=packed_cols,
+                    dtype=dtype)
     st = g.new_state(grad.shape[0], grad.device)
     # B5's weight rows and fixed-point exponents, once a tree as the wave
     # grower makes them: every leaf histogram of the tree, and wave

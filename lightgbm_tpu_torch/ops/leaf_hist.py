@@ -3,12 +3,15 @@ version.
 
 Ported from the JAX package's ``ops/pallas_hist.py``
 (``leaf_histogram_pallas``).  The contract is the JAX package's: X (N, F)
-uint8 row-major bins, grad and hess (N,) f32, leaf_id (N,) int32, the
-target leaf, row_mult (N,) f32 or None; the (F, B, 3) f32 histogram sums
-[g * m, h * m, m] with m = (leaf_id == leaf) * row_mult.  The JAX package
-falls back to its XLA one-hot path where the TPU's VMEM cannot hold a bin
-width (``supports_bins``); the port's bins are uint8 (B <= 256) and wide
-shapes take more feature groups, so there is no fallback.
+uint8 or uint16 row-major bins, grad and hess (N,) f32 (or float64, the
+f64 form of ``tpu_use_dp``), leaf_id (N,) int32, the target leaf,
+row_mult (N,) or None; the (F, B, 3) histogram, in the weights' dtype,
+sums [g * m, h * m, m] with m = (leaf_id == leaf) * row_mult.  The JAX
+package falls back to its XLA one-hot path where the TPU's VMEM cannot
+hold a bin width (``supports_bins``, above ~2048 bins); the port's plan
+takes more feature groups for wide shapes and tiles the bin axis past
+what one shared-memory row holds (``wave_kernels.hist_plan``), so every
+bin count up to 65,536 launches and there is no fallback.
 
 The kernel is B4's row-major pass with one child slot
 (``csrc/wave_fused.cu``, ``lgbt_wave_hist``): a select pass lists the
@@ -31,9 +34,9 @@ import torch
 from .. import _build
 from ..utils.log import LightGBMError
 from .histogram import _weights, weight_rows
-from .wave_kernels import (_exps, _list_buffers, _sms, check_rows,
-                           hist_plan, histogram_plain,
-                           wave_histogram_rowmajor_plain)
+from .wave_kernels import (BIN_DTYPES, MAX_BINS, WEIGHT_DTYPES, _exps,
+                           _list_buffers, _sms, check_rows, hist_plan,
+                           histogram_plain, wave_histogram_rowmajor_plain)
 
 
 def leaf_histogram_plain(X, grad, hess, leaf_id, leaf, row_mult,
@@ -65,15 +68,19 @@ def _check(X, grad, hess, leaf_id, row_mult, num_bins, w3, exps):
     splits pass w3 alone."""
     dev = X.device
     N, F = X.shape if X.dim() == 2 else (None, None)
-    want = [(X, torch.uint8, (N, F), "X"),
+    bdt = X.dtype if X.dtype in BIN_DTYPES else torch.uint8
+    want = [(X, bdt, (N, F), "X"),
             (leaf_id, torch.int32, (N,), "leaf_id")]
     if w3 is None:
-        want += [(grad, torch.float32, (N,), "grad"),
-                 (hess, torch.float32, (N,), "hess")]
+        wdt = (grad.dtype if isinstance(grad, torch.Tensor)
+               and grad.dtype in WEIGHT_DTYPES else torch.float32)
+        want += [(grad, wdt, (N,), "grad"),
+                 (hess, wdt, (N,), "hess")]
         if row_mult is not None:
-            want.append((row_mult, torch.float32, (N,), "row_mult"))
+            want.append((row_mult, wdt, (N,), "row_mult"))
     else:
-        want.append((w3, torch.float32, (N, 3), "w3"))
+        wdt = w3.dtype if w3.dtype in WEIGHT_DTYPES else torch.float32
+        want.append((w3, wdt, (N, 3), "w3"))
     if exps is not None:
         want.append((exps, torch.int32, (3,), "exps"))
     for t, dtype, shape, name in want:
@@ -84,9 +91,9 @@ def _check(X, grad, hess, leaf_id, row_mult, num_bins, w3, exps):
         if t.device != dev:
             raise LightGBMError("%s is on %s, X on %s"
                                 % (name, t.device, dev))
-    if not 1 <= int(num_bins) <= 256:
-        raise LightGBMError("num_bins must be in [1, 256], got %d"
-                            % num_bins)
+    if not 1 <= int(num_bins) <= MAX_BINS[bdt]:
+        raise LightGBMError("num_bins must be in [1, %d] for %s bins, got %d"
+                            % (MAX_BINS[bdt], bdt, num_bins))
     if N < 1 or F < 1:
         raise LightGBMError("empty leaf histogram input")
     if dev.type not in ("cpu", "cuda"):
@@ -103,12 +110,13 @@ def _launch(X, w3, leaf_id, leaf_t, num_bins, exps, plan, work=None):
     (hist_plan's first six fields); returns the (F, B, 3) histogram."""
     N, F = X.shape
     B = int(num_bins)
+    wide = w3.dtype == torch.float64
     rows, acc, work, hist = _list_buffers(N, 1, F, B, X.device, (F, B, 3),
-                                          work)
+                                          work, wide)
     err = _build.library().lgbt_wave_hist(
         *[t.data_ptr() for t in (X, leaf_id, w3, leaf_t, exps)], rows, acc,
         hist.data_ptr(), F, N, B, 1, *plan, 1, 0, 0,
-        _build.stream(X.device))
+        int(X.dtype == torch.uint16), int(wide), _build.stream(X.device))
     _build.check(err, "leaf_hist")
     return hist
 
@@ -145,11 +153,18 @@ def leaf_histogram(X, grad, hess, leaf_id, leaf, row_mult, num_bins: int,
     if w3 is None:
         w3 = weight_rows(grad, hess, row_mult)
     N, F = X.shape
-    plan = hist_plan(F, N, int(num_bins), 1, _sms(X.device))[:6]
+    plan = hist_plan(F, N, int(num_bins), 1, _sms(X.device), False,
+                     w3.dtype == torch.float64)[:6]
     out = _launch(X, w3, leaf_id, leaf_t, num_bins, _exps(w3, exps), plan,
                   work)
     leaf_histogram.launches += 1
+    for form, on in (("uint16", X.dtype == torch.uint16),
+                     ("f64", w3.dtype == torch.float64)):
+        if on:
+            leaf_histogram.form_launches[form] += 1
     return out
 
 
 leaf_histogram.launches = 0
+# the launches of its uint16 and f64 forms
+leaf_histogram.form_launches = {"uint16": 0, "f64": 0}

@@ -4,9 +4,13 @@ exact grower (ops/grow.py).
 Ported from the JAX package's ``ops/learner.py`` (``SerialTreeLearner``).
 The learner uploads the bin matrix once: transposed for the wave kernels
 B1/B3, row-major for ``tpu_histogram_mode=pallas`` (B4 under wave growth,
-B5 under exact growth), or, with ``tpu_sparse`` and ``tpu_sparse_kernel``,
-only the non-fill entries in the entry-chunk sparse store
-(ops/sparse_mxu.py).  A dataset backed by a pre-binned directory
+B5 under exact growth) and for the XLA engines ``onehot`` and
+``scatter`` (ops/histogram.py), or, with ``tpu_sparse`` and
+``tpu_sparse_kernel``, only the non-fill entries in the entry-chunk
+sparse store (ops/sparse_mxu.py).  A column of more than 256 bins makes
+the matrix uint16, as in the JAX package; the kernels take both widths.
+``tpu_use_dp`` makes the weights, histograms, split search and tree
+values float64 (the kernels' f64 form).  A dataset backed by a pre-binned directory
 (io/binned_format.py) pages its shards to the card one at a time
 (``paged_device_matrix``), so the host never holds the whole matrix.
 Under wave growth on the dense matrix, where every
@@ -41,6 +45,7 @@ from .autotune import (_order_sensitive, bin_pad, prior_hist_hilo,
                        prior_hist_mode, resolve_wave_order,
                        resolve_wave_width)
 from .grow import BundleArrays, ExactGrower, grow_tree_exact
+from .histogram import ENGINE_MODES
 from .pack import can_pack4, pack4_host
 from .sparse_mxu import build_chunked_store
 from .sparse_store import column_fill_bins
@@ -115,9 +120,9 @@ def build_split_params(config: Config) -> SplitParams:
 
 def _unsupported(knob: str, value) -> None:
     Log.fatal("%s=%s selects an engine lightgbm_tpu_torch does not have "
-              "yet (this port runs serial wave or exact growth with the "
-              "f32 kernels, on the dense matrix or the entry-chunk sparse "
-              "store)", knob, value)
+              "yet (this port runs serial wave or exact growth with its "
+              "kernels or the onehot/scatter engines, on the dense matrix "
+              "or the entry-chunk sparse store)", knob, value)
 
 
 def resolve_sparse(config: Config) -> bool:
@@ -145,6 +150,13 @@ def resolve_sparse(config: Config) -> bool:
     if str(config.tpu_growth).strip().lower() == "exact":
         Log.fatal("tpu_sparse_kernel=true requires wave growth "
                   "(tpu_growth=exact scans per leaf)")
+    if bool(config.tpu_use_dp):
+        # the JAX package runs its f32 kernel's XLA reference in f64
+        # here; kernel B6 sums f32 weights, and no plain version stands
+        # in for a kernel
+        Log.fatal("tpu_use_dp=true with tpu_sparse_kernel=true: kernel B6 "
+                  "of the entry-chunk store sums f32 weights (drop "
+                  "tpu_use_dp, or train on the dense matrix)")
     return True
 
 
@@ -153,10 +165,11 @@ def _val(config: Config, name: str) -> str:
 
 
 def resolve_growth(config: Config, sparse: bool) -> str:
-    """'wave' or 'exact', as the JAX package resolves tpu_growth
-    (its ops/learner.py): auto is exact with tpu_histogram_mode=pallas,
-    whose kernel is the exact grower's per-leaf histogram, and wave
-    otherwise; the wave-only kernels refuse exact growth."""
+    """'wave' or 'exact', as the JAX package resolves tpu_growth on its
+    accelerator (its ops/learner.py): auto is exact with
+    tpu_histogram_mode=pallas, whose kernel is the exact grower's
+    per-leaf histogram, and wave otherwise (onehot and scatter
+    included); the wave-only kernels refuse exact growth."""
     growth = _val(config, "tpu_growth")
     mode = _val(config, "tpu_histogram_mode")
     if growth == "auto":
@@ -179,8 +192,9 @@ def check_engine_params(config: Config):
     checks = [
         ("tree_learner", ("serial",)),
         ("tpu_growth", ("auto", "wave", "exact")),
-        ("tpu_histogram_mode", ("auto", "pallas", "pallas_ct", "pallas_t")),
-        ("tpu_score_update", ("auto", "pallas")),
+        ("tpu_histogram_mode", ("auto", "pallas", "pallas_ct", "pallas_t")
+         + ENGINE_MODES),
+        ("tpu_score_update", ("auto", "pallas", "gather")),
         ("tpu_fused_iter", ("auto", "on", "off")),
         ("tpu_autotune", ("off", "prior", "measure", "force")),
         ("tpu_wave_lookup", ("auto", "onehot", "compact", "gather")),
@@ -188,8 +202,6 @@ def check_engine_params(config: Config):
     for name, ok in checks:
         if val(name) not in ok:
             _unsupported(name, getattr(config, name))
-    if bool(config.tpu_use_dp):
-        _unsupported("tpu_use_dp", "true")
     if val("tpu_hist_precision") not in ("auto", "hilo", "bf16"):
         Log.fatal("Unknown tpu_hist_precision %s (expected auto/hilo/bf16)",
                   config.tpu_hist_precision)
@@ -210,26 +222,26 @@ def check_engine_params(config: Config):
 
 
 def resolve_bin_pack(config: Config, growth: str, sparse: bool,
-                     bins_per_col) -> bool:
+                     bins_per_col, hist_mode: str = "") -> bool:
     """Pack the bins 4-bit where the JAX package packs them (its
-    ops/learner.py): tpu_bin_pack auto or true, wave growth, the dense
-    matrix, the serial learner (the only one the port has) and at most
-    16 bins in every device column.  The JAX package also packs exact
-    growth on its onehot/scatter engines, which the port does not have.
-    A forced true that cannot be honoured warns, as there, with its
-    reasons."""
+    ops/learner.py): tpu_bin_pack auto or true, wave growth or exact
+    growth on the onehot/scatter engines, the dense matrix, the serial
+    learner (the only one the port has) and at most 16 bins in every
+    device column.  A forced true that cannot be honoured warns, as
+    there, with its reasons."""
     cfg = _val(config, "tpu_bin_pack")
     forced = cfg in _TRUE_SET
     fits = can_pack4(bins_per_col)
-    if (forced or cfg == "auto") and growth == "wave" and not sparse \
-            and fits:
+    growth_ok = growth == "wave" or (growth == "exact"
+                                     and hist_mode in ENGINE_MODES)
+    if (forced or cfg == "auto") and growth_ok and not sparse and fits:
         return True
     if forced:
         reasons = []
         if sparse:
             reasons.append("the dense device store (tpu_sparse keeps "
                            "coordinates, there are no bin bytes to pack)")
-        elif growth != "wave":
+        elif not growth_ok:
             reasons.append("wave growth or exact growth with the "
                            "onehot/scatter histogram kernels")
         if not fits:
@@ -264,9 +276,10 @@ def resolve_wave_compact(config: Config, growth: str, hist_mode: str) -> bool:
 def paged_device_matrix(train_data: TrainingData, row_major: bool, device):
     """The bin matrix of a reader-backed dataset, paged to ``device`` shard
     by shard (JAX ops/learner.py ``paged_device_matrix``): X_t (G, N) for
-    the transposed dataflows, X (N, G) for ``pallas``.  Returns
-    ``(X, stats)``, or ``(None, None)`` when the dataset has no reader of
-    uint8 bins (the caller then uploads ``binned`` in one go).
+    the transposed dataflows, X (N, G) for ``pallas`` and the XLA
+    engines, in the shards' dtype (uint8, or uint16 past 256 bins).
+    Returns ``(X, stats)``, or ``(None, None)`` when the dataset has no
+    reader (the caller then uploads ``binned`` in one go).
 
     X is allocated on the card once.  A shard is an F-order (rows, G)
     memmap, so its ``.T`` is a C-contiguous (G, rows) block: each shard
@@ -276,7 +289,7 @@ def paged_device_matrix(train_data: TrainingData, row_major: bool, device):
     copy.  Host memory above the process's holds a mapped shard and the
     staging buffer, never the matrix."""
     reader = train_data._binned_reader
-    if (reader is None or reader.dtype != np.uint8
+    if (reader is None or reader.dtype not in (np.uint8, np.uint16)
             or reader.num_columns == 0):
         return None, None
     lo, hi = reader.row_range
@@ -285,11 +298,12 @@ def paged_device_matrix(train_data: TrainingData, row_major: bool, device):
         return None, None
     t0 = time.perf_counter()
     cuda = torch.device(device).type == "cuda"
-    X = torch.empty((n, g) if row_major else (g, n), dtype=torch.uint8,
+    dtype = torch.uint16 if reader.dtype == np.uint16 else torch.uint8
+    X = torch.empty((n, g) if row_major else (g, n), dtype=dtype,
                     device=device)
     cap = max(min(int(reader.shards[i]["rows"]), n)
               for i in reader.active_shards)
-    stage = torch.empty(cap * g, dtype=torch.uint8, pin_memory=cuda)
+    stage = torch.empty(cap * g, dtype=dtype, pin_memory=cuda)
     stage_np = stage.numpy()
     copied = None          # the event of the last copy out of the stage
     shards = 0
@@ -308,8 +322,9 @@ def paged_device_matrix(train_data: TrainingData, row_major: bool, device):
         shards += 1
     if copied is not None:
         copied.synchronize()
-    stats = {"paged": True, "shards": shards, "bytes": int(n * g),
-             "staging_bytes": int(cap * g),
+    width = X.element_size()
+    stats = {"paged": True, "shards": shards, "bytes": int(n * g * width),
+             "staging_bytes": int(cap * g * width),
              "seconds": time.perf_counter() - t0}
     return X, stats
 
@@ -318,6 +333,8 @@ class SerialTreeLearner:
     def __init__(self, config: Config, train_data: TrainingData, device):
         self.sparse, self.growth = check_engine_params(config)
         self.config = config
+        # the histograms', split search's and trees' dtype
+        self.dtype = torch.float64 if config.tpu_use_dp else torch.float32
         self.train_data = train_data
         self.device = device
         self.num_leaves = config.num_leaves
@@ -347,21 +364,21 @@ class SerialTreeLearner:
                  else max(train_data.num_features, 1))
         nbins = (self.group_bins if train_data.bundle is not None
                  else self.num_bins)
-        if nbins > 256:
-            Log.fatal("lightgbm_tpu_torch bins are uint8: %d bins per "
-                      "column is too many (use max_bin <= 255)", nbins)
         mode = _val(config, "tpu_histogram_mode")
         if self.sparse:
             mode = "sparse_mxu"
         elif self.growth == "exact":
-            # exact growth takes B5 ('pallas').  With 'auto' the JAX
-            # package's TPU prior picks its XLA onehot engine here
-            # (ops/autotune.py), which the port does not have
-            mode = "pallas"
+            # exact growth takes B5 ('pallas'), or the XLA engine asked
+            # for.  With 'auto' the JAX package's TPU prior picks its XLA
+            # onehot engine here (ops/autotune.py); the port's is B5
+            mode = mode if mode in ENGINE_MODES else "pallas"
         elif mode == "auto":
             # the JAX package's prior: the fused kernel while the
             # accumulator block is narrow, the histogram-only kernel with
-            # a separate partition above that bound
+            # a separate partition above that bound.  Under tpu_use_dp the
+            # JAX package takes its onehot engine, because its Pallas
+            # kernels are f32-only; the port's kernels have an f64 form,
+            # so its auto stays on them
             mode = prior_hist_mode(ncols, bin_pad(nbins))
         self.hist_mode = mode
         self.hist_hilo = prior_hist_hilo(config)
@@ -371,9 +388,10 @@ class SerialTreeLearner:
                         else train_data.num_bin_arr)
         # the logical columns of the 4-bit packed bins, 0 for byte bins
         self.packed_cols = (ncols if resolve_bin_pack(
-            config, self.growth, self.sparse, bins_per_col) else 0)
-        self.cache_hists = hist_cache_enabled(config, self.num_leaves,
-                                              ncols, nbins, 4)
+            config, self.growth, self.sparse, bins_per_col, mode) else 0)
+        self.cache_hists = hist_cache_enabled(
+            config, self.num_leaves, ncols, nbins,
+            8 if self.dtype == torch.float64 else 4)
         # the order and width are read only under wave growth, as in the
         # JAX package
         self.wave_order = (resolve_wave_order(config)
@@ -390,7 +408,7 @@ class SerialTreeLearner:
             # JAX package pages byte bins only; packed bins and the
             # sparse store read train_data.binned)
             self.X, self.upload_stats = paged_device_matrix(
-                train_data, mode == "pallas", device)
+                train_data, self.row_major, device)
         if self.sparse:
             binned = self._host_bins(train_data)
             # only the non-fill entries go to the device; a low-skew
@@ -404,19 +422,20 @@ class SerialTreeLearner:
         elif self.upload_stats is None:
             t0 = time.perf_counter()
             binned = self._host_bins(train_data)
-            if binned.dtype != np.uint8:
-                Log.fatal("lightgbm_tpu_torch needs uint8 bins, got %s",
-                          binned.dtype)
+            if binned.dtype not in (np.uint8, np.uint16):
+                Log.fatal("lightgbm_tpu_torch needs uint8 or uint16 bins, "
+                          "got %s", binned.dtype)
             if self.packed_cols:
                 binned = pack4_host(binned)       # (N, ceil(G / 2))
             # the bin matrix, uploaded once per booster: row-major (N, G)
-            # for the 'pallas' kernels, else transposed (G, N)
+            # for the 'pallas' kernels and the XLA engines, else
+            # transposed (G, N)
             self.X = torch.as_tensor(np.ascontiguousarray(
-                binned if mode == "pallas" else binned.T), device=device)
+                binned if self.row_major else binned.T), device=device)
             self.upload_stats = {"paged": False, "shards": 1,
                                  "bytes": int(binned.nbytes),
                                  "seconds": time.perf_counter() - t0}
-        self._ones = torch.ones(train_data.num_data, dtype=torch.float32,
+        self._ones = torch.ones(train_data.num_data, dtype=self.dtype,
                                 device=device)
         self._full_mask = torch.ones(max(train_data.num_features, 1),
                                      dtype=torch.bool, device=device)
@@ -453,7 +472,9 @@ class SerialTreeLearner:
             width=(int(config.tpu_wave_width) > 0
                    or (_order_sensitive(config)
                        and self.wave_order != "exact")),
-            precision=_val(config, "tpu_hist_precision") != "auto",
+            # the f64 form takes no bf16 rounding: its precision is fixed
+            precision=(_val(config, "tpu_hist_precision") != "auto"
+                       or self.dtype == torch.float64),
             compact="tpu_wave_compact" in config.raw,
             fused=_val(config, "tpu_fused_iter") != "auto")
         eligible = (self.growth == "wave" and not self.sparse
@@ -461,7 +482,8 @@ class SerialTreeLearner:
         before = _counts()
         dec = at.decide(config, bucket, prior, pins, eligible,
                         probe=self._make_autotune_probe() if eligible
-                        else None, device=self.device)
+                        else None, device=self.device,
+                        wide=self.dtype == torch.float64)
         self.autotune_launches = {
             k.__name__ + ("" if form is None else "_" + form): a - b
             for (k, form), a, b in zip(COUNTERS, _counts(), before)
@@ -499,9 +521,8 @@ class SerialTreeLearner:
         from .predict import update_score_from_partition
         n = self.train_data.num_data
         dev = self.device
-        target = torch.linspace(-1.0, 1.0, n, dtype=torch.float32,
-                                device=dev)
-        hess = torch.full((n,), 0.25, dtype=torch.float32, device=dev)
+        target = torch.linspace(-1.0, 1.0, n, dtype=self.dtype, device=dev)
+        hess = torch.full((n,), 0.25, dtype=self.dtype, device=dev)
         scale = 0.1
 
         def grad(score):
@@ -509,11 +530,13 @@ class SerialTreeLearner:
 
         def probe(cell):
             kw = self._wave_kw(cell)
-            score = torch.zeros(n, dtype=torch.float32, device=dev)
+            score = torch.zeros(n, dtype=self.dtype, device=dev)
             if cell.fused:
                 fused = FusedIteration(
                     self, grad, n, grower=WaveGrower(
-                        self.X, self.meta, self.bundle_arrays, **kw))
+                        self.X, self.meta, self.bundle_arrays, **kw),
+                    score_engine="gather" if self.dtype == torch.float64
+                    else "pallas")
 
                 def run():
                     score.zero_()
@@ -528,8 +551,10 @@ class SerialTreeLearner:
                 tree, leaf_id, _ = grow_tree(
                     self.X, g, h, self._ones, self._full_mask, self.meta,
                     self.bundle_arrays, **kw)
-                update_score_from_partition(score, leaf_id, tree.leaf_value,
-                                            scale, out=score)
+                update_score_from_partition(
+                    score, leaf_id, tree.leaf_value, scale, out=score,
+                    engine="gather" if self.dtype == torch.float64
+                    else "pallas")
                 fence(score)
             return run
 
@@ -561,7 +586,8 @@ class SerialTreeLearner:
             "packed_cols": int(self.packed_cols),
             "num_leaves": int(self.num_leaves),
             "num_bins": int(self.num_bins),
-            "dtype": "float32",
+            "dtype": "float64" if self.dtype == torch.float64
+                     else "float32",
             "cache_hists": bool(self.cache_hists),
         }
 
@@ -585,6 +611,13 @@ class SerialTreeLearner:
             binned = np.zeros((train_data.num_data, 1), np.uint8)
         return binned
 
+    @property
+    def row_major(self) -> bool:
+        """Whether the dense bins are uploaded row-major (N, G): for
+        'pallas' (B4, B5) and the XLA engines; the transposed kernels
+        read (G, N)."""
+        return self.hist_mode == "pallas" or self.hist_mode in ENGINE_MODES
+
     def row_major_bins(self):
         """(X, packed): the training bins as (N, G) rows for a traversal,
         the upload or a transposed view of it, and whether they are 4-bit
@@ -592,13 +625,20 @@ class SerialTreeLearner:
         sparse store, which keeps no dense matrix."""
         if self.sparse:
             return None, False
-        X = self.X if self.hist_mode == "pallas" else self.X.t()
+        X = self.X if self.row_major else self.X.t()
         return X, bool(self.packed_cols)
 
     def _grow_kw(self) -> dict:
         return dict(num_leaves=self.num_leaves, num_bins=self.num_bins,
                     params=self.params, max_depth=self.config.max_depth,
-                    group_bins=self.group_bins, cache_hists=self.cache_hists)
+                    group_bins=self.group_bins, cache_hists=self.cache_hists,
+                    dtype=self.dtype)
+
+    def _exact_kw(self) -> dict:
+        """The exact grower's arguments: its engine and the packed
+        columns (the XLA engines only), and the shared ones."""
+        return dict(hist_mode=self.hist_mode, packed_cols=self.packed_cols,
+                    **self._grow_kw())
 
     def _wave_kw(self, cell=None) -> dict:
         """The wave grower's arguments: this learner's, or an autotune
@@ -624,18 +664,18 @@ class SerialTreeLearner:
         """The exact grower of this learner's row-major bins and config
         (what the fused iteration replays under exact growth)."""
         return ExactGrower(self.X, self.meta, self.bundle_arrays,
-                           **self._grow_kw())
+                           **self._exact_kw())
 
     def train_device(self, grad, hess, row_mult=None):
         """Grow one tree on the device: (TreeArrays, leaf_id, GrowStats)."""
         if row_mult is None:
             row_mult = self._ones
-        args = (self.X, grad.to(torch.float32), hess.to(torch.float32),
-                row_mult.to(torch.float32), self.sample_feature_mask(),
+        args = (self.X, grad.to(self.dtype), hess.to(self.dtype),
+                row_mult.to(self.dtype), self.sample_feature_mask(),
                 self.meta, self.bundle_arrays)
         t0 = self._obs.entry_start()
         if self.growth == "exact":
-            tree, leaf_id, stats = grow_tree_exact(*args, **self._grow_kw())
+            tree, leaf_id, stats = grow_tree_exact(*args, **self._exact_kw())
         else:
             tree, leaf_id, stats = grow_tree(*args, **self._wave_kw())
         self._obs.entry_end("tree_grow", t0, (tree, leaf_id))

@@ -19,7 +19,8 @@ from ..device import resolve_device
 from ..utils.common import kMaxTreeOutput, kMissingValueRange
 from ..utils.log import LightGBMError
 from .pack import nibble, packed_column
-from .partition import clipped_leaf_values
+from .partition import clipped_leaf_values, score_update_impl
+from .wave_kernels import bins_i32, indexable
 
 
 @dataclass
@@ -55,9 +56,11 @@ def traversal_from_grow(tree_arrays, num_leaves: int,
     )
 
 
-def traversal_from_host_tree(tree, device) -> TraversalArrays:
+def traversal_from_host_tree(tree, device,
+                             dtype=torch.float32) -> TraversalArrays:
     """Upload a models.Tree (with bin thresholds) for traversal on
-    ``device``; its leaf values rounded to f32."""
+    ``device``; its leaf values rounded to dtype (f32, or float64 for
+    the scores of tpu_use_dp)."""
     ni = max(tree.num_leaves - 1, 1)
     nl = max(tree.num_leaves, 2)
 
@@ -74,7 +77,7 @@ def traversal_from_host_tree(tree, device) -> TraversalArrays:
         is_cat=i32(tree.decision_type),
         left_child=i32(tree.left_child),
         right_child=i32(tree.right_child),
-        leaf_value=torch.as_tensor(tree.leaf_value[:nl], dtype=torch.float32,
+        leaf_value=torch.as_tensor(tree.leaf_value[:nl], dtype=dtype,
                                    device=device),
     )
 
@@ -96,12 +99,14 @@ def leaf_index_binned(tree: TraversalArrays, X, layout=None,
     node = torch.zeros(n, dtype=torch.long, device=dev)
     sf = tree.split_feature.long()
 
+    Xi = indexable(X)
+
     def col_bins(f):
         """Each row's bin in its (device) column f."""
         if not packed_cols:
-            return X[rows, f].to(torch.int32)
+            return bins_i32(Xi[rows, f])
         p, high = packed_column(f, packed_cols)
-        return nibble(X[rows, p].to(torch.int32), high)
+        return nibble(bins_i32(Xi[rows, p]), high)
 
     for _ in range(tree.depth):
         nd = node.clamp(min=0)
@@ -214,10 +219,26 @@ def score_update(score, leaf_id, leaf_value, scale=1.0, out=None):
 score_update.launches = 0
 
 
+def update_score_gather(score, leaf_id, leaf_value, scale, out=None):
+    """The gather engine of the score update (the JAX package's
+    ``_update_score_gather``, an XLA gather, so plain torch is its port):
+    score + clip(scale * leaf_value)[clamp(leaf_id, 0, L-1)] in the
+    leaf values' dtype, written to out (a new tensor when None).  It
+    takes any dtype: tpu_score_update=gather and the float64 scores of
+    tpu_use_dp run it; on f32 it equals B2 to the bit."""
+    new = score_update_impl(score, leaf_id, leaf_value, scale)
+    return new if out is None else out.copy_(new)
+
+
 def update_score_from_partition(score, leaf_id, leaf_value, scale,
-                                out=None):
+                                out=None, engine: str = "pallas"):
     """Train-side update via the final partition (score_updater.hpp:91-99):
-    score += clip(scale * leaf_value)[leaf_id], through kernel B2."""
+    score += clip(scale * leaf_value)[leaf_id], through kernel B2
+    (engine 'pallas', f32 only) or the gather (engine 'gather'); the
+    booster resolves the engine (models/gbdt.py), so nothing here falls
+    back."""
+    if engine == "gather":
+        return update_score_gather(score, leaf_id, leaf_value, scale, out)
     return score_update(score, leaf_id, leaf_value, scale, out)
 
 

@@ -38,6 +38,15 @@ the rows routed to the other candidates' right children back to their
 parents; the fixed-point histograms do not depend on the slot, so the
 trees equal exact growth's (``ops/grow.py``) at any width.
 
+With ``tpu_histogram_mode=onehot`` or ``scatter`` the bins are
+row-major, the partition is the plain routing and every histogram comes
+from the JAX package's XLA engine of that name (``ops/histogram.py
+engine_histogram``: the (C, W) child-match contraction of its wave
+engine, or per-feature integer scatters), the root's included.  The
+bins may be uint16 (more than 256 bins a column) on every dense path,
+and under ``tpu_use_dp`` the weights, histograms, best splits and the
+tree's values are float64: the kernels run their f64 form.
+
 On the entry-chunk sparse store (``ops/sparse_mxu.py``, the JAX
 package's ``sparse_mxu`` engine) every histogram -- the root's one slot,
 each wave's smaller children and the no-cache larger children -- comes
@@ -54,7 +63,7 @@ import torch
 
 from .grow import (GrowState, GrowStats, Grower, SplitFields, _put,
                    record_splits)
-from .histogram import weight_rows
+from .histogram import ENGINE_MODES, engine_histogram, weight_rows
 from .split_finder import (GAIN, LEFT_COUNT, LEFT_SUM_G, LEFT_SUM_H,
                            RIGHT_COUNT, RIGHT_SUM_G, RIGHT_SUM_H,
                            FeatureMeta, SplitParams)
@@ -98,10 +107,15 @@ class WaveGrower(Grower):
     rolls the rest back, so the trees equal exact growth's at any
     width.
 
+    hist_mode 'onehot' and 'scatter' are the JAX package's XLA engines on
+    the row-major bins, with the plain routing.
+
     packed_cols > 0: X holds the 4-bit packed bins of that many columns
     (ops/pack.py), which every kernel and the plain routing unpack;
     hilo=False: the single bf16 product in every wave histogram (the
-    dense root stays unrounded, as the JAX package's one-hot root)."""
+    dense root stays unrounded, as the JAX package's one-hot root); the
+    f64 form (dtype float64) and the XLA engines sum unrounded weights,
+    as the JAX package's f64 and XLA paths do."""
 
     counts_waves = True
 
@@ -115,12 +129,15 @@ class WaveGrower(Grower):
         self.hist_mode = hist_mode
         self.sparse = isinstance(X, ChunkedSparseStore)
         self.packed_cols = 0 if self.sparse else int(packed_cols)
-        self.hilo = bool(hilo)
+        self.engine = hist_mode in ENGINE_MODES and not self.sparse
+        self.rowmajor = hist_mode == "pallas" or self.engine
+        self.hilo = (bool(hilo) or self.dtype == torch.float64
+                     or self.engine)
         if self.sparse:
             self.hist_cols = X.num_cols
         else:
             self.hist_cols = (self.packed_cols
-                              or X.shape[1 if hist_mode == "pallas" else 0])
+                              or X.shape[1 if self.rowmajor else 0])
 
     def _child_hists(self, st, lid, ids, w3, exps, hilo=None):
         """The (K, G, B, 3) histograms of the leaves ids (B3, B4 or B6),
@@ -130,6 +147,9 @@ class WaveGrower(Grower):
             return sparse_wave_histogram(self.X, lid, w3, ids,
                                          self.hist_bins, self.X.num_cols,
                                          exps=exps, hilo=hilo)
+        if self.engine:
+            return engine_histogram(self.hist_mode, self.X, lid, w3, ids,
+                                    self.hist_bins, exps, self.packed_cols)
         kernel = (wave_histogram_rowmajor if self.hist_mode == "pallas"
                   else wave_histogram)
         return kernel(self.X, lid, w3, ids, self.hist_bins, exps=exps,
@@ -239,7 +259,7 @@ class WaveGrower(Grower):
                 bundled=bundled, exps=exps, work=st.work,
                 logical_cols=self.packed_cols, hilo=self.hilo)
         else:
-            route = (route_rows_rowmajor if self.hist_mode == "pallas"
+            route = (route_rows_rowmajor if self.rowmajor
                      else route_rows_plain)
             lid = route(X, st.leaf_id, cols, psrc, bundled,
                         logical_cols=self.packed_cols)
@@ -303,13 +323,15 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
               params: SplitParams, max_depth: int, wave_width: int,
               group_bins: int = 0, cache_hists: bool = True,
               hist_mode: str = "pallas_ct", wave_order: str = "batched",
-              packed_cols: int = 0, hilo: bool = True):
+              packed_cols: int = 0, hilo: bool = True,
+              dtype=torch.float32):
     """Grow one tree, staged: a WaveGrower's body with one host read a
-    wave.  X: (G, N) uint8 transposed bins, (N, G) row-major bins for
-    hist_mode 'pallas' (with packed_cols > 0, 4-bit packed: ceil(G / 2)
-    stored columns), or a ChunkedSparseStore; grad/hess/row_mult: (N,)
-    f32; hilo=False: the single bf16 product.  Returns (TreeArrays,
-    leaf_id (N,) int32, GrowStats).
+    wave.  X: (G, N) uint8 or uint16 transposed bins, (N, G) row-major
+    bins for hist_mode 'pallas', 'onehot' and 'scatter' (with
+    packed_cols > 0, 4-bit packed: ceil(G / 2) stored columns), or a
+    ChunkedSparseStore; grad/hess/row_mult: (N,) in dtype (float32, or
+    float64 under tpu_use_dp); hilo=False: the single bf16 product.
+    Returns (TreeArrays, leaf_id (N,) int32, GrowStats).
 
     The read comes between a wave's selection and its commit: the count
     of valid slots (k == 0 ends the tree) and, under batched order, the
@@ -319,7 +341,8 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
                    num_bins=num_bins, params=params, max_depth=max_depth,
                    wave_width=wave_width, group_bins=group_bins,
                    cache_hists=cache_hists, hist_mode=hist_mode,
-                   wave_order=wave_order, packed_cols=packed_cols, hilo=hilo)
+                   wave_order=wave_order, packed_cols=packed_cols, hilo=hilo,
+                   dtype=dtype)
     st = g.new_state(grad.shape[0], grad.device)
     w3 = weight_rows(grad, hess, row_mult)                 # (N, 3)
     # the kernels' fixed-point exponents (B1, B3, B4, B6): w3 is fixed

@@ -17,6 +17,16 @@ convert to f32 once, so the three give the same bits for the same rows
 (and so do B5, ``ops/leaf_hist.py``, and B6, ``ops/sparse_mxu.py``).
 The plain versions add in the weights' dtype.
 
+Two further forms follow the tensors given: uint16 bins (``max_bin`` >
+255; the JAX package stores such a matrix as uint16 and its kernels
+widen any integer bin) take num_bins up to 65,536, with a launch plan
+that tiles the bin axis where one (slot, feature) row of B bins would
+not fit shared memory (``hist_plan``, ``bin_tiles``); float64 weights
+w3 (``tpu_use_dp``) select the f64 form, which sums in 128-bit fixed
+point (``csrc/fixed_point.cuh``, exponents 126 - frexp_exponent(N *
+max|w_c|)) and returns float64 histograms.  The f64 form takes no bf16
+rounding.
+
 Two variants of the JAX package's kernels ride every wrapper, as its
 keyword arguments: ``logical_cols=F > 0`` says the bins are 4-bit packed
 (``ops/pack.py``: X_t (ceil(F/2), N), X (N, ceil(F/2))), and the
@@ -80,6 +90,21 @@ def round_bf16(w):
     return out.to(w.dtype)
 
 
+def indexable(X):
+    """X as a tensor every torch indexing operation takes: uint16 bins
+    (a dtype that torch supports only in part) as their int16 view,
+    which ``bins_i32`` widens back."""
+    return X.view(torch.int16) if X.dtype == torch.uint16 else X
+
+
+def bins_i32(v):
+    """Bins read from ``indexable(X)`` as int32: an int16 view's values
+    masked back to 16 bits."""
+    if v.dtype == torch.int16:
+        return v.to(torch.int32) & 0xFFFF
+    return v.to(torch.int32)
+
+
 def _split_column(X, r_cj, in_range, logical_cols, rowmajor):
     """Each row's bin in its split column cj (0 out of range), read from
     the bins X (X_t (F, N), or row-major (N, F)) or from their packed
@@ -88,7 +113,8 @@ def _split_column(X, r_cj, in_range, logical_cols, rowmajor):
     rows = torch.arange(N, device=X.device)
     col, high = (packed_column(r_cj, logical_cols) if logical_cols
                  else (r_cj, None))
-    raw = (X[rows, col] if rowmajor else X[col, rows]).to(torch.int32)
+    Xi = indexable(X)
+    raw = bins_i32(Xi[rows, col] if rowmajor else Xi[col, rows])
     if logical_cols:
         raw = nibble(raw, high)
     return raw * in_range.to(torch.int32)
@@ -140,7 +166,7 @@ def histogram_plain(X_t, w, num_bins: int):
     cell adds its rows in row order."""
     F, N = X_t.shape
     B = int(num_bins)
-    x = X_t.long()
+    x = bins_i32(indexable(X_t)).long()
     in_bins = (x < B).to(w.dtype)                              # (F, N)
     idx = (torch.arange(F, device=X_t.device)[:, None] * B
            + x.clamp(max=B - 1)).reshape(-1)
@@ -162,9 +188,10 @@ def wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins: int,
     if not hilo:
         w3 = round_bf16(w3)
     out = []
+    Xi = indexable(X_t)
     for k in range(child_id.shape[0]):
         rows = torch.nonzero(leaf_id == child_id[k]).squeeze(1)
-        out.append(histogram_plain(X_t[:, rows], w3[rows], num_bins))
+        out.append(histogram_plain(Xi[:, rows], w3[rows], num_bins))
     return torch.stack(out)
 
 
@@ -186,10 +213,20 @@ def wave_partition_hist_plain(X_t, leaf_id, w3, child_id, cols, psrc,
 
 
 # ----------------------------------------------------------------- kernel
+# the bin matrix dtypes and the weight dtypes the kernels take
+BIN_DTYPES = (torch.uint8, torch.uint16)
+WEIGHT_DTYPES = (torch.float32, torch.float64)
+# the most bins a column may have: uint8 bins, and uint16 bins
+MAX_BINS = {torch.uint8: 256, torch.uint16: 65536}
+
+
 def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None,
-           rowmajor: bool = False, logical_cols: int = 0):
+           rowmajor: bool = False, logical_cols: int = 0,
+           hilo: bool = True):
     """Raise on inputs the kernels do not take; returns F, the features
-    (logical columns) of the histograms."""
+    (logical columns) of the histograms.  X may hold uint8 bins (or
+    4-bit packed ones) or uint16 bins; w3 may be float32 or float64 (the
+    f64 form, which takes no bf16 rounding)."""
     dev = X_t.device
     F, N = (X_t.shape if X_t.dim() == 2 else (None, None))
     if rowmajor and F is not None:
@@ -200,12 +237,19 @@ def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None,
             raise LightGBMError("logical_cols must be >= 0, got %s"
                                 % logical_cols)
         F, Fd = int(logical_cols), packed_width(logical_cols)
-    want = [(X_t, torch.uint8, (N, Fd) if rowmajor else (Fd, N),
+        if X_t.dtype != torch.uint8:
+            raise LightGBMError("packed bins are uint8, got %s" % X_t.dtype)
+    bdt = X_t.dtype if X_t.dtype in BIN_DTYPES else torch.uint8
+    want = [(X_t, bdt, (N, Fd) if rowmajor else (Fd, N),
              "X" if rowmajor else "X_t"),
             (leaf_id, torch.int32, (N,), "leaf_id"),
             (child_id, torch.int32, (child_id.shape[0],), "child_id")]
     if w3 is not None:
-        want.append((w3, torch.float32, (N, 3), "w3"))
+        wdt = w3.dtype if w3.dtype in WEIGHT_DTYPES else torch.float32
+        want.append((w3, wdt, (N, 3), "w3"))
+        if wdt == torch.float64 and not hilo:
+            raise LightGBMError("the f64 form takes no bf16 rounding "
+                                "(hilo=False with float64 w3)")
     if cols is not None:
         W = cols.shape[0]
         want += [(cols, torch.float32, (W, 10), "cols"),
@@ -218,9 +262,9 @@ def _check(X_t, leaf_id, w3, child_id, num_bins, cols=None, psrc=None,
         if t.device != dev:
             raise LightGBMError("%s is on %s, X_t on %s"
                                 % (name, t.device, dev))
-    if not 1 <= int(num_bins) <= 256:
-        raise LightGBMError("num_bins must be in [1, 256], got %d"
-                            % num_bins)
+    if not 1 <= int(num_bins) <= MAX_BINS[bdt]:
+        raise LightGBMError("num_bins must be in [1, %d] for %s bins, got %d"
+                            % (MAX_BINS[bdt], bdt, num_bins))
     if child_id.shape[0] < 1 or N < 1 or F < 1:
         raise LightGBMError("empty wave histogram input")
     if dev.type not in ("cpu", "cuda"):
@@ -261,41 +305,54 @@ def _sms(dev) -> int:
 
 
 def fixed_point_exponents(w3):
-    """(3,) int32 exponents e_c of the kernels' 64-bit fixed point,
-    computed on w3's device with no host read: e_c = 62 -
-    frexp_exponent(N * max|w_c|), so |sum| < 2^62 for any N values of
-    channel c, and rounding each value to a multiple of 2^-e_c errs by at
-    most N_cell * N * max|w_c| / 2^62 in a cell of N_cell rows.  w3 is
-    fixed within a tree, so the grower computes this once a tree and B1,
-    B3, B4, B5 and B6 sum the same rows to the same bits."""
+    """(3,) int32 exponents e_c of the kernels' fixed point, computed on
+    w3's device with no host read: e_c = 62 - frexp_exponent(N *
+    max|w_c|) for f32 weights (64-bit sums), 126 - it for float64 ones
+    (the f64 form's 128-bit sums), so no sum of N values of channel c
+    reaches 2^62 (2^126), and rounding a value to a multiple of 2^-e_c
+    errs by at most N * max|w_c| / 2^62 (/ 2^126).  w3 is fixed within
+    a tree, so the grower computes this once a tree and B1, B3, B4, B5
+    and B6 sum the same rows to the same bits."""
     n = w3.shape[0]
     m = w3.abs().amax(dim=0).to(torch.float64) * n
-    return (62 - torch.frexp(m).exponent).to(torch.int32)
+    top = 126 if w3.dtype == torch.float64 else 62
+    return (top - torch.frexp(m).exponent).to(torch.int32)
 
 
 @lru_cache(maxsize=256)
 def hist_plan(F: int, N: int, B: int, K: int, num_sms: int,
-              packed: bool = False):
+              packed: bool = False, wide: bool = False):
     """The launch plan of B1, B3 and B4 (list_blocks, groups, R, KS, FS,
     copies, smem): list-pass blocks of _LIST_TILE rows a tile; histogram
     blocks of _HIST_THREADS threads, each over FS features (groups of
-    them) and KS child slots in `copies` interleaved int64 (KS, FS, B, 3)
-    shared histograms of smem bytes in all, and R shares of the compact
-    row list, so that one round of resident blocks fills every SM (and
-    no share is empty: each holds at least a block's threads of rows
-    when every row is listed).  The copies (a power of two up to 32,
-    lane l adding into copy l mod copies) take the shared memory that one
-    histogram leaves unused.  packed: the F features lie in ceil(F / 2)
-    packed columns, and a block owns FS / 2 of them with both nibbles'
-    features (FS even), so the groups split the packed columns."""
-    cell = B * 3 * 8                       # one (slot, feature) row
+    them) and KS child slots in `copies` interleaved (KS, FS, BT, 3)
+    shared histograms of 64-bit cells (128-bit when wide, the f64 form)
+    of smem bytes in all, and R shares of the compact row list, so that
+    one round of resident blocks fills every SM (and no share is empty:
+    each holds at least a block's threads of rows when every row is
+    listed).  The copies (a power of two up to 32, lane l adding into
+    copy l mod copies) take the shared memory that one histogram leaves
+    unused.  packed: the F features lie in ceil(F / 2) packed columns,
+    and a block owns FS / 2 of them with both nibbles' features (FS
+    even), so the groups split the packed columns.
+
+    Bin tiles: where one (slot, feature) row of B bins exceeds the
+    budget (B > 9,386 at 64 bits, > 4,693 at 128), each feature group
+    is split into tiles of BT = ceil(B / tiles) bins, and ``groups``
+    counts feature groups x tiles (``bin_tiles``; the kernel derives BT
+    from it the same way), so every B up to 65,536 launches."""
+    cellb = 3 * (16 if wide else 8)        # one bin of a (slot, feature)
+    tiles = -(-B // max(1, _SMEM_BUDGET // cellb))
+    bt = -(-B // tiles)
+    cell = bt * cellb                      # one (slot, feature) row
     per = 2 if packed else 1               # features a stored column
     cols = packed_width(F) if packed else F
     ks = max(1, min(K, _SMEM_BUDGET // (per * cell)))
     cs = max(1, min(cols, _GROUP_MAX // per,
                     _SMEM_BUDGET // (ks * per * cell)))
-    groups = -(-cols // cs)
-    fs = per * -(-cols // groups)          # even the groups out
+    fgroups = -(-cols // cs)
+    fs = per * -(-cols // fgroups)         # even the groups out
+    groups = fgroups * tiles
     kslices = -(-K // ks)
     copies = 1
     while (copies < _MAX_COPIES
@@ -307,6 +364,19 @@ def hist_plan(F: int, N: int, B: int, K: int, num_sms: int,
     R = max(1, min(65535, -(-N // _HIST_THREADS),
                    (num_sms * per_sm) // (groups * kslices)))
     return _list_blocks(N, num_sms), groups, R, ks, fs, copies, smem
+
+
+def bin_tiles(F: int, B: int, groups: int, FS: int, packed: bool = False):
+    """The bin ranges [b0, b1) the plan's tiles hold, as the kernel
+    derives them (csrc/wave_fused.cu bin_tile): the grid's ``groups``
+    blocks on its x axis are feature groups of FS features (FS / 2
+    packed columns) times tiles of BT = ceil(B / tiles) bins."""
+    ps = FS // 2 if packed else FS
+    cols = packed_width(F) if packed else F
+    tiles = groups // -(-cols // ps)
+    bt = -(-B // tiles)
+    return [(t * bt, min(B, (t + 1) * bt)) for t in range(tiles)
+            if t * bt < B]
 
 
 def _list_blocks(N: int, num_sms: int) -> int:
@@ -331,26 +401,30 @@ def _check_slots(K):
                             "slots (K=%d)" % K)
 
 
-def list_workspace(N, K, F, B, dev):
+def list_workspace(N, K, F, B, dev, wide: bool = False):
     """The list passes' int64 workspace for N rows and up to K child
     slots of (F, B) histograms: the compact list (N int2), then the K *
-    F * B * 3 fixed-point sums and the list's length.  A grower keeps
-    one in its state and hands it to every call, so a call inside a CUDA
-    graph capture allocates none; launches on one stream run in order,
-    so they may share it, and it is freed with the state."""
-    return torch.empty(N + K * F * B * 3 + 1, dtype=torch.int64, device=dev)
+    F * B * 3 fixed-point sums (two words each when wide, the f64 form)
+    and the list's length.  A grower keeps one in its state and hands it
+    to every call, so a call inside a CUDA graph capture allocates none;
+    launches on one stream run in order, so they may share it, and it is
+    freed with the state."""
+    return torch.empty(N + K * F * B * 3 * (2 if wide else 1) + 1,
+                       dtype=torch.int64, device=dev)
 
 
-def _list_buffers(N, K, F, B, dev, hist_shape=None, work=None):
+def _list_buffers(N, K, F, B, dev, hist_shape=None, work=None,
+                  wide: bool = False):
     """(list, acc, work, hist): the pointers of the compact list and of
     the fixed-point sums with the list's length after them, which the
     kernel entry zeroes; the workspace holding both (``work``, the
     caller's, or a new one the caller keeps until it has launched); the
-    (K, F, B, 3) f32 histogram (or hist_shape), new each call."""
+    (K, F, B, 3) histogram (or hist_shape), f32 (float64 when wide), new
+    each call."""
     _check_slots(K)
-    size = N + K * F * B * 3 + 1
+    size = N + K * F * B * 3 * (2 if wide else 1) + 1
     if work is None:
-        work = list_workspace(N, K, F, B, dev)
+        work = list_workspace(N, K, F, B, dev, wide)
     elif (work.dtype != torch.int64 or work.device != dev
           or work.dim() != 1 or work.numel() < size
           or not work.is_contiguous()):
@@ -358,7 +432,8 @@ def _list_buffers(N, K, F, B, dev, hist_shape=None, work=None):
                             "least %d on %s, got %s %s on %s"
                             % (size, dev, work.dtype, tuple(work.shape),
                                work.device))
-    hist = torch.empty(hist_shape or (K, F, B, 3), dtype=torch.float32,
+    hist = torch.empty(hist_shape or (K, F, B, 3),
+                       dtype=torch.float64 if wide else torch.float32,
                        device=dev)
     return work.data_ptr(), work.data_ptr() + 8 * N, work, hist
 
@@ -373,14 +448,16 @@ def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
     exps = _exps(w3, exps)
     dev = X_t.device
     packed = bool(logical_cols)
-    plan = hist_plan(F, N, B, K, _sms(dev), packed)[:6]
-    rows, acc, work, hist = _list_buffers(N, K, F, B, dev, work=work)
+    wide = w3.dtype == torch.float64
+    plan = hist_plan(F, N, B, K, _sms(dev), packed, wide)[:6]
+    rows, acc, work, hist = _list_buffers(N, K, F, B, dev, work=work,
+                                          wide=wide)
     new_lid = torch.empty(N, dtype=torch.int32, device=dev)
     err = lib.lgbt_wave_fused(
         *[t.data_ptr() for t in (X_t, leaf_id, w3, child_id, cols, psrc,
                                  exps, new_lid)], rows, acc, hist.data_ptr(),
         F, N, B, K, W, *plan, int(bundled), int(packed), int(not hilo),
-        _build.stream(dev))
+        int(X_t.dtype == torch.uint16), int(wide), _build.stream(dev))
     _build.check(err, "wave_fused")
     return new_lid, hist
 
@@ -395,20 +472,26 @@ def _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, rowmajor, work,
     exps = _exps(w3, exps)
     dev = X.device
     packed = bool(logical_cols)
-    plan = hist_plan(F, N, B, K, _sms(dev), packed)[:6]
-    rows, acc, work, hist = _list_buffers(N, K, F, B, dev, work=work)
+    wide = w3.dtype == torch.float64
+    plan = hist_plan(F, N, B, K, _sms(dev), packed, wide)[:6]
+    rows, acc, work, hist = _list_buffers(N, K, F, B, dev, work=work,
+                                          wide=wide)
     err = lib.lgbt_wave_hist(
         *[t.data_ptr() for t in (X, leaf_id, w3, child_id, exps)], rows, acc,
         hist.data_ptr(), F, N, B, K, *plan, int(rowmajor), int(packed),
-        int(not hilo), _build.stream(dev))
+        int(not hilo), int(X.dtype == torch.uint16), int(wide),
+        _build.stream(dev))
     _build.check(err, "wave_hist")
     return hist
 
 
-def _count(wrapper, logical_cols, hilo):
-    """One launch of wrapper's kernel, and of its packed or bf16 form."""
+def _count(wrapper, logical_cols, hilo, X=None, w3=None):
+    """One launch of wrapper's kernel, and of its packed, bf16, uint16
+    or f64 form."""
     wrapper.launches += 1
-    for form, on in (("packed", logical_cols), ("bf16", not hilo)):
+    for form, on in (("packed", logical_cols), ("bf16", not hilo),
+                     ("uint16", X is not None and X.dtype == torch.uint16),
+                     ("f64", w3 is not None and w3.dtype == torch.float64)):
         if on:
             wrapper.form_launches[form] += 1
 
@@ -452,7 +535,7 @@ def _list(lid, child_id, N, mode, xt=None, cols=None, psrc=None,
     err = _build.library().lgbt_wave_list(
         *ptrs, F, N, child_id.shape[0], W,
         _list_blocks(N, _sms(dev)), mode, int(bool(logical_cols)),
-        _build.stream(dev))
+        int(xt is not None and xt.dtype == torch.uint16), _build.stream(dev))
     _build.check(err, "wave_list")
     rows = rows[:int(count)]
     order = torch.argsort(rows[:, 0])
@@ -506,14 +589,14 @@ def wave_partition_hist(X_t, leaf_id, w3, child_id, cols, psrc,
     logical_cols > 0: X_t holds the packed bins of that many columns;
     hilo=False: the single bf16 product (module docstring)."""
     F = _check(X_t, leaf_id, w3, child_id, num_bins, cols, psrc,
-               logical_cols=logical_cols)
+               logical_cols=logical_cols, hilo=hilo)
     if X_t.device.type == "cpu":
         return wave_partition_hist_plain(X_t, leaf_id, w3, child_id, cols,
                                          psrc, num_bins, bundled,
                                          logical_cols, hilo)
     out = _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
                         bundled, exps, work, F, logical_cols, hilo)
-    _count(wave_partition_hist, logical_cols, hilo)
+    _count(wave_partition_hist, logical_cols, hilo, X_t, w3)
     return out
 
 
@@ -523,13 +606,13 @@ def wave_histogram(X_t, leaf_id, w3, child_id, num_bins: int, exps=None,
     the rows whose leaf is child_id[k].  exps, work, logical_cols and
     hilo as for wave_partition_hist."""
     F = _check(X_t, leaf_id, w3, child_id, num_bins,
-               logical_cols=logical_cols)
+               logical_cols=logical_cols, hilo=hilo)
     if X_t.device.type == "cpu":
         return wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins,
                                     logical_cols, hilo)
     out = _launch_hist(X_t, leaf_id, w3, child_id, num_bins, exps, False,
                        work, F, logical_cols, hilo)
-    _count(wave_histogram, logical_cols, hilo)
+    _count(wave_histogram, logical_cols, hilo, X_t, w3)
     return out
 
 
@@ -539,18 +622,20 @@ def wave_histogram_rowmajor(X, leaf_id, w3, child_id, num_bins: int,
     """Histogram-only wave pass on the row-major bins X (N, F), or (N,
     ceil(F/2)) packed (kernel B4): the contract of wave_histogram."""
     F = _check(X, leaf_id, w3, child_id, num_bins, rowmajor=True,
-               logical_cols=logical_cols)
+               logical_cols=logical_cols, hilo=hilo)
     if X.device.type == "cpu":
         return wave_histogram_rowmajor_plain(X, leaf_id, w3, child_id,
                                              num_bins, logical_cols, hilo)
     out = _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, True, work,
                        F, logical_cols, hilo)
-    _count(wave_histogram_rowmajor, logical_cols, hilo)
+    _count(wave_histogram_rowmajor, logical_cols, hilo, X, w3)
     return out
 
 
-# each wrapper's launches, and of them its packed and bf16 forms'
+# each wrapper's launches, and of them its packed, bf16, uint16 and f64
+# forms'
+FORMS = ("packed", "bf16", "uint16", "f64")
 for _w in (wave_partition_hist, wave_histogram, wave_histogram_rowmajor):
     _w.launches = 0
-    _w.form_launches = {"packed": 0, "bf16": 0}
+    _w.form_launches = dict.fromkeys(FORMS, 0)
 del _w

@@ -364,10 +364,6 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu(work):
       "obs_trace_iters=0:1", "obs_trace_dir=tr"], "tpu_profile_dir"),
     (["task=train", "data=binary.train", "obs_events_path=."],
      "obs_events_path"),
-    # two-round streaming reads dense text only: a directory asked for a
-    # LibSVM file cannot be written (the JAX package writes none)
-    (["task=train", "data=sparse.svm", "ooc_binned_dir=svm_binned"],
-     "out-of-core"),
     # a directory opens only as a pre-binned dataset
     (["task=train", "data=.", "device_type=cpu"], "directory")])
 def test_cli_refuses_what_the_port_lacks(work, argv, match):
@@ -375,6 +371,24 @@ def test_cli_refuses_what_the_port_lacks(work, argv, match):
         f.write("1 0:0.5 3:1.25\n0 1:2.0\n1 2:0.75 3:0.5\n")
     with pytest.raises(LightGBMError, match=match):
         tcli.main(argv + ["device_type=cpu"])
+
+
+def test_cli_ooc_binned_dir_on_libsvm_trains_in_memory(work, capsys):
+    """Two-round streaming reads dense text only: asked for a directory
+    of a LibSVM file, both packages parse it in memory and write no
+    directory; the port warns that it writes none."""
+    with open("sparse.svm", "w") as f:
+        f.write("1 0:0.5 3:1.25\n0 1:2.0\n1 2:0.75 3:0.5\n0 0:1.5\n")
+    args = ["task=train", "data=sparse.svm", "ooc_binned_dir=svm_binned",
+            "num_trees=1", "min_data_in_leaf=1", "verbose=1"]
+    tcli.main(args + ["device_type=cpu", "output_model=t.txt"])
+    err = capsys.readouterr()
+    assert "no directory is written" in err.out + err.err
+    assert not os.path.exists("svm_binned")
+    jcli.main(args + ["device_type=cpu", "output_model=j.txt"])
+    assert not os.path.exists("svm_binned")
+    for name in ("t.txt", "j.txt"):
+        assert open(name).read().startswith("tree\n")
 
 
 def test_python_dash_m_entry_point(work):

@@ -3,6 +3,7 @@ values and unknown-key errors, and a clear error for every engine knob
 whose engine the port does not have yet."""
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -28,8 +29,6 @@ def test_keys_aliases_and_values_match_the_jax_package():
 
 
 @pytest.mark.parametrize("knob,value,name", [
-    ("tpu_histogram_mode", "onehot", "tpu_histogram_mode"),
-    ("tpu_histogram_mode", "scatter", "tpu_histogram_mode"),
     ("tpu_sparse", True, "tpu_sparse"),
     ("tree_learner", "data", "tree_learner"),
     # ported since, but this data has no queries: the error names them
@@ -51,6 +50,8 @@ def test_engines_the_port_lacks_raise(knob, value, name):
     # max_bin 255: a forced true that cannot pack warns and trains on
     # byte bins, as in the JAX package
     ("tpu_bin_pack", "true", "packed_cols", 0),
+    # float64 histograms, split search and trees (the kernels' f64 form)
+    ("tpu_use_dp", True, "dtype", torch.float64),
 ])
 def test_engine_knobs_the_port_now_takes(knob, value, attr, want, capsys):
     """Knobs whose kernels the port has since gained resolve as the JAX
@@ -116,11 +117,21 @@ def test_fatal_engine_combinations(params, match):
     # a leftover bad wave width does not stop exact growth (the JAX
     # package checks it only under wave growth)
     ({"tpu_growth": "exact", "tpu_wave_width": 0}, "exact", "pallas"),
+    # the XLA engines: wave growth under auto (the JAX package's choice
+    # on its accelerator), exact growth when asked
+    ({"tpu_histogram_mode": "onehot"}, "wave", "onehot"),
+    ({"tpu_histogram_mode": "scatter"}, "wave", "scatter"),
+    ({"tpu_growth": "exact", "tpu_histogram_mode": "onehot"}, "exact",
+     "onehot"),
+    ({"tpu_growth": "exact", "tpu_histogram_mode": "scatter"}, "exact",
+     "scatter"),
 ])
 def test_growth_and_histogram_mode_resolution(params, growth, mode):
     """The JAX package's resolution: auto growth is exact with 'pallas';
     exact growth with 'auto' takes the port's per-leaf kernel B5 (the
-    JAX package's TPU prior would pick its XLA onehot engine)."""
+    JAX package's TPU prior would pick its XLA onehot engine); 'onehot'
+    and 'scatter' run the XLA engines on row-major bins."""
     learner = _train(params)._gbdt.learner
     assert (learner.growth, learner.hist_mode) == (growth, mode)
-    assert learner.X.shape[0] == (200 if mode == "pallas" else 4)
+    assert learner.X.shape[0] == (200 if mode in ("pallas", "onehot",
+                                                  "scatter") else 4)

@@ -2070,3 +2070,198 @@ def test_c_abi_builds_and_trains_on_the_card(dev):
     np.testing.assert_allclose(preds, want.predict(X), rtol=0, atol=2e-6)
     ok(lib.LGBM_BoosterFree(bst))
     ok(lib.LGBM_DatasetFree(ds))
+
+
+# ------------------------------------------- two-byte bins and the f64 form
+def _form_case(n, f, b, k, seed, wdtype=np.float32):
+    """A wave of k parents over X (N, F) bins below b (uint16 past 256
+    bins), with _b1_case's splits, and w3 in wdtype."""
+    rng = np.random.default_rng(seed)
+    X = rng.integers(0, b, size=(n, f)).astype(
+        np.uint16 if b > 256 else np.uint8)
+    lid = rng.integers(0, k, size=n).astype(np.int32)
+    w3 = rng.normal(size=(n, 3)).astype(wdtype)
+    w3[:, 2] = rng.random(n) > 0.2
+    cols = np.zeros((k, 10), np.float32)
+    cols[:, 0] = 1
+    cols[:, 1] = rng.integers(0, f, size=k)
+    cols[:, 2] = rng.integers(0, b - 1, size=k)
+    cols[:, 3] = rng.random(k) < 0.25
+    cols[:, 4] = rng.integers(0, b, size=k)
+    cols[:, 5] = rng.integers(0, 2, size=k)
+    cols[:, 6] = np.arange(k, 2 * k)
+    cols[:, 9] = b
+    psrc = np.arange(k, dtype=np.int32)
+    cid = np.where(rng.random(k) < 0.5, psrc, psrc + k).astype(np.int32)
+    cid[k // 3] = -1
+    return X, lid, w3, cid, cols, psrc
+
+
+def _within_form(got, want, scale, wmax, wide):
+    """The f32 forms: phase 2's tolerance.  The f64 form sums in 128-bit
+    fixed point and rounds once, so it is held to 1e-12 x (sum of |w|
+    over the cell) + 1e-14 x max|w| of the float64 plain version (whose
+    own row-order rounding is the larger part of that)."""
+    if not wide:
+        return _within_f64(got, want, scale, wmax)
+    diff = (got.cpu() - want).abs()
+    return bool((diff <= 1e-12 * scale + 1e-14 * wmax).all())
+
+
+@pytest.mark.parametrize("n,f,b,wide", [
+    (200_000, 6, 511, False), (200_000, 6, 1023, False),
+    (60_000, 4, 16383, False), (20_000, 3, 65536, False),
+    (200_000, 6, 63, True), (200_000, 6, 1023, True),
+    (30_000, 3, 9000, True)])
+def test_wide_bin_and_f64_forms_match_plain(dev, n, f, b, wide):
+    """B1, B3, B4 and B5 on uint16 bins (b > 256) and with float64 weights
+    (the f64 form): B1's ids equal the plain routing; each histogram is
+    within its form's tolerance of the float64 plain version; two
+    launches are bit-identical; with B1's exponents, B3's histogram of
+    B1's ids is B1's to the bit, B4's is B3's and B5's (K = 1) is B4's
+    slot.  B past 9,386 (4,693 wide) tiles the bin axis; each form's
+    launches are counted."""
+    k = 8
+    X, lid, w3, cid, cols, psrc = _form_case(
+        n, f, b, k, seed=b + f, wdtype=np.float64 if wide else np.float32)
+    Xt, Xr = t(X.T).to(dev), t(X).to(dev)
+    ids, w, c = t(lid).to(dev), t(w3).to(dev), t(cid).to(dev)
+    cl, ps = t(cols).to(dev), t(psrc).to(dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = wk.hist_plan(f, n, b, k, sms, False, wide)
+    tiles = wk.bin_tiles(f, b, plan[1], plan[4])
+    assert (len(tiles) > 1) == (b > (4693 if wide else 9386))
+    assert plan[6] <= wk._SMEM_BUDGET
+    # the kernel derives the plan's tiles and shared memory as the plan
+    # does, and a block of the plan is resident
+    lib = _build.library()
+    bt = tiles[0][1] - tiles[0][0]
+    _, groups, _, ks, fs, copies, smem = plan
+    assert lib.lgbt_wave_bin_tile(f, b, groups, fs, 0) == bt
+    assert lib.lgbt_wave_hist_smem_form(bt, ks, fs, copies, int(wide)) == smem
+    for rowmajor in (0, 1):
+        assert lib.lgbt_wave_hist_blocks_per_sm_form(
+            bt, ks, fs, copies, rowmajor, 0, int(b > 256), int(wide)) >= 1
+    form = "f64" if wide else "uint16"
+    counters = (wk.wave_partition_hist, wk.wave_histogram,
+                wk.wave_histogram_rowmajor, lh.leaf_histogram)
+    n0 = [fn.form_launches[form] for fn in counters]
+    exps = wk.fixed_point_exponents(w)
+    new_lid, h1 = wk.wave_partition_hist(Xt, ids, w, c, cl, ps, b, exps=exps)
+    again_lid, again = wk.wave_partition_hist(Xt, ids, w, c, cl, ps, b,
+                                              exps=exps)
+    h3 = wk.wave_histogram(Xt, new_lid, w, c, b, exps=exps)
+    h4 = wk.wave_histogram_rowmajor(Xr, new_lid, w, c, b, exps=exps)
+    h5 = lh.leaf_histogram(Xr, None, None, new_lid, c[:1], None, b, w3=w,
+                           exps=exps)
+    torch.cuda.synchronize()
+    want_lid = wk.route_rows_plain(Xt, ids, cl, ps)
+    assert torch.equal(new_lid, want_lid) and torch.equal(new_lid, again_lid)
+    assert h1.dtype == (torch.float64 if wide else torch.float32)
+    assert torch.equal(h1, again) and torch.equal(h1, h3)
+    assert torch.equal(h3, h4) and torch.equal(h5, h4[0])
+    w64 = t(w3).double()
+    cpu_lid = new_lid.cpu()
+    want = wk.wave_histogram_plain(t(X.T), cpu_lid, w64, t(cid), b)
+    scale = wk.wave_histogram_plain(t(X.T), cpu_lid, w64.abs(), t(cid), b)
+    assert _within_form(h1, want, scale, float(np.abs(w3).max()), wide)
+    assert bool((h1[torch.from_numpy(cid < 0).to(dev)] == 0).all())
+    # the highest bins are reached (the last tile holds rows)
+    assert bool((h1[..., b - 64:, 2] != 0).any())
+    assert [fn.form_launches[form] - a
+            for fn, a in zip(counters, n0)] == [2, 1, 1, 1]
+
+
+def test_wide_bins_bundled_route(dev):
+    """B1's EFB remap reads a two-byte group bin: groups of at most 256
+    bins and a 300-bin singleton in a uint16 matrix."""
+    X, lid, w3, cid, cols, psrc = _form_case(50_000, 5, 300, 6, seed=5)
+    rng = np.random.default_rng(6)
+    cols[:, 7] = rng.integers(0, 150, size=6)
+    cols[:, 9] = rng.integers(1, 150, size=6)
+    cols[:, 8] = rng.integers(0, 3, size=6)
+    args = [t(a).to(dev) for a in (X.T, lid, w3, cid, cols, psrc)]
+    got_lid, got = wk.wave_partition_hist(*args, 300, bundled=True)
+    want_lid = wk.route_rows_plain(*args[:2], *args[4:], True)
+    assert torch.equal(got_lid, want_lid)
+    assert bool((want_lid != args[1]).any())
+    w64 = args[2].double().cpu()
+    want = wk.wave_histogram_plain(t(X.T), want_lid.cpu(), w64, t(cid), 300)
+    scale = wk.wave_histogram_plain(t(X.T), want_lid.cpu(), w64.abs(),
+                                    t(cid), 300)
+    assert _within_f64(got, want, scale, float(np.abs(w3).max()))
+
+
+def test_uint16_plain_paths_on_the_card(dev):
+    """The plain torch reads of uint16 bins the growers run on the card
+    (the routing of pallas_t and pallas, the traversal) give the CPU's
+    values."""
+    X, lid, w3, cid, cols, psrc = _form_case(5000, 4, 40000, 5, seed=2)
+    for rowmajor in (False, True):
+        Xc = t(X if rowmajor else X.T)
+        fn = wk.route_rows_rowmajor if rowmajor else wk.route_rows_plain
+        want = fn(Xc, t(lid), t(cols), t(psrc))
+        got = fn(Xc.to(dev), t(lid).to(dev), t(cols).to(dev),
+                 t(psrc).to(dev))
+        assert torch.equal(got.cpu(), want)
+
+
+def test_scatter_engine_equals_the_kernels_to_the_bit(dev):
+    """The scatter engine sums the kernels' fixed point: on the card its
+    histograms equal B3's (f32 form) and B5's (f64 form) to the bit; the
+    onehot engine is within phase 2's tolerance of the float64 plain
+    version."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    X, lid, w3, cid, b = wave_data(n=300_000, f=6, b=200, seed=4)
+    Xd, ids, c = t(X).to(dev), t(lid).to(dev), t(cid).to(dev)
+    for wide in (False, True):
+        w = t(w3.astype(np.float64) if wide else w3).to(dev)
+        exps = wk.fixed_point_exponents(w)
+        got = th.engine_histogram("scatter", Xd, ids, w, c, b, exps)
+        again = th.engine_histogram("scatter", Xd, ids, w, c, b, exps)
+        want = wk.wave_histogram(Xd.t().contiguous(), ids, w, c, b,
+                                 exps=exps)
+        assert torch.equal(got, again) and torch.equal(got, want)
+        leaf = lh.leaf_histogram(Xd, None, None, ids, c[:1], None, b, w3=w,
+                                 exps=exps)
+        assert torch.equal(got[0], leaf)
+    w = t(w3).to(dev)
+    got = th.engine_histogram("onehot", Xd, ids, w, c, b, None)
+    w64 = t(w3).double()
+    want = wk.wave_histogram_plain(t(X.T), t(lid), w64, t(cid), b)
+    scale = wk.wave_histogram_plain(t(X.T), t(lid), w64.abs(), t(cid), b)
+    assert _within_f64(got, want, scale, float(np.abs(w3).max()))
+
+
+@pytest.mark.parametrize("more", [
+    {"tpu_histogram_mode": "scatter", "tpu_growth": "wave"},
+    {"tpu_histogram_mode": "onehot", "tpu_growth": "exact"},
+    {"tpu_use_dp": True},
+    {"tpu_use_dp": True, "tpu_growth": "exact"},
+    {"max_bin": 1023},
+    {"max_bin": 1023, "tpu_histogram_mode": "pallas", "tpu_growth": "wave"},
+    {"tpu_score_update": "gather"}])
+def test_engines_wide_bins_and_f64_fused_equal_staged(dev, more):
+    """Each new path trains on the card, fused and staged with equal
+    text; scatter and gather give the kernels' text (the same fixed
+    point, B2's arithmetic)."""
+    import lightgbm_tpu_torch as lgb
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(20_000, 8))
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + 0.3 * rng.normal(size=len(X))
+         > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbose": -1,
+         "max_bin": 63, **more}
+    texts = []
+    for fused in ("auto", "off"):
+        b = lgb.train(dict(p, tpu_fused_iter=fused), lgb.Dataset(X, label=y),
+                      3, device="cuda")
+        assert (b._gbdt._fused_state[0] is None) == (fused == "off")
+        texts.append(b.model_to_string())
+    assert texts[0] == texts[1]
+    if more.get("tpu_histogram_mode") == "scatter" or "tpu_score_update" \
+            in more:
+        base = lgb.train(dict(p, tpu_histogram_mode="pallas_ct",
+                              tpu_score_update="auto"),
+                         lgb.Dataset(X, label=y), 3, device="cuda")
+        assert base.model_to_string() == texts[0]

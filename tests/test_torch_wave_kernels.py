@@ -153,7 +153,8 @@ def test_wrapper_validates_inputs(bad):
     X, lid, w3, cid, b = _data(n=64, seed=1)
     w = _t(w3)
     if bad == "dtype":
-        w = w.double()
+        # float64 weights are the f64 form (tpu_use_dp); half is none
+        w = w.half()
     elif bad == "shape":
         w = w[:, :2].contiguous()
     elif bad == "device":
