@@ -131,7 +131,7 @@ Phases, in order:
     subprocess on the card (5 iterations, model text equal to an
     in-process ``train`` on the same arrays, to the byte),
     ``Dataset.construct()`` through the host library and its Python
-    fallback on the first 50,000 rows (equal bins and bounds, both
+    fallback on the first 20,000 rows (equal bins and bounds, both
     timed), ``task=predict`` on the
     fresh rows through the device path (the file equal to
     ``Booster.predict`` printed with %.9g), ``input_model=`` plus 5
@@ -159,7 +159,7 @@ Phases, in order:
     trees, every Tree= section to the byte, on the staged chain; a numpy
     logistic fobj with a feval for 5 rounds, valid AUC above 0.8, its
     it/s.  9d: pickle and deepcopy of phase 7's model predict the same
-    bits; cv(nfold=5, stratified=True) on 200,000 rows of phase 7's data
+    bits; cv(nfold=5, stratified=True) on 100,000 rows of phase 7's data
     (auc-mean); LGBMClassifier at the flagship's params and LGBMRanker on
     9b's data train train's model text.  Every in-process run is counted
     into the kernel line.
@@ -231,6 +231,28 @@ Phases, in order:
     13f: onehot and scatter under wave (fused and staged) and exact
     growth (fused), no kernel; scatter gives phase 4's and 4b's texts to
     the byte; tpu_score_update=gather gives the main text.
+14. The coordinate sparse store and the single-process observers.  14a
+    (after phase 5, on its Dataset): tpu_sparse=true without
+    tpu_sparse_kernel, wave growth (W = 32) fused, fused again and
+    staged, exact growth fused for 3 iterations; the store's sums are
+    plain torch (no kernel launches but B2); the wave texts one and phase
+    5's entry-chunk text; its device bytes beside the entry-chunk
+    store's.  14b: DART (10 iterations, drop_rate 0.1), a rollback and
+    continued training from init_model on both sparse stores from the
+    raw rows (the Bosch recipe at 5,000 rows, dense), the scores
+    following the trees.  14c (after 12a, on phase 4's Dataset): the main
+    path fused with obs_compile, obs_utilization_every, the watchdog, the
+    default sampling profiler, the incident engine, the live plane
+    (obs_http_port=0, scraped from a thread) and the ledger, and without
+    any observer: one text, phase 4's; `obs recompiles --check`, `obs
+    roofline` and `obs prof --check` pass on the timeline; on 20,000
+    rows a stalled callback makes the watchdog write a flight record and
+    a fobj with one NaN opens an incident.  14d (inside phase 7): its
+    booster serves its fresh rows under bench_serve.py's closed loop (8
+    threads, 2,000 requests) without and with a run observer, drift
+    monitoring and the live plane: p50 and p99 of each, no capture
+    after warm-up, in-distribution traffic raises no drift alert and a
+    shifted feature raises one.
  With --profile, every training run of phases 4 and 5 and the
  multiclass run profile one more iteration: its wall time, device busy
  share, device operations and graph replays; phase 7 profiles one
@@ -257,7 +279,7 @@ VALID_ROWS = 200_000
 # rows of phase 8's checks of the host library against its Python
 # fallback (binning, host trees), few enough to keep the script within
 # its time
-FALLBACK_ROWS = 50_000
+FALLBACK_ROWS = 20_000
 # rows of the valid and train sets whose device scores each run holds to
 # the host trees
 CHECK_ROWS = 100_000
@@ -296,7 +318,7 @@ RANK_MEAN_DOCS = 120
 RANK_MAX_DOCS = 1000
 # label shares 0..4, about MSLR-WEB10K's skew
 RANK_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)
-CV_ROWS = 200_000
+CV_ROWS = 100_000
 
 
 def flagship_params():
@@ -974,7 +996,9 @@ def small_sparse_run_matches(lgb, bf16=False):
 
 def sparse_phase(args, lgb, sm, kernels, card):
     """Phase 5: B6 at the Bosch store, then sparse training on it.
-    Returns (B6's record, the run's launch counts)."""
+    Returns (B6's record, the run's launch counts, the bf16 form's record
+    and launches, and (Dataset, valid Dataset, the fused run's model
+    text, the store's device bytes) for phase 14a)."""
     import torch
     t0 = time.perf_counter()
     Xs, ys = make_sparse_data(args.sparse_rows, 7)
@@ -1140,7 +1164,9 @@ def sparse_phase(args, lgb, sm, kernels, card):
         % (bf_launches, forms, st_launches, auc, auc_hilo, auc - auc_hilo,
            sum(s.passes for s in stats),
            sum(s.passes for s in booster.grow_stats())))
-    return record, launches, record_bf16, forms
+    return (record, launches, record_bf16, forms,
+            (ds, dv, booster.model_to_string(),
+             booster._gbdt.learner.sparse_device_bytes))
 
 
 def profile_iteration(booster, card):
@@ -2082,6 +2108,9 @@ def serve_phase(args, lgb, card, dev):
             profile_replay(sp, X, card)
     finally:
         sp.close()
+    # ---- 14d. the same booster and rows, served without an observer
+    # and with the run observer, drift monitoring and the live plane
+    serve_observer_phase(lgb, card, booster, X)
     say("phase 7 (prediction and serving): %.1f s"
         % (time.perf_counter() - t_phase))
     return (X_train, y, Xb[:SERVE_ROWS].copy(), yb[:SERVE_ROWS].copy(),
@@ -4128,6 +4157,407 @@ def wide_phase(args, lgb, kernels, card, data, main_text):
     return records, paths, forms
 
 
+# ------------------------------------------------------------- phase 14
+# rows of 14b's dense copy of the Bosch recipe (its raw rows are what
+# DART, rollback and continued training score a tree on)
+RAW_SPARSE_ROWS = 5_000
+DART_ITERS = 10
+COORD_EXACT_ITERS = 3
+# rows of 14c's watchdog and incident drills
+DRILL_ROWS = 20_000
+# 14c's iterations: the sampling profiler's window must hold enough
+# samples for its self-measured overhead to read true (at 5 iterations,
+# ~0.6 s and ~17 samples, one slow sample moves it by half its budget)
+OBS_ITERS = 25
+# 14d: requests of each closed loop (phase 7's 5,000 run twice more
+# would take 20 s), the drift monitor's cadence and window (rows)
+SERVE_OBS_REQUESTS = 2_000
+DRIFT_EVERY = 16_384
+DRIFT_WINDOW = 65_536
+
+
+def coord_store_phase(lgb, kernels, card, sparse_data):
+    """14a: the coordinate store (tpu_sparse=true, tpu_sparse_kernel=
+    false) on phase 5's Bosch-shaped Dataset: wave growth (W = 32) fused,
+    fused again and staged, then exact growth fused.  No kernel of the
+    port runs its histograms (the JAX package's segment sums are plain
+    torch here too): B6 must not launch, B2 once an iteration.  The three
+    wave texts must be one, and phase 5's entry-chunk text.  Returns the
+    fused wave run's launches."""
+    import torch
+    t_phase = time.perf_counter()
+    ds, dv, chunk_text, chunk_bytes = sparse_data
+    params = dict(sparse_params(), tpu_sparse_kernel=False)
+    runs = {}
+    for label, p, iters, growth in (
+            ("coord", params, ITERS, "wave"),
+            ("coord-again", params, ITERS, "wave"),
+            ("coord-staged", dict(params, tpu_fused_iter="off"), ITERS,
+             "wave"),
+            ("coord-exact", dict(params, tpu_growth="exact"),
+             COORD_EXACT_ITERS, "exact")):
+        stamps = []
+
+        def stamp(env):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        evals = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        booster, launches = counted(kernels, lambda: lgb.train(
+            p, ds, iters, valid_sets=[dv], evals_result=evals,
+            callbacks=[stamp]))
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        learner = booster._gbdt.learner
+        stats = booster.grow_stats()
+        need(learner.hist_mode == "sparse" and learner.growth == growth,
+             "%s: ran %s under %s growth" % (label, learner.hist_mode,
+                                              learner.growth))
+        need((fused_of(booster) is None) == label.endswith("staged"),
+             "%s: took the other chain" % label)
+        need(len(stats) == iters, "%s: grew %d trees" % (label, len(stats)))
+        need(launches["score_update"] == iters
+             and sum(launches.values()) == iters,
+             "%s: launches %s (B2 once an iteration and nothing else)"
+             % (label, launches))
+        auc = evals["valid_0"]["auc"][-1]
+        need(auc > 0.8, "%s: valid AUC %.4f <= 0.8" % (label, auc))
+        steady = ((len(stamps) - 1) / (stamps[-1] - stamps[0])
+                  if len(stamps) > 1 else float("nan"))
+        RATES[label] = (iters / t_train, steady)
+        unit = "splits" if growth == "exact" else "waves"
+        say("%s train on %s: %d iterations in %.3f s including set-up "
+            "(%.4f it/s); steady %.4f it/s; %.2f %s/tree, %.2f host "
+            "reads/tree; valid AUC %.6f; store %.1f MB on the device "
+            "(the entry-chunk store's %.1f MB); peak device memory %.2f GB"
+            % (label, card, iters, t_train, iters / t_train, steady,
+               sum(s.passes for s in stats) / len(stats), unit,
+               sum(s.host_reads for s in stats) / len(stats), auc,
+               learner.sparse_device_bytes / 1e6, chunk_bytes / 1e6,
+               torch.cuda.max_memory_allocated() / 1e9))
+        runs[label] = (booster.model_to_string(), launches)
+        del booster
+        torch.cuda.empty_cache()
+    text = runs["coord"][0]
+    need(runs["coord-again"][0] == text,
+         "14a: two fused runs gave different model texts")
+    need(runs["coord-staged"][0] == text,
+         "14a: fused and staged model texts differ")
+    need(text == chunk_text, "14a: the coordinate store's model text "
+         "differs from the entry-chunk store's (phase 5)")
+    say("14a checks: fused, fused again and staged model text one to the "
+        "byte, and phase 5's entry-chunk text; %.1f s"
+        % (time.perf_counter() - t_phase))
+    return runs["coord"][1]
+
+
+def raw_modes_phase(lgb, kernels, card):
+    """14b: DART, a rollback and continued training on both sparse stores
+    from the raw rows: the Bosch recipe's first RAW_SPARSE_ROWS rows as a
+    dense matrix (the rows the host traversal scores a tree on), its
+    valid rows likewise; the scores must follow the trees.  EFB is off:
+    a bundle's conflicting rows make binned scores differ from the raw
+    rows' (ROADMAP C, standing notes), which would hide what the check
+    holds.  Returns the entry-chunk DART run's launches."""
+    import torch
+    t_phase = time.perf_counter()
+    Xs, ys = make_sparse_data(RAW_SPARSE_ROWS, 7)
+    Xsv, ysv = make_sparse_data(RAW_SPARSE_ROWS // 4, 8)
+    X, Xv = Xs.toarray(), Xsv.toarray()
+    base_params = dict(sparse_params(), enable_bundle=False)
+    ds = lgb.Dataset(X, label=ys, params=base_params).construct()
+    dv = lgb.Dataset(Xv, label=ysv, reference=ds).construct()
+    need(ds._handle.raw_data is not None and ds._handle.bundle is None,
+         "14b: the raw rows were not kept, or EFB bundled")
+    out = {}
+    for store, kernel in (("coord", False), ("chunked", True)):
+        p = dict(base_params, tpu_sparse_kernel=kernel)
+        mode = "sparse_mxu" if kernel else "sparse"
+        t0 = time.perf_counter()
+        dart, launches = counted(kernels, lambda: lgb.train(
+            dict(p, boosting="dart", drop_rate=0.1), ds, DART_ITERS,
+            valid_sets=[dv]))
+        need(dart._gbdt.learner.hist_mode == mode, "14b: dart on %s" % mode)
+        check_scores_follow_trees("dart-" + store, dart, X, Xv)
+        out["dart-" + store] = launches
+        # staged: the checks are the scores, not the graphs
+        p = dict(p, tpu_fused_iter="off")
+        rb = lgb.train(p, ds, 4, valid_sets=[dv])
+        n = rb.num_trees()
+        rb.rollback_one_iter()
+        need(rb.num_trees() == n - 1, "14b: rollback kept %d of %d trees"
+             % (rb.num_trees(), n))
+        check_scores_follow_trees("rollback-" + store, rb, X, Xv)
+        base = lgb.train(p, ds, 2)
+        cont = lgb.train(p, ds, 2, init_model=base, valid_sets=[dv])
+        need(cont.num_trees() == base.num_trees() + 2,
+             "14b: continued training grew %d trees"
+             % (cont.num_trees() - base.num_trees()))
+        check_scores_follow_trees("init_model-" + store, cont, X, Xv)
+        say("14b %s store on %s: DART (%d iterations, drop_rate 0.1) "
+            "launches %s, a rollback, continued training from init_model; "
+            "scores follow the trees; %.1f s"
+            % (store, card, DART_ITERS, launches,
+               time.perf_counter() - t0))
+        del dart, rb, base, cont
+        torch.cuda.empty_cache()
+    say("14b: %.1f s" % (time.perf_counter() - t_phase))
+    return out["dart-chunked"]
+
+
+def observers_phase(lgb, kernels, card, data, main_text):
+    """14c: the main path (phase 4's Dataset, fused, OBS_ITERS
+    iterations) with every single-process observer on, and off, in the
+    same call: one model text to the byte, each run's steady rate; the
+    timeline passes `obs recompiles --check`, `obs roofline` and `obs prof
+    --check` and validates; the live plane is scraped from a thread
+    during the run (plain HTTP: no TLS context is built beside the
+    sampler).
+    Then on DRILL_ROWS rows: a stalled callback makes the watchdog write
+    a flight record, and a fobj with one NaN opens an incident.  Returns
+    the observed run's launches."""
+    import contextlib
+    import http.client
+    import io
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch.obs.events import read_events, validate_event
+    from lightgbm_tpu_torch.obs.ledger import Ledger
+    t_phase = time.perf_counter()
+    ds, dv = data[0], data[1]
+    work = tempfile.mkdtemp(prefix="chip_smoke_observers_")
+    path = os.path.join(work, "run.jsonl")
+    on = dict(flagship_params(), obs_events_path=path, obs_compile=True,
+              obs_utilization_every=1, obs_watchdog_secs=120.0,
+              obs_incident=True, obs_http_port=0,
+              obs_ledger_dir=os.path.join(work, "ledger"))
+    scraped = {}
+
+    def scrape(url):
+        host, port = url[len("http://"):].rsplit(":", 1)
+        for route in ("/healthz", "/metrics", "/statusz"):
+            conn = http.client.HTTPConnection(host, int(port), timeout=30)
+            try:
+                conn.request("GET", route)
+                r = conn.getresponse()
+                scraped[route] = (r.status, len(r.read()))
+            finally:
+                conn.close()
+
+    texts, threads = {}, []
+    launches = None
+    for label, p in (("observers-off", flagship_params()),
+                     ("observers-on", on)):
+        stamps = []
+
+        def stamp(env, label=label):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            url = env.model._gbdt._obs.live_url
+            if url and not threads:
+                threads.append(threading.Thread(target=scrape, args=(url,)))
+                threads[0].start()
+
+        t0 = time.perf_counter()
+        booster, got = counted(kernels, lambda: lgb.train(
+            p, ds, OBS_ITERS, valid_sets=[dv], callbacks=[stamp]))
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        for t in threads:
+            t.join(timeout=60)
+        need(fused_of(booster) is not None, "%s: did not run fused" % label)
+        steady = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        RATES[label] = (OBS_ITERS / t_train, steady)
+        say("%s train on %s: %d iterations in %.3f s including set-up "
+            "(%.4f it/s); steady %.4f it/s over iterations 2-%d; launches "
+            "%s" % (label, card, OBS_ITERS, t_train, OBS_ITERS / t_train,
+                    steady, OBS_ITERS, got))
+        texts[label] = booster.model_to_string()
+        if label == "observers-on":
+            launches = got
+        del booster
+        torch.cuda.empty_cache()
+    need(texts["observers-on"] == texts["observers-off"],
+         "14c: the observed run's model text differs from the unobserved "
+         "run's")
+    first = texts["observers-off"].split("Tree=%d" % ITERS)[0]
+    need(main_text.startswith(first.rstrip("\n")),
+         "14c: the first %d trees differ from the main path's" % ITERS)
+    need(set(scraped) == {"/healthz", "/metrics", "/statusz"}
+         and all(code == 200 for code, _ in scraped.values()),
+         "14c: live plane scrape %s" % scraped)
+    events = read_events(path)
+    for e in events:
+        validate_event(e, strict=True)
+    attrs = [e for e in events if e["ev"] == "compile_attr"]
+    names = sorted({e["entry"] for e in attrs})
+    need({"fused_iter.tree", "fused_iter.score"} <= set(names),
+         "14c: captures on the timeline: %s" % names)
+    need(all(e.get("cost") for e in attrs
+             if e["entry"] == "fused_iter.tree"),
+         "14c: the tree graph's capture has no cost")
+    util = [e for e in events if e["ev"] == "utilization"]
+    need(util, "14c: no utilization event")
+    profs = [e for e in events if e["ev"] == "prof_profile"]
+    need(profs, "14c: no prof_profile window")
+    need(len(Ledger(on["obs_ledger_dir"]).entries()) == 1,
+         "14c: the run is not in the ledger")
+    outs = {}
+    for cmd in (["recompiles", path, "--check"], ["roofline", path],
+                ["prof", path, "--check"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["obs"] + cmd)
+        outs[cmd[0]] = buf.getvalue()
+        need(rc == 0, "14c: obs %s exited %d:\n%s"
+             % (" ".join(cmd), rc, buf.getvalue()))
+    for ln in outs["roofline"].splitlines()[:8]:
+        say("  " + ln)
+    last = util[-1] if util else {}
+    say("14c observers on %s: steady %.4f it/s on, %.4f off (%.2f%%); %d "
+        "events, captures %s; utilization flop %.6f, hbm %.6f, bound %s; "
+        "%d profile windows, overhead %s; live plane scraped %s; ledger "
+        "1 record" % (card, RATES["observers-on"][1],
+                      RATES["observers-off"][1],
+                      100.0 * (RATES["observers-off"][1]
+                               / RATES["observers-on"][1] - 1.0),
+                      len(events), names, last.get("flop_util", 0.0),
+                      last.get("hbm_util", 0.0), last.get("bound"), len(profs),
+                      [round(p.get("overhead_frac", 0.0), 5)
+                       for p in profs], sorted(scraped)))
+
+    # ---- the drills, on DRILL_ROWS rows of the flagship data
+    Xd, yd = data[2][:DRILL_ROWS], ds._handle.metadata.label[:DRILL_ROWS]
+    drill = lgb.Dataset(Xd, label=yd, params=flagship_params())
+    wpath = os.path.join(work, "stall.jsonl")
+
+    def stall(env):
+        if env.iteration == 1:
+            time.sleep(3.0)
+
+    lgb.train(dict(flagship_params(), obs_events_path=wpath,
+                   obs_watchdog_secs=1.0), drill, 3, callbacks=[stall])
+    flight = wpath + ".flight.json"
+    need(os.path.exists(flight), "14c: the stalled run left no flight "
+         "record")
+    rec = json.load(open(flight))
+    need(rec.get("threads") and rec.get("devices"),
+         "14c: flight record without thread stacks or device memory")
+    ipath = os.path.join(work, "nan.jsonl")
+
+    def fobj(preds, train_data):
+        p = 1.0 / (1.0 + np.exp(-preds))
+        g = p - train_data.get_label()
+        g[0] = np.nan
+        return g, p * (1.0 - p)
+
+    lgb.train(dict(flagship_params(), objective="none", metric="none",
+                   obs_events_path=ipath, obs_health="warn",
+                   obs_incident=True),
+              lgb.Dataset(Xd, label=yd, params=flagship_params()), 2,
+              fobj=fobj)
+    ievents = read_events(ipath)
+    opens = [e for e in ievents if e["ev"] == "incident_open"]
+    need(len(opens) == 1, "14c: a NaN gradient opened %d incidents"
+         % len(opens))
+    say("14c drills: a %d-row run stalled 3 s under obs_watchdog_secs=1 "
+        "wrote a flight record (%s: %d threads); a fobj with one NaN "
+        "opened incident %s (trigger %s); %.1f s in 14c"
+        % (DRILL_ROWS, rec.get("reason"), len(rec["threads"]),
+           opens[0]["id"], opens[0]["trigger"],
+           time.perf_counter() - t_phase))
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def serve_observer_phase(lgb, card, booster, X):
+    """14d (inside phase 7): its booster serves its fresh rows X under
+    bench_serve.py's closed loop, first with no observer, then with a
+    run observer, drift monitoring against the training data's
+    fingerprint (DRIFT_EVERY rows, a DRIFT_WINDOW window) and the live
+    plane: p50 and p99 of each; no capture after warm-up; in-distribution
+    traffic raises no drift alert, a shifted feature raises one."""
+    import shutil
+    import tempfile
+    import urllib.request
+    from lightgbm_tpu_torch.obs import observer_from_config
+    from lightgbm_tpu_torch.obs.events import read_events, validate_event
+    from lightgbm_tpu_torch.utils.config import Config
+    t_phase = time.perf_counter()
+    need(booster._gbdt.drift_fingerprint() is not None,
+         "14d: phase 7's booster has no drift fingerprint")
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_obs_")
+    path = os.path.join(work, "serve.jsonl")
+    ladder = [1 << b for b in range(6, 13)]
+    lat = {}
+    for label in ("no observer", "observer"):
+        obs, over = None, {}
+        if label == "observer":
+            obs = observer_from_config(Config({
+                "obs_events_path": path, "obs_compile": True,
+                "obs_http_port": 0}))
+            obs.ensure_live_server(0)
+            over = {"observer": obs, "drift_every": DRIFT_EVERY,
+                    "drift_window": DRIFT_WINDOW}
+        sp = booster.serve(max_batch=SERVE_MAX_BATCH, max_delay_ms=2.0,
+                           **over)
+        try:
+            need(sp.warmup(ladder) == ladder, "14d: warm-up ladder")
+            lt, wall, rows, _ = run_load(sp, X, SERVE_OBS_REQUESTS,
+                                         SERVE_THREADS, SERVE_SIZES)
+            st = sp.stats()
+            need(st["executables"]["steady_state_compiles"] == 0,
+                 "14d (%s): a graph was captured after warm-up" % label)
+            lat[label] = (float(np.percentile(lt, 50)),
+                          float(np.percentile(lt, 99)), len(lt) / wall)
+            if label == "observer":
+                need(sp.drift is not None, "14d: no drift monitor")
+                with urllib.request.urlopen(obs.live_url + "/statusz",
+                                            timeout=30) as r:
+                    statusz = json.loads(r.read())
+                need(sp.drift.alerts_fired == 0,
+                     "14d: in-distribution traffic raised a drift alert: "
+                     "%s" % sp.drift.headline())
+                shifted = X[:SERVE_MAX_BATCH].copy()
+                shifted[:, 0] += 3.0
+                for _ in range(2 * DRIFT_WINDOW // SERVE_MAX_BATCH):
+                    sp.predict(shifted)
+                need(sp.drift.alerting and sp.drift.alerts_fired == 1,
+                     "14d: the shifted feature raised no drift alert: %s"
+                     % sp.drift.headline())
+                head = sp.drift.headline()
+        finally:
+            sp.close()
+            if obs is not None:
+                obs.close()
+    events = read_events(path)
+    for e in events:
+        validate_event(e, strict=True)
+    caps = sorted(e["entry"] for e in events if e["ev"] == "compile")
+    need(len(caps) == len(ladder) and all(
+        c.startswith("serve_predict_b") for c in caps),
+        "14d: serving captures on the timeline %s" % caps)
+    drifts = [e for e in events if e["ev"] == "drift"]
+    need(drifts and drifts[-1].get("alert") == "firing",
+         "14d: no firing drift event on the timeline")
+    need(any(e["ev"] == "serve_summary" for e in events),
+         "14d: no serve_summary event")
+    say("14d serving phase 7's model on %s, %d threads: no observer p50 "
+        "%.6f s, p99 %.6f s, %.1f requests/s; observer + drift + live "
+        "plane p50 %.6f s, p99 %.6f s, %.1f requests/s; no capture after "
+        "warm-up; %d drift evaluations, in-distribution clean, the shifted "
+        "feature fired (psi_max %s); /statusz lifecycle %s; %.1f s"
+        % ((card, SERVE_THREADS) + lat["no observer"] + lat["observer"]
+           + (len(drifts), head.get("last", {}).get("psi_max"),
+              statusz.get("lifecycle"), time.perf_counter() - t_phase)))
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -4356,6 +4786,11 @@ def main():
     streamed_launches = streamed_phase(args, lgb, kernels, card, data,
                                        main_text)
 
+    # ---- 14c. the single-process observers on the main path (phase 4's
+    # Dataset, fused), on and off; the watchdog and incident drills
+    observer_launches = observers_phase(lgb, kernels, card, data,
+                                        main_text)
+
     # ---- 11. the measured autotuner and the run observer on the
     # flagship's Dataset (autotune_phase)
     probe_launches = autotune_phase(args, lgb, kernels, card, data)
@@ -4418,8 +4853,15 @@ def main():
     # ---- 5. the sparse path: B6 at the Bosch store, then training
     (records["sparse_wave_histogram"], sparse_launches,
      records["sparse_wave_histogram_bf16"],
-     form_launches["sparse-bf16"]) = sparse_phase(args, lgb, sm, kernels,
-                                                  card)
+     form_launches["sparse-bf16"], sparse_data) = sparse_phase(
+         args, lgb, sm, kernels, card)
+
+    # ---- 14a. the coordinate store on phase 5's Dataset; 14b. DART,
+    # rollback and continued training on both sparse stores from raw rows
+    coord_launches = coord_store_phase(lgb, kernels, card, sparse_data)
+    del sparse_data
+    torch.cuda.empty_cache()
+    raw_launches = raw_modes_phase(lgb, kernels, card)
 
     # ---- 7. prediction and serving at bench_serve.py's full shape
     serve_data = serve_phase(args, lgb, card, dev)
@@ -4464,7 +4906,9 @@ def main():
              + [("sparse", sparse_launches), ("files", file_launches),
                 ("fobj", fobj_launches), ("ranking", rank_launches),
                 ("api", api_launches), ("autotune-probes", probe_launches),
-                ("streamed", streamed_launches)]
+                ("streamed", streamed_launches),
+                ("observers", observer_launches), ("coord", coord_launches),
+                ("dart-chunked-raw", raw_launches)]
              + list(PHASE12.items()))
     sources = {"wave_partition_hist": ("lightgbm_tpu_torch/csrc/wave_fused.cu",
                                        "lightgbm_tpu/ops/pallas_wave.py:508"),

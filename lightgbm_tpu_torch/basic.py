@@ -773,6 +773,35 @@ class Booster:
         observe_predict(rows, time.perf_counter() - t0)
         return out
 
+    def _predict_drift(self):
+        """The booster's DriftMonitor (obs/drift.py) for the synchronous
+        predict path, made on first use (the ServingPredictor builds its
+        own): with ``obs_drift_every`` > 0, an enabled observer and a
+        fingerprinted model; ``False`` caches 'checked, unavailable'."""
+        mon = self.__dict__.get("_drift_monitor")
+        if mon is not None:
+            return mon or None
+        cfg = self._cfg
+        obs = self._gbdt._obs
+        mon = False
+        if int(cfg.obs_drift_every or 0) > 0 and obs.enabled:
+            fp = self._gbdt.drift_fingerprint()
+            if fp is not None:
+                from .obs.drift import DriftMonitor
+                m = DriftMonitor(
+                    fp, observer=obs,
+                    mode=(cfg.obs_health if cfg.obs_health != "off"
+                          else "warn"),
+                    every_rows=cfg.obs_drift_every,
+                    window_rows=cfg.obs_drift_window,
+                    psi_threshold=cfg.obs_drift_psi,
+                    topk=cfg.obs_drift_topk,
+                    min_labels=cfg.obs_drift_min_labels)
+                if m.enabled:
+                    mon = m
+        self._drift_monitor = mon
+        return mon or None
+
     def _predict_data(self, data, num_iteration, raw_score, pred_leaf,
                       pred_contrib, pred_early_stop=False,
                       pred_early_stop_freq=10, pred_early_stop_margin=10.0):
@@ -786,15 +815,24 @@ class Booster:
                 early_stop_freq=pred_early_stop_freq,
                 early_stop_margin=pred_early_stop_margin)
 
+        drift = self._predict_drift()
+
         def run(block):
+            if drift is not None:
+                drift.observe_features(block)
             if early_predictor is not None:
-                return early_predictor._predict_impl(block)
-            if pred_contrib:
+                out = early_predictor._predict_impl(block)
+            elif pred_contrib:
                 return self._gbdt.pred_contrib(block,
                                                num_iteration=num_iteration)
-            return self._gbdt.predict(block, num_iteration=num_iteration,
-                                      raw_score=raw_score,
-                                      pred_leaf=pred_leaf)
+            else:
+                out = self._gbdt.predict(block,
+                                         num_iteration=num_iteration,
+                                         raw_score=raw_score,
+                                         pred_leaf=pred_leaf)
+            if drift is not None and not pred_leaf:
+                drift.observe_scores(out, raw=raw_score)
+            return out
 
         mat = _matrix(data)
         if isinstance(mat, SparseColumns):
@@ -820,14 +858,16 @@ class Booster:
         manager, to flush the queue and stop the worker thread.  The
         predictor takes this booster's trees once, when it is built: a
         later update, rollback or reload of the booster does not reach
-        it (build another).  Drift
-        monitoring (``obs_drift_every``) and the live telemetry plane
-        (``obs_http_port``) are not in the port yet and raise."""
+        it (build another).  The booster's run observer (``observer``
+        overrides it) receives the programs' captures, the sampled
+        batches and requests, the SLO snapshots and the close-time
+        ``serve_summary``; with ``obs_http_port`` >= 0 it also serves the
+        live plane (obs/live.py), and with ``obs_drift_every`` > 0 and a
+        fingerprinted model a DriftMonitor watches the traffic
+        (obs/drift.py; overrides ``drift_every``, ``drift_window``,
+        ``drift_psi``, ``drift_topk``, ``drift_min_labels``)."""
         from .serve import ServingPredictor
         cfg = self._cfg
-        if int(cfg.obs_http_port) >= 0:
-            raise LightGBMError("obs_http_port: the live telemetry plane "
-                                "is not in lightgbm_tpu_torch yet")
         kw = {"max_batch": cfg.serve_max_batch,
               "max_delay_ms": cfg.serve_max_delay_ms,
               "bucket_min": cfg.serve_bucket_min,
@@ -844,8 +884,21 @@ class Booster:
               # mode; obs_health=off still warns
               "slo_mode": (cfg.obs_health if cfg.obs_health != "off"
                            else "warn"),
-              "drift_every": cfg.obs_drift_every}
+              "drift_every": cfg.obs_drift_every,
+              "drift_window": cfg.obs_drift_window,
+              "drift_psi": cfg.obs_drift_psi,
+              "drift_topk": cfg.obs_drift_topk,
+              "drift_min_labels": cfg.obs_drift_min_labels,
+              "observer": self._gbdt._obs}
         kw.update(overrides)
+        # the live plane: a serving process exposes the endpoints a
+        # training run does; the SLO headline and queue depth ride in
+        # through the observer's flight providers
+        obs = kw.get("observer")
+        if (int(cfg.obs_http_port) >= 0 and obs is not None
+                and obs.enabled):
+            obs.ensure_live_server(int(cfg.obs_http_port),
+                                   str(cfg.obs_http_addr or "127.0.0.1"))
         return ServingPredictor(self._gbdt, num_iteration=num_iteration,
                                 **kw)
 

@@ -17,11 +17,12 @@ Training and prediction run on the GPU unless ``device_type=cpu`` (or
 ``device=cpu``) asks for the CPU; without a card any other value raises.
 ``obs_*`` keys act as in ``train`` (obs/): ``obs_events_path`` writes the
 run's timeline, which ``python -m lightgbm_tpu_torch obs summary|explain|
-diff|trace`` reads (obs/query.py); ``tpu_profile_dir`` records a
+diff|trace|recompiles|roofline|serve|drift|incident|watch|prof|history|
+trend`` reads (obs/query.py); ``tpu_profile_dir`` records a
 torch.profiler trace of the whole training loop (obs/profile.py).  Not in
 the port yet, and refused naming their ROADMAP item: the ``lint``
-subcommand, the other ``obs`` subcommands, and the ``obs_*`` keys of the
-observability modules the port lacks (obs/__init__.py UNPORTED).
+subcommand, ``obs stragglers|merge`` and the straggler keys (the
+distributed learners' observability, obs/__init__.py UNPORTED).
 """
 from __future__ import annotations
 

@@ -7,6 +7,8 @@ the tests want and what a user asking for the GPU does not.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 
 import torch
@@ -20,6 +22,25 @@ from .utils.log import LightGBMError
 # take this lock; between captures each thread synchronizes only its own
 # streams and events.
 CAPTURE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def capture_guard():
+    """CAPTURE_LOCK held and Python's cyclic garbage collector paused for
+    the length of a capture.  A collection runs on whichever thread
+    happens to allocate (the run observer's sampling profiler, a serving
+    thread, the capturing thread itself) and may free an earlier booster's
+    graphs, whose teardown is a CUDA call that invalidates a capture in
+    progress; with the collector paused, such objects wait for the next
+    collection after the capture."""
+    with CAPTURE_LOCK:
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            yield
+        finally:
+            if enabled:
+                gc.enable()
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -153,19 +153,26 @@ def train(params: Dict[str, Any], train_set: Dataset,
             booster.update(fobj=fobj)
             rounds_done = rounds_base + (i - begin) + 1
             if ck_dir and ck_every > 0 and rounds_done % ck_every == 0:
+                obs.stamp_context(stage="checkpoint", it=rounds_done)
                 ckpt_mod.save_checkpoint(ck_dir, booster._gbdt, rounds_done,
                                          params)
                 saved = rounds_done
             results = []
             if valid_sets is not None or feval is not None:
+                # an anomaly firing here happened during eval
+                obs.stamp_context(stage="eval", it=i)
                 if include_train:
                     results.extend(booster.eval_train(feval))
                 results.extend(booster.eval_valid(feval))
                 # the metric values are also the timeline's eval event
-                if results and obs.enabled:
-                    obs.event("eval", it=i, results=[
-                        {"dataset": str(n), "metric": str(m),
-                         "value": float(v)} for n, m, v, _ in results])
+                # and the drift fingerprint's eval snapshot
+                if results:
+                    evals = [{"dataset": str(n), "metric": str(m),
+                              "value": float(v)} for n, m, v, _ in results]
+                    booster._gbdt._last_eval_results = evals
+                    booster._gbdt._drift_fingerprint = None
+                    if obs.enabled:
+                        obs.event("eval", it=i, results=evals)
             try:
                 for cb in cbs_after:
                     cb(CallbackEnv(booster, params, i, begin, end, results))

@@ -79,6 +79,10 @@ class TrainingData:
         # (obs/dataquality.py, obs_data_profile); None where the binning
         # was copied from a reference
         self.data_profile: Optional[dict] = None
+        # the per-feature drift fingerprint of the binning sample
+        # (obs/drift.py feature_fingerprint, obs_drift_fingerprint): the
+        # serving-time reference a model carries in its text
+        self._drift_fingerprint: Optional[dict] = None
         # the construction's accounting for the dataset_construct event
         # (rows, phase seconds, peak RSS)
         self.construct_stats: Optional[dict] = None
@@ -321,7 +325,13 @@ class TrainingData:
                          config: Config) -> None:
         """The data-quality profile of the binning sample, which the
         booster emits as a ``data_profile`` event (``obs_data_profile``,
-        on by default)."""
+        on by default), and its drift fingerprint
+        (``obs_drift_fingerprint``, on by default)."""
+        if bool(config.obs_drift_fingerprint):
+            from ..obs import drift
+            self._drift_fingerprint = drift.feature_fingerprint(
+                self.bin_mappers, get_col, self.num_total_features,
+                sample_size, self.feature_names)
         if bool(config.obs_data_profile):
             from ..obs import dataquality
             self.data_profile = dataquality.profile_columns(

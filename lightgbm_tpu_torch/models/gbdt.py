@@ -27,6 +27,7 @@ until a host view is needed.
 """
 from __future__ import annotations
 
+import json
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -120,6 +121,11 @@ class GBDT:
         # one from the obs_* params
         self._obs = NULL_OBSERVER
         self._metrics = None
+        # the serving-time drift reference (obs/drift.py): completed
+        # lazily from the dataset's fingerprint, or read from model text
+        self._drift_fingerprint: Optional[dict] = None
+        # the last eval pass's values, the fingerprint's eval snapshot
+        self._last_eval_results: List[dict] = []
         if train_data is not None:
             self.reset_training_data(config, train_data, objective,
                                      training_metrics)
@@ -221,6 +227,10 @@ class GBDT:
                 context=dict(self.learner.obs_info(),
                              torch=torch.__version__,
                              cuda=str(torch.version.cuda or "")))
+            # the continuous host sampling profiler (obs/prof.py,
+            # obs_prof_hz) runs for the run; close() flushes its last
+            # window
+            obs.prof_arm()
             from ..obs import REGISTRY
             self._metrics = {"trees": REGISTRY.counter(
                 "lgbm_trees_built_total",
@@ -248,13 +258,18 @@ class GBDT:
     def reset_config(self, config: Config) -> None:
         """GBDT::ResetConfig (gbdt.cpp:64-74): new training parameters
         for the trees to come; the scores and the trees stay.  The learner
-        is built anew (its upload of the bins too)."""
+        is built anew (the dense bins uploaded again; a sparse store of
+        the kind it runs is kept)."""
         self._materialize()
         self.config = config
         self.early_stopping_round = config.early_stopping_round
         self.shrinkage_rate = config.learning_rate
-        self.learner = SerialTreeLearner(config, self.train_data,
-                                         self.device)
+        old = self.learner
+        # a sparse store is reused: train_data is unchanged, so the store
+        # is too (JAX models/gbdt.py reset_config)
+        self.learner = SerialTreeLearner(
+            config, self.train_data, self.device,
+            device_store=old.X if old is not None and old.sparse else None)
         self._resolve_score_engine(config)
         # the run's observer follows the rebuilt learner
         self.learner.set_observer(self._obs)
@@ -313,15 +328,29 @@ class GBDT:
         return self._valid_score_dev[i].cpu().numpy().astype(np.float64)
 
     def _apply_tree_to_train(self, tree: Tree, tid: int) -> None:
-        """Add a grown tree's output (its host leaf values) to row tid of
-        the train score, in place, by a traversal of the learner's bins."""
+        """Add a tree's output (its host leaf values) to row tid of the
+        train score, in place (JAX models/gbdt.py _apply_tree_to_train):
+        by a device traversal of the learner's bins when the tree has bin
+        thresholds and the learner keeps a dense matrix; else (a sparse
+        store, a tree loaded from text) by the f64 host traversal of the
+        kept raw rows, added to the scores on the host and written back
+        once.  Without either it raises, as the JAX package does."""
         if tree.num_leaves <= 1:
             return
         X, packed = self.learner.row_major_bins()
-        if X is None:
-            Log.fatal("tpu_sparse=true keeps no dense device matrix to "
-                      "traverse; DART/rollback/continued training need the "
-                      "raw data (keep_raw) under the sparse store")
+        if X is None or not getattr(tree, "has_bin_thresholds", True):
+            raw = self.train_data.raw_data
+            if raw is not None:
+                row = self._score_dev[tid]
+                s = row.cpu().numpy().astype(np.float64) + tree.predict(raw)
+                row.copy_(torch.as_tensor(s.astype(self._score_np)))
+                return
+            if X is None:
+                Log.fatal("tpu_sparse=true keeps no dense device matrix to "
+                          "traverse; DART/rollback/continued training need "
+                          "the raw data (keep_raw) under the sparse store")
+            Log.fatal("Cannot apply a loaded model to binned-only data; "
+                      "keep raw data when continuing training")
         row = self._score_dev[tid]
         # the training bins may be 4-bit packed; the valid sets never are
         dev_predict.add_tree_to_score(
@@ -465,6 +494,8 @@ class GBDT:
                 fused = fused_iter.FusedIteration(
                     self.learner, self.objective.get_gradients,
                     self.num_data, score_engine=self._score_engine)
+                # its captures are the run's compiles (obs/compile.py)
+                fused.observer = self._obs
         self._fused_state = (fused,)
         return fused
 
@@ -483,6 +514,9 @@ class GBDT:
         obs = self._obs
         it0 = self.iter
         obs.iter_begin(it0)
+        # what the loop is doing, for /statusz and incident evidence
+        # (obs/incident.py): a host dict update
+        obs.stamp_context(stage="boost", it=it0, trees=len(self.models))
         # the host glue between device submissions (obs/timers.py): the
         # iter event's host_orchestration_s
         oc = OrchestrationClock() if obs.enabled else NULL_ORCH
@@ -550,6 +584,9 @@ class GBDT:
                 # the tree is the fused iteration's buffer, so the model
                 # keeps a copy
                 t0 = obs.entry_start()
+                obs.entry_args("fused_iter", fused.run,
+                               (row, self.row_mult), names=("score",
+                                                            "row_mult"))
                 dev_tree, leaf_id, stats = fused.run(
                     row, self.row_mult, self.learner.sample_feature_mask(),
                     scale)
@@ -726,8 +763,11 @@ class GBDT:
                             meet_pairs.append((i, j))
                         elif it - self.best_iter[i][j] >= esr:
                             ret = self.best_msg[i][j]
-        if eval_results and self._obs.enabled:
-            self._obs.event("eval", it=it, results=eval_results)
+        if eval_results:
+            self._last_eval_results = eval_results
+            self._drift_fingerprint = None   # eval snapshot went stale
+            if self._obs.enabled:
+                self._obs.event("eval", it=it, results=eval_results)
         msg = "\n".join(msg_lines)
         for i, j in meet_pairs:
             self.best_msg[i][j] = msg
@@ -946,6 +986,28 @@ class GBDT:
         return out[:, 0, :] if k == 1 else out
 
     # ------------------------------------------------------------- model I/O
+    def drift_fingerprint(self) -> Optional[dict]:
+        """The serving-time drift reference (obs/drift.py): the dataset's
+        per-feature binned histograms completed with the training-score
+        distribution and the last eval snapshot; cached (each eval pass
+        invalidates it).  A model loaded from a text that carries a
+        ``drift_fingerprint=`` line (the JAX package writes one) takes
+        that one.  The port's own model text does not write the line
+        (ROADMAP C): its texts stay byte-equal across the construction
+        paths whose datasets carry no fingerprint (pre-binned
+        directories, streamed files, binary dataset files)."""
+        if self._drift_fingerprint is not None:
+            return self._drift_fingerprint
+        base = getattr(self.train_data, "_drift_fingerprint", None)
+        if base is None:
+            return None
+        from ..obs import drift
+        score = self.train_score if self._score_dev is not None else None
+        self._drift_fingerprint = drift.attach_scores(
+            base, train_score=score, objective=self.objective,
+            eval_results=self._last_eval_results)
+        return self._drift_fingerprint
+
     def save_model_to_string(self, num_iteration: int = -1) -> str:
         """GBDT::SaveModelToString (gbdt.cpp:817-861)."""
         self._materialize()
@@ -972,8 +1034,9 @@ class GBDT:
         return "\n".join(lines) + "\n"
 
     def load_model_from_string(self, model_str: str) -> bool:
-        """GBDT::LoadModelFromString (gbdt.cpp:875-971).  Header keys this
-        port does not use (e.g. a drift fingerprint) are ignored."""
+        """GBDT::LoadModelFromString (gbdt.cpp:875-971); a
+        ``drift_fingerprint=`` line becomes the serving-time drift
+        reference (obs/drift.py)."""
         self.models, self._models_dev, self._models_shrink = [], [], []
         lines = model_str.splitlines()
         header_lines = []
@@ -1000,6 +1063,12 @@ class GBDT:
             self.feature_infos = kv["feature_infos"].split(" ")
         if "objective" in kv:
             self.objective = load_objective_from_string(kv["objective"])
+        if "drift_fingerprint" in kv:
+            try:
+                self._drift_fingerprint = json.loads(kv["drift_fingerprint"])
+            except ValueError as e:
+                Log.warning("ignoring malformed drift_fingerprint in "
+                            "model text: %s", e)
         for part in "\n".join(lines).split("Tree=")[1:]:
             body = []
             for bl in part.splitlines()[1:]:

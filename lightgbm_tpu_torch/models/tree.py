@@ -67,6 +67,9 @@ class Tree:
         self.leaf_parent[0] = -1
         self.shrinkage = 1.0
         self.has_categorical = False
+        # trees read from the text format carry only real-valued
+        # thresholds (tree.cpp:312-343): no binned traversal of them
+        self.has_bin_thresholds = True
 
     # ---------------------------------------------------------------- build
     def split(self, leaf: int, inner_feature: int, bin_type_categorical: bool,
@@ -306,6 +309,7 @@ class Tree:
             self.shrinkage = float(kv["shrinkage"])
         if "has_categorical" in kv:
             self.has_categorical = int(kv["has_categorical"]) != 0
+        self.has_bin_thresholds = False
         return self
 
     def to_json(self) -> str:

@@ -22,12 +22,26 @@ The port's copy of the JAX package's ``obs`` core:
   stamps;
 * ``metrics`` -- process counters, gauges and histograms;
 * ``serve``   -- the serving tier's SLO engine;
+* ``compile`` -- compile attribution: graph captures and the kernels'
+  first build as ``compile_attr`` events with signatures, diffs and the
+  captured launches' cost (``obs_compile``);
+* ``watchdog`` -- the hang watchdog and flight recorder
+  (``obs_watchdog_secs``, SIGTERM, ``obs_health=fatal``);
+* ``ledger``  -- the cross-run ledger (``obs_ledger_dir``,
+  ``obs_ledger_suite``, ``obs_ledger_window``);
+* ``live``    -- the in-run scrape server (``obs_http_port``,
+  ``obs_http_addr``: ``/metrics``, ``/healthz``, ``/statusz``,
+  ``/events``) and ``obs watch``;
+* ``drift``   -- the training-time fingerprint and the serving-time
+  ``DriftMonitor`` (``obs_drift_*``);
+* ``incident`` -- the incident engine (``obs_incident*``);
+* ``prof``    -- the continuous host sampling profiler (``obs_prof_*``);
 * ``query``   -- ``python -m lightgbm_tpu_torch obs summary|explain|
-  diff|trace``.
+  diff|trace|recompiles|roofline|serve|drift|incident|watch|prof|
+  history|trend``.
 
-Not in the port yet (ROADMAP A12): the JAX package's ``compile``,
-``straggler``, ``watchdog``, ``ledger``, ``live``, ``drift``,
-``incident``, ``prof`` and ``merge`` modules.  Their ``obs_*`` keys raise
+Not in the port yet (ROADMAP A10, distributed): the JAX package's
+``straggler`` and ``merge`` modules.  The straggler keys raise
 LightGBMError naming the item when set away from their defaults
 (``refuse_unported``); every other ``obs_*`` key acts as in the JAX
 package.
@@ -52,21 +66,9 @@ _TIMING_MODES = ("auto", "phase", "iter", "off")
 _HEALTH_MODES = ("off", "warn", "fatal")
 
 # the obs_* keys of the JAX package's modules the port does not have yet,
-# by module: a key set away from its default raises.  obs_prof_hz=0
-# (the sampling profiler off, which is all the port does) is accepted.
+# by module: a key set away from its default raises
 UNPORTED = {
-    "obs/compile.py": ("obs_compile", "obs_utilization_every"),
     "obs/straggler.py": ("obs_straggler_every", "obs_straggler_warn_skew"),
-    "obs/watchdog.py": ("obs_watchdog_secs",),
-    "obs/ledger.py": ("obs_ledger_dir", "obs_ledger_suite",
-                      "obs_ledger_window"),
-    "obs/live.py": ("obs_http_port", "obs_http_addr"),
-    "obs/drift.py": ("obs_drift_every", "obs_drift_window", "obs_drift_psi",
-                     "obs_drift_fingerprint", "obs_drift_topk",
-                     "obs_drift_min_labels"),
-    "obs/incident.py": ("obs_incident", "obs_incident_window_s",
-                        "obs_incident_dir", "obs_incident_trace"),
-    "obs/prof.py": ("obs_prof_hz", "obs_prof_window_s", "obs_prof_topk"),
 }
 
 
@@ -79,11 +81,9 @@ def refuse_unported(config) -> None:
             value = getattr(config, key)
             if value == Config._FIELDS[key][1]:
                 continue
-            if key == "obs_prof_hz" and int(value) == 0:
-                continue
             raise LightGBMError(
                 "%s=%s: the JAX package's %s is not in lightgbm_tpu_torch "
-                "yet (ROADMAP A12, observability)" % (key, value, module))
+                "yet (ROADMAP A10, distributed)" % (key, value, module))
 
 
 def observer_from_config(config):
@@ -98,10 +98,16 @@ def observer_from_config(config):
 
     Any of ``obs_events_path`` / ``obs_trace_iters`` /
     ``obs_memory_every`` / ``obs_health`` (not off) / ``obs_metrics_path``
-    / ``obs_metrics_every`` / ``obs_split_audit`` /
-    ``obs_importance_every`` enables the observer; health, metrics and
-    model tracking work without an events path (the in-memory timeline
-    of Booster.telemetry())."""
+    / ``obs_metrics_every`` / ``obs_compile`` / ``obs_split_audit`` /
+    ``obs_importance_every`` / ``obs_ledger_dir`` /
+    ``obs_utilization_every`` / ``obs_http_port`` (>= 0) /
+    ``obs_drift_every`` / ``obs_incident`` enables the observer, as in
+    the JAX package; health, metrics, compile and model tracking work
+    without an events path (the in-memory timeline of
+    Booster.telemetry()).  ``obs_watchdog_secs`` and the profiler's
+    ``obs_prof_hz`` (default 29) ride on an otherwise enabled observer;
+    a non-empty ``obs_ledger_dir`` ingests the finished run into the
+    cross-run ledger on a clean close."""
     refuse_unported(config)
     events_path = str(config.obs_events_path or "")
     trace_iters = str(config.obs_trace_iters or "")
@@ -112,10 +118,21 @@ def observer_from_config(config):
                   health_mode)
     metrics_path = str(config.obs_metrics_path or "")
     metrics_every = int(config.obs_metrics_every or 0)
+    compile_attr = bool(config.obs_compile)
+    ledger_dir = str(config.obs_ledger_dir or "")
+    utilization_every = int(config.obs_utilization_every or 0)
+    drift_every = int(config.obs_drift_every or 0)
+    incident = bool(config.obs_incident)
+    # -1 = off; 0 is a real value (an ephemeral port)
+    http_port = -1 if config.obs_http_port is None \
+        else int(config.obs_http_port)
     if (not events_path and not trace_iters and memory_every <= 0
             and health_mode == "off" and not metrics_path
-            and metrics_every <= 0 and not bool(config.obs_split_audit)
-            and int(config.obs_importance_every or 0) <= 0):
+            and metrics_every <= 0 and not compile_attr
+            and not bool(config.obs_split_audit)
+            and int(config.obs_importance_every or 0) <= 0
+            and not ledger_dir and utilization_every <= 0
+            and http_port < 0 and drift_every <= 0 and not incident):
         return NULL_OBSERVER
     timing = str(config.obs_timing).strip().lower()
     if timing not in _TIMING_MODES:
@@ -137,11 +154,24 @@ def observer_from_config(config):
             divergence=float(config.obs_health_divergence or 0.0),
             plateau=int(config.obs_health_plateau or 0),
             mem_frac=float(config.obs_health_mem_frac or 0.0))
-    return RunObserver(events_path=events_path, timing=timing,
-                       memory_every=memory_every, trace_iters=trace_iters,
-                       trace_dir=trace_dir,
-                       flush_every=int(config.obs_flush_every or 16),
-                       health=health, metrics_every=metrics_every,
-                       metrics_path=metrics_path,
-                       fsync=bool(config.obs_fsync),
-                       flight_events=int(config.obs_flight_events or 256))
+    return RunObserver(
+        events_path=events_path, timing=timing, memory_every=memory_every,
+        trace_iters=trace_iters, trace_dir=trace_dir,
+        flush_every=int(config.obs_flush_every or 16), health=health,
+        metrics_every=metrics_every, metrics_path=metrics_path,
+        compile_attr=compile_attr, fsync=bool(config.obs_fsync),
+        watchdog_secs=float(config.obs_watchdog_secs or 0.0),
+        flight_events=int(config.obs_flight_events or 256),
+        ledger_dir=ledger_dir,
+        ledger_suite=str(config.obs_ledger_suite or ""),
+        utilization_every=utilization_every,
+        roofline_peaks=str(config.obs_roofline_peaks or ""),
+        http_port=(http_port if http_port >= 0 else None),
+        http_addr=str(config.obs_http_addr or "127.0.0.1"),
+        incident=incident,
+        incident_window_s=float(config.obs_incident_window_s or 5.0),
+        incident_dir=str(config.obs_incident_dir or ""),
+        incident_trace=bool(config.obs_incident_trace),
+        prof_hz=int(config.obs_prof_hz or 0),
+        prof_window_s=float(config.obs_prof_window_s or 5.0),
+        prof_topk=int(config.obs_prof_topk or 20))

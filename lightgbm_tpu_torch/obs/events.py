@@ -8,16 +8,20 @@ One line per event, append-only.  Every record carries ``ev`` (type),
 file (cv folds) and readers group by ``run``.  The event types and
 their keys are the tables below; docs/Observability.md describes them.
 
-``RunObserver`` is the facade the training loop drives: the phase clock,
-the entry timers, memory snapshots, the trace window (obs/profile.py),
-health (obs/health.py) and metrics snapshots of the process registry
-(obs/metrics.py).  ``NULL_OBSERVER`` is the shared disabled instance:
-every method is a no-op, so the hot path pays one attribute check and an
-empty call, with no fencing and no event objects.  The JAX package's
-compile attribution, straggler sampling, hang watchdog, live scrape
-server, incident engine, sampling profiler and cross-run ledger are not
-in the port yet (ROADMAP A12); their hooks keep the NullObserver's
-no-ops, and their ``obs_*`` keys raise (obs/__init__.py).
+``RunObserver`` is the facade the training loop and the serving tier
+drive: the phase clock, the entry timers, memory snapshots, the trace
+window (obs/profile.py), health (obs/health.py), metrics snapshots of
+the process registry (obs/metrics.py), compile attribution
+(obs/compile.py: in the port a compile is a CUDA graph capture or the
+kernels' first build), the roofline rollup (obs/roofline.py), the hang
+watchdog and flight recorder (obs/watchdog.py), the live scrape server
+(obs/live.py), the incident engine (obs/incident.py), the sampling
+profiler (obs/prof.py) and the cross-run ledger (obs/ledger.py).
+``NULL_OBSERVER`` is the shared disabled instance: every method is a
+no-op, so the hot path pays one attribute check and an empty call, with
+no fencing and no event objects.  The straggler sampling of the
+distributed learners is not in the port yet (ROADMAP A10): its hook
+keeps the no-op.
 
 Crash safety: the writer flushes every ``flush_every`` events (and on
 ``run_end``), train and cv close the observer with ``status="aborted"``
@@ -39,7 +43,7 @@ import threading
 import time
 
 from ..utils.log import Log
-from .memory import MemorySampler
+from .memory import MemorySampler, device_memory_stats
 from .profile import TraceWindow
 from .timers import EntryTimers, PhaseClock, fence
 
@@ -260,10 +264,28 @@ _OPTIONAL = {
                 "incidents"),
 }
 
+# fields event()/emit() stamp on every record regardless of type
+_COMMON_FIELDS = ("ev", "t", "run", "rank")
+
+
+def declared_fields(ev):
+    """Frozenset of every field the schema knows for ``ev`` (required +
+    optional + common), or None for an unknown event type.  The static
+    analyzer keys its unknown-field rule on this."""
+    if ev not in _REQUIRED:
+        return None
+    return frozenset(_REQUIRED[ev]) | frozenset(_OPTIONAL.get(ev, ())) \
+        | frozenset(_COMMON_FIELDS)
+
+
 # -- run provenance ------------------------------------------------------
-# Stamped into every run_header: the git rev (and whether the tree was
-# dirty), the host, and the argv that launched the run.  Cached per
-# process: two git subprocesses once, never on the hot path.
+# Stamped into every schema-10 run_header: the git rev (and whether the
+# tree was dirty), the host, and the CLI argv that launched the run.
+# This is the attribution key of the cross-run ledger (obs/ledger.py) —
+# a change-point in a metric trend is blamed on the first git rev that
+# shifted it — and on its own turns any flight record into "what code,
+# where, launched how".  Cached per process: two git subprocesses once,
+# never on the hot path.
 _PROVENANCE = None
 _PROVENANCE_LOCK = threading.Lock()
 
@@ -279,9 +301,10 @@ def _git(args):
 
 def collect_provenance(refresh=False):
     """{git_rev, git_dirty, hostname, argv} of this process, cached.
-    Best-effort: outside a git work tree (or with git missing) git_rev is
-    "" and git_dirty False; an observer never fails over where it was
-    launched from."""
+
+    Best-effort by design: outside a git work tree (or with git missing)
+    ``git_rev`` is ``""`` and ``git_dirty`` False — a run observer must
+    never fail because of where it was launched from."""
     global _PROVENANCE
     with _PROVENANCE_LOCK:
         if _PROVENANCE is not None and not refresh:
@@ -297,35 +320,135 @@ def collect_provenance(refresh=False):
             host = socket.gethostname()
         except Exception:
             host = ""
-        # bounded: argv can carry long inline configs
+        # bounded: argv can carry huge inline configs; the ledger and
+        # flight records only need "what command was this"
         argv = [str(a)[:200] for a in sys.argv[:16]]
         _PROVENANCE = {"git_rev": rev, "git_dirty": dirty,
                        "hostname": host, "argv": argv}
         return dict(_PROVENANCE)
 
 
+def resolve_rank_path(path, rank, world_size):
+    """Per-rank shard path from the ``obs_events_path`` template.
+
+    An explicit ``{rank}`` placeholder is always substituted; otherwise
+    multi-rank runs (world_size > 1) auto-suffix ``.r{rank}`` so N ranks
+    never interleave writes into one file, and single-process runs keep
+    the configured path byte-for-byte."""
+    path = str(path or "")
+    if not path:
+        return path
+    if "{rank}" in path:
+        return path.replace("{rank}", str(int(rank)))
+    if int(world_size or 1) > 1:
+        return "%s.r%d" % (path, int(rank))
+    return path
+
+
 class RingBuffer:
-    """Fixed-capacity ring of the most recent events (``obs_flight_events``
-    of them): what the run was doing last (``RunObserver.ring_snapshot``)."""
+    """Fixed-capacity ring of the most recent events — the flight
+    recorder's view of "what was the run doing right before it died".
+    Appends are lock-free (GIL-atomic deque ops) because the watchdog
+    thread snapshots while rank threads append.
+
+    Every append is stamped with a process-lifetime monotonic sequence
+    number so the live /events endpoint (obs/live.py) can hand scrapers
+    a resumable cursor (``tail(after)``) instead of re-sending the
+    whole ring each poll.  The counter is best-effort under concurrent
+    appends — a duplicated seq costs a tailer one duplicate or skipped
+    event, never a corrupt record."""
 
     def __init__(self, capacity=256):
         self.capacity = max(1, int(capacity))
         self._buf = collections.deque(maxlen=self.capacity)
+        self.dropped = 0
+        self._seq = 0
 
     def append(self, rec):
-        self._buf.append(rec)
+        if len(self._buf) == self._buf.maxlen:
+            self.dropped += 1
+        self._seq += 1
+        self._buf.append((self._seq, rec))
 
     def snapshot(self):
         """List copy of the records, oldest first."""
-        return list(self._buf)
+        return [rec for _, rec in list(self._buf)]
+
+    @property
+    def last_seq(self):
+        return self._seq
+
+    def tail(self, after=0):
+        """(last_seq, records with seq > ``after``, oldest first) — the
+        cursor contract of the /events?after=N endpoint."""
+        items = list(self._buf)
+        return self._seq, [rec for s, rec in items if s > int(after)]
+
+    def __len__(self):
+        return len(self._buf)
+
+
+# -- live-observer registry ----------------------------------------------
+# Each RunObserver registers itself per creating thread, plus a
+# process-global list for main-thread lookups and SIGTERM flight dumps
+# (obs/watchdog.py).
+_TLS = threading.local()
+_LIVE = []
+_LIVE_LOCK = threading.Lock()
+
+
+def _register_observer(obs):
+    _TLS.observer = obs
+    with _LIVE_LOCK:
+        _LIVE.append(obs)
+
+
+def _unregister_observer(obs):
+    if getattr(_TLS, "observer", None) is obs:
+        _TLS.observer = None
+    with _LIVE_LOCK:
+        try:
+            _LIVE.remove(obs)
+        except ValueError:
+            pass
+
+
+def current_observer():
+    """The live observer of the calling thread (its simulated rank), or —
+    only from the main thread, where cross-wiring is impossible — the
+    most recent live observer."""
+    obs = getattr(_TLS, "observer", None)
+    if obs is not None and not obs._closed:
+        return obs
+    if threading.current_thread() is threading.main_thread():
+        with _LIVE_LOCK:
+            for cand in reversed(_LIVE):
+                if not cand._closed:
+                    return cand
+    return None
+
+
+def live_observers():
+    """All live observers (flight-dump fan-out on SIGTERM)."""
+    with _LIVE_LOCK:
+        return [o for o in _LIVE if not o._closed]
+
+
+def _default_rank_info():
+    """Process rank for an observer that was not told one: rank 0 of 1
+    (the port trains in one process; its distributed learners, and the
+    ranks they would report, come with ROADMAP A10)."""
+    return {"rank": 0, "world_size": 1, "coordinator": ""}
 
 
 def validate_event(rec, strict=False):
     """Raise ValueError unless ``rec`` is a schema-valid event dict.
 
-    Unknown event types pass by default (a reader of an older schema must
-    not choke on a newer timeline); ``strict=True`` rejects them, for
-    writers validating their own output."""
+    Unknown event types pass untouched by default — a v3 reader must not
+    choke on a v4 timeline (forward compatibility is why the schema is
+    versioned at all).  ``strict=True`` additionally rejects unknown
+    ``ev`` values, for writers validating their own output.
+    """
     if not isinstance(rec, dict):
         raise ValueError("event is not a dict: %r" % (rec,))
     ev = rec.get("ev")
@@ -367,11 +490,23 @@ def read_events(path, validate=True):
 
 
 class EventWriter:
-    """Append-mode JSONL writer, flushed every ``flush_every`` events,
-    every ``flush_interval_s`` (checked when an event arrives) and on
-    close, so a killed run still leaves a readable timeline.  ``run_end``
-    is flushed the moment it is written; ``fsync=True`` (``obs_fsync``)
-    also fsyncs there and on close.  Writes are serialized by a lock."""
+    """Append-mode JSONL writer, flushed every ``flush_every`` events
+    (and on close) so a killed run still leaves a readable timeline.
+
+    A monotonic-clock interval (``flush_interval_s``, ~1 s) flushes
+    alongside the count trigger: a live tailer (``obs watch``, the
+    /events endpoint's file-based cousins) sees events promptly during
+    slow iterations instead of up to ``flush_every`` events late.  The
+    clock is only consulted when an emit arrives — an idle writer costs
+    nothing.
+
+    ``run_end`` is flushed UNCONDITIONALLY the moment it is emitted,
+    whatever ``flush_every`` says — a crash right after finalize must
+    not lose the one record every reader keys on.  ``fsync=True``
+    (``obs_fsync``) additionally fsyncs on those barriers, surviving
+    OS-level death (OOM-kill, node power loss), not just interpreter
+    death.  Emits are lock-serialized: the hang watchdog writes its
+    final events from its own thread."""
 
     def __init__(self, path, flush_every=16, fsync=False,
                  flush_interval_s=1.0):
@@ -423,19 +558,64 @@ class EventWriter:
                 self._f.close()
                 self._f = None
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close()
+        return False
+
 
 class NullObserver:
-    """The disabled observer: every hook is a no-op.  One shared instance
-    (NULL_OBSERVER) sits on the booster, the learner and the serving tier
-    by default, so the enabled check is one attribute load."""
+    """The disabled observer: every hook is a no-op.  A single shared
+    instance (NULL_OBSERVER) sits on GBDT/learner objects by default so
+    the enabled check is one attribute load."""
 
     enabled = False
     timeline = ()
     health = None
     rank = 0
     world_size = 1
+    _closed = False
+    live_url = ""
 
     def event(self, ev, **fields):
+        pass
+
+    def ensure_live_server(self, port, addr="127.0.0.1"):
+        return ""
+
+    def ring_tail(self, after=0):
+        return 0, []
+
+    def watchdog_arm(self, label):
+        pass
+
+    def watchdog_disarm(self):
+        pass
+
+    def flight(self, reason, extra=None):
+        pass
+
+    def add_flight_provider(self, fn):
+        pass
+
+    def remove_flight_provider(self, fn):
+        pass
+
+    def incident_signal(self, kind, detail=None):
+        return None
+
+    def incidents(self):
+        return {"enabled": False, "open": [], "closed": []}
+
+    def stamp_context(self, **fields):
+        pass
+
+    def prof_arm(self):
+        return None
+
+    def prof_disarm(self):
         pass
 
     def iter_begin(self, it):
@@ -450,7 +630,19 @@ class NullObserver:
     def entry_start(self):
         return 0.0
 
+    def entry_args(self, name, fn, args, names=None, donate=()):
+        pass
+
+    def capture(self, name, args, names=None, seconds=0.0, cost=None):
+        pass
+
     def entry_end(self, name, t0, value=None):
+        pass
+
+    def straggler_sample(self, it, value):
+        pass
+
+    def memory_snapshot(self, it):
         pass
 
     def flush(self):
@@ -459,22 +651,12 @@ class NullObserver:
     def close(self, status="ok"):
         pass
 
-    # hooks of the JAX package's watchdog, flight recorder and incident
-    # engine, which the serving tier calls; not in the port yet
-    def add_flight_provider(self, fn):
-        pass
+    def __enter__(self):
+        return self
 
-    def remove_flight_provider(self, fn):
-        pass
-
-    def watchdog_arm(self, label):
-        pass
-
-    def watchdog_disarm(self):
-        pass
-
-    def incident_signal(self, kind, detail=None):
-        return None
+    def __exit__(self, exc_type, exc, tb):
+        self.close(status="aborted" if exc_type is not None else "ok")
+        return False
 
 
 NULL_OBSERVER = NullObserver()
@@ -482,25 +664,44 @@ NULL_OBSERVER = NullObserver()
 
 class RunObserver(NullObserver):
     """Live observer: drives the phase clock, entry timers, memory
-    sampler, trace window and health monitors, and appends every event to
-    the in-memory ``timeline`` (Booster.telemetry()), the ring and the
-    JSONL writer."""
+    sampler and trace window, and appends every event to both the
+    in-memory ``timeline`` (exposed via Booster.telemetry() and the
+    record_telemetry callback) and the JSONL writer."""
 
     enabled = True
 
     def __init__(self, events_path="", timing="phase", memory_every=0,
                  trace_iters="", trace_dir="", flush_every=16,
                  health=None, metrics_every=0, metrics_path="",
-                 fsync=False, flight_events=256):
+                 compile_attr=False, rank=None, world_size=None,
+                 coordinator="", fsync=False, watchdog_secs=0.0,
+                 flight_events=256, ledger_dir="", ledger_suite="",
+                 utilization_every=0, roofline_peaks="",
+                 http_port=None, http_addr="127.0.0.1",
+                 incident=False, incident_window_s=5.0,
+                 incident_dir="", incident_trace=False,
+                 prof_hz=0, prof_window_s=5.0, prof_topk=20):
         from . import metrics as metrics_mod
+        if rank is None or world_size is None:
+            info = _default_rank_info()
+            rank = info["rank"] if rank is None else rank
+            world_size = (info["world_size"] if world_size is None
+                          else world_size)
+            coordinator = coordinator or info.get("coordinator", "")
+        self.rank = int(rank)
+        self.world_size = max(1, int(world_size))
+        self.coordinator = str(coordinator or "")
         self.run_id = os.urandom(4).hex()
         self.timing = timing
         self.timeline = []
-        self.events_path = str(events_path or "")
+        self.events_path = resolve_rank_path(events_path, self.rank,
+                                             self.world_size)
         self._writer = (EventWriter(self.events_path, flush_every,
                                     fsync=fsync)
                         if self.events_path else None)
         self._ring = RingBuffer(flight_events)
+        self._flight_dumped = False
+        self._flight_providers = []
         self._seq = 0
         self._clock = PhaseClock(fence_laps=(timing == "phase"))
         self._entries = EntryTimers()
@@ -512,38 +713,129 @@ class RunObserver(NullObserver):
         self._metrics_every = max(0, int(metrics_every))
         self._metrics_path = str(metrics_path or "")
         self._registry = metrics_mod.REGISTRY
+        self._compile = None
+        self._captured = set()           # entries captured at least once
+        if compile_attr:
+            from .compile import CompileTracker
+            self._compile = CompileTracker(self._registry)
+        # roofline rollup cadence (obs_utilization_every): needs the
+        # compile tracker's cost estimates, so it implies obs_compile
+        self._utilization_every = max(0, int(utilization_every or 0))
+        self._roofline_peaks_path = str(roofline_peaks or "")
+        self._roofline_peaks = None          # resolved lazily, once
+        if self._utilization_every and self._compile is None:
+            from .compile import CompileTracker
+            self._compile = CompileTracker(self._registry)
         self._m_iter_s = self._registry.histogram(
             "lgbm_train_iter_seconds",
             "per-iteration wall time as timed by the run observer "
             "(fencing per obs_timing)")
         self._m_iters = self._registry.counter(
             "lgbm_train_iterations_total", "boosting iterations completed")
+        self._ledger_dir = str(ledger_dir or "")
+        self._ledger_suite = str(ledger_suite or "")
+        self._watchdog = None
+        if float(watchdog_secs or 0.0) > 0.0:
+            from .watchdog import Watchdog
+            self._watchdog = Watchdog(self, float(watchdog_secs))
+            self._watchdog.start()
+        # host-side live state the scrape plane (obs/live.py) reads: the
+        # server thread must never touch device values or fence
+        self._header = None
+        self._lifecycle = "startup"
+        self._last_it = None
+        self._ewma_iter_s = None
+        self._last_utilization = None
+        self._health_fatal = False
+        # host-side run context stamped by the training loop
+        # (stamp_context): what the run was doing, for /statusz and the
+        # incident evidence bundle
+        self._run_context = {}
+        self._incident = None
+        if incident:
+            from .incident import IncidentEngine
+            self._incident = IncidentEngine(
+                self, window_s=float(incident_window_s or 5.0),
+                bundle_dir=str(incident_dir or ""),
+                trace=bool(incident_trace))
+        # continuous host sampling profiler (obs/prof.py, schema 16):
+        # constructed lazily by prof_arm() — the training loop arms it
+        # at run start (models/gbdt.py) and close() disarms, flushing
+        # the final window before run_end
+        self._prof = None
+        self._prof_hz = max(0, int(prof_hz or 0))
+        self._prof_window_s = float(prof_window_s or 5.0)
+        self._prof_topk = max(1, int(prof_topk or 20))
+        self._live = None
+        if http_port is not None and int(http_port) >= 0:
+            self.ensure_live_server(int(http_port), http_addr)
         # a killed run must still end in a flushed, parseable timeline
         atexit.register(self._finalize_at_exit)
+        _register_observer(self)
+
+    # -- live telemetry plane (obs/live.py) -----------------------------
+    @property
+    def live_url(self):
+        """URL of the in-run scrape server, or "" when the plane is off."""
+        return self._live.url if self._live is not None else ""
+
+    def ensure_live_server(self, port, addr="127.0.0.1"):
+        """Start the live scrape server if it is not already up
+        (``Booster.serve()`` calls this so a serving process exposes the
+        same plane a training run does).  Returns the URL ("" when the
+        observer is closed or the bind failed)."""
+        if self._closed:
+            return ""
+        if self._live is not None:
+            return self._live.url
+        from .live import LiveServer
+        self._live = LiveServer(self, port, addr)
+        return self._live.start()
+
+    def ring_tail(self, after=0):
+        """(last_seq, records newer than ``after``) from the event ring
+        — the /events endpoint's cursor read."""
+        return self._ring.tail(after)
 
     # -- raw emission --------------------------------------------------
     def event(self, ev, **fields):
         rec = {"ev": ev, "t": time.time(), "run": self.run_id}
+        if self.world_size > 1:
+            rec["rank"] = self.rank
         rec.update(fields)
+        # live-state captures for the scrape plane: two string compares
+        # per event, host-only
+        if ev == "utilization":
+            self._last_utilization = rec
+        elif ev == "health" and fields.get("status") == "fatal":
+            self._health_fatal = True
         self.timeline.append(rec)
         self._ring.append(rec)
         if self._writer is not None:
             self._writer.emit(rec)
+        # incident tap LAST, after the record landed: a signal that
+        # opens an incident emits its own events re-entrantly and they
+        # must sort after their trigger in the timeline
+        if self._incident is not None:
+            self._incident.observe(rec)
         return rec
 
-    def ring_snapshot(self):
-        return self._ring.snapshot()
-
     def run_header(self, backend, devices, params, context):
-        self.event("run_header", schema=SCHEMA_VERSION, backend=backend,
-                   devices=devices, params=params, context=context,
-                   timing=self.timing, rank=self.rank,
-                   world_size=self.world_size, coordinator="",
-                   provenance=collect_provenance())
+        self._header = self.event(
+            "run_header", schema=SCHEMA_VERSION, backend=backend,
+            devices=devices, params=params, context=context,
+            timing=self.timing, rank=self.rank,
+            world_size=self.world_size, coordinator=self.coordinator,
+            provenance=collect_provenance())
 
     # -- per-iteration hooks ------------------------------------------
     def iter_begin(self, it):
+        self._lifecycle = "train"
+        if self._watchdog is not None:
+            self._watchdog.arm("iter %d" % it)
         self._trace.maybe_start(it, self)
+        if self._incident is not None:
+            self._incident.maybe_trace_start(it, self)
         self._clock.begin()
 
     def lap(self, name, value=None):
@@ -556,10 +848,15 @@ class RunObserver(NullObserver):
         seq = self._seq
         self._seq += 1
         self._iters += 1
+        self._last_it = int(it)
+        self._ewma_iter_s = (total if self._ewma_iter_s is None
+                             else 0.7 * self._ewma_iter_s + 0.3 * total)
         self._m_iter_s.observe(total)
         self._m_iters.inc()
         self.event("iter", it=it, seq=seq, time_s=total, phases=phases,
                    fenced=(self.timing in ("phase", "iter")), **fields)
+        if self._watchdog is not None:
+            self._watchdog.pet("iter %d done" % it)
         devices = self._memory.maybe(it)
         if devices is not None:
             self.event("memory", it=it, devices=devices)
@@ -571,16 +868,69 @@ class RunObserver(NullObserver):
                         labels={"device": str(d["id"])}).set(
                             d["bytes_in_use"])
         if self.health is not None and self.health.due(it):
-            # may raise under obs_health=fatal: the iter event above and
+            # may raise under obs_health=fatal — the iter event above and
             # the writer flush in the monitor keep the timeline parseable
             self.health.check_memory(self, it, devices)
         if self._metrics_every and it % self._metrics_every == 0:
             self.event("metrics", it=it, scrape=self._registry.snapshot())
+        if self._utilization_every and it % self._utilization_every == 0:
+            self._emit_utilization(it)
         self._trace.maybe_stop(it, self)
+        if self._incident is not None:
+            self._incident.maybe_trace_stop(it, self)
 
-    # -- entry points (tree_grow, fused_iter) --------------------------
+    def _emit_utilization(self, it):
+        """The schema-13 roofline rollup (obs/roofline.py): exec-weighted
+        achieved/peak utilization of every timed entry with a cost
+        estimate.  No fence, no device work — it joins numbers the
+        observer already holds, so the cadence costs host time only."""
+        from . import roofline
+        if self._roofline_peaks is None:
+            overrides = roofline.load_peak_overrides(
+                self._roofline_peaks_path)
+            self._roofline_peaks = roofline.peaks_for(
+                roofline.device_kind(), overrides)
+        rollup = roofline.utilization_rollup(
+            self._entries.summary(),
+            self._compile.costs() if self._compile is not None else {},
+            self._roofline_peaks, world_size=self.world_size)
+        if rollup is not None:
+            self.event("utilization", it=it, **rollup)
+            self._registry.gauge(
+                "lgbm_flop_utilization",
+                "exec-weighted achieved/peak FLOP fraction at the last "
+                "utilization rollup").set(rollup["flop_util"])
+            self._registry.gauge(
+                "lgbm_hbm_utilization",
+                "exec-weighted achieved/peak HBM-bandwidth fraction at "
+                "the last utilization rollup").set(rollup["hbm_util"])
+
+    # -- jitted entry points ------------------------------------------
     def entry_start(self):
         return time.perf_counter()
+
+    def entry_args(self, name, fn, args, names=None, donate=()):
+        """Pre-call hook (obs_compile): snapshot the entry's argument
+        signature and the kernels' build count, so entry_end can
+        attribute a first kernel build to the entry and name what
+        changed since its last compile."""
+        if self._compile is not None:
+            self._compile.before_call(name, args, names=names)
+
+    def capture(self, name, args, names=None, seconds=0.0, cost=None):
+        """A CUDA graph capture of entry ``name`` over the tensors
+        ``args`` (labels ``names``) took ``seconds``, its kernel launches
+        costing ``cost`` ({flops, bytes_accessed}; obs/roofline.py
+        ``launches_cost``): the port's compile.  A ``compile`` event
+        for the entry's first capture and, under obs_compile, a
+        ``compile_attr`` event for each."""
+        if name not in self._captured:
+            self._captured.add(name)
+            self.event("compile", entry=name, first_call_s=seconds,
+                       fenced=True)
+        if self._compile is not None:
+            self._compile.record_capture(name, args, self, names=names,
+                                         cost=cost)
 
     def entry_end(self, name, t0, value=None):
         fenced = self.timing == "phase"
@@ -589,6 +939,117 @@ class RunObserver(NullObserver):
         dt = time.perf_counter() - t0
         if self._entries.record(name, dt):
             self.event("compile", entry=name, first_call_s=dt, fenced=fenced)
+        if self._compile is not None:
+            self._compile.after_call(name, self)
+
+    # -- hang forensics (obs/watchdog.py) ------------------------------
+    def watchdog_arm(self, label):
+        """Arm the hang watchdog around a blocking region (a host
+        collective): no progress for obs_watchdog_secs from now dumps a
+        flight record naming ``label``."""
+        if self._watchdog is not None:
+            self._watchdog.arm(label)
+
+    def watchdog_disarm(self):
+        """The blocking region completed; fall back to the per-iteration
+        progress deadline."""
+        if self._watchdog is not None:
+            self._watchdog.pet("idle")
+
+    def flight(self, reason, extra=None):
+        """Dump a flight record now (watchdog expiry, SIGTERM,
+        obs_health=fatal).  Works with the watchdog off — the ring
+        buffer is always live.  Returns the path written, or None when
+        there is no events path to anchor the dump next to."""
+        from .watchdog import dump_flight_record
+        return dump_flight_record(self, reason, extra=extra)
+
+    def add_flight_provider(self, fn):
+        """Register a zero-arg callable returning a dict of live context
+        to merge into every flight record (serve/scheduler.py registers
+        its queue state here: depth, queued rows, pending routes).
+        Providers must be best-effort — a provider that raises is
+        skipped, never propagated into the dump."""
+        self._flight_providers.append(fn)
+
+    def remove_flight_provider(self, fn):
+        try:
+            self._flight_providers.remove(fn)
+        except ValueError:
+            pass
+
+    def flight_context(self):
+        """Merged provider dicts; forensics-grade best-effort."""
+        out = {}
+        for fn in list(self._flight_providers):
+            try:
+                out.update(fn() or {})
+            except Exception as e:
+                out.setdefault("provider_errors", []).append(repr(e))
+        return out
+
+    @property
+    def flight_path(self):
+        if self._writer is None:
+            return ""
+        return self._writer.path + ".flight.json"
+
+    def ring_snapshot(self):
+        return self._ring.snapshot()
+
+    # -- incident engine (obs/incident.py) -----------------------------
+    def incident_signal(self, kind, detail=None):
+        """Feed one anomaly signal into the incident engine from a
+        channel that does not emit timeline events itself (the serve
+        scheduler's shed storm, the watchdog's near-expiry warning, the
+        POST /trigger/incident operator endpoint).  Returns the open
+        incident id, or None when the engine is off."""
+        if self._incident is None:
+            return None
+        return self._incident.signal(str(kind), detail=detail)
+
+    def incidents(self):
+        """Open/closed incident listing for the /incidents endpoint."""
+        if self._incident is None:
+            return {"enabled": False, "open": [], "closed": []}
+        return self._incident.listing()
+
+    def stamp_context(self, **fields):
+        """Update the host-side run-context dict (iteration, tree count,
+        loop stage) that /statusz, incident evidence bundles and the
+        sampling profiler's stage tags read — a plain dict update,
+        never a fence."""
+        self._run_context.update(fields)
+
+    # -- continuous host profiler (obs/prof.py, schema 16) --------------
+    def prof_arm(self):
+        """Start the sampling profiler when ``obs_prof_hz > 0``
+        (idempotent — the daemon thread is constructed once and
+        restarted if a previous disarm stopped it).  Returns the
+        profiler, or None when sampling is off or the observer closed."""
+        if self._prof_hz <= 0 or self._closed:
+            return None
+        if self._prof is None:
+            from .prof import HostProfiler
+            self._prof = HostProfiler(
+                emit=self.event, hz=self._prof_hz,
+                window_s=self._prof_window_s, topk=self._prof_topk,
+                context=self._run_context,
+                phase_of=lambda: self._clock.current,
+                iter_of=lambda: self._last_it)
+        self._prof.start()
+        return self._prof
+
+    def prof_disarm(self):
+        """Stop the sampler and flush its final partial window as a
+        ``prof_profile`` event (idempotent; ``close()`` calls this
+        before ``run_end`` so the last window sorts inside the run)."""
+        if self._prof is not None:
+            self._prof.stop()
+
+    # -- misc ----------------------------------------------------------
+    def memory_snapshot(self, it):
+        self.event("memory", it=it, devices=device_memory_stats())
 
     def flush(self):
         if self._writer is not None:
@@ -597,19 +1058,52 @@ class RunObserver(NullObserver):
     def close(self, status="ok"):
         if self._closed:
             return
+        self._lifecycle = "closed" if status == "ok" else "aborted"
+        if status == "aborted" and not self._flight_dumped:
+            # the flight record is the black box: write it BEFORE the
+            # run_end path below can fail.  A record the watchdog (or
+            # obs_health=fatal) already dumped names the actual hang —
+            # don't overwrite it with this generic one.
+            try:
+                self.flight("run aborted")
+            except Exception:
+                pass
         self._closed = True
+        if self._watchdog is not None:
+            self._watchdog.stop()
+        _unregister_observer(self)
         try:
             atexit.unregister(self._finalize_at_exit)
         except Exception:
             pass
         self._trace.force_stop(self)
-        if self._metrics_every or self._metrics_path:
+        # stop the sampling profiler and flush its final window BEFORE
+        # run_end so the last prof_profile sorts inside the run (and the
+        # ledger's prof_overhead_frac cell sees every window)
+        try:
+            self.prof_disarm()
+        except Exception:
+            pass
+        # close any open incident BEFORE run_end so incident_close sorts
+        # inside the run; the digest rides on run_end (zeros included)
+        incidents_digest = None
+        if self._incident is not None:
+            try:
+                incidents_digest = self._incident.finalize()
+            except Exception:
+                incidents_digest = None
+        metrics_on = self._metrics_every or self._metrics_path
+        if metrics_on:
             self.event("metrics", it=self._iters,
                        scrape=self._registry.snapshot())
         end = {"iters": self._iters, "phase_totals": self._clock.totals(),
                "entries": self._entries.summary(), "status": status}
+        if incidents_digest is not None:
+            end["incidents"] = incidents_digest
         if self.health is not None:
             end["health"] = self.health.summary()
+        if self._compile is not None:
+            end["compile_attr"] = self._compile.summary()
         self.event("run_end", **end)
         if self._metrics_path:
             try:
@@ -622,11 +1116,37 @@ class RunObserver(NullObserver):
             self._writer.close()
             Log.debug("obs: wrote %d events to %s", len(self.timeline),
                       self._writer.path)
+        # cross-run ledger (obs_ledger_dir): only CLEAN runs become
+        # baseline history — an aborted run's partial metrics would
+        # poison the rolling statistics.  Best-effort: the ledger must
+        # never take a finished run down.
+        if self._ledger_dir and status == "ok":
+            try:
+                from .ledger import Ledger
+                if Ledger(self._ledger_dir).ingest_events(
+                        list(self.timeline), suite=self._ledger_suite):
+                    Log.debug("obs: run %s ingested into ledger %s",
+                              self.run_id, self._ledger_dir)
+            except Exception as e:
+                Log.warning("obs: ledger ingest into %s failed: %s",
+                            self._ledger_dir, e)
+        # live plane teardown LAST: /healthz and /statusz stay
+        # scrapeable through finalize, then the ephemeral port frees
+        if self._live is not None:
+            self._live.stop()
+            self._live = None
 
     def _finalize_at_exit(self):
-        """atexit hook: a run that never reached close (crash, sys.exit)
-        ends aborted but parseable."""
+        """atexit hook: a run that never reached finalize (crash, sys.exit,
+        uncaught signal that still unwinds) ends aborted but parseable."""
         try:
             self.close(status="aborted")
         except Exception:
             pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close(status="aborted" if exc_type is not None else "ok")
+        return False

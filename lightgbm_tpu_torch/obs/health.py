@@ -39,9 +39,9 @@ MODES = ("off", "warn", "fatal")
 # loss is a tuning smell, not a poisoned run, and an SLO burn-rate alert
 # (obs/serve.py) is a paging signal for operators -- killing the server
 # that is already missing latency targets only makes the outage total.
-# Drift and input anomalies (the JAX package's obs/drift.py) are
-# retrain signals for the continuous-training loop for the same reason:
-# the model still serves, it just serves traffic it was not trained on.
+# Drift and input anomalies (obs/drift.py) are retrain signals for the
+# continuous-training loop for the same reason: the model still serves,
+# it just serves traffic it was not trained on.
 _WARN_ONLY = frozenset(("plateau", "slo_burn_rate", "drift",
                         "serve_input", "online_quality"))
 
@@ -229,6 +229,11 @@ class HealthMonitors:
                 self._firing.pop(check, None)
         if fatal:
             obs.flush()           # the timeline must survive the raise
+            try:                  # black box for the abort (obs/watchdog.py)
+                obs.flight("obs_health=fatal: %s" % "/".join(fatal),
+                           extra={"it": it, "checks": fatal})
+            except Exception:
+                pass
             Log.fatal("obs_health=fatal: %s tripped at iteration %d "
                       "(timeline has the health event)"
                       % ("/".join(fatal), it))

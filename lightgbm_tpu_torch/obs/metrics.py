@@ -18,6 +18,10 @@ import bisect
 import json
 import threading
 
+# the content type Prometheus scrapers expect from a text exposition,
+# served by the live /metrics endpoint (obs/live.py)
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
 # default latency buckets (seconds) — the standard Prometheus ladder
 # stretched to cover graph captures
 TIME_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,

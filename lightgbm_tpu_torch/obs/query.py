@@ -17,10 +17,26 @@ metrics and renders the subcommands:
 * ``trace RUN.jsonl -o t.json`` -- a Chrome/Perfetto trace rebuilt from
   the phase laps.
 
-The JAX package's other subcommands (recompiles, stragglers, roofline,
-serve, drift, incident, watch, prof, merge, history, trend) read the
-events of modules the port does not have yet and raise, naming ROADMAP
-A12.  Summary's serving headline waits for the serving observer.
+* ``recompiles RUN.jsonl [--check]`` -- every compile_attr event (a
+  graph capture or the kernels' first build) with what changed; --check
+  exits 1 when an entry compiled a signature it had already compiled;
+* ``roofline RUN.jsonl [--check]`` -- achieved against peak per timed
+  entry, ranked by headroom (obs/roofline.py);
+* ``serve RUN.jsonl [--check]`` -- the serving report (obs/serve.py);
+  ``summary`` carries its headline;
+* ``drift RUN.jsonl [--check]`` -- drift and online quality
+  (obs/drift.py);
+* ``incident DIR|RUN.jsonl [--check]`` -- incident triage
+  (obs/incident.py);
+* ``watch FILE|URL`` -- live-follow a timeline or a live plane
+  (obs/live.py);
+* ``prof RUN.jsonl|DIR [--check]`` -- the host sampling profile
+  (obs/prof.py);
+* ``history`` / ``trend [--check]`` -- the cross-run ledger
+  (obs/ledger.py).
+
+``stragglers`` and ``merge`` read the per-rank shards of the distributed
+learners, which are not in the port yet: they raise, naming ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -32,9 +48,7 @@ import time
 from ..utils.log import LightGBMError
 from .events import read_events
 
-UNPORTED_COMMANDS = ("recompiles", "stragglers", "roofline", "serve",
-                     "drift", "incident", "watch", "prof", "merge",
-                     "history", "trend")
+UNPORTED_COMMANDS = ("stragglers", "merge")
 
 
 def load_timeline(path, validate=True):
@@ -68,6 +82,23 @@ def recompile_count(events):
             worst[e.get("entry")] = max(worst.get(e.get("entry"), 0),
                                         int(e.get("n_compiles", 1)))
     return sum(n - 1 for n in worst.values())
+
+
+def recompile_rows(events):
+    """Flat view of the ``compile_attr`` events of one run."""
+    rows = []
+    for e in events:
+        if e.get("ev") != "compile_attr":
+            continue
+        rows.append({"entry": e.get("entry"),
+                     "n_compiles": int(e.get("n_compiles", 1)),
+                     "sig_compiles": int(e.get("sig_compiles", 1)),
+                     "sig": e.get("sig", {}),
+                     "diff": e.get("diff", []),
+                     "cost": e.get("cost", {}),
+                     "memory": e.get("memory", {}),
+                     "t": e.get("t")})
+    return rows
 
 
 def straggler_rows(events):
@@ -157,6 +188,14 @@ def timeline_metrics(events):
                      default=0.0)
         if last_t:
             out["last_event_age_s"] = max(0.0, time.time() - last_t)
+    # serving timelines (bench_serve.py / ServingPredictor): fold the
+    # serve_* events into a headline so `obs summary` has a serving
+    # section instead of a zero-iteration shrug
+    if any(str(e.get("ev", "")).startswith("serve_") for e in events):
+        from .serve import serve_headline
+        head = serve_headline(events)
+        if head:
+            out["serve"] = head
     return out
 
 
@@ -176,7 +215,7 @@ def render_summary(events, out=None):
     if m.get("in_progress"):
         age = m.get("last_event_age_s")
         w("run in progress (last event %ss ago) -- no run_end yet; "
-          "it may still be running"
+          "follow it live with `obs watch`"
           % ("%.1f" % age if age is not None else "?"))
     if m.get("merged"):
         w("merged view of a %s-rank run" % m.get("world_size", "?"))
@@ -187,7 +226,24 @@ def render_summary(events, out=None):
           "skew below are rank-local")
     ips = (" (%.3f iters/sec)" % m["iters_per_sec"]
            if "iters_per_sec" in m else "")
-    w("iters %d  total %.3f s%s" % (m["iters"], m["total_s"], ips))
+    if m["iters"] or "serve" not in m:
+        w("iters %d  total %.3f s%s" % (m["iters"], m["total_s"], ips))
+    sv = m.get("serve")
+    if sv:
+        eff = ("  efficiency %.1f%%" % (100.0 * sv["batch_efficiency"])
+               if sv.get("batch_efficiency") is not None else "")
+        approx = " (sampled, lower bound)" if sv.get("sampled") else ""
+        w("serving: %d batches  %d rows%s%s"
+          % (sv["batches"], sv["rows"], eff, approx))
+        bits = []
+        if sv.get("qps") is not None:
+            bits.append("qps %s" % sv["qps"])
+        if sv.get("p99_s") is not None:
+            bits.append("p99 %.2f ms" % (1e3 * sv["p99_s"]))
+        bits.append("shed %d" % sv["shed_total"])
+        bits.append("burn alerts %d" % sv["alerts_fired"])
+        w("serving: " + "  ".join(bits)
+          + "  (obs serve for the full report)")
     totals = m.get("phase_totals") or {}
     tot = sum(totals.values())
     if totals and tot > 0:
@@ -199,7 +255,8 @@ def render_summary(events, out=None):
           % (name, st.get("first_s", 0.0), st.get("exec_mean_s", 0.0),
              st.get("exec_n", 0)))
     if "recompile_count" in m:
-        w("recompiles: %d beyond first compile" % m["recompile_count"])
+        w("recompiles: %d beyond first compile (obs recompiles for the "
+          "per-event diffs)" % m["recompile_count"])
     if "straggler_samples" in m:
         w("stragglers: %d samples, max skew %.1f%%"
           % (m["straggler_samples"], 100.0 * m["straggler_max_skew"]))
@@ -222,6 +279,42 @@ def render_summary(events, out=None):
              c.get("hist_mode", "?"), c.get("wave_width", "?"),
              "hilo" if c.get("hist_hilo", True) else "bf16",
              " compact" if c.get("compact") else ""))
+
+
+def render_recompiles(events, out=None):
+    """Every compile_attr event; True iff any same-signature recompile
+    (graph re-capture thrash) is present — the --check failure condition."""
+    from .compile import format_diff
+    from .roofline import fmt_bytes, fmt_quantity
+    out = out or sys.stdout
+    w = lambda s="": out.write(s + "\n")
+    rows = recompile_rows(events)
+    if not rows:
+        w("no compile_attr events (run with obs_compile=true)")
+        return False
+    w("%-14s %4s %5s  %s" % ("entry", "n", "sig#", "what changed"))
+    thrash = False
+    for r in rows:
+        why = "; ".join(format_diff(d) for d in r["diff"]) \
+            or "first compile"
+        cost = r["cost"] or {}
+        tags = []
+        if cost.get("flops") is not None:
+            tags.append(fmt_quantity(cost["flops"], "FLOP"))
+        if cost.get("bytes_accessed") is not None:
+            tags.append(fmt_bytes(cost["bytes_accessed"]))
+        if tags:
+            why += "  [%s]" % ", ".join(tags)
+        w("%-14s %4d %5d  %s" % (r["entry"], r["n_compiles"],
+                                 r["sig_compiles"], why))
+        if r["sig_compiles"] > 1:
+            thrash = True
+    n = recompile_count(events)
+    w("total: %d compile(s) beyond first per entry" % n)
+    if thrash:
+        w("THRASH: an entry recompiled a signature it had already "
+          "compiled")
+    return thrash
 
 
 def render_explain(events, out=None, topk=10):
@@ -501,29 +594,187 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in UNPORTED_COMMANDS:
         raise LightGBMError(
-            "obs %s reads events of the JAX package's observability "
-            "modules that are not in lightgbm_tpu_torch yet (ROADMAP: "
-            "observability, A12)" % argv[0])
+            "obs %s reads the per-rank timeline shards of the distributed "
+            "learners, which are not in lightgbm_tpu_torch yet (ROADMAP "
+            "A10, distributed)" % argv[0])
     ap = argparse.ArgumentParser(
         prog="python -m lightgbm_tpu_torch obs",
         description="query obs JSONL timelines")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("summary", help="headline metrics of the last run")
-    p.add_argument("timeline")
-    p = sub.add_parser("explain", help="model, data and autotune report: "
-                                       "top features, gain margins, "
-                                       "findings, probed cells")
+    for name, hlp in (("summary", "headline metrics of the last run"),
+                      ("recompiles", "compile_attr events + diffs"),
+                      ("explain", "model & data-quality report: top "
+                                  "features, gain margins, findings")):
+        p = sub.add_parser(name, help=hlp)
+        p.add_argument("timeline")
+        if name == "recompiles":
+            p.add_argument("--check", action="store_true",
+                           help="exit 1 on same-signature compiles "
+                                "(graph re-capture thrash): the CI gate")
+        elif name == "explain":
+            p.add_argument("--check", action="store_true",
+                           help="exit 1 on error-severity data-quality "
+                                "findings — the CI model-quality gate")
+    p = sub.add_parser("serve", help="serving-tier report: per-route "
+                                     "latency, SLO verdicts, shed/"
+                                     "overload summary, batch efficiency")
     p.add_argument("timeline")
     p.add_argument("--check", action="store_true",
-                   help="exit 1 on error-severity data-quality findings")
+                   help="exit 1 on shed requests, fired burn-rate "
+                        "alerts or failing SLO verdicts — the CI gate "
+                        "for non-overload load")
+    p = sub.add_parser("drift", help="drift & online-quality report: "
+                                     "features ranked by divergence vs "
+                                     "the training fingerprint, score "
+                                     "PSI/KS, online AUC/logloss")
+    p.add_argument("timeline")
+    p.add_argument("--check", action="store_true",
+                   help="exit 1 on a fired drift alert or a timeline "
+                        "with no drift events — the CI drift-drill "
+                        "gate")
+    p = sub.add_parser("roofline",
+                       help="achieved-vs-peak utilization per timed "
+                            "entry, ranked by recoverable headroom "
+                            "seconds (obs/roofline.py)")
+    p.add_argument("timeline")
+    p.add_argument("--peaks", default="",
+                   help="JSON device-peak overrides "
+                        "(obs_roofline_peaks format)")
+    p.add_argument("--check", action="store_true",
+                   help="exit 1 when the timeline cannot be attributed "
+                        "(no finished run, or no cost estimates: run "
+                        "with obs_compile=true on the card): the CI "
+                        "gate")
+    p = sub.add_parser("incident",
+                       help="incident triage report: grouped signals, "
+                            "cross-subsystem correlation, evidence "
+                            "inventory, root-cause ranking "
+                            "(obs/incident.py)")
+    p.add_argument("target",
+                   help="evidence-bundle directory (one incident or a "
+                        "parent of several) or a timeline JSONL with "
+                        "incident_* events")
+    p.add_argument("--check", action="store_true",
+                   help="exit 1 when any incident opened — the CI "
+                        "incident-drill gate (clean control runs "
+                        "exit 0)")
+    p = sub.add_parser("watch",
+                       help="live-follow a growing timeline, per-rank "
+                            "shard set, or a running plane's /events "
+                            "URL (obs_http_port)")
+    p.add_argument("target",
+                   help="timeline file, shard base path, or "
+                        "http://host:port of a live run")
+    p.add_argument("--once", action="store_true",
+                   help="render everything currently visible and exit "
+                        "(the CI-friendly snapshot mode)")
+    p.add_argument("--ranks", action="store_true",
+                   help="tail every .rN shard of a multi-rank run "
+                        "(raises: ROADMAP A10, distributed)")
+    p.add_argument("--interval", type=float, default=0.5,
+                   help="poll interval in seconds (default 0.5)")
+    p.add_argument("--max-wall", type=float, default=0.0,
+                   help="follow-mode wall-clock limit in seconds for "
+                        "scripted callers (0 = no limit)")
+    p = sub.add_parser("prof",
+                       help="host profile report: merged top-table of "
+                            "folded stacks, HTML flamegraph, overhead "
+                            "gate (obs/prof.py)")
+    p.add_argument("target",
+                   help="timeline JSONL with prof_profile windows, or "
+                        "a directory (newest *.jsonl inside)")
+    p.add_argument("--check", action="store_true",
+                   help="exit 1 on blown overhead budget (>1%%), a "
+                        "zero-sample window while iterations advanced, "
+                        "or a sampler error window — the CI "
+                        "profiler-liveness gate")
+    p.add_argument("--flame", default="",
+                   help="write a self-contained HTML flamegraph here")
+    p.add_argument("--top", type=int, default=20,
+                   help="rows in the terminal top-table (default 20)")
     p = sub.add_parser("diff", help="two timelines side by side")
     p.add_argument("baseline")
     p.add_argument("candidate")
-    p = sub.add_parser("trace", help="export a Chrome trace.json from "
-                                     "the phase laps")
+    p = sub.add_parser("trace", help="export Chrome trace.json from "
+                                     "phase laps")
     p.add_argument("timeline")
     p.add_argument("-o", "--out", default="trace.json")
-    args, _ = ap.parse_known_args(argv)
+    for name, hlp in (("history", "cross-run ledger: one line per "
+                                  "recorded bench run"),
+                      ("trend", "per-metric trend tables, sparklines + "
+                                "change-point attribution")):
+        p = sub.add_parser(name, help=hlp)
+        p.add_argument("ledger", nargs="?", default="",
+                       help="ledger directory (default: LGBM_TPU_LEDGER "
+                            "or /tmp/lgbm_tpu_ledger)")
+        p.add_argument("--suite", default="",
+                       help="restrict to one ledger suite")
+        p.add_argument("--metric", default="",
+                       help="restrict to one metric")
+        if name == "history":
+            p.add_argument("-n", "--limit", type=int, default=20,
+                           help="show the last N runs")
+        else:
+            p.add_argument("--window", type=int, default=8,
+                           help="rolling-baseline window")
+            p.add_argument("--min-history", type=int, default=3,
+                           help="runs required before change-point "
+                                "detection engages")
+            p.add_argument("--z", type=float, default=3.0,
+                           help="change-point z-score threshold")
+            p.add_argument("--check", action="store_true",
+                           help="exit 1 when a gated metric's current "
+                                "regime began with a bad-direction "
+                                "shift — the cross-run CI gate")
+    args = ap.parse_args(argv)
+
+    # watch targets may be URLs or shard-base globs, and the tailed
+    # file may end mid-line — it never goes through load_timeline
+    if args.cmd == "watch":
+        from .live import watch
+        return watch(args.target, once=args.once, ranks=args.ranks,
+                     interval_s=args.interval, max_wall_s=args.max_wall)
+
+    # incident targets may be bundle DIRECTORIES, not just timelines —
+    # they never go through load_timeline
+    if args.cmd == "incident":
+        from .incident import render_incident_report
+        try:
+            n = render_incident_report(args.target)
+        except (OSError, ValueError) as e:
+            print("error: %s" % e, file=sys.stderr)
+            return 2
+        return 1 if (args.check and n) else 0
+
+    # prof targets may be directories too (newest *.jsonl inside) —
+    # resolved in obs/prof.py, not through load_timeline here
+    if args.cmd == "prof":
+        from .prof import render_prof_report
+        try:
+            problems = render_prof_report(args.target, top=args.top,
+                                          flame=args.flame,
+                                          check=args.check)
+        except (OSError, ValueError) as e:
+            print("error: %s" % e, file=sys.stderr)
+            return 2
+        return 1 if (args.check and problems) else 0
+
+    if args.cmd in ("history", "trend"):
+        from .ledger import Ledger, default_ledger_dir
+        from .ledger import render_history, render_trend
+        path = args.ledger or default_ledger_dir()
+        entries = Ledger(path).entries()
+        if args.cmd == "history":
+            render_history(entries, limit=args.limit,
+                           suite=args.suite or None,
+                           metric=args.metric or None)
+            return 0
+        active = render_trend(entries, suite=args.suite or None,
+                              metric=args.metric or None,
+                              window=args.window, z_threshold=args.z,
+                              min_history=args.min_history)
+        return 1 if (args.check and active) else 0
+
     try:
         if args.cmd == "diff":
             a = last_run(load_timeline(args.baseline))
@@ -533,10 +784,32 @@ def main(argv=None):
     except (OSError, ValueError) as e:
         print("error: %s" % e, file=sys.stderr)
         return 2
+
     if args.cmd == "summary":
         render_summary(events)
+    elif args.cmd == "recompiles":
+        thrash = render_recompiles(events)
+        if args.check and thrash:
+            return 1
     elif args.cmd == "explain":
-        if render_explain(events) and args.check:
+        bad = render_explain(events)
+        if args.check and bad:
+            return 1
+    elif args.cmd == "serve":
+        from .serve import render_serve_report
+        problems = render_serve_report(events, check=args.check)
+        if args.check and problems:
+            return 1
+    elif args.cmd == "drift":
+        from .drift import render_drift_report
+        problems = render_drift_report(events, check=args.check)
+        if args.check and problems:
+            return 1
+    elif args.cmd == "roofline":
+        from .roofline import render_roofline
+        problems = render_roofline(events, check=args.check,
+                                   peaks_path=args.peaks)
+        if args.check and problems:
             return 1
     elif args.cmd == "diff":
         render_diff(a, b)

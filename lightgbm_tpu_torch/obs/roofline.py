@@ -24,13 +24,18 @@ against each other.
 the probe's synthetic gradients) with the bytes and adds of the port's
 own kernels, the count chip_smoke.py's ``bound`` and PERF.md's bound
 column use: B1 (or B3 under ``pallas_t``) once a wave, B3 at the root,
-B2 once.  The JAX package's ``timeline_roofline``, ``utilization_rollup``
-and ``obs roofline`` join compile-time cost estimates that the port
-does not have yet (its ``obs/compile.py``, ROADMAP A12).
+B2 once.  ``launches_cost`` counts a CUDA graph capture's kernel
+launches the same way (obs/compile.py: the port's compile-time cost
+estimate, with every row in a listed slot, since a capture records no
+data); ``timeline_roofline`` and ``render_roofline`` (``python -m
+lightgbm_tpu_torch obs roofline``) join those costs with the run's
+entry timers, and ``utilization_rollup`` is the per-iteration
+``utilization`` event (``obs_utilization_every``).
 """
 from __future__ import annotations
 
 import json
+import sys
 
 from ..utils.log import Log
 
@@ -60,6 +65,8 @@ _KIND_ALIASES = {"cpu_device": "cpu"}
 # under this fraction of every roof the time is host orchestration (the
 # launches and the host glue), not the device's data path
 ORCH_FLOOR = 0.02
+
+BOUNDS = ("compute", "memory", "collective", "host-orchestration")
 
 
 def normalize_kind(kind):
@@ -186,6 +193,44 @@ def _wave_kernel_traffic(n, ncols, bins, slots, n_listed, fused,
     return float(nbytes), float(3 * n_listed * ncols)
 
 
+def launch_traffic(kernel, n, ncols, bins, slots, bin_bytes=1,
+                   wide=False, entries=0, leaves=0):
+    """(flops, bytes) of one launch of the port's kernel whose wrapper is
+    named ``kernel``, at n rows, ncols columns, bins bins and ``slots``
+    child slots, every row in a slot: chip_smoke.py's bound count.
+    ``entries``: the sparse store's entries (B6); ``leaves``: the leaf
+    values B2 reads."""
+    if kernel in ("wave_partition_hist", "wave_histogram",
+                  "wave_histogram_rowmajor", "leaf_histogram"):
+        nbytes, flops = _wave_kernel_traffic(
+            n, ncols, bins, 1 if kernel == "leaf_histogram" else slots, n,
+            kernel == "wave_partition_hist", bin_bytes, wide)
+        return flops, nbytes
+    if kernel == "sparse_wave_histogram":
+        # each entry's row, bin, leaf id and weight row, the histograms
+        return (3.0 * entries,
+                float(entries * (4 + 4 + 4 + 12) + n * 4
+                      + slots * ncols * bins * 12))
+    if kernel == "score_update":
+        return float(n), float(n * 12 + leaves * 4)
+    return 0.0, 0.0
+
+
+def launches_cost(launches, **shape):
+    """{flops, bytes_accessed} of the kernel launches {wrapper name:
+    count} of one capture, each counted by ``launch_traffic`` at
+    ``shape``; None when it launched none."""
+    flops = nbytes = 0.0
+    for kernel, count in launches.items():
+        if count:
+            f, b = launch_traffic(kernel, **shape)
+            flops += count * f
+            nbytes += count * b
+    if not flops and not nbytes:
+        return None
+    return {"flops": flops, "bytes_accessed": nbytes}
+
+
 def cell_traffic(bucket, cell, wide=False):
     """(flops, bytes) of one probe run of ``cell`` on ``bucket``: a tree
     of ``num_leaves`` leaves grown in waves of width ``wave_width`` on
@@ -240,6 +285,104 @@ def cell_roofline(bucket, cell, s_per_wave, kind=None, overrides=None,
             "roof_source": peaks.get("source")}
 
 
+def roll_up_costs(last):
+    """{entry: cost} from each entry's last capture cost ``last``, an
+    entry ``a.b``'s also counted toward ``a``: the fused iteration's tree
+    and score graphs toward ``fused_iter``, the entry its calls time.
+    Its tail graph runs only for trees the tree graph did not finish, so
+    it does not count."""
+    costs = {}
+    for name, cost in last.items():
+        costs[name] = dict(cost)
+        if "." in str(name) and not str(name).endswith(".tail"):
+            parent = costs.setdefault(str(name).split(".")[0], {})
+            for k, v in cost.items():
+                parent[k] = parent.get(k, 0.0) + float(v)
+    return costs
+
+
+def _entry_costs(events):
+    """roll_up_costs of the last compile_attr cost of each entry."""
+    return roll_up_costs({e.get("entry"): e["cost"] for e in events
+                          if e.get("ev") == "compile_attr"
+                          and e.get("cost")})
+
+
+def timeline_roofline(events, overrides=None, peaks_path=""):
+    """The roofline join of one run's events (query.last_run first):
+    {device_kind, peaks, world_size, rows, problems}, rows ranked by
+    headroom (most recoverable seconds first), problems the defects
+    ``--check`` fails on."""
+    if overrides is None:
+        overrides = load_peak_overrides(peaks_path)
+    problems = []
+    header = next((e for e in events if e.get("ev") == "run_header"), {})
+    kind = ""
+    for d in header.get("devices") or ():
+        if isinstance(d, dict) and d.get("kind"):
+            kind = str(d["kind"])
+            break
+    kind = kind or str(header.get("backend", "") or "")
+    world_size = int(header.get("world_size") or 1)
+    peaks = peaks_for(kind, overrides)
+    run_end = next((e for e in events if e.get("ev") == "run_end"), None)
+    entries = (run_end or {}).get("entries") or {}
+    if not entries:
+        problems.append("no run_end entry stats on the timeline "
+                        "(run did not finalize, or never timed an entry)")
+    costs = _entry_costs(events)
+    if entries and not costs:
+        problems.append("no cost estimates on the timeline: run with "
+                        "obs_compile=true so compile_attr events carry "
+                        "the captures' kernel costs")
+    rows = []
+    for name, st in entries.items():
+        r = entry_roofline(costs.get(name), st.get("exec_mean_s", 0.0),
+                           st.get("exec_n", 0), peaks,
+                           world_size=world_size)
+        r["entry"] = name
+        r["has_cost"] = name in costs
+        r["exec_total_s"] = float(st.get("exec_total_s", 0.0))
+        rows.append(r)
+    rows.sort(key=lambda r: -r["headroom_s"])
+    return {"device_kind": kind or "unknown", "peaks": peaks,
+            "world_size": world_size, "rows": rows, "problems": problems}
+
+
+def utilization_rollup(entry_summary, costs, peaks, world_size=1):
+    """One iteration's ``utilization`` event: the exec-time-weighted
+    utilization over the timed entries with a cost, and the bound of the
+    entry with the most headroom.  ``entry_summary``: EntryTimers.
+    summary(); ``costs``: CompileTracker.costs().  None when no timed
+    entry has a cost yet."""
+    rows = []
+    for name, st in (entry_summary or {}).items():
+        if name not in costs:
+            continue
+        r = entry_roofline(costs.get(name), st.get("exec_mean_s", 0.0),
+                           st.get("exec_n", 0), peaks,
+                           world_size=world_size)
+        r["entry"] = name
+        r["weight"] = float(st.get("exec_total_s", 0.0))
+        rows.append(r)
+    if not rows:
+        return None
+    wsum = sum(r["weight"] for r in rows) or 1.0
+    worst = max(rows, key=lambda r: r["headroom_s"])
+    return {
+        "flop_util": sum(r["flop_util"] * r["weight"] for r in rows) / wsum,
+        "hbm_util": sum(r["hbm_util"] * r["weight"] for r in rows) / wsum,
+        "headroom_s": sum(r["headroom_s"] for r in rows),
+        "bound": worst["bound"],
+        "device_kind": peaks.get("kind", "unknown"),
+        "roof_source": peaks.get("source", "fallback"),
+        "entries": {r["entry"]: {"flop_util": round(r["flop_util"], 6),
+                                 "hbm_util": round(r["hbm_util"], 6),
+                                 "bound": r["bound"]}
+                    for r in rows},
+    }
+
+
 def fmt_quantity(v, unit=""):
     """Humanize a count into K/M/G/T units (1e9 -> '1.00 G')."""
     v = float(v or 0.0)
@@ -276,3 +419,47 @@ def describe_roofline_position(r):
                   float(r.get("flop_util") or 0.0))
         return "%s, %d%% of roof" % (bound, round(100 * top))
     return ""
+
+
+def render_roofline(events, out=None, check=False, peaks_path=""):
+    """Print the headroom-ranked roofline table of the last run; return
+    the problems list (``--check`` exits nonzero when it is not
+    empty)."""
+    out = out or sys.stdout
+    w = lambda s="": print(s, file=out)  # noqa: E731
+    res = timeline_roofline(events, peaks_path=peaks_path)
+    peaks = res["peaks"]
+    w("== roofline: %s (%s peaks%s) ==" % (
+        res["device_kind"], peaks.get("source", "?"),
+        ", world_size=%d" % res["world_size"]
+        if res["world_size"] > 1 else ""))
+    w("  peak %sFLOP/s f32, %s/s HBM, %s/s NVLink, %s shared a SM" % (
+        fmt_quantity(peaks.get("flops_f32")),
+        fmt_bytes(peaks.get("hbm_bytes_per_s")),
+        fmt_bytes(peaks.get("ici_bytes_per_s")),
+        fmt_bytes(peaks.get("smem_bytes_per_sm"))))
+    rows = res["rows"]
+    if rows:
+        w()
+        w("  %-34s %5s %10s %6s %6s %8s %-18s %10s" % (
+            "entry", "calls", "mean", "FLOP%", "HBM%", "AI",
+            "bound", "headroom"))
+        for r in rows:
+            w("  %-34s %5d %9.2fms %5.1f%% %5.1f%% %8s %-18s %9.3fs%s" % (
+                r["entry"][:34], r["exec_n"], r["exec_mean_s"] * 1e3,
+                100 * r["flop_util"], 100 * r["hbm_util"],
+                ("%.2f" % r["ai"]) if r["ai"] is not None else "-",
+                r["bound"], r["headroom_s"],
+                "" if r["has_cost"] else "  (no cost estimate)"))
+        total = sum(r["headroom_s"] for r in rows)
+        w()
+        w("  total headroom %.3fs across %d entries: seconds recoverable"
+          " if every entry hit its roof" % (total, len(rows)))
+        counts = {}
+        for r in rows:
+            counts[r["bound"]] = counts.get(r["bound"], 0) + 1
+        w("  bound mix: " + ", ".join(
+            "%s x%d" % (b, counts[b]) for b in BOUNDS if b in counts))
+    for p in res["problems"]:
+        w("  PROBLEM: %s" % p)
+    return res["problems"] if check else []

@@ -1,8 +1,10 @@
 """Serving-tier SLOs: the rolling window, burn-rate alerts.
 
-Ported from the JAX package's ``obs/serve.py`` (its writer side; the
-timeline reports of ``obs serve`` are not in the port yet).  The
-microbatch scheduler feeds ``SloEngine`` one ``record()`` per completed
+Ported from the JAX package's ``obs/serve.py``: the writer side here,
+and the reader side below (``serve_events``, ``serve_metrics``,
+``serve_headline``, ``serve_roofline`` and ``render_serve_report``,
+behind ``python -m lightgbm_tpu_torch obs serve [--check]`` and ``obs
+summary``'s serving headline).  The microbatch scheduler feeds ``SloEngine`` one ``record()`` per completed
 request and one ``record_shed()`` per rejected one.  State is a ring of
 1-second buckets per route kind, each a fixed log-spaced latency
 histogram plus request, error and shed counts: recording is one lock,
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import bisect
 import math
+import sys
 import threading
 import time
 
@@ -57,6 +60,27 @@ def route_kind(route):
     if isinstance(route, tuple) and route:
         return str(route[0])
     return str(route)
+
+
+def _kind_from_event(e):
+    """Route kind of a recorded serving event: the explicit ``kind``
+    field (schema 7) or parsed from the stringified route tuple that
+    schema-6 events carry, e.g. ``"('dev', True)"`` -> ``dev``."""
+    k = e.get("kind")
+    if k:
+        return str(k)
+    r = str(e.get("route", "")).strip()
+    for ch in "(\"'":
+        r = r.replace(ch, "")
+    return (r.split(",")[0] or "?").strip()
+
+
+def _pct_sorted(xs, q):
+    """Nearest-rank percentile of an already-sorted list."""
+    if not xs:
+        return 0.0
+    i = max(0, min(len(xs) - 1, int(math.ceil(q * len(xs))) - 1))
+    return xs[i]
 
 
 class SloEngine:
@@ -339,3 +363,313 @@ class SloEngine:
             self.evaluate(force_snapshot=True)
         except Exception as e:       # forensics must never break close
             Log.warning("serve slo: final snapshot failed: %s", e)
+
+
+# ======================================================================
+# reader side: timeline -> serving report (obs serve / obs summary)
+# ======================================================================
+
+def serve_events(events):
+    return [e for e in events
+            if str(e.get("ev", "")).startswith("serve_")]
+
+
+def serve_metrics(events):
+    """Fold a timeline's serving events into one report dict.  Lifetime
+    totals come from the ``serve_summary`` close record when present
+    (exact), else from summing the SAMPLED serve_batch events (lower
+    bound, flagged ``sampled``)."""
+    batches = [e for e in events if e.get("ev") == "serve_batch"]
+    reqs = [e for e in events if e.get("ev") == "serve_request"]
+    slos = [e for e in events if e.get("ev") == "serve_slo"]
+    summaries = [e for e in events if e.get("ev") == "serve_summary"]
+    benches = [e for e in events if e.get("ev") == "serve_bench"]
+    alerts = [e for e in events if e.get("ev") == "health"
+              and e.get("check") == "slo_burn_rate"]
+    out = {"present": bool(batches or reqs or slos or summaries
+                           or benches)}
+    if not out["present"]:
+        return out
+    if summaries:
+        s = summaries[-1]
+        out["totals"] = {"batches": s.get("batches", 0),
+                         "rows": s.get("rows", 0),
+                         "pad_rows": s.get("pad_rows", 0),
+                         "max_queue_depth": s.get("max_queue_depth", 0),
+                         "shed_total": s.get("shed_total", 0),
+                         "shed": dict(s.get("shed") or {}),
+                         "sampled": False}
+    else:
+        out["totals"] = {
+            "batches": len(batches),
+            "rows": sum(int(e.get("rows", 0)) for e in batches),
+            "pad_rows": sum(int(e.get("pad", 0)) for e in batches),
+            "max_queue_depth": None,
+            "shed_total": sum(int(e.get("shed", 0)) for e in benches),
+            "shed": {},
+            "sampled": True}
+    t = out["totals"]
+    slots = t["rows"] + t["pad_rows"]
+    t["batch_efficiency"] = round(t["rows"] / slots, 4) if slots else None
+
+    # per-route latency from sampled request traces
+    routes = {}
+    for e in reqs:
+        k = _kind_from_event(e)
+        r = routes.setdefault(k, {"n": 0, "lat": [], "rows": 0,
+                                  "spans": {}})
+        r["n"] += 1
+        r["rows"] += int(e.get("rows", 0))
+        if e.get("total_s") is not None:
+            r["lat"].append(float(e["total_s"]))
+        for name, v in (e.get("spans") or {}).items():
+            r["spans"][name] = r["spans"].get(name, 0.0) + float(v)
+    for k, r in routes.items():
+        lat = sorted(r.pop("lat"))
+        if lat:
+            r["p50_s"] = _pct_sorted(lat, 0.50)
+            r["p95_s"] = _pct_sorted(lat, 0.95)
+            r["p99_s"] = _pct_sorted(lat, 0.99)
+            r["mean_s"] = sum(lat) / len(lat)
+        r["spans"] = {name: round(v / max(r["n"], 1), 6)
+                      for name, v in sorted(r["spans"].items())}
+    out["routes"] = routes
+
+    # per-route microbatch shape from sampled serve_batch events
+    broutes = {}
+    for e in batches:
+        k = _kind_from_event(e)
+        b = broutes.setdefault(k, {"batches": 0, "rows": 0, "pad": 0,
+                                   "requests": 0, "queue": [],
+                                   "exec": []})
+        b["batches"] += 1
+        b["rows"] += int(e.get("rows", 0))
+        b["pad"] += int(e.get("pad", 0))
+        b["requests"] += int(e.get("requests", 1))
+        b["queue"].append(float(e.get("queue_s", 0.0)))
+        b["exec"].append(float(e.get("exec_s", 0.0)))
+    for k, b in broutes.items():
+        q, x = sorted(b.pop("queue")), sorted(b.pop("exec"))
+        b["queue_p50_s"] = _pct_sorted(q, 0.50)
+        b["exec_p50_s"] = _pct_sorted(x, 0.50)
+        slots = b["rows"] + b["pad"]
+        b["efficiency"] = round(b["rows"] / slots, 4) if slots else None
+    out["batch_routes"] = broutes
+
+    if slos:
+        out["slo"] = slos[-1]
+    if benches:
+        out["bench"] = benches[-1]
+    fired = [a for a in alerts if a.get("status") != "ok"]
+    out["alerts"] = {
+        "fired": len(fired),
+        "cleared": len(alerts) - len(fired),
+        "active": bool(alerts) and alerts[-1].get("status") != "ok",
+        "last": alerts[-1] if alerts else None}
+    return out
+
+
+def serve_headline(events):
+    """The one-line serving digest for ``obs summary`` /
+    trace_summary.py: totals + efficiency + shed + last p99."""
+    m = serve_metrics(events)
+    if not m.get("present"):
+        return None
+    t = m["totals"]
+    head = {"batches": t["batches"], "rows": t["rows"],
+            "batch_efficiency": t["batch_efficiency"],
+            "shed_total": t["shed_total"], "sampled": t["sampled"],
+            "alerts_fired": m["alerts"]["fired"]}
+    slo = m.get("slo")
+    if slo:
+        head["p99_s"] = (slo.get("overall") or {}).get("p99_s")
+        head["qps"] = (slo.get("overall") or {}).get("qps")
+    bench = m.get("bench")
+    if bench:
+        head.setdefault("p99_s", bench.get("p99_s"))
+        head.setdefault("qps", bench.get("qps"))
+    return head
+
+
+def serve_roofline(events):
+    """Roofline rows for the per-bucket serving programs.
+
+    serve/executable.py announces each bucket's graph capture as a
+    ``compile_attr`` event named ``serve_predict_b<bucket>[_conv]``; the
+    sampled ``serve_batch`` events time the same buckets' executes.  A
+    capture's cost is that of the kernel launches it recorded
+    (obs/compile.py); the port's traversal is plain torch and records
+    none, so its buckets carry no cost and this returns no row for them
+    (a timeline of the JAX package's, whose XLA programs carry a cost
+    analysis, gets its rows)."""
+    from .roofline import entry_roofline, peaks_for
+    costs = {}
+    for e in events:
+        if e.get("ev") == "compile_attr" and e.get("cost") \
+                and str(e.get("entry", "")).startswith("serve_predict_b"):
+            costs[e["entry"]] = e["cost"]
+    if not costs:
+        return []
+    header = next((e for e in events if e.get("ev") == "run_header"), {})
+    kind = ""
+    for d in header.get("devices") or ():
+        if isinstance(d, dict) and d.get("kind"):
+            kind = str(d["kind"])
+            break
+    peaks = peaks_for(kind or str(header.get("backend", "") or ""))
+    # executes per bucket from the sampled microbatch events
+    execs = {}
+    for e in events:
+        if e.get("ev") != "serve_batch":
+            continue
+        b = e.get("bucket")
+        execs.setdefault(b, []).append(float(e.get("exec_s", 0.0)))
+    rows = []
+    for entry, cost in sorted(costs.items()):
+        suffix = entry[len("serve_predict_b"):]
+        try:
+            bucket = int(suffix.split("_")[0])
+        except ValueError:
+            bucket = None
+        xs = execs.get(bucket) or []
+        mean = (sum(xs) / len(xs)) if xs else 0.0
+        r = entry_roofline(cost, mean, len(xs), peaks)
+        r["entry"] = entry
+        r["bucket"] = bucket
+        r["timed"] = bool(xs)
+        r["roof_source"] = peaks.get("source")
+        rows.append(r)
+    rows.sort(key=lambda r: -r["headroom_s"])
+    return rows
+
+
+def _ms(v):
+    return "-" if v is None else "%.2f" % (float(v) * 1e3)
+
+
+def render_serve_report(events, out=None, check=False):
+    """Print the serving report; returns the list of problems (empty =
+    healthy).  ``check`` only changes the verdict footer text — the
+    caller turns problems into an exit code."""
+    out = out or sys.stdout
+    w = lambda s="": print(s, file=out)
+    m = serve_metrics(events)
+    problems = []
+    w("== serving report ==")
+    if not m.get("present"):
+        w("no serving events in this timeline (serve_batch / "
+          "serve_request / serve_slo / serve_summary / serve_bench)")
+        problems.append("no serving events in timeline")
+        return problems
+    t = m["totals"]
+    src = "sampled serve_batch events (lower bound)" if t["sampled"] \
+        else "serve_summary (exact lifetime totals)"
+    w("totals [%s]:" % src)
+    w("  batches %s   rows %s   pad rows %s   max queue depth %s"
+      % (t["batches"], t["rows"], t["pad_rows"],
+         "-" if t["max_queue_depth"] is None else t["max_queue_depth"]))
+    if t["batch_efficiency"] is not None:
+        w("  batch efficiency %.1f%% (rows / padded slots)"
+          % (100.0 * t["batch_efficiency"]))
+
+    if m.get("routes"):
+        w("")
+        w("per-route latency (sampled serve_request traces):")
+        w("  %-10s %6s %10s %10s %10s %10s" %
+          ("route", "n", "p50_ms", "p95_ms", "p99_ms", "mean_ms"))
+        for k in sorted(m["routes"]):
+            r = m["routes"][k]
+            w("  %-10s %6d %10s %10s %10s %10s"
+              % (k, r["n"], _ms(r.get("p50_s")), _ms(r.get("p95_s")),
+                 _ms(r.get("p99_s")), _ms(r.get("mean_s"))))
+            if r.get("spans"):
+                w("  %-10s   spans(ms): %s" % ("", "  ".join(
+                    "%s=%s" % (name.replace("_s", ""), _ms(v))
+                    for name, v in r["spans"].items())))
+    if m.get("batch_routes"):
+        w("")
+        w("per-route microbatches (sampled serve_batch events):")
+        w("  %-10s %8s %9s %8s %6s %9s %12s %11s" %
+          ("route", "batches", "rows", "pad", "eff%", "req/batch",
+           "queue_p50_ms", "exec_p50_ms"))
+        for k in sorted(m["batch_routes"]):
+            b = m["batch_routes"][k]
+            eff = ("-" if b["efficiency"] is None
+                   else "%.1f" % (100.0 * b["efficiency"]))
+            w("  %-10s %8d %9d %8d %6s %9.1f %12s %11s"
+              % (k, b["batches"], b["rows"], b["pad"], eff,
+                 b["requests"] / max(b["batches"], 1),
+                 _ms(b["queue_p50_s"]), _ms(b["exec_p50_s"])))
+
+    slo = m.get("slo")
+    w("")
+    if slo:
+        targets = slo.get("targets") or {}
+        tgt = "  ".join(filter(None, [
+            ("p99<=%.1fms" % targets["p99_ms"]) if "p99_ms" in targets
+            else "",
+            ("qps>=%g" % targets["qps"]) if "qps" in targets else ""]))
+        w("SLO (window %gs%s):" % (slo.get("window_s", 0),
+                                   (", targets " + tgt) if tgt else ""))
+        overall = slo.get("overall") or {}
+        w("  overall: qps %s  p50 %sms  p99 %sms  n %s"
+          % (overall.get("qps", "-"), _ms(overall.get("p50_s")),
+             _ms(overall.get("p99_s")), overall.get("n", "-")))
+        for name, verdict in sorted((slo.get("verdicts") or {}).items()):
+            w("  verdict %-4s: %s" % (name, verdict.upper()))
+            if verdict != "ok":
+                problems.append("SLO verdict %s=FAIL" % name)
+        if "burn_long" in slo:
+            w("  burn rate: short %sx, long %sx (threshold %gx) — %s"
+              % (slo.get("burn_short"), slo.get("burn_long"),
+                 BURN_THRESHOLD, slo.get("alert", "clear")))
+    else:
+        w("SLO: no serve_slo snapshots on this timeline "
+          "(set serve_slo_every_s / serve_slo_p99_ms)")
+
+    a = m["alerts"]
+    w("")
+    w("overload & shedding:")
+    shed_bits = ", ".join("%s %d" % (k, v)
+                          for k, v in sorted(t["shed"].items()))
+    w("  shed: %d request(s)%s" % (t["shed_total"],
+                                   (" (%s)" % shed_bits) if shed_bits
+                                   else ""))
+    w("  burn-rate alerts: %d fired, %d cleared%s"
+      % (a["fired"], a["cleared"],
+         "  [ACTIVE]" if a["active"] else ""))
+    if t["shed_total"]:
+        problems.append("%d shed request(s)" % t["shed_total"])
+    if a["fired"]:
+        problems.append("%d burn-rate alert(s) fired" % a["fired"])
+
+    bench = m.get("bench")
+    if bench:
+        w("")
+        w("bench: qps %s  p50 %sms  p99 %sms%s"
+          % (bench.get("qps"), _ms(bench.get("p50_s")),
+             _ms(bench.get("p99_s")),
+             ("  shed_rate %s" % bench.get("shed_rate")
+              if bench.get("shed_rate") is not None else "")))
+
+    rl = serve_roofline(events)
+    if rl:
+        w("")
+        w("executable roofline (achieved vs %s peaks, obs/roofline.py):"
+          % (rl[0].get("roof_source", "?")))
+        w("  %-26s %7s %10s %6s %6s %-18s %9s" %
+          ("entry", "execs", "exec_p50", "MXU%", "HBM%", "bound",
+           "headroom"))
+        for r in rl:
+            w("  %-26s %7d %8.3fms %5.1f%% %5.1f%% %-18s %8.4fs%s"
+              % (r["entry"][:26], r["exec_n"], r["exec_mean_s"] * 1e3,
+                 100 * r["flop_util"], 100 * r["hbm_util"], r["bound"],
+                 r["headroom_s"],
+                 "" if r["timed"] else "  (no sampled executes)"))
+    w("")
+    if problems:
+        w("verdict: %s — %s" % ("FAIL" if check else "UNHEALTHY",
+                                "; ".join(problems)))
+    else:
+        w("verdict: %s" % ("PASS" if check else "healthy"))
+    return problems

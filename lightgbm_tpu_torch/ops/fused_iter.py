@@ -47,7 +47,9 @@ import time
 
 import torch
 
-from ..device import CAPTURE_LOCK
+from ..device import CAPTURE_LOCK, capture_guard
+from ..obs.events import NULL_OBSERVER
+from ..obs.roofline import launches_cost
 from ..utils.log import LightGBMError
 from .grow import GrowStats
 from .histogram import weight_rows
@@ -134,7 +136,7 @@ class _Graph:
         before = _counts()
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with CAPTURE_LOCK, \
+            with capture_guard(), \
                     torch.cuda.stream(torch.cuda.current_stream()), \
                     torch.cuda.graph(self.graph,
                                      capture_error_mode="thread_local"):
@@ -191,6 +193,9 @@ class FusedIteration:
         self._score_key = None
         self.capture_seconds = 0.0     # set-up: capturing the graphs
         self.replays = 0               # graph replays so far
+        # the run observer, told of every capture (obs/compile.py: in
+        # the port a graph capture is a compile)
+        self.observer = NULL_OBSERVER
 
     # ---------------------------------------------- the captured programs
     def tree_pass(self, score) -> None:
@@ -246,11 +251,49 @@ class FusedIteration:
     def _capture(self, score, scale) -> None:
         t0 = time.perf_counter()
         if self._tree is None:
-            self._tree = _Graph(lambda: self.tree_pass(score))
-            self._tail = _Graph(self.tail_pass)
-        self._score = _Graph(lambda: self.score_pass(score, scale))
+            self._tree = self._graph("tree",
+                                     lambda: self.tree_pass(score), score)
+            self._tail = self._graph("tail", self.tail_pass, score)
+        self._score = self._graph(
+            "score", lambda: self.score_pass(score, scale), score, scale)
         self._score_key = (score.data_ptr(), float(scale))
         self.capture_seconds += time.perf_counter() - t0
+
+    def _graph(self, name, fn, score, scale=None) -> _Graph:
+        """Capture fn as graph ``fused_iter.<name>`` and tell the
+        observer: the signature of the tensors it reads (and the score
+        graph's baked-in scale), the seconds, and the cost of the kernel
+        launches it recorded.  A capture that raises is no compile."""
+        t0 = time.perf_counter()
+        graph = _Graph(fn)
+        obs = self.observer
+        if obs.enabled:
+            gr = self.grower
+            args = [score, gr.X, self.w3, self.row_mult, self.feature_mask]
+            names = ["score", "bins", "w3", "row_mult", "feature_mask"]
+            if scale is not None:
+                args.append(float(scale))
+                names.append("scale")
+            launches = {k.__name__: n for (k, form), n
+                        in zip(COUNTERS, graph.launches) if form is None}
+            obs.capture("fused_iter." + name, args, names=names,
+                        seconds=time.perf_counter() - t0,
+                        cost=launches_cost(launches, **self._shape()))
+        return graph
+
+    def _shape(self) -> dict:
+        """The grower's sizes that launches_cost counts by."""
+        gr = self.grower
+        X = gr.X
+        entries = (int(X.ent_row.numel()) if hasattr(X, "ent_row")
+                   else int(X.nz_row.numel()) if hasattr(X, "nz_row")
+                   else 0)
+        return dict(n=int(self.w3.shape[0]), ncols=int(gr.hist_cols),
+                    bins=int(gr.hist_bins), slots=int(gr.slots),
+                    bin_bytes=(X.element_size()
+                               if isinstance(X, torch.Tensor) else 4),
+                    wide=self.dtype == torch.float64, entries=entries,
+                    leaves=int(gr.L))
 
     def release(self) -> None:
         """Drop the captured graphs, which frees their memory pools; under

@@ -20,8 +20,12 @@ batch of splits certain to commit.  With ``hist_mode`` 'onehot' or
 (``ops/histogram.py engine_histogram``) over the masked rows, and the
 bins may be 4-bit packed, as the JAX package packs them on those
 engines; its capacity tiers (a gather of each leaf's rows) are not
-ported, nor are the coordinate sparse store and the feature-parallel
-and voting arms.  Under ``tpu_use_dp`` (dtype float64) the weights,
+ported, nor are the feature-parallel and voting arms.  On the
+coordinate sparse store (``ops/sparse_store.py``, ``hist_mode``
+'sparse') a leaf histogram is one integer segment sum over the store's
+entries (``sparse_leaf_hist``) and the split column comes from the
+column's entries through its static window (``sparse_split_column``).
+Under ``tpu_use_dp`` (dtype float64) the weights,
 histograms, best splits and the tree's values are float64 and B5 runs
 its f64 form.
 """
@@ -35,6 +39,8 @@ import torch
 from .histogram import ENGINE_MODES, engine_histogram, weight_rows
 from .leaf_hist import leaf_histogram
 from .pack import nibble, packed_column
+from .sparse_store import (SparseDeviceStore, sparse_leaf_hist,
+                           sparse_split_column)
 from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
                            LEFT_COUNT, LEFT_OUTPUT, LEFT_SUM_G, RIGHT_COUNT,
                            RIGHT_OUTPUT, RIGHT_SUM_G, SECOND_FEATURE,
@@ -395,13 +401,19 @@ class ExactGrower(Grower):
                  hist_mode: str = "pallas", packed_cols: int = 0, **kw):
         super().__init__(X, meta, bundle, **kw)
         self.hist_mode = hist_mode
-        self.packed_cols = int(packed_cols)
-        self.hist_cols = self.packed_cols or X.shape[1]
+        # the coordinate sparse store (JAX hist_mode 'sparse')
+        self.sparse = isinstance(X, SparseDeviceStore)
+        self.packed_cols = 0 if self.sparse else int(packed_cols)
+        self.hist_cols = (X.num_cols if self.sparse
+                          else self.packed_cols or X.shape[1])
 
     def _child_hists(self, st, lid, ids, w3, exps):
-        """B5 (or the XLA engine): the (1, G, B, 3) histogram of the rows
-        in leaf ids, a (1,) device tensor (-1: no row, a zero
-        histogram)."""
+        """B5, the XLA engine or the coordinate store's segment sum: the
+        (1, G, B, 3) histogram of the rows in leaf ids, a (1,) device
+        tensor (-1: no row, a zero histogram)."""
+        if self.sparse:
+            return sparse_leaf_hist(self.X, lid, w3, ids, self.hist_bins,
+                                    self.hist_cols, exps)[None]
         if self.hist_mode in ENGINE_MODES:
             return engine_histogram(self.hist_mode, self.X, lid, w3,
                                     ids.to(torch.int32), self.hist_bins,
@@ -410,9 +422,12 @@ class ExactGrower(Grower):
                               self.hist_bins, w3=w3, exps=exps,
                               work=st.work)[None]
 
-    def _split_column(self, j):
-        """(N,) int32: every row's bin in device column j, a (1,) long
-        tensor (its nibble when packed)."""
+    def _split_column(self, j, n: int):
+        """(N,) int32: each of the n rows' bin in device column j, a (1,)
+        long tensor (its nibble when packed; from the store's entries on
+        the coordinate store)."""
+        if self.sparse:
+            return sparse_split_column(self.X, j, n)
         Xi = indexable(self.X)
         if not self.packed_cols:
             return bins_i32(Xi.index_select(1, j)[:, 0])
@@ -436,7 +451,7 @@ class ExactGrower(Grower):
         # remapped out of its EFB group, routes the leaf's rows
         f = sp.feature
         j = f if bundle is None else bundle.group_of[f].long()
-        col = self._split_column(j)
+        col = self._split_column(j, st.leaf_id.shape[0])
         if bundle is not None:
             goff, span, adj = (a[f] for a in (
                 bundle.bin_off, bundle.bin_span, bundle.bin_adj))

@@ -187,6 +187,24 @@ def _to_f64(S, exps):
     return torch.where(neg, -m, m) * a * b
 
 
+def quantize_rows(w3, exps):
+    """(N, 3, L) int64: the weight rows in the tree's fixed point, one
+    64-bit value a weight for f32 w3 (L = 1), four 32-bit limbs of its
+    128-bit value for float64 w3 (L = 4)."""
+    if w3.dtype == torch.float64:
+        return _limbs128(w3, exps)
+    return _quantize64(w3, exps)[..., None]
+
+
+def dequantize(S, exps, dtype):
+    """Integer sums S (..., 3, L) of quantize_rows' values back to dtype,
+    as the kernels convert them (``to_f32``, ``to_f64``)."""
+    if dtype == torch.float64:
+        return _to_f64(S, exps).contiguous()
+    a, b = _pow2(-exps.long(), torch.float64)
+    return (S[..., 0].double() * a * b).to(torch.float32).contiguous()
+
+
 _SPILL = 1024
 
 
@@ -198,8 +216,7 @@ def scatter_histogram(X, leaf_id, w3, child_id, num_bins: int, exps,
     n, dev = X.shape[0], w3.device
     G = logical_cols or X.shape[1]
     B, K = int(num_bins), child_id.shape[0]
-    wide = w3.dtype == torch.float64
-    q = (_limbs128(w3, exps) if wide else _quantize64(w3, exps)[..., None])
+    q = quantize_rows(w3, exps)
     L = q.shape[-1]
     match = (leaf_id[:, None] == child_id[None, :]) & (child_id >= 0)
     slot = torch.where(match.any(dim=1),
@@ -220,11 +237,7 @@ def scatter_histogram(X, leaf_id, w3, child_id, num_bins: int, exps,
     # a repeated child id's slots all hold the first one's sums
     first = torch.argmax((child_id[:, None] == child_id[None, :])
                          .to(torch.int32), dim=1)
-    S = S.index_select(0, first)
-    if wide:
-        return _to_f64(S, exps).contiguous()
-    a, b = _pow2(-exps.long(), torch.float64)
-    return (S[..., 0].double() * a * b).to(torch.float32).contiguous()
+    return dequantize(S.index_select(0, first), exps, w3.dtype)
 
 
 def engine_histogram(mode, X, leaf_id, w3, child_id, num_bins: int, exps,

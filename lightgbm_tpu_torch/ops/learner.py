@@ -7,8 +7,10 @@ B1/B3, row-major for ``tpu_histogram_mode=pallas`` (B4 under wave growth,
 B5 under exact growth) and for the XLA engines ``onehot`` and
 ``scatter`` (ops/histogram.py), or, with ``tpu_sparse`` and
 ``tpu_sparse_kernel``, only the non-fill entries in the entry-chunk
-sparse store (ops/sparse_mxu.py).  A column of more than 256 bins makes
-the matrix uint16, as in the JAX package; the kernels take both widths.
+sparse store (ops/sparse_mxu.py), or, with ``tpu_sparse`` alone, in the
+coordinate store (ops/sparse_store.py), whose auto growth is exact.  A
+column of more than 256 bins makes the matrix uint16, as in the JAX
+package; the kernels take both widths.
 ``tpu_use_dp`` makes the weights, histograms, split search and tree
 values float64 (the kernels' f64 form).  A dataset backed by a pre-binned directory
 (io/binned_format.py) pages its shards to the card one at a time
@@ -47,8 +49,10 @@ from .autotune import (_order_sensitive, bin_pad, prior_hist_hilo,
 from .grow import BundleArrays, ExactGrower, grow_tree_exact
 from .histogram import ENGINE_MODES
 from .pack import can_pack4, pack4_host
-from .sparse_mxu import build_chunked_store
-from .sparse_store import column_fill_bins
+from .sparse_mxu import (ChunkedSparseStore, build_chunked_store,
+                         chunked_device_bytes)
+from .sparse_store import (SparseDeviceStore, build_sparse_store,
+                           column_fill_bins, store_device_bytes)
 from .split_finder import FeatureMeta, SplitParams
 from .wave import WaveGrower, grow_tree
 
@@ -122,31 +126,32 @@ def _unsupported(knob: str, value) -> None:
     Log.fatal("%s=%s selects an engine lightgbm_tpu_torch does not have "
               "yet (this port runs serial wave or exact growth with its "
               "kernels or the onehot/scatter engines, on the dense matrix "
-              "or the entry-chunk sparse store)", knob, value)
+              "or a sparse store)", knob, value)
 
 
-def resolve_sparse(config: Config) -> bool:
-    """True when the entry-chunk sparse store and kernel B6 run
-    (tpu_sparse=true with tpu_sparse_kernel=true), as the JAX package
-    resolves them (its ops/learner.py, serial learner)."""
+def resolve_sparse(config: Config) -> str:
+    """Which sparse store runs, as the JAX package resolves tpu_sparse and
+    tpu_sparse_kernel for its serial learner (its ops/learner.py): ''
+    (the dense matrix), 'sparse' (the coordinate store,
+    ops/sparse_store.py: tpu_sparse=true alone, under wave or exact
+    growth, f32 or tpu_use_dp weights) or 'sparse_mxu' (the entry-chunk
+    store and kernel B6, with tpu_sparse_kernel=true: wave growth and
+    f32 weights only).  The pallas kernels are dense-only."""
     sparse = bool(config.tpu_sparse)
     kernel = bool(config.tpu_sparse_kernel)
     if kernel and not sparse:
         Log.warning("tpu_sparse_kernel=true has no effect without "
                     "tpu_sparse=true")
-        return False
+        return ""
     if not sparse:
-        return False
+        return ""
     mode = str(config.tpu_histogram_mode).strip().lower()
     if mode.startswith("pallas"):
         Log.fatal("tpu_sparse=true is incompatible with "
                   "tpu_histogram_mode=%s (the pallas kernels are "
                   "dense-only)", config.tpu_histogram_mode)
     if not kernel:
-        Log.fatal("tpu_sparse=true without tpu_sparse_kernel=true selects "
-                  "the coordinate-store engine (SparseDeviceStore), which "
-                  "lightgbm_tpu_torch does not have yet; set "
-                  "tpu_sparse_kernel=true for the entry-chunk store")
+        return "sparse"
     if str(config.tpu_growth).strip().lower() == "exact":
         Log.fatal("tpu_sparse_kernel=true requires wave growth "
                   "(tpu_growth=exact scans per leaf)")
@@ -156,24 +161,28 @@ def resolve_sparse(config: Config) -> bool:
         # in for a kernel
         Log.fatal("tpu_use_dp=true with tpu_sparse_kernel=true: kernel B6 "
                   "of the entry-chunk store sums f32 weights (drop "
-                  "tpu_use_dp, or train on the dense matrix)")
-    return True
+                  "tpu_use_dp, or train on the dense matrix or the "
+                  "coordinate store)")
+    return "sparse_mxu"
 
 
 def _val(config: Config, name: str) -> str:
     return str(getattr(config, name)).strip().lower()
 
 
-def resolve_growth(config: Config, sparse: bool) -> str:
+def resolve_growth(config: Config, sparse: str) -> str:
     """'wave' or 'exact', as the JAX package resolves tpu_growth on its
     accelerator (its ops/learner.py): auto is exact with
     tpu_histogram_mode=pallas, whose kernel is the exact grower's
-    per-leaf histogram, and wave otherwise (onehot and scatter
-    included); the wave-only kernels refuse exact growth."""
+    per-leaf histogram, and on the coordinate store (sparse 'sparse',
+    whose auto growth the JAX package keeps exact), and wave otherwise
+    (onehot, scatter and the entry-chunk store included); the wave-only
+    kernels refuse exact growth."""
     growth = _val(config, "tpu_growth")
     mode = _val(config, "tpu_histogram_mode")
     if growth == "auto":
-        growth = "exact" if mode == "pallas" and not sparse else "wave"
+        growth = ("exact" if sparse == "sparse"
+                  or (mode == "pallas" and not sparse) else "wave")
     if growth == "exact" and mode in ("pallas_ct", "pallas_t"):
         Log.fatal("tpu_histogram_mode=%s requires tpu_growth=wave (this "
                   "kernel is wave-only)", config.tpu_histogram_mode)
@@ -183,8 +192,8 @@ def resolve_growth(config: Config, sparse: bool) -> str:
 def check_engine_params(config: Config):
     """Raise on knob values whose engine this port lacks; accept the
     values that resolve to the engines it has.  Returns (sparse, growth):
-    whether the sparse store runs (resolve_sparse) and the growth
-    schedule (resolve_growth)."""
+    the sparse store that runs ('' for none, resolve_sparse) and the
+    growth schedule (resolve_growth)."""
     def val(name):
         return _val(config, name)
 
@@ -330,8 +339,13 @@ def paged_device_matrix(train_data: TrainingData, row_major: bool, device):
 
 
 class SerialTreeLearner:
-    def __init__(self, config: Config, train_data: TrainingData, device):
-        self.sparse, self.growth = check_engine_params(config)
+    def __init__(self, config: Config, train_data: TrainingData, device,
+                 device_store=None):
+        """``device_store``: a sparse store of train_data built by an
+        earlier learner (reset_config), reused where this learner runs
+        the same kind of store."""
+        self.sparse_mode, self.growth = check_engine_params(config)
+        self.sparse = bool(self.sparse_mode)
         self.config = config
         # the histograms', split search's and trees' dtype
         self.dtype = torch.float64 if config.tpu_use_dp else torch.float32
@@ -366,7 +380,7 @@ class SerialTreeLearner:
                  else self.num_bins)
         mode = _val(config, "tpu_histogram_mode")
         if self.sparse:
-            mode = "sparse_mxu"
+            mode = self.sparse_mode
         elif self.growth == "exact":
             # exact growth takes B5 ('pallas'), or the XLA engine asked
             # for.  With 'auto' the JAX package's TPU prior picks its XLA
@@ -409,16 +423,29 @@ class SerialTreeLearner:
             # sparse store read train_data.binned)
             self.X, self.upload_stats = paged_device_matrix(
                 train_data, self.row_major, device)
-        if self.sparse:
+        want = (SparseDeviceStore if self.sparse_mode == "sparse"
+                else ChunkedSparseStore)
+        if self.sparse and isinstance(device_store, want):
+            # reset_config: the same train_data, so the same store
+            self.X = device_store
+            self.sparse_device_bytes = (
+                store_device_bytes(self.X) if want is SparseDeviceStore
+                else chunked_device_bytes(self.X))
+        elif self.sparse:
             binned = self._host_bins(train_data)
-            # only the non-fill entries go to the device; a low-skew
-            # store takes one wide chunk a column (auto_uniform)
+            # only the non-fill entries go to the device
             fill = (column_fill_bins(train_data.num_bin_arr,
                                      train_data.default_bin_arr,
                                      train_data.bundle)
                     if train_data.num_features else np.zeros(1, np.int64))
-            self.X, self.sparse_device_bytes = build_chunked_store(
-                binned, fill, nbins, auto_uniform=True, device=device)
+            if self.sparse_mode == "sparse":
+                self.X, _, self.sparse_device_bytes = build_sparse_store(
+                    binned, fill, nbins, device=device)
+            else:
+                # a low-skew store takes one wide chunk a column
+                # (auto_uniform)
+                self.X, self.sparse_device_bytes = build_chunked_store(
+                    binned, fill, nbins, auto_uniform=True, device=device)
         elif self.upload_stats is None:
             t0 = time.perf_counter()
             binned = self._host_bins(train_data)
@@ -621,7 +648,7 @@ class SerialTreeLearner:
     def row_major_bins(self):
         """(X, packed): the training bins as (N, G) rows for a traversal,
         the upload or a transposed view of it, and whether they are 4-bit
-        packed ((N, ceil(G / 2)), ops/pack.py); (None, False) on the
+        packed ((N, ceil(G / 2)), ops/pack.py); (None, False) on a
         sparse store, which keeps no dense matrix."""
         if self.sparse:
             return None, False
@@ -674,6 +701,9 @@ class SerialTreeLearner:
                 row_mult.to(self.dtype), self.sample_feature_mask(),
                 self.meta, self.bundle_arrays)
         t0 = self._obs.entry_start()
+        self._obs.entry_args("tree_grow", self.train_device, args,
+                             names=("X", "grad", "hess", "row_mult",
+                                    "feature_mask"))
         if self.growth == "exact":
             tree, leaf_id, stats = grow_tree_exact(*args, **self._exact_kw())
         else:

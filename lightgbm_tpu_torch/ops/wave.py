@@ -51,9 +51,15 @@ On the entry-chunk sparse store (``ops/sparse_mxu.py``, the JAX
 package's ``sparse_mxu`` engine) every histogram -- the root's one slot,
 each wave's smaller children and the no-cache larger children -- comes
 from kernel B6, in the same fixed point with the same exponents
-(``sparse_wave_histogram``); the partition reads only the entries of the W
-split columns (``sparse_route_rows``, plain torch), and the histogram view
-rebuilds the fill-bin slots the store never holds (``fix_default``).
+(``sparse_wave_histogram``); on the coordinate store
+(``ops/sparse_store.py``, its ``sparse`` engine) from one integer segment
+sum over the entries with the W children's slot table and a drop segment
+for the rows in no slot (``sparse_wave_hists``, plain torch, as the JAX
+package sums it outside any kernel), to the same bits.  On either store
+the partition reads only the entries of the W split columns through the
+store's static window (``sparse_route_rows``, plain torch), and the
+histogram view rebuilds the fill-bin slots the store never holds
+(``fix_default``).
 """
 from __future__ import annotations
 
@@ -69,6 +75,8 @@ from .split_finder import (GAIN, LEFT_COUNT, LEFT_SUM_G, LEFT_SUM_H,
                            FeatureMeta, SplitParams)
 from .sparse_mxu import (ChunkedSparseStore, sparse_route_rows,
                          sparse_wave_histogram)
+from .sparse_store import (SparseDeviceStore, sparse_leaf_hist,
+                           sparse_wave_hists)
 from .wave_kernels import (fixed_point_exponents, route_rows_plain,
                            route_rows_rowmajor, wave_histogram,
                            wave_histogram_rowmajor, wave_partition_hist)
@@ -92,8 +100,9 @@ class Pick(NamedTuple):
 
 class WaveGrower(Grower):
     """The wave grower of one learner: its bins (X: (G, N) uint8
-    transposed, (N, G) row-major for hist_mode 'pallas', or a
-    ChunkedSparseStore), feature metadata and static sizes.
+    transposed, (N, G) row-major for hist_mode 'pallas', a
+    ChunkedSparseStore or a SparseDeviceStore), feature metadata and
+    static sizes.
 
     hist_mode 'pallas_ct' fuses the partition and the smaller children's
     histograms (B1); 'pallas_t' is the JAX package's dataflow of that
@@ -127,7 +136,9 @@ class WaveGrower(Grower):
         self.W = max(1, min(wave_width, self.L - 1))
         self.slots = self.W
         self.hist_mode = hist_mode
-        self.sparse = isinstance(X, ChunkedSparseStore)
+        self.sparse = isinstance(X, (ChunkedSparseStore, SparseDeviceStore))
+        # the coordinate store: plain torch segment sums, no kernel
+        self.coord = isinstance(X, SparseDeviceStore)
         self.packed_cols = 0 if self.sparse else int(packed_cols)
         self.engine = hist_mode in ENGINE_MODES and not self.sparse
         self.rowmajor = hist_mode == "pallas" or self.engine
@@ -143,6 +154,9 @@ class WaveGrower(Grower):
         """The (K, G, B, 3) histograms of the leaves ids (B3, B4 or B6),
         in the grower's precision unless hilo says otherwise."""
         hilo = self.hilo if hilo is None else hilo
+        if self.coord:
+            return sparse_wave_hists(self.X, lid, w3, ids, self.hist_bins,
+                                     self.X.num_cols, self.L, exps=exps)
         if self.sparse:
             return sparse_wave_histogram(self.X, lid, w3, ids,
                                          self.hist_bins, self.X.num_cols,
@@ -158,7 +172,11 @@ class WaveGrower(Grower):
     def _root_hists(self, st, lid, ids, w3, exps):
         """The root's histogram: the JAX package takes the dense root
         from its f32 one-hot engine, whatever the precision of the wave
-        kernels, and the sparse root from the sparse kernel in it."""
+        kernels, the entry-chunk store's root from the sparse kernel in
+        it, and the coordinate store's from ``leaf_histogram_sparse``."""
+        if self.coord:
+            return sparse_leaf_hist(self.X, lid, w3, ids, self.hist_bins,
+                                    self.X.num_cols, exps)[None]
         return self._child_hists(st, lid, ids, w3, exps,
                                  hilo=self.hilo if self.sparse else True)
 
@@ -329,7 +347,7 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     wave.  X: (G, N) uint8 or uint16 transposed bins, (N, G) row-major
     bins for hist_mode 'pallas', 'onehot' and 'scatter' (with
     packed_cols > 0, 4-bit packed: ceil(G / 2) stored columns), or a
-    ChunkedSparseStore; grad/hess/row_mult: (N,) in dtype (float32, or
+    sparse store; grad/hess/row_mult: (N,) in dtype (float32, or
     float64 under tpu_use_dp); hilo=False: the single bf16 product.
     Returns (TreeArrays, leaf_id (N,) int32, GrowStats).
 

@@ -40,8 +40,8 @@ apart may be one, and work that lands on a stream another thread is
 capturing joins that capture.  No training stream comes from the
 high-priority pool.  Graphs are captured after a warm-up run, with
 ``capture_error_mode="thread_local"`` and under the process's capture
-lock (``device.CAPTURE_LOCK``, which the fused iteration's captures
-take too), so another thread's CUDA work (a training run, a bulk
+lock with the garbage collector paused (``device.capture_guard``, which
+the fused iteration's captures take too), so another thread's CUDA work (a training run, a bulk
 predict) neither breaks a capture nor is broken by it; a cache's graphs
 share one memory pool.  A capture or a replay that fails raises: it
 never falls back to the host.
@@ -54,7 +54,7 @@ import time
 import numpy as np
 import torch
 
-from ..device import CAPTURE_LOCK, resolve_device
+from ..device import capture_guard, resolve_device
 from ..obs.events import NULL_OBSERVER
 from ..obs.metrics import REGISTRY
 from ..ops import predict as dev_predict
@@ -84,13 +84,6 @@ def _fused_conversion(objective):
     return "host"
 
 
-def null_observer(observer):
-    """NULL_OBSERVER for None; any other observer raises: the port has
-    no run observer (timeline, compile events, flight records) yet."""
-    if observer is None or observer is NULL_OBSERVER:
-        return NULL_OBSERVER
-    raise LightGBMError("a serving observer (timeline events, flight "
-                        "records) is not in lightgbm_tpu_torch yet")
 
 
 _SERVING_STREAMS = {}                 # card index -> (stream, lock)
@@ -151,7 +144,7 @@ class _BucketProgram:
             bucket_scores(trees, self.V, self.D, conv)       # warm-up run
             stream.synchronize()
             graph = torch.cuda.CUDAGraph()
-            with CAPTURE_LOCK:
+            with capture_guard():
                 graph.capture_begin(pool=pool,
                                     capture_error_mode="thread_local")
                 try:
@@ -203,7 +196,7 @@ class PredictExecutableCache:
                  devices=None, donate: str = "auto", bucket_min: int = 64,
                  max_batch: int = 8192, observer=None):
         gbdt._materialize()
-        self.observer = null_observer(observer)
+        self.observer = observer if observer is not None else NULL_OBSERVER
         if devices:
             devices = list(devices)
             if len(devices) > 1:
@@ -288,6 +281,10 @@ class PredictExecutableCache:
         REGISTRY.histogram(
             "lgbm_serve_compile_seconds",
             "build (graph capture) time per serving program").observe(dt)
+        # a capture is the port's compile (obs/compile.py); the traversal
+        # is plain torch, so it records no kernel launch and no cost
+        self.observer.capture(entry, (self.rp.dev, prog.V, prog.D),
+                              names=("trees", "V", "D"), seconds=dt)
         Log.debug("serve: built %s in %.3fs on %s", entry, dt, self.device)
         if self._warm_compiles is not None:
             Log.warning("serve: steady-state build of %s — warm the "

@@ -458,8 +458,11 @@ class ServingPredictor:
     Output shapes match ``Booster.predict``: 1-D for single-output
     models, (n, k) for multiclass, (n, num_features + 1) for contrib.
     ``stats()["routes"]`` counts the requests each route admitted.
-    Drift monitoring (``drift_every`` > 0) and a run observer are not in
-    the port yet and raise.
+    With a run observer the programs' captures, the sampled batches and
+    requests, the SLO snapshots and the close-time ``serve_summary``
+    land on its timeline; with ``drift_every`` > 0 and a model that
+    carries a training-time fingerprint a ``DriftMonitor``
+    (obs/drift.py) bins the submitted rows and the scores.
     """
 
     def __init__(self, gbdt, num_iteration: int = -1, num_features=None,
@@ -470,34 +473,61 @@ class ServingPredictor:
                  request_event_every: int = 0, slo_p99_ms: float = 0.0,
                  slo_qps: float = 0.0, slo_window_s: float = 60.0,
                  slo_every_s: float = 10.0, slo_mode: str = "warn",
-                 fault_hook=None, drift_every: int = 0):
-        from .executable import PredictExecutableCache, null_observer
-        if int(drift_every or 0) > 0:
-            raise LightGBMError("drift monitoring (obs_drift_every=%d) is "
-                                "not in lightgbm_tpu_torch yet"
-                                % int(drift_every))
+                 fault_hook=None, drift_every: int = 0,
+                 drift_window: int = 8192, drift_psi: float = 0.2,
+                 drift_topk: int = 10, drift_min_labels: int = 100,
+                 drift_fingerprint=None, drift_mode: str = None):
+        from .executable import PredictExecutableCache
         self.gbdt = gbdt
         self.num_iteration = int(num_iteration)
-        self.observer = null_observer(observer)
+        self.observer = observer if observer is not None else NULL_OBSERVER
+        self._summary_done = False
         self.cache = None
         try:
             self.cache = PredictExecutableCache(
                 gbdt, num_iteration=num_iteration,
                 num_features=num_features, devices=devices, donate=donate,
-                bucket_min=bucket_min, max_batch=max_batch)
+                bucket_min=bucket_min, max_batch=max_batch,
+                observer=self.observer)
         except ValueError as e:
             Log.warning("serve: device programs unavailable (%s); "
                         "serving from the host predictor", e)
         self._host_predictors = {}
         self._host_lock = threading.Lock()
         self._route_counts = {}
-        # SLO engine only when it has targets to verdict or page on: the
+        # SLO engine only when it has something to do: targets to
+        # verdict or page on, or an observer to snapshot into; the
         # default predictor keeps its hot path unchanged
         self.slo = None
-        if float(slo_p99_ms or 0) > 0 or float(slo_qps or 0) > 0:
+        if (float(slo_p99_ms or 0) > 0 or float(slo_qps or 0) > 0
+                or (self.observer.enabled and float(slo_every_s or 0) > 0)):
             self.slo = SloEngine(
                 observer=self.observer, mode=slo_mode, p99_ms=slo_p99_ms,
                 qps=slo_qps, window_s=slo_window_s, every_s=slo_every_s)
+        # drift monitor only when asked for and the model carries a
+        # training-time fingerprint to compare against (obs/drift.py);
+        # absent, the hot path is unchanged
+        self.drift = None
+        if int(drift_every or 0) > 0:
+            fp = (drift_fingerprint if drift_fingerprint is not None
+                  else gbdt.drift_fingerprint())
+            if fp is None:
+                Log.warning("serve: obs_drift_every=%d but the model "
+                            "has no drift fingerprint (trained before "
+                            "schema 14, or obs_drift_fingerprint=false)"
+                            "; drift monitoring disabled",
+                            int(drift_every))
+            else:
+                from ..obs.drift import DriftMonitor
+                mon = DriftMonitor(
+                    fp, observer=self.observer,
+                    mode=(drift_mode if drift_mode is not None
+                          else slo_mode),
+                    every_rows=drift_every, window_rows=drift_window,
+                    psi_threshold=drift_psi, topk=drift_topk,
+                    min_labels=drift_min_labels)
+                if mon.enabled:
+                    self.drift = mon
         self.scheduler = MicrobatchScheduler(
             self._run_route, max_batch=max_batch,
             max_delay_ms=max_delay_ms, observer=self.observer,
@@ -506,6 +536,17 @@ class ServingPredictor:
             default_deadline_s=max(0.0, float(request_deadline_ms)) / 1e3,
             slo=self.slo, request_event_every=request_event_every,
             fault_hook=fault_hook)
+        # the SLO and drift headlines ride into flight records and the
+        # live /statusz plane (obs/live.py) through the provider
+        # registry the scheduler's queue state uses
+        self._slo_flight = None
+        if self.slo is not None:
+            self._slo_flight = lambda: {"slo": self.slo.headline()}
+            self.observer.add_flight_provider(self._slo_flight)
+        self._drift_flight = None
+        if self.drift is not None:
+            self._drift_flight = lambda: {"drift": self.drift.headline()}
+            self.observer.add_flight_provider(self._drift_flight)
 
     # -------------------------------------------------------------- routes
     def _bucket_of(self, route, rows):
@@ -567,18 +608,26 @@ class ServingPredictor:
                pred_contrib: bool = False, pred_early_stop: bool = False,
                pred_early_stop_freq: int = 10,
                pred_early_stop_margin: float = 10.0,
-               deadline_ms=None) -> Future:
+               deadline_ms=None, ids=None) -> Future:
         """Enqueue one request; the future resolves to the same array
         ``Booster.predict`` would return for these rows.
 
         ``deadline_ms`` overrides the predictor-wide
         ``serve_request_deadline_ms`` for this request; when the queue's
         projected wait already exceeds it the future fails fast with
-        ``ServeOverloadError`` instead of queueing doomed work."""
+        ``ServeOverloadError`` instead of queueing doomed work.
+
+        ``ids``: optional per-row request ids; with drift monitoring on
+        they key this request's predictions for the delayed-label
+        channel (``record_outcome``)."""
         X = np.asarray(features, np.float64)
         if X.ndim == 1:
             X = X.reshape(1, -1)
         X = np.ascontiguousarray(X)
+        # the drift monitor reads the host array already held: binned
+        # with the frozen training mappers, no device work, no fences
+        if self.drift is not None:
+            self.drift.observe_features(X)
         route = self._route_for(raw_score, pred_contrib, pred_early_stop,
                                 pred_early_stop_freq,
                                 pred_early_stop_margin, X.shape[1])
@@ -596,7 +645,31 @@ class ServingPredictor:
             with self._host_lock:
                 self._route_counts[route[0]] = \
                     self._route_counts.get(route[0], 0) + 1
+        if self.drift is not None and not pred_contrib:
+            raw = bool(raw_score)
+
+            def _capture(f, raw=raw, ids=ids):
+                if f.cancelled() or f.exception() is not None:
+                    return
+                try:
+                    out = f.result()
+                    self.drift.observe_scores(out, raw=raw)
+                    if ids is not None:
+                        self.drift.note_predictions(ids, out, raw=raw)
+                except Exception as e:   # monitoring never fails a request
+                    Log.warning("drift: score capture failed: %s", e)
+            fut.add_done_callback(_capture)
         return fut
+
+    def record_outcome(self, ids, labels) -> int:
+        """The delayed-label channel: join ground-truth labels with the
+        predictions earlier ``submit(..., ids=...)`` calls recorded, so
+        the drift monitor tracks rolling online AUC/logloss against the
+        training-time reference.  Returns how many ids joined; 0 with
+        drift monitoring off."""
+        if self.drift is None:
+            return 0
+        return self.drift.record_outcome(ids, labels)
 
     def predict(self, features, **kw) -> np.ndarray:
         """Synchronous convenience: submit + wait."""
@@ -620,13 +693,27 @@ class ServingPredictor:
             out["executables"] = self.cache.stats()
         if self.slo is not None:
             out["slo"] = self.slo.summary()
+        if self.drift is not None:
+            out["drift"] = self.drift.summary()
         return out
 
     def close(self):
-        """Stop the worker after the queue drains, leave the close-time
-        watermark in the metrics registry and a final SLO snapshot.
-        Idempotent."""
+        """Stop the worker after the queue drains, then leave the
+        lifetime record: a ``serve_summary`` event (the run_end of a
+        serving session), a final SLO snapshot and the close-time
+        watermark in the metrics registry.  Idempotent."""
         self.scheduler.close()
+        if self._slo_flight is not None:
+            self.observer.remove_flight_provider(self._slo_flight)
+            self._slo_flight = None
+        if self._drift_flight is not None:
+            self.observer.remove_flight_provider(self._drift_flight)
+            self._drift_flight = None
+        if self._summary_done:
+            return
+        self._summary_done = True
+        if self.drift is not None:
+            self.drift.close()
         st = self.stats()
         REGISTRY.gauge(
             "lgbm_serve_max_queue_depth",
@@ -634,6 +721,18 @@ class ServingPredictor:
                 st["max_queue_depth"])
         if self.slo is not None:
             self.slo.close()
+        obs = self.observer
+        if obs.enabled:
+            rec = {"batches": st["batches"], "rows": st["rows"],
+                   "pad_rows": st["pad_rows"],
+                   "max_queue_depth": st["max_queue_depth"],
+                   "requests": st["requests"],
+                   "shed": st["shed"], "shed_total": st["shed_total"]}
+            for key in ("executables", "slo", "drift"):
+                if key in st:
+                    rec[key] = st[key]
+            obs.event("serve_summary", **rec)
+            obs.flush()
 
     def __enter__(self):
         return self

@@ -357,7 +357,8 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu(work):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["obs", "roofline", "x"], "ROADMAP: observability"),
+    # per-rank shards come with the distributed learners
+    (["obs", "stragglers", "x"], "ROADMAP A10"),
     (["lint"], "static analysis"),
     # one torch.profiler at a time: the whole-run trace and the window
     (["task=train", "data=binary.train", "tpu_profile_dir=prof",

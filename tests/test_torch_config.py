@@ -29,7 +29,6 @@ def test_keys_aliases_and_values_match_the_jax_package():
 
 
 @pytest.mark.parametrize("knob,value,name", [
-    ("tpu_sparse", True, "tpu_sparse"),
     ("tree_learner", "data", "tree_learner"),
     # ported since, but this data has no queries: the error names them
     ("objective", "lambdarank", "objective=lambdarank"),
@@ -52,13 +51,16 @@ def test_engines_the_port_lacks_raise(knob, value, name):
     ("tpu_bin_pack", "true", "packed_cols", 0),
     # float64 histograms, split search and trees (the kernels' f64 form)
     ("tpu_use_dp", True, "dtype", torch.float64),
+    # tpu_sparse alone: the coordinate sparse store (ops/sparse_store.py)
+    ("tpu_sparse", True, "hist_mode", "sparse"),
 ])
 def test_engine_knobs_the_port_now_takes(knob, value, attr, want, capsys):
     """Knobs whose kernels the port has since gained resolve as the JAX
     package resolves them instead of raising: compaction under wave
     growth on a transposed kernel, the single bf16 product, and 4-bit
     packing (with the JAX package's warning where a forced true cannot
-    be honoured)."""
+    be honoured), and the coordinate sparse store under tpu_sparse
+    alone."""
     rng = np.random.default_rng(0)
     X = rng.normal(size=(200, 4))
     y = (X[:, 0] > 0).astype(float)

@@ -2265,3 +2265,103 @@ def test_engines_wide_bins_and_f64_fused_equal_staged(dev, more):
                               tpu_score_update="auto"),
                          lgb.Dataset(X, label=y), 3, device="cuda")
         assert base.model_to_string() == texts[0]
+
+
+# ------------------------------------------------- the coordinate store
+def _coord_case(dev, dtype=torch.float32):
+    from lightgbm_tpu_torch.ops import sparse_store as ss
+    X, fill, lid, w3 = sparse_case()
+    store, _, _ = ss.build_sparse_store(X, fill, 14, device=dev)
+    cpu, _, _ = ss.build_sparse_store(X, fill, 14)
+    w = torch.as_tensor(w3).to(dtype)
+    return ss, store, cpu, torch.as_tensor(lid), w, X.shape[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_coord_store_histograms_on_the_card_equal_the_cpu_fixed_point(
+        dev, dtype):
+    """The coordinate store's slot and leaf histograms on the card (the
+    tree's fixed point: an integer index_add_, order-free) equal the same
+    fixed point computed on the CPU to the bit, f32 and float64 weights,
+    and two calls on the card are bit-identical."""
+    ss, store, cpu, lid, w3, f = _coord_case(dev, dtype)
+    cid = torch.tensor([2, 10, -1, 5, 2, 11], dtype=torch.int32)
+    want = ss.sparse_wave_hists(cpu, lid, w3, cid, 14, f, 12, fixed=True)
+    got = ss.sparse_wave_hists(store, lid.to(dev), w3.to(dev), cid.to(dev),
+                               14, f, 12)
+    again = ss.sparse_wave_hists(store, lid.to(dev), w3.to(dev),
+                                 cid.to(dev), 14, f, 12)
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+    leaf = ss.sparse_leaf_hist(store, lid.to(dev), w3.to(dev), 5, 14, f)
+    assert torch.equal(leaf.cpu(), want[3])
+    for j in (0, 3, f - 1):
+        assert torch.equal(ss.sparse_split_column(store, j, lid.shape[0])
+                           .cpu(), ss.sparse_split_column(cpu, j,
+                                                          lid.shape[0]))
+
+
+def _bosch_rows(n, seed=7, cols=968, density=0.01):
+    """The Bosch-shaped recipe (tools/tpu_ab2.py:51-57) at n rows, as
+    CSR."""
+    import scipy.sparse as sps
+    rng = np.random.default_rng(seed)
+    nnz = int(n * cols * density)
+    X = sps.csr_matrix((rng.normal(size=nnz),
+                        (rng.integers(0, n, nnz), rng.integers(0, cols,
+                                                               nnz))),
+                       shape=(n, cols))
+    X.sum_duplicates()
+    y = (X[:, 0].toarray()[:, 0] + X[:, 1].toarray()[:, 0] > 0.02) * 1.0
+    return X, y
+
+
+@pytest.mark.parametrize("growth", ["wave", "exact"])
+def test_coord_store_fused_equals_staged_on_bosch_rows(dev, growth):
+    """100,000 Bosch-shaped rows through the coordinate store on the
+    card: fused and staged train one model text; no kernel but B2
+    launches; wave growth's text is the entry-chunk store's (B6's sums are
+    the same fixed point)."""
+    import lightgbm_tpu_torch as lgb
+    X, y = _bosch_rows(100_000)
+    p = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
+         "min_data_in_leaf": 1, "verbose": -1, "tpu_sparse": True,
+         "tpu_growth": growth, "tpu_wave_width": 32}
+    ds = lgb.Dataset(X, label=y, params=p).construct()
+    n0 = (sm.sparse_wave_histogram.launches, wk.wave_partition_hist.launches,
+          lh.leaf_histogram.launches)
+    fused = lgb.train(p, ds, 3, device="cuda")
+    staged = lgb.train(dict(p, tpu_fused_iter="off"), ds, 3, device="cuda")
+    assert fused._gbdt.learner.hist_mode == "sparse"
+    assert fused._gbdt._fused_state[0] is not None
+    assert fused.model_to_string() == staged.model_to_string()
+    assert n0 == (sm.sparse_wave_histogram.launches,
+                  wk.wave_partition_hist.launches,
+                  lh.leaf_histogram.launches)
+    if growth == "wave":
+        chunked = lgb.train(dict(p, tpu_sparse_kernel=True), ds, 3,
+                            device="cuda")
+        assert chunked.model_to_string() == fused.model_to_string()
+
+
+def test_graph_capture_lands_as_a_compile_attr_event(dev):
+    """Under obs_compile a fused run's tree, tail and score graph
+    captures land as compile and compile_attr events with the tensors'
+    signature on the card and the cost of the launches they recorded;
+    the score graph's entry is timed as fused_iter."""
+    import lightgbm_tpu_torch as lgb
+    X, y = parity_data(0, 4000, False)
+    p = dict(parity_params("binary", {}), tpu_growth="wave",
+             tpu_wave_width=4, obs_compile=True, obs_prof_hz=0)
+    b = lgb.train(p, lgb.Dataset(X, label=labels("binary", y)), 3,
+                  device="cuda")
+    events = b.telemetry()
+    attrs = {e["entry"]: e for e in events if e["ev"] == "compile_attr"}
+    assert {"fused_iter.tree", "fused_iter.tail", "fused_iter.score"} <= \
+        set(attrs)
+    tree = attrs["fused_iter.tree"]
+    assert tree["sig_compiles"] == 1
+    assert tree["sig"]["score"].endswith("@cuda:0")
+    assert tree["cost"]["bytes_accessed"] > 0
+    assert {e["entry"] for e in events if e["ev"] == "compile"} >= {
+        "fused_iter.tree", "fused_iter.score"}
+    assert events[-1]["compile_attr"]["fused_iter.tree"]["compiles"] == 1

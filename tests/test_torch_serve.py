@@ -392,17 +392,38 @@ def test_booster_serve_reads_config_params():
         assert sp.scheduler.max_batch == 64
 
 
-@pytest.mark.parametrize("params,kw,match", [
-    ({"obs_drift_every": 100}, {}, "drift"),
-    ({"obs_http_port": 0}, {}, "telemetry"),
-    ({}, {"observer": object()}, "observer")])
-def test_booster_serve_refuses_what_the_port_lacks(trained, params, kw,
-                                                   match):
-    bst, _ = trained
-    loaded = lgb.Booster(params, model_str=bst.model_to_string(),
-                         device="cpu")
-    with pytest.raises(lgb.LightGBMError, match=match):
-        loaded.serve(**kw)
+@pytest.mark.parametrize("params", [
+    {"obs_drift_every": 100}, {"obs_http_port": 0}, {"obs_compile": True}])
+def test_booster_serve_takes_drift_the_live_plane_and_an_observer(
+        trained, params):
+    """A model serves with the run observer that obs_* params build:
+    drift monitoring from its training data's fingerprint, the live
+    plane on an ephemeral port (read back, not assumed), and the serving
+    summary on the timeline."""
+    from lightgbm_tpu_torch.obs import observer_from_config
+    from lightgbm_tpu_torch.utils.config import Config
+    bst, X = trained
+    assert bst._gbdt.drift_fingerprint() is not None
+    obs = observer_from_config(Config(params))
+    assert obs.enabled
+    over = {"drift_every": params.get("obs_drift_every", 0)}
+    if "obs_http_port" in params:
+        obs.ensure_live_server(0)
+    with bst.serve(observer=obs, **over) as sp:
+        got = sp.predict(X[:300])
+        if "obs_drift_every" in params:
+            assert sp.drift is not None and sp.drift.enabled
+        if "obs_http_port" in params:
+            url = obs.live_url
+            assert url.startswith("http://127.0.0.1:")
+            assert not url.endswith(":0")
+    np.testing.assert_allclose(got, bst.predict(X[:300]), rtol=2e-6,
+                               atol=1e-7)
+    names = [e["ev"] for e in obs.timeline]
+    assert "serve_summary" in names
+    if "obs_drift_every" in params:
+        assert "drift" in names
+    obs.close()
 
 
 def test_serve_host_fallback_on_unencodable_model(trained, monkeypatch,

@@ -163,7 +163,9 @@ def _train(params, n=300):
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"tpu_sparse": True}, "tpu_sparse_kernel"),
+    # tpu_sparse alone trains on the coordinate store
+    # (tests/test_torch_coord_store.py); kernel B6 sums f32 weights only
+    ({**SPARSE, "tpu_use_dp": True}, "tpu_sparse_kernel"),
     ({**SPARSE, "tpu_growth": "exact"}, "wave growth"),
     ({**SPARSE, "tpu_histogram_mode": "pallas_ct"}, "dense-only"),
     ({**SPARSE, "tpu_histogram_mode": "pallas_t"}, "dense-only"),
