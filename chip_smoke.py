@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--rows 2000000] [--sparse-rows 1000000] [--profile]
+    python3 chip_smoke.py [--rows 2000000] [--sparse-rows 500000] [--profile]
                           [--sweep] [--seed 0]
 
 It builds the port's CUDA kernels from lightgbm_tpu_torch/csrc, holds each
@@ -18,8 +18,9 @@ then drives the file path (``python -m lightgbm_tpu_torch`` on TSV
 files, the host library), the Python API (the python-guide examples,
 lambdarank at MSLR-WEB10K's shape, custom objectives, pickling, cv and
 the scikit-learn estimators), out-of-core ingest (two-round streaming, a
-pre-binned directory paged to the card) and the LGBM_* C ABI, and checks
-what comes out.
+pre-binned directory paged to the card), the LGBM_* C ABI and distributed
+training (two rank processes on the card over gloo), and checks what
+comes out.
 Any failed check ends the run with a non-zero exit code and no result
 line.  Without a CUDA device it exits non-zero at once.
 
@@ -94,7 +95,8 @@ Phases, in order:
     Early stopping is held on the valid binary_logloss; where it stops
     on the flagship's AUC is printed.
  5. Sparse: tools/tpu_ab2.py's Bosch-shaped data (968 columns, 1% dense,
-    built directly as CSR), binned sparsely, in the entry-chunk store.
+    built directly as CSR; --sparse-rows rows, 500,000 by default, half
+    of Bosch's), binned sparsely, in the entry-chunk store.
     Kernel B6 against its plain version in float64 at K = 32 on a
     grower-like leaf state and at the root's one slot (phase 2's
     tolerance, fill and inactive slots exactly 0, repeats and another
@@ -125,8 +127,9 @@ Phases, in order:
     prints rows a second of both bulk paths with the encode and device
     split, p50/p99 latency, requests and rows a second, batches, pad
     rows and the graphs' memory.
- 8. The file path on phase 7's data (200,000 x 28 training rows, 200,000
-    fresh rows with their labels) at the flagship's params: both written
+ 8. The file path on phase 7's data (its first FILE_ROWS = 100,000 x 28
+    training rows and 100,000 fresh rows with their labels) at the
+    flagship's params: both written
     as TSV (%.17g), ``python -m lightgbm_tpu_torch task=train`` in a
     subprocess on the card (5 iterations, model text equal to an
     in-process ``train`` on the same arrays, to the byte),
@@ -145,7 +148,8 @@ Phases, in order:
     there once; examples/ is not edited), run at once in four processes
     on the default device: each must exit 0 with output; their seconds.
     9b: lambdarank at MSLR-WEB10K's published shape, synthetic from
-    --seed: 10,000 queries of lognormal length (mean 120, clipped to
+    --seed: 5,000 queries (half of MSLR's 10,000, a cut in rows that
+    keeps the script in its time) of lognormal length (mean 120, clipped to
     1-1,000), 136 features, labels 0-4 at about MSLR's skew cut from a
     hidden linear score plus noise (shares printed), 2,000 more queries
     as the valid set; examples/lambdarank/train.conf's params (31 leaves,
@@ -215,9 +219,10 @@ Phases, in order:
     DatasetPushRows: train's model text, predictions within 2e-6 of
     Booster.predict.
 13. (run after phase 10) Two-byte bins, the f64 form and the XLA
-    engines (wide_phase).  13a-c: the uint16 forms of B1, B3, B4 and B5
-    at F = 28, B = 1023, K = 32 on the flagship rows binned at max_bin
-    1023, and their f64 forms at B = 63 with float64 weights, each
+    engines (wide_phase), on the first CUT_ROWS of the flagship rows.
+    13a-c: the uint16 forms of B1, B3, B4 and B5 at F = 28, B = 1023,
+    K = 32 on those rows binned at max_bin 1023, and their f64 forms at
+    B = 63 with float64 weights, each
     against its plain version in float64 (the f64 forms within 1e-12 x
     the cell's sum of |w| + 1e-14 x max|w|), repeats bit-identical, B3 =
     B1, B4 = B3 and B5 = B4's slot to the bit with B1's exponents, and
@@ -253,6 +258,28 @@ Phases, in order:
     monitoring and the live plane: p50 and p99 of each, no capture
     after warm-up, in-distribution traffic raises no drift alert and a
     shifted feature raises one.
+15. Distributed training (lightgbm_tpu_torch/parallel).  15a (inside
+    phase 2): the deferred-finish forms of B1, B3, B4 and B5 over the two
+    halves of the rows (the other half's leaf ids -1), their int64 sums
+    added and converted by the finish alone (wave_kernels.finish_hist),
+    bit-equal to one launch over the union; each form and the finish
+    timed as in phase 3.  15b (after 4d): two rank processes started by
+    parallel/launch.py on the one card over gloo, the flagship at full
+    width, rank r the r-th contiguous half of phase 4's rows through
+    from_matrix(comm=), 5 iterations staged with the valid rows split
+    alike: byte-equal texts on the ranks; B1, B3 (their deferred forms),
+    the finish and B2 launched on every rank; the AUC of rank 0's model
+    on all the valid rows within 2e-4 of a serial run on the same bins
+    (rank 0's mappers, saved with its Dataset, binning all the rows:
+    the distributed bin finding bins otherwise than phase 4, whose AUC
+    gap is printed for both runs); steady it/s a rank, the collectives'
+    time a pass and bytes a tree, the trees that split as the serial
+    run's.  15c: 200,000 of the rows: feature-parallel (every rank all
+    rows) byte-equal to serial exact growth; voting with top_k 28 and
+    data-parallel exact growth (B5's deferred form), 2 trees each,
+    splitting as serial exact growth, and voting with top_k 5 a 255-leaf
+    tree of train AUC > 0.8, on the ranks' halves of a directory saved
+    from the serial Dataset (from_binned(comm=)).
  With --profile, every training run of phases 4 and 5 and the
  multiclass run profile one more iteration: its wall time, device busy
  share, device operations and graph replays; phase 7 profiles one
@@ -303,7 +330,8 @@ SERVE_THREADS = 8
 SERVE_SIZES = (1, 8, 32, 100, 256, 512, 1024)
 SERVE_MAX_BATCH = 4096
 # phase 9: the python-guide examples, and ranking at MSLR-WEB10K's
-# published shape (10,000 queries, 136 features) with
+# published width (136 features) on 5,000 of its 10,000 queries (cut in
+# rows to keep the script in its time) with
 # examples/lambdarank/train.conf's params
 GUIDE_EXAMPLES = ("simple_example", "advanced_example", "plot_example",
                   "sklearn_example")
@@ -311,7 +339,7 @@ GUIDE_IMPORT = "import lightgbm_tpu as lgb"
 GUIDE_TMP = "/tmp/"
 # the examples that write files under GUIDE_TMP (and read them back)
 GUIDE_WRITES_TMP = ("simple_example", "advanced_example", "plot_example")
-RANK_QUERIES = 10_000
+RANK_QUERIES = 5_000
 RANK_VALID_QUERIES = 2_000
 RANK_FEATURES = 136
 RANK_MEAN_DOCS = 120
@@ -319,6 +347,11 @@ RANK_MAX_DOCS = 1000
 # label shares 0..4, about MSLR-WEB10K's skew
 RANK_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)
 CV_ROWS = 100_000
+# cuts in rows that keep the script in its time: the flagship rows of the
+# max_bin 1023 runs (13d) and of the multiclass run (4e), and the rows of
+# phase 7's training and fresh data that phase 8 writes as files
+CUT_ROWS = 1_000_000
+FILE_ROWS = 100_000
 
 
 def flagship_params():
@@ -373,6 +406,12 @@ def make_data(n_rows, n_features=28):
         chunks.append(X)
         ys.append((logit > 0).astype(np.float32))
     return np.concatenate(chunks), np.concatenate(ys).astype(np.float64)
+
+
+def without_fp(text):
+    """A model text without its drift_fingerprint= line."""
+    return "".join(ln for ln in text.splitlines(keepends=True)
+                   if not ln.startswith("drift_fingerprint="))
 
 
 def need(ok, what):
@@ -1152,7 +1191,10 @@ def sparse_phase(args, lgb, sm, kernels, card):
     check_wave_launches("sparse-bf16-staged", staged, st_launches,
                         staged.grow_stats(), "sparse_wave_histogram")
     need(fused_of(staged) is None, "sparse-bf16-staged: ran fused")
-    need(staged.model_to_string() == bf.model_to_string(),
+    # the fused run evaluated a valid set and the staged one none: their
+    # drift_fingerprint= lines' eval snapshots differ, the rest must not
+    need(without_fp(staged.model_to_string())
+         == without_fp(bf.model_to_string()),
          "sparse-bf16: fused and staged model texts differ")
     del staged
     small_sparse_run_matches(lgb, bf16=True)
@@ -1683,7 +1725,8 @@ def check_scores_follow_trees(label, booster, Xt_raw, Xv, k=1):
 
 
 def multiclass_phase(args, lgb, kernels, card, ds, Xt_raw, Xv):
-    """Softmax with 7 classes on the flagship features at --rows, staged:
+    """Softmax with 7 classes on the flagship features (the first
+    CUT_ROWS of --rows), staged:
     35 trees through B3, B1 and B2 (B2 into row tid of the (7, N)
     score); multi_logloss falls every iteration; the model text reloads
     through convert.booster_from_model_string and predicts the same
@@ -1692,6 +1735,7 @@ def multiclass_phase(args, lgb, kernels, card, ds, Xt_raw, Xv):
     import torch
     from lightgbm_tpu_torch.convert import booster_from_model_string
     t0 = time.perf_counter()
+    Xt_raw = Xt_raw[:CUT_ROWS]
     y, yv = multiclass_labels(Xt_raw, Xv)
     dm = lgb.Dataset(Xt_raw, label=y, reference=ds)
     dmv = dm.create_valid(Xv, label=yv)
@@ -2148,10 +2192,10 @@ def cli_args(params, **more):
 
 
 def file_phase(lgb, kernels, card, data):
-    """Phase 8: the file path on the card, on phase 7's data (200,000 x 28
-    training rows of bench_serve.py's recipe and 200,000 fresh rows with
-    their labels) at the flagship's params (binary, 255 leaves, max_bin
-    63, wave growth, W = 32, fused under auto).
+    """Phase 8: the file path on the card, on phase 7's data (the first
+    FILE_ROWS x 28 training rows of bench_serve.py's recipe and as many
+    fresh rows with their labels) at the flagship's params (binary, 255
+    leaves, max_bin 63, wave growth, W = 32, fused under auto).
 
     8a the rows written as TSV (label first, %.17g); 8b ``python -m
     lightgbm_tpu_torch task=train`` (5 iterations, the fresh rows as valid
@@ -2181,6 +2225,7 @@ def file_phase(lgb, kernels, card, data):
     from lightgbm_tpu_torch.ops import predict as tp
     t_phase = time.perf_counter()
     X, y, Xf, yf, serve_model = data
+    X, y, Xf, yf = X[:FILE_ROWS], y[:FILE_ROWS], Xf[:FILE_ROWS], yf[:FILE_ROWS]
     params = flagship_params()
     total = {name: 0 for name in kernels}
 
@@ -2229,14 +2274,21 @@ def file_phase(lgb, kernels, card, data):
         need(fused_of(booster) is not None, "8b: train did not run fused")
         # the CLI writes GBDT's model text, as the JAX package's CLI does;
         # model_to_string adds the Python API's pandas_categorical line
-        need(booster._gbdt.save_model_to_string() == text,
+        # both carry a drift_fingerprint= line, each its own: the CLI's
+        # samples parsed text and names its valid set valid_1, train's
+        # valid_0 (as in the JAX package); the rest equal to the byte
+        got = booster._gbdt.save_model_to_string()
+        need("\ndrift_fingerprint=" in got
+             and "\ndrift_fingerprint=" in text,
+             "8b: a model text lacks its drift_fingerprint= line")
+        need(without_fp(got) == without_fp(text),
              "8b: the CLI's model text differs from lightgbm_tpu_torch.train"
              "'s on the same arrays")
         say("8b on %s: python -m lightgbm_tpu_torch task=train (5 "
-            "iterations, 200,000 rows from TSV) took %.3f s in its "
+            "iterations, %d rows from TSV) took %.3f s in its "
             "subprocess; its model text equals lightgbm_tpu_torch.train's "
             "(%.3f s in-process, fused) to the byte; launches %s"
-            % (card, cli_s, train_s, got))
+            % (card, len(y), cli_s, train_s, got))
 
         # ---- 8c. binning through the host library and the fallback, on
         # the first FALLBACK_ROWS rows
@@ -2404,13 +2456,14 @@ def file_phase(lgb, kernels, card, data):
     need(total["wave_partition_hist"] > 0 and total["wave_histogram"] > 0
          and total["score_update"] > 0,
          "phase 8: a kernel of the path did not launch: %s" % total)
-    say("phase 8 seconds on %s: TSV write %.3f (2 x 200,000 rows), parse "
-        "%.3f (200,000 x 29, Python), binning %.3f native and %.3f Python "
+    say("phase 8 seconds on %s: TSV write %.3f (2 x %d rows), parse "
+        "%.3f (%d x 29, Python), binning %.3f native and %.3f Python "
         "fallback (Dataset.construct, %d x 28), training %.3f "
         "(in-process, 5 iterations); CLI train subprocess %.3f; CLI predict "
         "%.3f; host trees (predict_raw(allow_device=False), phase 7's %d "
         "trees, %d rows) %.0f rows/s native, %.0f rows/s Python"
-        % (card, write_s, parse_s, nat_s, py_s, len(Xc), train_s, cli_s,
+        % (card, write_s, len(y), parse_s, len(y), nat_s, py_s, len(Xc),
+           train_s, cli_s,
            pred_s, len(big.models), len(Xg), nat_rows, py_rows))
     say("phase 8 launches: %s" % total)
     say("phase 8 (files and the CLI): %.1f s" % (time.perf_counter()
@@ -2645,7 +2698,10 @@ def ranking_phase(lgb, kernels, card, seed):
         n_estimators=ITERS, num_leaves=31, learning_rate=0.1).fit(
             X, y, group=q))
     add(got)
-    need(rk.booster_.model_to_string() == texts["ranking"],
+    # train's run evaluated a valid set, the estimator none: their
+    # drift_fingerprint= lines' eval snapshots differ, the rest must not
+    need(without_fp(rk.booster_.model_to_string())
+         == without_fp(texts["ranking"]),
          "9d: LGBMRanker's model text differs from train's")
     say("9d LGBMRanker on %s: %d iterations (binning included) in %.1f s, "
         "launches %s; model text equal to train's"
@@ -3352,11 +3408,21 @@ def streamed_phase(args, lgb, kernels, card, data, main_text):
         up = booster._gbdt.learner.upload_stats
         need(up["paged"] and booster._gbdt.train_data._binned is None,
              "12a: the directory did not take the paged upload")
-        need(booster.model_to_string() == main_text,
+        # a streamed directory's header carries no drift fingerprint (as
+        # in the JAX package): phase 4's in-memory text has the line, the
+        # directory's not, and they are otherwise equal
+        got = booster.model_to_string()
+        need("\ndrift_fingerprint=" in main_text
+             and "drift_fingerprint=" not in got,
+             "12a: the drift_fingerprint= line is not where the JAX "
+             "package writes it")
+        need(got == without_fp(main_text),
              "12a: the directory's model text differs from phase 4's")
         say("12a paged upload on %s: %d shards, %d bytes in %.4f s (%.3f "
             "GB/s, staging %d bytes); model text equal to phase 4's fused "
-            "text to the byte; launches %s"
+            "text to the byte but for its drift_fingerprint= line (phase "
+            "4's in-memory Dataset has one, the streamed directory none); "
+            "launches %s"
             % (card, up["shards"], up["bytes"], up["seconds"],
                up["bytes"] / up["seconds"] / 1e9, up["staging_bytes"],
                launches))
@@ -3485,7 +3551,15 @@ def abi_phase(lgb, kernels, card, data):
         return ds2, train_abi(ds2)
 
     (ds2, (bst2, text2)), launches2 = counted(kernels, pushed)
-    need(text2 == text, "12c: the pushed rows' model text differs")
+    # a dataset of pushed rows is binned on its reference's mappers and
+    # carries no drift fingerprint, as in the JAX package: the line is
+    # the one difference
+    need("\ndrift_fingerprint=" in text
+         and "drift_fingerprint=" not in text2,
+         "12c: the drift_fingerprint= line is not where the JAX package "
+         "writes it")
+    need(text2 == without_fp(text),
+         "12c: the pushed rows' model text differs")
     for h in (bst, bst2):
         ok(lib.LGBM_BoosterFree(h), "BoosterFree")
     for h in (ds, ds2):
@@ -3951,7 +4025,8 @@ def wide_phase(args, lgb, kernels, card, data, main_text):
     """Phase 13: two-byte bins, the f64 form and the XLA engines.
 
     13a-c. The kernel checks and times (wide_kernel_phase).
-    13d. The flagship recipe at max_bin 1023 (uint16 bins; 28 x 1024 past
+    13d. The flagship recipe at max_bin 1023 on the first CUT_ROWS of the
+    flagship rows (uint16 bins; 28 x 1024 past
     the ct bound): auto (pallas_t, B3 every wave), pallas_ct (B1),
     pallas (B4) and exact growth (B5), each fused then staged with equal
     text, every launch of those kernels their uint16 form, valid AUC
@@ -3978,7 +4053,9 @@ def wide_phase(args, lgb, kernels, card, data, main_text):
     params = flagship_params()
     p1023 = dict(params, max_bin=1023)
     t0 = time.perf_counter()
-    ds_w = lgb.Dataset(Xt_raw, label=ds.get_label(), params=p1023).construct()
+    Xw = Xt_raw[:CUT_ROWS]
+    ds_w = lgb.Dataset(Xw, label=ds.get_label()[:CUT_ROWS],
+                       params=p1023).construct()
     dv_w = lgb.Dataset(Xv, label=yv, reference=ds_w).construct()
     td = ds_w._handle
     need(td.bundle is None and td.binned.dtype == np.uint16
@@ -3989,11 +4066,13 @@ def wide_phase(args, lgb, kernels, card, data, main_text):
                          time.perf_counter() - t0))
     t0 = time.perf_counter()
     p4 = dict(params, max_bin=16383)
-    ds4 = lgb.Dataset(Xt_raw[:, :4], params=p4).construct()
+    ds4 = lgb.Dataset(Xw[:, :4], params=p4).construct()
     say("13 data: 4 flagship columns binned at max_bin = 16383, %d bins max "
         "(%.1f s)" % (int(ds4._handle.num_bin_arr.max()),
                       time.perf_counter() - t0))
-    X_t, X63_t, X4_t = bins_t_of(ds_w), bins_t_of(ds), bins_t_of(ds4)
+    # the kernel checks at the cut's rows: the max_bin 63 bins' first ones
+    X_t, X4_t = bins_t_of(ds_w), bins_t_of(ds4)
+    X63_t = bins_t_of(ds)[:, :X_t.shape[1]].contiguous()
     records = wide_kernel_phase(
         X_t, torch.as_tensor(td.default_bin_arr), X63_t,
         torch.as_tensor(ds._handle.default_bin_arr), X4_t, wk, lh)
@@ -4001,7 +4080,7 @@ def wide_phase(args, lgb, kernels, card, data, main_text):
     torch.cuda.empty_cache()
     split_search_memory()
     torch.cuda.empty_cache()
-    data_w = (ds_w, dv_w, Xt_raw, Xv, yv)
+    data_w = (ds_w, dv_w, Xw, Xv, yv)
     paths, forms = {}, {}
 
     def run(label, p, d, kernel, updates=ITERS):
@@ -4385,8 +4464,10 @@ def observers_phase(lgb, kernels, card, data, main_text):
     need(texts["observers-on"] == texts["observers-off"],
          "14c: the observed run's model text differs from the unobserved "
          "run's")
-    first = texts["observers-off"].split("Tree=%d" % ITERS)[0]
-    need(main_text.startswith(first.rstrip("\n")),
+    # the drift_fingerprint= line carries each run's own scores (25
+    # iterations here, ITERS there): the trees are compared without it
+    first = without_fp(texts["observers-off"]).split("Tree=%d" % ITERS)[0]
+    need(without_fp(main_text).startswith(first.rstrip("\n")),
          "14c: the first %d trees differ from the main path's" % ITERS)
     need(set(scraped) == {"/healthz", "/metrics", "/statusz"}
          and all(code == 200 for code, _ in scraped.values()),
@@ -4558,12 +4639,470 @@ def serve_observer_phase(lgb, card, booster, X):
     shutil.rmtree(work, ignore_errors=True)
 
 
+# ------------------------------------------------------------- phase 15
+# 15b/15c: the rank processes' counts of every kernel wrapper, by name
+# (the deferred-finish forms apart)
+DIST_RANKS = 2
+DIST_SMALL_ROWS = 200_000
+# 15c's iterations: the feature-parallel, voting (top_k 28) and
+# data-parallel exact runs and their serial twin 2, voting with top_k 5
+# 1 (each split of exact growth makes one or two collectives, ~4 ms each
+# through gloo on one card), which keeps the phase within its time
+DIST_SMALL_ITERS = 2
+
+
+def wrapper_counts():
+    """Every launch counter of the kernel wrappers (fused_iter.COUNTERS),
+    by name: a wrapper's launches, and a form's as name_form."""
+    from lightgbm_tpu_torch.ops import fused_iter as fi
+    return {k.__name__ + ("" if form is None else "_" + form): n
+            for (k, form), n in zip(fi.COUNTERS, fi._counts())}
+
+
+def zero_counts():
+    from lightgbm_tpu_torch.ops import fused_iter as fi
+    fi._set_counts([0] * len(fi.COUNTERS), [0] * len(fi.COUNTERS))
+
+
+def dist_kernel_phase(X_t, default_bin, wk, lh):
+    """15a: the deferred-finish forms of B1, B3, B4 and B5 over two
+    disjoint row sets (the first and the second half of the rows, the
+    other half's leaf ids set to -1), their int64 sums added and
+    converted by the finish alone, bit-equal to one launch over the
+    union; then each form and the finish timed.  Returns the records."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import weight_rows
+    dev = X_t.device
+    F, N = X_t.shape
+    B, K = 63, 32
+    g = torch.Generator(device="cpu").manual_seed(15)
+    lid = torch.randint(0, K, (N,), generator=g, dtype=torch.int32)
+    w3 = torch.randn((N, 3), generator=g, dtype=torch.float32)
+    f_w = torch.randint(0, F, (K,), generator=g)
+    cols = torch.stack([
+        torch.ones(K), f_w.float(),
+        torch.randint(0, B - 1, (K,), generator=g).float(),
+        torch.zeros(K), default_bin.cpu()[f_w].float(),
+        torch.randint(0, 2, (K,), generator=g).float(),
+        torch.arange(K, 2 * K).float(), torch.zeros(K), torch.zeros(K),
+        torch.full((K,), float(B))], dim=-1).contiguous()
+    psrc = torch.arange(K, dtype=torch.int32)
+    cid = torch.where(torch.randint(0, 2, (K,), generator=g) > 0,
+                      psrc + K, psrc).to(torch.int32)
+    lid, w3, cols, psrc, cid = (t.to(dev) for t in (lid, w3, cols, psrc,
+                                                    cid))
+    exps = wk.fixed_point_exponents(w3)
+    half = torch.arange(N, device=dev) < N // 2
+    parts = [torch.where(m, lid, torch.full_like(lid, -1))
+             for m in (half, ~half)]
+    X = X_t.t().contiguous()
+    records = {}
+
+    # B1: routing and the sums; the rows of each half keep their own
+    # routed ids
+    new_u, hist_u = wk.wave_partition_hist(X_t, lid, w3, cid, cols, psrc, B,
+                                           exps=exps)
+    outs = [wk.wave_partition_hist(X_t, p, w3, cid, cols, psrc, B,
+                                   exps=exps, finish=False) for p in parts]
+    outs = [(a, s.clone()) for a, s in outs]
+    need(outs[0][1].dtype == torch.int64, "B1 deferred: sums not int64")
+    got = wk.finish_hist(outs[0][1] + outs[1][1], cid, exps)
+    need(torch.equal(got, hist_u), "15a: B1's summed halves differ from "
+         "one launch over the union")
+    need(torch.equal(torch.where(half, outs[0][0], outs[1][0]), new_u),
+         "15a: B1's routed ids of the halves differ from the union's")
+    checks = [("wave_partition_hist_deferred", None)]
+    # B3 and B4 on the routed ids, the same child ids
+    for name, fn, Xk in (("wave_histogram_deferred", wk.wave_histogram,
+                          X_t),
+                         ("wave_histogram_rowmajor_deferred",
+                          wk.wave_histogram_rowmajor, X)):
+        one = fn(Xk, new_u, w3, cid, B, exps=exps)
+        halves = [fn(Xk, torch.where(m, new_u, torch.full_like(new_u, -1)),
+                     w3, cid, B, exps=exps, finish=False).clone()
+                  for m in (half, ~half)]
+        need(torch.equal(wk.finish_hist(halves[0] + halves[1], cid, exps),
+                         one), "15a: %s halves differ from the union" % name)
+        need(torch.equal(one, hist_u), "15a: %s is not B1's histogram"
+             % name)
+        checks.append((name, fn))
+    # B5: one leaf of a 64-leaf state, the grower's weight rows
+    lid5 = torch.randint(0, 64, (N,), generator=g,
+                         dtype=torch.int32).to(dev)
+    w35 = weight_rows(torch.randn(N, generator=g).to(dev),
+                      (torch.rand(N, generator=g) + 0.05).to(dev),
+                      torch.ones(N, device=dev))
+    e5 = wk.fixed_point_exponents(w35)
+    leaf = torch.full((1,), 5, dtype=torch.int32, device=dev)
+    one5 = lh.leaf_histogram(X, None, None, lid5, leaf, None, B, w3=w35,
+                             exps=e5)
+    halves5 = [lh.leaf_histogram(
+        X, None, None, torch.where(m, lid5, torch.full_like(lid5, -1)),
+        leaf, None, B, w3=w35, exps=e5, finish=False).clone()
+        for m in (half, ~half)]
+    need(torch.equal(wk.finish_hist(halves5[0] + halves5[1], leaf, e5)[0],
+                     one5), "15a: B5's summed halves differ from the union")
+    say("15a: B1, B3, B4 and B5 deferred-finish sums of the two halves of "
+        "%d rows, added as int64 and converted by the finish alone, equal "
+        "one launch over the union to the bit (max_abs_err 0)" % N)
+
+    slot, n_act = slots_of(new_u, cid)
+    lib_ms = bincount_ms(X_t, slot, w3, B)
+    for name, fn in checks:
+        if fn is None:
+            ms = time_ms(lambda: wk.wave_partition_hist(
+                X_t, lid, w3, cid, cols, psrc, B, exps=exps, finish=False))
+            plain = time_ms(lambda: wk.wave_partition_hist_plain(
+                X_t, lid, w3, cid, cols, psrc, B))
+            nbytes = (N * (4 + 4 + 1) + n_act * (F + 12) + K * (10 * 4 + 8)
+                      + K * F * B * 3 * 8)
+        else:
+            Xk = X_t if fn is wk.wave_histogram else X
+            plainfn = (wk.wave_histogram_plain if fn is wk.wave_histogram
+                       else wk.wave_histogram_rowmajor_plain)
+            ms = time_ms(lambda: fn(Xk, new_u, w3, cid, B, exps=exps,
+                                    finish=False))
+            plain = time_ms(lambda: plainfn(Xk, new_u, w3, cid, B))
+            nbytes = N * 4 + n_act * (F + 12) + K * (4 + F * B * 3 * 8)
+        records[name] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib_ms,
+            shape="N=%d F=%d B=%d K=%d, %d rows in a child slot; the sums "
+                  "of two halves bit-equal to the union" % (N, F, B, K,
+                                                            n_act),
+            nbytes=nbytes, flops=3 * n_act * F)
+    rows5 = int((lid5 == 5).sum())
+    s5 = torch.where(lid5 == 5, 0, -1)
+    records["leaf_histogram_deferred"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: lh.leaf_histogram(X, None, None, lid5, leaf,
+                                             None, B, w3=w35, exps=e5,
+                                             finish=False)),
+        plain_ms=time_ms(lambda: wk.wave_histogram_rowmajor_plain(
+            X, lid5, w35, leaf, B)),
+        library_ms=bincount_ms(X_t, s5, w35, B),
+        shape="N=%d F=%d B=%d, one leaf of 64 (%d rows); halves bit-equal "
+              "to the union" % (N, F, B, rows5),
+        nbytes=N * 4 + rows5 * (F + 12) + F * B * 3 * 8,
+        flops=3 * rows5 * F)
+    # the finish alone: K x F x B x 3 int64 sums to f32; its plain
+    # version scales the sums in float64 and rounds to f32
+    sums = outs[0][1] + outs[1][1]
+    plain_fin = (torch.ldexp(sums.double(), -exps.double()).float())
+    fin = wk.finish_hist(sums, cid, exps)
+    records["finish_hist"] = dict(
+        max_abs_err=float((fin - plain_fin).abs().max()),
+        ms=time_ms(lambda: wk.finish_hist(sums, cid, exps)),
+        plain_ms=time_ms(lambda: torch.ldexp(sums.double(),
+                                             -exps.double()).float()),
+        library_ms=None,
+        shape="K=%d F=%d B=%d: %d int64 sums to f32" % (K, F, B,
+                                                        sums.numel()),
+        nbytes=sums.numel() * (8 + 4), flops=sums.numel())
+    need(records["finish_hist"]["max_abs_err"]
+         <= 1e-6 * float(fin.abs().max()) + 1e-12,
+         "15a: the finish differs from its plain version beyond f32 "
+         "rounding")
+    for name, r in records.items():
+        r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("flops"))
+        say("%-34s %9.4f ms  plain %9.4f ms  library %s  bound %.4f ms "
+            "(%s)  max_abs_err %g  [%s]"
+            % (name, r["ms"], r["plain_ms"],
+               "%.4f ms" % r["library_ms"] if r["library_ms"] is not None
+               else "none", r["bound_ms"], r["bound_by"], r["max_abs_err"],
+               r["shape"]))
+    return records
+
+
+def phase15_rank(comm, payload):
+    """One rank of phase 15 (parallel/launch.py runs it in a process of
+    its own on cuda:0, over gloo): each of payload's runs trains through
+    lightgbm_tpu_torch.train on this rank's Dataset, every launch counter
+    set to 0 just before and read just after (a run's ``save_dir``:
+    rank 0 saves its Dataset there first, its mappers with its rows).
+    Returns, a run, the counts, the model text (rank 0) and its digest,
+    the reduced valid metric, the steady rate and the collectives'
+    traffic."""
+    import hashlib
+    import torch
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.io.dataset import TrainingData
+    from lightgbm_tpu_torch.parallel.comm import rank_device
+    from lightgbm_tpu_torch.utils.config import Config
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    out = {"rank": comm.rank, "backend": comm.backend, "device": str(dev),
+           "runs": {}}
+    gen = int(payload["gen_rows"])
+    # phase 4's rows and valid rows, made again from their seed
+    X, y = make_data(gen + VALID_ROWS)
+    for run in payload["runs"]:
+        params, rows = run["params"], int(run["rows"])
+        feature = params.get("tree_learner") == "feature"
+        lo, hi = ((0, rows) if feature
+                  else (comm.rank * rows // comm.size,
+                        (comm.rank + 1) * rows // comm.size))
+        if run.get("binned_dir"):
+            ds = lgb.Dataset.from_binned(run["binned_dir"], params=params,
+                                         comm=comm)
+        else:
+            ds = lgb.Dataset(X[lo:hi], label=y[lo:hi], params=params)
+            ds._handle = TrainingData.from_matrix(
+                X[lo:hi], label=y[lo:hi], config=Config(dict(params)),
+                comm=comm)
+        if run.get("save_dir") and comm.rank == 0:
+            ds._handle.save_binned(run["save_dir"])
+        valid, evals = [], {}
+        if run.get("valid"):
+            vlo, vhi = (comm.rank * VALID_ROWS // comm.size,
+                        (comm.rank + 1) * VALID_ROWS // comm.size)
+            valid = [lgb.Dataset(X[gen + vlo:gen + vhi],
+                                 label=y[gen + vlo:gen + vhi],
+                                 reference=ds)]
+        stamps = []
+
+        def stamp(env):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        comm.stats.update(calls=0, bytes=0, seconds=0.0, host_seconds=0.0)
+        zero_counts()
+        t0 = time.perf_counter()
+        iters = int(run.get("iters", ITERS))
+        booster = lgb.train(params, ds, iters, valid_sets=valid or None,
+                            evals_result=evals, callbacks=[stamp],
+                            device=str(dev))
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        counts = wrapper_counts()
+        stats = list(booster.grow_stats())
+        text = booster.model_to_string()
+        waves = sum(s.passes + 1 for s in stats)
+        res = {"counts": counts,
+               "digest": hashlib.sha256(text.encode()).hexdigest(),
+               "trees": len(stats), "leaves": [s.num_leaves for s in stats],
+               "passes": [s.passes for s in stats],
+               "steady_it_s": ((len(stamps) - 1) / (stamps[-1] - stamps[0])
+                               if len(stamps) > 1 else float("nan")),
+               "train_s": t_train,
+               "collective_calls": comm.stats["calls"],
+               "collective_bytes": comm.stats["bytes"],
+               "collective_s": comm.stats["seconds"],
+               "passes_and_roots": waves,
+               "learner": type(booster._gbdt.learner).__name__,
+               "rows": int(ds._handle.num_data)}
+        if evals:
+            res["reduced_valid"] = {k: v[-1] for k, v in
+                                    evals["valid_0"].items()}
+        if comm.rank == 0:
+            res["text"] = text
+        out["runs"][run["label"]] = res
+        del booster
+        torch.cuda.empty_cache()
+    return out
+
+
+def tree_blocks(text):
+    """Each tree's {key: value} lines of a model text."""
+    trees, cur = [], None
+    for line in text.splitlines():
+        if line.startswith("Tree="):
+            cur = {}
+            trees.append(cur)
+        elif cur is not None and "=" in line:
+            k, v = line.split("=", 1)
+            cur[k] = v
+    return trees
+
+
+def compare_splits(label, text, ref):
+    """(trees whose split features and thresholds equal ref's, trees
+    compared: the fewer of the two texts'); prints the first differing
+    split's two gains."""
+    a, b = tree_blocks(text), tree_blocks(ref)
+    b = b[:len(a)]
+    same = 0
+    first = None
+    for t, (x, z) in enumerate(zip(a, b)):
+        keys = ("split_feature", "threshold")
+        if all(x.get(k) == z.get(k) for k in keys):
+            same += 1
+        elif first is None:
+            fa, fb = x.get("split_feature", "").split(), \
+                z.get("split_feature", "").split()
+            ta, tb = x.get("threshold", "").split(), \
+                z.get("threshold", "").split()
+            i = next((i for i in range(min(len(fa), len(fb)))
+                      if fa[i] != fb[i] or ta[i] != tb[i]),
+                     min(len(fa), len(fb)))
+            ga = x.get("split_gain", "").split()
+            gb = z.get("split_gain", "").split()
+            first = (t, i, ga[i] if i < len(ga) else "-",
+                     gb[i] if i < len(gb) else "-")
+    say("%s: %d of %d trees split as the serial run's%s"
+        % (label, same, len(b), "" if first is None else
+           "; first difference tree %d split %d, gain %s (%s) against %s "
+           "(serial)" % (first[0], first[1], first[2], label, first[3])))
+    return same, len(b)
+
+
+def dist_phase(args, lgb, card, data):
+    """15b and 15c: two rank processes (parallel/launch.py) on the one
+    card over gloo.  15b: the flagship at full width, rank r the r-th
+    contiguous half of phase 4's rows through from_matrix(comm=), 5
+    iterations staged, the valid rows split alike; its witness, a serial
+    run on all the rows binned with rank 0's mappers.  15c: 200,000 of
+    the rows, 2 ranks: feature-parallel (every rank all rows) against
+    serial exact growth, and voting (top_k 28, top_k 5) and
+    data-parallel exact growth on the ranks' halves of a directory saved
+    from the serial Dataset (from_binned(comm=)).  Returns the launch
+    counts by path."""
+    import shutil
+    import tempfile
+    import torch
+    from lightgbm_tpu_torch.io.dataset import TrainingData
+    from lightgbm_tpu_torch.parallel.launch import run_ranks_subprocess
+    from lightgbm_tpu_torch.utils.config import Config
+    t0 = time.perf_counter()
+    params = flagship_params()
+    _, _, _, Xv, yv = data
+    small = DIST_SMALL_ROWS
+    exact = dict(params, tpu_growth="exact", tpu_histogram_mode="pallas")
+    Xs = data[2][:small]
+    ys = np.asarray(data[0]._handle.metadata.label)[:small]
+    ds_small = lgb.Dataset(Xs, label=ys, params=exact).construct()
+    serial_exact = lgb.train(exact, ds_small,
+                             DIST_SMALL_ITERS).model_to_string()
+    work = tempfile.mkdtemp(prefix="phase15_")
+    binned = os.path.join(work, "small")
+    ds_small.save_binned(binned)
+    # rank 0's Dataset of the data-parallel run: its distributed mappers
+    rank0 = os.path.join(work, "rank0")
+    del ds_small
+    torch.cuda.empty_cache()
+    runs = [
+        {"label": "dp-2rank", "rows": args.rows, "valid": True,
+         "save_dir": rank0, "params": dict(params, tree_learner="data")},
+        {"label": "feature-2rank", "rows": small, "iters": DIST_SMALL_ITERS,
+         "params": dict(exact, tree_learner="feature")},
+        {"label": "voting-2rank", "rows": small, "binned_dir": binned,
+         "iters": DIST_SMALL_ITERS,
+         "params": dict(exact, tree_learner="voting", top_k=28)},
+        {"label": "voting-top5-2rank", "rows": small, "binned_dir": binned,
+         "iters": 1, "params": dict(exact, tree_learner="voting", top_k=5)},
+        {"label": "dp-exact-2rank", "rows": small, "binned_dir": binned,
+         "iters": DIST_SMALL_ITERS,
+         "params": dict(exact, tree_learner="data")}]
+    out = run_ranks_subprocess(DIST_RANKS, "chip_smoke:phase15_rank",
+                               {"runs": runs, "gen_rows": args.rows},
+                               timeout=600, device="cuda",
+                               log_dir=os.path.join(work, "logs"))
+    say("15: %d rank processes on %s, backend %s (%s)"
+        % (len(out), ", ".join(o["device"] for o in out), out[0]["backend"],
+           card))
+    need(all(o["backend"] == "gloo" for o in out),
+         "15: two ranks on one card must run over gloo")
+    by_path = {}
+    for run in runs:
+        label = run["label"]
+        rs = [o["runs"][label] for o in out]
+        need(len({r["digest"] for r in rs}) == 1,
+             "%s: the ranks' model texts differ" % label)
+        need(all(r["trees"] == run.get("iters", ITERS) for r in rs),
+             "%s: grew %s trees" % (label, [r["trees"] for r in rs]))
+        by_path[label] = rs[0]["counts"]
+        r0 = rs[0]
+        say("%s (%s): texts byte-equal on %d ranks; rows a rank %s; "
+            "leaves %s; steady %.4f it/s a rank (rank 0; %s); train %.2f s "
+            "with set-up; collectives %d calls, %d bytes, %.3f s host time "
+            "a rank, %.3f ms a pass and %.0f bytes a tree; launches %s"
+            % (label, r0["learner"], len(rs), [r["rows"] for r in rs],
+               r0["leaves"], r0["steady_it_s"], card, r0["train_s"],
+               r0["collective_calls"], r0["collective_bytes"],
+               r0["collective_s"],
+               1e3 * r0["collective_s"] / max(r0["passes_and_roots"], 1),
+               r0["collective_bytes"] / max(r0["trees"], 1),
+               {k: v for k, v in r0["counts"].items() if v}))
+    # 15b: B1, B3 and B2 launched on every rank
+    for o in out:
+        c = o["runs"]["dp-2rank"]["counts"]
+        need(c["wave_partition_hist"] > 0 and c["wave_histogram"] > 0
+             and c["score_update"] == ITERS
+             and c["wave_partition_hist_deferred"] > 0
+             and c["finish_hist"] > 0,
+             "dp-2rank: rank %d launched %s" % (o["rank"], c))
+    # the witness: a serial run on all the rows binned with rank 0's
+    # mappers (each rank bins its block of features from a sample of its
+    # own rows, the reference's distributed bin finding, so the bins are
+    # not phase 4's)
+    t1 = time.perf_counter()
+    ref = TrainingData.from_binned(rank0)
+    mine = data[0]._handle.bin_mappers
+    moved = sum(not np.array_equal(a.bin_upper_bound, b.bin_upper_bound)
+                for a, b in zip(ref.bin_mappers, mine))
+    yt = np.asarray(data[0]._handle.metadata.label)
+    ds_w = lgb.Dataset(data[2], label=yt, params=params)
+    ds_w._handle = TrainingData.from_matrix(
+        data[2], label=yt, config=Config(dict(params)), reference=ref)
+    witness = lgb.train(params, ds_w, ITERS)
+    w_auc = auc(yv, witness.predict(Xv))
+    w_text = witness.model_to_string()
+    del witness, ds_w, ref
+    torch.cuda.empty_cache()
+    dp = out[0]["runs"]["dp-2rank"]
+    booster = lgb.Booster(model_str=dp["text"])
+    dp_auc = auc(yv, booster.predict(Xv))
+    del booster
+    say("15b: rank 0's mappers bin %d of %d features otherwise than phase "
+        "4's; the serial witness on them (all %d rows; %.1f s with "
+        "binning) has valid AUC %.6f, phase 4's serial %.6f (|diff| %.2e)"
+        % (moved, len(mine), len(yt), time.perf_counter() - t1, w_auc,
+           AUCS["wave"], abs(w_auc - AUCS["wave"])))
+    say("15b dp-2rank: AUC of rank 0's model on all %d valid rows %.6f, "
+        "the witness's %.6f (|diff| %.2e, bound 2e-4), phase 4's %.6f "
+        "(|diff| %.2e); the ranks' row-weighted valid AUC during training "
+        "%.6f (printed, not compared: AUC does not decompose)"
+        % (len(yv), dp_auc, w_auc, abs(dp_auc - w_auc), AUCS["wave"],
+           abs(dp_auc - AUCS["wave"]), dp["reduced_valid"]["auc"]))
+    need(abs(dp_auc - w_auc) <= 2e-4,
+         "15b: data-parallel AUC %.6f not within 2e-4 of the serial run "
+         "on the same bins (%.6f)" % (dp_auc, w_auc))
+    compare_splits("dp-2rank", dp["text"], w_text)
+    # 15c
+    fp = out[0]["runs"]["feature-2rank"]["text"]
+    need(fp == serial_exact, "15c: feature-parallel text differs from "
+         "serial exact growth's")
+    say("15c: feature-parallel model text equal to serial exact growth's "
+        "to the byte (%d rows)" % small)
+    same, n = compare_splits("voting-2rank",
+                             out[0]["runs"]["voting-2rank"]["text"],
+                             serial_exact)
+    need(same == n == DIST_SMALL_ITERS, "15c: voting with top_k 28 does "
+         "not match the serial tree structure")
+    top5 = out[0]["runs"]["voting-top5-2rank"]
+    b5 = lgb.Booster(model_str=top5["text"])
+    auc5 = auc(ys, b5.predict(Xs))
+    need(all(l == params["num_leaves"] for l in top5["leaves"]),
+         "15c: voting top_k 5 grew %s leaves" % top5["leaves"])
+    need(auc5 > 0.8, "15c: voting top_k 5 train AUC %.4f" % auc5)
+    say("15c: voting top_k 5: a 255-leaf tree, train AUC %.6f on its %d "
+        "rows" % (auc5, small))
+    same, n = compare_splits("dp-exact-2rank",
+                             out[0]["runs"]["dp-exact-2rank"]["text"],
+                             serial_exact)
+    need(same == n == DIST_SMALL_ITERS, "15c: data-parallel exact growth "
+         "does not match the serial tree structure")
+    shutil.rmtree(work, ignore_errors=True)
+    say("phase 15 (distributed): %.1f s" % (time.perf_counter() - t0))
+    return by_path
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
                     help="training rows (bench.py's flagship has 10,500,000)")
-    ap.add_argument("--sparse-rows", type=int, default=1_000_000,
-                    help="sparse training rows (Bosch has 1,000,000)")
+    ap.add_argument("--sparse-rows", type=int, default=500_000,
+                    help="sparse training rows (Bosch has 1,000,000; half "
+                         "of them by default, a cut in rows that keeps "
+                         "the script in its time)")
     ap.add_argument("--profile", action="store_true",
                     help="after each training run's checks, profile one "
                          "more iteration")
@@ -4637,6 +5176,9 @@ def main():
     X_t = torch.as_tensor(np.ascontiguousarray(td.binned.T), device=dev)
     records = kernel_phase(X_t, torch.as_tensor(td.default_bin_arr), wk, lh,
                            tp, clipped_leaf_values, args.sweep)
+    # ---- 15a. the deferred-finish forms and the finish alone
+    records.update(dist_kernel_phase(X_t, torch.as_tensor(td.default_bin_arr),
+                                     wk, lh))
     del X_t
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4781,6 +5323,10 @@ def main():
     del booster
     torch.cuda.empty_cache()
 
+    # ---- 15b, 15c. distributed training: two rank processes on the card
+    # over gloo (dist_phase)
+    dist_launches = dist_phase(args, lgb, card, data)
+
     # ---- 12a. out-of-core: phase 4's rows streamed to a binned
     # directory and trained fused through the paged upload
     streamed_launches = streamed_phase(args, lgb, kernels, card, data,
@@ -4909,7 +5455,7 @@ def main():
                 ("streamed", streamed_launches),
                 ("observers", observer_launches), ("coord", coord_launches),
                 ("dart-chunked-raw", raw_launches)]
-             + list(PHASE12.items()))
+             + list(PHASE12.items()) + list(dist_launches.items()))
     sources = {"wave_partition_hist": ("lightgbm_tpu_torch/csrc/wave_fused.cu",
                                        "lightgbm_tpu/ops/pallas_wave.py:508"),
                "score_update": ("lightgbm_tpu_torch/csrc/score_update.cu",
@@ -4961,6 +5507,27 @@ def main():
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": repl, "launches": launches_of,
                     "launches_by_path": by_path,
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                    "shape": r["shape"], "checked": True})
+    # the deferred-finish forms (15a's records) and the finish alone, with
+    # their launches on the distributed paths (rank 0's counts)
+    dist_own = {"wave_partition_hist_deferred": "dp-2rank",
+                "wave_histogram_deferred": "dp-2rank",
+                "finish_hist": "dp-2rank",
+                "leaf_histogram_deferred": "dp-exact-2rank"}
+    for name, path in dist_own.items():
+        r = records[name]
+        base = name.replace("_deferred", "")
+        src, repl = sources.get(base, sources["wave_partition_hist"])
+        launches_of = dist_launches[path][name]
+        need(launches_of > 0, "%s did not launch on %s" % (name, path))
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": repl, "launches": launches_of,
+                    "launches_by_path": {p: got[name] for p, got
+                                         in dist_launches.items()
+                                         if got.get(name)},
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -130,10 +130,12 @@ def library() -> ctypes.CDLL:
         loads += 1
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         cf = ctypes.c_float
-        lib.lgbt_wave_hist.argtypes = [vp] * 8 + [ci] * 15 + [vp]
+        lib.lgbt_wave_hist.argtypes = [vp] * 8 + [ci] * 16 + [vp]
         lib.lgbt_wave_hist.restype = ci
-        lib.lgbt_wave_fused.argtypes = [vp] * 11 + [ci] * 16 + [vp]
+        lib.lgbt_wave_fused.argtypes = [vp] * 11 + [ci] * 17 + [vp]
         lib.lgbt_wave_fused.restype = ci
+        lib.lgbt_wave_finish.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+        lib.lgbt_wave_finish.restype = ci
         lib.lgbt_wave_list.argtypes = [vp] * 8 + [ci] * 8 + [vp]
         lib.lgbt_wave_list.restype = ci
         lib.lgbt_wave_hist_smem.argtypes = [ci] * 4

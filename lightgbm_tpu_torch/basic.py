@@ -448,14 +448,17 @@ class Dataset:
         return self
 
     @classmethod
-    def from_binned(cls, path: str, params=None,
+    def from_binned(cls, path: str, params=None, comm=None,
                     row_range=None) -> "Dataset":
         """Open a pre-binned directory (save_binned, or the streaming
         ``ooc_binned_dir`` ingest).  Its shards stay mmap-backed and
         page to the card when a booster trains on it; ``row_range``
-        opens only those rows (TrainingData.from_binned)."""
+        opens only those rows, and a ``comm`` of more than one rank
+        (parallel/comm.py) this rank's share of them, for the
+        distributed learners (TrainingData.from_binned)."""
         ds = cls(path, params=params)
-        ds._handle = TrainingData.from_binned(path, row_range=row_range)
+        ds._handle = TrainingData.from_binned(path, comm=comm,
+                                              row_range=row_range)
         return ds
 
 

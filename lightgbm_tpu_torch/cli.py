@@ -19,10 +19,10 @@ Training and prediction run on the GPU unless ``device_type=cpu`` (or
 run's timeline, which ``python -m lightgbm_tpu_torch obs summary|explain|
 diff|trace|recompiles|roofline|serve|drift|incident|watch|prof|history|
 trend`` reads (obs/query.py); ``tpu_profile_dir`` records a
-torch.profiler trace of the whole training loop (obs/profile.py).  Not in
-the port yet, and refused naming their ROADMAP item: the ``lint``
-subcommand, ``obs stragglers|merge`` and the straggler keys (the
-distributed learners' observability, obs/__init__.py UNPORTED).
+torch.profiler trace of the whole training loop (obs/profile.py); ``obs
+stragglers|merge`` read the per-rank timelines of a distributed run.
+Not in the port yet, and refused naming its ROADMAP item: the ``lint``
+subcommand.
 """
 from __future__ import annotations
 
@@ -40,7 +40,6 @@ from .metrics import create_metric
 from .models import checkpoint as ckpt_mod
 from .models.factory import create_boosting
 from .objectives import create_objective
-from .obs import refuse_unported
 from .obs.profile import start_trace, stop_trace
 from .utils.config import Config, key_alias_transform
 from .utils.log import LightGBMError, Log
@@ -77,8 +76,7 @@ def _device(cfg: Config):
                           else "cuda")
 
 
-def _refuse_unported(params: Dict[str, str], cfg: Config) -> None:
-    refuse_unported(cfg)
+def _check_profilers(params: Dict[str, str], cfg: Config) -> None:
     if params.get("tpu_profile_dir") and cfg.obs_trace_iters:
         # torch.profiler runs one profiler at a time in a process
         raise LightGBMError("tpu_profile_dir and obs_trace_iters each open "
@@ -248,7 +246,7 @@ def main(argv=None) -> int:
     params = key_alias_transform(parse_cli_params(argv),
                                  raise_unknown=False)
     cfg = Config(params)
-    _refuse_unported(params, cfg)
+    _check_profilers(params, cfg)
     task = params.get("task", "train")
     if task == "train":
         run_train(cfg, _device(cfg))

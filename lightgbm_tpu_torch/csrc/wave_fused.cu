@@ -559,18 +559,26 @@ int form_of(bool packed, bool bins16) {
   return packed ? kPacked : bins16 ? kWide16 : kByte;
 }
 
+cudaError_t launch_finish(const unsigned long long* acc64, const void* cid,
+                          const void* exps, void* hist, int K,
+                          long long per_slot, bool wide, cudaStream_t s);
+
 // The histogram pass over the list and the conversion (f32, or f64 when
 // wide).  acc holds K * F * B * 3 zeroed sums (64-bit words, two a sum
 // when wide) followed by the list's length.  packed: x holds ceil(F / 2)
 // packed columns, FS is even and a group covers FS / 2 of them; bins16: x
 // holds uint16 bins; bf16: the weights are rounded to bf16 first.  groups
-// counts feature groups x bin tiles (bin_tile).
+// counts feature groups x bin tiles (bin_tile).  finish = false stops
+// after the histogram pass and leaves the fixed-point sums in acc (the
+// deferred-finish form: a distributed learner adds the ranks' sums, then
+// runs the conversion alone, lgbt_wave_finish).
 cudaError_t hist_and_finish(const void* x, const void* w3, const void* list,
                             const void* cid, const void* exps, void* acc,
                             void* hist, int F, int N, int B, int K,
                             int groups, int R, int KS, int FS, int C,
                             bool rowmajor, bool packed, bool bf16,
-                            bool bins16, bool wide, cudaStream_t s) {
+                            bool bins16, bool wide, bool finish,
+                            cudaStream_t s) {
   if (FS < 1 || FS > kMaxGroup || KS < 1 || C < 1 || C > kMaxCopies ||
       (C & (C - 1)) != 0 || (packed && (FS & 1) != 0) ||
       (packed && bins16) || (wide && bf16))
@@ -590,7 +598,15 @@ cudaError_t hist_and_finish(const void* x, const void* w3, const void* list,
       acc64 + per_slot * K * (wide ? 2 : 1), static_cast<const int*>(exps),
       acc64, F, stored_cols(F, packed), N, B, K, KS, FS, C, bf16 ? 1 : 0);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess || !finish) return e;
+  return launch_finish(acc64, cid, exps, hist, K, per_slot, wide, s);
+}
+
+// The conversion alone: hist[k] = acc[first slot holding cid[k]] / 2^e
+// for K slots of per_slot sums each.
+cudaError_t launch_finish(const unsigned long long* acc64, const void* cid,
+                          const void* exps, void* hist, int K,
+                          long long per_slot, bool wide, cudaStream_t s) {
   const int threads = 256;
   const long long total = per_slot * K;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) /
@@ -723,14 +739,15 @@ int lgbt_wave_list(const void* xt, const void* lid, const void* cid,
 // int2; hist K * F * B * 3 floats (doubles when wide).  F counts features
 // (logical columns): with packed, xt holds ceil(F / 2) packed columns;
 // bins16: uint16 bins; bf16 rounds the weights to bf16 before the sums;
-// wide: w3 is float64 and the sums 128-bit.
+// wide: w3 is float64 and the sums 128-bit; finish = 0 stops before the
+// conversion, leaving the sums in acc (lgbt_wave_finish converts them).
 int lgbt_wave_fused(const void* xt, const void* lid, const void* w3,
                     const void* cid, const void* cols, const void* psrc,
                     const void* exps, void* new_lid, void* list, void* acc,
                     void* hist, int F, int N, int B, int K, int W,
                     int list_blocks, int groups, int R, int KS, int FS,
                     int C, int bundled, int packed, int bf16, int bins16,
-                    int wide, void* stream) {
+                    int wide, int finish, void* stream) {
   unsigned long long* count;
   int e = zero_acc(acc, F, B, K, wide != 0, stream, &count);
   if (e != 0) return e;
@@ -740,20 +757,21 @@ int lgbt_wave_fused(const void* xt, const void* lid, const void* w3,
   if (e != 0) return e;
   return static_cast<int>(hist_and_finish(
       xt, w3, list, cid, exps, acc, hist, F, N, B, K, groups, R, KS, FS, C,
-      false, packed != 0, bf16 != 0, bins16 != 0, wide != 0,
+      false, packed != 0, bf16 != 0, bins16 != 0, wide != 0, finish != 0,
       static_cast<cudaStream_t>(stream)));
 }
 
 // B3 (X_t (F, N)) and B4 (rowmajor: X (N, F)), the histogram-only pass:
 // the select pass, histograms of the listed rows, the conversion; acc,
-// list and hist, packed, bf16, bins16 and wide as for lgbt_wave_fused.
+// list and hist, packed, bf16, bins16, wide and finish as for
+// lgbt_wave_fused.
 // B5 is this pass with rowmajor = 1, K = 1 and cid the leaf, on a plan of
 // its own.
 int lgbt_wave_hist(const void* x, const void* lid, const void* w3,
                    const void* cid, const void* exps, void* list, void* acc,
                    void* hist, int F, int N, int B, int K, int list_blocks,
                    int groups, int R, int KS, int FS, int C, int rowmajor,
-                   int packed, int bf16, int bins16, int wide,
+                   int packed, int bf16, int bins16, int wide, int finish,
                    void* stream) {
   unsigned long long* count;
   int e = zero_acc(acc, F, B, K, wide != 0, stream, &count);
@@ -764,6 +782,20 @@ int lgbt_wave_hist(const void* x, const void* lid, const void* w3,
   return static_cast<int>(hist_and_finish(
       x, w3, list, cid, exps, acc, hist, F, N, B, K, groups, R, KS, FS, C,
       rowmajor != 0, packed != 0, bf16 != 0, bins16 != 0, wide != 0,
+      finish != 0, static_cast<cudaStream_t>(stream)));
+}
+
+// The conversion of a deferred-finish launch alone (B1, B3, B4, B5 with
+// finish = 0): hist (K, F, B, 3) f32, or f64 when wide, from the K * F *
+// B * 3 fixed-point sums in acc (two words a sum when wide) with the
+// tree's exponents; slot k reads the first slot holding cid[k].
+int lgbt_wave_finish(const void* acc, const void* cid, const void* exps,
+                     void* hist, int F, int B, int K, int wide,
+                     void* stream) {
+  if (F < 1 || B < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_finish(
+      static_cast<const unsigned long long*>(acc), cid, exps, hist, K,
+      static_cast<long long>(F) * B * 3, wide != 0,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -18,6 +18,7 @@ from .basic import Booster, Dataset, _InnerPredictor
 from .callback import CallbackEnv
 from .io.dataset import TrainingData
 from .models import checkpoint as ckpt_mod
+from .parallel.comm import vote_stop
 from .utils.config import key_alias_transform
 from .utils.log import LightGBMError, Log
 
@@ -130,6 +131,14 @@ def train(params: Dict[str, Any], train_set: Dataset,
         vd.set_reference(train_set)
         booster.add_valid(vd, name)
 
+    # the ranks of a distributed learner: only rank 0 writes checkpoints
+    # and prints evaluations (the JAX package's rank gates); every rank
+    # evaluates, over its rows reduced across the ranks, and they vote
+    # on an early stop
+    comm = booster._gbdt._dist_comm()
+    rank0 = comm is None or comm.rank == 0
+    if not rank0:
+        verbose_eval = False
     cbs = set(callbacks or [])
     if learning_rates is not None:
         cbs.add(callback_mod.reset_parameter(learning_rate=learning_rates))
@@ -152,7 +161,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
             # popped
             booster.update(fobj=fobj)
             rounds_done = rounds_base + (i - begin) + 1
-            if ck_dir and ck_every > 0 and rounds_done % ck_every == 0:
+            if (ck_dir and ck_every > 0 and rounds_done % ck_every == 0
+                    and rank0):
                 obs.stamp_context(stage="checkpoint", it=rounds_done)
                 ckpt_mod.save_checkpoint(ck_dir, booster._gbdt, rounds_done,
                                          params)
@@ -173,10 +183,13 @@ def train(params: Dict[str, Any], train_set: Dataset,
                     booster._gbdt._drift_fingerprint = None
                     if obs.enabled:
                         obs.event("eval", it=i, results=evals)
+            stop = None
             try:
                 for cb in cbs_after:
                     cb(CallbackEnv(booster, params, i, begin, end, results))
-            except callback_mod.EarlyStopException as stop:
+            except callback_mod.EarlyStopException as e:
+                stop = e
+            if vote_stop(comm, stop is not None):
                 booster.best_iteration = stop.best_iteration + 1
                 results = stop.best_score
                 break
@@ -185,7 +198,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
         # status "aborted", and the writer flushed
         booster.finalize_telemetry(status="aborted")
         raise
-    if ck_dir and ck_every > 0 and rounds_done != saved:
+    if ck_dir and ck_every > 0 and rounds_done != saved and rank0:
         ckpt_mod.save_checkpoint(ck_dir, booster._gbdt, rounds_done, params)
     booster.best_score = collections.defaultdict(dict)
     for data_name, eval_name, score, _ in results or []:

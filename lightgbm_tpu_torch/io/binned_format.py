@@ -405,6 +405,7 @@ def save_training_data(td, path: str, shard_rows: int = 1 << 20) -> dict:
             chunk = binned[s:s + shard_rows]
             if chunk.shape[0]:
                 writer.append(chunk)
+    fp = getattr(td, "_drift_fingerprint", None)
     return writer.finalize(
         num_total_features=td.num_total_features,
         used_feature_idx=td.used_feature_idx,
@@ -412,4 +413,7 @@ def save_training_data(td, path: str, shard_rows: int = 1 << 20) -> dict:
         max_bin=td.max_bin,
         bin_mappers=td.bin_mappers,
         bundle_groups=td.bundle.groups if td.bundle is not None else None,
-        metadata=td.metadata)
+        metadata=td.metadata,
+        # the drift reference rides in the header, so a later from_binned
+        # (and a model trained on it) carries the training fingerprint
+        extra={"drift_fingerprint": fp} if fp is not None else None)

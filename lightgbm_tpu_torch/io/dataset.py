@@ -86,6 +86,9 @@ class TrainingData:
         # the construction's accounting for the dataset_construct event
         # (rows, phase seconds, peak RSS)
         self.construct_stats: Optional[dict] = None
+        # the ranks' comm of a rank-sharded dataset (from_matrix or
+        # from_binned with a comm of more than one rank), else None
+        self._comm = None
 
     @property
     def binned(self) -> Optional[np.ndarray]:
@@ -112,7 +115,14 @@ class TrainingData:
                     categorical_feature: Sequence[int] = (),
                     feature_names: Optional[List[str]] = None,
                     reference: Optional["TrainingData"] = None,
-                    keep_raw: bool = False, group=None) -> "TrainingData":
+                    keep_raw: bool = False, group=None,
+                    comm=None) -> "TrainingData":
+        """comm: a HostComm of more than one rank (parallel/comm.py) makes
+        ``data`` this rank's block of rows and constructs the bin mappers
+        distributed (``_construct_mappers_distributed``), or, under
+        ``tree_learner=feature``, all rows (binned as one process would);
+        the dataset keeps the comm (``_comm``), which the booster's
+        learner, metrics and observer read."""
         config = config or Config()
         data = np.ascontiguousarray(np.asarray(data, dtype=np.float64))
         if data.ndim != 2:
@@ -123,8 +133,25 @@ class TrainingData:
         self.feature_names = list(feature_names) if feature_names else [
             "Column_%d" % i for i in range(self.num_total_features)]
         cats = set(int(c) for c in categorical_feature)
+        self._comm = comm if (comm is not None and comm.size > 1) else None
+        # the feature-parallel learner gives every rank all rows (as the
+        # reference loads all data on every machine): the usual binning,
+        # the same on every rank
+        all_rows = str(config.tree_learner).strip().lower() in (
+            "feature", "feature_parallel")
         if reference is not None:
             self._align_with(reference, data)
+        elif self._comm is not None and not all_rows:
+            rss0, t0 = _peak_rss_bytes(), time.time()
+            # ranks agree on the RNG-bearing keys before any sampling
+            # (GlobalSyncUpByMin, application.cpp:118-199)
+            from ..parallel.comm import sync_config_across_ranks
+            sync_config_across_ranks(comm, config)
+            self._construct_mappers_distributed(data, config, cats, comm)
+            t1 = time.time()
+            self._bin_data(data)
+            self._note_construct_stats("matrix", t1 - t0, time.time() - t1,
+                                       rss0)
         else:
             rss0, t0 = _peak_rss_bytes(), time.time()
             self._construct_mappers(data, config, cats)
@@ -389,6 +416,79 @@ class TrainingData:
              .astype(np.uint16) for r in self.used_feature_idx], axis=1))
         self._profile_quality(lambda f: sample[:, f], total_sample,
                               categorical, config)
+
+    def _construct_mappers_distributed(self, data: np.ndarray,
+                                       config: Config, categorical: set,
+                                       comm) -> None:
+        """Distributed bin finding (dataset_loader.cpp:733-833; JAX
+        ``io/dataset.py``): the features are split evenly across the
+        ranks, each rank bins its block from a sample of its OWN rows,
+        and the mappers are all-gathered so every rank holds the same
+        full set.  EFB: rank 0 groups the features on its sample and the
+        groups reach every rank (every rank's histograms need one
+        layout)."""
+        F = self.num_total_features
+        n_local = data.shape[0]
+        total_n = int(sum(comm.allgather_obj(int(n_local))))
+        sample_idx = self._sample_rows(config)
+        sample = data[sample_idx]
+        total_sample = len(sample_idx)
+        # filter_cnt against the GLOBAL row count (dataset_loader.cpp:491)
+        filter_cnt = int(config.min_data_in_leaf * total_sample
+                         / max(total_n, 1))
+        bounds = np.linspace(0, F, comm.size + 1).astype(int)
+        start, end = int(bounds[comm.rank]), int(bounds[comm.rank + 1])
+        mine = []
+        for f in range(start, end):
+            col = sample[:, f]
+            col = col[~np.isnan(col)]
+            m = BinMapper()
+            m.find_bin(col[col != 0.0], total_sample, config.max_bin,
+                       config.min_data_in_bin, filter_cnt,
+                       CATEGORICAL if f in categorical else NUMERICAL)
+            mine.append(m.to_dict())
+        self.bin_mappers = [BinMapper.from_dict(d)
+                            for part in comm.allgather_obj(mine)
+                            for d in part]
+        if len(self.bin_mappers) != F:
+            Log.fatal("distributed bin finding gathered %d mappers for %d "
+                      "features", len(self.bin_mappers), F)
+        bundle_cfg = config.enable_bundle
+        # the groups come from rank 0 below, not from each rank's sample
+        config.enable_bundle = False
+        try:
+            self._finish_mappers(config, None)
+        finally:
+            config.enable_bundle = bundle_cfg
+        # this rank's sample: the profile reflects its block of rows; the
+        # drift fingerprint is rank 0's on every rank, so the ranks' model
+        # texts stay equal
+        self._profile_quality(lambda f: sample[:, f], total_sample,
+                              categorical, config)
+        self._drift_fingerprint = comm.allgather_obj(
+            self._drift_fingerprint)[0]
+        if (config.enable_bundle and len(self.used_feature_idx) > 1
+                and config.tree_learner not in ("feature",
+                                                "feature_parallel")):
+            groups = None
+            if comm.rank == 0:
+                layout = find_feature_groups(
+                    np.stack([self.bin_mappers[r].value_to_bin(sample[:, r])
+                              .astype(np.uint16)
+                              for r in self.used_feature_idx], axis=1),
+                    self.num_bin_arr, self.default_bin_arr,
+                    config.max_conflict_rate, config.min_data_in_leaf,
+                    total_n)
+                if layout is not None:
+                    groups = [list(map(int, g)) for g in layout.groups]
+            groups = comm.allgather_obj(groups)[0]
+            if groups is not None:
+                self.bundle = build_layout(groups, self.num_bin_arr,
+                                           self.default_bin_arr)
+                if comm.rank == 0:
+                    Log.info("EFB bundled %d features into %d groups",
+                             len(self.used_feature_idx),
+                             self.bundle.num_groups)
 
     def _construct_mappers_sparse(self, sp, config: Config,
                                   categorical: set) -> None:
@@ -732,17 +832,20 @@ class TrainingData:
         and metadata rows).  ``verify``: None runs a full CRC scan for a
         whole-dataset open and lazy per-shard CRCs for a row range;
         True, "lazy" or False force a mode.  A ``comm`` of more than one
-        rank (the JAX package's rank-sharded open) is distributed
-        training, which the port does not have yet (ROADMAP A10)."""
+        rank opens this rank's share, rows [rank * total // size,
+        (rank + 1) * total // size) unless row_range says otherwise, for
+        the distributed learners: the mappers come from the shared
+        header, so the ranks bin alike with no collective."""
         from . import binned_format as _bf
-        if comm is not None and int(getattr(comm, "size", 1)) > 1:
-            Log.fatal("from_binned(comm=) with %d ranks is distributed "
-                      "training, not in lightgbm_tpu_torch yet (ROADMAP "
-                      "A10)", int(comm.size))
         rss0, t0 = _peak_rss_bytes(), time.time()
-        sharded = row_range is not None
+        multi = comm is not None and comm.size > 1
+        sharded = multi or row_range is not None
         if verify is None:
             verify = "lazy" if sharded else True
+        if multi and row_range is None:
+            total = int(_bf._read_header(str(path))["num_data"])
+            row_range = (comm.rank * total // comm.size,
+                         (comm.rank + 1) * total // comm.size)
         reader = _bf.BinnedReader(path, verify=verify, row_range=row_range)
         h = reader.header
         self = cls()
@@ -762,6 +865,10 @@ class TrainingData:
             self.bundle = build_layout(groups, self.num_bin_arr,
                                        self.default_bin_arr)
         self._binned_reader = reader
+        self._comm = comm if multi else None
+        # the training world's drift fingerprint rides in the header
+        # (written by save_binned from a fingerprinted dataset)
+        self._drift_fingerprint = h.get("drift_fingerprint")
         self.metadata = Metadata(self.num_data)
 
         def rows_of(arr):
@@ -788,6 +895,7 @@ class TrainingData:
         extra = {"load_s": round(time.time() - t0, 6)}
         if sharded:
             extra["row_range"] = [int(lo), int(hi)]
+            extra["world_size"] = int(comm.size) if multi else 1
         self._note_construct_stats("binned", 0.0, 0.0, rss0,
                                    chunks=reader.num_shards, **extra)
         return self

@@ -40,6 +40,8 @@ from ..obs import NULL_OBSERVER, observer_from_config
 from ..obs.timers import NULL_ORCH, OrchestrationClock
 from ..ops import predict as dev_predict
 from ..ops.learner import SerialTreeLearner, materialize_tree
+from ..parallel.comm import reduce_metrics, sum_across_ranks, vote_stop
+from ..parallel.mesh import create_tree_learner
 from ..utils.common import parse_kv_lines
 from ..utils.config import Config
 from ..utils.log import Log
@@ -143,7 +145,7 @@ class GBDT:
             self.num_tree_per_iteration = objective.num_tree_per_iteration()
         self.train_data = train_data
         self.num_data = train_data.num_data
-        self.learner = SerialTreeLearner(config, train_data, self.device)
+        self.learner = create_tree_learner(config, train_data, self.device)
         self._resolve_score_engine(config)
         self._reset_observer(config)
         self._fused_state = None
@@ -215,7 +217,8 @@ class GBDT:
         one attribute load and an empty call a hook."""
         if self._obs.enabled:
             self._obs.close()
-        self._obs = obs = observer_from_config(config)
+        self._obs = obs = observer_from_config(config,
+                                               comm=self._dist_comm())
         self._metrics = None
         self._obs_split_audit = bool(config.obs_split_audit)
         self._obs_importance_every = int(config.obs_importance_every or 0)
@@ -267,7 +270,7 @@ class GBDT:
         old = self.learner
         # a sparse store is reused: train_data is unchanged, so the store
         # is too (JAX models/gbdt.py reset_config)
-        self.learner = SerialTreeLearner(
+        self.learner = create_tree_learner(
             config, self.train_data, self.device,
             device_store=old.X if old is not None and old.sparse else None)
         self._resolve_score_engine(config)
@@ -527,7 +530,11 @@ class GBDT:
                 and self.objective.boost_from_average()):
             label = np.asarray(self.train_data.metadata.label,
                                dtype=np.float64)
-            init_score = float(label.sum() / self.num_data)
+            # the ranks' label sum over their rows (GlobalSyncUpBySum),
+            # so every rank starts from the same score
+            total, count = sum_across_ranks(
+                self._row_comm(), [label.sum(), self.num_data])
+            init_score = float(total / count)
             self._add_constant(init_score)
             self._append_host_tree(_stub_tree(init_score, self.num_data))
             self.boost_from_average_used = True
@@ -629,6 +636,9 @@ class GBDT:
         # before the opt-in reads below (health, eval, model obs): the
         # host glue of the tree submissions only
         host_orch = oc.host_seconds()
+        # the ranks' arrival skew (obs_straggler_every): a fence on this
+        # iteration's scores and a collective, on the sampling cadence
+        obs.straggler_sample(it0, self._score_dev)
         if health_leaves is not None:
             # one read of the staged scalars; may raise under
             # obs_health=fatal
@@ -638,6 +648,11 @@ class GBDT:
         should_continue = bool(grown)
         if grown and (is_eval or self.iter % 16 == 0):
             should_continue = any(nl > 1 for nl in grown)
+            # the ranks' stop vote: their trees are the same, so they
+            # agree; the vote pins it, so no rank stops alone and leaves
+            # the others waiting in the next collective
+            should_continue = not vote_stop(self._dist_comm(),
+                                            not should_continue)
         if not should_continue:
             self._pop_degenerate_iterations()
             obs.iter_end(it0, value=self._score_dev, stopped=True,
@@ -704,12 +719,53 @@ class GBDT:
         self.iter -= 1
 
     # ------------------------------------------------------------------ eval
+    def _dist_comm(self):
+        """The training dataset's comm of more than one rank, or None:
+        present only for rank-sharded datasets (io/dataset.py
+        from_binned / from_matrix with a comm), the signal that metric
+        values are over this rank's rows and stop decisions need a
+        vote.  A closed comm (its run_ranks pool has exited) counts as
+        none."""
+        comm = (getattr(self.train_data, "_comm", None)
+                if self.train_data is not None else None)
+        if comm is not None and comm.size > 1 and not comm.closed:
+            return comm
+        return None
+
+    def _row_comm(self):
+        """``_dist_comm`` where the ranks hold different rows (the data-
+        and voting-parallel learners); None under the feature-parallel
+        learner, whose ranks all hold every row."""
+        comm = self._dist_comm()
+        if comm is None or self.learner is None \
+                or getattr(self.learner, "parallel", "data") == "feature":
+            return None
+        return comm
+
+    def _reduce_scores(self, scores, num_local_rows):
+        """Row-weighted cross-rank mean of per-metric scores: a metric
+        evaluates over this rank's rows, and the weighted mean by row
+        count gives the row average every rank then agrees on, which
+        keeps the early-stopping bookkeeping (and its model pop-back)
+        the same on every rank.  (A metric that does not decompose, as
+        AUC, gets the ranks' row-weighted mean, as in the JAX
+        package.)"""
+        comm = self._row_comm()
+        if comm is None:
+            return scores
+        red = reduce_metrics(
+            comm, {str(i): float(s) for i, s in enumerate(scores)},
+            weight=float(num_local_rows))
+        return [red[str(i)] for i in range(len(scores))]
+
     def eval_and_check_early_stopping(self) -> bool:
         """GBDT::EvalAndCheckEarlyStopping (gbdt.cpp:479-500): on a met
         criterion the trees of the last early_stopping_round iterations
         are popped."""
         best_msg = self.output_metric(self.iter)
-        if not best_msg:
+        # a unanimous vote: with reduced metrics every rank computed the
+        # same answer, so this guards against a rank that diverged
+        if not vote_stop(self._dist_comm(), bool(best_msg)):
             return False
         Log.info("Early stopping at iteration %d, the best iteration round "
                  "is %d", self.iter, self.iter - self.early_stopping_round)
@@ -732,7 +788,8 @@ class GBDT:
         eval_results: List[dict] = []
         if need_output:
             for m in self.training_metrics:
-                scores = m.eval(self.train_score, self.objective)
+                scores = self._reduce_scores(
+                    m.eval(self.train_score, self.objective), self.num_data)
                 for name, s in zip(m.get_names(), scores):
                     line = "Iteration:%d, training %s : %g" % (it, name, s)
                     Log.info(line)
@@ -743,8 +800,9 @@ class GBDT:
         if need_output or esr > 0:
             for i in range(len(self.valid_metrics)):
                 for j, m in enumerate(self.valid_metrics[i]):
-                    test_scores = m.eval(self.valid_score_host(i),
-                                         self.objective)
+                    test_scores = self._reduce_scores(
+                        m.eval(self.valid_score_host(i), self.objective),
+                        self.valid_data[i].num_data)
                     for name, s in zip(m.get_names(), test_scores):
                         line = "Iteration:%d, valid_%d %s : %g" % (
                             it, i + 1, name, s)
@@ -774,16 +832,18 @@ class GBDT:
         return ret
 
     def get_eval_at(self, data_idx: int) -> List[float]:
-        """GBDT::GetEvalAt (gbdt.cpp:588-609)."""
+        """GBDT::GetEvalAt (gbdt.cpp:588-609); the ranks' row-weighted
+        mean under a distributed learner (``_reduce_scores``), so the
+        early-stopping callback decides alike on every rank."""
         out: List[float] = []
         if data_idx == 0:
             for m in self.training_metrics:
                 out.extend(m.eval(self.train_score, self.objective))
-        else:
-            i = data_idx - 1
-            for m in self.valid_metrics[i]:
-                out.extend(m.eval(self.valid_score_host(i), self.objective))
-        return out
+            return self._reduce_scores(out, self.num_data)
+        i = data_idx - 1
+        for m in self.valid_metrics[i]:
+            out.extend(m.eval(self.valid_score_host(i), self.objective))
+        return self._reduce_scores(out, self.valid_data[i].num_data)
 
     def eval_names(self, data_idx: int) -> List[str]:
         ms = (self.training_metrics if data_idx == 0
@@ -991,18 +1051,23 @@ class GBDT:
         per-feature binned histograms completed with the training-score
         distribution and the last eval snapshot; cached (each eval pass
         invalidates it).  A model loaded from a text that carries a
-        ``drift_fingerprint=`` line (the JAX package writes one) takes
-        that one.  The port's own model text does not write the line
-        (ROADMAP C): its texts stay byte-equal across the construction
-        paths whose datasets carry no fingerprint (pre-binned
-        directories, streamed files, binary dataset files)."""
+        ``drift_fingerprint=`` line takes that one.  As in the JAX
+        package, the model text carries the line whenever the training
+        dataset was fingerprinted: built in memory, or opened from a
+        directory whose header carries the fingerprint (save_binned of a
+        fingerprinted dataset); a streamed or binary-file dataset
+        carries none."""
         if self._drift_fingerprint is not None:
             return self._drift_fingerprint
         base = getattr(self.train_data, "_drift_fingerprint", None)
         if base is None:
             return None
         from ..obs import drift
-        score = self.train_score if self._score_dev is not None else None
+        # a rank of a distributed learner holds only its rows: its text
+        # carries the shared feature fingerprint and the reduced eval
+        # snapshot, no score histogram, so the ranks' texts are equal
+        score = (self.train_score if self._score_dev is not None
+                 and self._row_comm() is None else None)
         self._drift_fingerprint = drift.attach_scores(
             base, train_score=score, objective=self.objective,
             eval_results=self._last_eval_results)
@@ -1023,6 +1088,13 @@ class GBDT:
             lines.append("boost_from_average")
         lines.append("feature_names=" + " ".join(self.feature_names))
         lines.append("feature_infos=" + " ".join(self.feature_infos))
+        fp = self.drift_fingerprint()
+        if fp is not None:
+            # one compact-JSON header line (the JAX package's): a process
+            # that loads the text gets the serving-time drift reference
+            lines.append("drift_fingerprint=%s"
+                         % json.dumps(fp, sort_keys=True,
+                                      separators=(",", ":")))
         lines.append("")
         for i in range(self._used_trees(num_iteration)):
             lines.append("Tree=%d" % i)

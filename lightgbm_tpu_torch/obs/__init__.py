@@ -40,17 +40,21 @@ The port's copy of the JAX package's ``obs`` core:
   diff|trace|recompiles|roofline|serve|drift|incident|watch|prof|
   history|trend``.
 
-Not in the port yet (ROADMAP A10, distributed): the JAX package's
-``straggler`` and ``merge`` modules.  The straggler keys raise
-LightGBMError naming the item when set away from their defaults
-(``refuse_unported``); every other ``obs_*`` key acts as in the JAX
-package.
+* ``straggler`` -- the per-rank arrival skew of the distributed
+  learners (``obs_straggler_every``, ``obs_straggler_warn_skew``);
+* ``merge``   -- the cross-rank merge of per-rank timeline shards and
+  its skew report (``obs merge|stragglers``).
+
+Distributed runs are rank-native (schema 4): each rank writes its own
+timeline shard (``obs_events_path`` + ``.r{rank}``), every event carries
+the rank, and the run header records rank, world_size and coordinator.
+Every ``obs_*`` key acts as in the JAX package.
 """
 from __future__ import annotations
 
 import os
 
-from ..utils.log import LightGBMError, Log
+from ..utils.log import Log
 from .events import (NULL_OBSERVER, SCHEMA_VERSION, EventWriter,
                      NullObserver, RingBuffer, RunObserver,
                      collect_provenance, read_events, validate_event)
@@ -59,36 +63,22 @@ from .metrics import REGISTRY, MetricsRegistry
 
 __all__ = ["NULL_OBSERVER", "NullObserver", "RunObserver", "EventWriter",
            "RingBuffer", "SCHEMA_VERSION", "read_events", "validate_event",
-           "collect_provenance", "observer_from_config", "refuse_unported",
+           "collect_provenance", "observer_from_config",
            "HealthMonitors", "MetricsRegistry", "REGISTRY"]
 
 _TIMING_MODES = ("auto", "phase", "iter", "off")
 _HEALTH_MODES = ("off", "warn", "fatal")
 
-# the obs_* keys of the JAX package's modules the port does not have yet,
-# by module: a key set away from its default raises
-UNPORTED = {
-    "obs/straggler.py": ("obs_straggler_every", "obs_straggler_warn_skew"),
-}
-
-
-def refuse_unported(config) -> None:
-    """Raise LightGBMError for an ``obs_*`` key of a module the port does
-    not have yet, set away from its default."""
-    from ..utils.config import Config
-    for module, keys in UNPORTED.items():
-        for key in keys:
-            value = getattr(config, key)
-            if value == Config._FIELDS[key][1]:
-                continue
-            raise LightGBMError(
-                "%s=%s: the JAX package's %s is not in lightgbm_tpu_torch "
-                "yet (ROADMAP A10, distributed)" % (key, value, module))
-
-
-def observer_from_config(config):
+def observer_from_config(config, comm=None):
     """RunObserver from the ``obs_*`` params, or NULL_OBSERVER when
     nothing is enabled (the disabled path costs one attribute check).
+
+    ``comm``: the ranks' HostComm (parallel/comm.py) of a distributed
+    learner: the observer shards its timeline for that rank
+    (``obs_events_path`` takes ``.r{rank}``), stamps every event with it
+    and samples the ranks' skew over it (``obs_straggler_every``).
+    Without one the rank comes from the thread's or the process's comm
+    context, else rank 0 of 1.
 
     ``obs_timing``: 'phase' waits for the card at every phase boundary
     (device-accurate phase times, at the price of the launch queue's
@@ -108,7 +98,6 @@ def observer_from_config(config):
     ``obs_prof_hz`` (default 29) ride on an otherwise enabled observer;
     a non-empty ``obs_ledger_dir`` ingests the finished run into the
     cross-run ledger on a clean close."""
-    refuse_unported(config)
     events_path = str(config.obs_events_path or "")
     trace_iters = str(config.obs_trace_iters or "")
     memory_every = int(config.obs_memory_every or 0)
@@ -123,6 +112,7 @@ def observer_from_config(config):
     utilization_every = int(config.obs_utilization_every or 0)
     drift_every = int(config.obs_drift_every or 0)
     incident = bool(config.obs_incident)
+    straggler_every = int(config.obs_straggler_every or 0)
     # -1 = off; 0 is a real value (an ephemeral port)
     http_port = -1 if config.obs_http_port is None \
         else int(config.obs_http_port)
@@ -132,7 +122,8 @@ def observer_from_config(config):
             and not bool(config.obs_split_audit)
             and int(config.obs_importance_every or 0) <= 0
             and not ledger_dir and utilization_every <= 0
-            and http_port < 0 and drift_every <= 0 and not incident):
+            and http_port < 0 and drift_every <= 0 and not incident
+            and straggler_every <= 0):
         return NULL_OBSERVER
     timing = str(config.obs_timing).strip().lower()
     if timing not in _TIMING_MODES:
@@ -174,4 +165,10 @@ def observer_from_config(config):
         incident_trace=bool(config.obs_incident_trace),
         prof_hz=int(config.obs_prof_hz or 0),
         prof_window_s=float(config.obs_prof_window_s or 5.0),
-        prof_topk=int(config.obs_prof_topk or 20))
+        prof_topk=int(config.obs_prof_topk or 20),
+        straggler_every=straggler_every,
+        straggler_warn_skew=float(config.obs_straggler_warn_skew or 0.5),
+        comm=comm,
+        **({} if comm is None else {
+            "rank": int(comm.rank), "world_size": int(comm.size),
+            "coordinator": str(comm.coordinator or "")}))

@@ -19,9 +19,9 @@ watchdog and flight recorder (obs/watchdog.py), the live scrape server
 profiler (obs/prof.py) and the cross-run ledger (obs/ledger.py).
 ``NULL_OBSERVER`` is the shared disabled instance: every method is a
 no-op, so the hot path pays one attribute check and an empty call, with
-no fencing and no event objects.  The straggler sampling of the
-distributed learners is not in the port yet (ROADMAP A10): its hook
-keeps the no-op.
+no fencing and no event objects.  ``straggler_sample`` runs the
+distributed learners' per-rank skew sampler (obs/straggler.py) on its
+cadence.
 
 Crash safety: the writer flushes every ``flush_every`` events (and on
 ``run_end``), train and cv close the observer with ``status="aborted"``
@@ -435,9 +435,13 @@ def live_observers():
 
 
 def _default_rank_info():
-    """Process rank for an observer that was not told one: rank 0 of 1
-    (the port trains in one process; its distributed learners, and the
-    ranks they would report, come with ROADMAP A10)."""
+    """Process rank for an observer that was not told one: the comm rank
+    context of this thread (a run_ranks rank) or process (a
+    TorchDistComm; parallel/comm.py), else rank 0 of 1."""
+    from ..parallel.comm import rank_context
+    info = rank_context()
+    if info is not None:
+        return info
     return {"rank": 0, "world_size": 1, "coordinator": ""}
 
 
@@ -680,7 +684,8 @@ class RunObserver(NullObserver):
                  http_port=None, http_addr="127.0.0.1",
                  incident=False, incident_window_s=5.0,
                  incident_dir="", incident_trace=False,
-                 prof_hz=0, prof_window_s=5.0, prof_topk=20):
+                 prof_hz=0, prof_window_s=5.0, prof_topk=20,
+                 straggler_every=0, straggler_warn_skew=0.5, comm=None):
         from . import metrics as metrics_mod
         if rank is None or world_size is None:
             info = _default_rank_info()
@@ -752,6 +757,14 @@ class RunObserver(NullObserver):
         # incident evidence bundle
         self._run_context = {}
         self._incident = None
+        # the per-rank arrival-skew sampler (obs_straggler_every; a
+        # collective over comm, obs/straggler.py)
+        self._straggler = None
+        if int(straggler_every or 0) > 0:
+            from .straggler import StragglerProfiler
+            self._straggler = StragglerProfiler(
+                every=straggler_every, warn_skew=straggler_warn_skew,
+                registry=self._registry, comm=comm)
         if incident:
             from .incident import IncidentEngine
             self._incident = IncidentEngine(
@@ -830,6 +843,8 @@ class RunObserver(NullObserver):
 
     # -- per-iteration hooks ------------------------------------------
     def iter_begin(self, it):
+        if self._straggler is not None:
+            self._straggler.mark()
         self._lifecycle = "train"
         if self._watchdog is not None:
             self._watchdog.arm("iter %d" % it)
@@ -1048,6 +1063,12 @@ class RunObserver(NullObserver):
             self._prof.stop()
 
     # -- misc ----------------------------------------------------------
+    def straggler_sample(self, it, value):
+        """Sampled per-rank arrival timing (obs_straggler_every): a fence
+        and a host collective on the cadence, on every rank."""
+        if self._straggler is not None and self._straggler.due(it):
+            self._straggler.sample(self, it, value)
+
     def memory_snapshot(self, it):
         self.event("memory", it=it, devices=device_memory_stats())
 
@@ -1104,6 +1125,8 @@ class RunObserver(NullObserver):
             end["health"] = self.health.summary()
         if self._compile is not None:
             end["compile_attr"] = self._compile.summary()
+        if self._straggler is not None:
+            end["stragglers"] = self._straggler.summary()
         self.event("run_end", **end)
         if self._metrics_path:
             try:

@@ -3,7 +3,8 @@
 The port's copy of the JAX package's ``obs/incident.py`` (pure stdlib).
 Its trace evidence is a ``torch.profiler`` window (obs/profile.py) in
 place of the JAX package's ``jax.profiler`` one; the straggler signal
-comes with the distributed learners (ROADMAP A10).
+is the distributed learners' ``straggler_skew`` health event
+(obs/straggler.py).
 
 The stack has ~a dozen independent detectors — health monitors
 (obs/health.py), SLO burn-rate alerts (obs/serve.py), the straggler

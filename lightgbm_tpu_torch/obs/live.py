@@ -4,8 +4,8 @@ The port's copy of the JAX package's ``obs/live.py`` (pure stdlib, no
 torch import, no device access).  ``obs_http_port=0`` binds an ephemeral
 port, read back from the socket (``RunObserver.live_url``), on
 ``obs_http_addr`` (127.0.0.1 by default).  ``obs watch --ranks`` tails
-per-rank shards, which come with the distributed learners (ROADMAP
-A10): it raises.
+the per-rank shards of a distributed run (discovered by obs/merge.py),
+aligning iterations across the ranks.
 
 Every other obs surface is post-hoc — a JSONL timeline analyzed after
 ``run_end``.  This module is the in-situ half: a stdlib
@@ -668,13 +668,15 @@ def watch(target, once=False, ranks=False, interval_s=0.5, out=None,
         tail = _UrlTail(target)
         tails = [(None, tail)]
     elif ranks:
-        # per-rank shards come with the distributed learners, and their
-        # discovery with obs/merge.py
-        from ..utils.log import LightGBMError
-        raise LightGBMError("obs watch --ranks: per-rank timeline shards "
-                            "and obs/merge.py are not in "
-                            "lightgbm_tpu_torch yet (ROADMAP A10, "
-                            "distributed)")
+        from .merge import _shard_rank_of, discover_shards
+        try:
+            paths = discover_shards(target)
+        except OSError as e:
+            print("error: %s" % e, file=sys.stderr)
+            return 2
+        tails = [(_shard_rank_of(p), _FileTail(p)) for p in paths]
+        print("watching %d shard(s): %s" % (len(paths),
+                                            "  ".join(paths)), file=out)
     else:
         tails = [(None, _FileTail(target))]
 

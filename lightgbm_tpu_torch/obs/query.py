@@ -35,8 +35,12 @@ metrics and renders the subcommands:
 * ``history`` / ``trend [--check]`` -- the cross-run ledger
   (obs/ledger.py).
 
-``stragglers`` and ``merge`` read the per-rank shards of the distributed
-learners, which are not in the port yet: they raise, naming ROADMAP A10.
+* ``stragglers RUN.jsonl`` -- the per-rank arrival skew samples
+  (obs/straggler.py);
+* ``merge RUN.jsonl [-o M.jsonl]`` -- the per-rank shards of a
+  distributed run lined up on iterations and host-collective ``seq``
+  (obs/merge.py): barrier skew a collective, per-rank phase totals, the
+  slowest-rank attribution, and the merged critical-path timeline.
 """
 from __future__ import annotations
 
@@ -45,11 +49,7 @@ import json
 import sys
 import time
 
-from ..utils.log import LightGBMError
 from .events import read_events
-
-UNPORTED_COMMANDS = ("stragglers", "merge")
-
 
 def load_timeline(path, validate=True):
     """Parse and (non-strictly) validate a JSONL timeline."""
@@ -223,7 +223,8 @@ def render_summary(events, out=None):
         w("rank %s of %s  (coordinator-sharded timeline)"
           % (m.get("rank", "?"), m.get("world_size")))
         w("WARNING: this is ONE shard of a multi-rank run -- totals and "
-          "skew below are rank-local")
+          "skew below are rank-local; run `python -m lightgbm_tpu_torch "
+          "obs merge <shard>` for the cross-rank view")
     ips = (" (%.3f iters/sec)" % m["iters_per_sec"]
            if "iters_per_sec" in m else "")
     if m["iters"] or "serve" not in m:
@@ -279,6 +280,30 @@ def render_summary(events, out=None):
              c.get("hist_mode", "?"), c.get("wave_width", "?"),
              "hilo" if c.get("hist_hilo", True) else "bf16",
              " compact" if c.get("compact") else ""))
+
+
+def render_stragglers(events, out=None):
+    out = out or sys.stdout
+    w = lambda s="": out.write(s + "\n")
+    rows = straggler_rows(events)
+    if not rows:
+        w("no straggler events (run a distributed learner with "
+          "obs_straggler_every=N)")
+        return
+    w("%6s %7s %8s  %s" % ("iter", "skew", "slowest", "per-rank wait_s"))
+    for e in rows:
+        waits = "  ".join("%s:%.4f" % (d["id"], d["wait_s"])
+                          for d in e.get("devices", []))
+        w("%6d %6.1f%% %8s  %s" % (e["it"], 100.0 * e.get("skew", 0.0),
+                                   e.get("slowest", "?"), waits))
+    run_end = next((e for e in events if e.get("ev") == "run_end"), None)
+    summ = (run_end or {}).get("stragglers")
+    if summ:
+        w("summary: %d samples, max skew %.1f%% at iter %s, slowest "
+          "counts %s" % (summ.get("samples", 0),
+                         100.0 * summ.get("max_skew", 0.0),
+                         summ.get("max_skew_it", "?"),
+                         summ.get("slowest_counts", {})))
 
 
 def render_recompiles(events, out=None):
@@ -592,17 +617,13 @@ def export_chrome_trace(events, out_path):
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in UNPORTED_COMMANDS:
-        raise LightGBMError(
-            "obs %s reads the per-rank timeline shards of the distributed "
-            "learners, which are not in lightgbm_tpu_torch yet (ROADMAP "
-            "A10, distributed)" % argv[0])
     ap = argparse.ArgumentParser(
         prog="python -m lightgbm_tpu_torch obs",
         description="query obs JSONL timelines")
     sub = ap.add_subparsers(dest="cmd", required=True)
     for name, hlp in (("summary", "headline metrics of the last run"),
                       ("recompiles", "compile_attr events + diffs"),
+                      ("stragglers", "per-rank arrival skew samples"),
                       ("explain", "model & data-quality report: top "
                                   "features, gain margins, findings")):
         p = sub.add_parser(name, help=hlp)
@@ -669,8 +690,8 @@ def main(argv=None):
                    help="render everything currently visible and exit "
                         "(the CI-friendly snapshot mode)")
     p.add_argument("--ranks", action="store_true",
-                   help="tail every .rN shard of a multi-rank run "
-                        "(raises: ROADMAP A10, distributed)")
+                   help="tail every .rN shard of a multi-rank run, "
+                        "iterations aligned across the ranks")
     p.add_argument("--interval", type=float, default=0.5,
                    help="poll interval in seconds (default 0.5)")
     p.add_argument("--max-wall", type=float, default=0.0,
@@ -692,6 +713,13 @@ def main(argv=None):
                    help="write a self-contained HTML flamegraph here")
     p.add_argument("--top", type=int, default=20,
                    help="rows in the terminal top-table (default 20)")
+    p = sub.add_parser("merge", help="cross-rank merge + skew analysis "
+                                     "of per-rank shards")
+    p.add_argument("shards", nargs="+",
+                   help="shard files, or one base/shard path to "
+                        "auto-discover .r* siblings")
+    p.add_argument("-o", "--out", default="",
+                   help="write the merged critical-path timeline here")
     p = sub.add_parser("diff", help="two timelines side by side")
     p.add_argument("baseline")
     p.add_argument("candidate")
@@ -776,6 +804,18 @@ def main(argv=None):
         return 1 if (args.check and active) else 0
 
     try:
+        if args.cmd == "merge":
+            from .merge import (discover_shards, load_shards,
+                                merge_shards, render_report,
+                                write_merged)
+            paths = (list(args.shards) if len(args.shards) > 1
+                     else discover_shards(args.shards[0]))
+            merged, report = merge_shards(load_shards(paths))
+            render_report(report)
+            if args.out:
+                n = write_merged(merged, args.out)
+                print("\nwrote %d merged events -> %s" % (n, args.out))
+            return 0
         if args.cmd == "diff":
             a = last_run(load_timeline(args.baseline))
             b = last_run(load_timeline(args.candidate))
@@ -791,6 +831,8 @@ def main(argv=None):
         thrash = render_recompiles(events)
         if args.check and thrash:
             return 1
+    elif args.cmd == "stragglers":
+        render_stragglers(events)
     elif args.cmd == "explain":
         bad = render_explain(events)
         if args.check and bad:

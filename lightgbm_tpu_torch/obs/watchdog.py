@@ -3,9 +3,9 @@
 The port's copy of the JAX package's ``obs/watchdog.py`` (pure stdlib
 there too; device memory comes from obs/memory.py through
 ``torch.cuda``).  The port trains in one process, so its watchdog is
-armed by per-iteration progress and by the serve worker around each
-runner call; the host collectives below come with the distributed
-learners (ROADMAP A10).
+armed by per-iteration progress, by the serve worker around each
+runner call, and around each host collective of the distributed
+learners (parallel/comm.py ``_CollectiveGuard``).
 
 The failure mode a pod gets for free is a collective that never
 returns: one rank dies or stalls, every other rank parks inside the

@@ -56,12 +56,14 @@ from .histogram import weight_rows
 from .leaf_hist import leaf_histogram
 from .predict import score_update, update_score_from_partition
 from .sparse_mxu import sparse_wave_histogram
-from .wave_kernels import (fixed_point_exponents, wave_histogram,
-                           wave_histogram_rowmajor, wave_partition_hist)
+from .wave_kernels import (finish_hist, fixed_point_exponents,
+                           wave_histogram, wave_histogram_rowmajor,
+                           wave_partition_hist)
 
-# every kernel wrapper that counts its launches
+# every kernel wrapper that counts its launches (finish_hist: the
+# conversion alone, which only the distributed learners launch)
 KERNELS = (wave_partition_hist, wave_histogram, wave_histogram_rowmajor,
-           leaf_histogram, sparse_wave_histogram, score_update)
+           leaf_histogram, sparse_wave_histogram, score_update, finish_hist)
 # each wrapper's count, and the counts of its packed and bf16 forms
 COUNTERS = ([(k, None) for k in KERNELS]
             + [(k, form) for k in KERNELS
@@ -102,9 +104,13 @@ def fused_supported(booster) -> tuple:
     iteration (DART and InfiniteBoost override it) and its own bagging
     (GOSS overrides ``_bagging_with_grad`` to rescale the gradients), one
     tree an iteration, a built-in objective, the serial learner (under
-    wave or exact growth), and no health monitors (obs_health)."""
+    wave or exact growth), and no health monitors (obs_health).  The
+    distributed learners run staged, which keeps every collective
+    outside the CUDA graphs (capturing NCCL is later work)."""
     from ..models.gbdt import GBDT
     from .learner import SerialTreeLearner
+    if getattr(booster.learner, "comm", None) is not None:
+        return False, "distributed learner"
     if type(booster).train_one_iter is not GBDT.train_one_iter:
         return False, "boosting mode overrides train_one_iter (dart)"
     if type(booster)._bagging_with_grad is not GBDT._bagging_with_grad:

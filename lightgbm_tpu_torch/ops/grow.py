@@ -20,7 +20,16 @@ batch of splits certain to commit.  With ``hist_mode`` 'onehot' or
 (``ops/histogram.py engine_histogram``) over the masked rows, and the
 bins may be 4-bit packed, as the JAX package packs them on those
 engines; its capacity tiers (a gather of each leaf's rows) are not
-ported, nor are the feature-parallel and voting arms.  On the
+ported.  Under a comm (``parallel/comm.py``) the growers run the JAX
+package's distributed arms: the base ``Grower`` under a comm is the
+data-parallel arm, which all-reduces the root
+sums and every histogram, the kernels' fixed-point sums before their
+conversion (``Grower._reduce_hist``), with the exponents of the global
+row count and |w| maximum (``Grower.exponents``); ``VotingGrower`` keeps
+local histograms and all-reduces only the features the ranks vote for;
+``FeatureParallelGrower`` holds every row of a block of features, folds
+the ranks' best splits and takes the go-left mask of the rank that owns
+the split's feature.  On the
 coordinate sparse store (``ops/sparse_store.py``, ``hist_mode``
 'sparse') a leaf histogram is one integer segment sum over the store's
 entries (``sparse_leaf_hist``) and the split column comes from the
@@ -45,9 +54,11 @@ from .split_finder import (DEFAULT_BIN_FOR_ZERO, FEATURE, GAIN, IS_CAT,
                            LEFT_COUNT, LEFT_OUTPUT, LEFT_SUM_G, RIGHT_COUNT,
                            RIGHT_OUTPUT, RIGHT_SUM_G, SECOND_FEATURE,
                            SECOND_GAIN, SPLIT_VEC_SIZE, THRESHOLD,
-                           FeatureMeta, SplitParams, best_splits_batched)
-from .wave_kernels import (bins_i32, fixed_point_exponents, indexable,
-                           list_workspace)
+                           FeatureMeta, SplitParams, best_splits_batched,
+                           depth_gate, find_best_splits,
+                           per_feature_candidates)
+from .wave_kernels import (bins_i32, finish_hist, fixed_point_exponents,
+                           indexable, list_workspace)
 
 
 @dataclass
@@ -298,7 +309,12 @@ class Grower:
     def __init__(self, X, meta: FeatureMeta, bundle, *, num_leaves: int,
                  num_bins: int, params: SplitParams, max_depth: int,
                  group_bins: int = 0, cache_hists: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, comm=None,
+                 global_rows: Optional[int] = None):
+        """comm: the ranks' HostComm (None, or one rank: serial growth),
+        each rank holding a block of the rows (global_rows: their
+        total); the histograms are the ranks' sum (data parallelism;
+        the voting and feature arms are subclasses)."""
         self.X, self.meta, self.bundle = X, meta, bundle
         self.L = num_leaves
         self.num_bins = num_bins
@@ -306,6 +322,53 @@ class Grower:
         self.params, self.max_depth = params, max_depth
         self.cache_hists = cache_hists
         self.dtype = dtype
+        self.comm = comm if comm is not None and comm.size > 1 else None
+        # rows sharded over the ranks: the sums and exponents are global
+        self.row_comm = self.comm
+        self.global_rows = global_rows
+
+    @property
+    def defer(self) -> bool:
+        """Whether a data-parallel histogram all-reduces the kernels'
+        fixed-point sums before their conversion: the dense kernels'
+        f32 form.  The f64 form keeps 128-bit sums in two words, which a
+        word-wise sum would not carry, so it all-reduces its finished
+        float64 histograms (as the JAX package psums); so do the XLA
+        engines and the plain versions, in the weights' dtype."""
+        return (self.comm is not None and not self.sparse
+                and self.hist_mode not in ENGINE_MODES
+                and self.dtype != torch.float64)
+
+    def _reduce_hist(self, compute, ids, exps):
+        """compute(finish) -> this rank's histograms of leaves ids; under
+        a comm the ranks' sum: the deferred-finish form's int64 sums
+        all-reduced exactly, then ``finish_hist`` (two's-complement
+        addition is exact and order-free, so every rank holds the serial
+        kernel's histogram over all rows), or the finished histograms
+        all-reduced."""
+        if self.comm is None:
+            return compute(True)
+        return self._finish_reduced(compute(not self.defer), ids, exps)
+
+    def _finish_reduced(self, out, ids, exps):
+        """All-reduce a launch's output (sums, or a histogram) over the
+        ranks, and convert it when it is the sums."""
+        self.comm.all_reduce_(out)
+        return finish_hist(out, ids, exps) if self.defer else out
+
+    def exponents(self, w3):
+        """The tree's fixed-point exponents: of the global row count and
+        the all-reduced maximum of |w3| when the rows are sharded, so
+        every rank holds the serial run's."""
+        if self.row_comm is None:
+            return fixed_point_exponents(w3)
+        amax = (w3.abs().amax(dim=0) if w3.shape[0]
+                else torch.zeros(3, dtype=w3.dtype, device=w3.device))
+        self.row_comm.all_reduce_(amax, "max")
+        # kept for the voting arm's conversions of its sums
+        self.exps = fixed_point_exponents(w3, rows=self.global_rows,
+                                          amax=amax)
+        return self.exps
 
     def new_state(self, n: int, dev) -> GrowState:
         """Buffers for growing trees over n rows on dev (set by ``root``;
@@ -313,7 +376,7 @@ class Grower:
         written is read only by masked-off slots)."""
         L, ft, i32 = self.L, self.dtype, torch.int32
         hists = (torch.zeros((L + 1, self.hist_cols, self.hist_bins, 3),
-                             dtype=ft, device=dev)
+                             dtype=self._cache_dtype(dev), device=dev)
                  if self.cache_hists else torch.empty(0, device=dev))
         work = (list_workspace(n, self.slots, self.hist_cols,
                                self.hist_bins, dev, ft == torch.float64)
@@ -330,6 +393,10 @@ class Grower:
             status=torch.empty(4, dtype=i32, device=dev), work=work,
             waves=(torch.empty((), dtype=i32, device=dev)
                    if self.counts_waves else None))
+
+    def _cache_dtype(self, dev):
+        """The dtype of the leaves' cached histograms: the grower's."""
+        return self.dtype
 
     def _root_hists(self, st, lid, ids, w3, exps):
         """The root's histogram (one child slot): _child_hists'."""
@@ -354,6 +421,8 @@ class Grower:
         dev, i32 = w3.device, torch.int32
         st.leaf_id.zero_()
         root_sums = w3.sum(dim=0)
+        if self.row_comm is not None:
+            self.row_comm.all_reduce_(root_sums)
         hist0 = self._root_hists(st, st.leaf_id,
                                  torch.zeros(1, dtype=i32, device=dev), w3,
                                  exps)[0]
@@ -410,17 +479,40 @@ class ExactGrower(Grower):
     def _child_hists(self, st, lid, ids, w3, exps):
         """B5, the XLA engine or the coordinate store's segment sum: the
         (1, G, B, 3) histogram of the rows in leaf ids, a (1,) device
-        tensor (-1: no row, a zero histogram)."""
+        tensor (-1: no row, a zero histogram); all ranks' rows under the
+        data-parallel learner."""
         if self.sparse:
             return sparse_leaf_hist(self.X, lid, w3, ids, self.hist_bins,
                                     self.hist_cols, exps)[None]
         if self.hist_mode in ENGINE_MODES:
-            return engine_histogram(self.hist_mode, self.X, lid, w3,
-                                    ids.to(torch.int32), self.hist_bins,
-                                    exps, self.packed_cols)
-        return leaf_histogram(self.X, None, None, lid, ids, None,
-                              self.hist_bins, w3=w3, exps=exps,
-                              work=st.work)[None]
+            return self._reduce_hist(lambda finish: engine_histogram(
+                self.hist_mode, self.X, lid, w3, ids.to(torch.int32),
+                self.hist_bins, exps, self.packed_cols), ids, exps)
+
+        def b5(finish):
+            h = leaf_histogram(self.X, None, None, lid, ids, None,
+                               self.hist_bins, w3=w3, exps=exps,
+                               work=st.work, finish=finish)
+            # the deferred form's int64 sums are (1, G, B, 3) already
+            return h if h.dtype == torch.int64 else h[None]
+        return self._reduce_hist(b5, ids.to(torch.int32), exps)
+
+    def _go_left(self, sp: SplitFields, n: int):
+        """(N,) bool: the rows that go left at split sp (dense_bin.hpp:
+        190-222): its column, remapped out of its EFB group, against the
+        threshold, the default bin routed by default_left."""
+        bundle = self.bundle
+        f = sp.feature
+        j = f if bundle is None else bundle.group_of[f].long()
+        col = self._split_column(j, n)
+        if bundle is not None:
+            goff, span, adj = (a[f] for a in (
+                bundle.bin_off, bundle.bin_span, bundle.bin_adj))
+            col = torch.where((col >= goff) & (col < goff + span),
+                              col - goff + adj, sp.fdef)
+        go_left = torch.where(sp.is_cat, col == sp.threshold,
+                              col <= sp.threshold)
+        return torch.where(col == sp.fdef, sp.dleft, go_left)
 
     def _split_column(self, j, n: int):
         """(N,) int32: each of the n rows' bin in device column j, a (1,)
@@ -438,7 +530,7 @@ class ExactGrower(Grower):
         """One gated split (SerialTreeLearner::Train, :203-207): split the
         leaf of largest gain if its gain is positive and the tree has
         room, with no host read."""
-        L, bundle = self.L, self.bundle
+        L = self.L
         i32 = torch.int32
         bl = torch.argmax(st.bests[:L, GAIN]).reshape(1)   # (1,) long
         info = st.bests.index_select(0, bl)                # (1, V)
@@ -449,17 +541,7 @@ class ExactGrower(Grower):
 
         # ---- partition (dense_bin.hpp:190-222): the split column,
         # remapped out of its EFB group, routes the leaf's rows
-        f = sp.feature
-        j = f if bundle is None else bundle.group_of[f].long()
-        col = self._split_column(j, st.leaf_id.shape[0])
-        if bundle is not None:
-            goff, span, adj = (a[f] for a in (
-                bundle.bin_off, bundle.bin_span, bundle.bin_adj))
-            col = torch.where((col >= goff) & (col < goff + span),
-                              col - goff + adj, sp.fdef)
-        go_left = torch.where(sp.is_cat, col == sp.threshold,
-                              col <= sp.threshold)
-        go_left = torch.where(col == sp.fdef, sp.dleft, go_left)
+        go_left = self._go_left(sp, st.leaf_id.shape[0])
         st.leaf_id.copy_(torch.where(ok & (st.leaf_id == bl.to(i32))
                                      & ~go_left, new_leaf.to(i32),
                                      st.leaf_id))
@@ -502,11 +584,186 @@ class ExactGrower(Grower):
         return super()._done(st) | ~(st.bests[:self.L, GAIN] > 0.0).any()
 
 
+class VotingGrower(ExactGrower):
+    """The voting-parallel arm of exact growth (PV-Tree,
+    voting_parallel_tree_learner.cpp:164-300; JAX ``ops/grow.py``
+    ``best_of_voting``): the rows are sharded as under the data-parallel
+    learner, but a leaf's histogram stays this rank's.  Each rank
+    proposes its top_k features by gain (less its own gain shift)
+    weighted by its share of the leaf's rows, with min_data_in_leaf and
+    min_sum_hessian_in_leaf divided by the number of ranks; a ``max``
+    all-reduce of the (F,) proposals and the global top_k pick the
+    features whose histograms, alone, are summed over the ranks; the
+    split is the best of those.  Equal to data-parallel growth when
+    top_k covers every feature."""
+
+    def __init__(self, X, meta, bundle, *, voting_k: int, **kw):
+        super().__init__(X, meta, bundle, **kw)
+        self.voting_k = int(voting_k)
+        machines = self.comm.size if self.comm is not None else 1
+        self.machines = machines
+        p = self.params
+        self.local_params = p._replace(
+            min_data_in_leaf=p.min_data_in_leaf / machines,
+            min_sum_hessian_in_leaf=p.min_sum_hessian_in_leaf / machines)
+
+    @property
+    def defer(self) -> bool:
+        """The dense kernels' int64 sums stand for the leaves' histograms
+        without an EFB layout (whose per-feature view rebuilds the
+        default bin from float totals); with one, the f32 histograms."""
+        return super().defer and self.bundle is None
+
+    def _reduce_hist(self, compute, ids, exps):
+        """A leaf's histogram stays this rank's: its unconverted sums
+        where they can be added exactly (a copy: the sums live in the
+        workspace the next launch reuses)."""
+        if self.comm is None:
+            return compute(True)
+        out = compute(not self.defer)
+        return out.clone() if self.defer else out
+
+    def _cache_dtype(self, dev):
+        """On the card the leaves' unconverted int64 sums are cached (a
+        larger child is the parent's less the smaller's, exactly)."""
+        return (torch.int64 if self.defer and dev.type == "cuda"
+                else self.dtype)
+
+    def _best_of(self, hists_k, sums_k, depths_k, feature_mask):
+        """The K leaves' votes and their selected histograms each travel
+        in one collective (a (K, F) max, a (K, k, B, 3) sum).  On the
+        card hists_k holds the kernels' int64 sums: the proposals read
+        their conversion, and the selected features' sums are added over
+        the ranks exactly and then converted, so a selected histogram is
+        the serial kernel's to the bit; elsewhere the f32 histograms are
+        summed."""
+        meta, bundle = self.meta, self.bundle
+        ninf = -float("inf")
+        exact = hists_k.dtype == torch.int64
+        slots = torch.arange(hists_k.shape[0], dtype=torch.int32,
+                             device=hists_k.device)
+        local = finish_hist(hists_k, slots, self.exps) if exact else hists_k
+        # each rank's leaf totals: one column's bins hold every row
+        local_sums = local[:, 0].sum(dim=1)                   # (K, 3)
+        hist = feature_hist_view(local, local_sums, meta, bundle)
+        K, F = hist.shape[0], hist.shape[1]
+        k = min(self.voting_k, F)
+        cand, _, _, _, shift = per_feature_candidates(
+            hist, local_sums, meta, self.local_params)
+        gains = (cand.gain - shift[:, None]).masked_fill(
+            ~feature_mask[None, :], ninf)                     # (K, F)
+        mean_cnt = torch.clamp(sums_k[:, 2] / self.machines, min=1.0)
+        weighted = gains * (local_sums[:, 2] / mean_cnt)[:, None]
+        weighted = torch.where(torch.isfinite(gains), weighted,
+                               torch.full_like(weighted, ninf))
+        kth = torch.topk(weighted, k, dim=1).values[:, -1:]
+        proposal = torch.where(weighted >= kth, weighted,
+                               torch.full_like(weighted, ninf))
+        self.comm.all_reduce_(proposal, "max")
+        sel = torch.sort(proposal, dim=1, descending=True,
+                         stable=True).indices[:, :k]          # (K, k)
+        src = hists_k if exact else hist
+        hist_sel = torch.gather(
+            src, 1, sel[:, :, None, None].expand(-1, -1, *src.shape[2:])
+        ).contiguous()                                        # (K, k, B, 3)
+        self.comm.all_reduce_(hist_sel)
+        if exact:
+            hist_sel = finish_hist(hist_sel, slots, self.exps)
+        out = []
+        for i in range(K):
+            si = sel[i]
+            sub = FeatureMeta(num_bin=meta.num_bin[si],
+                              default_bin=meta.default_bin[si],
+                              is_categorical=meta.is_categorical[si])
+            b = find_best_splits(hist_sel[i:i + 1], sums_k[i:i + 1], sub,
+                                 feature_mask[si], self.params)
+            fl = b[:, FEATURE].long().clamp(0, k - 1)
+            b[:, FEATURE] = si[fl].to(b.dtype)
+            sf = b[:, SECOND_FEATURE]
+            b[:, SECOND_FEATURE] = torch.where(
+                sf >= 0, si[sf.long().clamp(0, k - 1)].to(b.dtype), sf)
+            out.append(b)
+        return depth_gate(torch.cat(out), depths_k, self.max_depth)
+
+
+class FeatureParallelGrower(ExactGrower):
+    """The feature-parallel arm of exact growth
+    (feature_parallel_tree_learner.cpp:52-76; JAX ``ops/grow.py``
+    ``best_of_feature_parallel``): every rank holds all rows of a
+    contiguous block of features (X (N, F_local) row-major, features
+    [offset, offset + F_local) of the padded F; padded features take one
+    bin and never split).  A rank finds the best split of its block; an
+    all-gather of the packed splits and a strict-``>`` fold over the ranks
+    (the earlier rank keeps a tie: the smaller feature index, as
+    SplitInfo::MaxReducer) pick the global one, and the rank that owns its
+    feature computes the rows' go-left mask, which a ``max`` all-reduce
+    hands to every rank.  ``meta`` is the padded global metadata,
+    ``local_meta`` the block's."""
+
+    def __init__(self, X, meta, bundle, *, local_meta: FeatureMeta,
+                 feature_offset: int, **kw):
+        super().__init__(X, meta, bundle, **kw)
+        # every rank holds all rows: its sums and exponents are the serial
+        # ones, and its histograms (of its own features) are its own
+        self.row_comm = None
+        self.local_meta = local_meta
+        self.offset = int(feature_offset)
+
+    def _reduce_hist(self, compute, ids, exps):
+        return compute(True)
+
+    def _best_of(self, hists_k, sums_k, depths_k, feature_mask):
+        lo, fl = self.offset, self.hist_cols
+        b = find_best_splits(hists_k, sums_k, self.local_meta,
+                             feature_mask[lo:lo + fl], self.params)
+        b[:, FEATURE] += lo
+        sf = b[:, SECOND_FEATURE]
+        b[:, SECOND_FEATURE] = torch.where(sf >= 0, sf + lo, sf)
+        gathered = self.comm.all_gather(b)               # (R, K, V)
+        best = gathered[0]
+        for other in gathered[1:]:
+            take = other[:, GAIN] > best[:, GAIN]
+            win = torch.where(take[:, None], other, best)
+            lose = torch.where(take[:, None], best, other)
+            # merged runner-up: the loser's winner competes with the
+            # winner's own runner-up
+            use = (torch.isfinite(lose[:, GAIN]) & (lose[:, GAIN] > 0.0)
+                   & (lose[:, GAIN] > win[:, SECOND_GAIN]))
+            win[:, SECOND_GAIN] = torch.where(use, lose[:, GAIN],
+                                              win[:, SECOND_GAIN])
+            win[:, SECOND_FEATURE] = torch.where(use, lose[:, FEATURE],
+                                                 win[:, SECOND_FEATURE])
+            best = win
+        return depth_gate(best.clone(), depths_k, self.max_depth)
+
+    def _go_left(self, sp: SplitFields, n: int):
+        lo, fl = self.offset, self.hist_cols
+        f = sp.feature
+        own = (f >= lo) & (f < lo + fl)
+        col = self._split_column((f - lo).clamp(0, fl - 1), n)
+        go_left = torch.where(sp.is_cat, col == sp.threshold,
+                              col <= sp.threshold)
+        go_left = torch.where(col == sp.fdef, sp.dleft, go_left)
+        mask = (go_left & own).to(torch.uint8)
+        self.comm.all_reduce_(mask, "max")
+        return mask > 0
+
+
+def exact_grower_class(parallel: str, comm):
+    """The exact grower of a learner: voting and feature parallelism
+    have arms of their own; data parallelism is ExactGrower's comm."""
+    if comm is None or comm.size <= 1:
+        return ExactGrower
+    return {"voting": VotingGrower,
+            "feature": FeatureParallelGrower}.get(parallel, ExactGrower)
+
+
 def grow_tree_exact(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
                     bundle, *, num_leaves: int, num_bins: int,
                     params: SplitParams, max_depth: int, group_bins: int = 0,
                     cache_hists: bool = True, hist_mode: str = "pallas",
-                    packed_cols: int = 0, dtype=torch.float32):
+                    packed_cols: int = 0, dtype=torch.float32, comm=None,
+                    parallel: str = "data", **dist_kw):
     """Grow one tree leaf-wise, staged: an ExactGrower's gated split with
     one host read a batch of splits certain to commit.  X: (N, G) uint8
     or uint16 row-major bins; grad/hess/row_mult: (N,) in dtype (float32,
@@ -518,19 +775,27 @@ def grow_tree_exact(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     most one a split.  One host read of that count P therefore lets the
     next min(P, budget) splits run unread, each certain to commit (its
     gate always true); a further read when they are done, and the loop
-    stops when P is 0 or the tree is full."""
+    stops when P is 0 or the tree is full.
+
+    comm, parallel ('data', 'voting', 'feature') and dist_kw
+    (global_rows; voting_k; local_meta and feature_offset): the
+    distributed arms (``exact_grower_class``).  The
+    ranks hold the same best splits, so they read the same counts and
+    make the same collectives."""
     L = num_leaves
-    g = ExactGrower(X, meta, bundle, num_leaves=L, num_bins=num_bins,
-                    params=params, max_depth=max_depth,
-                    group_bins=group_bins, cache_hists=cache_hists,
-                    hist_mode=hist_mode, packed_cols=packed_cols,
-                    dtype=dtype)
+    cls = exact_grower_class(parallel, comm)
+    if cls is ExactGrower:
+        dist_kw = {"global_rows": dist_kw.get("global_rows")}
+    g = cls(X, meta, bundle, num_leaves=L, num_bins=num_bins,
+            params=params, max_depth=max_depth, group_bins=group_bins,
+            cache_hists=cache_hists, hist_mode=hist_mode,
+            packed_cols=packed_cols, dtype=dtype, comm=comm, **dist_kw)
     st = g.new_state(grad.shape[0], grad.device)
     # B5's weight rows and fixed-point exponents, once a tree as the wave
     # grower makes them: every leaf histogram of the tree, and wave
     # growth's at width 1, then sums the same rows to the same bits
     w3 = weight_rows(grad, hess, row_mult)
-    exps = fixed_point_exponents(w3)
+    exps = g.exponents(w3)
     g.root(st, w3, exps, feature_mask)
     nn = host_reads = 0
     while True:

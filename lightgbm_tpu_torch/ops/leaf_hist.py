@@ -35,7 +35,8 @@ from .. import _build
 from ..utils.log import LightGBMError
 from .histogram import _weights, weight_rows
 from .wave_kernels import (BIN_DTYPES, MAX_BINS, WEIGHT_DTYPES, _exps,
-                           _list_buffers, _sms, check_rows, hist_plan,
+                           _list_buffers, _sms, _sums_view, check_rows,
+                           hist_plan,
                            histogram_plain, wave_histogram_rowmajor_plain)
 
 
@@ -105,24 +106,30 @@ def _check(X, grad, hess, leaf_id, row_mult, num_bins, w3, exps):
         check_rows(N)
 
 
-def _launch(X, w3, leaf_id, leaf_t, num_bins, exps, plan, work=None):
+def _launch(X, w3, leaf_id, leaf_t, num_bins, exps, plan, work=None,
+            finish=True):
     """The select pass, the histogram pass and the conversion on plan
-    (hist_plan's first six fields); returns the (F, B, 3) histogram."""
+    (hist_plan's first six fields); returns the (F, B, 3) histogram, or
+    with finish False the (1, F, B, 3) fixed-point sums (an int64 view
+    of the workspace; ``wave_kernels.finish_hist`` converts them)."""
     N, F = X.shape
     B = int(num_bins)
     wide = w3.dtype == torch.float64
     rows, acc, work, hist = _list_buffers(N, 1, F, B, X.device, (F, B, 3),
-                                          work, wide)
+                                          work, wide, finish)
     err = _build.library().lgbt_wave_hist(
         *[t.data_ptr() for t in (X, leaf_id, w3, leaf_t, exps)], rows, acc,
-        hist.data_ptr(), F, N, B, 1, *plan, 1, 0, 0,
-        int(X.dtype == torch.uint16), int(wide), _build.stream(X.device))
+        0 if hist is None else hist.data_ptr(), F, N, B, 1, *plan, 1, 0, 0,
+        int(X.dtype == torch.uint16), int(wide), int(finish),
+        _build.stream(X.device))
     _build.check(err, "leaf_hist")
+    if not finish:
+        return _sums_view(work, N, 1, F, B, wide)
     return hist
 
 
 def leaf_histogram(X, grad, hess, leaf_id, leaf, row_mult, num_bins: int,
-                   *, w3=None, exps=None, work=None):
+                   *, w3=None, exps=None, work=None, finish: bool = True):
     """Leaf histogram (kernel B5): the (F, B, 3) histogram of the rows
     whose leaf id is ``leaf`` (an int or a one-element integer tensor on
     X's device), weighted by row_mult (None for all ones).
@@ -139,7 +146,13 @@ def leaf_histogram(X, grad, hess, leaf_id, leaf, row_mult, num_bins: int,
     The kernel runs on B4's plan at K = 1, planned from N: a small leaf's
     short list takes fewer of the plan's shares on the device
     (csrc/wave_fused.cu kMinShareRows), so no call reads the leaf's row
-    count back to the host."""
+    count back to the host.
+
+    finish=False is the deferred-finish form: the kernel stops before the
+    conversion and returns the (1, F, B, 3) int64 fixed-point sums (a
+    view of the workspace), which a distributed learner adds over the
+    ranks before ``wave_kernels.finish_hist``; the plain version returns
+    its (F, B, 3) histogram either way."""
     _check(X, grad, hess, leaf_id, row_mult, num_bins, w3, exps)
     leaf_t = _leaf_tensor(leaf, X.device)
     if X.device.type == "cpu":
@@ -156,15 +169,16 @@ def leaf_histogram(X, grad, hess, leaf_id, leaf, row_mult, num_bins: int,
     plan = hist_plan(F, N, int(num_bins), 1, _sms(X.device), False,
                      w3.dtype == torch.float64)[:6]
     out = _launch(X, w3, leaf_id, leaf_t, num_bins, _exps(w3, exps), plan,
-                  work)
+                  work, finish)
     leaf_histogram.launches += 1
     for form, on in (("uint16", X.dtype == torch.uint16),
-                     ("f64", w3.dtype == torch.float64)):
+                     ("f64", w3.dtype == torch.float64),
+                     ("deferred", not finish)):
         if on:
             leaf_histogram.form_launches[form] += 1
     return out
 
 
 leaf_histogram.launches = 0
-# the launches of its uint16 and f64 forms
-leaf_histogram.form_launches = {"uint16": 0, "f64": 0}
+# the launches of its uint16, f64 and deferred-finish forms
+leaf_histogram.form_launches = {"uint16": 0, "f64": 0, "deferred": 0}

@@ -122,6 +122,12 @@ def build_split_params(config: Config) -> SplitParams:
     )
 
 
+# the distributed learners' tree_learner values (parallel/mesh.py); with
+# one rank each trains as the serial learner
+DISTRIBUTED_LEARNERS = ("data", "voting", "feature", "data_parallel",
+                        "voting_parallel", "feature_parallel")
+
+
 def _unsupported(knob: str, value) -> None:
     Log.fatal("%s=%s selects an engine lightgbm_tpu_torch does not have "
               "yet (this port runs serial wave or exact growth with its "
@@ -199,7 +205,7 @@ def check_engine_params(config: Config):
 
     sparse = resolve_sparse(config)
     checks = [
-        ("tree_learner", ("serial",)),
+        ("tree_learner", ("serial",) + DISTRIBUTED_LEARNERS),
         ("tpu_growth", ("auto", "wave", "exact")),
         ("tpu_histogram_mode", ("auto", "pallas", "pallas_ct", "pallas_t")
          + ENGINE_MODES),
@@ -234,16 +240,19 @@ def resolve_bin_pack(config: Config, growth: str, sparse: bool,
                      bins_per_col, hist_mode: str = "") -> bool:
     """Pack the bins 4-bit where the JAX package packs them (its
     ops/learner.py): tpu_bin_pack auto or true, wave growth or exact
-    growth on the onehot/scatter engines, the dense matrix, the serial
-    learner (the only one the port has) and at most 16 bins in every
-    device column.  A forced true that cannot be honoured warns, as
-    there, with its reasons."""
+    growth on the onehot/scatter engines, the dense matrix,
+    ``tree_learner=serial`` (the distributed learners keep byte bins,
+    even when one rank falls back to the serial learner) and at most 16
+    bins in every device column.  A forced true that cannot be honoured
+    warns, as there, with its reasons."""
     cfg = _val(config, "tpu_bin_pack")
     forced = cfg in _TRUE_SET
     fits = can_pack4(bins_per_col)
     growth_ok = growth == "wave" or (growth == "exact"
                                      and hist_mode in ENGINE_MODES)
-    if (forced or cfg == "auto") and growth_ok and not sparse and fits:
+    serial = _val(config, "tree_learner") == "serial"
+    if ((forced or cfg == "auto") and growth_ok and not sparse and fits
+            and serial):
         return True
     if forced:
         reasons = []
@@ -253,6 +262,8 @@ def resolve_bin_pack(config: Config, growth: str, sparse: bool,
         elif not growth_ok:
             reasons.append("wave growth or exact growth with the "
                            "onehot/scatter histogram kernels")
+        if not serial:
+            reasons.append("the serial (single-shard) learner")
         if not fits:
             reasons.append("at most 16 bins per column (max_bin<=15 plus "
                            "the reserved zero/missing bin)")
@@ -339,12 +350,18 @@ def paged_device_matrix(train_data: TrainingData, row_major: bool, device):
 
 
 class SerialTreeLearner:
+    # the distributed learners of parallel/mesh.py say True
+    distributed = False
+    # whether a reader-backed dataset pages its shards to the card
+    pages = True
+
     def __init__(self, config: Config, train_data: TrainingData, device,
                  device_store=None):
         """``device_store``: a sparse store of train_data built by an
         earlier learner (reset_config), reused where this learner runs
         the same kind of store."""
         self.sparse_mode, self.growth = check_engine_params(config)
+        self.growth = self._resolve_growth(config, self.growth)
         self.sparse = bool(self.sparse_mode)
         self.config = config
         # the histograms', split search's and trees' dtype
@@ -354,22 +371,7 @@ class SerialTreeLearner:
         self.num_leaves = config.num_leaves
         self.num_bins = (int(train_data.num_bin_arr.max())
                          if train_data.num_features else 2)
-        if train_data.num_features == 0:
-            # every feature was trivial: one constant dummy column still
-            # yields the boost-from-average stump, as in the reference
-            self.meta = FeatureMeta(
-                num_bin=torch.tensor([2], dtype=torch.int32, device=device),
-                default_bin=torch.tensor([0], dtype=torch.int32,
-                                         device=device),
-                is_categorical=torch.tensor([False], device=device))
-        else:
-            self.meta = FeatureMeta(
-                num_bin=torch.as_tensor(train_data.num_bin_arr,
-                                        device=device),
-                default_bin=torch.as_tensor(train_data.default_bin_arr,
-                                            device=device),
-                is_categorical=torch.as_tensor(
-                    train_data.is_categorical_arr, device=device))
+        self.meta = self._feature_meta(train_data, device)
         self.params = build_split_params(config)
         self.bundle_arrays, self.group_bins = build_bundle_arrays(
             train_data, device)
@@ -417,7 +419,7 @@ class SerialTreeLearner:
         # how the bins reached the device (the paged upload's shards,
         # bytes and seconds, or the one-shot upload's)
         self.upload_stats = None
-        if not self.sparse and not self.packed_cols:
+        if not self.sparse and not self.packed_cols and self.pages:
             # a reader-backed dataset pages its shards to the card (the
             # JAX package pages byte bins only; packed bins and the
             # sparse store read train_data.binned)
@@ -464,7 +466,7 @@ class SerialTreeLearner:
                                  "seconds": time.perf_counter() - t0}
         self._ones = torch.ones(train_data.num_data, dtype=self.dtype,
                                 device=device)
-        self._full_mask = torch.ones(max(train_data.num_features, 1),
+        self._full_mask = torch.ones(self.meta.num_bin.shape[0],
                                      dtype=torch.bool, device=device)
         # feature_fraction RNG persists across trees
         # (serial_tree_learner.cpp:40-96 Init + :257-275 BeforeTrain)
@@ -475,6 +477,29 @@ class SerialTreeLearner:
         # recorded once set_observer attaches the run's observer
         self._pending_events = []
         self._autotune(config, ncols, nbins)
+
+    def _resolve_growth(self, config: Config, growth: str) -> str:
+        """The growth schedule: the serial resolution (the voting and
+        feature-parallel learners run exact growth)."""
+        return growth
+
+    @staticmethod
+    def _feature_meta(train_data: TrainingData, device) -> FeatureMeta:
+        """The device FeatureMeta of the used features."""
+        if train_data.num_features == 0:
+            # every feature was trivial: one constant dummy column still
+            # yields the boost-from-average stump, as in the reference
+            return FeatureMeta(
+                num_bin=torch.tensor([2], dtype=torch.int32, device=device),
+                default_bin=torch.tensor([0], dtype=torch.int32,
+                                         device=device),
+                is_categorical=torch.tensor([False], device=device))
+        return FeatureMeta(
+            num_bin=torch.as_tensor(train_data.num_bin_arr, device=device),
+            default_bin=torch.as_tensor(train_data.default_bin_arr,
+                                        device=device),
+            is_categorical=torch.as_tensor(train_data.is_categorical_arr,
+                                           device=device))
 
     # --------------------------------------------------------- autotuning
     def _autotune(self, config: Config, ncols: int, nbins: int) -> None:
@@ -504,8 +529,12 @@ class SerialTreeLearner:
                        or self.dtype == torch.float64),
             compact="tpu_wave_compact" in config.raw,
             fused=_val(config, "tpu_fused_iter") != "auto")
+        # the distributed learners keep the prior: a probe would run the
+        # ranks' collectives (and the kernels give the same bits either
+        # way)
         eligible = (self.growth == "wave" and not self.sparse
-                    and self.hist_mode in at.WAVE_ONLY_MODES)
+                    and self.hist_mode in at.WAVE_ONLY_MODES
+                    and not self.distributed)
         before = _counts()
         dec = at.decide(config, bucket, prior, pins, eligible,
                         probe=self._make_autotune_probe() if eligible
@@ -624,7 +653,8 @@ class SerialTreeLearner:
             return self._full_mask
         used_cnt = int(f * self.config.feature_fraction)
         idx = self._feature_rng.sample(f, used_cnt)
-        mask = np.zeros(f, dtype=bool)
+        # the padded features of the feature-parallel learner stay off
+        mask = np.zeros(self._full_mask.shape[0], dtype=bool)
         mask[idx] = True
         return torch.as_tensor(mask, device=self.device)
 

@@ -482,3 +482,11 @@ def ranked_predict(trees: RankedTrees, V, D, tree_block=None):
 def ranked_leaf_indices(trees: RankedTrees, V, D):
     """(N, T) int32 leaf index a tree: the routing-exactness probe."""
     return ranked_leaves(trees, V, D, 0, trees.num_trees)
+
+
+def ranked_predict_sharded(*args, **kwargs):
+    """Row-sharded bulk prediction over several devices (JAX
+    ``ops/predict.py ranked_predict_sharded``): not in the port yet; a
+    process predicts on its one card (``ranked_predict``)."""
+    raise LightGBMError("row-sharded prediction over several devices is "
+                        "not in lightgbm_tpu_torch yet (ROADMAP A10b)")

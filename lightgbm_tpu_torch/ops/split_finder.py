@@ -233,13 +233,15 @@ def _merge(best: _Cand, cand: _Cand) -> _Cand:
     return _Cand(*[torch.where(take, cn, bn) for cn, bn in zip(cand, best)])
 
 
-def find_best_splits(hist, sums, meta: FeatureMeta, feature_mask,
-                     params: SplitParams):
-    """Best split of each of K leaves.
-
-    hist: (K, F, B, 3) [sum_grad, sum_hess, count]; sums: (K, 3) leaf
-    totals; feature_mask: (F,) bool.  Returns (K, SPLIT_VEC_SIZE) packed
-    vectors; gain=-inf marks an unsplittable leaf."""
+def per_feature_candidates(hist, sums, meta: FeatureMeta,
+                           params: SplitParams):
+    """Each feature's best split candidate for each of K leaves (JAX
+    ``ops/split_finder.py per_feature_candidates``): (best, total_g,
+    total_h_eps, total_cnt, min_gain_shift), best a _Cand of (K, F)
+    tensors whose gain is the raw gain (the shift not yet subtracted;
+    -inf: unsplittable) and the totals (K,).  The voting-parallel
+    learner proposes its local top-k features from these
+    (voting_parallel_tree_learner.cpp:255-300)."""
     g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]
     dtype = g.dtype
     eps = kEpsilon
@@ -262,6 +264,20 @@ def find_best_splits(hist, sums, meta: FeatureMeta, feature_mask,
     cat = _categorical_pass(*args)
     is_cat = meta.is_categorical[None, :]
     best = _Cand(*[torch.where(is_cat, cn, bn) for cn, bn in zip(cat, best)])
+    return best, total_g, total_h_eps, total_cnt, min_gain_shift
+
+
+def find_best_splits(hist, sums, meta: FeatureMeta, feature_mask,
+                     params: SplitParams):
+    """Best split of each of K leaves.
+
+    hist: (K, F, B, 3) [sum_grad, sum_hess, count]; sums: (K, 3) leaf
+    totals; feature_mask: (F,) bool.  Returns (K, SPLIT_VEC_SIZE) packed
+    vectors; gain=-inf marks an unsplittable leaf."""
+    dtype = hist.dtype
+    eps = kEpsilon
+    best, total_g, total_h_eps, total_cnt, min_gain_shift = \
+        per_feature_candidates(hist, sums, meta, params)
 
     ninf = -float("inf")
     masked = best.gain.masked_fill(~feature_mask[None, :], ninf)  # (K, F)
@@ -309,7 +325,13 @@ def best_splits_batched(hists_k, sums_k, depths_k, meta: FeatureMeta,
     histograms and (K, 3) sums to per-feature (K, F, B, 3) views (EFB
     gather / default-bin fix)."""
     hv = hist_view(hists_k, sums_k) if hist_view is not None else hists_k
-    out = find_best_splits(hv, sums_k, meta, feature_mask, params)
+    return depth_gate(find_best_splits(hv, sums_k, meta, feature_mask,
+                                       params), depths_k, max_depth)
+
+
+def depth_gate(out, depths_k, max_depth: int):
+    """The max_depth gate: a leaf at depth >= max_depth keeps its packed
+    vector with its gain forced to -inf (in place; returns out)."""
     if max_depth > 0:
         gate = depths_k < max_depth
         out[:, GAIN] = torch.where(gate, out[:, GAIN],

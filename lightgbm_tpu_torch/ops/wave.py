@@ -152,7 +152,8 @@ class WaveGrower(Grower):
 
     def _child_hists(self, st, lid, ids, w3, exps, hilo=None):
         """The (K, G, B, 3) histograms of the leaves ids (B3, B4 or B6),
-        in the grower's precision unless hilo says otherwise."""
+        in the grower's precision unless hilo says otherwise; all ranks'
+        rows under the data-parallel learner (``_reduce_hist``)."""
         hilo = self.hilo if hilo is None else hilo
         if self.coord:
             return sparse_wave_hists(self.X, lid, w3, ids, self.hist_bins,
@@ -162,12 +163,15 @@ class WaveGrower(Grower):
                                          self.hist_bins, self.X.num_cols,
                                          exps=exps, hilo=hilo)
         if self.engine:
-            return engine_histogram(self.hist_mode, self.X, lid, w3, ids,
-                                    self.hist_bins, exps, self.packed_cols)
+            return self._reduce_hist(lambda finish: engine_histogram(
+                self.hist_mode, self.X, lid, w3, ids, self.hist_bins, exps,
+                self.packed_cols), ids, exps)
         kernel = (wave_histogram_rowmajor if self.hist_mode == "pallas"
                   else wave_histogram)
-        return kernel(self.X, lid, w3, ids, self.hist_bins, exps=exps,
-                      work=st.work, logical_cols=self.packed_cols, hilo=hilo)
+        return self._reduce_hist(lambda finish: kernel(
+            self.X, lid, w3, ids, self.hist_bins, exps=exps, work=st.work,
+            logical_cols=self.packed_cols, hilo=hilo, finish=finish), ids,
+            exps)
 
     def _root_hists(self, st, lid, ids, w3, exps):
         """The root's histogram: the JAX package takes the dense root
@@ -275,7 +279,11 @@ class WaveGrower(Grower):
             lid, hist_small = wave_partition_hist(
                 X, st.leaf_id, w3, cid, cols, psrc, self.hist_bins,
                 bundled=bundled, exps=exps, work=st.work,
-                logical_cols=self.packed_cols, hilo=self.hilo)
+                logical_cols=self.packed_cols, hilo=self.hilo,
+                finish=not self.defer)
+            if self.comm is not None:
+                # the ranks' W smaller children, summed once a wave
+                hist_small = self._finish_reduced(hist_small, cid, exps)
         else:
             route = (route_rows_rowmajor if self.rowmajor
                      else route_rows_plain)
@@ -342,7 +350,7 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
               group_bins: int = 0, cache_hists: bool = True,
               hist_mode: str = "pallas_ct", wave_order: str = "batched",
               packed_cols: int = 0, hilo: bool = True,
-              dtype=torch.float32):
+              dtype=torch.float32, comm=None, global_rows=None):
     """Grow one tree, staged: a WaveGrower's body with one host read a
     wave.  X: (G, N) uint8 or uint16 transposed bins, (N, G) row-major
     bins for hist_mode 'pallas', 'onehot' and 'scatter' (with
@@ -354,18 +362,27 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     The read comes between a wave's selection and its commit: the count
     of valid slots (k == 0 ends the tree) and, under batched order, the
     depth once they have split; under exact order, where not every valid
-    slot commits, the splits and depth the state holds (its status)."""
+    slot commits, the splits and depth the state holds (its status).
+
+    comm (global_rows the ranks' rows): the
+    data-parallel waves of the JAX package (its ops/wave.py:598-722):
+    the root sums and histogram, the W smaller children once a wave and
+    the larger children where no cached parent gives them are summed
+    over the ranks; every rank then picks and commits the same splits
+    and routes its own rows."""
     g = WaveGrower(X, meta, bundle, num_leaves=num_leaves,
                    num_bins=num_bins, params=params, max_depth=max_depth,
                    wave_width=wave_width, group_bins=group_bins,
                    cache_hists=cache_hists, hist_mode=hist_mode,
                    wave_order=wave_order, packed_cols=packed_cols, hilo=hilo,
-                   dtype=dtype)
+                   dtype=dtype, comm=comm, global_rows=global_rows)
     st = g.new_state(grad.shape[0], grad.device)
     w3 = weight_rows(grad, hess, row_mult)                 # (N, 3)
     # the kernels' fixed-point exponents (B1, B3, B4, B6): w3 is fixed
     # within the tree, so the root and every child carry the same scale
-    exps = fixed_point_exponents(w3)
+    # (under a comm, of the ranks' rows: Grower.exponents)
+    exps = (fixed_point_exponents(w3) if g.row_comm is None
+            else g.exponents(w3))
     g.root(st, w3, exps, feature_mask)
     nn = depth = waves = host_reads = 0
     while nn < num_leaves - 1:

@@ -304,7 +304,7 @@ def _sms(dev) -> int:
     return _num_sms[key]
 
 
-def fixed_point_exponents(w3):
+def fixed_point_exponents(w3, rows=None, amax=None):
     """(3,) int32 exponents e_c of the kernels' fixed point, computed on
     w3's device with no host read: e_c = 62 - frexp_exponent(N *
     max|w_c|) for f32 weights (64-bit sums), 126 - it for float64 ones
@@ -312,9 +312,16 @@ def fixed_point_exponents(w3):
     reaches 2^62 (2^126), and rounding a value to a multiple of 2^-e_c
     errs by at most N * max|w_c| / 2^62 (/ 2^126).  w3 is fixed within
     a tree, so the grower computes this once a tree and B1, B3, B4, B5
-    and B6 sum the same rows to the same bits."""
-    n = w3.shape[0]
-    m = w3.abs().amax(dim=0).to(torch.float64) * n
+    and B6 sum the same rows to the same bits.
+
+    A distributed learner passes the GLOBAL row count ``rows`` and the
+    all-reduced maximum ``amax`` (3,) of |w3| over the ranks: every rank
+    then holds the serial run's exponents, no rank's partial sums can
+    overflow, and their exact int64 sum is the serial kernel's sum."""
+    n = w3.shape[0] if rows is None else int(rows)
+    if amax is None:
+        amax = w3.abs().amax(dim=0)
+    m = amax.to(torch.float64) * n
     top = 126 if w3.dtype == torch.float64 else 62
     return (top - torch.frexp(m).exponent).to(torch.int32)
 
@@ -388,10 +395,7 @@ def _exps(w3, exps):
     """exps checked, or computed from w3 when None."""
     if exps is None:
         return fixed_point_exponents(w3)
-    if (exps.dtype != torch.int32 or tuple(exps.shape) != (3,)
-            or exps.device != w3.device):
-        raise LightGBMError("exps: expected int32 (3,) on %s" % w3.device)
-    return exps
+    return _exps_checked(exps, w3.device)
 
 
 def _check_slots(K):
@@ -414,13 +418,13 @@ def list_workspace(N, K, F, B, dev, wide: bool = False):
 
 
 def _list_buffers(N, K, F, B, dev, hist_shape=None, work=None,
-                  wide: bool = False):
+                  wide: bool = False, finish: bool = True):
     """(list, acc, work, hist): the pointers of the compact list and of
     the fixed-point sums with the list's length after them, which the
     kernel entry zeroes; the workspace holding both (``work``, the
     caller's, or a new one the caller keeps until it has launched); the
     (K, F, B, 3) histogram (or hist_shape), f32 (float64 when wide), new
-    each call."""
+    each call, or None for a deferred-finish launch (finish False)."""
     _check_slots(K)
     size = N + K * F * B * 3 * (2 if wide else 1) + 1
     if work is None:
@@ -432,14 +436,23 @@ def _list_buffers(N, K, F, B, dev, hist_shape=None, work=None,
                             "least %d on %s, got %s %s on %s"
                             % (size, dev, work.dtype, tuple(work.shape),
                                work.device))
-    hist = torch.empty(hist_shape or (K, F, B, 3),
-                       dtype=torch.float64 if wide else torch.float32,
-                       device=dev)
+    hist = (torch.empty(hist_shape or (K, F, B, 3),
+                        dtype=torch.float64 if wide else torch.float32,
+                        device=dev) if finish else None)
     return work.data_ptr(), work.data_ptr() + 8 * N, work, hist
 
 
+def _sums_view(work, N, K, F, B, wide: bool):
+    """The fixed-point sums a deferred-finish launch left in work: an
+    int64 (K, F, B, 3) view, (K, F, B, 3, 2) when wide (low word, high
+    word).  It lives until the next launch on the same workspace."""
+    shape = (K, F, B, 3, 2) if wide else (K, F, B, 3)
+    n = K * F * B * 3 * (2 if wide else 1)
+    return work[N:N + n].view(shape)
+
+
 def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
-                  bundled, exps, work, F, logical_cols, hilo):
+                  bundled, exps, work, F, logical_cols, hilo, finish=True):
     lib = _build.library()
     N = X_t.shape[1]
     K, W, B = child_id.shape[0], cols.shape[0], int(num_bins)
@@ -451,21 +464,26 @@ def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
     wide = w3.dtype == torch.float64
     plan = hist_plan(F, N, B, K, _sms(dev), packed, wide)[:6]
     rows, acc, work, hist = _list_buffers(N, K, F, B, dev, work=work,
-                                          wide=wide)
+                                          wide=wide, finish=finish)
     new_lid = torch.empty(N, dtype=torch.int32, device=dev)
     err = lib.lgbt_wave_fused(
         *[t.data_ptr() for t in (X_t, leaf_id, w3, child_id, cols, psrc,
-                                 exps, new_lid)], rows, acc, hist.data_ptr(),
+                                 exps, new_lid)], rows, acc,
+        0 if hist is None else hist.data_ptr(),
         F, N, B, K, W, *plan, int(bundled), int(packed), int(not hilo),
-        int(X_t.dtype == torch.uint16), int(wide), _build.stream(dev))
+        int(X_t.dtype == torch.uint16), int(wide), int(finish),
+        _build.stream(dev))
     _build.check(err, "wave_fused")
+    if not finish:
+        return new_lid, _sums_view(work, N, K, F, B, wide)
     return new_lid, hist
 
 
 def _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, rowmajor, work,
-                 F, logical_cols=0, hilo=True):
+                 F, logical_cols=0, hilo=True, finish=True):
     """B3 (X_t) or B4 (row-major X): the select pass, the histogram pass
-    over its list, the f32 conversion.  F: the histograms' features."""
+    over its list, the f32 conversion (none when finish is False: the
+    sums are returned instead).  F: the histograms' features."""
     lib = _build.library()
     N = X.shape[0 if rowmajor else 1]
     K, B = child_id.shape[0], int(num_bins)
@@ -475,23 +493,27 @@ def _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, rowmajor, work,
     wide = w3.dtype == torch.float64
     plan = hist_plan(F, N, B, K, _sms(dev), packed, wide)[:6]
     rows, acc, work, hist = _list_buffers(N, K, F, B, dev, work=work,
-                                          wide=wide)
+                                          wide=wide, finish=finish)
     err = lib.lgbt_wave_hist(
         *[t.data_ptr() for t in (X, leaf_id, w3, child_id, exps)], rows, acc,
-        hist.data_ptr(), F, N, B, K, *plan, int(rowmajor), int(packed),
-        int(not hilo), int(X.dtype == torch.uint16), int(wide),
+        0 if hist is None else hist.data_ptr(), F, N, B, K, *plan,
+        int(rowmajor), int(packed), int(not hilo),
+        int(X.dtype == torch.uint16), int(wide), int(finish),
         _build.stream(dev))
     _build.check(err, "wave_hist")
+    if not finish:
+        return _sums_view(work, N, K, F, B, wide)
     return hist
 
 
-def _count(wrapper, logical_cols, hilo, X=None, w3=None):
-    """One launch of wrapper's kernel, and of its packed, bf16, uint16
-    or f64 form."""
+def _count(wrapper, logical_cols, hilo, X=None, w3=None, finish=True):
+    """One launch of wrapper's kernel, and of its packed, bf16, uint16,
+    f64 or deferred-finish form."""
     wrapper.launches += 1
     for form, on in (("packed", logical_cols), ("bf16", not hilo),
                      ("uint16", X is not None and X.dtype == torch.uint16),
-                     ("f64", w3 is not None and w3.dtype == torch.float64)):
+                     ("f64", w3 is not None and w3.dtype == torch.float64),
+                     ("deferred", not finish)):
         if on:
             wrapper.form_launches[form] += 1
 
@@ -579,7 +601,7 @@ def select_list(leaf_id, child_id):
 def wave_partition_hist(X_t, leaf_id, w3, child_id, cols, psrc,
                         num_bins: int, bundled: bool = False, exps=None,
                         work=None, logical_cols: int = 0,
-                        hilo: bool = True):
+                        hilo: bool = True, finish: bool = True):
     """Fused wave step (kernel B1): route the rows of the wave's parents
     and build the (K, F, B, 3) histograms of the children child_id from
     the new ids.  Returns (new_leaf_id, hist).  exps: the kernel's
@@ -587,7 +609,13 @@ def wave_partition_hist(X_t, leaf_id, w3, child_id, cols, psrc,
     None; work: the list passes' workspace (``list_workspace``), a new
     one each call when None.  The plain version uses neither.
     logical_cols > 0: X_t holds the packed bins of that many columns;
-    hilo=False: the single bf16 product (module docstring)."""
+    hilo=False: the single bf16 product (module docstring).
+
+    finish=False is the deferred-finish form: the kernel stops before
+    the conversion and returns (new_leaf_id, sums), the fixed-point sums
+    as an int64 view of work (``_sums_view``), which ranks add exactly
+    before ``finish_hist`` converts them.  The plain version returns its
+    histogram in the weights' dtype either way."""
     F = _check(X_t, leaf_id, w3, child_id, num_bins, cols, psrc,
                logical_cols=logical_cols, hilo=hilo)
     if X_t.device.type == "cpu":
@@ -595,30 +623,32 @@ def wave_partition_hist(X_t, leaf_id, w3, child_id, cols, psrc,
                                          psrc, num_bins, bundled,
                                          logical_cols, hilo)
     out = _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
-                        bundled, exps, work, F, logical_cols, hilo)
-    _count(wave_partition_hist, logical_cols, hilo, X_t, w3)
+                        bundled, exps, work, F, logical_cols, hilo, finish)
+    _count(wave_partition_hist, logical_cols, hilo, X_t, w3, finish)
     return out
 
 
 def wave_histogram(X_t, leaf_id, w3, child_id, num_bins: int, exps=None,
-                   work=None, logical_cols: int = 0, hilo: bool = True):
+                   work=None, logical_cols: int = 0, hilo: bool = True,
+                   finish: bool = True):
     """Histogram-only wave pass (kernel B3): (K, F, B, 3) histograms of
-    the rows whose leaf is child_id[k].  exps, work, logical_cols and
-    hilo as for wave_partition_hist."""
+    the rows whose leaf is child_id[k].  exps, work, logical_cols, hilo
+    and finish (False: the fixed-point sums, unconverted) as for
+    wave_partition_hist."""
     F = _check(X_t, leaf_id, w3, child_id, num_bins,
                logical_cols=logical_cols, hilo=hilo)
     if X_t.device.type == "cpu":
         return wave_histogram_plain(X_t, leaf_id, w3, child_id, num_bins,
                                     logical_cols, hilo)
     out = _launch_hist(X_t, leaf_id, w3, child_id, num_bins, exps, False,
-                       work, F, logical_cols, hilo)
-    _count(wave_histogram, logical_cols, hilo, X_t, w3)
+                       work, F, logical_cols, hilo, finish)
+    _count(wave_histogram, logical_cols, hilo, X_t, w3, finish)
     return out
 
 
 def wave_histogram_rowmajor(X, leaf_id, w3, child_id, num_bins: int,
                             exps=None, work=None, logical_cols: int = 0,
-                            hilo: bool = True):
+                            hilo: bool = True, finish: bool = True):
     """Histogram-only wave pass on the row-major bins X (N, F), or (N,
     ceil(F/2)) packed (kernel B4): the contract of wave_histogram."""
     F = _check(X, leaf_id, w3, child_id, num_bins, rowmajor=True,
@@ -627,15 +657,64 @@ def wave_histogram_rowmajor(X, leaf_id, w3, child_id, num_bins: int,
         return wave_histogram_rowmajor_plain(X, leaf_id, w3, child_id,
                                              num_bins, logical_cols, hilo)
     out = _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, True, work,
-                       F, logical_cols, hilo)
-    _count(wave_histogram_rowmajor, logical_cols, hilo, X, w3)
+                       F, logical_cols, hilo, finish)
+    _count(wave_histogram_rowmajor, logical_cols, hilo, X, w3, finish)
     return out
 
 
-# each wrapper's launches, and of them its packed, bf16, uint16 and f64
-# forms'
-FORMS = ("packed", "bf16", "uint16", "f64")
+def finish_hist_plain(sums, child_id, exps=None):
+    """The plain versions convert nothing: their "sums" are already the
+    histograms, in the weights' dtype (ranks add them in that dtype)."""
+    return sums
+
+
+def finish_hist(sums, child_id, exps):
+    """The conversion of a deferred-finish launch alone (B1, B3, B4 and B5
+    with finish=False): the (K, F, B, 3) histogram, f32 (float64 from
+    the f64 form's two-word sums (K, F, B, 3, 2)), of the int64 sums with
+    the tree's fixed-point exponents exps; slot k reads the first slot
+    holding child_id[k], as the kernels' own conversion does.  On the
+    CPU the sums are the plain versions' histograms, returned as they
+    are."""
+    if sums.device.type == "cpu":
+        return finish_hist_plain(sums, child_id, exps)
+    wide = sums.dim() == 5
+    if (sums.dtype != torch.int64 or sums.dim() not in (4, 5)
+            or (wide and sums.shape[4] != 2) or sums.shape[3] != 3
+            or not sums.is_contiguous()):
+        raise LightGBMError("finish_hist: expected contiguous int64 sums "
+                            "(K, F, B, 3) or (K, F, B, 3, 2), got %s %s"
+                            % (sums.dtype, tuple(sums.shape)))
+    K, F, B = (int(d) for d in sums.shape[:3])
+    if (child_id.dtype != torch.int32 or tuple(child_id.shape) != (K,)
+            or child_id.device != sums.device):
+        raise LightGBMError("finish_hist: child_id must be int32 (%d,) on "
+                            "%s" % (K, sums.device))
+    exps = _exps_checked(exps, sums.device)
+    hist = torch.empty((K, F, B, 3),
+                       dtype=torch.float64 if wide else torch.float32,
+                       device=sums.device)
+    err = _build.library().lgbt_wave_finish(
+        sums.data_ptr(), child_id.data_ptr(), exps.data_ptr(),
+        hist.data_ptr(), F, B, K, int(wide), _build.stream(sums.device))
+    _build.check(err, "wave_finish")
+    finish_hist.launches += 1
+    return hist
+
+
+def _exps_checked(exps, dev):
+    """exps, raising unless it is an int32 (3,) tensor on dev."""
+    if (exps is None or exps.dtype != torch.int32
+            or tuple(exps.shape) != (3,) or exps.device != dev):
+        raise LightGBMError("exps: expected int32 (3,) on %s" % dev)
+    return exps
+
+
+# each wrapper's launches, and of them its packed, bf16, uint16, f64 and
+# deferred-finish forms'
+FORMS = ("packed", "bf16", "uint16", "f64", "deferred")
 for _w in (wave_partition_hist, wave_histogram, wave_histogram_rowmajor):
     _w.launches = 0
     _w.form_launches = dict.fromkeys(FORMS, 0)
 del _w
+finish_hist.launches = 0

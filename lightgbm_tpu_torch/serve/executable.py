@@ -202,7 +202,8 @@ class PredictExecutableCache:
             if len(devices) > 1:
                 raise LightGBMError(
                     "serving over %d devices is not in lightgbm_tpu_torch "
-                    "yet: it serves on one card a process" % len(devices))
+                    "yet: it serves on one card a process (ROADMAP A10b)"
+                    % len(devices))
             self.device = resolve_device(devices[0])
         else:
             self.device = gbdt.device

@@ -152,13 +152,30 @@ def test_row_range_opens_only_its_rows(xy, tmp_path):
 
 
 def test_comm_with_several_ranks_is_refused(xy, tmp_path):
+    """Once refused (distributed training), a comm of several ranks now
+    opens each rank's share, rows [r * n // size, (r + 1) * n // size),
+    as the JAX package's rank-sharded open does, and keeps the comm."""
     out = binned_dir(xy, tmp_path)
+    X, _ = xy
 
     class Comm:
-        size, rank = 2, 0
+        size = 2
 
-    with pytest.raises(LightGBMError, match="A10"):
-        TrainingData.from_binned(out, comm=Comm())
+        def __init__(self, rank):
+            self.rank = rank
+
+    full = TrainingData.from_binned(out)
+    parts = [TrainingData.from_binned(out, comm=Comm(r)) for r in (0, 1)]
+    n = len(X)
+    assert [p._binned_reader.row_range for p in parts] == [
+        (0, n // 2), (n // 2, n)]
+    np.testing.assert_array_equal(
+        np.concatenate([p.binned for p in parts]), full.binned)
+    np.testing.assert_array_equal(
+        np.concatenate([p.metadata.label for p in parts]),
+        full.metadata.label)
+    assert all(p._comm is not None for p in parts)
+    assert parts[1].construct_stats["world_size"] == 2
 
 
 def test_corrupt_shard_fails_loudly(xy, tmp_path):
@@ -314,10 +331,10 @@ def test_jax_written_directory_opens_in_the_port(xy, tmp_path):
 
 
 def test_port_written_directory_opens_in_the_jax_package(xy, tmp_path):
-    """The JAX package trains its own text on the port's directory, but
-    for one line: the JAX package's headers carry its drift fingerprint
-    (obs/drift.py, which the port does not have yet: ROADMAP A12), which
-    its model text repeats as a ``drift_fingerprint=`` line."""
+    """The JAX package trains its own text on the port's directory: both
+    packages' headers carry the dataset's drift fingerprint (the same
+    profile), which the model text repeats as a ``drift_fingerprint=``
+    line."""
     X, y = xy
     tout, jout = str(tmp_path / "port"), str(tmp_path / "jax")
     lgbt.Dataset(X, label=y, params=PARAMS).save_binned(tout)
@@ -330,9 +347,8 @@ def test_port_written_directory_opens_in_the_jax_package(xy, tmp_path):
                 tout).bin_mappers])
     a = jlgb.train(JAX_PARAMS, tout, 3).model_to_string()
     b = jlgb.train(JAX_PARAMS, jout, 3).model_to_string()
-    assert "drift_fingerprint=" not in a
-    assert a.splitlines() == [ln for ln in b.splitlines()
-                              if not ln.startswith("drift_fingerprint=")]
+    assert "\ndrift_fingerprint=" in a
+    assert a == b
 
 
 @pytest.mark.parametrize("row_major", [False, True])

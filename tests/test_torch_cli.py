@@ -357,8 +357,10 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu(work):
 
 
 @pytest.mark.parametrize("argv,match", [
-    # per-rank shards come with the distributed learners
-    (["obs", "stragglers", "x"], "ROADMAP A10"),
+    # the distributed learners are ported; a learner no package has is
+    # refused by name
+    (["task=train", "data=binary.train", "tree_learner=mesh"],
+     "tree learner"),
     (["lint"], "static analysis"),
     # one torch.profiler at a time: the whole-run trace and the window
     (["task=train", "data=binary.train", "tpu_profile_dir=prof",

@@ -29,7 +29,9 @@ def test_keys_aliases_and_values_match_the_jax_package():
 
 
 @pytest.mark.parametrize("knob,value,name", [
-    ("tree_learner", "data", "tree_learner"),
+    # data, voting and feature are ported (parallel/mesh.py); a learner
+    # no package has is still refused by name
+    ("tree_learner", "mesh", "tree learner"),
     # ported since, but this data has no queries: the error names them
     ("objective", "lambdarank", "objective=lambdarank"),
     ("metric", "ndcg", "metric=ndcg"),

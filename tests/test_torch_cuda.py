@@ -48,6 +48,12 @@ def dev():
     return torch.device("cuda")
 
 
+def _no_fp(text):
+    """A model text without its drift_fingerprint= line."""
+    return "".join(ln for ln in text.splitlines(keepends=True)
+                   if not ln.startswith("drift_fingerprint="))
+
+
 def _launched_passes(booster):
     """Wave passes a run launched: on the card wave growth runs fused
     (tpu_fused_iter=auto), M masked waves and the tail waves a tree; on
@@ -1501,9 +1507,13 @@ def test_cli_train_on_the_card_equals_train(dev, tmp_path, monkeypatch):
     # the CLI writes GBDT's model text, as the JAX package's CLI does;
     # model_to_string adds the Python API's pandas_categorical line
     want = lgb.train(CLI_PARAMS, lgb.Dataset(X, label=y), 4)
-    assert open("m.txt").read() == want._gbdt.save_model_to_string()
-    assert want.model_to_string() == (open("m.txt").read()
-                                      + "\npandas_categorical:null\n")
+    # each text carries its own drift_fingerprint= line (the CLI's from
+    # the parsed text file): equal but for that line
+    cli_text = open("m.txt").read()
+    assert "\ndrift_fingerprint=" in cli_text
+    assert _no_fp(cli_text) == _no_fp(want._gbdt.save_model_to_string())
+    assert _no_fp(want.model_to_string()) == _no_fp(
+        cli_text + "\npandas_categorical:null\n")
     cli.main(_cli_args(["task=train", "data=t.tsv", "num_iterations=3",
                         "input_model=m.txt", "output_model=more.txt"]))
     more = lgb.Booster(model_file="more.txt")
@@ -2019,7 +2029,10 @@ def test_streamed_directory_trains_on_the_card(dev, tmp_path, mode):
     assert got._gbdt._fused_state[0] is not None
     assert got._gbdt.learner.upload_stats["paged"]
     assert got._gbdt.train_data._binned is None
-    assert got.model_to_string() == want.model_to_string()
+    # a streamed directory's header carries no drift fingerprint (as in
+    # the JAX package); the in-memory text's line is the one difference
+    assert "drift_fingerprint=" not in got.model_to_string()
+    assert got.model_to_string() == _no_fp(want.model_to_string())
 
 
 def test_c_abi_builds_and_trains_on_the_card(dev):
@@ -2365,3 +2378,75 @@ def test_graph_capture_lands_as_a_compile_attr_event(dev):
     assert {e["entry"] for e in events if e["ev"] == "compile"} >= {
         "fused_iter.tree", "fused_iter.score"}
     assert events[-1]["compile_attr"]["fused_iter.tree"]["compiles"] == 1
+
+
+# ------------------------------------------------------- distributed
+@pytest.mark.parametrize("wide", [False, True])
+def test_deferred_finish_sums_of_two_row_sets_equal_one_launch(dev, wide):
+    """B1, B3, B4 and B5 stopped before their conversion over two disjoint
+    row sets: the int64 sums added and converted by the finish alone are
+    one launch over the union, to the bit.  The f64 form returns its
+    sums as two words (low, high), which a word-wise sum would not carry:
+    the learners all-reduce its finished histograms instead."""
+    g = torch.Generator(device="cpu").manual_seed(18)
+    N, F, B, K = 20_000, 9, 31, 6
+    X_t = torch.randint(0, B, (F, N), generator=g, dtype=torch.uint8).to(dev)
+    X = X_t.t().contiguous()
+    lid = torch.randint(0, K, (N,), generator=g, dtype=torch.int32).to(dev)
+    w3 = torch.randn((N, 3), generator=g,
+                     dtype=torch.float64 if wide else torch.float32).to(dev)
+    cid = torch.arange(K, dtype=torch.int32, device=dev)
+    exps = wk.fixed_point_exponents(w3)
+    half = torch.arange(N, device=dev) < N // 3
+    parts = [torch.where(m, lid, torch.full_like(lid, -1))
+             for m in (half, ~half)]
+    for fn, Xk in ((wk.wave_histogram, X_t),
+                   (wk.wave_histogram_rowmajor, X)):
+        one = fn(Xk, lid, w3, cid, B, exps=exps)
+        sums = [fn(Xk, p, w3, cid, B, exps=exps, finish=False).clone()
+                for p in parts]
+        assert sums[0].dtype == torch.int64
+        if not wide:
+            assert torch.equal(wk.finish_hist(sums[0] + sums[1], cid, exps),
+                               one)
+        else:
+            assert sums[0].shape == (K, F, B, 3, 2)
+    if wide:
+        return
+    leaf = torch.full((1,), 2, dtype=torch.int32, device=dev)
+    one = lh.leaf_histogram(X, None, None, lid, leaf, None, B, w3=w3,
+                            exps=exps)
+    sums = [lh.leaf_histogram(X, None, None, p, leaf, None, B, w3=w3,
+                              exps=exps, finish=False).clone()
+            for p in parts]
+    assert torch.equal(wk.finish_hist(sums[0] + sums[1], leaf, exps)[0], one)
+    n0 = (wk.wave_partition_hist.form_launches["deferred"],
+          wk.finish_hist.launches)
+    cols = torch.tensor([[1, 0, 10, 0, 0, 1, K, 0, 0, B]] * 1,
+                        dtype=torch.float32, device=dev)
+    psrc = torch.zeros(1, dtype=torch.int32, device=dev)
+    cid2 = torch.tensor([0, K], dtype=torch.int32, device=dev)
+    new_u, hist_u = wk.wave_partition_hist(X_t, lid, w3, cid2, cols, psrc,
+                                           B, exps=exps)
+    outs = [wk.wave_partition_hist(X_t, p, w3, cid2, cols, psrc, B,
+                                   exps=exps, finish=False) for p in parts]
+    got = wk.finish_hist(outs[0][1].clone() + outs[1][1], cid2, exps)
+    assert torch.equal(got, hist_u)
+    assert torch.equal(torch.where(half, outs[0][0], outs[1][0]), new_u)
+    assert (wk.wave_partition_hist.form_launches["deferred"],
+            wk.finish_hist.launches) == (n0[0] + 2, n0[1] + 1)
+
+
+@pytest.mark.parametrize("learner", ["data", "feature"])
+def test_two_ranks_on_one_card_over_gloo(dev, learner):
+    """Two rank processes share the card over gloo (parallel/launch.py):
+    byte-equal texts; the data-parallel ranks launch the deferred forms
+    and the finish."""
+    from lightgbm_tpu_torch.parallel.launch import run_ranks_subprocess
+    payload = {"rows": 4000, "cols": 8, "num_rounds": 3, "device": "cuda",
+               "params": {"tree_learner": learner, "num_leaves": 15}}
+    out = run_ranks_subprocess(2, "lightgbm_tpu_torch.parallel.worker:"
+                               "train_worker", payload, timeout=240,
+                               device="cuda")
+    assert out[0]["digest"] == out[1]["digest"]
+    assert out[0]["num_trees"] == 3

@@ -45,6 +45,14 @@ def _train(mode, bundled, cache):
     return booster
 
 
+def _trees_text(booster):
+    """The model text without its drift_fingerprint= line (the dataset's
+    profile and the scores' histogram, which the pinned digests predate):
+    the trees the digests pin."""
+    return "\n".join(l for l in booster.model_to_string().split("\n")
+                     if not l.startswith("drift_fingerprint="))
+
+
 @pytest.mark.parametrize("mode,wrapper", [("pallas_t", "wave_histogram"),
                                           ("pallas",
                                            "wave_histogram_rowmajor")])
@@ -75,7 +83,7 @@ def test_grow_tree_passes_the_tree_exponents(monkeypatch, mode, wrapper,
     assert len(made) == len(stats) == ITERS
     assert len(calls) == len(stats) + waves * (1 if cache else 2)
     assert all(got is latest for got, latest in calls)
-    text = booster.model_to_string()
+    text = _trees_text(booster)
     assert hashlib.sha256(text.encode()).hexdigest()[:16] == PINNED[
         (bundled, cache)]
 
@@ -84,7 +92,7 @@ def test_grow_tree_passes_the_tree_exponents(monkeypatch, mode, wrapper,
 @pytest.mark.parametrize("cache", [True, False])
 def test_dense_dataflows_train_the_same_model_text(bundled, cache):
     """pallas_ct, pallas_t and pallas give byte-identical model text."""
-    texts = [_train(m, bundled, cache).model_to_string()
+    texts = [_trees_text(_train(m, bundled, cache))
              for m in ("pallas_ct", "pallas_t", "pallas")]
     assert texts[0] == texts[1] == texts[2]
     assert hashlib.sha256(texts[0].encode()).hexdigest()[:16] == PINNED[

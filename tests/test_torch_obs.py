@@ -36,7 +36,6 @@ from lightgbm_tpu.obs import query as jquery
 from lightgbm_tpu.obs.events import validate_event
 import lightgbm_tpu_torch as lgbt
 from lightgbm_tpu_torch import cli as tcli
-from lightgbm_tpu_torch.obs import UNPORTED
 from lightgbm_tpu_torch.obs import memory, timers
 from lightgbm_tpu_torch.obs.ledger import Ledger
 from lightgbm_tpu_torch.ops import autotune as tat
@@ -202,9 +201,14 @@ def test_obs_subcommands_through_the_cli(runs, tmp_path, capsys):
     assert tcli.main(["obs", "summary", str(tmp_path / "none.jsonl")]) == 2
     assert tcli.main(["obs", "recompiles", path]) == 0
     assert tcli.main(["obs", "roofline", path]) == 0
-    for cmd in ("stragglers", "merge"):
-        with pytest.raises(lgbt.LightGBMError, match="ROADMAP A10"):
-            tcli.main(["obs", cmd, path])
+    # the distributed learners' reports read a one-rank timeline too
+    assert tcli.main(["obs", "stragglers", path]) == 0
+    assert "no straggler events" in capsys.readouterr().out
+    merged = str(tmp_path / "merged.jsonl")
+    assert tcli.main(["obs", "merge", path, "-o", merged]) == 0
+    assert "merged 1 rank shard(s)" in capsys.readouterr().out
+    head = json.loads(open(merged).readline())
+    assert head["ev"] == "run_header" and head["merged"] is True
 
 
 # ------------------------------------------------ every obs_* key: act
@@ -358,7 +362,21 @@ ACTS = {
     "obs_prof_topk": (
         lambda t: dict(_ev(t), obs_prof_topk=5),
         lambda t, b: b._gbdt._obs._prof_topk == 5),
+    # one rank: the sampler counts each due iteration as skipped (the
+    # ranks' skew: tests/test_torch_parallel_obs.py)
+    "obs_straggler_every": (
+        lambda t: dict(_ev(t), obs_straggler_every=1),
+        lambda t, b: _run_end(b)["stragglers"]["skipped_single_device"]
+        == 3),
+    "obs_straggler_warn_skew": (
+        lambda t: dict(_ev(t), obs_straggler_every=2,
+                       obs_straggler_warn_skew=0.25),
+        lambda t, b: _run_end(b)["stragglers"]["warn_skew"] == 0.25),
 }
+
+
+def _run_end(b):
+    return next(e for e in b.telemetry() if e["ev"] == "run_end")
 
 
 def _end(b):
@@ -418,19 +436,15 @@ def _check_roofline_peaks(tmp_path):
                           for p in probes)
 
 
-UNPORTED_KEYS = {k: m for m, keys in UNPORTED.items() for k in keys}
-# a value away from each refused key's default
-UNPORTED_VALUES = {"obs_straggler_every": 1,
-                   "obs_straggler_warn_skew": 0.25}
 OBS_KEYS = sorted(k for k in Config._FIELDS if k.startswith("obs_"))
 
 
 def test_the_key_tables_cover_every_obs_key():
-    assert set(ACTS) | set(UNPORTED_KEYS) | set(SPECIAL) == set(OBS_KEYS)
-    assert set(UNPORTED_VALUES) == set(UNPORTED_KEYS)
-    assert set(UNPORTED_KEYS) == {"obs_straggler_every",
-                                  "obs_straggler_warn_skew"}
-    assert not set(ACTS) & set(UNPORTED_KEYS)
+    # every obs_* key acts (the straggler keys since the distributed
+    # learners came); none is refused any more
+    assert set(ACTS) | set(SPECIAL) == set(OBS_KEYS)
+    assert {"obs_straggler_every", "obs_straggler_warn_skew"} <= set(ACTS)
+    assert not set(ACTS) & set(SPECIAL)
 
 
 @pytest.mark.parametrize("key", OBS_KEYS)
@@ -438,28 +452,9 @@ def test_every_obs_key_acts_or_raises(key, tmp_path, monkeypatch):
     if key in SPECIAL:
         SPECIAL[key](tmp_path)
         return
-    if key in ACTS:
-        params, check = ACTS[key]
-        b = _train(tmp_path, params(tmp_path))
-        assert check(tmp_path, b) is not False, key
-        return
-    module = UNPORTED_KEYS[key]
-    p = dict(BASE, **{key: UNPORTED_VALUES[key]})
-    X, y = _data(200)
-    match = "%s.*ROADMAP A10" % key
-    with pytest.raises(lgbt.LightGBMError, match=match):
-        lgbt.train(p, lgbt.Dataset(X, label=y), 1, device="cpu")
-    with pytest.raises(lgbt.LightGBMError, match=match):
-        lgbt.Booster(p, lgbt.Dataset(X, label=y), device="cpu")
-    with pytest.raises(lgbt.LightGBMError, match=match):
-        lgbt.cv(p, lgbt.Dataset(X, label=y), 1, nfold=2, device="cpu")
-    monkeypatch.chdir(tmp_path)
-    shutil.copy(os.path.join(HERE, "data", "golden", "binary.train"),
-                "binary.train")
-    with pytest.raises(lgbt.LightGBMError, match=module):
-        tcli.main(["task=train", "data=binary.train", "device_type=cpu",
-                   "%s=%s" % (key, UNPORTED_VALUES[key])])
-    assert not os.path.exists("LightGBM_model.txt")
+    params, check = ACTS[key]
+    b = _train(tmp_path, params(tmp_path))
+    assert check(tmp_path, b) is not False, key
 
 
 def test_the_cli_writes_the_timeline_and_the_profile(tmp_path,

@@ -29,6 +29,7 @@ from lightgbm_tpu.obs import ledger as jledger
 from lightgbm_tpu.obs import roofline as jroofline
 from lightgbm_tpu.obs.events import validate_event as jvalidate
 import lightgbm_tpu_torch as lgbt
+from lightgbm_tpu_torch.parallel.comm import run_ranks
 from lightgbm_tpu_torch import cli as tcli
 from lightgbm_tpu_torch.obs import compile as tcompile
 from lightgbm_tpu_torch.obs import drift as tdrift
@@ -254,8 +255,25 @@ def test_watch_once_renders_a_timeline(tmp_path, capsys):
                lgbt.Dataset(X, label=y), 3, device="cpu")
     assert tcli.main(["obs", "watch", path, "--once"]) == 0
     assert "iter" in capsys.readouterr().out
-    with pytest.raises(lgbt.LightGBMError, match="ROADMAP A10"):
-        tcli.main(["obs", "watch", path, "--once", "--ranks"])
+    # --ranks tails every .rN shard of a distributed run (two thread
+    # ranks of the data-parallel learner) and aligns their iterations
+    base = str(tmp_path / "dist.jsonl")
+
+    def rank(comm):
+        from lightgbm_tpu_torch.io.dataset import TrainingData
+        from lightgbm_tpu_torch.utils.config import Config
+        p = dict(BASE, obs_events_path=base, obs_prof_hz=0,
+                 tree_learner="data")
+        lo, hi = comm.rank * len(X) // 2, (comm.rank + 1) * len(X) // 2
+        ds = lgbt.Dataset(X[lo:hi], label=y[lo:hi])
+        ds._handle = TrainingData.from_matrix(
+            X[lo:hi], label=y[lo:hi], config=Config(dict(p)), comm=comm)
+        lgbt.train(p, ds, 3, device="cpu")
+
+    run_ranks(2, rank, barrier_timeout=60)
+    assert tcli.main(["obs", "watch", base, "--once", "--ranks"]) == 0
+    out = capsys.readouterr().out
+    assert "watching 2 shard(s)" in out and base + ".r1" in out
 
 
 # --------------------------------------------------------------- watchdog

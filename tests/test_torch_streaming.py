@@ -326,8 +326,16 @@ def test_cli_two_round_trains_in_memory_text(tsv_file, tmp_path, how,
     text = open(mem_model).read()
     assert open(out).read() == text
     if how == "ooc_binned_dir":
+        # the directory's header carries no fingerprint (streaming writes
+        # none, as in the JAX package): the reopened run's text is the
+        # in-memory one but for the drift_fingerprint= line
         again = str(tmp_path / "again.txt")
         tcli.main([a for a in common if not a.startswith("data=")]
                   + ["data=" + str(tmp_path / "binned"),
                      "output_model=" + again])
-        assert open(again).read() == text
+        reopened = open(again).read()
+        assert "\ndrift_fingerprint=" in text
+        assert "drift_fingerprint=" not in reopened
+        assert reopened.splitlines() == [
+            ln for ln in text.splitlines()
+            if not ln.startswith("drift_fingerprint=")]
