@@ -20,7 +20,8 @@ lambdarank at MSLR-WEB10K's shape, custom objectives, pickling, cv and
 the scikit-learn estimators), out-of-core ingest (two-round streaming, a
 pre-binned directory paged to the card), the LGBM_* C ABI and distributed
 training (two rank processes on the card over gloo), and checks what
-comes out.
+comes out, then the elastic drill, the coordinate store over two ranks,
+sharded prediction and serving and the static analyzer (phase 16).
 Any failed check ends the run with a non-zero exit code and no result
 line.  Without a CUDA device it exits non-zero at once.
 
@@ -280,6 +281,30 @@ Phases, in order:
     splitting as serial exact growth, and voting with top_k 5 a 255-leaf
     tree of train AUC > 0.8, on the ranks' halves of a directory saved
     from the serial Dataset (from_binned(comm=)).
+16. The rest of distributed and the static analyzer.  16a (after 14a):
+    the elastic drill (parallel/elastic.py run_elastic): two rank
+    processes over gloo train the flagship recipe at full width (28
+    features, 255 leaves, max_bin 63) data-parallel on the first
+    ELASTIC_ROWS of the flagship rows, saved as a pre-binned directory,
+    5 iterations with checkpoint_every=1; rank 1 dies (os._exit) after
+    iteration 2 and the world-1 relaunch resumes from the checkpoint:
+    2 attempts, world 1, a flight record naming rank 1, a mesh_shrink
+    event; the text's first 2 trees an uninterrupted 2-rank run's to the
+    byte, and the whole text a serial init_model continuation's from
+    those trees on the same directory.  16b: two ranks train the
+    coordinate store (tpu_sparse=true) data-parallel on the first
+    DP_SPARSE_ROWS of phase 5's Bosch-shaped Dataset, saved as a
+    directory: byte-equal texts on the ranks, the tree structure of a
+    serial coordinate-store run on the same directory, B2 the only
+    launch; it/s a rank and the all-reduce's ms a pass.  16c (after
+    phase 7, on its model and rows): ranked_predict_sharded over
+    ["cuda:0", "cuda:0"] on the 200,000 training rows bit-equal to
+    ranked_predict, Booster.predict through set_predict_devices too;
+    bench_serve.py's closed loop (8 threads, SHARDED_REQUESTS requests,
+    raw scores) on a serving predictor over the two entries and on one
+    device: responses bit-equal, no capture after warm-up, p50 and p99
+    of each.  16d: ``python -m lightgbm_tpu_torch lint --check`` exits 0
+    (the analyzer imports no jax).
  With --profile, every training run of phases 4 and 5 and the
  multiclass run profile one more iteration: its wall time, device busy
  share, device operations and graph replays; phase 7 profiles one
@@ -1871,11 +1896,11 @@ def make_serve_data(rows, fresh):
     return np.asarray(X, np.float64), y, np.asarray(Xf, np.float64), yf
 
 
-def run_load(sp, X, requests, threads, sizes, seed=5):
+def run_load(sp, X, requests, threads, sizes, seed=5, raw=False):
     """bench_serve.py run_load's closed loop: each thread submits
     ``requests // threads`` blocks of a size drawn from ``sizes`` at a
-    random offset and waits for each.  Returns (latencies, wall_s, rows,
-    [(lo, n, response)])."""
+    random offset and waits for each (raw scores when ``raw``).  Returns
+    (latencies, wall_s, rows, [(lo, n, response)])."""
     import threading
     lat = [[] for _ in range(threads)]
     got = [[] for _ in range(threads)]
@@ -1887,7 +1912,7 @@ def run_load(sp, X, requests, threads, sizes, seed=5):
             n = int(rng.choice(sizes))
             lo = int(rng.integers(0, max(X.shape[0] - n, 1)))
             t0 = time.perf_counter()
-            out = sp.submit(X[lo:lo + n]).result()
+            out = sp.submit(X[lo:lo + n], raw_score=raw).result()
             lat[i].append(time.perf_counter() - t0)
             got[i].append((lo, n, out))
 
@@ -5095,6 +5120,295 @@ def dist_phase(args, lgb, card, data):
     return by_path
 
 
+# ------------------------------------------------------------- phase 16
+# 16a's rows (the first of phase 4's) and iterations, 16b's rows (the
+# first of phase 5's Dataset) and iterations, 16c's requests: cuts in
+# rows and requests that keep the phase within its 90 s
+ELASTIC_ROWS = 200_000
+ELASTIC_KILL_ITER = 2
+DP_SPARSE_ROWS = 100_000
+DP_SPARSE_ITERS = 3
+SHARDED_REQUESTS = 2_000
+SHARDED_DEVICES = ["cuda:0", "cuda:0"]
+
+
+def phase16_elastic_rank(comm, payload):
+    """A rank of 16a's elastic drill: parallel/worker.py train_worker
+    (the kill hook, the checkpoints, the resume), every launch counter
+    set to 0 just before and read just after."""
+    from lightgbm_tpu_torch.parallel import worker
+    zero_counts()
+    out = worker.train_worker(comm, payload)
+    out["counts"] = wrapper_counts()
+    return out
+
+
+def first_trees(lgb, text, n):
+    """The model text of a text's first n trees (on the host)."""
+    return lgb.Booster(model_str=text, device="cpu").model_to_string(
+        num_iteration=n)
+
+
+def tree_texts(text):
+    """Each tree's lines of a model text, as one string a tree (without
+    the feature importances that follow the last)."""
+    body = text.split("\nfeature importances:")[0].split(
+        "\nend of trees")[0]
+    return ["Tree=" + t.rstrip("\n") for t in body.split("\nTree=")[1:]]
+
+
+def elastic_dp_phase(lgb, card, sparse_data):
+    """16a and 16b (see the module's docstring).  Returns the launches
+    by path: the elastic run's last attempt (world 1), the uninterrupted
+    2-rank run and the coordinate store's 2-rank run (rank 0's)."""
+    import shutil
+    import tempfile
+    import torch
+    from lightgbm_tpu_torch.parallel import worker
+    from lightgbm_tpu_torch.parallel.elastic import run_elastic
+    from lightgbm_tpu_torch.parallel.launch import run_ranks_subprocess
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="phase16_")
+    # 16a's directory: the first rows of phase 4's recipe, binned alone
+    params = dict(worker.default_params(), **flagship_params())
+    params["tree_learner"] = "data"
+    X, y = make_data(ELASTIC_ROWS)
+    edir = os.path.join(work, "elastic")
+    lgb.Dataset(X, label=y, params=params).construct()._handle.save_binned(
+        edir)
+    del X, y
+    # 16b's directory: the first rows of phase 5's Dataset, its bins and
+    # EFB groups as they are
+    sds = sparse_data[0]
+    sdir = os.path.join(work, "sparse")
+    sds._handle.subset(np.arange(DP_SPARSE_ROWS)).save_binned(sdir)
+    sp_params = dict(sparse_params(), tpu_sparse_kernel=False)
+    say("16: directories %d x 28 and %d x %d groups written in %.1f s"
+        % (ELASTIC_ROWS, DP_SPARSE_ROWS, sds._handle.num_features
+           if sds._handle.bundle is None
+           else len(sds._handle.bundle.groups), time.perf_counter() - t0))
+
+    # the uninterrupted 2-rank run of 16a (its first trees) and 16b's
+    # 2-rank run, in one launch of two rank processes
+    t1 = time.perf_counter()
+    runs = [{"label": "elastic-uninterrupted", "rows": ELASTIC_ROWS,
+             "binned_dir": edir, "iters": ELASTIC_KILL_ITER,
+             "params": params},
+            {"label": "dp-sparse-2rank", "rows": DP_SPARSE_ROWS,
+             "binned_dir": sdir, "iters": DP_SPARSE_ITERS,
+             "params": dict(sp_params, tree_learner="data")}]
+    out = run_ranks_subprocess(DIST_RANKS, "chip_smoke:phase15_rank",
+                               {"runs": runs, "gen_rows": 1000},
+                               timeout=300, device="cuda",
+                               log_dir=os.path.join(work, "logs"))
+    say("16: %d rank processes on %s over %s: %.1f s with start-up"
+        % (len(out), ", ".join(o["device"] for o in out), out[0]["backend"],
+           time.perf_counter() - t1))
+    by_path = {}
+    for run in runs:
+        label = run["label"]
+        rs = [o["runs"][label] for o in out]
+        need(len({r["digest"] for r in rs}) == 1,
+             "%s: the ranks' model texts differ" % label)
+        need(all(r["trees"] == run["iters"] for r in rs),
+             "%s: grew %s trees" % (label, [r["trees"] for r in rs]))
+        by_path[label] = rs[0]["counts"]
+        r0 = rs[0]
+        say("%s (%s): texts byte-equal on %d ranks; rows a rank %s; "
+            "leaves %s; steady %.4f it/s a rank (rank 0; %s); train %.2f s "
+            "with set-up; all-reduce and the other collectives %d calls, "
+            "%d bytes, %.3f s a rank, %.3f ms a pass; launches %s"
+            % (label, r0["learner"], len(rs), [r["rows"] for r in rs],
+               r0["leaves"], r0["steady_it_s"], card, r0["train_s"],
+               r0["collective_calls"], r0["collective_bytes"],
+               r0["collective_s"],
+               1e3 * r0["collective_s"] / max(r0["passes_and_roots"], 1),
+               {k: v for k, v in r0["counts"].items() if v}))
+    unint = out[0]["runs"]["elastic-uninterrupted"]
+    c = unint["counts"]
+    need(c["wave_partition_hist_deferred"] > 0
+         and c["wave_histogram_deferred"] > 0 and c["finish_hist"] > 0
+         and c["score_update"] == ELASTIC_KILL_ITER,
+         "elastic-uninterrupted: launched %s" % c)
+    sp = out[0]["runs"]["dp-sparse-2rank"]
+    need(sp["counts"]["score_update"] == DP_SPARSE_ITERS
+         and sum(sp["counts"].values()) == DP_SPARSE_ITERS,
+         "dp-sparse-2rank: launches %s (B2 once an iteration and nothing "
+         "else)" % sp["counts"])
+
+    # 16b: the serial coordinate store on the same directory
+    t1 = time.perf_counter()
+    serial = lgb.train(sp_params, lgb.Dataset.from_binned(sdir,
+                                                          params=sp_params),
+                       DP_SPARSE_ITERS)
+    serial_text = serial.model_to_string()
+    need(serial._gbdt.learner.hist_mode == "sparse",
+         "16b: the serial run did not take the coordinate store")
+    del serial
+    torch.cuda.empty_cache()
+    same, n = compare_splits("dp-sparse-2rank", sp["text"], serial_text)
+    need(same == n == DP_SPARSE_ITERS, "16b: the data-parallel coordinate "
+         "store does not split as the serial store")
+    say("16b: serial coordinate store on the directory %.1f s; the "
+        "2-rank text %s the serial text to the byte (the splits are "
+        "required, the bytes printed)"
+        % (time.perf_counter() - t1,
+           "equals" if sp["text"] == serial_text else "differs from"))
+
+    # 16a: the drill
+    t1 = time.perf_counter()
+    ck = os.path.join(work, "ck")
+    obs = os.path.join(work, "tl.jsonl")
+    payload = {"binned_dir": edir, "num_rounds": ITERS, "device": "cuda",
+               "checkpoint_dir": ck, "checkpoint_every": 1,
+               "kill_rank": 1, "kill_iter": ELASTIC_KILL_ITER,
+               "return_model": True, "obs_path": obs, "params": params}
+    el = run_elastic(DIST_RANKS, "chip_smoke:phase16_elastic_rank",
+                     payload, device="cuda", timeout=300)
+    el_s = time.perf_counter() - t1
+    rec = el["flight_records"]
+    need(el["attempts"] == 2 and el["world_size"] == 1,
+         "16a: attempts %d, world %d" % (el["attempts"], el["world_size"]))
+    need(len(rec) == 1 and 1 in rec[0]["failed_ranks"],
+         "16a: flight records %s" % [r.get("failed_ranks") for r in rec])
+    events = []
+    for name in sorted(os.listdir(work)):
+        if name.startswith("tl.jsonl"):
+            with open(os.path.join(work, name)) as f:
+                events += [json.loads(ln) for ln in f if ln.strip()]
+    shrink = [e for e in events if e.get("ev") == "mesh_shrink"]
+    need(len(shrink) == 1 and shrink[0]["world_size_from"] == 2
+         and shrink[0]["world_size_to"] == 1
+         and shrink[0]["it"] == ELASTIC_KILL_ITER,
+         "16a: mesh_shrink events %s" % shrink)
+    res = el["results"][0]
+    text = res["model"]
+    need(res["num_trees"] == ITERS and res["num_data"] == ELASTIC_ROWS,
+         "16a: the resumed run has %d trees on %d rows"
+         % (res["num_trees"], res["num_data"]))
+    head = first_trees(lgb, text, ELASTIC_KILL_ITER)
+    need(tree_texts(text)[:ELASTIC_KILL_ITER] == tree_texts(unint["text"]),
+         "16a: the first %d trees differ from the uninterrupted 2-rank "
+         "run's" % ELASTIC_KILL_ITER)
+    t2 = time.perf_counter()
+    # the continuation writes a checkpoint every round into the drill's
+    # directory (an init_model run reads none), as the resumed world
+    # does: a booster's drift fingerprint keeps the training scores of
+    # the first text it writes, so both texts carry round 3's
+    cont_params = dict(params, checkpoint_dir=ck, checkpoint_every=1)
+    cont = lgb.train(cont_params,
+                     lgb.Dataset.from_binned(edir, params=cont_params),
+                     ITERS - ELASTIC_KILL_ITER,
+                     init_model=lgb.Booster(model_str=head))
+    cont_text = cont.model_to_string()
+    need(cont_text == text, "16a: the resumed text differs from the "
+         "serial init_model continuation's")
+    del cont
+    torch.cuda.empty_cache()
+    by_path["elastic-world1"] = res["counts"]
+    need(res["counts"]["wave_partition_hist"] > 0
+         and res["counts"]["score_update"] == ITERS - ELASTIC_KILL_ITER,
+         "16a: the resumed world launched %s" % res["counts"])
+    say("16a on %s: run_elastic %.1f s (2 attempts, 2 then 1 rank, a "
+        "flight record naming rank(s) %s with exit codes %s), mesh_shrink "
+        "2 -> 1 at iteration %d; the first %d trees byte-equal to the "
+        "uninterrupted 2-rank run's, the whole text to the serial "
+        "init_model continuation's (%.1f s); the resumed world's "
+        "launches %s"
+        % (card, el_s, rec[0]["failed_ranks"], rec[0]["returncodes"],
+           shrink[0]["it"], ELASTIC_KILL_ITER, time.perf_counter() - t2,
+           {k: v for k, v in res["counts"].items() if v}))
+    shutil.rmtree(work, ignore_errors=True)
+    say("phase 16a-b (elastic, the coordinate store over two ranks): "
+        "%.1f s" % (time.perf_counter() - t0))
+    return by_path
+
+
+def sharded_serve_phase(lgb, card, serve_data):
+    """16c (see the module's docstring) on phase 7's model and rows."""
+    import torch
+    from lightgbm_tpu_torch.ops import predict as tp
+    t0 = time.perf_counter()
+    X, _, Xf, _, text = serve_data
+    booster = lgb.Booster(model_str=text)
+    gbdt = booster._gbdt
+    gbdt._materialize()
+    block = gbdt._TREE_BLOCK
+    rp = tp.build_ranked_predictor(gbdt.models, 1, X.shape[1], "cuda")
+    V, D = tp.rank_encode(rp, X)
+    Vd = torch.as_tensor(V, device="cuda")
+    Dd = torch.as_tensor(D, device="cuda")
+    one = tp.ranked_predict(rp.dev, Vd, Dd, block)
+    two, n = tp.ranked_predict_sharded(rp, Vd, Dd, 1,
+                                       devices=SHARDED_DEVICES,
+                                       tree_block=block)
+    need(n == len(X) and torch.equal(two[:n], one),
+         "16c: ranked_predict_sharded differs from ranked_predict")
+    one_ms = time_ms(lambda: tp.ranked_predict(rp.dev, Vd, Dd, block),
+                     reps=2, groups=3, warmup=1)
+    two_ms = time_ms(lambda: tp.ranked_predict_sharded(
+        rp, Vd, Dd, 1, devices=SHARDED_DEVICES, tree_block=block),
+        reps=2, groups=3, warmup=1)
+    del Vd, Dd, one, two
+    raw1 = booster.predict(X, raw_score=True)
+    booster.set_predict_devices(SHARDED_DEVICES)
+    raw2 = booster.predict(X, raw_score=True)
+    booster.set_predict_devices(None)
+    need(np.array_equal(raw1, raw2), "16c: Booster.predict over two "
+         "entries differs from one device")
+    say("16c ranked_predict on %s: %d rows, 100 trees, one device %.3f ms, "
+        "sharded over %s %.3f ms (a replica of the trees each); bit-equal, "
+        "and Booster.predict through set_predict_devices too"
+        % (card, n, one_ms, SHARDED_DEVICES, two_ms))
+    ladder = [1 << b for b in range(6, 13)]           # 64 .. 4096
+    got = {}
+    for label, devices in (("one", None), ("two", SHARDED_DEVICES)):
+        sp = booster.serve(max_batch=SERVE_MAX_BATCH, max_delay_ms=2.0,
+                           devices=devices)
+        try:
+            sp.cache.warmup(ladder, convert=False)
+            sp.warmup(ladder)
+            lat, wall, rows, done = run_load(
+                sp, Xf, SHARDED_REQUESTS, SERVE_THREADS, SERVE_SIZES,
+                raw=True)
+            st = sp.stats()["executables"]
+            desc = sp.cache.describe()
+        finally:
+            sp.close()
+        need(st["steady_state_compiles"] == 0,
+             "16c %s: %d captures after warm-up"
+             % (label, st["steady_state_compiles"]))
+        got[label] = done
+        say("16c serving on %s (%s): %d requests from %d threads, %d rows "
+            "in %.3f s (%.0f rows/s), p50 %.3f ms, p99 %.3f ms; %d graphs "
+            "on %s, no capture after warm-up"
+            % (card, label, len(lat), SERVE_THREADS, rows, wall,
+               rows / wall, 1e3 * np.percentile(lat, 50),
+               1e3 * np.percentile(lat, 99), st["graphs"],
+               desc["device_list"]))
+    need(len(got["one"]) == len(got["two"]) and all(
+        a[:2] == b[:2] and np.array_equal(a[2], b[2])
+        for a, b in zip(got["one"], got["two"])),
+        "16c: raw scores over two entries differ from one device's")
+    say("16c: every response over the two entries bit-equal to one "
+        "device's; phase 16c %.1f s" % (time.perf_counter() - t0))
+
+
+def lint_phase(card):
+    """16d: the static analyzer on the card's machine."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                          "lint", "--check"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=300)
+    need(run.returncode == 0, "16d: lint --check exited %d:\n%s%s"
+         % (run.returncode, run.stdout[-4000:], run.stderr[-4000:]))
+    say("16d: python -m lightgbm_tpu_torch lint --check: exit 0 (%s) in "
+        "%.1f s on the card's machine (%s)"
+        % (run.stdout.strip().splitlines()[-1], time.perf_counter() - t0,
+           card))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=2_000_000,
@@ -5405,12 +5719,22 @@ def main():
     # ---- 14a. the coordinate store on phase 5's Dataset; 14b. DART,
     # rollback and continued training on both sparse stores from raw rows
     coord_launches = coord_store_phase(lgb, kernels, card, sparse_data)
+    # ---- 16a, 16b. the elastic drill and the coordinate store over two
+    # ranks (elastic_dp_phase)
+    t16 = time.perf_counter()
+    p16_launches = elastic_dp_phase(lgb, card, sparse_data)
+    t16 = time.perf_counter() - t16
     del sparse_data
     torch.cuda.empty_cache()
     raw_launches = raw_modes_phase(lgb, kernels, card)
 
     # ---- 7. prediction and serving at bench_serve.py's full shape
     serve_data = serve_phase(args, lgb, card, dev)
+    # ---- 16c. sharded prediction and serving over two entries of the
+    # card, on phase 7's model and rows
+    t1 = time.perf_counter()
+    sharded_serve_phase(lgb, card, serve_data)
+    t16 += time.perf_counter() - t1
 
     # ---- 8. the file path: the CLI and the host library on phase 7's
     # data (and 12b, its files through the CLI in two rounds)
@@ -5430,6 +5754,13 @@ def main():
         "classifier %s" % (rank_launches, fobj_launches, api_launches))
     say("phase 9 (the Python API): %.1f s, and 9c %.1f s after phase 4"
         % (time.perf_counter() - t0, t9))
+
+    # ---- 16d. the static analyzer
+    t1 = time.perf_counter()
+    lint_phase(card)
+    t16 += time.perf_counter() - t1
+    say("phase 16 (elastic, the coordinate store over two ranks, sharded "
+        "prediction and serving, lint): %.1f s" % t16)
 
     # ---- 6. result lines: each kernel's launches from its own path's run
     # ("launches": B1, B2 and B3 the main path's, B4 the row-major run's,
@@ -5455,7 +5786,8 @@ def main():
                 ("streamed", streamed_launches),
                 ("observers", observer_launches), ("coord", coord_launches),
                 ("dart-chunked-raw", raw_launches)]
-             + list(PHASE12.items()) + list(dist_launches.items()))
+             + list(PHASE12.items()) + list(dist_launches.items())
+             + list(p16_launches.items()))
     sources = {"wave_partition_hist": ("lightgbm_tpu_torch/csrc/wave_fused.cu",
                                        "lightgbm_tpu/ops/pallas_wave.py:508"),
                "score_update": ("lightgbm_tpu_torch/csrc/score_update.cu",

@@ -255,6 +255,9 @@ class Dataset:
         self._fill_init_score()
         return self
 
+    # rows a chunk of bin_rows (float64, 8 bytes a column) takes
+    _BIN_ROWS = 65536
+
     def _set_predictor(self, predictor: "_InnerPredictor") -> "Dataset":
         """Continued training: the init scores become the predictor's raw
         scores on this data (at construction, or now if constructed)."""
@@ -266,7 +269,10 @@ class Dataset:
     def _fill_init_score(self) -> None:
         """(K, N) class-major init scores from the predictor's f64 host
         trees (JAX basic.py:252-264), on the kept rows or, for sparse
-        data, on bounded dense row chunks."""
+        data, on bounded dense row chunks; a dataset that keeps only its
+        bins (a pre-binned directory, where the JAX package sets no init
+        score) on the values its bins stand for
+        (``TrainingData.bin_rows``), in chunks of _BIN_ROWS."""
         if self._predictor is None:
             return
         handle = self._handle
@@ -276,6 +282,11 @@ class Dataset:
             raw = np.concatenate(
                 [self._predictor.predict_raw_for_init(block)
                  for _, block in iter_dense_row_chunks(self.data)])
+        elif handle.bin_rows(0, 1) is not None:
+            raw = np.concatenate(
+                [self._predictor.predict_raw_for_init(
+                    handle.bin_rows(lo, lo + self._BIN_ROWS))
+                 for lo in range(0, handle.num_data, self._BIN_ROWS)])
         else:
             raise LightGBMError("continued training needs the raw rows of "
                                 "the training data")
@@ -845,6 +856,15 @@ class Booster:
         if mat.ndim == 1:
             mat = mat.reshape(1, -1)
         return run(mat), mat.shape[0]
+
+    def set_predict_devices(self, devices=None) -> "Booster":
+        """Shard the rows of device bulk prediction over ``devices`` (a
+        list such as ["cuda:0", "cuda:1"]; entries may repeat a device),
+        the trees replicated to each, as the JAX package predicts over
+        its local devices (ops/predict.py ranked_predict_sharded: the
+        scores are one device's bits).  None: the booster's device."""
+        self._gbdt.predict_devices = list(devices) if devices else None
+        return self
 
     def serve(self, num_iteration: int = -1, **overrides):
         """A ``ServingPredictor`` for this model (serve/scheduler.py):

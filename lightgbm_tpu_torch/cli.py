@@ -240,9 +240,11 @@ def main(argv=None) -> int:
         from .obs.query import main as obs_main
         return obs_main(argv[1:])
     if argv and argv[0] == "lint":
-        raise LightGBMError(
-            "the lint subcommand is not in lightgbm_tpu_torch yet (ROADMAP: "
-            "observability and static analysis)")
+        # the static analyzer: python -m lightgbm_tpu_torch lint
+        # [paths] [--check] [--json] [--baseline F] [--write-baseline F]
+        # [--rules]
+        from .analysis.cli import main as lint_main
+        return lint_main(argv[1:])
     params = key_alias_transform(parse_cli_params(argv),
                                  raise_unknown=False)
     cfg = Config(params)

@@ -9,6 +9,7 @@ the JAX package's folds (``cv``, ``CVBooster``).  Both run on ``device``
 from __future__ import annotations
 
 import collections
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -137,8 +138,27 @@ def train(params: Dict[str, Any], train_set: Dataset,
     # on an early stop
     comm = booster._gbdt._dist_comm()
     rank0 = comm is None or comm.rank == 0
+    world = 1 if comm is None else int(comm.size)
     if not rank0:
         verbose_eval = False
+    obs = booster._gbdt._obs
+    ck_world = (int(resumed.get("world_size", 1) or 1)
+                if resumed is not None else world)
+    if ck_world != world and obs.enabled:
+        # an elastic shrink-and-resume (parallel/elastic.py): the world
+        # that resumes differs from the one that wrote the checkpoint
+        obs.event("mesh_shrink", world_size_from=ck_world,
+                  world_size_to=world, it=int(resumed["iteration"]),
+                  reason="resume",
+                  checkpoint=ckpt_mod.checkpoint_path(ck_dir))
+
+    def save_checkpoint(rounds):
+        obs.stamp_context(stage="checkpoint", it=rounds)
+        path = ckpt_mod.save_checkpoint(ck_dir, booster._gbdt, rounds,
+                                        params, world_size=world)
+        if obs.enabled:
+            obs.event("checkpoint", it=rounds, path=path,
+                      bytes=int(os.path.getsize(path)), world_size=world)
     cbs = set(callbacks or [])
     if learning_rates is not None:
         cbs.add(callback_mod.reset_parameter(learning_rate=learning_rates))
@@ -151,7 +171,6 @@ def train(params: Dict[str, Any], train_set: Dataset,
     results = []
     begin, end = init_iteration, init_iteration + num_boost_round
     rounds_done = saved = rounds_base
-    obs = booster._gbdt._obs
     try:
         for i in range(begin, end):
             for cb in cbs_before:
@@ -163,9 +182,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
             rounds_done = rounds_base + (i - begin) + 1
             if (ck_dir and ck_every > 0 and rounds_done % ck_every == 0
                     and rank0):
-                obs.stamp_context(stage="checkpoint", it=rounds_done)
-                ckpt_mod.save_checkpoint(ck_dir, booster._gbdt, rounds_done,
-                                         params)
+                save_checkpoint(rounds_done)
                 saved = rounds_done
             results = []
             if valid_sets is not None or feval is not None:
@@ -199,7 +216,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
         booster.finalize_telemetry(status="aborted")
         raise
     if ck_dir and ck_every > 0 and rounds_done != saved and rank0:
-        ckpt_mod.save_checkpoint(ck_dir, booster._gbdt, rounds_done, params)
+        save_checkpoint(rounds_done)
     booster.best_score = collections.defaultdict(dict)
     for data_name, eval_name, score, _ in results or []:
         booster.best_score[data_name][eval_name] = score

@@ -675,6 +675,26 @@ class TrainingData:
                 out.append(self.bin_mappers[i].bin_info())
         return out
 
+    def bin_rows(self, lo: int = 0, hi: Optional[int] = None):
+        """(hi - lo, num_total_features) float64: the rows' bins as the
+        value each bin stands for (``BinMapper.bin_to_value``: a
+        numerical bin's upper bound, a categorical bin's category; 0 in
+        the unused columns), or None where the bins are EFB groups.  A
+        tree grown on these bins routes each such row as the training
+        routed its bins, so a model continues training on a dataset
+        that keeps only its bins (a pre-binned directory)."""
+        if self.bundle is not None or self.binned is None:
+            return None
+        binned = self.binned[lo:hi]
+        out = np.zeros((binned.shape[0], self.num_total_features))
+        for inner, real in enumerate(self.used_feature_idx):
+            m = self.bin_mappers[real]
+            table = (np.asarray(m.bin_upper_bound, np.float64)
+                     if m.bin_type == NUMERICAL
+                     else np.asarray(m.bin_2_categorical, np.float64))
+            out[:, real] = table[binned[:, inner]]
+        return out
+
     def subset(self, indices: np.ndarray) -> "TrainingData":
         """The rows ``indices`` of the binned matrix and the metadata,
         sharing this dataset's mappers and EFB layout (dataset.cpp:399

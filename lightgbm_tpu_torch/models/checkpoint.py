@@ -1,7 +1,9 @@
 """Compact booster checkpoints: train, stop, resume.
 
-The JAX package's ``models/checkpoint.py`` on one process (world size 1;
-the JAX package also resumes a run on a smaller mesh).  A checkpoint is
+The JAX package's ``models/checkpoint.py``.  A checkpoint records the
+world size of the run that wrote it (rank 0 writes), so a run resumed on
+fewer ranks (parallel/elastic.py) says so with a ``mesh_shrink`` event
+(engine.train).  A checkpoint is
 ONE JSON file, small by construction: the model text
 (the same format save_model_to_string ships — trees only, no scores, no
 dataset), the completed boosting-round count, the trajectory seeds, and
@@ -73,7 +75,7 @@ def checkpoint_path(ckdir: str) -> str:
 
 
 def save_checkpoint(ckdir: str, gbdt, iteration: int,
-                    params: Dict[str, Any]) -> str:
+                    params: Dict[str, Any], world_size: int = 1) -> str:
     """Atomically write the checkpoint; returns its path.  ``iteration``
     is the TOTAL completed boosting-round count (including rounds done
     before any earlier resume), so a twice-resumed run still counts
@@ -85,7 +87,7 @@ def save_checkpoint(ckdir: str, gbdt, iteration: int,
         "schema": CHECKPOINT_SCHEMA,
         "t": time.time(),
         "iteration": int(iteration),
-        "world_size": 1,
+        "world_size": int(world_size),
         "config_fingerprint": config_fingerprint(params),
         "seeds": {k: int(getattr(cfg, k)) for k in _SEED_KEYS
                   if cfg is not None and hasattr(cfg, k)},

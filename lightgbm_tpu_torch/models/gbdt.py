@@ -33,6 +33,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..io.dataset import TrainingData
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction, load_objective_from_string
@@ -79,6 +80,9 @@ class GBDT:
                  training_metrics: Sequence[Metric] = ()):
         self.config = config
         self.device = device
+        # the devices bulk prediction shards its rows over (None: the
+        # booster's own; Booster.set_predict_devices)
+        self.predict_devices = None
         # host Trees; None entries wait for materialization from the
         # aligned _models_dev / _models_shrink slots
         self.models: List[Optional[Tree]] = []
@@ -911,8 +915,9 @@ class GBDT:
         return min(4_000_000, max(65_536, 1_500_000_000 // bytes_per_row))
 
     def _device_bulk_predict(self, features, num_used, k):
-        """Rank-encoded bulk prediction on the booster's device
-        (ops/predict.py): f64-exact routing as int compares, Kahan f32
+        """Rank-encoded bulk prediction on the booster's device, or
+        over the entries of set_predict_devices (ops/predict.py
+        ranked_predict_sharded): f64-exact routing as int compares, Kahan f32
         accumulation.  None when the host path runs instead:
         tpu_predict=false; under auto, a booster off the card or fewer
         than _DEVICE_PREDICT_MIN_ROWS rows; a model whose features mix
@@ -945,32 +950,45 @@ class GBDT:
         if features.shape[1] < rp.max_feature + 1:
             return None                # fewer columns than the model uses
         block = min(max(rp.dev.num_trees, 1), self._TREE_BLOCK)
-        chunk = self._predict_chunk_rows(features.shape[1], block)
+        # several devices (set_predict_devices) each take a share of a
+        # chunk's rows, so a chunk holds as many budgets as there are
+        # distinct devices; the scores land on the first entry's
+        devices = [resolve_device(d)
+                   for d in (self.predict_devices or [device])]
+        first = devices[0]
+        chunk = (self._predict_chunk_rows(features.shape[1], block)
+                 * len(set(devices)))
         out = np.empty((features.shape[0], k), np.float64)
-        cuda = device.type == "cuda"
+        pin = any(d.type == "cuda" for d in devices)
 
         def dispatch(part):
             """Encode into pinned memory, copy and traverse, with no
             wait: the scores land in pinned memory behind an event."""
             shape = part.shape
-            V = torch.empty(shape, dtype=torch.int32, pin_memory=cuda)
-            D = torch.empty(shape, dtype=torch.bool, pin_memory=cuda)
+            V = torch.empty(shape, dtype=torch.int32, pin_memory=pin)
+            D = torch.empty(shape, dtype=torch.bool, pin_memory=pin)
             dev_predict.rank_encode(rp, part, out=(V.numpy(), D.numpy()))
-            score = dev_predict.ranked_predict(
-                rp.dev, V.to(device, non_blocking=True),
-                D.to(device, non_blocking=True), block)
-            if not cuda:
+            # rows shard over the devices, the trees replicate: the bits
+            # of one device (ops/predict.py)
+            score, n = dev_predict.ranked_predict_sharded(
+                rp, V, D, k, devices=devices, tree_block=block)
+            score = score[:n]
+            if first.type != "cuda":
                 return score, None
-            host = torch.empty(score.shape, dtype=score.dtype,
-                               pin_memory=True)
-            host.copy_(score, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+            with torch.cuda.device(first):
+                # the copy and its event on the first entry's stream
+                host = torch.empty(score.shape, dtype=score.dtype,
+                                   pin_memory=True)
+                host.copy_(score, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
             return host, done
 
         def drain(lo, host, done):
             if done is not None:
-                done.synchronize()
+                # the drain's one wait: the chunk's scores in pinned
+                # memory, read by the host next
+                done.synchronize()  # lint: ignore[sync-synchronize] drain
             out[lo:lo + host.shape[0]] = host.numpy()
 
         # one-deep pipeline: encode chunk i+1 on the host while the

@@ -302,6 +302,9 @@ class Grower:
     sparse = False
     slots = 1
     counts_waves = False
+    # whether a comm's ranks each hold a block of the rows (and then
+    # their sums and exponents are global), or all of them
+    shards_rows = True
     # the histogram engine: a kernel mode, or an XLA engine of
     # ENGINE_MODES (which needs no list workspace)
     hist_mode = "pallas"
@@ -310,11 +313,13 @@ class Grower:
                  num_bins: int, params: SplitParams, max_depth: int,
                  group_bins: int = 0, cache_hists: bool = True,
                  dtype=torch.float32, comm=None,
-                 global_rows: Optional[int] = None):
+                 global_rows: Optional[int] = None, rank_rows=None):
         """comm: the ranks' HostComm (None, or one rank: serial growth),
         each rank holding a block of the rows (global_rows: their
-        total); the histograms are the ranks' sum (data parallelism;
-        the voting and feature arms are subclasses)."""
+        total; rank_rows: each rank's count, in rank order, its block
+        the next in the rows' order); the histograms are the ranks' sum
+        (data parallelism; the voting and feature arms are
+        subclasses)."""
         self.X, self.meta, self.bundle = X, meta, bundle
         self.L = num_leaves
         self.num_bins = num_bins
@@ -323,9 +328,12 @@ class Grower:
         self.cache_hists = cache_hists
         self.dtype = dtype
         self.comm = comm if comm is not None and comm.size > 1 else None
-        # rows sharded over the ranks: the sums and exponents are global
-        self.row_comm = self.comm
+        self.row_comm = self.comm if self.shards_rows else None
+        if self.row_comm is not None and self.sparse and rank_rows is None:
+            raise ValueError("a sparse store over row-sharded ranks needs "
+                             "rank_rows, each rank's row count")
         self.global_rows = global_rows
+        self.rank_rows = None if rank_rows is None else tuple(rank_rows)
 
     @property
     def defer(self) -> bool:
@@ -420,9 +428,7 @@ class Grower:
         histogram (one child slot) and best split."""
         dev, i32 = w3.device, torch.int32
         st.leaf_id.zero_()
-        root_sums = w3.sum(dim=0)
-        if self.row_comm is not None:
-            self.row_comm.all_reduce_(root_sums)
+        root_sums = self._root_sums(w3)
         hist0 = self._root_hists(st, st.leaf_id,
                                  torch.zeros(1, dtype=i32, device=dev), w3,
                                  exps)[0]
@@ -437,6 +443,29 @@ class Grower:
         st.done.fill_(self.L <= 1)
         if st.waves is not None:
             st.waves.zero_()
+
+    def _root_sums(self, w3):
+        """(3,) the root's sums of the weight rows; with the rows sharded,
+        over every rank's rows.  A dense store's histograms are summed
+        from the rows alone, so the ranks' partial sums are all-reduced
+        (3 floats a tree, as the JAX package psums).  A sparse store
+        derives each feature's fill bin from the leaf's sums, so the
+        rounding of a sum of partial sums would move every fill bin of
+        the root, and near-ties with them; it gathers the ranks' weight
+        rows in rank order (each padded to the largest block) and sums
+        them as the one (N, 3) tensor the serial run sums, for the
+        serial run's bits.  That costs O(N) a tree: every rank receives
+        and holds 12 bytes for each row of every rank."""
+        if self.row_comm is None:
+            return w3.sum(dim=0)
+        if not self.sparse:
+            return self.row_comm.all_reduce_(w3.sum(dim=0))
+        cap = max(self.rank_rows)
+        padded = torch.zeros((cap, 3), dtype=w3.dtype, device=w3.device)
+        padded[:w3.shape[0]] = w3
+        parts = self.row_comm.all_gather(padded)
+        return torch.cat([parts[r, :n] for r, n in
+                          enumerate(self.rank_rows)]).sum(dim=0)
 
     def _done(self, st: GrowState):
         """() bool: the next pass can split nothing."""
@@ -468,10 +497,10 @@ class ExactGrower(Grower):
 
     def __init__(self, X, meta: FeatureMeta, bundle, *,
                  hist_mode: str = "pallas", packed_cols: int = 0, **kw):
-        super().__init__(X, meta, bundle, **kw)
-        self.hist_mode = hist_mode
         # the coordinate sparse store (JAX hist_mode 'sparse')
         self.sparse = isinstance(X, SparseDeviceStore)
+        super().__init__(X, meta, bundle, **kw)
+        self.hist_mode = hist_mode
         self.packed_cols = 0 if self.sparse else int(packed_cols)
         self.hist_cols = (X.num_cols if self.sparse
                           else self.packed_cols or X.shape[1])
@@ -483,7 +512,8 @@ class ExactGrower(Grower):
         data-parallel learner."""
         if self.sparse:
             return sparse_leaf_hist(self.X, lid, w3, ids, self.hist_bins,
-                                    self.hist_cols, exps)[None]
+                                    self.hist_cols, exps,
+                                    comm=self.row_comm)[None]
         if self.hist_mode in ENGINE_MODES:
             return self._reduce_hist(lambda finish: engine_histogram(
                 self.hist_mode, self.X, lid, w3, ids.to(torch.int32),
@@ -700,12 +730,13 @@ class FeatureParallelGrower(ExactGrower):
     hands to every rank.  ``meta`` is the padded global metadata,
     ``local_meta`` the block's."""
 
+    # every rank holds all rows: its sums and exponents are the serial
+    # ones, and its histograms (of its own features) are its own
+    shards_rows = False
+
     def __init__(self, X, meta, bundle, *, local_meta: FeatureMeta,
                  feature_offset: int, **kw):
         super().__init__(X, meta, bundle, **kw)
-        # every rank holds all rows: its sums and exponents are the serial
-        # ones, and its histograms (of its own features) are its own
-        self.row_comm = None
         self.local_meta = local_meta
         self.offset = int(feature_offset)
 
@@ -785,7 +816,8 @@ def grow_tree_exact(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     L = num_leaves
     cls = exact_grower_class(parallel, comm)
     if cls is ExactGrower:
-        dist_kw = {"global_rows": dist_kw.get("global_rows")}
+        dist_kw = {k: dist_kw.get(k) for k in ("global_rows",
+                                                 "rank_rows")}
     g = cls(X, meta, bundle, num_leaves=L, num_bins=num_bins,
             params=params, max_depth=max_depth, group_bins=group_bins,
             cache_hists=cache_hists, hist_mode=hist_mode,
@@ -801,8 +833,9 @@ def grow_tree_exact(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     while True:
         # the one host read of a batch: leaves with a positive gain, and
         # the deepest leaf so far
-        host = torch.stack([(st.bests[:L, GAIN] > 0.0).sum().to(torch.int32),
-                            st.tree.leaf_depth[:L].max()]).tolist()
+        host = torch.stack([  # lint: ignore[sync-tolist] the batch's read
+            (st.bests[:L, GAIN] > 0.0).sum().to(torch.int32),
+            st.tree.leaf_depth[:L].max()]).tolist()
         host_reads += 1
         pending, depth = int(host[0]), int(host[1])
         if pending == 0 or nn == L - 1:

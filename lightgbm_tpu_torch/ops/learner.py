@@ -135,16 +135,23 @@ def _unsupported(knob: str, value) -> None:
               "or a sparse store)", knob, value)
 
 
-def resolve_sparse(config: Config) -> str:
+def resolve_sparse(config: Config, parallel: str = "") -> str:
     """Which sparse store runs, as the JAX package resolves tpu_sparse and
-    tpu_sparse_kernel for its serial learner (its ops/learner.py): ''
-    (the dense matrix), 'sparse' (the coordinate store,
-    ops/sparse_store.py: tpu_sparse=true alone, under wave or exact
-    growth, f32 or tpu_use_dp weights) or 'sparse_mxu' (the entry-chunk
-    store and kernel B6, with tpu_sparse_kernel=true: wave growth and
-    f32 weights only).  The pallas kernels are dense-only."""
+    tpu_sparse_kernel (its ops/learner.py): '' (the dense matrix),
+    'sparse' (the coordinate store, ops/sparse_store.py: tpu_sparse=true
+    alone, under wave or exact growth, f32 or tpu_use_dp weights) or
+    'sparse_mxu' (the entry-chunk store and kernel B6, with
+    tpu_sparse_kernel=true: wave growth and f32 weights only).  The
+    pallas kernels are dense-only.  parallel: the distributed learner
+    ('' serial): the voting and feature-parallel learners train dense
+    and the data-parallel learner on the coordinate store, each
+    dropping the knob it cannot take with the JAX package's warning."""
     sparse = bool(config.tpu_sparse)
     kernel = bool(config.tpu_sparse_kernel)
+    if sparse and parallel in ("voting", "feature"):
+        Log.warning("tpu_sparse=true ignored: the sparse device store "
+                    "supports the serial and data-parallel learners only")
+        sparse = False
     if kernel and not sparse:
         Log.warning("tpu_sparse_kernel=true has no effect without "
                     "tpu_sparse=true")
@@ -156,6 +163,11 @@ def resolve_sparse(config: Config) -> str:
         Log.fatal("tpu_sparse=true is incompatible with "
                   "tpu_histogram_mode=%s (the pallas kernels are "
                   "dense-only)", config.tpu_histogram_mode)
+    if kernel and parallel == "data":
+        Log.warning("tpu_sparse_kernel=true ignored under the data-parallel "
+                    "learner (the mesh sparse grow shards the coordinate "
+                    "store)")
+        kernel = False
     if not kernel:
         return "sparse"
     if str(config.tpu_growth).strip().lower() == "exact":
@@ -195,15 +207,15 @@ def resolve_growth(config: Config, sparse: str) -> str:
     return growth
 
 
-def check_engine_params(config: Config):
+def check_engine_params(config: Config, parallel: str = ""):
     """Raise on knob values whose engine this port lacks; accept the
     values that resolve to the engines it has.  Returns (sparse, growth):
-    the sparse store that runs ('' for none, resolve_sparse) and the
-    growth schedule (resolve_growth)."""
+    the sparse store that runs ('' for none, resolve_sparse under the
+    learner ``parallel``) and the growth schedule (resolve_growth)."""
     def val(name):
         return _val(config, name)
 
-    sparse = resolve_sparse(config)
+    sparse = resolve_sparse(config, parallel)
     checks = [
         ("tree_learner", ("serial",) + DISTRIBUTED_LEARNERS),
         ("tpu_growth", ("auto", "wave", "exact")),
@@ -330,7 +342,8 @@ def paged_device_matrix(train_data: TrainingData, row_major: bool, device):
     for off, view in reader.iter_rows():
         rows = view.shape[0]
         if copied is not None:
-            copied.synchronize()
+            # the stage is reused: its last copy out must be done
+            copied.synchronize()  # lint: ignore[sync-synchronize] stage
         shape = (rows, g) if row_major else (g, rows)
         np.copyto(stage_np[:rows * g].reshape(shape),
                   view if row_major else view.T)
@@ -341,7 +354,8 @@ def paged_device_matrix(train_data: TrainingData, row_major: bool, device):
             copied.record(torch.cuda.current_stream(X.device))
         shards += 1
     if copied is not None:
-        copied.synchronize()
+        # the stage is freed: its last copy out must be done
+        copied.synchronize()  # lint: ignore[sync-synchronize] stage
     width = X.element_size()
     stats = {"paged": True, "shards": shards, "bytes": int(n * g * width),
              "staging_bytes": int(cap * g * width),
@@ -350,8 +364,10 @@ def paged_device_matrix(train_data: TrainingData, row_major: bool, device):
 
 
 class SerialTreeLearner:
-    # the distributed learners of parallel/mesh.py say True
+    # the distributed learners of parallel/mesh.py say True, and which
+    # they are
     distributed = False
+    parallel = ""
     # whether a reader-backed dataset pages its shards to the card
     pages = True
 
@@ -360,7 +376,8 @@ class SerialTreeLearner:
         """``device_store``: a sparse store of train_data built by an
         earlier learner (reset_config), reused where this learner runs
         the same kind of store."""
-        self.sparse_mode, self.growth = check_engine_params(config)
+        self.sparse_mode, self.growth = check_engine_params(config,
+                                                            self.parallel)
         self.growth = self._resolve_growth(config, self.growth)
         self.sparse = bool(self.sparse_mode)
         self.config = config
@@ -441,8 +458,8 @@ class SerialTreeLearner:
                                      train_data.bundle)
                     if train_data.num_features else np.zeros(1, np.int64))
             if self.sparse_mode == "sparse":
-                self.X, _, self.sparse_device_bytes = build_sparse_store(
-                    binned, fill, nbins, device=device)
+                self.X, self.sparse_device_bytes = self._coordinate_store(
+                    binned, fill, nbins, device)
             else:
                 # a low-skew store takes one wide chunk a column
                 # (auto_uniform)
@@ -477,6 +494,14 @@ class SerialTreeLearner:
         # recorded once set_observer attaches the run's observer
         self._pending_events = []
         self._autotune(config, ncols, nbins)
+
+    def _coordinate_store(self, binned, fill, nbins: int, device):
+        """(store, device bytes): the coordinate store of this learner's
+        bins (the data-parallel learner pads it to the ranks' agreed
+        size)."""
+        store, _, nbytes = build_sparse_store(binned, fill, nbins,
+                                              device=device)
+        return store, nbytes
 
     def _resolve_growth(self, config: Config, growth: str) -> str:
         """The growth schedule: the serial resolution (the voting and

@@ -293,6 +293,21 @@ class RankedTrees:
     def num_trees(self) -> int:
         return int(self.depth.shape[0])
 
+    @property
+    def device(self) -> torch.device:
+        return self.nodes.device
+
+    def to(self, device) -> "RankedTrees":
+        """A copy of the stack on ``device`` (a replica: new tensors even
+        on the stack's own device)."""
+        def put(t):
+            return t.to(device, copy=True)
+        return RankedTrees(nodes=put(self.nodes),
+                           leaf_value=put(self.leaf_value),
+                           hits=put(self.hits), init=put(self.init),
+                           node_base=put(self.node_base),
+                           leaf_base=put(self.leaf_base), depth=self.depth)
+
 
 class RankedPredictor:
     """Host-prepared state for bulk prediction: the device tree stack
@@ -304,6 +319,19 @@ class RankedPredictor:
         self.thresholds = thresholds
         self.cat_features = cat_features
         self.max_feature = max_feature     # host int: no read per predict
+        self._replicas = {}                # devices -> one stack an entry
+
+    def replicas(self, devices) -> list:
+        """One copy of the tree stack for each entry of ``devices`` (made
+        once for that list, and kept): a device's share of the rows
+        traverses its own copy, and two entries that name one card get
+        a copy each."""
+        devs = [resolve_device(d) for d in devices]
+        key = tuple(str(d) for d in devs)
+        reps = self._replicas.get(key)
+        if reps is None:
+            reps = self._replicas[key] = [self.dev.to(d) for d in devs]
+        return reps
 
 
 def build_ranked_predictor(models, num_class: int, num_features: int,
@@ -484,9 +512,45 @@ def ranked_leaf_indices(trees: RankedTrees, V, D):
     return ranked_leaves(trees, V, D, 0, trees.num_trees)
 
 
-def ranked_predict_sharded(*args, **kwargs):
+def ranked_predict_sharded(rp: RankedPredictor, V, D, num_class: int,
+                           devices=None, tree_block=None):
     """Row-sharded bulk prediction over several devices (JAX
-    ``ops/predict.py ranked_predict_sharded``): not in the port yet; a
-    process predicts on its one card (``ranked_predict``)."""
-    raise LightGBMError("row-sharded prediction over several devices is "
-                        "not in lightgbm_tpu_torch yet (ROADMAP A10b)")
+    ``ops/predict.py ranked_predict_sharded``).  Prediction is parallel
+    in rows: the tree stack is replicated to every entry of ``devices``
+    (``RankedPredictor.replicas``), the rows are padded to a multiple of
+    the entries (zero rows) and each entry traverses its contiguous share
+    on its own copy.  A row's arithmetic is its own (``ranked_predict``),
+    so the scores are bit-identical to one device's.  With one device,
+    or none (the stack's own), it is ``ranked_predict``.
+
+    V (N, F) int32 and D (N, F) bool: numpy arrays or tensors (the rank
+    encoding); num_class is the stack's K (the JAX signature's).
+    Returns (scores, n): (N + pad, K) f32 on the first entry's device,
+    whose rows n: are pad."""
+    n = int(V.shape[0])
+    if not devices or len(devices) <= 1:
+        dev = resolve_device(devices[0]) if devices else rp.dev.device
+        trees = rp.dev if dev == rp.dev.device else rp.replicas([dev])[0]
+        return ranked_predict(
+            trees, torch.as_tensor(V).to(dev, non_blocking=True),
+            torch.as_tensor(D).to(dev, non_blocking=True), tree_block), n
+    reps = rp.replicas(devices)
+    ndev = len(reps)
+    per = -(-max(n, 1) // ndev)
+    V, D = torch.as_tensor(V), torch.as_tensor(D)
+    outs = []
+    for i, trees in enumerate(reps):
+        lo, hi = min(i * per, n), min((i + 1) * per, n)
+        Vi, Di = V[lo:hi], D[lo:hi]
+        if hi - lo < per:
+            # pad rows traverse from rank 0; they are sliced off
+            Vi = torch.cat([Vi, Vi.new_zeros((per - (hi - lo),
+                                              V.shape[1]))])
+            Di = torch.cat([Di, Di.new_zeros((per - (hi - lo),
+                                              D.shape[1]))])
+        dev = trees.device
+        outs.append(ranked_predict(trees, Vi.to(dev, non_blocking=True),
+                                   Di.to(dev, non_blocking=True),
+                                   tree_block))
+    first = reps[0].device
+    return torch.cat([o.to(first) for o in outs]), n

@@ -37,6 +37,7 @@ column holds), so a CUDA graph captures it.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -61,6 +62,13 @@ class SparseDeviceStore:
     colptr: torch.Tensor    # (F + 1,) i32
     fill: torch.Tensor      # (F,) i32 fill bin of each column
     col_cap: int
+    # entries past the columns' (colptr[F]:) pad the store to a size the
+    # ranks agreed on; each carries the drop segment F * B
+    padded: bool = False
+    # the segments (col * B + bin) an entry can hold, the bins below the
+    # column's count but its fill: the cells the data-parallel ranks
+    # all-reduce (None: all F * B)
+    cells: Optional[torch.Tensor] = None
 
     @property
     def num_cols(self) -> int:
@@ -132,6 +140,68 @@ def build_sparse_store(binned: np.ndarray, fill: np.ndarray, num_bins: int,
     return store, col_cap, device_bytes
 
 
+def sharded_store_parts(binned: np.ndarray, fill: np.ndarray,
+                        num_bins: int, n_shards: int):
+    """Phase 1 of the sharded build (JAX ``sharded_store_parts``): the
+    coordinate arrays of each of n_shards equal row blocks of binned,
+    with row ids local to the block.  Returns (parts, nnz_needed,
+    col_cap), the most entries and the widest column of any block; the
+    ranks of the data-parallel learner, one block each, agree on the
+    largest of every rank's before assembling."""
+    n, f = binned.shape
+    assert n % n_shards == 0, (n, n_shards)
+    block = n // n_shards
+    parts = [_store_arrays(binned[s * block:(s + 1) * block], fill,
+                           num_bins)
+             for s in range(n_shards)]
+    nnz_needed = max(max(len(p[0][0]) for p in parts), 1)
+    col_cap = max(p[1] for p in parts)
+    return parts, nnz_needed, col_cap
+
+
+def assemble_sharded_store(parts, num_cols: int, num_bins: int,
+                           nnz_max: int, col_cap: int = 0):
+    """Phase 2 (JAX ``assemble_sharded_store``): every block's entries
+    padded to nnz_max (pad entries carry row 0, bin 0 and the drop
+    segment num_cols * num_bins, which no histogram keeps) and the
+    blocks concatenated, in host numpy.  Returns (store, device_bytes),
+    the store's arrays numpy until ``upload_store``; col_cap: the agreed
+    window (default the widest column of the parts)."""
+    n_shards = len(parts)
+    drop_seg = num_cols * num_bins
+
+    def pad_to(arr, value):
+        out = np.full(nnz_max, value, arr.dtype)
+        out[:len(arr)] = arr
+        return out
+
+    store = SparseDeviceStore(
+        nz_row=np.concatenate([pad_to(p[0][0], 0) for p in parts]),
+        nz_bin=np.concatenate([pad_to(p[0][1], 0) for p in parts]),
+        nz_seg=np.concatenate([pad_to(p[0][2], drop_seg) for p in parts]),
+        colptr=np.concatenate([p[0][3] for p in parts]),
+        fill=np.concatenate([p[0][4] for p in parts]),
+        col_cap=max([int(col_cap)] + [p[1] for p in parts]),
+        padded=any(len(p[0][0]) < nnz_max for p in parts))
+    device_bytes = 4 * (3 * n_shards * nnz_max
+                        + n_shards * (2 * num_cols + 1))
+    return store, device_bytes
+
+
+def upload_store(store: SparseDeviceStore, device,
+                 cells=None) -> SparseDeviceStore:
+    """A host-built store (``assemble_sharded_store``'s) on ``device``,
+    uploaded once; cells: ``store_cells``'s, for the data-parallel
+    all-reduce."""
+    def put(a):
+        return torch.as_tensor(a, device=device)
+    return SparseDeviceStore(
+        nz_row=put(store.nz_row), nz_bin=put(store.nz_bin),
+        nz_seg=put(store.nz_seg), colptr=put(store.colptr),
+        fill=put(store.fill), col_cap=store.col_cap, padded=store.padded,
+        cells=cells)
+
+
 def store_device_bytes(store: SparseDeviceStore) -> int:
     """The device bytes of a built store (JAX ops/learner.py's count on
     reuse)."""
@@ -155,17 +225,28 @@ def column_fill_bins(num_bin_arr, default_bin_arr, bundle) -> np.ndarray:
 
 
 def _segment_histogram(store: SparseDeviceStore, slot_row, K: int, w3,
-                       exps, num_bins: int, num_cols: int, fixed=None):
+                       exps, num_bins: int, num_cols: int, fixed=None,
+                       comm=None):
     """(K, F, B, 3) in w3's dtype: the sums of the entries of the rows in
     each slot (slot_row (N,) long, K for rows in no slot), in the fixed
-    point (fixed None: on the card) or in w3's dtype in entry order."""
-    if fixed is None:
+    point (fixed None: on the card) or in w3's dtype in entry order.
+    comm: the ranks of the data-parallel learner, each holding a block of
+    the rows; their integer sums are all-reduced before the conversion
+    (always in the fixed point), so every rank holds the histogram of
+    all rows, bit for bit the serial store's fixed-point one."""
+    if comm is not None:
+        fixed = True
+    elif fixed is None:
         fixed = w3.device.type == "cuda"
     FB = num_cols * int(num_bins)
     rows = store.nz_row.long()
     slot = slot_row[rows]
     spill = K * FB + (rows & (_SPILL - 1))
-    seg = torch.where(slot < K, slot * FB + store.nz_seg.long(), spill)
+    nz_seg = store.nz_seg.long()
+    live = slot < K
+    if store.padded:
+        live &= nz_seg < FB
+    seg = torch.where(live, slot * FB + nz_seg, spill)
     if not fixed:
         acc = torch.zeros((K * FB + _SPILL, 3), dtype=w3.dtype,
                           device=w3.device)
@@ -179,18 +260,49 @@ def _segment_histogram(store: SparseDeviceStore, slot_row, K: int, w3,
                       device=w3.device)
     acc.index_add_(0, seg, q.reshape(-1, 3 * limbs)[rows])
     S = acc[:K * FB].reshape(K, num_cols, int(num_bins), 3, limbs)
+    if comm is not None:
+        S = _all_reduce_cells(S, store.cells, comm)
     return dequantize(S, exps, w3.dtype)
+
+
+def _all_reduce_cells(S, cells, comm):
+    """The ranks' sum of the integer sums S (K, F, B, 3, L): only the
+    cells an entry can hold cross the wire (every other cell is zero on
+    every rank)."""
+    if cells is None:
+        S = S.contiguous()
+        comm.all_reduce_(S)
+        return S
+    K, F, B, C, L = S.shape
+    flat = S.reshape(K, F * B, C * L)
+    part = flat.index_select(1, cells)
+    comm.all_reduce_(part)
+    out = torch.zeros_like(flat)
+    out.index_copy_(1, cells, part)
+    return out.reshape(K, F, B, C, L)
+
+
+def store_cells(bins_per_col, fill, num_bins: int, device):
+    """(cells,) long: the segments col * num_bins + bin with bin below the
+    column's bin count and not its fill bin, in order: every segment an
+    entry of the store can hold."""
+    nb = np.asarray(bins_per_col, np.int64)
+    fill = np.asarray(fill, np.int64)
+    b = np.arange(int(num_bins))[None, :]
+    ok = (b < nb[:, None]) & (b != fill[:, None])
+    return torch.as_tensor(np.flatnonzero(ok.reshape(-1)), device=device)
 
 
 def sparse_wave_hists(store: SparseDeviceStore, leaf_id, w3, child_id,
                       num_bins: int, num_cols: int, num_leaves: int,
-                      exps=None, fixed=None):
+                      exps=None, fixed=None, comm=None):
     """The slot form (JAX ops/wave.py ``sparse_child_hists``): the (K, F,
     B, 3) histograms of the rows whose leaf is child_id[k] (-1: an
     inactive slot, zeros), leaf ids below num_leaves; fill slots stay
     zero.  One pass over the entries: a leaf -> slot table, each entry's
     slot and segment, one integer index_add_.  A repeated child id's
-    slots all hold its histogram, as kernel B6's do."""
+    slots all hold its histogram, as kernel B6's do.  comm: the
+    data-parallel ranks' sum (``_segment_histogram``)."""
     K, dev = child_id.shape[0], w3.device
     ks = torch.arange(K, dtype=torch.long, device=dev)
     cid = child_id.long()
@@ -201,7 +313,7 @@ def sparse_wave_hists(store: SparseDeviceStore, leaf_id, w3, child_id,
     tbl[num_leaves:].fill_(K)
     slot_row = tbl[leaf_id.long().clamp(0, num_leaves)]
     hist = _segment_histogram(store, slot_row, K, w3, exps, num_bins,
-                              num_cols, fixed)
+                              num_cols, fixed, comm)
     first = tbl[torch.where(cid >= 0, cid, num_leaves).clamp(
         max=num_leaves)]
     keep = (first < K)[:, None, None, None]
@@ -210,15 +322,17 @@ def sparse_wave_hists(store: SparseDeviceStore, leaf_id, w3, child_id,
 
 
 def sparse_leaf_hist(store: SparseDeviceStore, leaf_id, w3, leaf,
-                     num_bins: int, num_cols: int, exps=None, fixed=None):
+                     num_bins: int, num_cols: int, exps=None, fixed=None,
+                     comm=None):
     """(F, B, 3): the histogram of ``leaf`` (an int, or a (1,) tensor; -1
     gives zeros) over the weight rows w3 (N, 3), from the non-fill
     entries only; fill slots stay zero.  exps: the tree's fixed-point
-    exponents of w3, computed when None."""
+    exponents of w3, computed when None; comm: the data-parallel ranks'
+    sum (``_segment_histogram``)."""
     leaf = torch.as_tensor(leaf, device=w3.device).reshape(-1)[:1].long()
     slot_row = torch.where((leaf_id.long() == leaf) & (leaf >= 0), 0, 1)
     return _segment_histogram(store, slot_row, 1, w3, exps, num_bins,
-                              num_cols, fixed)[0]
+                              num_cols, fixed, comm)[0]
 
 
 def leaf_histogram_sparse(store: SparseDeviceStore, grad, hess, leaf_id,

@@ -131,12 +131,12 @@ class WaveGrower(Grower):
     def __init__(self, X, meta: FeatureMeta, bundle, *, wave_width: int,
                  hist_mode: str = "pallas_ct", wave_order: str = "batched",
                  packed_cols: int = 0, hilo: bool = True, **kw):
+        self.sparse = isinstance(X, (ChunkedSparseStore, SparseDeviceStore))
         super().__init__(X, meta, bundle, **kw)
         self.exact_order = wave_order == "exact"
         self.W = max(1, min(wave_width, self.L - 1))
         self.slots = self.W
         self.hist_mode = hist_mode
-        self.sparse = isinstance(X, (ChunkedSparseStore, SparseDeviceStore))
         # the coordinate store: plain torch segment sums, no kernel
         self.coord = isinstance(X, SparseDeviceStore)
         self.packed_cols = 0 if self.sparse else int(packed_cols)
@@ -157,7 +157,8 @@ class WaveGrower(Grower):
         hilo = self.hilo if hilo is None else hilo
         if self.coord:
             return sparse_wave_hists(self.X, lid, w3, ids, self.hist_bins,
-                                     self.X.num_cols, self.L, exps=exps)
+                                     self.X.num_cols, self.L, exps=exps,
+                                     comm=self.row_comm)
         if self.sparse:
             return sparse_wave_histogram(self.X, lid, w3, ids,
                                          self.hist_bins, self.X.num_cols,
@@ -180,7 +181,8 @@ class WaveGrower(Grower):
         it, and the coordinate store's from ``leaf_histogram_sparse``."""
         if self.coord:
             return sparse_leaf_hist(self.X, lid, w3, ids, self.hist_bins,
-                                    self.X.num_cols, exps)[None]
+                                    self.X.num_cols, exps,
+                                    comm=self.row_comm)[None]
         return self._child_hists(st, lid, ids, w3, exps,
                                  hilo=self.hilo if self.sparse else True)
 
@@ -350,7 +352,8 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
               group_bins: int = 0, cache_hists: bool = True,
               hist_mode: str = "pallas_ct", wave_order: str = "batched",
               packed_cols: int = 0, hilo: bool = True,
-              dtype=torch.float32, comm=None, global_rows=None):
+              dtype=torch.float32, comm=None, global_rows=None,
+              rank_rows=None):
     """Grow one tree, staged: a WaveGrower's body with one host read a
     wave.  X: (G, N) uint8 or uint16 transposed bins, (N, G) row-major
     bins for hist_mode 'pallas', 'onehot' and 'scatter' (with
@@ -364,7 +367,7 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
     depth once they have split; under exact order, where not every valid
     slot commits, the splits and depth the state holds (its status).
 
-    comm (global_rows the ranks' rows): the
+    comm (global_rows the ranks' rows, rank_rows each rank's): the
     data-parallel waves of the JAX package (its ops/wave.py:598-722):
     the root sums and histogram, the W smaller children once a wave and
     the larger children where no cached parent gives them are summed
@@ -375,7 +378,8 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
                    wave_width=wave_width, group_bins=group_bins,
                    cache_hists=cache_hists, hist_mode=hist_mode,
                    wave_order=wave_order, packed_cols=packed_cols, hilo=hilo,
-                   dtype=dtype, comm=comm, global_rows=global_rows)
+                   dtype=dtype, comm=comm, global_rows=global_rows,
+                   rank_rows=rank_rows)
     st = g.new_state(grad.shape[0], grad.device)
     w3 = weight_rows(grad, hess, row_mult)                 # (N, 3)
     # the kernels' fixed-point exponents (B1, B3, B4, B6): w3 is fixed
@@ -389,10 +393,12 @@ def grow_tree(X, grad, hess, row_mult, feature_mask, meta: FeatureMeta,
         p = g.pick(st)
         if g.exact_order:
             g.write_status(st)
-            k, nn, depth = torch.cat([p.k[None], st.status[1:3]]).tolist()
+            k, nn, depth = torch.cat(  # lint: ignore[sync-tolist] wave read
+                [p.k[None], st.status[1:3]]).tolist()
         else:
             # the one host read per wave: valid count + the depth after it
-            k, depth = torch.stack([p.k, p.depth]).tolist()
+            k, depth = torch.stack(  # lint: ignore[sync-tolist] wave read
+                [p.k, p.depth]).tolist()
         host_reads += 1
         if k == 0:
             break

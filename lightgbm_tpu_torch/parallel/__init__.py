@@ -3,9 +3,9 @@ tests, one thread) a rank, one device a rank.
 
 ``comm`` holds the host and tensor collectives and the bootstrap,
 ``mesh`` the data-, voting- and feature-parallel learners, ``launch``
-the subprocess launcher and ``worker`` its training worker.  Ported from
-the JAX package's ``parallel/``; its elastic driver is not here yet
-(``elastic`` raises, naming ROADMAP A10b)."""
+the subprocess launcher, ``worker`` its training worker and
+``elastic`` the shrink-and-resume loop.  Ported from the JAX
+package's ``parallel/``."""
 from .comm import (HostComm, SingleProcessComm, TorchDistComm,
                    distributed_init, run_ranks)
 from .mesh import (DataParallelTreeLearner, FeatureParallelTreeLearner,

@@ -12,7 +12,12 @@ JAX package's grow programs psum (``ops/wave.py``, ``ops/grow.py``):
   and the histograms are summed over the ranks -- once a wave under wave
   growth, the kernels' int64 fixed-point sums before their conversion,
   so every rank holds the serial kernel's histogram of all rows and picks
-  the same splits (data_parallel_tree_learner.cpp:148-222);
+  the same splits (data_parallel_tree_learner.cpp:148-222); the root's
+  weight rows are gathered and summed as the serial run sums them, so
+  the leaves' sums are the serial run's bits too.  With ``tpu_sparse``
+  each rank holds the coordinate store of its rows, padded to the size
+  the ranks agree on, and the integer sums of the cells an entry can
+  hold are all-reduced (the JAX package's sharded store);
 * voting-parallel: the same row blocks, exact growth, and only the
   features the ranks vote for cross the wire
   (voting_parallel_tree_learner.cpp:164-300);
@@ -38,6 +43,9 @@ import torch
 
 from ..io.dataset import TrainingData
 from ..ops.learner import DISTRIBUTED_LEARNERS, SerialTreeLearner, _val
+from ..ops.sparse_store import (assemble_sharded_store,
+                                sharded_store_parts, store_cells,
+                                upload_store)
 from ..ops.split_finder import FeatureMeta
 from ..utils.config import Config
 from ..utils.log import Log
@@ -79,6 +87,8 @@ class _Distributed:
     distributed = True
     _m_coll = None
     last_collective = None
+    # each rank's rows, in rank order (the row-sharded learners)
+    rank_rows = None
 
     def set_observer(self, obs) -> None:
         SerialTreeLearner.set_observer(self, obs)
@@ -92,7 +102,8 @@ class _Distributed:
 
     def _grow_kw(self) -> dict:
         kw = super()._grow_kw()
-        kw.update(comm=self.comm, global_rows=self.global_rows)
+        kw.update(comm=self.comm, global_rows=self.global_rows,
+                  rank_rows=self.rank_rows)
         return kw
 
     def _exact_kw(self) -> dict:
@@ -123,17 +134,33 @@ class DataParallelTreeLearner(_Distributed, SerialTreeLearner):
 
     def __init__(self, config: Config, train_data: TrainingData, device,
                  comm):
-        if bool(config.tpu_sparse):
-            Log.fatal("tpu_sparse=true with tree_learner=%s: the sparse "
-                      "stores' sharded build is not in lightgbm_tpu_torch "
-                      "yet (ROADMAP A10b)", config.tree_learner)
         self.comm = comm
-        self.global_rows = int(sum(comm.allgather_obj(
-            int(train_data.num_data))))
+        self.rank_rows = tuple(int(n) for n in comm.allgather_obj(
+            int(train_data.num_data)))
+        self.global_rows = sum(self.rank_rows)
         super().__init__(config, train_data, device)
         Log.info("%s: rank %d of %d, %d of %d rows", type(self).__name__,
                  comm.rank, comm.size, train_data.num_data,
                  self.global_rows)
+
+    def _coordinate_store(self, binned, fill, nbins: int, device):
+        """This rank's block of the coordinate store, with local row ids,
+        padded to the entries and column window the ranks agree on (the
+        most of any rank's), so every rank's store has one shape (JAX
+        ``parallel/mesh.py``: the sparse analog of the distributed
+        bin-mapper agreement); its cells are the segments an entry can
+        hold, the only ones its histograms' all-reduce sends."""
+        parts, nnz, col_cap = sharded_store_parts(binned, fill, nbins, 1)
+        agreed = self.comm.allgather_obj([int(nnz), int(col_cap)])
+        nnz = max(a[0] for a in agreed)
+        col_cap = max(a[1] for a in agreed)
+        store, nbytes = assemble_sharded_store(parts, binned.shape[1],
+                                               nbins, nnz, col_cap)
+        td = self.train_data
+        bins_per_col = (td.bundle.num_group_bins if td.bundle is not None
+                        else td.num_bin_arr if td.num_features else [1])
+        cells = store_cells(bins_per_col, fill, nbins, device)
+        return upload_store(store, device, cells), nbytes
 
     def collective_info(self) -> dict:
         """The learner's collectives and their bytes: a wave all-reduces
@@ -208,11 +235,6 @@ class FeatureParallelTreeLearner(_Distributed, SerialTreeLearner):
         if train_data.bundle is not None:
             Log.fatal("The feature-parallel learner requires "
                       "enable_bundle=false (dataset was built with EFB)")
-        if bool(config.tpu_sparse):
-            Log.fatal("tpu_sparse=true with tree_learner=%s: the sparse "
-                      "stores under the distributed learners are not in "
-                      "lightgbm_tpu_torch yet (ROADMAP A10b)",
-                      config.tree_learner)
         self.comm = comm
         self.offset, self.width = feature_block(train_data.num_features,
                                                 comm.size, comm.rank)

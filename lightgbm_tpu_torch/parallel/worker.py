@@ -105,9 +105,11 @@ def train_worker(comm, payload):
         X, y = make_data(rows + n_valid, cols, seed)
         lo, hi = (0, rows) if feature else rank_rows(rows, size, rank)
         ds = Dataset(X[lo:hi], label=y[lo:hi], params=dict(params))
+        # the rows kept: a resumed run scores its checkpoint's trees on
+        # them
         ds._handle = TrainingData.from_matrix(
             X[lo:hi], label=y[lo:hi], config=Config(dict(params)),
-            comm=mcomm)
+            comm=mcomm, keep_raw=True)
         if n_valid:
             vlo, vhi = ((0, n_valid) if feature
                         else rank_rows(n_valid, size, rank))

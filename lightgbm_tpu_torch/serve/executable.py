@@ -16,7 +16,13 @@ program over static buffers:
   captured over them, so a request copies its encoded rows in,
   zero-pads the rest, replays the graph and reads back ``[:n]``;
 * on the CPU the same function runs eagerly on the same buffers, and a
-  program's first use still counts as a build.
+  program's first use still counts as a build;
+* over several devices (``devices=``, the JAX package's mesh of local
+  devices) each entry holds a replica of the trees and its own program
+  of bucket / devices rows, the bucket rounded up to a multiple of the
+  entries; a request's rows split in order over the entries, every
+  entry launches, and the outputs join in row order.  Entries may
+  repeat a card: each still gets its buffers and graph.
 
 ``compiles`` and ``steady_state_compiles`` keep the JAX package's names
 so callers written for it read them: they count graph captures on the
@@ -59,7 +65,7 @@ from ..obs.events import NULL_OBSERVER
 from ..obs.metrics import REGISTRY
 from ..ops import predict as dev_predict
 from ..utils.config import _TRUE_SET
-from ..utils.log import LightGBMError, Log
+from ..utils.log import Log
 
 
 def next_pow2(n: int) -> int:
@@ -117,14 +123,15 @@ def bucket_scores(trees, V, D, conv):
 
 
 class _BucketProgram:
-    """One (bucket, convert) program over static buffers: host staging
-    (pinned on the card), the device inputs V and D, and the output.  On
-    the card ``bucket_scores`` is a CUDA graph captured over them; on
-    the CPU it runs eagerly on the staging buffers themselves."""
+    """One (bucket, convert) program over static buffers on one device:
+    host staging (pinned on the card), the device inputs V and D, and the
+    output.  On the card ``bucket_scores`` is a CUDA graph captured over
+    them; on the CPU it runs eagerly on the staging buffers themselves."""
 
     def __init__(self, trees, bucket, num_features, k, conv, device,
                  pool, stream):
         cuda = device.type == "cuda"
+        self.bucket = bucket
         shape = (bucket, num_features)
         self.V_host = torch.zeros(shape, dtype=torch.int32, pin_memory=cuda)
         self.D_host = torch.zeros(shape, dtype=torch.bool, pin_memory=cuda)
@@ -142,7 +149,9 @@ class _BucketProgram:
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
             bucket_scores(trees, self.V, self.D, conv)       # warm-up run
-            stream.synchronize()
+            # a capture starts from an idle stream (a build, not a
+            # request)
+            stream.synchronize()  # lint: ignore[sync-synchronize] build
             graph = torch.cuda.CUDAGraph()
             with capture_guard():
                 graph.capture_begin(pool=pool,
@@ -151,33 +160,75 @@ class _BucketProgram:
                     self.out = bucket_scores(trees, self.V, self.D, conv)
                 finally:
                     graph.capture_end()
-        stream.synchronize()
+        stream.synchronize()  # lint: ignore[sync-synchronize] build
         self.graph = graph
 
-    def run(self, V, D, n: int, spans: dict) -> np.ndarray:
-        """Score the first n rows of the encoded (V, D); the caller holds
-        the cache's lock.  Returns (n, K) float64."""
-        t0 = time.perf_counter()
+    def stage(self, V, D, n: int) -> None:
+        """Copy n encoded rows into the staging buffers, zeros after."""
         self._V_np[:n] = V
         self._V_np[n:] = 0
         self._D_np[:n] = D
         self._D_np[n:] = False
-        t1 = time.perf_counter()
+
+    def launch(self, n: int) -> None:
+        """Score the staged rows: on the card the copies in, the replay
+        and the copy of the first n outputs out, queued on the serving
+        stream (``wait`` waits for them); on the CPU at once."""
         if self.graph is None:
             self.out_host.copy_(bucket_scores(self._trees, self.V, self.D,
                                               self._conv))
-        else:
-            with torch.cuda.stream(self._stream):
-                self.V.copy_(self.V_host, non_blocking=True)
-                self.D.copy_(self.D_host, non_blocking=True)
-                self.graph.replay()
-                self.out_host[:n].copy_(self.out[:n], non_blocking=True)
-            self._stream.synchronize()
-        out = self.out_host.numpy()[:n].astype(np.float64)
-        t2 = time.perf_counter()
-        spans["pad_s"] = spans.get("pad_s", 0.0) + (t1 - t0)
-        spans["execute_s"] = spans.get("execute_s", 0.0) + (t2 - t1)
-        return out
+            return
+        with torch.cuda.stream(self._stream):
+            self.V.copy_(self.V_host, non_blocking=True)
+            self.D.copy_(self.D_host, non_blocking=True)
+            self.graph.replay()
+            self.out_host[:n].copy_(self.out[:n], non_blocking=True)
+
+    def wait(self) -> None:
+        if self.graph is not None:
+            # a request's answer: its rows' scores in pinned memory
+            self._stream.synchronize()  # lint: ignore[sync-synchronize] reply
+
+
+def _run_shards(progs, V, D, n: int, spans: dict) -> np.ndarray:
+    """Score n encoded rows through a bucket's programs, one a device
+    entry, each taking its contiguous share of the rows (zeros past n):
+    stage every share, launch every device, then wait for each and join
+    the outputs in row order; the caller holds the cache's lock.
+    Returns (n, K) float64."""
+    t0 = time.perf_counter()
+    per = progs[0].bucket
+    counts = [max(min(n - i * per, per), 0) for i in range(len(progs))]
+    for i, (prog, m) in enumerate(zip(progs, counts)):
+        prog.stage(V[i * per:i * per + m], D[i * per:i * per + m], m)
+    t1 = time.perf_counter()
+    for prog, m in zip(progs, counts):
+        prog.launch(m)
+    for prog in progs:
+        prog.wait()
+    out = np.concatenate([prog.out_host.numpy()[:m]
+                          for prog, m in zip(progs, counts)]
+                         ).astype(np.float64)
+    t2 = time.perf_counter()
+    spans["pad_s"] = spans.get("pad_s", 0.0) + (t1 - t0)
+    spans["execute_s"] = spans.get("execute_s", 0.0) + (t2 - t1)
+    return out
+
+
+class _Locks:
+    """The serving locks of several cards, taken in one order."""
+
+    def __init__(self, locks):
+        self.locks = locks
+
+    def __enter__(self):
+        for lock in self.locks:
+            lock.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        for lock in reversed(self.locks):
+            lock.release()
 
 
 class PredictExecutableCache:
@@ -197,16 +248,11 @@ class PredictExecutableCache:
                  max_batch: int = 8192, observer=None):
         gbdt._materialize()
         self.observer = observer if observer is not None else NULL_OBSERVER
-        if devices:
-            devices = list(devices)
-            if len(devices) > 1:
-                raise LightGBMError(
-                    "serving over %d devices is not in lightgbm_tpu_torch "
-                    "yet: it serves on one card a process (ROADMAP A10b)"
-                    % len(devices))
-            self.device = resolve_device(devices[0])
-        else:
-            self.device = gbdt.device
+        # the entries the rows of a bucket split over (JAX: the local
+        # devices); an entry may repeat a card
+        self.devices = ([resolve_device(d) for d in devices] if devices
+                        else [gbdt.device])
+        self.device = self.devices[0]
         self.k = int(gbdt.num_tree_per_iteration)
         self.num_used = int(gbdt._used_trees(num_iteration))
         self.objective = gbdt.objective
@@ -231,13 +277,19 @@ class PredictExecutableCache:
                            and self.device.type != "cpu"))
         self.bucket_min = max(1, int(bucket_min))
         self.max_batch = max(self.bucket_min, int(max_batch))
-        self._exe = {}                   # (bucket, convert) -> program
-        self._pool = self._stream = None
-        if self.device.type == "cuda":
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream, self._lock = _serving_stream(self.device)
-        else:
-            self._lock = threading.Lock()
+        # (bucket, convert) -> its programs, one a device entry
+        self._exe = {}
+        # one replica of the trees an entry (the first entry's is rp's)
+        self._trees = ([self.rp.dev] if len(self.devices) == 1
+                       else self.rp.replicas(self.devices))
+        # each card's serving stream and lock, and a graph pool a card
+        self._pools, self._streams, locks = {}, {}, {}
+        for dev in self.devices:
+            if dev.type == "cuda" and dev not in self._streams:
+                self._pools[dev] = torch.cuda.graph_pool_handle()
+                self._streams[dev], locks[dev.index] = _serving_stream(dev)
+        self._lock = (_Locks([locks[i] for i in sorted(locks)]) if locks
+                      else threading.Lock())
         # stage decomposition of the LAST predict_batch call (encode /
         # pad / execute / convert seconds), read by the serve worker
         # right after the call to label request spans: worker-thread
@@ -248,9 +300,10 @@ class PredictExecutableCache:
 
     # ------------------------------------------------------------ buckets
     def bucket_for(self, n: int) -> int:
-        """Power-of-two bucket in [bucket_min, max_batch]."""
-        return min(max(next_pow2(max(n, 1)), self.bucket_min),
-                   self.max_batch)
+        """Power-of-two bucket in [bucket_min, max_batch], rounded up to
+        a multiple of the devices so the rows split evenly."""
+        b = min(max(next_pow2(max(n, 1)), self.bucket_min), self.max_batch)
+        return b + (-b) % len(self.devices)
 
     def mark_warm(self):
         """Declare warmup over: builds from here on are steady-state
@@ -264,16 +317,19 @@ class PredictExecutableCache:
         return self.compiles - self._warm_compiles
 
     # ------------------------------------------------------------- build
-    def _build(self, bucket: int, convert: bool) -> _BucketProgram:
+    def _build(self, bucket: int, convert: bool) -> list:
         conv = self._conv if convert else None
         if conv == "host":               # fuse nothing; convert after
             conv = None
         t0 = time.perf_counter()
-        prog = _BucketProgram(self.rp.dev, bucket, self.num_features,
-                              self.k, conv, self.device, self._pool,
-                              self._stream)
+        per = bucket // len(self.devices)
+        progs = [_BucketProgram(trees, per, self.num_features, self.k,
+                                conv, dev, self._pools.get(dev),
+                                self._streams.get(dev))
+                 for trees, dev in zip(self._trees, self.devices)]
         dt = time.perf_counter() - t0
-        self.compiles += 1
+        # a capture (a build on the CPU) on every device
+        self.compiles += len(progs)
         entry = "serve_predict_b%d%s" % (bucket, "_conv" if convert else "")
         REGISTRY.counter(
             "lgbm_serve_compiles_total",
@@ -284,23 +340,24 @@ class PredictExecutableCache:
             "build (graph capture) time per serving program").observe(dt)
         # a capture is the port's compile (obs/compile.py); the traversal
         # is plain torch, so it records no kernel launch and no cost
-        self.observer.capture(entry, (self.rp.dev, prog.V, prog.D),
+        self.observer.capture(entry, (self.rp.dev, progs[0].V, progs[0].D),
                               names=("trees", "V", "D"), seconds=dt)
         Log.debug("serve: built %s in %.3fs on %s", entry, dt, self.device)
         if self._warm_compiles is not None:
             Log.warning("serve: steady-state build of %s — warm the "
                         "bucket ladder before taking traffic", entry)
-        return prog
+        return progs
 
-    def _get_locked(self, bucket: int, convert: bool) -> _BucketProgram:
+    def _get_locked(self, bucket: int, convert: bool) -> list:
         key = (int(bucket), bool(convert))
-        prog = self._exe.get(key)
-        if prog is None:
-            prog = self._exe[key] = self._build(*key)
-        return prog
+        progs = self._exe.get(key)
+        if progs is None:
+            progs = self._exe[key] = self._build(*key)
+        return progs
 
-    def get(self, bucket: int, convert: bool = True) -> _BucketProgram:
-        """The program for one bucket (built on first use)."""
+    def get(self, bucket: int, convert: bool = True) -> list:
+        """The programs of one bucket, one a device entry (built on first
+        use)."""
         with self._lock:
             return self._get_locked(bucket, convert)
 
@@ -347,7 +404,8 @@ class PredictExecutableCache:
         spans = {} if spans is None else spans
         bucket = self.bucket_for(n)
         with self._lock:
-            out = self._get_locked(bucket, convert).run(V, D, n, spans)
+            out = _run_shards(self._get_locked(bucket, convert), V, D, n,
+                              spans)
         if convert and self._conv == "host":
             t0 = time.perf_counter()
             out = np.asarray(self.objective.convert_output(
@@ -383,8 +441,9 @@ class PredictExecutableCache:
             "compiles": self.compiles,
             "steady_state_compiles": self.steady_state_compiles,
             "buckets": sorted({b for b, _ in self._exe}),
-            "graphs": sum(p.graph is not None for p in self._exe.values()),
-            "devices": 1,
+            "graphs": sum(p.graph is not None
+                          for progs in self._exe.values() for p in progs),
+            "devices": len(self.devices),
             "device": str(self.device),
             "donate": self.donate,
             "donate_effect": "none: each bucket's inputs are static "
@@ -392,3 +451,9 @@ class PredictExecutableCache:
             "num_used": self.num_used,
             "k": self.k,
         }
+
+    def describe(self) -> dict:
+        """What serves: ``stats()`` with each entry of ``devices`` named
+        (a card may appear more than once, each with its own graphs)."""
+        return dict(self.stats(),
+                    device_list=[str(d) for d in self.devices])

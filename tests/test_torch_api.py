@@ -33,6 +33,7 @@ import lightgbm_tpu as lgbj
 import lightgbm_tpu_torch as lgbt
 from lightgbm_tpu.io.dataset import TrainingData as JTrainingData
 from lightgbm_tpu_torch.io.dataset import TrainingData as TTrainingData
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -40,14 +41,6 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                       "golden")
 PARAMS = {"objective": "binary", "num_leaves": 7, "max_bin": 31,
           "min_data_in_leaf": 10, "verbose": -1}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _data(seed=0, n=600, f=6):

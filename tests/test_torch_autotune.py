@@ -36,6 +36,7 @@ from lightgbm_tpu_torch.obs import timers
 from lightgbm_tpu_torch.ops import autotune as tat
 from lightgbm_tpu_torch.ops import fused_iter, learner as tlearner
 from lightgbm_tpu_torch.utils.config import Config as TConfig
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -35,6 +35,7 @@ from lightgbm_tpu_torch.ops import wave_kernels as wk
 from torch_cases import (NO_CACHE, bundled_case, leaf_values, parity_data,
                          sparse_bundled_case, sparse_case, structure, t,
                          unbundled_case, wave_data)
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -33,6 +33,7 @@ from lightgbm_tpu_torch.io.dataset import TrainingData
 from lightgbm_tpu_torch.ops.learner import paged_device_matrix
 from lightgbm_tpu_torch.utils.config import Config
 from lightgbm_tpu_torch.utils.log import LightGBMError
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -44,14 +45,6 @@ PARAMS = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
 # the JAX package's oracle of the wave path on the CPU (ROADMAP)
 JAX_PARAMS = dict(PARAMS, tpu_histogram_mode="pallas_ct",
                   tpu_pallas_interpret=True, tpu_hist_precision="hilo")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -43,21 +43,13 @@ import lightgbm_tpu_torch as lgbt
 from lightgbm_tpu_torch.models.goss import GOSS
 from lightgbm_tpu_torch.ops import fused_iter as tfi
 from torch_cases import labels, leaf_values, parity_data
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
 ROUNDS = 5
 PARTITION = ("split_feature", "left_child", "right_child", "leaf_count",
              "decision_type")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One torch thread: the plain histograms are many small calls."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _partitions(model):

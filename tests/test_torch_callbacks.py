@@ -22,7 +22,6 @@ that bin then scores differently -- ROADMAP C).
 """
 import numpy as np
 import pytest
-import torch
 
 import jax
 
@@ -31,19 +30,12 @@ import lightgbm_tpu_torch as lgbt
 from lightgbm_tpu_torch import callback as tcb
 from lightgbm_tpu import callback as jcb
 from torch_cases import labels, leaf_values, parity_data
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
 PARTITION = ("split_feature", "left_child", "right_child", "leaf_count",
              "decision_type")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _partitions(model):

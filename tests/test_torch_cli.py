@@ -47,6 +47,7 @@ from lightgbm_tpu.utils.config import Config as JConfig
 from lightgbm_tpu_torch.io.dataset import TrainingData as TTrainingData
 from lightgbm_tpu_torch.utils.config import Config as TConfig
 from lightgbm_tpu_torch.utils.log import LightGBMError
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -62,16 +63,6 @@ ORACLE = ["tpu_histogram_mode=pallas_ct", "tpu_pallas_interpret=true",
 F32 = ["tpu_histogram_mode=onehot"]
 STRUCTURE = ("split_feature", "left_child", "right_child", "leaf_count",
              "decision_type")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's plain CPU histograms are many small torch operations,
-    which threads slow down, most of all beside other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -361,7 +352,9 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu(work):
     # refused by name
     (["task=train", "data=binary.train", "tree_learner=mesh"],
      "tree learner"),
-    (["lint"], "static analysis"),
+    # a task no package has (lint is a subcommand of its own now:
+    # tests/test_torch_lint.py)
+    (["task=refit"], "Unknown task"),
     # one torch.profiler at a time: the whole-run trace and the window
     (["task=train", "data=binary.train", "tpu_profile_dir=prof",
       "obs_trace_iters=0:1", "obs_trace_dir=tr"], "tpu_profile_dir"),
@@ -396,7 +389,8 @@ def test_cli_ooc_binned_dir_on_libsvm_trains_in_memory(work, capsys):
 
 def test_python_dash_m_entry_point(work):
     """``python -m lightgbm_tpu_torch`` with a config file on the CPU."""
-    env = dict(os.environ, PYTHONPATH=os.path.dirname(HERE))
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(HERE),
+               OMP_NUM_THREADS="1")
     with open("t.conf", "w") as f:
         f.write("task = train\ndata = regression.train\n"
                 "objective = regression  # a comment\nnum_trees = 2\n")

@@ -10,6 +10,7 @@ import jax
 from lightgbm_tpu.utils import config as jcfg
 import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch.utils import config as tcfg
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

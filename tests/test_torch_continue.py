@@ -15,7 +15,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 import jax
 
@@ -28,6 +27,7 @@ from lightgbm_tpu.models import checkpoint as jck
 from lightgbm_tpu_torch.models import checkpoint as ck
 from lightgbm_tpu_torch.models.gbdt import GBDT
 from lightgbm_tpu_torch.utils.log import LightGBMError
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -70,16 +70,6 @@ def _leaf_values(text):
 def _logloss(p, y):
     p = np.clip(p, 1e-12, 1 - 1e-12)
     return float(-(y * np.log(p) + (1 - y) * np.log(1 - p)).mean())
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's plain CPU histograms are many small torch operations,
-    which threads slow down, most of all beside other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ from lightgbm_tpu_torch.convert import (booster_from_model_string,
 from lightgbm_tpu_torch.ops.learner import materialize_tree
 from lightgbm_tpu_torch.ops.predict import (leaf_index_binned,
                                             traversal_from_grow)
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -35,6 +35,7 @@ from lightgbm_tpu.ops import sparse_store as jss
 from lightgbm_tpu_torch.ops import sparse_store as tss
 from torch_cases import (assert_hist_close, leaf_values, sparse_bundled_case,
                          sparse_case, structure)
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -2450,3 +2450,148 @@ def test_two_ranks_on_one_card_over_gloo(dev, learner):
                                device="cuda")
     assert out[0]["digest"] == out[1]["digest"]
     assert out[0]["num_trees"] == 3
+
+
+# ------------------------------------------------- the rest of distributed
+def test_sharded_prediction_on_two_entries_of_the_card(dev):
+    """ranked_predict_sharded over ["cuda", "cuda"] (a replica of the
+    trees each) equals ranked_predict to the bit, padded rows and all."""
+    import lightgbm_tpu_torch as lgbt
+    X, s = parity_data(4, 3000, False)
+    y = labels("binary", s)
+    b = lgbt.train({"objective": "binary", "num_leaves": 15,
+                    "verbose": -1}, lgbt.Dataset(X, label=y), 5,
+                   device="cpu")
+    g = b._gbdt
+    g._materialize()
+    rp = tp.build_ranked_predictor(g.models, 1, X.shape[1], dev)
+    V, D = tp.rank_encode(rp, X[:2999])
+    one = tp.ranked_predict(rp.dev, torch.as_tensor(V, device=dev),
+                            torch.as_tensor(D, device=dev))
+    two, n = tp.ranked_predict_sharded(rp, V, D, 1,
+                                       devices=["cuda", "cuda"])
+    assert n == 2999 and torch.equal(two[:n], one)
+
+
+def test_cpu_booster_predicts_over_entries_of_the_card(dev):
+    """A CPU booster with tpu_predict=true whose entries name the card:
+    the scores come back from the card (pinned copy, its event) with the
+    bits of a card booster's one-device prediction."""
+    import lightgbm_tpu_torch as lgbt
+    X, s = parity_data(6, 3000, False)
+    y = labels("binary", s)
+    b = lgbt.train({"objective": "binary", "num_leaves": 15,
+                    "verbose": -1, "tpu_predict": "true"},
+                   lgbt.Dataset(X, label=y), 5, device="cpu")
+    card = lgbt.Booster(model_str=b.model_to_string(), device="cuda")
+    card._gbdt.config.tpu_predict = "true"
+    want = card.predict(X[:2999], raw_score=True)
+    b.set_predict_devices(["cuda:0", "cuda:0"])
+    np.testing.assert_array_equal(b.predict(X[:2999], raw_score=True),
+                                  want)
+
+
+@pytest.mark.skipif(not torch.cuda.is_available()
+                    or torch.cuda.device_count() < 2,
+                    reason="needs two cards: the first entry is not the "
+                           "current card")
+def test_bulk_prediction_whose_first_entry_is_not_the_current_card(dev):
+    """Entries ["cuda:1", "cuda:0"] while cuda:0 is current: the copy and
+    its event run on cuda:1, the scores are one card's bits."""
+    import lightgbm_tpu_torch as lgbt
+    X, s = parity_data(7, 3000, False)
+    y = labels("binary", s)
+    b = lgbt.train({"objective": "binary", "num_leaves": 15,
+                    "verbose": -1, "tpu_predict": "true"},
+                   lgbt.Dataset(X, label=y), 5, device="cuda:0")
+    want = b.predict(X, raw_score=True)
+    b.set_predict_devices(["cuda:1", "cuda:0"])
+    np.testing.assert_array_equal(b.predict(X, raw_score=True), want)
+    b.set_predict_devices(["cuda:1"])
+    np.testing.assert_array_equal(b.predict(X, raw_score=True), want)
+
+
+def test_serving_over_two_entries_of_the_card(dev):
+    """A serving cache over two entries of the card: a graph a device a
+    bucket, the one-device bits, no capture after warm-up."""
+    import lightgbm_tpu_torch as lgbt
+    from lightgbm_tpu_torch.serve.executable import PredictExecutableCache
+    X, s = parity_data(5, 3000, False)
+    y = labels("binary", s)
+    b = lgbt.train({"objective": "binary", "num_leaves": 15,
+                    "verbose": -1}, lgbt.Dataset(X, label=y), 5,
+                   device="cpu")
+    one = PredictExecutableCache(b._gbdt, devices=["cuda"], max_batch=256)
+    two = PredictExecutableCache(b._gbdt, devices=["cuda", "cuda"],
+                                 max_batch=256)
+    for convert in (True, False):
+        two.warmup([1, 100, 256], convert=convert)
+    two.mark_warm()
+    for n in (1, 7, 100, 255):
+        for convert in (True, False):
+            assert np.array_equal(two.predict_batch(X[:n], convert=convert),
+                                  one.predict_batch(X[:n], convert=convert))
+    st = two.stats()
+    assert st["devices"] == 2 and st["steady_state_compiles"] == 0
+    assert st["graphs"] == 2 * len(two._exe)
+
+
+def test_data_parallel_coordinate_store_on_the_card(dev):
+    """Two thread ranks on the card, each its block of a coordinate
+    store padded to the agreed size: their all-reduced slot histogram is
+    the serial store's to the bit (the card's fixed point)."""
+    from lightgbm_tpu_torch.ops import sparse_store as ss
+    from lightgbm_tpu_torch.parallel import comm as pcomm
+    X, fill, leaf_id, w3 = sparse_case(n=6001)
+    child = torch.tensor([0, 3, -1, 5], dtype=torch.int32, device=dev)
+    serial, _, _ = ss.build_sparse_store(X, fill, 14, device=dev)
+    w = torch.as_tensor(w3, device=dev)
+    lid = torch.as_tensor(leaf_id, device=dev)
+    exps = wk.fixed_point_exponents(w)
+    want = ss.sparse_wave_hists(serial, lid, w, child, 14, X.shape[1], 12,
+                                exps=exps)
+
+    def rank(comm):
+        lo = comm.rank * 3001
+        hi = min(lo + 3001, len(X))
+        parts, nnz, cap = ss.sharded_store_parts(X[lo:hi], fill, 14, 1)
+        agreed = comm.allgather_obj([nnz, cap])
+        store, _ = ss.assemble_sharded_store(
+            parts, X.shape[1], 14, max(a[0] for a in agreed),
+            max(a[1] for a in agreed))
+        return ss.sparse_wave_hists(ss.upload_store(store, dev), lid[lo:hi],
+                                    w[lo:hi], child, 14, X.shape[1], 12,
+                                    exps=exps, comm=comm)
+    for got in pcomm.run_ranks(2, rank, barrier_timeout=120):
+        assert torch.equal(got, want)
+
+
+def test_elastic_drill_on_the_card(dev, tmp_path):
+    """run_elastic: two rank processes over gloo on the card, rank 1
+    killed after round 2, the world-1 relaunch resumes from the
+    checkpoint to the serial continuation's text."""
+    import lightgbm_tpu_torch as lgbt
+    from lightgbm_tpu_torch.io.dataset import TrainingData
+    from lightgbm_tpu_torch.parallel import worker
+    from lightgbm_tpu_torch.parallel.elastic import run_elastic
+    from lightgbm_tpu_torch.utils.config import Config
+    X, y = worker.make_data(4000, 6, 4)
+    params = dict(worker.default_params(), tree_learner="data")
+    binned = str(tmp_path / "binned")
+    TrainingData.from_streamed(X, y, Config(dict(params)), out_dir=binned,
+                               chunk_rows=1000)
+    payload = {"binned_dir": binned, "num_rounds": 4, "device": "cuda",
+               "checkpoint_dir": str(tmp_path / "ck"),
+               "checkpoint_every": 1, "kill_rank": 1, "kill_iter": 2,
+               "return_model": True, "params": {"tree_learner": "data"}}
+    out = run_elastic(2, "lightgbm_tpu_torch.parallel.worker:train_worker",
+                      payload, device="cuda", timeout=240)
+    assert out["attempts"] == 2 and out["world_size"] == 1
+    text = out["results"][0]["model"]
+    head = lgbt.Booster(model_str=text, device="cpu").model_to_string(
+        num_iteration=2)
+    cont = lgbt.train(params, lgbt.Dataset.from_binned(binned,
+                                                       params=params), 2,
+                      init_model=lgbt.Booster(model_str=head, device=dev),
+                      device=dev)
+    assert cont.model_to_string() == text

@@ -22,20 +22,13 @@ import lightgbm_tpu as lgbj
 import lightgbm_tpu_torch as lgbt
 from lightgbm_tpu_torch.objectives import create_objective
 from lightgbm_tpu_torch.utils.config import Config
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
 CPU = torch.device("cpu")
 BASE = {"num_leaves": 7, "max_bin": 31, "min_data_in_leaf": 10,
         "verbose": -1, "learning_rate": 0.3, "boost_from_average": False}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _data(seed=0, n=800, classes=2):

@@ -12,7 +12,6 @@
 """
 import numpy as np
 import pytest
-import torch
 
 import jax
 
@@ -20,6 +19,7 @@ import lightgbm_tpu as lgbj
 import lightgbm_tpu_torch as lgbt
 from lightgbm_tpu.engine import _make_n_folds as jfolds
 from lightgbm_tpu_torch.engine import _make_n_folds as tfolds
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -28,14 +28,6 @@ PARAMS = {"objective": "binary", "num_leaves": 7, "max_bin": 31,
           "metric": ["auc", "binary_logloss"], "tpu_growth": "wave",
           "tpu_wave_width": 4, "tpu_histogram_mode": "pallas_ct"}
 ORACLE = {"tpu_pallas_interpret": True, "tpu_hist_precision": "hilo"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _data(seed=0, n=900):

@@ -23,6 +23,7 @@ import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch.ops import grow as grow_mod
 from lightgbm_tpu_torch.ops import wave as wave_mod
 from torch_cases import NO_CACHE, parity_data
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 # sha256 of the model text (first 16 hex digits, the trailing
 # pandas_categorical line included) by (EFB bundles, cache)

@@ -46,6 +46,7 @@ from lightgbm_tpu_torch.ops import predict as tp
 from lightgbm_tpu_torch.ops import wave_kernels as wk
 from lightgbm_tpu_torch.ops.pack import pack4_host
 from torch_cases import leaf_values, t
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -54,16 +55,6 @@ BASE = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 20,
 WAVE = {"tpu_growth": "wave", "tpu_wave_width": 32}
 PARTITION = ("split_feature", "left_child", "right_child", "leaf_count",
              "decision_type")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's plain CPU histograms are many small torch operations,
-    which threads slow down, most of all beside other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def data(seed, n=3000):

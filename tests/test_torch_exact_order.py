@@ -48,6 +48,7 @@ from lightgbm_tpu_torch.ops.split_finder import GAIN
 from lightgbm_tpu_torch.ops.wave_kernels import fixed_point_exponents
 from lightgbm_tpu_torch.utils import config as tcfg
 from torch_cases import labels, leaf_values, parity_data, parity_params
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -58,17 +59,6 @@ PARTITION = ("split_feature", "left_child", "right_child", "leaf_count",
 
 def _partitions(model):
     return [ln for ln in model.splitlines() if ln.startswith(PARTITION)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One torch thread while this module runs: its plain histograms are
-    many small index_add_ calls (one a slot of a 30-wide wave), which
-    threads slow down, most of all beside other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _sparse_data(seed, n=2500):

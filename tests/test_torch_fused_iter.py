@@ -49,6 +49,7 @@ from lightgbm_tpu_torch.ops.wave_kernels import fixed_point_exponents
 from lightgbm_tpu_torch.utils.log import LightGBMError
 from torch_cases import (NO_CACHE, SAMPLED, labels, leaf_values,
                          parity_data, parity_params, structure)
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

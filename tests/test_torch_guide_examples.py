@@ -17,6 +17,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)

@@ -1,5 +1,5 @@
 """The port stands alone: lightgbm_tpu_torch, its scripts
-(chip_smoke.py, sparse_model_diff.py) and the examples' CPU shim
+(chip_smoke.py, sparse_model_diff.py, dp_collectives_ab.py) and the examples' CPU shim
 (tests/torch_cpu_lgb.py) import neither jax nor the JAX package, load no library of the JAX package's (lightgbm_tpu/lib,
 cpp/build), and its CUDA entry points never fall back to the CPU."""
 import ast
@@ -58,6 +58,26 @@ def test_import_leaves_no_jax_modules():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_the_analyzer_and_the_elastic_loop_import_no_jax():
+    """lightgbm_tpu_torch.analysis (every pass, the parameter doc
+    rendered with the port's own generator) and parallel/elastic.py leave
+    neither jax nor the JAX package in sys.modules."""
+    code = ("import json, sys\n"
+            "from lightgbm_tpu_torch.analysis import core, cli, params_doc\n"
+            "import lightgbm_tpu_torch.parallel.elastic\n"
+            "core.all_passes()\n"
+            "params_doc.render()\n"
+            "print(json.dumps(sorted(m for m in sys.modules if "
+            "m == 'jax' or m.startswith(('jax.', 'jaxlib')) or "
+            "m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def _imported_modules(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -71,6 +91,7 @@ def _imported_modules(path: Path):
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                           REPO / "sparse_model_diff.py",
+                                          REPO / "dp_collectives_ab.py",
                                           REPO / "tests" / "torch_cpu_lgb.py"]
     assert len(files) > 10
     return files

@@ -41,6 +41,7 @@ from lightgbm_tpu_torch import metrics as tmet
 from lightgbm_tpu_torch import objectives as tobj
 from lightgbm_tpu_torch.io.metadata import Metadata as TMetadata
 from lightgbm_tpu_torch.utils.config import Config as TConfig
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -50,14 +51,6 @@ CPU = torch.device("cpu")
 TOL = {"rtol": 2e-4, "atol": 2e-5}
 ORACLE = {"tpu_histogram_mode": "pallas_ct", "tpu_pallas_interpret": True,
           "tpu_hist_precision": "hilo"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _ranking(nq=60, seed=3, max_docs=40, wide=0):

@@ -21,6 +21,7 @@ from lightgbm_tpu_torch.ops import wave_kernels as wk
 from lightgbm_tpu_torch.ops.histogram import leaf_sums, weight_rows
 from lightgbm_tpu_torch.ops.wave_kernels import fixed_point_exponents
 from torch_cases import LEAF_CASES, leaf_case, t
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _j(a):

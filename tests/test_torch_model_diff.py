@@ -12,6 +12,7 @@ import lightgbm_tpu_torch as lgb
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import sparse_model_diff as smd  # noqa: E402
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _train():

@@ -24,7 +24,6 @@ predicts the same.
 """
 import numpy as np
 import pytest
-import torch
 
 import jax
 
@@ -32,21 +31,13 @@ import lightgbm_tpu as lgbj
 import lightgbm_tpu_torch as lgbt
 from lightgbm_tpu_torch.convert import booster_from_model_string
 from torch_cases import leaf_values, structure
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
 ROUNDS = 3
 PARTITION = ("split_feature", "left_child", "right_child", "leaf_count",
              "decision_type")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One torch thread: the plain histograms are many small calls."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _partitions(model):

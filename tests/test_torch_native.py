@@ -20,6 +20,7 @@ from lightgbm_tpu_torch import native
 from lightgbm_tpu_torch.io import parser
 from lightgbm_tpu_torch.io.binning import NUMERICAL, BinMapper
 from lightgbm_tpu_torch.models.tree import Tree
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -28,6 +28,7 @@ from lightgbm_tpu_torch import metrics as tmetrics
 from lightgbm_tpu_torch import objectives as tobj
 from lightgbm_tpu_torch.io.metadata import Metadata as TMetadata
 from lightgbm_tpu_torch.utils.config import Config as TConfig
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

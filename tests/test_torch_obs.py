@@ -40,6 +40,7 @@ from lightgbm_tpu_torch.obs import memory, timers
 from lightgbm_tpu_torch.obs.ledger import Ledger
 from lightgbm_tpu_torch.ops import autotune as tat
 from lightgbm_tpu_torch.utils.config import Config
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

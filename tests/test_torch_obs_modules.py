@@ -38,6 +38,8 @@ from lightgbm_tpu_torch.obs import ledger as tledger
 from lightgbm_tpu_torch.obs import prof as tprof
 from lightgbm_tpu_torch.obs import roofline as troofline
 from lightgbm_tpu_torch.obs.events import RunObserver, read_events
+import torch
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -33,6 +33,7 @@ from lightgbm_tpu_torch.ops import wave_kernels as wk
 from torch_cases import (NO_CACHE, SAMPLED, assert_hist_close, bundled_case,
                          parity_data, structure, t, unbundled_case,
                          wave_data)
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

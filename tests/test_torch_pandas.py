@@ -15,25 +15,17 @@
 import numpy as np
 import pandas as pd
 import pytest
-import torch
 
 import jax
 
 import lightgbm_tpu as lgbj
 import lightgbm_tpu_torch as lgbt
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
 PARAMS = {"objective": "binary", "verbose": -1, "num_leaves": 15,
           "min_data_in_leaf": 5, "max_bin": 63, "tpu_growth": "exact"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _frame(n=600, seed=0):

@@ -27,21 +27,12 @@ from lightgbm_tpu_torch.parallel import comm as pcomm
 from lightgbm_tpu_torch.parallel import mesh
 from lightgbm_tpu_torch.utils.config import Config
 from lightgbm_tpu_torch.utils.log import LightGBMError
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
 CPU = torch.device("cpu")
 TIMEOUT = 60.0        # a collective that waits longer fails the test
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    # eight rank threads share the cores; the plain histograms are many
-    # small index_add_ calls
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ranks(size, fn):
@@ -381,27 +372,39 @@ def test_distributed_learners_run_staged(data):
     assert last["calls"] > 0 and last["bytes"] > 0
 
 
-def test_what_stays_refused_names_a10b(data, tmp_path):
+def test_data_parallel_sparse_trains_through_train(data):
+    """tree_learner=data with tpu_sparse=true through ``train`` on
+    rank-sharded datasets: the coordinate store on every rank (it was
+    refused before), the ranks' texts equal, and the first tree's splits
+    those of the dense data-parallel run on the same (distributed)
+    bins."""
     X, y, _, _ = data
-    from lightgbm_tpu_torch.ops import predict
-    from lightgbm_tpu_torch.parallel import elastic
-    from lightgbm_tpu_torch.serve.executable import PredictExecutableCache
+    X = np.where(np.abs(X) < 0.8, 0.0, X)
+    p = {"objective": "binary", "verbose": -1, "num_leaves": 7,
+         "min_data_in_leaf": 5, "tree_learner": "data",
+         "tpu_growth": "exact"}
 
     def rank(comm):
-        p = {"objective": "binary", "verbose": -1, "tree_learner": "data",
-             "tpu_sparse": True}
-        ds = lgbt.Dataset(X, label=y)
-        ds._handle = TrainingData.from_matrix(X, label=y,
-                                              config=Config(dict(p)),
-                                              comm=comm)
-        with pytest.raises(LightGBMError, match="ROADMAP A10b"):
-            lgbt.train(p, ds, 1, device="cpu")
-    _ranks(2, rank)
-    for fn in (elastic.run_elastic, elastic.run_elastic_threads,
-               predict.ranked_predict_sharded):
-        with pytest.raises(LightGBMError, match="ROADMAP A10b"):
-            fn(2, "x")
-    b = lgbt.train({"objective": "binary", "verbose": -1, "num_leaves": 4},
-                   lgbt.Dataset(X, label=y), 1, device="cpu")
-    with pytest.raises(LightGBMError, match="ROADMAP A10b"):
-        PredictExecutableCache(b._gbdt, devices=["cpu", "cpu"])
+        lo, hi, _ = row_block(len(y), comm.size, comm.rank)
+        out = []
+        for sparse in (True, False):
+            q = dict(p, tpu_sparse=sparse)
+            ds = lgbt.Dataset(X[lo:hi], label=y[lo:hi])
+            ds._handle = TrainingData.from_matrix(
+                X[lo:hi], label=y[lo:hi], config=Config(dict(q)),
+                comm=comm)
+            b = lgbt.train(q, ds, 2, device="cpu")
+            assert (type(b._gbdt.learner).__name__
+                    == "DataParallelTreeLearner")
+            assert b._gbdt.learner.sparse_mode == ("sparse" if sparse
+                                                   else "")
+            out.append(b.model_to_string())
+        return out
+    texts = _ranks(2, rank)
+    assert texts[0][0] == texts[1][0]
+
+    def first_tree(text):
+        tree = text.split("Tree=1")[0].split("Tree=0")[1]
+        return [ln for ln in tree.splitlines()
+                if ln.startswith(("split_feature=", "threshold="))]
+    assert first_tree(texts[0][0]) == first_tree(texts[0][1])

@@ -24,6 +24,7 @@ import lightgbm_tpu_torch as lgbt
 from lightgbm_tpu_torch.io.dataset import TrainingData
 from lightgbm_tpu_torch.parallel.comm import run_ranks
 from lightgbm_tpu_torch.utils.config import Config
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

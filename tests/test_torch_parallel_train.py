@@ -13,7 +13,6 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
 import lightgbm_tpu_torch as lgbt
 from lightgbm_tpu_torch.io.dataset import TrainingData
@@ -26,19 +25,14 @@ from lightgbm_tpu_torch.parallel.launch import (RankFailure,
                                                 run_ranks_subprocess)
 from lightgbm_tpu_torch.parallel.worker import train_worker
 from lightgbm_tpu_torch.utils.config import Config
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 TIMEOUT = 60.0
 SPEC = "lightgbm_tpu_torch.parallel.worker:train_worker"
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
+# the rank processes run torch on one thread, as this process does
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
 PAYLOAD = {"rows": 600, "cols": 6, "num_rounds": 4, "valid_rows": 200,
            "return_model": True, "device": "cpu",
            "params": {"metric": "binary_logloss,auc", "num_leaves": 7}}
@@ -50,7 +44,7 @@ def test_two_gloo_processes_train_one_text():
     from its own rows, so the text is the distributed run's, not the
     serial one's)."""
     procs = run_ranks_subprocess(2, SPEC, PAYLOAD, timeout=120,
-                                 device="cpu")
+                                 device="cpu", extra_env=ONE_THREAD)
     threads = pcomm.run_ranks(2, lambda c: train_worker(c, PAYLOAD),
                               barrier_timeout=TIMEOUT)
     assert procs[0]["model"] == procs[1]["model"] == threads[0]["model"]
@@ -62,7 +56,8 @@ def test_a_dead_rank_is_named():
     with pytest.raises(RankFailure) as e:
         run_ranks_subprocess(2, SPEC, dict(PAYLOAD, kill_rank=1,
                                            kill_iter=1),
-                             timeout=60, fail_grace=2.0, device="cpu")
+                             timeout=60, fail_grace=2.0, device="cpu",
+                             extra_env=ONE_THREAD)
     assert 1 in e.value.failed
 
 

@@ -29,6 +29,8 @@ import lightgbm_tpu_torch as lgbt
 from lightgbm_tpu_torch.models import gbdt as gbdt_mod
 from lightgbm_tpu_torch.ops import predict as tpredict
 from lightgbm_tpu_torch.predictor import Predictor as TPredictor
+import torch
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -24,6 +24,7 @@ import lightgbm_tpu_torch as lgbt
 from torch_cases import (NO_CACHE, SAMPLED, labels as _labels,
                          leaf_values as _leaf_values, parity_data as _data,
                          parity_params as _params, structure as _structure)
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

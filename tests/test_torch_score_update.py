@@ -15,6 +15,7 @@ from lightgbm_tpu_torch.ops import predict as tp
 from lightgbm_tpu_torch.ops.partition import (clipped_leaf_values,
                                               score_update_impl)
 from torch_cases import SCORE_CASES as CASES, score_case as _case
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("n,L", CASES)

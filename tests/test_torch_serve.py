@@ -30,6 +30,7 @@ from lightgbm_tpu_torch.serve import (MicrobatchScheduler,
                                       ServeOverloadError, ServingPredictor,
                                       next_pow2)
 from lightgbm_tpu_torch.serve import executable as exe_mod
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -118,11 +119,15 @@ def test_executable_normalize_widths(trained):
 
 
 def test_executable_cache_serves_one_device(trained):
-    bst, _ = trained
-    with pytest.raises(lgb.LightGBMError, match="one card"):
-        PredictExecutableCache(bst._gbdt, devices=["cpu", "cpu"])
+    """One entry serves on that device; two entries (one card twice)
+    split each bucket's rows and serve the one device's bits."""
+    bst, X = trained
     cache = PredictExecutableCache(bst._gbdt, devices=["cpu"])
-    assert cache.device.type == "cpu"
+    assert cache.device.type == "cpu" and cache.stats()["devices"] == 1
+    two = PredictExecutableCache(bst._gbdt, devices=["cpu", "cpu"])
+    assert two.stats()["devices"] == 2
+    np.testing.assert_array_equal(two.predict_batch(X[:37]),
+                                  cache.predict_batch(X[:37]))
 
 
 # --------------------------------------------------------------- scheduler

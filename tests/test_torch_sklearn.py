@@ -14,7 +14,6 @@
 """
 import numpy as np
 import pytest
-import torch
 from sklearn.base import clone
 from sklearn.model_selection import GridSearchCV
 
@@ -22,6 +21,7 @@ import jax
 
 import lightgbm_tpu as lgbj
 import lightgbm_tpu_torch as lgbt
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -31,14 +31,6 @@ KW = {"n_estimators": 3, "num_leaves": 7, "max_bin": 31,
 ORACLE = {"tpu_pallas_interpret": True, "tpu_hist_precision": "hilo"}
 KEYS = ("split_feature", "left_child", "right_child", "leaf_count",
         "decision_type")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _structure(text):

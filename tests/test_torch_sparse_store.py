@@ -26,6 +26,7 @@ from lightgbm_tpu_torch.ops import wave_kernels as wk
 from lightgbm_tpu_torch.ops.sparse_store import column_fill_bins
 from torch_cases import (bundled_case, sparse_bundled_case, sparse_case, t,
                          unbundled_case)
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 STORE_FIELDS = ("ent_row", "ent_bin", "chunk_col", "col_cptr", "fill")
 

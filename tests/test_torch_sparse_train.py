@@ -22,6 +22,7 @@ import jax
 
 import lightgbm_tpu as lgbj
 import lightgbm_tpu_torch as lgbt
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

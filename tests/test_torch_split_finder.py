@@ -20,6 +20,7 @@ from lightgbm_tpu_torch.ops import grow as tgrow
 from lightgbm_tpu_torch.ops import learner as tlearner
 from lightgbm_tpu_torch.ops import split_finder as tsf
 from lightgbm_tpu_torch.utils.config import Config as TConfig
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 INT_SLOTS = [tsf.FEATURE, tsf.THRESHOLD, tsf.DEFAULT_BIN_FOR_ZERO,
              tsf.LEFT_COUNT, tsf.RIGHT_COUNT, tsf.IS_CAT,

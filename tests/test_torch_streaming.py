@@ -14,7 +14,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 import jax
 
@@ -28,18 +27,9 @@ from lightgbm_tpu_torch.io import streaming
 from lightgbm_tpu_torch.io.dataset import TrainingData
 from lightgbm_tpu_torch.io.sparse import SparseColumns
 from lightgbm_tpu_torch.utils.config import Config
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain CPU histograms are many small torch operations, which
-    threads slow down beside other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def same_dataset(a, b):

@@ -35,6 +35,8 @@ import jax
 import lightgbm_tpu as lgbj
 import lightgbm_tpu_torch as lgbt
 from lightgbm_tpu_torch.convert import booster_from_model_string
+import torch
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 

@@ -32,6 +32,7 @@ from torch_cases import (assert_hist_close as _assert_hist_close,
                          bundled_case as _bundled_case, t as _t,
                          unbundled_case as _unbundled_case,
                          wave_data as _data)
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _hilo_exact(w3):

@@ -34,6 +34,7 @@ from lightgbm_tpu.ops.pallas_wave import wave_histogram_reference
 from lightgbm_tpu_torch.ops import leaf_hist as lh
 from lightgbm_tpu_torch.ops import wave_kernels as wk
 from torch_cases import t
+from torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -44,16 +45,6 @@ ORACLE = {"tpu_growth": "wave", "tpu_wave_width": 32,
 PARTITION = ("split_feature", "left_child", "right_child", "leaf_count",
              "decision_type")
 MODES = ["pallas_ct", "pallas_t", "pallas", "exact"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's plain CPU histograms are many small torch operations,
-    which threads slow down, most of all beside other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def wide_data(seed, n=3000):

@@ -1,7 +1,20 @@
 """Inputs shared by the port's kernel tests (tests/test_torch_*.py): numpy
 only, so that the GPU tests can run where JAX is not installed."""
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread while a module runs (a module imports this
+    fixture to take it): the plain CPU paths are many small torch
+    operations, which threads slow down, most of all beside the other
+    test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def t(a):
