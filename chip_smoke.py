@@ -222,13 +222,16 @@ Phases, in order:
 13. (run after phase 10) Two-byte bins, the f64 form and the XLA
     engines (wide_phase), on the first CUT_ROWS of the flagship rows.
     13a-c: the uint16 forms of B1, B3, B4 and B5 at F = 28, B = 1023,
-    K = 32 on those rows binned at max_bin 1023, and their f64 forms at
-    B = 63 with float64 weights, each
-    against its plain version in float64 (the f64 forms within 1e-12 x
-    the cell's sum of |w| + 1e-14 x max|w|), repeats bit-identical, B3 =
-    B1, B4 = B3 and B5 = B4's slot to the bit with B1's exponents, and
-    timed as in phase 3; the bin tiles: B3 and B4 on 4 flagship columns
-    binned at max_bin 16383, past one shared-memory row.  13d: the
+    K = 32 on those rows binned at max_bin 1023, their byte forms at B =
+    255 on the rows binned at max_bin 255, and their f64 forms at B = 63
+    with float64 weights, each against its plain version in float64 (the
+    f64 forms within 1e-12 x the cell's sum of |w| + 1e-14 x max|w|),
+    repeats bit-identical, B3 = B1, B4 = B3 and B5 = B4's slot, and B1
+    and B3 (K = 32 and the root) the scatter engine's histogram, to the
+    bit with B1's exponents, and timed as in phase 3 (B3 at K = 32 too),
+    each with its plan and the reads a listed row costs; the bin tiles: B3
+    and B4 on 4 flagship columns binned at max_bin 16383, past one
+    shared-memory row.  13d: the
     flagship at max_bin 1023 through auto (pallas_t: B3), pallas_ct
     (B1), pallas (B4) and exact growth (B5), fused then staged with
     equal text, every launch the uint16 form, the wave texts one.  13e:
@@ -236,7 +239,9 @@ Phases, in order:
     exact fused): every launch the f64 form, the gather for the scores.
     13f: onehot and scatter under wave (fused and staged) and exact
     growth (fused), no kernel; scatter gives phase 4's and 4b's texts to
-    the byte; tpu_score_update=gather gives the main text.
+    the byte; tpu_score_update=gather gives the main text.  13g: the
+    flagship at max_bin 255 (byte bins, the slot-ordered pass) through
+    auto (B3) and pallas_ct (B1), fused, one text.
 14. The coordinate sparse store and the single-process observers.  14a
     (after phase 5, on its Dataset): tpu_sparse=true without
     tpu_sparse_kernel, wave growth (W = 32) fused, fused again and
@@ -880,11 +885,11 @@ def sparse_kernel_phase(store, n_rows, num_bins, sm, sweep):
         blocks = F * -(-K // plan[0])
         other = 256 if plan[1] != 256 else 512
         need(torch.equal(sm._launch(store, lid, w3, cid, B, F, exps,
-                                    (plan[0], other), hilo), hist),
+                                    (plan[0], other, plan[3]), hilo), hist),
              "%s at %d threads not bit-equal" % (name, other))
         swept = []
         for threads in (256, 512, 1024) if sweep else ():
-            pc = (plan[0], threads)
+            pc = (plan[0], threads, plan[3])
             swept.append("%d threads %.4f ms" % (threads, time_ms(
                 lambda: sm._launch(store, lid, w3, cid, B, F, exps, pc))))
         # the library yardstick: one torch.bincount a channel over a
@@ -3823,24 +3828,35 @@ def f64_err(got, plain):
     return float(diff.max()), bool((diff <= tol).all())
 
 
-def wide_kernel_phase(X_t, default_bin, X63_t, default_bin63, X4_t, wk, lh):
-    """Phases 2 and 3 for the kernels' uint16 and f64 forms, and the bin
-    tiles.
+def wide_kernel_phase(X_t, default_bin, X63_t, default_bin63, X4_t,
+                      byte255, wk, lh):
+    """Phases 2 and 3 for the kernels' uint16 and f64 forms, the wide
+    byte rows, and the bin tiles.
 
     uint16, at F = 28, B = 1023 on the flagship rows binned at max_bin
     1023 (X_t (28, N) uint16), K = W = 32: B1 (ids exactly the plain
-    routing), B3 on B1's ids and at the root (K = 1), B4 (K = 32) and B5
-    (the leaf of slot 0), each within phase 2's tolerance of its plain
-    version in float64, two launches bit-identical, and with B1's
-    exponents B3 = B1, B4 = B3 and B5 = B4's slot, to the bit.  f64
-    (float64 weights, tpu_use_dp), at B = 63 on the flagship bins: the
-    same checks, within f64_err's bound of the float64 plain version.
+    routing), B3 on B1's ids (K = 32) and at the root (K = 1), B4 (K =
+    32) and B5 (the leaf of slot 0), each within phase 2's tolerance of
+    its plain version in float64, two launches bit-identical, and with
+    B1's exponents B3 = B1, B4 = B3 and B5 = B4's slot, and B1, B3 and
+    B3's root equal to the scatter engine's histogram
+    (ops/histogram.py scatter_histogram, an int64 index_add_ of the same
+    fixed point), to the bit.  Byte bins at B = 255 (the flagship rows
+    binned at max_bin 255: byte255 = (X_t, default bins, B)): the same
+    checks and times.  Both
+    take the slot-ordered pass at K = 32 (wave_kernels.hist_plan
+    ordered); each record's shape names its plan and the reads a listed
+    row costs (plan_reads).  f64 (float64 weights, tpu_use_dp), at B =
+    63 on the flagship bins: the same checks, within f64_err's bound of
+    the float64 plain version.
     Bin tiles: B3 (K = 1) and B4 (K = 4) on 4 flagship columns binned at
     max_bin 16383 (X4_t), whose (slot, feature) row of 64-bit cells
     exceeds the shared-memory budget, so the plan tiles the bin axis;
     both within tolerance of plain and bit-equal to each other's slots.
     Returns the records."""
     import torch
+
+    from lightgbm_tpu_torch.ops.histogram import scatter_histogram
     dev = X_t.device
     F, N = X_t.shape
     K = 32
@@ -3884,9 +3900,15 @@ def wide_kernel_phase(X_t, default_bin, X63_t, default_bin63, X4_t, wk, lh):
         need(torch.equal(h3, h1) and torch.equal(h4, h3)
              and torch.equal(h5, h4[0]),
              "%s: B3, B4, B5 not B1's histogram to the bit" % tag)
+        need(torch.equal(h1, scatter_histogram(X, new_lid, w3, cid, B, exps))
+             and torch.equal(h3r, scatter_histogram(X, zeros, w3, root, B,
+                                                    exps)),
+             "%s: B1, B3 not the scatter engine's histogram to the bit"
+             % tag)
         for name, h, x, ids, c in (
                 ("wave_partition_hist", h1, X_t, new_lid, cid),
                 ("wave_histogram", h3r, X_t, zeros, root),
+                ("wave_histogram_k32", h3, X_t, new_lid, cid),
                 ("wave_histogram_rowmajor", h4, X_t, new_lid, cid),
                 ("leaf_histogram", h5[None], X_t, new_lid, leaf)):
             def plain(absolute, ids=ids, c=c):
@@ -3916,11 +3938,10 @@ def wide_kernel_phase(X_t, default_bin, X63_t, default_bin63, X4_t, wk, lh):
                     X, new_lid, w3, leaf, B))
                 nbytes = N * 4 + 4
             else:
-                fn = (wk.wave_histogram if name == "wave_histogram"
-                      else wk.wave_histogram_rowmajor)
-                xx = X_t if name == "wave_histogram" else X
-                plainfn = (wk.wave_histogram_plain
-                           if name == "wave_histogram"
+                b3 = name.startswith("wave_histogram") and "row" not in name
+                fn = wk.wave_histogram if b3 else wk.wave_histogram_rowmajor
+                xx = X_t if b3 else X
+                plainfn = (wk.wave_histogram_plain if b3
                            else wk.wave_histogram_rowmajor_plain)
                 call = (lambda fn=fn, xx=xx, ids=ids, c=c: fn(
                     xx, ids, w3, c, B, exps=exps))
@@ -3931,21 +3952,26 @@ def wide_kernel_phase(X_t, default_bin, X63_t, default_bin63, X4_t, wk, lh):
             plan = wk.hist_plan(F, N, B, kc, sms, False, wide)
             record("%s_%s" % (name, tag), err, call, pl, lib,
                    "N=%d F=%d B=%d K=%d (%s bins, %s weights)%s, %d rows in "
-                   "a child slot; plan %s, bin tiles %d"
+                   "a child slot; plan %s (%s), bin tiles %d, %d reads a "
+                   "listed row"
                    % (N, F, B, kc, X_t.dtype, w3.dtype,
                       ", row-major" if name in ("wave_histogram_rowmajor",
                                                 "leaf_histogram") else "",
-                      n_act, plan[:6], len(wk.bin_tiles(F, B, plan[1],
-                                                        plan[4]))),
+                      n_act, tuple(plan[:6]),
+                      "slot-ordered" if plan.ordered else "slot-sliced",
+                      len(wk.bin_tiles(F, B, plan[1], plan[4])),
+                      wk.plan_reads(plan, kc)),
                    nbytes + n_act * (F * bb + wb) + kc * F * B * wb,
                    3 * n_act * F)
         del X
         notes.append("%s forms: B1's ids the plain routing's; B1, B3, B4 "
                      "and B5 within tolerance of plain, repeats "
                      "bit-identical, and with B1's exponents B3 = B1, B4 = "
-                     "B3 and B5 = B4's slot to the bit" % tag)
+                     "B3, B5 = B4's slot and B1 and B3 (K = 32 and the "
+                     "root) the scatter engine's to the bit" % tag)
 
     forms(X_t, default_bin, 1023, False, "uint16")
+    forms(byte255[0], byte255[1], byte255[2], False, "byte255")
     forms(X63_t, default_bin63, 63, True, "f64")
 
     # ---- bin tiles: B past what one (slot, feature) row of shared
@@ -4056,6 +4082,9 @@ def wide_phase(args, lgb, kernels, card, data, main_text):
     pallas (B4) and exact growth (B5), each fused then staged with equal
     text, every launch of those kernels their uint16 form, valid AUC
     above 0.8; the three wave dataflows' texts equal to the byte.
+    13g. The flagship recipe at max_bin 255 on the same rows (byte bins,
+    B1's and B3's slot-ordered pass): auto (pallas_t, B3) and pallas_ct
+    (B1), fused, their texts equal to the byte.
     13e. tpu_use_dp at max_bin 63: pallas_ct fused then staged (equal
     text), pallas and exact fused; every histogram launch the f64 form,
     the score update the gather (B2 never); pallas's text pallas_ct's.
@@ -4095,12 +4124,24 @@ def wide_phase(args, lgb, kernels, card, data, main_text):
     say("13 data: 4 flagship columns binned at max_bin = 16383, %d bins max "
         "(%.1f s)" % (int(ds4._handle.num_bin_arr.max()),
                       time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    p255 = dict(params, max_bin=255)
+    ds255 = lgb.Dataset(Xw, label=ds.get_label()[:CUT_ROWS],
+                        params=p255).construct()
+    t255 = ds255._handle
+    B255 = int(t255.num_bin_arr.max())
+    need(t255.bundle is None and t255.binned.dtype == np.uint8
+         and 63 < B255 <= 256, "unexpected max_bin=255 binning")
+    say("13 data: the flagship rows binned at max_bin = 255, %d bins max, "
+        "%s (%.1f s)" % (B255, t255.binned.dtype, time.perf_counter() - t0))
     # the kernel checks at the cut's rows: the max_bin 63 bins' first ones
     X_t, X4_t = bins_t_of(ds_w), bins_t_of(ds4)
     X63_t = bins_t_of(ds)[:, :X_t.shape[1]].contiguous()
     records = wide_kernel_phase(
         X_t, torch.as_tensor(td.default_bin_arr), X63_t,
-        torch.as_tensor(ds._handle.default_bin_arr), X4_t, wk, lh)
+        torch.as_tensor(ds._handle.default_bin_arr), X4_t,
+        (bins_t_of(ds255), torch.as_tensor(t255.default_bin_arr), B255),
+        wk, lh)
     del X_t, X63_t, X4_t, ds4
     torch.cuda.empty_cache()
     split_search_memory()
@@ -4167,6 +4208,26 @@ def wide_phase(args, lgb, kernels, card, data, main_text):
         "%.6f (wave), %.6f (exact); phase 4 at max_bin 63: %.6f"
         % (AUCS["wide-auto"], AUCS["wide-exact"], AUCS["wave"]))
     del ds_w, dv_w, data_w
+    torch.cuda.empty_cache()
+
+    # ---- 13g. max_bin 255 (the port's default): byte bins through the
+    # slot-ordered pass, B3 (auto) and B1 (pallas_ct) fused, one text
+    data_b = (ds255, lgb.Dataset(Xv, label=yv, reference=ds255).construct(),
+              Xw, Xv, yv)
+    texts255 = {}
+    for mode, kernel in (("auto", "wave_histogram"),
+                         ("pallas_ct", "wave_partition_hist")):
+        booster, _, _ = run("wide255-" + mode,
+                            dict(p255, tpu_histogram_mode=mode), data_b,
+                            kernel)
+        texts255[mode] = booster.model_to_string()
+        del booster
+        torch.cuda.empty_cache()
+    need(texts255["auto"] == texts255["pallas_ct"],
+         "max_bin 255: B3's and B1's texts differ")
+    say("13g max_bin 255: B3 (auto) and B1 (pallas_ct) give one text to "
+        "the byte; valid AUC %.6f" % AUCS["wide255-auto"])
+    del ds255, t255, data_b
     torch.cuda.empty_cache()
 
     # ---- 13e. tpu_use_dp: the f64 forms, the gather
@@ -5839,6 +5900,30 @@ def main():
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": repl, "launches": launches_of,
                     "launches_by_path": by_path,
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                    "shape": r["shape"], "checked": True})
+    # phase 13's wide rows beyond the forms' own records: B3 uint16 at K
+    # = 32 (its launches the uint16 form's on wide-auto, the roots among
+    # them) and B1 and B3 (K = 32) on byte bins at max_bin 255 (their
+    # launches on 13g's fused runs)
+    by_label = dict(paths)
+    extra_own = {
+        "wave_histogram_k32_uint16": form_launches["wide-auto"][
+            "wave_histogram_uint16"],
+        "wave_partition_hist_byte255": by_label["wide255-pallas_ct"][
+            "wave_partition_hist"],
+        "wave_histogram_k32_byte255": by_label["wide255-auto"][
+            "wave_histogram"]}
+    for name, launches_of in extra_own.items():
+        base = next(k for k in sorted(sources, key=len, reverse=True)
+                    if name.startswith(k))
+        src, repl = sources[base]
+        r = records[name]
+        need(launches_of > 0, "%s did not launch on its path" % name)
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": repl, "launches": launches_of,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

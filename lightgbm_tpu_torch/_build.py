@@ -130,13 +130,13 @@ def library() -> ctypes.CDLL:
         loads += 1
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         cf = ctypes.c_float
-        lib.lgbt_wave_hist.argtypes = [vp] * 8 + [ci] * 16 + [vp]
+        lib.lgbt_wave_hist.argtypes = [vp] * 8 + [ci] * 17 + [vp]
         lib.lgbt_wave_hist.restype = ci
-        lib.lgbt_wave_fused.argtypes = [vp] * 11 + [ci] * 17 + [vp]
+        lib.lgbt_wave_fused.argtypes = [vp] * 11 + [ci] * 18 + [vp]
         lib.lgbt_wave_fused.restype = ci
         lib.lgbt_wave_finish.argtypes = [vp] * 4 + [ci] * 4 + [vp]
         lib.lgbt_wave_finish.restype = ci
-        lib.lgbt_wave_list.argtypes = [vp] * 8 + [ci] * 8 + [vp]
+        lib.lgbt_wave_list.argtypes = [vp] * 9 + [ci] * 9 + [vp]
         lib.lgbt_wave_list.restype = ci
         lib.lgbt_wave_hist_smem.argtypes = [ci] * 4
         lib.lgbt_wave_hist_smem.restype = cll
@@ -148,10 +148,12 @@ def library() -> ctypes.CDLL:
         lib.lgbt_wave_hist_blocks_per_sm.restype = ci
         lib.lgbt_wave_hist_blocks_per_sm_form.argtypes = [ci] * 8
         lib.lgbt_wave_hist_blocks_per_sm_form.restype = ci
+        lib.lgbt_wave_hist_ordered_blocks_per_sm.argtypes = [ci] * 5
+        lib.lgbt_wave_hist_ordered_blocks_per_sm.restype = ci
         lib.lgbt_score_update.argtypes = [vp, vp, vp, vp, cll, ci, cf, cf,
                                           vp]
         lib.lgbt_score_update.restype = ci
-        lib.lgbt_sparse_hist.argtypes = [vp] * 8 + [ci] * 8 + [vp]
+        lib.lgbt_sparse_hist.argtypes = [vp] * 8 + [ci] * 9 + [vp]
         lib.lgbt_sparse_hist.restype = ci
         lib.lgbt_sparse_hist_smem.argtypes = [ci] * 2
         lib.lgbt_sparse_hist_smem.restype = cll

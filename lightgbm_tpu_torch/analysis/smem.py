@@ -20,11 +20,13 @@ the byte, 4-bit packed, uint16 and f64 forms.  Invariants:
 * ``smem-bin-tiles`` -- a dense plan's bin tiles do not cover [0, B)
   exactly once.
 
-B6 refuses a bin count whose one (slot, B, 3) histogram row exceeds the
-budget (``launch_plan`` raises: B > 9,386); the sweep checks the widths
-it plans, as the JAX pass checks the widths its kernel claims.  Findings
-anchor at the planner's ``def`` line, so an inline suppression there
-covers a deliberate regime.
+A slot-ordered dense plan (``hist_plan`` ``ordered``: wide rows, one
+slot resident) counts its kernel's static shared memory (the slot
+offsets, ``wave_kernels._ORDERED_STATIC_SMEM``) towards the budget and
+the SM.  B6 tiles its bin axis past one (slot, B, 3) row (B > 9,044) and
+plans every B up to 65,536 (``launch_plan``); its sweep covers them all.
+Findings anchor at the planner's ``def`` line, so an inline suppression
+there covers a deliberate regime.
 """
 from __future__ import annotations
 
@@ -106,22 +108,27 @@ def _check_dense(modules, findings) -> None:
         for F in NCOLS_GRID:
             for B in _form_bins(form):
                 for K in K_GRID:
-                    _, groups, _, ks, fs, copies, smem = wk.hist_plan(
-                        F, N_ROWS, B, K, NUM_SMS, packed, wide)
+                    _, groups, _, ks, fs, copies, smem, ordered = \
+                        wk.hist_plan(F, N_ROWS, B, K, NUM_SMS, packed, wide)
                     where = ("%s form, F=%d B=%d K=%d (KS=%d FS=%d "
-                             "copies=%d)" % (form, F, B, K, ks, fs, copies))
-                    if smem > budget:
+                             "copies=%d%s)" % (form, F, B, K, ks, fs, copies,
+                                               ", ordered" if ordered
+                                               else ""))
+                    # the ordered pass's slot offsets
+                    static = wk._ORDERED_STATIC_SMEM if ordered else 0
+                    if (smem > budget
+                            or smem + static > H100_SMEM_PER_BLOCK):
                         findings.append(Finding(
                             "smem-budget", PASS_NAME, path, line,
                             "histogram block claims %d bytes > %d at %s"
                             % (smem, budget, where),
                             "shrink the copies, slots or features a "
                             "block holds, or tile the bins"))
-                    if wk._SMEM_PER_SM // (smem + 1024) < 1:
+                    if wk._SMEM_PER_SM // (smem + static + 1024) < 1:
                         findings.append(Finding(
                             "smem-resident", PASS_NAME, path, line,
                             "no block of %d bytes is resident on an SM "
-                            "at %s" % (smem, where),
+                            "at %s" % (smem + static, where),
                             "keep one block within _SMEM_PER_SM"))
                     tiles = wk.bin_tiles(F, B, groups, fs, packed)
                     if not _covers_once(tiles, B):
@@ -144,10 +151,15 @@ def _check_sparse(modules, findings) -> None:
     for B in NUM_BINS_GRID:
         for K in K_GRID:
             try:
-                ks, threads, smem = sm.launch_plan(B, K)
-            except LightGBMError:
-                continue             # B6 refuses this width at launch
-            where = "B=%d K=%d (KS=%d, %d threads)" % (B, K, ks, threads)
+                ks, threads, smem, tiles = sm.launch_plan(B, K)
+            except LightGBMError as e:
+                findings.append(Finding(
+                    "smem-budget", PASS_NAME, path, line,
+                    "B6 plans no block at B=%d K=%d: %s" % (B, K, e),
+                    "tile the bins"))
+                continue
+            where = ("B=%d K=%d (KS=%d, %d threads, %d bin tiles)"
+                     % (B, K, ks, threads, tiles))
             if smem > budget:
                 findings.append(Finding(
                     "smem-budget", PASS_NAME, path, line,

@@ -31,11 +31,14 @@
 // reached 3% of that bound.
 //
 // Design.  One block owns one device column (and a slice of KS child
-// slots where (K, B, 3) does not fit) and walks that column's chunks: no
-// other block touches its cells, so it writes its slice of the f32 output
-// itself, with no global buffer, memset or second kernel.  A long column
-// (the narrow, skewed layout) makes its block slow, never wrong.
-//  - One shared histogram a block, of (KS, B, 3) 64-bit fixed-point cells
+// slots where (K, B, 3) does not fit, and a tile of BT = ceil(B / tiles)
+// bins where one (slot, B, 3) row does not: more than 9,386 bins) and
+// walks that column's chunks, skipping the entries whose bin lies outside
+// its tile: no other block touches its cells, so it writes its slice of
+// the f32 output itself, with no global buffer, memset or second kernel.
+// A long column (the narrow, skewed layout) makes its block slow, never
+// wrong.
+//  - One shared histogram a block, of (KS, BT, 3) 64-bit fixed-point cells
 //    (fixed_point.cuh: each channel quantised with the tree's exponents
 //    exactly as csrc/wave_fused.cu's hist_kernel does, and added as two
 //    native 32-bit shared atomics).  48 KB at K = 32, B = 63, so four
@@ -68,10 +71,10 @@ using lgbt::kTable;
 constexpr int kMaxThreads = 1024;
 constexpr int kUnroll = 4;       // entries a thread keeps in flight
 
-// Dynamic shared memory of one block: (KS, B, 3) 64-bit cells as two
+// Dynamic shared memory of one block: (KS, BT, 3) 64-bit cells as two
 // planes of 32-bit words, then the slice's KS child ids and each slot's
 // first holder.
-size_t smem_bytes(int B, int KS) { return 8ull * KS * B * 3 + 8ull * KS; }
+size_t smem_bytes(int BT, int KS) { return 8ull * KS * BT * 3 + 8ull * KS; }
 
 // Static shared memory: the leaf -> slot table and its length.
 constexpr size_t kStaticSmem = sizeof(short) * kTable + sizeof(int);
@@ -91,7 +94,10 @@ sparse_hist_kernel(const int* __restrict__ ent_row,
   const int f = blockIdx.x;              // this block's column
   const int k0 = blockIdx.y * KS;
   const int kn = min(KS, K - k0);
-  const int slot_len = B * 3;
+  const int BT = (B + gridDim.z - 1) / gridDim.z;   // its bins [b0, b1)
+  const int b0 = blockIdx.z * BT;
+  const int b1 = min(B, b0 + BT);
+  const int slot_len = BT * 3;
   const int cells = kn * slot_len;
   const int words = KS * slot_len;
   unsigned* lo = planes;
@@ -141,11 +147,11 @@ sparse_hist_kernel(const int* __restrict__ ent_row,
         bin[u] = ent_bin[e];
       }
     }
-    // pads (row N, bin -1) and bins past B are dropped before the
-    // gather: leaf_id[N] is out of bounds
+    // pads (row N, bin -1) and bins outside the tile (or past B) are
+    // dropped before the gather: leaf_id[N] is out of bounds
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      slot[u] = (row[u] >= 0 && row[u] < N && bin[u] >= 0 && bin[u] < B)
+      slot[u] = (row[u] >= 0 && row[u] < N && bin[u] >= b0 && bin[u] < b1)
           ? lid[row[u]] : -1;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
@@ -169,7 +175,7 @@ sparse_hist_kernel(const int* __restrict__ ent_row,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (slot[u] >= 0) {
-        const int c = slot[u] * slot_len + bin[u] * 3;
+        const int c = slot[u] * slot_len + (bin[u] - b0) * 3;
         add64(lo + c, hi + c, lgbt::quantize(w[u][0], s0));
         add64(lo + c + 1, hi + c + 1, lgbt::quantize(w[u][1], s1));
         add64(lo + c + 2, hi + c + 2, lgbt::quantize(w[u][2], s2));
@@ -178,12 +184,14 @@ sparse_hist_kernel(const int* __restrict__ ent_row,
   }
   __syncthreads();
 
-  // the block's slice of the output: slot k0 + kk, column f, all B x 3
-  // cells, from its first holder's cells (0 for an inactive slot)
+  // the block's slice of the output: slot k0 + kk, column f, its tile's
+  // (b1 - b0) x 3 cells, from its first holder's cells (0 for an
+  // inactive slot)
   const int x0 = exps[0], x1 = exps[1], x2 = exps[2];
   for (int i = tid; i < cells; i += blockDim.x) {
     const int kk = i / slot_len;
     const int rem = i - kk * slot_len;
+    if (rem >= (b1 - b0) * 3) continue;  // the last tile's spare cells
     const int src = first_s[kk];
     float v = 0.f;
     if (src >= 0) {
@@ -192,7 +200,7 @@ sparse_hist_kernel(const int* __restrict__ ent_row,
       v = lgbt::to_f32((static_cast<unsigned long long>(hi[c]) << 32) | lo[c],
                        ch == 0 ? x0 : ch == 1 ? x1 : x2);
     }
-    hist[(static_cast<size_t>(k0 + kk) * F + f) * slot_len + rem] = v;
+    hist[(static_cast<size_t>(k0 + kk) * F + f) * B * 3 + b0 * 3 + rem] = v;
   }
 }
 
@@ -202,29 +210,31 @@ int sparse_granted[lgbt::kMaxDevices];
 
 extern "C" {
 
-// Shared memory of one block, dynamic and static (the wrapper's plan,
-// ops/sparse_mxu.py _smem_bytes, mirrors it).
-long long lgbt_sparse_hist_smem(int B, int KS) {
-  return static_cast<long long>(smem_bytes(B, KS) + kStaticSmem);
+// Shared memory of one block, dynamic and static, at BT bins a block
+// (the wrapper's plan, ops/sparse_mxu.py _smem_bytes, mirrors it).
+long long lgbt_sparse_hist_smem(int BT, int KS) {
+  return static_cast<long long>(smem_bytes(BT, KS) + kStaticSmem);
 }
 
 // B6 on the stream `stream`: hist holds K * F * B * 3 floats, every one
 // written.  A block of `threads` threads (a multiple of 32, at most 1024)
-// covers one column and KS child slots; bf16 rounds the weights to bf16
-// first.  Returns cudaGetLastError() after the launch.
+// covers one column, KS child slots and one of `tiles` tiles of
+// ceil(B / tiles) bins; bf16 rounds the weights to bf16 first.  Returns
+// cudaGetLastError() after the launch.
 int lgbt_sparse_hist(const void* ent_row, const void* ent_bin,
                      const void* col_cptr, const void* lid, const void* w3,
                      const void* cid, const void* exps, void* hist, int F,
                      int N, int B, int K, int E, int KS, int threads,
-                     int bf16, void* stream) {
-  if (KS < 1 || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
+                     int tiles, int bf16, void* stream) {
+  if (KS < 1 || threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      tiles < 1 || tiles > B)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(B, KS);
+  const size_t smem = smem_bytes((B + tiles - 1) / tiles, KS);
   cudaError_t e = lgbt::allow_smem(
       reinterpret_cast<const void*>(&sparse_hist_kernel), smem,
       sparse_granted);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(F, (K + KS - 1) / KS);
+  const dim3 grid(F, (K + KS - 1) / KS, tiles);
   sparse_hist_kernel<<<grid, threads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ent_row), static_cast<const int*>(ent_bin),

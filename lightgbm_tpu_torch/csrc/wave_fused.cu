@@ -113,6 +113,29 @@
 //     the global atomics; integer sums, so the bits do not depend on C.
 //     The plan (ops/wave_kernels.py hist_plan) is made from N: B5 takes
 //     B4's at K = 1 for every leaf, the root's copies included.
+//  2'. Wide rows (the slot-ordered pass).  Where one (slot, feature) row
+//     of B bins is so long that the plan above would hold fewer than 4
+//     features of all K slots a block (uint16 bins at B = 1023: one
+//     feature and 9 of 32 slots), every block of it walks the whole list:
+//     a listed row is fetched 112 times at F = 28, K = 32.  There (1 < K
+//     <= 1024) the list passes order the list by slot on the device --
+//     kCount counts each slot's rows (a block-level count, then K global
+//     atomics a block), kScatter writes each row into its slot's segment
+//     (the offsets are the counts' prefix, each block computing them; one
+//     global atomic a (tile, slot)) -- and hist_ordered_kernel lets a
+//     block hold ONE slot of up to kMaxGroup features and one piece of
+//     that slot's rows, so a listed row is read once a (feature group,
+//     bin tile).  On X_t (B1, B3) the scatter pass also copies each
+//     listed row's weights and bins into compact rows in list order,
+//     reading X_t's bins of neighbouring rows together, so the
+//     histogram pass reads its rows contiguously instead of gathering a
+//     sector of X_t for each listed (row, feature); on row-major X (B4) a
+//     row's group is one or two sectors already, and the pass reads it
+//     through the list.  On an H100 at N = 2M, F = 28, K = 32, 1023 bins
+//     of the flagship rows, B3's scatter pass with its copy takes ~220 us
+//     and its histogram pass ~210 us, where the slot-sliced plan's
+//     histogram pass took ~1.17 ms (wide_hist_ab.py --profile; PERF.md,
+//     PR 20).
 //  3. finish_kernel converts the int64 sums to f32 once and copies the
 //     histogram of a repeated child id into each of its slots.
 // Fixed point: channel c is scaled by 2^e[c] with e[c] = 62 -
@@ -142,19 +165,157 @@ constexpr int kHistThreads = 1024;   // 32 warps: one block fills an SM
 constexpr int kMaxGroup = 8;         // features a histogram block holds
 constexpr int kMaxCopies = 32;
 constexpr int kMinShareRows = 2048;  // the fewest listed rows a share takes
+constexpr int kMaxOrderedSlots = 1024;   // the most slots a slot-ordered
+                                         // list takes
+// a block's piece of one slot's rows goes through shared memory when it
+// holds at least BT / kSharedRowsDiv rows (it then touches about 3 FS BT /
+// kSharedRowsDiv cells or more, so the flush's scan of all 3 FS BT cells
+// costs little beside its adds); a shorter one adds straight into the
+// int64 sums with global atomics
+constexpr int kSharedRowsDiv = 4;
 
 // The bin forms: byte bins, 4-bit packed byte bins, two-byte bins.
 enum Form { kByte = 0, kPacked = 1, kWide16 = 2 };
 
+// The list passes: kAppend writes the (row, slot) pairs in tile order
+// (one global atomic a tile); kCount only counts each slot's rows (B1
+// still routes and writes new_lid there); kScatter writes each pair into
+// its slot's segment of the list, so that the list is ordered by slot.
+enum ListPass { kAppend = 0, kCount = 1, kScatter = 2 };
+
+// off[0..K]: the exclusive prefix of the K slot counts cnt (off[K] the
+// list's length), in shared memory; K <= kMaxOrderedSlots.  Every thread
+// of the block calls it; it ends with a barrier.
+__device__ __forceinline__ void slot_offsets(
+    const unsigned long long* __restrict__ cnt, int K, int* off) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int per = (K + 31) / 32;
+    const int a = min(K, lane * per);
+    const int b = min(K, a + per);
+    int s = 0;
+    for (int i = a; i < b; ++i) s += static_cast<int>(cnt[i]);
+    int incl = s;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    int run = incl - s;
+    for (int i = a; i < b; ++i) {
+      off[i] = run;
+      run += static_cast<int>(cnt[i]);
+    }
+    if (lane == 31) off[K] = incl;
+  }
+  __syncthreads();
+}
+
+// The compact rows of the slot-ordered pass on X_t: the scatter pass
+// copies each listed row's weights and its Fd stored bins (from X_t (Fd,
+// N)) into row pos of xc, pos its place in the slot-ordered list: W bytes
+// of weights (w3's three values and a zero: four f32, or four f64 when
+// wide), then the bins, the row padded to whole 32-byte sectors (S
+// bytes), so that one thread writes each sector of it whole.  The scatter pass walks the rows in row order, so a warp reads
+// X_t's bins of 32 neighbouring rows at once; the histogram pass then
+// reads its rows in list order, contiguous, where it would gather one
+// sector of X_t for each listed (row, feature).  xc null: no copy.
+struct Compact {
+  const void* x;
+  const void* w3;
+  uint4* xc;
+  int S, W, Fd, bins16, wide;
+};
+
+// The bytes of a compact row: the weights (16, or 32 when wide) and Fd
+// bins of `bytes` bytes, rounded up to 32.
+inline int compact_stride(int Fd, int bytes, bool wide) {
+  return ((wide ? 32 : 16) + Fd * bytes + 31) / 32 * 32;
+}
+
+// Row `row`'s weights and bins into compact row pos; T: the bin type.
+// Where the row's bins fit kCompactFast bytes (32 features of uint16
+// bins, 64 of bytes), all of them are loaded at once and the row is
+// stored back to back, so the halves of each sector reach L2 together;
+// a wider row goes 16 bytes at a time, a chunk's loads together.
+constexpr int kCompactFast = 64;
+
+template <typename T>
+__device__ __forceinline__ void compact_row(const Compact& c, int row,
+                                            int pos, int N) {
+  constexpr int PER = 16 / static_cast<int>(sizeof(T));   // bins a chunk
+  constexpr int BW = 4 / static_cast<int>(sizeof(T));     // bins a word
+  uint4* out = c.xc + static_cast<size_t>(pos) * (c.S / 16);
+  if (c.wide) {
+    const double* w = static_cast<const double*>(c.w3) +
+                      3 * static_cast<size_t>(row);
+    reinterpret_cast<double2*>(out)[0] = make_double2(w[0], w[1]);
+    reinterpret_cast<double2*>(out)[1] = make_double2(w[2], 0.0);
+  } else {
+    const float* w = static_cast<const float*>(c.w3) +
+                     3 * static_cast<size_t>(row);
+    reinterpret_cast<float4*>(out)[0] = make_float4(w[0], w[1], w[2], 0.f);
+  }
+  out += c.W / 16;
+  const T* x = static_cast<const T*>(c.x) + row;
+  const size_t step = static_cast<size_t>(N);
+  const int chunks = (c.S - c.W) / 16;
+  if (c.Fd * static_cast<int>(sizeof(T)) <= kCompactFast) {
+    constexpr int MAXB = kCompactFast / static_cast<int>(sizeof(T));
+    constexpr int WORDS = kCompactFast / 4 + 4;   // the row's padding too
+    unsigned v[MAXB];
+#pragma unroll
+    for (int f = 0; f < MAXB; ++f)
+      v[f] = f < c.Fd ? static_cast<unsigned>(x[f * step]) : 0u;
+    unsigned w[WORDS];
+#pragma unroll
+    for (int q = 0; q < WORDS; ++q) {
+      w[q] = 0u;
+#pragma unroll
+      for (int r = 0; r < BW; ++r)
+        if (q * BW + r < MAXB)
+          w[q] |= v[q * BW + r] << (8 * static_cast<int>(sizeof(T)) * r);
+    }
+#pragma unroll
+    for (int ch = 0; ch < WORDS / 4; ++ch)
+      if (ch < chunks)
+        out[ch] = make_uint4(w[4 * ch], w[4 * ch + 1], w[4 * ch + 2],
+                             w[4 * ch + 3]);
+    return;
+  }
+  for (int ch = 0; ch < chunks; ++ch) {
+    unsigned v[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int f = ch * PER + i;
+      v[i] = f < c.Fd ? static_cast<unsigned>(x[f * step]) : 0u;
+    }
+    unsigned w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      w[q] = 0u;
+#pragma unroll
+      for (int r = 0; r < BW; ++r)
+        w[q] |= v[q * BW + r] << (8 * static_cast<int>(sizeof(T)) * r);
+    }
+    out[ch] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 // PACKED: xt holds Fd = ceil(F / 2) packed columns; the route reads the
-// split column's nibble.  T: the bin type (uint8_t, or uint16_t).
-template <bool ROUTE, bool BUNDLED, bool PACKED, typename T>
+// split column's nibble.  T: the bin type (uint8_t, or uint16_t).  PASS:
+// ListPass; kCount and kScatter take slots (the 2K words cnt, then the
+// cursors cur, zeroed), and kScatter takes no route (lid: the ids to list,
+// B1's new ones) and copies each listed row into its compact rows (cp).
+template <bool ROUTE, bool BUNDLED, bool PACKED, typename T, int PASS>
 __global__ void __launch_bounds__(kListThreads)
 list_kernel(const T* __restrict__ xt, const int* __restrict__ lid,
             const int* __restrict__ cid, const float* __restrict__ cols,
             const int* __restrict__ psrc, int* __restrict__ new_lid,
             int2* __restrict__ list, unsigned long long* __restrict__ count,
-            int F, int Fd, int N, int K, int W) {
+            unsigned long long* __restrict__ slots, int F, int Fd, int N,
+            int K, int W, Compact cp) {
+  static_assert(PASS != kScatter || !ROUTE, "the scatter pass takes no route");
   __shared__ short wave_of[kTable];      // leaf -> first w, or -1
   __shared__ short slot_of[kTable];      // leaf -> first k, or -1
   __shared__ int warp_n[kListRows][kListThreads / 32];
@@ -164,6 +325,11 @@ list_kernel(const T* __restrict__ xt, const int* __restrict__ lid,
   int* psrc_s = dyn;                     // W
   int* cid_s = psrc_s + W;               // K
   float* cols_s = reinterpret_cast<float*>(cid_s + K);   // W * 10
+  // kCount, kScatter: a tile's rows in each slot, the tile's first
+  // position in each slot's segment, and the segments' offsets
+  int* tcount = reinterpret_cast<int*>(cols_s + W * 10);   // K
+  int* gbase = tcount + K;                                 // K
+  int* off_s = gbase + K;                                  // K + 1
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -171,6 +337,8 @@ list_kernel(const T* __restrict__ xt, const int* __restrict__ lid,
   for (int i = tid; i < W; i += blockDim.x) psrc_s[i] = psrc[i];
   for (int i = tid; i < K; i += blockDim.x) cid_s[i] = cid[i];
   for (int i = tid; i < W * 10; i += blockDim.x) cols_s[i] = cols[i];
+  if constexpr (PASS != kAppend)
+    for (int i = tid; i < K; i += blockDim.x) tcount[i] = 0;
   __syncthreads();
   if (tid == 0) {                        // table length: largest id + 1
     int m = -1;
@@ -192,6 +360,11 @@ list_kernel(const T* __restrict__ xt, const int* __restrict__ lid,
       if (cid_s[i] >= 0 && cid_s[i] < tmax) slot_of[cid_s[i]] = i;
   }
   __syncthreads();
+  if constexpr (PASS == kScatter) {
+    slot_offsets(slots, K, off_s);
+    if (blockIdx.x == 0 && tid == 0)
+      *count = static_cast<unsigned long long>(off_s[K]);
+  }
 
   const unsigned lt_mask = (1u << lane) - 1u;
   for (long long t0 = static_cast<long long>(blockIdx.x) * kTileRows;
@@ -241,31 +414,241 @@ list_kernel(const T* __restrict__ xt, const int* __restrict__ lid,
         }
         slot[j] = lgbt::lookup_slot(slot_of, tmax, cid_s, K, nl);
       }
-      const unsigned m = __ballot_sync(0xffffffffu, slot[j] >= 0);
-      before[j] = __popc(m & lt_mask);
-      if (lane == 0) warp_n[j][warp] = __popc(m);
+      if constexpr (PASS == kAppend) {
+        const unsigned m = __ballot_sync(0xffffffffu, slot[j] >= 0);
+        before[j] = __popc(m & lt_mask);
+        if (lane == 0) warp_n[j][warp] = __popc(m);
+      } else {
+        // the warp's rows of one slot: their leader claims them in the
+        // tile's count; before[j] becomes the row's place among the
+        // tile's rows of its slot
+        const unsigned peers = __match_any_sync(0xffffffffu, slot[j]);
+        const int leader = __ffs(peers) - 1;
+        int o = 0;
+        if (slot[j] >= 0 && lane == leader)
+          o = atomicAdd(&tcount[slot[j]], __popc(peers));
+        before[j] = __shfl_sync(0xffffffffu, o, leader) +
+                    __popc(peers & lt_mask);
+      }
     }
-    __syncthreads();
-    if (tid == 0) {                      // exclusive prefix in row order
-      int total = 0;
-      for (int j = 0; j < kListRows; ++j)
-        for (int v = 0; v < kListThreads / 32; ++v) {
-          const int c = warp_n[j][v];
-          warp_n[j][v] = total;
-          total += c;
-        }
-      base_s = total ? atomicAdd(count, static_cast<unsigned long long>(
-                                            total))
-                     : 0ull;
-    }
-    __syncthreads();
-    const unsigned long long base = base_s;
+    if constexpr (PASS == kAppend) {
+      __syncthreads();
+      if (tid == 0) {                    // exclusive prefix in row order
+        int total = 0;
+        for (int j = 0; j < kListRows; ++j)
+          for (int v = 0; v < kListThreads / 32; ++v) {
+            const int c = warp_n[j][v];
+            warp_n[j][v] = total;
+            total += c;
+          }
+        base_s = total ? atomicAdd(count, static_cast<unsigned long long>(
+                                              total))
+                       : 0ull;
+      }
+      __syncthreads();
+      const unsigned long long base = base_s;
 #pragma unroll
-    for (int j = 0; j < kListRows; ++j)
-      if (slot[j] >= 0)
-        list[base + warp_n[j][warp] + before[j]] = make_int2(row[j], slot[j]);
-    __syncthreads();                     // warp_n and base_s reused
+      for (int j = 0; j < kListRows; ++j)
+        if (slot[j] >= 0)
+          list[base + warp_n[j][warp] + before[j]] =
+              make_int2(row[j], slot[j]);
+      __syncthreads();                   // warp_n and base_s reused
+    } else if constexpr (PASS == kScatter) {
+      __syncthreads();
+      // the tile's place in each slot's segment; the count is cleared for
+      // the next tile (its adds come after the next barrier)
+      for (int i = tid; i < K; i += blockDim.x) {
+        const int c = tcount[i];
+        if (c) {
+          gbase[i] = off_s[i] + static_cast<int>(atomicAdd(
+              slots + K + i, static_cast<unsigned long long>(c)));
+          tcount[i] = 0;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kListRows; ++j)
+        if (slot[j] >= 0) {
+          const int pos = gbase[slot[j]] + before[j];
+          list[pos] = make_int2(row[j], slot[j]);
+          if (cp.xc) compact_row<T>(cp, row[j], pos, N);
+        }
+    }
   }
+  if constexpr (PASS == kCount) {
+    __syncthreads();
+    for (int i = tid; i < K; i += blockDim.x)
+      if (tcount[i])
+        atomicAdd(slots + i, static_cast<unsigned long long>(tcount[i]));
+  }
+}
+
+// The pieces a histogram block runs on each listed row, shared by both
+// histogram passes.  A block owns the stored columns [c0, c0 + nc) (the
+// group; packed: nhi of them also hold a high-nibble feature) and the
+// bins [b0, b0 + BT) of their features.
+template <int FORM>
+using BinT = typename std::conditional<FORM == kWide16, uint16_t,
+                                       uint8_t>::type;
+template <bool WIDE>
+using Quant = typename std::conditional<WIDE, lgbt::Q128,
+                                        unsigned long long>::type;
+
+// Each of the group's features' bin of `row` within the block's tile
+// (BT: none), each stored bin read once.  xg: the group's first column
+// (X_t) or X + c0 (row-major, Fd stored columns a row); words4: the
+// row-major group read as 4-byte words.
+template <bool ROWMAJOR, int FORM>
+__device__ __forceinline__ void group_bins(const BinT<FORM>* __restrict__ xg,
+                                           int row, int Fd, int N, int nc,
+                                           int nhi, int b0, int BT,
+                                           bool words4,
+                                           int (&bins)[kMaxGroup]) {
+  using T = BinT<FORM>;
+  constexpr int PER = 4 / static_cast<int>(sizeof(T));   // bins a word
+  int bytes[kMaxGroup];
+  if constexpr (ROWMAJOR) {
+    const T* xr = xg + static_cast<size_t>(row) * Fd;
+    if (words4) {
+      const unsigned* xw = reinterpret_cast<const unsigned*>(xr);
+      unsigned wd[kMaxGroup / PER];
+#pragma unroll
+      for (int i = 0; i < kMaxGroup / PER; ++i)
+        wd[i] = i * PER < nc ? xw[i] : 0u;
+#pragma unroll
+      for (int f = 0; f < kMaxGroup; ++f)
+        bytes[f] = f < nc
+            ? static_cast<int>((wd[f / PER] >> (8 * sizeof(T) * (f % PER)))
+                               & ((1u << (8 * sizeof(T))) - 1u))
+            : 0;
+    } else {
+#pragma unroll
+      for (int f = 0; f < kMaxGroup; ++f)
+        bytes[f] = f < nc ? static_cast<int>(xr[f]) : 0;
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < kMaxGroup; ++f)
+      bytes[f] = f < nc
+          ? static_cast<int>(xg[static_cast<size_t>(f) * N + row]) : 0;
+  }
+  if constexpr (FORM == kPacked) {
+#pragma unroll
+    for (int i = 0; i < kMaxGroup / 2; ++i) {
+      bins[2 * i] = i < nc ? (bytes[i] & 15) - b0 : BT;
+      bins[2 * i + 1] = i < nhi ? (bytes[i] >> 4) - b0 : BT;
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < kMaxGroup; ++f) bins[f] = f < nc ? bytes[f] - b0 : BT;
+  }
+}
+
+// The three channels of `row` in the fixed point: 64-bit values of the
+// f32 weights (rounded to bf16 first when bf16, block-uniform), 128-bit
+// ones of the float64 weights (WIDE).  COMPACT: wv is a compact row,
+// its weights one 16-byte load (two when WIDE) at its start.
+template <bool WIDE, bool COMPACT = false>
+__device__ __forceinline__ void row_quant(const void* __restrict__ wv,
+                                          int row, int bf16, const int* e,
+                                          const double* sc,
+                                          Quant<WIDE> (&q)[3]) {
+  if constexpr (WIDE && COMPACT) {
+    const double2 a = static_cast<const double2*>(wv)[0];
+    const double2 b = static_cast<const double2*>(wv)[1];
+    q[0] = lgbt::quantize128(a.x, e[0]);
+    q[1] = lgbt::quantize128(a.y, e[1]);
+    q[2] = lgbt::quantize128(b.x, e[2]);
+  } else if constexpr (WIDE) {
+    const double* wr = static_cast<const double*>(wv) +
+                       3 * static_cast<size_t>(row);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) q[c] = lgbt::quantize128(wr[c], e[c]);
+  } else {
+    float w[3];
+    if constexpr (COMPACT) {
+      const float4 v = static_cast<const float4*>(wv)[0];
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+    } else {
+      const float* wr = static_cast<const float*>(wv) +
+                        3 * static_cast<size_t>(row);
+      w[0] = wr[0];
+      w[1] = wr[1];
+      w[2] = wr[2];
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (bf16) w[c] = lgbt::round_bf16(w[c]);
+      q[c] = lgbt::quantize(w[c], sc[c]);
+    }
+  }
+}
+
+// q added to the shared cell whose words are p0[c], p1[c] (and p2[c],
+// p3[c] when WIDE).
+template <bool WIDE>
+__device__ __forceinline__ void add_shared(unsigned* p0, unsigned* p1,
+                                           unsigned* p2, unsigned* p3, int c,
+                                           const Quant<WIDE>& q) {
+  if constexpr (WIDE)
+    lgbt::add128(p0 + c, p1 + c, p2 + c, p3 + c, q);
+  else
+    add64(p0 + c, p1 + c, q);
+}
+
+// The sum (lo, hi) added to the int64 sums' cell o (two words when WIDE,
+// the low word's carry into the high one), with global atomics.
+template <bool WIDE>
+__device__ __forceinline__ void add_global(unsigned long long* acc, size_t o,
+                                           unsigned long long lo,
+                                           unsigned long long hi) {
+  if constexpr (WIDE) {
+    unsigned long long* cell = acc + 2 * o;
+    const unsigned long long old = atomicAdd(cell, lo);
+    const unsigned long long h = hi + (old + lo < old ? 1ull : 0ull);
+    if (h != 0ull) atomicAdd(cell + 1, h);
+  } else {
+    atomicAdd(acc + o, lo);
+  }
+}
+
+// The feature of a block's histogram feature ff (its stored column c0 +
+// ff, or packed that column's nibble ff & 1), or -1 for none.
+template <bool PACKED>
+__device__ __forceinline__ int cell_feature(int ff, int c0, int nc, int nhi,
+                                            int Fd) {
+  if constexpr (PACKED) {
+    const int ci = ff >> 1;
+    if ((ff & 1) ? ci >= nhi : ci >= nc) return -1;
+    return (ff & 1) ? Fd + c0 + ci : c0 + ci;
+  } else {
+    return ff < nc ? c0 + ff : -1;
+  }
+}
+
+// The block's group and bin tile: the grid's x axis holds (bin tile,
+// feature group) pairs, BT = ceil(B / tiles).
+struct Group {
+  int c0, nc, nhi, b0, BT, bn;
+};
+
+template <bool PACKED>
+__device__ __forceinline__ Group block_group(int F, int Fd, int B, int FS) {
+  const int PS = PACKED ? FS / 2 : FS;   // stored columns a block reads
+  const int fgroups = (Fd + PS - 1) / PS;
+  const int tiles = gridDim.x / fgroups;
+  Group g;
+  g.BT = (B + tiles - 1) / tiles;
+  g.b0 = (blockIdx.x / fgroups) * g.BT;
+  g.bn = min(g.BT, B - g.b0);            // bins this block holds
+  g.c0 = (blockIdx.x % fgroups) * PS;
+  g.nc = min(PS, Fd - g.c0);
+  // packed: stored column c0 + i holds feature Fd + c0 + i in its high
+  // nibble while that is below F
+  g.nhi = PACKED ? max(0, min(g.nc, F - Fd - g.c0)) : 0;
+  return g;
 }
 
 // COPIES = false is the one-copy form (B1's wave, K = 32): its strides
@@ -284,26 +667,15 @@ hist_kernel(const void* __restrict__ xv, const void* __restrict__ wv,
             const int* __restrict__ exps, unsigned long long* __restrict__ acc,
             int F, int Fd, int N, int B, int K, int KS, int FS, int copies,
             int bf16) {
-  using T = typename std::conditional<FORM == kWide16, uint16_t,
-                                      uint8_t>::type;
+  using T = BinT<FORM>;
   constexpr bool PACKED = FORM == kPacked;
-  constexpr int NW = WIDE ? 4 : 2;       // 32-bit words a cell
   // C interleaved copies of (KS, FS, BT, 3) cells, as NW planes of 32-bit
   // words: cell c of copy j is word c * C + j of each plane
   extern __shared__ unsigned planes[];
   const T* __restrict__ x = static_cast<const T*>(xv);
   const int C = COPIES ? copies : 1;
-  const int PS = PACKED ? FS / 2 : FS;   // stored columns a block reads
-  const int fgroups = (Fd + PS - 1) / PS;
-  const int tiles = gridDim.x / fgroups;
-  const int BT = (B + tiles - 1) / tiles;
-  const int b0 = (blockIdx.x / fgroups) * BT;
-  const int bn = min(BT, B - b0);        // bins this block holds
-  const int c0 = (blockIdx.x % fgroups) * PS;
-  const int nc = min(PS, Fd - c0);
-  // packed: stored column c0 + i holds feature Fd + c0 + i in its high
-  // nibble while that is below F
-  const int nhi = PACKED ? max(0, min(nc, F - Fd - c0)) : 0;
+  const Group g = block_group<PACKED>(F, Fd, B, FS);
+  const int BT = g.BT, bn = g.bn;
   const int k0 = blockIdx.z * KS;
   const int kn = min(KS, K - k0);
   const int slot_len = FS * BT * 3;
@@ -321,10 +693,9 @@ hist_kernel(const void* __restrict__ xv, const void* __restrict__ wv,
       p3[i] = 0u;
     }
   }
-  const int e0 = exps[0], e1 = exps[1], e2 = exps[2];
-  const double s0 = ldexp(1.0, e0);
-  const double s1 = ldexp(1.0, e1);
-  const double s2 = ldexp(1.0, e2);
+  const int e[3] = {exps[0], exps[1], exps[2]};
+  const double sc[3] = {ldexp(1.0, e[0]), ldexp(1.0, e[1]),
+                        ldexp(1.0, e[2])};
   // a short list takes fewer shares: at least kMinShareRows rows each.
   // The other blocks return once zeroed (the grid is one round of
   // resident blocks, so their zeroing costs no time).  The length is read
@@ -341,95 +712,30 @@ hist_kernel(const void* __restrict__ xv, const void* __restrict__ wv,
   const int copy = threadIdx.x & (C - 1);
   // row-major: the group's bins of a row (Fd stored columns a row) as
   // 4-byte words when aligned
-  constexpr int PER = 4 / static_cast<int>(sizeof(T));   // bins a word
   const bool words4 =
       ROWMAJOR && (Fd * static_cast<int>(sizeof(T))) % 4 == 0 &&
-      (c0 * static_cast<int>(sizeof(T))) % 4 == 0 &&
+      (g.c0 * static_cast<int>(sizeof(T))) % 4 == 0 &&
       (reinterpret_cast<uintptr_t>(x) & 3) == 0;
-  const T* xg = ROWMAJOR ? x + c0 : x + static_cast<size_t>(c0) * N;
+  const T* xg = ROWMAJOR ? x + g.c0 : x + static_cast<size_t>(g.c0) * N;
   __syncthreads();
 
   for (long long j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
     const int2 rec = list[j];
     const int s = rec.y - k0;
     if (s < 0 || s >= kn) continue;
-    const int row = rec.x;
-    // the row's nc stored bins of the group, each read once
-    int bytes[kMaxGroup];
-    if constexpr (ROWMAJOR) {
-      const T* xr = xg + static_cast<size_t>(row) * Fd;
-      if (words4) {
-        const unsigned* xw = reinterpret_cast<const unsigned*>(xr);
-        unsigned wd[kMaxGroup / PER];
-#pragma unroll
-        for (int i = 0; i < kMaxGroup / PER; ++i)
-          wd[i] = i * PER < nc ? xw[i] : 0u;
-#pragma unroll
-        for (int f = 0; f < kMaxGroup; ++f)
-          bytes[f] = f < nc
-              ? static_cast<int>((wd[f / PER] >> (8 * sizeof(T) * (f % PER)))
-                                 & ((1u << (8 * sizeof(T))) - 1u))
-              : 0;
-      } else {
-#pragma unroll
-        for (int f = 0; f < kMaxGroup; ++f)
-          bytes[f] = f < nc ? static_cast<int>(xr[f]) : 0;
-      }
-    } else {
-#pragma unroll
-      for (int f = 0; f < kMaxGroup; ++f)
-        bytes[f] = f < nc
-            ? static_cast<int>(xg[static_cast<size_t>(f) * N + row]) : 0;
-    }
-    // each feature's bin within the block's tile, or BT (none)
     int bins[kMaxGroup];
-    if constexpr (PACKED) {
-#pragma unroll
-      for (int i = 0; i < kMaxGroup / 2; ++i) {
-        bins[2 * i] = i < nc ? (bytes[i] & 15) - b0 : BT;
-        bins[2 * i + 1] = i < nhi ? (bytes[i] >> 4) - b0 : BT;
-      }
-    } else {
-#pragma unroll
-      for (int f = 0; f < kMaxGroup; ++f) bins[f] = f < nc ? bytes[f] - b0 : BT;
-    }
+    group_bins<ROWMAJOR, FORM>(xg, rec.x, Fd, N, g.nc, g.nhi, g.b0, BT,
+                               words4, bins);
+    Quant<WIDE> q[3];
+    row_quant<WIDE>(wv, rec.x, bf16, e, sc, q);
     const int base = s * slot_len;
-    if constexpr (WIDE) {
-      const double* wr = static_cast<const double*>(wv) +
-                         3 * static_cast<size_t>(row);
-      const lgbt::Q128 q0 = lgbt::quantize128(wr[0], e0);
-      const lgbt::Q128 q1 = lgbt::quantize128(wr[1], e1);
-      const lgbt::Q128 q2 = lgbt::quantize128(wr[2], e2);
 #pragma unroll
-      for (int f = 0; f < kMaxGroup; ++f) {
-        if (bins[f] >= 0 && bins[f] < bn) {
-          const int c = (base + (f * BT + bins[f]) * 3) * C + copy;
-          lgbt::add128(p0 + c, p1 + c, p2 + c, p3 + c, q0);
-          lgbt::add128(p0 + c + C, p1 + c + C, p2 + c + C, p3 + c + C, q1);
-          lgbt::add128(p0 + c + 2 * C, p1 + c + 2 * C, p2 + c + 2 * C,
-                       p3 + c + 2 * C, q2);
-        }
-      }
-    } else {
-      const float* wr = static_cast<const float*>(wv) +
-                        3 * static_cast<size_t>(row);
-      float w0 = wr[0], w1 = wr[1], w2 = wr[2];
-      if (bf16) {                        // block-uniform
-        w0 = lgbt::round_bf16(w0);
-        w1 = lgbt::round_bf16(w1);
-        w2 = lgbt::round_bf16(w2);
-      }
-      const unsigned long long q0 = lgbt::quantize(w0, s0);
-      const unsigned long long q1 = lgbt::quantize(w1, s1);
-      const unsigned long long q2 = lgbt::quantize(w2, s2);
+    for (int f = 0; f < kMaxGroup; ++f) {
+      if (bins[f] >= 0 && bins[f] < bn) {
+        const int c = (base + (f * BT + bins[f]) * 3) * C + copy;
 #pragma unroll
-      for (int f = 0; f < kMaxGroup; ++f) {
-        if (bins[f] >= 0 && bins[f] < bn) {
-          const int c = (base + (f * BT + bins[f]) * 3) * C + copy;
-          add64(p0 + c, p1 + c, q0);
-          add64(p0 + c + C, p1 + c + C, q1);
-          add64(p0 + c + 2 * C, p1 + c + 2 * C, q2);
-        }
+        for (int ch = 0; ch < 3; ++ch)
+          add_shared<WIDE>(p0, p1, p2, p3, c + ch * C, q[ch]);
       }
     }
   }
@@ -451,25 +757,179 @@ hist_kernel(const void* __restrict__ xv, const void* __restrict__ wv,
     const int ff = rem / (BT * 3);
     const int bc = rem - ff * BT * 3;        // (b - b0, c)
     if (bc >= bn * 3) continue;
-    int gf;                                  // the cell's feature
-    if constexpr (PACKED) {
-      const int ci = ff >> 1;
-      if ((ff & 1) ? ci >= nhi : ci >= nc) continue;
-      gf = (ff & 1) ? Fd + c0 + ci : c0 + ci;
-    } else {
-      if (ff >= nc) continue;
-      gf = c0 + ff;
+    const int gf = cell_feature<PACKED>(ff, g.c0, g.nc, g.nhi, Fd);
+    if (gf < 0) continue;
+    add_global<WIDE>(acc, (static_cast<size_t>(k0 + kk) * F + gf) * B * 3 +
+                              g.b0 * 3 + bc, lo, hi);
+  }
+}
+
+// The slot-ordered pass (the plan's wide rows: a (slot, feature) row of
+// B bins so long that the slot-sliced plan would hold fewer than 4
+// features of all K slots a block).  The list passes order the list by
+// slot (list_kernel kCount, then kScatter); slot k's rows are [off[k],
+// off[k + 1]).  COMPACT (the transposed X_t of B1 and B3): the scatter
+// pass copied each listed row's weights and bins into the compact rows
+// xc in that order (Compact); otherwise (B4's row-major X, whose row
+// group is one or two sectors) a block reads the list's rows from X and
+// w3 as hist_kernel does.  A block owns a group of FS features (and a bin
+// tile) and ONE piece of one slot's rows, and keeps that slot's (FS, BT,
+// 3) cells in shared memory: it adds the piece's rows there and then
+// flushes the cells into the int64 sums with global atomics; a piece of
+// fewer than BT / kSharedRowsDiv rows adds straight into the sums.  So a
+// listed row is read once a (feature group, bin tile), on X_t from
+// compact rows that a warp reads contiguously, where the slot-sliced plan
+// read the whole list once a (feature group, slot slice, bin tile) and
+// gathered a sector of X_t for each listed (row, feature).  Pieces: with the R shares of the plan, per = n /
+// shares rows, slot k's rows split into max(1, round(seg_k / per))
+// equal pieces, numbered slot by slot (at most R + K in all: the grid's
+// y axis), so the blocks hold about per rows each however skewed the
+// slots are.  Every sum is an integer sum, order-free, so the
+// histograms are bit for bit those of hist_kernel.  slots: the K slot
+// counts (the offsets are their prefix, computed here); S: the bytes of
+// a compact row.
+template <int FORM, bool WIDE, bool COMPACT>
+__global__ void __launch_bounds__(kHistThreads, 1)
+hist_ordered_kernel(const void* __restrict__ xv, const void* __restrict__ wv,
+                    const int2* __restrict__ list,
+                    const uint4* __restrict__ xc,
+                    const unsigned long long* __restrict__ slots,
+                    const int* __restrict__ exps,
+                    unsigned long long* __restrict__ acc, int F, int Fd,
+                    int S, int B, int K, int FS, int bf16) {
+  using T = BinT<FORM>;
+  constexpr bool PACKED = FORM == kPacked;
+  extern __shared__ unsigned planes[];   // (FS, BT, 3) cells, NW planes
+  __shared__ int off[kMaxOrderedSlots + 1];
+  __shared__ int task[3];                // the block's slot, piece, pieces
+  if (threadIdx.x == 0) task[0] = -1;
+  slot_offsets(slots, K, off);           // ends with a barrier
+  const int n = off[K];
+  const int R = gridDim.y - K;           // the plan's shares
+  const int shares = max(1, min(R, n / kMinShareRows));
+  const int per = (n + shares - 1) / shares;
+  if (threadIdx.x < 32 && per > 0) {     // find the block's piece
+    const int lane = threadIdx.x;
+    const int span = (K + 31) / 32;
+    const int s0 = min(K, lane * span);
+    const int s1 = min(K, s0 + span);
+    auto pieces = [&](int k) {
+      const int seg = off[k + 1] - off[k];
+      return seg == 0 ? 0 : max(1, (seg + per / 2) / per);
+    };
+    int mine = 0;
+    for (int k = s0; k < s1; ++k) mine += pieces(k);
+    int incl = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
     }
-    const size_t o = (static_cast<size_t>(k0 + kk) * F + gf) * B * 3 +
-                     b0 * 3 + bc;
-    if constexpr (WIDE) {
-      unsigned long long* cell = acc + 2 * o;
-      const unsigned long long old = atomicAdd(cell, lo);
-      const unsigned long long h = hi + (old + lo < old ? 1ull : 0ull);
-      if (h != 0ull) atomicAdd(cell + 1, h);
-    } else {
-      atomicAdd(acc + o, lo);
+    const int y = blockIdx.y;
+    if (y >= incl - mine && y < incl) {
+      int c = incl - mine;
+      for (int k = s0; k < s1; ++k) {
+        const int p = pieces(k);
+        if (y < c + p) {
+          task[0] = k;
+          task[1] = y - c;
+          task[2] = p;
+          break;
+        }
+        c += p;
+      }
     }
+  }
+  __syncthreads();
+  const Group g = block_group<PACKED>(F, Fd, B, FS);
+  const int k = task[0];
+  if (k < 0 || g.bn <= 0) return;        // block-uniform
+  const int BT = g.BT, bn = g.bn;
+  const int seg = off[k + 1] - off[k];
+  const int a = off[k] + static_cast<int>(
+      static_cast<long long>(task[1]) * seg / task[2]);
+  const int b = off[k] + static_cast<int>(
+      static_cast<long long>(task[1] + 1) * seg / task[2]);
+  const bool smem = (b - a) * kSharedRowsDiv >= BT;
+  const int cells = FS * BT * 3;
+  unsigned* p0 = planes;
+  unsigned* p1 = planes + cells;
+  unsigned* p2 = planes + 2 * cells;     // WIDE only
+  unsigned* p3 = planes + 3 * cells;
+  if (smem) {
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      p0[i] = 0u;
+      p1[i] = 0u;
+      if constexpr (WIDE) {
+        p2[i] = 0u;
+        p3[i] = 0u;
+      }
+    }
+    __syncthreads();
+  }
+  const int e[3] = {exps[0], exps[1], exps[2]};
+  const double sc[3] = {ldexp(1.0, e[0]), ldexp(1.0, e[1]),
+                        ldexp(1.0, e[2])};
+  // compact rows of S bytes: the weights (16 or 32 bytes), the bins; or
+  // the row-major X, Fd stored bins a row
+  constexpr int W = WIDE ? 32 : 16;
+  const T* xg = COMPACT ? reinterpret_cast<const T*>(
+                              reinterpret_cast<const char*>(xc) + W) + g.c0
+                        : static_cast<const T*>(xv) + g.c0;
+  const int stride = COMPACT ? S / static_cast<int>(sizeof(T)) : Fd;
+  const bool words4 =
+      (g.c0 * static_cast<int>(sizeof(T))) % 4 == 0 &&
+      (COMPACT || ((Fd * static_cast<int>(sizeof(T))) % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(xv) & 3) == 0));
+  // the slot's first cell in the sums, at the block's tile
+  const size_t ko = static_cast<size_t>(k) * F * B * 3 + g.b0 * 3;
+
+  for (int j = a + threadIdx.x; j < b; j += blockDim.x) {
+    const int row = COMPACT ? j : list[j].x;
+    int bins[kMaxGroup];
+    group_bins<true, FORM>(xg, row, stride, 0, g.nc, g.nhi, g.b0, BT,
+                           words4, bins);
+    Quant<WIDE> q[3];
+    if constexpr (COMPACT)
+      row_quant<WIDE, true>(xc + static_cast<size_t>(j) * (S / 16), j,
+                            bf16, e, sc, q);
+    else
+      row_quant<WIDE>(wv, row, bf16, e, sc, q);
+#pragma unroll
+    for (int f = 0; f < kMaxGroup; ++f) {
+      if (bins[f] < 0 || bins[f] >= bn) continue;
+      if (smem) {
+        const int c = (f * BT + bins[f]) * 3;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          add_shared<WIDE>(p0, p1, p2, p3, c + ch, q[ch]);
+      } else {
+        const int gf = cell_feature<PACKED>(f, g.c0, g.nc, g.nhi, Fd);
+        const size_t o = ko + static_cast<size_t>(gf) * B * 3 + bins[f] * 3;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          if constexpr (WIDE)
+            add_global<true>(acc, o + ch, q[ch].lo, q[ch].hi);
+          else
+            add_global<false>(acc, o + ch, q[ch], 0ull);
+        }
+      }
+    }
+  }
+  if (!smem) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const unsigned long long lo =
+        (static_cast<unsigned long long>(p1[i]) << 32) | p0[i];
+    unsigned long long hi = 0ull;
+    if constexpr (WIDE)
+      hi = (static_cast<unsigned long long>(p3[i]) << 32) | p2[i];
+    if (lo == 0ull && hi == 0ull) continue;
+    const int ff = i / (BT * 3);
+    const int bc = i - ff * BT * 3;          // (b - b0, c)
+    const int gf = cell_feature<PACKED>(ff, g.c0, g.nc, g.nhi, Fd);
+    if (bc >= bn * 3 || gf < 0) continue;
+    add_global<WIDE>(acc, ko + static_cast<size_t>(gf) * B * 3 + bc, lo, hi);
   }
 }
 
@@ -520,6 +980,11 @@ using HistKernel = void (*)(const void*, const void*, const int2*,
                            const unsigned long long*, const int*,
                            unsigned long long*, int, int, int, int, int, int,
                            int, int, int);
+using OrderedKernel = void (*)(const void*, const void*, const int2*,
+                              const uint4*, const unsigned long long*,
+                              const int*,
+                              unsigned long long*, int, int, int, int, int,
+                              int, int);
 
 template <bool ROWMAJOR, int FORM, bool WIDE>
 HistKernel hist_kernel_of(int C) {
@@ -534,25 +999,37 @@ HistKernel hist_kernel_form(int form, int C) {
                          : hist_kernel_of<ROWMAJOR, kByte, WIDE>(C);
 }
 
-HistKernel hist_kernel_for(bool rowmajor, int form, bool wide, int C) {
-  if (rowmajor)
-    return wide ? hist_kernel_form<true, true>(form, C)
-                : hist_kernel_form<true, false>(form, C);
-  return wide ? hist_kernel_form<false, true>(form, C)
-              : hist_kernel_form<false, false>(form, C);
+template <bool WIDE, bool COMPACT>
+OrderedKernel ordered_kernel_form(int form) {
+  return form == kPacked ? &hist_ordered_kernel<kPacked, WIDE, COMPACT>
+       : form == kWide16 ? &hist_ordered_kernel<kWide16, WIDE, COMPACT>
+                         : &hist_ordered_kernel<kByte, WIDE, COMPACT>;
 }
 
 // The dynamic shared memory each histogram kernel has been granted on
-// each device: [rowmajor][form][wide][copies > 1].
-int hist_granted[2][3][2][2][lgbt::kMaxDevices];
+// each device: [rowmajor][form][wide][copies > 1, or 2 for the ordered
+// pass].
+int hist_granted[2][3][2][3][lgbt::kMaxDevices];
 
-// hist_kernel_for(rowmajor, form, wide, C), allowed smem bytes of shared
-// memory.
+// The histogram kernel of the form (the slot-ordered one when ordered,
+// else hist_kernel with C copies), allowed smem bytes of shared memory.
 cudaError_t hist_kernel_with(bool rowmajor, int form, bool wide, int C,
-                             size_t smem, HistKernel* kern) {
-  *kern = hist_kernel_for(rowmajor, form, wide, C);
-  return lgbt::allow_smem(reinterpret_cast<const void*>(*kern), smem,
-                          hist_granted[rowmajor][form][wide][C > 1]);
+                             bool ordered, size_t smem, const void** kern) {
+  if (ordered)                           // compact rows unless row-major
+    *kern = reinterpret_cast<const void*>(
+        rowmajor ? (wide ? ordered_kernel_form<true, false>(form)
+                         : ordered_kernel_form<false, false>(form))
+                 : (wide ? ordered_kernel_form<true, true>(form)
+                         : ordered_kernel_form<false, true>(form)));
+  else
+    *kern = reinterpret_cast<const void*>(
+        rowmajor ? (wide ? hist_kernel_form<true, true>(form, C)
+                         : hist_kernel_form<true, false>(form, C))
+                 : (wide ? hist_kernel_form<false, true>(form, C)
+                         : hist_kernel_form<false, false>(form, C)));
+  return lgbt::allow_smem(
+      *kern, smem,
+      hist_granted[rowmajor][form][wide][ordered ? 2 : (C > 1 ? 1 : 0)]);
 }
 
 int form_of(bool packed, bool bins16) {
@@ -563,40 +1040,81 @@ cudaError_t launch_finish(const unsigned long long* acc64, const void* cid,
                           const void* exps, void* hist, int K,
                           long long per_slot, bool wide, cudaStream_t s);
 
+// 64-bit words of the sums of K slots of F x B x 3 cells (two a cell when
+// wide).
+long long sum_words(int F, int B, int K, bool wide) {
+  return static_cast<long long>(F) * B * 3 * K * (wide ? 2 : 1);
+}
+
+// The compact rows of the slot-ordered pass (Compact) in the workspace:
+// after acc's sums, the list's length and the 2K slot words, 128-byte
+// aligned, N rows of compact_stride bytes.  x: the bins X_t, w3 the
+// weights.
+Compact compact_of(void* acc, const void* x, const void* w3, int F, int N,
+                   int B, int K, bool packed, bool bins16, bool wide) {
+  const unsigned long long* end = static_cast<unsigned long long*>(acc) +
+                                  sum_words(F, B, K, wide) + 1 + 2ll * K;
+  const uintptr_t p =
+      (reinterpret_cast<uintptr_t>(end) + 127) & ~static_cast<uintptr_t>(127);
+  Compact c;
+  c.x = x;
+  c.w3 = w3;
+  c.Fd = stored_cols(F, packed);
+  c.S = compact_stride(c.Fd, bins16 ? 2 : 1, wide);
+  c.W = wide ? 32 : 16;
+  c.xc = reinterpret_cast<uint4*>(p);
+  c.bins16 = bins16;
+  c.wide = wide;
+  return c;
+}
+
 // The histogram pass over the list and the conversion (f32, or f64 when
 // wide).  acc holds K * F * B * 3 zeroed sums (64-bit words, two a sum
-// when wide) followed by the list's length.  packed: x holds ceil(F / 2)
-// packed columns, FS is even and a group covers FS / 2 of them; bins16: x
-// holds uint16 bins; bf16: the weights are rounded to bf16 first.  groups
-// counts feature groups x bin tiles (bin_tile).  finish = false stops
-// after the histogram pass and leaves the fixed-point sums in acc (the
+// when wide) followed by the list's length and (ordered) the K slot
+// counts.  packed: x holds ceil(F / 2) packed columns, FS is even and a
+// group covers FS / 2 of them; bins16: x holds uint16 bins; bf16: the
+// weights are rounded to bf16 first.  groups counts feature groups x bin
+// tiles (bin_tile).  ordered: the list is ordered by slot, its rows
+// copied into the compact rows cp, and the pass is hist_ordered_kernel's
+// (KS and C are 1).  finish = false stops after the
+// histogram pass and leaves the fixed-point sums in acc (the
 // deferred-finish form: a distributed learner adds the ranks' sums, then
 // runs the conversion alone, lgbt_wave_finish).
 cudaError_t hist_and_finish(const void* x, const void* w3, const void* list,
                             const void* cid, const void* exps, void* acc,
                             void* hist, int F, int N, int B, int K,
                             int groups, int R, int KS, int FS, int C,
-                            bool rowmajor, bool packed, bool bf16,
-                            bool bins16, bool wide, bool finish,
-                            cudaStream_t s) {
+                            bool ordered, const Compact& cp, bool rowmajor,
+                            bool packed, bool bf16, bool bins16, bool wide,
+                            bool finish, cudaStream_t s) {
   if (FS < 1 || FS > kMaxGroup || KS < 1 || C < 1 || C > kMaxCopies ||
       (C & (C - 1)) != 0 || (packed && (FS & 1) != 0) ||
-      (packed && bins16) || (wide && bf16))
+      (packed && bins16) || (wide && bf16) ||
+      (ordered && (K > kMaxOrderedSlots || KS != 1 || C != 1)))
     return cudaErrorInvalidValue;
   const int BT = bin_tile(F, B, groups, FS, packed);
   if (BT < 1) return cudaErrorInvalidValue;
   const long long per_slot = static_cast<long long>(F) * B * 3;
   unsigned long long* acc64 = static_cast<unsigned long long*>(acc);
+  const unsigned long long* count = acc64 + sum_words(F, B, K, wide);
   const size_t smem = hist_smem(BT, KS, FS, C, wide);
-  HistKernel kern;
+  const void* kern;
   cudaError_t e = hist_kernel_with(rowmajor, form_of(packed, bins16), wide,
-                                   C, smem, &kern);
+                                   C, ordered, smem, &kern);
   if (e != cudaSuccess) return e;
-  const dim3 grid(groups, R, (K + KS - 1) / KS);
-  kern<<<grid, kHistThreads, smem, s>>>(
-      x, w3, static_cast<const int2*>(list),
-      acc64 + per_slot * K * (wide ? 2 : 1), static_cast<const int*>(exps),
-      acc64, F, stored_cols(F, packed), N, B, K, KS, FS, C, bf16 ? 1 : 0);
+  const int Fd = stored_cols(F, packed);
+  const int2* l = static_cast<const int2*>(list);
+  const int* ex = static_cast<const int*>(exps);
+  if (ordered)
+    reinterpret_cast<OrderedKernel>(kern)<<<dim3(groups, R + K),
+                                            kHistThreads, smem, s>>>(
+        x, w3, l, cp.xc, count + 1, ex, acc64, F, Fd, cp.S, B, K, FS,
+        bf16 ? 1 : 0);
+  else
+    reinterpret_cast<HistKernel>(kern)<<<dim3(groups, R, (K + KS - 1) / KS),
+                                         kHistThreads, smem, s>>>(
+        x, w3, l, count, ex, acc64, F, Fd, N, B, K, KS, FS, C,
+        bf16 ? 1 : 0);
   e = cudaGetLastError();
   if (e != cudaSuccess || !finish) return e;
   return launch_finish(acc64, cid, exps, hist, K, per_slot, wide, s);
@@ -622,15 +1140,100 @@ cudaError_t launch_finish(const unsigned long long* acc64, const void* cid,
   return cudaGetLastError();
 }
 
-// acc's K * F * B * 3 sums (two words a sum when wide) and the list's
-// length after them, zeroed on the stream; *count points at the length.
+// acc's K * F * B * 3 sums (two words a sum when wide), the list's length
+// and the 2K slot words after them (the counts and the cursors of the
+// slot-ordered list), zeroed on the stream; *count points at the length.
 int zero_acc(void* acc, int F, int B, int K, bool wide, void* stream,
              unsigned long long** count) {
-  const long long words = static_cast<long long>(F) * B * 3 * K *
-                          (wide ? 2 : 1);
+  const long long words = sum_words(F, B, K, wide);
   *count = static_cast<unsigned long long*>(acc) + words;
   return static_cast<int>(cudaMemsetAsync(
-      acc, 0, 8 * (words + 1), static_cast<cudaStream_t>(stream)));
+      acc, 0, 8 * (words + 1 + 2ll * K), static_cast<cudaStream_t>(stream)));
+}
+
+// The list passes on the stream: mode 0 selects the rows by their ids,
+// mode 1 routes them first and writes new_lid, mode 2 does so on EFB
+// group columns.  Unordered: one kAppend pass, the length in *count.
+// Ordered (slots: K counts then K cursors, zeroed): kCount (routing in
+// modes 1 and 2), then kScatter over the ids to list (new_lid once
+// routed), which also writes the length and copies the listed rows into
+// the compact rows cp (none when cp.xc is null).
+cudaError_t launch_list(const void* xt, const void* lid, const void* cid,
+                        const void* cols, const void* psrc, void* new_lid,
+                        void* list, void* count, void* slots, int F, int N,
+                        int K, int W, int blocks, int mode, bool packed,
+                        bool bins16, bool ordered, const Compact& cp,
+                        cudaStream_t s) {
+  if (mode == 0) W = 0;
+  if ((packed && bins16) || (ordered && (K > kMaxOrderedSlots || !slots)))
+    return cudaErrorInvalidValue;
+  const size_t smem = 4 * (static_cast<size_t>(W) * 11 + K +
+                           (ordered ? 3 * static_cast<size_t>(K) + 1 : 0));
+  const int Fd = stored_cols(F, packed);
+  const int* l = static_cast<const int*>(lid);
+  const int* c = static_cast<const int*>(cid);
+  const float* cl = static_cast<const float*>(cols);
+  const int* ps = static_cast<const int*>(psrc);
+  int* nl = static_cast<int*>(new_lid);
+  int2* li = static_cast<int2*>(list);
+  unsigned long long* n = static_cast<unsigned long long*>(count);
+  unsigned long long* sl = static_cast<unsigned long long*>(slots);
+  const bool bundled = mode == 2;
+  // the routing forms: [bundled] x byte, packed, two-byte bins
+  using ListKernel = void (*)(const uint8_t*, const int*, const int*,
+                              const float*, const int*, int*, int2*,
+                              unsigned long long*, unsigned long long*, int,
+                              int, int, int, int, Compact);
+  using ListKernel16 = void (*)(const uint16_t*, const int*, const int*,
+                                const float*, const int*, int*, int2*,
+                                unsigned long long*, unsigned long long*,
+                                int, int, int, int, int, Compact);
+  const Compact none{};
+  if (mode == 0) {
+    static const ListKernel select[2] = {
+        &list_kernel<false, false, false, uint8_t, kAppend>,
+        &list_kernel<false, false, false, uint8_t, kCount>};
+    select[ordered]<<<blocks, kListThreads, smem, s>>>(
+        nullptr, l, c, cl, ps, nl, li, n, sl, F, Fd, N, K, W, none);
+  } else if (bins16) {
+    static const ListKernel16 route16[2][2] = {
+        {&list_kernel<true, false, false, uint16_t, kAppend>,
+         &list_kernel<true, false, false, uint16_t, kCount>},
+        {&list_kernel<true, true, false, uint16_t, kAppend>,
+         &list_kernel<true, true, false, uint16_t, kCount>}};
+    route16[bundled][ordered]<<<blocks, kListThreads, smem, s>>>(
+        static_cast<const uint16_t*>(xt), l, c, cl, ps, nl, li, n, sl, F,
+        Fd, N, K, W, none);
+  } else {
+    static const ListKernel route[2][2][2] = {
+        {{&list_kernel<true, false, false, uint8_t, kAppend>,
+          &list_kernel<true, false, false, uint8_t, kCount>},
+         {&list_kernel<true, false, true, uint8_t, kAppend>,
+          &list_kernel<true, false, true, uint8_t, kCount>}},
+        {{&list_kernel<true, true, false, uint8_t, kAppend>,
+          &list_kernel<true, true, false, uint8_t, kCount>},
+         {&list_kernel<true, true, true, uint8_t, kAppend>,
+          &list_kernel<true, true, true, uint8_t, kCount>}}};
+    route[bundled][packed][ordered]<<<blocks, kListThreads, smem, s>>>(
+        static_cast<const uint8_t*>(xt), l, c, cl, ps, nl, li, n, sl, F,
+        Fd, N, K, W, none);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !ordered) return e;
+  // the ids to list: B1's new ones once routed
+  const size_t smem2 = 4 * (static_cast<size_t>(K) * 4 + 1);
+  // T: the compact rows' bin type (the select pass reads no bins itself)
+  if (cp.bins16)
+    list_kernel<false, false, false, uint16_t, kScatter>
+        <<<blocks, kListThreads, smem2, s>>>(
+            nullptr, mode == 0 ? l : nl, c, nullptr, nullptr, nullptr, li,
+            n, sl, F, Fd, N, K, 0, cp);
+  else
+    list_kernel<false, false, false, uint8_t, kScatter>
+        <<<blocks, kListThreads, smem2, s>>>(
+            nullptr, mode == 0 ? l : nl, c, nullptr, nullptr, nullptr, li,
+            n, sl, F, Fd, N, K, 0, cp);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -659,9 +1262,9 @@ int lgbt_wave_hist_blocks_per_sm_form(int BT, int KS, int FS, int C,
                                       int rowmajor, int packed, int bins16,
                                       int wide) {
   const size_t smem = hist_smem(BT, KS, FS, C, wide != 0);
-  HistKernel kern;
+  const void* kern;
   if (hist_kernel_with(rowmajor != 0, form_of(packed != 0, bins16 != 0),
-                       wide != 0, C, smem, &kern) != cudaSuccess)
+                       wide != 0, C, false, smem, &kern) != cudaSuccess)
     return -1;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -676,113 +1279,110 @@ int lgbt_wave_hist_blocks_per_sm(int B, int KS, int FS, int C,
                                            0, 0);
 }
 
-// The list pass alone: the compact list (N, 2) int32 of (row, slot)
+// Blocks of the slot-ordered pass (one slot of FS features x BT bins in
+// shared memory; compact rows, so one kernel for both layouts) resident
+// on one SM, or -1 on an error.
+int lgbt_wave_hist_ordered_blocks_per_sm(int BT, int FS, int packed,
+                                         int bins16, int wide) {
+  const size_t smem = hist_smem(BT, 1, FS, 1, wide != 0);
+  const void* kern;
+  if (hist_kernel_with(false, form_of(packed != 0, bins16 != 0), wide != 0,
+                       1, true, smem, &kern) != cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern, kHistThreads, smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// The list passes alone: the compact list (N, 2) int32 of (row, slot)
 // pairs and its length in *count (which must be 0 on entry).  mode 0
 // selects the rows by their ids (B3, B4, B5; xt, cols, psrc and new_lid are
 // not read and may be null, W = 0); mode 1 routes them first and writes
 // new_lid (B1), mode 2 does so on EFB group columns; packed: xt holds
 // ceil(F / 2) packed columns (the route reads the split column's nibble);
-// bins16: xt holds uint16 bins.
+// bins16: xt holds uint16 bins.  ordered: the list ordered by slot (K <=
+// 1024; slots: 2K zeroed words, left holding each slot's count and its
+// cursor; slot k's rows lie after the counts of the slots before it; no
+// compact rows are written).
 int lgbt_wave_list(const void* xt, const void* lid, const void* cid,
                    const void* cols, const void* psrc, void* new_lid,
-                   void* list, void* count, int F, int N, int K, int W,
-                   int blocks, int mode, int packed, int bins16,
-                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 0) W = 0;
-  if (packed && bins16) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 4 * (static_cast<size_t>(W) * 11 + K);
-  const int Fd = stored_cols(F, packed != 0);
-  const int* l = static_cast<const int*>(lid);
-  const int* c = static_cast<const int*>(cid);
-  const float* cl = static_cast<const float*>(cols);
-  const int* ps = static_cast<const int*>(psrc);
-  int* nl = static_cast<int*>(new_lid);
-  int2* li = static_cast<int2*>(list);
-  unsigned long long* n = static_cast<unsigned long long*>(count);
-  const bool bundled = mode == 2;
-  // the routing forms: [bundled] x byte, packed, two-byte bins
-  if (mode == 0) {
-    list_kernel<false, false, false, uint8_t><<<blocks, kListThreads, smem,
-                                                s>>>(
-        nullptr, l, c, cl, ps, nl, li, n, F, Fd, N, K, W);
-  } else if (bins16) {
-    const uint16_t* x = static_cast<const uint16_t*>(xt);
-    if (bundled)
-      list_kernel<true, true, false, uint16_t><<<blocks, kListThreads, smem,
-                                                 s>>>(
-          x, l, c, cl, ps, nl, li, n, F, Fd, N, K, W);
-    else
-      list_kernel<true, false, false, uint16_t><<<blocks, kListThreads,
-                                                  smem, s>>>(
-          x, l, c, cl, ps, nl, li, n, F, Fd, N, K, W);
-  } else {
-    using ListKernel = void (*)(const uint8_t*, const int*, const int*,
-                                const float*, const int*, int*, int2*,
-                                unsigned long long*, int, int, int, int,
-                                int);
-    static const ListKernel route[2][2] = {
-        {&list_kernel<true, false, false, uint8_t>,
-         &list_kernel<true, false, true, uint8_t>},
-        {&list_kernel<true, true, false, uint8_t>,
-         &list_kernel<true, true, true, uint8_t>}};
-    route[bundled][packed != 0]<<<blocks, kListThreads, smem, s>>>(
-        static_cast<const uint8_t*>(xt), l, c, cl, ps, nl, li, n, F, Fd, N,
-        K, W);
-  }
-  return static_cast<int>(cudaGetLastError());
+                   void* list, void* count, void* slots, int F, int N, int K,
+                   int W, int blocks, int mode, int packed, int bins16,
+                   int ordered, void* stream) {
+  return static_cast<int>(launch_list(
+      xt, lid, cid, cols, psrc, new_lid, list, count, slots, F, N, K, W,
+      blocks, mode, packed != 0, bins16 != 0, ordered != 0, Compact{},
+      static_cast<cudaStream_t>(stream)));
 }
 
 // B1, the fused wave step: routing, histograms of the listed rows, the
-// conversion.  acc holds K * F * B * 3 + 1 64-bit words (2 K F B 3 + 1
-// when wide), zeroed here (the last one is the list's length); list N
-// int2; hist K * F * B * 3 floats (doubles when wide).  F counts features
-// (logical columns): with packed, xt holds ceil(F / 2) packed columns;
-// bins16: uint16 bins; bf16 rounds the weights to bf16 before the sums;
-// wide: w3 is float64 and the sums 128-bit; finish = 0 stops before the
+// conversion.  acc holds K * F * B * 3 + 1 + 2K 64-bit words (2 K F B 3
+// + 1 + 2K when wide), zeroed here (after the sums: the list's length,
+// the slot counts and cursors of the ordered list); list N int2; hist K
+// * F * B * 3 floats (doubles when wide).  F counts features (logical
+// columns): with packed, xt holds ceil(F / 2) packed columns; bins16:
+// uint16 bins; bf16 rounds the weights to bf16 before the sums; wide: w3
+// is float64 and the sums 128-bit; ordered: the plan's slot-ordered pass
+// (the list ordered by slot, its rows copied into the compact rows after
+// acc's words, compact_of; KS = C = 1); finish = 0 stops before the
 // conversion, leaving the sums in acc (lgbt_wave_finish converts them).
 int lgbt_wave_fused(const void* xt, const void* lid, const void* w3,
                     const void* cid, const void* cols, const void* psrc,
                     const void* exps, void* new_lid, void* list, void* acc,
                     void* hist, int F, int N, int B, int K, int W,
                     int list_blocks, int groups, int R, int KS, int FS,
-                    int C, int bundled, int packed, int bf16, int bins16,
-                    int wide, int finish, void* stream) {
+                    int C, int ordered, int bundled, int packed, int bf16,
+                    int bins16, int wide, int finish, void* stream) {
   unsigned long long* count;
   int e = zero_acc(acc, F, B, K, wide != 0, stream, &count);
   if (e != 0) return e;
-  e = lgbt_wave_list(xt, lid, cid, cols, psrc, new_lid, list, count, F, N,
-                     K, W, list_blocks, bundled ? 2 : 1, packed, bins16,
-                     stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Compact cp = ordered ? compact_of(acc, xt, w3, F, N, B, K,
+                                          packed != 0, bins16 != 0,
+                                          wide != 0)
+                             : Compact{};
+  e = static_cast<int>(launch_list(
+      xt, lid, cid, cols, psrc, new_lid, list, count, count + 1, F, N, K, W,
+      list_blocks, bundled ? 2 : 1, packed != 0, bins16 != 0, ordered != 0,
+      cp, s));
   if (e != 0) return e;
   return static_cast<int>(hist_and_finish(
       xt, w3, list, cid, exps, acc, hist, F, N, B, K, groups, R, KS, FS, C,
-      false, packed != 0, bf16 != 0, bins16 != 0, wide != 0, finish != 0,
-      static_cast<cudaStream_t>(stream)));
+      ordered != 0, cp, false, packed != 0, bf16 != 0, bins16 != 0,
+      wide != 0, finish != 0, s));
 }
 
 // B3 (X_t (F, N)) and B4 (rowmajor: X (N, F)), the histogram-only pass:
 // the select pass, histograms of the listed rows, the conversion; acc,
-// list and hist, packed, bf16, bins16, wide and finish as for
+// list and hist, packed, bf16, bins16, wide, ordered and finish as for
 // lgbt_wave_fused.
 // B5 is this pass with rowmajor = 1, K = 1 and cid the leaf, on a plan of
 // its own.
 int lgbt_wave_hist(const void* x, const void* lid, const void* w3,
                    const void* cid, const void* exps, void* list, void* acc,
                    void* hist, int F, int N, int B, int K, int list_blocks,
-                   int groups, int R, int KS, int FS, int C, int rowmajor,
-                   int packed, int bf16, int bins16, int wide, int finish,
-                   void* stream) {
+                   int groups, int R, int KS, int FS, int C, int ordered,
+                   int rowmajor, int packed, int bf16, int bins16, int wide,
+                   int finish, void* stream) {
   unsigned long long* count;
   int e = zero_acc(acc, F, B, K, wide != 0, stream, &count);
   if (e != 0) return e;
-  e = lgbt_wave_list(nullptr, lid, cid, nullptr, nullptr, nullptr, list,
-                     count, F, N, K, 0, list_blocks, 0, 0, 0, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // B4's row-major rows are read from X (one or two sectors a group)
+  const Compact cp = ordered && !rowmajor
+                         ? compact_of(acc, x, w3, F, N, B, K, packed != 0,
+                                      bins16 != 0, wide != 0)
+                         : Compact{};
+  e = static_cast<int>(launch_list(
+      nullptr, lid, cid, nullptr, nullptr, nullptr, list, count, count + 1,
+      F, N, K, 0, list_blocks, 0, false, false, ordered != 0, cp, s));
   if (e != 0) return e;
   return static_cast<int>(hist_and_finish(
       x, w3, list, cid, exps, acc, hist, F, N, B, K, groups, R, KS, FS, C,
-      rowmajor != 0, packed != 0, bf16 != 0, bins16 != 0, wide != 0,
-      finish != 0, static_cast<cudaStream_t>(stream)));
+      ordered != 0, cp, rowmajor != 0, packed != 0, bf16 != 0, bins16 != 0,
+      wide != 0, finish != 0, s));
 }
 
 // The conversion of a deferred-finish launch alone (B1, B3, B4, B5 with

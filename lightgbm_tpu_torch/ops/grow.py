@@ -387,7 +387,8 @@ class Grower:
                              dtype=self._cache_dtype(dev), device=dev)
                  if self.cache_hists else torch.empty(0, device=dev))
         work = (list_workspace(n, self.slots, self.hist_cols,
-                               self.hist_bins, dev, ft == torch.float64)
+                               self.hist_bins, dev, ft == torch.float64,
+                               rowmajor=self.hist_mode == "pallas")
                 if dev.type == "cuda" and not self.sparse
                 and self.hist_mode not in ENGINE_MODES else None)
         return GrowState(

@@ -109,9 +109,10 @@ def _check(X, grad, hess, leaf_id, row_mult, num_bins, w3, exps):
 def _launch(X, w3, leaf_id, leaf_t, num_bins, exps, plan, work=None,
             finish=True):
     """The select pass, the histogram pass and the conversion on plan
-    (hist_plan's first six fields); returns the (F, B, 3) histogram, or
-    with finish False the (1, F, B, 3) fixed-point sums (an int64 view
-    of the workspace; ``wave_kernels.finish_hist`` converts them)."""
+    (hist_plan's first six fields; one slot, so never the slot-ordered
+    pass); returns the (F, B, 3) histogram, or with finish False the
+    (1, F, B, 3) fixed-point sums (an int64 view of the workspace;
+    ``wave_kernels.finish_hist`` converts them)."""
     N, F = X.shape
     B = int(num_bins)
     wide = w3.dtype == torch.float64
@@ -119,8 +120,8 @@ def _launch(X, w3, leaf_id, leaf_t, num_bins, exps, plan, work=None,
                                           work, wide, finish)
     err = _build.library().lgbt_wave_hist(
         *[t.data_ptr() for t in (X, leaf_id, w3, leaf_t, exps)], rows, acc,
-        0 if hist is None else hist.data_ptr(), F, N, B, 1, *plan, 1, 0, 0,
-        int(X.dtype == torch.uint16), int(wide), int(finish),
+        0 if hist is None else hist.data_ptr(), F, N, B, 1, *plan, 0, 1, 0,
+        0, int(X.dtype == torch.uint16), int(wide), int(finish),
         _build.stream(X.device))
     _build.check(err, "leaf_hist")
     if not finish:

@@ -242,32 +242,40 @@ _THREADS = 512
 _THREADS_WIDE = 1024
 
 
-def _smem_bytes(B: int, ks: int) -> int:
+def _smem_bytes(BT: int, ks: int) -> int:
     """lgbt_sparse_hist_smem in csrc/sparse_hist.cu: one block's shared
-    memory (the int64 (KS, B, 3) histogram, the slice's child ids and
-    first holders, the leaf -> slot table)."""
-    return 8 * ks * B * 3 + 8 * ks + _STATIC_SMEM
+    memory (the int64 (KS, BT, 3) histogram of its tile of BT bins, the
+    slice's child ids and first holders, the leaf -> slot table)."""
+    return 8 * ks * BT * 3 + 8 * ks + _STATIC_SMEM
+
+
+# the most bins a column may have (the dense kernels' uint16 bins)
+MAX_BINS = 65536
 
 
 @lru_cache(maxsize=64)
 def launch_plan(B: int, K: int):
-    """(KS, threads, smem): child slots a block owns, threads a block and
-    shared memory a block.  A block covers one device column and KS slots
-    (the K slots split evenly over as few slices as fit the budget) with
+    """(KS, threads, smem, tiles): child slots a block owns, threads a
+    block, shared memory a block and tiles of the bin axis.  A block
+    covers one device column, KS slots (the K slots split evenly over as
+    few slices as fit the budget) and ceil(B / tiles) bins (one tile
+    unless one (slot, B, 3) row exceeds the budget: B > 9,044), with
     _THREADS threads, or _THREADS_WIDE where shared memory holds at most
     two blocks an SM (255 bins at K = 32), so an SM keeps up to 2048
-    threads of gathers in flight."""
-    cell = B * 3 * 8 + 8
-    ks_max = (_SMEM_BUDGET - _STATIC_SMEM) // cell
-    if ks_max < 1:
-        raise LightGBMError("sparse histogram block does not fit shared "
-                            "memory (B=%d)" % B)
+    threads of gathers in flight.  Raises past MAX_BINS bins."""
+    if not 1 <= B <= MAX_BINS:
+        raise LightGBMError("sparse histogram: %d bins is outside [1, %d]"
+                            % (B, MAX_BINS))
+    row = (_SMEM_BUDGET - _STATIC_SMEM - 8) // (3 * 8)   # bins a slot row
+    tiles = -(-B // row)
+    bt = -(-B // tiles)
+    ks_max = (_SMEM_BUDGET - _STATIC_SMEM) // (bt * 3 * 8 + 8)
     slices = -(-K // ks_max)
     ks = -(-K // slices)
-    smem = _smem_bytes(B, ks)
+    smem = _smem_bytes(bt, ks)
     threads = (_THREADS_WIDE if _SMEM_PER_SM // (smem + 1024) <= 2
                else _THREADS)
-    return ks, threads, smem
+    return ks, threads, smem, tiles
 
 
 def _check(store, leaf_id, w3, child_id, num_bins, num_cols):
@@ -305,7 +313,7 @@ def _check(store, leaf_id, w3, child_id, num_bins, num_cols):
 
 def _launch(store, leaf_id, w3, child_id, num_bins, num_cols, exps, plan,
             hilo=True):
-    """B6 on plan (launch_plan's KS and threads): the (K, F, B, 3)
+    """B6 on plan (launch_plan's KS, threads and tiles): the (K, F, B, 3)
     histograms; hilo=False rounds the weights to bf16 first."""
     dev = leaf_id.device
     K, B = child_id.shape[0], int(num_bins)
@@ -336,7 +344,8 @@ def sparse_wave_histogram(store: ChunkedSparseStore, leaf_id, w3, child_id,
     if leaf_id.device.type == "cpu":
         return chunked_child_hists_plain(store, leaf_id, w3, child_id,
                                          num_bins, num_cols, hilo)
-    plan = launch_plan(int(num_bins), child_id.shape[0])[:2]
+    ks, threads, _, tiles = launch_plan(int(num_bins), child_id.shape[0])
+    plan = (ks, threads, tiles)
     hist = _launch(store, leaf_id, w3, child_id, num_bins, num_cols,
                    _exps(w3, exps), plan, hilo)
     sparse_wave_histogram.launches += 1

@@ -21,7 +21,9 @@ Two further forms follow the tensors given: uint16 bins (``max_bin`` >
 255; the JAX package stores such a matrix as uint16 and its kernels
 widen any integer bin) take num_bins up to 65,536, with a launch plan
 that tiles the bin axis where one (slot, feature) row of B bins would
-not fit shared memory (``hist_plan``, ``bin_tiles``); float64 weights
+not fit shared memory (``hist_plan``, ``bin_tiles``) and orders the list
+by slot where the slots' rows are too long for several features of all
+slots to share a block (``hist_plan`` ``ordered``); float64 weights
 w3 (``tpu_use_dp``) select the f64 form, which sums in 128-bit fixed
 point (``csrc/fixed_point.cuh``, exponents 126 - frexp_exponent(N *
 max|w_c|)) and returns float64 histograms.  The f64 form takes no bf16
@@ -44,6 +46,7 @@ counts its kernel launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -326,41 +329,91 @@ def fixed_point_exponents(w3, rows=None, amax=None):
     return (top - torch.frexp(m).exponent).to(torch.int32)
 
 
+# csrc/wave_fused.cu: the slot-ordered pass takes at most this many child
+# slots and keeps their offsets in static shared memory
+_MAX_ORDERED_SLOTS = 1024
+_ORDERED_STATIC_SMEM = 4 * (_MAX_ORDERED_SLOTS + 1)
+# a feature group of at least this many features keeps the slot-sliced plan
+_ORDERED_BELOW_GROUP = 4
+
+
+class HistPlan(NamedTuple):
+    """The launch plan of B1, B3, B4 and B5 (``hist_plan``)."""
+    list_blocks: int   # list-pass blocks
+    groups: int        # feature groups x bin tiles (the grid's x axis)
+    R: int             # shares of the row list (the grid's y axis)
+    KS: int            # child slots a block holds in shared memory
+    FS: int            # features a block holds
+    copies: int        # interleaved copies of the shared histogram
+    smem: int          # dynamic shared memory of a block, bytes
+    ordered: int       # 1: the list is ordered by slot (KS = copies = 1)
+
+
 @lru_cache(maxsize=256)
 def hist_plan(F: int, N: int, B: int, K: int, num_sms: int,
-              packed: bool = False, wide: bool = False):
-    """The launch plan of B1, B3 and B4 (list_blocks, groups, R, KS, FS,
-    copies, smem): list-pass blocks of _LIST_TILE rows a tile; histogram
-    blocks of _HIST_THREADS threads, each over FS features (groups of
-    them) and KS child slots in `copies` interleaved (KS, FS, BT, 3)
-    shared histograms of 64-bit cells (128-bit when wide, the f64 form)
-    of smem bytes in all, and R shares of the compact row list, so that
-    one round of resident blocks fills every SM (and no share is empty:
-    each holds at least a block's threads of rows when every row is
-    listed).  The copies (a power of two up to 32, lane l adding into
-    copy l mod copies) take the shared memory that one histogram leaves
-    unused.  packed: the F features lie in ceil(F / 2) packed columns,
-    and a block owns FS / 2 of them with both nibbles' features (FS
-    even), so the groups split the packed columns.
+              packed: bool = False, wide: bool = False) -> HistPlan:
+    """The launch plan of B1, B3 and B4 (``HistPlan``): list-pass blocks
+    of _LIST_TILE rows a tile; histogram blocks of _HIST_THREADS threads,
+    each over FS features (groups of them) and KS child slots in
+    `copies` interleaved (KS, FS, BT, 3) shared histograms of 64-bit
+    cells (128-bit when wide, the f64 form) of smem bytes in all, and R
+    shares of the compact row list, so that one round of resident blocks
+    fills every SM (and no share is empty: each holds at least a block's
+    threads of rows when every row is listed).  The copies (a power of
+    two up to 32, lane l adding into copy l mod copies) take the shared
+    memory that one histogram leaves unused.  packed: the F features lie
+    in ceil(F / 2) packed columns, and a block owns FS / 2 of them with
+    both nibbles' features (FS even), so the groups split the packed
+    columns.
 
     Bin tiles: where one (slot, feature) row of B bins exceeds the
     budget (B > 9,386 at 64 bits, > 4,693 at 128), each feature group
     is split into tiles of BT = ceil(B / tiles) bins, and ``groups``
     counts feature groups x tiles (``bin_tiles``; the kernel derives BT
-    from it the same way), so every B up to 65,536 launches."""
+    from it the same way), so every B up to 65,536 launches.
+
+    Wide rows: where the slot-sliced plan holds fewer than
+    _ORDERED_BELOW_GROUP features a block (K slots of long (slot,
+    feature) rows: uint16 bins at B = 1023, byte bins at 255), every
+    block of it reads the whole list once a (feature group, slot slice,
+    bin tile).  There, for 1 < K <= _MAX_ORDERED_SLOTS, the plan is the
+    slot-ordered one (``ordered``): the list passes order the list by
+    slot (on X_t also copying the listed rows' weights and bins into
+    compact rows, ``list_workspace``), a block holds ONE slot's cells of
+    up to _GROUP_MAX features (KS = copies = 1) and one piece of that
+    slot's rows (of n listed rows in S = min(R, n / 2048) shares, a slot
+    of s rows takes max(1, round(s S / n)) pieces), and a listed row is
+    read once a (feature group, bin tile) (``plan_reads``), taken where
+    that is fewer reads than the slot-sliced plan's."""
     cellb = 3 * (16 if wide else 8)        # one bin of a (slot, feature)
     tiles = -(-B // max(1, _SMEM_BUDGET // cellb))
     bt = -(-B // tiles)
     cell = bt * cellb                      # one (slot, feature) row
     per = 2 if packed else 1               # features a stored column
     cols = packed_width(F) if packed else F
+
+    def group(ks):
+        """(FS, feature groups) of blocks holding ks slots' rows."""
+        cs = max(1, min(cols, _GROUP_MAX // per,
+                        _SMEM_BUDGET // (ks * per * cell)))
+        fgroups = -(-cols // cs)
+        return per * -(-cols // fgroups), fgroups   # even the groups out
+
     ks = max(1, min(K, _SMEM_BUDGET // (per * cell)))
-    cs = max(1, min(cols, _GROUP_MAX // per,
-                    _SMEM_BUDGET // (ks * per * cell)))
-    fgroups = -(-cols // cs)
-    fs = per * -(-cols // fgroups)         # even the groups out
-    groups = fgroups * tiles
+    fs, fgroups = group(ks)
     kslices = -(-K // ks)
+    fs1, fgroups1 = group(1)
+    if (fs < _ORDERED_BELOW_GROUP and 1 < K <= _MAX_ORDERED_SLOTS
+            and fgroups1 < fgroups * kslices):
+        groups = fgroups1 * tiles
+        smem = fs1 * cell
+        per_sm = max(1, min(2048 // _HIST_THREADS, _SMEM_PER_SM // (
+            smem + _ORDERED_STATIC_SMEM + 1024)))
+        R = max(1, min(65535, -(-N // _HIST_THREADS),
+                       (num_sms * per_sm) // groups))
+        return HistPlan(_list_blocks(N, num_sms), groups, R, 1, fs1, 1,
+                        smem, 1)
+    groups = fgroups * tiles
     copies = 1
     while (copies < _MAX_COPIES
            and 2 * copies * ks * fs * cell <= _SMEM_BUDGET):
@@ -370,7 +423,16 @@ def hist_plan(F: int, N: int, B: int, K: int, num_sms: int,
                         _SMEM_PER_SM // (smem + 1024)))
     R = max(1, min(65535, -(-N // _HIST_THREADS),
                    (num_sms * per_sm) // (groups * kslices)))
-    return _list_blocks(N, num_sms), groups, R, ks, fs, copies, smem
+    return HistPlan(_list_blocks(N, num_sms), groups, R, ks, fs, copies,
+                    smem, 0)
+
+
+def plan_reads(plan: HistPlan, K: int) -> int:
+    """How many times the histogram pass reads each listed row (its list
+    entry, weights and group bins): once a block that holds the row's
+    slot and its features, i.e. once a (feature group, bin tile), and the
+    slot-sliced plan once more for each slice of the K slots."""
+    return plan.groups * (1 if plan.ordered else -(-K // plan.KS))
 
 
 def bin_tiles(F: int, B: int, groups: int, FS: int, packed: bool = False):
@@ -405,30 +467,52 @@ def _check_slots(K):
                             "slots (K=%d)" % K)
 
 
-def list_workspace(N, K, F, B, dev, wide: bool = False):
+def _work_size(N, K, F, B, wide):
+    """int64 words of a list workspace before its compact rows."""
+    return N + K * F * B * 3 * (2 if wide else 1) + 1 + 2 * K
+
+
+def _compact_words(N, F, wide, bin_bytes, packed=False):
+    """int64 words of the slot-ordered pass's compact rows on X_t
+    (csrc/wave_fused.cu Compact): N rows of four f32 weights (f64 when
+    wide) and the Fd stored bins, rounded up to 32 bytes, and 16 words
+    for the 128-byte alignment."""
+    fd = packed_width(F) if packed else F
+    return N * (-(-((32 if wide else 16) + fd * bin_bytes) // 32) * 4) + 16
+
+
+def list_workspace(N, K, F, B, dev, wide: bool = False,
+                   rowmajor: bool = False):
     """The list passes' int64 workspace for N rows and up to K child
     slots of (F, B) histograms: the compact list (N int2), then the K *
-    F * B * 3 fixed-point sums (two words each when wide, the f64 form)
-    and the list's length.  A grower keeps one in its state and hands it
-    to every call, so a call inside a CUDA graph capture allocates none;
-    launches on one stream run in order, so they may share it, and it is
-    freed with the state."""
-    return torch.empty(N + K * F * B * 3 * (2 if wide else 1) + 1,
-                       dtype=torch.int64, device=dev)
+    F * B * 3 fixed-point sums (two words each when wide, the f64 form),
+    the list's length, K slot counts and K cursors, and, where the plan
+    at (F, N, B, K) is slot-ordered (``hist_plan``) on the transposed
+    bins X_t (B1, B3; not rowmajor, B4), the compact rows of the listed
+    rows' weights and bins (uint16 past 256 bins).  A grower
+    keeps one in its state and hands it to every call, so a call inside a
+    CUDA graph capture allocates none; launches on one stream run in
+    order, so they may share it, and it is freed with the state."""
+    size = _work_size(N, K, F, B, wide)
+    if (dev.type == "cuda" and not rowmajor
+            and hist_plan(F, N, B, K, _sms(dev), False, wide).ordered):
+        size += _compact_words(N, F, wide, 2 if B > 256 else 1)
+    return torch.empty(size, dtype=torch.int64, device=dev)
 
 
 def _list_buffers(N, K, F, B, dev, hist_shape=None, work=None,
-                  wide: bool = False, finish: bool = True):
+                  wide: bool = False, finish: bool = True, compact=0):
     """(list, acc, work, hist): the pointers of the compact list and of
     the fixed-point sums with the list's length after them, which the
-    kernel entry zeroes; the workspace holding both (``work``, the
-    caller's, or a new one the caller keeps until it has launched); the
-    (K, F, B, 3) histogram (or hist_shape), f32 (float64 when wide), new
-    each call, or None for a deferred-finish launch (finish False)."""
+    kernel entry zeroes; the workspace holding both and `compact` words
+    of compact rows (``work``, the caller's, or a new one the caller
+    keeps until it has launched); the (K, F, B, 3) histogram (or
+    hist_shape), f32 (float64 when wide), new each call, or None for a
+    deferred-finish launch (finish False)."""
     _check_slots(K)
-    size = N + K * F * B * 3 * (2 if wide else 1) + 1
+    size = _work_size(N, K, F, B, wide) + compact
     if work is None:
-        work = list_workspace(N, K, F, B, dev, wide)
+        work = torch.empty(size, dtype=torch.int64, device=dev)
     elif (work.dtype != torch.int64 or work.device != dev
           or work.dim() != 1 or work.numel() < size
           or not work.is_contiguous()):
@@ -462,15 +546,19 @@ def _launch_fused(X_t, leaf_id, w3, child_id, cols, psrc, num_bins,
     dev = X_t.device
     packed = bool(logical_cols)
     wide = w3.dtype == torch.float64
-    plan = hist_plan(F, N, B, K, _sms(dev), packed, wide)[:6]
+    plan = hist_plan(F, N, B, K, _sms(dev), packed, wide)
+    compact = (_compact_words(N, F, wide, X_t.element_size(), packed)
+               if plan.ordered else 0)
     rows, acc, work, hist = _list_buffers(N, K, F, B, dev, work=work,
-                                          wide=wide, finish=finish)
+                                          wide=wide, finish=finish,
+                                          compact=compact)
     new_lid = torch.empty(N, dtype=torch.int32, device=dev)
     err = lib.lgbt_wave_fused(
         *[t.data_ptr() for t in (X_t, leaf_id, w3, child_id, cols, psrc,
                                  exps, new_lid)], rows, acc,
         0 if hist is None else hist.data_ptr(),
-        F, N, B, K, W, *plan, int(bundled), int(packed), int(not hilo),
+        F, N, B, K, W, *plan[:6], plan.ordered, int(bundled), int(packed),
+        int(not hilo),
         int(X_t.dtype == torch.uint16), int(wide), int(finish),
         _build.stream(dev))
     _build.check(err, "wave_fused")
@@ -491,13 +579,16 @@ def _launch_hist(X, leaf_id, w3, child_id, num_bins, exps, rowmajor, work,
     dev = X.device
     packed = bool(logical_cols)
     wide = w3.dtype == torch.float64
-    plan = hist_plan(F, N, B, K, _sms(dev), packed, wide)[:6]
+    plan = hist_plan(F, N, B, K, _sms(dev), packed, wide)
+    compact = (_compact_words(N, F, wide, X.element_size(), packed)
+               if plan.ordered and not rowmajor else 0)
     rows, acc, work, hist = _list_buffers(N, K, F, B, dev, work=work,
-                                          wide=wide, finish=finish)
+                                          wide=wide, finish=finish,
+                                          compact=compact)
     err = lib.lgbt_wave_hist(
         *[t.data_ptr() for t in (X, leaf_id, w3, child_id, exps)], rows, acc,
-        0 if hist is None else hist.data_ptr(), F, N, B, K, *plan,
-        int(rowmajor), int(packed), int(not hilo),
+        0 if hist is None else hist.data_ptr(), F, N, B, K, *plan[:6],
+        plan.ordered, int(rowmajor), int(packed), int(not hilo),
         int(X.dtype == torch.uint16), int(wide), int(finish),
         _build.stream(dev))
     _build.check(err, "wave_hist")
@@ -544,48 +635,76 @@ def select_list_plain(leaf_id, child_id):
     return _slots_plain(leaf_id, child_id)
 
 
+def slot_order_plain(rows, slots, K: int):
+    """The slot-ordered list of the plan's wide rows (``hist_plan``
+    ``ordered``): (rows, slots, offsets) with the (row, slot) pairs
+    grouped by slot in slot order, rows ascending within a slot (the
+    kernel's order within a slot is any: its sums are order-free), and
+    offsets (K + 1,) int64, slot k's pairs being [offsets[k],
+    offsets[k + 1])."""
+    by_row = torch.argsort(rows, stable=True)
+    order = by_row[torch.argsort(slots[by_row], stable=True)]
+    counts = torch.bincount(slots.long(), minlength=K)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return rows[order], slots[order], offsets
+
+
 def _list(lid, child_id, N, mode, xt=None, cols=None, psrc=None,
-          new_lid=None, F=0, logical_cols=0):
-    """The list pass alone, its list sorted by row."""
-    _check_slots(child_id.shape[0])
+          new_lid=None, F=0, logical_cols=0, ordered=False):
+    """The list pass alone: its list sorted by row, or (ordered) the
+    slot-ordered passes' list as they wrote it."""
+    K = child_id.shape[0]
+    _check_slots(K)
+    if ordered and K > _MAX_ORDERED_SLOTS:
+        raise LightGBMError("the slot-ordered list takes at most %d slots "
+                            "(K=%d)" % (_MAX_ORDERED_SLOTS, K))
     dev = lid.device
     rows = torch.empty((N, 2), dtype=torch.int32, device=dev)
-    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    count = torch.zeros(1 + 2 * K, dtype=torch.int64, device=dev)
     W = 0 if cols is None else cols.shape[0]
     ptrs = [0 if t is None else t.data_ptr()
             for t in (xt, lid, child_id, cols, psrc, new_lid, rows, count)]
     err = _build.library().lgbt_wave_list(
-        *ptrs, F, N, child_id.shape[0], W,
+        *ptrs, count.data_ptr() + 8, F, N, K, W,
         _list_blocks(N, _sms(dev)), mode, int(bool(logical_cols)),
-        int(xt is not None and xt.dtype == torch.uint16), _build.stream(dev))
+        int(xt is not None and xt.dtype == torch.uint16), int(ordered),
+        _build.stream(dev))
     _build.check(err, "wave_list")
     # the checking passes' read of the list's length (off the training
     # path)
-    rows = rows[:int(count)]  # lint: ignore[sync-scalar-cast] check pass
+    rows = rows[:int(count[0])]  # lint: ignore[sync-scalar-cast] check pass
+    if ordered:
+        return rows[:, 0], rows[:, 1]
     order = torch.argsort(rows[:, 0])
     return rows[order, 0], rows[order, 1]
 
 
 def route_list(X_t, leaf_id, child_id, cols, psrc, bundled: bool = False,
-               logical_cols: int = 0):
+               logical_cols: int = 0, ordered: bool = False):
     """B1's routing pass alone, for checking it: route_list_plain's
-    contract, with the kernel's list sorted by row.  Reads the list's
-    length back to the host."""
+    contract, with the kernel's list sorted by row; ordered: the
+    slot-ordered passes' list as written (slot_order_plain's order on
+    the CPU).  Reads the list's length back to the host."""
     F = _check(X_t, leaf_id, None, child_id, 1, cols, psrc,
                logical_cols=logical_cols)
     if X_t.device.type == "cpu":
-        return route_list_plain(X_t, leaf_id, child_id, cols, psrc, bundled,
-                                logical_cols)
+        new_lid, rows, slots = route_list_plain(X_t, leaf_id, child_id, cols,
+                                                psrc, bundled, logical_cols)
+        if ordered:
+            rows, slots, _ = slot_order_plain(rows, slots,
+                                              child_id.shape[0])
+        return new_lid, rows, slots
     new_lid = torch.empty_like(leaf_id)
     rows, slots = _list(leaf_id, child_id, X_t.shape[1], 1 + int(bundled),
-                        X_t, cols, psrc, new_lid, F, logical_cols)
+                        X_t, cols, psrc, new_lid, F, logical_cols, ordered)
     return new_lid, rows, slots
 
 
-def select_list(leaf_id, child_id):
+def select_list(leaf_id, child_id, ordered: bool = False):
     """The select pass of B3 and B4 alone, for checking it:
-    select_list_plain's contract, with the kernel's list sorted by row.
-    Reads the list's length back to the host."""
+    select_list_plain's contract, with the kernel's list sorted by row;
+    ordered: the slot-ordered passes' list as written (slot_order_plain's
+    order on the CPU).  Reads the list's length back to the host."""
     if (leaf_id.dtype != torch.int32 or child_id.dtype != torch.int32
             or leaf_id.dim() != 1 or child_id.dim() != 1
             or leaf_id.device != child_id.device or not len(leaf_id)
@@ -593,11 +712,15 @@ def select_list(leaf_id, child_id):
         raise LightGBMError("select_list: expected non-empty 1-D int32 "
                             "leaf_id and child_id on one device")
     if leaf_id.device.type == "cpu":
-        return select_list_plain(leaf_id, child_id)
+        rows, slots = select_list_plain(leaf_id, child_id)
+        if ordered:
+            rows, slots, _ = slot_order_plain(rows, slots,
+                                              child_id.shape[0])
+        return rows, slots
     if not (leaf_id.is_contiguous() and child_id.is_contiguous()):
         raise LightGBMError("select_list: leaf_id and child_id must be "
                             "contiguous")
-    return _list(leaf_id, child_id, leaf_id.shape[0], 0)
+    return _list(leaf_id, child_id, leaf_id.shape[0], 0, ordered=ordered)
 
 
 def wave_partition_hist(X_t, leaf_id, w3, child_id, cols, psrc,

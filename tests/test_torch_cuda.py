@@ -164,16 +164,16 @@ def test_fused_kernel_at_the_flagship_shape(dev, bundled):
 @pytest.mark.parametrize("n,f,b,k", [(3000, 968, 255, 32), (2500, 7, 14, 5),
                                      (4000, 3, 256, 70), (2000, 5, 20, 2)])
 def test_fused_kernel_wide_and_small_shapes(dev, n, f, b, k):
-    """B1 where one feature's K slots at B bins fill a block (F = 968,
-    B = 255: one feature a block), at a small shape, with the slots split
-    over the grid (K = 70 at 256 bins), and with every child slot
-    inactive (K = 2: rows move, the list stays empty)."""
+    """B1 where one feature's K slots at B bins would fill a block (F =
+    968, B = 255: the slot-ordered pass, 8 features a block), at a small
+    shape, with 70 slots at 256 bins (slot-ordered), and with every child
+    slot inactive (K = 2: rows move, the list stays empty)."""
     plan = wk.hist_plan(f, n, b, k, torch.cuda.get_device_properties(
         0).multi_processor_count)
     if f == 968:
-        assert plan[4] == 1 and plan[1] == f
+        assert plan.ordered and plan.FS == 8 and plan.groups == 121
     if k == 70:
-        assert plan[3] < k
+        assert plan.ordered and plan.KS == 1
     _check_b1(dev, _b1_case(n, f, b, k, seed=f + b, dup=True), False)
 
 
@@ -184,8 +184,8 @@ def test_fused_kernel_occupancy(dev):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lib = _build.library()
     for k in (32, 1):
-        _, _, _, ks, fs, copies, smem = wk.hist_plan(28, 2_000_000, 63, k,
-                                                     sms)
+        _, _, _, ks, fs, copies, smem, _ = wk.hist_plan(28, 2_000_000, 63,
+                                                        k, sms)
         assert lib.lgbt_wave_hist_smem(63, ks, fs, copies) == smem
         for rowmajor in (0, 1):
             blocks = lib.lgbt_wave_hist_blocks_per_sm(63, ks, fs, copies,
@@ -228,12 +228,18 @@ def _check_hist(dev, X, lid, w3, cid, b, exps=None, f32_plain=True):
 
 @pytest.mark.parametrize("n,f,b,k", [(5000, 7, 14, 1), (5000, 7, 14, 5),
                                      (20000, 28, 63, 32),
-                                     (3000, 968, 255, 32)])
+                                     (3000, 968, 255, 32),
+                                     (6000, 3, 63, 1100)])
 def test_hist_kernel_matches_plain(dev, n, f, b, k):
     """B3 and B4 at K = 1 (the root: every row in one slot, the plan's
     interleaved copies), 5 and 32 slots over 2K leaves with an inactive
-    and a repeated slot, and at 968 features of 255 bins (one feature a
-    block)."""
+    and a repeated slot, at 968 features of 255 bins (the slot-ordered
+    pass) and at 1100 slots (past the ordered pass's 1024: the slots
+    split over the grid)."""
+    if k == 1100:
+        plan = wk.hist_plan(f, n, b, k, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        assert not plan.ordered and plan.KS < k
     X, _, w3, _, _ = wave_data(n=n, f=f, b=b, seed=n + f)
     rng = np.random.default_rng(k)
     if k == 1:
@@ -428,6 +434,26 @@ def test_sparse_kernel_bit_equal_to_b3(dev, kind, auto_uniform):
                          auto_uniform=auto_uniform)
 
 
+def test_sparse_kernel_bin_tiles_past_one_row(dev):
+    """Past one (slot, B, 3) int64 row of shared memory (B > 9,044) B6
+    tiles its bin axis: at B = 16,383 (two tiles of 8,192 bins) on a
+    small uint16 store its non-fill cells are B3's on the same rows' dense
+    X_t to the bit, within tolerance of B6's plain version, the fill
+    cells exactly 0, and the second tile holds entries.  The kernel's
+    shared memory is the plan's."""
+    b, k = 16383, 4
+    X, fill, lid, w3 = sparse_case(n=20_000, f=9, b=b, L=2 * k, seed=11)
+    assert X.dtype == np.uint16
+    ks, threads, smem, tiles = sm.launch_plan(b, k)
+    assert (ks, tiles) == (1, 2)
+    assert _build.library().lgbt_sparse_hist_smem(-(-b // tiles), ks) == smem
+    cid = np.array([0, 5, -1, 6], dtype=np.int32)
+    n0 = sm.sparse_wave_histogram.launches
+    got = _check_b6_against_b3(dev, X, fill, lid, w3, cid, b)
+    assert sm.sparse_wave_histogram.launches == n0 + 2
+    assert bool((got[..., 8192:, 2] != 0).any())
+
+
 def test_sparse_kernel_255_bins_split_slots(dev):
     """At 255 bins one (K, B, 3) int64 histogram of K = 32 takes 196 KB,
     a block an SM with 1024 threads; K = 64 splits the slots over two
@@ -436,8 +462,8 @@ def test_sparse_kernel_255_bins_split_slots(dev):
     memory is the plan's."""
     b, k = 255, 64
     X, fill, lid, w3 = sparse_case(n=6000, f=9, b=b, L=2 * k, seed=8)
-    ks, threads, smem = sm.launch_plan(b, k)
-    assert ks < k and (ks, threads) == (32, 1024)
+    ks, threads, smem, tiles = sm.launch_plan(b, k)
+    assert ks < k and (ks, threads, tiles) == (32, 1024, 1)
     assert _build.library().lgbt_sparse_hist_smem(b, ks) == smem
     assert sm.launch_plan(b, 32)[:2] == (32, 1024)
     cid = np.random.default_rng(8).permutation(2 * k)[:k].astype(np.int32)
@@ -1712,7 +1738,7 @@ def test_packed_plan_halves_the_bytes_a_block_reads(dev):
     lib = _build.library()
     for k in (32, 1):
         plan = wk.hist_plan(28, 2_000_000, 16, k, sms, True)
-        _, groups, _, ks, fs, copies, smem = plan
+        _, groups, _, ks, fs, copies, smem, _ = plan
         assert fs % 2 == 0 and groups * fs // 2 >= 14
         assert lib.lgbt_wave_hist_smem(16, ks, fs, copies) == smem
         for rowmajor in (0, 1):
@@ -2121,20 +2147,25 @@ def _within_form(got, want, scale, wmax, wide):
     return bool((diff <= 1e-12 * scale + 1e-14 * wmax).all())
 
 
-@pytest.mark.parametrize("n,f,b,wide", [
-    (200_000, 6, 511, False), (200_000, 6, 1023, False),
-    (60_000, 4, 16383, False), (20_000, 3, 65536, False),
-    (200_000, 6, 63, True), (200_000, 6, 1023, True),
-    (30_000, 3, 9000, True)])
-def test_wide_bin_and_f64_forms_match_plain(dev, n, f, b, wide):
-    """B1, B3, B4 and B5 on uint16 bins (b > 256) and with float64 weights
-    (the f64 form): B1's ids equal the plain routing; each histogram is
-    within its form's tolerance of the float64 plain version; two
+@pytest.mark.parametrize("n,f,b,wide,k", [
+    (200_000, 6, 511, False, 8), (200_000, 6, 1023, False, 8),
+    (60_000, 4, 16383, False, 8), (20_000, 3, 65536, False, 8),
+    (200_000, 6, 63, True, 8), (200_000, 6, 1023, True, 8),
+    (30_000, 3, 9000, True, 8), (200_000, 10, 255, False, 32),
+    (200_000, 10, 1023, False, 32)])
+def test_wide_bin_and_f64_forms_match_plain(dev, n, f, b, wide, k):
+    """B1, B3, B4 and B5 on uint16 bins (b > 256), byte bins at 255 and
+    with float64 weights (the f64 form): B1's ids equal the plain
+    routing; each histogram is within its form's tolerance of the
+    float64 plain version; B1's and B3's equal the scatter engine's
+    (``ops/histogram.py scatter_histogram``, an int64 ``index_add_`` of
+    the same fixed point) with the same exponents to the bit; two
     launches are bit-identical; with B1's exponents, B3's histogram of
     B1's ids is B1's to the bit, B4's is B3's and B5's (K = 1) is B4's
-    slot.  B past 9,386 (4,693 wide) tiles the bin axis; each form's
-    launches are counted."""
-    k = 8
+    slot.  B past 9,386 (4,693 wide) tiles the bin axis; the wide rows
+    take the slot-ordered pass (every case but f64 at 63 bins and 8
+    slots); each form's launches are counted."""
+    from lightgbm_tpu_torch.ops.histogram import scatter_histogram
     X, lid, w3, cid, cols, psrc = _form_case(
         n, f, b, k, seed=b + f, wdtype=np.float64 if wide else np.float32)
     Xt, Xr = t(X.T).to(dev), t(X).to(dev)
@@ -2145,33 +2176,42 @@ def test_wide_bin_and_f64_forms_match_plain(dev, n, f, b, wide):
     tiles = wk.bin_tiles(f, b, plan[1], plan[4])
     assert (len(tiles) > 1) == (b > (4693 if wide else 9386))
     assert plan[6] <= wk._SMEM_BUDGET
+    # fewer than 4 features of all k slots fit a block but f64 at 63 bins
+    assert bool(plan.ordered) == (not (wide and b == 63))
     # the kernel derives the plan's tiles and shared memory as the plan
     # does, and a block of the plan is resident
     lib = _build.library()
     bt = tiles[0][1] - tiles[0][0]
-    _, groups, _, ks, fs, copies, smem = plan
+    _, groups, _, ks, fs, copies, smem, ordered = plan
     assert lib.lgbt_wave_bin_tile(f, b, groups, fs, 0) == bt
     assert lib.lgbt_wave_hist_smem_form(bt, ks, fs, copies, int(wide)) == smem
     for rowmajor in (0, 1):
-        assert lib.lgbt_wave_hist_blocks_per_sm_form(
-            bt, ks, fs, copies, rowmajor, 0, int(b > 256), int(wide)) >= 1
-    form = "f64" if wide else "uint16"
+        blocks = (lib.lgbt_wave_hist_ordered_blocks_per_sm(
+                      bt, fs, 0, int(b > 256), int(wide))
+                  if ordered else lib.lgbt_wave_hist_blocks_per_sm_form(
+                      bt, ks, fs, copies, rowmajor, 0, int(b > 256),
+                      int(wide)))
+        assert blocks >= 1
+    form = "f64" if wide else ("uint16" if b > 256 else None)
     counters = (wk.wave_partition_hist, wk.wave_histogram,
                 wk.wave_histogram_rowmajor, lh.leaf_histogram)
-    n0 = [fn.form_launches[form] for fn in counters]
+    n0 = [fn.form_launches[form] for fn in counters] if form else None
     exps = wk.fixed_point_exponents(w)
     new_lid, h1 = wk.wave_partition_hist(Xt, ids, w, c, cl, ps, b, exps=exps)
     again_lid, again = wk.wave_partition_hist(Xt, ids, w, c, cl, ps, b,
                                               exps=exps)
     h3 = wk.wave_histogram(Xt, new_lid, w, c, b, exps=exps)
+    h3b = wk.wave_histogram(Xt, new_lid, w, c, b, exps=exps)
     h4 = wk.wave_histogram_rowmajor(Xr, new_lid, w, c, b, exps=exps)
     h5 = lh.leaf_histogram(Xr, None, None, new_lid, c[:1], None, b, w3=w,
                            exps=exps)
+    want_bits = scatter_histogram(Xr, new_lid, w, c, b, exps)
     torch.cuda.synchronize()
     want_lid = wk.route_rows_plain(Xt, ids, cl, ps)
     assert torch.equal(new_lid, want_lid) and torch.equal(new_lid, again_lid)
     assert h1.dtype == (torch.float64 if wide else torch.float32)
     assert torch.equal(h1, again) and torch.equal(h1, h3)
+    assert torch.equal(h3, h3b) and torch.equal(h3, want_bits)
     assert torch.equal(h3, h4) and torch.equal(h5, h4[0])
     w64 = t(w3).double()
     cpu_lid = new_lid.cpu()
@@ -2181,8 +2221,33 @@ def test_wide_bin_and_f64_forms_match_plain(dev, n, f, b, wide):
     assert bool((h1[torch.from_numpy(cid < 0).to(dev)] == 0).all())
     # the highest bins are reached (the last tile holds rows)
     assert bool((h1[..., b - 64:, 2] != 0).any())
-    assert [fn.form_launches[form] - a
-            for fn, a in zip(counters, n0)] == [2, 1, 1, 1]
+    if form:
+        assert [fn.form_launches[form] - a
+                for fn, a in zip(counters, n0)] == [2, 2, 1, 1]
+    if ordered:
+        # the slot-ordered list: grouped by slot in slot order, the
+        # select pass's pairs, each slot's rows those of the plain list
+        rows, slots = wk.select_list(new_lid, c, ordered=True)
+        assert bool((slots[1:] >= slots[:-1]).all())
+        want_r, want_s, _ = wk.slot_order_plain(
+            *wk.select_list_plain(cpu_lid, t(cid)), k)
+        got_r, got_s, _ = wk.slot_order_plain(rows.cpu(), slots.cpu(), k)
+        assert torch.equal(got_r, want_r) and torch.equal(got_s, want_s)
+        # the list passes and the ordered pass captured in a CUDA graph
+        # (the growers' workspace, nothing allocated inside) and replayed
+        # twice give the eager histograms
+        work = wk.list_workspace(n, k, f, b, dev, wide)
+        wk.wave_histogram(Xt, new_lid, w, c, b, exps=exps, work=work)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = wk.wave_histogram(Xt, new_lid, w, c, b, exps=exps,
+                                    work=work)
+        for _ in range(2):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, h3)
 
 
 def test_wide_bins_bundled_route(dev):

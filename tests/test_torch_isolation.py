@@ -1,5 +1,6 @@
 """The port stands alone: lightgbm_tpu_torch, its scripts
-(chip_smoke.py, sparse_model_diff.py, dp_collectives_ab.py) and the examples' CPU shim
+(chip_smoke.py, sparse_model_diff.py, dp_collectives_ab.py,
+wide_hist_ab.py) and the examples' CPU shim
 (tests/torch_cpu_lgb.py) import neither jax nor the JAX package, load no library of the JAX package's (lightgbm_tpu/lib,
 cpp/build), and its CUDA entry points never fall back to the CPU."""
 import ast
@@ -92,6 +93,7 @@ def _sources():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                           REPO / "sparse_model_diff.py",
                                           REPO / "dp_collectives_ab.py",
+                                          REPO / "wide_hist_ab.py",
                                           REPO / "tests" / "torch_cpu_lgb.py"]
     assert len(files) > 10
     return files

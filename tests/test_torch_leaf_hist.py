@@ -131,8 +131,9 @@ def test_leaf_plan_is_b4s_at_one_slot(f, b):
     fit one block's budget, and shares of at least a block's threads of
     rows when every row is listed."""
     n, sms = 2_000_000, 132
-    list_blocks, groups, R, ks, fs, copies, smem = wk.hist_plan(f, n, b, 1,
-                                                                sms)
+    list_blocks, groups, R, ks, fs, copies, smem, ordered = wk.hist_plan(
+        f, n, b, 1, sms)
+    assert not ordered                  # one slot: the slot-sliced pass
     assert ks == 1 and groups * fs >= f > (groups - 1) * fs
     assert copies & (copies - 1) == 0 and 1 <= copies <= wk._MAX_COPIES
     assert smem == copies * fs * b * 3 * 8 <= wk._SMEM_BUDGET

@@ -308,21 +308,26 @@ def test_b5_and_wide_bins_plan_within_the_budget_at_every_width():
     from lightgbm_tpu_torch.ops import wave_kernels as wk
     for B in (16, 63, 64, 255, 256, 1023, 9387, 16383, 65536):
         for wide in (False, True):
-            _, groups, _, ks, fs, copies, sm = wk.hist_plan(
+            _, groups, _, ks, fs, copies, sm, _ = wk.hist_plan(
                 28, 100_000, B, 1, 132, False, wide)
             assert sm <= wk._SMEM_BUDGET <= smem.H100_SMEM_PER_BLOCK
             assert smem._covers_once(wk.bin_tiles(28, B, groups, fs), B)
 
 
 def test_b6_refuses_a_width_it_cannot_plan():
-    # the counterpart of the JAX fallback test: beyond a block's shared
-    # memory B6 refuses loudly instead of planning an oversized block
+    # the counterpart of the JAX fallback test: B6 tiles the bin axis
+    # where one (slot, B, 3) row exceeds a block's shared memory, so it
+    # plans every width the binner makes, and refuses loudly past them
+    # instead of planning an oversized block
     from lightgbm_tpu_torch.ops import sparse_mxu as sm
     from lightgbm_tpu_torch.utils.log import LightGBMError
-    ks, _, smem_bytes = sm.launch_plan(9000, 32)
-    assert ks >= 1 and smem_bytes <= smem.H100_SMEM_PER_BLOCK
-    with pytest.raises(LightGBMError, match="shared memory"):
-        sm.launch_plan(16383, 1)
+    ks, _, smem_bytes, tiles = sm.launch_plan(9000, 32)
+    assert ks >= 1 and tiles == 1
+    assert smem_bytes <= smem.H100_SMEM_PER_BLOCK
+    ks, _, smem_bytes, tiles = sm.launch_plan(16383, 1)
+    assert tiles == 2 and smem_bytes <= smem.H100_SMEM_PER_BLOCK
+    with pytest.raises(LightGBMError, match="bins"):
+        sm.launch_plan(65537, 1)
 
 
 # ------------------------------------------- suppressions and baselines

@@ -283,7 +283,7 @@ def test_packed_launch_plan(n, f, b, k):
     cover the ceil(F/2) packed columns, the shared histogram fits the
     budget, and the byte bins' plan is unchanged."""
     plan = wk.hist_plan(f, n, b, k, 132, True)
-    _, groups, R, ks, fs, copies, smem = plan
+    _, groups, R, ks, fs, copies, smem, _ = plan
     fh = (f + 1) // 2
     assert fs % 2 == 0 and 2 <= fs <= wk._GROUP_MAX
     assert groups * fs // 2 >= fh > (groups - 1) * fs // 2

@@ -184,7 +184,8 @@ def test_b6_launch_plan_bounds(b, k):
     threads, or 1024 where shared memory holds at most two blocks an SM.
     At Bosch's K = 32 and 63 bins: all 32 slots in one 56 KB block (four
     an SM); at 255 bins 32 slots in one 196 KB block of 1024 threads."""
-    ks, threads, smem = tsm.launch_plan(b, k)
+    ks, threads, smem, tiles = tsm.launch_plan(b, k)
+    assert tiles == 1                   # one (slot, b, 3) row fits
     slices = -(-k // ks)
     assert 1 <= ks <= k and (slices - 1) * ks < k
     assert slices == 1 or tsm._smem_bytes(

@@ -228,14 +228,18 @@ def test_rowmajor_wrapper_validates_inputs():
 def _assert_plan_bounds(f, n, b, k, sms=132):
     """The shared plan of B1, B3 and B4: the int64 (KS, FS, B, 3) block
     histogram times its copies fits a block's shared memory (and takes
-    the room one histogram leaves), the feature groups and slot slices
-    cover every feature and slot, the R list shares cover a list of every
-    row, and the list-pass blocks cover the rows (or fill the card)."""
+    the room one histogram leaves; the slot-ordered plan holds one slot
+    and one copy), the feature groups and slot slices cover every feature
+    and slot, the R list shares cover a list of every row, and the
+    list-pass blocks cover the rows (or fill the card)."""
     plan = wk.hist_plan(f, n, b, k, sms)
-    list_blocks, groups, R, ks, fs, copies, smem = plan
+    list_blocks, groups, R, ks, fs, copies, smem, ordered = plan
     assert smem == copies * ks * fs * b * 3 * 8 <= wk._SMEM_BUDGET
     assert copies in (1, 2, 4, 8, 16, 32)
-    assert copies == 32 or 2 * smem > wk._SMEM_BUDGET
+    if ordered:
+        assert (ks, copies) == (1, 1) and 1 < k <= wk._MAX_ORDERED_SLOTS
+    else:
+        assert copies == 32 or 2 * smem > wk._SMEM_BUDGET
     assert 1 <= fs <= wk._GROUP_MAX and groups * fs >= f
     assert (groups - 1) * fs < f
     assert 1 <= ks <= k and -(-k // ks) * ks >= k
@@ -280,8 +284,10 @@ def test_fused_launch_plan_bounds(n, f, b, k):
     the card at 32 warps a SM, and the flagship wave keeps one histogram
     copy in 7 groups of 4 features over 18 list shares."""
     sms = 132
-    _, groups, R, ks, fs, copies, _ = _assert_plan_bounds(f, n, b, k, sms)
-    kslices = -(-k // ks)
+    _, groups, R, ks, fs, copies, _, ordered = _assert_plan_bounds(f, n, b,
+                                                                   k, sms)
+    # the slot-ordered pass's grid has no slot-slice axis
+    kslices = 1 if ordered else -(-k // ks)
     assert R == 1 or groups * kslices * R <= sms * (2048 // wk._HIST_THREADS)
     assert wk._HIST_THREADS // 32 >= 32        # resident warps a block
     if (n, f, b, k) == (2_000_000, 28, 63, 32):
@@ -386,13 +392,15 @@ def test_row_guard_refuses_2_31_rows(n):
 def test_list_buffers_take_the_callers_workspace():
     """Given a workspace (a grower's, sized for its widest call), the
     list passes' buffers point into it -- the list at its start, the
-    fixed-point sums 8 N bytes on -- for any slot count up to its size;
-    a workspace too small or of another dtype raises; without one, each
-    call makes its own."""
+    fixed-point sums 8 N bytes on, then the list's length and the slot
+    counts and cursors of the slot-ordered list -- for any slot count up
+    to its size; a workspace too small or of another dtype raises;
+    without one, each call makes its own."""
     N, K, F, B = 100, 4, 3, 7
     cpu = torch.device("cpu")
     work = wk.list_workspace(N, K, F, B, cpu)
-    assert work.dtype == torch.int64 and work.numel() == N + K * F * B * 3 + 1
+    assert work.dtype == torch.int64
+    assert work.numel() == N + K * F * B * 3 + 1 + 2 * K
     for k, shape in ((1, (F, B, 3)), (K, None)):
         rows, acc, got, hist = wk._list_buffers(N, k, F, B, cpu, shape, work)
         assert got is work and hist.dtype == torch.float32

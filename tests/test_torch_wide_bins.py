@@ -183,7 +183,7 @@ def test_uint16_routing_reads_two_byte_bins():
 def test_hist_plan_bin_tiles_cover_every_bin_once(B, wide):
     for F, K in ((28, 32), (4, 1), (3, 8)):
         plan = wk.hist_plan(F, 2_000_000, B, K, 132, False, wide)
-        _, groups, _, ks, fs, copies, smem = plan
+        _, groups, _, ks, fs, copies, smem, _ = plan
         tiles = wk.bin_tiles(F, B, groups, fs)
         covered = np.zeros(B, int)
         for b0, b1 in tiles:
