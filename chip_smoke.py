@@ -52,8 +52,8 @@ Phases, in order:
     call for the same function and the bound (bytes over 3.35 TB/s, f32
     adds over 67 TFLOP/s, whichever is larger: the published H100 SXM row
     of lightgbm_tpu_torch/obs/roofline.py, which the autotuner's probe
-    stamps divide by too).  --sweep also times B5 at
-    1, 4 and its plan's copies and B6 at 256, 512 and 1024 threads.
+    stamps divide by too).  --sweep also times B5 on B4's chain and B6
+    at 256, 512 and 1024 threads.
  4. Training: bench.py's flagship recipe and data, every launch counter
     set to 0 just before and read just after, on the fused iteration
     (tpu_fused_iter=auto on the card: a tree graph of the gradients, the
@@ -690,8 +690,8 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values,
     # 64-leaf state with bagging-like row multipliers, and the root (leaf
     # 0, every row, the grower's all-ones multipliers).  Each must equal
     # B4 at K = 1 on the same ids, w3 and exponents to the bit, and so must
-    # its launch with one copy of the block histogram; with sweep the
-    # copies 1, 4 and the plan's are timed.
+    # B4's chain at K = 1 (the plan B5 keeps past what one block holds),
+    # timed with sweep.  Then the leaf sizes of check_b5_sizes.
     from lightgbm_tpu_torch.ops.histogram import weight_rows
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     L5 = 64
@@ -702,6 +702,7 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values,
     bag = (torch.rand(N, generator=g) > 0.2).float().to(dev)
     ones = torch.ones(N, device=dev)
     plan = wk.hist_plan(F, N, B, 1, sms)[:6]
+    lplan = lh.leaf_plan(F, B)
     for name, lids, leaf, rm in (("leaf_histogram", lid5, 5, bag),
                                  ("leaf_histogram_root", zeros, 0, ones)):
         leaf_t = torch.full((1,), leaf, dtype=torch.int32, device=dev)
@@ -729,18 +730,16 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values,
                                            float(hess.max()), 1.0))
         need(ok, "%s histogram outside tolerance (max abs err %g)"
              % (name, err))
-        need(torch.equal(lh._launch(X, w35, lids, leaf_t, B, e5,
-                                    plan[:5] + (1,)), h),
-             "%s at one copy not bit-equal" % name)
+        need(torch.equal(lh._launch(X, w35, lids, leaf_t, B, e5, plan), h),
+             "%s on B4's chain not bit-equal" % name)
         # a gated split that does not commit passes a leaf no row holds
         need(not bool(lh.leaf_histogram(
             X, None, None, lids, torch.full_like(leaf_t, -1), None, B,
             w3=w35, exps=e5).any()), "%s of no row is not zero" % name)
         swept = []
-        for c in sorted({1, 4, plan[5]}) if sweep else ():
-            pc = plan[:5] + (c,)
-            swept.append("%d copies %.4f ms" % (c, time_ms(
-                lambda: lh._launch(X, w35, lids, leaf_t, B, e5, pc))))
+        if sweep:
+            swept.append("B4's chain %.4f ms" % time_ms(
+                lambda: lh._launch(X, w35, lids, leaf_t, B, e5, plan)))
         del h, h2
         in_leaf = lids == leaf
         n_leaf = int(in_leaf.sum())
@@ -751,16 +750,17 @@ def kernel_phase(X_t, meta_default_bin, wk, lh, tp, clipped_leaf_values,
                 X, grad, hess, lids, leaf_t, rm, B)),
             library_ms=bincount_ms(X_t, torch.where(in_leaf, 0, -1), wl, B),
             shape="N=%d F=%d B=%d row-major, leaf %d of %d, %d rows in it; "
-                  "plan %s%s"
-                  % (N, F, B, leaf, L5 if leaf else 1, n_leaf, plan,
+                  "one-scan plan %s%s"
+                  % (N, F, B, leaf, L5 if leaf else 1, n_leaf, tuple(lplan),
                      "; sweep: " + ", ".join(swept) if swept else ""),
             # leaf ids of every row; the bins, g, h and row multiplier of
             # the leaf's rows only; the (F, B, 3) output
             nbytes=N * 4 + n_leaf * (F + 12) + 4 + F * B * 12,
             flops=3 * n_leaf * F)
         del wl
-    say("B5 equals B4 at K = 1 to the bit, on its plan and at one copy; "
+    say("B5 equals B4 at K = 1 to the bit, on its plan and on B4's chain; "
         "B5 of a leaf no row holds is exactly zero")
+    say(check_b5_sizes(lh, wk, X, w35, e5, B, "byte %d bins" % B, g))
     del X
 
     # ---- B2: score update (255 leaves, ids clamped, values clipped), in
@@ -1517,6 +1517,22 @@ def check_exact_launches(label, booster, launches, stats, updates=ITERS):
     need(passes > 0 and {k: launches[k] for k in want} == want,
          "%s: launches %s, wanted %s (%d trees, %d split passes)"
          % (label, launches, want, len(stats), passes))
+    # B5's device operations: its plan's a call (the one-scan kernel and
+    # its conversion)
+    import torch
+
+    from lightgbm_tpu_torch.ops import leaf_hist as lh
+    learner = booster._gbdt.learner
+    grower = learner.exact_grower()
+    plan = lh.leaf_plan(grower.hist_cols, grower.hist_bins,
+                        learner.dtype == torch.float64)
+    per = lh.plan_launches(plan)
+    got = DEVICE_LAUNCHES.get("leaf_histogram")
+    need(got == per * want["leaf_histogram"],
+         "%s: B5's device operations %s, wanted %d a call (plan %s)"
+         % (label, got, per, tuple(plan)))
+    say("%s: B5 %d calls, %d device operations (%d a call, plan %s)"
+        % (label, want["leaf_histogram"], got, per, tuple(plan)))
 
 
 def small_exact_order_runs(lgb):
@@ -1564,12 +1580,24 @@ def staged_twin(label, params, text, data, lgb, kernels, card, args):
     return booster, launches, stats
 
 
+# the device operations of the wrappers that count them (B5's
+# device_launches) over the last counted() run
+DEVICE_LAUNCHES = {}
+
+
 def counted(kernels, fn):
     """fn() with every kernel's launch count set to 0 just before; returns
-    (fn's result, {kernel: its launches during fn})."""
+    (fn's result, {kernel: its launches during fn}).  The device
+    operations of the wrappers that count them land in DEVICE_LAUNCHES."""
     for k in kernels.values():
         k.launches = 0
+        if hasattr(k, "device_launches"):
+            k.device_launches = 0
     out = fn()
+    DEVICE_LAUNCHES.clear()
+    DEVICE_LAUNCHES.update({name: k.device_launches
+                            for name, k in kernels.items()
+                            if hasattr(k, "device_launches")})
     return out, {name: k.launches for name, k in kernels.items()}
 
 
@@ -3828,6 +3856,69 @@ def f64_err(got, plain):
     return float(diff.max()), bool((diff <= tol).all())
 
 
+# B5's leaf sizes (wide_hist_ab.py --b5): no row, ~N/4096, ~N/64, the root
+B5_SIZES = ("none", "n/4096", "n/64", "root")
+
+
+def check_b5_sizes(lh, wk, X, w3, exps, B, tag, g):
+    """B5 on X's rows and the weight rows w3 at B5_SIZES (leaf ids over 64
+    leaves, leaf 2 holding ~N/4096 rows and leaf 1 ~N/64; every row in
+    leaf 0), given a grower's workspace: bit-equal to B4 at K = 1, within
+    the tolerance of its plain version in float64 (f64_err's for float64
+    weights, else hist_err's), the workspace's sums zero
+    after each call, and for f32 weights the deferred form's sums,
+    converted by the finish alone, the finished histogram.  Returns a
+    note."""
+    import torch
+    dev = X.device
+    N, F = X.shape
+    lid = torch.randint(3, 64, (N,), generator=g, dtype=torch.int32)
+    lid[torch.randperm(N, generator=g)[:N // 64]] = 1
+    lid[torch.randperm(N, generator=g)[:N // 4096]] = 2
+    lid = lid.to(dev)
+    roots = torch.zeros_like(lid)
+    wide = w3.dtype == torch.float64
+    work = wk.list_workspace(N, 1, F, B, dev, wide, rowmajor=True)
+    words = wk.leaf_sum_words(F, B, wide)
+    w64 = w3.double()
+    wmax = max(float(w3.abs().max()), 1.0)
+    plan = lh.leaf_plan(F, B, wide)
+    errs = []
+    for size, ids, leaf in zip(B5_SIZES, (lid, lid, lid, roots),
+                               (-1, 2, 1, 0)):
+        leaf_t = torch.full((1,), leaf, dtype=torch.int32, device=dev)
+        h = lh.leaf_histogram(X, None, None, ids, leaf_t, None, B, w3=w3,
+                              exps=exps, work=work)
+        need(torch.equal(h, wk.wave_histogram_rowmajor(
+            X, ids, w3, leaf_t, B, exps=exps)[0]),
+            "%s: B5 at leaf size %s is not B4 at K = 1 to the bit"
+            % (tag, size))
+        need(not bool(work[work.numel() - words:].any()),
+             "%s: B5 at leaf size %s left its sums non-zero" % (tag, size))
+
+        def plain(absolute, ids=ids, leaf_t=leaf_t):
+            return wk.wave_histogram_rowmajor_plain(
+                X, ids, w64.abs() if absolute else w64, leaf_t, B)[0]
+        plain.wmax = wmax
+        err, ok = f64_err(h, plain) if wide else hist_err(h, plain, wmax)
+        need(ok, "%s: B5 at leaf size %s outside tolerance (max abs err %g)"
+             % (tag, size, err))
+        errs.append(err)
+        if not wide:
+            sums = lh.leaf_histogram(X, None, None, ids, leaf_t, None, B,
+                                     w3=w3, exps=exps, work=work,
+                                     finish=False)
+            need(torch.equal(wk.finish_hist(sums, leaf_t, exps)
+                             .reshape(h.shape), h),
+                 "%s: B5's deferred sums at leaf size %s do not finish to "
+                 "its histogram" % (tag, size))
+    return ("%s: B5 (plan %s) at leaf sizes %s bit-equal to B4 at K = 1, "
+            "max abs err %s against plain, sums zero after each call%s"
+            % (tag, tuple(plan), "/".join(B5_SIZES),
+               "/".join("%.3g" % e for e in errs),
+               "" if wide else ", deferred sums finish to it"))
+
+
 def wide_kernel_phase(X_t, default_bin, X63_t, default_bin63, X4_t,
                       byte255, wk, lh):
     """Phases 2 and 3 for the kernels' uint16 and f64 forms, the wide
@@ -3900,6 +3991,7 @@ def wide_kernel_phase(X_t, default_bin, X63_t, default_bin63, X4_t,
         need(torch.equal(h3, h1) and torch.equal(h4, h3)
              and torch.equal(h5, h4[0]),
              "%s: B3, B4, B5 not B1's histogram to the bit" % tag)
+        notes.append(check_b5_sizes(lh, wk, X, w3, exps, B, tag, g))
         need(torch.equal(h1, scatter_histogram(X, new_lid, w3, cid, B, exps))
              and torch.equal(h3r, scatter_histogram(X, zeros, w3, root, B,
                                                     exps)),
@@ -3950,17 +4042,20 @@ def wide_kernel_phase(X_t, default_bin, X63_t, default_bin63, X4_t,
                 nbytes = N * 4 + kc * 4
             del xi
             plan = wk.hist_plan(F, N, B, kc, sms, False, wide)
+            how = ("plan %s (%s), bin tiles %d, %d reads a listed row"
+                   % (tuple(plan[:6]),
+                      "slot-ordered" if plan.ordered else "slot-sliced",
+                      len(wk.bin_tiles(F, B, plan[1], plan[4])),
+                      wk.plan_reads(plan, kc)))
+            if name == "leaf_histogram" and lh.leaf_plan(F, B, wide).fused:
+                how = "one-scan plan %s" % (tuple(lh.leaf_plan(F, B, wide)),)
             record("%s_%s" % (name, tag), err, call, pl, lib,
                    "N=%d F=%d B=%d K=%d (%s bins, %s weights)%s, %d rows in "
-                   "a child slot; plan %s (%s), bin tiles %d, %d reads a "
-                   "listed row"
+                   "a child slot; %s"
                    % (N, F, B, kc, X_t.dtype, w3.dtype,
                       ", row-major" if name in ("wave_histogram_rowmajor",
                                                 "leaf_histogram") else "",
-                      n_act, tuple(plan[:6]),
-                      "slot-ordered" if plan.ordered else "slot-sliced",
-                      len(wk.bin_tiles(F, B, plan[1], plan[4])),
-                      wk.plan_reads(plan, kc)),
+                      n_act, how),
                    nbytes + n_act * (F * bb + wb) + kc * F * B * wb,
                    3 * n_act * F)
         del X
@@ -4866,8 +4961,9 @@ def dist_kernel_phase(X_t, default_bin, wk, lh):
         plain_ms=time_ms(lambda: wk.wave_histogram_rowmajor_plain(
             X, lid5, w35, leaf, B)),
         library_ms=bincount_ms(X_t, s5, w35, B),
-        shape="N=%d F=%d B=%d, one leaf of 64 (%d rows); halves bit-equal "
-              "to the union" % (N, F, B, rows5),
+        shape="N=%d F=%d B=%d, one leaf of 64 (%d rows); one-scan plan %s; "
+              "halves bit-equal to the union"
+              % (N, F, B, rows5, tuple(lh.leaf_plan(F, B))),
         nbytes=N * 4 + rows5 * (F + 12) + F * B * 3 * 8,
         flops=3 * rows5 * F)
     # the finish alone: K x F x B x 3 int64 sums to f32; its plain
@@ -5484,9 +5580,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase 9's ranking data")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time B5 at 1, 4 and its plan's copies of the "
-                         "block histogram and B6 at 256, 512 and 1024 "
-                         "threads a block")
+                    help="also time B5 on B4's chain and B6 at 256, 512 "
+                         "and 1024 threads a block")
     args = ap.parse_args()
     need(1000 <= args.rows <= 10_500_000, "--rows must be in [1000, 10.5M]")
     need(1000 <= args.sparse_rows <= 2_000_000,
@@ -5858,7 +5953,7 @@ def main():
                "wave_histogram_rowmajor": (
                    "lightgbm_tpu_torch/csrc/wave_fused.cu",
                    "lightgbm_tpu/ops/pallas_wave.py:263"),
-               "leaf_histogram": ("lightgbm_tpu_torch/csrc/wave_fused.cu",
+               "leaf_histogram": ("lightgbm_tpu_torch/csrc/leaf_hist.cu",
                                   "lightgbm_tpu/ops/pallas_hist.py:163"),
                "sparse_wave_histogram": (
                    "lightgbm_tpu_torch/csrc/sparse_hist.cu",
@@ -5886,6 +5981,9 @@ def main():
         base = next(k for k in sorted(sources, key=len, reverse=True)
                     if name.startswith(k))
         src, repl = sources[base]
+        if base == "leaf_histogram" and "one-scan" not in records[name][
+                "shape"]:
+            src = sources["wave_histogram_rowmajor"][0]   # B4's chain
         r = records[name]
         if name in form_own:
             launches_of = form_launches[form_own[name]][name]

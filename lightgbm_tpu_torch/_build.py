@@ -157,6 +157,12 @@ def library() -> ctypes.CDLL:
         lib.lgbt_sparse_hist.restype = ci
         lib.lgbt_sparse_hist_smem.argtypes = [ci] * 2
         lib.lgbt_sparse_hist_smem.restype = cll
+        lib.lgbt_leaf_hist.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+        lib.lgbt_leaf_hist.restype = ci
+        lib.lgbt_leaf_smem.argtypes = [ci] * 3
+        lib.lgbt_leaf_smem.restype = cll
+        lib.lgbt_leaf_static_smem.argtypes = []
+        lib.lgbt_leaf_static_smem.restype = cll
         _lib = lib
         return lib
 

@@ -3,9 +3,11 @@ autotuner's shape grid, against the H100's shared memory.
 
 The counterpart of the JAX package's ``analysis/vmem.py``, which sweeps
 its Pallas tile planners against the TPU's VMEM: this pass imports the
-port's planners -- ``ops/wave_kernels.py hist_plan`` (B1, B3, B4 and
-B5, whose histogram pass is B4's at K = 1) and ``bin_tiles``, and
-``ops/sparse_mxu.py launch_plan`` (B6) -- and evaluates them on the CPU
+port's planners -- ``ops/wave_kernels.py hist_plan`` (B1, B3, B4, and
+B5 where one block cannot hold its cells) and ``bin_tiles``,
+``ops/leaf_hist.py leaf_plan`` (B5's one-scan kernel: one block holding
+a leaf's (F, B, 3) cells) and ``ops/sparse_mxu.py launch_plan`` (B6) --
+and evaluates them on the CPU
 over the grid the autotuner and the binner produce: columns 8, 28, 40,
 136, 700, 968 and 2000, bins 16 to 65,536 (1023 and 16383 among them),
 child slots from the wave-width ladder (and K = 1, the root and B5), in
@@ -174,8 +176,41 @@ def _check_sparse(modules, findings) -> None:
                     "keep one block within _SMEM_PER_SM"))
 
 
+def _check_leaf(modules, findings) -> None:
+    from ..ops import leaf_hist as lh
+    from ..ops import wave_kernels as wk
+
+    path = "lightgbm_tpu_torch/ops/leaf_hist.py"
+    line = _def_line(modules, "ops/leaf_hist.py", "leaf_plan")
+    budget = min(lh.LEAF_SMEM_BUDGET, H100_SMEM_PER_BLOCK)
+    for form, packed, wide in FORMS:
+        if packed:                      # B5 takes no packed bins
+            continue
+        for F in NCOLS_GRID:
+            for B in _form_bins(form):
+                plan = lh.leaf_plan(F, B, wide)
+                if not plan.fused:      # B4's plan, swept above
+                    continue
+                where = "%s form, F=%d B=%d" % (form, F, B)
+                used = plan.smem + lh.LEAF_STATIC_SMEM
+                if plan.smem > budget or used > H100_SMEM_PER_BLOCK:
+                    findings.append(Finding(
+                        "smem-budget", PASS_NAME, path, line,
+                        "B5 block claims %d bytes (%d with its static "
+                        "shared memory) > %d at %s"
+                        % (plan.smem, used, budget, where),
+                        "leave the shape to B4's plan"))
+                if wk._SMEM_PER_SM // (used + 1024) < 1:
+                    findings.append(Finding(
+                        "smem-resident", PASS_NAME, path, line,
+                        "no B5 block of %d bytes is resident on an SM at %s"
+                        % (used, where),
+                        "keep one block within _SMEM_PER_SM"))
+
+
 def run(modules: List[SourceModule], repo_root: str) -> List[Finding]:
     findings: List[Finding] = []
     _check_dense(modules, findings)
+    _check_leaf(modules, findings)
     _check_sparse(modules, findings)
     return list(dict.fromkeys(findings))

@@ -17,11 +17,19 @@ chunk plans, sketch and mappers this module reproduces bit for bit:
           or write binned shards straight to disk (``out_dir``: no bin
           data crosses the pipe)
 
-Both passes fan out over a fork-based multiprocessing pool: the sources
-are inherited copy-on-write and nothing large is pickled.  A worker does
-numpy work only — no torch operation, nothing that touches CUDA — so the
-pool may fork a process that already trains on the card.  That is why
-this module imports numpy and the port's ``io/`` and ``utils/`` only.
+Both passes fan out over forked worker processes (``_run_pool``): the
+sources are inherited copy-on-write and nothing large is pickled.  A
+worker does numpy work only — no torch operation, nothing that touches
+CUDA — so it may be forked from a process that already trains on the
+card.  That is why this module imports numpy and the port's ``io/`` and
+``utils/`` only.  Each worker takes a fixed share of the tasks and sends
+its results over a pipe of its own: the workers share no lock and no
+queue with the parent, so a worker forked while another thread of the
+parent held a lock has none of the parent's locks to wait on, and its
+SIGTERM is the default again (a Python handler the parent installed
+cannot run in a child blocked in C).  The parent waits at most
+``POOL_TASK_SECONDS`` for each task: a worker that gives no result in
+time is named in a ``LightGBMError`` and every worker is killed.
 Platforms without fork, or ``ooc_workers=1``, run the same code
 serially.  Peak host RSS is O(chunk + sample), never O(N x F) floats.
 
@@ -33,14 +41,16 @@ from __future__ import annotations
 import io
 import multiprocessing as mp
 import os
+import signal
 import sys
 import time
 import warnings
+from multiprocessing.connection import wait as _wait_conns
 from typing import List, Optional
 
 import numpy as np
 
-from ..utils.log import Log
+from ..utils.log import LightGBMError, Log
 from ..utils.random import Random
 from . import binned_format
 from . import parser as _parser
@@ -397,6 +407,10 @@ class SampleSketch:
 # worker pool: fork-shared state, serial fallback
 
 _WSTATE: dict = {}
+# the longest a worker may take over one task (a chunk of at most
+# CHUNK_BYTES of text or DEFAULT_CHUNK_ROWS rows) before the pool is
+# killed: the wait is bounded in proportion to the tasks a worker holds
+POOL_TASK_SECONDS = 300.0
 
 
 def _init_worker(state: dict):
@@ -421,7 +435,36 @@ def resolve_workers(config, num_tasks: Optional[int] = None) -> int:
     return max(w, 1)
 
 
+def _worker_main(conn, fn, tasks, mine, state) -> None:
+    """A forked worker: tasks[i] for i in mine, in order, each result (or
+    the exception that ended the worker) sent as (i, ok, value)."""
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    _init_worker(state)
+    try:
+        for i in mine:
+            try:
+                out = (i, True, fn(tasks[i]))
+            except BaseException as e:      # handed to the parent
+                out = (i, False, e)
+            try:
+                conn.send(out)
+            except Exception as e:          # an unpicklable result
+                conn.send((i, False, LightGBMError(
+                    "streaming task %d: %s" % (i, e))))
+                break
+            if not out[1]:
+                break
+    finally:
+        conn.close()
+
+
 def _run_pool(workers: int, fn, tasks, state: dict) -> list:
+    """[fn(t) for t in tasks] over `workers` forked processes (serially
+    with one worker, one task or no fork): worker w takes tasks w, w +
+    workers, ..., each result comes back over its own pipe.  A worker
+    that gives no result within POOL_TASK_SECONDS of its last one, or
+    exits without one, raises a LightGBMError naming the task; the
+    workers are killed on every way out."""
     tasks = list(tasks)
     if workers <= 1 or len(tasks) <= 1 or not _fork_available():
         _init_worker(state)
@@ -430,13 +473,60 @@ def _run_pool(workers: int, fn, tasks, state: dict) -> list:
         finally:
             _WSTATE.clear()
     ctx = mp.get_context("fork")
-    with warnings.catch_warnings():
-        # fork-with-threads warnings (torch's intra-op threads); the
-        # workers only run numpy over inherited read-only arrays
-        warnings.simplefilter("ignore")
-        with ctx.Pool(min(workers, len(tasks)), initializer=_init_worker,
-                      initargs=(state,)) as pool:
-            return pool.map(fn, tasks, chunksize=1)
+    n = min(workers, len(tasks))
+    results: list = [None] * len(tasks)
+    procs, todo, since = [], {}, {}
+    try:
+        with warnings.catch_warnings():
+            # fork-with-threads warnings (torch's intra-op threads); the
+            # workers only run numpy over inherited read-only arrays
+            warnings.simplefilter("ignore")
+            for w in range(n):
+                recv, send = ctx.Pipe(duplex=False)
+                mine = list(range(w, len(tasks), n))
+                p = ctx.Process(target=_worker_main,
+                                args=(send, fn, tasks, mine, state),
+                                daemon=True)
+                p.start()
+                send.close()
+                procs.append(p)
+                todo[recv] = mine
+                since[recv] = time.monotonic()
+        while todo:
+            now = time.monotonic()
+            late = min(todo, key=lambda c: since[c])
+            left = since[late] + POOL_TASK_SECONDS - now
+            if left <= 0:
+                i = todo[late][0]
+                raise LightGBMError(
+                    "streaming worker gave no result for task %d (%r) "
+                    "within %.0f s; the workers were killed"
+                    % (i, tasks[i], POOL_TASK_SECONDS))
+            for conn in _wait_conns(list(todo), timeout=left):
+                i = todo[conn][0]
+                try:
+                    j, ok, value = conn.recv()
+                except EOFError:
+                    raise LightGBMError(
+                        "streaming worker exited without a result for "
+                        "task %d (%r)" % (i, tasks[i])) from None
+                if not ok:
+                    raise value
+                results[j] = value
+                todo[conn].pop(0)
+                since[conn] = time.monotonic()
+                if not todo[conn]:
+                    del todo[conn], since[conn]
+                    conn.close()
+        return results
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        for p in procs:
+            p.join()
+        for conn in todo:
+            conn.close()
 
 
 def _sketch_task(desc):

@@ -64,14 +64,18 @@ from .wave_kernels import (finish_hist, fixed_point_exponents,
 # conversion alone, which only the distributed learners launch)
 KERNELS = (wave_partition_hist, wave_histogram, wave_histogram_rowmajor,
            leaf_histogram, sparse_wave_histogram, score_update, finish_hist)
-# each wrapper's count, and the counts of its packed and bf16 forms
+# each wrapper's count, the counts of its forms, and the device
+# operations of the wrappers that count them (B5's device_launches)
+DEVICE = "device"
 COUNTERS = ([(k, None) for k in KERNELS]
             + [(k, form) for k in KERNELS
-               for form in sorted(getattr(k, "form_launches", {}))])
+               for form in sorted(getattr(k, "form_launches", {}))]
+            + [(k, DEVICE) for k in KERNELS if hasattr(k, "device_launches")])
 
 
 def _counts() -> list:
-    return [k.launches if form is None else k.form_launches[form]
+    return [k.launches if form is None else k.device_launches
+            if form == DEVICE else k.form_launches[form]
             for k, form in COUNTERS]
 
 
@@ -80,6 +84,8 @@ def _set_counts(base, deltas) -> None:
     for (k, form), b, d in zip(COUNTERS, base, deltas):
         if form is None:
             k.launches = b + d
+        elif form == DEVICE:
+            k.device_launches = b + d
         else:
             k.form_launches[form] = b + d
 # gated splits a graph holds under exact growth (S): a read each S

@@ -481,6 +481,12 @@ def _compact_words(N, F, wide, bin_bytes, packed=False):
     return N * (-(-((32 if wide else 16) + fd * bin_bytes) // 32) * 4) + 16
 
 
+def leaf_sum_words(F, B, wide: bool = False) -> int:
+    """int64 words of B5's one-scan sums (``ops/leaf_hist.py``): the (F,
+    B, 3) fixed-point sums, two words each when wide."""
+    return F * B * 3 * (2 if wide else 1)
+
+
 def list_workspace(N, K, F, B, dev, wide: bool = False,
                    rowmajor: bool = False):
     """The list passes' int64 workspace for N rows and up to K child
@@ -489,15 +495,21 @@ def list_workspace(N, K, F, B, dev, wide: bool = False,
     the list's length, K slot counts and K cursors, and, where the plan
     at (F, N, B, K) is slot-ordered (``hist_plan``) on the transposed
     bins X_t (B1, B3; not rowmajor, B4), the compact rows of the listed
-    rows' weights and bins (uint16 past 256 bins).  A grower
-    keeps one in its state and hands it to every call, so a call inside a
-    CUDA graph capture allocates none; launches on one stream run in
-    order, so they may share it, and it is freed with the state."""
+    rows' weights and bins (uint16 past 256 bins).  Its last
+    ``leaf_sum_words`` words are B5's sums, zeroed here: B5's conversion
+    leaves them zero after each finished call, and no other kernel
+    touches them.  A grower keeps one in its state and
+    hands it to every call, so a call inside a CUDA graph capture
+    allocates none; launches on one stream run in order, so they may
+    share it, and it is freed with the state."""
     size = _work_size(N, K, F, B, wide)
     if (dev.type == "cuda" and not rowmajor
             and hist_plan(F, N, B, K, _sms(dev), False, wide).ordered):
         size += _compact_words(N, F, wide, 2 if B > 256 else 1)
-    return torch.empty(size, dtype=torch.int64, device=dev)
+    tail = leaf_sum_words(F, B, wide)
+    work = torch.empty(size + tail, dtype=torch.int64, device=dev)
+    work[size:].zero_()
+    return work
 
 
 def _list_buffers(N, K, F, B, dev, hist_shape=None, work=None,

@@ -22,9 +22,11 @@ def test_digest_covers_sources_and_headers(tmp_path, monkeypatch):
 
 
 def test_package_sources_are_the_kernels():
-    """The sources the build compiles: one file for the dense histogram
-    kernels (B1, B3, B4 and B5) beside those of B2 and B6, and the
-    fixed-point header the two histogram sources share."""
+    """The sources the build compiles: B5's one-scan kernel, one file for
+    the dense wave histogram kernels (B1, B3, B4, and B5 past what a
+    cluster holds) beside those of B2 and B6, and the fixed-point header
+    the three histogram sources share."""
     assert [p.name for p in _build._sources()] == [
-        "score_update.cu", "sparse_hist.cu", "wave_fused.cu"]
+        "leaf_hist.cu", "score_update.cu", "sparse_hist.cu",
+        "wave_fused.cu"]
     assert "fixed_point.cuh" in [p.name for p in _build._inputs()]

@@ -32,8 +32,9 @@ from lightgbm_tpu_torch.ops.partition import clipped_leaf_values
 from lightgbm_tpu_torch.utils.common import kMaxTreeOutput
 from lightgbm_tpu_torch.ops.histogram import weight_rows
 from lightgbm_tpu_torch.ops.pack import pack4_host
-from torch_cases import (LEAF_CASES, NO_CACHE, SAMPLED, SCORE_CASES,
+from torch_cases import (LEAF_CASES, LEAF_FORMS, LEAF_SIZES, NO_CACHE, SAMPLED, SCORE_CASES,
                          assert_hist_close, bundled_case, labels, leaf_case,
+                         leaf_size_case,
                          parity_data, parity_params, score_case,
                          sparse_bundled_case, sparse_case, t, unbundled_case,
                          wave_data)
@@ -584,14 +585,16 @@ def test_rowmajor_hist_kernel_matches_plain(dev, k):
 @pytest.mark.parametrize("copies", [0, 1])
 def test_leaf_hist_kernel_matches_plain(dev, n, f, b, kind, leaf, copies):
     """B5 on the CPU cases, and a wide shape (968 features at 255 bins,
-    many feature groups), through the wrapper (B4's plan at K = 1) and
-    launched on that plan with its copies (0) or one copy, each with the
-    weight rows and exponents built inside and handed in: within the
-    float64 tolerance, bit-identical across plans, repeats and the two
-    ways of calling."""
+    past what a cluster holds: B4's plan, many feature groups), through
+    the wrapper (its plan, ``leaf_plan``) and launched as B4's chain at K
+    = 1 with that plan's copies (0) or one copy, each with the weight
+    rows and exponents built inside and handed in: within the float64
+    tolerance, bit-identical across plans, repeats and the two ways of
+    calling."""
     X, g, h, lid, rm = leaf_case(n, f, b, kind)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = wk.hist_plan(f, n, b, 1, sms)[:6]
+    assert bool(lh.leaf_plan(f, b).fused) == (f != 968)
     if f == 968:
         assert plan[1] > 1                 # more than one feature group
     dargs = [t(a).to(dev) for a in (X, g, h, lid)]
@@ -2660,3 +2663,148 @@ def test_elastic_drill_on_the_card(dev, tmp_path):
                       init_model=lgbt.Booster(model_str=head, device=dev),
                       device=dev)
     assert cont.model_to_string() == text
+
+
+# ------------------------------------------------ B5, the one-scan kernel
+def _leaf_form(dev, n, f, b, form, size, seed=0):
+    """A leaf_size_case on the card: X, leaf ids, w3, the leaf as a (1,)
+    int32 tensor, the exponents, a grower's workspace."""
+    X, lid, w3, leaf = leaf_size_case(n, f, b, form, size, seed)
+    Xd, lidd, w3d = (t(a).to(dev) for a in (X, lid, w3))
+    leaf_t = torch.full((1,), leaf, dtype=torch.int32, device=dev)
+    work = wk.list_workspace(n, 1, f, b, dev, form == "f64", rowmajor=True)
+    return Xd, lidd, w3d, leaf_t, wk.fixed_point_exponents(w3d), work
+
+
+def _leaf_tail(work, f, b, wide):
+    return work[work.numel() - wk.leaf_sum_words(f, b, wide):]
+
+
+@pytest.mark.parametrize("size", LEAF_SIZES)
+@pytest.mark.parametrize("b,form", LEAF_FORMS)
+def test_leaf_one_scan_every_form_bit_equal_to_b4(dev, b, form, size):
+    """B5 in every form (the one-scan kernel: byte at 63 and 255 bins,
+    f64 at 63; B4's plan where one block cannot hold the cells: uint16
+    at 1023, f64 at 255 and 1023) at every leaf size (no row, ~N/4096,
+    ~N/64, the root): bit-equal to B4 at K = 1 on the same ids, weights
+    and exponents, within the float64 tolerance of the plain version,
+    two back-to-back calls bit-identical, and the workspace's sums and
+    zero again after each call."""
+    n, f = 300_000, 28
+    wide = form == "f64"
+    X, lid, w3, leaf, exps, work = _leaf_form(dev, n, f, b, form, size)
+    plan = lh.leaf_plan(f, b, wide)
+    assert bool(plan.fused) == (b <= (63 if wide else 255))
+    got = lh.leaf_histogram(X, None, None, lid, leaf, None, b, w3=w3,
+                            exps=exps, work=work)
+    again = lh.leaf_histogram(X, None, None, lid, leaf, None, b, w3=w3,
+                              exps=exps, work=work)
+    b4 = wk.wave_histogram_rowmajor(X, lid, w3, leaf, b, exps=exps)[0]
+    torch.cuda.synchronize()
+    assert got.dtype == w3.dtype and got.shape == (f, b, 3)
+    assert torch.equal(got, b4) and torch.equal(got, again)
+    assert not bool(_leaf_tail(work, f, b, wide).any())
+    assert bool(got.any()) == (size != "none")
+    w64 = w3.double()
+
+    def plain(w):
+        return wk.wave_histogram_rowmajor_plain(X, lid, w, leaf, b)[0].cpu()
+    assert _within_f64(got, plain(w64), plain(w64.abs()),
+                       max(float(w3.abs().max()), 1.0))
+
+
+@pytest.mark.parametrize("b,form", LEAF_FORMS)
+def test_leaf_one_scan_graph_replays_give_the_same_bits(dev, b, form):
+    """Three B5 calls (the root, ~N/64 rows, no row) captured in one CUDA
+    graph on one workspace and replayed twice give the eager calls'
+    histograms to the bit: each call leaves the sums zero
+    for the next."""
+    n, f = 200_000, 28
+    X, lid, w3, leaf, exps, work = _leaf_form(dev, n, f, b, form, "n/64")
+    root_ids = torch.zeros_like(lid)
+    calls = ((root_ids, torch.zeros_like(leaf)), (lid, leaf),
+             (lid, torch.full_like(leaf, -1)))
+
+    def run():
+        return [lh.leaf_histogram(X, None, None, ids, lf, None, b, w3=w3,
+                                  exps=exps, work=work) for ids, lf in calls]
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(2):
+        for o in outs:
+            o.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+    assert not bool(_leaf_tail(work, f, b, form == "f64").any())
+
+
+@pytest.mark.parametrize("b,form", LEAF_FORMS)
+def test_leaf_deferred_sums_finish_to_the_finished_histogram(dev, b, form):
+    """The deferred form's int64 sums (a memset and the kernel, no
+    conversion), converted by finish_hist, are the finished call's
+    histogram to the bit; the f64 form's come as (low, high) words."""
+    n, f = 200_000, 28
+    wide = form == "f64"
+    X, lid, w3, leaf, exps, work = _leaf_form(dev, n, f, b, form, "n/64")
+    one = lh.leaf_histogram(X, None, None, lid, leaf, None, b, w3=w3,
+                            exps=exps, work=work)
+    sums = lh.leaf_histogram(X, None, None, lid, leaf, None, b, w3=w3,
+                             exps=exps, work=work, finish=False)
+    assert sums.dtype == torch.int64
+    assert sums.shape == ((1, f, b, 3, 2) if wide else (1, f, b, 3))
+    assert torch.equal(wk.finish_hist(sums, leaf, exps)[0], one)
+    # a finished call after a deferred one on the same workspace
+    assert torch.equal(lh.leaf_histogram(X, None, None, lid, leaf, None, b,
+                                         w3=w3, exps=exps, work=work), one)
+
+
+@pytest.mark.parametrize("b,form", LEAF_FORMS)
+@pytest.mark.parametrize("finish", [True, False])
+def test_leaf_device_launches_within_the_design(dev, b, form, finish,
+                                                tmp_path):
+    """Each B5 call's device operations given a workspace, counted as the
+    nodes of a CUDA graph that captures five calls (its debug dump):
+    ``plan_launches`` -- two for the one-scan kernel (the kernel and its
+    conversion, or a memset and the kernel when deferred), four for B4's
+    chain -- and the wrapper's device_launches counter adds exactly
+    that; the graph replays the eager calls' histogram.  (torch.profiler
+    was not used: on the card it dropped kernel records once earlier
+    tests of the file had profiled.)"""
+    import re
+    n, f, calls = 100_000, 28, 5
+    X, lid, w3, leaf, exps, work = _leaf_form(dev, n, f, b, form, "n/64")
+    plan = lh.leaf_plan(f, b, form == "f64")
+    want = lh.plan_launches(plan, finish)
+    assert want <= (2 if plan.fused else 4)
+    lib = _build.library()
+    assert lib.lgbt_leaf_static_smem() == lh.LEAF_STATIC_SMEM
+    if plan.fused:
+        assert lib.lgbt_leaf_smem(f, b, int(form == "f64")) == plan.smem
+
+    def call():
+        return lh.leaf_histogram(X, None, None, lid, leaf, None, b, w3=w3,
+                                 exps=exps, work=work, finish=finish)
+    eager = call().clone()
+    torch.cuda.synchronize()
+    d0 = lh.leaf_histogram.device_launches
+    try:        # keep the captured cudaGraph_t for its dump
+        graph, keep = torch.cuda.CUDAGraph(keep_graph=True), True
+    except TypeError:
+        graph, keep = torch.cuda.CUDAGraph(), False
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        outs = [call() for _ in range(calls)]
+    assert lh.leaf_histogram.device_launches - d0 == calls * want
+    if keep:
+        graph.instantiate()             # before the dump frees the graph
+    dot = tmp_path / "b5.dot"
+    graph.debug_dump(str(dot))
+    nodes = set(re.findall(r"graph_\d+_node_\d+", dot.read_text()))
+    assert len(nodes) == calls * want, dot.read_text()[:2000]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, eager) for o in outs)

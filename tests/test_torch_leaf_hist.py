@@ -124,17 +124,24 @@ def test_kernel_arguments_keep_the_plain_result(n, f, b, kind, leaf):
 
 
 @pytest.mark.parametrize("f,b", [(28, 63), (968, 255), (5, 14)])
-def test_leaf_plan_is_b4s_at_one_slot(f, b):
-    """B5 launches on B4's plan at K = 1 for every leaf (a short list
-    takes fewer of its shares on the device): one slot, feature groups
-    covering F, a power-of-two count of copies whose shared histograms
-    fit one block's budget, and shares of at least a block's threads of
-    rows when every row is listed."""
-    n, sms = 2_000_000, 132
-    list_blocks, groups, R, ks, fs, copies, smem, ordered = wk.hist_plan(
-        f, n, b, 1, sms)
-    assert not ordered                  # one slot: the slot-sliced pass
-    assert ks == 1 and groups * fs >= f > (groups - 1) * fs
-    assert copies & (copies - 1) == 0 and 1 <= copies <= wk._MAX_COPIES
-    assert smem == copies * fs * b * 3 * 8 <= wk._SMEM_BUDGET
-    assert 1 <= R and R * wk._HIST_THREADS <= n and list_blocks >= 1
+def test_leaf_plan_holds_the_leaf_in_one_block(f, b):
+    """B5's plan at the flagship's 28 features and 63 bins, and at 5 x 14,
+    holds every feature's cells in one block, a call being the kernel and
+    its conversion (a memset and the kernel when deferred); at 968 features of 255 bins one block cannot hold
+    them, and B5 takes B4's plan at K = 1 (one slot, feature groups
+    covering F, shares of at least a block's threads of rows)."""
+    sms = 132                           # an H100's SMs
+    plan = lh.leaf_plan(f, b)
+    if f == 968:
+        assert not plan.fused and lh.plan_launches(plan) == 4
+        assert f * b * 24 > lh.LEAF_SMEM_BUDGET
+        n = 2_000_000
+        list_blocks, groups, R, ks, fs, copies, smem, ordered = \
+            wk.hist_plan(f, n, b, 1, sms)
+        assert not ordered and ks == 1 and groups * fs >= f
+        assert smem == copies * fs * b * 3 * 8 <= wk._SMEM_BUDGET
+        assert 1 <= R and R * wk._HIST_THREADS <= n
+        return
+    assert plan.fused and plan.smem == f * b * 24 <= lh.LEAF_SMEM_BUDGET
+    assert lh.plan_launches(plan) == 2
+    assert lh.plan_launches(plan, finish=False) == 2

@@ -279,7 +279,8 @@ def test_smem_catches_a_lowered_budget(monkeypatch):
     found = smem.run([], REPO_ROOT)
     assert set(rules_of(found)) == {"smem-budget"}
     assert {f.file for f in found} == {
-        PKG + "/ops/wave_kernels.py", PKG + "/ops/sparse_mxu.py"}
+        PKG + "/ops/wave_kernels.py", PKG + "/ops/sparse_mxu.py",
+        PKG + "/ops/leaf_hist.py"}
 
 
 def test_smem_catches_a_planner_regression(monkeypatch):
@@ -306,12 +307,20 @@ def test_b5_and_wide_bins_plan_within_the_budget_at_every_width():
     # histogram pass at K = 1) plans within the budget at every bin
     # width the binner makes, with tiles that cover the bins once
     from lightgbm_tpu_torch.ops import wave_kernels as wk
+    # (where one block cannot hold its cells), and its one-scan plan
+    # holds them in one block within an H100 block's opt-in
+    from lightgbm_tpu_torch.ops import leaf_hist as lh
     for B in (16, 63, 64, 255, 256, 1023, 9387, 16383, 65536):
         for wide in (False, True):
             _, groups, _, ks, fs, copies, sm, _ = wk.hist_plan(
                 28, 100_000, B, 1, 132, False, wide)
             assert sm <= wk._SMEM_BUDGET <= smem.H100_SMEM_PER_BLOCK
             assert smem._covers_once(wk.bin_tiles(28, B, groups, fs), B)
+            plan = lh.leaf_plan(28, B, wide)
+            assert plan.fused == (28 * B * (48 if wide else 24)
+                                  <= lh.LEAF_SMEM_BUDGET)
+            assert (plan.smem + lh.LEAF_STATIC_SMEM
+                    <= smem.H100_SMEM_PER_BLOCK)
 
 
 def test_b6_refuses_a_width_it_cannot_plan():

@@ -329,3 +329,73 @@ def test_cli_two_round_trains_in_memory_text(tsv_file, tmp_path, how,
         assert reopened.splitlines() == [
             ln for ln in text.splitlines()
             if not ln.startswith("drift_fingerprint=")]
+
+
+# ------------------------------------------------ the worker pool (_run_pool)
+def _square_or_hang(task):
+    """A pool task: its square, except task 2, which never returns."""
+    import time
+    if task == 2:
+        time.sleep(3600)
+    return task * task
+
+
+def _square_or_raise(task):
+    if task == 3:
+        raise ValueError("task three")
+    return task * task
+
+
+def test_pool_results_in_task_order():
+    """Forked workers, each over its own share of the tasks and its own
+    pipe, give [fn(t) for t in tasks] in the tasks' order, as the serial
+    run does."""
+    tasks = list(range(11))
+    want = [t * t for t in tasks]
+    assert streaming._run_pool(3, _square_or_raise, tasks[:3], {}) == \
+        want[:3]
+    assert streaming._run_pool(1, _square_or_raise, [0, 1, 2], {}) == \
+        want[:3]
+    assert streaming._run_pool(4, lambda t: streaming._WSTATE["k"] * t,
+                               tasks, {"k": 2}) == [2 * t for t in tasks]
+    assert streaming._WSTATE == {}       # the parent's state untouched
+
+
+def test_pool_names_a_stuck_task_and_kills_its_workers(monkeypatch):
+    """A task that never returns ends the wait after POOL_TASK_SECONDS
+    with a LightGBMError naming it, and every worker is killed -- also
+    where the parent holds a lock in another thread at the fork and has
+    a Python SIGTERM handler that does nothing (the state in which
+    multiprocessing.Pool's terminate() waited forever on a worker)."""
+    import multiprocessing
+    import signal
+    import threading
+    import time
+    monkeypatch.setattr(streaming, "POOL_TASK_SECONDS", 2.0)
+    held, release = threading.Lock(), threading.Event()
+
+    def hold():
+        with held:
+            release.wait(30)
+    holder = threading.Thread(target=hold, daemon=True)
+    holder.start()
+    prev = signal.signal(signal.SIGTERM, lambda *a: None)
+    try:
+        t0 = time.monotonic()
+        with pytest.raises(streaming.LightGBMError, match="task 2 "):
+            streaming._run_pool(2, _square_or_hang, [0, 1, 2, 3], {})
+        assert time.monotonic() - t0 < 30
+        assert not multiprocessing.active_children()
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+        release.set()
+        holder.join()
+
+
+def test_pool_raises_a_workers_exception():
+    """An exception in a worker's task is raised in the parent, and the
+    other workers are gone."""
+    import multiprocessing
+    with pytest.raises(ValueError, match="task three"):
+        streaming._run_pool(2, _square_or_raise, list(range(6)), {})
+    assert not multiprocessing.active_children()

@@ -393,21 +393,25 @@ def test_list_buffers_take_the_callers_workspace():
     """Given a workspace (a grower's, sized for its widest call), the
     list passes' buffers point into it -- the list at its start, the
     fixed-point sums 8 N bytes on, then the list's length and the slot
-    counts and cursors of the slot-ordered list -- for any slot count up
-    to its size; a workspace too small or of another dtype raises;
-    without one, each call makes its own."""
+    counts and cursors of the slot-ordered list, and last B5's zeroed
+    sums -- for any slot count up to its size; a workspace
+    too small or of another dtype raises; without one, each call makes
+    its own."""
     N, K, F, B = 100, 4, 3, 7
     cpu = torch.device("cpu")
     work = wk.list_workspace(N, K, F, B, cpu)
     assert work.dtype == torch.int64
-    assert work.numel() == N + K * F * B * 3 + 1 + 2 * K
+    tail = wk.leaf_sum_words(F, B)
+    assert tail == F * B * 3
+    assert work.numel() == N + K * F * B * 3 + 1 + 2 * K + tail
+    assert not bool(work[-tail:].any())
     for k, shape in ((1, (F, B, 3)), (K, None)):
         rows, acc, got, hist = wk._list_buffers(N, k, F, B, cpu, shape, work)
         assert got is work and hist.dtype == torch.float32
         assert (rows, acc) == (work.data_ptr(), work.data_ptr() + 8 * N)
         assert hist.shape == (shape or (k, F, B, 3))
-    for bad in (work[:-1], work.to(torch.int32)):
+    for bad in (work[:-tail - 1], work.to(torch.int32)):
         with pytest.raises(Exception, match="work: expected"):
             wk._list_buffers(N, K, F, B, cpu, work=bad)
     own = wk._list_buffers(N, K, F, B, cpu)[2]
-    assert own is not work and own.numel() == work.numel()
+    assert own is not work and own.numel() == work.numel() - tail

@@ -1,8 +1,15 @@
 """Inputs shared by the port's kernel tests (tests/test_torch_*.py): numpy
 only, so that the GPU tests can run where JAX is not installed."""
+import threading
+import time
+import warnings
+
 import numpy as np
 import pytest
 import torch
+
+# how long a module's teardown waits for the threads it started
+THREAD_JOIN_S = 10.0
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -10,11 +17,30 @@ def one_torch_thread():
     """One torch thread while a module runs (a module imports this
     fixture to take it): the plain CPU paths are many small torch
     operations, which threads slow down, most of all beside the other
-    test workers."""
+    test workers.  At the module's end, every thread it started must
+    have stopped (they are joined for up to THREAD_JOIN_S): a
+    non-daemon thread left running fails the module, and a daemon one
+    warns.  A thread left alive in a test worker is state that a later
+    module's fork inherits."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    before = set(threading.enumerate())
     yield
     torch.set_num_threads(threads)
+    deadline = time.monotonic() + THREAD_JOIN_S
+    left = []
+    for th in threading.enumerate():
+        if th in before or th is threading.current_thread():
+            continue
+        th.join(max(0.0, deadline - time.monotonic()))
+        if th.is_alive():
+            left.append(th)
+    if any(not th.daemon for th in left):
+        pytest.fail("threads left running: %s"
+                    % [th.name for th in left if not th.daemon])
+    if left:
+        warnings.warn("daemon threads left running: %s"
+                      % [th.name for th in left])
 
 
 def t(a):
@@ -134,6 +160,34 @@ def score_case(n, L, seed=11):
 LEAF_CASES = [(3000, 7, 14, "none", 1), (2500, 5, 63, "zeros", 2),
               (4097, 9, 31, "fractional", 0), (1500, 4, 255, "fractional", 3),
               (777, 3, 8, "none", 9)]
+
+
+# B5's forms, (bins, form): byte bins up to 255, two-byte past them, and
+# the f64 weights of tpu_use_dp; and the leaf sizes of its tests
+LEAF_FORMS = [(63, "byte"), (255, "byte"), (1023, "uint16"), (63, "f64"),
+              (255, "f64"), (1023, "f64")]
+LEAF_SIZES = ("none", "n/4096", "n/64", "root")
+
+
+def leaf_size_case(n, f, b, form, size, seed=0):
+    """(X (N, F) bins in [0, b] -- uint16 past 256 bins or for the uint16
+    form, the bin b itself dropped --, leaf_id, w3 (N, 3) f32 or float64
+    with a 0/1 count column, leaf): the leaf holds no row (-1), about N /
+    4096 rows (at least one), about N / 64, or every row (the root:
+    every id 0)."""
+    rng = np.random.default_rng(seed + n + f + b)
+    wide_bins = b > 255 or form == "uint16"
+    X = rng.integers(0, b + 1, size=(n, f)).astype(
+        np.uint16 if wide_bins else np.uint8)
+    w3 = rng.normal(size=(n, 3)).astype(
+        np.float64 if form == "f64" else np.float32)
+    w3[:, 2] = rng.random(n) > 0.2
+    if size == "root":
+        return X, np.zeros(n, np.int32), w3, 0
+    lid = rng.integers(3, 64, size=n).astype(np.int32)
+    lid[rng.choice(n, size=max(1, n // 64), replace=False)] = 1
+    lid[rng.choice(n, size=max(1, n // 4096), replace=False)] = 2
+    return X, lid, w3, {"none": -1, "n/4096": 2, "n/64": 1}[size]
 
 
 def leaf_case(n, f, b, kind, seed=0):
